@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``fastscnn_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each printed as it runs; any failure raises and exits non-zero:
+
+1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+2. the ``nvcc`` build of every kernel source, from this checkout;
+3. each kernel (B1-B4) at the shapes the 1024x2048 serving path gives it
+   (N=1, bf16): held against its plain PyTorch version, and timed with
+   CUDA events beside the plain version and one PyTorch library call that
+   computes the same function (a yardstick the port never calls), with
+   its bound from the bytes it must move;
+4. serving: ``entry()`` on one frame; then the 19-class model with
+   random weights from a fixed seed (BN statistics calibrated on one
+   seeded batch, see :func:`calibrated_state`), BN-folded, in bf16,
+   answering 4 requests of 2 uint8 1024x2048 frames (5 timed rounds) in
+   config A (``fused-ds`` + ``pallas``: kernels B3, B1) and config B (``pallas`` +
+   ``hybrid-pallas``: kernels B4, B2), with the launch counters showing
+   that each config ran its kernels, and the masks compared with the
+   kernel-free config (``conv`` + ``hybrid``); then the first request
+   again in f32, where the masks must agree with the kernel-free config,
+   and a small f32 input through configs A and B on the card against the
+   same model on the CPU;
+5. one JSON line ``{"kernels": [...]}`` and, last, the device line
+   ``{"ok": true, "device": {...}}``.
+
+Without a CUDA device it prints an error and exits 1.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 0
+REQUESTS = 4
+BATCH = 2
+ROUNDS = 5  # timed repeats of the bf16 requests; the median is reported
+HEIGHT, WIDTH = 1024, 2048
+NUM_CLASSES = 19
+# Published peaks (NVIDIA data sheets, SXM parts, dense): device-memory
+# bytes/s and f32 FLOP/s outside the tensor cores, which the kernels use.
+PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+MASK_GATE = 0.995      # f32 serving masks vs the kernel-free config (PARITY.md's gate)
+KERNEL_MASK_GATE = 0.999  # B1/B2 vs their plain versions; small f32 input vs the CPU
+NEAR_TIE = 1e-5        # f32 gap below which a disagreeing pixel is a near-tie
+
+
+def _print(*args):
+    print(*args, flush=True)
+
+
+def time_ms(fn, iters=20, warmup=3, repeats=5):
+    """Device time of one ``fn`` call in ms: CUDA events around ``iters``
+    calls, the median over ``repeats`` such windows."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(repeats):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def card_peaks(name: str):
+    for key, peaks in PEAKS.items():
+        if key in name:
+            return key, peaks
+    raise RuntimeError(f"no published peaks for {name!r}")
+
+
+def kernel_phase(peaks):
+    """Phase 3: each kernel against its plain version, with times and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastscnn_tpu_torch.ops import cuda as K
+    from fastscnn_tpu_torch.ops.resize import resize_bilinear
+
+    bw, flops = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def bound(nb, nops):
+        t_bytes, t_ops = nb / bw * 1e3, nops / flops * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def close_bf16(name, got, ref):
+        # Kernel and plain version do the same f32 operations in the same
+        # order, so they should agree bit for bit; the check allows one
+        # bf16 ulp (2^-7 relative) for a rounding-order slip.
+        err = (got.float() - ref.float()).abs()
+        limit = ref.float().abs() * 2.0**-7 + 2.0**-10
+        bad = int((err > limit).sum())
+        _print(f"  {name}: max_abs_err {err.max().item():.3g}, "
+               f"{int((err > 0).sum())} of {err.numel()} elements differ, {bad} beyond 1 bf16 ulp")
+        if bad:
+            raise AssertionError(f"{name}: {bad} elements beyond tolerance")
+        return err.max().item()
+
+    def vs_f32(name, got, lib_out, exact):
+        """Reported, not gated: the kernel's and the bf16 library call's
+        distance from the same function computed by cuDNN in f32 on the
+        same bf16 inputs (``exact``)."""
+        ek = (got.float() - exact).abs()
+        el = (lib_out.float() - exact).abs()
+        _print(f"  {name} vs cuDNN in f32: kernel max |err| {ek.max().item():.4g} "
+               f"(mean {ek.mean().item():.3g}); bf16 library max |err| {el.max().item():.4g} "
+               f"(mean {el.mean().item():.3g}); output max |value| {exact.abs().max().item():.4g}")
+
+    def mask_agree(name, got, ref, z):
+        """Masks from a kernel and its plain version; ``z`` the plain f32
+        interpolated logits, (..., C). Disagreements must be near-ties."""
+        diff = got != ref
+        agree = 1.0 - diff.float().mean().item()
+        zk = z.gather(-1, got.long().unsqueeze(-1))
+        zp = z.gather(-1, ref.long().unsqueeze(-1))
+        gap = (zk - zp).abs().max().item()
+        _print(f"  {name}: mask agreement {agree:.6f} ({int(diff.sum())} pixels differ), "
+               f"max f32 gap at a differing pixel {gap:.3g}")
+        if agree < KERNEL_MASK_GATE or gap > NEAR_TIE:
+            raise AssertionError(f"{name}: agreement {agree} / gap {gap} outside the gate")
+        return gap
+
+    results = []
+
+    # B3 and B4 at the LTD's two stride-2 sites: dsconv1 (32 -> 48) on the
+    # stem conv's 511x1023 output, dsconv2 (48 -> 64) on 256x512.
+    sites = (("dsconv1", 511, 1023, 32, 48), ("dsconv2", 256, 512, 48, 64))
+    for kname, plain, src, replaces in (
+        ("ds_conv3x3_pw", K.ds_conv3x3_pw_reference, "fastscnn_tpu_torch/csrc/dw_conv.cu",
+         "fastscnn_tpu/ops/pallas/dw_conv.py:195"),
+        ("dw_conv3x3", K.dw_conv3x3_reference, "fastscnn_tpu_torch/csrc/dw_conv.cu",
+         "fastscnn_tpu/ops/pallas/dw_conv.py:124"),
+    ):
+        kern = K.KERNELS[kname]
+        entry = {"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                 "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "library_ms": 0.0, "sites": []}
+        for site, h, w, c, cout in sites:
+            x = randn(1, h, w, c).clamp_min(0)  # post-ReLU activations
+            w_dw, b_dw = randn(3, 3, 1, c, scale=0.3), randn(c, scale=0.1)
+            w_pw, b_pw = randn(1, 1, c, cout, scale=0.2), randn(cout, scale=0.1)
+            xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view for cuDNN
+            wdw_oihw = w_dw.permute(3, 2, 0, 1).contiguous()
+            wpw_oihw = w_pw.permute(3, 2, 0, 1).contiguous()
+            ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            if kname == "ds_conv3x3_pw":
+                args = (x, w_dw, b_dw, w_pw, b_pw, 2, 1)
+
+                def lib(dt=bf16):
+                    mid = F.relu(F.conv2d(xc.to(dt), wdw_oihw.to(dt), b_dw.to(dt), stride=2,
+                                          padding=1, groups=c))
+                    mid = mid.to(bf16).to(dt)  # the dw activation rounds to bf16 by design
+                    return F.relu(F.conv2d(mid, wpw_oihw.to(dt), b_pw.to(dt)))
+
+                out_bytes = ho * wo * cout * 2
+                ops = 2 * ho * wo * c * (9 + cout)
+                w_bytes = nbytes(w_dw, b_dw, w_pw, b_pw)
+            else:
+                args = (x, w_dw, b_dw, 2, 1, True)
+
+                def lib(dt=bf16):
+                    return F.relu(F.conv2d(xc.to(dt), wdw_oihw.to(dt), b_dw.to(dt), stride=2,
+                                           padding=1, groups=c))
+
+                out_bytes = ho * wo * c * 2
+                ops = 2 * ho * wo * c * 9
+                w_bytes = nbytes(w_dw, b_dw)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            err = close_bf16(f"{kname}[{site}] {tuple(x.shape)} -> {tuple(got.shape)}",
+                             got, plain(*args))
+            vs_f32(f"{kname}[{site}]", got, lib().permute(0, 2, 3, 1),
+                   lib(torch.float32).permute(0, 2, 3, 1))
+            ms = time_ms(lambda: kern(*args))
+            plain_ms = time_ms(lambda: plain(*args), iters=5, warmup=1, repeats=3)
+            lib_ms = time_ms(lib)
+            b_ms, b_by = bound(nbytes(x) + w_bytes + out_bytes, ops)
+            _print(f"  {kname}[{site}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                   f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            entry["sites"].append({"site": site, "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                   "max_abs_err": err})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                           ("library_ms", lib_ms)):
+                entry[key] += v
+            entry["bound_by"] = b_by
+        results.append(entry)
+
+    # B1: (1, 128, 256, 19) NHWC logits -> (1, 1024, 2048) mask.
+    h, w = HEIGHT // 8, WIDTH // 8
+    logits = randn(1, h, w, NUM_CLASSES)
+    got = K.upsample_argmax(logits, (HEIGHT, WIDTH))
+    torch.cuda.synchronize()
+    ref = K.upsample_argmax_reference(logits, (HEIGHT, WIDTH))
+    z = resize_bilinear(logits.float(), (HEIGHT, WIDTH))
+    gap = mask_agree("upsample_argmax (1, 128, 256, 19) -> (1, 1024, 2048)", got, ref, z)
+    del z
+    lc = logits.permute(0, 3, 1, 2)
+    for dt in (bf16, torch.float32):
+        lib_mask = F.interpolate(lc.to(dt), size=(HEIGHT, WIDTH), mode="bilinear",
+                                 align_corners=True).argmax(1)
+        _print(f"  upsample_argmax vs library ({dt} interpolate + argmax): mask agreement "
+               f"{(lib_mask == got).float().mean().item():.6f}")
+    ms = time_ms(lambda: K.upsample_argmax(logits, (HEIGHT, WIDTH)))
+    plain_ms = time_ms(lambda: K.upsample_argmax_reference(logits, (HEIGHT, WIDTH)), iters=5,
+                       repeats=3)
+    lib_ms = time_ms(lambda: F.interpolate(lc, size=(HEIGHT, WIDTH), mode="bilinear",
+                                           align_corners=True).argmax(1))
+    ops = 3 * NUM_CLASSES * HEIGHT * WIDTH + 3 * w * NUM_CLASSES * HEIGHT
+    b_ms, b_by = bound(nbytes(logits) + HEIGHT * WIDTH * 4, ops)
+    _print(f"  upsample_argmax: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+           f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results.append({"name": "upsample_argmax", "route": "cuda",
+                    "source": "fastscnn_tpu_torch/csrc/upsample_argmax.cu",
+                    "replaces": "fastscnn_tpu/ops/pallas/upsample_argmax.py:100",
+                    "max_abs_err": gap, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms})
+
+    # B2: (1, 128, 19, 2048) W-upsampled logits -> (1, 1024, 2048) mask.
+    xw = randn(1, h, NUM_CLASSES, WIDTH)
+    got = K.h_lerp_argmax(xw, HEIGHT)
+    torch.cuda.synchronize()
+    ref = K.h_lerp_argmax_reference(xw, HEIGHT)
+    z = resize_bilinear(xw.float(), (HEIGHT, WIDTH), h_axis=1, w_axis=3).permute(0, 1, 3, 2)
+    gap = mask_agree("h_lerp_argmax (1, 128, 19, 2048) -> (1, 1024, 2048)", got, ref, z)
+    del z
+    xwc = xw.permute(0, 2, 1, 3)
+    for dt in (bf16, torch.float32):
+        lib_mask = F.interpolate(xwc.to(dt), size=(HEIGHT, WIDTH), mode="bilinear",
+                                 align_corners=True).argmax(1)
+        _print(f"  h_lerp_argmax vs library ({dt} interpolate + argmax): mask agreement "
+               f"{(lib_mask == got).float().mean().item():.6f}")
+    ms = time_ms(lambda: K.h_lerp_argmax(xw, HEIGHT))
+    plain_ms = time_ms(lambda: K.h_lerp_argmax_reference(xw, HEIGHT), iters=5, repeats=3)
+    lib_ms = time_ms(lambda: F.interpolate(xwc, size=(HEIGHT, WIDTH), mode="bilinear",
+                                           align_corners=True).argmax(1))
+    b_ms, b_by = bound(nbytes(xw) + HEIGHT * WIDTH * 4, 3 * NUM_CLASSES * HEIGHT * WIDTH)
+    _print(f"  h_lerp_argmax: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+           f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results.append({"name": "h_lerp_argmax", "route": "cuda",
+                    "source": "fastscnn_tpu_torch/csrc/upsample_argmax.cu",
+                    "replaces": "fastscnn_tpu/ops/pallas/upsample_argmax.py:240",
+                    "max_abs_err": gap, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms})
+    return results
+
+
+def calibrated_state(frames):
+    """Random weights from SEED, with BN running statistics taken from
+    ``frames`` (one train-mode pass, cumulative average). With the
+    default statistics (mean 0, var 1) a random network's activations
+    shrink layer by layer until the classifier bias alone picks the
+    class: the mask is one class everywhere and every comparison of
+    masks passes trivially. Calibrated statistics normalise each layer as
+    training would, so the mask has many classes and real boundaries."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD
+    from fastscnn_tpu_torch.models import init_fast_scnn
+
+    model = init_fast_scnn(NUM_CLASSES, generator=torch.Generator().manual_seed(SEED),
+                           device=frames.device)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None
+    mean = torch.tensor(IMAGENET_MEAN, device=frames.device)
+    std = torch.tensor(IMAGENET_STD, device=frames.device)
+    model.train()
+    with torch.no_grad():
+        model((frames.float() / 255.0 - mean) / std)
+    for bn in bns:
+        bn.momentum = 0.1
+    return model.eval().state_dict()
+
+
+def serving_phase():
+    """Phase 4: the port's serving path through its entry points.
+    Returns {kernel name: launches in the run of the config that uses it}."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.entry import entry
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.ops.resize import resize_bilinear
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def frames(n):
+        return torch.randint(0, 256, (n, HEIGHT, WIDTH, 3), generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    # the entry point, as a user would call it: one (1, 1024, 2048) frame
+    # through kernels B3 (twice) and B1 (once)
+    predict, (example,) = entry()
+    predict(example)
+    reset_launch_counts()
+    mask = predict(frames(1))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _print(f"entry(): mask {tuple(mask.shape)} {mask.dtype}, launches {counts}")
+    if mask.shape != (1, HEIGHT, WIDTH) or mask.dtype != torch.int32 or counts != {
+            "upsample_argmax": 1, "h_lerp_argmax": 0, "ds_conv3x3_pw": 2, "dw_conv3x3": 0}:
+        raise AssertionError("entry() did not serve its frame through B3 and B1")
+
+    state = calibrated_state(frames(BATCH))
+
+    def engine(impl, mode, dtype, device=dev):
+        model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl)
+        model.load_state_dict(state)
+        return InferenceEngine(model, device=device, config=E2EConfig(
+            mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
+
+    batches = [frames(BATCH) for _ in range(REQUESTS)]
+    configs = (  # label, folded_dw_impl, final_upsample, kernel launches per request
+        ("ref", "conv", "hybrid", {}),
+        ("A", "fused-ds", "pallas", {"ds_conv3x3_pw": 2, "upsample_argmax": 1}),
+        ("B", "pallas", "hybrid-pallas", {"dw_conv3x3": 2, "h_lerp_argmax": 1}),
+    )
+    launches, failures = {}, []
+    # bf16 is the serving configuration: timed, launch counts gated, its
+    # agreement with ref reported. f32 repeats the first request: there the
+    # formulations differ by f32 rounding only, so its masks carry the
+    # agreement gate (see PERF.md on why bf16 cannot on random weights).
+    for dtype, reqs, rounds in (("bfloat16", batches, ROUNDS), ("float32", batches[:1], 1)):
+        ref = None
+        for label, impl, mode, per_request in configs:
+            eng = engine(impl, mode, dtype)
+            eng.predict(reqs[0])  # first call: cuDNN plans, kernel build and load
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            times = []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                masks = [eng.predict(b) for b in reqs]
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / (len(reqs) * BATCH))
+            counts = launch_counts()
+            ms, ms_min = statistics.median(times), min(times)
+            masks = torch.stack(masks)
+            if masks.shape != (len(reqs), BATCH, HEIGHT, WIDTH) or masks.dtype != torch.int32:
+                raise AssertionError(f"config {label}: masks {tuple(masks.shape)} {masks.dtype}")
+            hist = torch.bincount(masks.flatten().long(), minlength=NUM_CLASSES)
+            if hist.numel() != NUM_CLASSES or int(masks.min()) < 0:
+                raise AssertionError(f"config {label}: class ids outside [0, {NUM_CLASSES})")
+            _print(f"serving {dtype} config {label} ({impl} + {mode}): {ms:.3f} ms/frame "
+                   f"median, {ms_min:.3f} min (host clock, {rounds} rounds of {len(reqs)} "
+                   f"requests x {BATCH} frames), launches {counts}, "
+                   f"{int((hist > 0).sum())} classes present, largest class "
+                   f"{hist.max().item() / masks.numel():.3f} of pixels")
+            want = {name: per_request.get(name, 0) * len(reqs) * rounds for name in counts}
+            if counts != want:
+                failures.append(f"{dtype} config {label}: launches {counts}, expected {want}")
+            if dtype == "bfloat16":
+                launches.update({k: v for k, v in want.items() if v})
+            with torch.inference_mode():
+                logits = eng._forward(reqs[0], upsample=False).float()
+            del eng
+            if ref is None:
+                ref = (masks, logits)
+                continue
+            agree = (masks == ref[0]).float().mean().item()
+            # where the masks differ, how far apart are the two classes in
+            # the reference's logits, interpolated exactly (f32)?
+            diff = masks[0] != ref[0][0]
+            with torch.inference_mode():
+                z = resize_bilinear(ref[1], (HEIGHT, WIDTH))
+            za = z.gather(-1, masks[0].long().unsqueeze(-1))[..., 0][diff]
+            zb = z.gather(-1, ref[0][0].long().unsqueeze(-1))[..., 0][diff]
+            del z
+            rel = (za - zb).abs() / torch.maximum(za.abs(), zb.abs()).clamp_min(1e-6)
+            rel_max = rel.max().item() if rel.numel() else 0.0
+            within = (rel <= 2.0**-6).float().mean().item() if rel.numel() else 1.0
+            _print(f"  {dtype} config {label} vs ref: mask agreement {agree:.6f}; 1/8 logits "
+                   f"max |diff| {(logits - ref[1]).abs().max().item():.4g} (ref logits std "
+                   f"{ref[1].std().item():.4g}); request 0: {int(diff.sum())} differing "
+                   f"pixels, max relative f32 gap {rel_max:.4g}, {within:.4f} of them within "
+                   f"2 bf16 ulps")
+            if dtype == "float32" and agree < MASK_GATE:
+                failures.append(f"f32 config {label}: mask agreement {agree} < {MASK_GATE}")
+
+    # small f32 input: configs A and B on the card against the CPU model
+    # (plain versions, no cuDNN), masks equal but for near-ties
+    small = batches[0][:, :128, :256].contiguous()
+    cpu_mask = engine("conv", "matmul", "float32", torch.device("cpu")).predict(small.cpu())
+    for label, impl, mode, _ in configs[1:]:
+        mask = engine(impl, mode, "float32").predict(small).cpu()
+        agree = (mask == cpu_mask).float().mean().item()
+        _print(f"f32 {tuple(small.shape)} config {label} on the card vs the CPU: "
+               f"mask agreement {agree:.6f}")
+        if agree < KERNEL_MASK_GATE:
+            failures.append(f"f32 config {label}: agreement {agree} < {KERNEL_MASK_GATE}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fastscnn_tpu_torch import resolve_device
+    from fastscnn_tpu_torch.ops.cuda import _build
+
+    resolve_device(None)  # TF32 off
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    name = torch.cuda.get_device_name(0)
+    _print(smi)
+    _print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}, "
+           f"count {torch.cuda.device_count()}")
+    peak_name, peaks = card_peaks(name)
+    _print(f"bounds use the published {peak_name} peaks: {peaks[0] / 1e12} TB/s, "
+           f"{peaks[1] / 1e12} TFLOP/s f32")
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    _print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    _print("kernels at the serving path's shapes (N=1, bf16):")
+    kernels = kernel_phase(peaks)
+    launches = serving_phase()
+    for k in kernels:
+        k["launches"] = launches.get(k["name"], 0)
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was not launched on the serving path")
+    _print(json.dumps({"kernels": kernels}))
+    _print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

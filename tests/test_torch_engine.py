@@ -1,0 +1,200 @@
+"""The port's InferenceEngine against the JAX package's, on shared weights
+and the same uint8 batch, in every mask mode the port supports.
+
+Tolerances: in f32 masks are equal except at near-ties (pixels whose two
+best classes differ by < 1e-5 in the JAX engine's f32 logits; the
+packages' convolutions sum in different orders). In bf16 the packages
+round at different places (XLA fuses elementwise bf16 chains, PyTorch
+rounds each op), so masks must agree on ≥ 99.5 % of pixels — the JAX
+package's bf16 mask gate. BN statistics are perturbed so the masks have
+more than one class.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fastscnn_tpu.engine import E2EConfig as JaxE2EConfig
+from fastscnn_tpu.engine import InferenceEngine as JaxEngine
+from fastscnn_tpu.models import FastSCNN as JaxFastSCNN
+from fastscnn_tpu.models import init_fast_scnn as jax_init
+from fastscnn_tpu_torch import resolve_device
+from fastscnn_tpu_torch.engine import (
+    FINAL_UPSAMPLE_MODES,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    E2EConfig,
+    InferenceEngine,
+)
+from fastscnn_tpu_torch.models import FastSCNN, from_jax_params, to_param_trees
+
+NUM_CLASSES = 6
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def shared():
+    params, state = jax_init(jax.random.PRNGKey(1), NUM_CLASSES)
+    rng = np.random.default_rng(1)
+
+    def perturb(path, v):
+        name = jax.tree_util.keystr(path)
+        if "mean" in name:
+            return jnp.asarray(rng.uniform(-0.05, 0.05, v.shape), v.dtype)
+        if "var" in name:
+            return jnp.asarray(rng.uniform(0.05, 0.2, v.shape), v.dtype)
+        return v
+
+    state = jax.tree_util.tree_map_with_path(perturb, state)
+    sd = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
+                         jax.tree_util.tree_map(np.asarray, state))
+    images = rng.integers(0, 256, (2, 64, 128, 3)).astype(np.uint8)
+    return params, state, sd, images
+
+
+@pytest.fixture(scope="module")
+def calibrated(shared):
+    """Moderate logits for the softmax and logits paths: the shared
+    fixture's logits are ~1e4, where softmax saturates and near-ties flip
+    whole probabilities. BN statistics are taken from one train-mode pass
+    of the port's model over a calibration batch, then carried back to the
+    JAX layout by ``to_param_trees``."""
+    params, state, sd, images = shared
+    model = FastSCNN(NUM_CLASSES)
+    model.load_state_dict(sd)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None
+    calib = np.random.default_rng(2).integers(0, 256, images.shape).astype(np.float32)
+    model.train()
+    with torch.no_grad():
+        model((torch.from_numpy(calib) / 255 - torch.tensor(IMAGENET_MEAN)) / torch.tensor(IMAGENET_STD))
+    model.eval()
+    jparams, jstate = (jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
+                       for tree in to_param_trees(model))
+    return jparams, jstate, model.state_dict(), images
+
+
+def _engines(shared, impl, **cfg):
+    params, state, sd, _ = shared
+    jeng = JaxEngine(JaxFastSCNN(NUM_CLASSES, folded_dw_impl=impl), params, state,
+                     config=JaxE2EConfig(mean=IMAGENET_MEAN, std=IMAGENET_STD, **cfg))
+    model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl)
+    model.load_state_dict(sd, strict=True)
+    peng = InferenceEngine(model, device="cpu",
+                           config=E2EConfig(mean=IMAGENET_MEAN, std=IMAGENET_STD, **cfg))
+    return jeng, peng
+
+
+# the LTD route of each mode: the kernel modes go with their kernel routes
+_IMPL = {"matmul": "conv", "gather": "conv", "pallas": "fused-ds", "hybrid": "conv",
+         "hybrid-pallas": "pallas"}
+
+
+@pytest.mark.parametrize("mode", FINAL_UPSAMPLE_MODES)
+def test_masks_match_jax_f32(shared, mode):
+    jeng, peng = _engines(shared, _IMPL[mode], compute_dtype="float32", final_upsample=mode)
+    images = shared[3]
+    ref = np.asarray(jeng.predict(images))
+    got = peng.predict(images)
+    assert got.dtype == torch.int32 and got.shape == ref.shape
+    got = got.numpy()
+    diff = got != ref
+    assert len(np.unique(ref)) > 1  # a constant mask would prove nothing
+    if diff.any():
+        logits = np.asarray(jeng.logits(images))
+        za = np.take_along_axis(logits, got[..., None], -1)[..., 0]
+        zb = np.take_along_axis(logits, ref[..., None], -1)[..., 0]
+        assert np.abs(za - zb)[diff].max() < 1e-5
+    assert diff.mean() <= 1e-3
+
+
+@pytest.mark.parametrize("mode", FINAL_UPSAMPLE_MODES)
+def test_masks_match_jax_bf16(shared, mode):
+    jeng, peng = _engines(shared, _IMPL[mode], compute_dtype="bfloat16", final_upsample=mode,
+                          mask_dtype="uint8")
+    images = shared[3]
+    ref = np.asarray(jeng.predict(images))
+    got = peng.predict(images)
+    assert got.dtype == torch.uint8
+    assert (got.numpy() == ref).mean() >= 0.995
+
+
+def test_logits_softmax_and_internal_size_match_jax(calibrated):
+    """The non-mask paths in f32: logits at the input size (resized back
+    from an internal backbone size), softmax probabilities, and ``infer``;
+    tolerance 2e-5 of the logits' largest magnitude (f32 summation order
+    through ~40 layers)."""
+    images = calibrated[3]
+    cfg = dict(compute_dtype="float32", internal_size=(48, 96))
+    jeng, peng = _engines(calibrated, "conv", **cfg)
+    ref = np.asarray(jeng.logits(images))
+    atol = 2e-5 * np.abs(ref).max()
+    np.testing.assert_allclose(peng.logits(images).numpy(), ref, rtol=1e-4, atol=atol)
+    nchw = np.transpose(images, (0, 3, 1, 2)).astype(np.float32)
+    np.testing.assert_allclose(peng.infer([nchw])[0], jeng.infer([nchw])[0], rtol=1e-4, atol=atol)
+    jeng, peng = _engines(calibrated, "conv", softmax=True, **cfg)
+    np.testing.assert_allclose(peng.predict(images).numpy(), np.asarray(jeng.predict(images)),
+                               rtol=1e-4, atol=1e-5)
+    jeng, peng = _engines(calibrated, "conv", final_upsample="pallas", **cfg)
+    got, ref = peng.predict(images[0]), np.asarray(jeng.predict(images[0]))  # single HWC frame
+    assert got.shape == ref.shape == images.shape[1:3]
+    assert (got.numpy() == ref).mean() >= 0.999
+
+
+@pytest.mark.parametrize("mode", ["nbr-exact", "argmax-first"])
+def test_unported_modes_raise(mode):
+    model = FastSCNN(NUM_CLASSES)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        InferenceEngine(model, device="cpu", config=E2EConfig(final_upsample=mode))
+
+
+def test_device_none_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(FastSCNN(NUM_CLASSES))
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """In a fresh interpreter (this test process has jax loaded already),
+    importing every module of the port loads no jax and no fastscnn_tpu."""
+    code = (
+        "import sys, pkgutil, importlib, fastscnn_tpu_torch\n"
+        "for m in pkgutil.walk_packages(fastscnn_tpu_torch.__path__, 'fastscnn_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'fastscnn_tpu' or m.startswith('fastscnn_tpu.')]\n"
+        "n = sum(m.startswith('fastscnn_tpu_torch') for m in sys.modules)\n"
+        "print(n, bad)\n"
+        "sys.exit(1 if bad or n < 10 else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_serves_one_full_size_frame_on_the_cpu():
+    """``entry()`` builds the kernel configuration (fused-ds + pallas); on
+    the CPU its wrappers run their plain versions and count no launch."""
+    from fastscnn_tpu_torch.entry import SHAPE, entry
+    from fastscnn_tpu_torch.ops.cuda import launch_counts
+
+    before = launch_counts()
+    fn, (example,) = entry(device="cpu")
+    assert tuple(example.shape) == SHAPE and example.dtype == torch.uint8
+    model = fn.__self__.model
+    assert model.folded_dw_impl == "fused-ds" and fn.__self__.config.final_upsample == "pallas"
+    mask = fn(example)
+    assert mask.shape == SHAPE[:3] and mask.dtype == torch.int32
+    assert launch_counts() == before
