@@ -23,7 +23,20 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    again in f32, where the masks must agree with the kernel-free config,
    and a small f32 input through configs A and B on the card against the
    same model on the CPU;
-5. one JSON line ``{"kernels": [...]}`` and, last, the device line
+5. kernel B6 (``dw_conv3x3_vjp``: forward through B4's kernel, dX and dW
+   through the kernels of ``csrc/dw_conv_bwd.cu``) at the training stem's
+   two depthwise sites (batch 16 of 768x768 crops, bf16), each part held
+   against its plain version and timed beside it, its byte bound and the
+   cuDNN call that computes the same gradient;
+6. training: the 19-class Cityscapes recipe (``stem_impl='pallas'``, aux
+   head, mix OHEM CE, SGD with momentum and poly LR) at full width on
+   16 uint8 768x768 crops whose labels are a seeded function of the
+   image: one f32 step through ``'pallas'`` against one through ``'xla'``
+   from the same weights; then bf16 steps on the fixed batch, whose
+   losses must be finite and fall, with the B6 launch counters at 2 per
+   step for each part; then ms/step, samples/s and peak device memory,
+   and a ``torch.profiler`` breakdown of the step's device time;
+7. one JSON line ``{"kernels": [...]}`` and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it prints an error and exits 1.
@@ -47,6 +60,15 @@ NUM_CLASSES = 19
 # Published peaks (NVIDIA data sheets, SXM parts, dense): device-memory
 # bytes/s and f32 FLOP/s outside the tensor cores, which the kernels use.
 PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# training: the Cityscapes recipe's crops and batch; B6 at its two sites
+# (name, N, H, W, C) at stride 2, after the stem conv's 768 -> 383
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_LR = 16, 768, 20, 1e-2
+# the recipe's poly schedule runs over 160 epochs of Cityscapes' 2975
+# training images at batch 16; the smoke run takes its first steps
+RECIPE_ITERS = 160 * (2975 // 16)
+B6_SITES = (("dsconv1", 16, 383, 383, 32), ("dsconv2", 16, 192, 192, 48))
+# 'pallas' vs 'xla' f32 step: within this factor of 'xla' f32 vs f64, or the floor
+F32_STEP_FACTOR, F32_STEP_FLOOR = 4.0, 1e-4
 MASK_GATE = 0.995      # f32 serving masks vs the kernel-free config (PARITY.md's gate)
 KERNEL_MASK_GATE = 0.999  # B1/B2 vs their plain versions; small f32 input vs the CPU
 NEAR_TIE = 1e-5        # f32 gap below which a disagreeing pixel is a near-tie
@@ -85,7 +107,8 @@ def card_peaks(name: str):
 
 
 def kernel_phase(peaks):
-    """Phase 3: each kernel against its plain version, with times and bounds."""
+    """Phases 3 and 5: each kernel against its plain version at its path's
+    shapes, with times, bounds and the library yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -267,6 +290,88 @@ def kernel_phase(peaks):
                     "replaces": "fastscnn_tpu/ops/pallas/upsample_argmax.py:240",
                     "max_abs_err": gap, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": lib_ms})
+
+    # B6 at the training stem's two depthwise sites, bf16: forward (B4's
+    # kernel, no bias or ReLU), dX and dW, each against its plain version
+    # and, reported, against cuDNN computing the same function in f32.
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    parts = {}
+    for part, src in (("forward", "dw_conv.cu"), ("dx", "dw_conv_bwd.cu"),
+                      ("dw", "dw_conv_bwd.cu")):
+        parts[part] = {"name": f"dw_conv3x3_vjp:{part}", "route": "cuda",
+                       "source": f"fastscnn_tpu_torch/csrc/{src}",
+                       "replaces": "fastscnn_tpu/ops/pallas/dw_conv.py:457",
+                       "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                       "library_ms": 0.0, "sites": []}
+    for site, n, h, w, c in B6_SITES:
+        ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        x = randn(n, h, w, c).clamp_min(0)  # post-ReLU activations
+        wt = randn(3, 3, 1, c, scale=0.3)
+        gy = randn(n, ho, wo, c, scale=0.01)
+        xc, gc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)  # channels_last views
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+        nchw = (n, c, h, w)
+        ops = 2 * 9 * n * ho * wo * c
+        calls = {
+            "forward": (lambda: K.dw_conv3x3(x, wt, None, 2, 1),
+                        lambda: K.dw_conv3x3_reference(x, wt, None, 2, 1),
+                        lambda dt=bf16: F.conv2d(xc.to(dt), w_oihw.to(dt), stride=2, padding=1,
+                                                 groups=c).permute(0, 2, 3, 1),
+                        nbytes(x, wt) + n * ho * wo * c * 2),
+            "dx": (lambda: K.dw_conv3x3_dx(gy, wt, 2, 1, x.shape),
+                   lambda: K.dw_conv3x3_dx_reference(gy, wt, 2, 1, x.shape),
+                   lambda dt=bf16: conv2d_input(nchw, w_oihw.to(dt), gc.to(dt), stride=2,
+                                                padding=1, groups=c).permute(0, 2, 3, 1),
+                   nbytes(gy, wt, x)),  # dX has the size of x
+            "dw": (lambda: K.dw_conv3x3_dw(x, gy, 2, 1, bf16),
+                   lambda: K.dw_conv3x3_dw_reference(x, gy, 2, 1, bf16),
+                   lambda dt=bf16: conv2d_weight(xc.to(dt), (c, 1, 3, 3), gc.to(dt), stride=2,
+                                                 padding=1, groups=c).permute(2, 3, 1, 0),
+                   nbytes(x, gy) + 9 * c * 2),
+        }
+        for part, (kern, plain, lib, moved) in calls.items():
+            got = kern()
+            torch.cuda.synchronize()
+            label = f"dw_conv3x3_vjp:{part}[{site}]"
+            if part != "dw":
+                err = close_bf16(f"{label} x {tuple(x.shape)}", got, plain())
+            else:
+                # dW sums n*ho*wo products per (tap, c) in another order than
+                # the plain version's reductions: f32 reassociation, bounded
+                # by 2e-5 of the sum of |x*g| (both orders), plus one bf16
+                # ulp where the two f32 sums round to neighbouring bf16s
+                ref = plain().float()
+                scale = K.dw_conv3x3_dw_reference(x.abs(), gy.abs(), 2, 1).float()
+                f32 = K.dw_conv3x3_dw(x, gy, 2, 1, torch.float32)
+                f32_ref = K.dw_conv3x3_dw_reference(x, gy, 2, 1)
+                e32 = ((f32 - f32_ref).abs() / scale.clamp_min(1e-30)).max().item()
+                errv = (got.float() - ref).abs()
+                bad = int((errv > ref.abs() * 2.0**-7 + 2e-5 * scale).sum())
+                err = errv.max().item()
+                _print(f"  {label}: f32 max |err| / sum|x*g| {e32:.3g} (gate 2e-5); bf16 "
+                       f"max_abs_err {err:.3g}, {bad} of {errv.numel()} beyond 1 ulp + 2e-5 sum")
+                if e32 > 2e-5 or bad:
+                    raise AssertionError(f"{label}: outside tolerance")
+            vs_f32(label, got, lib(), lib(torch.float32).float())
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, iters=3, warmup=1, repeats=3)
+            lib_ms = time_ms(lib)
+            b_ms, b_by = bound(moved, ops)
+            _print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                   f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB)")
+            entry = parts[part]
+            entry["sites"].append({"site": site, "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                   "max_abs_err": err})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                           ("library_ms", lib_ms)):
+                entry[key] += v
+            entry["bound_by"] = b_by
+        del x, gy, xc, gc, calls
+        torch.cuda.empty_cache()
+    results.extend(parts.values())
     return results
 
 
@@ -327,7 +432,8 @@ def serving_phase():
     counts = launch_counts()
     _print(f"entry(): mask {tuple(mask.shape)} {mask.dtype}, launches {counts}")
     if mask.shape != (1, HEIGHT, WIDTH) or mask.dtype != torch.int32 or counts != {
-            "upsample_argmax": 1, "h_lerp_argmax": 0, "ds_conv3x3_pw": 2, "dw_conv3x3": 0}:
+            "upsample_argmax": 1, "h_lerp_argmax": 0, "ds_conv3x3_pw": 2, "dw_conv3x3": 0,
+            "dw_conv3x3_dx": 0, "dw_conv3x3_dw": 0}:
         raise AssertionError("entry() did not serve its frame through B3 and B1")
 
     state = calibrated_state(frames(BATCH))
@@ -422,6 +528,171 @@ def serving_phase():
     return launches
 
 
+def training_batch(dev):
+    """A fixed batch the network can fit: each 32x32 block of a crop takes
+    one of the 19 classes at random (seeded), its pixels that class's
+    colour plus noise, so the label is a function of the image; 15 % of
+    the label pixels are set to -1 (ignored)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, size, block = TRAIN_BATCH, TRAIN_SIZE, 32
+    cls = torch.randint(0, NUM_CLASSES, (n, 1, size // block, size // block), generator=g,
+                        device=dev)
+    cls = F.interpolate(cls.float(), scale_factor=block, mode="nearest").long()[:, 0]
+    palette = torch.randint(0, 256, (NUM_CLASSES, 3), generator=g, device=dev).float()
+    noise = torch.randint(-24, 25, (n, size, size, 3), generator=g, device=dev).float()
+    images = (palette[cls] + noise).clamp(0, 255).to(torch.uint8)
+    targets = cls.to(torch.int32)
+    targets[torch.rand((n, size, size), generator=g, device=dev) < 0.15] = -1
+    return images, targets
+
+
+def profile_steps(run_step, step_ms, steps=3, top=15):
+    """Where a train step's device time goes: ``torch.profiler`` over a few
+    steps, the device kernels' self time by name (ms per step and share of
+    the step's CUDA-event time ``step_ms``), and the device busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]  # kernels only
+    busy = sum(ms for _, ms, _ in rows)
+    if not rows:
+        _print("profile: the profiler recorded no device time (not measured)")
+        return
+    _print(f"profile of {steps} bf16 train steps: device busy {busy:.2f} ms/step of "
+           f"{step_ms:.2f} ms/step ({busy / step_ms:.3f}; idle {1 - busy / step_ms:.3f}), "
+           f"{sum(c for _, _, c in rows):.0f} device ops/step; top {top} by self device time:")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        _print(f"  {ms:8.3f} ms/step {ms / busy:6.3f} x{count:5.0f}  {name[:110]}")
+    b6 = sum(ms for name, ms, _ in rows if "dw_conv3x3" in name)
+    _print(f"  B6 kernels (forward, dX, dW passes): {b6:.3f} ms/step, {b6 / busy:.4f} of device time")
+
+
+def training_phase():
+    """Phase 6: the training path through its entry points. Returns the
+    B6 launch counts of the bf16 run and its measurements."""
+    import torch
+
+    from fastscnn_tpu_torch.losses import get_loss_fn
+    from fastscnn_tpu_torch.models import FastSCNN, init_fast_scnn
+    from fastscnn_tpu_torch.ops.cuda import dw_conv3x3_vjp, launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.parallel import create_train_state, make_optimizer, make_train_step
+    from fastscnn_tpu_torch.utils import lr_schedule
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    images, targets = training_batch(dev)
+    _print(f"training batch: images {tuple(images.shape)} {images.dtype}, labels "
+           f"{tuple(targets.shape)}, {(targets < 0).float().mean().item():.3f} ignored")
+    init = init_fast_scnn(NUM_CLASSES, aux=True, generator=torch.Generator().manual_seed(SEED),
+                          device=dev).state_dict()
+    loss_fn = get_loss_fn("ce", aux=True, num_classes=NUM_CLASSES)
+
+    def trainer(stem_impl, dtype):
+        model = FastSCNN(NUM_CLASSES, aux=True, stem_impl=stem_impl)
+        model.load_state_dict(init)
+        opt = make_optimizer("sgd", lr_schedule("poly", base_lr=TRAIN_LR, niters=RECIPE_ITERS),
+                             momentum=0.9, weight_decay=1e-4)
+        state = create_train_state(model, opt, device=dev)
+        return state, make_train_step(model, loss_fn, opt, compute_dtype=dtype, device=dev)
+
+    # (a) one f32 step through 'pallas' (B6) and one through 'xla' (cuDNN),
+    # from the same weights, no dropout. Batch-stat BN amplifies f32
+    # rounding differences between any two formulations (for torch's own
+    # f32 against f64 gradients tests/test_training_parity.py measured
+    # 3.5e-3), so the yardstick is the same step through 'xla' in f64: the
+    # two f32 steps must be as close to each other as F32_STEP_FACTOR times
+    # 'xla' f32 is to f64, or within F32_STEP_FLOOR.
+    runs = {}
+    for label, impl, dtype in (("pallas", "pallas", torch.float32),
+                               ("xla", "xla", torch.float32), ("xla-f64", "xla", torch.float64)):
+        state, step = trainer(impl, dtype)
+        p0 = [t.detach().clone() for t in tree_leaves(state.params)]
+        s0 = [t.clone() for t in tree_leaves(state.model_state)]
+        state, metrics = step(state, images, targets)
+        runs[label] = (
+            float(metrics["loss"]),
+            torch.cat([(t.detach() - a).flatten() for t, a in zip(tree_leaves(state.params), p0)]),
+            torch.cat([(t - a).flatten() for t, a in zip(tree_leaves(state.model_state), s0)]),
+        )
+        del state, step
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        (la, pa, sa), (lb, pb, sb) = runs[a], runs[b]
+        return (abs(la - lb) / abs(lb), ((pa - pb).norm() / pb.norm()).item(),
+                ((sa - sb).abs().max() / sb.abs().max()).item())
+
+    got, yard = rel("pallas", "xla"), rel("xla", "xla-f64")
+    _print(f"f32 step, stem 'pallas' vs 'xla': loss {runs['pallas'][0]:.7f} vs "
+           f"{runs['xla'][0]:.7f}; relative differences (loss, param updates L2, BN-stat "
+           f"changes max) {tuple(f'{v:.3g}' for v in got)}; 'xla' f32 vs f64: "
+           f"{tuple(f'{v:.3g}' for v in yard)}")
+    limits = [max(F32_STEP_FACTOR * y, F32_STEP_FLOOR) for y in yard]
+    if any(g > lim for g, lim in zip(got, limits)):
+        raise AssertionError(f"f32 'pallas' step disagrees with the 'xla' step: {got} vs "
+                             f"limits {limits}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (b) the recipe in bf16 on the fixed batch, dropout from a generator
+    state, step = trainer("pallas", torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    first = step(state, images, targets, gen)[1]["loss"]  # also cuDNN plans, allocator warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    copies = dw_conv3x3_vjp.g_copies
+    losses = [step(state, images, targets, gen)[1]["loss"] for _ in range(TRAIN_STEPS - 1)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(losses)
+    losses = [float(v) for v in [first, *losses]]
+    _print(f"bf16 steps 1..{TRAIN_STEPS}: losses {[round(v, 4) for v in losses]}")
+    _print(f"  launches over steps 2..{TRAIN_STEPS}: {counts}; gradient copies before B6's backward: "
+           f"{dw_conv3x3_vjp.g_copies - copies}")
+    want = {"dw_conv3x3": 2 * steps, "dw_conv3x3_dx": 2 * steps, "dw_conv3x3_dw": 2 * steps}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"B6 launches {counts}, expected {want}")
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        raise AssertionError("non-finite training loss")
+    falls = sum(b < a for a, b in zip(losses, losses[1:]))
+    _print(f"  last / first loss {losses[-1] / losses[0]:.4f}; the loss fell on {falls} of "
+           f"{len(losses) - 1} steps")
+    if not (losses[-1] < 0.95 * losses[0] and falls >= 0.75 * (len(losses) - 1)):
+        raise AssertionError(f"training loss did not fall: {losses}")
+
+    # (d) speed: CUDA events around windows of steps, after warm-up
+    times = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        start.record()
+        for _ in range(5):
+            step(state, images, targets, gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 5)
+    ms = statistics.median(times)
+    _print(f"bf16 train step, {TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}: {ms:.2f} ms/step (median "
+           f"of 3 windows of 5 steps, {[round(t, 2) for t in times]}), "
+           f"{TRAIN_BATCH * 1e3 / ms:.1f} samples/s, peak memory {peak / 2**30:.2f} GiB")
+    profile_steps(lambda: step(state, images, targets, gen), ms)
+    return {"dw_conv3x3_vjp:forward": counts["dw_conv3x3"],
+            "dw_conv3x3_vjp:dx": counts["dw_conv3x3_dx"],
+            "dw_conv3x3_vjp:dw": counts["dw_conv3x3_dw"]}
+
+
 def main() -> int:
     import torch
 
@@ -449,13 +720,15 @@ def main() -> int:
     _build.build_all()
     _print(f"build: {time.perf_counter() - t0:.1f} s")
 
-    _print("kernels at the serving path's shapes (N=1, bf16):")
+    _print("kernels at the serving path's shapes (N=1, bf16), then B6 at the training "
+           "stem's (N=16, bf16):")
     kernels = kernel_phase(peaks)
     launches = serving_phase()
+    launches.update(training_phase())
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         if k["launches"] == 0:
-            raise AssertionError(f"{k['name']} was not launched on the serving path")
+            raise AssertionError(f"{k['name']} was not launched on its path")
     _print(json.dumps({"kernels": kernels}))
     _print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
-"""Fast-SCNN serving in PyTorch on an NVIDIA Hopper card.
+"""Fast-SCNN serving and training in PyTorch on an NVIDIA Hopper card.
 
-A port of the serving path of ``fastscnn_tpu`` (JAX/Pallas on a TPU):
-the same model, the same BN-folded inference graph and the same mask
-heads, with the TPU's Pallas kernels replaced by CUDA C++ kernels built
-for ``sm_90a`` (``csrc/``, bound by ``ops/cuda``).
+A port of ``fastscnn_tpu`` (JAX/Pallas on a TPU): the same model, the
+same BN-folded inference graph and mask heads (``engine``), and the same
+training step — train-mode forward, losses, LR schedules, metric,
+SGD/AdamW (``models``, ``losses``, ``utils``, ``parallel``) — with the
+TPU's Pallas kernels replaced by CUDA C++ kernels built for ``sm_90a``
+(``csrc/``, bound by ``ops/cuda``).
 
 Package rules:
 

@@ -8,6 +8,15 @@ so a JAX-initialised model and a real ``fast_scnn_*.pth`` both load with
 - ``FastSCNN.forward``: the unfolded eval-mode graph (the JAX ``apply``
   with ``training=False``). NHWC in and out; inside, NCHW tensors in
   ``channels_last`` memory, which are physically NHWC.
+- ``FastSCNN.apply_params``: the JAX ``apply`` on ``(params, state)``
+  trees (:func:`~fastscnn_tpu_torch.models.convert.to_param_trees`
+  layout, HWIO) — training mode with batch-stat BN that returns the new
+  running statistics, or eval mode on running statistics. The LTD stem's
+  convs are routed by ``stem_impl``: ``'xla'`` (cuDNN and autograd),
+  ``'tapbwd'`` (:func:`~fastscnn_tpu_torch.ops.conv.conv2d_tapbwd`) or
+  ``'pallas'`` (depthwise convs through kernel B6, the others through
+  ``conv2d_tapbwd``). This is the graph the train and eval steps
+  (``parallel/train.py``) differentiate and run.
 - :func:`fold_inference_params` and ``FastSCNN.apply_folded``: the
   serving graph on BN-folded HWIO ``{w, b}`` trees, with the LTD stem's
   depthwise convs routed by ``folded_dw_impl`` — ``'conv'`` (cuDNN),
@@ -25,14 +34,22 @@ import torch.nn as nn
 
 from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.models.convert import to_param_trees
-from fastscnn_tpu_torch.ops.conv import conv2d, fold_conv_bn
-from fastscnn_tpu_torch.ops.cuda.dw_conv import ds_conv3x3_pw, dw_conv3x3
+from fastscnn_tpu_torch.ops.conv import (
+    batch_norm_apply,
+    batch_norm_train,
+    conv2d,
+    conv2d_tapbwd,
+    fold_conv_bn,
+)
+from fastscnn_tpu_torch.ops.cuda.dw_conv import ds_conv3x3_pw, dw_conv3x3, dw_conv3x3_vjp
 from fastscnn_tpu_torch.ops.pool import adaptive_avg_pool
 from fastscnn_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_matmul
+from fastscnn_tpu_torch.utils.tree import tree_map
 
-__all__ = ["FastSCNN", "init_fast_scnn", "fold_inference_params", "FOLDED_DW_IMPLS"]
+__all__ = ["FastSCNN", "init_fast_scnn", "fold_inference_params", "FOLDED_DW_IMPLS", "STEM_IMPLS"]
 
 FOLDED_DW_IMPLS = ("conv", "pallas", "fused-ds")
+STEM_IMPLS = ("xla", "tapbwd", "pallas")
 
 # Options of the JAX model that this package does not run yet, with the
 # ROADMAP.md queue item that ports each.
@@ -40,6 +57,10 @@ _NOT_PORTED = {
     "folded_dw_impl": {
         "taps": "queue item 'taps'",
         "fused-ds-mr": "kernel queue B5",
+    },
+    "stem_impl": {
+        "taps": "queue item 'taps'",
+        "taps-packbn": "queue item 'taps'",
     },
 }
 
@@ -185,13 +206,15 @@ class _Classifier(nn.Module):
 class FastSCNN(nn.Module):
     """Fast-SCNN with the reference module tree.
 
-    Besides the network it carries the JAX model's serving option
-    ``folded_dw_impl`` ∈ :data:`FOLDED_DW_IMPLS`. The JAX options that are
-    not ported yet (``folded_dw_impl`` 'taps' and 'fused-ds-mr',
-    ``folded_pw_impl`` other than 'conv', ``act_fake_quant``, and
-    ``stem_impl`` other than 'xla') raise ``NotImplementedError`` naming
-    the ROADMAP.md item that ports them. The pyramid pooling keeps the
-    training graph's bins (1, 2, 3, 6) and ``align_corners=True``; the JAX
+    Besides the network it carries the JAX model's options
+    ``folded_dw_impl`` ∈ :data:`FOLDED_DW_IMPLS` (serving), ``stem_impl``
+    ∈ :data:`STEM_IMPLS` and ``dropout_rate`` (``apply_params``). The JAX
+    options that are not ported yet (``folded_dw_impl`` 'taps' and
+    'fused-ds-mr', ``folded_pw_impl`` other than 'conv',
+    ``act_fake_quant``, ``stem_impl`` 'taps' and 'taps-packbn') raise
+    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    The pyramid pooling keeps the training graph's bins (1, 2, 3, 6) and
+    ``align_corners=True``; the JAX
     deployment-graph knobs ``ppm_sizes``/``ppm_align_corners`` belong to
     the export surface.
     """
@@ -204,13 +227,17 @@ class FastSCNN(nn.Module):
         folded_pw_impl: str = "conv",
         act_fake_quant=None,
         stem_impl: str = "xla",
+        dropout_rate: float = 0.1,
     ):
         super().__init__()
-        if folded_dw_impl in _NOT_PORTED["folded_dw_impl"]:
-            raise NotImplementedError(
-                f"folded_dw_impl={folded_dw_impl!r} is not ported yet "
-                f"(ROADMAP.md, {_NOT_PORTED['folded_dw_impl'][folded_dw_impl]})"
-            )
+        for option, value in (("folded_dw_impl", folded_dw_impl), ("stem_impl", stem_impl)):
+            if value in _NOT_PORTED[option]:
+                raise NotImplementedError(
+                    f"{option}={value!r} is not ported yet "
+                    f"(ROADMAP.md, {_NOT_PORTED[option][value]})"
+                )
+        if stem_impl not in STEM_IMPLS:
+            raise ValueError(f"unknown stem_impl {stem_impl!r}")
         if folded_dw_impl not in FOLDED_DW_IMPLS:
             raise ValueError(f"unknown folded_dw_impl {folded_dw_impl!r}")
         if folded_pw_impl != "conv":
@@ -222,14 +249,11 @@ class FastSCNN(nn.Module):
             raise NotImplementedError(
                 "act_fake_quant is not ported yet (ROADMAP.md, queue item 'int8')"
             )
-        if stem_impl != "xla":
-            raise NotImplementedError(
-                f"stem_impl={stem_impl!r} is not ported yet "
-                "(ROADMAP.md, queue item 'slice 2: training', kernel B6)"
-            )
         self.num_classes = num_classes
         self.aux = aux
         self.folded_dw_impl = folded_dw_impl
+        self.stem_impl = stem_impl
+        self.dropout_rate = dropout_rate
         self.learning_to_downsample = _LearningToDownsample(32, 48, 64)
         self.global_feature_extractor = _GlobalFeatureExtractor(64, (64, 96, 128), 128, 6, (3, 3, 3))
         self.feature_fusion = _FeatureFusionModule(64, 128, 128)
@@ -258,6 +282,41 @@ class FastSCNN(nn.Module):
         if upsample_outputs:
             outs = [resize_bilinear(o, size, True, h_axis=2, w_axis=3) for o in outs]
         return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+    # -- forward on parameter trees (train and eval steps) -------------------
+    def apply_params(self, params, state, x, training: bool = False,
+                     generator: torch.Generator | None = None, upsample_outputs: bool = True):
+        """The JAX ``FastSCNN.apply``: NHWC ``x``, ``(params, state)`` trees
+        in the :func:`~fastscnn_tpu_torch.models.convert.to_param_trees`
+        layout → ``(outputs, new_state)``, ``outputs`` the tuple of NHWC
+        logits ``(main,)`` or ``(main, aux)``, at the input resolution or,
+        with ``upsample_outputs=False``, at 1/8 (the losses upsample).
+
+        ``training=True``: batch-stat BN (``batch_norm_train``), and
+        ``new_state`` holds the updated running statistics (f32); dropout
+        (rate ``dropout_rate``) only when a ``generator`` on ``x``'s device
+        is given, its mask drawn from that generator. ``training=False``:
+        BN on the running statistics, which ``new_state`` holds unchanged. Params
+        may be in any dtype (the train step passes bf16 casts of f32
+        masters); the compute runs in ``x``'s dtype."""
+        run = _TreeForward(self, training, generator)
+        size = (x.shape[1], x.shape[2])
+        new_state = {}
+        higher, new_state["learning_to_downsample"] = run.ltd(
+            params["learning_to_downsample"], state["learning_to_downsample"], x)
+        lower, new_state["global_feature_extractor"] = run.gfe(
+            params["global_feature_extractor"], state["global_feature_extractor"], higher)
+        fused, new_state["feature_fusion"] = run.ffm(
+            params["feature_fusion"], state["feature_fusion"], higher, lower)
+        logits, new_state["classifier"] = run.classifier(
+            params["classifier"], state["classifier"], fused)
+        outputs = [logits]
+        if self.aux:
+            auxout, new_state["auxlayer"] = run.aux(params["auxlayer"], state["auxlayer"], higher)
+            outputs.append(auxout)
+        if upsample_outputs:
+            outputs = [resize_bilinear(o, size, align_corners=True) for o in outputs]
+        return tuple(outputs), new_state
 
     # -- folded inference ---------------------------------------------------
     def apply_folded(self, fparams, x: torch.Tensor, upsample_outputs: bool = True):
@@ -333,6 +392,111 @@ class FastSCNN(nn.Module):
         return (logits,)
 
 
+class _TreeForward:
+    """The blocks of ``FastSCNN.apply_params``, each ``(p, s, x) -> (y,
+    new_s)`` on NHWC activations — the JAX package's ``_apply_*`` and
+    module functions."""
+
+    def __init__(self, model: FastSCNN, training: bool, generator):
+        self.training = training
+        self.generator = generator
+        self.dropout_rate = model.dropout_rate
+        impl = model.stem_impl
+        if impl == "xla":
+            self.stem_conv = conv2d
+        elif impl == "tapbwd":
+            self.stem_conv = conv2d_tapbwd
+        else:  # 'pallas': depthwise convs through kernel B6
+
+            def stem_conv(x, w, stride=1, padding=0, groups=1):
+                if groups > 1:
+                    return dw_conv3x3_vjp(x, w, stride, padding)
+                return conv2d_tapbwd(x, w, stride=stride, padding=padding, groups=groups)
+
+            self.stem_conv = stem_conv
+
+    def bn(self, p, s, x):
+        if self.training:
+            y, m, v = batch_norm_train(x, p["scale"], p["bias"], s["mean"], s["var"])
+            return y, {"mean": m, "var": v}
+        return batch_norm_apply(x, p["scale"], p["bias"], s["mean"], s["var"]), s
+
+    def cbr(self, p, s, x, stride=1, padding=0, groups=1, relu=True, conv_fn=conv2d):
+        y = conv_fn(x, p["w"], stride=stride, padding=padding, groups=groups)
+        y, s_bn = self.bn(p["bn"], s["bn"], y)
+        return (torch.relu(y) if relu else y), {"bn": s_bn}
+
+    def ds(self, p, s, x, stride=1, conv_fn=conv2d):
+        y, s_dw = self.cbr(p["dw"], s["dw"], x, stride=stride, padding=1, groups=x.shape[-1],
+                           conv_fn=conv_fn)
+        y, s_pw = self.cbr(p["pw"], s["pw"], y, conv_fn=conv_fn)
+        return y, {"dw": s_dw, "pw": s_pw}
+
+    def bottleneck(self, p, s, x, stride):
+        y, s_e = self.cbr(p["expand"], s["expand"], x)
+        y, s_d = self.cbr(p["dw"], s["dw"], y, stride=stride, padding=1, groups=y.shape[-1])
+        y = conv2d(y, p["project"]["w"])
+        y, s_p = self.bn(p["project"]["bn"], s["project"]["bn"], y)
+        if stride == 1 and x.shape[-1] == y.shape[-1]:
+            y = x + y
+        return y, {"expand": s_e, "dw": s_d, "project": {"bn": s_p}}
+
+    def ltd(self, p, s, x):
+        conv = self.stem_conv
+        y, s1 = self.cbr(p["conv"], s["conv"], x, stride=2, conv_fn=conv)
+        y, s2 = self.ds(p["dsconv1"], s["dsconv1"], y, stride=2, conv_fn=conv)
+        y, s3 = self.ds(p["dsconv2"], s["dsconv2"], y, stride=2, conv_fn=conv)
+        return y, {"conv": s1, "dsconv1": s2, "dsconv2": s3}
+
+    def gfe(self, p, s, x):
+        ns = {}
+        for name, stride in (("bottleneck1", 2), ("bottleneck2", 2), ("bottleneck3", 1)):
+            stage = []
+            for i, (bp, bs) in enumerate(zip(p[name], s[name])):
+                x, s_i = self.bottleneck(bp, bs, x, stride if i == 0 else 1)
+                stage.append(s_i)
+            ns[name] = stage
+        size = (x.shape[1], x.shape[2])
+        feats, ppm = [x], {}
+        for name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), _PPM_SIZES):
+            y, ppm[name] = self.cbr(p["ppm"][name], s["ppm"][name], adaptive_avg_pool(x, pool_size))
+            feats.append(resize_bilinear(y, size, align_corners=True))
+        y, ppm["out"] = self.cbr(p["ppm"]["out"], s["ppm"]["out"], torch.cat(feats, dim=-1))
+        ns["ppm"] = ppm
+        return y, ns
+
+    def ffm(self, p, s, higher, lower):
+        lower = resize_bilinear(lower, (higher.shape[1], higher.shape[2]), align_corners=True)
+        lower, s_dw = self.cbr(p["dwconv"], s["dwconv"], lower, padding=1, groups=lower.shape[-1])
+        lower = conv2d(lower, p["conv_lower_res"]["w"], p["conv_lower_res"]["b"])
+        lower, s_lo = self.bn(p["conv_lower_res"]["bn"], s["conv_lower_res"]["bn"], lower)
+        higher = conv2d(higher, p["conv_higher_res"]["w"], p["conv_higher_res"]["b"])
+        higher, s_hi = self.bn(p["conv_higher_res"]["bn"], s["conv_higher_res"]["bn"], higher)
+        return torch.relu(higher + lower), {
+            "dwconv": s_dw, "conv_lower_res": {"bn": s_lo}, "conv_higher_res": {"bn": s_hi}}
+
+    def classifier(self, p, s, x):
+        y, s1 = self.ds(p["dsconv1"], s["dsconv1"], x)
+        y, s2 = self.ds(p["dsconv2"], s["dsconv2"], y)
+        y = self.dropout(y)
+        return conv2d(y, p["conv"]["w"], p["conv"]["b"]), {"dsconv1": s1, "dsconv2": s2}
+
+    def aux(self, p, s, x):
+        y = conv2d(x, p["conv1"]["w"], padding=1)
+        y, s_bn = self.bn(p["conv1"]["bn"], s["conv1"]["bn"], y)
+        y = self.dropout(torch.relu(y))
+        return conv2d(y, p["conv2"]["w"], p["conv2"]["b"]), {"conv1": {"bn": s_bn}}
+
+    def dropout(self, x):
+        """Inverted dropout, active only in training with a generator: keep
+        each element with probability 1 − rate and scale it by 1/keep."""
+        if not self.training or self.generator is None or self.dropout_rate <= 0.0:
+            return x
+        keep = 1.0 - self.dropout_rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def init_fast_scnn(num_classes: int, aux: bool = False, *, generator: torch.Generator,
                    device=None, **model_kwargs) -> FastSCNN:
     """A FastSCNN in eval mode, initialised from ``generator`` (a CPU
@@ -370,18 +534,10 @@ def _fold_tree(p, s):
     return {k: _fold_tree(v, s.get(k, {})) for k, v in p.items()}
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, list):
-        return [_map_tree(fn, t) for t in tree]
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def fold_inference_params(module: FastSCNN, dtype=torch.bfloat16):
     """The BN-folded inference tree of ``module``: nested dicts (lists for
     the bottleneck stages) of HWIO ``{w, b}`` leaves in ``dtype``, on the
     module's device — the JAX package's ``fold_inference_params`` layout."""
     params, state = to_param_trees(module)
     folded = _fold_tree(params, state)
-    return _map_tree(lambda v: v.to(dtype).contiguous(), folded)
+    return tree_map(lambda v: v.to(dtype).contiguous(), folded)

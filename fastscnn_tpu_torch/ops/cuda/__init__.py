@@ -11,7 +11,12 @@ from fastscnn_tpu_torch.ops.cuda.dw_conv import (
     ds_conv3x3_pw,
     ds_conv3x3_pw_reference,
     dw_conv3x3,
+    dw_conv3x3_dw,
+    dw_conv3x3_dw_reference,
+    dw_conv3x3_dx,
+    dw_conv3x3_dx_reference,
     dw_conv3x3_reference,
+    dw_conv3x3_vjp,
 )
 from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (
     h_lerp_argmax,
@@ -29,6 +34,11 @@ __all__ = [
     "ds_conv3x3_pw_reference",
     "dw_conv3x3",
     "dw_conv3x3_reference",
+    "dw_conv3x3_dw",
+    "dw_conv3x3_dw_reference",
+    "dw_conv3x3_dx",
+    "dw_conv3x3_dx_reference",
+    "dw_conv3x3_vjp",
     "h_lerp_argmax",
     "h_lerp_argmax_reference",
     "upsample_argmax",
@@ -41,6 +51,8 @@ KERNELS = {
     "h_lerp_argmax": h_lerp_argmax,
     "ds_conv3x3_pw": ds_conv3x3_pw,
     "dw_conv3x3": dw_conv3x3,
+    "dw_conv3x3_dx": dw_conv3x3_dx,
+    "dw_conv3x3_dw": dw_conv3x3_dw,
 }
 
 

@@ -26,7 +26,7 @@ __all__ = ["library", "build_all", "check", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fastscnn_tpu_torch"
-SOURCES = ("dw_conv", "upsample_argmax")
+SOURCES = ("dw_conv", "dw_conv_bwd", "upsample_argmax")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -40,6 +40,10 @@ _SIGNATURES = {
     "dw_conv": {
         "fastscnn_dw_conv3x3": [_I, _P, _P, _P, _P] + [_I] * 9 + [_P],
         "fastscnn_ds_conv3x3_pw": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    },
+    "dw_conv_bwd": {
+        "fastscnn_dw_conv3x3_dx": [_I, _P, _P, _P] + [_I] * 8 + [_P],
+        "fastscnn_dw_conv3x3_dw": [_I, _I, _P, _P, _P, _P] + [_I] * 11 + [_P],
     },
     "upsample_argmax": {
         "fastscnn_upsample_argmax": [_I] + [_P] * 8 + [_I] * 6 + [_P],

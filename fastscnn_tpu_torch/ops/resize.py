@@ -56,13 +56,15 @@ def _axis_lerp_coeffs(in_size: int, out_size: int, align_corners: bool):
 def lerp_tables(in_size: int, out_size: int, align_corners: bool, device: torch.device):
     """``_axis_lerp_coeffs`` as tensors on ``device``: (lo int64, hi
     int64, w f32). Cached per device so the serving path uploads them
-    once."""
+    once; made outside inference mode, so that a table first built by the
+    serving path can still enter autograd in a train step."""
     lo, hi, w = _axis_lerp_coeffs(in_size, out_size, align_corners)
-    return (
-        torch.from_numpy(lo.astype(np.int64)).to(device),
-        torch.from_numpy(hi.astype(np.int64)).to(device),
-        torch.from_numpy(w).to(device),
-    )
+    with torch.inference_mode(False):
+        return (
+            torch.from_numpy(lo.astype(np.int64)).to(device),
+            torch.from_numpy(hi.astype(np.int64)).to(device),
+            torch.from_numpy(w).to(device),
+        )
 
 
 def _lerp_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool):
@@ -108,10 +110,12 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool):
 def interp_matrix(
     in_size: int, out_size: int, align_corners: bool, dtype: torch.dtype, device: torch.device
 ) -> torch.Tensor:
-    """``_interp_matrix`` as a (in, out) tensor, cached per dtype and device."""
-    return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)).to(
-        device=device, dtype=dtype
-    )
+    """``_interp_matrix`` as a (in, out) tensor, cached per dtype and device
+    (made outside inference mode, as :func:`lerp_tables`)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)).to(
+            device=device, dtype=dtype
+        )
 
 
 def _matmul_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool):

@@ -176,8 +176,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'fastscnn_tpu' or m.startswith('fastscnn_tpu.')]\n"
         "n = sum(m.startswith('fastscnn_tpu_torch') for m in sys.modules)\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 10 else 0)\n"
+        "need = {'fastscnn_tpu_torch.' + m for m in ('parallel.train', 'losses.segmentation',\n"
+        "        'utils.lr_scheduler', 'utils.metric', 'ops.cuda.dw_conv', 'models.fast_scnn')}\n"
+        "print(n, bad, need - set(sys.modules))\n"
+        "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=120)

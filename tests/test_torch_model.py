@@ -148,7 +148,7 @@ def test_init_fast_scnn_is_seeded_with_torch_default_bounds():
         ({"folded_dw_impl": "fused-ds-mr"}, "B5"),
         ({"folded_pw_impl": "int8-a8"}, "int8"),
         ({"act_fake_quant": lambda y: y}, "int8"),
-        ({"stem_impl": "pallas"}, "B6"),
+        ({"stem_impl": "taps"}, "'taps'"),
     ],
 )
 def test_unported_options_name_their_roadmap_item(kwargs, item):
