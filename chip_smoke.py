@@ -7,22 +7,30 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the ``nvcc`` build of every kernel source, from this checkout;
-3. each kernel (B1-B4) at the shapes the 1024x2048 serving path gives it
-   (N=1, bf16): held against its plain PyTorch version, and timed with
-   CUDA events beside the plain version and one PyTorch library call that
-   computes the same function (a yardstick the port never calls), with
-   its bound from the bytes it must move;
+3. each kernel (B1-B5, B7, B8) at the shapes the 1024x2048 serving path
+   gives it (N=1, bf16; B7 and B8 at every int8 site of a frame, and at one
+   site with ``quantize_out``): held against its plain PyTorch version
+   (B5 also against B3's kernel), and timed with CUDA events beside the
+   plain version and one PyTorch library call that computes the same
+   function (a yardstick the port never calls), with its bound from the
+   bytes it must move or its operations at the card's peak rate for
+   their type;
 4. serving: ``entry()`` on one frame; then the 19-class model with
    random weights from a fixed seed (BN statistics calibrated on one
    seeded batch, see :func:`calibrated_state`), BN-folded, in bf16,
    answering 4 requests of 2 uint8 1024x2048 frames (5 timed rounds) in
-   config A (``fused-ds`` + ``pallas``: kernels B3, B1) and config B (``pallas`` +
-   ``hybrid-pallas``: kernels B4, B2), with the launch counters showing
-   that each config ran its kernels, and the masks compared with the
-   kernel-free config (``conv`` + ``hybrid``); then the first request
-   again in f32, where the masks must agree with the kernel-free config,
-   and a small f32 input through configs A and B on the card against the
-   same model on the CPU;
+   config A (``fused-ds`` + ``pallas``: kernels B3, B1), config B
+   (``pallas`` + ``hybrid-pallas``: kernels B4, B2) and the int8 configs,
+   whose scales ``calibrate_pw_scales`` takes once on the kernel-free model
+   over the calibration frames: C (``fused-ds-mr`` + ``int8-a8`` +
+   ``pallas``: B5, B7, B1) and D (``pallas`` + ``int8-w8a8`` +
+   ``hybrid-pallas``: B4, B8, B2); with the launch counters showing that
+   each config ran its kernels, and the masks compared with the
+   kernel-free config (``conv`` + ``hybrid``) and, for C and D, with the
+   site-keyed fake-quant simulation of their int8 grid; then the first
+   request again in f32, where the masks of A and B must agree with the
+   kernel-free config, and a small f32 input through configs A to D on the
+   card against the same configurations on the CPU;
 5. kernel B6 (``dw_conv3x3_vjp``: forward through B4's kernel, dX and dW
    through the kernels of ``csrc/dw_conv_bwd.cu``) at the training stem's
    two depthwise sites (batch 16 of 768x768 crops, bf16), each part held
@@ -58,8 +66,12 @@ ROUNDS = 5  # timed repeats of the bf16 requests; the median is reported
 HEIGHT, WIDTH = 1024, 2048
 NUM_CLASSES = 19
 # Published peaks (NVIDIA data sheets, SXM parts, dense): device-memory
-# bytes/s and f32 FLOP/s outside the tensor cores, which the kernels use.
-PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# bytes/s, f32 FLOP/s outside the tensor cores, and the tensor cores' bf16
+# FLOP/s and int8 OP/s, the least time a product in that type could take.
+PEAKS = {
+    "H200": {"bytes": 4.8e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12},
+    "H100": {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12},
+}
 # training: the Cityscapes recipe's crops and batch; B6 at its two sites
 # (name, N, H, W, C) at stride 2, after the stem conv's 768 -> 383
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_LR = 16, 768, 20, 1e-2
@@ -69,6 +81,8 @@ RECIPE_ITERS = 160 * (2975 // 16)
 B6_SITES = (("dsconv1", 16, 383, 383, 32), ("dsconv2", 16, 192, 192, 48))
 # 'pallas' vs 'xla' f32 step: within this factor of 'xla' f32 vs f64, or the floor
 F32_STEP_FACTOR, F32_STEP_FLOOR = 4.0, 1e-4
+# the operand type whose tensor-core peak bounds each int8 kernel's operations
+INT8_PEAK = {"pw_conv_a8": "bf16", "pw_conv_w8a8": "int8"}
 MASK_GATE = 0.995      # f32 serving masks vs the kernel-free config (PARITY.md's gate)
 KERNEL_MASK_GATE = 0.999  # B1/B2 vs their plain versions; small f32 input vs the CPU
 NEAR_TIE = 1e-5        # f32 gap below which a disagreeing pixel is a near-tie
@@ -115,7 +129,7 @@ def kernel_phase(peaks):
     from fastscnn_tpu_torch.ops import cuda as K
     from fastscnn_tpu_torch.ops.resize import resize_bilinear
 
-    bw, flops = peaks
+    bw, flops = peaks["bytes"], peaks["f32"]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
@@ -126,8 +140,8 @@ def kernel_phase(peaks):
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def bound(nb, nops):
-        t_bytes, t_ops = nb / bw * 1e3, nops / flops * 1e3
+    def bound(nb, nops, peak=flops):
+        t_bytes, t_ops = nb / bw * 1e3, nops / peak * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def close_bf16(name, got, ref):
@@ -169,14 +183,18 @@ def kernel_phase(peaks):
 
     results = []
 
-    # B3 and B4 at the LTD's two stride-2 sites: dsconv1 (32 -> 48) on the
-    # stem conv's 511x1023 output, dsconv2 (48 -> 64) on 256x512.
+    # B3, B4 and B5 at the LTD's two stride-2 sites: dsconv1 (32 -> 48) on
+    # the stem conv's 511x1023 output, dsconv2 (48 -> 64) on 256x512. B5
+    # computes B3's function (rows_per_step 8): it must equal B3's plain
+    # version and B3's kernel bit for bit.
     sites = (("dsconv1", 511, 1023, 32, 48), ("dsconv2", 256, 512, 48, 64))
     for kname, plain, src, replaces in (
         ("ds_conv3x3_pw", K.ds_conv3x3_pw_reference, "fastscnn_tpu_torch/csrc/dw_conv.cu",
          "fastscnn_tpu/ops/pallas/dw_conv.py:195"),
         ("dw_conv3x3", K.dw_conv3x3_reference, "fastscnn_tpu_torch/csrc/dw_conv.cu",
          "fastscnn_tpu/ops/pallas/dw_conv.py:124"),
+        ("ds_conv3x3_pw_multirow", K.ds_conv3x3_pw_reference,
+         "fastscnn_tpu_torch/csrc/ds_conv_mr.cu", "fastscnn_tpu/ops/pallas/dw_conv.py:286"),
     ):
         kern = K.KERNELS[kname]
         entry = {"name": kname, "route": "cuda", "source": src, "replaces": replaces,
@@ -190,7 +208,7 @@ def kernel_phase(peaks):
             wdw_oihw = w_dw.permute(3, 2, 0, 1).contiguous()
             wpw_oihw = w_pw.permute(3, 2, 0, 1).contiguous()
             ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
-            if kname == "ds_conv3x3_pw":
+            if kname != "dw_conv3x3":
                 args = (x, w_dw, b_dw, w_pw, b_pw, 2, 1)
 
                 def lib(dt=bf16):
@@ -216,6 +234,13 @@ def kernel_phase(peaks):
             torch.cuda.synchronize()
             err = close_bf16(f"{kname}[{site}] {tuple(x.shape)} -> {tuple(got.shape)}",
                              got, plain(*args))
+            if kname == "ds_conv3x3_pw_multirow":
+                b3 = K.ds_conv3x3_pw(*args)
+                same = torch.equal(got, b3)
+                _print(f"  {kname}[{site}] vs B3's kernel: "
+                       f"{'bit-equal' if same else 'DIFFERENT'} ({int((got != b3).sum())} differ)")
+                if err or not same:
+                    raise AssertionError(f"{kname}[{site}]: not bit-equal to B3")
             vs_f32(f"{kname}[{site}]", got, lib().permute(0, 2, 3, 1),
                    lib(torch.float32).permute(0, 2, 3, 1))
             ms = time_ms(lambda: kern(*args))
@@ -372,7 +397,138 @@ def kernel_phase(peaks):
         del x, gy, xc, gc, calls
         torch.cuda.empty_cache()
     results.extend(parts.values())
+    results.extend(int8_kernel_phase(peaks, bound, nbytes, g))
     return results
+
+
+def int8_sites(dev):
+    """The int8 sites of one 1024x2048 frame as (site, M, K, N, relu),
+    read from the serving graph itself: the kernel-free model's conv
+    inputs, recorded by its ``act_fake_quant`` hook, at the sites of
+    ``PW_INT8_SITES``. A bottleneck's project and the FFM's two 1x1s have
+    no ReLU."""
+    import torch
+
+    from fastscnn_tpu_torch.models import PW_INT8_SITES, fold_inference_params, init_fast_scnn
+
+    model = init_fast_scnn(NUM_CLASSES, generator=torch.Generator().manual_seed(SEED), device=dev)
+    folded = fold_inference_params(model)
+    seen = {}
+
+    def record(y, site=None):
+        if site in PW_INT8_SITES:
+            seen[site] = (y.numel() // y.shape[-1], y.shape[-1])
+        return y
+
+    with torch.inference_mode():
+        model.with_options(act_fake_quant=record).apply_folded(
+            folded, torch.zeros((1, HEIGHT, WIDTH, 3), dtype=torch.bfloat16, device=dev),
+            upsample_outputs=False)
+
+    def cout(site):
+        p = folded
+        for part in site.replace("ltd/", "learning_to_downsample/").replace(
+                "gfe/", "global_feature_extractor/").replace("ffm/", "feature_fusion/").replace(
+                "cls/", "classifier/").split("/"):
+            p = p[int(part)] if part.isdigit() else p[part]
+        return p["w"].shape[-1]
+
+    return [(site, m, k, cout(site), not (site.endswith("project") or site.startswith("ffm/")))
+            for site, (m, k) in ((s, seen[s]) for s in PW_INT8_SITES)]
+
+
+def int8_kernel_phase(peaks, bound, nbytes, g):
+    """B7 and B8 at every int8 site of a frame (N=1), each held against its
+    plain version (B8 bit-equal; B7 bit-equal expected, within one bf16 ulp
+    or one int8 level allowed), and at one site with ``quantize_out``.
+    Times and bounds are summed over the sites of the config that runs the
+    kernel (B7: the 23 sites of config C, whose LTD 1x1s run inside B5; B8:
+    all 25, config D). Bound: bytes, or operations at the tensor-core
+    peak of the operand type (bf16 for B7, int8 for B8). Yardsticks, never
+    on the path: ``torch.addmm`` in bf16 on the dequantized input (B7) and
+    ``torch._int_mm`` (B8), each with the epilogue."""
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    sites = int8_sites(dev)
+    q_site = "gfe/bottleneck1/1/expand"  # the quantize_out check
+    entries = {}
+    for kname, src_line in (("pw_conv_a8", "fastscnn_tpu/ops/pallas/int8_pw.py:144"),
+                            ("pw_conv_w8a8", "fastscnn_tpu/ops/pallas/int8_pw.py:197")):
+        entries[kname] = {"name": kname, "route": "cuda",
+                          "source": "fastscnn_tpu_torch/csrc/int8_pw.cu", "replaces": src_line,
+                          "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                          "library_ms": 0.0, "bound_by": "", "sites": []}
+    for site, m, k, n, relu in sites:
+        x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(bf16)
+        w_q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        cs = torch.rand(n, generator=g, device=dev) * (1.0 / (73.0 * k**0.5))
+        b = torch.randn(n, generator=g, device=dev) * 5.0
+        b16 = b.to(bf16)
+        for qout in ((False, True) if site == q_site else (False,)):
+            out_bytes = m * n * (1 if qout else 2)
+
+            def epilogue(t):
+                t = torch.relu(t) if relu else t
+                return t.round().clamp(-127, 127).to(torch.int8) if qout else t.to(bf16)
+
+            calls = {
+                "pw_conv_a8": (
+                    lambda: K.pw_conv_a8(x_q, w_eff, b, relu, qout),
+                    lambda: K.pw_conv_a8_reference(x_q, w_eff, b, relu, qout),
+                    lambda: epilogue(torch.addmm(b16, x_q.to(bf16), w_eff)),
+                    nbytes(x_q, w_eff, b) + out_bytes),
+                "pw_conv_w8a8": (
+                    lambda: K.pw_conv_w8a8(x_q, w_q, cs, b, relu, qout),
+                    lambda: K.pw_conv_w8a8_reference(x_q, w_q, cs, b, relu, qout),
+                    lambda: epilogue(torch._int_mm(x_q, w_q) * cs + b),
+                    nbytes(x_q, w_q, cs, b) + out_bytes),
+            }
+            for kname, (kern, plain, lib, moved) in calls.items():
+                entry = entries[kname]
+                label = f"{kname}[{site}{', quantize_out' if qout else ''}] ({m}x{k})x({k}x{n})"
+                got = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                diff = (got.float() - ref.float()).abs()
+                err, ndiff = diff.max().item(), int((diff > 0).sum())
+                if qout:
+                    bad = int((diff > 1).sum())
+                else:
+                    bad = int((diff > ref.float().abs() * 2.0**-7 + 1e-30).sum())
+                _print(f"  {label}: max_abs_err {err:.3g}, {ndiff} of {diff.numel()} differ, "
+                       f"{bad} beyond {'one int8 level' if qout else '1 bf16 ulp'}")
+                if bad or (kname == "pw_conv_w8a8" and ndiff):
+                    raise AssertionError(f"{label}: outside tolerance")
+                lib_err = (lib().float() - ref.float()).abs().max().item()
+                ms = time_ms(kern)
+                plain_ms = time_ms(plain, iters=2, warmup=1, repeats=3)
+                lib_ms = time_ms(lib)
+                b_ms, b_by = bound(moved, 2 * m * k * n, peaks[INT8_PEAK[kname]])
+                _print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                       f"{lib_ms:.4f} ms (max |diff| from plain {lib_err:.3g}), bound "
+                       f"{b_ms:.4f} ms ({b_by})")
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                rec = {"site": site, "quantize_out": qout, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "max_abs_err": err}
+                entry["sites"].append(rec)
+                # the frame's sum: config C's 23 sites for B7, D's 25 for B8
+                if not qout and (kname == "pw_conv_w8a8" or not site.startswith("ltd/")):
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                        entry[key] += rec[key]
+                    entry["bound_by"] = b_by
+        del x_q, w_eff, w_q
+    for entry in entries.values():
+        _print(f"  {entry['name']} over a frame's sites: kernel {entry['ms']:.4f} ms, plain "
+               f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']:.4f} ms, bound "
+               f"{entry['bound_ms']:.4f} ms")
+    return list(entries.values())
+
 
 
 def calibrated_state(frames):
@@ -411,8 +567,8 @@ def serving_phase():
 
     from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
     from fastscnn_tpu_torch.entry import entry
-    from fastscnn_tpu_torch.models import FastSCNN
-    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.models import FastSCNN, calibrate_pw_scales, quantized_model
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, quantize_act, reset_launch_counts
     from fastscnn_tpu_torch.ops.resize import resize_bilinear
 
     dev = torch.device("cuda")
@@ -431,34 +587,61 @@ def serving_phase():
     torch.cuda.synchronize()
     counts = launch_counts()
     _print(f"entry(): mask {tuple(mask.shape)} {mask.dtype}, launches {counts}")
-    if mask.shape != (1, HEIGHT, WIDTH) or mask.dtype != torch.int32 or counts != {
-            "upsample_argmax": 1, "h_lerp_argmax": 0, "ds_conv3x3_pw": 2, "dw_conv3x3": 0,
-            "dw_conv3x3_dx": 0, "dw_conv3x3_dw": 0}:
+    want = {name: 0 for name in counts} | {"upsample_argmax": 1, "ds_conv3x3_pw": 2}
+    if mask.shape != (1, HEIGHT, WIDTH) or mask.dtype != torch.int32 or counts != want:
         raise AssertionError("entry() did not serve its frame through B3 and B1")
 
-    state = calibrated_state(frames(BATCH))
+    calib = frames(BATCH)
+    state = calibrated_state(calib)
 
-    def engine(impl, mode, dtype, device=dev):
-        model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl)
+    def engine(impl, mode, dtype, device=dev, pw="conv", hook=None):
+        model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl, act_fake_quant=hook)
         model.load_state_dict(state)
+        if pw != "conv":
+            model = quantized_model(model, scales, pw)
         return InferenceEngine(model, device=device, config=E2EConfig(
             mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
 
+    # int8 scales: once, on the kernel-free model in the serving dtype, over
+    # the calibration frames, normalised as the engine does
+    cal = engine("conv", "hybrid", "bfloat16")
+    scales = calibrate_pw_scales(cal.model, cal.folded, [calib], preprocess=cal._preprocess)
+    del cal
+    scale_of = dict(scales)
+    _print(f"int8 scales of {len(scales)} sites: "
+           f"{min(v for _, v in scales):.4g} to {max(v for _, v in scales):.4g}")
+
+    class SiteFakeQuant:
+        """The int8 value grid at the calibrated sites, simulated in the
+        compute dtype on the kernel-free 1x1s (quantize, dequantize)."""
+
+        def __call__(self, y, site=None):
+            s = scale_of.get(site)
+            if s is None:
+                return y
+            return (quantize_act(y, s).float() * torch.tensor(s, device=y.device)).to(y.dtype)
+
     batches = [frames(BATCH) for _ in range(REQUESTS)]
-    configs = (  # label, folded_dw_impl, final_upsample, kernel launches per request
-        ("ref", "conv", "hybrid", {}),
-        ("A", "fused-ds", "pallas", {"ds_conv3x3_pw": 2, "upsample_argmax": 1}),
-        ("B", "pallas", "hybrid-pallas", {"dw_conv3x3": 2, "h_lerp_argmax": 1}),
+    configs = (  # label, folded_dw_impl, folded_pw_impl, final_upsample, launches per request
+        ("ref", "conv", "conv", "hybrid", {}),
+        ("A", "fused-ds", "conv", "pallas", {"ds_conv3x3_pw": 2, "upsample_argmax": 1}),
+        ("B", "pallas", "conv", "hybrid-pallas", {"dw_conv3x3": 2, "h_lerp_argmax": 1}),
+        ("C", "fused-ds-mr", "int8-a8", "pallas",
+         {"ds_conv3x3_pw_multirow": 2, "pw_conv_a8": 23, "upsample_argmax": 1}),
+        ("D", "pallas", "int8-w8a8", "hybrid-pallas",
+         {"dw_conv3x3": 2, "pw_conv_w8a8": 25, "h_lerp_argmax": 1}),
     )
     launches, failures = {}, []
     # bf16 is the serving configuration: timed, launch counts gated, its
     # agreement with ref reported. f32 repeats the first request: there the
-    # formulations differ by f32 rounding only, so its masks carry the
-    # agreement gate (see PERF.md on why bf16 cannot on random weights).
+    # formulations A and B differ by f32 rounding only, so their masks carry
+    # the agreement gate (see PERF.md on why bf16 cannot on random weights);
+    # C and D change the result by design (int8), so theirs are reported,
+    # beside their agreement with the fake-quant simulation of their grid.
     for dtype, reqs, rounds in (("bfloat16", batches, ROUNDS), ("float32", batches[:1], 1)):
         ref = None
-        for label, impl, mode, per_request in configs:
-            eng = engine(impl, mode, dtype)
+        for label, impl, pw, mode, per_request in configs:
+            eng = engine(impl, mode, dtype, pw=pw)
             eng.predict(reqs[0])  # first call: cuDNN plans, kernel build and load
             torch.cuda.synchronize()
             reset_launch_counts()
@@ -476,7 +659,7 @@ def serving_phase():
             hist = torch.bincount(masks.flatten().long(), minlength=NUM_CLASSES)
             if hist.numel() != NUM_CLASSES or int(masks.min()) < 0:
                 raise AssertionError(f"config {label}: class ids outside [0, {NUM_CLASSES})")
-            _print(f"serving {dtype} config {label} ({impl} + {mode}): {ms:.3f} ms/frame "
+            _print(f"serving {dtype} config {label} ({impl} + {pw} + {mode}): {ms:.3f} ms/frame "
                    f"median, {ms_min:.3f} min (host clock, {rounds} rounds of {len(reqs)} "
                    f"requests x {BATCH} frames), launches {counts}, "
                    f"{int((hist > 0).sum())} classes present, largest class "
@@ -509,19 +692,55 @@ def serving_phase():
                    f"{ref[1].std().item():.4g}); request 0: {int(diff.sum())} differing "
                    f"pixels, max relative f32 gap {rel_max:.4g}, {within:.4f} of them within "
                    f"2 bf16 ulps")
-            if dtype == "float32" and agree < MASK_GATE:
+            if dtype == "float32" and pw == "conv" and agree < MASK_GATE:
                 failures.append(f"f32 config {label}: mask agreement {agree} < {MASK_GATE}")
+            if pw != "conv":
+                sim = engine(impl, mode, dtype, hook=SiteFakeQuant()).predict(reqs[0])
+                _print(f"  {dtype} config {label} vs the fake-quant simulation of its int8 "
+                       f"grid: mask agreement {(masks[0] == sim).float().mean().item():.6f} "
+                       f"(request 0)")
+                del sim
 
-    # small f32 input: configs A and B on the card against the CPU model
-    # (plain versions, no cuDNN), masks equal but for near-ties
+    # small f32 input: each config on the card against the CPU (plain
+    # versions, no cuDNN); A and B against the kernel-free config, masks
+    # equal but for near-ties. C and D against themselves: their int8 sites
+    # emit bf16, and from the first one on the network runs on bf16
+    # activations, where cuDNN and the CPU round differently and a random
+    # network amplifies one ulp into a different mask (PERF.md, PR 3: the
+    # masks agree on ~0.7 of pixels). Their gate is the int8 levels at the
+    # first int8 site, the last point the card and the CPU compute in f32:
+    # equal on KERNEL_MASK_GATE of the elements, none more than one level
+    # apart; the mask agreement is reported.
     small = batches[0][:, :128, :256].contiguous()
-    cpu_mask = engine("conv", "matmul", "float32", torch.device("cpu")).predict(small.cpu())
-    for label, impl, mode, _ in configs[1:]:
-        mask = engine(impl, mode, "float32").predict(small).cpu()
-        agree = (mask == cpu_mask).float().mean().item()
+    cpu = torch.device("cpu")
+    cpu_mask = engine("conv", "matmul", "float32", cpu).predict(small.cpu())
+    for label, impl, pw, mode, _ in configs[1:]:
+        mask = engine(impl, mode, "float32", pw=pw).predict(small).cpu()
+        ref_mask = cpu_mask
+        if pw != "conv":
+            ref_mask = engine(impl, mode, "float32", cpu, pw=pw).predict(small.cpu())
+            first = "ltd/dsconv1/pw" if impl == "pallas" else "gfe/bottleneck1/0/expand"
+            levels = []
+            for device in (dev, cpu):
+                seen = {}
+
+                def grab(y, site=None, seen=seen):
+                    if site == first:
+                        seen["q"] = quantize_act(y, scale_of[first]).cpu()
+                    return y
+
+                engine(impl, mode, "float32", device, hook=grab).predict(small.to(device))
+                levels.append(seen["q"])
+            flips = int((levels[0] != levels[1]).sum())
+            worst = (levels[0].int() - levels[1].int()).abs().max().item()
+            _print(f"f32 {tuple(small.shape)} config {label}: int8 levels at {first} on the card "
+                   f"vs the CPU: {flips} of {levels[0].numel()} differ (max {worst} level)")
+            if flips > (1 - KERNEL_MASK_GATE) * levels[0].numel() or worst > 1:
+                failures.append(f"f32 config {label}: {flips} int8 levels differ at {first}")
+        agree = (mask == ref_mask).float().mean().item()
         _print(f"f32 {tuple(small.shape)} config {label} on the card vs the CPU: "
-               f"mask agreement {agree:.6f}")
-        if agree < KERNEL_MASK_GATE:
+               f"mask agreement {agree:.6f}{' (reported)' if pw != 'conv' else ''}")
+        if pw == "conv" and agree < KERNEL_MASK_GATE:
             failures.append(f"f32 config {label}: agreement {agree} < {KERNEL_MASK_GATE}")
     if failures:
         raise AssertionError("; ".join(failures))
@@ -713,15 +932,16 @@ def main() -> int:
     _print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}, "
            f"count {torch.cuda.device_count()}")
     peak_name, peaks = card_peaks(name)
-    _print(f"bounds use the published {peak_name} peaks: {peaks[0] / 1e12} TB/s, "
-           f"{peaks[1] / 1e12} TFLOP/s f32")
+    _print(f"bounds use the published {peak_name} peaks: {peaks['bytes'] / 1e12} TB/s; "
+           f"{peaks['f32'] / 1e12} TFLOP/s f32, {peaks['bf16'] / 1e12} TFLOP/s bf16 and "
+           f"{peaks['int8'] / 1e12} TOP/s int8 on the tensor cores")
 
     t0 = time.perf_counter()
     _build.build_all()
     _print(f"build: {time.perf_counter() - t0:.1f} s")
 
-    _print("kernels at the serving path's shapes (N=1, bf16), then B6 at the training "
-           "stem's (N=16, bf16):")
+    _print("kernels at the serving path's shapes (N=1, bf16), B6 at the training stem's "
+           "(N=16, bf16), then B7 and B8 at a frame's int8 sites (N=1):")
     kernels = kernel_phase(peaks)
     launches = serving_phase()
     launches.update(training_phase())

@@ -1,19 +1,31 @@
 from fastscnn_tpu_torch.models.convert import from_jax_params, load_checkpoint, to_param_trees
 from fastscnn_tpu_torch.models.fast_scnn import (
     FOLDED_DW_IMPLS,
+    FOLDED_PW_IMPLS,
     STEM_IMPLS,
     FastSCNN,
     fold_inference_params,
     init_fast_scnn,
 )
+from fastscnn_tpu_torch.models.quantize import (
+    INT8_IMPLS,
+    PW_INT8_SITES,
+    calibrate_pw_scales,
+    quantized_model,
+)
 
 __all__ = [
     "FOLDED_DW_IMPLS",
+    "FOLDED_PW_IMPLS",
+    "INT8_IMPLS",
+    "PW_INT8_SITES",
     "STEM_IMPLS",
     "FastSCNN",
+    "calibrate_pw_scales",
     "fold_inference_params",
     "from_jax_params",
     "init_fast_scnn",
     "load_checkpoint",
+    "quantized_model",
     "to_param_trees",
 ]

@@ -20,13 +20,19 @@ so a JAX-initialised model and a real ``fast_scnn_*.pth`` both load with
 - :func:`fold_inference_params` and ``FastSCNN.apply_folded``: the
   serving graph on BN-folded HWIO ``{w, b}`` trees, with the LTD stem's
   depthwise convs routed by ``folded_dw_impl`` — ``'conv'`` (cuDNN),
-  ``'pallas'`` (kernel B4, dw + bias + ReLU) or ``'fused-ds'`` (kernel B3,
-  the whole DSConv). The JAX names are kept so configurations map one to
-  one.
+  ``'pallas'`` (kernel B4, dw + bias + ReLU), ``'fused-ds'`` (kernel B3,
+  the whole DSConv) or ``'fused-ds-mr'`` (kernel B5, B3's function over
+  several output rows a block) — and the calibrated 1×1 sites routed by
+  ``folded_pw_impl`` — ``'conv'`` (cuDNN), ``'int8-a8'`` (kernel B7) or
+  ``'int8-w8a8'`` (kernel B8); see :mod:`~fastscnn_tpu_torch.models.quantize`.
+  ``act_fake_quant`` is the JAX model's hook on every conv input. The JAX
+  names are kept so configurations map one to one.
 """
 
 from __future__ import annotations
 
+import copy
+import inspect
 import math
 
 import torch
@@ -41,14 +47,28 @@ from fastscnn_tpu_torch.ops.conv import (
     conv2d_tapbwd,
     fold_conv_bn,
 )
-from fastscnn_tpu_torch.ops.cuda.dw_conv import ds_conv3x3_pw, dw_conv3x3, dw_conv3x3_vjp
+from fastscnn_tpu_torch.ops.cuda.dw_conv import (
+    ds_conv3x3_pw,
+    ds_conv3x3_pw_multirow,
+    dw_conv3x3,
+    dw_conv3x3_vjp,
+)
+from fastscnn_tpu_torch.ops.cuda.int8_pw import pw_conv_a8, pw_conv_w8a8, quantize_act
 from fastscnn_tpu_torch.ops.pool import adaptive_avg_pool
 from fastscnn_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_matmul
 from fastscnn_tpu_torch.utils.tree import tree_map
 
-__all__ = ["FastSCNN", "init_fast_scnn", "fold_inference_params", "FOLDED_DW_IMPLS", "STEM_IMPLS"]
+__all__ = [
+    "FastSCNN",
+    "init_fast_scnn",
+    "fold_inference_params",
+    "FOLDED_DW_IMPLS",
+    "FOLDED_PW_IMPLS",
+    "STEM_IMPLS",
+]
 
-FOLDED_DW_IMPLS = ("conv", "pallas", "fused-ds")
+FOLDED_DW_IMPLS = ("conv", "pallas", "fused-ds", "fused-ds-mr")
+FOLDED_PW_IMPLS = ("conv", "int8-a8", "int8-w8a8")
 STEM_IMPLS = ("xla", "tapbwd", "pallas")
 
 # Options of the JAX model that this package does not run yet, with the
@@ -56,7 +76,6 @@ STEM_IMPLS = ("xla", "tapbwd", "pallas")
 _NOT_PORTED = {
     "folded_dw_impl": {
         "taps": "queue item 'taps'",
-        "fused-ds-mr": "kernel queue B5",
     },
     "stem_impl": {
         "taps": "queue item 'taps'",
@@ -207,11 +226,14 @@ class FastSCNN(nn.Module):
     """Fast-SCNN with the reference module tree.
 
     Besides the network it carries the JAX model's options
-    ``folded_dw_impl`` ∈ :data:`FOLDED_DW_IMPLS` (serving), ``stem_impl``
-    ∈ :data:`STEM_IMPLS` and ``dropout_rate`` (``apply_params``). The JAX
-    options that are not ported yet (``folded_dw_impl`` 'taps' and
-    'fused-ds-mr', ``folded_pw_impl`` other than 'conv',
-    ``act_fake_quant``, ``stem_impl`` 'taps' and 'taps-packbn') raise
+    ``folded_dw_impl`` ∈ :data:`FOLDED_DW_IMPLS`, ``folded_pw_impl`` ∈
+    :data:`FOLDED_PW_IMPLS` with its ``pw_act_scales`` (a tuple of
+    ``(site, scale)`` pairs) and ``act_fake_quant`` (serving), and
+    ``stem_impl`` ∈ :data:`STEM_IMPLS` and ``dropout_rate``
+    (``apply_params``). :meth:`with_options` is the JAX
+    ``dataclasses.replace``: a model with other options that shares these
+    weights. The JAX options that are not ported yet (``folded_dw_impl``
+    'taps', ``stem_impl`` 'taps' and 'taps-packbn') raise
     ``NotImplementedError`` naming the ROADMAP.md item that ports them.
     The pyramid pooling keeps the training graph's bins (1, 2, 3, 6) and
     ``align_corners=True``; the JAX
@@ -228,32 +250,14 @@ class FastSCNN(nn.Module):
         act_fake_quant=None,
         stem_impl: str = "xla",
         dropout_rate: float = 0.1,
+        pw_act_scales: tuple = (),
     ):
         super().__init__()
-        for option, value in (("folded_dw_impl", folded_dw_impl), ("stem_impl", stem_impl)):
-            if value in _NOT_PORTED[option]:
-                raise NotImplementedError(
-                    f"{option}={value!r} is not ported yet "
-                    f"(ROADMAP.md, {_NOT_PORTED[option][value]})"
-                )
-        if stem_impl not in STEM_IMPLS:
-            raise ValueError(f"unknown stem_impl {stem_impl!r}")
-        if folded_dw_impl not in FOLDED_DW_IMPLS:
-            raise ValueError(f"unknown folded_dw_impl {folded_dw_impl!r}")
-        if folded_pw_impl != "conv":
-            raise NotImplementedError(
-                f"folded_pw_impl={folded_pw_impl!r} is not ported yet "
-                "(ROADMAP.md, queue item 'int8', kernels B7 and B8)"
-            )
-        if act_fake_quant is not None:
-            raise NotImplementedError(
-                "act_fake_quant is not ported yet (ROADMAP.md, queue item 'int8')"
-            )
         self.num_classes = num_classes
         self.aux = aux
-        self.folded_dw_impl = folded_dw_impl
-        self.stem_impl = stem_impl
-        self.dropout_rate = dropout_rate
+        self._set_options(folded_dw_impl=folded_dw_impl, folded_pw_impl=folded_pw_impl,
+                          act_fake_quant=act_fake_quant, stem_impl=stem_impl,
+                          dropout_rate=dropout_rate, pw_act_scales=pw_act_scales)
         self.learning_to_downsample = _LearningToDownsample(32, 48, 64)
         self.global_feature_extractor = _GlobalFeatureExtractor(64, (64, 96, 128), 128, 6, (3, 3, 3))
         self.feature_fusion = _FeatureFusionModule(64, 128, 128)
@@ -266,6 +270,35 @@ class FastSCNN(nn.Module):
                 nn.Dropout(0.1),
                 nn.Conv2d(32, num_classes, 1),
             )
+
+    _OPTIONS = ("folded_dw_impl", "folded_pw_impl", "act_fake_quant", "stem_impl",
+                "dropout_rate", "pw_act_scales")
+
+    def _set_options(self, **options):
+        for option in ("folded_dw_impl", "stem_impl"):
+            value = options[option]
+            if value in _NOT_PORTED[option]:
+                raise NotImplementedError(
+                    f"{option}={value!r} is not ported yet "
+                    f"(ROADMAP.md, {_NOT_PORTED[option][value]})"
+                )
+        for option, allowed in (("stem_impl", STEM_IMPLS), ("folded_dw_impl", FOLDED_DW_IMPLS),
+                                ("folded_pw_impl", FOLDED_PW_IMPLS)):
+            if options[option] not in allowed:
+                raise ValueError(f"unknown {option} {options[option]!r}")
+        options["pw_act_scales"] = tuple(options["pw_act_scales"])
+        self.__dict__.update(options)
+        self._int8_weights = {}  # site -> (folded w, scale, prepared operands)
+
+    def with_options(self, **changes) -> "FastSCNN":
+        """A model with some options changed that shares this one's
+        submodules, weights included (the JAX ``dataclasses.replace``)."""
+        unknown = set(changes) - set(self._OPTIONS)
+        if unknown:
+            raise TypeError(f"not an option of FastSCNN: {sorted(unknown)}")
+        new = copy.copy(self)
+        new._set_options(**{k: changes.get(k, getattr(self, k)) for k in self._OPTIONS})
+        return new
 
     def forward(self, x: torch.Tensor, upsample_outputs: bool = True):
         """NHWC input → tuple of NHWC logits, ``(main,)`` or ``(main, aux)``,
@@ -323,32 +356,44 @@ class FastSCNN(nn.Module):
         """Inference forward on a BN-folded tree (:func:`fold_inference_params`):
         every block is conv + bias (+ ReLU). NHWC in, tuple of NHWC logits
         out; ``upsample_outputs=False`` returns 1/8-resolution logits so the
-        caller picks the upsample formulation."""
-        impl = self.folded_dw_impl
+        caller picks the upsample formulation.
 
-        def cbr(p, y, stride=1, padding=0, groups=1, relu=True):
-            y = conv2d(y, p["w"], p["b"], stride=stride, padding=padding, groups=groups)
+        Every conv input passes through ``act_fake_quant`` (called with the
+        JAX site name when it takes a ``site`` argument), except at the int8
+        sites: with ``folded_pw_impl`` 'int8-a8' or 'int8-w8a8', each site
+        of ``pw_act_scales`` quantizes its input and runs kernel B7 or B8,
+        whose output is bf16 whatever the compute dtype (later ops promote
+        as the JAX graph does). With 'fused-ds' or 'fused-ds-mr' the LTD's
+        two 1×1s run inside B3 or B5 and bypass both."""
+        impl = self.folded_dw_impl
+        aq = _site_hook(self.act_fake_quant)
+        int8_scales = dict(self.pw_act_scales) if self.folded_pw_impl != "conv" else {}
+
+        def cbr(p, y, stride=1, padding=0, groups=1, relu=True, site=None):
+            if site is not None and site in int8_scales:
+                return self._pw_int8(p, y, site, int8_scales[site], relu)
+            y = conv2d(aq(y, site), p["w"], p["b"], stride=stride, padding=padding, groups=groups)
             return torch.relu(y) if relu else y
 
-        def ds(p, y, stride=1, dw_alt=False):
-            if dw_alt and impl == "fused-ds":
-                # the whole DSConv in kernel B3: the dw activation never
-                # reaches device memory
-                return ds_conv3x3_pw(
-                    y.contiguous(), p["dw"]["w"], p["dw"]["b"], p["pw"]["w"], p["pw"]["b"],
-                    stride=stride, padding=1,
-                )
+        def ds(p, y, stride=1, dw_alt=False, site=None):
+            if dw_alt and impl in ("fused-ds", "fused-ds-mr"):
+                # the whole DSConv in kernel B3 (one output row a block) or
+                # B5 (several): the dw activation never reaches device memory
+                fn = ds_conv3x3_pw if impl == "fused-ds" else ds_conv3x3_pw_multirow
+                return fn(y.contiguous(), p["dw"]["w"], p["dw"]["b"], p["pw"]["w"], p["pw"]["b"],
+                          stride=stride, padding=1)
             if dw_alt:  # 'pallas': dw + bias + ReLU in kernel B4
                 y = dw_conv3x3(y.contiguous(), p["dw"]["w"], p["dw"]["b"], stride=stride,
                                padding=1, relu=True)
             else:
-                y = cbr(p["dw"], y, stride=stride, padding=1, groups=y.shape[-1])
-            return cbr(p["pw"], y)
+                y = cbr(p["dw"], y, stride=stride, padding=1, groups=y.shape[-1],
+                        site=site and f"{site}/dw")
+            return cbr(p["pw"], y, site=site and f"{site}/pw")
 
-        def bottleneck(p, y, stride):
-            z = cbr(p["expand"], y)
-            z = cbr(p["dw"], z, stride=stride, padding=1, groups=z.shape[-1])
-            z = cbr(p["project"], z, relu=False)
+        def bottleneck(p, y, stride, site):
+            z = cbr(p["expand"], y, site=f"{site}/expand")
+            z = cbr(p["dw"], z, stride=stride, padding=1, groups=z.shape[-1], site=f"{site}/dw")
+            z = cbr(p["project"], z, relu=False, site=f"{site}/project")
             if stride == 1 and y.shape[-1] == z.shape[-1]:
                 z = y + z
             return z
@@ -357,39 +402,90 @@ class FastSCNN(nn.Module):
         p = fparams
         dw_alt = impl != "conv"
         ltd = p["learning_to_downsample"]
-        y = cbr(ltd["conv"], x, stride=2)
-        y = ds(ltd["dsconv1"], y, stride=2, dw_alt=dw_alt)
-        higher = ds(ltd["dsconv2"], y, stride=2, dw_alt=dw_alt)
+        y = cbr(ltd["conv"], x, stride=2, site="ltd/conv")
+        y = ds(ltd["dsconv1"], y, stride=2, dw_alt=dw_alt, site="ltd/dsconv1")
+        higher = ds(ltd["dsconv2"], y, stride=2, dw_alt=dw_alt, site="ltd/dsconv2")
         g = p["global_feature_extractor"]
         y = higher
         for name, stride in (("bottleneck1", 2), ("bottleneck2", 2), ("bottleneck3", 1)):
             for i, bp in enumerate(g[name]):
-                y = bottleneck(bp, y, stride if i == 0 else 1)
+                y = bottleneck(bp, y, stride if i == 0 else 1, site=f"gfe/{name}/{i}")
         psize = (y.shape[1], y.shape[2])
         feats = [y]
         for conv_name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), _PPM_SIZES):
-            z = cbr(g["ppm"][conv_name], adaptive_avg_pool(y, pool_size))
+            z = cbr(g["ppm"][conv_name], adaptive_avg_pool(y, pool_size), site=f"gfe/ppm/{conv_name}")
             feats.append(resize_bilinear_matmul(z, psize, align_corners=True))
-        lower = cbr(g["ppm"]["out"], torch.cat(feats, dim=-1))
+        lower = cbr(g["ppm"]["out"], torch.cat(feats, dim=-1), site="gfe/ppm/out")
         f = p["feature_fusion"]
         lo = resize_bilinear_matmul(lower, (higher.shape[1], higher.shape[2]), align_corners=True)
-        lo = cbr(f["dwconv"], lo, padding=1, groups=lo.shape[-1])
-        lo = cbr(f["conv_lower_res"], lo, relu=False)
-        hi = cbr(f["conv_higher_res"], higher, relu=False)
+        lo = cbr(f["dwconv"], lo, padding=1, groups=lo.shape[-1], site="ffm/dwconv")
+        lo = cbr(f["conv_lower_res"], lo, relu=False, site="ffm/conv_lower_res")
+        hi = cbr(f["conv_higher_res"], higher, relu=False, site="ffm/conv_higher_res")
         fused = torch.relu(hi + lo)
         c = p["classifier"]
-        y = ds(c["dsconv2"], ds(c["dsconv1"], fused))
-        logits = conv2d(y, c["conv"]["w"], c["conv"]["b"])
+        y = ds(c["dsconv2"], ds(c["dsconv1"], fused, site="cls/dsconv1"), site="cls/dsconv2")
+        logits = conv2d(aq(y, "cls/conv"), c["conv"]["w"], c["conv"]["b"])
         if upsample_outputs:
             logits = resize_bilinear_matmul(logits, size, align_corners=True)
         if self.aux and "auxlayer" in p:
             a = p["auxlayer"]
-            z = cbr(a["conv1"], higher, padding=1)
-            auxout = conv2d(z, a["conv2"]["w"], a["conv2"]["b"])
+            z = cbr(a["conv1"], higher, padding=1, site="aux/conv1")
+            auxout = conv2d(aq(z, "aux/conv2"), a["conv2"]["w"], a["conv2"]["b"])
             if upsample_outputs:
                 auxout = resize_bilinear_matmul(auxout, size, align_corners=True)
             return (logits, auxout)
         return (logits,)
+
+
+    def _pw_int8(self, p, y, site, scale, relu):
+        """One int8 1×1 site: quantize the input with the site's scale, then
+        kernel B7 or B8 on the folded weight. The weight fold (JAX
+        ``pw_int8``) depends on the weights and the scale only, so it is
+        made at a site's first call and reused while the tree holds the
+        same weight tensor."""
+        if tuple(p["w"].shape[:2]) != (1, 1):
+            raise ValueError(f"int8 pw site {site!r} is not a 1×1 conv: {tuple(p['w'].shape)}")
+        hit = self._int8_weights.get(site)
+        if hit is None or hit[0] is not p["w"] or hit[1] != scale:
+            hit = (p["w"], scale, _fold_int8_weights(p["w"], scale, self.folded_pw_impl))
+            self._int8_weights[site] = hit
+        s, *w = hit[2]
+        q = quantize_act(y, s)
+        if self.folded_pw_impl == "int8-a8":
+            return pw_conv_a8(q, w[0], p["b"], relu=relu)
+        return pw_conv_w8a8(q, w[0], w[1], p["b"], relu=relu)
+
+
+def _site_hook(hook):
+    """``act_fake_quant`` as a ``(y, site) -> y`` function: the identity
+    for None, the hook itself when it takes ``site`` (by name or
+    ``**kwargs``), else a site-less ``y -> y`` hook called without it."""
+    if hook is None:
+        return lambda y, site=None: y
+    try:
+        params = inspect.signature(hook).parameters
+        takes_site = "site" in params or any(
+            q.kind is inspect.Parameter.VAR_KEYWORD for q in params.values())
+    except (ValueError, TypeError):
+        takes_site = False
+    return hook if takes_site else (lambda y, site=None: hook(y))
+
+
+def _fold_int8_weights(w, scale: float, impl: str):
+    """The JAX ``pw_int8`` weight fold of a (1, 1, K, N) folded weight at
+    activation scale ``scale``: (s, w_eff) for 'int8-a8', w_eff =
+    bf16(f32(w) · s); (s, w_q, cs) for 'int8-w8a8', with the per-output-
+    channel s_w = amax/127 (1 where amax is 0), w_q = clip(round(w / s_w),
+    ±127) and cs = s · s_w. s is ``scale`` as an f32 tensor on ``w``'s
+    device; every division is a true f32 division, as in JAX."""
+    s = torch.tensor(scale, dtype=torch.float32, device=w.device)
+    wf = w[0, 0].float()
+    if impl == "int8-a8":
+        return s, (wf * s).to(torch.bfloat16)
+    amax = wf.abs().amax(dim=0)
+    s_w = torch.where(amax > 0, amax / torch.tensor(127.0, device=w.device), torch.ones_like(amax))
+    w_q = torch.round(wf / s_w).clamp(-127.0, 127.0).to(torch.int8)
+    return s, w_q, s * s_w
 
 
 class _TreeForward:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from fastscnn_tpu_torch.ops.cuda.dw_conv import (
     ds_conv3x3_pw,
+    ds_conv3x3_pw_multirow,
     ds_conv3x3_pw_reference,
     dw_conv3x3,
     dw_conv3x3_dw,
@@ -17,6 +18,13 @@ from fastscnn_tpu_torch.ops.cuda.dw_conv import (
     dw_conv3x3_dx_reference,
     dw_conv3x3_reference,
     dw_conv3x3_vjp,
+)
+from fastscnn_tpu_torch.ops.cuda.int8_pw import (
+    pw_conv_a8,
+    pw_conv_a8_reference,
+    pw_conv_w8a8,
+    pw_conv_w8a8_reference,
+    quantize_act,
 )
 from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (
     h_lerp_argmax,
@@ -31,6 +39,7 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "ds_conv3x3_pw",
+    "ds_conv3x3_pw_multirow",
     "ds_conv3x3_pw_reference",
     "dw_conv3x3",
     "dw_conv3x3_reference",
@@ -41,6 +50,11 @@ __all__ = [
     "dw_conv3x3_vjp",
     "h_lerp_argmax",
     "h_lerp_argmax_reference",
+    "pw_conv_a8",
+    "pw_conv_a8_reference",
+    "pw_conv_w8a8",
+    "pw_conv_w8a8_reference",
+    "quantize_act",
     "upsample_argmax",
     "upsample_argmax_reference",
     "w_matmul_h_lerp_argmax",
@@ -51,8 +65,11 @@ KERNELS = {
     "h_lerp_argmax": h_lerp_argmax,
     "ds_conv3x3_pw": ds_conv3x3_pw,
     "dw_conv3x3": dw_conv3x3,
+    "ds_conv3x3_pw_multirow": ds_conv3x3_pw_multirow,
     "dw_conv3x3_dx": dw_conv3x3_dx,
     "dw_conv3x3_dw": dw_conv3x3_dw,
+    "pw_conv_a8": pw_conv_a8,
+    "pw_conv_w8a8": pw_conv_w8a8,
 }
 
 

@@ -26,7 +26,7 @@ __all__ = ["library", "build_all", "check", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fastscnn_tpu_torch"
-SOURCES = ("dw_conv", "dw_conv_bwd", "upsample_argmax")
+SOURCES = ("dw_conv", "dw_conv_bwd", "ds_conv_mr", "int8_pw", "upsample_argmax")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +44,13 @@ _SIGNATURES = {
     "dw_conv_bwd": {
         "fastscnn_dw_conv3x3_dx": [_I, _P, _P, _P] + [_I] * 8 + [_P],
         "fastscnn_dw_conv3x3_dw": [_I, _I, _P, _P, _P, _P] + [_I] * 11 + [_P],
+    },
+    "ds_conv_mr": {
+        "fastscnn_ds_conv3x3_pw_mr": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    },
+    "int8_pw": {
+        "fastscnn_pw_conv_w8a8": [_P] * 5 + [_I] * 5 + [_P],
+        "fastscnn_pw_conv_a8": [_P] * 4 + [_I] * 5 + [_P],
     },
     "upsample_argmax": {
         "fastscnn_upsample_argmax": [_I] + [_P] * 8 + [_I] * 6 + [_P],

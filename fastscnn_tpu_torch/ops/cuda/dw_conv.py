@@ -1,10 +1,14 @@
-"""Depthwise 3×3 and fused DSConv for the LTD stem: kernels B3, B4, B6.
+"""Depthwise 3×3 and fused DSConv for the LTD stem: kernels B3–B6.
 
 Counterpart of ``fastscnn_tpu/ops/pallas/dw_conv.py``:
 
 - :func:`ds_conv3x3_pw` (B3) replaces ``ds_conv3x3_pw_pallas``:
   relu(pw1×1(cast(relu(dw3×3(x) + b_dw))) + b_pw), the dw activation
   never leaving the chip;
+- :func:`ds_conv3x3_pw_multirow` (B5) replaces
+  ``ds_conv3x3_pw_pallas_multirow``: B3's function, ``rows_per_step``
+  output rows a block, their input rows staged in shared memory once
+  (``csrc/ds_conv_mr.cu``); its plain version is B3's;
 - :func:`dw_conv3x3` (B4) replaces ``dw_conv3x3_pallas``: depthwise 3×3
   with optional bias and ReLU;
 - :func:`dw_conv3x3_vjp` (B6) replaces ``dw_conv3x3_pallas_vjp``: the
@@ -42,6 +46,7 @@ from fastscnn_tpu_torch.ops.cuda._build import check, library
 __all__ = [
     "dw_conv3x3",
     "ds_conv3x3_pw",
+    "ds_conv3x3_pw_multirow",
     "dw_conv3x3_vjp",
     "dw_conv3x3_dx",
     "dw_conv3x3_dw",
@@ -62,6 +67,12 @@ def _check_dw_args(x: torch.Tensor, w: torch.Tensor, stride: int, name: str):
         raise ValueError(f"{name} needs (3,3,1,C) weights, got {tuple(w.shape)}")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
+
+
+def _check_pw_weights(x: torch.Tensor, w_pw: torch.Tensor):
+    c = x.shape[-1]
+    if w_pw.ndim != 4 or tuple(w_pw.shape[:3]) != (1, 1, c):
+        raise ValueError(f"pw weights must be (1,1,{c},Cout), got {tuple(w_pw.shape)}")
 
 
 def _kernel_input(x: torch.Tensor, name: str) -> int:
@@ -107,7 +118,7 @@ def dw_conv3x3_reference(x, w, b=None, stride=1, padding=1, relu=False):
 
 
 def ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1):
-    """Plain PyTorch version of B3: the dw activation rounds to the input
+    """Plain PyTorch version of B3 and B5: the dw activation rounds to the input
     dtype before the 1×1 (as the unfused graph hands it over), and the
     1×1 accumulates over input channels in order, in f32."""
     _check_dw_args(x, w_dw, stride, "ds_conv3x3_pw")
@@ -150,13 +161,11 @@ def ds_conv3x3_pw(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1):
     """The whole folded DSConv in one kernel (B3):
     relu(pw1×1(cast(relu(dw3×3(x) + b_dw))) + b_pw), NHWC, HWIO weights."""
     _check_dw_args(x, w_dw, stride, "ds_conv3x3_pw")
-    c = x.shape[-1]
-    if w_pw.ndim != 4 or tuple(w_pw.shape[:3]) != (1, 1, c):
-        raise ValueError(f"pw weights must be (1,1,{c},Cout), got {tuple(w_pw.shape)}")
+    _check_pw_weights(x, w_pw)
     if x.device.type == "cpu":
         return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
     code = _kernel_input(x, "ds_conv3x3_pw")
-    n, h, wd, _ = x.shape
+    n, h, wd, c = x.shape
     cout = w_pw.shape[3]
     ho, wo = _out_hw(x, stride, padding, "ds_conv3x3_pw")
     smem = 4 * (64 * c + c * cout)  # kDsTileW * C + C * Cout floats
@@ -178,6 +187,56 @@ def ds_conv3x3_pw(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1):
 
 
 ds_conv3x3_pw.launches = 0
+
+_MR_TILE_W = 16  # output columns per B5 block (kTileW in csrc/ds_conv_mr.cu)
+
+
+def _mr_smem_bytes(c: int, cout: int, stride: int, rows: int, elem: int) -> int:
+    """Dynamic shared memory of one B5 block: pw weights, the dw tile (one
+    padding float per pixel), the staged input rows."""
+    rows_in, cols_in = (rows - 1) * stride + 3, (_MR_TILE_W - 1) * stride + 3
+    return 4 * (c * cout + rows * _MR_TILE_W * (c + 1)) + elem * rows_in * cols_in * c
+
+
+def ds_conv3x3_pw_multirow(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows_per_step=8):
+    """B3's function in the multi-row kernel (B5): each block computes
+    ``rows_per_step`` output rows of a 16-column tile from input rows
+    staged in shared memory once. Any shape; a ragged last row block is
+    masked. Its plain version is :func:`ds_conv3x3_pw_reference`, which
+    it equals bit for bit."""
+    _check_dw_args(x, w_dw, stride, "ds_conv3x3_pw_multirow")
+    _check_pw_weights(x, w_pw)
+    rows = int(rows_per_step)
+    if rows < 1:
+        raise ValueError(f"rows_per_step must be >= 1, got {rows_per_step}")
+    if x.device.type == "cpu":
+        return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
+    code = _kernel_input(x, "ds_conv3x3_pw_multirow")
+    n, h, wd, c = x.shape
+    cout = w_pw.shape[3]
+    ho, wo = _out_hw(x, stride, padding, "ds_conv3x3_pw_multirow")
+    if -(-ho // rows) > 65535:
+        raise ValueError(f"ds_conv3x3_pw_multirow: {ho} output rows need rows_per_step > {rows}")
+    smem = _mr_smem_bytes(c, cout, stride, rows, x.element_size())
+    if smem > 227 * 1024:
+        raise ValueError(f"ds_conv3x3_pw_multirow: C={c}, Cout={cout}, rows_per_step={rows} "
+                         f"need {smem} bytes of shared memory, more than 227 KB")
+    w9 = w_dw.float().reshape(9, c).contiguous()
+    bd = b_dw.float().contiguous()
+    wpw = w_pw.reshape(c, cout).to(x.dtype).float().contiguous()
+    bp = b_pw.float().contiguous()
+    out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    rc = library("ds_conv_mr").fastscnn_ds_conv3x3_pw_mr(
+        code, x.data_ptr(), w9.data_ptr(), bd.data_ptr(), wpw.data_ptr(), bp.data_ptr(),
+        out.data_ptr(), n, h, wd, c, cout, ho, wo, stride, padding, rows,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check(rc, "ds_conv3x3_pw_multirow")
+    ds_conv3x3_pw_multirow.launches += 1
+    return out
+
+
+ds_conv3x3_pw_multirow.launches = 0
 
 
 # -- B6: the differentiable depthwise 3×3 of the training stem ----------------

@@ -1,6 +1,7 @@
-"""Kernels B3 and B4 (``fastscnn_tpu_torch/ops/cuda/dw_conv.py``): their
+"""Kernels B3, B4 and B5 (``fastscnn_tpu_torch/ops/cuda/dw_conv.py``): their
 plain PyTorch versions, which the wrappers run for CPU tensors, against
-the JAX package's Pallas kernels run in the Pallas interpreter.
+the JAX package's Pallas kernels run in the Pallas interpreter. B5's plain
+version is B3's, so their CPU results are bit-equal by construction.
 
 Tolerances: in f32 the two sum the 9 taps (and the 1×1's channels) in a
 different order, so 1e-5. In bf16 both accumulate in f32 and round once
@@ -15,9 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from fastscnn_tpu.ops.pallas.dw_conv import ds_conv3x3_pw_pallas, dw_conv3x3_pallas
+from fastscnn_tpu.ops.pallas.dw_conv import (
+    ds_conv3x3_pw_pallas,
+    ds_conv3x3_pw_pallas_multirow,
+    dw_conv3x3_pallas,
+)
 from fastscnn_tpu_torch.ops.conv import conv2d
-from fastscnn_tpu_torch.ops.cuda import ds_conv3x3_pw, dw_conv3x3
+from fastscnn_tpu_torch.ops.cuda import ds_conv3x3_pw, ds_conv3x3_pw_multirow, dw_conv3x3
+from fastscnn_tpu_torch.ops.cuda.dw_conv import _mr_smem_bytes
 
 _ULP_BF16 = 2.0 ** -7
 
@@ -94,6 +100,53 @@ def test_ds_conv3x3_pw_plain_matches_unfused_port_graph(rng):
     ref = torch.relu(conv2d(mid, t["w_pw"], t["b_pw"]))
     got = ds_conv3x3_pw(t["x"], t["w"], t["b"], t["w_pw"], t["b_pw"], stride=2, padding=1)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "stride,shape,cout,rows",
+    [
+        (2, (1, 31, 20, 32), 48, 4),   # Ho = 16: rows_per_step divides it (the multi-row kernel)
+        (2, (2, 18, 12, 8), 12, 4),    # Ho = 9: it does not (JAX falls back to B3)
+        (1, (1, 16, 12, 8), 16, 4),    # stride 1
+        (2, (1, 13, 9, 16), 24, 8),    # Ho = 7 < rows_per_step
+    ],
+)
+def test_ds_conv3x3_pw_multirow_plain_matches_pallas_interpret(rng, dtype, stride, shape, cout,
+                                                               rows):
+    """B5 on the CPU: bit-equal to B3's plain version, and within 1e-5 (f32)
+    or two bf16 ulps of the JAX multi-row kernel, interpreted."""
+    a = _inputs(rng, shape, cout)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    ref = ds_conv3x3_pw_pallas_multirow(
+        jnp.asarray(a["x"], jdt), jnp.asarray(a["w"]), jnp.asarray(a["b"]),
+        jnp.asarray(a["w_pw"]), jnp.asarray(a["b_pw"]), stride=stride, padding=1,
+        rows_per_step=rows, interpret=True,
+    )
+    args = (torch.from_numpy(a["x"]).to(tdt),
+            *(torch.from_numpy(a[k]) for k in ("w", "b", "w_pw", "b_pw")))
+    before = ds_conv3x3_pw_multirow.launches
+    got = ds_conv3x3_pw_multirow(*args, stride=stride, padding=1, rows_per_step=rows)
+    assert ds_conv3x3_pw_multirow.launches == before
+    assert got.dtype == tdt and tuple(got.shape) == tuple(ref.shape)
+    assert torch.equal(got, ds_conv3x3_pw(*args, stride=stride, padding=1))
+    _close(got, ref, dtype, ulps=2)
+
+
+def test_ds_conv3x3_pw_multirow_shared_memory_fits_the_serving_sites():
+    """The staged tile of the LTD's two sites at rows_per_step 8 in bf16
+    (58,944 and 91,232 bytes) fits two blocks on an SM's 227 KB; the
+    wrapper refuses what does not fit one."""
+    assert _mr_smem_bytes(32, 48, 2, 8, 2) == 58944
+    assert _mr_smem_bytes(48, 64, 2, 8, 2) == 91232
+    x = torch.zeros((1, 64, 64, 48), device="meta")
+    with pytest.raises(ValueError, match="rows_per_step"):
+        ds_conv3x3_pw_multirow(torch.zeros((1, 8, 8, 4)), torch.zeros((3, 3, 1, 4)),
+                               torch.zeros(4), torch.zeros((1, 1, 4, 6)), torch.zeros(6),
+                               rows_per_step=0)
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        ds_conv3x3_pw_multirow(x, torch.zeros((3, 3, 1, 48)), torch.zeros(48),
+                               torch.zeros((1, 1, 48, 64)), torch.zeros(64), stride=2)
 
 
 @pytest.mark.parametrize("fn", ["dw", "ds"])

@@ -177,7 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       or m == 'fastscnn_tpu' or m.startswith('fastscnn_tpu.')]\n"
         "n = sum(m.startswith('fastscnn_tpu_torch') for m in sys.modules)\n"
         "need = {'fastscnn_tpu_torch.' + m for m in ('parallel.train', 'losses.segmentation',\n"
-        "        'utils.lr_scheduler', 'utils.metric', 'ops.cuda.dw_conv', 'models.fast_scnn')}\n"
+        "        'utils.lr_scheduler', 'utils.metric', 'ops.cuda.dw_conv', 'ops.cuda.int8_pw',\n"
+        "        'models.fast_scnn', 'models.quantize')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )

@@ -18,10 +18,12 @@ from fastscnn_tpu.models import fold_inference_params as jax_fold
 from fastscnn_tpu.models import init_fast_scnn as jax_init
 from fastscnn_tpu_torch.models import (
     FastSCNN,
+    calibrate_pw_scales,
     fold_inference_params,
     from_jax_params,
     init_fast_scnn,
     load_checkpoint,
+    quantized_model,
 )
 from fastscnn_tpu_torch.models.convert import build_key_map
 
@@ -77,10 +79,11 @@ def test_forward_matches_jax_apply(shared):
     np.testing.assert_allclose(aux.numpy(), np.asarray(ref_aux), rtol=1e-4, atol=ATOL)
 
 
-@pytest.mark.parametrize("impl", ["conv", "pallas", "fused-ds"])
+@pytest.mark.parametrize("impl", ["conv", "pallas", "fused-ds", "fused-ds-mr"])
 def test_apply_folded_matches_jax(shared, impl):
-    """f32 folded graph, each LTD route: on the CPU JAX's 'pallas' and
-    'fused-ds' take their XLA fallbacks, the port's its plain versions."""
+    """f32 folded graph, each LTD route: on the CPU JAX's 'pallas',
+    'fused-ds' and 'fused-ds-mr' take their XLA fallbacks, the port's its
+    plain versions."""
     params, state, sd, x = shared
     jmodel = JaxFastSCNN(19, aux=True, folded_dw_impl=impl)
     ref = jmodel.apply_folded(jax_fold(params, state, jnp.float32), jnp.asarray(x))
@@ -89,6 +92,20 @@ def test_apply_folded_matches_jax(shared, impl):
     assert len(got) == len(ref) == 2
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=ATOL)
+
+
+def test_apply_folded_fused_ds_mr_equals_conv(shared):
+    """f32: the LTD's DSConvs through B5 ('fused-ds-mr') against cuDNN
+    ('conv') in the port's own graph, within 1e-5."""
+    _, _, sd, x = shared
+    base = _port_model(sd)
+    folded = fold_inference_params(base, torch.float32)
+    with torch.no_grad():
+        ref = base.apply_folded(folded, torch.from_numpy(x))
+        got = base.with_options(folded_dw_impl="fused-ds-mr").apply_folded(
+            folded, torch.from_numpy(x))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
 
 
 def test_fold_inference_params_matches_jax(shared):
@@ -151,6 +168,24 @@ def test_init_fast_scnn_is_seeded_with_torch_default_bounds():
         ({"stem_impl": "taps"}, "'taps'"),
     ],
 )
-def test_unported_options_name_their_roadmap_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        FastSCNN(19, **kwargs)
+def test_unported_options_name_their_roadmap_item(shared, kwargs, item):
+    """Options still to port raise, naming their ROADMAP.md item. Those
+    ported since (B5's 'fused-ds-mr', the int8 sites of B7, the hook)
+    construct and serve: finite logits, and the identity hook changes
+    nothing."""
+    if item not in ("B5", "int8"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+            FastSCNN(19, **kwargs)
+        return
+    _, _, sd, x = shared
+    model = _port_model(sd, **kwargs)
+    folded = fold_inference_params(model, torch.float32)
+    if model.folded_pw_impl != "conv":
+        scales = calibrate_pw_scales(model, folded, [x])
+        model = quantized_model(model, scales, model.folded_pw_impl)
+    with torch.no_grad():
+        out = model.apply_folded(folded, torch.from_numpy(x))
+        plain = _port_model(sd).apply_folded(folded, torch.from_numpy(x))
+    assert len(out) == 2 and all(torch.isfinite(o.float()).all() for o in out)
+    if model.act_fake_quant is not None:
+        assert all(torch.equal(o, p) for o, p in zip(out, plain))
