@@ -425,11 +425,13 @@ def int8_sites(dev):
             folded, torch.zeros((1, HEIGHT, WIDTH, 3), dtype=torch.bfloat16, device=dev),
             upsample_outputs=False)
 
-    def cout(site):
-        p = folded
-        for part in site.replace("ltd/", "learning_to_downsample/").replace(
-                "gfe/", "global_feature_extractor/").replace("ffm/", "feature_fusion/").replace(
-                "cls/", "classifier/").split("/"):
+    top = {"ltd": "learning_to_downsample", "gfe": "global_feature_extractor",
+           "ffm": "feature_fusion", "cls": "classifier"}
+
+    def cout(site):  # the site's 1x1 weight in the folded tree, (1, 1, K, N)
+        head, *rest = site.split("/")
+        p = folded[top[head]]
+        for part in rest:
             p = p[int(part)] if part.isdigit() else p[part]
         return p["w"].shape[-1]
 

@@ -1,7 +1,8 @@
 """Fast-SCNN serving and training in PyTorch on an NVIDIA Hopper card.
 
 A port of ``fastscnn_tpu`` (JAX/Pallas on a TPU): the same model, the
-same BN-folded inference graph and mask heads (``engine``), and the same
+same BN-folded inference graph and mask heads (``engine``), its int8
+serving configuration (``models/quantize.py``), and the same
 training step — train-mode forward, losses, LR schedules, metric,
 SGD/AdamW (``models``, ``losses``, ``utils``, ``parallel``) — with the
 TPU's Pallas kernels replaced by CUDA C++ kernels built for ``sm_90a``

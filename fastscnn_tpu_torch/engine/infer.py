@@ -80,6 +80,9 @@ class InferenceEngine:
 
     ``device=None`` means the CUDA card (raises when there is none). The
     engine folds the model's weights once, into ``config.compute_dtype``.
+    An engine over :func:`~fastscnn_tpu_torch.models.quantized_model`'s
+    model is the int8 serving path (calibrate its scales on the 'conv'
+    model with :func:`~fastscnn_tpu_torch.models.calibrate_pw_scales`).
     ``infer([nchw])`` is the reference's ``InferSession`` duck-type.
     """
 

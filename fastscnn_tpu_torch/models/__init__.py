@@ -7,17 +7,11 @@ from fastscnn_tpu_torch.models.fast_scnn import (
     fold_inference_params,
     init_fast_scnn,
 )
-from fastscnn_tpu_torch.models.quantize import (
-    INT8_IMPLS,
-    PW_INT8_SITES,
-    calibrate_pw_scales,
-    quantized_model,
-)
+from fastscnn_tpu_torch.models.quantize import PW_INT8_SITES, calibrate_pw_scales, quantized_model
 
 __all__ = [
     "FOLDED_DW_IMPLS",
     "FOLDED_PW_IMPLS",
-    "INT8_IMPLS",
     "PW_INT8_SITES",
     "STEM_IMPLS",
     "FastSCNN",

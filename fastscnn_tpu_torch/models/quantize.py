@@ -23,9 +23,7 @@ import torch
 
 from fastscnn_tpu_torch.utils.tree import tree_leaves
 
-__all__ = ["PW_INT8_SITES", "calibrate_pw_scales", "quantized_model", "INT8_IMPLS"]
-
-INT8_IMPLS = ("int8-a8", "int8-w8a8")
+__all__ = ["PW_INT8_SITES", "calibrate_pw_scales", "quantized_model"]
 
 
 def _bottleneck_sites():
@@ -96,7 +94,7 @@ def quantized_model(model, scales, impl: str = "int8-a8"):
     """A model sharing ``model``'s weights whose calibrated 1×1 sites run
     through kernel B7 (``impl='int8-a8'``) or B8 (``'int8-w8a8'``); no
     ``act_fake_quant`` hook."""
-    if impl not in INT8_IMPLS:
+    if impl not in ("int8-a8", "int8-w8a8"):
         raise ValueError(f"unknown int8 pw impl: {impl!r}")
     return model.with_options(folded_pw_impl=impl, pw_act_scales=tuple(scales),
                               act_fake_quant=None)

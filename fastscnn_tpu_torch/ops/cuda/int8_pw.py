@@ -54,8 +54,8 @@ def quantize_act(x: torch.Tensor, scale) -> torch.Tensor:
     the reciprocal instead, which moves values at the half-way points to
     the next level, so the scale always goes in as a tensor on ``x``'s
     device. (XLA under ``jit`` also rewrites a division by a constant into
-    a reciprocal multiply: on the CPU, for a scale such as 0.1234567891,
-    66 of 200,000 normal values land one level apart.)"""
+    a reciprocal multiply, so the jitted JAX function puts some values at
+    a level's edge one level apart from the function as written.)"""
     if not isinstance(scale, torch.Tensor):
         scale = torch.tensor(scale, dtype=torch.float32, device=x.device)
     q = torch.div(x.float(), scale).round_().clamp_(-127.0, 127.0)
@@ -105,16 +105,15 @@ def pw_conv_w8a8_reference(x_q, w_q, cs, b_eff, relu=True, quantize_out=False):
     return _epilogue(acc * cs.float(), b_eff, relu, quantize_out).reshape(*lead, n)
 
 
-def _launch_args(x2: torch.Tensor, w: torch.Tensor, name: str):
+def _check_launch(x2: torch.Tensor, w: torch.Tensor, name: str):
     if x2.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {x2.device}")
-    m, k = x2.shape
+    k = x2.shape[1]
     if k % 4 or x2.data_ptr() % 4:
         raise ValueError(f"{name}: the kernel reads 4 int8 values at once and needs K % 4 == 0 "
                          f"and 4-byte aligned rows, got K={k}")
     if w.device != x2.device:
         raise ValueError(f"{name}: weights on {w.device}, activations on {x2.device}")
-    return m, k
 
 
 def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False):
@@ -130,7 +129,8 @@ def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False):
     if x2.device.type == "cpu":
         return pw_conv_a8_reference(x_q, w_eff, b_eff, relu, quantize_out)
     x2 = x2.contiguous()
-    m, _ = _launch_args(x2, w_eff, "pw_conv_a8")
+    _check_launch(x2, w_eff, "pw_conv_a8")
+    m = x2.shape[0]
     w = w_eff.to(torch.bfloat16).contiguous()
     b = b_eff.float().contiguous()
     out = torch.empty((m, n), dtype=torch.int8 if quantize_out else torch.bfloat16,
@@ -160,7 +160,8 @@ def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False):
     if x2.device.type == "cpu":
         return pw_conv_w8a8_reference(x_q, w_q, cs, b_eff, relu, quantize_out)
     x2 = x2.contiguous()
-    m, _ = _launch_args(x2, w_q, "pw_conv_w8a8")
+    _check_launch(x2, w_q, "pw_conv_w8a8")
+    m = x2.shape[0]
     w = w_q.contiguous()
     scale = cs.float().contiguous()
     b = b_eff.float().contiguous()

@@ -53,8 +53,10 @@ _ULP_BF16 = 2.0**-7
 
 
 def _np(a):
-    return np.asarray(jnp.asarray(a, jnp.float32)) if not isinstance(a, torch.Tensor) else \
-        a.float().numpy()
+    """A torch tensor or a JAX array as f32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
 
 
 # -- quantize_act --------------------------------------------------------------
@@ -78,6 +80,22 @@ def test_quantize_act_bit_equal_to_jax(rng, scale, dtype):
     got_t = quantize_act(torch.from_numpy(x).to(getattr(torch, dtype)),
                          torch.tensor(scale, dtype=torch.float32))
     np.testing.assert_array_equal(got_t.numpy(), ref)
+
+
+def test_quantize_act_divides_where_jitted_jax_multiplies(rng):
+    """Under ``jit`` XLA rewrites the JAX function's division by a constant
+    scale into a multiply by the f32 reciprocal, which moves some values at
+    a level's edge to the next level. The port keeps the division the
+    function is written with (and runs eagerly)."""
+    s = 0.1234567891234
+    x = (rng.standard_normal(200000) * 5).astype(np.float32)
+    eager = np.asarray(jax_int8.quantize_act(jnp.asarray(x), s))
+    jitted = np.asarray(jax.jit(lambda v: jax_int8.quantize_act(v, s))(jnp.asarray(x)))
+    recip = np.clip(np.round(x * np.float32(1.0 / s)), -127, 127).astype(np.int8)
+    got = quantize_act(torch.from_numpy(x), s).numpy()
+    np.testing.assert_array_equal(got, eager)
+    np.testing.assert_array_equal(jitted, recip)
+    assert (got != jitted).any()
 
 
 # -- B8 ------------------------------------------------------------------------
