@@ -708,7 +708,7 @@ def serving_phase():
     # equal but for near-ties. C and D against themselves: their int8 sites
     # emit bf16, and from the first one on the network runs on bf16
     # activations, where cuDNN and the CPU round differently and a random
-    # network amplifies one ulp into a different mask (PERF.md, PR 3: the
+    # network amplifies one ulp into a different mask (PERF.md Findings: the
     # masks agree on ~0.7 of pixels). Their gate is the int8 levels at the
     # first int8 site, the last point the card and the CPU compute in f32:
     # equal on KERNEL_MASK_GATE of the elements, none more than one level
