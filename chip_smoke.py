@@ -6,11 +6,15 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the ``nvcc`` build of every kernel source, from this checkout;
+2. the ``nvcc`` build of every kernel source, from this checkout; then
+   the depthwise forward and dW kernels on a sweep of small shapes, views
+   and channel counts that runs every channel width they pick
+   (:func:`dw_sweep`);
 3. each kernel (B1-B5, B7, B8) at the shapes the 1024x2048 serving path
    gives it (N=1, bf16; B7 and B8 at every int8 site of a frame, and at one
    site with ``quantize_out``): held against its plain PyTorch version
-   (B5 also against B3's kernel), and timed with CUDA events beside the
+   (B4 bit for bit in bf16 and f32, B5 also against B3's kernel), and timed
+   with CUDA events beside the
    plain version and one PyTorch library call that computes the same
    function (a yardstick the port never calls), with its bound from the
    bytes it must move or its operations at the card's peak rate for
@@ -34,8 +38,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 5. kernel B6 (``dw_conv3x3_vjp``: forward through B4's kernel, dX and dW
    through the kernels of ``csrc/dw_conv_bwd.cu``) at the training stem's
    two depthwise sites (batch 16 of 768x768 crops, bf16), each part held
-   against its plain version and timed beside it, its byte bound and the
-   cuDNN call that computes the same gradient;
+   against its plain version (the forward bit for bit in bf16 and f32; dW
+   also run twice, bit-identical) and timed beside it, its byte bound and
+   the cuDNN call that computes the same gradient;
 6. training: the 19-class Cityscapes recipe (``stem_impl='pallas'``, aux
    head, mix OHEM CE, SGD with momentum and poly LR) at full width on
    16 uint8 768x768 crops whose labels are a seeded function of the
@@ -53,6 +58,7 @@ Without a CUDA device it prints an error and exits 1.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -86,6 +92,7 @@ INT8_PEAK = {"pw_conv_a8": "bf16", "pw_conv_w8a8": "int8"}
 MASK_GATE = 0.995      # f32 serving masks vs the kernel-free config (PARITY.md's gate)
 KERNEL_MASK_GATE = 0.999  # B1/B2 vs their plain versions; small f32 input vs the CPU
 NEAR_TIE = 1e-5        # f32 gap below which a disagreeing pixel is a near-tie
+SPIN_CYCLES = 20_000_000  # the spin kernel before each timing window (~10 ms on an H100)
 
 
 def _print(*args):
@@ -94,7 +101,11 @@ def _print(*args):
 
 def time_ms(fn, iters=20, warmup=3, repeats=5):
     """Device time of one ``fn`` call in ms: CUDA events around ``iters``
-    calls, the median over ``repeats`` such windows."""
+    calls, the median over ``repeats`` such windows. Each window is queued
+    behind a spin kernel of about 10 ms, so the host has queued all its
+    calls before the first starts: the window holds their device work back
+    to back, not the host's time to issue them (a kernel wrapper's Python
+    can take longer than a serving-size kernel runs)."""
     import torch
 
     for _ in range(warmup):
@@ -104,6 +115,7 @@ def time_ms(fn, iters=20, warmup=3, repeats=5):
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(repeats):
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(iters):
             fn()
@@ -118,6 +130,77 @@ def card_peaks(name: str):
         if key in name:
             return key, peaks
     raise RuntimeError(f"no published peaks for {name!r}")
+
+
+def dw_sweep():
+    """The depthwise forward (B4 and B6's forward) and dW kernels on small
+    shapes that make the wrappers pick every channel width VEC (C = 3, 6,
+    8, 12, 32, 48 in bf16 and f32), odd and even H and W, N = 1 and 3,
+    strides 1 and 2, and on two views: a batch slice (which keeps its C's
+    VEC) and a contiguous view one element into a flat buffer (VEC 1). The
+    forward must equal its plain version bit for bit (with and without
+    bias + ReLU), dW stay within 2e-5 of sum |x*g| in f32 and that plus one
+    bf16 ulp in bf16."""
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+    from fastscnn_tpu_torch.ops.cuda.dw_conv import vec_width
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases, vecs, worst = 0, set(), 0.0
+    failures = []
+
+    def check(label, x, w, b, gy, stride):
+        nonlocal cases, worst
+        relu = b is not None
+        got = K.dw_conv3x3(x, w, b, stride, 1, relu)
+        ref = K.dw_conv3x3_reference(x, w, b, stride, 1, relu)
+        if not torch.equal(got, ref):
+            failures.append(f"{label}: forward, {int((got != ref).sum())} elements differ")
+        dw = K.dw_conv3x3_dw(x, gy, stride, 1, torch.float32)
+        dw_ref = K.dw_conv3x3_dw_reference(x, gy, stride, 1)
+        scale = K.dw_conv3x3_dw_reference(x.abs(), gy.abs(), stride, 1).clamp_min(1e-30)
+        e32 = ((dw - dw_ref).abs() / scale).max().item()
+        dw16 = K.dw_conv3x3_dw(x, gy, stride, 1, torch.bfloat16).float()
+        ref16 = dw_ref.to(torch.bfloat16).float()
+        bad16 = int(((dw16 - ref16).abs() > ref16.abs() * 2.0**-7 + 2e-5 * scale).sum())
+        if e32 > 2e-5 or bad16:
+            failures.append(f"{label}: dW f32 error {e32:.3g} of sum|x*g|, {bad16} bf16 beyond")
+        worst = max(worst, e32)
+        vecs.add((str(x.dtype).split(".")[-1],
+                  vec_width(x.shape[-1], x.element_size(), (x.data_ptr(), got.data_ptr()))))
+        cases += 1
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (3, 6, 8, 12, 32, 48):
+            for n, h, w in ((1, 17, 23), (3, 16, 22), (3, 9, 8)):
+                for stride in (1, 2):
+                    x = torch.randn((n, h, w, c), generator=g, device=dev).to(dtype)
+                    wt = torch.randn((3, 3, 1, c), generator=g, device=dev) * 0.3
+                    b = torch.randn((c,), generator=g, device=dev) * 0.1 if n == 3 else None
+                    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+                    gy = torch.randn((n, ho, wo, c), generator=g, device=dev).to(dtype)
+                    check(f"{dtype} {tuple(x.shape)} stride {stride}", x, wt, b, gy, stride)
+        # views: a batch slice, and one element into a flat buffer
+        def view_of(shape, view):
+            if view == "batch slice":
+                return torch.randn((shape[0] + 1, *shape[1:]), generator=g, device=dev).to(dtype)[1:]
+            flat = torch.randn(math.prod(shape) + 1, generator=g, device=dev).to(dtype)
+            return flat[1:].view(shape)
+
+        for c, view in ((6, "batch slice"), (32, "flat offset"), (48, "flat offset")):
+            x = view_of((3, 15, 13, c), view)
+            wt = torch.randn((3, 3, 1, c), generator=g, device=dev) * 0.3
+            for stride in (1, 2):
+                gy = view_of((3, (15 - 1) // stride + 1, (13 - 1) // stride + 1, c), view)
+                check(f"{dtype} {view} {tuple(x.shape)} stride {stride}", x, wt, None, gy, stride)
+    torch.cuda.synchronize()
+    _print(f"  depthwise sweep: {cases} cases, forward bit-equal and dW within tolerance in "
+           f"{cases - len(failures)}; channel widths (dtype, VEC) {sorted(vecs)}; worst dW f32 "
+           f"error {worst:.3g} of sum|x*g|")
+    if failures:
+        raise AssertionError("depthwise sweep: " + "; ".join(failures[:10]))
 
 
 def kernel_phase(peaks):
@@ -241,6 +324,12 @@ def kernel_phase(peaks):
                        f"{'bit-equal' if same else 'DIFFERENT'} ({int((got != b3).sum())} differ)")
                 if err or not same:
                     raise AssertionError(f"{kname}[{site}]: not bit-equal to B3")
+            if kname == "dw_conv3x3":  # bit for bit, in bf16 and in f32
+                a32 = (x.float(), *args[1:])
+                diff32 = int((kern(*a32) != plain(*a32)).sum())
+                _print(f"  {kname}[{site}] in f32: {diff32} elements differ from the plain version")
+                if err or diff32:
+                    raise AssertionError(f"{kname}[{site}]: not bit-equal to its plain version")
             vs_f32(f"{kname}[{site}]", got, lib().permute(0, 2, 3, 1),
                    lib(torch.float32).permute(0, 2, 3, 1))
             ms = time_ms(lambda: kern(*args))
@@ -361,6 +450,14 @@ def kernel_phase(peaks):
             label = f"dw_conv3x3_vjp:{part}[{site}]"
             if part != "dw":
                 err = close_bf16(f"{label} x {tuple(x.shape)}", got, plain())
+                if part == "forward":  # bit for bit, in bf16 and in f32
+                    x32 = x.float()
+                    diff32 = int((K.dw_conv3x3(x32, wt, None, 2, 1)
+                                  != K.dw_conv3x3_reference(x32, wt, None, 2, 1)).sum())
+                    del x32
+                    _print(f"  {label} in f32: {diff32} elements differ from the plain version")
+                    if err or diff32:
+                        raise AssertionError(f"{label}: not bit-equal to its plain version")
             else:
                 # dW sums n*ho*wo products per (tap, c) in another order than
                 # the plain version's reductions: f32 reassociation, bounded
@@ -374,10 +471,14 @@ def kernel_phase(peaks):
                 errv = (got.float() - ref).abs()
                 bad = int((errv > ref.abs() * 2.0**-7 + 2e-5 * scale).sum())
                 err = errv.max().item()
+                # a fixed summation order: a second run gives the same bits
+                again = (torch.equal(got, kern())
+                         and torch.equal(f32, K.dw_conv3x3_dw(x, gy, 2, 1, torch.float32)))
                 _print(f"  {label}: f32 max |err| / sum|x*g| {e32:.3g} (gate 2e-5); bf16 "
-                       f"max_abs_err {err:.3g}, {bad} of {errv.numel()} beyond 1 ulp + 2e-5 sum")
-                if e32 > 2e-5 or bad:
-                    raise AssertionError(f"{label}: outside tolerance")
+                       f"max_abs_err {err:.3g}, {bad} of {errv.numel()} beyond 1 ulp + 2e-5 sum; "
+                       f"second run {'bit-identical' if again else 'DIFFERENT'}")
+                if e32 > 2e-5 or bad or not again:
+                    raise AssertionError(f"{label}: outside tolerance or not reproducible")
             vs_f32(label, got, lib(), lib(torch.float32).float())
             ms = time_ms(kern)
             plain_ms = time_ms(plain, iters=3, warmup=1, repeats=3)
@@ -397,6 +498,16 @@ def kernel_phase(peaks):
         del x, gy, xc, gc, calls
         torch.cuda.empty_cache()
     results.extend(parts.values())
+    # the depthwise kernels against the library call that computes the same
+    # function, summed over their sites (reported, not gated)
+    by_name = {r["name"]: r for r in results}
+    for name, lib in (("dw_conv3x3", "cuDNN depthwise + ReLU"),
+                      ("dw_conv3x3_vjp:forward", "cuDNN depthwise"),
+                      ("dw_conv3x3_vjp:dw", "conv2d_weight")):
+        r = by_name[name]
+        _print(f"  {name} over its sites: kernel {r['ms']:.4f} ms, {lib} {r['library_ms']:.4f} "
+               f"ms ({r['library_ms'] / r['ms']:.2f}x the kernel's time), bound "
+               f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of it)")
     results.extend(int8_kernel_phase(peaks, bound, nbytes, g))
     return results
 
@@ -941,6 +1052,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     _print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    _print("depthwise forward and dW on a sweep of small shapes:")
+    dw_sweep()
+    _print(f"  sweep: {time.perf_counter() - t0:.1f} s")
 
     _print("kernels at the serving path's shapes (N=1, bf16), B6 at the training stem's "
            "(N=16, bf16), then B7 and B8 at a frame's int8 sites (N=1):")

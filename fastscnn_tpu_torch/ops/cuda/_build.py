@@ -38,12 +38,12 @@ _I = ctypes.c_int
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
     "dw_conv": {
-        "fastscnn_dw_conv3x3": [_I, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        "fastscnn_dw_conv3x3": [_I, _P, _I, _P, _I, _P, _P] + [_I] * 15 + [_P],
         "fastscnn_ds_conv3x3_pw": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     },
     "dw_conv_bwd": {
         "fastscnn_dw_conv3x3_dx": [_I, _P, _P, _P] + [_I] * 8 + [_P],
-        "fastscnn_dw_conv3x3_dw": [_I, _I, _P, _P, _P, _P] + [_I] * 11 + [_P],
+        "fastscnn_dw_conv3x3_dw": [_I, _I, _P, _P, _P, _P] + [_I] * 12 + [_P],
     },
     "ds_conv_mr": {
         "fastscnn_ds_conv3x3_pw_mr": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],

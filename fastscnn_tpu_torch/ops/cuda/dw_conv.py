@@ -23,8 +23,12 @@ output): forward, dX and dW each move about one activation-sized tensor
 in and one out (dW writes only 9 × C values). The kernels read NHWC rows
 straight from device memory with bounds-checked taps (no padded or
 zero-dilated copy); B3 keeps the dw row tile in shared memory; dW sums
-across blocks in two passes without atomics. See the sources for the
-designs.
+across blocks in two passes without atomics. The forward (B4, B6's
+forward) and dW give a thread ``VEC`` channels moved by one load of up to
+16 bytes, :func:`vec_width` of C, the dtype and the pointers' alignment,
+and a block of outputs whose shared inputs stay in registers; their
+launch plans (:func:`dw_fwd_plan`, :func:`dw_plan`) are functions of the
+shape. See the sources for the designs.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU and launches its kernel for a CUDA tensor, raising on
@@ -94,6 +98,52 @@ def _out_hw(x: torch.Tensor, stride: int, padding: int, name: str):
     return ho, wo
 
 
+def vec_width(c: int, itemsize: int, ptrs) -> int:
+    """Channels a thread of the forward and dW kernels owns (``VEC``): the
+    largest power of two with ``VEC * itemsize <= 16`` bytes that divides
+    ``c`` and to whose width, ``VEC * itemsize`` bytes, every activation
+    pointer is aligned; down to 1. C = 32 and 48 get 8 in bf16 and 4 in
+    f32."""
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec or any(p % (vec * itemsize) for p in ptrs)):
+        vec //= 2
+    return vec
+
+
+# -- the forward kernel's launch plan (csrc/dw_conv.cu, dw_conv3x3_kernel) ----
+_FWD_COLS = 2              # output columns a thread (kCols)
+_FWD_THREADS = 128         # kFwdThreads: a block's threads at most; C / VEC beyond
+                           # it takes channel groups
+_FWD_MIN_BLOCKS = 3 * 132  # three blocks on each of an H100's SMs before rows shrink
+
+
+def dw_fwd_plan(n: int, ho: int, wo: int, c: int, vec: int) -> dict:
+    """Launch plan of the forward kernel: block ``(C / VEC, column pairs)``
+    of at most 128 threads (channel groups of at most 128 vectors), each
+    thread 2 output columns by ``rows`` output rows: 16, halved while the
+    grid would give fewer than three blocks an SM (16, 8, 4 and 2 rows at
+    the training and serving dsconv1 and dsconv2, where ``tune_dw``'s sweep
+    finds each fastest); ``grid = (tiles * groups, ceil(Ho / rows), N)``."""
+    cv = c // vec
+    bx = min(cv, _FWD_THREADS)
+    groups = -(-cv // bx)
+    pairs = -(-wo // _FWD_COLS)
+    tiles = -(-pairs // (_FWD_THREADS // bx))
+    by = -(-pairs // tiles)
+    rows = 16
+    while rows > 1 and tiles * groups * -(-ho // rows) * n < _FWD_MIN_BLOCKS:
+        rows //= 2
+    return {"rows": rows, "block": (bx, by), "tiles": tiles, "groups": groups,
+            "grid": (tiles * groups, -(-ho // rows), n)}
+
+
+def _as_kernel_weights(t: torch.Tensor) -> torch.Tensor:
+    """Weights or bias as the forward kernel reads them: f32 or bf16 (it
+    widens bf16 to f32 exactly, as ``.float()`` does) and contiguous;
+    other dtypes become f32."""
+    return (t if t.dtype in _DTYPE_CODE else t.float()).contiguous()
+
+
 def _dw_taps_f32(x, w, b, stride, padding, relu):
     """The 9 taps in (di, dj) order in f32 from a zero-padded copy, then
     + bias and ReLU — the kernel's sequence of operations."""
@@ -141,12 +191,16 @@ def dw_conv3x3(x, w, b=None, stride=1, padding=1, relu=False):
     code = _kernel_input(x, "dw_conv3x3")
     n, h, wd, c = x.shape
     ho, wo = _out_hw(x, stride, padding, "dw_conv3x3")
-    w9 = w.float().reshape(9, c).contiguous()
-    bias = None if b is None else b.float().contiguous()
+    w9 = _as_kernel_weights(w.reshape(9, c))
+    bias = None if b is None else _as_kernel_weights(b)
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    vec = vec_width(c, x.element_size(), (x.data_ptr(), out.data_ptr()))
+    plan = dw_fwd_plan(n, ho, wo, c, vec)
     rc = library("dw_conv").fastscnn_dw_conv3x3(
-        code, x.data_ptr(), w9.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), n, h, wd, c, ho, wo, stride, padding, int(relu),
+        code, x.data_ptr(), _DTYPE_CODE[w9.dtype], w9.data_ptr(),
+        _DTYPE_CODE[w9.dtype if bias is None else bias.dtype],
+        None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo, stride,
+        padding, int(relu), vec, plan["rows"], *plan["block"], plan["tiles"], plan["groups"],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "dw_conv3x3")
@@ -240,8 +294,9 @@ ds_conv3x3_pw_multirow.launches = 0
 
 
 # -- B6: the differentiable depthwise 3×3 of the training stem ----------------
-_DW_LANES_THREADS = 256  # pass-1 block: C channels × max(1, 256 // C) column lanes
-_DW_MAX_BLOCKS = 1024    # pass-1 blocks, each a run of consecutive (n, ho) rows
+_DW_BLOCKS = 6 * 132  # pass-1 blocks to aim at: two waves of the three blocks an
+                      # H100 SM holds at VEC 8 (tune_dw prints the registers)
+_DW_GROUP = 32        # channel vectors a pass-1 block covers at most (one warp)
 
 
 def _check_bwd_shapes(g, x_shape, stride, padding, name):
@@ -305,14 +360,15 @@ def dw_conv3x3_dx(g, w, stride=1, padding=1, x_shape=None):
 dw_conv3x3_dx.launches = 0
 
 
-def dw_plan(n_rows: int, c: int):
+def dw_plan(n_rows: int, c: int, vec: int):
     """Pass-1 launch plan of the dW kernel: (rows per block, blocks,
-    column lanes per block). Depends on the shape only, so a given shape
-    always sums in the same order."""
-    lanes = max(1, _DW_LANES_THREADS // c)
-    blocks = min(n_rows, _DW_MAX_BLOCKS)
-    rows = -(-n_rows // blocks)
-    return rows, -(-n_rows // rows), lanes
+    channel groups). Each block takes a run of consecutive (n, ho) output
+    rows, about ``_DW_BLOCKS`` blocks in all (whole waves; ``tune_dw``
+    times the alternatives), and at most 32 channel vectors (grid.y covers
+    the rest). Depends on the shape only, so a given shape always sums in
+    the same order."""
+    rows = -(-n_rows // _DW_BLOCKS)
+    return rows, -(-n_rows // rows), -(-(c // vec) // _DW_GROUP)
 
 
 def dw_conv3x3_dw(x, g, stride=1, padding=1, out_dtype=torch.float32):
@@ -330,14 +386,15 @@ def dw_conv3x3_dw(x, g, stride=1, padding=1, out_dtype=torch.float32):
         raise ValueError(f"dw_conv3x3_dw: out_dtype must be float32 or bfloat16, got {out_dtype}")
     n, h, wd, c = x.shape
     ho, wo = g.shape[1], g.shape[2]
-    if c > 1024:
-        raise ValueError(f"dw_conv3x3_dw: C={c} exceeds one block")
-    rows, blocks, lanes = dw_plan(n * ho, c)
+    vec = vec_width(c, x.element_size(), (x.data_ptr(), g.data_ptr()))
+    rows, blocks, groups = dw_plan(n * ho, c, vec)
+    if groups > 65535:
+        raise ValueError(f"dw_conv3x3_dw: C={c} exceeds the grid")
     partial = torch.empty((9 * c, blocks), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 1, c), dtype=out_dtype, device=x.device)
     rc = library("dw_conv_bwd").fastscnn_dw_conv3x3_dw(
         code, _DTYPE_CODE[out_dtype], x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), n, h, wd, c, ho, wo, stride, padding, rows, blocks, lanes,
+        dw.data_ptr(), n, h, wd, c, ho, wo, stride, padding, vec, rows, blocks, groups,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "dw_conv3x3_dw")

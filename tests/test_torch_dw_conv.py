@@ -23,7 +23,7 @@ from fastscnn_tpu.ops.pallas.dw_conv import (
 )
 from fastscnn_tpu_torch.ops.conv import conv2d
 from fastscnn_tpu_torch.ops.cuda import ds_conv3x3_pw, ds_conv3x3_pw_multirow, dw_conv3x3
-from fastscnn_tpu_torch.ops.cuda.dw_conv import _mr_smem_bytes
+from fastscnn_tpu_torch.ops.cuda.dw_conv import _mr_smem_bytes, dw_fwd_plan, vec_width
 
 _ULP_BF16 = 2.0 ** -7
 
@@ -147,6 +147,75 @@ def test_ds_conv3x3_pw_multirow_shared_memory_fits_the_serving_sites():
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         ds_conv3x3_pw_multirow(x, torch.zeros((3, 3, 1, 48)), torch.zeros(48),
                                torch.zeros((1, 1, 48, 64)), torch.zeros(64), stride=2)
+
+
+# VEC of the forward and dW kernels by C: 16-byte accesses where C and
+# the pointers allow, and with pointers 4 bytes off a 16-byte boundary
+_VEC_ALIGNED = {"bfloat16": {3: 1, 8: 8, 12: 4, 32: 8, 48: 8},
+                "float32": {3: 1, 8: 4, 12: 4, 32: 4, 48: 4}}
+_VEC_OFFSET = {"bfloat16": {3: 1, 8: 2, 12: 2, 32: 2, 48: 2},
+               "float32": {3: 1, 8: 1, 12: 1, 32: 1, 48: 1}}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c", [3, 8, 12, 32, 48])
+@pytest.mark.parametrize("offset", [0, 4])
+def test_vec_width_is_a_function_of_c_dtype_and_alignment(dtype, c, offset):
+    """The largest VEC (at most 16 bytes) dividing C for which the
+    activations are aligned to VEC elements; a view 4 bytes off drops to
+    4-byte accesses, one 8 bytes off to 8-byte ones."""
+    itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    base = 1 << 20  # a device allocation is 512-byte aligned
+    vec = vec_width(c, itemsize, (base + offset, base))
+    assert vec == (_VEC_OFFSET if offset else _VEC_ALIGNED)[dtype][c]
+    assert c % vec == 0 and (base + offset) % (vec * itemsize) == 0
+    assert vec_width(c, itemsize, (base, base + 8)) == min(_VEC_ALIGNED[dtype][c], 8 // itemsize)
+
+
+def test_vec_width_of_views():
+    """A batch slice starts a multiple of C elements in, so it keeps the
+    VEC of its C; a contiguous view of a flat buffer one element in drops
+    to VEC 1 (2-byte accesses)."""
+    x = torch.zeros((3, 7, 9, 12), dtype=torch.bfloat16)
+    flat = x.view(-1)[1:1 + 2 * 7 * 9 * 12].view(2, 7, 9, 12)
+    for view, want in ((x[1:], 4), (flat, 1)):
+        assert view.is_contiguous()
+        offset = view.storage_offset() * view.element_size()
+        assert vec_width(12, 2, (1024 + offset, 1024)) == want
+
+
+# (N, H, W, C, stride): the main path's four sites, then the JAX tests' shapes
+_FWD_SITES = [
+    (1, 511, 1023, 32, 2), (1, 256, 512, 48, 2),    # serving dsconv1, dsconv2
+    (16, 383, 383, 32, 2), (16, 192, 192, 48, 2),   # training dsconv1, dsconv2
+]
+_FWD_SMALL = [(2, 11, 13, 8, 2), (2, 9, 7, 8, 1), (1, 12, 10, 16, 2), (2, 17, 23, 32, 2),
+              (1, 9, 11, 48, 1), (1, 5, 5, 3, 2), (1, 4, 4, 2056, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("site", _FWD_SITES + _FWD_SMALL)
+def test_dw_fwd_plan_grid(dtype, site):
+    """The forward kernel's grid covers every output column pair, row and
+    channel vector once, within CUDA's limits (block <= 128 threads, grid
+    y and z <= 65,535), and gives the main path's four sites more than one
+    block per SM of the H100 (132). Its static shared memory, the block's
+    9 taps and bias in f32 (10 x 128 x VEC floats), stays within 48 KB."""
+    n, h, w, c, stride = site
+    itemsize = 2 if dtype == "bfloat16" else 4
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    vec = vec_width(c, itemsize, (1 << 20,) * 2)
+    plan = dw_fwd_plan(n, ho, wo, c, vec)
+    (bx, by), (gx, gy, gz), rows = plan["block"], plan["grid"], plan["rows"]
+    assert 1 <= bx * by <= 128 and gy <= 65535 and gz == n <= 65535 and gx < 2**31
+    assert gx == plan["tiles"] * plan["groups"] and rows in (1, 2, 4, 8, 16)
+    assert (plan["groups"] - 1) * bx < c // vec <= plan["groups"] * bx
+    pairs = -(-wo // 2)  # each thread makes two output columns
+    assert (plan["tiles"] - 1) * by < pairs <= plan["tiles"] * by
+    assert (gy - 1) * rows < ho <= gy * rows
+    assert 10 * 128 * vec * 4 <= 48 * 1024
+    if site in _FWD_SITES:
+        assert gx * gy * gz > 132
 
 
 @pytest.mark.parametrize("fn", ["dw", "ds"])

@@ -35,7 +35,7 @@ from fastscnn_tpu_torch.ops.cuda import (
     dw_conv3x3_vjp,
     launch_counts,
 )
-from fastscnn_tpu_torch.ops.cuda.dw_conv import dw_plan
+from fastscnn_tpu_torch.ops.cuda.dw_conv import dw_plan, vec_width
 
 
 def _close_dw(got, ref):
@@ -141,9 +141,20 @@ def test_b6_wrappers_refuse_other_devices_and_bad_shapes():
 
 @pytest.mark.parametrize("n_rows,c", [(3072, 32), (1536, 48), (5, 8), (1, 1024)])
 def test_dw_plan_covers_every_row_once(n_rows, c):
-    rows, blocks, lanes = dw_plan(n_rows, c)
-    assert blocks <= 1024 and (blocks - 1) * rows < n_rows <= blocks * rows
-    assert 1 <= lanes and c * lanes <= max(256, c)
+    """The dW pass-1 plan: block b takes (n, ho) rows [b * rows, (b + 1) *
+    rows), so every row lies in exactly one block; the grid (blocks,
+    channel groups of 32 vectors) is within CUDA's limits and covers every
+    channel; the plan is a function of the shape alone. The training
+    stem's two sites (16 x 192 and 16 x 96 rows) fill 132 SMs several times."""
+    vec = vec_width(c, 2, (1 << 20,) * 2)
+    rows, blocks, groups = dw_plan(n_rows, c, vec)
+    covered = [r for b in range(blocks) for r in range(b * rows, min((b + 1) * rows, n_rows))]
+    assert covered == list(range(n_rows))
+    assert 1 <= blocks < 2**31 and 1 <= groups <= 65535
+    assert (groups - 1) * 32 * vec < c <= groups * 32 * vec
+    assert dw_plan(n_rows, c, vec) == (rows, blocks, groups)
+    if n_rows >= 1536:
+        assert blocks >= 3 * 132
 
 
 @pytest.mark.parametrize(
