@@ -52,6 +52,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 7. one JSON line ``{"kernels": [...]}`` and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
+After phase 3 it also costs the depthwise forward and dW beside their
+cuDNN calls three ways: device time, windows without the spin kernel
+(which hold the host's time to issue the calls where that is longer) and
+host us a call (:func:`dw_costs`). Two options run only the depthwise
+kernels' studies, with no device line:
+
+    python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps
+    python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
+                                           # PARENT and of this one
+
 Without a CUDA device it prints an error and exits 1.
 """
 
@@ -99,13 +109,10 @@ def _print(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3, repeats=5):
-    """Device time of one ``fn`` call in ms: CUDA events around ``iters``
-    calls, the median over ``repeats`` such windows. Each window is queued
-    behind a spin kernel of about 10 ms, so the host has queued all its
-    calls before the first starts: the window holds their device work back
-    to back, not the host's time to issue them (a kernel wrapper's Python
-    can take longer than a serving-size kernel runs)."""
+def _windows(fn, iters, warmup, repeats, spin):
+    """Medians over ``repeats`` windows of ``iters`` calls of ``fn``: the
+    device ms a call (CUDA events) and the host us a call (the host clock
+    around issuing the calls)."""
     import torch
 
     for _ in range(warmup):
@@ -113,16 +120,41 @@ def time_ms(fn, iters=20, warmup=3, repeats=5):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    times = []
+    dev, host = [], []
     for _ in range(repeats):
-        torch.cuda._sleep(SPIN_CYCLES)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        t1 = time.perf_counter()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+        dev.append(start.elapsed_time(end) / iters)
+        host.append((t1 - t0) / iters * 1e6)
+    return statistics.median(dev), statistics.median(host)
+
+
+def time_ms(fn, iters=20, warmup=3, repeats=5, spin=True):
+    """Device time of one ``fn`` call in ms: CUDA events around ``iters``
+    calls, the median over ``repeats`` such windows. Each window is queued
+    behind a spin kernel of about 10 ms, so the host has queued all its
+    calls before the first starts: the window holds their device work back
+    to back, not the host's time to issue them (a kernel wrapper's Python
+    can take longer than a serving-size kernel runs). With ``spin=False``
+    a window holds the longer of the two, as an eager caller sees it."""
+    return _windows(fn, iters, warmup, repeats, spin)[0]
+
+
+def call_costs(fn):
+    """One call of ``fn`` three ways: ``device_ms`` (:func:`time_ms`),
+    ``window_ms`` (the same windows without the spin: the longer of the
+    device work and the host's time to issue it) and ``host_us`` (the host
+    clock around issuing the calls of the spin windows, while the card is
+    busy: the Python and the launches of one call)."""
+    device_ms, host_us = _windows(fn, 20, 3, 5, True)
+    return {"device_ms": device_ms, "window_ms": time_ms(fn, spin=False), "host_us": host_us}
 
 
 def card_peaks(name: str):
@@ -135,8 +167,9 @@ def card_peaks(name: str):
 def dw_sweep():
     """The depthwise forward (B4 and B6's forward) and dW kernels on small
     shapes that make the wrappers pick every channel width VEC (C = 3, 6,
-    8, 12, 32, 48 in bf16 and f32), odd and even H and W, N = 1 and 3,
-    strides 1 and 2, and on two views: a batch slice (which keeps its C's
+    8, 12, 32, 48 in bf16 and f32; C = 129, VEC 1, takes the forward's two
+    channel groups of at most 128 vectors and five of dW's of 32), odd and
+    even H and W, N = 1 and 3, strides 1 and 2, and on two views: a batch slice (which keeps its C's
     VEC) and a contiguous view one element into a flat buffer (VEC 1). The
     forward must equal its plain version bit for bit (with and without
     bias + ReLU), dW stay within 2e-5 of sum |x*g| in f32 and that plus one
@@ -173,7 +206,7 @@ def dw_sweep():
         cases += 1
 
     for dtype in (torch.bfloat16, torch.float32):
-        for c in (3, 6, 8, 12, 32, 48):
+        for c in (3, 6, 8, 12, 32, 48, 129):
             for n, h, w in ((1, 17, 23), (3, 16, 22), (3, 9, 8)):
                 for stride in (1, 2):
                     x = torch.randn((n, h, w, c), generator=g, device=dev).to(dtype)
@@ -498,16 +531,6 @@ def kernel_phase(peaks):
         del x, gy, xc, gc, calls
         torch.cuda.empty_cache()
     results.extend(parts.values())
-    # the depthwise kernels against the library call that computes the same
-    # function, summed over their sites (reported, not gated)
-    by_name = {r["name"]: r for r in results}
-    for name, lib in (("dw_conv3x3", "cuDNN depthwise + ReLU"),
-                      ("dw_conv3x3_vjp:forward", "cuDNN depthwise"),
-                      ("dw_conv3x3_vjp:dw", "conv2d_weight")):
-        r = by_name[name]
-        _print(f"  {name} over its sites: kernel {r['ms']:.4f} ms, {lib} {r['library_ms']:.4f} "
-               f"ms ({r['library_ms'] / r['ms']:.2f}x the kernel's time), bound "
-               f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of it)")
     results.extend(int8_kernel_phase(peaks, bound, nbytes, g))
     return results
 
@@ -1025,16 +1048,212 @@ def training_phase():
             "dw_conv3x3_vjp:dw": counts["dw_conv3x3_dw"]}
 
 
-def main() -> int:
+# the depthwise kernels' rows of the kernel table, and the library call each
+# is held against
+DW_LIBRARY = {"dw_conv3x3": "cuDNN depthwise + ReLU", "dw_conv3x3_vjp:forward": "cuDNN depthwise",
+              "dw_conv3x3_vjp:dw": "conv2d_weight"}
+SERVING_DW_SITES = (("dsconv1", 1, 511, 1023, 32), ("dsconv2", 1, 256, 512, 48))
+
+
+def dw_costs():
+    """The depthwise forward and dW at the main path's sites, each beside
+    the cuDNN call that computes the same function (the yardsticks of
+    phases 3 and 5), every call costed by :func:`call_costs`: B4
+    (``dw_conv3x3`` with bias and ReLU, N = 1) at the serving sites, B6's
+    forward and dW (bf16 out) at the training sites, bf16. It passes the
+    wrappers only arguments that every version of the port takes, so that
+    ``--dw-ab`` costs an older checkout's kernels the same way. Returns
+    ``{row: {"kernel": costs, "library": costs, "sites": {site: {...}}}}``,
+    the row's costs summed over its sites."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    rows = {}
+
+    def add(row, site, kern, lib):
+        costs = {"kernel": call_costs(kern), "library": call_costs(lib)}
+        r = rows.setdefault(row, {part: dict.fromkeys(c, 0.0) for part, c in costs.items()})
+        r.setdefault("sites", {})[site] = costs
+        for part, c in costs.items():
+            for key, v in c.items():
+                r[part][key] += v
+
+    for site, n, h, w, c in SERVING_DW_SITES:
+        x = randn(n, h, w, c).clamp_min(0)
+        wt, b = randn(3, 3, 1, c, scale=0.3), randn(c, scale=0.1)
+        xc, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
+        add("dw_conv3x3", site, lambda: K.dw_conv3x3(x, wt, b, 2, 1, True),
+            lambda: F.relu(F.conv2d(xc, w_oihw, b, stride=2, padding=1, groups=c)))
+    for site, n, h, w, c in B6_SITES:
+        ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        x = randn(n, h, w, c).clamp_min(0)
+        wt, gy = randn(3, 3, 1, c, scale=0.3), randn(n, ho, wo, c, scale=0.01)
+        xc, gc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+        add("dw_conv3x3_vjp:forward", site, lambda: K.dw_conv3x3(x, wt, None, 2, 1),
+            lambda: F.conv2d(xc, w_oihw, stride=2, padding=1, groups=c))
+        add("dw_conv3x3_vjp:dw", site, lambda: K.dw_conv3x3_dw(x, gy, 2, 1, bf16),
+            lambda: conv2d_weight(xc, (c, 1, 3, 3), gc, stride=2, padding=1, groups=c))
+        del x, gy, xc, gc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def print_dw_costs(rows, tag=""):
+    """One line a site and one for the sum, kernel against library: device
+    ms, ms of a window without the spin, host us a call."""
+    def fmt(k, lib):
+        return (f"device {k['device_ms']:.4f} vs {lib['device_ms']:.4f} ms, without the spin "
+                f"{k['window_ms']:.4f} vs {lib['window_ms']:.4f} ms, host {k['host_us']:.1f} vs "
+                f"{lib['host_us']:.1f} us")
+
+    for row, r in rows.items():
+        for site, c in r["sites"].items():
+            _print(f"  {tag}{row}[{site}]: kernel vs {DW_LIBRARY[row]}: "
+                   f"{fmt(c['kernel'], c['library'])}")
+        k, lib = r["kernel"], r["library"]
+        verdict = ", ".join(f"{'faster' if k[m] <= lib[m] else 'SLOWER'} {what}"
+                            for m, what in (("device_ms", "on the device"),
+                                            ("window_ms", "without the spin")))
+        _print(f"  {tag}{row} over its sites: {fmt(k, lib)}; {verdict}")
+
+
+def dw_ab(parent: str) -> None:
+    """``--dw-ab PARENT``: :func:`dw_costs` for the checkout of this repo
+    at PARENT (an older commit, unpacked with ``git archive``) and for this
+    one, each in a process of its own that builds its kernels from its own
+    sources, in the order PARENT, this, this, PARENT on one card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "this tree": []}
+    for which, root in (("parent", parent), ("this tree", here), ("this tree", here),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dw-costs", root],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"--dw-costs {root} failed:\n{proc.stdout[-4000:]}"
+                               f"{proc.stderr[-4000:]}")
+        rows = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[which].append(rows)
+        _print(f"{which} ({root}):")
+        print_dw_costs(rows)
+    _print("summary, kernel over its sites (parent's two runs | this tree's two runs), library alike:")
+    for row in DW_LIBRARY:
+        for part in ("kernel", "library"):
+            for key in ("device_ms", "window_ms", "host_us"):
+                vals = [f"{r[row][part][key]:.4f}" for which in runs for r in runs[which]]
+                _print(f"  {row} {part} {key}: {vals[0]} {vals[1]} | {vals[2]} {vals[3]}")
+
+
+def tune_dw() -> None:
+    """``--tune-dw``: the evidence for the depthwise launch plans. The
+    registers, spills and shared memory ``nvcc -Xptxas -v`` reports for the
+    forward (bf16, VEC 8, stride 2, at each output-column count it is built
+    for) and dW's pass 1 (bf16, VEC 8, stride 2); then the device ms
+    (:func:`time_ms`) at the main path's four sites: the forward at 2, 3
+    and 4 output columns by 1 to 16 output rows a thread, each result held
+    bit for bit against its plain version, and dW at 528 to 1,584 pass-1
+    blocks aimed at. ``*`` marks the plan the wrappers pick."""
+    import re
+
     import torch
 
+    from fastscnn_tpu_torch.ops import cuda as K
+    from fastscnn_tpu_torch.ops.cuda import _build
+    from fastscnn_tpu_torch.ops.cuda.dw_conv import FWD_COLS, _DW_BLOCKS, dw_fwd_plan, dw_plan
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name, kernel in (("dw_conv", "dw_conv3x3_kernel"), ("dw_conv_bwd", "dw_partial_kernel")):
+        out = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC), "-o",
+             str(_build.BUILD_DIR / f"{name}-ptxas.so"), str(_build.CSRC / f"{name}.cu")],
+            capture_output=True, text=True, check=True, timeout=600).stderr
+        entry = None
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif (entry and kernel in entry and "bfloat16Li8ELi2E" in entry
+                  and ("Used" in line or "spill" in line)):
+                cols = re.search(r"bfloat16Li8ELi2ELi(\d)E", entry)
+                what = f", {cols.group(1)} columns" if cols else ""
+                _print(f"  {kernel}<bf16, VEC 8, stride 2{what}>: "
+                       f"{re.sub(r'.*info *: ', '', line).strip()}")
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bf16 = torch.bfloat16
+    sites = [("serving " + s, n, h, w, c, True) for s, n, h, w, c in SERVING_DW_SITES]
+    sites += [("training " + s, n, h, w, c, False) for s, n, h, w, c in B6_SITES]
+    for site, n, h, w, c, bias in sites:
+        x = torch.randn((n, h, w, c), generator=g, device=dev).clamp_min(0).to(bf16)
+        wt = (torch.randn((3, 3, 1, c), generator=g, device=dev) * 0.3).to(bf16)
+        b = (torch.randn((c,), generator=g, device=dev) * 0.1).to(bf16) if bias else None
+        ref = K.dw_conv3x3_reference(x, wt, b, 2, 1, bias)
+        ho, wo = ref.shape[1], ref.shape[2]
+        chosen = dw_fwd_plan(n, ho, wo, c, 8, 2)
+        for cols in FWD_COLS:
+            cells = []
+            for rows in (1, 2, 4, 8, 16):
+                if not torch.equal(K.dw_conv3x3(x, wt, b, 2, 1, bias, rows=rows, cols=cols), ref):
+                    raise AssertionError(f"{site}: forward at {cols}x{rows} differs from its plain "
+                                         "version")
+                ms = time_ms(lambda: K.dw_conv3x3(x, wt, b, 2, 1, bias, rows=rows, cols=cols))
+                mark = "*" if (cols, rows) == (chosen.cols, chosen.rows) else ""
+                cells.append(f"{rows}{mark}: {ms:.4f}")
+            _print(f"  {site} forward, {cols} columns, ms by output rows a thread: "
+                   f"{', '.join(cells)}")
+        if bias:
+            continue
+        gy = (torch.randn((n, ho, wo, c), generator=g, device=dev) * 0.01).to(bf16)
+        cells = []
+        for target in (528, 792, 1056, 1584):
+            blocks = dw_plan(n * ho, c, 8, target)[1]
+            ms = time_ms(lambda: K.dw_conv3x3_dw(x, gy, 2, 1, bf16, blocks=target))
+            cells.append(f"{target}{'*' if target == _DW_BLOCKS else ''} ({blocks} blocks): "
+                         f"{ms:.4f}")
+        _print(f"  {site} dW, ms by pass-1 blocks aimed at: {', '.join(cells)}")
+        del x, gy, ref
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tune-dw", action="store_true",
+                        help="only the depthwise kernels' registers and launch-plan sweeps")
+    parser.add_argument("--dw-ab", metavar="PARENT",
+                        help="only the depthwise kernels' costs, for the checkout at PARENT and "
+                             "for this one")
+    parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.abspath(args.dw_costs or os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import fastscnn_tpu_torch
     from fastscnn_tpu_torch import resolve_device
     from fastscnn_tpu_torch.ops.cuda import _build
 
+    if not os.path.abspath(fastscnn_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"fastscnn_tpu_torch imported from {fastscnn_tpu_torch.__file__}, "
+                           f"not from {root}")
+    if args.dw_costs:
+        _build.build_all()
+        print(json.dumps(dw_costs()))
+        return 0
     resolve_device(None)  # TF32 off
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1044,6 +1263,13 @@ def main() -> int:
     _print(smi)
     _print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}, "
            f"count {torch.cuda.device_count()}")
+    if args.dw_ab:
+        dw_ab(os.path.abspath(args.dw_ab))
+        return 0
+    if args.tune_dw:
+        _build.build_all()
+        tune_dw()
+        return 0
     peak_name, peaks = card_peaks(name)
     _print(f"bounds use the published {peak_name} peaks: {peaks['bytes'] / 1e12} TB/s; "
            f"{peaks['f32'] / 1e12} TFLOP/s f32, {peaks['bf16'] / 1e12} TFLOP/s bf16 and "
@@ -1061,6 +1287,9 @@ def main() -> int:
     _print("kernels at the serving path's shapes (N=1, bf16), B6 at the training stem's "
            "(N=16, bf16), then B7 and B8 at a frame's int8 sites (N=1):")
     kernels = kernel_phase(peaks)
+    _print("the depthwise kernels beside their library calls, timed three ways (device; "
+           "windows without the spin, host issue time included; host us a call):")
+    print_dw_costs(dw_costs())
     launches = serving_phase()
     launches.update(training_phase())
     for k in kernels:

@@ -36,18 +36,21 @@
 //   block around it). The wrapper picks the largest VEC that divides C
 //   and suits the pointers' alignment, down to 1, so every C and every
 //   view runs in this one kernel.
-// - It makes kCols = 2 neighbouring output columns and walks `rows`
-//   output rows down the image (16 where the grid stays large, fewer at
-//   serving sizes), keeping the input row that two output rows share in
-//   registers: at stride 2 each output row loads 2 new input rows of 5
-//   vectors for 2 outputs, 5 loads per output instead of 9.
+// - It makes COLS neighbouring output columns (4 at the widest VEC, 2 at
+//   narrower ones; 3 is built for timing) and walks `rows` output rows
+//   down the image (16 where the grid stays large, fewer at serving
+//   sizes), keeping the input row that two output rows share in
+//   registers: at stride 2 each output row loads 2 new input rows of
+//   2 * COLS + 1 vectors for COLS outputs, 4.5 loads per output at
+//   COLS = 4 and 5 at COLS = 2, instead of 9.
 // - The block stages its channels' 9 taps and bias in shared memory as
 //   f32 (from f32 or bf16, so the wrapper casts nothing) and each tap is
-//   read where it is used, which leaves 93 registers a thread at VEC = 8
-//   and five blocks an SM (ops/cuda/tune_dw.py prints the count).
+//   read where it is used, which leaves 164 registers a thread at VEC = 8
+//   and COLS = 4 (three blocks an SM), 127 at COLS = 3 and 93 at COLS = 2
+//   (`chip_smoke.py --tune-dw` prints the counts and times each COLS).
 // - No division: the block's (image, row strip, column tile, channel
 //   group) comes from blockIdx, the thread's channel vector and column
-//   pair from threadIdx (block = C / VEC x column pairs). Column bounds
+//   group from threadIdx (block = C / VEC x column groups). Column bounds
 //   are checked once per thread, row bounds once per input row; a tap
 //   outside the input loads zeros.
 //
@@ -65,8 +68,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kDsTileW = 64;  // output columns per B3 block
-constexpr int kCols = 2;      // output columns per B4 thread
-constexpr int kFwdThreads = 128;  // B4 block: C / VEC (at most 128) x column pairs
+constexpr int kFwdThreads = 128;  // B4 block: C / VEC (at most 128) x column groups
 
 // f32 sum of the 9 taps of channel c at output (n, ho, wo); taps outside
 // the input are the zero padding and are skipped.
@@ -117,16 +119,16 @@ __device__ __forceinline__ float weight_at(const void* p, int bf16, int64_t i) {
 }
 
 // B4: thread (threadIdx.x, threadIdx.y) owns channels [c0, c0 + VEC) of
-// output columns wo0, wo0 + 1 and walks output rows [ho0, ho0 + rows) of
-// image n. grid = (column tiles x channel groups, row strips, N). The
+// output columns [wo0, wo0 + COLS) and walks output rows [ho0, ho0 +
+// rows) of image n. grid = (column tiles x channel groups, row strips, N). The
 // block first stages the 9 taps and the bias of its channels in shared
 // memory as f32 (weights and bias may each be f32 or bf16).
-template <typename T, int VEC, int S>
+template <typename T, int VEC, int S, int COLS>
 __global__ void __launch_bounds__(kFwdThreads)
 dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf16,
                   const void* __restrict__ bias, int b_bf16, T* __restrict__ out, int H, int W,
                   int C, int Ho, int Wo, int pad, int rows, int groups, int relu) {
-  constexpr int kIn = (kCols - 1) * S + 3;  // input columns a thread reads
+  constexpr int kIn = (COLS - 1) * S + 3;  // input columns a thread reads
   __shared__ __align__(16) float s_w[10][kFwdThreads * VEC];  // taps 0..8, bias
   int tile = blockIdx.x, group = 0;
   if (groups > 1) {  // C / VEC > kFwdThreads: channel groups share grid.x
@@ -145,7 +147,7 @@ dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf
   }
   __syncthreads();
   const int c0 = (group * blockDim.x + threadIdx.x) * VEC;
-  const int wo0 = (tile * blockDim.y + threadIdx.y) * kCols;
+  const int wo0 = (tile * blockDim.y + threadIdx.y) * COLS;
   if (c0 >= C || wo0 >= Wo) return;
   const int n = blockIdx.z;
   const int ho0 = blockIdx.y * rows;
@@ -172,31 +174,31 @@ dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf
     }
   };
   // acc[o] += taps (di, 0..2) of output column o from one input row
-  auto add_taps = [&](float(&acc)[kCols][VEC], const Pack<T, VEC>(&row)[kIn], int di) {
+  auto add_taps = [&](float(&acc)[COLS][VEC], const Pack<T, VEC>(&row)[kIn], int di) {
 #pragma unroll
     for (int dj = 0; dj < 3; ++dj) {
       float w[VEC];
       lds_f32<VEC>(my_w + (di * 3 + dj) * kFwdThreads * VEC, w);
 #pragma unroll
-      for (int o = 0; o < kCols; ++o)
+      for (int o = 0; o < COLS; ++o)
 #pragma unroll
         for (int v = 0; v < VEC; ++v)
           acc[o][v] = __fadd_rn(acc[o][v], __fmul_rn(row[o * S + dj].get(v), w[v]));
     }
   };
-  auto zero = [](float(&acc)[kCols][VEC]) {
+  auto zero = [](float(&acc)[COLS][VEC]) {
 #pragma unroll
-    for (int o = 0; o < kCols; ++o)
+    for (int o = 0; o < COLS; ++o)
 #pragma unroll
       for (int v = 0; v < VEC; ++v) acc[o][v] = 0.f;
   };
-  auto store = [&](const float(&acc)[kCols][VEC], int ho) {
+  auto store = [&](const float(&acc)[COLS][VEC], int ho) {
     T* orow = out + ((int64_t)n * Ho + ho) * Wo * C;
     float b[VEC];
     if (bias != nullptr) lds_f32<VEC>(my_w + 9 * kFwdThreads * VEC, b);
 #pragma unroll
-    for (int o = 0; o < kCols; ++o) {
-      if (wo0 + o >= Wo) continue;  // ragged last column pair
+    for (int o = 0; o < COLS; ++o) {
+      if (wo0 + o >= Wo) continue;  // ragged last column group
       float v[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
@@ -208,7 +210,7 @@ dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf
   };
 
   Pack<T, VEC> ra[kIn], rb[kIn];
-  float acc[kCols][VEC];
+  float acc[COLS][VEC];
   if constexpr (S == 2) {
     // input row 2 * ho - pad + 2 is tap row 2 of output row ho and tap row
     // 0 of ho + 1: it stays in rb from one output row to the next
@@ -227,7 +229,7 @@ dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf
   } else {
     // stride 1: input row ho - pad + 2 is tap row 2 of ho, 1 of ho + 1 and
     // 0 of ho + 2, so three output rows are open at a time
-    float acc1[kCols][VEC], acc2[kCols][VEC];
+    float acc1[COLS][VEC], acc2[COLS][VEC];
     zero(acc);
     zero(acc1);
     load_row(ho0 - pad, ra);
@@ -243,7 +245,7 @@ dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf
       zero(acc2);
       add_taps(acc2, ra, 0);
 #pragma unroll
-      for (int o = 0; o < kCols; ++o)
+      for (int o = 0; o < COLS; ++o)
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
           acc[o][v] = acc1[o][v];
@@ -307,7 +309,7 @@ int launch_ds(const void* x, const void* w9, const void* b_dw, const void* w_pw,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int COLS>
 int launch_dw(const void* x, const void* w9, int w_bf16, const void* bias, int b_bf16, void* out,
               int n, int h, int w, int c, int ho, int wo, int stride, int pad, int relu, int rows,
               int bx, int by, int tiles, int groups, cudaStream_t s) {
@@ -317,11 +319,11 @@ int launch_dw(const void* x, const void* w9, int w_bf16, const void* bias, int b
   const T* xp = static_cast<const T*>(x);
   T* op = static_cast<T*>(out);
   if (stride == 2)
-    dw_conv3x3_kernel<T, VEC, 2><<<grid, block, 0, s>>>(xp, w9, w_bf16, bias, b_bf16, op, h, w, c,
-                                                         ho, wo, pad, rows, groups, relu);
+    dw_conv3x3_kernel<T, VEC, 2, COLS><<<grid, block, 0, s>>>(
+        xp, w9, w_bf16, bias, b_bf16, op, h, w, c, ho, wo, pad, rows, groups, relu);
   else
-    dw_conv3x3_kernel<T, VEC, 1><<<grid, block, 0, s>>>(xp, w9, w_bf16, bias, b_bf16, op, h, w, c,
-                                                         ho, wo, pad, rows, groups, relu);
+    dw_conv3x3_kernel<T, VEC, 1, COLS><<<grid, block, 0, s>>>(
+        xp, w9, w_bf16, bias, b_bf16, op, h, w, c, ho, wo, pad, rows, groups, relu);
   return (int)cudaGetLastError();
 }
 
@@ -333,26 +335,34 @@ using namespace fastscnn;
 // x (n, h, w, c) in dtype, aligned to vec elements; w9 (9, c) and bias (c)
 // or null in w_dtype and b_dtype (f32 or bf16); out (n, ho, wo, c). The
 // launch plan (ops/cuda/dw_conv.py::dw_fwd_plan): vec channels a thread,
-// rows output rows a thread, block (bx, by), grid.x = tiles * groups.
+// cols output columns (2; 3 or 4 at the widest vec) by rows output rows a
+// thread, block (bx, by), grid.x = tiles * groups.
 extern "C" int fastscnn_dw_conv3x3(int dtype, const void* x, int w_dtype, const void* w9,
                                    int b_dtype, const void* bias, void* out, int n, int h, int w,
                                    int c, int ho, int wo, int stride, int pad, int relu, int vec,
-                                   int rows, int bx, int by, int tiles, int groups, void* stream) {
+                                   int cols, int rows, int bx, int by, int tiles, int groups,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
   const int w_bf16 = w_dtype == kBF16, b_bf16 = b_dtype == kBF16;
-#define FASTSCNN_DW(T, VEC)                                                                   \
-  return launch_dw<T, VEC>(x, w9, w_bf16, bias, b_bf16, out, n, h, w, c, ho, wo, stride, pad, \
-                           relu, rows, bx, by, tiles, groups, s)
+#define FASTSCNN_DW(T, VEC, COLS)                                                     \
+  return launch_dw<T, VEC, COLS>(x, w9, w_bf16, bias, b_bf16, out, n, h, w, c, ho, wo, \
+                                 stride, pad, relu, rows, bx, by, tiles, groups, s)
   if (dtype == kBF16) {
-    if (vec == 8) FASTSCNN_DW(__nv_bfloat16, 8);
-    if (vec == 4) FASTSCNN_DW(__nv_bfloat16, 4);
-    if (vec == 2) FASTSCNN_DW(__nv_bfloat16, 2);
-    if (vec == 1) FASTSCNN_DW(__nv_bfloat16, 1);
+    if (vec == 8 && cols == 2) FASTSCNN_DW(__nv_bfloat16, 8, 2);
+    if (vec == 8 && cols == 3) FASTSCNN_DW(__nv_bfloat16, 8, 3);
+    if (vec == 8 && cols == 4) FASTSCNN_DW(__nv_bfloat16, 8, 4);
+    if (cols != 2) return (int)cudaErrorInvalidValue;
+    if (vec == 4) FASTSCNN_DW(__nv_bfloat16, 4, 2);
+    if (vec == 2) FASTSCNN_DW(__nv_bfloat16, 2, 2);
+    if (vec == 1) FASTSCNN_DW(__nv_bfloat16, 1, 2);
   } else if (dtype == kF32) {
-    if (vec == 4) FASTSCNN_DW(float, 4);
-    if (vec == 2) FASTSCNN_DW(float, 2);
-    if (vec == 1) FASTSCNN_DW(float, 1);
+    if (vec == 4 && cols == 2) FASTSCNN_DW(float, 4, 2);
+    if (vec == 4 && cols == 3) FASTSCNN_DW(float, 4, 3);
+    if (vec == 4 && cols == 4) FASTSCNN_DW(float, 4, 4);
+    if (cols != 2) return (int)cudaErrorInvalidValue;
+    if (vec == 2) FASTSCNN_DW(float, 2, 2);
+    if (vec == 1) FASTSCNN_DW(float, 1, 2);
   }
 #undef FASTSCNN_DW
   return (int)cudaErrorInvalidValue;

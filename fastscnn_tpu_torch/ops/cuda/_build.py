@@ -38,7 +38,7 @@ _I = ctypes.c_int
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
     "dw_conv": {
-        "fastscnn_dw_conv3x3": [_I, _P, _I, _P, _I, _P, _P] + [_I] * 15 + [_P],
+        "fastscnn_dw_conv3x3": [_I, _P, _I, _P, _I, _P, _P] + [_I] * 16 + [_P],
         "fastscnn_ds_conv3x3_pw": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     },
     "dw_conv_bwd": {

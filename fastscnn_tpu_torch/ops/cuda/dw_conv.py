@@ -41,6 +41,9 @@ agree to f32 reassociation).
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -111,30 +114,59 @@ def vec_width(c: int, itemsize: int, ptrs) -> int:
 
 
 # -- the forward kernel's launch plan (csrc/dw_conv.cu, dw_conv3x3_kernel) ----
-_FWD_COLS = 2              # output columns a thread (kCols)
-_FWD_THREADS = 128         # kFwdThreads: a block's threads at most; C / VEC beyond
-                           # it takes channel groups
-_FWD_MIN_BLOCKS = 3 * 132  # three blocks on each of an H100's SMs before rows shrink
+_FWD_THREADS = 128  # kFwdThreads: a block's threads at most; C / VEC beyond it
+                    # takes channel groups
+FWD_COLS = (2, 3, 4)  # output columns a thread the kernel is built for (3 and 4 at
+                      # the widest VEC only)
+# blocks of 128 threads an H100 SM holds by registers at 2, 3 and 4 columns
+# (93, 127 and 164 a thread at bf16 VEC 8; chip_smoke.py --tune-dw prints them)
+_FWD_RESIDENT = {2: 5, 3: 4, 4: 3}
+_SMS = 132
 
 
-def dw_fwd_plan(n: int, ho: int, wo: int, c: int, vec: int) -> dict:
-    """Launch plan of the forward kernel: block ``(C / VEC, column pairs)``
+class FwdPlan(NamedTuple):
+    """Launch plan of the forward kernel (see :func:`dw_fwd_plan`)."""
+    cols: int               # output columns a thread
+    rows: int               # output rows a thread
+    block: tuple[int, int]  # (channel vectors, column groups)
+    tiles: int              # column tiles
+    groups: int             # channel groups
+    grid: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=256)
+def dw_fwd_plan(n: int, ho: int, wo: int, c: int, vec: int, itemsize: int,
+                rows: int | None = None, cols: int | None = None) -> FwdPlan:
+    """Launch plan of the forward kernel: block ``(C / VEC, column groups)``
     of at most 128 threads (channel groups of at most 128 vectors), each
-    thread 2 output columns by ``rows`` output rows: 16, halved while the
-    grid would give fewer than three blocks an SM (16, 8, 4 and 2 rows at
-    the training and serving dsconv1 and dsconv2, where ``tune_dw``'s sweep
-    finds each fastest); ``grid = (tiles * groups, ceil(Ho / rows), N)``."""
+    thread ``cols`` output columns by ``rows`` output rows. ``cols`` is 4
+    at the widest VEC (``VEC * itemsize == 16``), else 2 (the only count
+    built for narrower VECs). ``rows`` is 16, halved while the grid fills
+    less than 0.6 of one wave of the blocks the SMs hold at that column
+    count (16, 8, 4 and 2 rows at the training and serving dsconv1 and
+    dsconv2 at any column count). ``chip_smoke.py --tune-dw`` times every
+    column count by 1 to 16 rows at those four sites: this rule picks the
+    fastest rows (or one within 1 %) for each, and 4 columns is the
+    fastest count or within 2 % of it at each, and the fastest over the
+    sites of a step and of a frame. ``rows`` and ``cols`` may be given to
+    time alternatives. ``grid = (tiles * groups, ceil(Ho / rows), N)``. A
+    pure function of the shape."""
+    if cols is None:
+        cols = 4 if vec * itemsize == 16 else 2
+    if cols not in FWD_COLS or (cols != 2 and vec * itemsize != 16):
+        raise ValueError(f"dw_fwd_plan: {cols} columns a thread not built for VEC {vec}")
     cv = c // vec
     bx = min(cv, _FWD_THREADS)
     groups = -(-cv // bx)
-    pairs = -(-wo // _FWD_COLS)
-    tiles = -(-pairs // (_FWD_THREADS // bx))
-    by = -(-pairs // tiles)
-    rows = 16
-    while rows > 1 and tiles * groups * -(-ho // rows) * n < _FWD_MIN_BLOCKS:
-        rows //= 2
-    return {"rows": rows, "block": (bx, by), "tiles": tiles, "groups": groups,
-            "grid": (tiles * groups, -(-ho // rows), n)}
+    col_groups = -(-wo // cols)
+    tiles = -(-col_groups // (_FWD_THREADS // bx))
+    by = -(-col_groups // tiles)
+    if rows is None:
+        rows = 16
+        min_blocks = 0.6 * _FWD_RESIDENT[cols] * _SMS
+        while rows > 1 and tiles * groups * -(-ho // rows) * n < min_blocks:
+            rows //= 2
+    return FwdPlan(cols, rows, (bx, by), tiles, groups, (tiles * groups, -(-ho // rows), n))
 
 
 def _as_kernel_weights(t: torch.Tensor) -> torch.Tensor:
@@ -182,9 +214,11 @@ def ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1):
     return acc.clamp_min(0.0).to(x.dtype)
 
 
-def dw_conv3x3(x, w, b=None, stride=1, padding=1, relu=False):
+def dw_conv3x3(x, w, b=None, stride=1, padding=1, relu=False, rows=None, cols=None):
     """Depthwise 3×3 [+bias][+ReLU], NHWC x, (3,3,1,C) w, multiplier 1;
-    output in the input dtype, f32 accumulation (kernel B4)."""
+    output in the input dtype, f32 accumulation (kernel B4). ``rows`` and
+    ``cols`` override the launch plan's (:func:`dw_fwd_plan`); the result
+    is the same bits."""
     _check_dw_args(x, w, stride, "dw_conv3x3")
     if x.device.type == "cpu":
         return dw_conv3x3_reference(x, w, b, stride, padding, relu)
@@ -194,13 +228,14 @@ def dw_conv3x3(x, w, b=None, stride=1, padding=1, relu=False):
     w9 = _as_kernel_weights(w.reshape(9, c))
     bias = None if b is None else _as_kernel_weights(b)
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
-    vec = vec_width(c, x.element_size(), (x.data_ptr(), out.data_ptr()))
-    plan = dw_fwd_plan(n, ho, wo, c, vec)
+    itemsize = x.element_size()
+    vec = vec_width(c, itemsize, (x.data_ptr(), out.data_ptr()))
+    plan = dw_fwd_plan(n, ho, wo, c, vec, itemsize, rows, cols)
     rc = library("dw_conv").fastscnn_dw_conv3x3(
         code, x.data_ptr(), _DTYPE_CODE[w9.dtype], w9.data_ptr(),
         _DTYPE_CODE[w9.dtype if bias is None else bias.dtype],
         None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo, stride,
-        padding, int(relu), vec, plan["rows"], *plan["block"], plan["tiles"], plan["groups"],
+        padding, int(relu), vec, plan.cols, plan.rows, *plan.block, plan.tiles, plan.groups,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "dw_conv3x3")
@@ -295,7 +330,8 @@ ds_conv3x3_pw_multirow.launches = 0
 
 # -- B6: the differentiable depthwise 3×3 of the training stem ----------------
 _DW_BLOCKS = 6 * 132  # pass-1 blocks to aim at: two waves of the three blocks an
-                      # H100 SM holds at VEC 8 (tune_dw prints the registers)
+                      # H100 SM holds at VEC 8 (chip_smoke.py --tune-dw prints the
+                      # registers and times the alternatives)
 _DW_GROUP = 32        # channel vectors a pass-1 block covers at most (one warp)
 
 
@@ -360,22 +396,22 @@ def dw_conv3x3_dx(g, w, stride=1, padding=1, x_shape=None):
 dw_conv3x3_dx.launches = 0
 
 
-def dw_plan(n_rows: int, c: int, vec: int):
+def dw_plan(n_rows: int, c: int, vec: int, target: int = _DW_BLOCKS):
     """Pass-1 launch plan of the dW kernel: (rows per block, blocks,
     channel groups). Each block takes a run of consecutive (n, ho) output
-    rows, about ``_DW_BLOCKS`` blocks in all (whole waves; ``tune_dw``
-    times the alternatives), and at most 32 channel vectors (grid.y covers
-    the rest). Depends on the shape only, so a given shape always sums in
-    the same order."""
-    rows = -(-n_rows // _DW_BLOCKS)
+    rows, about ``target`` blocks in all (by default two whole waves), and
+    at most 32 channel vectors (grid.y covers the rest). Depends on the
+    shape only, so a given shape always sums in the same order."""
+    rows = -(-n_rows // target)
     return rows, -(-n_rows // rows), -(-(c // vec) // _DW_GROUP)
 
 
-def dw_conv3x3_dw(x, g, stride=1, padding=1, out_dtype=torch.float32):
+def dw_conv3x3_dw(x, g, stride=1, padding=1, out_dtype=torch.float32, blocks=None):
     """Weight gradient of the depthwise 3×3 (kernel B6, dW): NHWC ``x`` and
     output gradient ``g`` → (3, 3, 1, C) in ``out_dtype`` (f32 or bf16),
     summed over (N, Ho, Wo) in f32 in two passes through an f32 scratch
-    tensor of (9·C, blocks) partials."""
+    tensor of (9·C, blocks) partials. ``blocks`` overrides the pass-1
+    blocks :func:`dw_plan` aims at (another summation order)."""
     _check_bwd_shapes(g, x.shape, stride, padding, "dw_conv3x3_dw")
     if x.device.type == "cpu":
         return dw_conv3x3_dw_reference(x, g, stride, padding, out_dtype)
@@ -387,7 +423,7 @@ def dw_conv3x3_dw(x, g, stride=1, padding=1, out_dtype=torch.float32):
     n, h, wd, c = x.shape
     ho, wo = g.shape[1], g.shape[2]
     vec = vec_width(c, x.element_size(), (x.data_ptr(), g.data_ptr()))
-    rows, blocks, groups = dw_plan(n * ho, c, vec)
+    rows, blocks, groups = dw_plan(n * ho, c, vec, blocks or _DW_BLOCKS)
     if groups > 65535:
         raise ValueError(f"dw_conv3x3_dw: C={c} exceeds the grid")
     partial = torch.empty((9 * c, blocks), dtype=torch.float32, device=x.device)

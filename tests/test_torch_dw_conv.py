@@ -196,26 +196,43 @@ _FWD_SMALL = [(2, 11, 13, 8, 2), (2, 9, 7, 8, 1), (1, 12, 10, 16, 2), (2, 17, 23
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("site", _FWD_SITES + _FWD_SMALL)
 def test_dw_fwd_plan_grid(dtype, site):
-    """The forward kernel's grid covers every output column pair, row and
-    channel vector once, within CUDA's limits (block <= 128 threads, grid
-    y and z <= 65,535), and gives the main path's four sites more than one
-    block per SM of the H100 (132). Its static shared memory, the block's
-    9 taps and bias in f32 (10 x 128 x VEC floats), stays within 48 KB."""
+    """The forward kernel's grid covers every output column group, row
+    and channel vector once, within CUDA's limits (block <= 128 threads,
+    grid y and z <= 65,535), and gives the main path's four sites more than
+    one block per SM of the H100 (132). Its static shared memory, the
+    block's 9 taps and bias in f32 (10 x 128 x VEC floats), stays within
+    48 KB. The same holds for every column count the kernel is built for
+    at the widest VEC and for rows given to the plan. The plan makes 4
+    output columns a thread at the widest VEC, 2 at narrower ones."""
     n, h, w, c, stride = site
     itemsize = 2 if dtype == "bfloat16" else 4
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     vec = vec_width(c, itemsize, (1 << 20,) * 2)
-    plan = dw_fwd_plan(n, ho, wo, c, vec)
-    (bx, by), (gx, gy, gz), rows = plan["block"], plan["grid"], plan["rows"]
-    assert 1 <= bx * by <= 128 and gy <= 65535 and gz == n <= 65535 and gx < 2**31
-    assert gx == plan["tiles"] * plan["groups"] and rows in (1, 2, 4, 8, 16)
-    assert (plan["groups"] - 1) * bx < c // vec <= plan["groups"] * bx
-    pairs = -(-wo // 2)  # each thread makes two output columns
-    assert (plan["tiles"] - 1) * by < pairs <= plan["tiles"] * by
-    assert (gy - 1) * rows < ho <= gy * rows
-    assert 10 * 128 * vec * 4 <= 48 * 1024
+    plans = [dw_fwd_plan(n, ho, wo, c, vec, itemsize)]
+    if vec * itemsize == 16:
+        plans += [dw_fwd_plan(n, ho, wo, c, vec, itemsize, rows, cols)
+                  for cols in (2, 3, 4) for rows in (1, 3, 16)]
+    for plan in plans:
+        (bx, by), (gx, gy, gz), rows = plan.block, plan.grid, plan.rows
+        assert 1 <= bx * by <= 128 and gy <= 65535 and gz == n <= 65535 and gx < 2**31
+        assert gx == plan.tiles * plan.groups
+        assert (plan.groups - 1) * bx < c // vec <= plan.groups * bx
+        col_groups = -(-wo // plan.cols)  # each thread makes plan.cols output columns
+        assert (plan.tiles - 1) * by < col_groups <= plan.tiles * by
+        assert (gy - 1) * rows < ho <= gy * rows
+        assert 10 * 128 * vec * 4 <= 48 * 1024
+    assert plans[0].rows in (1, 2, 4, 8, 16) and plans[0].cols == (4 if vec * itemsize == 16 else 2)
+    assert dw_fwd_plan(n, ho, wo, c, vec, itemsize) == plans[0]
     if site in _FWD_SITES:
-        assert gx * gy * gz > 132
+        assert plans[0].grid[0] * plans[0].grid[1] * plans[0].grid[2] > 132
+
+
+def test_dw_fwd_plan_refuses_columns_it_was_not_built_for():
+    """3 and 4 output columns a thread exist at the widest VEC only."""
+    assert dw_fwd_plan(1, 9, 9, 32, 8, 2, cols=3).cols == 3
+    for vec, itemsize, cols in ((4, 2, 3), (2, 4, 4), (8, 2, 5), (8, 2, 1)):
+        with pytest.raises(ValueError, match="columns"):
+            dw_fwd_plan(1, 9, 9, 32, vec, itemsize, cols=cols)
 
 
 @pytest.mark.parametrize("fn", ["dw", "ds"])

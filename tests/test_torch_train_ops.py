@@ -28,10 +28,12 @@ from fastscnn_tpu.ops.pallas.dw_conv import dw_conv3x3_pallas_vjp
 from fastscnn_tpu_torch.ops.conv import batch_norm_apply, batch_norm_train, conv2d_tapbwd
 from fastscnn_tpu_torch.ops.cuda import (
     KERNELS,
+    dw_conv3x3,
     dw_conv3x3_dw,
     dw_conv3x3_dw_reference,
     dw_conv3x3_dx,
     dw_conv3x3_dx_reference,
+    dw_conv3x3_reference,
     dw_conv3x3_vjp,
     launch_counts,
 )
@@ -155,6 +157,28 @@ def test_dw_plan_covers_every_row_once(n_rows, c):
     assert dw_plan(n_rows, c, vec) == (rows, blocks, groups)
     if n_rows >= 1536:
         assert blocks >= 3 * 132
+
+
+@pytest.mark.parametrize("target", [528, 792, 1056, 1584])
+def test_dw_plan_block_targets(target):
+    """Every number of pass-1 blocks ``chip_smoke.py --tune-dw`` times
+    still covers each (n, ho) row of the training stem's dsconv1 exactly
+    once, in at most ``target`` blocks."""
+    n_rows = 16 * 192
+    rows, blocks, groups = dw_plan(n_rows, 32, 8, target)
+    covered = [r for b in range(blocks) for r in range(b * rows, min((b + 1) * rows, n_rows))]
+    assert covered == list(range(n_rows)) and blocks <= target and groups == 1
+
+
+def test_dw_wrappers_take_plan_overrides_on_the_cpu(rng):
+    """The launch-plan arguments (``rows``, ``cols``, ``blocks``) leave the
+    function alone: on the CPU the wrappers return their plain versions."""
+    x = torch.from_numpy(rng.standard_normal((2, 9, 10, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3, 1, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 5, 5, 8)).astype(np.float32))
+    assert torch.equal(dw_conv3x3(x, w, None, 2, 1, False, rows=1, cols=4),
+                       dw_conv3x3_reference(x, w, None, 2, 1))
+    assert torch.equal(dw_conv3x3_dw(x, g, 2, 1, blocks=528), dw_conv3x3_dw_reference(x, g, 2, 1))
 
 
 @pytest.mark.parametrize(
