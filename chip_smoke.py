@@ -7,13 +7,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the ``nvcc`` build of every kernel source, from this checkout; then
-   the depthwise forward and dW kernels on a sweep of small shapes, views
-   and channel counts that runs every channel width they pick
-   (:func:`dw_sweep`);
+   the depthwise forward and dW kernels and B3 on a sweep of small shapes,
+   views and channel counts that runs every channel width they pick
+   (:func:`dw_sweep`), and B7 on small shapes that take every path of its
+   kernel (:func:`pw_sweep`);
 3. each kernel (B1-B5, B7, B8) at the shapes the 1024x2048 serving path
    gives it (N=1, bf16; B7 and B8 at every int8 site of a frame, and at one
    site with ``quantize_out``): held against its plain PyTorch version
-   (B4 bit for bit in bf16 and f32, B5 also against B3's kernel), and timed
+   (B3 and B4 bit for bit in bf16 and f32, B5 also against B3's kernel, B7
+   within a stated reassociation bound and bit-identical on a second run,
+   B8 bit for bit), and timed
    with CUDA events beside the
    plain version and one PyTorch library call that computes the same
    function (a yardstick the port never calls), with its bound from the
@@ -52,13 +55,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 7. one JSON line ``{"kernels": [...]}`` and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
-After phase 3 it also costs the depthwise forward and dW beside their
-cuDNN calls three ways: device time, windows without the spin kernel
-(which hold the host's time to issue the calls where that is longer) and
-host us a call (:func:`dw_costs`). Two options run only the depthwise
-kernels' studies, with no device line:
+After phase 3 it also costs the redesigned kernels (B3, B4, B6's forward
+and dW, B7) beside their library calls three ways: device time, windows
+without the spin kernel (which hold the host's time to issue the calls
+where that is longer) and host us a call (:func:`dw_costs`). Three options
+run only these kernels' studies, with no device line:
 
-    python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps
+    python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
+                                           # the depthwise kernels and B3
+    python3 chip_smoke.py --tune-pw        # registers, B7's block tiles
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
 
@@ -173,7 +178,9 @@ def dw_sweep():
     VEC) and a contiguous view one element into a flat buffer (VEC 1). The
     forward must equal its plain version bit for bit (with and without
     bias + ReLU), dW stay within 2e-5 of sum |x*g| in f32 and that plus one
-    bf16 ulp in bf16."""
+    bf16 ulp in bf16. Then B3 (``ds_conv3x3_pw``) on small shapes that run
+    every VEC, ragged output channels, column tiles and row strips, bit
+    for bit against its plain version."""
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
@@ -182,6 +189,7 @@ def dw_sweep():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     cases, vecs, worst = 0, set(), 0.0
+    ds_cases_run, ds_vecs = 0, set()
     failures = []
 
     def check(label, x, w, b, gy, stride):
@@ -228,12 +236,82 @@ def dw_sweep():
             for stride in (1, 2):
                 gy = view_of((3, (15 - 1) // stride + 1, (13 - 1) // stride + 1, c), view)
                 check(f"{dtype} {view} {tuple(x.shape)} stride {stride}", x, wt, None, gy, stride)
+        # B3: C = 3 to 129 (every VEC; 129 takes many dw work items a
+        # thread), Cout 19 (masked output channels), 48 and 64, strides 1
+        # and 2, odd H and W with a ragged last column tile (Wo 149 and
+        # 70), at the plan's rows and at 1 and 4 rows a block (a ragged
+        # last row strip); then a view one element into a flat buffer
+        # (VEC 1)
+        ds_cases = [(c, (19, 48, 64)[i % 3], None)
+                    for i, c in enumerate((3, 6, 8, 12, 32, 48, 129))]
+        ds_cases.append((32, 48, "flat offset"))
+        for c, cout, view in ds_cases:
+            for n, h, w, stride in ((1, 9, 149, 1), (2, 17, 139, 2)):
+                x = (view_of((n, h, w, c), view) if view
+                     else torch.randn((n, h, w, c), generator=g, device=dev).to(dtype))
+                wd = torch.randn((3, 3, 1, c), generator=g, device=dev) * 0.3
+                bd = torch.randn((c,), generator=g, device=dev) * 0.1
+                wp = torch.randn((1, 1, c, cout), generator=g, device=dev) * 0.3
+                bp = torch.randn((cout,), generator=g, device=dev) * 0.1
+                ref = K.ds_conv3x3_pw_reference(x, wd, bd, wp, bp, stride, 1)
+                for rows in (None, 1, 4):
+                    got = K.ds_conv3x3_pw(x, wd, bd, wp, bp, stride, 1, rows=rows)
+                    if not torch.equal(got, ref):
+                        failures.append(f"B3 {dtype} {tuple(x.shape)} -> {cout} stride {stride} "
+                                        f"rows {rows}: {int((got != ref).sum())} elements differ")
+                    ds_cases_run += 1
+                ds_vecs.add((str(dtype).split(".")[-1],
+                             vec_width(c, x.element_size(), (x.data_ptr(),))))
     torch.cuda.synchronize()
     _print(f"  depthwise sweep: {cases} cases, forward bit-equal and dW within tolerance in "
-           f"{cases - len(failures)}; channel widths (dtype, VEC) {sorted(vecs)}; worst dW f32 "
-           f"error {worst:.3g} of sum|x*g|")
+           f"{cases - sum(not f.startswith('B3') for f in failures)}; channel widths (dtype, VEC) "
+           f"{sorted(vecs)}; worst dW f32 error {worst:.3g} of sum|x*g|")
+    _print(f"  B3 sweep: {ds_cases_run} cases, bit-equal in "
+           f"{ds_cases_run - sum(f.startswith('B3') for f in failures)}; channel widths "
+           f"(dtype, VEC) {sorted(ds_vecs)}")
     if failures:
         raise AssertionError("depthwise sweep: " + "; ".join(failures[:10]))
+
+
+def pw_sweep():
+    """B7 on small shapes that take every path of its kernel: each block
+    tile; K % 16 != 0 and a view 4 bytes off (4-byte activation copies);
+    N % 8 != 0 (the weight chunk element by element, outputs element by
+    element); a long K; bf16 and int8 outputs, with and without ReLU; an
+    f32 and a bf16 bias. Each result within :func:`pw_a8_gate`'s bound and
+    bit-identical on a second run."""
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cases, worst = 0, 0.0
+    for m, k, n, view in ((37, 20, 19, False), (300, 48, 24, False), (2053, 96, 40, False),
+                          (1000, 772, 72, False), (515, 64, 128, True)):
+        if view:
+            flat = torch.randint(-127, 128, (m * k + 4,), generator=g, device=dev,
+                                 dtype=torch.int8)
+            x_q = flat[4:].view(m, k)
+        else:
+            x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(torch.bfloat16)
+        b = torch.randn(n, generator=g, device=dev) * 5.0
+        for tile in range(3):
+            for qout in (False, True):
+                relu = (tile + qout) % 2 == 0
+                bias = b.to(torch.bfloat16) if tile == 1 else b
+                got = K.pw_conv_a8(x_q, w_eff, bias, relu, qout, tile=tile)
+                ref = K.pw_conv_a8_reference(x_q, w_eff, bias, relu, qout)
+                label = f"B7 ({m}x{k})x({k}x{n}) tile {tile} relu {relu} quantize_out {qout}"
+                if not torch.equal(got, K.pw_conv_a8(x_q, w_eff, bias, relu, qout, tile=tile)):
+                    raise AssertionError(f"{label}: a second run differs")
+                used = pw_a8_gate(label, got, ref, x_q, w_eff, qout, quiet=True)[1]
+                worst = max(worst, used)
+                cases += 1
+    torch.cuda.synchronize()
+    _print(f"  B7 sweep: {cases} cases within the bound and bit-identical on a second run; "
+           f"largest share of the allowance used {worst:.3g}")
 
 
 def kernel_phase(peaks):
@@ -300,8 +378,9 @@ def kernel_phase(peaks):
     results = []
 
     # B3, B4 and B5 at the LTD's two stride-2 sites: dsconv1 (32 -> 48) on
-    # the stem conv's 511x1023 output, dsconv2 (48 -> 64) on 256x512. B5
-    # computes B3's function (rows_per_step 8): it must equal B3's plain
+    # the stem conv's 511x1023 output, dsconv2 (48 -> 64) on 256x512. B3
+    # and B4 must equal their plain versions bit for bit in bf16 and f32.
+    # B5 computes B3's function (rows_per_step 8): it must equal B3's plain
     # version and B3's kernel bit for bit.
     sites = (("dsconv1", 511, 1023, 32, 48), ("dsconv2", 256, 512, 48, 64))
     for kname, plain, src, replaces in (
@@ -357,7 +436,7 @@ def kernel_phase(peaks):
                        f"{'bit-equal' if same else 'DIFFERENT'} ({int((got != b3).sum())} differ)")
                 if err or not same:
                     raise AssertionError(f"{kname}[{site}]: not bit-equal to B3")
-            if kname == "dw_conv3x3":  # bit for bit, in bf16 and in f32
+            if kname in ("dw_conv3x3", "ds_conv3x3_pw"):  # bit for bit, in bf16 and in f32
                 a32 = (x.float(), *args[1:])
                 diff32 = int((kern(*a32) != plain(*a32)).sum())
                 _print(f"  {kname}[{site}] in f32: {diff32} elements differ from the plain version")
@@ -573,10 +652,43 @@ def int8_sites(dev):
             for site, (m, k) in ((s, seen[s]) for s in PW_INT8_SITES)]
 
 
+def pw_a8_gate(label, got, ref, x_q, w_eff, qout, quiet=False):
+    """B7 against its plain version. The kernel sums on the tensor cores in
+    the hardware's order: a bf16 output may differ by one bf16 ulp
+    (2^-7 of the larger value bounds one ulp of either) plus the stated
+    reassociation bound of the f32 sums (``pw_conv_a8_tolerance``); an
+    int8 output by one level. Returns (max |err|, the largest share of the
+    allowance used)."""
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import pw_conv_a8_tolerance
+
+    g32, r32 = got.float(), ref.float()
+    diff = (g32 - r32).abs()
+    err, ndiff = diff.max().item(), int((diff > 0).sum())
+    if qout:
+        allow = torch.ones_like(diff)
+        what = "one int8 level"
+    else:
+        allow = (torch.maximum(g32.abs(), r32.abs()) * 2.0**-7
+                 + pw_conv_a8_tolerance(x_q, w_eff).float())
+        what = "1 bf16 ulp + the reassociation bound"
+    used = (diff / allow.clamp_min(1e-30)).max().item()
+    bad = int((diff > allow).sum())
+    if not quiet or bad:
+        _print(f"  {label}: max_abs_err {err:.3g}, {ndiff} of {diff.numel()} differ "
+               f"({ndiff / diff.numel():.3g}), {bad} beyond {what}; largest share of the "
+               f"allowance used {used:.3g}")
+    if bad:
+        raise AssertionError(f"{label}: outside tolerance")
+    return err, used
+
+
 def int8_kernel_phase(peaks, bound, nbytes, g):
     """B7 and B8 at every int8 site of a frame (N=1), each held against its
-    plain version (B8 bit-equal; B7 bit-equal expected, within one bf16 ulp
-    or one int8 level allowed), and at one site with ``quantize_out``.
+    plain version (B8 bit-equal; B7 within :func:`pw_a8_gate`'s stated
+    bound, and bit-identical on a second run), and at one site with
+    ``quantize_out``.
     Times and bounds are summed over the sites of the config that runs the
     kernel (B7: the 23 sites of config C, whose LTD 1x1s run inside B5; B8:
     all 25, config D). Bound: bytes, or operations at the tensor-core
@@ -598,6 +710,7 @@ def int8_kernel_phase(peaks, bound, nbytes, g):
                           "source": "fastscnn_tpu_torch/csrc/int8_pw.cu", "replaces": src_line,
                           "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                           "library_ms": 0.0, "bound_by": "", "sites": []}
+    worst_share = 0.0
     for site, m, k, n, relu in sites:
         x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(bf16)
@@ -630,16 +743,18 @@ def int8_kernel_phase(peaks, bound, nbytes, g):
                 got = kern()
                 torch.cuda.synchronize()
                 ref = plain()
-                diff = (got.float() - ref.float()).abs()
-                err, ndiff = diff.max().item(), int((diff > 0).sum())
-                if qout:
-                    bad = int((diff > 1).sum())
+                if kname == "pw_conv_a8":
+                    err, used = pw_a8_gate(label, got, ref, x_q, w_eff, qout)
+                    worst_share = max(worst_share, used)
+                    # no split-K, no atomics: a second run gives the same bits
+                    if not torch.equal(got, kern()):
+                        raise AssertionError(f"{label}: a second run differs")
                 else:
-                    bad = int((diff > ref.float().abs() * 2.0**-7 + 1e-30).sum())
-                _print(f"  {label}: max_abs_err {err:.3g}, {ndiff} of {diff.numel()} differ, "
-                       f"{bad} beyond {'one int8 level' if qout else '1 bf16 ulp'}")
-                if bad or (kname == "pw_conv_w8a8" and ndiff):
-                    raise AssertionError(f"{label}: outside tolerance")
+                    diff = (got.float() - ref.float()).abs()
+                    err, ndiff = diff.max().item(), int((diff > 0).sum())
+                    _print(f"  {label}: max_abs_err {err:.3g}, {ndiff} of {diff.numel()} differ")
+                    if ndiff:
+                        raise AssertionError(f"{label}: not bit-equal to its plain version")
                 lib_err = (lib().float() - ref.float()).abs().max().item()
                 ms = time_ms(kern)
                 plain_ms = time_ms(plain, iters=2, warmup=1, repeats=3)
@@ -659,6 +774,8 @@ def int8_kernel_phase(peaks, bound, nbytes, g):
                         entry[key] += rec[key]
                     entry["bound_by"] = b_by
         del x_q, w_eff, w_q
+    _print(f"  pw_conv_a8 at every site: bit-identical on a second run; largest share of its "
+           f"allowance used {worst_share:.3g}")
     for entry in entries.values():
         _print(f"  {entry['name']} over a frame's sites: kernel {entry['ms']:.4f} ms, plain "
                f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']:.4f} ms, bound "
@@ -1048,23 +1165,26 @@ def training_phase():
             "dw_conv3x3_vjp:dw": counts["dw_conv3x3_dw"]}
 
 
-# the depthwise kernels' rows of the kernel table, and the library call each
+# the rows of the kernel table that dw_costs prices, and the library call each
 # is held against
-DW_LIBRARY = {"dw_conv3x3": "cuDNN depthwise + ReLU", "dw_conv3x3_vjp:forward": "cuDNN depthwise",
-              "dw_conv3x3_vjp:dw": "conv2d_weight"}
+COST_LIBRARY = {"ds_conv3x3_pw": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
+                "dw_conv3x3": "cuDNN depthwise + ReLU", "dw_conv3x3_vjp:forward": "cuDNN depthwise",
+                "dw_conv3x3_vjp:dw": "conv2d_weight", "pw_conv_a8": "torch.addmm (+ ReLU)"}
 SERVING_DW_SITES = (("dsconv1", 1, 511, 1023, 32), ("dsconv2", 1, 256, 512, 48))
+SERVING_DS_COUT = {32: 48, 48: 64}  # the 1x1's output channels at those sites
 
 
 def dw_costs():
-    """The depthwise forward and dW at the main path's sites, each beside
-    the cuDNN call that computes the same function (the yardsticks of
-    phases 3 and 5), every call costed by :func:`call_costs`: B4
-    (``dw_conv3x3`` with bias and ReLU, N = 1) at the serving sites, B6's
-    forward and dW (bf16 out) at the training sites, bf16. It passes the
-    wrappers only arguments that every version of the port takes, so that
-    ``--dw-ab`` costs an older checkout's kernels the same way. Returns
-    ``{row: {"kernel": costs, "library": costs, "sites": {site: {...}}}}``,
-    the row's costs summed over its sites."""
+    """The redesigned kernels at the main path's sites, each beside the
+    library call that computes the same function (the yardsticks of
+    phases 3 and 5), every call costed by :func:`call_costs`: B3
+    (``ds_conv3x3_pw``) and B4 (``dw_conv3x3`` with bias and ReLU) at the
+    serving sites (N = 1), B6's forward and dW (bf16 out) at the training
+    sites, bf16, and B7 (``pw_conv_a8``) at config C's 23 int8 sites of a
+    frame. It passes the wrappers only arguments that every version of the
+    port takes, so that ``--dw-ab`` costs an older checkout's kernels the
+    same way. Returns ``{row: {"kernel": costs, "library": costs, "sites":
+    {site: {...}}}}``, the row's costs summed over its sites."""
     import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
@@ -1092,6 +1212,12 @@ def dw_costs():
         x = randn(n, h, w, c).clamp_min(0)
         wt, b = randn(3, 3, 1, c, scale=0.3), randn(c, scale=0.1)
         xc, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
+        cout = SERVING_DS_COUT[c]
+        w_pw, b_pw = randn(1, 1, c, cout, scale=0.2), randn(cout, scale=0.1)
+        wpw_oihw = w_pw.permute(3, 2, 0, 1).contiguous()
+        add("ds_conv3x3_pw", site, lambda: K.ds_conv3x3_pw(x, wt, b, w_pw, b_pw, 2, 1),
+            lambda: F.relu(F.conv2d(F.relu(F.conv2d(xc, w_oihw, b, stride=2, padding=1,
+                                                    groups=c)), wpw_oihw, b_pw)))
         add("dw_conv3x3", site, lambda: K.dw_conv3x3(x, wt, b, 2, 1, True),
             lambda: F.relu(F.conv2d(xc, w_oihw, b, stride=2, padding=1, groups=c)))
     for site, n, h, w, c in B6_SITES:
@@ -1105,6 +1231,16 @@ def dw_costs():
         add("dw_conv3x3_vjp:dw", site, lambda: K.dw_conv3x3_dw(x, gy, 2, 1, bf16),
             lambda: conv2d_weight(xc, (c, 1, 3, 3), gc, stride=2, padding=1, groups=c))
         del x, gy, xc, gc
+    for site, m, k, n, relu in int8_sites(dev):
+        if site.startswith("ltd/"):  # config C runs the LTD's 1x1s inside B5
+            continue
+        x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(bf16)
+        b = torch.randn(n, generator=g, device=dev) * 5.0
+        b16 = b.to(bf16)
+        act = torch.relu if relu else (lambda t: t)
+        add("pw_conv_a8", site, lambda: K.pw_conv_a8(x_q, w_eff, b, relu),
+            lambda: act(torch.addmm(b16, x_q.to(bf16), w_eff)))
     torch.cuda.empty_cache()
     return rows
 
@@ -1119,7 +1255,7 @@ def print_dw_costs(rows, tag=""):
 
     for row, r in rows.items():
         for site, c in r["sites"].items():
-            _print(f"  {tag}{row}[{site}]: kernel vs {DW_LIBRARY[row]}: "
+            _print(f"  {tag}{row}[{site}]: kernel vs {COST_LIBRARY[row]}: "
                    f"{fmt(c['kernel'], c['library'])}")
         k, lib = r["kernel"], r["library"]
         verdict = ", ".join(f"{'faster' if k[m] <= lib[m] else 'SLOWER'} {what}"
@@ -1147,46 +1283,64 @@ def dw_ab(parent: str) -> None:
         _print(f"{which} ({root}):")
         print_dw_costs(rows)
     _print("summary, kernel over its sites (parent's two runs | this tree's two runs), library alike:")
-    for row in DW_LIBRARY:
+    for row in COST_LIBRARY:
         for part in ("kernel", "library"):
             for key in ("device_ms", "window_ms", "host_us"):
                 vals = [f"{r[row][part][key]:.4f}" for which in runs for r in runs[which]]
                 _print(f"  {row} {part} {key}: {vals[0]} {vals[1]} | {vals[2]} {vals[3]}")
 
 
+def ptxas_report(source, label):
+    """Compile ``csrc/<source>.cu`` with ``nvcc -Xptxas -v`` and print the
+    registers, spills and shared memory of each kernel entry for which
+    ``label(mangled name)`` gives a label (None skips the entry)."""
+    import re
+
+    from fastscnn_tpu_torch.ops.cuda import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC), "-o",
+         str(_build.BUILD_DIR / f"{source}-ptxas.so"), str(_build.CSRC / f"{source}.cu")],
+        capture_output=True, text=True, check=True, timeout=600).stderr
+    name = None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            name = label(line.split("'")[1])
+        elif name and ("Used" in line or "spill" in line):
+            _print(f"  {name}: {re.sub(r'.*info *: ', '', line).strip()}")
+
+
 def tune_dw() -> None:
     """``--tune-dw``: the evidence for the depthwise launch plans. The
     registers, spills and shared memory ``nvcc -Xptxas -v`` reports for the
     forward (bf16, VEC 8, stride 2, at each output-column count it is built
-    for) and dW's pass 1 (bf16, VEC 8, stride 2); then the device ms
-    (:func:`time_ms`) at the main path's four sites: the forward at 2, 3
-    and 4 output columns by 1 to 16 output rows a thread, each result held
-    bit for bit against its plain version, and dW at 528 to 1,584 pass-1
-    blocks aimed at. ``*`` marks the plan the wrappers pick."""
+    for), B3 (bf16, VEC 8, stride 2) and dW's pass 1 (bf16, VEC 8, stride
+    2); then the device ms (:func:`time_ms`) at the main path's sites: the
+    forward at 2, 3 and 4 output columns by 1 to 16 output rows a thread,
+    B3 at 1 to 8 output rows a block, each result held bit for bit against
+    its plain version, and dW at 528 to 1,584 pass-1 blocks aimed at.
+    ``*`` marks the plan the wrappers pick."""
     import re
 
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
-    from fastscnn_tpu_torch.ops.cuda import _build
-    from fastscnn_tpu_torch.ops.cuda.dw_conv import FWD_COLS, _DW_BLOCKS, dw_fwd_plan, dw_plan
+    from fastscnn_tpu_torch.ops.cuda.dw_conv import (FWD_COLS, _DW_BLOCKS, ds_plan, dw_fwd_plan,
+                                                     dw_plan)
 
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name, kernel in (("dw_conv", "dw_conv3x3_kernel"), ("dw_conv_bwd", "dw_partial_kernel")):
-        out = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC), "-o",
-             str(_build.BUILD_DIR / f"{name}-ptxas.so"), str(_build.CSRC / f"{name}.cu")],
-            capture_output=True, text=True, check=True, timeout=600).stderr
-        entry = None
-        for line in out.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif (entry and kernel in entry and "bfloat16Li8ELi2E" in entry
-                  and ("Used" in line or "spill" in line)):
+    def label(entry):
+        if "bfloat16Li8ELi2E" not in entry:
+            return None
+        for kernel in ("dw_conv3x3_kernel", "ds_conv3x3_pw_kernel", "dw_partial_kernel"):
+            if kernel in entry:
                 cols = re.search(r"bfloat16Li8ELi2ELi(\d)E", entry)
-                what = f", {cols.group(1)} columns" if cols else ""
-                _print(f"  {kernel}<bf16, VEC 8, stride 2{what}>: "
-                       f"{re.sub(r'.*info *: ', '', line).strip()}")
+                return (f"{kernel}<bf16, VEC 8, stride 2"
+                        f"{f', {cols.group(1)} columns' if cols else ''}>")
+        return None
+
+    ptxas_report("dw_conv", label)
+    ptxas_report("dw_conv_bwd", label)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1211,7 +1365,19 @@ def tune_dw() -> None:
                 cells.append(f"{rows}{mark}: {ms:.4f}")
             _print(f"  {site} forward, {cols} columns, ms by output rows a thread: "
                    f"{', '.join(cells)}")
-        if bias:
+        if bias:  # serving: B3 at this site
+            cout = SERVING_DS_COUT[c]
+            w_pw = (torch.randn((1, 1, c, cout), generator=g, device=dev) * 0.2).to(bf16)
+            b_pw = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(bf16)
+            ref = K.ds_conv3x3_pw_reference(x, wt, b, w_pw, b_pw, 2, 1)
+            chosen = ds_plan(n, ho, wo, c, cout).rows
+            cells = []
+            for rows in (1, 2, 4, 8):
+                if not torch.equal(K.ds_conv3x3_pw(x, wt, b, w_pw, b_pw, 2, 1, rows=rows), ref):
+                    raise AssertionError(f"{site}: B3 at {rows} rows differs from its plain version")
+                ms = time_ms(lambda: K.ds_conv3x3_pw(x, wt, b, w_pw, b_pw, 2, 1, rows=rows))
+                cells.append(f"{rows}{'*' if rows == chosen else ''}: {ms:.4f}")
+            _print(f"  {site} B3 ({c} -> {cout}), ms by output rows a block: {', '.join(cells)}")
             continue
         gy = (torch.randn((n, ho, wo, c), generator=g, device=dev) * 0.01).to(bf16)
         cells = []
@@ -1225,6 +1391,50 @@ def tune_dw() -> None:
         torch.cuda.empty_cache()
 
 
+def tune_pw() -> None:
+    """``--tune-pw``: the evidence for B7's launch plan. The registers,
+    spills and shared memory ``nvcc -Xptxas -v`` reports for each block
+    tile (16-byte copies), then the device ms of each tile at config C's
+    23 int8 sites of a frame, each result within :func:`pw_a8_gate`'s
+    bound, and the sums over the frame; ``*`` marks the plan's tile."""
+    import re
+
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+    from fastscnn_tpu_torch.ops.cuda.int8_pw import PW_A8_TILES, pw_a8_plan
+
+    def label(entry):
+        t = re.search(r"pw_a8_mma_kernelILi(\d+)ELi(\d+)ELi\d+ELi\d+ELi(\d+)ELi(\d+)ELi16ELb1E",
+                      entry)
+        return t and f"pw_a8_mma_kernel<{t[1]} x {t[2]}, {t[4]} stages of {t[3]} k>"
+
+    ptxas_report("int8_pw", label)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bf16 = torch.bfloat16
+    sums, plan_sum = [0.0] * len(PW_A8_TILES), 0.0
+    for site, m, k, n, relu in int8_sites(dev):
+        if site.startswith("ltd/"):
+            continue
+        x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(bf16)
+        b = torch.randn(n, generator=g, device=dev) * 5.0
+        ref = K.pw_conv_a8_reference(x_q, w_eff, b, relu)
+        chosen = pw_a8_plan(m, k, n).tile
+        cells = []
+        for tile, (bm, bn, _) in enumerate(PW_A8_TILES):
+            got = K.pw_conv_a8(x_q, w_eff, b, relu, tile=tile)
+            pw_a8_gate(f"{site} tile {bm}x{bn}", got, ref, x_q, w_eff, False, quiet=True)
+            ms = time_ms(lambda: K.pw_conv_a8(x_q, w_eff, b, relu, tile=tile))
+            sums[tile] += ms
+            plan_sum += ms if tile == chosen else 0.0
+            cells.append(f"{bm}x{bn}{'*' if tile == chosen else ''}: {ms:.4f}")
+        _print(f"  {site} ({m}x{k})x({k}x{n}), ms by tile: {', '.join(cells)}")
+    per_tile = ", ".join(f"{bm}x{bn} {t:.4f}" for (bm, bn, _), t in zip(PW_A8_TILES, sums))
+    _print(f"  over the 23 sites, ms: {per_tile}; the plan's tiles {plan_sum:.4f}")
+
+
 def main() -> int:
     import argparse
 
@@ -1233,9 +1443,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tune-dw", action="store_true",
                         help="only the depthwise kernels' registers and launch-plan sweeps")
+    parser.add_argument("--tune-pw", action="store_true",
+                        help="only B7's registers and block-tile sweep")
     parser.add_argument("--dw-ab", metavar="PARENT",
-                        help="only the depthwise kernels' costs, for the checkout at PARENT and "
-                             "for this one")
+                        help="only the redesigned kernels' costs (B3, B4, B6 forward and dW, "
+                             "B7), for the checkout at PARENT and for this one")
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1266,9 +1478,14 @@ def main() -> int:
     if args.dw_ab:
         dw_ab(os.path.abspath(args.dw_ab))
         return 0
-    if args.tune_dw:
+    if args.tune_dw or args.tune_pw:
         _build.build_all()
-        tune_dw()
+        dw_sweep()  # the studies time kernels the sweeps hold right first
+        pw_sweep()
+        if args.tune_dw:
+            tune_dw()
+        if args.tune_pw:
+            tune_pw()
         return 0
     peak_name, peaks = card_peaks(name)
     _print(f"bounds use the published {peak_name} peaks: {peaks['bytes'] / 1e12} TB/s; "
@@ -1280,14 +1497,15 @@ def main() -> int:
     _print(f"build: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    _print("depthwise forward and dW on a sweep of small shapes:")
+    _print("depthwise forward and dW, B3 and B7 on sweeps of small shapes:")
     dw_sweep()
-    _print(f"  sweep: {time.perf_counter() - t0:.1f} s")
+    pw_sweep()
+    _print(f"  sweeps: {time.perf_counter() - t0:.1f} s")
 
     _print("kernels at the serving path's shapes (N=1, bf16), B6 at the training stem's "
            "(N=16, bf16), then B7 and B8 at a frame's int8 sites (N=1):")
     kernels = kernel_phase(peaks)
-    _print("the depthwise kernels beside their library calls, timed three ways (device; "
+    _print("the redesigned kernels beside their library calls, timed three ways (device; "
            "windows without the spin, host issue time included; host us a call):")
     print_dw_costs(dw_costs())
     launches = serving_phase()

@@ -7,21 +7,33 @@
 // B4 dw_conv3x3 replaces fastscnn_tpu/ops/pallas/dw_conv.py::
 //    dw_conv3x3_pallas:     [relu](dw3x3(x) [+ b])
 //
-// What bounds them on an H100: bytes. A tap sum is 9 FMAs per output
-// element and the 1x1 is C (32 or 48) MACs per output, far below the
-// ~295 operations per byte where Hopper's compute would start to bind.
-// The TPU kernels' whole point is to touch device memory as little as
-// possible, and B3 keeps the dw activation out of device memory entirely.
+// What bounds them on an H100. B4: bytes (9 FMAs per output element, far
+// below the ~295 operations per byte where Hopper's compute would start to
+// bind). B3 keeps the dw activation out of device memory entirely, which is
+// the TPU kernel's whole point; its 1x1 is C (32 or 48) MACs per output,
+// and since the plain version rounds every product and sum on its own (no
+// FMA), a frame's two sites are ~0.71 G f32 instructions, ~0.021 ms on 132
+// SMs: its arithmetic and its bytes (~0.019 ms) bound it about equally.
 //
-// B3: one block per (image, output row, W tile). Stride-2 column taps are
-// plain strided loads (the TPU kernel's pair-merged lanes existed only
-// for Mosaic's unit-stride slices), the pad-1 border is handled by bounds
-// checks rather than a padded copy of the input, and odd H/W (511x1023
-// after the stem conv's padding=0) need nothing special. B3 computes its
-// tile's dw activation row into shared memory, rounds it to the compute
-// dtype (as the unfused bf16 graph hands a bf16 tensor from the dw conv to
-// the pw conv), then takes the C->Cout dot against the (C, Cout) weights
-// staged in shared memory.
+// B3 (see ds_conv3x3_pw_kernel). A block makes a tile of a few output rows
+// by 64 columns, all channels, in two phases:
+// - the dw phase takes B4's vector path (below): VEC channels a thread by
+//   one 16-byte load, 2 output columns, a walk down the tile's rows that
+//   keeps the input row two stride-2 output rows share in registers, taps
+//   and bias staged in shared memory as f32 from f32 or bf16, no division.
+//   It writes the tile's dw activation, rounded to the compute dtype (as
+//   the unfused graph hands a bf16 tensor from the dw conv to the 1x1),
+//   into shared memory, channel-major;
+// - the 1x1 phase gives a thread 4 neighbouring pixels by 8 output
+//   channels (32 sums in registers), reads the pixels and the staged 1x1
+//   weights (rounded to the compute dtype) as float4s, and writes its
+//   outputs as 16-byte vectors.
+// Stride-2 column taps are plain strided loads (the TPU kernel's
+// pair-merged lanes existed only for Mosaic's unit-stride slices), the
+// pad-1 border is handled by bounds checks rather than a padded copy, and
+// odd H/W (511x1023 after the stem conv's padding=0) need nothing special.
+// The launch plan (rows a block, block shape) is ops/cuda/dw_conv.py::
+// ds_plan, a function of the shape.
 //
 // B4 (also B6's forward, in training). Its bytes come from L2 as much as
 // from device memory (a 383x383x32 bf16 image is 9.4 MB), so what held
@@ -66,33 +78,13 @@
 namespace fastscnn {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kDsTileW = 64;  // output columns per B3 block
 constexpr int kFwdThreads = 128;  // B4 block: C / VEC (at most 128) x column groups
-
-// f32 sum of the 9 taps of channel c at output (n, ho, wo); taps outside
-// the input are the zero padding and are skipped.
-template <typename T>
-__device__ __forceinline__ float dw3x3_at(const T* __restrict__ x, const float* __restrict__ w9,
-                                          int n, int ho, int wo, int c, int H, int W, int C,
-                                          int stride, int pad) {
-  float acc = 0.f;
-  const int hi0 = ho * stride - pad;
-  const int wi0 = wo * stride - pad;
-#pragma unroll
-  for (int di = 0; di < 3; ++di) {
-    const int hi = hi0 + di;
-    if (hi < 0 || hi >= H) continue;
-    const T* row = x + ((int64_t)n * H + hi) * W * C;
-#pragma unroll
-    for (int dj = 0; dj < 3; ++dj) {
-      const int wi = wi0 + dj;
-      if (wi < 0 || wi >= W) continue;
-      acc = __fadd_rn(acc, __fmul_rn(to_f32(row[(int64_t)wi * C + c]), w9[(di * 3 + dj) * C + c]));
-    }
-  }
-  return acc;
-}
+// B3's block: `rows` output rows by kDsTileW output columns, all C and Cout
+constexpr int kDsTileW = 64;     // output columns a block
+constexpr int kDsCols = 2;       // output columns a thread in the dw phase
+constexpr int kDsPix = 4;        // neighbouring pixels a thread in the 1x1 phase
+constexpr int kDsCo = 8;         // output channels a thread in the 1x1 phase
+constexpr int kDsThreads = 256;  // a block's threads at most
 
 // VEC f32 values from shared memory. Volatile, so that the compiler reads
 // them where they are used rather than keeping all 9 x VEC taps live in
@@ -255,57 +247,222 @@ dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf
   }
 }
 
-// B3: one block per (image, output row, tile of kDsTileW output columns).
+// 8 f32 values rounded to T, stored with one 16-byte access (bf16) or two.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ds_conv3x3_pw_kernel(const T* __restrict__ x, const float* __restrict__ w9,
-                     const float* __restrict__ b_dw, const float* __restrict__ w_pw,
-                     const float* __restrict__ b_pw, T* __restrict__ out, int H, int W, int C,
-                     int Cout, int Ho, int Wo, int stride, int pad) {
-  extern __shared__ float smem[];
-  float* mid = smem;                   // [kDsTileW][C]: the dw activation tile
-  float* wpw = smem + kDsTileW * C;    // [C][Cout]: pw weights
-  const int n = blockIdx.z;
-  const int ho = blockIdx.y;
-  const int wo0 = blockIdx.x * kDsTileW;
-  const int tw = min(kDsTileW, Wo - wo0);  // ragged last tile: every loop below stops at tw
-
-  for (int i = threadIdx.x; i < C * Cout; i += kThreads) wpw[i] = w_pw[i];
-  for (int i = threadIdx.x; i < tw * C; i += kThreads) {
-    const int wl = i / C;
-    const int c = i % C;
-    const float v = __fadd_rn(dw3x3_at(x, w9, n, ho, wo0 + wl, c, H, W, C, stride, pad), b_dw[c]);
-    mid[i] = round_to<T>(fmaxf(v, 0.f));
-  }
-  __syncthreads();
-
-  T* orow = out + (((int64_t)n * Ho + ho) * Wo + wo0) * Cout;
-  for (int i = threadIdx.x; i < tw * Cout; i += kThreads) {
-    const int wl = i / Cout;
-    const int o = i % Cout;
-    const float* m = mid + wl * C;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc = __fadd_rn(acc, __fmul_rn(m[c], wpw[c * Cout + o]));
-    acc = __fadd_rn(acc, b_pw[o]);
-    orow[i] = from_f32<T>(fmaxf(acc, 0.f));
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    store_pack<T, 8>(p, v);
+  } else {
+    store_pack<T, 4>(p, reinterpret_cast<const float(&)[4]>(v[0]));
+    store_pack<T, 4>(p + 4, reinterpret_cast<const float(&)[4]>(v[4]));
   }
 }
 
-template <typename T>
-int launch_ds(const void* x, const void* w9, const void* b_dw, const void* w_pw, const void* b_pw,
-              void* out, int n, int h, int w, int c, int cout, int ho, int wo, int stride, int pad,
-              cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)kDsTileW * c + (size_t)c * cout);
+// B3: block (blockIdx.x, blockIdx.y, blockIdx.z) makes output rows
+// [ho0, ho0 + rows) by columns [wo0, wo0 + kDsTileW) of image n, every
+// output channel; block (Cout groups of kDsCo, pixel-group stride).
+// Shared memory (f32): the 9 dw taps and dw bias [10][C]; the 1x1 weights
+// rounded to T, [C][cop] (Cout padded with zeros to cop = kDsCo *
+// blockDim.x); the 1x1 bias [cop]; and the tile's dw activation, rounded
+// to T, channel-major [C][rows * kDsTileW].
+// - dw phase: a work item is VEC channels by kDsCols output columns, walked
+//   down the tile's rows as B4's threads walk theirs (the input row two
+//   stride-2 output rows share stays in registers); items run column
+//   group fastest, so a warp's stores to the tile are contiguous.
+// - 1x1 phase: a thread owns kDsPix neighbouring pixels by kDsCo output
+//   channels; for c = 0..C-1 in order it reads the pixels as one float4
+//   and the weights as two, and adds the 32 products, each rounded on its
+//   own. Neighbouring threads take neighbouring channel groups, so their
+//   16-byte output stores are contiguous.
+template <typename T, int VEC, int S>
+__global__ void __launch_bounds__(kDsThreads)
+ds_conv3x3_pw_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w9_bf16,
+                     const void* __restrict__ b_dw, int bdw_bf16, const void* __restrict__ w_pw,
+                     int wpw_bf16, const void* __restrict__ b_pw, int bpw_bf16,
+                     T* __restrict__ out, int H, int W, int C, int Cout, int Ho, int Wo, int pad,
+                     int rows, int vec_out) {
+  constexpr int kGroups = kDsTileW / kDsCols;  // column groups of a tile row
+  constexpr int kIn = (kDsCols - 1) * S + 3;   // input columns a dw item reads
+  extern __shared__ __align__(16) float smem[];
+  const int cop = blockDim.x * kDsCo;
+  const int npix = rows * kDsTileW;
+  float* s_dw = smem;                        // [10][C]
+  float* s_pw = smem + ((10 * C + 3) & ~3);  // [C][cop], 16-byte aligned
+  float* s_bp = s_pw + C * cop;              // [cop]
+  float* mid = s_bp + cop;                   // [C][npix]
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nt = blockDim.x * blockDim.y;
+  for (int i = tid; i < 9 * C; i += nt) s_dw[i] = weight_at(w9, w9_bf16, i);
+  for (int i = tid; i < C; i += nt) s_dw[9 * C + i] = weight_at(b_dw, bdw_bf16, i);
+  for (int c = threadIdx.y; c < C; c += blockDim.y)
+    for (int co = threadIdx.x; co < cop; co += blockDim.x)
+      s_pw[c * cop + co] =
+          co < Cout ? round_to<T>(weight_at(w_pw, wpw_bf16, (int64_t)c * Cout + co)) : 0.f;
+  for (int co = tid; co < cop; co += nt) s_bp[co] = co < Cout ? weight_at(b_pw, bpw_bf16, co) : 0.f;
+  const int co0 = threadIdx.x * kDsCo;
+  const float* wp = s_pw + co0;
+  const int n = blockIdx.z, ho0 = blockIdx.y * rows, wo0 = blockIdx.x * kDsTileW;
+  const int nrows = min(rows, Ho - ho0);
+  const T* xn = x + (int64_t)n * H * W * C;
+  __syncthreads();
+
+  // dw phase: relu(dw3x3 + b_dw) rounded to T, into mid
+  for (int item = tid; item < (C / VEC) * kGroups; item += nt) {
+    const int c0 = (item / kGroups) * VEC, wl = (item % kGroups) * kDsCols;
+    const float* my_w = s_dw + c0;  // tap k at my_w + k * C, the bias at my_w + 9 * C
+    int col_off[kIn];
+    bool col_ok[kIn];
+#pragma unroll
+    for (int j = 0; j < kIn; ++j) {
+      const int wi = (wo0 + wl) * S - pad + j;
+      col_ok[j] = (unsigned)wi < (unsigned)W;
+      col_off[j] = wi * C + c0;
+    }
+    auto load_row = [&](int hi, Pack<T, VEC>(&row)[kIn]) {
+      const bool row_ok = (unsigned)hi < (unsigned)H;
+      const T* p = xn + (int64_t)(row_ok ? hi : 0) * W * C;
+#pragma unroll
+      for (int j = 0; j < kIn; ++j) {
+        if (row_ok && col_ok[j]) row[j].load(p + col_off[j]);
+        else row[j].zero();
+      }
+    };
+    auto add_taps = [&](float(&acc)[kDsCols][VEC], const Pack<T, VEC>(&row)[kIn], int di) {
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj) {
+        float w[VEC];
+        lds_f32<VEC>(my_w + (di * 3 + dj) * C, w);
+#pragma unroll
+        for (int o = 0; o < kDsCols; ++o)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            acc[o][v] = __fadd_rn(acc[o][v], __fmul_rn(row[o * S + dj].get(v), w[v]));
+      }
+    };
+    auto zero = [](float(&acc)[kDsCols][VEC]) {
+#pragma unroll
+      for (int o = 0; o < kDsCols; ++o)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[o][v] = 0.f;
+    };
+    auto store = [&](const float(&acc)[kDsCols][VEC], int r) {
+      float b[VEC];
+      lds_f32<VEC>(my_w + 9 * C, b);
+      float* m = mid + (int64_t)c0 * npix + r * kDsTileW + wl;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        *reinterpret_cast<float2*>(m + v * npix) =
+            make_float2(round_to<T>(fmaxf(__fadd_rn(acc[0][v], b[v]), 0.f)),
+                        round_to<T>(fmaxf(__fadd_rn(acc[1][v], b[v]), 0.f)));
+    };
+    static_assert(kDsCols == 2, "store writes two columns");
+
+    Pack<T, VEC> ra[kIn], rb[kIn];
+    float acc[kDsCols][VEC];
+    if constexpr (S == 2) {
+      zero(acc);
+      load_row(ho0 * 2 - pad, rb);
+      add_taps(acc, rb, 0);
+      for (int r = 0; r < nrows; ++r) {
+        const int ho = ho0 + r;
+        load_row(ho * 2 - pad + 1, ra);
+        load_row(ho * 2 - pad + 2, rb);
+        add_taps(acc, ra, 1);
+        add_taps(acc, rb, 2);
+        store(acc, r);
+        zero(acc);
+        add_taps(acc, rb, 0);
+      }
+    } else {
+      float acc1[kDsCols][VEC], acc2[kDsCols][VEC];
+      zero(acc);
+      zero(acc1);
+      load_row(ho0 - pad, ra);
+      add_taps(acc, ra, 0);
+      load_row(ho0 - pad + 1, ra);
+      add_taps(acc, ra, 1);
+      add_taps(acc1, ra, 0);
+      for (int r = 0; r < nrows; ++r) {
+        load_row(ho0 + r - pad + 2, ra);
+        add_taps(acc, ra, 2);
+        store(acc, r);
+        add_taps(acc1, ra, 1);
+        zero(acc2);
+        add_taps(acc2, ra, 0);
+#pragma unroll
+        for (int o = 0; o < kDsCols; ++o)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            acc[o][v] = acc1[o][v];
+            acc1[o][v] = acc2[o][v];
+          }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 1x1 phase: relu(sum_c mid[c] * w_pw[c] + b_pw), c in order
+  float bias[kDsCo];
+#pragma unroll
+  for (int j = 0; j < kDsCo; ++j) bias[j] = s_bp[co0 + j];
+  for (int pg = threadIdx.y; pg < npix / kDsPix; pg += blockDim.y) {
+    const int p0 = pg * kDsPix;
+    const int r = p0 / kDsTileW, wo = wo0 + p0 % kDsTileW;
+    if (r >= nrows || wo >= Wo) continue;
+    float acc[kDsPix][kDsCo];
+#pragma unroll
+    for (int i = 0; i < kDsPix; ++i)
+#pragma unroll
+      for (int j = 0; j < kDsCo; ++j) acc[i][j] = 0.f;
+    const float* mp = mid + p0;
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      const float4 m4 = *reinterpret_cast<const float4*>(mp + c * npix);
+      const float4 wa = *reinterpret_cast<const float4*>(wp + c * cop);
+      const float4 wb = *reinterpret_cast<const float4*>(wp + c * cop + 4);
+      const float mv[kDsPix] = {m4.x, m4.y, m4.z, m4.w};
+      const float wv[kDsCo] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int i = 0; i < kDsPix; ++i)
+#pragma unroll
+        for (int j = 0; j < kDsCo; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(mv[i], wv[j]));
+    }
+    T* op = out + (((int64_t)n * Ho + ho0 + r) * Wo + wo) * Cout + co0;
+#pragma unroll
+    for (int i = 0; i < kDsPix; ++i) {
+      if (wo + i >= Wo) break;  // ragged last tile
+      float v[kDsCo];
+#pragma unroll
+      for (int j = 0; j < kDsCo; ++j) v[j] = fmaxf(__fadd_rn(acc[i][j], bias[j]), 0.f);
+      if (vec_out) {
+        store8<T>(op + i * Cout, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kDsCo; ++j)
+          if (co0 + j < Cout) op[i * Cout + j] = from_f32<T>(v[j]);
+      }
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch_ds(const void* x, int w9_bf16, const void* w9, int bdw_bf16, const void* b_dw,
+              int wpw_bf16, const void* w_pw, int bpw_bf16, const void* b_pw, void* out, int n,
+              int h, int w, int c, int cout, int ho, int wo, int stride, int pad, int rows, int bx,
+              int by, int vec_out, cudaStream_t s) {
+  if (bx * by > kDsThreads || bx * kDsCo < cout || rows < 1) return (int)cudaErrorInvalidValue;
+  const int cop = bx * kDsCo;
+  const size_t smem = sizeof(float) * (((size_t)10 * c + 3) / 4 * 4 + (size_t)c * cop + cop +
+                                       (size_t)c * rows * kDsTileW);
+  auto* kernel = stride == 2 ? ds_conv3x3_pw_kernel<T, VEC, 2> : ds_conv3x3_pw_kernel<T, VEC, 1>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ds_conv3x3_pw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((wo + kDsTileW - 1) / kDsTileW, ho, n);
-  ds_conv3x3_pw_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w9), static_cast<const float*>(b_dw),
-      static_cast<const float*>(w_pw), static_cast<const float*>(b_pw), static_cast<T*>(out), h,
-      w, c, cout, ho, wo, stride, pad);
+  const dim3 grid((wo + kDsTileW - 1) / kDsTileW, (ho + rows - 1) / rows, n);
+  kernel<<<grid, dim3(bx, by), smem, s>>>(
+      static_cast<const T*>(x), w9, w9_bf16, b_dw, bdw_bf16, w_pw, wpw_bf16, b_pw, bpw_bf16,
+      static_cast<T*>(out), h, w, c, cout, ho, wo, pad, rows, vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -368,17 +525,33 @@ extern "C" int fastscnn_dw_conv3x3(int dtype, const void* x, int w_dtype, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// x (n, h, w, c); w9 (9, c), b_dw (c), w_pw (c, cout), b_pw (cout) all f32;
-// out (n, ho, wo, cout).
-extern "C" int fastscnn_ds_conv3x3_pw(int dtype, const void* x, const void* w9, const void* b_dw,
-                                      const void* w_pw, const void* b_pw, void* out, int n, int h,
-                                      int w, int c, int cout, int ho, int wo, int stride, int pad,
-                                      void* stream) {
+// x (n, h, w, c) in dtype, aligned to vec elements; w9 (9, c), b_dw (c),
+// w_pw (c, cout) and b_pw (cout) each f32 or bf16 (its own dtype code);
+// out (n, ho, wo, cout), 16-byte aligned with cout % 8 == 0 when vec_out.
+// The launch plan (ops/cuda/dw_conv.py::ds_plan): rows output rows a block,
+// block (bx, by), bx * 8 >= cout.
+extern "C" int fastscnn_ds_conv3x3_pw(int dtype, const void* x, int w9_dtype, const void* w9,
+                                      int bdw_dtype, const void* b_dw, int wpw_dtype,
+                                      const void* w_pw, int bpw_dtype, const void* b_pw, void* out,
+                                      int n, int h, int w, int c, int cout, int ho, int wo,
+                                      int stride, int pad, int vec, int rows, int bx, int by,
+                                      int vec_out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return launch_ds<__nv_bfloat16>(x, w9, b_dw, w_pw, b_pw, out, n, h, w, c, cout, ho, wo,
-                                    stride, pad, s);
-  if (dtype == kF32)
-    return launch_ds<float>(x, w9, b_dw, w_pw, b_pw, out, n, h, w, c, cout, ho, wo, stride, pad, s);
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+#define FASTSCNN_DS(T, VEC)                                                                    \
+  return launch_ds<T, VEC>(x, w9_dtype == kBF16, w9, bdw_dtype == kBF16, b_dw,                 \
+                           wpw_dtype == kBF16, w_pw, bpw_dtype == kBF16, b_pw, out, n, h, w, c, \
+                           cout, ho, wo, stride, pad, rows, bx, by, vec_out, s)
+  if (dtype == kBF16) {
+    if (vec == 8) FASTSCNN_DS(__nv_bfloat16, 8);
+    if (vec == 4) FASTSCNN_DS(__nv_bfloat16, 4);
+    if (vec == 2) FASTSCNN_DS(__nv_bfloat16, 2);
+    if (vec == 1) FASTSCNN_DS(__nv_bfloat16, 1);
+  } else if (dtype == kF32) {
+    if (vec == 4) FASTSCNN_DS(float, 4);
+    if (vec == 2) FASTSCNN_DS(float, 2);
+    if (vec == 1) FASTSCNN_DS(float, 1);
+  }
+#undef FASTSCNN_DS
   return (int)cudaErrorInvalidValue;
 }

@@ -22,6 +22,7 @@ from fastscnn_tpu_torch.ops.cuda.dw_conv import (
 from fastscnn_tpu_torch.ops.cuda.int8_pw import (
     pw_conv_a8,
     pw_conv_a8_reference,
+    pw_conv_a8_tolerance,
     pw_conv_w8a8,
     pw_conv_w8a8_reference,
     quantize_act,
@@ -52,6 +53,7 @@ __all__ = [
     "h_lerp_argmax_reference",
     "pw_conv_a8",
     "pw_conv_a8_reference",
+    "pw_conv_a8_tolerance",
     "pw_conv_w8a8",
     "pw_conv_w8a8_reference",
     "quantize_act",

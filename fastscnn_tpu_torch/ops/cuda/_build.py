@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dw_conv": {
         "fastscnn_dw_conv3x3": [_I, _P, _I, _P, _I, _P, _P] + [_I] * 16 + [_P],
-        "fastscnn_ds_conv3x3_pw": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        "fastscnn_ds_conv3x3_pw": [_I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P] + [_I] * 14 + [_P],
     },
     "dw_conv_bwd": {
         "fastscnn_dw_conv3x3_dx": [_I, _P, _P, _P] + [_I] * 8 + [_P],
@@ -50,7 +50,7 @@ _SIGNATURES = {
     },
     "int8_pw": {
         "fastscnn_pw_conv_w8a8": [_P] * 5 + [_I] * 5 + [_P],
-        "fastscnn_pw_conv_a8": [_P] * 4 + [_I] * 5 + [_P],
+        "fastscnn_pw_conv_a8": [_P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     },
     "upsample_argmax": {
         "fastscnn_upsample_argmax": [_I] + [_P] * 8 + [_I] * 6 + [_P],

@@ -22,13 +22,14 @@ All are bound by bytes on an H100 (9 FMAs per dw output, C MACs per pw
 output): forward, dX and dW each move about one activation-sized tensor
 in and one out (dW writes only 9 × C values). The kernels read NHWC rows
 straight from device memory with bounds-checked taps (no padded or
-zero-dilated copy); B3 keeps the dw row tile in shared memory; dW sums
-across blocks in two passes without atomics. The forward (B4, B6's
-forward) and dW give a thread ``VEC`` channels moved by one load of up to
-16 bytes, :func:`vec_width` of C, the dtype and the pointers' alignment,
-and a block of outputs whose shared inputs stay in registers; their
-launch plans (:func:`dw_fwd_plan`, :func:`dw_plan`) are functions of the
-shape. See the sources for the designs.
+zero-dilated copy); B3 keeps its tile's dw activation in shared memory;
+dW sums across blocks in two passes without atomics. The forward (B4,
+B6's forward), B3's dw phase and dW give a thread ``VEC`` channels moved
+by one load of up to 16 bytes, :func:`vec_width` of C, the dtype and the
+pointers' alignment, and a block of outputs whose shared inputs stay in
+registers; B3's 1x1 phase gives a thread 4 pixels by 8 output channels.
+Their launch plans (:func:`dw_fwd_plan`, :func:`ds_plan`, :func:`dw_plan`)
+are functions of the shape. See the sources for the designs.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU and launches its kernel for a CUDA tensor, raising on
@@ -61,6 +62,7 @@ __all__ = [
     "ds_conv3x3_pw_reference",
     "dw_conv3x3_dx_reference",
     "dw_conv3x3_dw_reference",
+    "ds_plan",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -246,29 +248,103 @@ def dw_conv3x3(x, w, b=None, stride=1, padding=1, relu=False, rows=None, cols=No
 dw_conv3x3.launches = 0
 
 
-def ds_conv3x3_pw(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1):
+# -- B3's launch plan (csrc/dw_conv.cu, ds_conv3x3_pw_kernel) -----------------
+_DS_TILE_W = 64    # kDsTileW: output columns a block
+_DS_PIX = 4        # kDsPix: neighbouring pixels a thread in the 1×1 phase
+_DS_CO = 8         # kDsCo: output channels a thread in the 1×1 phase
+_DS_THREADS = 256  # kDsThreads: a block's threads at most
+_DS_SMEM = 227 * 1024  # an H100 block's shared memory at most
+
+
+class DsPlan(NamedTuple):
+    """Launch plan of B3's kernel (see :func:`ds_plan`)."""
+    rows: int                   # output rows a block
+    block: tuple[int, int]      # (output-channel groups of 8, pixel-group stride)
+    grid: tuple[int, int, int]  # (column tiles of 64, row strips, N)
+    smem: int                   # dynamic shared memory, bytes
+
+
+# registers a thread of B3's kernel takes, rounded up to the allocation unit
+# (122 at bf16 VEC 8 stride 2; chip_smoke.py --tune-dw prints them)
+_DS_REGS = 128
+
+
+def _ds_block(c: int, cout: int, rows: int):
+    """B3's block (output-channel groups of 8, pixel-group stride) at
+    ``rows`` output rows, and its dynamic shared memory in bytes."""
+    cog = -(-cout // _DS_CO)
+    pix_groups = rows * _DS_TILE_W // _DS_PIX
+    by = 1
+    while by * 2 * cog <= _DS_THREADS and pix_groups % (by * 2) == 0:
+        by *= 2
+    cop = cog * _DS_CO
+    return (cog, by), 4 * (-(-10 * c // 4) * 4 + c * cop + cop + c * rows * _DS_TILE_W)
+
+
+@functools.lru_cache(maxsize=256)
+def ds_plan(n: int, ho: int, wo: int, c: int, cout: int, rows: int | None = None) -> DsPlan:
+    """Launch plan of B3's kernel. A block makes ``rows`` output rows by 64
+    output columns; its threads are (⌈Cout / 8⌉, pixel-group stride), at
+    most 256, each of 4 pixels by 8 output channels in the 1×1 phase, the
+    stride a power of two that divides the block's pixel groups so that
+    every thread makes as many as the others. ``rows`` is 8, halved while
+    the grid fills less than 0.9 of one wave of the blocks the SMs hold
+    (by registers and shared memory): 8 at serving dsconv1 (256 blocks)
+    and at the training sites, 2 at serving dsconv2 (256 blocks).
+    ``chip_smoke.py --tune-dw`` times 1 to 8 rows at the serving sites:
+    this rule picks the fastest at both. Shared memory: the 9 dw taps and
+    bias, the 1×1 weights and bias (Cout padded to a multiple of 8) and
+    the block's dw activation, all f32. ``rows`` may be given to time
+    alternatives. A pure function of the shape."""
+    if -(-cout // _DS_CO) > _DS_THREADS:
+        raise ValueError(f"ds_plan: Cout={cout} exceeds {_DS_THREADS * _DS_CO} output channels")
+    tiles = -(-wo // _DS_TILE_W)
+
+    def resident(rows):  # blocks an SM holds
+        (cog, by), smem = _ds_block(c, cout, rows)
+        threads = -(-cog * by // 32) * 32
+        return max(1, min(65536 // (threads * _DS_REGS), 232448 // (smem + 1024)))
+
+    if rows is None:
+        rows = 8
+        while rows > 1 and tiles * -(-ho // rows) * n < 0.9 * resident(rows) * _SMS:
+            rows //= 2
+    if rows < 1:
+        raise ValueError(f"ds_plan: rows must be >= 1, got {rows}")
+    block, smem = _ds_block(c, cout, rows)
+    return DsPlan(rows, block, (tiles, -(-ho // rows), n), smem)
+
+
+def ds_conv3x3_pw(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows=None):
     """The whole folded DSConv in one kernel (B3):
-    relu(pw1×1(cast(relu(dw3×3(x) + b_dw))) + b_pw), NHWC, HWIO weights."""
+    relu(pw1×1(cast(relu(dw3×3(x) + b_dw))) + b_pw), NHWC, HWIO weights.
+    The kernel reads weights and biases as they are stored (f32 or bf16).
+    ``rows`` overrides the launch plan's (:func:`ds_plan`); the result is
+    the same bits."""
     _check_dw_args(x, w_dw, stride, "ds_conv3x3_pw")
     _check_pw_weights(x, w_pw)
     if x.device.type == "cpu":
         return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
-    code = _kernel_input(x, "ds_conv3x3_pw")
     n, h, wd, c = x.shape
     cout = w_pw.shape[3]
     ho, wo = _out_hw(x, stride, padding, "ds_conv3x3_pw")
-    smem = 4 * (64 * c + c * cout)  # kDsTileW * C + C * Cout floats
-    if smem > 227 * 1024:
-        raise ValueError(f"ds_conv3x3_pw: C={c}, Cout={cout} exceed shared memory")
-    w9 = w_dw.float().reshape(9, c).contiguous()
-    bd = b_dw.float().contiguous()
-    wpw = w_pw.reshape(c, cout).to(x.dtype).float().contiguous()
-    bp = b_pw.float().contiguous()
+    plan = ds_plan(n, ho, wo, c, cout, rows)
+    if plan.smem > _DS_SMEM:
+        raise ValueError(f"ds_conv3x3_pw: C={c}, Cout={cout} at {plan.rows} rows a block need "
+                         f"{plan.smem} bytes of shared memory, more than 227 KB")
+    code = _kernel_input(x, "ds_conv3x3_pw")
+    w9 = _as_kernel_weights(w_dw.reshape(9, c))
+    bd = _as_kernel_weights(b_dw)
+    wpw = _as_kernel_weights(w_pw.reshape(c, cout))
+    bp = _as_kernel_weights(b_pw)
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    vec = vec_width(c, x.element_size(), (x.data_ptr(),))
+    vec_out = cout % _DS_CO == 0 and out.data_ptr() % 16 == 0
     rc = library("dw_conv").fastscnn_ds_conv3x3_pw(
-        code, x.data_ptr(), w9.data_ptr(), bd.data_ptr(), wpw.data_ptr(), bp.data_ptr(),
-        out.data_ptr(), n, h, wd, c, cout, ho, wo, stride, padding,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        code, x.data_ptr(), _DTYPE_CODE[w9.dtype], w9.data_ptr(), _DTYPE_CODE[bd.dtype],
+        bd.data_ptr(), _DTYPE_CODE[wpw.dtype], wpw.data_ptr(), _DTYPE_CODE[bp.dtype],
+        bp.data_ptr(), out.data_ptr(), n, h, wd, c, cout, ho, wo, stride, padding, vec, plan.rows,
+        *plan.block, int(vec_out), torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "ds_conv3x3_pw")
     ds_conv3x3_pw.launches += 1

@@ -13,7 +13,9 @@ Counterpart of ``fastscnn_tpu/ops/pallas/int8_pw.py``:
 
 A 1×1 conv over NHWC is a matmul on the ``(N·H·W, K)`` view, so both take
 NHWC or pre-flattened 2-D int8 input. The kernels (``csrc/int8_pw.cu``)
-compute the product in their own bodies; no library GEMM is on the path.
+compute the product in their own bodies; no library GEMM is on the path
+(B7 issues the tensor cores' ``mma`` itself, B8 runs ``__dp4a`` on the CUDA
+cores).
 The JAX package's TPU tiling (``use_pallas``, ``block_m``, ``interpret``
 and its XLA fallback for ``M % 32 != 0``) has no counterpart: the kernels
 take every M and mask the ragged last tile. They need ``K % 4 == 0`` (four
@@ -31,16 +33,22 @@ sums in an order of its own: one bf16 ulp, or one int8 level).
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from fastscnn_tpu_torch.ops.cuda._build import check, library
+from fastscnn_tpu_torch.ops.cuda.dw_conv import _DTYPE_CODE
 
 __all__ = [
     "quantize_act",
     "pw_conv_a8",
     "pw_conv_w8a8",
     "pw_conv_a8_reference",
+    "pw_conv_a8_tolerance",
     "pw_conv_w8a8_reference",
+    "pw_a8_plan",
 ]
 
 
@@ -96,6 +104,24 @@ def pw_conv_a8_reference(x_q, w_eff, b_eff, relu=True, quantize_out=False):
     return _epilogue(acc, b_eff, relu, quantize_out).reshape(*lead, n)
 
 
+def pw_conv_a8_tolerance(x_q, w_eff):
+    """Per-output bound on |B7's f32 sum − the plain version's|:
+    ``γ_K · (|x| @ |w|)``, in f64, shaped like B7's output.
+
+    ``γ_K = K · 2^-22``. Every product is exact in f32, so the two differ
+    only in how the K products are added. The plain version's in-order
+    sum errs by at most (K − 1) · 2^-24 · Σ|p| (each addition rounds to
+    nearest, relative error 2^-24, of a partial sum at most Σ|p|). The
+    tensor cores add in their own order and may truncate where they
+    align or add, losing less than one f32 ulp, 2^-23 relative, of a
+    partial sum at most Σ|p| in each of at most K additions: at most
+    K · 2^-23 · Σ|p|. The two together stay below K · 2^-22 · Σ|p|."""
+    k, n = w_eff.shape
+    x2, lead = _flatten(x_q, k, "pw_conv_a8_tolerance")
+    wa = w_eff.to(torch.bfloat16).double().abs()
+    return ((x2.double().abs() @ wa) * (k * 2.0**-22)).reshape(*lead, n)
+
+
 def pw_conv_w8a8_reference(x_q, w_q, cs, b_eff, relu=True, quantize_out=False):
     """Plain PyTorch version of B8: the integer sums (exact in f64, and
     below 2^24 so exact in f32), × ``cs`` in f32, then the epilogue."""
@@ -116,14 +142,63 @@ def _check_launch(x2: torch.Tensor, w: torch.Tensor, name: str):
         raise ValueError(f"{name}: weights on {w.device}, activations on {x2.device}")
 
 
-def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False):
+# -- B7's launch plan (csrc/int8_pw.cu, pw_a8_mma_kernel) ----------------------
+# the block tiles the kernel is built for, largest first: (BM, BN, threads)
+PW_A8_TILES = ((128, 128, 256), (64, 64, 128), (32, 64, 128))
+# blocks of each tile an H100 SM holds, by registers (128, 72 and 72 a
+# thread) and shared memory (58, 71 and 107 KB); chip_smoke.py --tune-pw
+# prints the kernels' registers and times every tile at a frame's sites
+_PW_A8_RESIDENT = (2, 3, 2)
+_SMS = 132
+
+
+class PwA8Plan(NamedTuple):
+    """Launch plan of B7's kernel (see :func:`pw_a8_plan`)."""
+    tile: int              # index into PW_A8_TILES
+    bm: int                # output rows a block
+    bn: int                # output columns a block
+    threads: int
+    grid: tuple[int, int]  # (N tiles, M tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def pw_a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwA8Plan:
+    """Launch plan of B7's kernel: the largest block tile of
+    :data:`PW_A8_TILES` whose grid fills at least 0.6 of one wave of the
+    blocks of that tile the SMs hold, else the smallest tile (the rule of
+    :func:`~fastscnn_tpu_torch.ops.cuda.dw_conv.dw_fwd_plan`). At a
+    1024×2048 frame that is 128 × 128 at the M = 32,768 and 131,072 sites
+    and at M = 8,192 with N = 384, 64 × 64 at M = 2,048 with N = 576 and
+    768, and 32 × 64 elsewhere: at least 128 blocks at every site. K does not
+    change the plan (the kernel walks K in chunks of 32 to 128), but is part of
+    its signature so that a shape always maps to one plan. ``tile`` may be
+    given to time alternatives. A pure function of the shape."""
+    if k < 1 or m < 1 or n < 1:
+        raise ValueError(f"pw_a8_plan: empty product ({m}x{k})x({k}x{n})")
+    if tile is None:
+        tile = len(PW_A8_TILES) - 1
+        for i, (bm, bn, _) in enumerate(PW_A8_TILES):
+            if -(-m // bm) * -(-n // bn) >= 0.6 * _PW_A8_RESIDENT[i] * _SMS:
+                tile = i
+                break
+    if not 0 <= tile < len(PW_A8_TILES):
+        raise ValueError(f"pw_a8_plan: no tile {tile}")
+    bm, bn, threads = PW_A8_TILES[tile]
+    grid = (-(-n // bn), -(-m // bm))
+    if grid[1] > 65535:
+        raise ValueError(f"pw_a8_plan: M={m} needs more than 65,535 row tiles of {bm}")
+    return PwA8Plan(tile, bm, bn, threads, grid)
+
+
+def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False, tile=None):
     """Pointwise conv on int8 activations with bf16 effective weights (B7).
 
     ``x_q`` int8 NHWC or ``(M, K)``; ``w_eff`` ``(K, N)``, the folded
     weight × the activation scale (÷ the output scale when
-    ``quantize_out``), used in bf16; ``b_eff`` ``(N,)``, used in f32.
-    Returns bf16, or int8 when ``quantize_out``, shaped like ``x_q`` with
-    N channels."""
+    ``quantize_out``), used in bf16; ``b_eff`` ``(N,)``, used in f32 (the
+    kernel reads an f32 or bf16 bias as it is stored). Returns bf16, or
+    int8 when ``quantize_out``, shaped like ``x_q`` with N channels.
+    ``tile`` overrides the launch plan's block tile (:func:`pw_a8_plan`)."""
     k, n = w_eff.shape
     x2, lead = _flatten(x_q, k, "pw_conv_a8")
     if x2.device.type == "cpu":
@@ -131,13 +206,20 @@ def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False):
     x2 = x2.contiguous()
     _check_launch(x2, w_eff, "pw_conv_a8")
     m = x2.shape[0]
-    w = w_eff.to(torch.bfloat16).contiguous()
-    b = b_eff.float().contiguous()
+    w = w_eff.to(torch.bfloat16).contiguous()  # the model's w_eff is bf16 already: no copy
+    b = (b_eff if b_eff.dtype in _DTYPE_CODE else b_eff.float()).contiguous()
+    if b.device != x2.device:
+        raise ValueError(f"pw_conv_a8: bias on {b.device}, activations on {x2.device}")
     out = torch.empty((m, n), dtype=torch.int8 if quantize_out else torch.bfloat16,
                       device=x2.device)
+    plan = pw_a8_plan(m, k, n, tile)
+    avec = 16 if k % 16 == 0 and x2.data_ptr() % 16 == 0 else 4
+    wvec = n % 8 == 0 and w.data_ptr() % 16 == 0
+    vec_out = n % (16 // out.element_size()) == 0 and out.data_ptr() % 16 == 0
     rc = library("int8_pw").fastscnn_pw_conv_a8(
-        x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, int(relu),
-        int(quantize_out), torch.cuda.current_stream(x2.device).cuda_stream,
+        x2.data_ptr(), w.data_ptr(), _DTYPE_CODE[b.dtype], b.data_ptr(), out.data_ptr(), m, k, n,
+        int(relu), int(quantize_out), plan.tile, avec, int(wvec), int(vec_out),
+        torch.cuda.current_stream(x2.device).cuda_stream,
     )
     check(rc, "pw_conv_a8")
     pw_conv_a8.launches += 1

@@ -23,7 +23,7 @@ from fastscnn_tpu.ops.pallas.dw_conv import (
 )
 from fastscnn_tpu_torch.ops.conv import conv2d
 from fastscnn_tpu_torch.ops.cuda import ds_conv3x3_pw, ds_conv3x3_pw_multirow, dw_conv3x3
-from fastscnn_tpu_torch.ops.cuda.dw_conv import _mr_smem_bytes, dw_fwd_plan, vec_width
+from fastscnn_tpu_torch.ops.cuda.dw_conv import _mr_smem_bytes, ds_plan, dw_fwd_plan, vec_width
 
 _ULP_BF16 = 2.0 ** -7
 
@@ -259,3 +259,56 @@ def test_dw_wrappers_reject_bad_weights():
     with pytest.raises(ValueError, match="pw weights"):
         ds_conv3x3_pw(x, torch.zeros((3, 3, 1, 4)), torch.zeros(4), torch.zeros((1, 1, 5, 6)),
                       torch.zeros(6))
+
+
+# B3's launch plan at the main path's four sites: (N, Ho, Wo, C, Cout), then
+# the rows a block and the shared memory the plan gives them
+_DS_SITES = {
+    "serving dsconv1": ((1, 256, 512, 32, 48), 8, 73152),
+    "serving dsconv2": ((1, 128, 256, 48, 64), 2, 39040),
+    "training dsconv1": ((16, 192, 192, 32, 48), 8, 73152),
+    "training dsconv2": ((16, 96, 96, 48, 64), 8, 112768),
+}
+
+
+@pytest.mark.parametrize("site", sorted(_DS_SITES))
+def test_ds_plan_at_the_main_path_sites(site):
+    """B3's plan: one thread column per 8 output channels, a pixel-group
+    stride that is a power of two dividing the block's pixel groups (every
+    thread makes as many), at most 256 threads; the grid covers every
+    output row and column once and holds at least 256 blocks (0.9 of a
+    wave of two blocks an SM); the shared memory is the 9 taps and bias,
+    the 1×1 weights and bias padded to 8 channels and the block's dw
+    activation, in f32, within 227 KB. A function of the shape alone."""
+    (n, ho, wo, c, cout), rows, smem = _DS_SITES[site]
+    plan = ds_plan(n, ho, wo, c, cout)
+    assert plan == ds_plan.__wrapped__(n, ho, wo, c, cout)
+    assert (plan.rows, plan.smem) == (rows, smem)
+    (bx, by), (gx, gy, gz) = plan.block, plan.grid
+    assert (bx - 1) * 8 < cout <= bx * 8 and bx * by <= 256
+    pix_groups = rows * 64 // 4
+    assert pix_groups % by == 0 and by & (by - 1) == 0
+    assert by == pix_groups or bx * by * 2 > 256
+    assert (gx - 1) * 64 < wo <= gx * 64 and (gy - 1) * rows < ho <= gy * rows and gz == n
+    assert gx * gy * gz >= 256 and smem <= 227 * 1024
+    assert smem == 4 * (10 * c + c * bx * 8 + bx * 8 + c * rows * 64)
+    for r in (1, 3, 4):  # rows given to time alternatives
+        alt = ds_plan(n, ho, wo, c, cout, rows=r)
+        assert alt.rows == r and (alt.grid[1] - 1) * r < ho <= alt.grid[1] * r
+
+
+def test_ds_conv3x3_pw_refuses_what_does_not_fit():
+    """A shape whose block needs more than 227 KB of shared memory, or more
+    output channels than 256 threads of 8 cover, is refused before any
+    launch."""
+    def meta(*shape):
+        return torch.zeros(shape, device="meta")
+
+    with pytest.raises(ValueError, match="shared memory"):
+        ds_conv3x3_pw(meta(1, 64, 64, 512), meta(3, 3, 1, 512), meta(512), meta(1, 1, 512, 512),
+                      meta(512), stride=2)
+    with pytest.raises(ValueError, match="output channels"):
+        ds_plan(1, 8, 8, 4, 2049)
+    with pytest.raises(ValueError, match="rows"):
+        ds_plan(1, 8, 8, 4, 8, rows=0)
+    assert ds_plan(1, 32, 32, 512, 512).smem > 227 * 1024

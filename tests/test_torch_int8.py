@@ -11,6 +11,9 @@ Tolerances: ``quantize_act`` and B8 are bit-equal (B8's integer sums are
 exact, and both sides do the same f32 multiply and add after them). B7's
 products are exact in f32 but the JAX dot sums them in an order of its own,
 so one bf16 ulp (2^-7 relative), or one int8 level with ``quantize_out``.
+B7's kernel also sums in an order of its own (the tensor cores'): its
+stated bound, ``pw_conv_a8_tolerance``, is tested here against sums of the
+same products in other orders, and its launch plan at a frame's sites.
 Whole-model comparisons use JAX's own tolerance for its int8 model
 (``tests/test_int8_pw.py``): logits within 0.08 of max |logit| and argmax
 agreement ≥ 0.98; each test states what it measured. The CUDA kernels are
@@ -45,9 +48,11 @@ from fastscnn_tpu_torch.ops.cuda import (
     launch_counts,
     pw_conv_a8,
     pw_conv_a8_reference,
+    pw_conv_a8_tolerance,
     pw_conv_w8a8,
     quantize_act,
 )
+from fastscnn_tpu_torch.ops.cuda.int8_pw import PW_A8_TILES, pw_a8_plan
 
 _ULP_BF16 = 2.0**-7
 
@@ -157,8 +162,8 @@ def test_pw_conv_a8_within_one_ulp_of_jax(rng, m_shape, k, n, quantize_out):
 
 
 def test_pw_conv_a8_plain_sums_in_order(rng):
-    """The plain version's sum is the in-order f32 sum of exact products
-    (the kernel's order), checked against a numpy loop in f32."""
+    """The plain version's sum is the in-order f32 sum of exact products,
+    checked against a numpy loop in f32."""
     x_q = rng.integers(-127, 128, (37, 48)).astype(np.int8)
     w = (rng.standard_normal((48, 16)) * 0.05).astype(np.float32)
     wb = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
@@ -170,6 +175,123 @@ def test_pw_conv_a8_plain_sums_in_order(rng):
                                relu=False)
     np.testing.assert_array_equal(got.float().numpy(),
                                   torch.from_numpy(acc).to(torch.bfloat16).float().numpy())
+
+
+def _f32_sums(prod, blocks):
+    """f32 sums over axis 1 of ``prod`` (M, K, N), one rounding an
+    addition: each block of k (a list of index lists) summed in its order,
+    then the blocks' sums added in order."""
+    acc = np.zeros((prod.shape[0], prod.shape[2]), np.float32)
+    for block in blocks:
+        part = np.zeros_like(acc)
+        for kk in block:
+            part = (part + prod[:, kk]).astype(np.float32)
+        acc = (acc + part).astype(np.float32)
+    return acc
+
+
+def _a8_products(x_q, w):
+    """The exact f32 products x[m, k] * bf16(w)[k, n], as (M, K, N)."""
+    wb = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+    return x_q.astype(np.float32)[:, :, None] * wb[None, :, :]
+
+
+@pytest.mark.parametrize("inputs", ["random", "cancelling"])
+def test_pw_conv_a8_tolerance_holds_other_summation_orders(rng, inputs):
+    """The in-order f32 sum (the plain version's) and the same exact
+    products summed k reversed, and in blocks of 16 (as an mma groups them)
+    in both block orders, all lie within ``pw_conv_a8_tolerance`` of each
+    other; with cancelling inputs (the second half of k is the first with
+    the weights negated, so every exact sum is 0 while the partial sums
+    are not) as with random ones. The bound is K · 2^-22 · (|x| @ |w|)."""
+    m, k, n = 24, 768, 16
+    x_q = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    if inputs == "cancelling":
+        x_q[:, k // 2:] = x_q[:, : k // 2]
+        w[k // 2:] = -w[: k // 2]
+    prod = _a8_products(x_q, w)
+    tol = pw_conv_a8_tolerance(torch.from_numpy(x_q), torch.from_numpy(w)).numpy()
+    assert tol.dtype == np.float64 and tol.shape == (m, n)
+    wb = np.abs(torch.from_numpy(w).to(torch.bfloat16).double().numpy())
+    np.testing.assert_allclose(tol, (np.abs(x_q.astype(np.float64)) @ wb) * k * 2.0**-22,
+                               rtol=1e-12)
+    in_order = _f32_sums(prod, [range(k)])
+    blocks16 = [range(b, b + 16) for b in range(0, k, 16)]
+    others = [_f32_sums(prod, [range(k - 1, -1, -1)]), _f32_sums(prod, blocks16),
+              _f32_sums(prod, blocks16[::-1])]
+    for other in others:
+        diff = np.abs(other.astype(np.float64) - in_order)
+        assert np.all(diff <= tol), np.max(diff / tol)
+    assert any(np.any(other != in_order) for other in others)  # the orders do differ
+    if inputs == "cancelling":
+        assert np.abs(prod.sum(axis=1, dtype=np.float64)).max() == 0.0
+
+
+def test_pw_conv_a8_tolerance_catches_a_sum_beyond_it(rng):
+    """An output moved a few f32 ulps beyond the bound from the in-order
+    sum is outside it, at every output."""
+    m, k, n = 16, 384, 8
+    x_q = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    in_order = _f32_sums(_a8_products(x_q, w), [range(k)])
+    tol = pw_conv_a8_tolerance(torch.from_numpy(x_q), torch.from_numpy(w)).numpy()
+    for sign in (1.0, -1.0):
+        moved = (in_order.astype(np.float64) + sign * tol).astype(np.float32)
+        for _ in range(3):
+            moved = np.nextafter(moved, np.float32(sign * np.inf))
+        assert np.all(np.abs(moved.astype(np.float64) - in_order) > tol)
+
+
+# config C's 23 int8 sites of a 1024x2048 frame, (M, K, N), as
+# chip_smoke.py::int8_sites reads them from the serving graph
+_FRAME_SITES = {
+    **{f"bottleneck1/{i}/expand": (32768 if i == 0 else 8192, 64, 384) for i in range(3)},
+    **{f"bottleneck1/{i}/project": (8192, 384, 64) for i in range(3)},
+    "bottleneck2/0/expand": (8192, 64, 384), "bottleneck2/0/project": (2048, 384, 96),
+    **{f"bottleneck2/{i}/expand": (2048, 96, 576) for i in (1, 2)},
+    **{f"bottleneck2/{i}/project": (2048, 576, 96) for i in (1, 2)},
+    "bottleneck3/0/expand": (2048, 96, 576), "bottleneck3/0/project": (2048, 576, 128),
+    **{f"bottleneck3/{i}/expand": (2048, 128, 768) for i in (1, 2)},
+    **{f"bottleneck3/{i}/project": (2048, 768, 128) for i in (1, 2)},
+    "ppm/out": (2048, 256, 128),
+    "ffm/conv_lower_res": (32768, 128, 128), "ffm/conv_higher_res": (32768, 64, 128),
+    "cls/dsconv1/pw": (32768, 128, 128), "cls/dsconv2/pw": (32768, 128, 128),
+}
+
+
+def test_frame_sites_are_config_cs_23():
+    assert len(_FRAME_SITES) == 23
+
+
+@pytest.mark.parametrize("site", sorted(_FRAME_SITES))
+def test_pw_a8_plan_at_a_frames_sites(site):
+    """B7's plan: a block tile the kernel is built for, a grid whose tiles
+    cover M and N once, at least 100 blocks (128 at the smallest), the
+    128 × 128 tile at the M = 32,768 sites and at M = 8,192 with N = 384,
+    64 × 64 at M = 2,048 with N of 576 or more, 32 × 64 elsewhere. A
+    function of the shape alone."""
+    m, k, n = _FRAME_SITES[site]
+    plan = pw_a8_plan(m, k, n)
+    assert plan == pw_a8_plan.__wrapped__(m, k, n)
+    assert (plan.bm, plan.bn, plan.threads) == PW_A8_TILES[plan.tile]
+    gx, gy = plan.grid
+    assert (gx - 1) * plan.bn < n <= gx * plan.bn and (gy - 1) * plan.bm < m <= gy * plan.bm
+    assert gx * gy >= 128 and gy <= 65535
+    want = {32768: 0, 8192: 0 if n == 384 else 2, 2048: 1 if n >= 576 else 2}[m]
+    assert plan.tile == want
+    assert pw_a8_plan(m, k, n, tile=2).grid == (-(-n // 64), -(-m // 32))
+
+
+def test_pw_a8_plan_refuses_what_the_kernel_does_not_build():
+    """Only the three block tiles are built, and an empty product has no
+    plan."""
+    with pytest.raises(ValueError, match="no tile"):
+        pw_a8_plan(64, 32, 64, tile=3)
+    with pytest.raises(ValueError, match="empty"):
+        pw_a8_plan(0, 32, 64)
+    with pytest.raises(ValueError, match="row tiles"):
+        pw_a8_plan(32 * 65536, 32, 64, tile=2)
 
 
 def test_int8_wrappers_refuse_other_devices_and_bad_args():
