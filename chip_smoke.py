@@ -57,7 +57,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 After phase 3 it also costs the redesigned kernels (B3, B4, B6's forward
 and dW, B7) beside their library calls three ways: device time, windows
-without the spin kernel (which hold the host's time to issue the calls
+without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Three options
 run only these kernels' studies, with no device line:
 

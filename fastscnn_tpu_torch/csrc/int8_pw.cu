@@ -33,7 +33,7 @@
 //   64 x 64 and 32 x 64 (4 warps); ops/cuda/int8_pw.py::pw_a8_plan picks one
 //   from (M, K, N) so that every site's grid fills the card.
 // - K goes through a ring of 3 or 4 shared-memory stages (32, 64 or 128 k
-//   a stage), its copies issued that many chunks ahead: the int8 activation
+//   a stage), its copies started that many chunks ahead: the int8 activation
 //   chunk and the weight chunk (K x N, row-major bf16) both by cp.async,
 //   16 bytes a thread, zero-filled past M, K and N. The long-K sites
 //   (K up to 768 at M = 2,048) have one block or two an SM, whose loop
@@ -258,7 +258,7 @@ __device__ __forceinline__ void write_tile(const TO* so, int os, TO* __restrict_
 // 4 where K % 16 or the pointer forbids 16); WVEC: the weight chunk by
 // 16-byte cp.async (N % 8 == 0, aligned), else element by element.
 //
-// Chunk c's copies are issued STAGES - 1 chunks ahead. In iteration c the
+// Chunk c's copies are started STAGES - 1 chunks ahead. In iteration c the
 // block waits for chunk c + 1, widens its activations into the bf16 buffer
 // (c + 1) % 2, and runs chunk c's mmas from buffer c % 2 and weight stage
 // c % STAGES: one __syncthreads an iteration, and every copy and widening
@@ -281,7 +281,7 @@ pw_a8_mma_kernel(const int8_t* __restrict__ x, const __nv_bfloat16* __restrict__
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int nk = (K + BK - 1) / BK;
 
-  auto issue = [&](int c) {  // chunk c's copies into stage c % STAGES
+  auto fetch = [&](int c) {  // chunk c's copies into stage c % STAGES
     const int stage = c % STAGES, k0 = c * BK;
     constexpr int kRowSegs = BK / AVEC, kSegs = BM * kRowSegs;
     int8_t* raw = s_raw + stage * BM * BK;
@@ -335,7 +335,7 @@ pw_a8_mma_kernel(const int8_t* __restrict__ x, const __nv_bfloat16* __restrict__
 
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
-    if (c < nk) issue(c);
+    if (c < nk) fetch(c);
     cp_async_commit();
   }
   cp_async_wait<STAGES - 2>();  // chunk 0
@@ -344,7 +344,7 @@ pw_a8_mma_kernel(const int8_t* __restrict__ x, const __nv_bfloat16* __restrict__
   for (int kc = 0; kc < nk; ++kc) {
     cp_async_wait<STAGES - 3>();  // chunks up to kc + 1
     __syncthreads();
-    if (kc + STAGES - 1 < nk) issue(kc + STAGES - 1);  // into the stage chunk kc - 1 used
+    if (kc + STAGES - 1 < nk) fetch(kc + STAGES - 1);  // into the stage chunk kc - 1 used
     cp_async_commit();
     if (kc + 1 < nk) widen(kc + 1);
     // A from ldmatrix (rows lane % 16, k (lane / 16) * 8); the row-major

@@ -14,7 +14,7 @@ Counterpart of ``fastscnn_tpu/ops/pallas/int8_pw.py``:
 A 1×1 conv over NHWC is a matmul on the ``(N·H·W, K)`` view, so both take
 NHWC or pre-flattened 2-D int8 input. The kernels (``csrc/int8_pw.cu``)
 compute the product in their own bodies; no library GEMM is on the path
-(B7 issues the tensor cores' ``mma`` itself, B8 runs ``__dp4a`` on the CUDA
+(B7 runs the tensor cores' ``mma`` itself, B8 ``__dp4a`` on the CUDA
 cores).
 The JAX package's TPU tiling (``use_pallas``, ``block_m``, ``interpret``
 and its XLA fallback for ``M % 32 != 0``) has no counterpart: the kernels
