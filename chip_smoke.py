@@ -7,16 +7,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the ``nvcc`` build of every kernel source, from this checkout; then
-   the depthwise forward and dW kernels and B3 on a sweep of small shapes,
-   views and channel counts that runs every channel width they pick
-   (:func:`dw_sweep`), and B7 on small shapes that take every path of its
-   kernel (:func:`pw_sweep`);
+   the depthwise forward, dX and dW kernels, B3 and B5 on a sweep of small
+   shapes, views and channel counts that runs every channel width they
+   pick (:func:`dw_sweep`), and B7 on small shapes that take every path of
+   its kernel (:func:`pw_sweep`);
 3. each kernel (B1-B5, B7, B8) at the shapes the 1024x2048 serving path
    gives it (N=1, bf16; B7 and B8 at every int8 site of a frame, and at one
    site with ``quantize_out``): held against its plain PyTorch version
-   (B3 and B4 bit for bit in bf16 and f32, B5 also against B3's kernel, B7
-   within a stated reassociation bound and bit-identical on a second run,
-   B8 bit for bit), and timed
+   (B3, B4 and B5 bit for bit in bf16 and f32, B5 also against B3's
+   kernel, B7 within a stated reassociation bound and bit-identical on a
+   second run, B8 bit for bit), and timed
    with CUDA events beside the
    plain version and one PyTorch library call that computes the same
    function (a yardstick the port never calls), with its bound from the
@@ -41,9 +41,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 5. kernel B6 (``dw_conv3x3_vjp``: forward through B4's kernel, dX and dW
    through the kernels of ``csrc/dw_conv_bwd.cu``) at the training stem's
    two depthwise sites (batch 16 of 768x768 crops, bf16), each part held
-   against its plain version (the forward bit for bit in bf16 and f32; dW
-   also run twice, bit-identical) and timed beside it, its byte bound and
-   the cuDNN call that computes the same gradient;
+   against its plain version (the forward and dX bit for bit in bf16 and
+   f32; dW also run twice, bit-identical) and timed beside it, its byte
+   bound and the cuDNN call that computes the same gradient;
 6. training: the 19-class Cityscapes recipe (``stem_impl='pallas'``, aux
    head, mix OHEM CE, SGD with momentum and poly LR) at full width on
    16 uint8 768x768 crops whose labels are a seeded function of the
@@ -55,14 +55,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 7. one JSON line ``{"kernels": [...]}`` and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
-After phase 3 it also costs the redesigned kernels (B3, B4, B6's forward
-and dW, B7) beside their library calls three ways: device time, windows
+After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
+forward, dX and dW, B7) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Three options
 run only these kernels' studies, with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
-                                           # the depthwise kernels and B3
+                                           # the depthwise kernels, B3 and B5
     python3 chip_smoke.py --tune-pw        # registers, B7's block tiles
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
@@ -170,17 +170,22 @@ def card_peaks(name: str):
 
 
 def dw_sweep():
-    """The depthwise forward (B4 and B6's forward) and dW kernels on small
-    shapes that make the wrappers pick every channel width VEC (C = 3, 6,
-    8, 12, 32, 48 in bf16 and f32; C = 129, VEC 1, takes the forward's two
-    channel groups of at most 128 vectors and five of dW's of 32), odd and
-    even H and W, N = 1 and 3, strides 1 and 2, and on two views: a batch slice (which keeps its C's
-    VEC) and a contiguous view one element into a flat buffer (VEC 1). The
-    forward must equal its plain version bit for bit (with and without
-    bias + ReLU), dW stay within 2e-5 of sum |x*g| in f32 and that plus one
-    bf16 ulp in bf16. Then B3 (``ds_conv3x3_pw``) on small shapes that run
-    every VEC, ragged output channels, column tiles and row strips, bit
-    for bit against its plain version."""
+    """The depthwise forward (B4 and B6's forward), dX and dW kernels on
+    small shapes that make the wrappers pick every channel width VEC (C =
+    3, 6, 8, 12, 32, 48 in bf16 and f32; C = 129, VEC 1, takes the forward's
+    and dX's two channel groups of at most 128 vectors and five of dW's of
+    32), odd and even H and W, N = 1 and 3, strides 1 and 2, and on two
+    views: a batch slice (which keeps its C's VEC) and a contiguous view one
+    element into a flat buffer (VEC 1). The forward must equal its plain
+    version bit for bit (with and without bias + ReLU), dX too (with the
+    taps in the input's dtype, as the training step hands them over; at
+    the widest VEC also at 1 and 4 column units a thread and 3 row units),
+    dW stay within 2e-5 of sum |x*g| in f32 and that plus one bf16 ulp in
+    bf16. Then B3 (``ds_conv3x3_pw``) and B5 (``ds_conv3x3_pw_multirow``)
+    on small shapes that run every VEC, ragged output channels, column
+    tiles and row strips (B5 also at forced small and ragged strips and
+    tiles), with weights in f32 or in the input's dtype, bit for bit
+    against their plain version."""
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
@@ -189,16 +194,29 @@ def dw_sweep():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     cases, vecs, worst = 0, set(), 0.0
-    ds_cases_run, ds_vecs = 0, set()
+    dx_cases, dx_vecs = 0, set()
+    ds_cases_run, ds_vecs, mr_cases = 0, set(), 0
     failures = []
 
     def check(label, x, w, b, gy, stride):
-        nonlocal cases, worst
+        nonlocal cases, worst, dx_cases
         relu = b is not None
         got = K.dw_conv3x3(x, w, b, stride, 1, relu)
         ref = K.dw_conv3x3_reference(x, w, b, stride, 1, relu)
         if not torch.equal(got, ref):
             failures.append(f"{label}: forward, {int((got != ref).sum())} elements differ")
+        wx = w.to(x.dtype)
+        dx_ref = K.dw_conv3x3_dx_reference(gy, wx, stride, 1, x.shape)
+        vec = vec_width(x.shape[-1], x.element_size(), (gy.data_ptr(), dx_ref.data_ptr()))
+        plans = [{}]
+        if vec * x.element_size() == 16:
+            plans += [{"cols": 1, "rows": 3}, {"cols": 4, "rows": 3}]
+        for plan in plans:
+            dx = K.dw_conv3x3_dx(gy, wx, stride, 1, x.shape, **plan)
+            if not torch.equal(dx, dx_ref):
+                failures.append(f"dX {label} {plan}: {int((dx != dx_ref).sum())} elements differ")
+            dx_cases += 1
+        dx_vecs.add((str(x.dtype).split(".")[-1], vec))
         dw = K.dw_conv3x3_dw(x, gy, stride, 1, torch.float32)
         dw_ref = K.dw_conv3x3_dw_reference(x, gy, stride, 1)
         scale = K.dw_conv3x3_dw_reference(x.abs(), gy.abs(), stride, 1).clamp_min(1e-30)
@@ -236,23 +254,28 @@ def dw_sweep():
             for stride in (1, 2):
                 gy = view_of((3, (15 - 1) // stride + 1, (13 - 1) // stride + 1, c), view)
                 check(f"{dtype} {view} {tuple(x.shape)} stride {stride}", x, wt, None, gy, stride)
-        # B3: C = 3 to 129 (every VEC; 129 takes many dw work items a
+        # B3 and B5: C = 3 to 129 (every VEC; 129 takes many dw work items a
         # thread), Cout 19 (masked output channels), 48 and 64, strides 1
         # and 2, odd H and W with a ragged last column tile (Wo 149 and
-        # 70), at the plan's rows and at 1 and 4 rows a block (a ragged
-        # last row strip); then a view one element into a flat buffer
-        # (VEC 1)
+        # 70), B3 at the plan's rows and at 1 and 4 rows a block (a ragged
+        # last row strip), B5 at its plan and at forced small or ragged
+        # strips, tiles and strips a block, and at rows_per_step 3; then a
+        # view one element into a flat buffer (VEC 1). Every other case
+        # stores its weights in the input's dtype, the rest in f32.
         ds_cases = [(c, (19, 48, 64)[i % 3], None)
                     for i, c in enumerate((3, 6, 8, 12, 32, 48, 129))]
         ds_cases.append((32, 48, "flat offset"))
-        for c, cout, view in ds_cases:
+        mr_plans = ({}, {"rows": 1, "strips": 1}, {"rows": 2, "tile": 8, "strips": 3},
+                    {"rows": 3, "tile": 4, "strips": 2}, {"rows_per_step": 3})
+        for i, (c, cout, view) in enumerate(ds_cases):
             for n, h, w, stride in ((1, 9, 149, 1), (2, 17, 139, 2)):
                 x = (view_of((n, h, w, c), view) if view
                      else torch.randn((n, h, w, c), generator=g, device=dev).to(dtype))
-                wd = torch.randn((3, 3, 1, c), generator=g, device=dev) * 0.3
-                bd = torch.randn((c,), generator=g, device=dev) * 0.1
-                wp = torch.randn((1, 1, c, cout), generator=g, device=dev) * 0.3
-                bp = torch.randn((cout,), generator=g, device=dev) * 0.1
+                wdt = dtype if i % 2 else torch.float32
+                wd = (torch.randn((3, 3, 1, c), generator=g, device=dev) * 0.3).to(wdt)
+                bd = (torch.randn((c,), generator=g, device=dev) * 0.1).to(wdt)
+                wp = (torch.randn((1, 1, c, cout), generator=g, device=dev) * 0.3).to(wdt)
+                bp = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(wdt)
                 ref = K.ds_conv3x3_pw_reference(x, wd, bd, wp, bp, stride, 1)
                 for rows in (None, 1, 4):
                     got = K.ds_conv3x3_pw(x, wd, bd, wp, bp, stride, 1, rows=rows)
@@ -260,14 +283,23 @@ def dw_sweep():
                         failures.append(f"B3 {dtype} {tuple(x.shape)} -> {cout} stride {stride} "
                                         f"rows {rows}: {int((got != ref).sum())} elements differ")
                     ds_cases_run += 1
+                for plan in mr_plans:
+                    got = K.ds_conv3x3_pw_multirow(x, wd, bd, wp, bp, stride, 1, **plan)
+                    if not torch.equal(got, ref):
+                        failures.append(f"B5 {dtype} {tuple(x.shape)} -> {cout} stride {stride} "
+                                        f"{plan}: {int((got != ref).sum())} elements differ")
+                    mr_cases += 1
                 ds_vecs.add((str(dtype).split(".")[-1],
                              vec_width(c, x.element_size(), (x.data_ptr(),))))
     torch.cuda.synchronize()
+    n_fail = {k: sum(f.startswith(k) for f in failures) for k in ("B3", "B5", "dX")}
     _print(f"  depthwise sweep: {cases} cases, forward bit-equal and dW within tolerance in "
-           f"{cases - sum(not f.startswith('B3') for f in failures)}; channel widths (dtype, VEC) "
+           f"{cases - (len(failures) - sum(n_fail.values()))}; channel widths (dtype, VEC) "
            f"{sorted(vecs)}; worst dW f32 error {worst:.3g} of sum|x*g|")
-    _print(f"  B3 sweep: {ds_cases_run} cases, bit-equal in "
-           f"{ds_cases_run - sum(f.startswith('B3') for f in failures)}; channel widths "
+    _print(f"  dX sweep: {dx_cases} cases, bit-equal in {dx_cases - n_fail['dX']}; channel widths "
+           f"(dtype, VEC) {sorted(dx_vecs)}")
+    _print(f"  B3 and B5 sweep: {ds_cases_run} and {mr_cases} cases, bit-equal in "
+           f"{ds_cases_run - n_fail['B3']} and {mr_cases - n_fail['B5']}; channel widths "
            f"(dtype, VEC) {sorted(ds_vecs)}")
     if failures:
         raise AssertionError("depthwise sweep: " + "; ".join(failures[:10]))
@@ -378,10 +410,9 @@ def kernel_phase(peaks):
     results = []
 
     # B3, B4 and B5 at the LTD's two stride-2 sites: dsconv1 (32 -> 48) on
-    # the stem conv's 511x1023 output, dsconv2 (48 -> 64) on 256x512. B3
-    # and B4 must equal their plain versions bit for bit in bf16 and f32.
-    # B5 computes B3's function (rows_per_step 8): it must equal B3's plain
-    # version and B3's kernel bit for bit.
+    # the stem conv's 511x1023 output, dsconv2 (48 -> 64) on 256x512. Each
+    # must equal its plain version bit for bit in bf16 and f32. B5 computes
+    # B3's function (rows_per_step 8): it must also equal B3's kernel.
     sites = (("dsconv1", 511, 1023, 32, 48), ("dsconv2", 256, 512, 48, 64))
     for kname, plain, src, replaces in (
         ("ds_conv3x3_pw", K.ds_conv3x3_pw_reference, "fastscnn_tpu_torch/csrc/dw_conv.cu",
@@ -436,12 +467,11 @@ def kernel_phase(peaks):
                        f"{'bit-equal' if same else 'DIFFERENT'} ({int((got != b3).sum())} differ)")
                 if err or not same:
                     raise AssertionError(f"{kname}[{site}]: not bit-equal to B3")
-            if kname in ("dw_conv3x3", "ds_conv3x3_pw"):  # bit for bit, in bf16 and in f32
-                a32 = (x.float(), *args[1:])
-                diff32 = int((kern(*a32) != plain(*a32)).sum())
-                _print(f"  {kname}[{site}] in f32: {diff32} elements differ from the plain version")
-                if err or diff32:
-                    raise AssertionError(f"{kname}[{site}]: not bit-equal to its plain version")
+            a32 = (x.float(), *args[1:])  # bit for bit, in bf16 and in f32
+            diff32 = int((kern(*a32) != plain(*a32)).sum())
+            _print(f"  {kname}[{site}] in f32: {diff32} elements differ from the plain version")
+            if err or diff32:
+                raise AssertionError(f"{kname}[{site}]: not bit-equal to its plain version")
             vs_f32(f"{kname}[{site}]", got, lib().permute(0, 2, 3, 1),
                    lib(torch.float32).permute(0, 2, 3, 1))
             ms = time_ms(lambda: kern(*args))
@@ -560,16 +590,21 @@ def kernel_phase(peaks):
             got = kern()
             torch.cuda.synchronize()
             label = f"dw_conv3x3_vjp:{part}[{site}]"
-            if part != "dw":
+            if part != "dw":  # bit for bit, in bf16 and in f32
                 err = close_bf16(f"{label} x {tuple(x.shape)}", got, plain())
-                if part == "forward":  # bit for bit, in bf16 and in f32
+                if part == "forward":
                     x32 = x.float()
                     diff32 = int((K.dw_conv3x3(x32, wt, None, 2, 1)
                                   != K.dw_conv3x3_reference(x32, wt, None, 2, 1)).sum())
                     del x32
-                    _print(f"  {label} in f32: {diff32} elements differ from the plain version")
-                    if err or diff32:
-                        raise AssertionError(f"{label}: not bit-equal to its plain version")
+                else:  # dX in f32: f32 g and taps, as an f32 step hands them over
+                    g32, w32 = gy.float(), wt.float()
+                    diff32 = int((K.dw_conv3x3_dx(g32, w32, 2, 1, x.shape)
+                                  != K.dw_conv3x3_dx_reference(g32, w32, 2, 1, x.shape)).sum())
+                    del g32
+                _print(f"  {label} in f32: {diff32} elements differ from the plain version")
+                if err or diff32:
+                    raise AssertionError(f"{label}: not bit-equal to its plain version")
             else:
                 # dW sums n*ho*wo products per (tap, c) in another order than
                 # the plain version's reductions: f32 reassociation, bounded
@@ -1168,8 +1203,10 @@ def training_phase():
 # the rows of the kernel table that dw_costs prices, and the library call each
 # is held against
 COST_LIBRARY = {"ds_conv3x3_pw": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
+                "ds_conv3x3_pw_multirow": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
                 "dw_conv3x3": "cuDNN depthwise + ReLU", "dw_conv3x3_vjp:forward": "cuDNN depthwise",
-                "dw_conv3x3_vjp:dw": "conv2d_weight", "pw_conv_a8": "torch.addmm (+ ReLU)"}
+                "dw_conv3x3_vjp:dx": "conv2d_input", "dw_conv3x3_vjp:dw": "conv2d_weight",
+                "pw_conv_a8": "torch.addmm (+ ReLU)"}
 SERVING_DW_SITES = (("dsconv1", 1, 511, 1023, 32), ("dsconv2", 1, 256, 512, 48))
 SERVING_DS_COUT = {32: 48, 48: 64}  # the 1x1's output channels at those sites
 
@@ -1178,16 +1215,17 @@ def dw_costs():
     """The redesigned kernels at the main path's sites, each beside the
     library call that computes the same function (the yardsticks of
     phases 3 and 5), every call costed by :func:`call_costs`: B3
-    (``ds_conv3x3_pw``) and B4 (``dw_conv3x3`` with bias and ReLU) at the
-    serving sites (N = 1), B6's forward and dW (bf16 out) at the training
-    sites, bf16, and B7 (``pw_conv_a8``) at config C's 23 int8 sites of a
-    frame. It passes the wrappers only arguments that every version of the
-    port takes, so that ``--dw-ab`` costs an older checkout's kernels the
-    same way. Returns ``{row: {"kernel": costs, "library": costs, "sites":
-    {site: {...}}}}``, the row's costs summed over its sites."""
+    (``ds_conv3x3_pw``), B5 (``ds_conv3x3_pw_multirow``) and B4
+    (``dw_conv3x3`` with bias and ReLU) at the serving sites (N = 1), B6's
+    forward, dX and dW (bf16 out) at the training sites, bf16, and B7
+    (``pw_conv_a8``) at config C's 23 int8 sites of a frame. It passes the
+    wrappers only arguments that every version of the port takes, so that
+    ``--dw-ab`` costs an older checkout's kernels the same way. Returns
+    ``{row: {"kernel": costs, "library": costs, "sites": {site: {...}}}}``,
+    the row's costs summed over its sites."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.grad import conv2d_weight
+    from torch.nn.grad import conv2d_input, conv2d_weight
 
     from fastscnn_tpu_torch.ops import cuda as K
 
@@ -1215,9 +1253,13 @@ def dw_costs():
         cout = SERVING_DS_COUT[c]
         w_pw, b_pw = randn(1, 1, c, cout, scale=0.2), randn(cout, scale=0.1)
         wpw_oihw = w_pw.permute(3, 2, 0, 1).contiguous()
-        add("ds_conv3x3_pw", site, lambda: K.ds_conv3x3_pw(x, wt, b, w_pw, b_pw, 2, 1),
-            lambda: F.relu(F.conv2d(F.relu(F.conv2d(xc, w_oihw, b, stride=2, padding=1,
-                                                    groups=c)), wpw_oihw, b_pw)))
+        def lib_ds():
+            return F.relu(F.conv2d(F.relu(F.conv2d(xc, w_oihw, b, stride=2, padding=1, groups=c)),
+                                   wpw_oihw, b_pw))
+
+        add("ds_conv3x3_pw", site, lambda: K.ds_conv3x3_pw(x, wt, b, w_pw, b_pw, 2, 1), lib_ds)
+        add("ds_conv3x3_pw_multirow", site,
+            lambda: K.ds_conv3x3_pw_multirow(x, wt, b, w_pw, b_pw, 2, 1), lib_ds)
         add("dw_conv3x3", site, lambda: K.dw_conv3x3(x, wt, b, 2, 1, True),
             lambda: F.relu(F.conv2d(xc, w_oihw, b, stride=2, padding=1, groups=c)))
     for site, n, h, w, c in B6_SITES:
@@ -1228,6 +1270,8 @@ def dw_costs():
         w_oihw = wt.permute(3, 2, 0, 1).contiguous()
         add("dw_conv3x3_vjp:forward", site, lambda: K.dw_conv3x3(x, wt, None, 2, 1),
             lambda: F.conv2d(xc, w_oihw, stride=2, padding=1, groups=c))
+        add("dw_conv3x3_vjp:dx", site, lambda: K.dw_conv3x3_dx(gy, wt, 2, 1, x.shape),
+            lambda: conv2d_input((n, c, h, w), w_oihw, gc, stride=2, padding=1, groups=c))
         add("dw_conv3x3_vjp:dw", site, lambda: K.dw_conv3x3_dw(x, gy, 2, 1, bf16),
             lambda: conv2d_weight(xc, (c, 1, 3, 3), gc, stride=2, padding=1, groups=c))
         del x, gy, xc, gc
@@ -1315,31 +1359,38 @@ def tune_dw() -> None:
     """``--tune-dw``: the evidence for the depthwise launch plans. The
     registers, spills and shared memory ``nvcc -Xptxas -v`` reports for the
     forward (bf16, VEC 8, stride 2, at each output-column count it is built
-    for), B3 (bf16, VEC 8, stride 2) and dW's pass 1 (bf16, VEC 8, stride
-    2); then the device ms (:func:`time_ms`) at the main path's sites: the
-    forward at 2, 3 and 4 output columns by 1 to 16 output rows a thread,
-    B3 at 1 to 8 output rows a block, each result held bit for bit against
-    its plain version, and dW at 528 to 1,584 pass-1 blocks aimed at.
-    ``*`` marks the plan the wrappers pick."""
+    for), B3 and B5 (bf16, VEC 8, stride 2), dX (bf16, VEC 8, stride 2, at
+    each column-unit count) and dW's pass 1 (bf16, VEC 8, stride 2); then
+    the device ms (:func:`time_ms`) at the main path's sites: the forward
+    at 2, 3 and 4 output columns by 1 to 16 output rows a thread, B3 at 1
+    to 8 output rows a block, B5 at tiles of 16, 32 and 64 columns by 1 to 8
+    rows a strip by 1 to 8 strips a block (where the block fits), each
+    result held bit for bit against its plain version; dX at 1, 2 and 4
+    column units by 1 to 16 row units a thread, bit for bit; and dW at 528
+    to 1,584 pass-1 blocks aimed at. ``*`` marks the plan the wrappers
+    pick."""
     import re
 
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
-    from fastscnn_tpu_torch.ops.cuda.dw_conv import (FWD_COLS, _DW_BLOCKS, ds_plan, dw_fwd_plan,
-                                                     dw_plan)
+    from fastscnn_tpu_torch.ops.cuda.dw_conv import (DX_COLS, FWD_COLS, _DW_BLOCKS, ds_plan,
+                                                     dw_fwd_plan, dw_plan, dx_plan, mr_plan)
 
     def label(entry):
         if "bfloat16Li8ELi2E" not in entry:
             return None
-        for kernel in ("dw_conv3x3_kernel", "ds_conv3x3_pw_kernel", "dw_partial_kernel"):
+        for kernel, what in (("dw_conv3x3_kernel", "columns"), ("ds_conv3x3_pw_kernel", ""),
+                             ("ds_conv3x3_pw_mr_kernel", ""), ("dw_conv3x3_dx_kernel", "units"),
+                             ("dw_partial_kernel", "")):
             if kernel in entry:
                 cols = re.search(r"bfloat16Li8ELi2ELi(\d)E", entry)
                 return (f"{kernel}<bf16, VEC 8, stride 2"
-                        f"{f', {cols.group(1)} columns' if cols else ''}>")
+                        f"{f', {cols.group(1)} {what}' if cols else ''}>")
         return None
 
     ptxas_report("dw_conv", label)
+    ptxas_report("ds_conv_mr", label)
     ptxas_report("dw_conv_bwd", label)
 
     dev = torch.device("cuda")
@@ -1378,8 +1429,43 @@ def tune_dw() -> None:
                 ms = time_ms(lambda: K.ds_conv3x3_pw(x, wt, b, w_pw, b_pw, 2, 1, rows=rows))
                 cells.append(f"{rows}{'*' if rows == chosen else ''}: {ms:.4f}")
             _print(f"  {site} B3 ({c} -> {cout}), ms by output rows a block: {', '.join(cells)}")
+            chosen = mr_plan(n, ho, wo, c, cout, 2, 2)
+            for tile in (16, 32, 64):
+                for rows in (1, 2, 4, 8):
+                    cells = []
+                    for strips in (1, 2, 4, 8):
+                        try:
+                            mr_plan(n, ho, wo, c, cout, 2, 2, rows=rows, tile=tile, strips=strips)
+                        except ValueError:  # does not fit 227 KB
+                            continue
+
+                        def b5():
+                            return K.ds_conv3x3_pw_multirow(x, wt, b, w_pw, b_pw, 2, 1, rows=rows,
+                                                            tile=tile, strips=strips)
+
+                        if not torch.equal(b5(), ref):
+                            raise AssertionError(f"{site}: B5 at {tile} x {rows} x {strips} "
+                                                 "differs from its plain version")
+                        picked = (tile, rows, strips) == (chosen.tile, chosen.rows, chosen.strips)
+                        cells.append(f"{strips}{'*' if picked else ''}: {time_ms(b5):.4f}")
+                    if cells:
+                        _print(f"  {site} B5 ({c} -> {cout}), tile {tile} x {rows} rows, ms by "
+                               f"strips a block: {', '.join(cells)}")
             continue
         gy = (torch.randn((n, ho, wo, c), generator=g, device=dev) * 0.01).to(bf16)
+        ref = K.dw_conv3x3_dx_reference(gy, wt, 2, 1, x.shape)
+        chosen = dx_plan(n, h, w, c, 8, 2, 2, 1)
+        for cols in DX_COLS:
+            cells = []
+            for rows in (1, 2, 4, 8, 16):
+                if not torch.equal(K.dw_conv3x3_dx(gy, wt, 2, 1, x.shape, rows=rows, cols=cols),
+                                   ref):
+                    raise AssertionError(f"{site}: dX at {cols}x{rows} differs from its plain "
+                                         "version")
+                ms = time_ms(lambda: K.dw_conv3x3_dx(gy, wt, 2, 1, x.shape, rows=rows, cols=cols))
+                mark = "*" if (cols, rows) == (chosen.cols, chosen.rows) else ""
+                cells.append(f"{rows}{mark}: {ms:.4f}")
+            _print(f"  {site} dX, {cols} cells, ms by cell rows a thread: {', '.join(cells)}")
         cells = []
         for target in (528, 792, 1056, 1584):
             blocks = dw_plan(n * ho, c, 8, target)[1]
@@ -1446,8 +1532,8 @@ def main() -> int:
     parser.add_argument("--tune-pw", action="store_true",
                         help="only B7's registers and block-tile sweep")
     parser.add_argument("--dw-ab", metavar="PARENT",
-                        help="only the redesigned kernels' costs (B3, B4, B6 forward and dW, "
-                             "B7), for the checkout at PARENT and for this one")
+                        help="only the redesigned kernels' costs (B3, B5, B4, B6 forward, dX "
+                             "and dW, B7), for the checkout at PARENT and for this one")
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1497,7 +1583,7 @@ def main() -> int:
     _print(f"build: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    _print("depthwise forward and dW, B3 and B7 on sweeps of small shapes:")
+    _print("depthwise forward, dX and dW, B3, B5 and B7 on sweeps of small shapes:")
     dw_sweep()
     pw_sweep()
     _print(f"  sweeps: {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,7 @@
-// Shared helpers for the port's kernels: bf16/f32 loads and stores, and
-// the C-entry convention (every entry returns cudaGetLastError() after
-// its launch so the Python wrapper can raise on a refused launch).
+// Shared helpers for the port's kernels: bf16/f32 loads and stores,
+// asynchronous copies into shared memory, and the C-entry convention
+// (every entry returns cudaGetLastError() after its launch so the Python
+// wrapper can raise on a refused launch).
 #pragma once
 
 #include <cstdint>
@@ -60,6 +61,10 @@ struct Pack {
       raw = __ldg(reinterpret_cast<const Raw*>(p));
     }
   }
+  // the same from shared memory (one ld.shared of VEC * sizeof(T) bytes)
+  __device__ __forceinline__ void load_shared(const T* p) {
+    raw = *reinterpret_cast<const Raw*>(p);
+  }
   __device__ __forceinline__ void zero() { raw = Raw{}; }
   // element i as f32 (exact: a bf16 is the top half of its f32)
   __device__ __forceinline__ float get(int i) const {
@@ -79,6 +84,64 @@ __device__ __forceinline__ void store_pack(T* p, const float (&v)[VEC]) {
 #pragma unroll
   for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(v[i]);
   *reinterpret_cast<typename Pack<T, VEC>::Raw*>(p) = raw;
+}
+
+// 8 f32 values rounded to T, stored with one 16-byte access (bf16) or two.
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    store_pack<T, 8>(p, v);
+  } else {
+    store_pack<T, 4>(p, reinterpret_cast<const float(&)[4]>(v[0]));
+    store_pack<T, 4>(p + 4, reinterpret_cast<const float(&)[4]>(v[4]));
+  }
+}
+
+// Element i of a weight or bias vector stored as f32 or bf16, as f32.
+__device__ __forceinline__ float weight_at(const void* p, int bf16, int64_t i) {
+  return bf16 ? to_f32(static_cast<const __nv_bfloat16*>(p)[i]) : static_cast<const float*>(p)[i];
+}
+
+// VEC f32 values from shared memory. Volatile, so that the compiler reads
+// them where they are used rather than keeping all 9 x VEC taps live in
+// registers for a whole walk, which would halve the blocks an SM holds.
+template <int VEC>
+__device__ __forceinline__ void lds_f32(const float* p, float (&v)[VEC]) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (VEC >= 4) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4)
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(v[i]), "=f"(v[i + 1]), "=f"(v[i + 2]), "=f"(v[i + 3])
+                   : "r"(a + 4 * i));
+  } else if constexpr (VEC == 2) {
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v[0]), "=f"(v[1]) : "r"(a));
+  } else {
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[0]) : "r"(a));
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// BYTES (16, 8 or 4) from global to shared memory, asynchronously;
+// src_bytes 0 writes zeros and reads nothing. 16 bytes bypass L1 (.cg).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src, int src_bytes) {
+  static_assert(BYTES == 16 || BYTES == 8 || BYTES == 4, "cp.async moves 4, 8 or 16 bytes");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
 }
 
 }  // namespace fastscnn

@@ -86,30 +86,6 @@ constexpr int kDsPix = 4;        // neighbouring pixels a thread in the 1x1 phas
 constexpr int kDsCo = 8;         // output channels a thread in the 1x1 phase
 constexpr int kDsThreads = 256;  // a block's threads at most
 
-// VEC f32 values from shared memory. Volatile, so that the compiler reads
-// them where they are used rather than keeping all 9 x VEC taps live in
-// registers for the whole walk, which would halve the blocks an SM holds.
-template <int VEC>
-__device__ __forceinline__ void lds_f32(const float* p, float (&v)[VEC]) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  if constexpr (VEC >= 4) {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-                   : "=f"(v[i]), "=f"(v[i + 1]), "=f"(v[i + 2]), "=f"(v[i + 3])
-                   : "r"(a + 4 * i));
-  } else if constexpr (VEC == 2) {
-    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v[0]), "=f"(v[1]) : "r"(a));
-  } else {
-    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[0]) : "r"(a));
-  }
-}
-
-// Element i of a weight or bias vector stored as f32 or bf16, as f32.
-__device__ __forceinline__ float weight_at(const void* p, int bf16, int64_t i) {
-  return bf16 ? to_f32(static_cast<const __nv_bfloat16*>(p)[i]) : static_cast<const float*>(p)[i];
-}
-
 // B4: thread (threadIdx.x, threadIdx.y) owns channels [c0, c0 + VEC) of
 // output columns [wo0, wo0 + COLS) and walks output rows [ho0, ho0 +
 // rows) of image n. grid = (column tiles x channel groups, row strips, N). The
@@ -244,17 +220,6 @@ dw_conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ w9, int w_bf
           acc1[o][v] = acc2[o][v];
         }
     }
-  }
-}
-
-// 8 f32 values rounded to T, stored with one 16-byte access (bf16) or two.
-template <typename T>
-__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
-  if constexpr (sizeof(T) == 2) {
-    store_pack<T, 8>(p, v);
-  } else {
-    store_pack<T, 4>(p, reinterpret_cast<const float(&)[4]>(v[0]));
-    store_pack<T, 4>(p + 4, reinterpret_cast<const float(&)[4]>(v[4]));
   }
 }
 

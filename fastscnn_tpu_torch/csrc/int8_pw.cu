@@ -150,10 +150,6 @@ pw_w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 // ---- B7 on the tensor cores ----------------------------------------------
 constexpr int kA8Pad = 8;  // bf16 of padding a shared-memory row (16 bytes)
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -174,23 +170,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// BYTES (16 or 4) from global to shared memory, asynchronously; src_bytes
-// 0 writes zeros and reads nothing
-template <int BYTES>
-__device__ __forceinline__ void cp_async(unsigned dst, const void* src, int src_bytes) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-                 "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
-                 "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
 }
 
 // Four int8 (one 32-bit word, k ascending) as four bf16, exactly, without a

@@ -42,11 +42,12 @@ _SIGNATURES = {
         "fastscnn_ds_conv3x3_pw": [_I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P] + [_I] * 14 + [_P],
     },
     "dw_conv_bwd": {
-        "fastscnn_dw_conv3x3_dx": [_I, _P, _P, _P] + [_I] * 8 + [_P],
+        "fastscnn_dw_conv3x3_dx": [_I, _P, _I, _P, _P] + [_I] * 15 + [_P],
         "fastscnn_dw_conv3x3_dw": [_I, _I, _P, _P, _P, _P] + [_I] * 12 + [_P],
     },
     "ds_conv_mr": {
-        "fastscnn_ds_conv3x3_pw_mr": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+        "fastscnn_ds_conv3x3_pw_mr": [_I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P] + [_I] * 16
+                                     + [_P],
     },
     "int8_pw": {
         "fastscnn_pw_conv_w8a8": [_P] * 5 + [_I] * 5 + [_P],

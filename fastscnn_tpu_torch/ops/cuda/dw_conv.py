@@ -6,8 +6,10 @@ Counterpart of ``fastscnn_tpu/ops/pallas/dw_conv.py``:
   relu(pw1×1(cast(relu(dw3×3(x) + b_dw))) + b_pw), the dw activation
   never leaving the chip;
 - :func:`ds_conv3x3_pw_multirow` (B5) replaces
-  ``ds_conv3x3_pw_pallas_multirow``: B3's function, ``rows_per_step``
-  output rows a block, their input rows staged in shared memory once
+  ``ds_conv3x3_pw_pallas_multirow``: B3's function, a block walking
+  strips of at most ``rows_per_step`` output rows whose input rows are
+  fetched into two shared-memory slots by ``cp.async`` while it computes
+  the previous strip, as the TPU kernel double-buffers its DMAs
   (``csrc/ds_conv_mr.cu``); its plain version is B3's;
 - :func:`dw_conv3x3` (B4) replaces ``dw_conv3x3_pallas``: depthwise 3×3
   with optional bias and ReLU;
@@ -22,14 +24,16 @@ All are bound by bytes on an H100 (9 FMAs per dw output, C MACs per pw
 output): forward, dX and dW each move about one activation-sized tensor
 in and one out (dW writes only 9 × C values). The kernels read NHWC rows
 straight from device memory with bounds-checked taps (no padded or
-zero-dilated copy); B3 keeps its tile's dw activation in shared memory;
-dW sums across blocks in two passes without atomics. The forward (B4,
-B6's forward), B3's dw phase and dW give a thread ``VEC`` channels moved
-by one load of up to 16 bytes, :func:`vec_width` of C, the dtype and the
-pointers' alignment, and a block of outputs whose shared inputs stay in
-registers; B3's 1x1 phase gives a thread 4 pixels by 8 output channels.
-Their launch plans (:func:`dw_fwd_plan`, :func:`ds_plan`, :func:`dw_plan`)
-are functions of the shape. See the sources for the designs.
+zero-dilated copy); B3 and B5 keep their tile's dw activation in shared
+memory; dW sums across blocks in two passes without atomics. The forward
+(B4, B6's forward), B3's and B5's dw phases, dX and dW give a thread
+``VEC`` channels moved by one load of up to 16 bytes, :func:`vec_width` of
+C, the dtype and the pointers' alignment, and a block of outputs whose
+shared inputs stay in registers (dX at stride 2: 2 × 2 cells of dX split
+by parity); B3's and B5's 1x1 phases give a thread 4 pixels by 8 output
+channels. Their launch plans (:func:`dw_fwd_plan`, :func:`ds_plan`,
+:func:`mr_plan`, :func:`dx_plan`, :func:`dw_plan`) are functions of the
+shape. See the sources for the designs.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a
 tensor on the CPU and launches its kernel for a CUDA tensor, raising on
@@ -63,6 +67,8 @@ __all__ = [
     "dw_conv3x3_dx_reference",
     "dw_conv3x3_dw_reference",
     "ds_plan",
+    "mr_plan",
+    "dx_plan",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,18 +163,30 @@ def dw_fwd_plan(n: int, ho: int, wo: int, c: int, vec: int, itemsize: int,
         cols = 4 if vec * itemsize == 16 else 2
     if cols not in FWD_COLS or (cols != 2 and vec * itemsize != 16):
         raise ValueError(f"dw_fwd_plan: {cols} columns a thread not built for VEC {vec}")
+    return FwdPlan(cols, *_vec_grid(n, ho, wo, c, vec, cols, rows, _FWD_RESIDENT[cols]))
+
+
+def _vec_grid(n: int, units_h: int, units_w: int, c: int, vec: int, cols: int,
+              rows: int | None, resident: int, most: int = 16):
+    """The grid of the vector kernels (the forward and dX): a block of
+    ``(C / VEC, column groups)`` threads, at most 128 (channel groups of at
+    most 128 vectors), each thread ``cols`` column units by ``rows`` row
+    units. ``rows`` is ``most``, halved while the grid fills less than 0.6
+    of one wave of ``resident`` blocks an SM. Returns (rows, block, tiles,
+    groups, grid)."""
     cv = c // vec
     bx = min(cv, _FWD_THREADS)
     groups = -(-cv // bx)
-    col_groups = -(-wo // cols)
+    col_groups = -(-units_w // cols)
     tiles = -(-col_groups // (_FWD_THREADS // bx))
     by = -(-col_groups // tiles)
     if rows is None:
-        rows = 16
-        min_blocks = 0.6 * _FWD_RESIDENT[cols] * _SMS
-        while rows > 1 and tiles * groups * -(-ho // rows) * n < min_blocks:
+        rows = most
+        while rows > 1 and tiles * groups * -(-units_h // rows) * n < 0.6 * resident * _SMS:
             rows //= 2
-    return FwdPlan(cols, rows, (bx, by), tiles, groups, (tiles * groups, -(-ho // rows), n))
+    if rows < 1:
+        raise ValueError(f"rows must be >= 1, got {rows}")
+    return rows, (bx, by), tiles, groups, (tiles * groups, -(-units_h // rows), n)
 
 
 def _as_kernel_weights(t: torch.Tensor) -> torch.Tensor:
@@ -269,14 +287,22 @@ class DsPlan(NamedTuple):
 _DS_REGS = 128
 
 
-def _ds_block(c: int, cout: int, rows: int):
-    """B3's block (output-channel groups of 8, pixel-group stride) at
-    ``rows`` output rows, and its dynamic shared memory in bytes."""
+def _pw_block(cout: int, pix_groups: int) -> tuple[int, int]:
+    """The block of B3's and B5's 1×1 phase: output-channel groups of 8 by
+    a pixel-group stride, the largest power of two that divides the
+    block's ``pix_groups`` groups of 4 pixels with at most 256 threads in
+    all, so that every thread makes as many groups as the others."""
     cog = -(-cout // _DS_CO)
-    pix_groups = rows * _DS_TILE_W // _DS_PIX
     by = 1
     while by * 2 * cog <= _DS_THREADS and pix_groups % (by * 2) == 0:
         by *= 2
+    return cog, by
+
+
+def _ds_block(c: int, cout: int, rows: int):
+    """B3's block (output-channel groups of 8, pixel-group stride) at
+    ``rows`` output rows, and its dynamic shared memory in bytes."""
+    cog, by = _pw_block(cout, rows * _DS_TILE_W // _DS_PIX)
     cop = cog * _DS_CO
     return (cog, by), 4 * (-(-10 * c // 4) * 4 + c * cop + cop + c * rows * _DS_TILE_W)
 
@@ -353,49 +379,136 @@ def ds_conv3x3_pw(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows=None):
 
 ds_conv3x3_pw.launches = 0
 
-_MR_TILE_W = 16  # output columns per B5 block (kTileW in csrc/ds_conv_mr.cu)
+# -- B5's launch plan (csrc/ds_conv_mr.cu, ds_conv3x3_pw_mr_kernel) ------------
+# Its 1×1 phase is B3's: kMrPix, kMrCo and kMrThreads equal _DS_PIX, _DS_CO
+# and _DS_THREADS.
+_MR_TILES = (32, 16, 8, 4)  # output columns a block the plan tries, widest first
+_MR_PIXELS = 128    # output pixels a strip the plan aims at
+_MR_WAVE = 2 * _SMS  # blocks the plan's grid aims at: two an SM
 
 
-def _mr_smem_bytes(c: int, cout: int, stride: int, rows: int, elem: int) -> int:
-    """Dynamic shared memory of one B5 block: pw weights, the dw tile (one
-    padding float per pixel), the staged input rows."""
-    rows_in, cols_in = (rows - 1) * stride + 3, (_MR_TILE_W - 1) * stride + 3
-    return 4 * (c * cout + rows * _MR_TILE_W * (c + 1)) + elem * rows_in * cols_in * c
+class MrPlan(NamedTuple):
+    """Launch plan of B5's kernel (see :func:`mr_plan`)."""
+    rows: int                   # output rows a strip
+    tile: int                   # output columns a block
+    strips: int                 # strips a block walks
+    block: tuple[int, int]      # (output-channel groups of 8, pixel-group stride)
+    grid: tuple[int, int, int]  # (column tiles, strip groups, N)
+    smem: int                   # dynamic shared memory, bytes
 
 
-def ds_conv3x3_pw_multirow(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows_per_step=8):
-    """B3's function in the multi-row kernel (B5): each block computes
-    ``rows_per_step`` output rows of a 16-column tile from input rows
-    staged in shared memory once. Any shape; a ragged last row block is
-    masked. Its plain version is :func:`ds_conv3x3_pw_reference`, which
-    it equals bit for bit."""
+def _mr_smem_bytes(c: int, cout: int, rows: int, tile: int, stride: int, itemsize: int) -> int:
+    """Dynamic shared memory of one B5 block (``mr_smem_bytes`` in the
+    source): the f32 dw taps and bias, the 1×1 weights and bias (Cout
+    padded to a multiple of 8), two strips' f32 dw activations, and two
+    input slots of ``(rows - 1) * stride + 3`` rows by ``(tile - 1) *
+    stride + 3`` columns by C, each rounded up to 16 bytes."""
+    cop = -(-cout // _DS_CO) * _DS_CO
+    slot = ((rows - 1) * stride + 3) * ((tile - 1) * stride + 3) * c * itemsize
+    return (4 * (-(-10 * c // 4) * 4 + c * cop + cop + 2 * c * rows * tile)
+            + 2 * (-(-slot // 16) * 16))
+
+
+@functools.lru_cache(maxsize=256)
+def mr_plan(n: int, ho: int, wo: int, c: int, cout: int, stride: int, itemsize: int,
+            rows_per_step: int = 8, rows: int | None = None, tile: int | None = None,
+            strips: int | None = None) -> MrPlan:
+    """Launch plan of B5's kernel. A block owns ``tile`` output columns and
+    walks ``strips`` strips of ``rows`` output rows down one image, each
+    strip's input rows staged in one of two shared-memory slots while the
+    block computes the previous strip. ``tile`` is the widest of 32, 16, 8
+    and 4 and ``rows`` the most, a power of two at most ``rows_per_step``
+    and at most 128 pixels a strip, whose block fits 227 KB of shared
+    memory: 32 × 4 at both serving sites in bf16. ``strips`` is at least
+    2 and makes the grid at most about one wave of two blocks an SM (264
+    on 132 SMs): 4 and 2 there (256 and 128 blocks). The block is the 1×1
+    phase's (:func:`_pw_block`). ``chip_smoke.py --tune-dw`` times tiles
+    of 16 to 64 columns by 1 to 8 rows by 1 to 8 strips at the serving
+    sites: 128 pixels a strip at a 16- or 32-column tile, 4 and 2 strips
+    a block, is the fastest at both. ``rows``, ``tile`` and ``strips`` may
+    be given to time alternatives; ``rows_per_step`` bounds only the
+    plan's own choice. Raises where no block fits. A pure function of the
+    shape."""
+    if -(-cout // _DS_CO) > _DS_THREADS:
+        raise ValueError(f"mr_plan: Cout={cout} exceeds {_DS_THREADS * _DS_CO} output channels")
+    if rows_per_step < 1:
+        raise ValueError(f"rows_per_step must be >= 1, got {rows_per_step}")
+    for name, v in (("rows", rows), ("strips", strips)):
+        if v is not None and v < 1:
+            raise ValueError(f"mr_plan: {name} must be >= 1, got {v}")
+    if tile is not None and (tile < _DS_PIX or tile % _DS_PIX):
+        raise ValueError(f"mr_plan: tile must be a positive multiple of {_DS_PIX}, got {tile}")
+
+    def smem(r, t):
+        return _mr_smem_bytes(c, cout, r, t, stride, itemsize)
+
+    options = []
+    for t in (_MR_TILES if tile is None else (tile,)):
+        most = min(rows_per_step, max(1, _MR_PIXELS // t))
+        options += [(t, r) for r in ([rows] if rows is not None else
+                                     [1 << k for k in range(most.bit_length() - 1, -1, -1)])]
+    fits = [o for o in options if smem(*o) <= _DS_SMEM]
+    if not fits:
+        t, r = options[-1]
+        raise ValueError(f"ds_conv3x3_pw_multirow: C={c}, Cout={cout} at {r} rows by {t} "
+                         f"columns need {smem(r, t)} bytes of shared memory, more than 227 KB")
+    tile, rows = fits[0]
+    tiles, nstrips = -(-wo // tile), -(-ho // rows)
+    if strips is None:  # at least two, so that a block has a copy to overlap
+        strips = max(2, -(-tiles * nstrips * n // _MR_WAVE))
+    strips = min(strips, nstrips)
+    grid = (tiles, -(-nstrips // strips), n)
+    if grid[1] > 65535 or n > 65535:
+        raise ValueError(f"ds_conv3x3_pw_multirow: grid {grid} exceeds CUDA's limits")
+    return MrPlan(rows, tile, strips, _pw_block(cout, rows * tile // _DS_PIX), grid,
+                  smem(rows, tile))
+
+
+def _mr_args(x, w_dw, b_dw, w_pw, b_pw, out, stride, padding, plan):
+    """The C entry's arguments for B5, and the tensors they point into.
+    The kernel reads the weights and biases as they are stored (f32 or
+    bf16, each with its own dtype code): no cast, no copy of a contiguous
+    tensor."""
+    n, h, wd, c = x.shape
+    cout, ho, wo = out.shape[3], out.shape[1], out.shape[2]
+    w9, bd, wpw, bp = (_as_kernel_weights(t) for t in
+                       (w_dw.reshape(9, c), b_dw, w_pw.reshape(c, cout), b_pw))
+    vec = vec_width(c, x.element_size(), (x.data_ptr(),))
+    vec_out = cout % _DS_CO == 0 and out.data_ptr() % 16 == 0
+    args = (_DTYPE_CODE[x.dtype], x.data_ptr(),
+            *(v for t in (w9, bd, wpw, bp) for v in (_DTYPE_CODE[t.dtype], t.data_ptr())),
+            out.data_ptr(), n, h, wd, c, cout, ho, wo, stride, padding, vec, plan.rows, plan.tile,
+            plan.strips, *plan.block, int(vec_out))
+    return args, (w9, bd, wpw, bp)
+
+
+def ds_conv3x3_pw_multirow(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows_per_step=8,
+                           rows=None, tile=None, strips=None):
+    """B3's function in the multi-row kernel (B5): a block walks strips of
+    at most ``rows_per_step`` output rows down one column tile, each
+    strip's input rows fetched into shared memory while the block computes
+    the previous one (:func:`mr_plan`). Any shape; a ragged last tile or
+    strip is masked. The kernel reads weights and biases as they are
+    stored (f32 or bf16). ``rows``, ``tile`` and ``strips`` override the
+    plan's; neither they nor ``rows_per_step`` change the result. Its plain
+    version is :func:`ds_conv3x3_pw_reference`, which it equals bit for
+    bit."""
     _check_dw_args(x, w_dw, stride, "ds_conv3x3_pw_multirow")
     _check_pw_weights(x, w_pw)
-    rows = int(rows_per_step)
-    if rows < 1:
+    if int(rows_per_step) < 1:
         raise ValueError(f"rows_per_step must be >= 1, got {rows_per_step}")
     if x.device.type == "cpu":
         return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
-    code = _kernel_input(x, "ds_conv3x3_pw_multirow")
-    n, h, wd, c = x.shape
+    _kernel_input(x, "ds_conv3x3_pw_multirow")
+    n, _, _, c = x.shape
     cout = w_pw.shape[3]
     ho, wo = _out_hw(x, stride, padding, "ds_conv3x3_pw_multirow")
-    if -(-ho // rows) > 65535:
-        raise ValueError(f"ds_conv3x3_pw_multirow: {ho} output rows need rows_per_step > {rows}")
-    smem = _mr_smem_bytes(c, cout, stride, rows, x.element_size())
-    if smem > 227 * 1024:
-        raise ValueError(f"ds_conv3x3_pw_multirow: C={c}, Cout={cout}, rows_per_step={rows} "
-                         f"need {smem} bytes of shared memory, more than 227 KB")
-    w9 = w_dw.float().reshape(9, c).contiguous()
-    bd = b_dw.float().contiguous()
-    wpw = w_pw.reshape(c, cout).to(x.dtype).float().contiguous()
-    bp = b_pw.float().contiguous()
+    plan = mr_plan(n, ho, wo, c, cout, stride, x.element_size(), int(rows_per_step), rows, tile,
+                   strips)
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    args, _keep = _mr_args(x, w_dw, b_dw, w_pw, b_pw, out, stride, padding, plan)
     rc = library("ds_conv_mr").fastscnn_ds_conv3x3_pw_mr(
-        code, x.data_ptr(), w9.data_ptr(), bd.data_ptr(), wpw.data_ptr(), bp.data_ptr(),
-        out.data_ptr(), n, h, wd, c, cout, ho, wo, stride, padding, rows,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+        *args, torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "ds_conv3x3_pw_multirow")
     ds_conv3x3_pw_multirow.launches += 1
     return out
@@ -447,22 +560,82 @@ def dw_conv3x3_dw_reference(x, g, stride, padding, out_dtype=torch.float32):
     return conv_dw_taps(x, g, 3, 3, stride, padding, groups=x.shape[-1]).to(out_dtype)
 
 
-def dw_conv3x3_dx(g, w, stride=1, padding=1, x_shape=None):
+# -- dX's launch plan (csrc/dw_conv_bwd.cu, dw_conv3x3_dx_kernel) -------------
+DX_COLS = (1, 2, 4)  # column units a thread the kernel is built for (1 and 4 at the
+                     # widest VEC only); a unit is a 2 × 2 cell at stride 2
+# blocks of 128 threads an H100 SM holds by registers at 1, 2 and 4 units
+# (77, 87 and 128 a thread at bf16 VEC 8 stride 2; chip_smoke.py --tune-dw
+# prints them)
+_DX_RESIDENT = {1: 6, 2: 5, 4: 4}
+_DX_ROWS = 2  # row units a thread at most (2 cell rows, 4 dX rows at stride 2)
+
+
+class DxPlan(NamedTuple):
+    """Launch plan of the dX kernel (see :func:`dx_plan`)."""
+    cols: int               # column units a thread
+    rows: int               # row units a thread walks
+    block: tuple[int, int]  # (channel vectors, column groups)
+    tiles: int              # column tiles
+    groups: int             # channel groups
+    grid: tuple[int, int, int]
+
+
+def dx_units(h: int, w: int, stride: int, padding: int) -> tuple[int, int]:
+    """dX's row and column units: at stride 2 the 2 × 2 cells, whose first
+    row (and column) is ``2 * floor((padding - 1) / 2) + 1 - padding``, 0
+    or -1; at stride 1 the pixels."""
+    if stride == 1:
+        return h, w
+    first = 2 * ((padding - 1) // 2) + 1 - padding
+    return (h - first + 1) // 2, (w - first + 1) // 2
+
+
+@functools.lru_cache(maxsize=256)
+def dx_plan(n: int, h: int, w: int, c: int, vec: int, itemsize: int, stride: int, padding: int,
+            rows: int | None = None, cols: int | None = None) -> DxPlan:
+    """Launch plan of the dX kernel, on the forward's grid rule
+    (:func:`dw_fwd_plan`) over dX's units (:func:`dx_units`): block
+    ``(C / VEC, column groups)`` of at most 128 threads, each thread
+    ``cols`` units across (2 cells, 4 dX columns, at stride 2) by ``rows``
+    units down, 2 halved while the grid fills less than 0.6 of a wave: a
+    thread makes a 4 × 4 block of dX pixels at both training sites.
+    ``chip_smoke.py --tune-dw`` times 1, 2 and 4 cells by 1 to 16 cell
+    rows there: 2 × 2 is the fastest or within 2 % of it at each (2 × 16
+    is 11 % slower at dsconv1: a thread walks too long a column of
+    cells). ``rows`` and ``cols`` may be given to time alternatives.
+    ``grid = (tiles * groups, ⌈units_h / rows⌉, N)``. A pure function of
+    the shape."""
+    if cols is None:
+        cols = 2
+    if cols not in DX_COLS or (cols != 2 and vec * itemsize != 16):
+        raise ValueError(f"dx_plan: {cols} column units a thread not built for VEC {vec}")
+    units_h, units_w = dx_units(h, w, stride, padding)
+    return DxPlan(cols, *_vec_grid(n, units_h, units_w, c, vec, cols, rows, _DX_RESIDENT[cols],
+                                   _DX_ROWS))
+
+
+def dw_conv3x3_dx(g, w, stride=1, padding=1, x_shape=None, rows=None, cols=None):
     """Input gradient of the depthwise 3×3 (kernel B6, dX): NHWC ``g`` of
-    the output, (3, 3, 1, C) ``w`` → dX of shape ``x_shape`` in ``g``'s
-    dtype, f32 accumulation."""
+    the output, (3, 3, 1, C) ``w`` (read as stored, f32 or bf16) → dX of
+    shape ``x_shape`` in ``g``'s dtype, f32 accumulation. ``rows`` and
+    ``cols`` override the launch plan's (:func:`dx_plan`); the result is
+    the same bits."""
     _check_bwd_shapes(g, x_shape, stride, padding, "dw_conv3x3_dx")
     if g.device.type == "cpu":
         return dw_conv3x3_dx_reference(g, w, stride, padding, x_shape)
     code = _kernel_input(g, "dw_conv3x3_dx")
     n, h, wd, c = x_shape
-    if h > 65535 or n > 65535:
-        raise ValueError(f"dw_conv3x3_dx: unsupported shape {tuple(x_shape)}")
-    w9 = w.float().reshape(9, c).contiguous()
+    w9 = _as_kernel_weights(w.reshape(9, c))
     dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+    itemsize = g.element_size()
+    vec = vec_width(c, itemsize, (g.data_ptr(), dx.data_ptr()))
+    plan = dx_plan(n, h, wd, c, vec, itemsize, stride, padding, rows, cols)
+    if plan.grid[1] > 65535 or n > 65535:
+        raise ValueError(f"dw_conv3x3_dx: unsupported shape {tuple(x_shape)}")
     rc = library("dw_conv_bwd").fastscnn_dw_conv3x3_dx(
-        code, g.data_ptr(), w9.data_ptr(), dx.data_ptr(), n, h, wd, c, g.shape[1], g.shape[2],
-        stride, padding, torch.cuda.current_stream(g.device).cuda_stream,
+        code, g.data_ptr(), _DTYPE_CODE[w9.dtype], w9.data_ptr(), dx.data_ptr(), n, h, wd, c,
+        g.shape[1], g.shape[2], stride, padding, vec, plan.cols, plan.rows, *plan.block,
+        plan.tiles, plan.groups, torch.cuda.current_stream(g.device).cuda_stream,
     )
     check(rc, "dw_conv3x3_dx")
     dw_conv3x3_dx.launches += 1

@@ -47,7 +47,7 @@ __all__ = [
 ]
 
 _MULTI_DEVICE = "ROADMAP.md, queue item 'multi-device'"
-_TRAINER_SLICE = "ROADMAP.md, queue item 'slice 3: the trainer CLI'"
+_TRAINER_SLICE = "ROADMAP.md, modules to port, item 2: 'The trainer CLI'"
 
 
 @dataclasses.dataclass

@@ -23,7 +23,14 @@ from fastscnn_tpu.ops.pallas.dw_conv import (
 )
 from fastscnn_tpu_torch.ops.conv import conv2d
 from fastscnn_tpu_torch.ops.cuda import ds_conv3x3_pw, ds_conv3x3_pw_multirow, dw_conv3x3
-from fastscnn_tpu_torch.ops.cuda.dw_conv import _mr_smem_bytes, ds_plan, dw_fwd_plan, vec_width
+from fastscnn_tpu_torch.ops.cuda.dw_conv import (
+    _mr_args,
+    _mr_smem_bytes,
+    ds_plan,
+    dw_fwd_plan,
+    mr_plan,
+    vec_width,
+)
 
 _ULP_BF16 = 2.0 ** -7
 
@@ -134,11 +141,17 @@ def test_ds_conv3x3_pw_multirow_plain_matches_pallas_interpret(rng, dtype, strid
 
 
 def test_ds_conv3x3_pw_multirow_shared_memory_fits_the_serving_sites():
-    """The staged tile of the LTD's two sites at rows_per_step 8 in bf16
-    (58,944 and 91,232 bytes) fits two blocks on an SM's 227 KB; the
-    wrapper refuses what does not fit one."""
-    assert _mr_smem_bytes(32, 48, 2, 8, 2) == 58944
-    assert _mr_smem_bytes(48, 64, 2, 8, 2) == 91232
+    """A block of the LTD's two sites in bf16, at the plan's 4 rows by 32
+    columns, holds two input slots of 9 x 65 pixels, two strips' f32 dw
+    activations and the f32 weights in 115,264 and 175,936 bytes: it fits
+    an SM's 227 KB. Eight rows would not at dsconv2 (C = 48, 324,928
+    bytes). The wrapper refuses a bad rows_per_step and a device that is
+    neither the CPU nor CUDA."""
+    assert _mr_smem_bytes(32, 48, 4, 32, 2, 2) == 115264
+    assert _mr_smem_bytes(48, 64, 4, 32, 2, 2) == 175936
+    assert _mr_smem_bytes(48, 64, 8, 32, 2, 2) == 324928
+    for smem in (115264, 175936):
+        assert smem + 1024 <= 232448
     x = torch.zeros((1, 64, 64, 48), device="meta")
     with pytest.raises(ValueError, match="rows_per_step"):
         ds_conv3x3_pw_multirow(torch.zeros((1, 8, 8, 4)), torch.zeros((3, 3, 1, 4)),
@@ -147,6 +160,114 @@ def test_ds_conv3x3_pw_multirow_shared_memory_fits_the_serving_sites():
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         ds_conv3x3_pw_multirow(x, torch.zeros((3, 3, 1, 48)), torch.zeros(48),
                                torch.zeros((1, 1, 48, 64)), torch.zeros(64), stride=2)
+
+
+def _covered_once(spans, n):
+    """Each of 0..n-1 lies in exactly one of the [lo, hi) spans."""
+    hits = np.zeros(n, dtype=int)
+    for lo, hi in spans:
+        hits[max(lo, 0):min(hi, n)] += 1
+    return bool((hits == 1).all())
+
+
+# (N, H, W, C, Cout, stride): the serving sites, odd and even sizes at
+# strides 1 and 2, a C that takes VEC 1 and a long image
+_MR_SHAPES = [
+    (1, 511, 1023, 32, 48, 2), (1, 256, 512, 48, 64, 2),
+    (2, 17, 139, 3, 19, 2), (1, 9, 149, 129, 19, 1), (2, 16, 22, 12, 64, 2),
+    (3, 15, 13, 8, 48, 1), (1, 1, 1, 32, 8, 2), (1, 2000, 40, 16, 16, 1),
+]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", _MR_SHAPES)
+def test_mr_plan_covers_every_output_once(shape, itemsize):
+    """B5's plan: each output row lies in exactly one strip of one block's
+    run and each output column in one tile; a block holds at most 256
+    threads: one per 8 output channels (x) by a pixel-group stride that
+    divides the strip's pixel groups (y); its shared memory is the
+    kernel's and fits 227 KB; the grid stays within CUDA's limits. The
+    same holds at rows_per_step 1 to 8 and at overrides of rows, tile and
+    strips; the plan's rows never exceed rows_per_step. A function of the
+    shape alone."""
+    n, h, w, c, cout, stride = shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    plans = [mr_plan(n, ho, wo, c, cout, stride, itemsize, rps) for rps in (1, 2, 3, 8)]
+    plans += [mr_plan(n, ho, wo, c, cout, stride, itemsize, rows=r, tile=t, strips=s)
+              for r, t, s in ((1, 4, 1), (3, 8, 5), (2, 16, 2))]
+    assert plans[-1] == mr_plan.__wrapped__(n, ho, wo, c, cout, stride, itemsize, rows=2,
+                                            tile=16, strips=2)
+    for rps, plan in zip((1, 2, 3, 8), plans):
+        assert plan.rows <= rps
+    for plan in plans:
+        (bx, by), (gx, gy, gz) = plan.block, plan.grid
+        assert (bx - 1) * 8 < cout <= bx * 8 and bx * by <= 256
+        assert (plan.rows * plan.tile // 4) % by == 0 and by & (by - 1) == 0
+        assert plan.smem == _mr_smem_bytes(c, cout, plan.rows, plan.tile, stride, itemsize)
+        assert plan.smem <= 227 * 1024 and plan.tile % 4 == 0
+        assert gz == n and gy <= 65535
+        assert _covered_once([(t * plan.tile, (t + 1) * plan.tile) for t in range(gx)], wo)
+        nstrips = -(-ho // plan.rows)
+        strips = [s for y in range(gy)
+                  for s in range(y * plan.strips, min((y + 1) * plan.strips, nstrips))]
+        assert strips == list(range(nstrips))
+        assert _covered_once([(s * plan.rows, (s + 1) * plan.rows) for s in strips], ho)
+
+
+def test_mr_plan_at_the_serving_sites():
+    """At the LTD's two sites in bf16 the plan takes 32-column tiles of 4
+    rows (128 pixels a strip) and 4 and 2 strips a block: grids of 256
+    and 128 blocks, at most one wave of two blocks on each of 132 SMs,
+    and at least two strips a block. In f32 at dsconv2 the slots are twice
+    as large and 4 rows do not fit; the plan takes 2."""
+    p1 = mr_plan(1, 256, 512, 32, 48, 2, 2)
+    p2 = mr_plan(1, 128, 256, 48, 64, 2, 2)
+    assert (p1.tile, p1.rows, p1.strips, p1.grid, p1.block) == (32, 4, 4, (16, 16, 1), (6, 32))
+    assert (p2.tile, p2.rows, p2.strips, p2.grid, p2.block) == (32, 4, 2, (8, 16, 1), (8, 32))
+    f2 = mr_plan(1, 128, 256, 48, 64, 2, 4)
+    assert (f2.tile, f2.rows) == (32, 2) and f2.smem <= 227 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        mr_plan(1, 64, 64, 2048, 2048, 2, 4)
+    with pytest.raises(ValueError, match="output channels"):
+        mr_plan(1, 8, 8, 4, 2049, 2, 2)
+    with pytest.raises(ValueError, match="tile"):
+        mr_plan(1, 8, 8, 4, 8, 2, 2, tile=6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ds_conv3x3_pw_multirow_rows_per_step_changes_no_result(rng, dtype):
+    """rows_per_step bounds the rows a strip stages, and the plan
+    overrides pick another launch; none of them changes the result."""
+    a = _inputs(rng, (2, 19, 23, 16), 24)
+    args = (torch.from_numpy(a["x"]).to(getattr(torch, dtype)),
+            *(torch.from_numpy(a[k]) for k in ("w", "b", "w_pw", "b_pw")))
+    ref = ds_conv3x3_pw_multirow(*args, stride=2, padding=1)
+    for kw in ({"rows_per_step": 1}, {"rows_per_step": 3}, {"rows_per_step": 16},
+               {"rows": 2, "tile": 8, "strips": 3}):
+        assert torch.equal(ds_conv3x3_pw_multirow(*args, stride=2, padding=1, **kw), ref)
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+def test_ds_conv3x3_pw_multirow_hands_the_kernel_weights_as_stored(rng, wdtype):
+    """B5's argument builder passes the weights and biases as they are
+    stored, each with its own dtype code (0 f32, 1 bf16): the pointers are
+    those of the caller's tensors, so the wrapper makes no cast and no
+    copy. Only another dtype is widened to f32."""
+    a = _inputs(rng, (1, 9, 11, 16), 24)
+    x = torch.from_numpy(a["x"]).to(torch.bfloat16)
+    ws = [torch.from_numpy(a[k]).to(getattr(torch, wdtype)) for k in ("w", "b", "w_pw", "b_pw")]
+    plan = mr_plan(1, 5, 6, 16, 24, 2, 2)
+    out = torch.empty((1, 5, 6, 24), dtype=torch.bfloat16)
+    args, keep = _mr_args(x, *ws, out, 2, 1, plan)
+    code = 1 if wdtype == "bfloat16" else 0
+    assert args[:10] == (1, x.data_ptr(), code, ws[0].data_ptr(), code, ws[1].data_ptr(), code,
+                         ws[2].data_ptr(), code, ws[3].data_ptr())
+    assert args[10] == out.data_ptr() and args[11:20] == (1, 9, 11, 16, 24, 5, 6, 2, 1)
+    assert args[20:] == (8, plan.rows, plan.tile, plan.strips, *plan.block, 1)
+    assert [k.data_ptr() for k in keep] == [t.data_ptr() for t in ws]
+    half = [t.half() for t in ws]
+    args16, keep16 = _mr_args(x, *half, out, 2, 1, plan)
+    assert all(k.dtype == torch.float32 for k in keep16) and args16[2] == 0
 
 
 # VEC of the forward and dW kernels by C: 16-byte accesses where C and

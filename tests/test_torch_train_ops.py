@@ -37,7 +37,7 @@ from fastscnn_tpu_torch.ops.cuda import (
     dw_conv3x3_vjp,
     launch_counts,
 )
-from fastscnn_tpu_torch.ops.cuda.dw_conv import dw_plan, vec_width
+from fastscnn_tpu_torch.ops.cuda.dw_conv import DX_COLS, dw_plan, dx_plan, dx_units, vec_width
 
 
 def _close_dw(got, ref):
@@ -92,6 +92,91 @@ def test_b6_plain_dx_and_dw_match_conv_dx_and_conv_dw_taps(rng, shape, stride):
     # the wrappers take the plain versions for CPU tensors
     assert torch.equal(dw_conv3x3_dx(torch.from_numpy(g), torch.from_numpy(w), stride, 1, shape), dx)
     assert torch.equal(dw_conv3x3_dw(torch.from_numpy(x), torch.from_numpy(g), stride, 1), dw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,stride", [((2, 17, 23, 8), 2), ((2, 16, 22, 8), 2),
+                                          ((1, 17, 22, 16), 2), ((2, 17, 23, 8), 1),
+                                          ((2, 16, 22, 8), 1)])
+def test_b6_plain_dx_matches_conv_dx_odd_and_even(rng, dtype, shape, stride):
+    """dX's plain version (the kernel's operations in its order) against
+    JAX's ``_conv_dx`` (XLA's dilated conv) on the same values, for odd
+    and even H and W at strides 1 and 2: f32 within 1e-5; bf16 g and taps
+    (as a bf16 step hands them over) within one bf16 ulp, both rounding
+    f32 sums of the same few exact products once."""
+    c = shape[-1]
+    ho, wo = (shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    g = torch.from_numpy(rng.standard_normal((shape[0], ho, wo, c)).astype(np.float32)).to(tdt)
+    w = torch.from_numpy((rng.standard_normal((3, 3, 1, c)) * 0.3).astype(np.float32)).to(tdt)
+    ref = np.asarray(_conv_dx(jnp.asarray(g.float().numpy(), jdt), jnp.asarray(w.float().numpy(),
+                                                                                jdt),
+                              stride, 1, c, shape, None).astype(jnp.float32))
+    got = dw_conv3x3_dx_reference(g, w, stride, 1, shape)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        err = np.abs(got.float().numpy() - ref)
+        assert np.all(err <= 2.0**-7 * np.abs(ref) + 1e-6), err.max()
+
+
+# (N, H, W, C, stride, padding): the training stem's two sites, odd and even
+# sizes, strides 1 and 2, paddings 0 to 2, a C of many channel groups
+_DX_SHAPES = [
+    (16, 383, 383, 32, 2, 1), (16, 192, 192, 48, 2, 1),
+    (2, 17, 23, 8, 2, 1), (2, 16, 22, 8, 2, 1), (1, 9, 11, 129, 2, 1), (1, 4, 4, 2056, 1, 1),
+    (2, 17, 23, 8, 1, 1), (1, 10, 9, 6, 2, 0), (1, 11, 10, 6, 2, 2), (1, 1, 1, 3, 2, 1),
+]
+
+
+def _covered_once(spans, n):
+    hits = np.zeros(n, dtype=int)
+    for lo, hi in spans:
+        hits[max(lo, 0):min(hi, n)] += 1
+    return bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", _DX_SHAPES)
+def test_dx_plan_covers_every_input_pixel_once(shape, itemsize):
+    """The dX plan: its units (2 x 2 cells at stride 2, pixels at stride 1)
+    tile dX so that each input row, column and channel lies in exactly one
+    thread's units, rows by strips of the grid's y, columns by column
+    groups of the tiles, channels by channel vectors of the groups; a
+    block holds at most 128 threads and the grid stays within CUDA's
+    limits. The same holds at every column count built for the widest VEC
+    and at rows given to the plan. A function of the shape alone."""
+    n, h, w, c, stride, pad = shape
+    vec = vec_width(c, itemsize, (1 << 20,) * 2)
+    plans = [dx_plan(n, h, w, c, vec, itemsize, stride, pad)]
+    if vec * itemsize == 16:
+        plans += [dx_plan(n, h, w, c, vec, itemsize, stride, pad, rows, cols)
+                  for cols in DX_COLS for rows in (1, 3, 16)]
+    assert dx_plan.__wrapped__(n, h, w, c, vec, itemsize, stride, pad) == plans[0]
+    units_h, units_w = dx_units(h, w, stride, pad)
+    span = 2 if stride == 2 else 1
+    first = 2 * ((pad - 1) // 2) + 1 - pad if stride == 2 else 0
+    for plan in plans:
+        (bx, by), (gx, gy, gz) = plan.block, plan.grid
+        assert 1 <= bx * by <= 128 and gy <= 65535 and gz == n and gx == plan.tiles * plan.groups
+        assert _covered_once([(first + span * r, first + span * min(r + plan.rows, units_h))
+                              for r in range(0, gy * plan.rows, plan.rows)], h)
+        units = [(t * by + ty) * plan.cols for t in range(plan.tiles) for ty in range(by)]
+        assert _covered_once([(first + span * u, first + span * min(u + plan.cols, units_w))
+                              for u in units if u < units_w], w)
+        assert _covered_once([((gr * bx + tx) * vec, (gr * bx + tx + 1) * vec)
+                              for gr in range(plan.groups) for tx in range(bx)
+                              if (gr * bx + tx) * vec < c], c)
+    assert plans[0].cols == 2 and plans[0].rows in (1, 2)
+
+
+def test_dx_plan_refuses_columns_it_was_not_built_for():
+    """1 and 4 column units a thread exist at the widest VEC only."""
+    assert dx_plan(1, 9, 9, 32, 8, 2, 2, 1, cols=4).cols == 4
+    for vec, itemsize, cols in ((4, 2, 1), (2, 4, 4), (8, 2, 3)):
+        with pytest.raises(ValueError, match="column units"):
+            dx_plan(1, 9, 9, 32, vec, itemsize, 2, 1, cols=cols)
 
 
 def test_b6_bf16_keeps_dtypes_and_rounds_once(rng):
@@ -179,6 +264,8 @@ def test_dw_wrappers_take_plan_overrides_on_the_cpu(rng):
     assert torch.equal(dw_conv3x3(x, w, None, 2, 1, False, rows=1, cols=4),
                        dw_conv3x3_reference(x, w, None, 2, 1))
     assert torch.equal(dw_conv3x3_dw(x, g, 2, 1, blocks=528), dw_conv3x3_dw_reference(x, g, 2, 1))
+    assert torch.equal(dw_conv3x3_dx(g, w, 2, 1, x.shape, rows=3, cols=4),
+                       dw_conv3x3_dx_reference(g, w, 2, 1, x.shape))
 
 
 @pytest.mark.parametrize(
