@@ -249,7 +249,7 @@ def test_ds_conv3x3_pw_multirow_rows_per_step_changes_no_result(rng, dtype):
 
 @pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
 def test_ds_conv3x3_pw_multirow_hands_the_kernel_weights_as_stored(rng, wdtype):
-    """B5's argument builder passes the weights and biases as they are
+    """B5's `_mr_args` passes the weights and biases as they are
     stored, each with its own dtype code (0 f32, 1 bf16): the pointers are
     those of the caller's tensors, so the wrapper makes no cast and no
     copy. Only another dtype is widened to f32."""
