@@ -9,14 +9,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 2. the ``nvcc`` build of every kernel source, from this checkout; then
    the depthwise forward, dX and dW kernels, B3 and B5 on a sweep of small
    shapes, views and channel counts that runs every channel width they
-   pick (:func:`dw_sweep`), and B7 on small shapes that take every path of
-   its kernel (:func:`pw_sweep`);
+   pick (:func:`dw_sweep`), B7 and B8 on small shapes that take every path
+   of their kernel (:func:`pw_sweep`), and B2 on masks that take every
+   path of its kernel (:func:`mask_sweep`);
 3. each kernel (B1-B5, B7, B8) at the shapes the 1024x2048 serving path
    gives it (N=1, bf16; B7 and B8 at every int8 site of a frame, and at one
    site with ``quantize_out``): held against its plain PyTorch version
    (B3, B4 and B5 bit for bit in bf16 and f32, B5 also against B3's
    kernel, B7 within a stated reassociation bound and bit-identical on a
-   second run, B8 bit for bit), and timed
+   second run, B8 bit for bit, B2's mask on every pixel), and timed
    with CUDA events beside the
    plain version and one PyTorch library call that computes the same
    function (a yardstick the port never calls), with its bound from the
@@ -56,14 +57,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
-forward, dX and dW, B7) beside their library calls three ways: device time, windows
+forward, dX and dW, B7, B8, B2) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
-where that is longer) and host us a call (:func:`dw_costs`). Three options
+where that is longer) and host us a call (:func:`dw_costs`). Four options
 run only these kernels' studies, with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
-    python3 chip_smoke.py --tune-pw        # registers, B7's block tiles
+    python3 chip_smoke.py --tune-pw        # registers, B7's and B8's block tiles
+    python3 chip_smoke.py --tune-mask      # registers, B2's tiles and strips
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
 
@@ -306,12 +308,14 @@ def dw_sweep():
 
 
 def pw_sweep():
-    """B7 on small shapes that take every path of its kernel: each block
-    tile; K % 16 != 0 and a view 4 bytes off (4-byte activation copies);
-    N % 8 != 0 (the weight chunk element by element, outputs element by
-    element); a long K; bf16 and int8 outputs, with and without ReLU; an
-    f32 and a bf16 bias. Each result within :func:`pw_a8_gate`'s bound and
-    bit-identical on a second run."""
+    """B7 and B8 on small shapes that take every path of their kernels:
+    each block tile; K % 16 != 0 and a view 4 bytes off (4-byte activation
+    copies); N % 8 != 0 (B7's weight chunk element by element, outputs
+    element by element; B8's weight chunk goes element by element at
+    N % 16 != 0); a long K; bf16 and int8 outputs, with and without ReLU;
+    an f32 and a bf16 bias. B7's results within :func:`pw_a8_gate`'s
+    bound, B8's bit-equal to its plain version; each bit-identical on a
+    second run."""
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
@@ -344,6 +348,88 @@ def pw_sweep():
     torch.cuda.synchronize()
     _print(f"  B7 sweep: {cases} cases within the bound and bit-identical on a second run; "
            f"largest share of the allowance used {worst:.3g}")
+
+    # B8: every tile at each shape; K % 16 != 0 and a view 4 bytes off (4-byte
+    # activation copies); N % 16 != 0 (the weight chunk element by element),
+    # N % 8 != 0 (outputs element by element too); K = 772 and 768 (long K,
+    # many chunks); the streaming tile's short K and N
+    from fastscnn_tpu_torch.ops.cuda.int8_pw import PW_W8A8_TILES
+
+    cases, paths = 0, set()
+    for m, k, n, view in ((37, 20, 19, False), (300, 48, 24, False), (2053, 96, 40, False),
+                          (1000, 772, 72, False), (515, 64, 128, True), (777, 768, 80, False),
+                          (4099, 32, 48, False), (1031, 48, 64, True), (2048, 128, 136, False)):
+        if view:
+            flat = torch.randint(-127, 128, (m * k + 4,), generator=g, device=dev,
+                                 dtype=torch.int8)
+            x_q = flat[4:].view(m, k)
+        else:
+            x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        cs = torch.rand(n, generator=g, device=dev) * (1.0 / (73.0 * k**0.5))
+        b = torch.randn(n, generator=g, device=dev) * 5.0
+        for tile in range(len(PW_W8A8_TILES)):
+            for qout in (False, True):
+                relu = (tile + qout + k) % 2 == 0
+                bias = b.to(torch.bfloat16) if (tile + qout) % 2 else b
+                got = K.pw_conv_w8a8(x_q, w_q, cs, bias, relu, qout, tile=tile)
+                ref = K.pw_conv_w8a8_reference(x_q, w_q, cs, bias, relu, qout)
+                label = (f"B8 ({m}x{k})x({k}x{n}){' view' if view else ''} tile {tile} relu "
+                         f"{relu} quantize_out {qout} bias {bias.dtype}")
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{label}: {int((got != ref).sum())} elements differ "
+                                         "from the plain version")
+                if not torch.equal(got, K.pw_conv_w8a8(x_q, w_q, cs, bias, relu, qout,
+                                                       tile=tile)):
+                    raise AssertionError(f"{label}: a second run differs")
+                paths.add((16 if k % 16 == 0 and not view else 4, n % 16 == 0, n % 8 == 0,
+                           relu, qout, bias.dtype == torch.bfloat16))
+                cases += 1
+    torch.cuda.synchronize()
+    _print(f"  B8 sweep: {cases} cases bit-equal to the plain version and bit-identical on a "
+           f"second run; {len(paths)} paths (activation copy bytes, 16-byte weight copies, "
+           f"16-byte stores, ReLU, quantize_out, bf16 bias)")
+
+
+def mask_sweep():
+    """B2 on shapes that take every path of its kernel, each mask equal to
+    its plain version's on every pixel: ``align_corners`` both ways, odd h,
+    a ragged W (a last column tile in part past W; W % 8 != 0, whose rows
+    are staged element by element; W % 4 != 0, whose mask is stored
+    element by element), C of 2, 3 and 19, N of 1 and 2, bf16 and f32,
+    both column tiles, the plan's strips and forced ones (1 row, and one
+    strip of all rows where h fits), and a view one element into a flat
+    buffer (staged element by element)."""
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cases, px = 0, 0
+    for n, h, c, w, out_h in ((1, 16, 19, 2048, 128), (2, 17, 3, 1000, 136), (1, 9, 2, 1001, 72),
+                              (2, 32, 19, 264, 256), (1, 5, 19, 384, 11), (1, 128, 19, 520, 1024)):
+        for dt in (torch.bfloat16, torch.float32):
+            for ac in (True, False):
+                xw = torch.randn((n, h, c, w), generator=g, device=dev).to(dt)
+                flat = torch.empty(xw.numel() + 1, dtype=dt, device=dev)
+                flat[1:].copy_(xw.flatten())
+                ref = K.h_lerp_argmax_reference(xw, out_h, ac)
+                forced = [(None, None, xw), (256, None, xw), (128, 1, xw),
+                          (None, None, flat[1:].view(xw.shape))]
+                if h * c * 256 * xw.element_size() <= 227 * 1024:  # one strip stages all of h
+                    forced.append((256, 2 * out_h, xw))
+                for tile, rows, src in forced:
+                    got = K.h_lerp_argmax(src, out_h, ac, tile=tile, rows=rows)
+                    diff = int((got != ref).sum())
+                    if diff:
+                        raise AssertionError(
+                            f"B2 {tuple(xw.shape)} {dt} -> {out_h} rows, align_corners {ac}, "
+                            f"tile {tile} rows {rows}: {diff} pixels differ from the plain version")
+                    cases += 1
+                    px += got.numel()
+    torch.cuda.synchronize()
+    _print(f"  B2 sweep: {cases} cases, 0 of {px} pixels differ from the plain version")
 
 
 def kernel_phase(peaks):
@@ -528,6 +614,9 @@ def kernel_phase(peaks):
     z = resize_bilinear(xw.float(), (HEIGHT, WIDTH), h_axis=1, w_axis=3).permute(0, 1, 3, 2)
     gap = mask_agree("h_lerp_argmax (1, 128, 19, 2048) -> (1, 1024, 2048)", got, ref, z)
     del z
+    if not torch.equal(got, ref):  # B2 does the plain version's operations: every pixel equal
+        raise AssertionError(f"h_lerp_argmax: {int((got != ref).sum())} pixels differ from the "
+                             "plain version")
     xwc = xw.permute(0, 2, 1, 3)
     for dt in (bf16, torch.float32):
         lib_mask = F.interpolate(xwc.to(dt), size=(HEIGHT, WIDTH), mode="bilinear",
@@ -1206,7 +1295,9 @@ COST_LIBRARY = {"ds_conv3x3_pw": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
                 "ds_conv3x3_pw_multirow": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
                 "dw_conv3x3": "cuDNN depthwise + ReLU", "dw_conv3x3_vjp:forward": "cuDNN depthwise",
                 "dw_conv3x3_vjp:dx": "conv2d_input", "dw_conv3x3_vjp:dw": "conv2d_weight",
-                "pw_conv_a8": "torch.addmm (+ ReLU)"}
+                "pw_conv_a8": "torch.addmm (+ ReLU)",
+                "pw_conv_w8a8": "torch._int_mm * cs + b (+ ReLU) -> bf16",
+                "h_lerp_argmax": "H-only F.interpolate + argmax"}
 SERVING_DW_SITES = (("dsconv1", 1, 511, 1023, 32), ("dsconv2", 1, 256, 512, 48))
 SERVING_DS_COUT = {32: 48, 48: 64}  # the 1x1's output channels at those sites
 
@@ -1217,8 +1308,10 @@ def dw_costs():
     phases 3 and 5), every call costed by :func:`call_costs`: B3
     (``ds_conv3x3_pw``), B5 (``ds_conv3x3_pw_multirow``) and B4
     (``dw_conv3x3`` with bias and ReLU) at the serving sites (N = 1), B6's
-    forward, dX and dW (bf16 out) at the training sites, bf16, and B7
-    (``pw_conv_a8``) at config C's 23 int8 sites of a frame. It passes the
+    forward, dX and dW (bf16 out) at the training sites, bf16, B7
+    (``pw_conv_a8``) at config C's 23 int8 sites of a frame, B8
+    (``pw_conv_w8a8``) at config D's 25, and B2 (``h_lerp_argmax``) at the
+    serving shape. It passes the
     wrappers only arguments that every version of the port takes, so that
     ``--dw-ab`` costs an older checkout's kernels the same way. Returns
     ``{row: {"kernel": costs, "library": costs, "sites": {site: {...}}}}``,
@@ -1276,15 +1369,23 @@ def dw_costs():
             lambda: conv2d_weight(xc, (c, 1, 3, 3), gc, stride=2, padding=1, groups=c))
         del x, gy, xc, gc
     for site, m, k, n, relu in int8_sites(dev):
-        if site.startswith("ltd/"):  # config C runs the LTD's 1x1s inside B5
-            continue
         x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(bf16)
+        w_q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        cs = torch.rand(n, generator=g, device=dev) * (1.0 / (73.0 * k**0.5))
         b = torch.randn(n, generator=g, device=dev) * 5.0
         b16 = b.to(bf16)
         act = torch.relu if relu else (lambda t: t)
-        add("pw_conv_a8", site, lambda: K.pw_conv_a8(x_q, w_eff, b, relu),
-            lambda: act(torch.addmm(b16, x_q.to(bf16), w_eff)))
+        if not site.startswith("ltd/"):  # config C runs the LTD's 1x1s inside B5
+            add("pw_conv_a8", site, lambda: K.pw_conv_a8(x_q, w_eff, b, relu),
+                lambda: act(torch.addmm(b16, x_q.to(bf16), w_eff)))
+        add("pw_conv_w8a8", site, lambda: K.pw_conv_w8a8(x_q, w_q, cs, b, relu),
+            lambda: act(torch._int_mm(x_q, w_q) * cs + b).to(bf16))
+    xw = randn(1, HEIGHT // 8, NUM_CLASSES, WIDTH)
+    xwc = xw.permute(0, 2, 1, 3)
+    add("h_lerp_argmax", "serving", lambda: K.h_lerp_argmax(xw, HEIGHT),
+        lambda: F.interpolate(xwc, size=(HEIGHT, WIDTH), mode="bilinear",
+                              align_corners=True).argmax(1))
     torch.cuda.empty_cache()
     return rows
 
@@ -1478,47 +1579,118 @@ def tune_dw() -> None:
 
 
 def tune_pw() -> None:
-    """``--tune-pw``: the evidence for B7's launch plan. The registers,
-    spills and shared memory ``nvcc -Xptxas -v`` reports for each block
-    tile (16-byte copies), then the device ms of each tile at config C's
-    23 int8 sites of a frame, each result within :func:`pw_a8_gate`'s
-    bound, and the sums over the frame; ``*`` marks the plan's tile."""
+    """``--tune-pw``: the evidence for B7's and B8's launch plans. The
+    registers, spills and shared memory ``nvcc -Xptxas -v`` reports for
+    each block tile of either kernel (16-byte copies), then the device ms
+    of each tile at config C's 23 int8 sites of a frame (B7, each result
+    within :func:`pw_a8_gate`'s bound) and config D's 25 (B8, each result
+    bit-equal to its plain version), and the sums over the frame; ``*``
+    marks the plan's tile."""
     import re
 
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
-    from fastscnn_tpu_torch.ops.cuda.int8_pw import PW_A8_TILES, pw_a8_plan
+    from fastscnn_tpu_torch.ops.cuda.int8_pw import (PW_A8_TILES, PW_W8A8_TILES, pw_a8_plan,
+                                                     pw_w8a8_plan)
 
     def label(entry):
-        t = re.search(r"pw_a8_mma_kernelILi(\d+)ELi(\d+)ELi\d+ELi\d+ELi(\d+)ELi(\d+)ELi16ELb1E",
-                      entry)
-        return t and f"pw_a8_mma_kernel<{t[1]} x {t[2]}, {t[4]} stages of {t[3]} k>"
+        for kernel in ("pw_a8_mma_kernel", "pw_w8a8_mma_kernel"):
+            t = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi\d+ELi\d+ELi(\d+)ELi(\d+)ELi16ELb1E",
+                          entry)
+            if t:
+                return f"{kernel}<{t[1]} x {t[2]}, {t[4]} stages of {t[3]} k>"
+        return None
 
     ptxas_report("int8_pw", label)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     bf16 = torch.bfloat16
-    sums, plan_sum = [0.0] * len(PW_A8_TILES), 0.0
-    for site, m, k, n, relu in int8_sites(dev):
-        if site.startswith("ltd/"):
-            continue
-        x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(bf16)
-        b = torch.randn(n, generator=g, device=dev) * 5.0
-        ref = K.pw_conv_a8_reference(x_q, w_eff, b, relu)
-        chosen = pw_a8_plan(m, k, n).tile
-        cells = []
-        for tile, (bm, bn, _) in enumerate(PW_A8_TILES):
-            got = K.pw_conv_a8(x_q, w_eff, b, relu, tile=tile)
-            pw_a8_gate(f"{site} tile {bm}x{bn}", got, ref, x_q, w_eff, False, quiet=True)
-            ms = time_ms(lambda: K.pw_conv_a8(x_q, w_eff, b, relu, tile=tile))
-            sums[tile] += ms
-            plan_sum += ms if tile == chosen else 0.0
-            cells.append(f"{bm}x{bn}{'*' if tile == chosen else ''}: {ms:.4f}")
-        _print(f"  {site} ({m}x{k})x({k}x{n}), ms by tile: {', '.join(cells)}")
-    per_tile = ", ".join(f"{bm}x{bn} {t:.4f}" for (bm, bn, _), t in zip(PW_A8_TILES, sums))
-    _print(f"  over the 23 sites, ms: {per_tile}; the plan's tiles {plan_sum:.4f}")
+    for kname, tiles, plan_of in (("pw_conv_a8", PW_A8_TILES, pw_a8_plan),
+                                  ("pw_conv_w8a8", PW_W8A8_TILES, pw_w8a8_plan)):
+        sums, plan_sum, nsites = [0.0] * len(tiles), 0.0, 0
+        for site, m, k, n, relu in int8_sites(dev):
+            if kname == "pw_conv_a8" and site.startswith("ltd/"):
+                continue
+            x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            if kname == "pw_conv_a8":
+                w_eff = (torch.randn((k, n), generator=g, device=dev) * (0.5 / k**0.5)).to(bf16)
+                b = torch.randn(n, generator=g, device=dev) * 5.0
+                ref = K.pw_conv_a8_reference(x_q, w_eff, b, relu)
+
+                def run(tile):
+                    return K.pw_conv_a8(x_q, w_eff, b, relu, tile=tile)
+
+                def check(got, what):
+                    pw_a8_gate(what, got, ref, x_q, w_eff, False, quiet=True)
+            else:
+                w_q = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                                    dtype=torch.int8)
+                cs = torch.rand(n, generator=g, device=dev) * (1.0 / (73.0 * k**0.5))
+                b = torch.randn(n, generator=g, device=dev) * 5.0
+                ref = K.pw_conv_w8a8_reference(x_q, w_q, cs, b, relu)
+
+                def run(tile):
+                    return K.pw_conv_w8a8(x_q, w_q, cs, b, relu, tile=tile)
+
+                def check(got, what):
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"{what}: not bit-equal to its plain version")
+            chosen = plan_of(m, k, n).tile
+            cells = []
+            for tile, (bm, bn, _) in enumerate(tiles):
+                check(run(tile), f"{kname}[{site}] tile {bm}x{bn}")
+                ms = time_ms(lambda: run(tile))
+                sums[tile] += ms
+                plan_sum += ms if tile == chosen else 0.0
+                cells.append(f"{bm}x{bn}{'*' if tile == chosen else ''}: {ms:.4f}")
+            nsites += 1
+            _print(f"  {kname}[{site}] ({m}x{k})x({k}x{n}), ms by tile: {', '.join(cells)}")
+        per_tile = ", ".join(f"{bm}x{bn} {t:.4f}" for (bm, bn, _), t in zip(tiles, sums))
+        _print(f"  {kname} over the {nsites} sites, ms: {per_tile}; the plan's tiles "
+               f"{plan_sum:.4f}")
+
+
+def tune_mask() -> None:
+    """``--tune-mask``: the evidence for B2's launch plan. The registers,
+    spills and shared memory ``nvcc -Xptxas -v`` reports for B2's kernel
+    (bf16, 16-byte staging, each column tile), then its device ms at the
+    serving shape (N = 1 and 2, bf16, 128 -> 1,024 rows, 19 classes, 2,048
+    columns) at each column tile by 8 to 128 rows a strip, each mask equal
+    to the plain version's; ``*`` marks the plan's cell."""
+    import re
+
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+    from fastscnn_tpu_torch.ops.cuda.upsample_argmax import H_LERP_TILES, h_lerp_plan
+
+    def label(entry):
+        t = re.search(r"h_lerp_argmax_kernelI13__nv_bfloat16Li(\d)ELb1E", entry)
+        return t and f"h_lerp_argmax_kernel<bf16, {128 * int(t[1])} columns, 16-byte staging>"
+
+    ptxas_report("upsample_argmax", label)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    h = HEIGHT // 8
+    for n in (1, 2):
+        xw = torch.randn((n, h, NUM_CLASSES, WIDTH), generator=g, device=dev).to(torch.bfloat16)
+        ref = K.h_lerp_argmax_reference(xw, HEIGHT)
+        plan = h_lerp_plan(n, h, NUM_CLASSES, HEIGHT, WIDTH, 2)
+        for tile in H_LERP_TILES:
+            cells = []
+            for rows in (8, 16, 32, 64, 128):
+                p = h_lerp_plan(n, h, NUM_CLASSES, HEIGHT, WIDTH, 2, True, tile, rows)
+                if p.smem > 227 * 1024:
+                    continue
+                got = K.h_lerp_argmax(xw, HEIGHT, tile=tile, rows=rows)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"B2 N={n} tile {tile} rows {rows}: "
+                                         f"{int((got != ref).sum())} pixels differ")
+                ms = time_ms(lambda: K.h_lerp_argmax(xw, HEIGHT, tile=tile, rows=rows))
+                star = "*" if (tile, rows) == (plan.tile, plan.rows) else ""
+                cells.append(f"{rows}{star}: {ms:.4f} ({p.staged} staged, {p.smem // 1024} KB)")
+            _print(f"  B2 N={n}, tile {tile}, ms by rows a strip: {', '.join(cells)}")
 
 
 def main() -> int:
@@ -1530,10 +1702,12 @@ def main() -> int:
     parser.add_argument("--tune-dw", action="store_true",
                         help="only the depthwise kernels' registers and launch-plan sweeps")
     parser.add_argument("--tune-pw", action="store_true",
-                        help="only B7's registers and block-tile sweep")
+                        help="only B7's and B8's registers and block-tile sweeps")
+    parser.add_argument("--tune-mask", action="store_true",
+                        help="only B2's registers and column-tile and strip sweep")
     parser.add_argument("--dw-ab", metavar="PARENT",
                         help="only the redesigned kernels' costs (B3, B5, B4, B6 forward, dX "
-                             "and dW, B7), for the checkout at PARENT and for this one")
+                             "and dW, B7, B8, B2), for the checkout at PARENT and for this one")
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1564,14 +1738,17 @@ def main() -> int:
     if args.dw_ab:
         dw_ab(os.path.abspath(args.dw_ab))
         return 0
-    if args.tune_dw or args.tune_pw:
+    if args.tune_dw or args.tune_pw or args.tune_mask:
         _build.build_all()
         dw_sweep()  # the studies time kernels the sweeps hold right first
         pw_sweep()
+        mask_sweep()
         if args.tune_dw:
             tune_dw()
         if args.tune_pw:
             tune_pw()
+        if args.tune_mask:
+            tune_mask()
         return 0
     peak_name, peaks = card_peaks(name)
     _print(f"bounds use the published {peak_name} peaks: {peaks['bytes'] / 1e12} TB/s; "
@@ -1583,9 +1760,10 @@ def main() -> int:
     _print(f"build: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    _print("depthwise forward, dX and dW, B3, B5 and B7 on sweeps of small shapes:")
+    _print("depthwise forward, dX and dW, B3, B5, B7, B8 and B2 on sweeps of small shapes:")
     dw_sweep()
     pw_sweep()
+    mask_sweep()
     _print(f"  sweeps: {time.perf_counter() - t0:.1f} s")
 
     _print("kernels at the serving path's shapes (N=1, bf16), B6 at the training stem's "

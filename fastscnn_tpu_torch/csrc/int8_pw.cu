@@ -15,43 +15,49 @@
 // tensor-core rates (989 TFLOP/s bf16, 1,979 TOP/s int8) bytes bound them
 // (~0.04 ms a frame), the operations a quarter of that.
 //
-// B8 runs on the CUDA cores: one block of 256 threads per 64 x 64 output
-// tile, K in chunks of 64 staged in shared memory, a 4 x 4 register tile of
-// int32 sums a thread, __dp4a (four int8 MACs an instruction). Its int32
-// sums are exact (|sum| <= 127 * 127 * K < 2^24 for K <= 768, so the
-// int32 -> f32 conversion is exact too); then __fmul_rn(acc, cs) and
-// __fadd_rn(., b), as the plain version, so the two agree bit for bit.
-//
-// B7 runs on the tensor cores, as the TPU kernel's bf16 jnp.dot runs on the
-// MXU: mma.sync m16n8k16, bf16 operands, f32 sums. On the CUDA cores (one
-// f32 FMA per MAC) a frame's 5.6 G MACs alone took longer than a bf16 GEMM
-// of the library; on the tensor cores they are ~0.011 ms against ~0.04 ms
-// of bytes. The design:
+// Both run on the tensor cores, as the TPU kernels' jnp.dot runs on the
+// MXU, with one pipeline:
 // - A block computes a BM x BN output tile with 4 or 8 warps, each warp a
-//   (BM / WARPS_M) x (BN / WARPS_N) tile of 16 x 8 mma tiles whose f32
-//   sums stay in registers. Three tiles are built, 128 x 128 (8 warps),
-//   64 x 64 and 32 x 64 (4 warps); ops/cuda/int8_pw.py::pw_a8_plan picks one
-//   from (M, K, N) so that every site's grid fills the card.
-// - K goes through a ring of 3 or 4 shared-memory stages (32, 64 or 128 k
-//   a stage), its copies started that many chunks ahead: the int8 activation
-//   chunk and the weight chunk (K x N, row-major bf16) both by cp.async,
-//   16 bytes a thread, zero-filled past M, K and N. The long-K sites
-//   (K up to 768 at M = 2,048) have one block or two an SM, whose loop
-//   would otherwise wait a memory latency per chunk.
-// - Each chunk's activations are widened to bf16 (exact, by integer and
-//   f32 add tricks rather than conversion instructions) once, into a
-//   second shared-memory buffer, one chunk ahead of the mmas that read it.
-// - Fragments come from ldmatrix (A) and ldmatrix.trans (the row-major
-//   weight), from rows padded by 16 bytes so that the 8 rows an ldmatrix
-//   reads fall in distinct banks.
-// - The epilogue (f32 acc + b, [ReLU], bf16 or clip(rint(.), +-127) int8)
-//   goes through a shared-memory tile so that the outputs leave in 16-byte
-//   vectors where N allows it. The bias is read in its stored dtype.
+//   (BM / WARPS_M) x (BN / WARPS_N) tile of 16 x 8 mma tiles whose sums
+//   stay in registers. ops/cuda/int8_pw.py::pw_a8_plan and pw_w8a8_plan
+//   pick the block tile from (M, K, N) so that every site's grid fills the
+//   card.
+// - K goes through a ring of 3 or 4 shared-memory stages (32 to 128 k a
+//   stage), its copies started that many chunks ahead: the int8
+//   activation chunk and the weight chunk (K x N, row-major) both by
+//   cp.async, 16 bytes a thread (4 where K % 16 or the pointer forbids 16;
+//   the weight element by element where N or the pointer forbids 16),
+//   zero-filled past M, K and N through the copy's source size. The long-K
+//   sites (K up to 768 at M = 2,048) have one block or two an SM, whose
+//   loop would otherwise wait a memory latency per chunk.
+// - Each chunk gets one pass that puts it in the form the mma fragments
+//   want, one chunk ahead of the mmas that read it: B7 widens its int8
+//   activations to bf16 (exact, by integer and f32 add tricks rather than
+//   conversion instructions); B8 transposes its int8 weight chunk so that
+//   each output channel's k lie contiguous, as the .col operand of
+//   m16n8k32 wants (4 x 4-byte blocks by __byte_perm; the raw chunk's
+//   16-byte segments are stored XOR-swizzled by row so that the pass's
+//   reads spread over the banks).
+// - Fragments come from ldmatrix (A; B8's transposed weight: the b16 view
+//   of a 16-row x 32-byte int8 tile is exactly m16n8k32's fragment) and
+//   ldmatrix.trans (B7's row-major bf16 weight), from rows padded by 16
+//   bytes so that the 8 rows an ldmatrix reads fall in distinct banks.
+// - B7: mma.sync m16n8k16, bf16 operands, f32 sums. B8: mma.sync
+//   m16n8k32, s8 operands, s32 sums.
+// - One epilogue: f32 t (B7: its sum; B8: __fmul_rn(__int2float_rn(sum),
+//   cs[n])), then __fadd_rn(t, b[n]), [ReLU], bf16 (round to nearest
+//   even) or clip(rint(.), +-127) int8, through a shared-memory tile so
+//   that the outputs leave in 16-byte vectors where N allows it. The bias
+//   is read in its stored dtype (f32 or bf16).
 // - No split-K and no atomics: the bits are a function of the shape and
 //   the inputs alone.
-// Each product of an int8 value and a bf16 value is exact in f32, so only
-// the order of the sums (the hardware's) differs from the plain version's
-// in-order sum; ops/cuda/int8_pw.py::pw_conv_a8_tolerance states the bound.
+// B8's int32 sums are exact in any order (|sum| <= 127 * 127 * K < 2^24
+// for K <= 768, so the int32 -> f32 conversion is exact too), and its
+// epilogue is the plain version's operations, so B8 agrees with its plain
+// version bit for bit. B7's products of an int8 value and a bf16 value are
+// exact in f32, so only the order of the sums (the hardware's) differs
+// from the plain version's in-order sum; ops/cuda/int8_pw.py::
+// pw_conv_a8_tolerance states the bound.
 //
 // A ragged last M or N tile is masked, and k past K is zeros (the TPU
 // kernels' M % 32 fallback to XLA becomes this mask).
@@ -60,94 +66,7 @@
 namespace fastscnn {
 namespace {
 
-constexpr int kThreads = 256;  // B8: 16 x 16 threads, each a 4 x 4 tile of outputs
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 64;
-
-// Store the 4 x 4 epilogue values of one thread: t = acc + b, [ReLU], then
-// bf16 or clip(round(t), -127, 127) int8 (rintf rounds half to even, as
-// jnp.round and torch.round).
-__device__ __forceinline__ void store_epilogue(void* out, float t, int64_t idx, int relu,
-                                               int qout) {
-  if (relu) t = fmaxf(t, 0.f);
-  if (qout) {
-    static_cast<int8_t*>(out)[idx] = (int8_t)fminf(fmaxf(rintf(t), -127.f), 127.f);
-  } else {
-    static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16(t);
-  }
-}
-
-// B8: int8 x int8 -> int32 with __dp4a. xs holds the activation chunk as
-// packed int32 (4 consecutive k of a row), ws the weight chunk packed the
-// same way along k for each output column.
-__global__ void __launch_bounds__(kThreads)
-pw_w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ cs, const float* __restrict__ b, void* __restrict__ out,
-               int M, int K, int N, int relu, int qout) {
-  constexpr int kK4 = kBK / 4;
-  __shared__ __align__(16) int xs[kBM][kK4 + 4];  // +4 keeps rows 16-byte aligned, staggers banks
-  __shared__ __align__(16) int ws[kK4][kBN];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  int acc[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kK4; i += kThreads) {
-      const int r = i / kK4, k4 = i % kK4;
-      const int m = m0 + r, k = k0 + 4 * k4;
-      xs[r][k4] = (m < M && k < K) ? *reinterpret_cast<const int*>(x + (int64_t)m * K + k) : 0;
-    }
-    for (int i = threadIdx.x; i < kK4 * kBN; i += kThreads) {
-      const int k4 = i / kBN, c = i % kBN;
-      const int n = n0 + c, k = k0 + 4 * k4;
-      int v = 0;
-      if (n < N && k < K) {
-        const int8_t* p = w + (int64_t)k * N + n;
-        v = (int)((uint32_t)(uint8_t)p[0] | ((uint32_t)(uint8_t)p[N] << 8) |
-                  ((uint32_t)(uint8_t)p[2 * N] << 16) | ((uint32_t)(uint8_t)p[3 * N] << 24));
-      }
-      ws[k4][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k4 = 0; k4 < kK4; k4 += 4) {
-      int4 a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const int4*>(&xs[ty * 4 + i][k4]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int4 bq = *reinterpret_cast<const int4*>(&ws[k4 + q][tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
-          acc[i][0] = __dp4a(av, bq.x, acc[i][0]);
-          acc[i][1] = __dp4a(av, bq.y, acc[i][1]);
-          acc[i][2] = __dp4a(av, bq.z, acc[i][2]);
-          acc[i][3] = __dp4a(av, bq.w, acc[i][3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N)
-        store_epilogue(out, __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), cs[n]), b[n]),
-                       (int64_t)m * N + n, relu, qout);
-    }
-  }
-}
-
-// ---- B7 on the tensor cores ----------------------------------------------
+// ---- the mma, copy and epilogue pieces; B7 --------------------------------------
 constexpr int kA8Pad = 8;  // bf16 of padding a shared-memory row (16 bytes)
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
@@ -230,6 +149,68 @@ __device__ __forceinline__ void write_tile(const TO* so, int os, TO* __restrict_
     } else {
       for (int e = 0; e < kPer && n + e < N; ++e) dst[e] = so[r * os + c + e];
     }
+  }
+}
+
+// The epilogue of a BM x BN block tile. Warp (wm, wn) holds the f32 values
+// t[mi][ni][.] of its (BM / WARPS_M) x (BN / WARPS_N) tile, at rows
+// lane / 4 (+ 8) and columns 2 (lane % 4) (+ 1) of each 16 x 8 mma tile:
+// __fadd_rn(t, b[n]) (b f32, or bf16 when b_bf16), [ReLU], then bf16 or
+// clip(rint(.), +-127) int8, staged in smem (which the caller has freed
+// and synchronised) and written to out by write_tile.
+template <int BM, int BN, int WARPS_M, int WARPS_N>
+__device__ __forceinline__ void epilogue(const float (&t)[BM / WARPS_M / 16][BN / WARPS_N / 8][4],
+                                         const void* __restrict__ b, int b_bf16,
+                                         void* __restrict__ out, unsigned char* smem, int m0,
+                                         int n0, int M, int N, int relu, int qout, int vec_out) {
+  constexpr int kWM = BM / WARPS_M, kWN = BN / WARPS_N, kMI = kWM / 16, kNI = kWN / 8;
+  constexpr int kT = WARPS_M * WARPS_N * 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  float bias[kNI][2];
+#pragma unroll
+  for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + wn * kWN + ni * 8 + 2 * (lane % 4) + e;
+      bias[ni][e] = n >= N ? 0.f : weight_at(b, b_bf16, n);
+    }
+  const int r0 = wm * kWM + lane / 4, c0 = wn * kWN + 2 * (lane % 4);
+  if (qout) {
+    constexpr int kOS = BN + 16;  // int8 row: 16 bytes of padding
+    int8_t* so = reinterpret_cast<int8_t*>(smem);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float t0 = __fadd_rn(t[mi][ni][2 * h], bias[ni][0]);
+          float t1 = __fadd_rn(t[mi][ni][2 * h + 1], bias[ni][1]);
+          if (relu) t0 = fmaxf(t0, 0.f), t1 = fmaxf(t1, 0.f);
+          *reinterpret_cast<char2*>(so + (r0 + mi * 16 + 8 * h) * kOS + c0 + ni * 8) =
+              make_char2(requantize(t0), requantize(t1));
+        }
+    __syncthreads();
+    write_tile<int8_t, BM, BN>(so, kOS, static_cast<int8_t*>(out), m0, n0, M, N, vec_out, tid, kT);
+  } else {
+    constexpr int kOS = BN + kA8Pad;
+    __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float t0 = __fadd_rn(t[mi][ni][2 * h], bias[ni][0]);
+          float t1 = __fadd_rn(t[mi][ni][2 * h + 1], bias[ni][1]);
+          if (relu) t0 = fmaxf(t0, 0.f), t1 = fmaxf(t1, 0.f);
+          *reinterpret_cast<unsigned*>(so + (r0 + mi * 16 + 8 * h) * kOS + c0 + ni * 8) =
+              bf16x2_bits(t0, t1);
+        }
+    __syncthreads();
+    write_tile<__nv_bfloat16, BM, BN>(so, kOS, static_cast<__nv_bfloat16*>(out), m0, n0, M, N,
+                                      vec_out, tid, kT);
   }
 }
 
@@ -354,56 +335,7 @@ pw_a8_mma_kernel(const int8_t* __restrict__ x, const __nv_bfloat16* __restrict__
     }
   }
   __syncthreads();  // every warp is done with the ring before the epilogue reuses it
-
-  // epilogue: a thread's sums sit at rows lane / 4 (+ 8) and columns
-  // 2 (lane % 4) (+ 1) of each 16 x 8 tile
-  float bias[kNI][2];
-#pragma unroll
-  for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = n0 + wn * Tile::kWN + ni * 8 + 2 * (lane % 4) + e;
-      bias[ni][e] = n >= N ? 0.f
-                           : b_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(b)[n])
-                                    : static_cast<const float*>(b)[n];
-    }
-  const int r0 = wm * Tile::kWM + lane / 4, c0 = wn * Tile::kWN + 2 * (lane % 4);
-  if (qout) {
-    constexpr int kOS = BN + 16;  // int8 row: 16 bytes of padding
-    int8_t* so = reinterpret_cast<int8_t*>(smem);
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float t0 = __fadd_rn(acc[mi][ni][2 * h], bias[ni][0]);
-          float t1 = __fadd_rn(acc[mi][ni][2 * h + 1], bias[ni][1]);
-          if (relu) t0 = fmaxf(t0, 0.f), t1 = fmaxf(t1, 0.f);
-          *reinterpret_cast<char2*>(so + (r0 + mi * 16 + 8 * h) * kOS + c0 + ni * 8) =
-              make_char2(requantize(t0), requantize(t1));
-        }
-    __syncthreads();
-    write_tile<int8_t, BM, BN>(so, kOS, static_cast<int8_t*>(out), m0, n0, M, N, vec_out, tid, kT);
-  } else {
-    constexpr int kOS = BN + kA8Pad;
-    __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float t0 = __fadd_rn(acc[mi][ni][2 * h], bias[ni][0]);
-          float t1 = __fadd_rn(acc[mi][ni][2 * h + 1], bias[ni][1]);
-          if (relu) t0 = fmaxf(t0, 0.f), t1 = fmaxf(t1, 0.f);
-          *reinterpret_cast<unsigned*>(so + (r0 + mi * 16 + 8 * h) * kOS + c0 + ni * 8) =
-              bf16x2_bits(t0, t1);
-        }
-    __syncthreads();
-    write_tile<__nv_bfloat16, BM, BN>(so, kOS, static_cast<__nv_bfloat16*>(out), m0, n0, M, N,
-                                      vec_out, tid, kT);
-  }
+  epilogue<BM, BN, WARPS_M, WARPS_N>(acc, b, b_bf16, out, smem, m0, n0, M, N, relu, qout, vec_out);
 }
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, int BK, int STAGES, int AVEC, bool WVEC>
@@ -442,23 +374,268 @@ int launch_a8(const void* x, const void* w, const void* b, int b_bf16, void* out
   return (int)cudaErrorInvalidValue;
 }
 
-dim3 grid_for(int m, int n) { return dim3((n + kBN - 1) / kBN, (m + kBM - 1) / kBM); }
+
+// ---- B8 on the int8 tensor cores ---------------------------------------------
+constexpr int kW8Pad = 16;  // bytes of padding a shared-memory row of k
+
+// d += a (16 x 32, row-major s8) * b (32 x 8, s8, each column's k
+// contiguous), s32 sums
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The shapes of one B8 block tile: BM x BN outputs, WARPS_M x WARPS_N
+// warps, K in chunks of BK bytes through a ring of STAGES stages.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int BK, int STAGES>
+struct W8Tile {
+  static constexpr int kThreads = WARPS_M * WARPS_N * 32;
+  static constexpr int kWM = BM / WARPS_M, kWN = BN / WARPS_N;  // a warp's tile
+  static constexpr int kMI = kWM / 16, kNI = kWN / 8;            // its mma tiles
+  static constexpr int kRS = BK + kW8Pad;  // a row of k: activations, transposed weights
+  static constexpr int kSegs = BN / 16;    // 16-byte segments of a raw weight row
+  static constexpr int kABytes = STAGES * BM * kRS;  // activations, [STAGES][BM][kRS]
+  static constexpr int kRawBytes = STAGES * BK * BN;  // weights as stored, [STAGES][BK][BN]
+  static constexpr int kWTBytes = 2 * BN * kRS;       // transposed weights, [2][BN][kRS]
+  static constexpr int kPipeBytes = kABytes + kRawBytes + kWTBytes;
+  static constexpr int kOutBytes = BM * (BN + kA8Pad) * 2;  // the bf16 output tile
+  static constexpr int kSmem = kPipeBytes > kOutBytes ? kPipeBytes : kOutBytes;
+};
+
+// Where byte c of raw weight row kr lies: 16-byte segment c / 16 goes to
+// segment (c / 16) ^ ((kr / 4) % SEGS), so that the transpose's reads of
+// one word from each of 4-row groups fall in different banks.
+template <int BN>
+__device__ __forceinline__ int raw_at(int kr, int c) {
+  constexpr int kSegs = BN / 16;
+  return kr * BN + ((((c >> 4) ^ (kr >> 2)) & (kSegs - 1)) << 4) + (c & 15);
+}
+
+// B8: grid (N tiles, M tiles). AVEC: bytes of one activation copy (16, or
+// 4 where K % 16 or the pointer forbids 16); WVEC: the weight chunk by
+// 16-byte cp.async (N % 16 == 0, aligned), else element by element.
+//
+// Chunk c's copies are started STAGES - 1 chunks ahead. In iteration c the
+// block waits for chunk c + 1, transposes its weights into buffer
+// (c + 1) % 2, and runs chunk c's mmas from activation stage c % STAGES
+// and transposed buffer c % 2: one __syncthreads an iteration, and every
+// copy and transpose overlaps the mmas of an earlier chunk.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int BK, int STAGES, int AVEC, bool WVEC>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
+pw_w8a8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ cs, const void* __restrict__ b, int b_bf16,
+                   void* __restrict__ out, int M, int K, int N, int relu, int qout, int vec_out) {
+  using Tile = W8Tile<BM, BN, WARPS_M, WARPS_N, BK, STAGES>;
+  constexpr int kT = Tile::kThreads;
+  constexpr int kMI = Tile::kMI, kNI = Tile::kNI, kRS = Tile::kRS;
+  static_assert(kMI >= 1 && kNI % 2 == 0 && BK % 32 == 0 && STAGES >= 3 && BN % 32 == 0,
+                "B8 tile");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* s_a = reinterpret_cast<int8_t*>(smem);
+  int8_t* s_raw = s_a + Tile::kABytes;
+  int8_t* s_wt = s_raw + Tile::kRawBytes;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nk = (K + BK - 1) / BK;
+
+  auto fetch = [&](int c) {  // chunk c's copies into stage c % STAGES
+    const int stage = c % STAGES, k0 = c * BK;
+    constexpr int kRowSegs = BK / AVEC, kSegs = BM * kRowSegs;
+    int8_t* a = s_a + stage * BM * kRS;
+    for (int s = tid; s < kSegs; s += kT) {
+      const int r = s / kRowSegs, kk = (s % kRowSegs) * AVEC;
+      const int m = m0 + r, k = k0 + kk;
+      const bool ok = m < M && k < K;
+      cp_async<AVEC>(smem_addr(a + r * kRS + kk), ok ? x + (int64_t)m * K + k : x,
+                     ok ? AVEC : 0);
+    }
+    int8_t* raw = s_raw + stage * BK * BN;
+    if constexpr (WVEC) {
+      constexpr int kWSegs = BK * Tile::kSegs;
+      for (int s = tid; s < kWSegs; s += kT) {
+        const int kr = s / Tile::kSegs, c16 = (s % Tile::kSegs) * 16;
+        const int k = k0 + kr, n = n0 + c16;
+        const bool ok = k < K && n < N;
+        cp_async<16>(smem_addr(raw + raw_at<BN>(kr, c16)), ok ? w + (int64_t)k * N + n : w,
+                     ok ? 16 : 0);
+      }
+    } else {
+      for (int s = tid; s < BK * BN; s += kT) {
+        const int kr = s / BN, cc = s % BN;
+        const int k = k0 + kr, n = n0 + cc;
+        raw[raw_at<BN>(kr, cc)] = (k < K && n < N) ? w[(int64_t)k * N + n] : int8_t(0);
+      }
+    }
+  };
+  // chunk c's raw weights (k rows of n) into transposed buffer c % 2 (n
+  // rows of k), a 4 k x 4 n block a thread: word i of the raw block holds
+  // the 4 n of k row i, word j of the result the 4 k of column j
+  auto transpose = [&](int c) {
+    const int8_t* raw = s_raw + (c % STAGES) * BK * BN;
+    int8_t* wt = s_wt + (c & 1) * BN * kRS;
+    constexpr int kKB = BK / 4, kBlocks = kKB * (BN / 4);
+    for (int s = tid; s < kBlocks; s += kT) {
+      const int kb = s % kKB, ng = s / kKB;
+      unsigned r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[i] = *reinterpret_cast<const unsigned*>(raw + raw_at<BN>(4 * kb + i, 4 * ng));
+      const unsigned t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+      const unsigned t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+      int8_t* dst = wt + 4 * ng * kRS + 4 * kb;
+      *reinterpret_cast<unsigned*>(dst) = __byte_perm(t0, t1, 0x5410);
+      *reinterpret_cast<unsigned*>(dst + kRS) = __byte_perm(t0, t1, 0x7632);
+      *reinterpret_cast<unsigned*>(dst + 2 * kRS) = __byte_perm(t2, t3, 0x5410);
+      *reinterpret_cast<unsigned*>(dst + 3 * kRS) = __byte_perm(t2, t3, 0x7632);
+    }
+  };
+
+  int acc[kMI][kNI][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < nk) fetch(c);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 2>();  // chunk 0
+  __syncthreads();
+  transpose(0);
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<STAGES - 3>();  // chunks up to kc + 1
+    __syncthreads();
+    if (kc + STAGES - 1 < nk) fetch(kc + STAGES - 1);  // into the stage chunk kc - 1 used
+    cp_async_commit();
+    if (kc + 1 < nk) transpose(kc + 1);
+    // A: rows lane % 16, k bytes (lane / 16) * 16 (the four 8 x 16-byte
+    // matrices of a 16 x 32 tile, in fragment order). B: columns lane % 8
+    // (+ 8 from lane 16), k bytes ((lane / 8) % 2) * 16, so that an x4
+    // gives k 0-15 and 16-31 of two n-tiles
+    const int8_t* a_s = s_a + (kc % STAGES) * BM * kRS + (wm * Tile::kWM + lane % 16) * kRS +
+                        (lane / 16) * 16;
+    const int8_t* b_s = s_wt + (kc & 1) * BN * kRS +
+                        (wn * Tile::kWN + lane % 8 + (lane / 16) * 8) * kRS +
+                        ((lane / 8) % 2) * 16;
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 32) {
+      unsigned af[kMI][4];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) ldsm_x4(af[mi], smem_addr(a_s + mi * 16 * kRS + ks));
+      unsigned bf[kNI][2];
+#pragma unroll
+      for (int nj = 0; nj < kNI / 2; ++nj) {
+        unsigned r[4];
+        ldsm_x4(r, smem_addr(b_s + nj * 16 * kRS + ks));
+        bf[2 * nj][0] = r[0];
+        bf[2 * nj][1] = r[1];
+        bf[2 * nj + 1][0] = r[2];
+        bf[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) mma_s8_16832(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+    }
+  }
+  __syncthreads();  // every warp is done with the ring before the epilogue reuses it
+
+  // the exact int32 sums to f32, times the column's scale (a thread's
+  // columns 2 (lane % 4) (+ 1) of each 16 x 8 tile)
+  float t[kMI][kNI][4];
+#pragma unroll
+  for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + wn * Tile::kWN + ni * 8 + 2 * (lane % 4) + e;
+      const float scale = n < N ? cs[n] : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          t[mi][ni][2 * h + e] = __fmul_rn(__int2float_rn(acc[mi][ni][2 * h + e]), scale);
+    }
+  epilogue<BM, BN, WARPS_M, WARPS_N>(t, b, b_bf16, out, smem, m0, n0, M, N, relu, qout, vec_out);
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int BK, int STAGES, int AVEC, bool WVEC>
+int launch_w8a8_kernel(dim3 grid, const int8_t* x, const int8_t* w, const float* cs,
+                       const void* b, int b_bf16, void* out, int m, int k, int n, int relu,
+                       int qout, int vec_out, cudaStream_t s) {
+  using Tile = W8Tile<BM, BN, WARPS_M, WARPS_N, BK, STAGES>;
+  auto* kernel = pw_w8a8_mma_kernel<BM, BN, WARPS_M, WARPS_N, BK, STAGES, AVEC, WVEC>;
+  static bool attribute_set = false;  // once per instantiation and process
+  if (Tile::kSmem > 48 * 1024 && !attribute_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    attribute_set = true;
+  }
+  kernel<<<grid, Tile::kThreads, Tile::kSmem, s>>>(x, w, cs, b, b_bf16, out, m, k, n, relu, qout,
+                                                    vec_out);
+  return (int)cudaGetLastError();
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int BK, int STAGES>
+int launch_w8a8(const void* x, const void* w, const void* cs, const void* b, int b_bf16,
+                void* out, int m, int k, int n, int relu, int qout, int avec, int wvec,
+                int vec_out, cudaStream_t s) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const int8_t* xp = static_cast<const int8_t*>(x);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  const float* csp = static_cast<const float*>(cs);
+#define FASTSCNN_W8(AV, WV)                                                                  \
+  return launch_w8a8_kernel<BM, BN, WARPS_M, WARPS_N, BK, STAGES, AV, WV>(                    \
+      grid, xp, wp, csp, b, b_bf16, out, m, k, n, relu, qout, vec_out, s)
+  if (avec == 16 && wvec) FASTSCNN_W8(16, true);
+  if (avec == 16) FASTSCNN_W8(16, false);
+  if (avec == 4 && wvec) FASTSCNN_W8(4, true);
+  if (avec == 4) FASTSCNN_W8(4, false);
+#undef FASTSCNN_W8
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 }  // namespace fastscnn
 
 using namespace fastscnn;
 
-// x (m, k) int8, k % 4 == 0 and 4-byte aligned rows; w (k, n) int8; cs, b
-// (n) f32; out (m, n) bf16, or int8 when qout.
-extern "C" int fastscnn_pw_conv_w8a8(const void* x, const void* w, const void* cs, const void* b,
-                                     void* out, int m, int k, int n, int relu, int qout,
+// x (m, k) int8, k % 4 == 0, 4-byte aligned rows (16-byte when avec is
+// 16); w (k, n) int8, 16-byte aligned rows when wvec; cs (n) f32; b (n) f32
+// or bf16 (b_dtype); out (m, n) bf16, or int8 when qout. tile: the block
+// tile of ops/cuda/int8_pw.py::pw_w8a8_plan, 0 = 128 x 128 (K in 3 stages
+// of 64), 1 = 64 x 64 (4 stages of 64), 2 = 32 x 32 (4 stages of 128, for
+// the long-K sites, whose M = 2,048 or 8,192 and N <= 128 give few
+// blocks), 3 = 128 x 64 (4 stages of 32, for the long-M, short-K sites,
+// which stream their bytes).
+extern "C" int fastscnn_pw_conv_w8a8(const void* x, const void* w, const void* cs, int b_dtype,
+                                     const void* b, void* out, int m, int k, int n, int relu,
+                                     int qout, int tile, int avec, int wvec, int vec_out,
                                      void* stream) {
-  if (k % 4 != 0 || (m + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
-  pw_w8a8_kernel<<<grid_for(m, n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(cs),
-      static_cast<const float*>(b), out, m, k, n, relu, qout);
-  return (int)cudaGetLastError();
+  if (k <= 0 || k % 4 != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int b_bf16 = b_dtype == kBF16;
+#define FASTSCNN_TILE(BM, BN, WM, WN, BK, STAGES)                                            \
+  return launch_w8a8<BM, BN, WM, WN, BK, STAGES>(x, w, cs, b, b_bf16, out, m, k, n, relu, qout, \
+                                                 avec, wvec, vec_out, s)
+  switch (tile) {
+    case 0: FASTSCNN_TILE(128, 128, 2, 4, 64, 3);
+    case 1: FASTSCNN_TILE(64, 64, 2, 2, 64, 4);
+    case 2: FASTSCNN_TILE(32, 32, 2, 2, 128, 4);
+    case 3: FASTSCNN_TILE(128, 64, 4, 1, 32, 4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FASTSCNN_TILE
 }
 
 // x (m, k) int8 as above, 16-byte aligned rows when avec is 16; w (k, n)

@@ -13,9 +13,11 @@ Counterpart of ``fastscnn_tpu/ops/pallas/int8_pw.py``:
 
 A 1×1 conv over NHWC is a matmul on the ``(N·H·W, K)`` view, so both take
 NHWC or pre-flattened 2-D int8 input. The kernels (``csrc/int8_pw.cu``)
-compute the product in their own bodies; no library GEMM is on the path
-(B7 runs the tensor cores' ``mma`` itself, B8 ``__dp4a`` on the CUDA
-cores).
+compute the product in their own bodies on the tensor cores, through one
+``cp.async`` pipeline; no library GEMM is on the path. B7 widens its int8
+activations to bf16 for ``mma.sync`` m16n8k16 (f32 sums); B8 feeds both
+int8 operands to ``mma.sync`` m16n8k32 (s32 sums), its row-major weight
+chunk transposed in shared memory one chunk ahead of the mmas that read it.
 The JAX package's TPU tiling (``use_pallas``, ``block_m``, ``interpret``
 and its XLA fallback for ``M % 32 != 0``) has no counterpart: the kernels
 take every M and mask the ragged last tile. They need ``K % 4 == 0`` (four
@@ -49,6 +51,7 @@ __all__ = [
     "pw_conv_a8_tolerance",
     "pw_conv_w8a8_reference",
     "pw_a8_plan",
+    "pw_w8a8_plan",
 ]
 
 
@@ -152,9 +155,10 @@ _PW_A8_RESIDENT = (2, 3, 2)
 _SMS = 132
 
 
-class PwA8Plan(NamedTuple):
-    """Launch plan of B7's kernel (see :func:`pw_a8_plan`)."""
-    tile: int              # index into PW_A8_TILES
+class PwPlan(NamedTuple):
+    """Launch plan of B7's or B8's kernel (see :func:`pw_a8_plan` and
+    :func:`pw_w8a8_plan`)."""
+    tile: int              # index into PW_A8_TILES or PW_W8A8_TILES
     bm: int                # output rows a block
     bn: int                # output columns a block
     threads: int
@@ -162,7 +166,7 @@ class PwA8Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def pw_a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwA8Plan:
+def pw_a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwPlan:
     """Launch plan of B7's kernel: the largest block tile of
     :data:`PW_A8_TILES` whose grid fills at least 0.6 of one wave of the
     blocks of that tile the SMs hold, else the smallest tile (the rule of
@@ -187,7 +191,54 @@ def pw_a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwA8Plan:
     grid = (-(-n // bn), -(-m // bm))
     if grid[1] > 65535:
         raise ValueError(f"pw_a8_plan: M={m} needs more than 65,535 row tiles of {bm}")
-    return PwA8Plan(tile, bm, bn, threads, grid)
+    return PwPlan(tile, bm, bn, threads, grid)
+
+
+# -- B8's launch plan (csrc/int8_pw.cu, pw_w8a8_mma_kernel) -------------------
+# the block tiles the kernel is built for: (BM, BN, threads); 32 x 32 for the
+# long-K sites at M = 2,048 (N <= 128, where 64 x 64 gives 64 blocks), 128 x 64
+# for the long-M, short-K sites, which stream their bytes
+PW_W8A8_TILES = ((128, 128, 256), (64, 64, 128), (32, 32, 128), (128, 64, 128))
+# the fewest blocks at which the plan takes the 128 x 128 tile (0.6 of the
+# two blocks each of the 132 SMs holds, by registers) and 64 x 64 (one
+# wave of one block an SM, less the 3 % that 128 blocks leave idle);
+# chip_smoke.py --tune-pw prints the kernels' registers and times every
+# tile at a frame's sites
+_PW_W8A8_MIN_BLOCKS = (158, 128)
+_STREAM_TILE = 3
+
+
+@functools.lru_cache(maxsize=256)
+def pw_w8a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwPlan:
+    """Launch plan of B8's kernel. A site with K and N both at most 64 (the
+    LTD's 1×1s, 131,072 × 32 × 48 and 32,768 × 48 × 64 at a 1024×2048
+    frame) does little arithmetic a byte and streams: the 128 × 64 tile,
+    K in chunks of 32. Every other site takes the first of 128 × 128 and
+    64 × 64 whose grid has at least 158 and 128 blocks, else 32 × 32 (K in
+    chunks of 128). At a 1024×2048 frame that is 128 × 128 at the M =
+    32,768 sites and at M = 8,192 with N = 384, 64 × 64 at M = 8,192 with
+    N = 64 and at M = 2,048 with N of 576 or more, 32 × 32 at the other
+    M = 2,048 sites: at least 128 blocks at every site. ``tile`` may be
+    given to time alternatives. A pure function of the shape."""
+    if k < 1 or m < 1 or n < 1:
+        raise ValueError(f"pw_w8a8_plan: empty product ({m}x{k})x({k}x{n})")
+    if tile is None:
+        if k <= 64 and n <= 64:
+            tile = _STREAM_TILE
+        else:
+            tile = 2
+            for i, least in enumerate(_PW_W8A8_MIN_BLOCKS):
+                bm, bn, _ = PW_W8A8_TILES[i]
+                if -(-m // bm) * -(-n // bn) >= least:
+                    tile = i
+                    break
+    if not 0 <= tile < len(PW_W8A8_TILES):
+        raise ValueError(f"pw_w8a8_plan: no tile {tile}")
+    bm, bn, threads = PW_W8A8_TILES[tile]
+    grid = (-(-n // bn), -(-m // bm))
+    if grid[1] > 65535:
+        raise ValueError(f"pw_w8a8_plan: M={m} needs more than 65,535 row tiles of {bm}")
+    return PwPlan(tile, bm, bn, threads, grid)
 
 
 def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False, tile=None):
@@ -229,12 +280,23 @@ def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False, tile=None):
 pw_conv_a8.launches = 0
 
 
-def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False):
+def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False, tile=None):
     """Pointwise conv with both operands int8 (B8).
 
-    ``w_q`` int8 ``(K, N)``; ``cs`` ``(N,)`` f32, the combined
-    per-channel scale ``s_x · s_w[c]`` (÷ ``s_y`` when ``quantize_out``);
-    ``b_eff`` as in :func:`pw_conv_a8`. Returns bf16 or int8 as there."""
+    ``w_q`` int8 ``(K, N)``, row-major as the model folds it; ``cs``
+    ``(N,)`` f32, the combined per-channel scale ``s_x · s_w[c]`` (÷ ``s_y``
+    when ``quantize_out``); ``b_eff`` ``(N,)``, read by the kernel in its
+    stored dtype (f32 or bf16; another dtype goes in as f32). Returns bf16,
+    or int8 when ``quantize_out``, shaped like ``x_q`` with N channels.
+    ``tile`` overrides the launch plan's block tile (:func:`pw_w8a8_plan`).
+
+    The kernel runs on the int8 tensor cores (``mma.sync`` m16n8k32, s32
+    sums), with the activations and the weight chunks brought in by
+    ``cp.async`` through a ring of shared-memory stages and each weight
+    chunk transposed there (each output channel's k contiguous, the
+    layout the mma's second operand wants). Its integer sums are exact in
+    any order and its epilogue is the plain version's operations, so the
+    two agree bit for bit."""
     k, n = w_q.shape
     if w_q.dtype != torch.int8:
         raise ValueError(f"pw_conv_w8a8 needs int8 weights, got {w_q.dtype}")
@@ -245,13 +307,21 @@ def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False):
     _check_launch(x2, w_q, "pw_conv_w8a8")
     m = x2.shape[0]
     w = w_q.contiguous()
-    scale = cs.float().contiguous()
-    b = b_eff.float().contiguous()
+    scale = cs.float().contiguous()  # the model's cs is f32 already: no copy
+    b = (b_eff if b_eff.dtype in _DTYPE_CODE else b_eff.float()).contiguous()
+    for name, t in (("scale", scale), ("bias", b)):
+        if t.device != x2.device:
+            raise ValueError(f"pw_conv_w8a8: {name} on {t.device}, activations on {x2.device}")
     out = torch.empty((m, n), dtype=torch.int8 if quantize_out else torch.bfloat16,
                       device=x2.device)
+    plan = pw_w8a8_plan(m, k, n, tile)
+    avec = 16 if k % 16 == 0 and x2.data_ptr() % 16 == 0 else 4
+    wvec = n % 16 == 0 and w.data_ptr() % 16 == 0
+    vec_out = n % (16 // out.element_size()) == 0 and out.data_ptr() % 16 == 0
     rc = library("int8_pw").fastscnn_pw_conv_w8a8(
-        x2.data_ptr(), w.data_ptr(), scale.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
-        int(relu), int(quantize_out), torch.cuda.current_stream(x2.device).cuda_stream,
+        x2.data_ptr(), w.data_ptr(), scale.data_ptr(), _DTYPE_CODE[b.dtype], b.data_ptr(),
+        out.data_ptr(), m, k, n, int(relu), int(quantize_out), plan.tile, avec, int(wvec),
+        int(vec_out), torch.cuda.current_stream(x2.device).cuda_stream,
     )
     check(rc, "pw_conv_w8a8")
     pw_conv_w8a8.launches += 1

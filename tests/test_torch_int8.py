@@ -52,7 +52,12 @@ from fastscnn_tpu_torch.ops.cuda import (
     pw_conv_w8a8,
     quantize_act,
 )
-from fastscnn_tpu_torch.ops.cuda.int8_pw import PW_A8_TILES, pw_a8_plan
+from fastscnn_tpu_torch.ops.cuda.int8_pw import (
+    PW_A8_TILES,
+    PW_W8A8_TILES,
+    pw_a8_plan,
+    pw_w8a8_plan,
+)
 
 _ULP_BF16 = 2.0**-7
 
@@ -131,6 +136,24 @@ def test_pw_conv_w8a8_bit_equal_to_jax(rng, m_shape, k, n, relu, quantize_out):
     args = tuple(jnp.asarray(a) for a in (x_q, w_q, cs, b))
     for interpret in (False, True):  # XLA path, then the Pallas kernel body interpreted
         ref = jax_int8.pw_conv_w8a8(*args, relu=relu, quantize_out=quantize_out,
+                                    interpret=interpret)
+        np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize("quantize_out", [False, True])
+@pytest.mark.parametrize("m_shape,k,n", _W8A8_SHAPES)
+def test_pw_conv_w8a8_bf16_bias_bit_equal_to_jax(rng, m_shape, k, n, quantize_out):
+    """A bias stored in bf16, as the kernel reads it without a cast: the
+    plain version's ``acc · cs + b`` in f32 with b widened exactly, the JAX
+    function's likewise, through its XLA path and its Pallas kernel."""
+    x_q, w_q, cs, b = _w8a8_inputs(rng, m_shape, k, n)
+    b16 = torch.from_numpy(b * 8).to(torch.bfloat16)
+    got = pw_conv_w8a8(*(torch.from_numpy(a) for a in (x_q, w_q, cs)), b16,
+                       relu=not quantize_out, quantize_out=quantize_out)
+    args = tuple(jnp.asarray(a) for a in (x_q, w_q, cs)) + (jnp.asarray(b16.float().numpy(),
+                                                                        jnp.bfloat16),)
+    for interpret in (False, True):
+        ref = jax_int8.pw_conv_w8a8(*args, relu=not quantize_out, quantize_out=quantize_out,
                                     interpret=interpret)
         np.testing.assert_array_equal(_np(got), _np(ref))
 
@@ -292,6 +315,53 @@ def test_pw_a8_plan_refuses_what_the_kernel_does_not_build():
         pw_a8_plan(0, 32, 64)
     with pytest.raises(ValueError, match="row tiles"):
         pw_a8_plan(32 * 65536, 32, 64, tile=2)
+
+
+# config D's 25 int8 sites: config C's 23 and the LTD's two 1x1s, which C
+# runs inside B5
+_D_SITES = {**_FRAME_SITES, "ltd/dsconv1/pw": (131072, 32, 48),
+            "ltd/dsconv2/pw": (32768, 48, 64)}
+
+
+def test_config_d_has_25_sites():
+    assert len(_D_SITES) == 25 and set(_D_SITES) >= set(_FRAME_SITES)
+
+
+@pytest.mark.parametrize("site", sorted(_D_SITES))
+def test_pw_w8a8_plan_at_config_ds_sites(site):
+    """B8's plan: a block tile the kernel is built for, a grid whose tiles
+    cover M and N once, at least 128 blocks (one block for 97 % of the
+    H100's 132 SMs: the 64 × 64 tile at M = 8,192 with N = 64; 192 or more
+    elsewhere), the streaming 128 × 64 tile at the LTD's short-K sites,
+    128 × 128 at M = 32,768 and at M = 8,192 with N = 384, 64 × 64 at
+    M = 8,192 with N = 64 and at M = 2,048 with N of 576 or more, 32 × 32
+    elsewhere. A function of the shape alone."""
+    m, k, n = _D_SITES[site]
+    plan = pw_w8a8_plan(m, k, n)
+    assert plan == pw_w8a8_plan.__wrapped__(m, k, n)
+    assert (plan.bm, plan.bn, plan.threads) == PW_W8A8_TILES[plan.tile]
+    gx, gy = plan.grid
+    assert (gx - 1) * plan.bn < n <= gx * plan.bn and (gy - 1) * plan.bm < m <= gy * plan.bm
+    assert gx * gy >= (128 if (m, n) == (8192, 64) else 192) and gy <= 65535
+    if site.startswith("ltd/"):
+        want = 3
+    else:
+        want = {32768: 0, 8192: 0 if n == 384 else 1, 2048: 1 if n >= 576 else 2}[m]
+    assert plan.tile == want
+    assert pw_w8a8_plan(m, k, n, tile=2).grid == (-(-n // 32), -(-m // 32))
+
+
+def test_pw_w8a8_plan_refuses_what_the_kernel_does_not_build():
+    """Only the four block tiles are built, and an empty product has no
+    plan."""
+    with pytest.raises(ValueError, match="no tile"):
+        pw_w8a8_plan(64, 32, 64, tile=4)
+    with pytest.raises(ValueError, match="no tile"):
+        pw_w8a8_plan(64, 32, 64, tile=-1)
+    with pytest.raises(ValueError, match="empty"):
+        pw_w8a8_plan(64, 0, 64)
+    with pytest.raises(ValueError, match="row tiles"):
+        pw_w8a8_plan(128 * 65536, 32, 48)
 
 
 def test_int8_wrappers_refuse_other_devices_and_bad_args():

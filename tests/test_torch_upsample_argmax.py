@@ -18,7 +18,13 @@ import pytest
 import torch
 
 from fastscnn_tpu_torch.ops.cuda import h_lerp_argmax, upsample_argmax, w_matmul_h_lerp_argmax
-from fastscnn_tpu_torch.ops.cuda.upsample_argmax import _matmul_h
+from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (
+    H_LERP_TILES,
+    _matmul_h,
+    h_lerp_plan,
+    h_lerp_strips,
+)
+from fastscnn_tpu_torch.ops.resize import lerp_tables
 from fastscnn_tpu_torch.ops.resize import resize_bilinear
 
 NEAR_TIE = 1e-5
@@ -118,3 +124,80 @@ def test_mask_head_wrappers_refuse_other_devices():
         upsample_argmax(torch.empty((1, 4, 4, 3), device="meta"), (8, 8))
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         h_lerp_argmax(torch.empty((1, 4, 3, 8), device="meta"), 8)
+
+
+# -- B2's launch plan ------------------------------------------------------------
+def _check_h_lerp_plan(plan, n, h, c, out_h, w, itemsize, align_corners):
+    """Every output row in exactly one strip; each strip's staged source rows
+    hold [hlo, hhi] of each of its rows, at most ``plan.staged`` of them;
+    the staged planes fit the block's shared memory; the grid covers W."""
+    lo, hi, _ = (t.numpy() for t in lerp_tables(h, out_h, align_corners, torch.device("cpu")))
+    strips = h_lerp_strips(h, out_h, align_corners, plan.rows)
+    assert len(strips) == plan.grid[1] and plan.grid[2] == n
+    covered = np.zeros(out_h, np.int64)
+    for y0, y1, s0, s1 in strips:
+        covered[y0:y1] += 1
+        assert 1 <= y1 - y0 <= plan.rows
+        assert s1 - s0 <= plan.staged
+        assert np.all(lo[y0:y1] >= s0) and np.all(hi[y0:y1] < s1)
+    assert np.all(covered == 1)
+    assert plan.smem == plan.staged * c * plan.tile * itemsize <= 227 * 1024
+    assert plan.tile in H_LERP_TILES
+    assert (plan.grid[0] - 1) * plan.tile < w <= plan.grid[0] * plan.tile
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("c", [2, 3, 19])
+@pytest.mark.parametrize("w", [2048, 2000])
+def test_h_lerp_plan_at_the_serving_shape(n, align_corners, c, w):
+    """(N, 128, C, W) bf16 to 1,024 rows, the serving path's B2 input, at
+    N = 1 and 2 and a ragged W: the strips cover the rows once, the staged
+    rows cover each row's taps, the grid holds at least one block for
+    each of the H100's 132 SMs, and the plan is a function of the shape."""
+    plan = h_lerp_plan(n, 128, c, 1024, w, 2, align_corners)
+    assert plan == h_lerp_plan.__wrapped__(n, 128, c, 1024, w, 2, align_corners)
+    _check_h_lerp_plan(plan, n, 128, c, 1024, w, 2, align_corners)
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 132
+    assert plan.smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("shape,out_h,itemsize", [
+    ((1, 17, 3, 1000), 136, 4), ((2, 9, 2, 1001), 72, 2), ((1, 5, 19, 384), 11, 4),
+    ((1, 64, 2, 33), 30, 4), ((3, 1, 4, 8), 1, 2)])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_h_lerp_plan_odd_shapes_and_forced_strips(shape, out_h, itemsize, align_corners):
+    """Odd h, ragged W, down-sampling (64 -> 30 rows) and a single row, with
+    the plan's strips and with forced ones: one row a strip, every row in
+    one strip where it fits, and the wide column tile."""
+    n, h, c, w = shape
+    plans = [h_lerp_plan(n, h, c, out_h, w, itemsize, align_corners),
+             h_lerp_plan(n, h, c, out_h, w, itemsize, align_corners, tile=256, rows=1),
+             h_lerp_plan(n, h, c, out_h, w, itemsize, align_corners, rows=out_h + 3)]
+    for plan in plans:
+        _check_h_lerp_plan(plan, n, h, c, out_h, w, itemsize, align_corners)
+    assert plans[1].staged <= 2 and plans[2].grid[1] == 1
+
+
+def test_h_lerp_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="empty"):
+        h_lerp_plan(1, 0, 19, 1024, 2048, 2)
+    with pytest.raises(ValueError, match="no tile"):
+        h_lerp_plan(1, 128, 19, 1024, 2048, 2, tile=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        h_lerp_plan(1, 128, 300, 1024, 2048, 4)  # two rows of 300 f32 planes: 300 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        h_lerp_plan(1, 128, 19, 1024, 2048, 2, rows=1024)  # all 128 rows staged at once
+    with pytest.raises(ValueError, match="images"):
+        h_lerp_plan(65536, 4, 2, 8, 16, 2)
+
+
+def test_h_lerp_argmax_cpu_ignores_the_launch_plan(rng):
+    """On a CPU tensor the wrapper takes the plain version whatever tile or
+    strip it is given, and launches nothing."""
+    xw = torch.from_numpy(rng.standard_normal((2, 9, 3, 40)).astype(np.float32))
+    before = h_lerp_argmax.launches
+    ref = h_lerp_argmax(xw, 70, False)
+    np.testing.assert_array_equal(h_lerp_argmax(xw, 70, False, tile=256, rows=1).numpy(),
+                                  ref.numpy())
+    assert h_lerp_argmax.launches == before
