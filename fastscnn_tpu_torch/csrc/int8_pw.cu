@@ -432,7 +432,7 @@ pw_w8a8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   using Tile = W8Tile<BM, BN, WARPS_M, WARPS_N, BK, STAGES>;
   constexpr int kT = Tile::kThreads;
   constexpr int kMI = Tile::kMI, kNI = Tile::kNI, kRS = Tile::kRS;
-  static_assert(kMI >= 1 && kNI % 2 == 0 && BK % 32 == 0 && STAGES >= 3 && BN % 32 == 0,
+  static_assert(kMI >= 1 && kNI % 2 == 0 && BK % 32 == 0 && STAGES >= 3 && BN % 64 == 0,
                 "B8 tile");
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* s_a = reinterpret_cast<int8_t*>(smem);
@@ -614,9 +614,9 @@ using namespace fastscnn;
 // 16); w (k, n) int8, 16-byte aligned rows when wvec; cs (n) f32; b (n) f32
 // or bf16 (b_dtype); out (m, n) bf16, or int8 when qout. tile: the block
 // tile of ops/cuda/int8_pw.py::pw_w8a8_plan, 0 = 128 x 128 (K in 3 stages
-// of 64), 1 = 64 x 64 (4 stages of 64), 2 = 32 x 32 (4 stages of 128, for
-// the long-K sites, whose M = 2,048 or 8,192 and N <= 128 give few
-// blocks), 3 = 128 x 64 (4 stages of 32, for the long-M, short-K sites,
+// of 64), 1 = 64 x 64 (4 stages of 64), 2 = 32 x 64 (4 stages of 128: this
+// tile takes the long-K sites, whose few blocks an SM must keep more bytes
+// in flight), 3 = 128 x 64 (4 stages of 32, for the long-M, short-K sites,
 // which stream their bytes).
 extern "C" int fastscnn_pw_conv_w8a8(const void* x, const void* w, const void* cs, int b_dtype,
                                      const void* b, void* out, int m, int k, int n, int relu,
@@ -631,7 +631,7 @@ extern "C" int fastscnn_pw_conv_w8a8(const void* x, const void* w, const void* c
   switch (tile) {
     case 0: FASTSCNN_TILE(128, 128, 2, 4, 64, 3);
     case 1: FASTSCNN_TILE(64, 64, 2, 2, 64, 4);
-    case 2: FASTSCNN_TILE(32, 32, 2, 2, 128, 4);
+    case 2: FASTSCNN_TILE(32, 64, 2, 2, 128, 4);
     case 3: FASTSCNN_TILE(128, 64, 4, 1, 32, 4);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -195,16 +195,9 @@ def pw_a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwPlan:
 
 
 # -- B8's launch plan (csrc/int8_pw.cu, pw_w8a8_mma_kernel) -------------------
-# the block tiles the kernel is built for: (BM, BN, threads); 32 x 32 for the
-# long-K sites at M = 2,048 (N <= 128, where 64 x 64 gives 64 blocks), 128 x 64
-# for the long-M, short-K sites, which stream their bytes
-PW_W8A8_TILES = ((128, 128, 256), (64, 64, 128), (32, 32, 128), (128, 64, 128))
-# the fewest blocks at which the plan takes the 128 x 128 tile (0.6 of the
-# two blocks each of the 132 SMs holds, by registers) and 64 x 64 (one
-# wave of one block an SM, less the 3 % that 128 blocks leave idle);
-# chip_smoke.py --tune-pw prints the kernels' registers and times every
-# tile at a frame's sites
-_PW_W8A8_MIN_BLOCKS = (158, 128)
+# the block tiles the kernel is built for: (BM, BN, threads); B7's three, and
+# 128 x 64 for the long-M, short-K sites, which stream their bytes
+PW_W8A8_TILES = PW_A8_TILES + ((128, 64, 128),)
 _STREAM_TILE = 3
 
 
@@ -213,25 +206,16 @@ def pw_w8a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwPlan:
     """Launch plan of B8's kernel. A site with K and N both at most 64 (the
     LTD's 1×1s, 131,072 × 32 × 48 and 32,768 × 48 × 64 at a 1024×2048
     frame) does little arithmetic a byte and streams: the 128 × 64 tile,
-    K in chunks of 32. Every other site takes the first of 128 × 128 and
-    64 × 64 whose grid has at least 158 and 128 blocks, else 32 × 32 (K in
-    chunks of 128). At a 1024×2048 frame that is 128 × 128 at the M =
-    32,768 sites and at M = 8,192 with N = 384, 64 × 64 at M = 8,192 with
-    N = 64 and at M = 2,048 with N of 576 or more, 32 × 32 at the other
-    M = 2,048 sites: at least 128 blocks at every site. ``tile`` may be
-    given to time alternatives. A pure function of the shape."""
+    K in chunks of 32. Every other site takes B7's tile by B7's rule
+    (:func:`pw_a8_plan`): at a frame's sites that is the fastest of the
+    three in ``chip_smoke.py --tune-pw``, 32 × 64 included at M = 2,048
+    with N of 96 or 128, whose 128 blocks (4 of the 132 SMs idle) beat
+    32 × 32's 192–256. ``tile`` may be given to time alternatives. A pure
+    function of the shape."""
     if k < 1 or m < 1 or n < 1:
         raise ValueError(f"pw_w8a8_plan: empty product ({m}x{k})x({k}x{n})")
     if tile is None:
-        if k <= 64 and n <= 64:
-            tile = _STREAM_TILE
-        else:
-            tile = 2
-            for i, least in enumerate(_PW_W8A8_MIN_BLOCKS):
-                bm, bn, _ = PW_W8A8_TILES[i]
-                if -(-m // bm) * -(-n // bn) >= least:
-                    tile = i
-                    break
+        tile = _STREAM_TILE if k <= 64 and n <= 64 else pw_a8_plan(m, k, n).tile
     if not 0 <= tile < len(PW_W8A8_TILES):
         raise ValueError(f"pw_w8a8_plan: no tile {tile}")
     bm, bn, threads = PW_W8A8_TILES[tile]

@@ -330,25 +330,24 @@ def test_config_d_has_25_sites():
 @pytest.mark.parametrize("site", sorted(_D_SITES))
 def test_pw_w8a8_plan_at_config_ds_sites(site):
     """B8's plan: a block tile the kernel is built for, a grid whose tiles
-    cover M and N once, at least 128 blocks (one block for 97 % of the
-    H100's 132 SMs: the 64 × 64 tile at M = 8,192 with N = 64; 192 or more
-    elsewhere), the streaming 128 × 64 tile at the LTD's short-K sites,
-    128 × 128 at M = 32,768 and at M = 8,192 with N = 384, 64 × 64 at
-    M = 8,192 with N = 64 and at M = 2,048 with N of 576 or more, 32 × 32
-    elsewhere. A function of the shape alone."""
+    cover M and N once, the streaming 128 × 64 tile at the LTD's short-K
+    sites and B7's tile by B7's rule elsewhere, so at least 128 blocks (a
+    block for 128 of the H100's 132 SMs at M = 2,048 with N of 96 or 128,
+    where that measured fastest; 192 or more elsewhere). A function of the
+    shape alone."""
     m, k, n = _D_SITES[site]
     plan = pw_w8a8_plan(m, k, n)
     assert plan == pw_w8a8_plan.__wrapped__(m, k, n)
     assert (plan.bm, plan.bn, plan.threads) == PW_W8A8_TILES[plan.tile]
     gx, gy = plan.grid
     assert (gx - 1) * plan.bn < n <= gx * plan.bn and (gy - 1) * plan.bm < m <= gy * plan.bm
-    assert gx * gy >= (128 if (m, n) == (8192, 64) else 192) and gy <= 65535
+    assert gx * gy >= (128 if m == 2048 and n <= 128 else 192) and gy <= 65535
     if site.startswith("ltd/"):
-        want = 3
+        assert plan.tile == 3 and (plan.bm, plan.bn) == (128, 64)
     else:
-        want = {32768: 0, 8192: 0 if n == 384 else 1, 2048: 1 if n >= 576 else 2}[m]
-    assert plan.tile == want
-    assert pw_w8a8_plan(m, k, n, tile=2).grid == (-(-n // 32), -(-m // 32))
+        assert plan.tile == pw_a8_plan(m, k, n).tile
+        assert PW_W8A8_TILES[plan.tile] == PW_A8_TILES[plan.tile]
+    assert pw_w8a8_plan(m, k, n, tile=2).grid == (-(-n // 64), -(-m // 32))
 
 
 def test_pw_w8a8_plan_refuses_what_the_kernel_does_not_build():
