@@ -16,7 +16,7 @@
 // selects: 200 M at 19 classes a 1024x2048 frame), which take longer at
 // the CUDA cores' issue rate than its bytes take at the memory's rate:
 // its design keeps every other instruction out of the class loop
-// (PERF.md, PR 7).
+// (PERF.md, section 6).
 //
 // Both drop the TPU's interpolation matrices (the dense matmuls were for
 // the MXU) and interpolate two taps per axis from the same lerp tables as
