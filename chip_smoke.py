@@ -10,14 +10,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    the depthwise forward, dX and dW kernels, B3 and B5 on a sweep of small
    shapes, views and channel counts that runs every channel width they
    pick (:func:`dw_sweep`), B7 and B8 on small shapes that take every path
-   of their kernel (:func:`pw_sweep`), and B2 on masks that take every
-   path of its kernel (:func:`mask_sweep`);
+   of their kernel (:func:`pw_sweep`), and B1 and B2 on masks that take
+   every path of their kernels (:func:`mask_sweep`);
 3. each kernel (B1-B5, B7, B8) at the shapes the 1024x2048 serving path
    gives it (N=1, bf16; B7 and B8 at every int8 site of a frame, and at one
    site with ``quantize_out``): held against its plain PyTorch version
    (B3, B4 and B5 bit for bit in bf16 and f32, B5 also against B3's
    kernel, B7 within a stated reassociation bound and bit-identical on a
-   second run, B8 bit for bit, B2's mask on every pixel), and timed
+   second run, B8 bit for bit, B1's and B2's masks on every pixel), and timed
    with CUDA events beside the
    plain version and one PyTorch library call that computes the same
    function (a yardstick the port never calls), with its bound from the
@@ -57,7 +57,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
-forward, dX and dW, B7, B8, B2) beside their library calls three ways: device time, windows
+forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
 run only these kernels' studies, with no device line:
@@ -65,7 +65,7 @@ run only these kernels' studies, with no device line:
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
     python3 chip_smoke.py --tune-pw        # registers, B7's and B8's block tiles
-    python3 chip_smoke.py --tune-mask      # registers, B2's tiles and strips
+    python3 chip_smoke.py --tune-mask      # registers, B2's and B1's tiles, strips, runs
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
 
@@ -107,7 +107,7 @@ F32_STEP_FACTOR, F32_STEP_FLOOR = 4.0, 1e-4
 # the operand type whose tensor-core peak bounds each int8 kernel's operations
 INT8_PEAK = {"pw_conv_a8": "bf16", "pw_conv_w8a8": "int8"}
 MASK_GATE = 0.995      # f32 serving masks vs the kernel-free config (PARITY.md's gate)
-KERNEL_MASK_GATE = 0.999  # B1/B2 vs their plain versions; small f32 input vs the CPU
+KERNEL_MASK_GATE = 0.999  # small f32 input vs the CPU (B1/B2 are held to every pixel)
 NEAR_TIE = 1e-5        # f32 gap below which a disagreeing pixel is a near-tie
 SPIN_CYCLES = 20_000_000  # the spin kernel before each timing window (~10 ms on an H100)
 
@@ -392,14 +392,15 @@ def pw_sweep():
 
 
 def mask_sweep():
-    """B2 on shapes that take every path of its kernel, each mask equal to
-    its plain version's on every pixel: ``align_corners`` both ways, odd h,
-    a ragged W (a last column tile in part past W; W % 8 != 0, whose rows
-    are staged element by element; W % 4 != 0, whose mask is stored
-    element by element), C of 2, 3 and 19, N of 1 and 2, bf16 and f32,
-    both column tiles, the plan's strips and forced ones (1 row, and one
-    strip of all rows where h fits), and a view one element into a flat
-    buffer (staged element by element)."""
+    """B2 and B1 on shapes that take every path of their kernels, each mask
+    equal to its plain version's on every pixel. B2: ``align_corners`` both
+    ways, odd h, a ragged W (a last column tile in part past W; W % 8 != 0,
+    whose rows are staged element by element; W % 4 != 0, whose mask is
+    stored element by element), C of 2, 3 and 19, N of 1 and 2, bf16 and
+    f32, both column tiles, the plan's strips and forced ones (1 row, and
+    one strip of all rows where h fits), and a view one element into a flat
+    buffer (staged element by element). B1 (:func:`mask_sweep_b1`) the
+    same ways on NHWC logits."""
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
@@ -430,6 +431,52 @@ def mask_sweep():
                     px += got.numel()
     torch.cuda.synchronize()
     _print(f"  B2 sweep: {cases} cases, 0 of {px} pixels differ from the plain version")
+    mask_sweep_b1(g)
+
+
+# B1's sweep shapes (N, h, w, C, out_h, out_w): x8 at 19 classes; odd h and
+# w with W % 4 != 0 (mask stored element by element) and w * C * 2 % 16 != 0
+# (staged element by element); a ragged last tile; in == out along H and
+# along W; a downsample; w * C * 4 beyond the old whole-row limit of 227 KB;
+# N = 2 at half the serving shape
+B1_SWEEP = ((1, 16, 32, 19, 128, 256), (2, 17, 33, 3, 136, 262), (1, 9, 40, 2, 72, 321),
+            (2, 32, 64, 19, 256, 510), (1, 5, 48, 19, 11, 384), (1, 16, 40, 5, 16, 321),
+            (1, 17, 64, 3, 136, 64), (1, 64, 90, 5, 30, 33), (1, 8, 4096, 19, 16, 8192),
+            (2, 64, 128, 19, 512, 1024))
+
+
+def mask_sweep_b1(g):
+    """B1 on :data:`B1_SWEEP` in bf16 and f32, ``align_corners`` both ways,
+    at the plan's tile and row runs, every tile at 1, 2 and 3 rows a run
+    (the kernel's 2-row and 4-row builds with runs cut short), and a view
+    one element into a flat buffer (staged element by element): each mask
+    equal to its plain version's on every pixel."""
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    dev = torch.device("cuda")
+    cases, px = 0, 0
+    for n, h, w, c, out_h, out_w in B1_SWEEP:
+        for dt in (torch.bfloat16, torch.float32):
+            for ac in (True, False):
+                x = torch.randn((n, h, w, c), generator=g, device=dev).to(dt)
+                flat = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+                flat[1:].copy_(x.flatten())
+                ref = K.upsample_argmax_reference(x, (out_h, out_w), ac)
+                forced = [(None, None, x), (128, None, x), (256, 1, x), (128, 2, x), (256, 3, x),
+                          (None, None, flat[1:].view(x.shape))]
+                for tile, rows, src in forced:
+                    got = K.upsample_argmax(src, (out_h, out_w), ac, tile=tile, rows=rows)
+                    diff = int((got != ref).sum())
+                    if diff:
+                        raise AssertionError(
+                            f"B1 {tuple(x.shape)} {dt} -> {(out_h, out_w)}, align_corners {ac}, "
+                            f"tile {tile} rows {rows}: {diff} pixels differ from the plain version")
+                    cases += 1
+                    px += got.numel()
+    torch.cuda.synchronize()
+    _print(f"  B1 sweep: {cases} cases, 0 of {px} pixels differ from the plain version")
 
 
 def kernel_phase(peaks):
@@ -585,6 +632,9 @@ def kernel_phase(peaks):
     z = resize_bilinear(logits.float(), (HEIGHT, WIDTH))
     gap = mask_agree("upsample_argmax (1, 128, 256, 19) -> (1, 1024, 2048)", got, ref, z)
     del z
+    if not torch.equal(got, ref):  # B1 does the plain version's operations: every pixel equal
+        raise AssertionError(f"upsample_argmax: {int((got != ref).sum())} pixels differ from the "
+                             "plain version")
     lc = logits.permute(0, 3, 1, 2)
     for dt in (bf16, torch.float32):
         lib_mask = F.interpolate(lc.to(dt), size=(HEIGHT, WIDTH), mode="bilinear",
@@ -1297,7 +1347,8 @@ COST_LIBRARY = {"ds_conv3x3_pw": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
                 "dw_conv3x3_vjp:dx": "conv2d_input", "dw_conv3x3_vjp:dw": "conv2d_weight",
                 "pw_conv_a8": "torch.addmm (+ ReLU)",
                 "pw_conv_w8a8": "torch._int_mm * cs + b (+ ReLU) -> bf16",
-                "h_lerp_argmax": "H-only F.interpolate + argmax"}
+                "h_lerp_argmax": "H-only F.interpolate + argmax",
+                "upsample_argmax": "F.interpolate + argmax"}
 SERVING_DW_SITES = (("dsconv1", 1, 511, 1023, 32), ("dsconv2", 1, 256, 512, 48))
 SERVING_DS_COUT = {32: 48, 48: 64}  # the 1x1's output channels at those sites
 
@@ -1310,8 +1361,8 @@ def dw_costs():
     (``dw_conv3x3`` with bias and ReLU) at the serving sites (N = 1), B6's
     forward, dX and dW (bf16 out) at the training sites, bf16, B7
     (``pw_conv_a8``) at config C's 23 int8 sites of a frame, B8
-    (``pw_conv_w8a8``) at config D's 25, and B2 (``h_lerp_argmax``) at the
-    serving shape. It passes the
+    (``pw_conv_w8a8``) at config D's 25, and B2 (``h_lerp_argmax``) and B1
+    (``upsample_argmax``) at the serving shape (N = 1). It passes the
     wrappers only arguments that every version of the port takes, so that
     ``--dw-ab`` costs an older checkout's kernels the same way. Returns
     ``{row: {"kernel": costs, "library": costs, "sites": {site: {...}}}}``,
@@ -1386,6 +1437,11 @@ def dw_costs():
     add("h_lerp_argmax", "serving", lambda: K.h_lerp_argmax(xw, HEIGHT),
         lambda: F.interpolate(xwc, size=(HEIGHT, WIDTH), mode="bilinear",
                               align_corners=True).argmax(1))
+    logits = randn(1, HEIGHT // 8, WIDTH // 8, NUM_CLASSES)
+    lc = logits.permute(0, 3, 1, 2)
+    add("upsample_argmax", "serving", lambda: K.upsample_argmax(logits, (HEIGHT, WIDTH)),
+        lambda: F.interpolate(lc, size=(HEIGHT, WIDTH), mode="bilinear",
+                              align_corners=True).argmax(1))
     torch.cuda.empty_cache()
     return rows
 
@@ -1454,6 +1510,53 @@ def ptxas_report(source, label):
             name = label(line.split("'")[1])
         elif name and ("Used" in line or "spill" in line):
             _print(f"  {name}: {re.sub(r'.*info *: ', '', line).strip()}")
+
+
+def sass_loops(source, pattern):
+    """Compile ``csrc/<source>.cu`` to a cubin, disassemble it with
+    ``cuobjdump -sass`` and print, for each kernel entry whose mangled name
+    matches ``pattern``, every loop (a backward branch) that holds float
+    compares (FSETP or FSET): its instructions, its compares and their
+    ratio. The argmax kernels compare once a pixel and class, so the ratio
+    is the loop's instructions a pixel and class. Prints a note and returns
+    where the toolkit has no ``cuobjdump``."""
+    import re
+    import shutil
+
+    from fastscnn_tpu_torch.ops.cuda import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        cuobjdump = shutil.which("cuobjdump")
+    if not cuobjdump:
+        _print("  cuobjdump: not found, SASS not read")
+        return
+    cubin = _build.BUILD_DIR / f"{source}.cubin"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([nvcc, *flags, "-cubin", "-I", str(_build.CSRC), "-o", str(cubin),
+                    str(_build.CSRC / f"{source}.cu")], check=True, timeout=600,
+                   capture_output=True)
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if not re.search(pattern, name):
+            continue
+        code = [(int(a, 16), ins.strip()) for a, ins in
+                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        loops = []
+        for addr, ins in code:
+            m = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", ins)
+            if m and int(m[1], 16) < addr:
+                body = [i for a, i in code if int(m[1], 16) <= a <= addr]
+                cmp = sum(1 for i in body if re.search(r"\bFSETP?\b", i))
+                if cmp:
+                    loops.append((len(body), cmp))
+        cells = ", ".join(f"{n} instructions / {c} compares = {n / c:.2f}" for n, c in loops)
+        short = re.search(r"\d+((?:upsample|h_lerp)_argmax_kernel)I(\w+?)EEv", name)
+        _print(f"  SASS {short[1] + '<' + short[2] + '>' if short else name}: loops with "
+               f"compares: {cells or 'none found'}")
 
 
 def tune_dw() -> None:
@@ -1652,27 +1755,39 @@ def tune_pw() -> None:
 
 
 def tune_mask() -> None:
-    """``--tune-mask``: the evidence for B2's launch plan. The registers,
-    spills and shared memory ``nvcc -Xptxas -v`` reports for B2's kernel
-    (bf16, 16-byte staging, each column tile), then its device ms at the
-    serving shape (N = 1 and 2, bf16, 128 -> 1,024 rows, 19 classes, 2,048
-    columns) at each column tile by 8 to 128 rows a strip, each mask equal
-    to the plain version's; ``*`` marks the plan's cell."""
+    """``--tune-mask``: the evidence for B2's and B1's launch plans. The
+    registers, spills and shared memory ``nvcc -Xptxas -v`` reports for
+    B2's kernel (bf16, 16-byte staging, each column tile) and B1's (the
+    same), the instructions a pixel and class of their class loops
+    (:func:`sass_loops`), then their device ms at the serving shape (N = 1
+    and 2, bf16, 19 classes): B2, (N, 128, 19, 2048) to 1,024 rows, at each
+    column tile by 8 to 128 rows a strip (where the block fits); B1, (N,
+    128, 256, 19) to 1,024 x 2,048, at each column tile by 1 to 4 rows a
+    run; each mask equal to the plain version's; ``*`` marks the plan's
+    cell."""
     import re
 
     import torch
 
     from fastscnn_tpu_torch.ops import cuda as K
-    from fastscnn_tpu_torch.ops.cuda.upsample_argmax import H_LERP_TILES, h_lerp_plan
+    from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (H_LERP_TILES, UPSAMPLE_ROWS,
+                                                             UPSAMPLE_TILES, h_lerp_plan,
+                                                             upsample_plan)
 
     def label(entry):
         t = re.search(r"h_lerp_argmax_kernelI13__nv_bfloat16Li(\d)ELb1E", entry)
-        return t and f"h_lerp_argmax_kernel<bf16, {128 * int(t[1])} columns, 16-byte staging>"
+        if t:
+            return f"h_lerp_argmax_kernel<bf16, {128 * int(t[1])} columns, 16-byte staging>"
+        t = re.search(r"upsample_argmax_kernelI13__nv_bfloat16Li(\d)ELi(\d)ELb1E", entry)
+        return t and (f"upsample_argmax_kernel<bf16, {32 * int(t[1])} columns, {t[2]} rows, "
+                      "16-byte staging>")
 
     ptxas_report("upsample_argmax", label)
+    sass_loops("upsample_argmax", r"(h_lerp_argmax_kernelI13__nv_bfloat16Li\dELb1E|"
+                                  r"upsample_argmax_kernelI13__nv_bfloat16Li\dELi\dELb1E)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
-    h = HEIGHT // 8
+    h, w = HEIGHT // 8, WIDTH // 8
     for n in (1, 2):
         xw = torch.randn((n, h, NUM_CLASSES, WIDTH), generator=g, device=dev).to(torch.bfloat16)
         ref = K.h_lerp_argmax_reference(xw, HEIGHT)
@@ -1691,6 +1806,24 @@ def tune_mask() -> None:
                 star = "*" if (tile, rows) == (plan.tile, plan.rows) else ""
                 cells.append(f"{rows}{star}: {ms:.4f} ({p.staged} staged, {p.smem // 1024} KB)")
             _print(f"  B2 N={n}, tile {tile}, ms by rows a strip: {', '.join(cells)}")
+        del xw, ref
+        logits = torch.randn((n, h, w, NUM_CLASSES), generator=g, device=dev).to(torch.bfloat16)
+        ref = K.upsample_argmax_reference(logits, (HEIGHT, WIDTH))
+        plan = upsample_plan(n, h, w, NUM_CLASSES, HEIGHT, WIDTH, 2)
+        for tile in UPSAMPLE_TILES:
+            cells = []
+            for rows in UPSAMPLE_ROWS:
+                p = upsample_plan(n, h, w, NUM_CLASSES, HEIGHT, WIDTH, 2, True, tile, rows)
+                got = K.upsample_argmax(logits, (HEIGHT, WIDTH), tile=tile, rows=rows)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"B1 N={n} tile {tile} rows {rows}: "
+                                         f"{int((got != ref).sum())} pixels differ")
+                ms = time_ms(lambda: K.upsample_argmax(logits, (HEIGHT, WIDTH), tile=tile,
+                                                       rows=rows))
+                star = "*" if (tile, rows) == (plan.tile, plan.rows) else ""
+                cells.append(f"{rows}{star}: {ms:.4f} ({p.grid[0]} x {p.grid[1]} x {n} blocks)")
+            _print(f"  B1 N={n}, tile {tile}, ms by rows a run: {', '.join(cells)}")
+        del logits, ref
 
 
 def main() -> int:
@@ -1704,10 +1837,10 @@ def main() -> int:
     parser.add_argument("--tune-pw", action="store_true",
                         help="only B7's and B8's registers and block-tile sweeps")
     parser.add_argument("--tune-mask", action="store_true",
-                        help="only B2's registers and column-tile and strip sweep")
+                        help="only B2's and B1's registers and column-tile and strip sweeps")
     parser.add_argument("--dw-ab", metavar="PARENT",
                         help="only the redesigned kernels' costs (B3, B5, B4, B6 forward, dX "
-                             "and dW, B7, B8, B2), for the checkout at PARENT and for this one")
+                             "and dW, B7, B8, B2, B1), for the checkout at PARENT and for this one")
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1760,7 +1893,7 @@ def main() -> int:
     _print(f"build: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    _print("depthwise forward, dX and dW, B3, B5, B7, B8 and B2 on sweeps of small shapes:")
+    _print("depthwise forward, dX and dW, B3, B5, B7, B8, B2 and B1 on sweeps of small shapes:")
     dw_sweep()
     pw_sweep()
     mask_sweep()

@@ -7,25 +7,37 @@
 //    fastscnn_tpu/ops/pallas/upsample_argmax.py::w_matmul_h_lerp_argmax:
 //    the H pass of the W-upsampled (N, h, C, W) tensor, then argmax_C.
 //
-// What bounds them on an H100: bytes. Per output pixel each does ~3*C
-// flops of lerp and C compares against 4 bytes of int32 mask written
-// (B1 reads only 1.25 MB of logits per 1024x2048 frame, B2 10 MB), so
-// the mask write and, for B2, the input read set the byte floor. But B2
-// issues at least 5 instructions a pixel and class (the lerp's multiply
-// and add, each rounded on its own, and the argmax's compare and two
-// selects: 200 M at 19 classes a 1024x2048 frame), which take longer at
-// the CUDA cores' issue rate than its bytes take at the memory's rate:
-// its design keeps every other instruction out of the class loop
-// (PERF.md, section 6).
+// What bounds them on an H100: instruction issue, not bytes. Per output
+// pixel each writes 4 bytes of int32 mask and reads little (B1 1.25 MB of
+// logits per 1024x2048 frame, B2 10 MB): 2.9 and 5.5 us of bytes. But a
+// pixel and class cost at least 5 instructions (the W-lerp's multiply and
+// add, each rounded on its own, and the argmax's compare and two selects:
+// 200 M at 19 classes a frame, ~12 K clocks on the 528 schedulers), which
+// take longer at the CUDA cores' issue rate than the bytes take at the
+// memory's rate: both designs keep every other instruction out of the
+// class loop (PERF.md, section 6).
 //
 // Both drop the TPU's interpolation matrices (the dense matmuls were for
 // the MXU) and interpolate two taps per axis from the same lerp tables as
-// ops/resize.py::_axis_lerp_coeffs, built by the wrapper and passed in as
-// (lo int64, hi int64, w f32) arrays.
-//   B1: one block per (image, output row). The block first H-lerps its
-//       two source rows into one (w, C) f32 row in shared memory, then
-//       each thread W-lerps and argmaxes output pixels of the row. The
-//       kernel reads the (N, h, w, C) NHWC logits directly.
+// ops/resize.py::_axis_lerp_coeffs, built by the wrappers: B2 takes them as
+// (lo int64, hi int64, w f32) arrays, B1 takes the w arrays and an int32
+// table of its tiles and runs (ops/cuda/upsample_argmax.py::_run_table).
+//   B1: runs in both axes. A block, one warp, takes a tile of output
+//       columns by a run of at most 4 output rows that share one source row
+//       pair (ops/cuda/upsample_argmax.py::upsample_plan). It copies the
+//       run's two source rows, columns wlo[first column] .. whi[last
+//       column], into shared memory: one contiguous run of the NHWC logits
+//       a row, in the stored dtype, by 16-byte cp.async from a 16-byte
+//       boundary (element by element where the row or the pointer forbids
+//       16). A lane owns a run of at most 8 (or 4) output columns that
+//       share one source column pair (upsample_column_tiles), so per class
+//       it loads its pair's four staged values and forms their H
+//       differences once for the block's rows, each row's two H-lerps t_lo
+//       and t_hi and their difference d = t_hi - t_lo once for its columns,
+//       and then per pixel only the W-lerp's multiply and add and the
+//       argmax step: 32 independent pixels a thread. The mask leaves
+//       through a padded buffer in shared memory as int4 stores coalesced
+//       along the row, where W % 4 == 0.
 //   B2: staged strips. A block owns a column tile (128 or 256 columns)
 //       and a strip of consecutive output rows (ops/cuda/upsample_argmax.py
 //       ::h_lerp_plan). It copies the source rows its strip needs,
@@ -53,40 +65,141 @@ namespace fastscnn {
 namespace {
 
 constexpr int kThreads = 256;
+// B1: one warp a block, one block a task: a tile of output columns by a
+// run of at most R output rows of one image that share one source row
+// pair; a lane takes a run of at most KC output columns of the tile that
+// share one source column pair. The tasks go tile by tile, so that those
+// of the last tile, the one with the fewest column runs, start last and
+// the card's last partial wave holds the lightest blocks. runs: ops/cuda/upsample_argmax.py
+// ::_run_table, laid out as RunTable reads it. VCOPY: the staging by
+// 16-byte cp.async (x 16-byte aligned and w * C * sizeof(T) % 16 == 0),
+// else element by element. vec_out: the mask by int4 stores.
+struct RunTable {
+  const int* p;
+  int ntiles, nruns, nrows;
+  // tile t: columns x0 .. x1 - 1, column runs r0 .. r1 - 1, staged source
+  // columns j0 .. j1 (j0 a multiple of the plan's align)
+  __device__ int x0(int t) const { return p[t]; }
+  __device__ int x1(int t) const { return p[t + 1]; }
+  __device__ int r0(int t) const { return p[ntiles + 1 + t]; }
+  __device__ int r1(int t) const { return p[ntiles + 2 + t]; }
+  __device__ int j0(int t) const { return p[2 * ntiles + 2 + t]; }
+  __device__ int j1(int t) const { return p[3 * ntiles + 2 + t]; }
+  // column run r: first column, count, source column wlo - j0, whi - wlo
+  __device__ const int* col(int field) const { return p + 4 * ntiles + 2 + field * nruns; }
+  // row run y: first row, count, source rows hlo and hhi
+  __device__ const int* row(int field) const {
+    return p + 4 * ntiles + 2 + 4 * nruns + field * nrows;
+  }
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-upsample_argmax_kernel(const T* __restrict__ x, const int64_t* __restrict__ hlo,
-                       const int64_t* __restrict__ hhi, const float* __restrict__ hw,
-                       const int64_t* __restrict__ wlo, const int64_t* __restrict__ whi,
-                       const float* __restrict__ ww, int* __restrict__ out, int h, int w, int C,
-                       int H, int W) {
-  extern __shared__ float hrow[];  // [w][C]: the H-lerped source row of output row y
-  const int y = blockIdx.x;
-  const int n = blockIdx.y;
+// a staged element as f32 (a bf16 is the top half of its f32)
+__device__ __forceinline__ float staged(const float* p) { return *p; }
+__device__ __forceinline__ float staged(const __nv_bfloat16* p) {
+  return __uint_as_float((unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+
+template <typename T, int KC, int R, bool VCOPY>
+__global__ void __launch_bounds__(32, 16)
+upsample_argmax_kernel(const T* __restrict__ x, const float* __restrict__ hw,
+                       const float* __restrict__ ww, RunTable tab, int* __restrict__ out, int n_img,
+                       int h, int w, int C, int H, int W, int vec_out) {
+  constexpr int TW = 32 * KC;       // the most output columns a tile
+  constexpr int TWP = TW + TW / 8;  // a mask row: 4 words of padding after every 32
+  constexpr int kPer = 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* mask = reinterpret_cast<int*>(smem);  // [R][TWP]: the block's mask rows
+  T* st = reinterpret_cast<T*>(smem + sizeof(int) * R * TWP);  // [2][stride]: hlo and hhi rows
+  const int per_tile = n_img * tab.nrows, lane = threadIdx.x;
+  const int t = blockIdx.x / per_tile, n = blockIdx.x % per_tile / tab.nrows,
+            yr = blockIdx.x % tab.nrows;
+  const int x0 = tab.x0(t), x1 = tab.x1(t), r0 = tab.r0(t), r1 = tab.r1(t);
+  const int y0 = tab.row(0)[yr], ny = tab.row(1)[yr];
+
+  // stage the run's two source rows, columns j0 .. j1: one contiguous
+  // NHWC run of the stored dtype a row
+  const int j0 = tab.j0(t);
+  const int run = (tab.j1(t) - j0 + 1) * C;  // staged elements a row
+  const int stride = (run + kPer - 1) / kPer * kPer;
   const int64_t rowlen = (int64_t)w * C;
-  const T* r0 = x + ((int64_t)n * h + hlo[y]) * rowlen;
-  const T* r1 = x + ((int64_t)n * h + hhi[y]) * rowlen;
-  const float wy = hw[y];
-  for (int64_t i = threadIdx.x; i < rowlen; i += kThreads)
-    hrow[i] = lerp_rn(to_f32(r0[i]), to_f32(r1[i]), wy);
-  __syncthreads();
+  const T* src0 = x + ((int64_t)n * h + tab.row(2)[yr]) * rowlen + (int64_t)j0 * C;
+  const T* src1 = x + ((int64_t)n * h + tab.row(3)[yr]) * rowlen + (int64_t)j0 * C;
+  int done = 0;  // elements of each row copied by 16-byte segments
+  if constexpr (VCOPY) {
+    const int segs = run / kPer;
+    for (int i = lane; i < 2 * segs; i += 32) {
+      const int p = i >= segs, e = (i - p * segs) * kPer;
+      cp_async<16>(smem_addr(st + p * stride + e), (p ? src1 : src0) + e, 16);
+    }
+    cp_async_commit();
+    done = segs * kPer;
+  }
+  for (int e = done + lane; e < run; e += 32) {
+    st[e] = src0[e];
+    st[stride + e] = src1[e];
+  }
 
-  int* orow = out + ((int64_t)n * H + y) * W;
-  for (int xo = threadIdx.x; xo < W; xo += kThreads) {
-    const float* a = hrow + wlo[xo] * C;
-    const float* b = hrow + whi[xo] * C;
-    const float wx = ww[xo];
-    float best = lerp_rn(a[0], b[0], wx);
-    int arg = 0;
-    for (int c = 1; c < C; ++c) {
-      const float v = lerp_rn(a[c], b[c], wx);
-      if (v > best) {
-        best = v;
-        arg = c;
+  const bool live = r0 + lane < r1;
+  const int cr = live ? r0 + lane : r0;
+  const int xs = tab.col(0)[cr];  // the lane's first column and count
+  const int cnt = live ? tab.col(1)[cr] : 1;
+  const T* lo = st + tab.col(2)[cr] * C;  // its source pair in the staged rows
+  const int dj = tab.col(3)[cr] * C;
+  float wx[KC];  // its columns' weights; slots past cnt repeat the last column
+#pragma unroll
+  for (int k = 0; k < KC; ++k) wx[k] = ww[xs + min(k, cnt - 1)];
+  float wy[R];  // the run's rows' weights; slots past ny repeat the last row
+#pragma unroll
+  for (int q = 0; q < R; ++q) wy[q] = hw[y0 + min(q, ny - 1)];
+  if constexpr (VCOPY) cp_async_wait<0>();
+  __syncwarp();
+
+  float best[R][KC];
+  int arg[R][KC];
+  // class c of the R x KC pixels: the staged values at both source columns
+  // and their H differences once; per row the two H-lerps and their W
+  // difference once; per pixel the W-lerp's multiply and add and the strict
+  // '>' argmax step (class 0 only sets best)
+  auto step = [&](int c, bool first) {
+    const float a0 = staged(lo + c), a1 = staged(lo + dj + c);
+    const float e0 = __fsub_rn(staged(lo + stride + c), a0);
+    const float e1 = __fsub_rn(staged(lo + stride + dj + c), a1);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const float t0 = __fadd_rn(a0, __fmul_rn(e0, wy[q]));
+      const float d = __fsub_rn(__fadd_rn(a1, __fmul_rn(e1, wy[q])), t0);
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        const float v = __fadd_rn(t0, __fmul_rn(d, wx[k]));
+        if (first || v > best[q][k]) {
+          best[q][k] = v;
+          arg[q][k] = c;
+        }
       }
     }
-    orow[xo] = arg;
+  };
+  step(0, true);
+  for (int c = 1; c < C; ++c) step(c, false);
+  // the mask rows through the block's buffer (padded, so that the lanes'
+  // runs, 8 words apart, fall in different banks), then out along each row
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    const int col = xs - x0 + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (live && k < cnt) mask[q * TWP + col + 4 * (col / 32)] = arg[q][k];
+  }
+  __syncwarp();
+  const int width = x1 - x0;
+  for (int q = 0; q < ny; ++q) {
+    int* orow = out + ((int64_t)n * H + y0 + q) * W + x0;
+    const int* m = mask + q * TWP;
+    if (vec_out) {
+      for (int i = 4 * lane; i < width; i += 128)
+        *reinterpret_cast<int4*>(orow + i) = *reinterpret_cast<const int4*>(m + i + 4 * (i / 32));
+    } else {
+      for (int i = lane; i < width; i += 32) orow[i] = m[i + 4 * (i / 32)];
+    }
   }
 }
 
@@ -203,23 +316,46 @@ h_lerp_argmax_kernel(const T* __restrict__ xw, const int64_t* __restrict__ hlo,
   }
 }
 
-template <typename T>
-int launch_up(const void* x, const void* hlo, const void* hhi, const void* hw, const void* wlo,
-              const void* whi, const void* ww, void* out, int n, int h, int w, int c, int H,
-              int W, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)w * c;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        upsample_argmax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int KC, int R, bool VCOPY>
+int launch_up_kernel(dim3 grid, const void* x, const void* hw, const void* ww, RunTable tab,
+                     void* out, int n, int h, int w, int c, int H, int W, int smem, int vec_out,
+                     cudaStream_t s) {
+  auto* kernel = upsample_argmax_kernel<T, KC, R, VCOPY>;
+  static int attribute_bytes = 48 * 1024;  // the largest size allowed so far, per instantiation
+  if (smem > attribute_bytes) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
+    attribute_bytes = smem;
   }
-  const dim3 grid(H, n);
-  upsample_argmax_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const int64_t*>(hlo),
-      static_cast<const int64_t*>(hhi), static_cast<const float*>(hw),
-      static_cast<const int64_t*>(wlo), static_cast<const int64_t*>(whi),
-      static_cast<const float*>(ww), static_cast<int*>(out), h, w, c, H, W);
+  kernel<<<grid, 32, smem, s>>>(static_cast<const T*>(x), static_cast<const float*>(hw),
+                                static_cast<const float*>(ww), tab, static_cast<int*>(out), n, h,
+                                w, c, H, W, vec_out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_up(const void* x, const void* hw, const void* ww, const void* table, void* out, int n,
+              int h, int w, int c, int H, int W, int tile, int rows, int smem, int ntiles,
+              int nruns, int nrows, int vcopy, int vec_out, cudaStream_t s) {
+  if (rows < 1 || rows > 4 || n < 1 || ntiles < 1 || nrows < 1 ||
+      (int64_t)ntiles * nrows * n > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(ntiles * nrows * n);
+  const RunTable tab{static_cast<const int*>(table), ntiles, nruns, nrows};
+#define FASTSCNN_UP(KC, R, VC)                                                                \
+  return launch_up_kernel<T, KC, R, VC>(grid, x, hw, ww, tab, out, n, h, w, c, H, W, smem, \
+                                        vec_out, s)
+#define FASTSCNN_UP_VC(KC, R) \
+  if (vcopy) FASTSCNN_UP(KC, R, true); \
+  FASTSCNN_UP(KC, R, false)
+  if (tile == 256 && rows > 2) { FASTSCNN_UP_VC(8, 4); }
+  if (tile == 256) { FASTSCNN_UP_VC(8, 2); }
+  if (tile == 128 && rows > 2) { FASTSCNN_UP_VC(4, 4); }
+  if (tile == 128) { FASTSCNN_UP_VC(4, 2); }
+#undef FASTSCNN_UP_VC
+#undef FASTSCNN_UP
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int WC, bool VCOPY>
@@ -264,15 +400,25 @@ int launch_h(const void* xw, const void* hlo, const void* hhi, const void* hw, v
 
 using namespace fastscnn;
 
-// x (n, h, w, c) logits; H tables (H), W tables (W); out (n, H, W) int32.
-extern "C" int fastscnn_upsample_argmax(int dtype, const void* x, const void* hlo, const void* hhi,
-                                        const void* hw, const void* wlo, const void* whi,
-                                        const void* ww, void* out, int n, int h, int w, int c,
-                                        int H, int W, void* stream) {
+// x (n, h, w, c) logits; hw (H) and ww (W) the lerp weights; out (n, H,
+// W) int32. table: the column tiles' and runs' and the row runs' table;
+// tile (256 or 128 columns), rows (at most 4 rows a run), smem (bytes a
+// block), ntiles, nruns (column runs) and nrows (row runs) from
+// ops/cuda/upsample_argmax.py::upsample_plan;
+// vcopy: x 16-byte aligned and w * c * itemsize % 16 == 0; vec_out: W % 4
+// == 0 and out 16-byte aligned.
+extern "C" int fastscnn_upsample_argmax(int dtype, const void* x, const void* hw, const void* ww,
+                                        const void* table, void* out, int n, int h, int w, int c,
+                                        int H, int W, int tile, int rows, int smem, int ntiles,
+                                        int nruns, int nrows, int vcopy, int vec_out,
+                                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_up<__nv_bfloat16>(x, hlo, hhi, hw, wlo, whi, ww, out, n, h, w, c, H, W, s);
-  if (dtype == kF32) return launch_up<float>(x, hlo, hhi, hw, wlo, whi, ww, out, n, h, w, c, H, W, s);
+    return launch_up<__nv_bfloat16>(x, hw, ww, table, out, n, h, w, c, H, W, tile, rows, smem,
+                                    ntiles, nruns, nrows, vcopy, vec_out, s);
+  if (dtype == kF32)
+    return launch_up<float>(x, hw, ww, table, out, n, h, w, c, H, W, tile, rows, smem, ntiles,
+                            nruns, nrows, vcopy, vec_out, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -54,7 +54,7 @@ _SIGNATURES = {
         "fastscnn_pw_conv_a8": [_P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     },
     "upsample_argmax": {
-        "fastscnn_upsample_argmax": [_I] + [_P] * 8 + [_I] * 6 + [_P],
+        "fastscnn_upsample_argmax": [_I] + [_P] * 5 + [_I] * 14 + [_P],
         "fastscnn_h_lerp_argmax": [_I] + [_P] * 5 + [_I] * 10 + [_P],
     },
 }

@@ -9,12 +9,20 @@ Counterpart of ``fastscnn_tpu/ops/pallas/upsample_argmax.py``:
   ``w_matmul_h_lerp_argmax``: the H pass of the W-upsampled (N, h, C, W)
   tensor, then argmax_C.
 
-Both are bound by bytes on an H100 (the int32 mask write dominates); see
-``csrc/upsample_argmax.cu`` for the design. B2 stages the source rows of a
-strip of output rows in shared memory once; :func:`h_lerp_plan` picks the
-column tile and the rows a strip from the shape. The kernels lerp in f32 from
-bf16 or f32 inputs with the lerp tables of ``ops/resize.py`` and break
-ties toward the lowest class. That differs from the TPU kernels, which
+Both are bound by instruction issue on an H100, not by bytes: a pixel and
+class cost at least a multiply, an add and the argmax's compare and two
+selects, each rounded on its own, about 200 M instructions a 1024x2048
+frame at 19 classes, against 9-18 MB moved; see ``csrc/upsample_argmax.cu``
+for the designs, which keep every other instruction out of the class
+loop. B1 stages the two source rows of a run of output rows for a tile of
+output columns in shared memory once and shares each H-lerp and
+W-difference across the pixels that use them; :func:`upsample_plan` picks
+its column tiles (lane runs of one source pair,
+:func:`upsample_column_tiles`) and row runs (:func:`upsample_row_runs`).
+B2 stages the source rows of a strip of output rows in shared memory once;
+:func:`h_lerp_plan` picks the column tile and the rows a strip from the
+shape. The kernels lerp in f32 from bf16 or f32 inputs with the lerp
+tables of ``ops/resize.py`` and break ties toward the lowest class. That differs from the TPU kernels, which
 interpolate with bf16 matrices on the MXU (B1 also rounds its H pass to
 bf16), and from the 'hybrid' matmul plan, which argmaxes bf16 values: the
 formulations agree except in a near-tie band.
@@ -33,6 +41,7 @@ kernel does not take; it never falls back. Each counts its launches in a
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -55,6 +64,9 @@ __all__ = [
     "h_lerp_argmax_reference",
     "w_matmul_h_lerp_argmax",
     "h_lerp_plan",
+    "upsample_plan",
+    "upsample_column_tiles",
+    "upsample_row_runs",
 ]
 
 
@@ -70,9 +82,13 @@ def h_lerp_argmax_reference(xw, out_h, align_corners=True):
     return y.argmax(dim=2).to(torch.int32)
 
 
-def upsample_argmax(logits, out_size, align_corners=True):
+def upsample_argmax(logits, out_size, align_corners=True, tile=None, rows=None):
     """``argmax_C(bilinear_resize(logits, out_size))`` for NHWC logits,
-    an (N, H_out, W_out) int32 mask (kernel B1)."""
+    an (N, H_out, W_out) int32 mask (kernel B1). ``tile`` and ``rows``
+    override the launch plan's column tile and rows a run
+    (:func:`upsample_plan`). Where an axis keeps its size, the plain
+    version copies it and the kernel lerps with weight 0: the same values
+    for finite logits."""
     if logits.ndim != 4:
         raise ValueError(f"upsample_argmax needs NHWC logits, got {tuple(logits.shape)}")
     if logits.device.type == "cpu":
@@ -80,15 +96,17 @@ def upsample_argmax(logits, out_size, align_corners=True):
     code = _kernel_input(logits, "upsample_argmax")
     n, h, w, c = logits.shape
     out_h, out_w = int(out_size[0]), int(out_size[1])
-    if min(n, h, w, c, out_h, out_w) < 1 or n > 65535 or 4 * w * c > 227 * 1024:
-        raise ValueError(f"upsample_argmax: unsupported shape {tuple(logits.shape)} -> {out_size}")
-    hlo, hhi, hw = lerp_tables(h, out_h, align_corners, logits.device)
-    wlo, whi, ww = lerp_tables(w, out_w, align_corners, logits.device)
+    size = logits.element_size()
+    plan, hw, ww, table = _launch_inputs(n, h, w, c, out_h, out_w, size, bool(align_corners),
+                                         tile, rows, logits.device)
     out = torch.empty((n, out_h, out_w), dtype=torch.int32, device=logits.device)
+    vcopy = (w * c * size) % 16 == 0 and logits.data_ptr() % 16 == 0
+    vec_out = out_w % 4 == 0 and out.data_ptr() % 16 == 0
     rc = library("upsample_argmax").fastscnn_upsample_argmax(
-        code, logits.data_ptr(), hlo.data_ptr(), hhi.data_ptr(), hw.data_ptr(),
-        wlo.data_ptr(), whi.data_ptr(), ww.data_ptr(), out.data_ptr(),
-        n, h, w, c, out_h, out_w, torch.cuda.current_stream(logits.device).cuda_stream,
+        code, logits.data_ptr(), hw.data_ptr(), ww.data_ptr(), table.data_ptr(), out.data_ptr(),
+        n, h, w, c, out_h, out_w, plan.tile, plan.rows, plan.smem, plan.grid[0], plan.runs,
+        plan.grid[1], int(vcopy), int(vec_out),
+        torch.cuda.current_stream(logits.device).cuda_stream,
     )
     check(rc, "upsample_argmax")
     upsample_argmax.launches += 1
@@ -174,6 +192,155 @@ def h_lerp_plan(n: int, h: int, c: int, out_h: int, w: int, itemsize: int,
     if chosen.grid[1] > 65535:
         raise ValueError(f"h_lerp_plan: {out_h} rows need more than 65,535 strips")
     return chosen
+
+
+# -- B1's launch plan (csrc/upsample_argmax.cu, upsample_argmax_kernel) -------
+# the most output columns a tile: 32 lanes, each a run of at most 8 or 4
+# columns that share one source pair (the kernel's template parameter)
+UPSAMPLE_TILES = (256, 128)
+UPSAMPLE_ROWS = (4, 3, 2, 1)  # the most output rows a row run, the plan's first
+
+
+class UpsamplePlan(NamedTuple):
+    """Launch plan of B1's kernel (see :func:`upsample_plan`)."""
+    tile: int                   # most output columns a tile: 32 runs of tile // 32
+    rows: int                   # most output rows a row run
+    staged_cols: int            # the most source columns a tile stages
+    runs: int                   # column runs over all tiles
+    align: int                  # a tile's staging starts at a multiple of this column
+    smem: int                   # bytes of shared memory a block
+    grid: tuple[int, int, int]  # (column tiles, row runs, N): the tasks, one block each
+
+
+def _runs(lo, start: int, end: int, per: int):
+    """(first, count) of the runs of ``start .. end - 1``: at most ``per``
+    consecutive indices of equal ``lo``, so one source pair."""
+    out, i = [], start
+    while i < end:
+        e = i + 1
+        while e < end and e - i < per and lo[e] == lo[i]:
+            e += 1
+        out.append((i, e - i))
+        i = e
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def upsample_row_runs(h: int, out_h: int, align_corners: bool, rows: int):
+    """B1's row runs for ``h`` source rows upsampled to ``out_h``: (first
+    row, count) of each run of at most ``rows`` output rows that share one
+    source row pair (the same ``hlo``). A block takes one run, so it stages
+    two source rows and forms their H differences once for all of its
+    rows. A pure function of its arguments."""
+    return tuple(_runs(_axis_lerp_coeffs(h, out_h, align_corners)[0], 0, out_h, rows))
+
+
+@functools.lru_cache(maxsize=64)
+def upsample_column_tiles(w: int, out_w: int, align_corners: bool, tile: int):
+    """B1's column tiles for ``w`` source columns upsampled to ``out_w``:
+    ``(tiles, runs, starts)``. Each lane of a tile takes a run, at most
+    ``tile // 32`` consecutive output columns that share one source pair
+    (the same ``wlo``), so that it forms each H-lerp and W-difference once
+    for all of them. A tile is the next 32 runs, ended at a multiple of 4
+    columns (cutting its last run) unless it ends the row, so that every
+    tile starts on a 16-byte boundary of the mask row. ``tiles[t]`` is
+    tile t's (first, end) column, ``runs`` every run's (first column,
+    count) tile by tile, and ``starts[t] .. starts[t + 1]`` tile t's runs.
+    A pure function of its arguments."""
+    lo = _axis_lerp_coeffs(w, out_w, align_corners)[0]
+    tiles, runs, starts = [], [], [0]
+    x0 = 0
+    while x0 < out_w:
+        cut = _runs(lo, x0, out_w, tile // 32)[:32]
+        x = cut[-1][0] + cut[-1][1]
+        x1 = x if x == out_w else x - x % 4  # 32 runs hold >= 32 columns: x1 > x0
+        runs.extend((s, min(k, x1 - s)) for s, k in cut if s < x1)
+        tiles.append((x0, x1))
+        starts.append(len(runs))
+        x0 = x1
+    return tuple(tiles), tuple(runs), tuple(starts)
+
+
+@functools.lru_cache(maxsize=64)
+def _run_table(h: int, w: int, out_h: int, out_w: int, align_corners: bool, tile: int,
+               rows: int, align: int, device: torch.device):
+    """The column tiles and runs and the row runs as the kernel reads them
+    (``csrc/upsample_argmax.cu``, ``RunTable``), one int32 tensor: the
+    tiles' bounds (T + 1), first column runs (T + 1), first and last staged
+    source columns (T each, the first a multiple of ``align``); the column
+    runs' first columns, counts, source columns from the tile's first
+    staged one, and ``whi - wlo`` (R each); the row runs' first rows,
+    counts, ``hlo`` and ``hhi`` (Y each). Cached per device, as the lerp
+    tables."""
+    wlo, whi, _ = _axis_lerp_coeffs(w, out_w, align_corners)
+    hlo, hhi, _ = _axis_lerp_coeffs(h, out_h, align_corners)
+    tiles, runs, starts = upsample_column_tiles(w, out_w, align_corners, tile)
+    j0 = [int(wlo[x0]) // align * align for x0, _ in tiles]
+    run_j0 = [j0[t] for t in range(len(tiles)) for _ in range(starts[t], starts[t + 1])]
+    row_runs = upsample_row_runs(h, out_h, align_corners, rows)
+    table = ([x0 for x0, _ in tiles] + [out_w] + list(starts) + j0
+             + [int(whi[x1 - 1]) for _, x1 in tiles]
+             + [s for s, _ in runs] + [k for _, k in runs]
+             + [int(wlo[s]) - j for (s, _), j in zip(runs, run_j0)]
+             + [int(whi[s] - wlo[s]) for s, _ in runs]
+             + [y for y, _ in row_runs] + [k for _, k in row_runs]
+             + [int(hlo[y]) for y, _ in row_runs] + [int(hhi[y]) for y, _ in row_runs])
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.asarray(table, np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_inputs(n, h, w, c, out_h, out_w, itemsize, align_corners, tile, rows, device):
+    """What a launch of B1 takes besides its tensors, looked up once a call:
+    the plan, the H and W lerp weights and the run table on ``device``."""
+    plan = upsample_plan(n, h, w, c, out_h, out_w, itemsize, align_corners, tile, rows)
+    return (plan, lerp_tables(h, out_h, align_corners, device)[2],
+            lerp_tables(w, out_w, align_corners, device)[2],
+            _run_table(h, w, out_h, out_w, align_corners, plan.tile, plan.rows, plan.align, device))
+
+
+@functools.lru_cache(maxsize=256)
+def upsample_plan(n: int, h: int, w: int, c: int, out_h: int, out_w: int, itemsize: int,
+                  align_corners: bool = True, tile: int | None = None,
+                  rows: int | None = None) -> UpsamplePlan:
+    """Launch plan of B1's kernel for (N, h, w, C) logits of ``itemsize``
+    bytes an element to an (N, out_h, out_w) mask: the column tile (256
+    unless ``tile`` says 128) and the most rows a row run (4 unless
+    ``rows`` says fewer). A block, one warp, takes a tile
+    (:func:`upsample_column_tiles`) by a row run
+    (:func:`upsample_row_runs`) of one image, tile by tile, the tile with
+    the fewest column runs last: it stages the run's two
+    source rows, source columns ``wlo[first column] .. whi[last column]``
+    of the tile from a multiple of ``align`` columns (a 16-byte boundary of
+    the NHWC row), beside a mask buffer of the run's rows by the tile. At
+    the serving shape, (N, 128, 256, 19) bf16 to (1,024, 2,048), that is 9
+    tiles by 262 row runs by N blocks of 7.5 KB (``chip_smoke.py
+    --tune-mask`` times the alternatives). Raises on a shape it cannot
+    take. A pure function of the shape."""
+    if min(n, h, w, c, out_h, out_w, itemsize) < 1:
+        raise ValueError(f"upsample_plan: empty shape ({n}, {h}, {w}, {c}) -> ({out_h}, {out_w})")
+    tile = UPSAMPLE_TILES[0] if tile is None else tile
+    if tile not in UPSAMPLE_TILES:
+        raise ValueError(f"upsample_plan: no tile of {tile} columns")
+    rows = UPSAMPLE_ROWS[0] if rows is None else rows
+    if rows not in UPSAMPLE_ROWS:
+        raise ValueError(f"upsample_plan: {rows} rows a run, not one of {UPSAMPLE_ROWS}")
+    align = 16 // math.gcd(16, c * itemsize)
+    wlo, whi, _ = _axis_lerp_coeffs(w, out_w, align_corners)
+    tiles, runs, _ = upsample_column_tiles(w, out_w, align_corners, tile)
+    cols = max(int(whi[x1 - 1]) - int(wlo[x0]) // align * align + 1 for x0, x1 in tiles)
+    row_bytes = -(-cols * c * itemsize // 16) * 16
+    mask_rows = 4 if rows > 2 else 2  # the kernel's R
+    smem = 4 * mask_rows * (tile + tile // 8) + 2 * row_bytes  # padded mask rows; 2 staged rows
+    if smem > _H_SMEM_MAX:
+        raise ValueError(f"upsample_plan: two staged rows of {cols} columns x {c} classes and "
+                         f"the mask buffer need {smem} bytes of shared memory, more than "
+                         f"{_H_SMEM_MAX}")
+    nrows = len(upsample_row_runs(h, out_h, align_corners, rows))
+    if len(tiles) * nrows * n > 2**31 - 1:
+        raise ValueError(f"upsample_plan: {len(tiles)} x {nrows} x {n} blocks, more than a "
+                         "grid holds")
+    return UpsamplePlan(tile, rows, cols, len(runs), align, smem, (len(tiles), nrows, n))
 
 
 def h_lerp_argmax(xw, out_h, align_corners=True, tile=None, rows=None):

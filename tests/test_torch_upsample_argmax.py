@@ -20,9 +20,14 @@ import torch
 from fastscnn_tpu_torch.ops.cuda import h_lerp_argmax, upsample_argmax, w_matmul_h_lerp_argmax
 from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (
     H_LERP_TILES,
+    UPSAMPLE_ROWS,
+    UPSAMPLE_TILES,
     _matmul_h,
     h_lerp_plan,
     h_lerp_strips,
+    upsample_column_tiles,
+    upsample_plan,
+    upsample_row_runs,
 )
 from fastscnn_tpu_torch.ops.resize import lerp_tables
 from fastscnn_tpu_torch.ops.resize import resize_bilinear
@@ -201,3 +206,121 @@ def test_h_lerp_argmax_cpu_ignores_the_launch_plan(rng):
     np.testing.assert_array_equal(h_lerp_argmax(xw, 70, False, tile=256, rows=1).numpy(),
                                   ref.numpy())
     assert h_lerp_argmax.launches == before
+
+
+# -- B1's launch plan ------------------------------------------------------------
+def _check_upsample_plan(plan, n, h, w, c, out_h, out_w, itemsize, align_corners):
+    """Every output pixel in exactly one (tile, row run) and one lane's
+    column run; each run's rows and each lane's columns share one source
+    pair, so a run's two staged rows hold [hlo, hhi] of its rows; each
+    tile's staged source columns hold [wlo, whi] of its columns, from a
+    16-byte boundary of the NHWC row; the staging and the mask buffer fit
+    the block's shared memory."""
+    cpu = torch.device("cpu")
+    hlo, hhi, _ = (t.numpy() for t in lerp_tables(h, out_h, align_corners, cpu))
+    wlo, whi, _ = (t.numpy() for t in lerp_tables(w, out_w, align_corners, cpu))
+    row_runs = upsample_row_runs(h, out_h, align_corners, plan.rows)
+    assert len(row_runs) == plan.grid[1] and plan.grid[2] == n
+    rows_seen = np.zeros(out_h, np.int64)
+    for y, k in row_runs:
+        assert 1 <= k <= plan.rows
+        assert np.all(hlo[y:y + k] == hlo[y]) and np.all(hhi[y:y + k] == hhi[y])
+        rows_seen[y:y + k] += 1
+    assert np.all(rows_seen == 1)
+    tiles, runs, starts = upsample_column_tiles(w, out_w, align_corners, plan.tile)
+    assert len(tiles) == plan.grid[0] and len(starts) == len(tiles) + 1
+    assert starts[-1] == len(runs)
+    cols_seen = np.zeros(out_w, np.int64)
+    for t, (x0, x1) in enumerate(tiles):
+        assert x0 % 4 == 0 and 0 < x1 - x0 <= plan.tile
+        mine = runs[starts[t]:starts[t + 1]]
+        assert 1 <= len(mine) <= 32
+        for s, k in mine:
+            assert x0 <= s and s + k <= x1 and 1 <= k <= plan.tile // 32
+            assert np.all(wlo[s:s + k] == wlo[s])  # one source pair a run
+            cols_seen[s:s + k] += 1
+        j0 = wlo[x0] // plan.align * plan.align
+        assert (j0 * c * itemsize) % 16 == 0
+        assert np.all(wlo[x0:x1] >= j0) and whi[x1 - 1] - j0 + 1 <= plan.staged_cols
+        assert np.all(whi[x0:x1] <= whi[x1 - 1])
+    assert np.all(cols_seen == 1)
+    row_bytes = -(-plan.staged_cols * c * itemsize // 16) * 16
+    mask_rows = 4 if plan.rows > 2 else 2
+    assert plan.smem == 4 * mask_rows * plan.tile * 9 // 8 + 2 * row_bytes <= 227 * 1024
+    assert plan.runs == len(runs)
+    assert plan.tile in UPSAMPLE_TILES and plan.rows in UPSAMPLE_ROWS
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("c", [2, 3, 19])
+@pytest.mark.parametrize("out_w", [2048, 2000])
+def test_upsample_plan_at_the_serving_shape(n, align_corners, c, out_w):
+    """(N, 128, 256, C) bf16 logits to (1,024, W), the serving path's B1
+    input, at N = 1 and 2 and a ragged W: every pixel in one tile, row run
+    and column run, the staging covers every pixel's taps, the grid holds
+    at least two blocks for each of the H100's 132 SMs, the block fits,
+    and the plan is a function of the shape."""
+    plan = upsample_plan(n, 128, 256, c, 1024, out_w, 2, align_corners)
+    assert plan == upsample_plan.__wrapped__(n, 128, 256, c, 1024, out_w, 2, align_corners)
+    _check_upsample_plan(plan, n, 128, 256, c, 1024, out_w, 2, align_corners)
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 264
+    assert plan.smem <= 16 * 1024
+
+
+@pytest.mark.parametrize("shape,out,itemsize", [
+    ((1, 1, 7, 19), (8, 56), 2),        # h of 1
+    ((2, 9, 1, 3), (72, 5), 4),         # w of 1
+    ((1, 16, 40, 19), (16, 321), 2),    # in == out along H
+    ((1, 17, 64, 5), (136, 64), 4),     # in == out along W
+    ((1, 64, 90, 5), (30, 33), 4),      # a downsample on both axes
+    ((1, 8, 4096, 19), (16, 8192), 4),  # w * C * 4 beyond the old 227 KB whole-row limit
+    ((3, 5, 33, 2), (41, 262), 2),      # odd sizes, W % 4 != 0
+])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_upsample_plan_odd_shapes_and_forced_runs(shape, out, itemsize, align_corners):
+    """Odd shapes with the plan's tiles and row runs and with forced ones:
+    every tile at every count of rows a run."""
+    n, h, w, c = shape
+    args = (n, h, w, c, *out, itemsize, align_corners)
+    _check_upsample_plan(upsample_plan(*args), *args)
+    for tile in UPSAMPLE_TILES:
+        for rows in UPSAMPLE_ROWS:
+            _check_upsample_plan(upsample_plan(*args, tile=tile, rows=rows), *args)
+
+
+def test_upsample_runs_at_x8():
+    """At the serving path's x8 the runs fill the lanes and the rows: 256
+    source columns to 2,048 take 9 tiles of at most 32 runs, most of them
+    8 columns of one source pair, and 128 source rows to 1,024 take at
+    most 264 row runs, most of them 4 rows of one source row pair."""
+    for align_corners in (True, False):
+        tiles, runs, _ = upsample_column_tiles(256, 2048, align_corners, 256)
+        assert len(tiles) == 9 and len(runs) <= 9 * 32
+        assert sum(k == 8 for _, k in runs) >= 240
+        row_runs = upsample_row_runs(128, 1024, align_corners, 4)
+        assert len(row_runs) <= 264 and sum(k == 4 for _, k in row_runs) >= 250
+
+
+def test_upsample_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="empty"):
+        upsample_plan(1, 128, 0, 19, 1024, 2048, 2)
+    with pytest.raises(ValueError, match="no tile"):
+        upsample_plan(1, 128, 256, 19, 1024, 2048, 2, tile=64)
+    with pytest.raises(ValueError, match="rows a run"):
+        upsample_plan(1, 128, 256, 19, 1024, 2048, 2, rows=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        upsample_plan(1, 4, 4096, 19, 8, 64, 4)  # a tile of 32 columns spans 2,048 source columns
+    with pytest.raises(ValueError, match="grid"):
+        upsample_plan(2**20, 4, 4, 2, 65536, 8, 2)  # 16,384 row runs of 2**20 images
+
+
+def test_upsample_argmax_cpu_ignores_the_launch_plan(rng):
+    """On a CPU tensor the wrapper takes the plain version whatever tile or
+    run it is given, and launches nothing."""
+    x = torch.from_numpy(rng.standard_normal((2, 9, 13, 3)).astype(np.float32))
+    before = upsample_argmax.launches
+    ref = upsample_argmax(x, (70, 99), False)
+    np.testing.assert_array_equal(upsample_argmax(x, (70, 99), False, tile=128, rows=1).numpy(),
+                                  ref.numpy())
+    assert upsample_argmax.launches == before
