@@ -39,6 +39,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    request again in f32, where the masks of A and B must agree with the
    kernel-free config, and a small f32 input through configs A to D on the
    card against the same configurations on the CPU;
+4b. the serving server (:func:`server_phase`): config A in bf16 with uint8
+   masks behind ``serving.BatchingPredictor`` (buckets 1, 2, 4, each a
+   CUDA graph captured by ``InferenceEngine.predict_fn`` before traffic)
+   and ``serving.ServingServer`` on 127.0.0.1: ``/healthz`` and
+   ``/stats``, 8 client threads × 3 distinct frames, every answer equal to
+   ``engine.predict`` of its frame on every pixel, fewer batches than
+   requests, the graphs' launches (captured × replays), latency p50/p99;
+4c. ``predict_fn`` and ``throughput_fn`` in ref and configs A to D
+   (:func:`graph_phase`): each graph's output equal to ``predict``'s, its
+   captured launches equal to phase 4's, ms/frame of a replay beside eager
+   ``predict``'s, a profile of one eager request, and ``throughput_fn``'s
+   fps at batch 1, 2 and 8, 60 iterations taking 2x (±15 %) the time of 30;
 5. kernel B6 (``dw_conv3x3_vjp``: forward through B4's kernel, dX and dW
    through the kernels of ``csrc/dw_conv_bwd.cu``) at the training stem's
    two depthwise sites (batch 16 of 768x768 crops, bf16), each part held
@@ -53,8 +65,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    losses must be finite and fall, with the B6 launch counters at 2 per
    step for each part; then ms/step, samples/s and peak device memory,
    and a ``torch.profiler`` breakdown of the step's device time;
-7. one JSON line ``{"kernels": [...]}`` and, last, the device line
-   ``{"ok": true, "device": {...}}``.
+7. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4 and 6, plus the captured launches × the
+   replays of the graphs of phases 4b and 4c, which no wrapper sees) and,
+   last, the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
@@ -987,9 +1001,23 @@ def calibrated_state(frames):
     return model.eval().state_dict()
 
 
+# label, folded_dw_impl, folded_pw_impl, final_upsample, launches per request
+SERVING_CONFIGS = (
+    ("ref", "conv", "conv", "hybrid", {}),
+    ("A", "fused-ds", "conv", "pallas", {"ds_conv3x3_pw": 2, "upsample_argmax": 1}),
+    ("B", "pallas", "conv", "hybrid-pallas", {"dw_conv3x3": 2, "h_lerp_argmax": 1}),
+    ("C", "fused-ds-mr", "int8-a8", "pallas",
+     {"ds_conv3x3_pw_multirow": 2, "pw_conv_a8": 23, "upsample_argmax": 1}),
+    ("D", "pallas", "int8-w8a8", "hybrid-pallas",
+     {"dw_conv3x3": 2, "pw_conv_w8a8": 25, "h_lerp_argmax": 1}),
+)
+
+
 def serving_phase():
     """Phase 4: the port's serving path through its entry points.
-    Returns {kernel name: launches in the run of the config that uses it}."""
+    Returns {kernel name: launches in the run of the config that uses it}
+    and the engine factory ``engine(impl, mode, dtype, ...)`` over the
+    calibrated weights and int8 scales, for phases 4b and 4c."""
     import torch
 
     from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
@@ -1021,13 +1049,14 @@ def serving_phase():
     calib = frames(BATCH)
     state = calibrated_state(calib)
 
-    def engine(impl, mode, dtype, device=dev, pw="conv", hook=None):
+    def engine(impl, mode, dtype, device=dev, pw="conv", hook=None, mask="int32"):
         model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl, act_fake_quant=hook)
         model.load_state_dict(state)
         if pw != "conv":
             model = quantized_model(model, scales, pw)
         return InferenceEngine(model, device=device, config=E2EConfig(
-            mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
+            mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode,
+            mask_dtype=mask))
 
     # int8 scales: once, on the kernel-free model in the serving dtype, over
     # the calibration frames, normalised as the engine does
@@ -1049,15 +1078,7 @@ def serving_phase():
             return (quantize_act(y, s).float() * torch.tensor(s, device=y.device)).to(y.dtype)
 
     batches = [frames(BATCH) for _ in range(REQUESTS)]
-    configs = (  # label, folded_dw_impl, folded_pw_impl, final_upsample, launches per request
-        ("ref", "conv", "conv", "hybrid", {}),
-        ("A", "fused-ds", "conv", "pallas", {"ds_conv3x3_pw": 2, "upsample_argmax": 1}),
-        ("B", "pallas", "conv", "hybrid-pallas", {"dw_conv3x3": 2, "h_lerp_argmax": 1}),
-        ("C", "fused-ds-mr", "int8-a8", "pallas",
-         {"ds_conv3x3_pw_multirow": 2, "pw_conv_a8": 23, "upsample_argmax": 1}),
-        ("D", "pallas", "int8-w8a8", "hybrid-pallas",
-         {"dw_conv3x3": 2, "pw_conv_w8a8": 25, "h_lerp_argmax": 1}),
-    )
+    configs = SERVING_CONFIGS
     launches, failures = {}, []
     # bf16 is the serving configuration: timed, launch counts gated, its
     # agreement with ref reported. f32 repeats the first request: there the
@@ -1171,6 +1192,242 @@ def serving_phase():
             failures.append(f"f32 config {label}: agreement {agree} < {KERNEL_MASK_GATE}")
     if failures:
         raise AssertionError("; ".join(failures))
+    return launches, engine
+
+
+# phase 4b: the serving server's buckets and its clients
+SERVER_BUCKETS = (1, 2, 4)
+SERVER_CLIENTS, SERVER_FRAMES = 8, 3  # client threads, distinct frames each
+# phase 4c: predict_fn's batches; throughput_fn's batches, loop lengths and
+# trials, and the bounds on the time of 60 iterations against 30 (2x, 15 %)
+GRAPH_BATCHES = (1, 2)
+THROUGHPUT_BATCHES = (1, 2, 8)
+THROUGHPUT_ITERS = (30, 60)
+THROUGHPUT_TRIALS = 5
+LOOP_RATIO = (1.7, 2.3)
+
+
+def _graph_launches(fns):
+    """{kernel: launches} of graphed callables: each one's captured
+    launches times its replays (a replay does not pass through the
+    wrappers, whose counters see the capture only)."""
+    out = {}
+    for fn in fns:
+        for name, n in fn.launches.items():
+            out[name] = out.get(name, 0) + n * fn.replays
+    return out
+
+
+def server_phase(engine):
+    """Phase 4b: the serving server (``fastscnn_tpu_torch.serving``) in
+    config A, bf16, uint8 masks: a ``BatchingPredictor`` over
+    ``predict_fn``'s CUDA graphs, behind a ``ServingServer`` on
+    127.0.0.1. Returns the kernel launches of the graphs' replays."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.serving import BatchingPredictor, ServingServer
+
+    eng = engine("fused-ds", "pallas", "bfloat16", mask="uint8")
+    want = {"ds_conv3x3_pw": 2, "upsample_argmax": 1}  # a capture, any batch
+    fns, failures = {}, []
+    for b in SERVER_BUCKETS:  # captured before traffic is accepted, as serving.main does
+        t0 = time.perf_counter()
+        fn = eng.predict_fn((b, HEIGHT, WIDTH, 3))
+        fn(np.zeros((b, HEIGHT, WIDTH, 3), np.uint8)).cpu()
+        _print(f"server bucket {b}: warm-up and capture {time.perf_counter() - t0:.2f} s, graph "
+               f"pool grew {fn.pool_bytes} bytes, captured launches {fn.launches}")
+        if fn.launches != want:
+            failures.append(f"bucket {b}: captured launches {fn.launches}, expected {want}")
+        fns[b] = fn
+    predictor = BatchingPredictor(lambda batch: eng.predict_fn(batch.shape)(batch),
+                                  (HEIGHT, WIDTH), max_batch=SERVER_BUCKETS[-1],
+                                  bucket_sizes=SERVER_BUCKETS)
+    server = ServingServer(predictor, "citys", host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.start()}"
+    rng = np.random.default_rng(SEED + 2)
+    frames = [rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
+              for _ in range(SERVER_CLIENTS * SERVER_FRAMES)]
+    answers, errors = [None] * len(frames), []
+
+    def client(t):
+        try:
+            for i in range(t * SERVER_FRAMES, (t + 1) * SERVER_FRAMES):
+                answers[i] = predictor.predict(frames[i], timeout=120)
+        except Exception as e:  # recorded, raised below
+            errors.append(f"client {t}: {e!r}")
+
+    try:
+        health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=10).read())
+        reset_launch_counts()
+        for fn in fns.values():
+            fn.replays = 0
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVER_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=10).read())
+    finally:
+        server.stop()
+    if any(th.is_alive() for th in threads) or errors:
+        raise AssertionError(f"server clients failed: {errors or 'a client did not finish'}")
+    graph = _graph_launches(fns.values())
+    replays = {b: fn.replays for b, fn in fns.items()}
+    _print(f"server: /healthz {health}; {stats['requests']} requests in {stats['batches']} "
+           f"batches in {wall:.3f} s ({stats['requests'] / wall:.1f} frames/s), replays by "
+           f"bucket {replays}, batch sizes {stats.get('batch_size_hist')}, mean batch size "
+           f"{stats.get('mean_batch_size', 0):.3f}; latency p50 "
+           f"{stats.get('latency_ms_p50', 0):.3f} ms, p95 {stats.get('latency_ms_p95', 0):.3f}, "
+           f"p99 {stats.get('latency_ms_p99', 0):.3f}; /stats device {stats['device']}")
+    _print(f"  launches from the graphs (captured x replays) {graph}; from the wrappers "
+           f"during traffic {({k: v for k, v in counts.items() if v})}")
+    if health != {"status": "ok"}:
+        failures.append(f"/healthz answered {health}")
+    if stats["requests"] != len(frames) or not stats["batches"] < len(frames):
+        failures.append(f"/stats: {stats['requests']} requests in {stats['batches']} batches")
+    if sum(replays.values()) != stats["batches"] or any(counts.values()):
+        failures.append(f"replays {replays} for {stats['batches']} batches, eager launches "
+                        f"{counts}")
+    if graph != {k: v * stats["batches"] for k, v in want.items()}:
+        failures.append(f"graph launches {graph} for {stats['batches']} batches")
+    # every answer against the eager engine on its own frame
+    differ = []
+    for i, (frame, answer) in enumerate(zip(frames, answers)):
+        ref = eng.predict(torch.from_numpy(frame).to("cuda")).cpu().numpy()
+        if answer.shape != ref.shape or answer.dtype != np.uint8:
+            failures.append(f"answer {i}: {answer.dtype} {answer.shape}, expected uint8 "
+                            f"{ref.shape}")
+        elif (answer != ref).any():
+            differ.append((i, int((answer != ref).sum())))
+    _print(f"  answers equal to engine.predict(frame) on every pixel: "
+           f"{len(frames) - len(differ)} of {len(frames)}")
+    if differ:
+        i = differ[0][0]
+        x1 = torch.from_numpy(frames[i][None]).to("cuda")
+        x4 = torch.zeros((SERVER_BUCKETS[-1], HEIGHT, WIDTH, 3), dtype=torch.uint8, device="cuda")
+        x4[0] = x1[0]
+        e1, g1 = eng.predict(x1), fns[1](x1)
+        e4, g4 = eng.predict(x4)[:1], fns[SERVER_BUCKETS[-1]](x4)[:1]
+        _print(f"  answer {i} differs: pixels differing, eager N=1 vs graph N=1 "
+               f"{int((e1 != g1).sum())}, eager N=1 vs eager N={SERVER_BUCKETS[-1]} "
+               f"{int((e1 != e4).sum())}, graph N={SERVER_BUCKETS[-1]} vs eager "
+               f"N={SERVER_BUCKETS[-1]} {int((g4 != e4).sum())}")
+        failures.append(f"answers differing from engine.predict (index, pixels): {differ}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return graph
+
+
+def graph_phase(engine):
+    """Phase 4c: ``predict_fn`` and ``throughput_fn`` in ref and configs A
+    to D (bf16, the calibrated weights): each graph's output against
+    ``predict``'s and its captured launches against phase 4's counts;
+    ms/frame of a replay with its copies, by CUDA events and by the host
+    clock, beside eager ``predict``'s; ``throughput_fn``'s fps at batch
+    1, 2 and 8, with 60 iterations taking 2x the time of 30; and a
+    profile of one eager request. Returns the graphs' kernel launches."""
+    import gc
+
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def frames(n):
+        return torch.randint(0, 256, (n, HEIGHT, WIDTH, 3), generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    def host_ms(fn, calls=20):
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    launches, failures = {}, []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for label, impl, pw, mode, per_request in SERVING_CONFIGS:
+        eng = engine(impl, mode, "bfloat16", pw=pw)
+        fns = []
+        for n in GRAPH_BATCHES:
+            x = frames(n)
+            t0 = time.perf_counter()
+            fn = eng.predict_fn(tuple(x.shape))
+            capture_s = time.perf_counter() - t0
+            eager = eng.predict(x)
+            got = fn(x)
+            fn(frames(n))  # a later replay must leave the earlier result as it was
+            diff = int((got != eager).sum())
+            if diff or fn.launches != per_request:
+                failures.append(f"config {label} N={n}: predict_fn differs from predict on "
+                                f"{diff} pixels, captured launches {fn.launches}, expected "
+                                f"{per_request}")
+            dev_ms = time_ms(lambda: fn(x)) / n
+            window_ms = time_ms(lambda: fn(x), spin=False) / n
+            clock_ms = host_ms(lambda: fn(x)) / n
+            eager_ms = time_ms(lambda: eng.predict(x), spin=False) / n
+            eager_clock = host_ms(lambda: eng.predict(x)) / n
+            _print(f"predict_fn config {label} N={n}: {diff} pixels differ from predict; "
+                   f"warm-up and capture {capture_s:.2f} s, pool grew {fn.pool_bytes} bytes, "
+                   f"captured launches {fn.launches}; ms/frame: replay + copies {dev_ms:.4f} "
+                   f"(CUDA events, spin first), {window_ms:.4f} (no spin), {clock_ms:.4f} (host "
+                   f"clock, synchronised); eager predict {eager_ms:.4f} (no spin), "
+                   f"{eager_clock:.4f} (host clock)")
+            fns.append(fn)
+            if n == 1:
+                profile_steps(lambda: eng.predict(x), eager_ms, steps=3, top=6,
+                              what=f"config {label} eager request (N=1)",
+                              mark=("the port's kernels", "fastscnn"))
+        for n in THROUGHPUT_BATCHES:
+            x = frames(n)
+            per = {}
+            for iters in THROUGHPUT_ITERS:
+                fn = eng.throughput_fn(tuple(x.shape), iters=iters)
+                first = int(fn(x))
+                dev_t, clock_t, sums = [], [], []
+                for _ in range(THROUGHPUT_TRIALS):
+                    start.record()
+                    t0 = time.perf_counter()
+                    checksum = fn(x)
+                    end.record()
+                    sums.append(int(checksum))
+                    clock_t.append((time.perf_counter() - t0) * 1e3)
+                    dev_t.append(start.elapsed_time(end))
+                want = {k: v * iters for k, v in per_request.items()}
+                if fn.launches != want or set(sums) != {first}:
+                    failures.append(f"throughput_fn config {label} N={n} iters {iters}: "
+                                    f"captured launches {fn.launches}, expected {want}; "
+                                    f"checksums {first}, {sums}")
+                per[iters] = statistics.median(dev_t)
+                _print(f"throughput_fn config {label} N={n} iters {iters}: "
+                       f"{n * iters * 1e3 / per[iters]:.1f} fps, "
+                       f"{per[iters] / (n * iters):.4f} ms/frame (CUDA events, median of "
+                       f"{THROUGHPUT_TRIALS}); host clock {statistics.median(clock_t):.3f} ms a "
+                       f"replay; checksum {first}; pool grew {fn.pool_bytes} bytes")
+                fns.append(fn)
+            ratio = per[THROUGHPUT_ITERS[1]] / per[THROUGHPUT_ITERS[0]]
+            _print(f"  config {label} N={n}: iters {THROUGHPUT_ITERS[1]} / "
+                   f"{THROUGHPUT_ITERS[0]} time ratio {ratio:.4f}")
+            if not LOOP_RATIO[0] <= ratio <= LOOP_RATIO[1]:
+                failures.append(f"throughput_fn config {label} N={n}: time ratio {ratio:.4f} "
+                                f"outside {LOOP_RATIO}")
+        for name, n in _graph_launches(fns).items():
+            launches[name] = launches.get(name, 0) + n
+        del eng, fns, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
     return launches
 
 
@@ -1195,10 +1452,13 @@ def training_batch(dev):
     return images, targets
 
 
-def profile_steps(run_step, step_ms, steps=3, top=15):
-    """Where a train step's device time goes: ``torch.profiler`` over a few
+def profile_steps(run_step, step_ms, steps=3, top=15, what="bf16 train step",
+                  mark=("B6 kernels (forward, dX, dW passes)", "dw_conv3x3")):
+    """Where a step's device time goes: ``torch.profiler`` over a few
     steps, the device kernels' self time by name (ms per step and share of
-    the step's CUDA-event time ``step_ms``), and the device busy share."""
+    the step's time ``step_ms``), the device busy share, and the time of
+    the kernels whose name holds ``mark[1]``. Returns the busy ms a step
+    (None where the profiler recorded no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1214,14 +1474,15 @@ def profile_steps(run_step, step_ms, steps=3, top=15):
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         _print("profile: the profiler recorded no device time (not measured)")
-        return
-    _print(f"profile of {steps} bf16 train steps: device busy {busy:.2f} ms/step of "
-           f"{step_ms:.2f} ms/step ({busy / step_ms:.3f}; idle {1 - busy / step_ms:.3f}), "
+        return None
+    _print(f"profile of {steps} x {what}: device busy {busy:.3f} ms/step of "
+           f"{step_ms:.3f} ms/step ({busy / step_ms:.3f}; idle {1 - busy / step_ms:.3f}), "
            f"{sum(c for _, _, c in rows):.0f} device ops/step; top {top} by self device time:")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         _print(f"  {ms:8.3f} ms/step {ms / busy:6.3f} x{count:5.0f}  {name[:110]}")
-    b6 = sum(ms for name, ms, _ in rows if "dw_conv3x3" in name)
-    _print(f"  B6 kernels (forward, dX, dW passes): {b6:.3f} ms/step, {b6 / busy:.4f} of device time")
+    marked = sum(ms for name, ms, _ in rows if mark[1] in name)
+    _print(f"  {mark[0]}: {marked:.3f} ms/step, {marked / busy:.4f} of device time")
+    return busy
 
 
 def training_phase():
@@ -1828,6 +2089,7 @@ def tune_mask() -> None:
 
 def main() -> int:
     import argparse
+    import gc
 
     import torch
 
@@ -1905,14 +2167,22 @@ def main() -> int:
     _print("the redesigned kernels beside their library calls, timed three ways (device; "
            "windows without the spin, host issue time included; host us a call):")
     print_dw_costs(dw_costs())
-    launches = serving_phase()
+    launches, engine = serving_phase()
+    for part in (server_phase(engine), graph_phase(engine)):
+        for kernel, n in part.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _print(f"device memory still allocated before the training phase: "
+           f"{torch.cuda.memory_allocated()} bytes")
     launches.update(training_phase())
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
     _print(json.dumps({"kernels": kernels}))
-    _print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    _print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
 

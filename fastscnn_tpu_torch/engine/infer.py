@@ -12,24 +12,41 @@ logits (``align_corners=True``) and the argmax, in the formulation that
   logits in device memory;
 - ``'hybrid'``: W-first interp-matmul, H interp-matmul, ``argmax``;
 - ``'hybrid-pallas'``: the same W-first matmul, then kernel B2 for the H
-  pass and argmax.
+  pass and argmax;
+- ``'nbr-exact'``: the low-resolution argmax where an output pixel's 2x2
+  source footprint agrees on one class, the ``'hybrid'`` plan elsewhere
+  (``neighborhood_agreement_mask``);
+- ``'argmax-first'``: argmax at 1/8 resolution, then a nearest ×8
+  expansion — a different result by design (mask boundaries on the 8-px
+  grid), opt in.
 
 The JAX mode names are kept so configurations map one to one. The
 softmax and logits paths use the matmul (or, for ``'gather'``, the lerp)
-upsample in every mode. ``'nbr-exact'`` and ``'argmax-first'`` are not
-ported yet.
+upsample in every mode.
+
+``predict`` runs eagerly. ``predict_fn(shape)`` and ``throughput_fn``
+are the counterparts of the JAX engine's executable per shape: on the
+card each is one captured CUDA graph, replayed per call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import threading
+from typing import Callable
 
 import numpy as np
 import torch
 
 from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.models.fast_scnn import FastSCNN, fold_inference_params
-from fastscnn_tpu_torch.ops.cuda.upsample_argmax import upsample_argmax, w_matmul_h_lerp_argmax
+from fastscnn_tpu_torch.ops.cuda import launch_counts
+from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (
+    neighborhood_agreement_mask,
+    upsample_argmax,
+    w_matmul_h_lerp_argmax,
+)
 from fastscnn_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_matmul, resize_nearest
 
 __all__ = ["InferenceEngine", "E2EConfig", "IMAGENET_MEAN", "IMAGENET_STD", "FINAL_UPSAMPLE_MODES"]
@@ -37,8 +54,13 @@ __all__ = ["InferenceEngine", "E2EConfig", "IMAGENET_MEAN", "IMAGENET_STD", "FIN
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-FINAL_UPSAMPLE_MODES = ("matmul", "gather", "pallas", "hybrid", "hybrid-pallas")
-_NOT_PORTED_MODES = ("nbr-exact", "argmax-first")
+FINAL_UPSAMPLE_MODES = (
+    "matmul", "gather", "pallas", "hybrid", "hybrid-pallas", "nbr-exact", "argmax-first",
+)
+# eager passes before a capture: they fill the cached tables, let cuDNN
+# pick its algorithms, load the kernels' modules and set their
+# shared-memory attributes, none of which a capture may do
+WARMUP_PASSES = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +109,6 @@ class InferenceEngine:
     """
 
     def __init__(self, model: FastSCNN, device=None, config: E2EConfig = E2EConfig()):
-        if config.final_upsample in _NOT_PORTED_MODES:
-            raise NotImplementedError(
-                f"final_upsample={config.final_upsample!r} is not ported yet "
-                "(ROADMAP.md, queue item 'nbr-exact and argmax-first')"
-            )
         if config.final_upsample not in FINAL_UPSAMPLE_MODES:
             raise ValueError(f"unknown final_upsample {config.final_upsample!r}")
         self.device = resolve_device(device)
@@ -105,6 +122,13 @@ class InferenceEngine:
             self._mean = torch.tensor(config.mean, dtype=self._dtype, device=self.device)
             self._std = torch.tensor(std, dtype=self._dtype, device=self.device)
         self._inv255 = torch.tensor(1.0 / 255.0, dtype=self._dtype, device=self.device)
+        self._fns: dict = {}
+        self._fns_lock = threading.Lock()
+        # the graphs' shared memory pool and the one side stream of their
+        # warm-ups and captures, made at the first capture: the process
+        # keeps a cuBLAS workspace for each stream that runs a matmul, so a
+        # new stream a capture would keep one more workspace each time
+        self._pool = self._stream = None
 
     # -- graph pieces -------------------------------------------------------
     def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
@@ -143,35 +167,166 @@ class InferenceEngine:
                 self._forward(images, upsample=False), size, align_corners=True,
                 use_kernel=mode == "hybrid-pallas", out_dtype=self._mask_dtype,
             )
+        if mode == "nbr-exact":
+            return neighborhood_agreement_mask(
+                self._forward(images, upsample=False), size, align_corners=True,
+                out_dtype=self._mask_dtype,
+            )
+        if mode == "argmax-first":
+            mask = self._forward(images, upsample=False).argmax(dim=-1).to(torch.int32)
+            return resize_nearest(mask, size)
         return self._forward(images).argmax(dim=-1).to(torch.int32)
+
+    def _predict_batch(self, images: torch.Tensor) -> torch.Tensor:
+        """The whole of ``predict`` for an (N, H, W, 3) batch on the device."""
+        out_size = tuple(images.shape[1:3])
+        if self.config.softmax:
+            probs = torch.softmax(self._forward(images).float(), dim=-1)
+            if tuple(probs.shape[1:3]) != out_size:
+                probs = resize_bilinear(probs, out_size, align_corners=False)
+            return probs
+        mask = self._mask_at_net_res(images)
+        if tuple(mask.shape[1:3]) != out_size:
+            mask = resize_nearest(mask, out_size)
+        return mask.to(self._mask_dtype)
+
+    def _checksum_loop(self, x_in: torch.Tensor, iters: int) -> torch.Tensor:
+        """``iters`` forwards of the mask path, each on an input that the
+        previous mask changed (the JAX ``throughput_fn``'s chain): the
+        first image's pixel (0, 0) gains ``m[0, 0, 0] % 2`` and the
+        checksum ``m[0, 0, 0]``, so no forward repeats the one before."""
+        out_size = tuple(x_in.shape[1:3])
+        x = x_in.clone()
+        acc = torch.zeros((), dtype=torch.int32, device=x.device)
+        for _ in range(iters):
+            m = self._mask_at_net_res(x)
+            if tuple(m.shape[1:3]) != out_size:
+                m = resize_nearest(m, out_size)
+            x[0, 0, 0, 0].add_((m[0, 0, 0] % 2).to(x.dtype))
+            acc.add_(m[0, 0, 0])
+        return acc
 
     def _as_input(self, images) -> torch.Tensor:
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         return images.to(self.device)
 
+    def _graphed(self, body: Callable, warm: Callable, shape, what: str) -> Callable:
+        """``body(static_in)`` captured as one CUDA graph over a static
+        uint8 input of ``shape``: :data:`WARMUP_PASSES` eager passes of
+        ``warm`` (which launches what ``body`` launches), then the capture
+        into the engine's memory pool, both on the engine's side stream. The
+        returned ``run(images)`` copies ``images`` (numpy, or a tensor on
+        the CPU or the card) into the static input on the current stream,
+        replays the graph and returns a copy of the static output made on
+        the same stream, so a later replay cannot overwrite a result that a
+        caller still holds. ``run.launches`` holds the kernel launches the
+        capture made (each replay launches them again; the wrappers' own
+        counters see only the capture), ``run.replays`` the replays so far
+        and ``run.pool_bytes`` the device memory the capture reserved. A
+        failed capture raises."""
+        dev = self.device
+        if self._pool is None:
+            self._pool, self._stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+        side = self._stream
+        static_in = torch.zeros(shape, dtype=torch.uint8, device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.inference_mode():
+            for _ in range(WARMUP_PASSES):
+                warm(static_in)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved, before = torch.cuda.memory_reserved(dev), launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(graph, pool=self._pool, stream=side):
+            static_out = body(static_in)
+        after = launch_counts()
+
+        @torch.inference_mode()
+        def run(images):
+            if isinstance(images, np.ndarray):
+                images = torch.from_numpy(np.ascontiguousarray(images))
+            if tuple(images.shape) != tuple(shape) or images.dtype != torch.uint8:
+                raise ValueError(f"{what} captured for uint8 {tuple(shape)}, got "
+                                 f"{images.dtype} {tuple(images.shape)}")
+            if images.device.type == "cpu":
+                images = images.pin_memory()  # an asynchronous copy, its buffer held until done
+            static_in.copy_(images, non_blocking=True)
+            graph.replay()
+            run.replays += 1
+            return static_out.clone()
+
+        run.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        run.replays = 0
+        run.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        return run
+
+    def _eager(self, body: Callable, shape, what: str) -> Callable:
+        """``body`` with :meth:`_graphed`'s contract, run eagerly (the CPU)."""
+
+        @torch.inference_mode()
+        def run(images):
+            images = self._as_input(images)
+            if tuple(images.shape) != tuple(shape) or images.dtype != torch.uint8:
+                raise ValueError(f"{what} for uint8 {tuple(shape)}, got "
+                                 f"{images.dtype} {tuple(images.shape)}")
+            run.replays += 1
+            return body(images)
+
+        run.launches, run.replays, run.pool_bytes = {}, 0, 0
+        return run
+
+    def _cached(self, key, body: Callable, warm: Callable, shape, what: str) -> Callable:
+        with self._fns_lock:
+            if key not in self._fns:
+                shape = tuple(int(d) for d in shape)
+                self._fns[key] = (self._graphed(body, warm, shape, what)
+                                  if self.device.type == "cuda" else self._eager(body, shape, what))
+            return self._fns[key]
+
     # -- public API ---------------------------------------------------------
     @torch.inference_mode()
     def predict(self, images) -> torch.Tensor:
         """uint8 NHWC batch (numpy or tensor) → (N, H, W) mask in
         ``mask_dtype`` (or (N, H, W, C) f32 softmax probabilities when
-        ``config.softmax``), on the engine's device."""
+        ``config.softmax``), on the engine's device.
+
+        Eager: every call launches its kernels from Python. The JAX
+        ``predict`` goes through its per-shape executables; here that is
+        :meth:`predict_fn`, kept apart because a CUDA graph holds its
+        activation memory for as long as the engine lives."""
         images = self._as_input(images)
         squeeze = images.ndim == 3
         if squeeze:
             images = images[None]
-        out_size = tuple(images.shape[1:3])
-        if self.config.softmax:
-            probs = torch.softmax(self._forward(images).float(), dim=-1)
-            if tuple(probs.shape[1:3]) != out_size:
-                probs = resize_bilinear(probs, out_size, align_corners=False)
-            out = probs
-        else:
-            mask = self._mask_at_net_res(images)
-            if tuple(mask.shape[1:3]) != out_size:
-                mask = resize_nearest(mask, out_size)
-            out = mask.to(self._mask_dtype)
+        out = self._predict_batch(images)
         return out[0] if squeeze else out
+
+    def predict_fn(self, shape) -> Callable:
+        """The callable for uint8 batches of ``shape`` (N, H, W, 3), cached
+        per shape: it takes a batch (numpy or tensor) of exactly that shape
+        and returns what :meth:`predict` returns, as a new tensor on the
+        engine's device. On the card it is one captured CUDA graph of the
+        whole of ``predict`` (see :meth:`_graphed`; its graphs share one
+        memory pool, so replays must be issued from one stream at a time,
+        as ``serving.BatchingPredictor``'s dispatcher does); on the CPU it
+        runs eagerly."""
+        return self._cached(("predict", tuple(shape)), self._predict_batch, self._predict_batch,
+                            shape, "predict_fn")
+
+    def throughput_fn(self, shape, iters: int = 30) -> Callable:
+        """A callable that runs ``iters`` mask forwards of a uint8 batch of
+        ``shape`` back to back and returns their checksum as an int32
+        scalar on the device (the JAX ``throughput_fn``: each forward's
+        mask perturbs the next forward's input, so every iteration is real
+        work). On the card it is one captured CUDA graph holding all
+        ``iters`` forwards: a replay times the device, not the host's
+        launches. On the CPU it runs eagerly."""
+        return self._cached(("throughput", tuple(shape), int(iters)),
+                            lambda x: self._checksum_loop(x, int(iters)),
+                            lambda x: self._checksum_loop(x, 1), shape, "throughput_fn")
 
     @torch.inference_mode()
     def logits(self, images) -> torch.Tensor:

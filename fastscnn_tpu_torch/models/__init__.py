@@ -8,8 +8,11 @@ from fastscnn_tpu_torch.models.fast_scnn import (
     init_fast_scnn,
 )
 from fastscnn_tpu_torch.models.quantize import PW_INT8_SITES, calibrate_pw_scales, quantized_model
+from fastscnn_tpu_torch.models.registry import DATASET_ACRONYMS, DATASET_NUM_CLASSES
 
 __all__ = [
+    "DATASET_ACRONYMS",
+    "DATASET_NUM_CLASSES",
     "FOLDED_DW_IMPLS",
     "FOLDED_PW_IMPLS",
     "PW_INT8_SITES",

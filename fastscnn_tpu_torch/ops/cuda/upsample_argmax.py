@@ -30,7 +30,10 @@ formulations agree except in a near-tie band.
 Besides the wrappers this module carries the non-kernel parts of the JAX
 module that the engine's mask modes need: the W-first interp-matmul of
 :func:`w_matmul_h_lerp_argmax` and its H-matmul fallback :func:`_matmul_h`
-(plain ``torch.tensordot``, as the JAX package left them to XLA).
+(plain ``torch.tensordot``, as the JAX package left them to XLA), the
+``'nbr-exact'`` mask :func:`neighborhood_agreement_mask`, and
+:func:`packed_argmax`, a formulation of ``argmax`` that the JAX package
+measured and rejected and keeps tested; nothing on the serving path uses it.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a CPU
 tensor and launches its kernel for a CUDA tensor, raising on what the
@@ -58,6 +61,8 @@ from fastscnn_tpu_torch.ops.resize import (
 )
 
 __all__ = [
+    "neighborhood_agreement_mask",
+    "packed_argmax",
     "upsample_argmax",
     "h_lerp_argmax",
     "upsample_argmax_reference",
@@ -396,3 +401,53 @@ def w_matmul_h_lerp_argmax(
         return h_lerp_argmax(xw.contiguous(), out_h, align_corners).to(out_dtype)
     y = _matmul_h(xw, out_h, align_corners)
     return y.argmax(dim=2).to(out_dtype)
+
+
+def packed_argmax(y: torch.Tensor, dim: int, out_dtype=torch.int32) -> torch.Tensor:
+    """``argmax`` over ``dim`` as one max-reduce of packed int32 keys (the
+    JAX ``packed_argmax``, a rejected serving experiment kept with its
+    test): each bf16 value's bits map to an order-preserving 16-bit key
+    (negatives: all bits flipped; the rest: the sign bit set), the key goes
+    above ``C - 1 - class`` in one int32, and the class is decoded from the
+    low byte of the max. Ties go to the lowest class, as ``torch.argmax``.
+    Non-bf16 input or C > 256 takes ``torch.argmax``."""
+    dim = dim % y.ndim
+    c = y.shape[dim]
+    if y.dtype != torch.bfloat16 or c > 256:
+        return y.argmax(dim=dim).to(out_dtype)
+    u = y.view(torch.int16).to(torch.int32) & 0xFFFF
+    ordered = torch.where(u & 0x8000 != 0, ~u & 0xFFFF, u | 0x8000)
+    shape = [1] * y.ndim
+    shape[dim] = c
+    cls = torch.arange(c, dtype=torch.int32, device=y.device).reshape(shape)
+    m = ((ordered << 8) | (c - 1 - cls)).amax(dim=dim)
+    return ((c - 1) - (m & 0xFF)).to(out_dtype)
+
+
+def neighborhood_agreement_mask(logits, out_size, align_corners=True, out_dtype=torch.int32):
+    """The ``'nbr-exact'`` mask: where the four source pixels of an output
+    pixel's 2x2 bilinear footprint share one argmax class, that class (a
+    convex combination keeps it on top, and ties go to the lowest class
+    at every corner as in the full argmax); elsewhere the ``'hybrid'``
+    matmul plan, ``w_matmul_h_lerp_argmax(use_kernel=False)``.
+
+    As the JAX function: the low-resolution argmax, cell unanimity from
+    the right, lower and diagonal neighbours (edge-clamped, so border
+    cells compare with themselves), each output pixel's cell taken at
+    ⌊src⌋ of the lerp tables, then a select. JAX expands the cell by a
+    one-hot matmul (``_lo_onehot``) of ``class + 32 · unanimous``; the
+    expansion is an exact selection, so here it is an index gather of the
+    class and the flag, which also holds for C > 32."""
+    n, h, w, c = logits.shape
+    out_h, out_w = int(out_size[0]), int(out_size[1])
+    am = logits.argmax(dim=-1).to(torch.int32)
+    am_r = torch.cat([am[:, :, 1:], am[:, :, -1:]], dim=2)
+    am_d = torch.cat([am[:, 1:], am[:, -1:]], dim=1)
+    am_dr = torch.cat([am_d[:, :, 1:], am_d[:, :, -1:]], dim=2)
+    unanimous = (am == am_r) & (am == am_d) & (am == am_dr)
+    hlo = lerp_tables(h, out_h, align_corners, logits.device)[0]
+    wlo = lerp_tables(w, out_w, align_corners, logits.device)[0]
+    near_cls = am.index_select(1, hlo).index_select(2, wlo)
+    near_ok = unanimous.index_select(1, hlo).index_select(2, wlo)
+    interp = w_matmul_h_lerp_argmax(logits, out_size, align_corners, use_kernel=False)
+    return torch.where(near_ok, near_cls, interp).to(out_dtype)

@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest"]
+__all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest", "nearest_index"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,6 +163,16 @@ def _axis_nearest_index(in_size: int, out_size: int):
     return np.clip(src.astype(np.int64), 0, in_size - 1)
 
 
+@functools.lru_cache(maxsize=64)
+def nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``_axis_nearest_index`` as an int64 tensor on ``device``, cached
+    (made outside inference mode, as :func:`lerp_tables`): a call after
+    the first copies nothing from the host, so a CUDA graph can capture
+    :func:`resize_nearest`."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_axis_nearest_index(in_size, out_size)).to(device)
+
+
 def resize_nearest(
     x: torch.Tensor,
     size: tuple[int, int],
@@ -173,6 +183,5 @@ def resize_nearest(
     out_h, out_w = size
     for axis, out in ((h_axis, int(out_h)), (w_axis, int(out_w))):
         if x.shape[axis] != out:
-            idx = torch.from_numpy(_axis_nearest_index(x.shape[axis], out)).to(x.device)
-            x = x.index_select(axis, idx)
+            x = x.index_select(axis, nearest_index(x.shape[axis], out, x.device))
     return x

@@ -4,10 +4,12 @@ from fastscnn_tpu_torch.utils.metric import (
     seg_hist_update,
     seg_scores_from_hist,
 )
+from fastscnn_tpu_torch.utils.visualize import get_color_pallete
 
 __all__ = [
     "LRScheduler",
     "SegmentationMetric",
+    "get_color_pallete",
     "lr_schedule",
     "seg_hist_update",
     "seg_scores_from_hist",

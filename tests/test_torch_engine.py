@@ -95,7 +95,7 @@ def _engines(shared, impl, **cfg):
 
 # the LTD route of each mode: the kernel modes go with their kernel routes
 _IMPL = {"matmul": "conv", "gather": "conv", "pallas": "fused-ds", "hybrid": "conv",
-         "hybrid-pallas": "pallas"}
+         "hybrid-pallas": "pallas", "nbr-exact": "conv", "argmax-first": "conv"}
 
 
 @pytest.mark.parametrize("mode", FINAL_UPSAMPLE_MODES)
@@ -124,7 +124,33 @@ def test_masks_match_jax_bf16(shared, mode):
     ref = np.asarray(jeng.predict(images))
     got = peng.predict(images)
     assert got.dtype == torch.uint8
-    assert (got.numpy() == ref).mean() >= 0.995
+    if mode == "argmax-first":
+        _assert_argmax_first_near(jeng, peng, images, got.numpy(), ref)
+    else:
+        assert (got.numpy() == ref).mean() >= 0.995
+
+
+def _assert_argmax_first_near(jeng, peng, images, got, ref):
+    """'argmax-first' in bf16: each 1/8-resolution decision fills an 8x8
+    block, so one bf16 near-tie that the packages round apart moves 64
+    pixels (0.39 % of this batch) and the 99.5 %-of-pixels gate measures
+    the decisions' granularity, not the port. The mask is gated where it
+    is decided: it is the nearest expansion of its 1/8 decisions; they
+    agree on ≥ 99 %; and every decision that differs is a bf16 near-tie,
+    its two best classes in the JAX engine's (jitted) 1/8 logits closer
+    than the largest difference between the two packages' 1/8 logits."""
+    cells_got, cells_ref = got[:, ::8, ::8], ref[:, ::8, ::8]
+    np.testing.assert_array_equal(got, cells_got.repeat(8, 1).repeat(8, 2))
+    differ = cells_got != cells_ref
+    assert differ.mean() <= 0.01
+    if differ.any():
+        jl = np.asarray(jax.jit(lambda x: jeng._forward(x, upsample=False))(jnp.asarray(images)),
+                        np.float32)
+        with torch.inference_mode():
+            pl = peng._forward(torch.from_numpy(images), upsample=False).float().numpy()
+        noise = np.abs(jl - pl).max()
+        top2 = np.sort(jl[differ], axis=-1)[:, -2:]
+        assert (top2[:, 1] - top2[:, 0]).max() < noise, (top2, noise)
 
 
 def test_logits_softmax_and_internal_size_match_jax(calibrated):
@@ -149,11 +175,47 @@ def test_logits_softmax_and_internal_size_match_jax(calibrated):
     assert (got.numpy() == ref).mean() >= 0.999
 
 
-@pytest.mark.parametrize("mode", ["nbr-exact", "argmax-first"])
-def test_unported_modes_raise(mode):
-    model = FastSCNN(NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngine(model, device="cpu", config=E2EConfig(final_upsample=mode))
+def test_predict_fn_is_cached_per_shape_equals_predict_and_copies(shared):
+    """On the CPU ``predict_fn`` runs eagerly with the card's contract: one
+    callable per shape, the output of ``predict``, a new tensor a call (a
+    later call leaves an earlier result as it was), and a batch of another
+    shape refused."""
+    _, peng = _engines(shared, "fused-ds", compute_dtype="float32", final_upsample="pallas",
+                       mask_dtype="uint8")
+    images = shared[3]
+    fn = peng.predict_fn(images.shape)
+    assert peng.predict_fn(tuple(images.shape)) is fn
+    assert peng.predict_fn((1, *images.shape[1:])) is not fn
+    first = fn(images)
+    kept = first.clone()
+    assert first.dtype == torch.uint8 and torch.equal(first, peng.predict(images))
+    second = fn(torch.from_numpy(images[::-1].copy()))
+    assert second.data_ptr() != first.data_ptr() and torch.equal(first, kept)
+    assert torch.equal(second, peng.predict(images[::-1].copy()))
+    assert fn.replays == 2 and fn.launches == {} and fn.pool_bytes == 0
+    with pytest.raises(ValueError, match="predict_fn"):
+        fn(images[:1])
+    with pytest.raises(ValueError, match="predict_fn"):
+        fn(images.astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", ["pallas", "hybrid"])
+def test_throughput_fn_checksum_matches_jax(shared, mode):
+    """``throughput_fn(iters=3)`` on the same f32 weights and input gives
+    the JAX ``throughput_fn``'s checksum: three forwards chained through
+    pixel (0, 0) of the first image, summing its class."""
+    jeng, peng = _engines(shared, _IMPL[mode], compute_dtype="float32", final_upsample=mode)
+    images = shared[3]
+    ref = int(jeng.throughput_fn(images.shape, iters=3)(jnp.asarray(images)))
+    fn = peng.throughput_fn(images.shape, iters=3)
+    got = fn(images)
+    assert got.shape == () and got.dtype == torch.int32
+    assert int(got) == ref
+    assert peng.throughput_fn(images.shape, iters=3) is fn
+    assert peng.throughput_fn(images.shape, iters=4) is not fn
+    # the chain is real work: pixel (0, 0) moves with each odd class
+    m0 = int(peng.predict(images)[0, 0, 0])
+    assert int(peng.throughput_fn(images.shape, iters=1)(images)) == m0
 
 
 def test_device_none_raises_without_cuda(monkeypatch):
@@ -168,17 +230,21 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has jax loaded already),
-    importing every module of the port loads no jax and no fastscnn_tpu."""
+    importing every module of the port loads no jax, no fastscnn_tpu and
+    no PIL (the card's machine has none; only the functions that decode
+    or encode images import it)."""
     code = (
         "import sys, pkgutil, importlib, fastscnn_tpu_torch\n"
         "for m in pkgutil.walk_packages(fastscnn_tpu_torch.__path__, 'fastscnn_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'fastscnn_tpu' or m.startswith('fastscnn_tpu.')]\n"
+        "       or m == 'fastscnn_tpu' or m.startswith('fastscnn_tpu.')\n"
+        "       or m == 'PIL' or m.startswith('PIL.')]\n"
         "n = sum(m.startswith('fastscnn_tpu_torch') for m in sys.modules)\n"
         "need = {'fastscnn_tpu_torch.' + m for m in ('parallel.train', 'losses.segmentation',\n"
         "        'utils.lr_scheduler', 'utils.metric', 'ops.cuda.dw_conv', 'ops.cuda.int8_pw',\n"
-        "        'models.fast_scnn', 'models.quantize')}\n"
+        "        'models.fast_scnn', 'models.quantize', 'serving', 'bench', 'utils.visualize',\n"
+        "        'utils.system_monitor', 'models.registry')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )
@@ -201,3 +267,21 @@ def test_entry_serves_one_full_size_frame_on_the_cpu():
     mask = fn(example)
     assert mask.shape == SHAPE[:3] and mask.dtype == torch.int32
     assert launch_counts() == before
+
+
+def test_bench_sweeps_throughput_fn_on_the_cpu(monkeypatch, capsys):
+    """``python -m fastscnn_tpu_torch.bench``'s sweep at a small size on
+    the CPU: the root bench's knobs, one line of fields per the docstring
+    (speed on the CPU means nothing; the card's numbers are in PERF.md)."""
+    from fastscnn_tpu_torch import bench
+
+    for knob, value in (("BENCH_BATCHES", "1,2"), ("BENCH_ITERS", "2"), ("BENCH_TRIALS", "1"),
+                        ("BENCH_DW_IMPL", "fused-ds"), ("BENCH_UPSAMPLE", "pallas")):
+        monkeypatch.setenv(knob, value)
+    out = bench.run(device="cpu", size=(32, 64))
+    assert out["metric"] == "cityscapes_32x64_bf16_e2e_inference_throughput"
+    assert out["unit"] == "fps/card" and out["device"] == "cpu"
+    assert out["batch"] in (1, 2) and out["value"] > 0
+    assert (out["dw_impl"], out["upsample"]) == ("fused-ds", "pallas")
+    err = capsys.readouterr().err
+    assert "batch 1:" in err and "batch 2:" in err
