@@ -65,8 +65,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    losses must be finite and fall, with the B6 launch counters at 2 per
    step for each part; then ms/step, samples/s and peak device memory,
    and a ``torch.profiler`` breakdown of the step's device time;
+6b. the trainer CLI (:func:`trainer_phase`): a synthetic Cityscapes tree of
+   32 train and 4 val pairs at 1024x2048, RGB images and labelId maps as
+   PNGs written without PIL (:func:`png_bytes`, rows through all five
+   filters), each read back through ``data/image_io.py`` equal to the
+   array written; ``train.main`` of the recipe (batch 16 of 768x768 crops,
+   ``--device-aug``, ``--stem-impl pallas``, ``--decoded-cache``, 2 epochs,
+   B6 at 2 launches a step for each part, finite losses, the checkpoints
+   written, the second epoch all cache hits), ``--epochs 3
+   --auto-resume`` (on at step 4, epoch 2, to step 6, the poly schedule's
+   rate), ``--device-aug-split --grad-accum 2`` (B6 at 2 x 2 a step); the
+   PSP chain on the card against the CPU with the same draws (masks equal,
+   f32 images within 1e-3, the bf16 difference and the chain's time); and
+   ``eval.main`` in testval at batch 2, bf16, whose FINAL metric must equal
+   the host metric of its own predicted masks;
 7. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4 and 6, plus the captured launches × the
+   wrapper's counts in phases 4, 6 and 6b, plus the captured launches × the
    replays of the graphs of phases 4b and 4c, which no wrapper sees) and,
    last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -1487,7 +1501,7 @@ def profile_steps(run_step, step_ms, steps=3, top=15, what="bf16 train step",
 
 def training_phase():
     """Phase 6: the training path through its entry points. Returns the
-    B6 launch counts of the bf16 run and its measurements."""
+    B6 launch counts of the bf16 run and its ms/step."""
     import torch
 
     from fastscnn_tpu_torch.losses import get_loss_fn
@@ -1597,7 +1611,295 @@ def training_phase():
     profile_steps(lambda: step(state, images, targets, gen), ms)
     return {"dw_conv3x3_vjp:forward": counts["dw_conv3x3"],
             "dw_conv3x3_vjp:dx": counts["dw_conv3x3_dx"],
-            "dw_conv3x3_vjp:dw": counts["dw_conv3x3_dw"]}
+            "dw_conv3x3_vjp:dw": counts["dw_conv3x3_dw"]}, ms
+
+
+# phase 6b: the trainer CLI (train.main, eval.main) on a synthetic Cityscapes
+# tree at full size: 32 train and 4 val pairs of 1024x2048
+TREE_PAIRS = {"train": 32, "val": 4}
+TREE_BLOCK = 64  # each 64x64 block of an image takes one labelId
+TREE_BASE = 1024  # --base-size of the Cityscapes recipe: short edges of 512 to 2048
+CITYS_VALID = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 32, 33)
+CITYS_IGNORED = (0, 4)  # labelIds the 34 -> 19 remap sends to ignore
+AUG_F32_BOUND = 1e-3  # f32 images, card vs CPU: tests/test_torch_device_aug.py's bound
+PNG_FILTERS = (0, 1, 2, 3, 4)
+
+
+def png_bytes(arr, kinds=PNG_FILTERS) -> bytes:
+    """An 8-bit greyscale or RGB PNG of ``arr`` written with ``zlib`` and
+    ``struct`` (no PIL), row r filtered with ``kinds[r % len(kinds)]``."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = arr.shape[:2]
+    bpp = 1 if arr.ndim == 2 else arr.shape[2]
+    x = arr.reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    preds = (np.zeros_like(x), a, b, (a + b) >> 1,
+             np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)))
+    rows = np.empty((h, w * bpp + 1), np.uint8)
+    kind = np.asarray(kinds)[np.arange(h) % len(kinds)]
+    rows[:, 0] = kind
+    for k in set(kinds):
+        sel = kind == k
+        rows[sel, 1:] = (x[sel] - preds[k][sel]) & 255
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2}[bpp], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def synthetic_cityscapes(root):
+    """Writes the tree (``leftImg8bit``/``gtFine``, one city) and returns
+    {path: array written}. Each 64x64 block of an image takes a labelId,
+    valid or ignored, at random (seeded); its pixels are that id's colour
+    plus noise, so the label is a function of the image."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    ids = np.array(CITYS_VALID + CITYS_IGNORED)
+    palette = rng.integers(0, 256, (len(ids), 3))
+    files = {}
+    for split, n in TREE_PAIRS.items():
+        for kind in ("leftImg8bit", "gtFine"):
+            os.makedirs(os.path.join(root, kind, split, "synth"), exist_ok=True)
+        for i in range(n):
+            cls = rng.integers(0, len(ids), (HEIGHT // TREE_BLOCK, WIDTH // TREE_BLOCK))
+            cls = cls.repeat(TREE_BLOCK, 0).repeat(TREE_BLOCK, 1)
+            noise = rng.integers(-24, 25, (HEIGHT, WIDTH, 3))
+            stem = os.path.join(root, "{}", split, "synth", f"synth_{i:06d}_{{}}.png")
+            files[stem.format("leftImg8bit", "leftImg8bit")] = np.clip(
+                palette[cls] + noise, 0, 255).astype(np.uint8)
+            files[stem.format("gtFine", "gtFine_labelIds")] = ids[cls].astype(np.uint8)
+
+    def write(item):
+        with open(item[0], "wb") as f:
+            f.write(png_bytes(item[1]))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, files.items()))
+    return files
+
+
+class _Tee:
+    """stdout to the console and to a buffer (the CLIs' prints are read)."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(main, argv):
+    """``main(argv)`` with its stdout shown and returned: (result, text)."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = main(argv)
+    return result, tee.buf.getvalue()
+
+
+def trainer_phase(fixed_step_ms):
+    """Phase 6b: the trainer and evaluator CLIs, in process through their
+    ``main(argv)``, on a synthetic Cityscapes tree at full size. Returns the
+    B6 launch counts of its training runs."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch import eval as eval_cli
+    from fastscnn_tpu_torch import parallel, train
+    from fastscnn_tpu_torch.data import decoded_cache, device_aug, image_io
+    from fastscnn_tpu_torch.data.cityscapes import CitySegmentation
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.utils import lr_schedule
+    from fastscnn_tpu_torch.utils.metric import SegmentationMetric
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_trainer")
+    shutil.rmtree(work, ignore_errors=True)
+    tree, cache = os.path.join(work, "citys"), os.path.join(work, "cache")
+    t0 = time.perf_counter()
+    files = synthetic_cityscapes(tree)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path, arr in files.items():
+        if not np.array_equal(image_io.read_image(path), arr):
+            raise AssertionError(f"{path}: image_io.read_image differs from the array written")
+    t_read = time.perf_counter() - t0
+    _print(f"synthetic Cityscapes: {len(files)} PNGs of {HEIGHT}x{WIDTH} (rows filtered "
+           f"{PNG_FILTERS} in turn) written in {t_write:.1f} s; each read back without PIL "
+           f"equal to the array written ({t_read / len(files) * 1e3:.0f} ms a file)")
+    cwd = os.getcwd()
+    os.chdir(work)  # the trainer writes logs/ under its working directory
+    try:
+        flags = ["--dataset", "citys", "--data-root", tree, "--base-size", str(TREE_BASE),
+                 "--crop-size", str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH), "--aux",
+                 "--loss-type", "ce", "--stem-impl", "pallas", "--device-aug",
+                 "--decoded-cache", cache, "--no-val", "--save-epoch", "1",
+                 "--print-interval", "1"]
+        parts = ("dw_conv3x3", "dw_conv3x3_dx", "dw_conv3x3_dw")
+        total = dict.fromkeys(parts, 0)
+        runs = {}
+
+        def run(label, extra, steps, per_step):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            trainer, out = _run_cli(train.main, flags + extra)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            losses = [float(v) for v in re.findall(r" loss (\S+) lr", out)]
+            if len(losses) != steps or not all(np.isfinite(losses)):
+                raise AssertionError(f"{label}: losses {losses}, expected {steps} finite")
+            want = {k: per_step * steps for k in parts}
+            if any(counts[k] != v for k, v in want.items()):
+                raise AssertionError(f"{label}: B6 launches {counts}, expected {want}")
+            for k in parts:
+                total[k] += counts[k]
+            runs[label] = (trainer, out, torch.cuda.max_memory_allocated())
+            _print(f"  {label}: B6 launches {[counts[k] for k in parts]} (forward, dX, dW) over "
+                   f"{steps} steps; peak device memory {runs[label][2] / 2**30:.2f} GiB")
+            return trainer, out
+
+        steps_per_epoch = TREE_PAIRS["train"] // TRAIN_BATCH
+        _print("trainer, fused --device-aug, 2 epochs:")
+        trainer, out = run("fused", ["--epochs", "2", "--save-folder", "S"], 2 * steps_per_epoch, 2)
+        for name in ("fast_scnn_citys.pth", "train_state_citys.pt"):
+            if not os.path.exists(os.path.join("S", name)):
+                raise AssertionError(f"the trainer wrote no S/{name}")
+        st = decoded_cache.stats()
+        reads = 2 * TREE_PAIRS["train"]  # images and labels, once an epoch
+        if (st["misses"], st["hits"]) != (reads, reads):
+            raise AssertionError(f"decoded cache {st}: expected {reads} misses in epoch 1 and "
+                                 f"{reads} hits in epoch 2")
+        last = re.findall(r"epoch 1 iter .* ([\d.]+) samples/s \(data (\d+) ms/iter\)", out)[-1]
+        sps, data_ms = float(last[0]), float(last[1])
+        first = re.findall(r"epoch 0 iter .* \(data (\d+) ms/iter\)", out)[-1]
+        _print(f"  decoded cache: {st['misses']} misses in epoch 1, {st['hits']} hits in epoch 2; "
+               f"epoch 2: {sps} samples/s, data {data_ms:.0f} ms/iter (epoch 1: {first} ms/iter, "
+               f"the PNG decodes); the trainer's {1e3 * TRAIN_BATCH / sps:.1f} ms/step against "
+               f"phase 6's fixed-batch step {fixed_step_ms:.2f} ms")
+
+        _print("trainer, --epochs 3 --auto-resume:")
+        trainer, out = run("resume", ["--epochs", "3", "--auto-resume", "--save-folder", "S"],
+                           steps_per_epoch, 2)
+        if "(step 4)" not in out or set(re.findall(r"epoch (\d+) iter", out)) != {"2"}:
+            raise AssertionError("the resumed run did not start at step 4, epoch 2")
+        if trainer.state.step != 6:
+            raise AssertionError(f"the resumed run ended at step {trainer.state.step}, not 6")
+        sched = lr_schedule("poly", base_lr=1e-2, nepochs=3, iters_per_epoch=steps_per_epoch,
+                            power=0.9)
+        lrs = [float(v) for v in re.findall(r" lr (\S+) ", out)]
+        # a run that restarted its schedule would print sched(1), sched(2)
+        if lrs != [round(sched(s), 5) for s in (5, 6)]:
+            raise AssertionError(f"resumed learning rates {lrs} are not the poly schedule's")
+        _print(f"  resumed at step 4, epoch 2; ended at step 6; lr after steps 5 and 6 {lrs}, "
+               f"the 3-epoch poly schedule's (its rate at step 4: {sched(4):.5f})")
+
+        _print("trainer, --device-aug-split --grad-accum 2, 1 epoch:")
+        run("split", ["--epochs", "1", "--device-aug-split", "--grad-accum", "2",
+                      "--save-folder", "S2"], steps_per_epoch, 4)
+        _print(f"  peak device memory: fused {runs['fused'][2] / 2**30:.2f} GiB, split "
+               f"{runs['split'][2] / 2**30:.2f} GiB")
+    finally:
+        os.chdir(cwd)
+
+    # the PSP chain on the card against the CPU, one native batch, the same draws
+    dev = torch.device("cuda")
+    native = CitySegmentation(root=tree, split="train", mode="device-aug")  # cache hits
+    batch = [native[i] for i in range(TRAIN_BATCH)]
+    images = torch.from_numpy(np.stack([img for img, _ in batch]))
+    labels = torch.from_numpy(np.stack([lab for _, lab in batch]).astype(np.int8))
+    params = device_aug.draw_params(torch.Generator(device=dev).manual_seed(SEED + 6),
+                                    TRAIN_BATCH, HEIGHT, WIDTH, TREE_BASE, TRAIN_SIZE)
+    kw = dict(crop_size=TRAIN_SIZE, base_size=TREE_BASE, pad_label=-1)
+    gi, gl = images.to(dev), labels.to(dev)
+    card = {dt: device_aug.apply_params(gi, gl, params, compute_dtype=dt, **kw)
+            for dt in (torch.float32, torch.bfloat16)}
+    cpu = device_aug.apply_params(images, labels, device_aug.AugParams(
+        *[v.cpu() for v in params]), compute_dtype=torch.float32, **kw)
+    for dt, (img, mask) in card.items():
+        if not torch.equal(mask.cpu(), cpu[1]):
+            raise AssertionError(f"{dt} augmented masks differ between the card and the CPU")
+    f32_err = (card[torch.float32][0].cpu() - cpu[0]).abs().max().item()
+    bf16_err = (card[torch.bfloat16][0].cpu() - cpu[0]).abs().max().item()
+    if f32_err > AUG_F32_BOUND:
+        raise AssertionError(f"f32 augmented images: card vs CPU {f32_err} > {AUG_F32_BOUND}")
+    aug_ms = time_ms(lambda: device_aug.apply_params(gi, gl, params, compute_dtype=torch.bfloat16,
+                                                     **kw), iters=5, warmup=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    draw_ms = time_ms(lambda: device_aug.draw_params(gen, TRAIN_BATCH, HEIGHT, WIDTH, TREE_BASE,
+                                                     TRAIN_SIZE), iters=5, warmup=2)
+    _print(f"PSP chain, {TRAIN_BATCH}x{HEIGHT}x{WIDTH} -> {TRAIN_SIZE}x{TRAIN_SIZE}: masks equal on "
+           f"the card and the CPU (f32 and bf16); images card vs CPU f32 max |diff| {f32_err:.3g} "
+           f"(bound {AUG_F32_BOUND}), bf16 on the card vs f32 on the CPU {bf16_err:.3g}; the "
+           f"bf16 chain {aug_ms:.3f} ms, its draws {draw_ms:.3f} ms (CUDA events)")
+    del card, gi, gl
+    torch.cuda.empty_cache()
+
+    # evaluation: testval, batch 2, no dump, bf16, FINAL against the host metric
+    seen = []
+    make_eval_step = parallel.make_eval_step
+
+    def recording(*args, **kwargs):
+        step = make_eval_step(*args, **kwargs)
+
+        def recorded(params, model_state, images, targets):
+            preds, stats = step(params, model_state, images, targets)
+            seen.append((preds.cpu().numpy(), np.asarray(targets)))
+            return preds, stats
+
+        return recorded
+
+    parallel.make_eval_step = recording
+    try:
+        evaluator, out = _run_cli(eval_cli.main, [
+            "--dataset", "citys", "--data-root", tree, "--mode", "testval",
+            "--weights", os.path.join(work, "S", "fast_scnn_citys.pth"), "--aux",
+            "--batch-size", "2", "--no-dump", "--dtype", "bfloat16", "--decoded-cache", cache])
+    finally:
+        parallel.make_eval_step = make_eval_step
+    host = SegmentationMetric(NUM_CLASSES)
+    for preds, targets in seen:
+        host.update(preds.astype(np.int64), targets.astype(np.int64))
+    final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", out).groups()
+    pix_acc, miou = host.get()
+    if evaluator.metric.get() != (pix_acc, miou) or final != (f"{pix_acc * 100:.3f}",
+                                                              f"{miou * 100:.3f}"):
+        raise AssertionError(f"eval FINAL {final} / {evaluator.metric.get()} differs from the "
+                             f"host metric of its predictions {(pix_acc, miou)}")
+    _print(f"eval.main, testval, {TREE_PAIRS['val']} images in batches of 2, bf16: FINAL pixAcc "
+           f"{final[0]}% mIoU {final[1]}%, equal to the host SegmentationMetric of its "
+           f"{sum(len(p) for p, _ in seen)} predicted masks")
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
+    return {"dw_conv3x3_vjp:forward": total["dw_conv3x3"],
+            "dw_conv3x3_vjp:dx": total["dw_conv3x3_dx"],
+            "dw_conv3x3_vjp:dw": total["dw_conv3x3_dw"]}
 
 
 # the rows of the kernel table that dw_costs prices, and the library call each
@@ -2176,7 +2478,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     _print(f"device memory still allocated before the training phase: "
            f"{torch.cuda.memory_allocated()} bytes")
-    launches.update(training_phase())
+    counts, step_ms = training_phase()
+    launches.update(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in trainer_phase(step_ms).items():
+        launches[kernel] += n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         if k["launches"] == 0:

@@ -1,0 +1,192 @@
+"""Image files to numpy arrays, with PNG decoded by the standard library.
+
+The JAX package opens every image with ``PIL.Image.open``. The machine
+that runs the port on the card has no PIL, so this module reads the PNGs
+the datasets use (Cityscapes images and label maps, TuSimple and
+BDD100K label maps, custom masks) with ``zlib`` and numpy alone:
+
+- 8-bit greyscale, RGB, RGBA and palette images (a palette image gives
+  its indices, as ``np.asarray(Image.open(path))`` does);
+- non-interlaced, with any mix of the five row filters;
+- ``convert="RGB"`` as PIL converts those modes: greyscale replicated,
+  alpha dropped, palette indices looked up (entries the palette lacks
+  read as black).
+
+Any other file (JPEG, 16-bit or interlaced PNG, another ``convert``)
+goes through PIL, imported inside :func:`decode`; where PIL is not
+installed that raises a ``RuntimeError`` naming the file.
+
+Sub and Up rows unfilter with one vector operation a row. Average and
+Paeth rows depend on the pixel to their left, so an image that has any
+is unfiltered along anti-diagonals instead: pixel (r, c) needs only
+(r, c-1), (r-1, c) and (r-1, c-1), so every pixel of one anti-diagonal
+r + c = t can be computed at once from the two before it. The image is
+held skewed, ``K[t, r] = pixel (r, t - r)``, so that each anti-diagonal is
+one contiguous slice: W + H - 1 vector steps an image, whatever its
+filters. Those steps are small numpy calls that each take and release
+the interpreter lock, so loader threads decoding at once thrash it (four
+threads took 4.7x the serial time a file on an H100 machine's host,
+PERF.md §5): one thread at a time runs them, the others meanwhile read
+and inflate their files.
+"""
+
+from __future__ import annotations
+
+import struct
+import threading
+import zlib
+
+import numpy as np
+
+__all__ = ["decode", "read_image", "PNG_SIGNATURE"]
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# IHDR colour type -> (samples a pixel, PIL mode) for the 8-bit subset read here
+_COLOUR_TYPES = {0: (1, "L"), 2: (3, "RGB"), 3: (1, "P"), 6: (4, "RGBA")}
+_DIAGONALS = threading.Lock()  # one thread at a time in the anti-diagonal loop
+
+
+def read_image(path: str, convert: str | None = None) -> np.ndarray:
+    """``np.asarray(Image.open(path))``, or of ``.convert(convert)``: uint8
+    (H, W) for a greyscale or palette image, (H, W, C) otherwise."""
+    return decode(path, convert)[0]
+
+
+def decode(path: str, convert: str | None = None) -> tuple[np.ndarray, str]:
+    """:func:`read_image` and the PIL mode of the result (a palette image
+    without ``convert`` gives its indices under mode ``'P'``)."""
+    if convert in (None, "RGB"):
+        png = _read_png(path)
+        if png is not None:
+            arr, mode, palette = png
+            if convert == "RGB" and mode != "RGB":
+                arr, mode = _to_rgb(arr, mode, palette), "RGB"
+            return arr, mode
+    return _decode_with_pil(path, convert)
+
+
+def _decode_with_pil(path: str, convert: str | None) -> tuple[np.ndarray, str]:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"cannot read {path!r}: it is not an 8-bit non-interlaced PNG, which is all that "
+            "is read without PIL, and the PIL package is not installed") from e
+    with Image.open(path) as img:
+        if convert:
+            img = img.convert(convert)
+        return np.asarray(img), img.mode
+
+
+def _read_png(path: str):
+    """``(array, mode, palette)`` of a PNG in the subset, else None."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(PNG_SIGNATURE):
+        return None
+    pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
+        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            raise ValueError(f"{path}: CRC mismatch in PNG chunk {kind!r}")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    width, height, depth, colour, compression, filtering, interlace = header
+    if (depth != 8 or colour not in _COLOUR_TYPES or compression or filtering or interlace
+            or (colour == 3 and palette is None)):
+        return None
+    channels, mode = _COLOUR_TYPES[colour]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = width * channels
+    if raw.size < height * (stride + 1):
+        raise ValueError(f"{path}: PNG image data holds {raw.size} bytes, expected "
+                         f"{height * (stride + 1)}")
+    rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
+    pixels = unfilter(rows[:, 1:], rows[:, 0], channels)
+    shape = (height, width) if channels == 1 else (height, width, channels)
+    return pixels.reshape(shape), mode, palette
+
+
+def _to_rgb(arr: np.ndarray, mode: str, palette) -> np.ndarray:
+    if mode == "L":
+        return np.repeat(arr[:, :, None], 3, axis=2)
+    if mode == "RGBA":
+        return np.ascontiguousarray(arr[:, :, :3])
+    table = np.zeros((256, 3), np.uint8)
+    table[:len(palette)] = palette[:256]
+    return table[arr]
+
+
+def unfilter(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
+    """PNG rows (H, W·bpp) uint8 after their filter bytes ``ftype`` (H,)
+    → the (H, W·bpp) uint8 samples."""
+    if ftype.size and int(ftype.max()) > 4:
+        raise ValueError(f"PNG row filter {int(ftype.max())} is not one of 0-4")
+    if np.isin(ftype, (3, 4)).any():
+        with _DIAGONALS:
+            return _unfilter_diagonals(rows, ftype, bpp)
+    out = np.empty_like(rows)
+    prev = np.zeros(rows.shape[1], np.uint8)
+    for r, kind in enumerate(ftype.tolist()):
+        if kind == 0:
+            out[r] = rows[r]
+        elif kind == 1:  # Sub: a running sum along the row, per channel, mod 256
+            out[r] = np.cumsum(rows[r].reshape(-1, bpp), axis=0, dtype=np.uint8).ravel()
+        else:  # Up
+            out[r] = rows[r] + prev
+        prev = out[r]
+    return out
+
+
+def _unfilter_diagonals(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
+    """Every filter at once, one anti-diagonal of pixels a step (see the
+    module docstring). ``k[t + 2, r + 1]`` holds pixel (r, t - r); row -1
+    and the columns left of 0 stay zero, as the filters define them."""
+    h, w = rows.shape[0], rows.shape[1] // bpp
+    steps = w + h - 1
+    src = np.zeros((steps, h, bpp), np.int16)
+    for r in range(h):
+        src[r:r + w, r] = rows[r].reshape(w, bpp)
+    k = np.zeros((steps + 2, h + 1, bpp), np.int16)
+    kinds = set(ftype.tolist())
+    ft = ftype.astype(np.int16)[:, None]
+    for t in range(steps):
+        lo, hi = max(0, t - w + 1), min(t, h - 1) + 1
+        a = k[t + 1, lo + 1:hi + 1]  # left: (r, c - 1), the step before
+        b = k[t + 1, lo:hi]          # up: (r - 1, c), the step before
+        c = k[t, lo:hi]              # up-left: (r - 1, c - 1), two steps before
+        if kinds == {4}:
+            pred = _paeth(a, b, c)
+        else:
+            f = ft[lo:hi]
+            pred = np.where(f == 1, a, np.where(f == 2, b, 0))
+            if 3 in kinds:
+                pred = np.where(f == 3, (a + b) >> 1, pred)
+            if 4 in kinds:
+                pred = np.where(f == 4, _paeth(a, b, c), pred)
+        k[t + 2, lo + 1:hi + 1] = (src[t, lo:hi] + pred) & 255
+    out = np.empty((h, w, bpp), np.uint8)
+    for r in range(h):
+        out[r] = k[r + 2:r + 2 + w, r + 1]
+    return out.reshape(h, w * bpp)
+
+
+def _paeth(a, b, c):
+    """The Paeth predictor of PNG: of left, up and up-left, the one nearest
+    to left + up - up-left, ties to left, then up."""
+    da, db = a - c, b - c
+    pa, pb, pc = np.abs(db), np.abs(da), np.abs(da + db)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))

@@ -4,6 +4,7 @@ from fastscnn_tpu_torch.parallel.train import (
     create_train_state,
     make_eval_step,
     make_optimizer,
+    make_split_aug_train_step,
     make_train_step,
 )
 
@@ -13,5 +14,6 @@ __all__ = [
     "create_train_state",
     "make_eval_step",
     "make_optimizer",
+    "make_split_aug_train_step",
     "make_train_step",
 ]

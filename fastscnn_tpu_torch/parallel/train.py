@@ -15,10 +15,13 @@ master, so gradients arrive on the masters in f32, as the JAX step's
 
 Unlike the pure JAX step, this one updates in place: the optimizer
 steps the master tensors of ``state.params``, and ``state`` (with its
-new BN statistics and step count) is returned. The JAX step's ``mesh``,
-``spatial_shard``, ``device_aug`` and ``donate_batch`` are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP.md item; its
-``jit`` has no counterpart (PyTorch runs eagerly).
+new BN statistics and step count) is returned. With ``device_aug`` the
+step takes native-resolution uint8 batches and runs an augmentation
+chain of ``data/device_aug.py`` on the device before normalising;
+:func:`make_split_aug_train_step` runs the chain once for the batch and
+then the crop-fed step. The JAX step's ``mesh`` and ``spatial_shard``
+are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP.md item; its ``jit`` has no counterpart (PyTorch runs eagerly).
 """
 
 from __future__ import annotations
@@ -43,11 +46,11 @@ __all__ = [
     "create_train_state",
     "make_optimizer",
     "make_train_step",
+    "make_split_aug_train_step",
     "make_eval_step",
 ]
 
 _MULTI_DEVICE = "ROADMAP.md, queue item 'multi-device'"
-_TRAINER_SLICE = "ROADMAP.md, modules to port, item 2: 'The trainer CLI'"
 
 
 @dataclasses.dataclass
@@ -145,24 +148,49 @@ def make_train_step(
     donate_batch: bool = False,
     device=None,
 ):
-    """Build ``step(state, images_u8, targets, generator=None) -> (state,
-    {'loss': f32 scalar tensor})`` on ``device`` (None: the CUDA card).
+    """Build ``step(state, images_u8, targets, generator=None,
+    aug_generator=None) -> (state, {'loss': f32 scalar tensor})`` on
+    ``device`` (None: the CUDA card).
 
     ``generator`` (a ``torch.Generator`` on the device) draws the dropout
     masks; without one dropout is off. ``grad_accum`` > 1 splits the batch
     into that many microbatches run in sequence: the BN statistics thread
     through them, the optimizer applies the mean of their gradients, and
     the loss is the mean of theirs — torch-style gradient accumulation,
-    activation memory of one microbatch."""
+    activation memory of one microbatch.
+
+    ``device_aug``: an ``augment(images, masks, generator)`` of
+    :mod:`~fastscnn_tpu_torch.data.device_aug`. The step then takes
+    native-resolution uint8 images and remapped labels (int8 or wider),
+    and augments each microbatch with parameters drawn from
+    ``aug_generator`` before normalising it, as the JAX step draws a key
+    per microbatch.
+
+    ``donate_batch``: the step drops its references to the input batch
+    once it has read it (augmented, or normalised), so that the caching
+    allocator can reuse that memory within the step. The memory is freed
+    only if the caller holds no reference to a device tensor it passed."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if mesh is not None or spatial_shard:
         raise NotImplementedError(f"mesh and spatial_shard are not ported yet ({_MULTI_DEVICE})")
-    if device_aug is not None or donate_batch:
-        raise NotImplementedError(
-            f"device_aug and donate_batch are not ported yet ({_TRAINER_SLICE}, "
-            "data/device_aug.py)")
+    run = _make_run(model, loss_fn, optimizer, compute_dtype, mean, std, grad_accum, device_aug,
+                    donate_batch)
     device = resolve_device(device)
+
+    def step(state: TrainState, images, targets, generator: torch.Generator | None = None,
+             aug_generator: torch.Generator | None = None):
+        batch = [torch.as_tensor(images).to(device), torch.as_tensor(targets).to(device)]
+        del images, targets
+        return run(state, batch, generator, aug_generator)
+
+    return step
+
+
+def _make_run(model, loss_fn, optimizer, compute_dtype, mean, std, grad_accum, device_aug,
+              donate_batch):
+    """The train step on a batch already on the device, passed as the list
+    ``[images, targets]`` (emptied once read when ``donate_batch``)."""
 
     def grads_of(params, model_state, x, targets, generator):
         cast = tree_map(lambda p: p.to(compute_dtype), params)
@@ -172,27 +200,31 @@ def make_train_step(
         loss.backward()  # accumulates f32 gradients on the masters
         return loss.detach(), new_model_state
 
-    def step(state: TrainState, images, targets, generator: torch.Generator | None = None):
-        images = torch.as_tensor(images).to(device)
-        targets = torch.as_tensor(targets).to(device)
+    def prepared(images, targets, aug_generator):
+        if device_aug is not None:
+            images, targets = device_aug(images, targets, aug_generator)
+        return _normalize(images, mean, std, compute_dtype), targets
+
+    def run(state: TrainState, batch: list, generator, aug_generator):
+        if device_aug is not None and aug_generator is None:
+            raise ValueError("a step with device_aug needs an aug_generator")
+        n = batch[0].shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
         leaves = tree_leaves(state.params)
         for p in leaves:
             p.grad = None
-        if grad_accum == 1:
-            x = _normalize(images, mean, std, compute_dtype)
-            loss, new_model_state = grads_of(state.params, state.model_state, x, targets,
-                                             generator)
-        else:
-            if images.shape[0] % grad_accum:
-                raise ValueError(
-                    f"batch {images.shape[0]} not divisible by grad_accum {grad_accum}")
-            mb = images.shape[0] // grad_accum
-            new_model_state, loss = state.model_state, 0.0
-            for i in range(grad_accum):
-                xi = _normalize(images[i * mb:(i + 1) * mb], mean, std, compute_dtype)
-                loss_i, new_model_state = grads_of(state.params, new_model_state, xi,
-                                                   targets[i * mb:(i + 1) * mb], generator)
-                loss = loss + loss_i
+        mb = n // grad_accum
+        new_model_state, loss = state.model_state, 0.0
+        for i in range(grad_accum):
+            x, t = prepared(batch[0][i * mb:(i + 1) * mb], batch[1][i * mb:(i + 1) * mb],
+                            aug_generator)
+            if donate_batch and i == grad_accum - 1:
+                batch.clear()
+            loss_i, new_model_state = grads_of(state.params, new_model_state, x, t, generator)
+            del x, t
+            loss = loss + loss_i
+        if grad_accum > 1:
             loss = loss / grad_accum
         for p in leaves:
             if p.grad is None:  # a param the loss does not reach: a zero gradient, as in JAX
@@ -207,7 +239,47 @@ def make_train_step(
         state.step += 1
         return state, {"loss": loss}
 
-    return step
+    return run
+
+
+def make_split_aug_train_step(
+    model: FastSCNN,
+    loss_fn: Callable,
+    optimizer: Optimizer,
+    device_aug: Callable,
+    mesh=None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    mean=IMAGENET_MEAN,
+    std=IMAGENET_STD,
+    grad_accum: int = 1,
+    donate: bool = True,
+    device=None,
+):
+    """Two-stage form of ``make_train_step(device_aug=...)``: the chain
+    augments the whole batch once, then the crop-fed step runs (with
+    ``grad_accum`` microbatches of the crops, the batch donated). Same
+    signature as that step's. At ``grad_accum=1`` it draws what the fused
+    step draws from the same ``aug_generator``; with ``grad_accum > 1``
+    the fused step draws per microbatch and this one once for the batch
+    (the same distribution, another stream). ``donate``: drop the
+    native-resolution batch once the chain has read it."""
+    if mesh is not None:
+        raise NotImplementedError(f"mesh is not ported yet ({_MULTI_DEVICE})")
+    device = resolve_device(device)
+    run = _make_run(model, loss_fn, optimizer, compute_dtype, mean, std, grad_accum, None, True)
+
+    def split_step(state: TrainState, images, targets, generator: torch.Generator | None = None,
+                   aug_generator: torch.Generator | None = None):
+        if aug_generator is None:
+            raise ValueError("a step with device_aug needs an aug_generator")
+        batch = [torch.as_tensor(images).to(device), torch.as_tensor(targets).to(device)]
+        del images, targets
+        crops = list(device_aug(batch[0], batch[1], aug_generator))
+        if donate:
+            batch.clear()
+        return run(state, crops, generator, None)
+
+    return split_step
 
 
 def make_eval_step(

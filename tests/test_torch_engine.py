@@ -231,20 +231,23 @@ def test_device_none_raises_without_cuda(monkeypatch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has jax loaded already),
     importing every module of the port loads no jax, no fastscnn_tpu and
-    no PIL (the card's machine has none; only the functions that decode
-    or encode images import it)."""
+    none of the packages the card's machine lacks — PIL, scikit-learn,
+    matplotlib, tensorflow, grain (only the functions that need one import
+    it)."""
     code = (
         "import sys, pkgutil, importlib, fastscnn_tpu_torch\n"
         "for m in pkgutil.walk_packages(fastscnn_tpu_torch.__path__, 'fastscnn_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'fastscnn_tpu' or m.startswith('fastscnn_tpu.')\n"
-        "       or m == 'PIL' or m.startswith('PIL.')]\n"
+        "banned = ('jax', 'fastscnn_tpu', 'PIL', 'sklearn', 'matplotlib', 'tensorflow', 'grain')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "n = sum(m.startswith('fastscnn_tpu_torch') for m in sys.modules)\n"
         "need = {'fastscnn_tpu_torch.' + m for m in ('parallel.train', 'losses.segmentation',\n"
         "        'utils.lr_scheduler', 'utils.metric', 'ops.cuda.dw_conv', 'ops.cuda.int8_pw',\n"
         "        'models.fast_scnn', 'models.quantize', 'serving', 'bench', 'utils.visualize',\n"
-        "        'utils.system_monitor', 'models.registry')}\n"
+        "        'utils.system_monitor', 'models.registry', 'data.image_io', 'data.decoded_cache',\n"
+        "        'data.transforms', 'data.cityscapes', 'data.tusimple', 'data.bdd100k',\n"
+        "        'data.custom', 'data.loader', 'data.device_aug', 'train', 'eval',\n"
+        "        'train_presets', 'utils.checkpoint', 'utils.monitor')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )

@@ -33,6 +33,7 @@ from fastscnn_tpu_torch.parallel import (
     create_train_state,
     make_eval_step,
     make_optimizer,
+    make_split_aug_train_step,
     make_train_step,
 )
 
@@ -203,12 +204,21 @@ def test_unported_options_and_devices_raise(shared, monkeypatch):
     model = FastSCNN(NUM_CLASSES)
     opt = make_optimizer("sgd")
     loss = get_loss_fn("ce")
-    for kw, item in (({"mesh": object()}, "multi-device"), ({"spatial_shard": True}, "multi-device"),
-                     ({"device_aug": object()}, "trainer CLI"), ({"donate_batch": True}, "trainer CLI")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+    for kw in ({"mesh": object()}, {"spatial_shard": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*multi-device"):
             make_train_step(model, loss, opt, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*multi-device"):
         make_eval_step(model, NUM_CLASSES, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*multi-device"):
+        make_split_aug_train_step(model, loss, opt, lambda *a: a, mesh=object(), device="cpu")
+    # device_aug and donate_batch are ported: a device-aug step needs its generator
+    state = create_train_state(model, opt, device="cpu")
+    batch = (np.zeros((1, 8, 8, 3), np.uint8), np.zeros((1, 8, 8), np.int32))
+    for build in (lambda: make_train_step(model, loss, opt, device_aug=lambda *a: a,
+                                          donate_batch=True, device="cpu"),
+                  lambda: make_split_aug_train_step(model, loss, opt, lambda *a: a, device="cpu")):
+        with pytest.raises(ValueError, match="aug_generator"):
+            build()(state, *batch)
     with pytest.raises(ValueError, match="grad_accum"):
         make_train_step(model, loss, opt, grad_accum=0, device="cpu")
     with pytest.raises(ValueError, match="unknown optimizer"):
