@@ -1720,6 +1720,12 @@ def _run_cli(main, argv):
     return result, tee.buf.getvalue()
 
 
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def trainer_phase(fixed_step_ms):
     """Phase 6b: the trainer and evaluator CLIs, in process through their
     ``main(argv)``, on a synthetic Cityscapes tree at full size. Returns the
@@ -1732,7 +1738,7 @@ def trainer_phase(fixed_step_ms):
 
     from fastscnn_tpu_torch import eval as eval_cli
     from fastscnn_tpu_torch import parallel, train
-    from fastscnn_tpu_torch.data import decoded_cache, device_aug, image_io
+    from fastscnn_tpu_torch.data import decoded_cache, device_aug, image_io, narrow_labels
     from fastscnn_tpu_torch.data.cityscapes import CitySegmentation
     from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from fastscnn_tpu_torch.utils import lr_schedule
@@ -1833,7 +1839,16 @@ def trainer_phase(fixed_step_ms):
     native = CitySegmentation(root=tree, split="train", mode="device-aug")  # cache hits
     batch = [native[i] for i in range(TRAIN_BATCH)]
     images = torch.from_numpy(np.stack([img for img, _ in batch]))
-    labels = torch.from_numpy(np.stack([lab for _, lab in batch]).astype(np.int8))
+    labels_i32 = np.stack([lab for _, lab in batch])
+    # the int8 narrowing's host cost: once a batch on one thread (where the
+    # loop used to run it) and once a sample (what each loader worker runs)
+    narrow_batch_ms = min(_host_ms(lambda: narrow_labels(labels_i32)) for _ in range(3))
+    narrow_sample_ms = min(_host_ms(lambda: narrow_labels(batch[0][1])) for _ in range(3))
+    labels = torch.from_numpy(narrow_labels(labels_i32))
+    if labels.dtype != torch.int8:
+        raise AssertionError(f"Cityscapes labels did not narrow to int8 ({labels.dtype})")
+    _print(f"int8 label narrowing on the host: {narrow_batch_ms:.1f} ms for the {TRAIN_BATCH}-frame "
+           f"batch on one thread, {narrow_sample_ms:.2f} ms a frame in a loader worker")
     params = device_aug.draw_params(torch.Generator(device=dev).manual_seed(SEED + 6),
                                     TRAIN_BATCH, HEIGHT, WIDTH, TREE_BASE, TRAIN_SIZE)
     kw = dict(crop_size=TRAIN_SIZE, base_size=TREE_BASE, pad_label=-1)

@@ -37,8 +37,12 @@ def narrow_labels(targets: np.ndarray) -> np.ndarray:
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 4, prefetch: int = 2,
-                 seed: int = 0):
+                 seed: int = 0, narrow_targets: bool = False):
+        """``narrow_targets``: each worker passes its sample's labels
+        through :func:`narrow_labels`, so the batch is int8 where every
+        sample's range fits (else the collate widens it)."""
         self.dataset = dataset
+        self.narrow_targets = narrow_targets
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -95,6 +99,12 @@ class DataLoader:
                     continue
             return False
 
+        def load(i):
+            image, target = self.dataset[i]
+            if self.narrow_targets:
+                target = narrow_labels(np.asarray(target))
+            return image, target
+
         def producer():
             # every failure reaches the consumer: a producer that dies with
             # no sentinel would leave the training loop waiting for ever
@@ -103,7 +113,7 @@ class DataLoader:
                     for idx in batch_iter:
                         if stop.is_set():
                             break
-                        samples = list(pool.map(self.dataset.__getitem__, idx))
+                        samples = list(pool.map(load, idx))
                         if not put_or_stop(self._collate(samples)):
                             return
             except BaseException as e:  # noqa: BLE001 — re-raised in the consumer

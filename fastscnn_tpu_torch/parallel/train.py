@@ -252,17 +252,18 @@ def make_split_aug_train_step(
     mean=IMAGENET_MEAN,
     std=IMAGENET_STD,
     grad_accum: int = 1,
-    donate: bool = True,
     device=None,
 ):
     """Two-stage form of ``make_train_step(device_aug=...)``: the chain
     augments the whole batch once, then the crop-fed step runs (with
-    ``grad_accum`` microbatches of the crops, the batch donated). Same
+    ``grad_accum`` microbatches of the crops). Same
     signature as that step's. At ``grad_accum=1`` it draws what the fused
     step draws from the same ``aug_generator``; with ``grad_accum > 1``
     the fused step draws per microbatch and this one once for the batch
-    (the same distribution, another stream). ``donate``: drop the
-    native-resolution batch once the chain has read it."""
+    (the same distribution, another stream). The step always drops its
+    references to the native-resolution batch once the chain has read it;
+    eager PyTorch has no buffer donation, so the JAX step's ``donate``
+    argument has no counterpart here."""
     if mesh is not None:
         raise NotImplementedError(f"mesh is not ported yet ({_MULTI_DEVICE})")
     device = resolve_device(device)
@@ -275,8 +276,7 @@ def make_split_aug_train_step(
         batch = [torch.as_tensor(images).to(device), torch.as_tensor(targets).to(device)]
         del images, targets
         crops = list(device_aug(batch[0], batch[1], aug_generator))
-        if donate:
-            batch.clear()
+        batch.clear()
         return run(state, crops, generator, None)
 
     return split_step

@@ -188,7 +188,11 @@ class Trainer:
                                                    **val_kwargs)
         self.train_loader = DataLoader(self.train_ds, batch_size=args.batch_size, shuffle=True,
                                        drop_last=True, num_workers=args.num_workers,
-                                       seed=args.seed)
+                                       seed=args.seed,
+                                       # native-resolution labels travel as int8
+                                       # where their range fits; the augmentation
+                                       # gives the loss int32 crops
+                                       narrow_targets=args.device_aug)
         self.num_classes = self.train_ds.num_class
         if self.train_ds.normalization == "imagenet":
             mean, std = IMAGENET_MEAN, IMAGENET_STD
@@ -259,8 +263,6 @@ class Trainer:
             self.monitor.close()
 
     def _train_loop(self):
-        from fastscnn_tpu_torch.data import narrow_labels
-
         args = self.args
         for epoch in range(args.start_epoch, args.epochs):
             epoch_losses = []
@@ -270,10 +272,6 @@ class Trainer:
             t_last = time.time()
             for it, (images, targets) in enumerate(self.train_loader):
                 t_data += time.time() - t_last
-                if args.device_aug:
-                    # native-resolution labels: int8 where their range fits;
-                    # the augmentation gives the loss int32 crops
-                    targets = narrow_labels(targets)
                 self.state, metrics = self.train_step(self.state, images, targets,
                                                       self.dropout_generator, self.aug_generator)
                 if (it + 1) % args.print_interval == 0:

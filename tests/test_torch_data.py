@@ -406,6 +406,30 @@ def test_labels_narrow_to_int8_by_their_range_not_the_class_count(low, high, nar
     np.testing.assert_array_equal(out, labels)
 
 
+@pytest.mark.parametrize("high,dtype", [(18, np.int8), (255, np.int32)])
+def test_loader_workers_narrow_the_labels_by_their_range(high, dtype):
+    """``narrow_targets``: the workers narrow each sample, and the batch is
+    int8 only when every sample's range fits (one sample whose ids reach
+    255 widens it); the values are those of the plain loader."""
+    rng = np.random.default_rng(3)
+    samples = [(rng.integers(0, 256, (4, 6, 3)).astype(np.uint8),
+                rng.integers(-1, 19, (4, 6)).astype(np.int32)) for _ in range(4)]
+    samples[2][1][0, 0] = high
+
+    class Listed:
+        def __len__(self):
+            return len(samples)
+
+        def __getitem__(self, i):
+            return samples[i]
+
+    plain = list(DataLoader(Listed(), batch_size=4, num_workers=2))
+    narrow = list(DataLoader(Listed(), batch_size=4, num_workers=2, narrow_targets=True))
+    assert plain[0][1].dtype == np.int32 and narrow[0][1].dtype == dtype
+    np.testing.assert_array_equal(narrow[0][0], plain[0][0])
+    np.testing.assert_array_equal(narrow[0][1], plain[0][1])
+
+
 def test_a_producer_error_reaches_the_consumer():
     class Broken:
         def __len__(self):
