@@ -46,6 +46,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``/stats``, 8 client threads × 3 distinct frames, every answer equal to
    ``engine.predict`` of its frame on every pixel, fewer batches than
    requests, the graphs' launches (captured × replays), latency p50/p99;
+   then, through HTTP, a full-size frame as a PNG body (raw mask answer)
+   and a wrong-size frame as a PNG body (PNG answer), decoded, resized and
+   encoded without PIL (:func:`png_requests`), each answer equal to
+   ``engine.predict`` of the pixels the server should have fed;
 4c. ``predict_fn`` and ``throughput_fn`` in ref and configs A to D
    (:func:`graph_phase`): each graph's output equal to ``predict``'s, its
    captured launches equal to phase 4's, ms/frame of a replay beside eager
@@ -65,20 +69,32 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    losses must be finite and fall, with the B6 launch counters at 2 per
    step for each part; then ms/step, samples/s and peak device memory,
    and a ``torch.profiler`` breakdown of the step's device time;
-6b. the trainer CLI (:func:`trainer_phase`): a synthetic Cityscapes tree of
-   32 train and 4 val pairs at 1024x2048, RGB images and labelId maps as
-   PNGs written without PIL (:func:`png_bytes`, rows through all five
-   filters), each read back through ``data/image_io.py`` equal to the
-   array written; ``train.main`` of the recipe (batch 16 of 768x768 crops,
-   ``--device-aug``, ``--stem-impl pallas``, ``--decoded-cache``, 2 epochs,
-   B6 at 2 launches a step for each part, finite losses, the checkpoints
-   written, the second epoch all cache hits), ``--epochs 3
+6b. the trainer CLI (:func:`trainer_phase`), with PIL and matplotlib
+   blocked (top of this file; the loader's worker processes too): a
+   synthetic Cityscapes tree of 32 train and 4 val pairs at 1024x2048, RGB
+   images and labelId maps as PNGs written without PIL (:func:`png_bytes`,
+   rows through all five filters), each read back through
+   ``data/image_io.py`` equal to the array written; the host ms of
+   ``data/pil_ops.py`` at 1024x2048 and of the records' hand-over (the
+   pipe, a new shared-memory block a record, the loader's warm slots); ``train.main`` of the recipe (batch 16 of
+   768x768 crops, ``--stem-impl pallas``, B6 at 2 launches a step for each
+   part and its forward at 2 a validated image, finite losses): fused
+   ``--device-aug`` with ``--decoded-cache`` and threads, 2 epochs,
+   validating in ``val`` mode every epoch (each printed pixAcc and mIoU
+   equal to the host metric of the masks validation predicted; the
+   checkpoints written; the second epoch all cache hits), ``--epochs 3
    --auto-resume`` (on at step 4, epoch 2, to step 6, the poly schedule's
-   rate), ``--device-aug-split --grad-accum 2`` (B6 at 2 x 2 a step); the
-   PSP chain on the card against the CPU with the same draws (masks equal,
-   f32 images within 1e-3, the bf16 difference and the chain's time); and
-   ``eval.main`` in testval at batch 2, bf16, whose FINAL metric must equal
-   the host metric of its own predicted masks;
+   rate), ``--device-aug-split --grad-accum 2`` (B6 at 2 x 2 a step),
+   ``--loader grain`` with one worker process a core up to 8 on a cold
+   cache for 2 epochs (epoch 1's data ms/iter and the warm ms/step beside
+   the threads'), and one host-augmented epoch (no ``--device-aug``)
+   through ``--loader grain`` with ``val``; the PSP chain on the card
+   against the CPU with the same draws (masks equal, f32 images within
+   1e-3, the bf16 difference and the chain's time); ``eval.main`` in
+   testval at batch 2, bf16, whose FINAL metric must equal the host metric
+   of its own predicted masks; and ``eval.main`` in ``val`` mode with its
+   colour dumps, each read back without PIL, FINAL equal to the host
+   metric of the dumps;
 7. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
    wrapper's counts in phases 4, 6 and 6b, plus the captured launches × the
    replays of the graphs of phases 4b and 4c, which no wrapper sees) and,
@@ -105,10 +121,18 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+
+# The card's machine has neither PIL nor matplotlib (which imports PIL): both
+# are blocked here as well, so that a stray import in the port fails in this
+# run wherever they are installed. The data loader's worker processes load
+# this file as their main module, so they run with the same block.
+for _blocked in ("PIL", "matplotlib"):
+    sys.modules[_blocked] = None
 
 SEED = 0
 REQUESTS = 4
@@ -1289,12 +1313,14 @@ def server_phase(engine):
         wall = time.perf_counter() - t0
         counts = launch_counts()
         stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=10).read())
+        graph = _graph_launches(fns.values())
+        replays = {b: fn.replays for b, fn in fns.items()}
+        body_checks = png_requests(base, eng, rng)
     finally:
         server.stop()
     if any(th.is_alive() for th in threads) or errors:
         raise AssertionError(f"server clients failed: {errors or 'a client did not finish'}")
-    graph = _graph_launches(fns.values())
-    replays = {b: fn.replays for b, fn in fns.items()}
+    failures += body_checks
     _print(f"server: /healthz {health}; {stats['requests']} requests in {stats['batches']} "
            f"batches in {wall:.3f} s ({stats['requests'] / wall:.1f} frames/s), replays by "
            f"bucket {replays}, batch sizes {stats.get('batch_size_hist')}, mean batch size "
@@ -1338,6 +1364,50 @@ def server_phase(engine):
     if failures:
         raise AssertionError("; ".join(failures))
     return graph
+
+
+def png_requests(base, eng, rng):
+    """Phase 4b's requests through the server's PIL-free paths: a full-size
+    frame as a PNG body (raw mask answer), and a wrong-size frame as a PNG
+    body (PNG answer), each answer against ``engine.predict`` of the pixels
+    the server should have fed it. Returns the failures."""
+    import io
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch.data import image_io, pil_ops
+
+    failures = []
+    full = rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
+    small = rng.integers(0, 256, (HEIGHT * 5 // 8 + 1, WIDTH * 5 // 8 + 3, 3), dtype=np.uint8)
+    for label, frame, accept in (("PNG body", full, "application/octet-stream"),
+                                 ("wrong-size PNG body", small, "image/png")):
+        buf = io.BytesIO()
+        image_io.write_png(buf, frame)
+        req = urllib.request.Request(f"{base}/predict", data=buf.getvalue(), method="POST",
+                                     headers={"Accept": accept})
+        t0 = time.perf_counter()
+        resp = urllib.request.urlopen(req, timeout=120)
+        data = resp.read()
+        wall = (time.perf_counter() - t0) * 1e3
+        if accept == "image/png":
+            mask, mode = image_io.decode_bytes(data)
+            if mode != "P":
+                failures.append(f"{label}: the answer is a {mode} PNG, not a palette one")
+        else:
+            mask = np.frombuffer(data, np.uint8).reshape(HEIGHT, WIDTH)
+        fed = pil_ops.resize(frame, (WIDTH, HEIGHT), "bilinear")
+        ref = eng.predict(torch.from_numpy(fed).to("cuda")).cpu().numpy()
+        differ = int((mask != ref).sum()) if mask.shape == ref.shape else -1
+        _print(f"  {label} {frame.shape[0]}x{frame.shape[1]} ({len(buf.getvalue())} bytes), "
+               f"Accept {accept}: answered in {wall:.1f} ms; pixels differing from "
+               f"engine.predict of the pixels fed {differ}")
+        if differ:
+            failures.append(f"{label}: {differ} pixels differ from engine.predict "
+                            f"({mask.shape} vs {ref.shape})")
+    return failures
 
 
 def graph_phase(engine):
@@ -1726,11 +1796,179 @@ def _host_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def _recording_eval_steps(parallel, seen):
+    """Wrap ``parallel.make_eval_step`` so that every eval step the CLIs
+    build appends (predicted masks, targets) to ``seen``; returns the
+    original to restore."""
+    import numpy as np
+
+    make_eval_step = parallel.make_eval_step
+
+    def recording(*args, **kwargs):
+        step = make_eval_step(*args, **kwargs)
+
+        def recorded(params, model_state, images, targets):
+            preds, stats = step(params, model_state, images, targets)
+            seen.append((preds.cpu().numpy(), np.asarray(targets)))
+            return preds, stats
+
+        return recorded
+
+    parallel.make_eval_step = recording
+    return make_eval_step
+
+
+def _host_scores(pairs):
+    """The host SegmentationMetric's (pixAcc, mIoU), as the CLIs print them."""
+    import numpy as np
+
+    from fastscnn_tpu_torch.utils.metric import SegmentationMetric
+
+    host = SegmentationMetric(NUM_CLASSES)
+    for preds, targets in pairs:
+        host.update(np.asarray(preds).astype(np.int64), np.asarray(targets).astype(np.int64))
+    pix_acc, miou = host.get()
+    return f"{pix_acc * 100:.3f}", f"{miou * 100:.3f}"
+
+
+def _loader_numbers(out, epochs):
+    """(epoch 1's data ms/iter, the last epoch's ms/step) from a run's prints."""
+    first = float(re.findall(r"epoch 0 iter .* \(data (\d+) ms/iter\)", out)[-1])
+    sps = float(re.findall(rf"epoch {epochs - 1} iter .* ([\d.]+) samples/s", out)[-1])
+    return first, 1e3 * TRAIN_BATCH / sps
+
+
+def _cache_counts(decoded_cache, before):
+    """The decoded cache's hits and misses since ``before`` (its stats())."""
+    now = decoded_cache.stats()
+    return {k: now[k] - before[k] for k in ("hits", "misses")}
+
+
+_TRANSPORTS = ("pipe", "fresh blocks", "slots", "slots")  # the second slots round is warm
+
+
+def _send_records(queue, go, n, height, width):
+    """A spawned process: for each of :data:`_TRANSPORTS`, once ``go[k]`` is
+    set, ``n`` native records (image, int8 labels) into ``queue``: pickled
+    through the pipe, or written into a new shared-memory block each, or
+    into ``n`` blocks made once and written again (the loader's slots)."""
+    from multiprocessing import shared_memory
+
+    import numpy as np
+
+    from fastscnn_tpu_torch.data.grain_loader import write_arrays
+
+    rng = np.random.default_rng(SEED + 9)
+    arrays = [rng.integers(0, 256, (height, width, 3), dtype=np.uint8),
+              rng.integers(-1, 19, (height, width)).astype(np.int8)]
+    size = sum(a.nbytes for a in arrays)
+    slots = []
+    queue.put("ready")
+    for k, how in enumerate(_TRANSPORTS):
+        go[k].wait()
+        for i in range(n):
+            if how == "pipe":
+                queue.put(tuple(arrays))
+                continue
+            if how == "fresh blocks":
+                block = shared_memory.SharedMemory(create=True, size=size)
+            else:
+                if len(slots) <= i:
+                    slots.append(shared_memory.SharedMemory(create=True, size=size))
+                block = slots[i]
+            queue.put((block.name, write_arrays(block, arrays)))
+            if how == "fresh blocks":
+                block.close()
+        queue.put("done")
+
+
+def record_transport_costs():
+    """ms for a batch of native records to reach the consumer and be
+    stacked: through the pipe, through a new shared-memory block a record,
+    and through warm slots (blocks both processes keep mapped, as the
+    loader does). One spawned sender, TRAIN_BATCH records each way, the
+    consumer's clock from the go signal to the stacked batch."""
+    import multiprocessing
+    from multiprocessing import shared_memory
+
+    import numpy as np
+
+    from fastscnn_tpu_torch.data.grain_loader import read_arrays
+
+    ctx = multiprocessing.get_context("spawn")
+    queue, go = ctx.Queue(), [ctx.Event() for _ in _TRANSPORTS]
+    proc = ctx.Process(target=_send_records, args=(queue, go, TRAIN_BATCH, HEIGHT, WIDTH),
+                       daemon=True)
+    proc.start()
+    mapped, costs = {}, []
+    try:
+        if queue.get(timeout=120) != "ready":
+            raise AssertionError("the record sender did not start")
+        for k, how in enumerate(_TRANSPORTS):
+            t0 = time.perf_counter()
+            go[k].set()
+            records, fresh = [], []
+            while (msg := queue.get(timeout=120)) != "done":
+                if how == "pipe":
+                    records.append(msg)
+                    continue
+                name, layout = msg
+                if name not in mapped:
+                    mapped[name] = shared_memory.SharedMemory(name=name)
+                    if how == "fresh blocks":
+                        fresh.append(name)
+                records.append(read_arrays(mapped[name], layout))
+            batch = np.stack([r[0] for r in records]), np.stack([r[1] for r in records])
+            for r in records:
+                if isinstance(r, list):
+                    r.clear()
+            for name in fresh:  # as a block a record is freed: unmapped and unlinked
+                block = mapped.pop(name)
+                block.close()
+                block.unlink()
+            costs.append((how, (time.perf_counter() - t0) * 1e3))
+            del records, batch
+    finally:
+        for block in mapped.values():
+            block.close()
+            block.unlink()
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.terminate()
+    mb = TRAIN_BATCH * HEIGHT * WIDTH * 4 / 1e6
+    named = [f"{how}{' (cold)' if how == 'slots' and i == 2 else ''} {ms:.1f} ms"
+             for i, (how, ms) in enumerate(costs)]
+    _print(f"record hand-over, {TRAIN_BATCH} native records ({mb:.0f} MB) from one spawned "
+           f"process to a stacked batch: " + ", ".join(named))
+
+
+def pil_ops_costs(files):
+    """Host ms of PIL's operations in numpy on one 1024x2048 frame of the
+    tree: the whole-frame bilinear resize to 768x1536, one 768² blur, and
+    one record of the PSP train chain (its resize windowed to the crop)."""
+    import random
+
+    from fastscnn_tpu_torch.data import pil_ops
+    from fastscnn_tpu_torch.data.transforms import SyncTransforms
+
+    img = next(a for p, a in files.items() if "leftImg8bit" in p)
+    mask = next(a for p, a in files.items() if "gtFine" in p)
+    crop = img[:TRAIN_SIZE, :TRAIN_SIZE]
+    tf = SyncTransforms(TREE_BASE, TRAIN_SIZE, rng=random.Random(SEED))
+    resize_ms = min(_host_ms(lambda: pil_ops.resize(img, (WIDTH * 3 // 4, HEIGHT * 3 // 4)))
+                    for _ in range(3))
+    blur_ms = min(_host_ms(lambda: pil_ops.gaussian_blur(crop, 0.7)) for _ in range(3))
+    chain_ms = sorted(_host_ms(lambda: tf.train(img, mask)) for _ in range(5))[2]
+    _print(f"pil_ops on the host: bilinear {HEIGHT}x{WIDTH} -> {HEIGHT * 3 // 4}x{WIDTH * 3 // 4} "
+           f"{resize_ms:.1f} ms, Gaussian blur (radius 0.7) of a {TRAIN_SIZE}x{TRAIN_SIZE} crop "
+           f"{blur_ms:.1f} ms, one PSP train record (flip, scale, crop, blur; median of 5) "
+           f"{chain_ms:.1f} ms (best of 3 otherwise)")
+
+
 def trainer_phase(fixed_step_ms):
     """Phase 6b: the trainer and evaluator CLIs, in process through their
-    ``main(argv)``, on a synthetic Cityscapes tree at full size. Returns the
-    B6 launch counts of its training runs."""
-    import re
+    ``main(argv)``, on a synthetic Cityscapes tree at full size, with PIL
+    blocked. Returns the B6 launch counts of its training runs."""
     import shutil
 
     import numpy as np
@@ -1742,9 +1980,14 @@ def trainer_phase(fixed_step_ms):
     from fastscnn_tpu_torch.data.cityscapes import CitySegmentation
     from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from fastscnn_tpu_torch.utils import lr_schedule
-    from fastscnn_tpu_torch.utils.metric import SegmentationMetric
 
     t_phase = time.perf_counter()
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("PIL is importable: the block at the top of this file failed")
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_trainer")
     shutil.rmtree(work, ignore_errors=True)
     tree, cache = os.path.join(work, "citys"), os.path.join(work, "cache")
@@ -1759,22 +2002,32 @@ def trainer_phase(fixed_step_ms):
     _print(f"synthetic Cityscapes: {len(files)} PNGs of {HEIGHT}x{WIDTH} (rows filtered "
            f"{PNG_FILTERS} in turn) written in {t_write:.1f} s; each read back without PIL "
            f"equal to the array written ({t_read / len(files) * 1e3:.0f} ms a file)")
+    pil_ops_costs(files)
+    record_transport_costs()
+    workers = str(min(8, os.cpu_count() or 1))
+    n_train, n_val = TREE_PAIRS["train"], TREE_PAIRS["val"]
     cwd = os.getcwd()
     os.chdir(work)  # the trainer writes logs/ under its working directory
+    seen = []
+    make_eval_step = _recording_eval_steps(parallel, seen)
     try:
         flags = ["--dataset", "citys", "--data-root", tree, "--base-size", str(TREE_BASE),
                  "--crop-size", str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH), "--aux",
-                 "--loss-type", "ce", "--stem-impl", "pallas", "--device-aug",
-                 "--decoded-cache", cache, "--no-val", "--save-epoch", "1",
+                 "--loss-type", "ce", "--stem-impl", "pallas", "--save-epoch", "1",
                  "--print-interval", "1"]
         parts = ("dw_conv3x3", "dw_conv3x3_dx", "dw_conv3x3_dw")
         total = dict.fromkeys(parts, 0)
         runs = {}
 
-        def run(label, extra, steps, per_step):
+        def run(label, extra, steps, per_step, val_epochs=0):
+            """One ``train.main``; B6 at ``per_step`` launches a step for each
+            part, and its forward twice more for each validated image (the
+            stem of the eval step); each epoch's printed val scores equal to
+            the host metric of the masks validation predicted."""
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
+            del seen[:]
             trainer, out = _run_cli(train.main, flags + extra)
             torch.cuda.synchronize()
             counts = launch_counts()
@@ -1782,36 +2035,51 @@ def trainer_phase(fixed_step_ms):
             if len(losses) != steps or not all(np.isfinite(losses)):
                 raise AssertionError(f"{label}: losses {losses}, expected {steps} finite")
             want = {k: per_step * steps for k in parts}
+            want["dw_conv3x3"] += 2 * n_val * val_epochs
             if any(counts[k] != v for k, v in want.items()):
                 raise AssertionError(f"{label}: B6 launches {counts}, expected {want}")
             for k in parts:
                 total[k] += counts[k]
+            printed = re.findall(r"epoch (\d+): val pixAcc (\S+)% mIoU (\S+)%", out)
+            if len(printed) != val_epochs or len(seen) != n_val * val_epochs:
+                raise AssertionError(f"{label}: {len(printed)} validations printed and "
+                                     f"{len(seen)} masks predicted, expected {val_epochs} of "
+                                     f"{n_val}")
+            for k, (epoch, acc, miou) in enumerate(printed):
+                host = _host_scores(seen[k * n_val:(k + 1) * n_val])
+                if (acc, miou) != host:
+                    raise AssertionError(f"{label}: epoch {epoch} val {acc}/{miou} differs from "
+                                         f"the host metric of its masks {host}")
             runs[label] = (trainer, out, torch.cuda.max_memory_allocated())
+            vals = ", ".join(f"epoch {e} pixAcc {a}% mIoU {m}%" for e, a, m in printed)
             _print(f"  {label}: B6 launches {[counts[k] for k in parts]} (forward, dX, dW) over "
-                   f"{steps} steps; peak device memory {runs[label][2] / 2**30:.2f} GiB")
+                   f"{steps} steps{f' and {len(seen)} validated images' if seen else ''}; peak "
+                   f"device memory {runs[label][2] / 2**30:.2f} GiB"
+                   + (f"; val ({vals}) equal to the host metric of the val masks" if vals else ""))
             return trainer, out
 
-        steps_per_epoch = TREE_PAIRS["train"] // TRAIN_BATCH
-        _print("trainer, fused --device-aug, 2 epochs:")
-        trainer, out = run("fused", ["--epochs", "2", "--save-folder", "S"], 2 * steps_per_epoch, 2)
+        steps_per_epoch = n_train // TRAIN_BATCH
+        before = decoded_cache.stats()
+        _print("trainer, fused --device-aug, threads, 2 epochs, val mode every epoch:")
+        trainer, out = run("fused", ["--device-aug", "--decoded-cache", cache, "--epochs", "2",
+                                     "--save-folder", "S"], 2 * steps_per_epoch, 2, val_epochs=2)
         for name in ("fast_scnn_citys.pth", "train_state_citys.pt"):
             if not os.path.exists(os.path.join("S", name)):
                 raise AssertionError(f"the trainer wrote no S/{name}")
-        st = decoded_cache.stats()
-        reads = 2 * TREE_PAIRS["train"]  # images and labels, once an epoch
+        st = _cache_counts(decoded_cache, before)
+        reads = 2 * (n_train + n_val)  # images and labels, once an epoch
         if (st["misses"], st["hits"]) != (reads, reads):
             raise AssertionError(f"decoded cache {st}: expected {reads} misses in epoch 1 and "
                                  f"{reads} hits in epoch 2")
-        last = re.findall(r"epoch 1 iter .* ([\d.]+) samples/s \(data (\d+) ms/iter\)", out)[-1]
-        sps, data_ms = float(last[0]), float(last[1])
-        first = re.findall(r"epoch 0 iter .* \(data (\d+) ms/iter\)", out)[-1]
+        threads_first, threads_warm = _loader_numbers(out, 2)
         _print(f"  decoded cache: {st['misses']} misses in epoch 1, {st['hits']} hits in epoch 2; "
-               f"epoch 2: {sps} samples/s, data {data_ms:.0f} ms/iter (epoch 1: {first} ms/iter, "
-               f"the PNG decodes); the trainer's {1e3 * TRAIN_BATCH / sps:.1f} ms/step against "
-               f"phase 6's fixed-batch step {fixed_step_ms:.2f} ms")
+               f"threads (4): epoch 1 data {threads_first:.0f} ms/iter (the PNG decodes), "
+               f"epoch 2 {threads_warm:.1f} ms/step against phase 6's fixed-batch step "
+               f"{fixed_step_ms:.2f} ms")
 
         _print("trainer, --epochs 3 --auto-resume:")
-        trainer, out = run("resume", ["--epochs", "3", "--auto-resume", "--save-folder", "S"],
+        trainer, out = run("resume", ["--device-aug", "--decoded-cache", cache, "--no-val",
+                                      "--epochs", "3", "--auto-resume", "--save-folder", "S"],
                            steps_per_epoch, 2)
         if "(step 4)" not in out or set(re.findall(r"epoch (\d+) iter", out)) != {"2"}:
             raise AssertionError("the resumed run did not start at step 4, epoch 2")
@@ -1827,11 +2095,46 @@ def trainer_phase(fixed_step_ms):
                f"the 3-epoch poly schedule's (its rate at step 4: {sched(4):.5f})")
 
         _print("trainer, --device-aug-split --grad-accum 2, 1 epoch:")
-        run("split", ["--epochs", "1", "--device-aug-split", "--grad-accum", "2",
-                      "--save-folder", "S2"], steps_per_epoch, 4)
+        run("split", ["--device-aug", "--decoded-cache", cache, "--no-val", "--epochs", "1",
+                      "--device-aug-split", "--grad-accum", "2", "--save-folder", "S2"],
+            steps_per_epoch, 4)
         _print(f"  peak device memory: fused {runs['fused'][2] / 2**30:.2f} GiB, split "
                f"{runs['split'][2] / 2**30:.2f} GiB")
+
+        _print(f"trainer, fused --device-aug, --loader grain ({workers} worker processes), "
+               f"a cold decoded cache, 2 epochs:")
+        before = decoded_cache.stats()
+        trainer, out = run("grain", ["--device-aug", "--loader", "grain", "--num-workers", workers,
+                                     "--decoded-cache", os.path.join(work, "cache_grain"),
+                                     "--no-val", "--epochs", "2", "--save-folder", "S3"],
+                           2 * steps_per_epoch, 2)
+        st = _cache_counts(decoded_cache, before)
+        reads = 2 * n_train
+        # records of epoch 2 go out while epoch 1's last are in flight, so a
+        # file may be decoded twice: every read is a hit or a miss, each
+        # file missed at least once
+        if st["misses"] + st["hits"] != 2 * reads or st["misses"] < reads:
+            raise AssertionError(f"grain decoded cache {st}: expected {2 * reads} reads, at "
+                                 f"least {reads} of them misses")
+        grain_first, grain_warm = _loader_numbers(out, 2)
+        _print(f"  workers' start to their first record "
+               f"{trainer.train_loader._loader.first_record_s:.2f} s (in epoch 1's data time)")
+        _print(f"  decoded cache: {st['misses']} misses, {st['hits']} hits; epoch 1 data "
+               f"{grain_first:.0f} ms/iter with grain vs {threads_first:.0f} with threads; epoch 2 "
+               f"{grain_warm:.1f} ms/step with grain vs {threads_warm:.1f} with threads (fixed "
+               f"batch {fixed_step_ms:.2f} ms)")
+
+        _print(f"trainer, host augmentation (no --device-aug), --loader grain ({workers} worker "
+               f"processes), warm cache, 1 epoch, val mode:")
+        trainer, out = run("host-aug", ["--loader", "grain", "--num-workers", workers,
+                                        "--decoded-cache", cache, "--epochs", "1",
+                                        "--save-folder", "S4"], steps_per_epoch, 2, val_epochs=1)
+        host_first, host_step = _loader_numbers(out, 1)
+        _print(f"  the PSP chain on the host in the workers: data {host_first:.0f} ms/iter, "
+               f"{host_step:.1f} ms/step (the workers' start to their first record "
+               f"{trainer.train_loader._loader.first_record_s:.2f} s)")
     finally:
+        parallel.make_eval_step = make_eval_step
         os.chdir(cwd)
 
     # the PSP chain on the card against the CPU, one native batch, the same draws
@@ -1878,19 +2181,7 @@ def trainer_phase(fixed_step_ms):
 
     # evaluation: testval, batch 2, no dump, bf16, FINAL against the host metric
     seen = []
-    make_eval_step = parallel.make_eval_step
-
-    def recording(*args, **kwargs):
-        step = make_eval_step(*args, **kwargs)
-
-        def recorded(params, model_state, images, targets):
-            preds, stats = step(params, model_state, images, targets)
-            seen.append((preds.cpu().numpy(), np.asarray(targets)))
-            return preds, stats
-
-        return recorded
-
-    parallel.make_eval_step = recording
+    make_eval_step = _recording_eval_steps(parallel, seen)
     try:
         evaluator, out = _run_cli(eval_cli.main, [
             "--dataset", "citys", "--data-root", tree, "--mode", "testval",
@@ -1898,18 +2189,40 @@ def trainer_phase(fixed_step_ms):
             "--batch-size", "2", "--no-dump", "--dtype", "bfloat16", "--decoded-cache", cache])
     finally:
         parallel.make_eval_step = make_eval_step
-    host = SegmentationMetric(NUM_CLASSES)
-    for preds, targets in seen:
-        host.update(preds.astype(np.int64), targets.astype(np.int64))
     final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", out).groups()
-    pix_acc, miou = host.get()
-    if evaluator.metric.get() != (pix_acc, miou) or final != (f"{pix_acc * 100:.3f}",
-                                                              f"{miou * 100:.3f}"):
-        raise AssertionError(f"eval FINAL {final} / {evaluator.metric.get()} differs from the "
-                             f"host metric of its predictions {(pix_acc, miou)}")
-    _print(f"eval.main, testval, {TREE_PAIRS['val']} images in batches of 2, bf16: FINAL pixAcc "
+    host = _host_scores(seen)
+    got = tuple(f"{v * 100:.3f}" for v in evaluator.metric.get())
+    if got != host or final != host:
+        raise AssertionError(f"eval FINAL {final} / {got} differs from the host metric of its "
+                             f"predictions {host}")
+    _print(f"eval.main, testval, {n_val} images in batches of 2, bf16: FINAL pixAcc "
            f"{final[0]}% mIoU {final[1]}%, equal to the host SegmentationMetric of its "
            f"{sum(len(p) for p, _ in seen)} predicted masks")
+
+    # evaluation: val mode (resize and centre crop on the host), colour dumps
+    # read back without PIL, FINAL against the host metric of the dumps
+    dumps = os.path.join(work, "dumps")
+    evaluator, out = _run_cli(eval_cli.main, [
+        "--dataset", "citys", "--data-root", tree, "--mode", "val", "--base-size",
+        str(TREE_BASE), "--crop-size", str(TRAIN_SIZE), "--weights",
+        os.path.join(work, "S", "fast_scnn_citys.pth"), "--aux", "--batch-size", "2",
+        "--dtype", "bfloat16", "--decoded-cache", cache, "--outdir", dumps])
+    final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", out).groups()
+    val = CitySegmentation(root=tree, split="val", mode="val", base_size=TREE_BASE,
+                           crop_size=TRAIN_SIZE)
+    pairs = []
+    for i in range(len(val)):
+        mask, mode = image_io.decode(os.path.join(dumps, f"seg_{i}.png"))
+        if mode != "P" or mask.shape != (TRAIN_SIZE, TRAIN_SIZE):
+            raise AssertionError(f"dump {i}: a {mode} PNG of {mask.shape}")
+        pairs.append((mask, val[i][1]))
+    host = _host_scores(pairs)
+    if final != host:
+        raise AssertionError(f"eval val FINAL {final} differs from the host metric of its "
+                             f"dumps {host}")
+    _print(f"eval.main, val ({TRAIN_SIZE}x{TRAIN_SIZE} centre crops), {n_val} images, bf16, with "
+           f"colour dumps: FINAL pixAcc {final[0]}% mIoU {final[1]}%, equal to the host metric "
+           f"of the {len(pairs)} dumps read back without PIL")
     shutil.rmtree(work, ignore_errors=True)
     _print(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
     return {"dw_conv3x3_vjp:forward": total["dw_conv3x3"],

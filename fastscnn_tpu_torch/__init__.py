@@ -18,11 +18,12 @@ Package rules:
   raises when there is none (no silent CPU fallback). Tests pass
   ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
   version.
+
+This module imports ``torch`` only inside its functions, so that the data
+loader's worker processes, which import ``data/`` alone, start without it.
 """
 
 from __future__ import annotations
-
-import torch
 
 __all__ = ["resolve_device", "f32_precision"]
 
@@ -36,6 +37,8 @@ def f32_precision() -> None:
     ``ops/conv.py::f32_precision`` works around on the TPU. bf16 work is
     unaffected (it never used TF32).
     """
+    import torch
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -47,6 +50,8 @@ def resolve_device(device=None) -> torch.device:
     falls back to the CPU on its own. Also applies :func:`f32_precision`,
     so every entry point that resolves a device runs without TF32.
     """
+    import torch
+
     f32_precision()
     if device is None:
         if not torch.cuda.is_available():

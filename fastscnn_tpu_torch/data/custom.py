@@ -16,7 +16,8 @@ import random as _random
 import numpy as np
 
 from fastscnn_tpu_torch.data import decoded_cache
-from fastscnn_tpu_torch.data.transforms import _pil, SyncTransforms
+from fastscnn_tpu_torch.data import pil_ops
+from fastscnn_tpu_torch.data.transforms import SyncTransforms
 
 __all__ = ["CustomDataset"]
 
@@ -104,40 +105,35 @@ class CustomDataset:
     def _sync_transform(self, img: np.ndarray, mask: np.ndarray):
         """reference:custom.py:123-164 (the flip comes AFTER the crop, unlike
         the other datasets; original-size mode resizes to base_size²)."""
-        Image, _, _ = _pil()
-        img, mask = Image.fromarray(img), Image.fromarray(mask)
         rng = self._rng
         if not self.keep_original_size:
             if self.multi_scale:
                 scale = rng.choice(self.scales)
-                w, h = img.size
-                img = img.resize((int(w * scale), int(h * scale)), Image.BILINEAR)
-                mask = mask.resize((int(w * scale), int(h * scale)), Image.NEAREST)
-            w, h = img.size
+                h, w = img.shape[:2]
+                img, mask = self._resize_pair(img, mask, (int(w * scale), int(h * scale)))
+            h, w = img.shape[:2]
             if w < self.crop_size or h < self.crop_size:
                 nw, nh = max(w, self.crop_size), max(h, self.crop_size)
-                img = img.resize((nw, nh), Image.BILINEAR)
-                mask = mask.resize((nw, nh), Image.NEAREST)
-            w, h = img.size
+                img, mask = self._resize_pair(img, mask, (nw, nh))
+            h, w = img.shape[:2]
             x1 = rng.randint(0, w - self.crop_size)
             y1 = rng.randint(0, h - self.crop_size)
-            img = img.crop((x1, y1, x1 + self.crop_size, y1 + self.crop_size))
-            mask = mask.crop((x1, y1, x1 + self.crop_size, y1 + self.crop_size))
+            box = (x1, y1, x1 + self.crop_size, y1 + self.crop_size)
+            img, mask = pil_ops.crop(img, box), pil_ops.crop(mask, box)
         else:
-            img = img.resize((self.base_size, self.base_size), Image.BILINEAR)
-            mask = mask.resize((self.base_size, self.base_size), Image.NEAREST)
+            img, mask = self._resize_pair(img, mask, (self.base_size, self.base_size))
         if rng.random() < 0.5:
-            img = img.transpose(Image.FLIP_LEFT_RIGHT)
-            mask = mask.transpose(Image.FLIP_LEFT_RIGHT)
-        return np.asarray(img), np.asarray(mask)
+            img, mask = pil_ops.flip_lr(img), pil_ops.flip_lr(mask)
+        return img, mask
+
+    @staticmethod
+    def _resize_pair(img, mask, size):
+        return pil_ops.resize(img, size, "bilinear"), pil_ops.resize(mask, size, "nearest")
 
     def _val_sync_transform(self, img: np.ndarray, mask: np.ndarray):
         if not self.keep_original_size:
             return self.tf.val(img, mask)
-        Image, _, _ = _pil()
-        img = Image.fromarray(img).resize((self.base_size, self.base_size), Image.BILINEAR)
-        mask = Image.fromarray(mask).resize((self.base_size, self.base_size), Image.NEAREST)
-        return np.asarray(img), np.asarray(mask)
+        return self._resize_pair(img, mask, (self.base_size, self.base_size))
 
     def __len__(self):
         return len(self.filenames)

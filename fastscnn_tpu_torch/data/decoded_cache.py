@@ -29,7 +29,7 @@ import numpy as np
 
 from fastscnn_tpu_torch.data import image_io
 
-__all__ = ["set_cache_dir", "get_cache_dir", "open_image", "open_rgb", "stats"]
+__all__ = ["set_cache_dir", "get_cache_dir", "open_image", "open_rgb", "stats", "add_stats"]
 
 _lock = threading.Lock()
 _cache_dir: str | None = os.environ.get("FASTSCNN_DECODED_CACHE") or None
@@ -54,6 +54,15 @@ def get_cache_dir() -> str | None:
 
 def stats() -> dict:
     return {"hits": _hits, "misses": _misses, "dir": _cache_dir}
+
+
+def add_stats(hits: int, misses: int) -> None:
+    """Add another process's hits and misses (a loader worker's) to this
+    process's counts."""
+    global _hits, _misses
+    with _lock:
+        _hits += hits
+        _misses += misses
 
 
 def _entry_path(path: str, mode: str | None) -> str:

@@ -15,6 +15,10 @@ BDD100K label maps, custom masks) with ``zlib`` and numpy alone:
 Any other file (JPEG, 16-bit or interlaced PNG, another ``convert``)
 goes through PIL, imported inside :func:`decode`; where PIL is not
 installed that raises a ``RuntimeError`` naming the file.
+:func:`decode_bytes` does the same for an image held in memory (a
+request body), and :func:`write_png` writes 8-bit L, RGB and palette
+PNGs with filter type 0: a palette image (the mask dumps) in the bytes
+PIL writes for it.
 
 Sub and Up rows unfilter with one vector operation a row. Average and
 Paeth rows depend on the pixel to their left, so an image that has any
@@ -32,13 +36,14 @@ and inflate their files.
 
 from __future__ import annotations
 
+import io
 import struct
 import threading
 import zlib
 
 import numpy as np
 
-__all__ = ["decode", "read_image", "PNG_SIGNATURE"]
+__all__ = ["decode", "decode_bytes", "read_image", "write_png", "PNG_SIGNATURE"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # IHDR colour type -> (samples a pixel, PIL mode) for the 8-bit subset read here
@@ -55,33 +60,41 @@ def read_image(path: str, convert: str | None = None) -> np.ndarray:
 def decode(path: str, convert: str | None = None) -> tuple[np.ndarray, str]:
     """:func:`read_image` and the PIL mode of the result (a palette image
     without ``convert`` gives its indices under mode ``'P'``)."""
+    with open(path, "rb") as f:
+        return _decode(f.read(), convert, path)
+
+
+def decode_bytes(data: bytes, convert: str | None = None) -> tuple[np.ndarray, str]:
+    """:func:`decode` of an image file's bytes."""
+    return _decode(bytes(data), convert, "<bytes>")
+
+
+def _decode(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
     if convert in (None, "RGB"):
-        png = _read_png(path)
+        png = _read_png(data, name)
         if png is not None:
             arr, mode, palette = png
             if convert == "RGB" and mode != "RGB":
                 arr, mode = _to_rgb(arr, mode, palette), "RGB"
             return arr, mode
-    return _decode_with_pil(path, convert)
+    return _decode_with_pil(data, convert, name)
 
 
-def _decode_with_pil(path: str, convert: str | None) -> tuple[np.ndarray, str]:
+def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
     try:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot read {path!r}: it is not an 8-bit non-interlaced PNG, which is all that "
+            f"cannot read {name!r}: it is not an 8-bit non-interlaced PNG, which is all that "
             "is read without PIL, and the PIL package is not installed") from e
-    with Image.open(path) as img:
+    with Image.open(io.BytesIO(data)) as img:
         if convert:
             img = img.convert(convert)
         return np.asarray(img), img.mode
 
 
-def _read_png(path: str):
+def _read_png(data: bytes, path: str):
     """``(array, mode, palette)`` of a PNG in the subset, else None."""
-    with open(path, "rb") as f:
-        data = f.read()
     if not data.startswith(PNG_SIGNATURE):
         return None
     pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
@@ -190,3 +203,51 @@ def _paeth(a, b, c):
     da, db = a - c, b - c
     pa, pb, pc = np.abs(db), np.abs(da), np.abs(da + db)
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path_or_file, arr: np.ndarray, palette=None) -> None:
+    """Write uint8 ``arr`` as an 8-bit PNG: (H, W) greyscale, (H, W, 3) RGB,
+    or, given ``palette`` (a flat list of RGB entries), (H, W) palette
+    indices with that palette as its PLTE chunk. Every row has filter
+    type 0; ``path_or_file`` is a path or a binary file."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8 arrays, not {arr.dtype}")
+    if palette is not None:
+        if arr.ndim != 2:
+            raise ValueError(f"a palette image is (H, W) indices, not {arr.shape}")
+        plte = np.asarray(palette, np.uint8).ravel()
+        if plte.size % 3 or not 3 <= plte.size <= 768:
+            raise ValueError(f"a palette holds 1 to 256 RGB entries, not {plte.size} values")
+        colour = 3
+    elif arr.ndim == 2:
+        colour = 0
+    elif arr.ndim == 3 and arr.shape[2] == 3:
+        colour = 2
+    else:
+        raise ValueError(f"write_png writes (H, W) or (H, W, 3) arrays, not {arr.shape}")
+    h, w = arr.shape[:2]
+    if not h or not w:
+        raise ValueError(f"a PNG holds at least one pixel, not {arr.shape}")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], axis=1)  # filter 0
+    out = [PNG_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))]
+    if palette is not None:
+        out.append(_chunk(b"PLTE", plte.tobytes()))
+    # PIL's encoder: zlib level 6 at memLevel 9, its output cut into IDAT
+    # chunks of its buffer's size, so a palette image's bytes equal PIL's
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9)
+    idat = z.compress(rows.tobytes()) + z.flush()
+    step = max(65536, w * 4)
+    out += [_chunk(b"IDAT", idat[i:i + step]) for i in range(0, len(idat), step)]
+    out.append(_chunk(b"IEND", b""))
+    data = b"".join(out)
+    if hasattr(path_or_file, "write"):
+        path_or_file.write(data)
+    else:
+        with open(path_or_file, "wb") as f:
+            f.write(data)

@@ -8,9 +8,10 @@ grouped by padded shape into batches of ``--batch-size`` (the pad is
 masked out of the metric and of the dump). The metric's statistics come
 out of the eval step per image.
 
-Where PIL is not installed (the card's machine), evaluate PNG datasets in
-``testval`` mode with ``--no-dump``: ``val`` mode resizes with PIL and a
-dump encodes a PNG with it.
+No PIL is needed on PNG datasets: ``val`` mode resizes and crops with
+``data/pil_ops.py`` (PIL's operations in numpy, bit for bit), and each
+dump is a palette PNG written by ``data/image_io.write_png`` (the bytes
+PIL writes). ``--weights`` also takes the JAX package's ``.pth.npz``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ def parse_args(argv=None):
                         choices=["citys", "tusimple", "bdd100k", "custom"])
     parser.add_argument("--data-root", type=str, default=None)
     parser.add_argument("--weights", type=str, default=None,
-                        help=".pth checkpoint (defaults to weights/fast_scnn_<dataset>.pth)")
+                        help=".pth or .pth.npz checkpoint (defaults to "
+                             "weights/fast_scnn_<dataset>.pth)")
     parser.add_argument("--save-folder", type=str, default="./weights")
     parser.add_argument("--outdir", type=str, default="./test_result")
     parser.add_argument("--aux", action="store_true", default=False)

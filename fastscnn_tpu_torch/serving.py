@@ -14,9 +14,10 @@ i+1 computes on the card while batch i is distributed to its callers.
 ``--data-parallel`` above 1 is not ported (multi-device is ROADMAP.md
 queue 1, item 6).
 
-PIL is imported only where an image is decoded or encoded (the ``/predict``
-body, a resize of a wrong-size frame, the PNG answer), so the server runs
-where PIL is absent as long as no request needs it.
+No PIL: a PNG body is decoded by ``data/image_io.decode_bytes``, a
+wrong-size frame resized by ``data/pil_ops.resize`` (PIL's bilinear, bit
+for bit) and the PNG answer written by ``data/image_io.write_png``. A
+JPEG body alone goes through PIL, where it is installed.
 
 Routes (stdlib HTTP, threads):
   POST /predict        image bytes (PNG/JPEG) → PNG palette mask
@@ -47,6 +48,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from fastscnn_tpu_torch.data import image_io, pil_ops
 
 __all__ = ["BatchingPredictor", "ServingServer", "build_server", "main"]
 
@@ -132,11 +135,7 @@ class BatchingPredictor:
         """
         h, w = self.input_size
         if image.shape[:2] != (h, w):
-            from PIL import Image
-
-            image = np.asarray(
-                Image.fromarray(image).resize((w, h), Image.BILINEAR), np.uint8
-            )
+            image = pil_ops.resize(np.asarray(image, np.uint8), (w, h), "bilinear")
         if image.shape != (h, w, 3):
             raise ValueError(
                 f"expected an (H, W, 3) RGB image, got shape {image.shape}"
@@ -348,9 +347,7 @@ class ServingServer:
                 length = int(self.headers.get("Content-Length", 0) or 0)
                 body = self.rfile.read(length)
                 try:
-                    from PIL import Image
-
-                    image = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+                    image = image_io.decode_bytes(body, "RGB")[0]
                 except Exception as e:  # malformed upload: client error
                     self._send(
                         json.dumps({"error": str(e)}).encode(), "application/json", 400

@@ -12,11 +12,15 @@ Usage::
         --crop-size 768 --epochs 160 --batch-size 16 --loss-type ce \\
         --aux --stem-impl pallas --device-aug --decoded-cache /tmp/citys-cache
 
-Where PIL is not installed (the card's machine), train with
-``--device-aug`` on PNG datasets (Cityscapes): the host then only decodes
-PNGs (``data/image_io.py``) or copies them out of ``--decoded-cache``, and
-the augmentation runs on the card. The host augmentation (without
-``--device-aug``), validation in ``val`` mode and JPEG datasets need PIL.
+No PIL is needed on PNG datasets (Cityscapes): the host decodes PNGs
+with ``data/image_io.py`` (or copies them out of ``--decoded-cache``),
+and the host augmentation and validation's ``val`` mode run PIL's
+operations in numpy (``data/pil_ops.py``). JPEG datasets need PIL.
+``--loader grain`` makes the records in worker processes
+(``data/grain_loader.py``, no grain). ``--resume`` takes the JAX
+trainer's files as well as the port's: ``.pth`` and ``.pth.npz`` load as
+weights, any other ``.npz`` as the JAX trainer's full state, ``.pt`` as
+the port's.
 """
 
 from __future__ import annotations
@@ -28,10 +32,7 @@ import warnings
 
 import numpy as np
 
-__all__ = ["parse_args", "Trainer", "main", "GRAIN_LOADER"]
-
-# where the Grain loader is queued
-GRAIN_LOADER = "ROADMAP.md, queue 1, item 2: '--loader grain'"
+__all__ = ["parse_args", "Trainer", "main"]
 
 
 def parse_args(argv=None):
@@ -62,7 +63,8 @@ def parse_args(argv=None):
     parser.add_argument("--fp16", action=argparse.BooleanOptionalAction, default=True,
                         help="bf16 compute over f32 masters (--no-fp16 trains in f32)")
     parser.add_argument("--resume", type=str, default=None,
-                        help=".pth (weights) or .pt (the port's full train state)")
+                        help=".pth or .pth.npz (weights), .npz (the JAX trainer's full state) "
+                             "or .pt (the port's full train state)")
     parser.add_argument("--auto-resume", action="store_true", default=False,
                         help="resume from save-folder's train_state_<dataset>.pt if present")
     parser.add_argument("--save-folder", type=str, default="./weights")
@@ -75,7 +77,9 @@ def parse_args(argv=None):
     parser.add_argument("--print-interval", type=int, default=10)
     parser.add_argument("--num-workers", type=int, default=4)
     parser.add_argument("--loader", type=str, default="threads", choices=["threads", "grain"],
-                        help="input pipeline: threaded prefetch ('grain' is not ported yet)")
+                        help="input pipeline: threaded prefetch (default) or 'grain': worker "
+                             "processes, each record's augmentation seeded from (seed, epoch, "
+                             "index) (data/grain_loader.py; grain itself is not used)")
     parser.add_argument("--decoded-cache", type=str, default=None, metavar="DIR",
                         help="decode-once image cache directory (data/decoded_cache.py): the "
                              "first epoch decodes and stores arrays, later epochs copy them")
@@ -139,6 +143,34 @@ def _device_augment(args, train_ds, compute_dtype):
         pad_label=train_ds.DEVICE_AUG_PAD_LABEL, compute_dtype=compute_dtype)
 
 
+class _EpochChunker:
+    """The JAX trainer's adapter: a loader's one stream of ``num_epochs``
+    epochs, taken an epoch at a time by the training loop."""
+
+    def __init__(self, loader, num_epochs):
+        self._loader = loader
+        self._iter = iter(loader)
+        self._per_epoch = len(loader) // max(num_epochs, 1)
+        if self._per_epoch == 0 and len(loader):
+            raise ValueError(f"loader yields {len(loader)} total batches for {num_epochs} "
+                             "epochs — fewer than one batch per epoch; reduce --epochs or "
+                             "--batch-size")
+
+    def __len__(self):
+        return self._per_epoch
+
+    def __iter__(self):
+        for _ in range(self._per_epoch):
+            try:
+                yield next(self._iter)
+            except StopIteration:
+                return
+
+    def close(self):
+        self._iter.close()
+        self._loader.close()
+
+
 class Trainer:
     def __init__(self, args):
         import torch
@@ -160,8 +192,6 @@ class Trainer:
         from fastscnn_tpu_torch.utils.monitor import TrainingMonitor
 
         self.args = args
-        if args.loader == "grain":
-            raise NotImplementedError(f"--loader grain is not ported yet ({GRAIN_LOADER})")
         if args.device_aug_split and not args.device_aug:
             warnings.warn("--device-aug-split has no effect without --device-aug: training "
                           "with the host augmentation", stacklevel=2)
@@ -186,13 +216,20 @@ class Trainer:
                 val_kwargs["sample_ratio"] = min(0.2, val_kwargs["sample_ratio"] * 2)
             self.val_ds = get_segmentation_dataset(args.dataset, split="val", mode="val",
                                                    **val_kwargs)
-        self.train_loader = DataLoader(self.train_ds, batch_size=args.batch_size, shuffle=True,
-                                       drop_last=True, num_workers=args.num_workers,
-                                       seed=args.seed,
-                                       # native-resolution labels travel as int8
-                                       # where their range fits; the augmentation
-                                       # gives the loss int32 crops
-                                       narrow_targets=args.device_aug)
+        # native-resolution labels travel as int8 where their range fits; the
+        # augmentation gives the loss int32 crops
+        loader_kwargs = dict(batch_size=args.batch_size, shuffle=True, drop_last=True,
+                             num_workers=args.num_workers, seed=args.seed,
+                             narrow_targets=args.device_aug)
+        if args.loader == "grain":
+            from fastscnn_tpu_torch.data.grain_loader import GrainDataLoader
+
+            # one stream of every epoch, cut into epochs for the loop below
+            self.train_loader = _EpochChunker(
+                GrainDataLoader(self.train_ds, num_epochs=args.epochs, **loader_kwargs),
+                args.epochs)
+        else:
+            self.train_loader = DataLoader(self.train_ds, **loader_kwargs)
         self.num_classes = self.train_ds.num_class
         if self.train_ds.normalization == "imagenet":
             mean, std = IMAGENET_MEAN, IMAGENET_STD
@@ -214,14 +251,14 @@ class Trainer:
                 args.resume = candidate
         resumed_run = False  # continuing the same run (a full-state restore)?
         if args.resume:
-            if args.resume.endswith(".pth"):
+            if args.resume.endswith((".pth", ".pth.npz")):
                 params, mstate = load_pth_checkpoint(args.resume, self.num_classes,
                                                      aux=args.aux or None,
                                                      allow_shape_mismatch=True)
                 self.state = create_train_state(self.model, optimizer, params=params,
                                                 model_state=mstate, device=self.device)
                 print(f"resumed weights from {args.resume}")
-            else:
+            else:  # .pt: the port's full state; any other .npz: the JAX trainer's
                 self.state = load_train_state(args.resume, self.state)
                 resumed_run = True
                 # continue from the epoch the restored step implies
@@ -261,6 +298,8 @@ class Trainer:
             return self._train_loop()
         finally:
             self.monitor.close()
+            if isinstance(self.train_loader, _EpochChunker):
+                self.train_loader.close()
 
     def _train_loop(self):
         args = self.args

@@ -6,14 +6,25 @@ Counterpart of ``fastscnn_tpu/utils/checkpoint.py``:
    reference's raw state dict, so reference tooling, the JAX package and
    this one read each other's weights. :func:`load_pth_checkpoint` does the
    JAX loader's shape-filtered partial load (transfer learning across
-   class counts).
+   class counts), also of the ``.pth.npz`` the JAX package writes where
+   torch is missing (the same state dict as numpy arrays).
 2. ``train_state_<dataset>.pt``: the full state for a resume — f32
    masters, BN statistics, the optimizer's ``state_dict`` and the step —
    as ``torch.save`` of tensors and numbers, loadable with
-   ``weights_only=True``. It is not the JAX trainer's
-   ``train_state_<dataset>.npz`` (leaves in JAX's order, optax state), so a
-   run that auto-resumes in a folder the JAX trainer also wrote never reads
-   that file as its own. The JAX Orbax backend has no counterpart.
+   ``weights_only=True``. Its name differs from the JAX trainer's
+   ``train_state_<dataset>.npz``, so a run that auto-resumes in a folder
+   the JAX trainer also wrote never takes that file for its own.
+
+:func:`load_train_state` also reads the JAX trainer's ``.npz``: the
+leaves ``leaf_0 …`` of ``TrainState(params, model_state, opt_state,
+step)`` in JAX's tree order (dict keys sorted, :func:`tree_leaves`), with
+optax's states as the JAX package builds them — SGD ``(EmptyState,
+(TraceState(trace), ScaleByScheduleState(count)))``, AdamW
+``(ScaleByAdamState(count, mu, nu), EmptyState,
+ScaleByScheduleState(count))``. ``trace`` becomes torch SGD's
+``momentum_buffer``, ``mu``/``nu``/``count`` AdamW's
+``exp_avg``/``exp_avg_sq``/``step``. The JAX Orbax backend has no
+counterpart (it cannot be read without its package).
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 import os
 import shutil
 
+import numpy as np
 import torch
 
 from fastscnn_tpu_torch.models.convert import (
@@ -36,11 +48,7 @@ __all__ = [
     "load_pth_checkpoint",
     "save_train_state",
     "load_train_state",
-    "NPZ_STATE",
 ]
-
-# where reading the JAX trainer's full-state npz is queued
-NPZ_STATE = "ROADMAP.md, queue 1, item 2: reading the JAX trainer's train_state_*.npz"
 
 
 def _node(tree, path):
@@ -71,15 +79,18 @@ def save_pth_checkpoint(params, state, directory, dataset="citys", is_best=False
 
 
 def load_pth_checkpoint(path, num_classes, aux=None, allow_shape_mismatch=False):
-    """A ``.pth`` in any of the three dialects → ``(params, state)`` trees of
-    f32 CPU tensors (HWIO), shaped as a fresh ``num_classes``-class
-    model's. ``aux=None`` follows the checkpoint. Leaves the checkpoint
-    lacks (the aux head, or with ``allow_shape_mismatch`` those of another
-    shape, such as the classifier of another class count) keep the values
-    of a model initialised from seed 0; otherwise a mismatch raises."""
+    """A ``.pth`` in any of the three dialects, or a ``.npz`` of the same
+    state dict → ``(params, state)`` trees of f32 CPU tensors (HWIO),
+    shaped as a fresh ``num_classes``-class model's. ``aux=None`` follows
+    the checkpoint. Leaves the checkpoint lacks (the aux head, or with
+    ``allow_shape_mismatch`` those of another shape, such as the
+    classifier of another class count) keep the values of a model
+    initialised from seed 0; otherwise a mismatch raises."""
     if str(path).endswith(".npz"):
-        raise NotImplementedError(f"{path}: a .npz checkpoint is not read yet ({NPZ_STATE})")
-    sd = load_checkpoint(path)
+        with np.load(path, allow_pickle=False) as npz:
+            sd = {k: torch.from_numpy(np.array(npz[k])) for k in npz.files}
+    else:
+        sd = load_checkpoint(path)
     has_aux = any(k.startswith("auxlayer.") for k in sd)
     if aux is None:
         aux = has_aux
@@ -127,23 +138,77 @@ def save_train_state(train_state, path):
 
 
 def load_train_state(path, template_state):
-    """Restore ``path`` into ``template_state`` (same model and optimizer):
-    the masters and BN statistics are copied into its tensors, on their
-    device, the optimizer's state is loaded, and the step set. Returns the
-    state."""
+    """Restore ``path`` — the port's ``.pt`` or the JAX trainer's ``.npz`` —
+    into ``template_state`` (same model and optimizer): the masters and BN
+    statistics are copied into its tensors, on their device, the
+    optimizer's state is loaded, and the step set. Returns the state."""
     if str(path).endswith(".npz"):
-        raise NotImplementedError(f"{path}: a .npz train state is not read yet ({NPZ_STATE})")
+        return _load_jax_train_state(path, template_state)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     for name in ("params", "model_state"):
         dst, src = tree_leaves(getattr(template_state, name)), tree_leaves(saved[name])
         if len(dst) != len(src):
             raise ValueError(f"{path}: {len(src)} {name} leaves, the model has {len(dst)}")
-        with torch.no_grad():
-            for d, s in zip(dst, src):
-                if d.shape != s.shape:
-                    raise ValueError(f"shape mismatch restoring train state: {tuple(s.shape)} "
-                                     f"vs {tuple(d.shape)}")
-                d.copy_(s)
+        _copy_leaves(dst, src, path, name)
     template_state.opt_state.load_state_dict(saved["opt_state"])
     template_state.step = int(saved["step"])
+    return template_state
+
+
+def _check_shapes(dst, src, path, name):
+    for i, (d, s) in enumerate(zip(dst, src)):
+        if tuple(d.shape) != tuple(s.shape):
+            raise ValueError(f"{path}: shape mismatch restoring train state, {name} leaf {i}: "
+                             f"{tuple(s.shape)} in the file vs {tuple(d.shape)}")
+
+
+def _copy_leaves(dst, src, path, name):
+    _check_shapes(dst, src, path, name)
+    with torch.no_grad():
+        for d, s in zip(dst, src):
+            d.copy_(torch.as_tensor(s))
+
+
+def _load_jax_train_state(path, template_state):
+    """The JAX trainer's ``train_state_<dataset>.npz`` (module docstring)."""
+    params = tree_leaves(template_state.params)
+    model_state = tree_leaves(template_state.model_state)
+    opt = template_state.opt_state
+    n_p = len(params)
+    if isinstance(opt, torch.optim.AdamW):
+        # ScaleByAdamState(count, mu, nu), EmptyState, ScaleByScheduleState(count)
+        slots = [("count", 1), ("exp_avg", n_p), ("exp_avg_sq", n_p)]
+    elif isinstance(opt, torch.optim.SGD):
+        # EmptyState, (TraceState(trace), ScaleByScheduleState(count))
+        slots = [("momentum_buffer", n_p)]
+    else:
+        raise TypeError(f"no JAX optimizer state maps to {type(opt).__name__}")
+    layout = ([("params", n_p), ("model_state", len(model_state))] + slots
+              + [("schedule", 1), ("step", 1)])
+    with np.load(path, allow_pickle=False) as npz:
+        count = sum(1 for k in npz.files if k.startswith("leaf_"))
+        if count != sum(n for _, n in layout):
+            raise ValueError(f"{path}: {count} leaves, but a {type(opt).__name__} train state of "
+                             f"this model has {sum(n for _, n in layout)}")
+        leaves, pos = {}, 0
+        for name, n in layout:
+            leaves[name] = [np.asarray(npz[f"leaf_{pos + i}"]) for i in range(n)]
+            pos += n
+    slots = [k for k, _ in slots if k != "count"]
+    # every shape first, so that a mismatch leaves the template as it was
+    for name, dst in [("params", params), ("model_state", model_state)] + [
+            (k, params) for k in slots]:
+        _check_shapes(dst, leaves[name], path, name)
+    for name, dst in (("params", params), ("model_state", model_state)):
+        _copy_leaves(dst, leaves[name], path, name)
+    sd = opt.state_dict()
+    state = {}
+    for i in range(n_p):
+        entry = {k: torch.from_numpy(np.array(leaves[k][i], np.float32)) for k in slots}
+        if "count" in leaves:
+            entry["step"] = torch.tensor(float(leaves["count"][0]), dtype=torch.float32)
+        state[i] = entry
+    sd["state"] = state
+    opt.load_state_dict(sd)
+    template_state.step = int(leaves["step"][0])
     return template_state

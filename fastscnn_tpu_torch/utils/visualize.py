@@ -1,18 +1,23 @@
 """Mask colouring: ``get_color_pallete`` and the palettes it uses.
 
 The port's own copy of ``fastscnn_tpu/utils/visualize.py``: an (H, W)
-class-id mask becomes a paletted PIL image, with the Cityscapes 19-class
-palette, the ADE20K palette and the generated PASCAL VOC palette, so a
-mask saves to the same PNG bytes as from the JAX package. PIL is imported
-inside :func:`get_color_pallete` only: the rest of the port runs where PIL
-is not installed.
+class-id mask becomes a :class:`PalettedMask`, with the Cityscapes
+19-class palette, the ADE20K palette or the generated PASCAL VOC palette.
+Where the JAX package returns a paletted PIL image, this returns the
+indices and the palette, and ``.save`` writes them with
+``data/image_io.write_png``: the same PNG bytes as PIL saves for the JAX
+package's, without PIL.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-__all__ = ["get_color_pallete", "cityspallete", "adepallete", "vocpallete"]
+from fastscnn_tpu_torch.data.image_io import write_png
+
+__all__ = ["PalettedMask", "get_color_pallete", "cityspallete", "adepallete", "vocpallete"]
 
 
 def _make_voc_palette(num_cls: int):
@@ -77,19 +82,27 @@ adepallete = [
 ]
 
 
-def get_color_pallete(npimg: np.ndarray, dataset: str = "citys"):
-    """Colour a class-id mask with the dataset's palette: a paletted
-    ``PIL.Image.Image``."""
-    from PIL import Image
+@dataclasses.dataclass(frozen=True)
+class PalettedMask:
+    """A palette image: uint8 (H, W) ``indices`` and ``palette``, a flat list
+    of RGB entries (PIL's ``getpalette()``)."""
 
+    indices: np.ndarray
+    palette: list
+
+    def save(self, path_or_file, format=None):  # noqa: A002 — PIL's argument name
+        """Write a PNG (``format``, as PIL's, may only say so)."""
+        if format not in (None, "PNG", "png"):
+            raise ValueError(f"a mask is saved as a PNG, not {format!r}")
+        write_png(path_or_file, self.indices, palette=self.palette)
+
+
+def get_color_pallete(npimg: np.ndarray, dataset: str = "citys") -> PalettedMask:
+    """Colour a class-id mask with the dataset's palette."""
     npimg = np.asarray(npimg)
     if dataset in ("pascal_voc", "pascal_aug"):
         npimg = npimg.copy()
         npimg[npimg == -1] = 255
     if dataset == "ade20k":
-        out_img = Image.fromarray((npimg + 1).astype("uint8"))
-        out_img.putpalette(adepallete)
-        return out_img
-    out_img = Image.fromarray(npimg.astype("uint8"))
-    out_img.putpalette(cityspallete if dataset == "citys" else vocpallete)
-    return out_img
+        return PalettedMask((npimg + 1).astype("uint8"), adepallete)
+    return PalettedMask(npimg.astype("uint8"), cityspallete if dataset == "citys" else vocpallete)

@@ -246,7 +246,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'models.fast_scnn', 'models.quantize', 'serving', 'bench', 'utils.visualize',\n"
         "        'utils.system_monitor', 'models.registry', 'data.image_io', 'data.decoded_cache',\n"
         "        'data.transforms', 'data.cityscapes', 'data.tusimple', 'data.bdd100k',\n"
-        "        'data.custom', 'data.loader', 'data.device_aug', 'train', 'eval',\n"
+        "        'data.custom', 'data.loader', 'data.device_aug', 'data.pil_ops',\n"
+        "        'data.grain_loader', 'train', 'eval',\n"
         "        'train_presets', 'utils.checkpoint', 'utils.monitor')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"

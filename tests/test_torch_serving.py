@@ -1,8 +1,10 @@
 """The port's batching server (``fastscnn_tpu_torch/serving.py``): the
 cases of ``tests/test_serving.py`` on the port's ``BatchingPredictor``,
 ``ServingServer`` and ``InferenceEngine``, plus ``build_server`` (the
-path ``main`` takes) on the CPU, and the port's copies of the palette and
-the dataset registry against the JAX package's.
+path ``main`` takes) on the CPU, the port's copies of the palette and
+the dataset registry against the JAX package's, and the PNG body, the
+resize of a wrong-size frame and the PNG answer, without PIL, against the
+JAX server's answers.
 
 On the CPU ``InferenceEngine.predict_fn`` runs eagerly; on the card it
 replays a CUDA graph, which ``chip_smoke.py`` drives through this server.
@@ -10,6 +12,7 @@ replays a CUDA graph, which ``chip_smoke.py`` drives through this server.
 
 import io
 import json
+import sys
 import threading
 import time
 import urllib.error
@@ -354,3 +357,51 @@ def test_palette_and_registry_match_jax():
         assert ours.getvalue() == theirs.getvalue(), dataset
     assert DATASET_NUM_CLASSES == JAX_NUM_CLASSES
     assert DATASET_ACRONYMS == JAX_ACRONYMS
+
+
+def test_png_bodies_resizes_and_png_answers_equal_the_jax_server(monkeypatch):
+    """A PNG body (RGB, greyscale and palette), a wrong-size frame and the
+    PNG answer, with PIL blocked in the port's server: each answer's bytes
+    equal the JAX server's, whose path is PIL's (decode, bilinear resize,
+    palette PNG). The fake model's mask is a function of the pixels it is
+    fed, so a resize or decode that differed would show."""
+    from fastscnn_tpu.serving import BatchingPredictor as JaxPredictor
+    from fastscnn_tpu.serving import ServingServer as JaxServer
+
+    def model(batch):
+        return (batch.astype(np.int32).sum(-1) // 40).astype(np.int32)  # 0..19
+
+    rng = np.random.default_rng(7)
+    frame = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
+    palette = rng.integers(0, 256, 120).tolist()  # 40 entries: PIL writes 8 bits a pixel
+    bodies = [_png(frame), _png(frame[:24, :32]), _png(frame[:, :, 0])]
+    pal = Image.fromarray(frame[:, :, 1] % 40)
+    pal.putpalette(palette)
+    bio = io.BytesIO()
+    pal.save(bio, "PNG")
+    bodies.append(bio.getvalue())
+
+    def answers(predictor_cls, server_cls):
+        predictor = predictor_cls(model, input_size=(24, 32), max_batch=2, max_delay_ms=1)
+        server = server_cls(predictor, palette_dataset="citys", host="127.0.0.1", port=0)
+        port = server.start()
+        try:
+            out = []
+            for body in bodies:
+                for accept in ("image/png", "application/octet-stream"):
+                    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body,
+                                                 method="POST", headers={"Accept": accept})
+                    out.append(urllib.request.urlopen(req, timeout=30).read())
+            return out
+        finally:
+            server.stop()
+
+    theirs = answers(JaxPredictor, JaxServer)
+    with monkeypatch.context() as m:
+        for name in [k for k in sys.modules if k == "PIL" or k.startswith("PIL.")]:
+            m.setitem(sys.modules, name, None)
+        ours = answers(BatchingPredictor, ServingServer)
+    assert len(ours) == len(theirs) == 8
+    for a, b in zip(ours, theirs):
+        assert a == b
+    assert len({bytes(a) for a in ours[1::2]}) == 4  # four different masks

@@ -6,10 +6,13 @@ Bounds:
 - ``.pth`` files cross both ways with equal params (exact: a transpose);
 - save → load → step equals the uninterrupted step bit for bit;
 - ``eval.main`` of the port and of the JAX package on one tree and one
-  ``.pth``, in f32: the FINAL pixAcc and mIoU within 1e-4 (one pixel of
-  the 2 × 64 × 128 evaluated is 6.1e-5 of pixAcc, so a single near-tie
-  argmax flip stays inside), and the colour dumps equal where the masks
-  are.
+  ``.pth``, in f32, in ``testval`` and ``val`` mode: the FINAL pixAcc and
+  mIoU within 1e-4 (one pixel of the 2 × 64 × 128 evaluated is 6.1e-5 of
+  pixAcc, so a single near-tie argmax flip stays inside), and the colour
+  dumps equal where the masks are;
+- ``--resume`` by suffix, the JAX trainer's ``.npz`` files included, and a
+  run with PIL blocked (host augmentation, the worker-process loader,
+  ``val`` mode, ``eval.main`` with dumps).
 """
 
 import json
@@ -26,6 +29,7 @@ from PIL import Image
 from fastscnn_tpu import eval as jax_eval
 from fastscnn_tpu import train_presets as jax_presets
 from fastscnn_tpu.models import init_fast_scnn as jax_init
+from fastscnn_tpu.models.import_torch import export_torch_state_dict
 from fastscnn_tpu.utils import checkpoint as jax_ckpt
 from fastscnn_tpu.utils import monitor as jax_monitor
 from fastscnn_tpu_torch import eval as port_eval
@@ -98,8 +102,11 @@ def test_partial_load_19_to_2_classes_keeps_the_jax_leaves(tmp_path):
         assert len(out) == len(src)
         kept.append([a.shape == b.shape and np.array_equal(a, b) for a, b in zip(src, out)])
     assert kept[0] == kept[1] and sum(kept[0]) == len(src) - 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        checkpoint.load_pth_checkpoint(str(tmp_path / "x.npz"), 2)
+    # the JAX package's torch-free weights file: the same partial load
+    npz = str(tmp_path / "fast_scnn_bdd100k.pth.npz")
+    np.savez(npz, **export_torch_state_dict(jp, js))
+    out = _leaves_np(checkpoint.load_pth_checkpoint(npz, 2, allow_shape_mismatch=True))
+    assert [a.shape == b.shape and np.array_equal(a, b) for a, b in zip(src, out)] == kept[0]
 
 
 @pytest.mark.parametrize("opt_name", ["sgd", "adamw"])
@@ -294,25 +301,111 @@ def test_split_aug_with_grad_accum_and_the_same_seed_twice(citys, workdir, capsy
 
 
 def test_cli_refusals(citys, workdir):
-    """The split flag alone warns; --loader grain and an .npz resume raise,
-    naming their ROADMAP.md item."""
+    """The split flag alone warns (and trains on the host transforms)."""
     with pytest.warns(UserWarning, match="--device-aug-split"):
         _train(citys, "--epochs", "1", "--no-val", "--device-aug-split", "--save-folder", "S")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*grain"):
-        _train(citys, "--loader", "grain")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*npz"):
-        _train(citys, "--resume", "train_state_citys.npz", "--no-val")
 
 
-def test_eval_main_matches_jax(citys, workdir, capsys):
-    """One .pth (a short port run), testval at batch 2, f32: the port's and
-    JAX's FINAL pixAcc/mIoU within 1e-4 and their colour dumps equal; the
-    port's FINAL equals the host metric recomputed from its masks."""
+def _jax_train_state(optimizer, step):
+    """The JAX trainer's ``create_train_state`` for the CLI's model (19
+    classes, aux), its step count set to ``step``."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from fastscnn_tpu.models import FastSCNN as JaxFastSCNN
+    from fastscnn_tpu.parallel.train import create_train_state as jax_create
+    from fastscnn_tpu.parallel.train import make_optimizer as jax_optimizer
+    from fastscnn_tpu.utils.lr_scheduler import lr_schedule as jax_lr
+
+    schedule = jax_lr("poly", base_lr=1e-2, nepochs=2, iters_per_epoch=2, power=0.9)
+    state = jax_create(JaxFastSCNN(19, aux=True), jax_optimizer(optimizer, schedule),
+                       key=jax.random.PRNGKey(4))
+    return dataclasses.replace(state, step=jnp.asarray(step, jnp.int32))
+
+
+def test_resume_routes_by_suffix(citys, workdir, capsys):
+    """``.pth.npz`` (the JAX package's torch-free weights file) resumes as
+    weights with JAX's params; any other ``.npz`` as the JAX trainer's full
+    state, going on from its step; ``--auto-resume`` takes only the port's
+    ``.pt``, never a JAX ``.npz`` in the same folder."""
+    jp, js = jax_init(jax.random.PRNGKey(6), 19, aux=True)
+    os.makedirs("W")
+    np.savez("W/fast_scnn_citys.pth.npz", **export_torch_state_dict(jp, js))
+    trainer = _train(citys, "--eval", "--resume", "W/fast_scnn_citys.pth.npz")
+    assert "resumed weights from W/fast_scnn_citys.pth.npz" in capsys.readouterr().out
+    want = _leaves_np(jax_ckpt.load_pth_checkpoint("W/fast_scnn_citys.pth.npz", 19))
+    for a, b in zip(want, _leaves_np((trainer.state.params, trainer.state.model_state))):
+        np.testing.assert_array_equal(a, b)
+
+    jax_ckpt.save_train_state(_jax_train_state("sgd", 2), "W/train_state_citys.npz")
+    trainer = _train(citys, "--epochs", "2", "--device-aug", "--no-val", "--save-folder", "W",
+                     "--resume", "W/train_state_citys.npz")
+    out = capsys.readouterr().out
+    assert "resumed full train state from W/train_state_citys.npz (step 2)" in out
+    assert re.findall(r"epoch (\d) iter", out) == ["1", "1"] and trainer.state.step == 4
+    os.remove("W/train_state_citys.pt")
+    trainer = _train(citys, "--epochs", "1", "--device-aug", "--no-val", "--save-folder", "W",
+                     "--auto-resume")
+    assert "resumed" not in capsys.readouterr().out and trainer.state.step == 2
+
+
+def test_a_pil_blocked_run_trains_validates_and_evaluates(citys, workdir, capsys, monkeypatch,
+                                                          tmp_path):
+    """With PIL blocked (``sys.modules``, and a stub that raises on import
+    ahead of it on the path the loader's worker processes inherit) and
+    matplotlib too: one
+    host-augmented epoch through ``--loader grain`` with 2 workers and
+    validation in ``val`` mode, then ``eval.main --mode val`` with its
+    colour dumps, each read back with the port's decoder; FINAL equals the
+    host metric of the dumped masks."""
+    stub = tmp_path / "stub"
+    (stub / "PIL").mkdir(parents=True)
+    (stub / "PIL" / "__init__.py").write_text("raise ImportError('PIL is blocked')\n")
+    monkeypatch.syspath_prepend(str(stub))
+    # the card's machine has neither PIL nor matplotlib (which imports PIL)
+    for top in ("PIL", "matplotlib"):
+        for name in [m for m in sys.modules if m == top or m.startswith(top + ".")]:
+            monkeypatch.setitem(sys.modules, name, None)
+        monkeypatch.setitem(sys.modules, top, None)
+    with pytest.raises(ImportError):
+        import PIL  # noqa: F401
+    _train(citys, "--epochs", "1", "--loader", "grain", "--num-workers", "2",
+           "--save-folder", "S")
+    out = capsys.readouterr().out
+    assert len(_losses(out)) == 2 and all(np.isfinite(_losses(out)))
+    assert re.search(r"epoch 0: val pixAcc \d+\.\d+% mIoU \d+\.\d+%", out)
+    evaluator = port_eval.main(["--device", "cpu", "--dataset", "citys", "--data-root", citys,
+                                "--weights", "S/fast_scnn_citys.pth", "--aux", "--mode", "val",
+                                "--base-size", "64", "--crop-size", "48", "--outdir", "dumps"])
+    pix_acc, miou = evaluator.metric.get()
+    assert f"FINAL pixAcc {pix_acc * 100:.3f}% mIoU {miou * 100:.3f}%" in capsys.readouterr().out
+    from fastscnn_tpu_torch.data import get_segmentation_dataset, image_io
+    from fastscnn_tpu_torch.utils.metric import SegmentationMetric
+
+    ds = get_segmentation_dataset("citys", root=citys, split="val", mode="val", base_size=64,
+                                  crop_size=48)
+    host = SegmentationMetric(19)
+    for i in range(len(ds)):
+        mask, mode = image_io.decode(f"dumps/seg_{i}.png")
+        assert mode == "P" and mask.shape == (48, 48)
+        host.update(mask.astype(np.int64), ds[i][1])
+    assert host.get() == (pix_acc, miou)
+
+
+@pytest.mark.parametrize("mode", ["testval", "val"])
+def test_eval_main_matches_jax(citys, workdir, capsys, mode):
+    """One .pth (a short port run), batch 2, f32, in ``testval`` and in
+    ``val`` mode (resize and centre crop on the host): the port's and
+    JAX's FINAL pixAcc/mIoU within 1e-4 and their colour dumps equal (the
+    same indices and palette); the port's FINAL equals the host metric
+    recomputed from its masks."""
     _train(citys, "--epochs", "2", "--device-aug", "--no-val", "--save-folder", "S",
            "--lr", "0.05")
     capsys.readouterr()
     flags = ["--dataset", "citys", "--data-root", citys, "--weights", "S/fast_scnn_citys.pth",
-             "--aux", "--batch-size", "2", "--per-class"]
+             "--aux", "--batch-size", "2", "--per-class", "--mode", mode, "--base-size", "64",
+             "--crop-size", "48"]
     evaluator = port_eval.main(["--device", "cpu", "--outdir", "port", *flags])
     ours = capsys.readouterr().out
     jax_eval.main(["--outdir", "jax", *flags])
@@ -325,11 +418,13 @@ def test_eval_main_matches_jax(citys, workdir, capsys):
     from fastscnn_tpu_torch.data import get_segmentation_dataset
     from fastscnn_tpu_torch.utils.metric import SegmentationMetric
 
-    ds = get_segmentation_dataset("citys", root=citys, split="val", mode="testval")
+    ds = get_segmentation_dataset("citys", root=citys, split="val", mode=mode, base_size=64,
+                                  crop_size=48)
     host = SegmentationMetric(19)
     for i in range(len(ds)):
-        a = np.asarray(Image.open(f"port/seg_{i}.png"))
-        b = np.asarray(Image.open(f"jax/seg_{i}.png"))
-        assert (a != b).sum() <= 1  # a near-tie flip at most
+        a, b = Image.open(f"port/seg_{i}.png"), Image.open(f"jax/seg_{i}.png")
+        assert a.getpalette() == b.getpalette()
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == ds[i][1].shape and (a != b).sum() <= 1  # a near-tie flip at most
         host.update(a.astype(np.int64), ds[i][1])
     assert host.get() == (pix_acc, miou)
