@@ -95,10 +95,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    of its own predicted masks; and ``eval.main`` in ``val`` mode with its
    colour dumps, each read back without PIL, FINAL equal to the host
    metric of the dumps;
-7. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6 and 6b, plus the captured launches × the
-   replays of the graphs of phases 4b and 4c, which no wrapper sees) and,
-   last, the device line ``{"ok": true, "device": {...}}``.
+7. trained weights (:func:`trained_phase`): (a) the JAX package's
+   convergence gate on the card — the committed mini-lane fixture, 500
+   f32 dice steps of batch 4 through ``stem_impl='pallas'`` (B6 at 2
+   launches a step for each part), lane IoU above 0.9 from the port's
+   ``make_eval_step``, ms/step; (b) ``tools/argmax_first_study.main`` at
+   its full settings (19 classes on 768² crops of 1024x2048 scenes, 400
+   bf16 steps of batch 8; 2 classes at 360x640), each leg's exact mask
+   above 0.9 pixAcc and every argmax-first disagreement within the
+   study's 16 px of a class boundary (those past 8 px counted); (c) configs ref and A-D in f32 and bf16 on the trained
+   19-class weights over the study's 8 val scenes, int8 scales calibrated
+   on training scenes: f32 A and B agree with f32 ref on 99.5 %, bf16 ref
+   differs from f32 ref on at most 0.5 % of pixels, C's and D's agreement
+   and their first int8 site's levels reported; (d)
+   ``tools/quant_study.main`` at its defaults through the trainer (B2 its
+   mask head); (e) ``tools/compare_backends.main`` on the trained weights
+   through the port's ``.pth`` writer and ``--weights``, its own 0.5 %
+   gate;
+8. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b and 7, plus the captured launches ×
+   the replays of the graphs of phases 4b and 4c, which no wrapper sees)
+   and, last, the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
@@ -2223,11 +2240,308 @@ def trainer_phase(fixed_step_ms):
     _print(f"eval.main, val ({TRAIN_SIZE}x{TRAIN_SIZE} centre crops), {n_val} images, bf16, with "
            f"colour dumps: FINAL pixAcc {final[0]}% mIoU {final[1]}%, equal to the host metric "
            f"of the {len(pairs)} dumps read back without PIL")
+    # the CLIs' --decoded-cache set this process's cache directory, which goes now
+    decoded_cache.set_cache_dir(None)
     shutil.rmtree(work, ignore_errors=True)
     _print(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
     return {"dw_conv3x3_vjp:forward": total["dw_conv3x3"],
             "dw_conv3x3_vjp:dx": total["dw_conv3x3_dx"],
             "dw_conv3x3_vjp:dw": total["dw_conv3x3_dw"]}
+
+
+# phase 7: trained weights. 7a trains the committed mini-lane fixture with
+# the recipe of tests/test_training_parity.py's convergence gate
+LANE_FIXTURE = os.path.join("tests", "fixtures", "mini_lane.npz")
+LANE_STEPS, LANE_EPOCHS, LANE_BATCH, LANE_LR, LANE_AUX_WEIGHT = 500, 84, 4, 1e-2, 0.4
+LANE_IOU_GATE = 0.9
+STUDY_PIXACC_GATE = 0.9  # 7b: a leg whose exact mask scores below this did not train
+# 7b: argmax-first's disagreements must all lie within the study's histogram
+# (16 px of a class boundary: beyond == 0); those past 8 px, the fixture
+# test's bound at 64x96 (tests/test_ops.py), are counted: the JAX package's
+# own 1024x2048 run (docs/argmax_first_study_r5.json) has 33 of them
+FIXTURE_BOUNDARY_PX = 8
+BF16_PARITY_GATE = 0.005  # 7c, 7e: bf16 masks vs f32 (the reference's published 0.5 %)
+INT8_REPORT_LEVEL = 0.97  # 7c: C or D below this agreement is logged in ROADMAP.md
+STUDY_VAL = (8, 1024, 2048, 100)  # argmax_first_study's citys19 val scenes: n, H, W, seed
+STUDY_CALIB = (4, 1024, 2048, 0)  # its first 4 training scenes, for the int8 scales
+QUANT_B2_LAUNCHES = 5 * 3  # quant_study's 5 variants x 3 batches of 4 of its 12 val images
+
+
+def convergence_phase(root):
+    """7a: the fixture recipe on the card, f32, ``stem_impl='pallas'``,
+    from the port's seeded init (JAX's ``PRNGKey(3)`` init needs JAX; the
+    CPU test starts from it). Returns the B6 launches of its steps and of
+    the eval step."""
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch.losses import get_loss_fn
+    from fastscnn_tpu_torch.models import init_fast_scnn
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.parallel import (
+        create_train_state,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from fastscnn_tpu_torch.utils import lr_schedule
+
+    dev = torch.device("cuda")
+    with np.load(os.path.join(root, LANE_FIXTURE)) as data:
+        images = torch.from_numpy(data["images"]).to(dev)
+        masks = torch.from_numpy(data["masks"].astype(np.int32)).to(dev)
+    n = len(images)
+    model = init_fast_scnn(2, aux=True, generator=torch.Generator().manual_seed(3), device=dev,
+                           stem_impl="pallas", dropout_rate=0.0)
+    opt = make_optimizer("sgd", lr_schedule("poly", base_lr=LANE_LR, nepochs=LANE_EPOCHS,
+                                            iters_per_epoch=n // LANE_BATCH, power=0.9))
+    step = make_train_step(model, get_loss_fn("dice", aux=True, aux_weight=LANE_AUX_WEIGHT), opt,
+                           compute_dtype=torch.float32, mean=None, std=None, device=dev)
+    state = create_train_state(model, opt, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    for k in range(LANE_STEPS):
+        if k == 1:  # step 0 also plans cuDNN and warms the allocator
+            start.record()
+        idx = [(k * LANE_BATCH + j) % n for j in range(LANE_BATCH)]
+        state, metrics = step(state, images[idx], masks[idx])
+        losses.append(metrics["loss"])
+    end.record()
+    end.synchronize()
+    train = launch_counts()
+    ms = start.elapsed_time(end) / (LANE_STEPS - 1)
+    losses = [float(v) for v in losses]
+    reset_launch_counts()
+    estep = make_eval_step(model, 2, compute_dtype=torch.float32, mean=None, std=None, device=dev)
+    _, (correct, labeled, inter, union) = estep(state.params, state.model_state, images, masks)
+    torch.cuda.synchronize()
+    evaluated = launch_counts()
+    iou = (inter.double() / union.double().clamp_min(1)).cpu().tolist()
+    _print(f"7a. convergence gate ({n} fixture images 64x96, batch {LANE_BATCH}, f32, dice, "
+           f"stem 'pallas'): {LANE_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+           f"{ms:.2f} ms/step (CUDA events, steps 2..{LANE_STEPS}); eval lane IoU {iou[1]:.4f} "
+           f"(background {iou[0]:.4f}, pixAcc {int(correct) / int(labeled):.4f}); B6 launches "
+           f"{ {k: v for k, v in train.items() if v} } in training, "
+           f"{ {k: v for k, v in evaluated.items() if v} } in the eval step")
+    want = {name: 0 for name in train} | {p: 2 * LANE_STEPS for p in
+                                          ("dw_conv3x3", "dw_conv3x3_dx", "dw_conv3x3_dw")}
+    if train != want or evaluated["dw_conv3x3"] != 2:
+        raise AssertionError(f"B6 launches {train} / {evaluated}, expected {want} / 2 forwards")
+    if not all(math.isfinite(v) for v in losses) or not iou[1] > LANE_IOU_GATE:
+        raise AssertionError(f"lane IoU {iou[1]:.4f} not above {LANE_IOU_GATE} "
+                             f"(losses {losses[::50]})")
+    return {"dw_conv3x3_vjp:forward": train["dw_conv3x3"] + evaluated["dw_conv3x3"],
+            "dw_conv3x3_vjp:dx": train["dw_conv3x3_dx"],
+            "dw_conv3x3_vjp:dw": train["dw_conv3x3_dw"]}
+
+
+def study_phase(work):
+    """7b: ``argmax_first_study.main`` at its full settings. Returns the
+    report and the citys19 leg's (model, train state, normalisation)."""
+    from fastscnn_tpu_torch.tools import argmax_first_study as study
+
+    trained, seconds = {}, {}
+    real = study.train_model
+
+    def recording(num_classes, *args, **kwargs):
+        t0 = time.perf_counter()
+        trained[num_classes] = real(num_classes, *args, **kwargs)
+        seconds[num_classes] = (time.perf_counter() - t0, kwargs["steps"])
+        return trained[num_classes]
+
+    t0 = time.perf_counter()
+    study.train_model = recording
+    try:
+        report = study.main(["--out", os.path.join(work, "argmax_first_study.json")])
+    finally:
+        study.train_model = real
+    _print(f"7b. argmax_first_study.main: {time.perf_counter() - t0:.1f} s, of it training "
+           + ", ".join(f"{c} classes {t:.1f} s ({t * 1e3 / n:.1f} ms/step on the host clock, "
+                       "batch slicing included)" for c, (t, n) in seconds.items()))
+    failures = []
+    for leg, rows in report.items():
+        hist = rows["argmax-first"]["boundary_hist_vs_exact"]
+        far = sum(hist["dist_counts"][FIXTURE_BOUNDARY_PX + 1:]) + hist["beyond"]
+        _print(f"  {leg}: exact pixAcc {rows['exact']['pixAcc']:.4f} mIoU "
+               f"{rows['exact']['mIoU']:.4f}; argmax-first agreement "
+               f"{rows['argmax-first']['agreement_vs_exact']:.4f}, {hist['n_disagree']} pixels "
+               f"differ: {far} farther than {FIXTURE_BOUNDARY_PX} px from a class boundary, "
+               f"{hist['beyond']} beyond the histogram's {len(hist['dist_counts']) - 1} px "
+               f"(distance counts {hist['dist_counts']})")
+        if rows["exact"]["pixAcc"] < STUDY_PIXACC_GATE:
+            failures.append(f"{leg}: exact pixAcc {rows['exact']['pixAcc']} < {STUDY_PIXACC_GATE}")
+        if hist["beyond"]:
+            failures.append(f"{leg}: {hist['beyond']} argmax-first pixels beyond the histogram")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return report, trained[NUM_CLASSES]
+
+
+def _study_scenes(spec):
+    from fastscnn_tpu_torch.tools.argmax_first_study import gen_citys19_scenes
+
+    n, h, w, seed = spec
+    return gen_citys19_scenes(n, h, w, seed=seed)
+
+
+def trained_agreement_phase(state):
+    """7c: configs ref and A-D in f32 and bf16 on the trained 19-class
+    weights (7b's citys19 leg) over its 8 val scenes at 1024x2048, int8
+    scales calibrated on training scenes. Returns the kernels' launches."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import (
+        FastSCNN,
+        calibrate_pw_scales,
+        from_jax_params,
+        quantized_model,
+    )
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, quantize_act, reset_launch_counts
+    from fastscnn_tpu_torch.tools.argmax_first_study import confusion_scores
+
+    dev = torch.device("cuda")
+    weights = {k: v for k, v in from_jax_params(state.params, state.model_state).items()
+               if not k.startswith("auxlayer.")}
+    images, labels = _study_scenes(STUDY_VAL)
+    calib = torch.from_numpy(_study_scenes(STUDY_CALIB)[0]).to(dev)
+    frames = torch.from_numpy(images).to(dev)
+
+    def engine(impl, mode, dtype, pw="conv", hook=None):
+        model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl, act_fake_quant=hook)
+        model.load_state_dict(weights)
+        if pw != "conv":
+            model = quantized_model(model, scales, pw)
+        return InferenceEngine(model, device=dev, config=E2EConfig(
+            mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
+
+    cal = engine("conv", "hybrid", "bfloat16")
+    scales = calibrate_pw_scales(cal.model, cal.folded, [calib[:2], calib[2:]],
+                                 preprocess=cal._preprocess)
+    del cal
+    launches, failures, agreement, ref = {}, [], {}, None
+    for dtype in ("float32", "bfloat16"):
+        for label, impl, pw, mode, per_request in SERVING_CONFIGS:
+            eng = engine(impl, mode, dtype, pw=pw)
+            eng.predict(frames[:BATCH])  # cuDNN plans, kernel loads
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            masks = torch.cat([eng.predict(frames[i:i + BATCH]) for i in
+                               range(0, len(frames), BATCH)])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            del eng
+            want = {k: per_request.get(k, 0) * (len(frames) // BATCH) for k in counts}
+            if counts != want:
+                failures.append(f"{dtype} {label}: launches {counts}, expected {want}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            if ref is None:
+                ref = masks
+            agree = (masks == ref).float().mean().item()
+            agreement[(dtype, label)] = agree
+            scores = confusion_scores(masks.cpu().numpy(), labels, NUM_CLASSES)
+            _print(f"7c. {dtype} config {label} ({impl} + {pw} + {mode}): agreement with f32 "
+                   f"ref {agree:.6f}, pixAcc {scores['pixAcc']:.4f}, mIoU {scores['mIoU']:.4f}")
+    for label in ("A", "B"):
+        if agreement[("float32", label)] < MASK_GATE:
+            failures.append(f"f32 {label}: agreement {agreement[('float32', label)]} < {MASK_GATE}")
+    if 1 - agreement[("bfloat16", "ref")] > BF16_PARITY_GATE:
+        failures.append(f"bf16 ref differs from f32 ref on "
+                        f"{1 - agreement[('bfloat16', 'ref')]:.6f} of pixels")
+    # the int8 grid at each int8 config's first site, on the first val frame
+    scale_of = dict(scales)
+    for label, first in (("C", "gfe/bottleneck1/0/expand"), ("D", "ltd/dsconv1/pw")):
+        seen = {}
+
+        def grab(y, site=None, seen=seen, first=first):
+            if site == first:
+                seen["q"] = quantize_act(y, scale_of[first]).float()
+            return y
+
+        engine("conv", "hybrid", "bfloat16", hook=grab).predict(frames[:1])
+        q = seen["q"]
+        worst = min(agreement[(d, label)] for d in ("float32", "bfloat16"))
+        _print(f"  {label}: first int8 site {first}, scale {scale_of[first]:.4g}: levels "
+               f"{q.abs().max().item():.0f} at most, {(q == 0).float().mean().item():.4f} "
+               f"at 0, {(q.abs() == 127).float().mean().item():.6f} at +-127; agreement "
+               f"{worst:.6f}{' (below ' + str(INT8_REPORT_LEVEL) + ')' if worst < INT8_REPORT_LEVEL else ''}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def quant_phase(work):
+    """7d: ``quant_study.main`` at its defaults through the trainer, PIL
+    blocked. Returns B2's launches (its mask head, one a batch)."""
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.tools import quant_study
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    result = quant_study.main(["--workdir", os.path.join(work, "quant_study"),
+                               "--out", os.path.join(work, "quant_study.json")])
+    counts = launch_counts()
+    _print(f"7d. quant_study.main ({result['epochs']} epochs, {result['val_images']} val "
+           f"images): {time.perf_counter() - t0:.1f} s, launches "
+           f"{ {k: v for k, v in counts.items() if v} }")
+    want = {k: 0 for k in counts} | {"h_lerp_argmax": QUANT_B2_LAUNCHES}
+    if counts != want or len(result["rows"]) != 5:
+        raise AssertionError(f"quant_study: launches {counts}, expected {want}; "
+                             f"{len(result['rows'])} rows")
+    return counts
+
+
+def compare_phase(work, state):
+    """7e: ``compare_backends.main`` on the trained 19-class weights, written
+    by the port's ``.pth`` writer and read back with ``--weights``, over
+    the study's val scenes written as PNGs (``--image-dir``)."""
+    from fastscnn_tpu_torch.data import image_io
+    from fastscnn_tpu_torch.tools import compare_backends
+    from fastscnn_tpu_torch.utils.checkpoint import save_pth_checkpoint
+
+    path = save_pth_checkpoint(state.params, state.model_state, os.path.join(work, "weights"),
+                               dataset="citys")
+    frames = os.path.join(work, "frames")
+    os.makedirs(frames, exist_ok=True)
+    images, _ = _study_scenes(STUDY_VAL)
+    for i, img in enumerate(images):
+        image_io.write_png(os.path.join(frames, f"val_{i}.png"), img)
+    n, h, w, _ = STUDY_VAL
+    try:
+        results = compare_backends.main([
+            "--dataset", "citys", "--aux", "--weights", path, "--image-dir", frames,
+            "--num-images", str(n), "--height", str(h), "--width", str(w),
+            "--tolerance", str(BF16_PARITY_GATE)])
+    except SystemExit as e:
+        raise AssertionError(f"7e. compare_backends: {e}") from e
+    _print(f"7e. compare_backends.main on the trained weights read back from {path}: {results}")
+
+
+def trained_phase(root):
+    """Phase 7: trained weights (7a-7e). Returns the kernels' launches."""
+    import gc
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_trained")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    launches = convergence_phase(root)
+    report, (_, state, _) = study_phase(work)
+    for part in (trained_agreement_phase(state), quant_phase(work)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    compare_phase(work, state)
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # the rows of the kernel table that dw_costs prices, and the library call each
@@ -2812,6 +3126,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     for kernel, n in trainer_phase(step_ms).items():
         launches[kernel] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in trained_phase(root).items():
+        launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         if k["launches"] == 0:

@@ -129,12 +129,17 @@ def _listify(tree):
 
 def from_jax_params(params, state) -> dict[str, torch.Tensor]:
     """JAX ``(params, state)`` trees of numpy arrays → reference state dict.
+    The leaves may also be tensors on any device (a ``TrainState``'s
+    masters and statistics): the state dict holds CPU copies.
 
     Conv weights go HWIO → OIHW; a depthwise (3,3,1,C) weight becomes
     (C,1,3,3) by the same transpose."""
     out: dict[str, torch.Tensor] = {}
     for key, path, kind in build_key_map(aux="auxlayer" in params):
-        value = np.asarray(_get_path(state if kind.endswith(":state") else params, path))
+        value = _get_path(state if kind.endswith(":state") else params, path)
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        value = np.asarray(value)
         if kind == "conv":
             value = value.transpose(3, 2, 0, 1)
         out[key] = torch.from_numpy(np.array(value))  # a writable, contiguous copy

@@ -57,11 +57,6 @@ def _node(tree, path):
     return tree
 
 
-def _host(tree):
-    return tree_map(lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t,
-                    tree)
-
-
 def save_pth_checkpoint(params, state, directory, dataset="citys", is_best=False, aux=None):
     """Write ``params``/``state`` trees (tensors or arrays) as
     ``<directory>/fast_scnn_<dataset>.pth`` in the reference dialect, and
@@ -72,7 +67,7 @@ def save_pth_checkpoint(params, state, directory, dataset="citys", is_best=False
         params = {k: v for k, v in params.items() if k != "auxlayer"}
         state = {k: v for k, v in state.items() if k != "auxlayer"}
     filename = os.path.join(directory, f"fast_scnn_{dataset}.pth")
-    torch.save(from_jax_params(_host(params), _host(state)), filename)
+    torch.save(from_jax_params(params, state), filename)
     if is_best:
         shutil.copyfile(filename, os.path.join(directory, f"fast_scnn_{dataset}_best_model.pth"))
     return filename

@@ -248,7 +248,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'data.transforms', 'data.cityscapes', 'data.tusimple', 'data.bdd100k',\n"
         "        'data.custom', 'data.loader', 'data.device_aug', 'data.pil_ops',\n"
         "        'data.grain_loader', 'train', 'eval',\n"
-        "        'train_presets', 'utils.checkpoint', 'utils.monitor')}\n"
+        "        'train_presets', 'utils.checkpoint', 'utils.monitor', 'tools.system_check',\n"
+        "        'tools.argmax_first_study', 'tools.quant_study', 'tools.compare_backends')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )
