@@ -100,7 +100,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    f32 dice steps of batch 4 through ``stem_impl='pallas'`` (B6 at 2
    launches a step for each part), lane IoU above 0.9 from the port's
    ``make_eval_step``, ms/step; (b) ``tools/argmax_first_study.main`` at
-   its full settings (19 classes on 768² crops of 1024x2048 scenes, 400
+   its full settings under deterministic algorithms (19 classes on 768² crops of 1024x2048 scenes, 400
    bf16 steps of batch 8; 2 classes at 360x640), each leg's exact mask
    above 0.9 pixAcc and every argmax-first disagreement within the
    study's 16 px of a class boundary (those past 8 px counted); (c) configs ref and A-D in f32 and bf16 on the trained
@@ -112,10 +112,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    mask head); (e) ``tools/compare_backends.main`` on the trained weights
    through the port's ``.pth`` writer and ``--weights``, its own 0.5 %
    gate;
-8. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b and 7, plus the captured launches ×
-   the replays of the graphs of phases 4b and 4c, which no wrapper sees)
-   and, last, the device line ``{"ok": true, "device": {...}}``.
+8. the graphed train step and the training-side benches
+   (:func:`bench_phase`): (a) ``make_train_step(graph=True)`` and
+   ``make_split_aug_train_step(graph=True)`` in the recipe, for the
+   crop-fed step, the PSP chain fused into the step and the split step
+   with ``grad_accum`` 2 (:func:`graph_step_phase`): 5 f32 steps from one
+   state eager twice and graphed once under deterministic algorithms, the
+   graphed losses, params, BN statistics and momentum buffers bit-equal to
+   eager's where the eager runs are (else within twice their distance, and
+   after one step within phase 6's step-parity gate); 20 bf16 graphed steps (finite, falling losses; B6 at 2 captured
+   launches a microbatch for each part), ms/step and samples/s graphed and
+   eager from the same state, the graph pool's bytes, peak memory and a
+   profile of each; (b) ``bench_train.run`` at the Cityscapes recipe's
+   knobs and at its defaults cut to batches 8 and 64; (c)
+   ``bench_eval.main`` at 1024x2048 with 8 uniform images and 2 of each
+   mixed size; (d) ``bench_latency.run``; (e) ``bench_input.main`` at its
+   half-size default; (f) ``tools/ab_int8_e2e.main`` at batch 8, 10
+   iterations (B7 and B8 in graphs);
+9. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7 and 8, plus the captured
+   launches × the replays of the graphs of phases 4b, 4c and 8, which no
+   wrapper sees) and, last, the device line ``{"ok": true, "device":
+   {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
@@ -135,6 +153,7 @@ Without a CUDA device it prints an error and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -143,6 +162,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # The card's machine has neither PIL nor matplotlib (which imports PIL): both
 # are blocked here as well, so that a stray import in the port fails in this
@@ -183,6 +203,30 @@ SPIN_CYCLES = 20_000_000  # the spin kernel before each timing window (~10 ms on
 
 def _print(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms where it has them (cuDNN's, a sorted
+    ``index_add``) inside the block, so that a training run on the card is
+    the same run each time; the ops that have none are printed."""
+    import torch
+
+    mode = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = mode[0]
+        torch.use_deterministic_algorithms(mode[1], warn_only=mode[2])
+    kinds = sorted({str(w.message).split(".")[0][:120] for w in caught
+                    if "deterministic" in str(w.message)})
+    if kinds:
+        _print(f"  ops without a deterministic implementation: {kinds}")
 
 
 def _windows(fn, iters, warmup, repeats, spin):
@@ -1588,7 +1632,9 @@ def profile_steps(run_step, step_ms, steps=3, top=15, what="bf16 train step",
 
 def training_phase():
     """Phase 6: the training path through its entry points. Returns the
-    B6 launch counts of the bf16 run and its ms/step."""
+    B6 launch counts of the bf16 run, its ms/step and the f32 step's
+    yardstick (the 'xla' step's relative distances f32 vs f64: loss, param
+    updates, BN-stat changes)."""
     import torch
 
     from fastscnn_tpu_torch.losses import get_loss_fn
@@ -1698,7 +1744,7 @@ def training_phase():
     profile_steps(lambda: step(state, images, targets, gen), ms)
     return {"dw_conv3x3_vjp:forward": counts["dw_conv3x3"],
             "dw_conv3x3_vjp:dx": counts["dw_conv3x3_dx"],
-            "dw_conv3x3_vjp:dw": counts["dw_conv3x3_dw"]}, ms
+            "dw_conv3x3_vjp:dw": counts["dw_conv3x3_dw"]}, ms, yard
 
 
 # phase 6b: the trainer CLI (train.main, eval.main) on a synthetic Cityscapes
@@ -2338,8 +2384,9 @@ def convergence_phase(root):
 
 
 def study_phase(work):
-    """7b: ``argmax_first_study.main`` at its full settings. Returns the
-    report and the citys19 leg's (model, train state, normalisation)."""
+    """7b: ``argmax_first_study.main`` at its full settings, under
+    :func:`deterministic_algorithms`. Returns the report and the citys19
+    leg's (model, train state, normalisation)."""
     from fastscnn_tpu_torch.tools import argmax_first_study as study
 
     trained, seconds = {}, {}
@@ -2354,7 +2401,11 @@ def study_phase(work):
     t0 = time.perf_counter()
     study.train_model = recording
     try:
-        report = study.main(["--out", os.path.join(work, "argmax_first_study.json")])
+        # the same training run each time: with the backward's atomics the
+        # trained model, and so the tail of its argmax-first disagreements
+        # that the gate below reads, differs from run to run
+        with deterministic_algorithms():
+            report = study.main(["--out", os.path.join(work, "argmax_first_study.json")])
     finally:
         study.train_model = real
     _print(f"7b. argmax_first_study.main: {time.perf_counter() - t0:.1f} s, of it training "
@@ -2541,6 +2592,384 @@ def trained_phase(root):
     compare_phase(work, state)
     shutil.rmtree(work, ignore_errors=True)
     _print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# phase 8: the graphed train step (8a) and the training-side benches (8b-8f)
+GRAPH_STEPS_F32 = 5  # f32 steps from one state: eager twice, graphed once
+GRAPH_WINDOWS, GRAPH_WINDOW_STEPS = 3, 10  # CUDA-event windows of graphed and eager steps
+EAGER_DISTANCE_FACTOR = 2.0  # graphed vs eager: within this factor of eager vs eager
+NATIVE_SIZE, NATIVE_BASE = (1024, 2048), 1024  # the device-aug forms' frames and --base-size
+# (form, chain in the step or split, grad_accum)
+GRAPH_FORMS = (("crop-fed", None, 1), ("device-aug fused", "fused", 1),
+               ("device-aug split", "split", 2))
+# the wrappers' names as the kernels line names them on the training path
+TRAINING_NAMES = {"dw_conv3x3": "dw_conv3x3_vjp:forward", "dw_conv3x3_dx": "dw_conv3x3_vjp:dx",
+                  "dw_conv3x3_dw": "dw_conv3x3_vjp:dw"}
+
+
+def native_batch(dev):
+    """Native-resolution frames for the device-aug forms: as
+    :func:`training_batch`, 64x64 blocks of one class each at 1024x2048,
+    the labels int8 as the trainer sends them (15 % ignored)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    (h, w), block = NATIVE_SIZE, 64
+    cls = torch.randint(0, NUM_CLASSES, (TRAIN_BATCH, 1, h // block, w // block), generator=g,
+                        device=dev)
+    cls = F.interpolate(cls.float(), scale_factor=block, mode="nearest").long()[:, 0]
+    palette = torch.randint(0, 256, (NUM_CLASSES, 3), generator=g, device=dev).float()
+    noise = torch.randint(-24, 25, (TRAIN_BATCH, h, w, 3), generator=g, device=dev).float()
+    images = (palette[cls] + noise).clamp(0, 255).to(torch.uint8)
+    targets = cls.to(torch.int8)
+    targets[torch.rand((TRAIN_BATCH, h, w), generator=g, device=dev) < 0.15] = -1
+    return images, targets
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def graph_step_phase(yard):
+    """Phase 8a: ``make_train_step(graph=True)`` and
+    ``make_split_aug_train_step(graph=True)`` in the recipe (19 classes, aux,
+    mix OHEM CE, SGD, ``stem_impl='pallas'``), for the crop-fed step (16
+    crops of 768x768), the PSP chain fused into the step and the split
+    step with ``grad_accum`` 2 (16 native 1024x2048 frames). For each: from
+    one state, 5 f32 steps eager twice and 5 graphed, with torch's
+    deterministic algorithms where it has them: the losses, params, BN
+    statistics and momentum buffers of the graphed run bit-equal to the
+    eager run's where the two eager runs are; else within 2x their
+    distance after the first and the last step, and after the first within
+    the step-parity gate (``yard``: phase 6's 'xla' f32 vs f64 distances;
+    five chaotic steps of batch-stat BN leave even two eager runs beyond
+    it); then 20 bf16 graphed steps (finite losses; falling as
+    phase 6 requires for the crop-fed step, the last five's mean below
+    0.95 of the first five's for the chains' random crops), B6 at 2
+    captured launches a microbatch for each part, ms/step and samples/s
+    (CUDA events around 3 windows of 10 steps) graphed and eager from the
+    same state, the graph pool's bytes and peak memory, and a profile of
+    both. Returns {form: graphed ms/step}."""
+    import gc
+
+    import torch
+
+    from fastscnn_tpu_torch.data import device_aug
+    from fastscnn_tpu_torch.losses import get_loss_fn
+    from fastscnn_tpu_torch.models import FastSCNN, init_fast_scnn
+    from fastscnn_tpu_torch.parallel import (
+        create_train_state,
+        make_optimizer,
+        make_split_aug_train_step,
+        make_train_step,
+    )
+    from fastscnn_tpu_torch.utils import lr_schedule
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    crops, native = training_batch(dev), native_batch(dev)
+    init = init_fast_scnn(NUM_CLASSES, aux=True, generator=torch.Generator().manual_seed(SEED),
+                          device=dev).state_dict()
+    loss_fn = get_loss_fn("ce", aux=True, num_classes=NUM_CLASSES)
+    limits = [max(F32_STEP_FACTOR * y, F32_STEP_FLOOR) for y in yard]
+
+    def build(chain, accum, dtype, graph):
+        model = FastSCNN(NUM_CLASSES, aux=True, stem_impl="pallas")
+        model.load_state_dict(init)
+        opt = make_optimizer("sgd", lr_schedule("poly", base_lr=TRAIN_LR, niters=RECIPE_ITERS),
+                             momentum=0.9, weight_decay=1e-4)
+        state = create_train_state(model, opt, device=dev)
+        kw = dict(compute_dtype=dtype, device=dev, graph=graph)
+        aug = (device_aug.make_device_augment(base_size=NATIVE_BASE, crop_size=TRAIN_SIZE,
+                                              pad_label=-1, compute_dtype=dtype)
+               if chain else None)
+        if chain == "split":
+            step = make_split_aug_train_step(model, loss_fn, opt, aug, grad_accum=accum, **kw)
+        else:
+            step = make_train_step(model, loss_fn, opt, device_aug=aug, grad_accum=accum, **kw)
+        gens = (torch.Generator(device=dev).manual_seed(SEED + 3),
+                torch.Generator(device=dev).manual_seed(SEED + 5) if chain else None)
+        return model, aug, opt, state, step, (native if chain else crops), gens
+
+    def momentum(state):
+        opt = state.opt_state
+        return torch.cat([opt.state[p]["momentum_buffer"].flatten()
+                          for p in tree_leaves(state.params)])
+
+    def snapshot(state, p0, s0):
+        return (torch.cat([t.detach().flatten() for t in tree_leaves(state.params)]) - p0,
+                torch.cat([t.flatten() for t in tree_leaves(state.model_state)]) - s0,
+                momentum(state))
+
+    def f32_runs(chain, accum):
+        """Losses, and param updates, BN-stat changes and momentum buffers
+        after the first and after the last of the f32 steps, per run."""
+        runs = {}
+        for label, graph in (("eager", False), ("eager again", False), ("graphed", True)):
+            _, _, _, state, step, (images, targets), gens = build(chain, accum, torch.float32,
+                                                                  graph)
+            p0 = torch.cat([t.detach().flatten().clone() for t in tree_leaves(state.params)])
+            s0 = torch.cat([t.flatten().clone() for t in tree_leaves(state.model_state)])
+            losses, first = [], None
+            for i in range(GRAPH_STEPS_F32):
+                losses.append(step(state, images, targets, *gens)[1]["loss"])
+                if i == 0:
+                    first = snapshot(state, p0, s0)
+            runs[label] = (torch.stack(losses), first, snapshot(state, p0, s0))
+            if graph:
+                runs["pool"] = step.pool_bytes
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        return runs
+
+    out = {}
+    for form, chain, accum in GRAPH_FORMS:
+        t_form = time.perf_counter()
+        with deterministic_algorithms():  # so that two eager runs can be bit-equal
+            runs = f32_runs(chain, accum)
+        parts = ("param updates", "BN-stat changes", "momentum buffers")
+        limit_of = (limits[1], limits[2], limits[1])
+        eager_equal = all(torch.equal(a, b) for a, b in zip(
+            [runs["eager"][0], *runs["eager"][2]], [runs["eager again"][0],
+                                                    *runs["eager again"][2]]))
+        report, failures = [], []
+        if eager_equal:  # then the graphed run must be too
+            for name, a, b in zip(("losses", *parts), [runs["graphed"][0], *runs["graphed"][2]],
+                                  [runs["eager"][0], *runs["eager"][2]]):
+                ok = torch.equal(a, b)
+                report.append(f"{name} {'bit-equal' if ok else f'off by {_rel_l2(a, b):.3g}'}")
+                if not ok:
+                    failures.append(name)
+        else:  # within 2x the eager distance; after one step, within phase 6's gate too
+            for i, name in enumerate(parts):
+                for at, k in (("step 1", 1), (f"step {GRAPH_STEPS_F32}", 2)):
+                    eager, again, graphed = (runs[r][k][i] for r in ("eager", "eager again",
+                                                                     "graphed"))
+                    d_eager, d_graph = _rel_l2(again, eager), _rel_l2(graphed, eager)
+                    ok = d_graph <= EAGER_DISTANCE_FACTOR * d_eager or d_graph == 0
+                    if k == 1:
+                        ok = ok and d_graph <= limit_of[i]
+                    report.append(f"{name} at {at}: eager vs eager {d_eager:.3g}, graphed vs "
+                                  f"eager {d_graph:.3g}")
+                    if not ok:
+                        failures.append(f"{name} at {at}")
+        _print(f"graphed {form} step, {GRAPH_STEPS_F32} f32 steps against eager, deterministic "
+               f"algorithms (pool {runs['pool']} bytes): eager runs "
+               f"{'bit-equal' if eager_equal else 'differ'}; " + "; ".join(report))
+        if failures:
+            raise AssertionError(f"graphed {form} step differs from the eager step in "
+                                 f"{failures}")
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # bf16: the recipe's steps graphed, then timed beside eager from the same state
+        model, aug, opt, state, step, (images, targets), gens = build(chain, accum,
+                                                                    torch.bfloat16, True)
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(state, images, targets, *gens)[1]["loss"])
+                  for _ in range(TRAIN_STEPS)]
+        captured = {TRAINING_NAMES.get(k, k): v for k, v in step.launches.items()}
+        want = {name: 2 * accum for name in TRAINING_NAMES.values()}
+        falls = sum(b < a for a, b in zip(losses, losses[1:]))
+        _print(f"graphed {form} step, bf16 steps 1..{TRAIN_STEPS}: losses "
+               f"{[round(v, 4) for v in losses]}; the loss fell on {falls} of "
+               f"{len(losses) - 1} steps; captured launches a step {captured}; graph pool "
+               f"{step.pool_bytes} bytes ({step.pool_bytes / 2**30:.2f} GiB), peak memory "
+               f"through the capture and {TRAIN_STEPS} replays "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if captured != want:
+            raise AssertionError(f"graphed {form} step: captured launches {captured}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"graphed {form} step: non-finite loss {losses}")
+        if chain is None:
+            fell = losses[-1] < 0.95 * losses[0] and falls >= 0.75 * (len(losses) - 1)
+        else:
+            fell = statistics.mean(losses[-5:]) < 0.95 * statistics.mean(losses[:5])
+        if not fell:
+            raise AssertionError(f"graphed {form} step: the loss did not fall: {losses}")
+        kw = dict(grad_accum=accum, compute_dtype=torch.bfloat16, device=dev)
+        eager_step = (make_split_aug_train_step(model, loss_fn, opt, aug, **kw)
+                      if chain == "split" else
+                      make_train_step(model, loss_fn, opt, device_aug=aug, **kw))
+        eager_step(state, images, targets, *gens)  # the same state, its tensors kept
+        ms = {}
+        for label, fn in (("graphed", step), ("eager", eager_step)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            times = []
+            for _ in range(GRAPH_WINDOWS):
+                start.record()
+                for _ in range(GRAPH_WINDOW_STEPS):
+                    fn(state, images, targets, *gens)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / GRAPH_WINDOW_STEPS)
+            ms[label] = statistics.median(times)
+            _print(f"{label} {form} bf16 step, {TRAIN_BATCH} x {TRAIN_SIZE}^2 crops: "
+                   f"{ms[label]:.2f} ms/step (median of {GRAPH_WINDOWS} windows of "
+                   f"{GRAPH_WINDOW_STEPS}, {[round(t, 2) for t in times]}), "
+                   f"{TRAIN_BATCH * 1e3 / ms[label]:.1f} samples/s, peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for label, fn in (("graphed", step), ("eager", eager_step)):
+            profile_steps(lambda: fn(state, images, targets, *gens), ms[label], steps=3, top=5,
+                          what=f"{label} {form} bf16 step")
+        _print(f"graphed {form}: {ms['eager'] / ms['graphed']:.3f}x the eager step's rate; "
+               f"{time.perf_counter() - t_form:.1f} s")
+        out[form] = ms["graphed"]
+        del model, state, step, eager_step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tally_replays():
+    """Count every graph replay's captured launches from here on: the
+    kernels a replay launches pass through no wrapper. Returns the tally
+    and the function that stops it."""
+    from fastscnn_tpu_torch.utils import cuda_graph
+
+    tally = {}
+    real = cuda_graph.Captured.replay
+
+    def replay(self):
+        for name, n in self.launches.items():
+            tally[name] = tally.get(name, 0) + n
+        return real(self)
+
+    cuda_graph.Captured.replay = replay
+    return tally, lambda: setattr(cuda_graph.Captured, "replay", real)
+
+
+def _check_line(line, keys, what):
+    missing = [k for k in keys if k not in line]
+    if missing:
+        raise AssertionError(f"{what}: no {missing} in its JSON line {line}")
+
+
+def bench_modules_phase(root):
+    """Phase 8b-8f: the port's training-side benches at their entry points:
+    ``bench_train.run`` at the Cityscapes recipe's knobs and at its
+    defaults cut to batches 8 and 64; ``bench_eval.main`` at 1024x2048 with
+    8 uniform images and 2 of each mixed size; ``bench_latency.run``;
+    ``bench_input.main`` at its half-size default (PIL blocked in this
+    process and its workers); ``tools/ab_int8_e2e.main`` at batch 8, 10
+    iterations. Each JSON line is printed and checked for its keys and
+    positive rates."""
+    import gc
+    import shutil
+
+    import torch
+
+    from fastscnn_tpu_torch import bench_eval, bench_input, bench_latency, bench_train
+    from fastscnn_tpu_torch.tools import ab_int8_e2e
+
+    recipe = {"BENCH_TRAIN_CLASSES": "19", "BENCH_TRAIN_LOSS": "ce", "BENCH_TRAIN_CROP": "768",
+              "BENCH_TRAIN_BATCHES": "16", "BENCH_TRAIN_STEM": "pallas"}
+    for env in (recipe, {"BENCH_TRAIN_BATCHES": "8,64"}):
+        t0 = time.perf_counter()
+        line = bench_train.run(env=env)
+        _print(json.dumps(line))
+        _print(f"  bench_train {env}: {time.perf_counter() - t0:.1f} s")
+        _check_line(line, ("metric", "value", "unit", "batch", "stem_impl", "grad_accum",
+                           "graph", "device"), "bench_train")
+        if not (line["graph"] and line["value"] > 0 and line["metric"] ==
+                bench_train.metric_name(bench_train.knobs(env))):
+            raise AssertionError(f"bench_train: {line}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    line, _ = _run_cli(bench_eval.main, ["--n-uniform", "8", "--n-mixed", "2"])
+    _print(f"  bench_eval: {time.perf_counter() - t0:.1f} s")
+    detail = line["detail"]
+    _check_line(detail, ("ref_faithful_bs1_f32_dump", "tpu_native_bs8_bf16_nodump",
+                         "metric_update_ms_per_image", "device_loop_images_per_s_bs8_bf16",
+                         "mixed_res", "tpu_native_bs8_bf16_nodump_decoded_cache"), "bench_eval")
+    if not (line["value"] > 0 and detail["device_loop_images_per_s_bs8_bf16"] > 0
+            and detail["mixed_res"]["images"] == 6):
+        raise AssertionError(f"bench_eval: {line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    line = bench_latency.run()
+    _print(json.dumps(line))
+    _print(f"  bench_latency: {time.perf_counter() - t0:.1f} s")
+    keys = [f"{kind}_ms_{size}" for size, _ in bench_latency.SIZES
+            for kind in ("device_loop", "host_predict")]
+    _check_line(line, keys, "bench_latency")
+    if not all(line[k] > 0 for k in keys):
+        raise AssertionError(f"bench_latency: {line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_bench_input")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    line, _ = _run_cli(bench_input.main, ["--workdir", work])
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"  bench_input: {time.perf_counter() - t0:.1f} s")
+    keys = ("threads_sps", "threads_cache_fill_sps", "threads_cached_sps", "grain_sps",
+            "threads_device_aug_sps", "threads_device_aug_cached_sps", "e2e_train_sps",
+            "e2e_train_cached_sps", "e2e_train_device_aug_cached_sps")
+    for name, row in line["recipes"].items():
+        _check_line(row, keys, f"bench_input {name}")
+        if not all(row[k] > 0 for k in keys):
+            raise AssertionError(f"bench_input {name}: {row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    line, _ = _run_cli(ab_int8_e2e.main, ["--batches", "8", "--iters", "10"])
+    _print(f"  ab_int8_e2e: {time.perf_counter() - t0:.1f} s")
+    for impl in ("conv", "int8-a8", "int8-w8a8"):
+        row = line["results"][impl]
+        if not (0 < row["mask_agreement"] <= 1 and row["batches"]["8"]["fps"] > 0):
+            raise AssertionError(f"ab_int8_e2e {impl}: {row}")
+
+
+def bench_phase(root, yard):
+    """Phase 8: the graphed train step, then the benches. Returns the
+    kernels' launches in it: the wrappers' counts (eager steps, warm-ups,
+    captures) plus every graph's captured launches x its replays."""
+    import gc
+
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    tally, stop = _tally_replays()
+    reset_launch_counts()
+    try:
+        graph_step_phase(yard)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bench_modules_phase(root)
+    finally:
+        stop()
+    eager = launch_counts()
+    launches = {}
+    for counts in (eager, tally):
+        for name, n in counts.items():
+            if n:
+                key = TRAINING_NAMES.get(name, name)
+                launches[key] = launches.get(key, 0) + n
+    _print(f"phase 8 launches (eager {({k: v for k, v in eager.items() if v})}, replayed "
+           f"{tally}): {launches}")
+    for name in ("dw_conv3x3_vjp:forward", "dw_conv3x3_vjp:dx", "dw_conv3x3_vjp:dw",
+                 "pw_conv_a8", "pw_conv_w8a8"):
+        if not tally.get({v: k for k, v in TRAINING_NAMES.items()}.get(name, name)):
+            raise AssertionError(f"phase 8: no graph replay launched {name}")
+    _print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3120,7 +3549,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     _print(f"device memory still allocated before the training phase: "
            f"{torch.cuda.memory_allocated()} bytes")
-    counts, step_ms = training_phase()
+    counts, step_ms, yard = training_phase()
     launches.update(counts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3129,6 +3558,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in trained_phase(root).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in bench_phase(root, yard).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

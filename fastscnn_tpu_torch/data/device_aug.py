@@ -37,10 +37,11 @@ BDD100K ``--keep-original-size``, flip and blur at the native size).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
+
+from fastscnn_tpu_torch.ops.resize import device_table_cache
 
 __all__ = [
     "AugParams",
@@ -242,7 +243,7 @@ class CustomAugParams(NamedTuple):
     flip: torch.Tensor  # bool — hflip AFTER the crop
 
 
-@functools.lru_cache(maxsize=64)
+@device_table_cache
 def _int_table(values: tuple, device: torch.device) -> torch.Tensor:
     """A small int64 lookup table on ``device``, built once (so a step makes
     no host→device copy)."""

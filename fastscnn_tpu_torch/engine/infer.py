@@ -32,7 +32,6 @@ card each is one captured CUDA graph, replayed per call.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import threading
 from typing import Callable
 
@@ -41,13 +40,13 @@ import torch
 
 from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.models.fast_scnn import FastSCNN, fold_inference_params
-from fastscnn_tpu_torch.ops.cuda import launch_counts
 from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (
     neighborhood_agreement_mask,
     upsample_argmax,
     w_matmul_h_lerp_argmax,
 )
 from fastscnn_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_matmul, resize_nearest
+from fastscnn_tpu_torch.utils.cuda_graph import capture
 
 __all__ = ["InferenceEngine", "E2EConfig", "IMAGENET_MEAN", "IMAGENET_STD", "FINAL_UPSAMPLE_MODES"]
 
@@ -223,8 +222,9 @@ class InferenceEngine:
         caller still holds. ``run.launches`` holds the kernel launches the
         capture made (each replay launches them again; the wrappers' own
         counters see only the capture), ``run.replays`` the replays so far
-        and ``run.pool_bytes`` the device memory the capture reserved. A
-        failed capture raises."""
+        and ``run.pool_bytes`` the device memory the capture reserved; the
+        graph holds the device tables it reads. A failed capture raises
+        ``ValueError``."""
         dev = self.device
         if self._pool is None:
             self._pool, self._stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
@@ -235,14 +235,9 @@ class InferenceEngine:
             for _ in range(WARMUP_PASSES):
                 warm(static_in)
         torch.cuda.current_stream(dev).wait_stream(side)
-        gc.collect()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved, before = torch.cuda.memory_reserved(dev), launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph, pool=self._pool, stream=side):
-            static_out = body(static_in)
-        after = launch_counts()
+        with torch.inference_mode():
+            captured = capture(lambda: body(static_in), dev, self._pool, side)
+        static_out = captured.out
 
         @torch.inference_mode()
         def run(images):
@@ -254,13 +249,11 @@ class InferenceEngine:
             if images.device.type == "cpu":
                 images = images.pin_memory()  # an asynchronous copy, its buffer held until done
             static_in.copy_(images, non_blocking=True)
-            graph.replay()
+            captured.replay()
             run.replays += 1
             return static_out.clone()
 
-        run.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        run.replays = 0
-        run.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        run.launches, run.replays, run.pool_bytes = captured.launches, 0, captured.pool_bytes
         return run
 
     def _eager(self, body: Callable, shape, what: str) -> Callable:

@@ -29,7 +29,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from fastscnn_tpu_torch.ops.resize import resize_bilinear_matmul
+from fastscnn_tpu_torch.ops.resize import device_table_cache, resize_bilinear_matmul
 
 __all__ = [
     "dice_loss",
@@ -114,8 +114,14 @@ def _per_pixel_ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return -_select_class(torch.log_softmax(logits.float(), dim=-1), target)
 
 
+@device_table_cache
+def _class_weight_table(class_weights: tuple, device: torch.device) -> torch.Tensor:
+    """The class weights as f32 on ``device``, copied from the host once."""
+    return torch.tensor(class_weights, dtype=torch.float32, device=device)
+
+
 def _pixel_class_weights(target, class_weights, num_classes):
-    w = torch.as_tensor(class_weights, dtype=torch.float32, device=target.device)
+    w = _class_weight_table(tuple(float(v) for v in class_weights), target.device)
     return w[target.clamp(0, num_classes - 1).long()]
 
 

@@ -20,12 +20,58 @@ Every function takes the H and W axes, so NHWC, NCHW and channel-free
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest", "nearest_index"]
+__all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest", "nearest_index",
+           "device_table_cache", "holding_tables"]
+
+# the lists of the active ``holding_tables`` blocks, innermost last
+_HOLDERS: list[list] = []
+
+
+def device_table_cache(build):
+    """``functools.lru_cache(maxsize=64)`` for a function whose last
+    argument is a device and whose result lives there (a table). The
+    first call for a key builds the table, with a host→device copy; later
+    calls copy nothing, so a CUDA graph can capture them. A build inside a
+    capture raises: the warm-up before it should have built every table
+    the capture reads. Each table returned is also appended to the list of
+    every active :func:`holding_tables` block. ``cache_info`` and
+    ``cache_clear`` are the cache's."""
+
+    @functools.lru_cache(maxsize=64)
+    def cached(*args):
+        device = torch.device(args[-1])
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{build.__name__}{args} first built inside a CUDA graph capture")
+        return build(*args)
+
+    @functools.wraps(build)
+    def lookup(*args):
+        table = cached(*args)
+        for holder in _HOLDERS:
+            holder.append(table)
+        return table
+
+    lookup.cache_info, lookup.cache_clear = cached.cache_info, cached.cache_clear
+    return lookup
+
+
+@contextlib.contextmanager
+def holding_tables(holder: list):
+    """Append to ``holder`` every table that a :func:`device_table_cache`
+    returns inside the block. A CUDA graph captured in the block reads
+    those tables' memory; the graph's owner keeps ``holder`` for as long
+    as it replays, so that the caches' eviction cannot free that memory."""
+    _HOLDERS.append(holder)
+    try:
+        yield holder
+    finally:
+        _HOLDERS.remove(holder)
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,7 +98,7 @@ def _axis_lerp_coeffs(in_size: int, out_size: int, align_corners: bool):
     return lo, hi, w
 
 
-@functools.lru_cache(maxsize=64)
+@device_table_cache
 def lerp_tables(in_size: int, out_size: int, align_corners: bool, device: torch.device):
     """``_axis_lerp_coeffs`` as tensors on ``device``: (lo int64, hi
     int64, w f32). Cached per device so the serving path uploads them
@@ -106,7 +152,7 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool):
     return a
 
 
-@functools.lru_cache(maxsize=64)
+@device_table_cache
 def interp_matrix(
     in_size: int, out_size: int, align_corners: bool, dtype: torch.dtype, device: torch.device
 ) -> torch.Tensor:
@@ -163,7 +209,7 @@ def _axis_nearest_index(in_size: int, out_size: int):
     return np.clip(src.astype(np.int64), 0, in_size - 1)
 
 
-@functools.lru_cache(maxsize=64)
+@device_table_cache
 def nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     """``_axis_nearest_index`` as an int64 tensor on ``device``, cached
     (made outside inference mode, as :func:`lerp_tables`): a call after

@@ -249,7 +249,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'data.custom', 'data.loader', 'data.device_aug', 'data.pil_ops',\n"
         "        'data.grain_loader', 'train', 'eval',\n"
         "        'train_presets', 'utils.checkpoint', 'utils.monitor', 'tools.system_check',\n"
-        "        'tools.argmax_first_study', 'tools.quant_study', 'tools.compare_backends')}\n"
+        "        'tools.argmax_first_study', 'tools.quant_study', 'tools.compare_backends',\n"
+        "        'bench_train', 'bench_eval', 'bench_latency', 'bench_input', 'tools.ab_int8_e2e',\n"
+        "        'utils.cuda_graph')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )
