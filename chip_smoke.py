@@ -126,13 +126,34 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    profile of each; (b) ``bench_train.run`` at the Cityscapes recipe's
    knobs and at its defaults cut to batches 8 and 64; (c)
    ``bench_eval.main`` at 1024x2048 with 8 uniform images and 2 of each
-   mixed size; (d) ``bench_latency.run``; (e) ``bench_input.main`` at its
-   half-size default; (f) ``tools/ab_int8_e2e.main`` at batch 8, 10
-   iterations (B7 and B8 in graphs);
-9. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7 and 8, plus the captured
-   launches × the replays of the graphs of phases 4b, 4c and 8, which no
-   wrapper sees) and, last, the device line ``{"ok": true, "device":
+   mixed size; (d) ``bench_latency.run`` (with its realtime legs); (e)
+   ``bench_input.main`` at its half-size default; (f)
+   ``tools/ab_int8_e2e.main`` at batch 8, 10 iterations (B7 and B8 in
+   graphs);
+9. the control loop (:func:`loop_phase`): 2 classes at 640x360 in the
+   ``custom`` convention, bf16, uint8 masks, weights from SEED with BN
+   statistics from synthetic camera frames (:func:`lane_state`), in the
+   pipeline's own session (ref: ``pipeline.build_session`` with
+   ``--weights``) and in config A (``fused-ds`` + ``pallas``): (a) B3 and
+   B1 on the tensors config A's frame hands them, in bf16 and f32, bit-equal
+   to their plain versions; (b) ``RealtimePipeline`` over
+   ``SyntheticCamera(640, 360)`` in edge mode, 5 warm-up and 40 frames, and
+   the per-stage ms over 20 frames (``bench_latency``'s realtime legs),
+   through the ``predict_fn`` graph and through eager ``predict``, with the
+   graph's captured launches; (c) f32 config A on the card against the CPU
+   over 8 camera frames, masks on 99.9 % of pixels, and paths and commands
+   equal wherever the BEV masks (the planner's input) are; (d)
+   ``SimpleCarController`` over a pty into ``VehicleSim``: every command
+   read back as the wheels, a blinded frame's no-path stop, (0, 0) after
+   the e-stop and nothing else sent; (e)
+   ``pipeline.main`` on one PNG (five artifacts read back) and
+   ``control_dashboard.main --realtime --web --synthetic-camera
+   --max-frames 20 --enable-serial`` on a pty, its routes and one
+   ``/video_feed`` part driven over HTTP on 127.0.0.1;
+10. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8 and 9, plus the captured
+   launches × the replays of the graphs of phases 4b, 4c, 8 and 9, which
+   no wrapper sees) and, last, the device line ``{"ok": true, "device":
    {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
@@ -164,11 +185,12 @@ import sys
 import time
 import warnings
 
-# The card's machine has neither PIL nor matplotlib (which imports PIL): both
-# are blocked here as well, so that a stray import in the port fails in this
-# run wherever they are installed. The data loader's worker processes load
-# this file as their main module, so they run with the same block.
-for _blocked in ("PIL", "matplotlib"):
+# The card's machine has neither PIL, matplotlib (which imports PIL) nor
+# OpenCV: all three are blocked here as well, so that a stray import in the
+# port fails in this run wherever they are installed. The data loader's
+# worker processes load this file as their main module, so they run with
+# the same block.
+for _blocked in ("PIL", "matplotlib", "cv2"):
     sys.modules[_blocked] = None
 
 SEED = 0
@@ -1071,30 +1093,34 @@ def int8_kernel_phase(peaks, bound, nbytes, g):
 
 
 
-def calibrated_state(frames):
+def calibrated_state(frames, num_classes=NUM_CLASSES, normalise=True):
     """Random weights from SEED, with BN running statistics taken from
-    ``frames`` (one train-mode pass, cumulative average). With the
-    default statistics (mean 0, var 1) a random network's activations
-    shrink layer by layer until the classifier bias alone picks the
-    class: the mask is one class everywhere and every comparison of
-    masks passes trivially. Calibrated statistics normalise each layer as
-    training would, so the mask has many classes and real boundaries."""
+    ``frames`` (one train-mode pass, cumulative average), normalised with
+    the ImageNet statistics (``normalise``) or raw in [0, 1] (the
+    ``custom`` convention). With the default statistics (mean 0, var 1) a
+    random network's activations shrink layer by layer until the
+    classifier bias alone picks the class: the mask is one class
+    everywhere and every comparison of masks passes trivially. Calibrated
+    statistics normalise each layer as training would, so the mask has
+    many classes and real boundaries."""
     import torch
 
     from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD
     from fastscnn_tpu_torch.models import init_fast_scnn
 
-    model = init_fast_scnn(NUM_CLASSES, generator=torch.Generator().manual_seed(SEED),
+    model = init_fast_scnn(num_classes, generator=torch.Generator().manual_seed(SEED),
                            device=frames.device)
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for bn in bns:
         bn.reset_running_stats()
         bn.momentum = None
-    mean = torch.tensor(IMAGENET_MEAN, device=frames.device)
-    std = torch.tensor(IMAGENET_STD, device=frames.device)
+    x = frames.float() / 255.0
+    if normalise:
+        x = (x - torch.tensor(IMAGENET_MEAN, device=frames.device)) / torch.tensor(
+            IMAGENET_STD, device=frames.device)
     model.train()
     with torch.no_grad():
-        model((frames.float() / 255.0 - mean) / std)
+        model(x)
     for bn in bns:
         bn.momentum = 0.1
     return model.eval().state_dict()
@@ -2904,8 +2930,9 @@ def bench_modules_phase(root):
     _print(f"  bench_latency: {time.perf_counter() - t0:.1f} s")
     keys = [f"{kind}_ms_{size}" for size, _ in bench_latency.SIZES
             for kind in ("device_loop", "host_predict")]
-    _check_line(line, keys, "bench_latency")
-    if not all(line[k] > 0 for k in keys):
+    _check_line(line, keys + ["realtime_loop", "realtime_stage_ms"], "bench_latency")
+    if not (all(line[k] > 0 for k in keys) and line["realtime_loop"]["fps"] > 0
+            and line["realtime_stage_ms"]["inference"] > 0):
         raise AssertionError(f"bench_latency: {line}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2970,6 +2997,486 @@ def bench_phase(root, yard):
         if not tally.get({v: k for k, v in TRAINING_NAMES.items()}.get(name, name)):
             raise AssertionError(f"phase 8: no graph replay launched {name}")
     _print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the control loop
+# ---------------------------------------------------------------------------
+
+LOOP_SHAPE = (1, 360, 640, 3)  # the camera frame the pipeline's engine path runs at
+LOOP_CLASSES = 2
+LOOP_FRAMES, STAGE_FRAMES = 40, 20  # bench_latency's realtime legs, 5 warm-up frames first
+LOOP_AGREE_GATE = 0.999  # f32 card vs CPU masks, over the compared frames
+LOOP_CPU_FRAMES = 8
+DRIVE_FRAMES = 12
+DASHBOARD_FRAMES = 20
+
+
+def lane_state(frames):
+    """The loop's 2-class weights: random from SEED, BN statistics taken
+    from camera ``frames`` in the ``custom`` convention (raw [0, 1]), and
+    the classifier's class-1 bias moved so that half of those frames'
+    pixels are class 1 (a random network's mask is otherwise one class,
+    and the planner finds no road)."""
+    import torch
+
+    from fastscnn_tpu_torch.models import FastSCNN
+
+    model = FastSCNN(LOOP_CLASSES).to(frames.device)
+    model.load_state_dict(calibrated_state(frames, LOOP_CLASSES, normalise=False))
+    x = frames.float() / 255.0
+    with torch.no_grad():
+        logits = model(x)[0]
+        gap = (logits[..., 1] - logits[..., 0]).flatten().float()
+        last = [m for m in model.classifier.modules() if isinstance(m, torch.nn.Conv2d)][-1]
+        last.bias[1] -= gap.median()
+    return model.state_dict()
+
+
+def _same(a, b) -> bool:
+    """Two ``inference_single_image`` outputs equal: arrays by dtype and
+    elements, polynomials by coefficients, numbers exactly."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, np.poly1d):
+        return isinstance(b, np.poly1d) and _same(a.coeffs, b.coeffs)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_same, a, b))
+    return type(a) is type(b) and a == b
+
+
+class _EagerSession:
+    """An engine seen through ``predict`` alone: the pipeline then runs
+    the eager forward each frame instead of the graph."""
+
+    def __init__(self, engine):
+        self.predict = engine.predict
+
+
+class _NoRoadSession:
+    """A blinded camera: no pixel is road."""
+
+    def predict(self, rgb):
+        import numpy as np
+
+        return np.zeros(rgb.shape[:2], np.uint8)
+
+
+def loop_kernels_phase(engines):
+    """9a: B3 and B1 at the loop's shapes, on the tensors config A's
+    forward hands them (recorded from one eager frame in bf16 and in f32),
+    each bit-equal to its plain version, timed beside it."""
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch.engine import infer
+    from fastscnn_tpu_torch.models import fast_scnn
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    frame = np.ascontiguousarray(_camera_frames(1)[0][:, :, ::-1])
+    for dtype, eng in engines.items():
+        calls = []
+        real = {"b3": fast_scnn.ds_conv3x3_pw, "b1": infer.upsample_argmax}
+
+        def b3(*args, **kw):
+            calls.append(("ds_conv3x3_pw", args, kw))
+            return real["b3"](*args, **kw)
+
+        def b1(*args, **kw):
+            calls.append(("upsample_argmax", args, kw))
+            return real["b1"](*args, **kw)
+
+        fast_scnn.ds_conv3x3_pw, infer.upsample_argmax = b3, b1
+        try:
+            eng.predict(frame)
+        finally:
+            fast_scnn.ds_conv3x3_pw, infer.upsample_argmax = real["b3"], real["b1"]
+        names = [c[0] for c in calls]
+        if names != ["ds_conv3x3_pw", "ds_conv3x3_pw", "upsample_argmax"]:
+            raise AssertionError(f"9a {dtype}: config A's frame called {names}")
+        for name, args, kw in calls:
+            kern = K.KERNELS[name]
+            plain = K.ds_conv3x3_pw_reference if name == "ds_conv3x3_pw" else \
+                K.upsample_argmax_reference
+            got, ref = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            diff = int((got != ref).sum())
+            ms = time_ms(lambda: kern(*args, **kw))
+            plain_ms = time_ms(lambda: plain(*args, **kw), iters=5, warmup=1, repeats=3)
+            _print(f"  9a {name} {dtype} {tuple(args[0].shape)} -> {tuple(got.shape)}: {diff} "
+                   f"of {got.numel()} elements differ from the plain version; kernel {ms:.4f} ms, "
+                   f"plain {plain_ms:.4f} ms")
+            if diff or got.shape != ref.shape:
+                raise AssertionError(f"9a {name} {dtype}: not bit-equal to its plain version")
+
+
+def _camera_frames(n, start=0):
+    """``n`` BGR frames of the port's ``SyntheticCamera`` at 640x360."""
+    from fastscnn_tpu_torch.interfaces import SyntheticCamera
+
+    cam = SyntheticCamera(LOOP_SHAPE[2], LOOP_SHAPE[1])
+    cam.i = start
+    return [cam.read()[1] for _ in range(n)]
+
+
+def loop_timing_phase(sessions):
+    """9b: each session's realtime loop and stage breakdown, through the
+    graph and through eager ``predict``, and the graphed frame's copy in,
+    replay and read-back apart; returns the stage rows."""
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch import bench_latency
+
+    rows = {}
+    for label, session in sessions.items():
+        fn = session.predict_fn(LOOP_SHAPE)
+        x = np.ascontiguousarray(_camera_frames(1, 7)[0][None, :, :, ::-1])
+        same = bool((fn(x) == session.predict(x)).all())
+        for how, s in (("graph", session), ("eager", _EagerSession(session))):
+            loop = bench_latency.realtime_loop(s, frames=LOOP_FRAMES)
+            stages = bench_latency.realtime_stage_breakdown(s, frames=STAGE_FRAMES)
+            rows[(label, how)] = {"loop": loop, "stages": stages}
+            _print(f"  9b {label} {how}: {loop['fps']} fps, {loop['frame_time_ms']} ms a frame "
+                   f"over {loop['frames']} frames; stage ms {stages}")
+        split = []
+        for _ in range(STAGE_FRAMES):  # the graphed inference stage, in its two host steps
+            t0 = time.perf_counter()
+            out = fn(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out.cpu()
+            split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        replay_ms, back_ms = (statistics.median(v) for v in zip(*split))
+        _print(f"  9b {label}: graph replays {fn.replays}, captured launches {fn.launches}, "
+               f"pool {fn.pool_bytes} bytes; graph mask equal to predict's: {same}; a frame "
+               f"through the graph: copy in + replay + sync {replay_ms:.3f} ms, mask back "
+               f"{back_ms:.3f} ms (medians of {STAGE_FRAMES}, host clock)")
+        if not same or loop["frames"] != LOOP_FRAMES:
+            raise AssertionError(f"9b {label}: graph differs from predict or the loop stopped")
+        rows[(label, "launches")] = fn.launches
+    return rows
+
+
+def loop_card_cpu_phase(card, cpu):
+    """9c: f32 config A on the card and on the CPU over the same camera
+    frames, each frame through ``inference_single_image`` with a fresh
+    controller: masks on 99.9 % of pixels; wherever the planner's input
+    (the BEV mask at 1 px/unit) is equal, the path and the wheel command
+    equal too (and every output, where the masks are)."""
+    import numpy as np
+
+    from fastscnn_tpu_torch.control import VisualLateralErrorController
+    from fastscnn_tpu_torch.pipeline import inference_single_image
+
+    agree, equal_masks, equal_bev, with_path = [], 0, 0, 0
+    for frame in _camera_frames(LOOP_CPU_FRAMES, 11):
+        out = [inference_single_image(frame, eng, pixels_per_unit=1, edge_computing=True,
+                                      controller=VisualLateralErrorController())
+               for eng in (card, cpu)]
+        agree.append(float((out[0]["mask"] == out[1]["mask"]).mean()))
+        with_path += bool(out[0]["path_data"]["waypoints"])
+        keys = ("path_data", "control_result")
+        if np.array_equal(out[0]["mask"], out[1]["mask"]):
+            equal_masks += 1
+            keys += ("visualization", "bird_eye_image", "bird_eye_mask", "control_map")
+        if np.array_equal(out[0]["bird_eye_mask"], out[1]["bird_eye_mask"]):
+            equal_bev += 1
+            for key in keys:
+                if not _same(out[0][key], out[1][key]):
+                    raise AssertionError(f"9c: equal inputs to the planner, different {key}")
+    mean = float(np.mean(agree))
+    _print(f"  9c f32 card vs CPU over {len(agree)} frames: mask agreement {mean:.6f} (per frame "
+           f"{[round(a, 6) for a in agree]}); masks equal on {equal_masks} frames, BEV masks on "
+           f"{equal_bev}, paths and commands equal on each of those; {with_path} frames with a "
+           "path")
+    if mean < LOOP_AGREE_GATE:
+        raise AssertionError(f"9c: card and CPU masks agree on {mean} < {LOOP_AGREE_GATE}")
+    return mean
+
+
+def loop_drive_phase(engine):
+    """9d: the loop over ``SimpleCarController`` → pty → the port's
+    ``VehicleSim``: each command read back as the wheels; a blinded frame
+    commands the no-path stop; after the e-stop the wheels stay (0, 0)."""
+    import os
+    import pty
+    import select
+
+    from fastscnn_tpu_torch.interfaces import RealtimePipeline, SyntheticCamera
+    from fastscnn_tpu_torch.pipeline import inference_single_image
+    from fastscnn_tpu_torch.serialbridge import Parser, SerialPort, SimpleCarController, VehicleSim
+
+    master, slave = pty.openpty()
+    port = SerialPort(os.ttyname(slave), 115200)
+    t0 = time.perf_counter()
+    vehicle, parser = VehicleSim(), Parser()
+
+    def pump():
+        r, _, _ = select.select([master], [], [], 0.02)
+        if r:
+            data = os.read(master, 4096)
+            parser.feed(data)
+            vehicle.feed(data, int((time.perf_counter() - t0) * 1e3))
+
+    sent = []
+
+    class Recording:
+        """The pty port, each command recorded as it is sent."""
+
+        def send_speeds(self, left, right):
+            sent.append((left, right))
+            port.send_speeds(left, right)
+
+    try:
+        car = SimpleCarController(transport=Recording())
+        pipe = RealtimePipeline(engine, SyntheticCamera(LOOP_SHAPE[2], LOOP_SHAPE[1]), car=car,
+                                edge_computing=True)
+        pipe.warm()
+        pipe.start_driving()
+        moving = 0
+        for _ in range(DRIVE_FRAMES):
+            pipe.step()
+            pump()
+            stats = pipe.get_stats()
+            want = (int(stats["pwm_left"]), int(stats["pwm_right"]))
+            if vehicle.wheels != car.get_current_speeds() or vehicle.wheels != want:
+                raise AssertionError(f"9d: wheels {vehicle.wheels}, car {car.get_current_speeds()}"
+                                     f", loop command {want}")
+            moving += vehicle.wheels != (0, 0)
+        stop = inference_single_image(_camera_frames(1)[0], _NoRoadSession(), pixels_per_unit=1,
+                                      edge_computing=True)["control_result"]
+        pipe.session = _NoRoadSession()
+        pipe.step()
+        pump()
+        blind = (vehicle.wheels, pipe.get_stats()["lateral_error"])
+        pipe.session = engine
+        pipe.step()
+        pump()
+        pipe.emergency_stop()
+        pump()
+        stopped, n_sent = vehicle.wheels, len(sent)
+        pipe.run(max_frames=3)
+        pump()
+        after = sent[n_sent:]
+        _print(f"  9d pty: {parser.stats['packets']} packets ({len(sent)} sent), {moving} of "
+               f"{DRIVE_FRAMES} frames with the wheels turning; blinded frame: {stop['status']}, "
+               f"wheels {blind[0]}; e-stop: wheels {stopped}, then sent {after}, wheels "
+               f"{vehicle.wheels}; checksum errors {vehicle.checksum_errors}")
+        if (stop["status"] != "no_path_stop" or blind != ((0, 0), None) or stopped != (0, 0)
+                or vehicle.wheels != (0, 0) or any(c != (0, 0) for c in after)
+                or parser.stats["packets"] != len(sent) or vehicle.checksum_errors):
+            raise AssertionError("9d: the no-path stop or the e-stop did not reach the wheels")
+        return moving
+    finally:
+        port.close()
+        os.close(master)
+        os.close(slave)
+
+
+def loop_cli_phase(work, weights):
+    """9e: ``pipeline.main`` on one PNG (all five artifacts, read back), and
+    ``control_dashboard.main --realtime --web --synthetic-camera
+    --max-frames 20`` over the serial bridge on a pty, its routes driven
+    over HTTP on 127.0.0.1 while the loop runs (the camera holds its third
+    frame until the client is done)."""
+    import json
+    import os
+    import pty
+    import select
+    import socket
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from fastscnn_tpu_torch import control_dashboard, interfaces, pipeline
+    from fastscnn_tpu_torch.data import image_io
+    from fastscnn_tpu_torch.serialbridge import Parser
+
+    png = os.path.join(work, "road.png")
+    image_io.write_png(png, _camera_frames(1, 3)[0][:, :, ::-1])
+    out = os.path.join(work, "out")
+    t0 = time.perf_counter()
+    result, _ = _run_cli(pipeline.main, ["--input", png, "--weights", weights,
+                                         "--output-dir", out])
+    names = sorted(os.listdir(out))
+    if names != ["road_control_data.json", "road_control_map.png", "road_mask.png",
+                 "road_path_data.json", "road_vis.png"]:
+        raise AssertionError(f"9e pipeline.main wrote {names}")
+    for name, key in (("road_mask.png", "mask"), ("road_vis.png", "visualization"),
+                      ("road_control_map.png", "control_map")):
+        arr = result[key] if result[key].ndim == 2 else result[key][..., ::-1]
+        if not np.array_equal(image_io.read_image(os.path.join(out, name)), arr):
+            raise AssertionError(f"9e: {name} does not read back as the pipeline's {key}")
+    with open(os.path.join(out, "road_path_data.json")) as f:
+        path_json = json.load(f)
+    _print(f"  9e pipeline.main: {time.perf_counter() - t0:.2f} s, 5 artifacts read back, "
+           f"{path_json['num_waypoints']} waypoints, stages "
+           f"{ {k: round(v * 1e3, 3) for k, v in result['perf'].times.items()} } ms")
+
+    done, seen = threading.Event(), {}
+
+    class HeldCamera(interfaces.SyntheticCamera):
+        def read(self):
+            if self.i == 2:
+                done.wait(60)
+            return super().read()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        web_port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{web_port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=10) as r:
+            return json.loads(r.read())
+
+    def post(path, body=None):
+        req = urllib.request.Request(base + path, data=json.dumps(body or {}).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return json.loads(r.read())
+
+    def client():
+        try:
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                try:
+                    if get("/api/stats").get("frame_count", 0) >= 2:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.05)
+            seen["stats"] = get("/api/stats")
+            seen["status"] = get("/api/control_status")
+            seen["update"] = post("/api/update_params", {"base_pwm": 250, "ema_alpha": 0.3})
+            seen["start"] = post("/api/start_driving")
+            seen["stop"] = post("/api/emergency_stop")
+            with urllib.request.urlopen(base + "/video_feed", timeout=10) as r:
+                head = [r.readline() for _ in range(3)]
+                buf = b""
+                while b"\r\n--frame\r\n" not in buf:
+                    chunk = r.read1(65536)
+                    if not chunk:
+                        break
+                    buf += chunk
+            seen["part"] = (head, image_io.decode_bytes(buf[:buf.index(b"\r\n--frame\r\n")])[0])
+        except Exception as e:  # reported by the phase, after the loop ends
+            seen["error"] = repr(e)
+        finally:
+            done.set()
+
+    master, slave = pty.openpty()
+    real = interfaces.SyntheticCamera
+    interfaces.SyntheticCamera = HeldCamera
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        pipe, _ = _run_cli(control_dashboard.main, [
+            "--realtime", "--web", "--synthetic-camera", "--max-frames", str(DASHBOARD_FRAMES),
+            "--web-host", "127.0.0.1", "--web-port", str(web_port), "--weights", weights,
+            "--enable-serial", "--serial-port", os.ttyname(slave), "--auto-start-driving"])
+        thread.join(30)
+        parser = Parser()
+        while select.select([master], [], [], 0.02)[0]:
+            parser.feed(os.read(master, 4096))
+    finally:
+        interfaces.SyntheticCamera = real
+        os.close(master)
+        os.close(slave)
+    seconds = time.perf_counter() - t0
+    if "error" in seen or thread.is_alive():
+        raise AssertionError(f"9e dashboard client: {seen.get('error', 'did not finish')}")
+    head, img = seen["part"]
+    _print(f"  9e control_dashboard.main: {seconds:.2f} s, {pipe.frame_count} frames; "
+           f"/api/stats device {seen['stats']['device'].get('device_kind')}, "
+           f"{seen['stats']['device'].get('bytes_in_use')} bytes in use; update "
+           f"{seen['update']}; start {seen['start']}; stop {seen['stop']}; video part "
+           f"{head[1].strip().decode()} {img.shape}; serial packets {parser.stats['packets']}, "
+           f"last {parser.last}")
+    if (pipe.frame_count != DASHBOARD_FRAMES or seen["stats"]["device"]["platform"] != "gpu"
+            or pipe.controller.base_pwm != 250.0 or seen["stop"] != {"status": "ok",
+                                                                      "stopped": True}
+            or head[1].strip() != b"Content-Type: image/png" or img.ndim != 3
+            or not parser.stats["packets"] or parser.last != (0, 0)):
+        raise AssertionError("9e: the dashboard CLI's run is not as expected")
+
+
+def loop_phase(root):
+    """Phase 9: the control loop (``pipeline``, ``interfaces``,
+    ``serialbridge``, ``control_dashboard``) on the card, in the pipeline's
+    own session (ref: ``build_session``, conv + hybrid) and in config A
+    (``fused-ds`` + ``pallas``: B3, B1), 2 classes, 640x360, bf16, uint8
+    masks. Returns the launches of B1 and B3 from 9b on: the wrappers'
+    counts plus every graph's captured launches x its replays."""
+    import gc
+    import shutil
+
+    import torch
+
+    from fastscnn_tpu_torch import pipeline
+    from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_loop")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = torch.device("cuda")
+    calib = torch.from_numpy(__import__("numpy").stack(
+        [f[:, :, ::-1] for f in _camera_frames(8, 100)])).to(dev)
+    state = lane_state(calib)
+    weights = os.path.join(work, "lane.pth")
+    torch.save(state, weights)
+
+    def config_a(dtype, device=dev):
+        model = FastSCNN(LOOP_CLASSES, folded_dw_impl="fused-ds")
+        model.load_state_dict(state)
+        return InferenceEngine(model, device=device, config=E2EConfig(
+            compute_dtype=dtype, final_upsample="pallas", mask_dtype="uint8"))
+
+    _print("9a: B3 and B1 at the loop's shapes, on config A's own tensors:")
+    loop_kernels_phase({"bfloat16": config_a("bfloat16"), "float32": config_a("float32")})
+    tally, stop = _tally_replays()
+    reset_launch_counts()
+    try:
+        ref, _ = _run_cli(pipeline.build_session, pipeline.parse_args(
+            ["--input", "road.png", "--weights", weights]))
+        a = config_a("bfloat16")
+        _print("9b: the realtime loop and its stages, graph and eager:")
+        rows = loop_timing_phase({"ref": ref, "A": a})
+        if rows[("ref", "launches")] or rows[("A", "launches")] != {"ds_conv3x3_pw": 2,
+                                                                    "upsample_argmax": 1}:
+            raise AssertionError(f"9b: captured launches {rows[('ref', 'launches')]}, "
+                                 f"{rows[('A', 'launches')]}")
+        del ref
+        _print("9c: f32 config A, card against CPU:")
+        loop_card_cpu_phase(config_a("float32"), config_a("float32", torch.device("cpu")))
+        _print("9d: the loop down to the wheels:")
+        loop_drive_phase(a)
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        _print("9e: the CLIs:")
+        loop_cli_phase(work, weights)
+    finally:
+        stop()
+    eager = launch_counts()
+    launches = {k: eager.get(k, 0) + tally.get(k, 0) for k in ("ds_conv3x3_pw", "upsample_argmax")}
+    _print(f"phase 9 launches (eager {({k: v for k, v in eager.items() if v})}, replayed "
+           f"{tally}): {launches}")
+    if not (tally.get("ds_conv3x3_pw") and tally.get("upsample_argmax")):
+        raise AssertionError("phase 9: no graph replay launched B3 and B1")
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3562,6 +4069,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in bench_phase(root, yard).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in loop_phase(root).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -14,7 +14,9 @@
 - each bench runs end to end at a tiny size with PIL blocked and gives its
   JSON line the root bench's keys, less those each module's docstring
   leaves out (speed on the CPU means nothing; the card's numbers are
-  PERF.md's).
+  PERF.md's); ``bench_latency``'s realtime legs give the keys of the root
+  bench's own ``realtime_loop`` and ``realtime_stage_breakdown`` run on a
+  shared session.
 """
 
 import ast
@@ -251,17 +253,58 @@ def test_the_engine_takes_a_640x360_frame_as_the_jax_engine_does(shared):
     assert int(peng.throughput_fn(frame.shape, iters=2)(frame)) == ref_sum
 
 
-def test_bench_latency_runs_on_the_cpu(no_pil, capsys):
+def _root_bench_latency():
+    """The repo root's ``bench_latency.py`` as a module (it imports JAX
+    only inside its functions)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("root_bench_latency",
+                                                  os.path.join(REPO, "bench_latency.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _BandSession:
+    """A ``.predict`` session whose mask is the synthetic camera's road band."""
+
+    def predict(self, rgb):
+        return (np.asarray(rgb)[..., 0] == 60).astype(np.uint8)
+
+
+def test_bench_latency_runs_on_the_cpu(no_pil, capsys, monkeypatch):
     sizes = (("64x128", (1, 64, 128, 3)), ("72x136", (1, 72, 136, 3)))
-    line = bench_latency.run(device="cpu", sizes=sizes, iters=2, calls=2)
+    line = bench_latency.run(device="cpu", sizes=sizes, iters=2, calls=2, realtime_frames=2,
+                             stage_frames=2)
     json.dumps(line)
     assert set(line) == {"metric", "unit", "value", "device", "device_loop_ms_64x128",
                          "host_predict_ms_64x128", "device_loop_ms_72x136",
-                         "host_predict_ms_72x136"}
+                         "host_predict_ms_72x136", "realtime_loop", "realtime_stage_ms"}
     assert line["metric"] == "single_frame_latency" and line["unit"] == "ms"
     assert line["value"] == line["device_loop_ms_64x128"] > 0 and line["device"] == "cpu"
     assert [size for size, _ in bench_latency.SIZES] == ["1024x2048", "640x360"]
-    assert "batch-1 72x136" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "batch-1 72x136" in err and "realtime loop 640x360 (2-class)" in err
+    # the realtime legs under the root bench's keys: its own functions on a
+    # shared session give the same keys (OpenCV off, the port's branch)
+    import fastscnn_tpu.perception.path_planning as jax_planning
+    import fastscnn_tpu.perception.preprocessing as jax_pre
+    import fastscnn_tpu.perception.transform as jax_transform
+
+    for mod in (jax_transform, jax_pre, jax_planning):
+        monkeypatch.setattr(mod, "_HAS_CV2", False)
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    root = _root_bench_latency()
+    root_loop = root.realtime_loop(_BandSession(), frames=2)
+    root_stages = root.realtime_stage_breakdown(_BandSession(), frames=2)
+    loop, stages = line["realtime_loop"], line["realtime_stage_ms"]
+    assert set(loop) == set(root_loop) and loop["frames"] == root_loop["frames"] == 2
+    assert loop["fps"] > 0 and loop["frame_time_ms"] > 0 and loop["last_frame_ms"] > 0
+    assert list(stages) == list(root_stages) == ["preprocess", "inference", "postprocess",
+                                                 "bird_eye_transform", "path_planning", "control"]
+    assert all(v >= 0 for v in stages.values()) and stages["inference"] > 0
+    port_loop = bench_latency.realtime_loop(_BandSession(), frames=2)
+    assert set(port_loop) == set(root_loop)
 
 
 # ---------------------------------------------------------------------------

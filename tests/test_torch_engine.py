@@ -231,14 +231,15 @@ def test_device_none_raises_without_cuda(monkeypatch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has jax loaded already),
     importing every module of the port loads no jax, no fastscnn_tpu and
-    none of the packages the card's machine lacks — PIL, scikit-learn,
-    matplotlib, tensorflow, grain (only the functions that need one import
-    it)."""
+    none of the packages the card's machine lacks — PIL, OpenCV,
+    scikit-learn, matplotlib, tensorflow, grain (only the functions that
+    need one import it)."""
     code = (
         "import sys, pkgutil, importlib, fastscnn_tpu_torch\n"
         "for m in pkgutil.walk_packages(fastscnn_tpu_torch.__path__, 'fastscnn_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "banned = ('jax', 'fastscnn_tpu', 'PIL', 'sklearn', 'matplotlib', 'tensorflow', 'grain')\n"
+        "banned = ('jax', 'fastscnn_tpu', 'PIL', 'cv2', 'sklearn', 'matplotlib', 'tensorflow',\n"
+        "          'grain')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "n = sum(m.startswith('fastscnn_tpu_torch') for m in sys.modules)\n"
         "need = {'fastscnn_tpu_torch.' + m for m in ('parallel.train', 'losses.segmentation',\n"
@@ -251,7 +252,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'train_presets', 'utils.checkpoint', 'utils.monitor', 'tools.system_check',\n"
         "        'tools.argmax_first_study', 'tools.quant_study', 'tools.compare_backends',\n"
         "        'bench_train', 'bench_eval', 'bench_latency', 'bench_input', 'tools.ab_int8_e2e',\n"
-        "        'utils.cuda_graph')}\n"
+        "        'utils.cuda_graph', 'pipeline', 'perception', 'perception.calibration',\n"
+        "        'perception.transform', 'perception.path_planning', 'perception.preprocessing',\n"
+        "        'control', 'control.visual_controller', 'interfaces', 'interfaces.realtime',\n"
+        "        'interfaces.web_interface', 'serialbridge', 'control_dashboard', 'demo',\n"
+        "        'demo_tusimple', 'utils.profiling')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )
