@@ -69,39 +69,56 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    losses must be finite and fall, with the B6 launch counters at 2 per
    step for each part; then ms/step, samples/s and peak device memory,
    and a ``torch.profiler`` breakdown of the step's device time;
-6b. the trainer CLI (:func:`trainer_phase`), with PIL and matplotlib
-   blocked (top of this file; the loader's worker processes too): a
-   synthetic Cityscapes tree of 32 train and 4 val pairs at 1024x2048, RGB
-   images and labelId maps as PNGs written without PIL (:func:`png_bytes`,
-   rows through all five filters), each read back through
-   ``data/image_io.py`` equal to the array written; the host ms of
-   ``data/pil_ops.py`` at 1024x2048 and of the records' hand-over (the
-   pipe, a new shared-memory block a record, the loader's warm slots); ``train.main`` of the recipe (batch 16 of
-   768x768 crops, ``--stem-impl pallas``, B6 at 2 launches a step for each
-   part and its forward at 2 a validated image, finite losses): fused
-   ``--device-aug`` with ``--decoded-cache`` and threads, 2 epochs,
-   validating in ``val`` mode every epoch (each printed pixAcc and mIoU
-   equal to the host metric of the masks validation predicted; the
-   checkpoints written; the second epoch all cache hits), ``--epochs 3
-   --auto-resume`` (on at step 4, epoch 2, to step 6, the poly schedule's
-   rate), ``--device-aug-split --grad-accum 2`` (B6 at 2 x 2 a step),
-   ``--loader grain`` with one worker process a core up to 8 on a cold
-   cache for 2 epochs (epoch 1's data ms/iter and the warm ms/step beside
-   the threads'), and one host-augmented epoch (no ``--device-aug``)
-   through ``--loader grain`` with ``val``; the PSP chain on the card
-   against the CPU with the same draws (masks equal, f32 images within
-   1e-3, the bf16 difference and the chain's time); ``eval.main`` in
-   testval at batch 2, bf16, whose FINAL metric must equal the host metric
-   of its own predicted masks; and ``eval.main`` in ``val`` mode with its
-   colour dumps, each read back without PIL, FINAL equal to the host
-   metric of the dumps;
+6b. the trainer and evaluator CLIs on their CUDA graphs (:func:`trainer_phase`),
+   with PIL and matplotlib blocked (top of this file; the loader's worker
+   processes too): a synthetic Cityscapes tree of 48 train pairs at
+   1024x2048 and 8 val pairs at 1024x2048 and 2 at 512x1024, RGB images
+   and labelId maps as PNGs written without PIL (:func:`png_bytes`, rows
+   through all five filters), each read back through ``data/image_io.py``
+   equal to the array written; the host ms of ``data/pil_ops.py`` at
+   1024x2048 and of the records' hand-over (the pipe, a new shared-memory
+   block a record, the loader's warm slots); ``train.main`` of the recipe
+   (batch 16 of 768x768 crops, ``--stem-impl pallas``, finite losses, B6
+   at 2 launches a step for each part and its forward at 2 a validated
+   image: an eager run through the wrappers, a graphed run through its
+   graphs' replays, its wrappers at 3 passes of what each graph captured;
+   each printed val pixAcc and mIoU equal to the host metric of the masks
+   validation predicted): (a) in f32 under deterministic algorithms,
+   ``--device-aug --decoded-cache``, 2 epochs with ``val`` every epoch,
+   eager and graphed (``Trainer(graph=False)`` and the default): the saved
+   train state (masters, BN statistics, momentum buffers, step), the
+   epochs' losses and val scores bit-equal (the first run every read a
+   cache miss in epoch 1 and a hit in epoch 2); (b) a graphed run stopped
+   after epoch 1 and resumed with ``--auto-resume``, bit-equal to the
+   uninterrupted graphed run, and a ``.pt`` saved by a ``--device cpu``
+   run (SGD and AdamW) resumed on the card's graphs; (d) in bf16, 12
+   epochs of 3 steps through threads and through ``--loader grain`` (one
+   worker process a core up to 8, a cold cache), each graphed and eager:
+   the host ms of the 20 steps of epochs 2-11 (median and quartiles), their
+   samples/s and data ms/iter, ``torch.profiler`` over epoch 12's steps
+   inside the CLI (busy and idle share), the decoded cache's reads (every
+   one a hit or a miss, a cold cache's files each missed at least once, a
+   warm cache's reads all hits), the pools and peak memory;
+   ``--device-aug-split --grad-accum 2`` graphed (B6 at 2 x 2 a step) and
+   one host-augmented epoch through grain with ``val``; (c) ``eval.main``
+   in testval at f32, graphed against eager, at batch 1 and 4 (a partial
+   batch in the small bucket): the per-sample lines and FINAL equal, the
+   dumps equal byte for byte, one capture a bucket, FINAL equal to the
+   host metric of the masks; ``eval.main`` in ``val`` mode with its colour
+   dumps, each read back without PIL, FINAL equal to their host metric;
+   (d) the Evaluator loop's images/s at 1024x2048, bf16, batch 1 and 8,
+   graphed and eager; the PSP chain on the card against the CPU with the
+   same draws (masks equal, f32 images within 1e-3, the bf16 difference
+   and the chain's time), and the batch's host-to-device copy from
+   pageable and from pinned memory;
 7. trained weights (:func:`trained_phase`): (a) the JAX package's
    convergence gate on the card — the committed mini-lane fixture, 500
    f32 dice steps of batch 4 through ``stem_impl='pallas'`` (B6 at 2
    launches a step for each part), lane IoU above 0.9 from the port's
    ``make_eval_step``, ms/step; (b) ``tools/argmax_first_study.main`` at
-   its full settings under deterministic algorithms (19 classes on 768² crops of 1024x2048 scenes, 400
-   bf16 steps of batch 8; 2 classes at 360x640), each leg's exact mask
+   its full settings under deterministic algorithms, its train step a CUDA graph (19 classes on
+   768² crops of 1024x2048 scenes, 400 bf16 steps of batch 8; 2 classes at 360x640; first its
+   step graphed against eager for 3 steps, bit-equal, and 40 eager steps timed), each leg's exact mask
    above 0.9 pixAcc and every argmax-first disagreement within the
    study's 16 px of a class boundary (those past 8 px counted); (c) configs ref and A-D in f32 and bf16 on the trained
    19-class weights over the study's 8 val scenes, int8 scales calibrated
@@ -127,7 +144,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    knobs and at its defaults cut to batches 8 and 64; (c)
    ``bench_eval.main`` at 1024x2048 with 8 uniform images and 2 of each
    mixed size; (d) ``bench_latency.run`` (with its realtime legs); (e)
-   ``bench_input.main`` at its half-size default; (f)
+   ``bench_input.main`` at its half-size default (its trainer legs graphed); (f)
    ``tools/ab_int8_e2e.main`` at batch 8, 10 iterations (B7 and B8 in
    graphs);
 9. the control loop (:func:`loop_phase`): 2 classes at 640x360 in the
@@ -152,9 +169,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``/video_feed`` part driven over HTTP on 127.0.0.1;
 10. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
    wrapper's counts in phases 4, 6, 6b, 7, 8 and 9, plus the captured
-   launches × the replays of the graphs of phases 4b, 4c, 8 and 9, which
-   no wrapper sees) and, last, the device line ``{"ok": true, "device":
-   {...}}``.
+   launches × the replays of the graphs of phases 4b, 4c, 6b (the trainer's
+   and the evaluator's), 8 and 9, which no wrapper sees) and, last, the
+   device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
@@ -1774,8 +1791,11 @@ def training_phase():
 
 
 # phase 6b: the trainer CLI (train.main, eval.main) on a synthetic Cityscapes
-# tree at full size: 32 train and 4 val pairs of 1024x2048
-TREE_PAIRS = {"train": 32, "val": 4}
+# tree at full size: 48 train pairs of 1024x2048 (3 steps an epoch); 8 val
+# pairs of 1024x2048 and 2 of 512x1024 (the evaluator's second bucket, a
+# partial batch at batch 4)
+TREE_SPLITS = {"train": ((48, HEIGHT, WIDTH),),
+               "val": ((8, HEIGHT, WIDTH), (2, HEIGHT // 2, WIDTH // 2))}
 TREE_BLOCK = 64  # each 64x64 block of an image takes one labelId
 TREE_BASE = 1024  # --base-size of the Cityscapes recipe: short edges of 512 to 2048
 CITYS_VALID = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 32, 33)
@@ -1832,13 +1852,14 @@ def synthetic_cityscapes(root):
     ids = np.array(CITYS_VALID + CITYS_IGNORED)
     palette = rng.integers(0, 256, (len(ids), 3))
     files = {}
-    for split, n in TREE_PAIRS.items():
+    for split, sizes in TREE_SPLITS.items():
         for kind in ("leftImg8bit", "gtFine"):
             os.makedirs(os.path.join(root, kind, split, "synth"), exist_ok=True)
-        for i in range(n):
-            cls = rng.integers(0, len(ids), (HEIGHT // TREE_BLOCK, WIDTH // TREE_BLOCK))
+        shapes = [(h, w) for n, h, w in sizes for _ in range(n)]
+        for i, (h, w) in enumerate(shapes):
+            cls = rng.integers(0, len(ids), (h // TREE_BLOCK, w // TREE_BLOCK))
             cls = cls.repeat(TREE_BLOCK, 0).repeat(TREE_BLOCK, 1)
-            noise = rng.integers(-24, 25, (HEIGHT, WIDTH, 3))
+            noise = rng.integers(-24, 25, (h, w, 3))
             stem = os.path.join(root, "{}", split, "synth", f"synth_{i:06d}_{{}}.png")
             files[stem.format("leftImg8bit", "leftImg8bit")] = np.clip(
                 palette[cls] + noise, 0, 255).astype(np.uint8)
@@ -1885,26 +1906,107 @@ def _host_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+class _Recorded:
+    """An eval step that appends (predicted masks, targets) to ``seen`` on
+    every call; its other attributes (a graphed step's counts) are the
+    step's."""
+
+    def __init__(self, step, seen):
+        self._step, self._seen = step, seen
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self, params, model_state, images, targets):
+        import numpy as np
+
+        preds, stats = self._step(params, model_state, images, targets)
+        self._seen.append((preds.cpu().numpy(), np.asarray(targets)))
+        return preds, stats
+
+
 def _recording_eval_steps(parallel, seen):
     """Wrap ``parallel.make_eval_step`` so that every eval step the CLIs
-    build appends (predicted masks, targets) to ``seen``; returns the
-    original to restore."""
-    import numpy as np
-
+    build records into ``seen`` (:class:`_Recorded`); returns the original
+    to restore."""
     make_eval_step = parallel.make_eval_step
-
-    def recording(*args, **kwargs):
-        step = make_eval_step(*args, **kwargs)
-
-        def recorded(params, model_state, images, targets):
-            preds, stats = step(params, model_state, images, targets)
-            seen.append((preds.cpu().numpy(), np.asarray(targets)))
-            return preds, stats
-
-        return recorded
-
-    parallel.make_eval_step = recording
+    parallel.make_eval_step = lambda *args, **kwargs: _Recorded(make_eval_step(*args, **kwargs),
+                                                                seen)
     return make_eval_step
+
+
+class _WatchedStep:
+    """A train step that stamps the host clock after its first call (the
+    capture of a graphed step, synchronised) and at every call's start
+    (``t_calls``), and counts its calls, and runs
+    calls ``profile[0]`` to ``profile[1]`` (1-based) under ``torch.profiler``:
+    the window's wall ms (the loader's waits between its steps included),
+    the device's busy ms and operations in it go into ``record``. Its other
+    attributes are the step's."""
+
+    def __init__(self, step, record, profile=None):
+        self._step, self._record, self._profile = step, record, profile
+        record.update(calls=0, t_calls=[])
+        self._prof = None
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        rec = self._record
+        rec["t_calls"].append(time.perf_counter())
+        rec["calls"] += 1
+        if self._profile and rec["calls"] == self._profile[0]:
+            torch.cuda.synchronize()
+            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            rec["window_t0"] = time.perf_counter()
+        out = self._step(*args, **kwargs)
+        if rec["calls"] == 1:
+            torch.cuda.synchronize()
+            rec["t_first"] = time.perf_counter()
+        if self._profile and rec["calls"] == self._profile[1]:
+            from torch.autograd import DeviceType
+
+            torch.cuda.synchronize()
+            rec["window_ms"] = (time.perf_counter() - rec["window_t0"]) * 1e3
+            self._prof.__exit__(None, None, None)
+            kernels = [e for e in self._prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            rec["busy_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+            rec["device_ops"] = sum(e.count for e in kernels)
+            self._prof = None
+        return out
+
+
+@contextlib.contextmanager
+def _watched_train_steps(records, profile=None):
+    """Every train step built inside the block (``make_train_step`` and
+    ``make_split_aug_train_step`` of ``fastscnn_tpu_torch.parallel``, which
+    the trainer and the study call) is a :class:`_WatchedStep`; each appends
+    its record to ``records``."""
+    from fastscnn_tpu_torch import parallel
+
+    real = {name: getattr(parallel, name)
+            for name in ("make_train_step", "make_split_aug_train_step")}
+
+    def watched(make):
+        def build(*args, **kwargs):
+            records.append({})
+            return _WatchedStep(make(*args, **kwargs), records[-1], profile)
+
+        return build
+
+    for name, make in real.items():
+        setattr(parallel, name, watched(make))
+    try:
+        yield records
+    finally:
+        for name, make in real.items():
+            setattr(parallel, name, make)
 
 
 def _host_scores(pairs):
@@ -1918,19 +2020,6 @@ def _host_scores(pairs):
         host.update(np.asarray(preds).astype(np.int64), np.asarray(targets).astype(np.int64))
     pix_acc, miou = host.get()
     return f"{pix_acc * 100:.3f}", f"{miou * 100:.3f}"
-
-
-def _loader_numbers(out, epochs):
-    """(epoch 1's data ms/iter, the last epoch's ms/step) from a run's prints."""
-    first = float(re.findall(r"epoch 0 iter .* \(data (\d+) ms/iter\)", out)[-1])
-    sps = float(re.findall(rf"epoch {epochs - 1} iter .* ([\d.]+) samples/s", out)[-1])
-    return first, 1e3 * TRAIN_BATCH / sps
-
-
-def _cache_counts(decoded_cache, before):
-    """The decoded cache's hits and misses since ``before`` (its stats())."""
-    now = decoded_cache.stats()
-    return {k: now[k] - before[k] for k in ("hits", "misses")}
 
 
 _TRANSPORTS = ("pipe", "fresh blocks", "slots", "slots")  # the second slots round is warm
@@ -2054,21 +2143,213 @@ def pil_ops_costs(files):
            f"{chain_ms:.1f} ms (best of 3 otherwise)")
 
 
+def _epoch_numbers(out, epoch):
+    """(samples/s, data ms/iter) of ``epoch`` (0-based), as its last
+    iteration's line prints them (each averages over the epoch so far)."""
+    sps, data = re.findall(rf"epoch {epoch} iter .* ([\d.]+) samples/s \(data (\d+) ms/iter\)",
+                           out)[-1]
+    return float(sps), float(data)
+
+
+def _cache_counts(decoded_cache, before):
+    """The decoded cache's hits and misses since ``before`` (its stats())."""
+    now = decoded_cache.stats()
+    return {k: now[k] - before[k] for k in ("hits", "misses")}
+
+
+def _saved_run(folder, log):
+    """A trainer run's results: the tensors of its saved train state
+    (masters, BN statistics, momentum buffers), its step, and the epochs'
+    loss, rate and val scores from its log records."""
+    import torch
+
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    saved = torch.load(os.path.join(folder, "train_state_citys.pt"), map_location="cpu",
+                       weights_only=True)
+    slots = [saved["opt_state"]["state"][i]["momentum_buffer"]
+             for i in sorted(saved["opt_state"]["state"])]
+    scores = [tuple(r.get(k) for k in ("epoch", "train_loss", "lr", "pix_acc", "miou"))
+              for r in log]
+    return (tree_leaves(saved["params"]) + tree_leaves(saved["model_state"]) + slots,
+            saved["step"], scores)
+
+
+def _run_differences(a, b):
+    """What differs between two :func:`_saved_run` results (empty: bit-equal)."""
+    import torch
+
+    (ta, sa, la), (tb, sb, lb) = a, b
+    out = []
+    if len(ta) != len(tb) or not all(torch.equal(x, y) for x, y in zip(ta, tb)):
+        diff = max(((x - y).abs().max().item() for x, y in zip(ta, tb)), default=float("inf"))
+        out.append(f"state tensors (max |diff| {diff:.3g})")
+    if sa != sb:
+        out.append(f"step {sa} vs {sb}")
+    if la != lb:
+        out.append(f"epoch records {la} vs {lb}")
+    return out
+
+
+def _log_records():
+    with open(os.path.join("logs", "training_log_citys.json")) as f:
+        return json.load(f)
+
+
+def _stopped_after_one_epoch(argv):
+    """``train.main`` of ``argv`` stopped after its first epoch, as a run
+    killed there: its schedule is the whole run's, its last save epoch 1's."""
+    from fastscnn_tpu_torch import train
+
+    trainer = train.Trainer(train.parse_args(argv))
+    trainer.args.epochs = 1
+    trainer.train()
+    return trainer
+
+
+@contextlib.contextmanager
+def _cli_graph(graph):
+    """Inside the block the trainer's and evaluator's CLIs build
+    ``Trainer(args, graph=graph)`` and ``Evaluator(args, graph=graph)``;
+    None leaves them as a user runs them (on the card's graphs)."""
+    import functools
+
+    from fastscnn_tpu_torch import eval as eval_cli
+    from fastscnn_tpu_torch import train
+
+    real = train.Trainer, eval_cli.Evaluator
+    if graph is not None:
+        train.Trainer = functools.partial(real[0], graph=graph)
+        eval_cli.Evaluator = functools.partial(real[1], graph=graph)
+    try:
+        yield
+    finally:
+        train.Trainer, eval_cli.Evaluator = real
+
+
+class _CliRuns:
+    """Phase 6b's runs of ``train.main`` and ``eval.main`` in process, each
+    with its B6 launches counted twice over: the wrappers' (eager steps, and
+    a graph's warm-up and capture passes) and the graphs' replays, which no
+    wrapper sees (:func:`_tally_replays`). ``seen`` gets every eval step's
+    masks (:func:`_recording_eval_steps`)."""
+
+    PARTS = ("dw_conv3x3", "dw_conv3x3_dx", "dw_conv3x3_dw")
+
+    def __init__(self, flags, n_val, seen):
+        self.flags, self.n_val, self.seen = flags, n_val, seen
+        self.total = dict.fromkeys(self.PARTS, 0)
+
+    def counted(self, fn, graphed_steps, want):
+        """``fn()`` with the launches counted: a graphed run's replays must
+        give ``want(result)`` and its wrappers (WARMUP_STEPS + 1) x what each
+        graph captured (``graphed_steps(result)`` lists the run's graphed
+        steps); an eager run's wrappers ``want(result)`` and no replay.
+        Returns (fn's result, the wrappers' counts, the replays')."""
+        import torch
+
+        from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+        from fastscnn_tpu_torch.parallel.train import WARMUP_STEPS
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        tally, stop = _tally_replays()
+        try:
+            result = fn()
+        finally:
+            stop()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        wrappers = {k: counts[k] for k in self.PARTS}
+        replayed = {k: tally.get(k, 0) for k in self.PARTS}
+        steps, want = graphed_steps(result), want(result)
+        if steps:
+            graphs = [g for step in steps for g in step.graphs]
+            captured = {k: (WARMUP_STEPS + 1) * sum(g.launches.get(k, 0) for g in graphs)
+                        for k in self.PARTS}
+            ok = replayed == want and wrappers == captured
+        else:
+            ok = wrappers == want and not any(replayed.values())
+        if not ok:
+            raise AssertionError(f"B6 launches: wrappers {wrappers}, replays {replayed}; "
+                                 f"expected {want} ({'replayed' if steps else 'eager'})")
+        for k in self.PARTS:
+            self.total[k] += wrappers[k] + replayed[k]
+        return result, wrappers, replayed
+
+    def train(self, label, extra, steps, per_step, val_epochs=0, graph=None, main=None):
+        """One ``train.main`` (or ``main``): B6 at ``per_step`` launches a
+        step for each part, and its forward twice more for each validated
+        image (the eval step's stem); finite losses; each epoch's printed
+        val scores equal to the host metric of the masks validation
+        predicted. Returns (trainer, printed text, peak device memory)."""
+        import numpy as np
+        import torch
+
+        from fastscnn_tpu_torch import train
+
+        main = main or train.main
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        del self.seen[:]
+        want = {k: per_step * steps for k in self.PARTS}
+        want["dw_conv3x3"] += 2 * self.n_val * val_epochs
+        with _cli_graph(graph):
+            (trainer, out), wrappers, replayed = self.counted(
+                lambda: _run_cli(main, self.flags + extra),
+                lambda r: [r[0].train_step, r[0].eval_step] if r[0].graph else [],
+                lambda r: want)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in re.findall(r" iter \S+ loss (\S+) lr", out)]
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: losses {losses}, expected {steps} finite")
+        printed = re.findall(r"epoch (\d+): val pixAcc (\S+)% mIoU (\S+)%", out)
+        n_val = self.n_val
+        if len(printed) != val_epochs or len(self.seen) != n_val * val_epochs:
+            raise AssertionError(f"{label}: {len(printed)} validations printed and "
+                                 f"{len(self.seen)} masks predicted, expected {val_epochs} of "
+                                 f"{n_val}")
+        for k, (epoch, acc, miou) in enumerate(printed):
+            host = _host_scores(self.seen[k * n_val:(k + 1) * n_val])
+            if (acc, miou) != host:
+                raise AssertionError(f"{label}: epoch {epoch} val {acc}/{miou} differs from "
+                                     f"the host metric of its masks {host}")
+        vals = ", ".join(f"epoch {e} pixAcc {a}% mIoU {m}%" for e, a, m in printed)
+        graphs = f"; {trainer.graph_report()}" if trainer.graph else " (eager)"
+        _print(f"  {label}: B6 launches {[wrappers[k] for k in self.PARTS]} through the wrappers "
+               f"and {[replayed[k] for k in self.PARTS]} replayed (forward, dX, dW) over {steps} "
+               f"steps{f' and {len(self.seen)} validated images' if self.seen else ''}; peak "
+               f"device memory {peak / 2**30:.2f} GiB{graphs}"
+               + (f"; val ({vals}) equal to the host metric of the val masks" if vals else ""))
+        return trainer, out, peak
+
+    def evaluate(self, label, argv, graph=None):
+        """One ``eval.main`` (its model's stem is the default one: no B6).
+        Returns (evaluator, printed text)."""
+        from fastscnn_tpu_torch import eval as eval_cli
+
+        del self.seen[:]
+        with _cli_graph(graph):
+            (evaluator, out), wrappers, replayed = self.counted(
+                lambda: _run_cli(eval_cli.main, argv),
+                lambda r: [r[0].eval_step] if r[0].graph else [],
+                lambda r: dict.fromkeys(self.PARTS, 0))
+        _print(f"  {label}: {len(self.seen)} eval steps")
+        return evaluator, out
+
+
 def trainer_phase(fixed_step_ms):
     """Phase 6b: the trainer and evaluator CLIs, in process through their
     ``main(argv)``, on a synthetic Cityscapes tree at full size, with PIL
-    blocked. Returns the B6 launch counts of its training runs."""
+    blocked, on their CUDA graphs (and eagerly beside them). Returns the B6
+    launch counts of its runs: the wrappers' and the graphs' replays."""
     import shutil
 
     import numpy as np
     import torch
 
-    from fastscnn_tpu_torch import eval as eval_cli
-    from fastscnn_tpu_torch import parallel, train
-    from fastscnn_tpu_torch.data import decoded_cache, device_aug, image_io, narrow_labels
-    from fastscnn_tpu_torch.data.cityscapes import CitySegmentation
-    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-    from fastscnn_tpu_torch.utils import lr_schedule
+    from fastscnn_tpu_torch import parallel
+    from fastscnn_tpu_torch.data import decoded_cache, image_io
 
     t_phase = time.perf_counter()
     try:
@@ -2088,13 +2369,12 @@ def trainer_phase(fixed_step_ms):
         if not np.array_equal(image_io.read_image(path), arr):
             raise AssertionError(f"{path}: image_io.read_image differs from the array written")
     t_read = time.perf_counter() - t0
-    _print(f"synthetic Cityscapes: {len(files)} PNGs of {HEIGHT}x{WIDTH} (rows filtered "
+    _print(f"synthetic Cityscapes: {len(files)} PNGs ({TREE_SPLITS}; rows filtered "
            f"{PNG_FILTERS} in turn) written in {t_write:.1f} s; each read back without PIL "
            f"equal to the array written ({t_read / len(files) * 1e3:.0f} ms a file)")
     pil_ops_costs(files)
     record_transport_costs()
-    workers = str(min(8, os.cpu_count() or 1))
-    n_train, n_val = TREE_PAIRS["train"], TREE_PAIRS["val"]
+    n_train, n_val = (sum(n for n, _, _ in TREE_SPLITS[s]) for s in ("train", "val"))
     cwd = os.getcwd()
     os.chdir(work)  # the trainer writes logs/ under its working directory
     seen = []
@@ -2104,129 +2384,353 @@ def trainer_phase(fixed_step_ms):
                  "--crop-size", str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH), "--aux",
                  "--loss-type", "ce", "--stem-impl", "pallas", "--save-epoch", "1",
                  "--print-interval", "1"]
-        parts = ("dw_conv3x3", "dw_conv3x3_dx", "dw_conv3x3_dw")
-        total = dict.fromkeys(parts, 0)
-        runs = {}
+        runs = _CliRuns(flags, n_val, seen)
+        graphed_cli_equality(runs, tree, cache, n_train, n_val)
+        graphed_cli_timing(runs, cache, n_train, fixed_step_ms)
+        graphed_eval_phase(runs, tree, cache, work)
+    finally:
+        parallel.make_eval_step = make_eval_step
+        os.chdir(cwd)
+    eval_timing(runs, tree, cache, work)
+    device_aug_chain_costs(tree)
+    # the CLIs' --decoded-cache set this process's cache directory, which goes now
+    decoded_cache.set_cache_dir(None)
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
+    return {TRAINING_NAMES[k]: v for k, v in runs.total.items()}
 
-        def run(label, extra, steps, per_step, val_epochs=0):
-            """One ``train.main``; B6 at ``per_step`` launches a step for each
-            part, and its forward twice more for each validated image (the
-            stem of the eval step); each epoch's printed val scores equal to
-            the host metric of the masks validation predicted."""
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            del seen[:]
-            trainer, out = _run_cli(train.main, flags + extra)
-            torch.cuda.synchronize()
-            counts = launch_counts()
-            losses = [float(v) for v in re.findall(r" loss (\S+) lr", out)]
-            if len(losses) != steps or not all(np.isfinite(losses)):
-                raise AssertionError(f"{label}: losses {losses}, expected {steps} finite")
-            want = {k: per_step * steps for k in parts}
-            want["dw_conv3x3"] += 2 * n_val * val_epochs
-            if any(counts[k] != v for k, v in want.items()):
-                raise AssertionError(f"{label}: B6 launches {counts}, expected {want}")
-            for k in parts:
-                total[k] += counts[k]
-            printed = re.findall(r"epoch (\d+): val pixAcc (\S+)% mIoU (\S+)%", out)
-            if len(printed) != val_epochs or len(seen) != n_val * val_epochs:
-                raise AssertionError(f"{label}: {len(printed)} validations printed and "
-                                     f"{len(seen)} masks predicted, expected {val_epochs} of "
-                                     f"{n_val}")
-            for k, (epoch, acc, miou) in enumerate(printed):
-                host = _host_scores(seen[k * n_val:(k + 1) * n_val])
-                if (acc, miou) != host:
-                    raise AssertionError(f"{label}: epoch {epoch} val {acc}/{miou} differs from "
-                                         f"the host metric of its masks {host}")
-            runs[label] = (trainer, out, torch.cuda.max_memory_allocated())
-            vals = ", ".join(f"epoch {e} pixAcc {a}% mIoU {m}%" for e, a, m in printed)
-            _print(f"  {label}: B6 launches {[counts[k] for k in parts]} (forward, dX, dW) over "
-                   f"{steps} steps{f' and {len(seen)} validated images' if seen else ''}; peak "
-                   f"device memory {runs[label][2] / 2**30:.2f} GiB"
-                   + (f"; val ({vals}) equal to the host metric of the val masks" if vals else ""))
-            return trainer, out
 
-        steps_per_epoch = n_train // TRAIN_BATCH
+def graphed_cli_equality(runs, tree, cache, n_train, n_val):
+    """6b (a) and (b): the recipe through ``train.main`` in f32 under
+    deterministic algorithms, ``--device-aug --decoded-cache``, 2 epochs
+    with validation in ``val`` mode every epoch, once eagerly and once on
+    the graphs: the saved train state (masters, BN statistics, momentum
+    buffers, step), the epochs' losses and the val pixAcc/mIoU bit-equal
+    (the first run fills the decoded cache: every read a miss in epoch 1
+    and a hit in epoch 2). Then a graphed run stopped after its first epoch
+    and resumed with ``--auto-resume`` for the second, against the
+    uninterrupted graphed run, under the same gate; and a ``.pt`` saved by
+    a ``--device cpu`` run (SGD and AdamW) resumed on the card's graphs."""
+    import torch
+
+    from fastscnn_tpu_torch import train
+    from fastscnn_tpu_torch.data import decoded_cache
+
+    steps = n_train // TRAIN_BATCH
+    f32 = ["--no-fp16", "--device-aug", "--decoded-cache", cache, "--epochs", "2"]
+    results = {}
+    _print("(a) the recipe in f32 through train.main, eager and graphed, deterministic "
+           "algorithms, 2 epochs, val every epoch:")
+    with deterministic_algorithms():
         before = decoded_cache.stats()
-        _print("trainer, fused --device-aug, threads, 2 epochs, val mode every epoch:")
-        trainer, out = run("fused", ["--device-aug", "--decoded-cache", cache, "--epochs", "2",
-                                     "--save-folder", "S"], 2 * steps_per_epoch, 2, val_epochs=2)
-        for name in ("fast_scnn_citys.pth", "train_state_citys.pt"):
-            if not os.path.exists(os.path.join("S", name)):
-                raise AssertionError(f"the trainer wrote no S/{name}")
+        trainer, _, _ = runs.train("f32 eager", f32 + ["--save-folder", "FE"], 2 * steps, 2,
+                                   val_epochs=2, graph=False)
         st = _cache_counts(decoded_cache, before)
         reads = 2 * (n_train + n_val)  # images and labels, once an epoch
         if (st["misses"], st["hits"]) != (reads, reads):
             raise AssertionError(f"decoded cache {st}: expected {reads} misses in epoch 1 and "
                                  f"{reads} hits in epoch 2")
-        threads_first, threads_warm = _loader_numbers(out, 2)
-        _print(f"  decoded cache: {st['misses']} misses in epoch 1, {st['hits']} hits in epoch 2; "
-               f"threads (4): epoch 1 data {threads_first:.0f} ms/iter (the PNG decodes), "
-               f"epoch 2 {threads_warm:.1f} ms/step against phase 6's fixed-batch step "
-               f"{fixed_step_ms:.2f} ms")
+        for name in ("fast_scnn_citys.pth", "train_state_citys.pt"):
+            if not os.path.exists(os.path.join("FE", name)):
+                raise AssertionError(f"the trainer wrote no FE/{name}")
+        results["eager"] = _saved_run("FE", _log_records())
+        trainer, _, _ = runs.train("f32 graphed", f32 + ["--save-folder", "FG"], 2 * steps, 2,
+                                   val_epochs=2)
+        results["graphed"] = _saved_run("FG", _log_records())
+        _print("(b) resume, graphed: stopped after epoch 1, then --auto-resume:")
+        runs.train("f32 graphed, stopped after epoch 1", f32 + ["--save-folder", "FR"], steps, 2,
+                   val_epochs=1, main=_stopped_after_one_epoch)
+        trainer, out, _ = runs.train("f32 graphed, --auto-resume",
+                                     f32 + ["--save-folder", "FR", "--auto-resume"], steps, 2,
+                                     val_epochs=1)
+        if f"(step {steps})" not in out or trainer.state.step != 2 * steps:
+            raise AssertionError("the resumed run did not go on from epoch 1's step")
+        results["resumed"] = _saved_run("FR", _log_records())
+    for label, ref, other in (("(a) graphed vs eager", "eager", "graphed"),
+                              ("(b) resumed vs uninterrupted", "graphed", "resumed")):
+        diff = _run_differences(results[ref], results[other])
+        _print(f"{label}: the saved train state ({len(results[ref][0])} tensors, step "
+               f"{results[ref][1]}), the epochs' losses and val scores "
+               + ("bit-equal" if not diff else f"differ: {diff}")
+               + f"; epoch records {results[other][2]}")
+        if diff:
+            raise AssertionError(f"{label}: {diff}")
 
-        _print("trainer, --epochs 3 --auto-resume:")
-        trainer, out = run("resume", ["--device-aug", "--decoded-cache", cache, "--no-val",
-                                      "--epochs", "3", "--auto-resume", "--save-folder", "S"],
-                           steps_per_epoch, 2)
-        if "(step 4)" not in out or set(re.findall(r"epoch (\d+) iter", out)) != {"2"}:
-            raise AssertionError("the resumed run did not start at step 4, epoch 2")
-        if trainer.state.step != 6:
-            raise AssertionError(f"the resumed run ended at step {trainer.state.step}, not 6")
-        sched = lr_schedule("poly", base_lr=1e-2, nepochs=3, iters_per_epoch=steps_per_epoch,
-                            power=0.9)
-        lrs = [float(v) for v in re.findall(r" lr (\S+) ", out)]
-        # a run that restarted its schedule would print sched(1), sched(2)
-        if lrs != [round(sched(s), 5) for s in (5, 6)]:
-            raise AssertionError(f"resumed learning rates {lrs} are not the poly schedule's")
-        _print(f"  resumed at step 4, epoch 2; ended at step 6; lr after steps 5 and 6 {lrs}, "
-               f"the 3-epoch poly schedule's (its rate at step 4: {sched(4):.5f})")
+    _print("(b) a .pt saved by a --device cpu run, resumed on the card's graphs:")
+    for opt in ("sgd", "adamw"):
+        folder = f"CPU_{opt}"
+        t0 = time.perf_counter()
+        _run_cli(train.main, ["--device", "cpu", "--dataset", "citys", "--data-root", tree,
+                              "--base-size", "64", "--crop-size", "64", "--batch-size",
+                              str(TRAIN_BATCH), "--aux", "--loss-type", "ce", "--stem-impl",
+                              "pallas", "--epochs", "1", "--no-val", "--optimizer", opt,
+                              "--decoded-cache", cache, "--save-folder", folder])
+        cpu_s = time.perf_counter() - t0
+        trainer, out, _ = runs.train(
+            f"{opt}: the CPU run's .pt resumed graphed",
+            ["--device-aug", "--decoded-cache", cache, "--no-val", "--epochs", "2",
+             "--optimizer", opt, "--auto-resume", "--save-folder", folder], steps, 2)
+        groups = trainer.state.opt_state.param_groups
+        key = "fused" if opt == "sgd" else "capturable"
+        slots = [v for s in trainer.state.opt_state.state.values() for v in s.values()]
+        if (f"(step {steps})" not in out or trainer.state.step != 2 * steps
+                or not all(g[key] and g["lr"].is_cuda for g in groups)
+                or not all(v.is_cuda for v in slots)):
+            raise AssertionError(f"{opt}: the CPU run's .pt did not resume on the card's graphs")
+        _print(f"    the CPU run ({cpu_s:.1f} s, 64x64 crops, host augmentation) saved step "
+               f"{steps}; resumed at it on the card: {key} groups, the rate a device tensor, "
+               f"{len(slots)} optimizer slots on the card, ended at step {trainer.state.step}")
+    torch.cuda.empty_cache()
 
-        _print("trainer, --device-aug-split --grad-accum 2, 1 epoch:")
-        run("split", ["--device-aug", "--decoded-cache", cache, "--no-val", "--epochs", "1",
-                      "--device-aug-split", "--grad-accum", "2", "--save-folder", "S2"],
-            steps_per_epoch, 4)
-        _print(f"  peak device memory: fused {runs['fused'][2] / 2**30:.2f} GiB, split "
-               f"{runs['split'][2] / 2**30:.2f} GiB")
 
-        _print(f"trainer, fused --device-aug, --loader grain ({workers} worker processes), "
-               f"a cold decoded cache, 2 epochs:")
-        before = decoded_cache.stats()
-        trainer, out = run("grain", ["--device-aug", "--loader", "grain", "--num-workers", workers,
-                                     "--decoded-cache", os.path.join(work, "cache_grain"),
-                                     "--no-val", "--epochs", "2", "--save-folder", "S3"],
-                           2 * steps_per_epoch, 2)
-        st = _cache_counts(decoded_cache, before)
-        reads = 2 * n_train
-        # records of epoch 2 go out while epoch 1's last are in flight, so a
-        # file may be decoded twice: every read is a hit or a miss, each
-        # file missed at least once
-        if st["misses"] + st["hits"] != 2 * reads or st["misses"] < reads:
-            raise AssertionError(f"grain decoded cache {st}: expected {2 * reads} reads, at "
-                                 f"least {reads} of them misses")
-        grain_first, grain_warm = _loader_numbers(out, 2)
-        _print(f"  workers' start to their first record "
-               f"{trainer.train_loader._loader.first_record_s:.2f} s (in epoch 1's data time)")
-        _print(f"  decoded cache: {st['misses']} misses, {st['hits']} hits; epoch 1 data "
-               f"{grain_first:.0f} ms/iter with grain vs {threads_first:.0f} with threads; epoch 2 "
-               f"{grain_warm:.1f} ms/step with grain vs {threads_warm:.1f} with threads (fixed "
-               f"batch {fixed_step_ms:.2f} ms)")
+# 6b (d): each timed trainer leg runs CLI_EPOCHS epochs of 3 steps: epoch 1
+# holds the capture (and a cold cache's decodes), epochs 2 to CLI_EPOCHS - 1
+# are timed (each step's host interval from its call to the next call in
+# its epoch: the loader's wait, the batch's copy and the step, synchronised
+# by the loss the trainer prints), the last epoch's steps are profiled
+CLI_EPOCHS = 12
+CLI_PROFILE = (3 * CLI_EPOCHS - 2, 3 * CLI_EPOCHS)
+EVAL_TIMED_IMAGES, EVAL_TIMED_PASSES = 8, 3  # eval.main timing: the 1024x2048 val images
 
-        _print(f"trainer, host augmentation (no --device-aug), --loader grain ({workers} worker "
-               f"processes), warm cache, 1 epoch, val mode:")
-        trainer, out = run("host-aug", ["--loader", "grain", "--num-workers", workers,
-                                        "--decoded-cache", cache, "--epochs", "1",
-                                        "--save-folder", "S4"], steps_per_epoch, 2, val_epochs=1)
-        host_first, host_step = _loader_numbers(out, 1)
-        _print(f"  the PSP chain on the host in the workers: data {host_first:.0f} ms/iter, "
-               f"{host_step:.1f} ms/step (the workers' start to their first record "
-               f"{trainer.train_loader._loader.first_record_s:.2f} s)")
-    finally:
-        parallel.make_eval_step = make_eval_step
-        os.chdir(cwd)
 
-    # the PSP chain on the card against the CPU, one native batch, the same draws
+def _step_intervals(t_calls, steps, epochs):
+    """The host ms from each call to the next within its epoch, over the
+    0-based ``epochs`` (``steps`` calls an epoch)."""
+    return [(t_calls[c + 1] - t_calls[c]) * 1e3
+            for e in epochs for c in range(e * steps, (e + 1) * steps - 1)]
+
+
+def graphed_cli_timing(runs, cache, n_train, fixed_step_ms):
+    """6b (d), bf16: the recipe through ``train.main`` with ``--device-aug
+    --decoded-cache``, threads and ``--loader grain`` (one worker process a
+    core up to 8; its own cold cache), each graphed and eager,
+    CLI_EPOCHS epochs without validation: the timed epochs' steps (median
+    and quartiles of their host intervals; the ratio of the medians, with
+    the range the quartiles allow), their samples/s and data ms/iter as the
+    trainer prints them, and ``torch.profiler`` over the last epoch's steps
+    inside the CLI (the device's busy and idle share of the window, the
+    loader's waits included); the decoded cache's reads (a cold cache: each
+    file missed at least once; a warm one: every read a hit); the graph
+    pools' bytes and peak memory; then ``--device-aug-split --grad-accum
+    2`` (graphed, 1 epoch) and one host-augmented epoch through grain with
+    ``val`` (graphed)."""
+    import gc
+
+    import torch
+
+    from fastscnn_tpu_torch.data import decoded_cache
+
+    steps = n_train // TRAIN_BATCH
+    timed = range(1, CLI_EPOCHS - 1)
+    workers = str(min(8, os.cpu_count() or 1))
+    grain_cache = os.path.join(os.path.dirname(cache), "cache_grain")
+    legs = (("threads", ["--decoded-cache", cache]),
+            (f"grain ({workers} worker processes)",
+             ["--loader", "grain", "--num-workers", workers, "--decoded-cache", grain_cache]))
+    reads = 2 * n_train  # images and labels, once an epoch
+    _print(f"(d) the recipe in bf16 through train.main, {CLI_EPOCHS} epochs of {steps} steps, "
+           f"graphed and eager (epochs 2-{CLI_EPOCHS - 1} timed: {len(timed) * (steps - 1)} step "
+           f"intervals; steps {CLI_PROFILE[0]}-{CLI_PROFILE[1]} profiled):")
+    table = {}
+    for loader, extra in legs:
+        cold = not os.path.isdir(extra[-1])
+        for graph in (None, False):
+            label = f"{loader}, {'graphed' if graph is None else 'eager'}"
+            before = decoded_cache.stats()
+            records = []
+            with _watched_train_steps(records, profile=CLI_PROFILE):
+                trainer, out, peak = runs.train(
+                    label, ["--device-aug", "--no-val", "--epochs", str(CLI_EPOCHS),
+                            "--save-folder", "T", *extra], CLI_EPOCHS * steps, 2, graph=graph)
+            st = _cache_counts(decoded_cache, before)
+            # a grain run sends epoch 2's records while epoch 1's last are in
+            # flight, so on a cold cache a file may be decoded twice
+            if (st["hits"] + st["misses"] != CLI_EPOCHS * reads
+                    or (st["misses"] < reads if cold else st["misses"] != 0)):
+                raise AssertionError(f"{label}: decoded cache {st}: expected "
+                                     f"{CLI_EPOCHS * reads} reads, "
+                                     + (f"at least {reads} of them misses" if cold
+                                        else "all hits"))
+            cold = False
+            rec = records[0]
+            ms = sorted(_step_intervals(rec["t_calls"], steps, timed))
+            q1, med, q3 = statistics.quantiles(ms, n=4)
+            per_epoch = [_epoch_numbers(out, e) for e in timed]
+            sps = statistics.mean(v for v, _ in per_epoch)
+            data = statistics.mean(d for _, d in per_epoch)
+            first_sps, first_data = _epoch_numbers(out, 0)
+            busy = rec["busy_ms"] / rec["window_ms"]
+            table[label] = (med, q1, q3, busy, peak)
+            pools = (f"train pool {trainer.train_step.pool_bytes / 2**30:.2f} GiB"
+                     if trainer.graph else "no graph")
+            _print(f"    epoch 1 {first_sps:.1f} samples/s (data {first_data:.0f} ms/iter); "
+                   f"{len(ms)} timed steps: median {med:.1f} ms ({1e3 * TRAIN_BATCH / med:.1f} "
+                   f"samples/s), quartiles {q1:.1f}-{q3:.1f}, range {ms[0]:.1f}-{ms[-1]:.1f}; "
+                   f"the timed epochs as printed {sps:.1f} samples/s, data {data:.0f} ms/iter; "
+                   f"steps {CLI_PROFILE[0]}-{CLI_PROFILE[1]} profiled: {rec['window_ms']:.1f} ms "
+                   f"wall, device busy {rec['busy_ms']:.1f} ms ({busy:.3f}; idle {1 - busy:.3f}), "
+                   f"{rec['device_ops']:.0f} device ops; {pools}; decoded cache {st['misses']} "
+                   f"misses, {st['hits']} hits")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    for loader, _ in legs:
+        g, e = table[f"{loader}, graphed"], table[f"{loader}, eager"]
+        _print(f"  {loader}: graphed median {g[0]:.1f} ms/step (idle {1 - g[3]:.3f}) vs eager "
+               f"{e[0]:.1f} (idle {1 - e[3]:.3f}): {e[0] / g[0]:.3f}x the eager rate "
+               f"({e[1] / g[2]:.3f}-{e[2] / g[1]:.3f}x from the quartiles); phase 6's "
+               f"fixed-batch eager step {fixed_step_ms:.2f} ms")
+
+    _print("trainer, --device-aug-split --grad-accum 2, 1 epoch, graphed:")
+    _, _, split_peak = runs.train("split", ["--device-aug", "--decoded-cache", cache, "--no-val",
+                                            "--epochs", "1", "--device-aug-split",
+                                            "--grad-accum", "2", "--save-folder", "S2"],
+                                  steps, 4)
+    _print(f"  peak device memory: fused {table['threads, graphed'][4] / 2**30:.2f} GiB, split "
+           f"{split_peak / 2**30:.2f} GiB")
+    _print(f"trainer, host augmentation (no --device-aug), --loader grain ({workers} worker "
+           f"processes), warm cache, 1 epoch, val mode, graphed:")
+    trainer, out, _ = runs.train("host-aug", ["--loader", "grain", "--num-workers", workers,
+                                              "--decoded-cache", cache, "--epochs", "1",
+                                              "--save-folder", "S4"], steps, 2, val_epochs=1)
+    sps, data = _epoch_numbers(out, 0)
+    _print(f"  the PSP chain on the host in the workers: data {data:.0f} ms/iter, "
+           f"{1e3 * TRAIN_BATCH / sps:.1f} ms/step (the workers' start to their first record "
+           f"{trainer.train_loader._loader.first_record_s:.2f} s)")
+
+
+def graphed_eval_phase(runs, tree, cache, work):
+    """6b (c): ``eval.main`` in testval at f32 graphed against eager,
+    at batch 1 and at batch 4 (the 512x1024 bucket's 2 images a partial
+    batch): the per-sample lines and FINAL equal, the colour dumps equal
+    byte for byte, one capture a bucket, and FINAL equal to the host metric
+    of the predicted masks; then ``val`` mode with its dumps read back
+    without PIL, FINAL equal to their host metric."""
+    from fastscnn_tpu_torch.data import image_io
+    from fastscnn_tpu_torch.data.cityscapes import CitySegmentation
+
+    weights = os.path.join("FG", "fast_scnn_citys.pth")
+    base = ["--dataset", "citys", "--data-root", tree, "--weights", weights, "--aux",
+            "--decoded-cache", cache]
+    n_val = runs.n_val
+    buckets = len(TREE_SPLITS["val"])
+    line = re.compile(r"^(?:sample \d+:|FINAL) pixAcc \S+ mIoU \S+$", re.M)
+    _print("(c) eval.main, testval, f32, graphed against eager:")
+    for bs in (1, 4):
+        got = {}
+        for graph in (False, None):
+            dumps = os.path.join(work, f"dumps_bs{bs}_{'eager' if graph is False else 'graphed'}")
+            evaluator, out = runs.evaluate(
+                f"batch {bs}, {'eager' if graph is False else 'graphed'}",
+                base + ["--mode", "testval", "--batch-size", str(bs), "--dtype", "float32",
+                        "--outdir", dumps], graph=graph)
+            blobs = []
+            for i in range(n_val):
+                with open(os.path.join(dumps, f"seg_{i}.png"), "rb") as f:
+                    blobs.append(f.read())
+            got[graph] = (line.findall(out), blobs, _host_scores(runs.seen), evaluator)
+        (lines_e, blobs_e, _, _), (lines_g, blobs_g, host, ev) = got[False], got[None]
+        final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", "\n".join(lines_g)).groups()
+        captures = len(ev.eval_step.graphs)
+        if (lines_e != lines_g or len(lines_g) != n_val + 1 or blobs_e != blobs_g
+                or captures != buckets or final != host):
+            raise AssertionError(f"eval.main batch {bs}: graphed vs eager lines equal "
+                                 f"{lines_e == lines_g}, dumps equal {blobs_e == blobs_g}, "
+                                 f"{captures} captures for {buckets} buckets, FINAL {final} vs "
+                                 f"the host metric {host}")
+        _print(f"  batch {bs}: {n_val} per-sample lines and FINAL pixAcc {final[0]}% mIoU "
+               f"{final[1]}% equal, graphed and eager (FINAL equal to the host metric of the "
+               f"masks); the {n_val} dumps equal byte for byte; {captures} captures for "
+               f"{buckets} buckets, {ev.eval_step.replays} replays, pool "
+               f"{ev.eval_step.pool_bytes} bytes")
+
+    # val mode (resize and centre crop on the host), colour dumps read back
+    # without PIL, FINAL against the host metric of the dumps
+    dumps = os.path.join(work, "dumps_val")
+    evaluator, out = runs.evaluate("val mode, bf16, batch 2, graphed", base + [
+        "--mode", "val", "--base-size", str(TREE_BASE), "--crop-size", str(TRAIN_SIZE),
+        "--batch-size", "2", "--dtype", "bfloat16", "--outdir", dumps])
+    final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", out).groups()
+    val = CitySegmentation(root=tree, split="val", mode="val", base_size=TREE_BASE,
+                           crop_size=TRAIN_SIZE)
+    pairs = []
+    for i in range(len(val)):
+        mask, mode = image_io.decode(os.path.join(dumps, f"seg_{i}.png"))
+        if mode != "P" or mask.shape != (TRAIN_SIZE, TRAIN_SIZE):
+            raise AssertionError(f"dump {i}: a {mode} PNG of {mask.shape}")
+        pairs.append((mask, val[i][1]))
+    host = _host_scores(pairs)
+    if final != host or len(evaluator.eval_step.graphs) != 1:
+        raise AssertionError(f"eval val FINAL {final} differs from the host metric of its "
+                             f"dumps {host}, or {len(evaluator.eval_step.graphs)} captures")
+    _print(f"eval.main, val ({TRAIN_SIZE}x{TRAIN_SIZE} centre crops), {n_val} images, bf16, with "
+           f"colour dumps: FINAL pixAcc {final[0]}% mIoU {final[1]}%, equal to the host metric "
+           f"of the {len(pairs)} dumps read back without PIL; one capture")
+
+
+def eval_timing(runs, tree, cache, work):
+    """6b (d): images/s of ``eval.main``'s loop (``Evaluator.eval``) in
+    testval, bf16, no dumps, over the tree's 8 1024x2048 val images at
+    batch 1 and 8, graphed and eager: one Evaluator's passes after its
+    first (which holds the captures and cuDNN's plans) timed on the host
+    clock, the median of 3; no eval step recorded."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fastscnn_tpu_torch import eval as eval_cli
+
+    base = ["--dataset", "citys", "--data-root", tree, "--aux", "--decoded-cache", cache,
+            "--weights", os.path.join(work, "FG", "fast_scnn_citys.pth"), "--mode", "testval",
+            "--dtype", "bfloat16", "--no-dump", "--outdir", os.path.join(work, "timed"),
+            "--max-images", str(EVAL_TIMED_IMAGES)]
+    _print(f"(d) eval.main's loop, testval, bf16, {EVAL_TIMED_IMAGES} images of {HEIGHT}x{WIDTH}, "
+           f"no dumps, the median of {EVAL_TIMED_PASSES} passes after the first (which holds "
+           "the captures):")
+    for bs in (1, 8):
+        rates = {}
+        for graph in (None, False):
+            args = eval_cli.parse_args(base + ["--batch-size", str(bs)])
+
+            def passes():
+                times = []
+                with contextlib.redirect_stdout(io.StringIO()):
+                    ev = eval_cli.Evaluator(args, graph=graph)
+                    ev.eval()
+                    for _ in range(EVAL_TIMED_PASSES):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        ev.eval()
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                return ev, statistics.median(times)
+
+            torch.cuda.reset_peak_memory_stats()
+            (ev, dt), _, _ = runs.counted(
+                passes, lambda r: [r[0].eval_step] if r[0].graph else [],
+                lambda r: dict.fromkeys(runs.PARTS, 0))
+            rates[graph] = EVAL_TIMED_IMAGES / dt
+            pool = (f", {len(ev.eval_step.graphs)} capture, pool "
+                    f"{ev.eval_step.pool_bytes / 2**30:.2f} GiB" if ev.graph else "")
+            _print(f"  batch {bs}, {'graphed' if ev.graph else 'eager'}: {rates[graph]:.2f} "
+                   f"images/s ({dt * 1e3 / EVAL_TIMED_IMAGES:.1f} ms an image){pool}, peak "
+                   f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        _print(f"  batch {bs}: graphed {rates[None] / rates[False]:.3f}x the eager loop's rate")
+
+
+def device_aug_chain_costs(tree):
+    """The PSP chain on the card against the CPU on one native batch with
+    the same draws (masks equal, f32 images within AUG_F32_BOUND), its
+    time; the int8 label narrowing's host cost; and the host-to-device copy
+    of the batch a graphed step copies into its input buffers, from
+    pageable memory (the loader's) and from pinned memory."""
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch.data import device_aug, narrow_labels
+    from fastscnn_tpu_torch.data.cityscapes import CitySegmentation
+
     dev = torch.device("cuda")
     native = CitySegmentation(root=tree, split="train", mode="device-aug")  # cache hits
     batch = [native[i] for i in range(TRAIN_BATCH)]
@@ -2241,10 +2745,23 @@ def trainer_phase(fixed_step_ms):
         raise AssertionError(f"Cityscapes labels did not narrow to int8 ({labels.dtype})")
     _print(f"int8 label narrowing on the host: {narrow_batch_ms:.1f} ms for the {TRAIN_BATCH}-frame "
            f"batch on one thread, {narrow_sample_ms:.2f} ms a frame in a loader worker")
+    gi, gl = torch.empty_like(images, device=dev), torch.empty_like(labels, device=dev)
+
+    def copy_in(src_images, src_labels):
+        gi.copy_(src_images, non_blocking=True)
+        gl.copy_(src_labels, non_blocking=True)
+        torch.cuda.synchronize()
+
+    pinned = images.pin_memory(), labels.pin_memory()
+    copy_ms = {how: sorted(_host_ms(lambda: copy_in(*src)) for _ in range(5))[2]
+               for how, src in (("pageable", (images, labels)), ("pinned", pinned))}
+    mb = (images.numel() + labels.numel()) / 1e6
+    _print(f"host-to-device copy of a device-aug batch ({mb:.0f} MB, as a graphed step copies "
+           f"it into its inputs), median of 5 on the host clock: pageable "
+           f"{copy_ms['pageable']:.1f} ms, pinned {copy_ms['pinned']:.1f} ms")
     params = device_aug.draw_params(torch.Generator(device=dev).manual_seed(SEED + 6),
                                     TRAIN_BATCH, HEIGHT, WIDTH, TREE_BASE, TRAIN_SIZE)
     kw = dict(crop_size=TRAIN_SIZE, base_size=TREE_BASE, pad_label=-1)
-    gi, gl = images.to(dev), labels.to(dev)
     card = {dt: device_aug.apply_params(gi, gl, params, compute_dtype=dt, **kw)
             for dt in (torch.float32, torch.bfloat16)}
     cpu = device_aug.apply_params(images, labels, device_aug.AugParams(
@@ -2265,60 +2782,8 @@ def trainer_phase(fixed_step_ms):
            f"the card and the CPU (f32 and bf16); images card vs CPU f32 max |diff| {f32_err:.3g} "
            f"(bound {AUG_F32_BOUND}), bf16 on the card vs f32 on the CPU {bf16_err:.3g}; the "
            f"bf16 chain {aug_ms:.3f} ms, its draws {draw_ms:.3f} ms (CUDA events)")
-    del card, gi, gl
+    del card, gi, gl, pinned
     torch.cuda.empty_cache()
-
-    # evaluation: testval, batch 2, no dump, bf16, FINAL against the host metric
-    seen = []
-    make_eval_step = _recording_eval_steps(parallel, seen)
-    try:
-        evaluator, out = _run_cli(eval_cli.main, [
-            "--dataset", "citys", "--data-root", tree, "--mode", "testval",
-            "--weights", os.path.join(work, "S", "fast_scnn_citys.pth"), "--aux",
-            "--batch-size", "2", "--no-dump", "--dtype", "bfloat16", "--decoded-cache", cache])
-    finally:
-        parallel.make_eval_step = make_eval_step
-    final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", out).groups()
-    host = _host_scores(seen)
-    got = tuple(f"{v * 100:.3f}" for v in evaluator.metric.get())
-    if got != host or final != host:
-        raise AssertionError(f"eval FINAL {final} / {got} differs from the host metric of its "
-                             f"predictions {host}")
-    _print(f"eval.main, testval, {n_val} images in batches of 2, bf16: FINAL pixAcc "
-           f"{final[0]}% mIoU {final[1]}%, equal to the host SegmentationMetric of its "
-           f"{sum(len(p) for p, _ in seen)} predicted masks")
-
-    # evaluation: val mode (resize and centre crop on the host), colour dumps
-    # read back without PIL, FINAL against the host metric of the dumps
-    dumps = os.path.join(work, "dumps")
-    evaluator, out = _run_cli(eval_cli.main, [
-        "--dataset", "citys", "--data-root", tree, "--mode", "val", "--base-size",
-        str(TREE_BASE), "--crop-size", str(TRAIN_SIZE), "--weights",
-        os.path.join(work, "S", "fast_scnn_citys.pth"), "--aux", "--batch-size", "2",
-        "--dtype", "bfloat16", "--decoded-cache", cache, "--outdir", dumps])
-    final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", out).groups()
-    val = CitySegmentation(root=tree, split="val", mode="val", base_size=TREE_BASE,
-                           crop_size=TRAIN_SIZE)
-    pairs = []
-    for i in range(len(val)):
-        mask, mode = image_io.decode(os.path.join(dumps, f"seg_{i}.png"))
-        if mode != "P" or mask.shape != (TRAIN_SIZE, TRAIN_SIZE):
-            raise AssertionError(f"dump {i}: a {mode} PNG of {mask.shape}")
-        pairs.append((mask, val[i][1]))
-    host = _host_scores(pairs)
-    if final != host:
-        raise AssertionError(f"eval val FINAL {final} differs from the host metric of its "
-                             f"dumps {host}")
-    _print(f"eval.main, val ({TRAIN_SIZE}x{TRAIN_SIZE} centre crops), {n_val} images, bf16, with "
-           f"colour dumps: FINAL pixAcc {final[0]}% mIoU {final[1]}%, equal to the host metric "
-           f"of the {len(pairs)} dumps read back without PIL")
-    # the CLIs' --decoded-cache set this process's cache directory, which goes now
-    decoded_cache.set_cache_dir(None)
-    shutil.rmtree(work, ignore_errors=True)
-    _print(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
-    return {"dw_conv3x3_vjp:forward": total["dw_conv3x3"],
-            "dw_conv3x3_vjp:dx": total["dw_conv3x3_dx"],
-            "dw_conv3x3_vjp:dw": total["dw_conv3x3_dw"]}
 
 
 # phase 7: trained weights. 7a trains the committed mini-lane fixture with
@@ -2409,19 +2874,83 @@ def convergence_phase(root):
             "dw_conv3x3_vjp:dw": train["dw_conv3x3_dw"]}
 
 
+STUDY_CHECK_STEPS = 3  # 7b's train_model graphed against eager, from one init
+STUDY_EAGER_STEPS = 40  # eager steps timed beside 7b's graphed run
+
+
+def _warm_ms_per_step(record):
+    """Host ms a step after the first (the capture) of a :class:`_WatchedStep`
+    whose ``t_end`` was stamped after a synchronise."""
+    return (record["t_end"] - record["t_first"]) * 1e3 / (record["calls"] - 1)
+
+
+def study_graph_check():
+    """7b's ``train_model`` at the citys19 leg's settings (8 crops of 768²
+    from 1024x2048 scenes, bf16, a dropout generator reseeded ``1000 + it``
+    before step ``it``) for 3 steps from one init, eager twice and graphed
+    once, under deterministic algorithms: the graphed weights, BN statistics
+    and momentum buffers bit-equal to eager's where the two eager runs are
+    (so a generator registered with the graph and reseeded between replays
+    draws what the eager step draws), else within twice their distance.
+    Then 40 eager steps on the host clock. Returns their warm ms/step."""
+    import gc
+
+    import torch
+
+    from fastscnn_tpu_torch.tools import argmax_first_study as study
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    images, labels = study.gen_citys19_scenes(8, HEIGHT, WIDTH, seed=0)
+    kw = dict(batch=8, crop=TRAIN_SIZE, loss_type="ce", lr=0.05)
+    runs = {}
+    with deterministic_algorithms():
+        for label, graph in (("eager", False), ("eager again", False), ("graphed", True)):
+            _, state, _ = study.train_model(NUM_CLASSES, images, labels, steps=STUDY_CHECK_STEPS,
+                                            graph=graph, **kw)
+            params = tree_leaves(state.params)
+            slots = [state.opt_state.state[p]["momentum_buffer"] for p in params]
+            runs[label] = torch.cat([t.detach().flatten()
+                                     for t in params + tree_leaves(state.model_state) + slots])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    eager_equal = torch.equal(runs["eager"], runs["eager again"])
+    graph_equal = torch.equal(runs["graphed"], runs["eager"])
+    d_eager, d_graph = (_rel_l2(runs[k], runs["eager"]) for k in ("eager again", "graphed"))
+    _print(f"7b. train_model, {STUDY_CHECK_STEPS} bf16 steps from one init, deterministic "
+           f"algorithms: eager runs {'bit-equal' if eager_equal else f'{d_eager:.3g} apart'}; "
+           f"graphed vs eager {'bit-equal' if graph_equal else f'{d_graph:.3g}'} (weights, BN "
+           "statistics, momentum buffers; the dropout generator reseeded between replays)")
+    if (eager_equal and not graph_equal) or d_graph > EAGER_DISTANCE_FACTOR * d_eager:
+        raise AssertionError(f"the study's graphed step differs from its eager step: {d_graph} "
+                             f"(eager vs eager {d_eager})")
+    records = []
+    with _watched_train_steps(records):
+        study.train_model(NUM_CLASSES, images, labels, steps=STUDY_EAGER_STEPS, graph=False, **kw)
+        torch.cuda.synchronize()
+        records[0]["t_end"] = time.perf_counter()
+    return _warm_ms_per_step(records[0])
+
+
 def study_phase(work):
     """7b: ``argmax_first_study.main`` at its full settings, under
-    :func:`deterministic_algorithms`. Returns the report and the citys19
-    leg's (model, train state, normalisation)."""
+    :func:`deterministic_algorithms`, after :func:`study_graph_check`.
+    Returns the report and the citys19 leg's (model, train state,
+    normalisation)."""
+    import torch
+
     from fastscnn_tpu_torch.tools import argmax_first_study as study
 
-    trained, seconds = {}, {}
+    eager_ms = study_graph_check()
+    trained, seconds, records = {}, {}, []
     real = study.train_model
 
     def recording(num_classes, *args, **kwargs):
         t0 = time.perf_counter()
         trained[num_classes] = real(num_classes, *args, **kwargs)
-        seconds[num_classes] = (time.perf_counter() - t0, kwargs["steps"])
+        torch.cuda.synchronize()
+        records[-1]["t_end"] = time.perf_counter()
+        seconds[num_classes] = (time.perf_counter() - t0, kwargs["steps"], records[-1])
         return trained[num_classes]
 
     t0 = time.perf_counter()
@@ -2430,13 +2959,17 @@ def study_phase(work):
         # the same training run each time: with the backward's atomics the
         # trained model, and so the tail of its argmax-first disagreements
         # that the gate below reads, differs from run to run
-        with deterministic_algorithms():
+        with deterministic_algorithms(), _watched_train_steps(records):
             report = study.main(["--out", os.path.join(work, "argmax_first_study.json")])
     finally:
         study.train_model = real
     _print(f"7b. argmax_first_study.main: {time.perf_counter() - t0:.1f} s, of it training "
            + ", ".join(f"{c} classes {t:.1f} s ({t * 1e3 / n:.1f} ms/step on the host clock, "
-                       "batch slicing included)" for c, (t, n) in seconds.items()))
+                       f"batch slicing and the capture included; "
+                       f"{_warm_ms_per_step(rec):.1f} ms/step after the first)"
+                       for c, (t, n, rec) in seconds.items())
+           + f"; the citys19 settings' eager step {eager_ms:.1f} ms/step after the first "
+           f"({STUDY_EAGER_STEPS} steps)")
     failures = []
     for leg, rows in report.items():
         hist = rows["argmax-first"]["boundary_hist_vs_exact"]
@@ -2947,6 +3480,8 @@ def bench_modules_phase(root):
     keys = ("threads_sps", "threads_cache_fill_sps", "threads_cached_sps", "grain_sps",
             "threads_device_aug_sps", "threads_device_aug_cached_sps", "e2e_train_sps",
             "e2e_train_cached_sps", "e2e_train_device_aug_cached_sps")
+    if line["graphed"] is not True:
+        raise AssertionError(f"bench_input: the trainer legs ran graphed {line['graphed']}")
     for name, row in line["recipes"].items():
         _check_line(row, keys, f"bench_input {name}")
         if not all(row[k] > 0 for k in keys):

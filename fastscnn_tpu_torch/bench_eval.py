@@ -11,7 +11,9 @@ synthetic Cityscapes-format val set at the real resolutions:
 1. **Protocol wall-clock**: ``Evaluator.eval()`` end to end in two
    configurations, the reference-faithful one (batch 1, float32, PNG dumps)
    and the native one (batch 8, bfloat16, ``--no-dump``), each run cold
-   (the first pass: cuDNN plans, device tables, allocator growth) and warm.
+   (the first pass: cuDNN plans, device tables, allocator growth and, on
+   the card, the CUDA graph captures, one a padded shape) and warm (the
+   same Evaluator's second pass, which replays the graphs it captured).
 2. **Host metric-update cost**: ``SegmentationMetric.update`` per image.
 3. **Device loop**: ``make_eval_step`` run ``iters`` times back to back,
    each input perturbed by the previous mask (root ``bench_eval.py:122-126``),
@@ -70,7 +72,9 @@ def _gen_val_tree(root: str, sizes_counts, seed=0):
 
 
 def _run_protocol(root, outdir, batch_size, dtype, no_dump, device, extra_argv=()):
-    """One full ``Evaluator.eval()`` pass; returns (seconds, images)."""
+    """Two ``Evaluator.eval()`` passes of one Evaluator, its metric reset
+    between them: the first holds the captures, the second replays them.
+    Returns (first pass's seconds, second's, images)."""
     from fastscnn_tpu_torch.eval import Evaluator, parse_args
 
     argv = ["--dataset", "citys", "--data-root", root, "--mode", "testval",
@@ -81,14 +85,17 @@ def _run_protocol(root, outdir, batch_size, dtype, no_dump, device, extra_argv=(
         argv.append("--no-dump")
     if device is not None:
         argv += ["--device", str(device)]
+    times = []
     with contextlib.redirect_stdout(io.StringIO()):
         ev = Evaluator(parse_args(argv))
-        t0 = time.perf_counter()
-        ev.eval()
-        if ev.device.type == "cuda":
-            torch.cuda.synchronize(ev.device)
-        dt = time.perf_counter() - t0
-    return dt, len(ev.dataset)
+        for _ in range(2):
+            ev.metric.reset()
+            t0 = time.perf_counter()
+            ev.eval()
+            if ev.device.type == "cuda":
+                torch.cuda.synchronize(ev.device)
+            times.append(time.perf_counter() - t0)
+    return times[0], times[1], len(ev.dataset)
 
 
 def device_loop(step, params, model_state, x, t, iters):
@@ -171,8 +178,7 @@ def main(argv=None):
             ("tpu_native_bs8_bf16_nodump", 8, "bfloat16", True),
         ):
             outdir = os.path.join(work, f"out_{label}")
-            t_cold, n = _run_protocol(uni_root, outdir, bs, dtype, no_dump, cli_device)
-            t_warm, _ = _run_protocol(uni_root, outdir, bs, dtype, no_dump, cli_device)
+            t_cold, t_warm, n = _run_protocol(uni_root, outdir, bs, dtype, no_dump, cli_device)
             results[label] = {"images": n, "cold_s": round(t_cold, 2),
                               "steady_s": round(t_warm, 2),
                               "images_per_s": round(n / t_warm, 3)}
@@ -207,8 +213,7 @@ def main(argv=None):
             waste = sum(n * (ph * pw - h * w) for (h, w, n), (ph, pw) in zip(sizes, padded))
             total = sum(n * ph * pw for (_, _, n), (ph, pw) in zip(sizes, padded))
             outdir = os.path.join(work, "out_mixed")
-            t_cold, n = _run_protocol(mix_root, outdir, 4, "bfloat16", True, cli_device)
-            t_warm, _ = _run_protocol(mix_root, outdir, 4, "bfloat16", True, cli_device)
+            t_cold, t_warm, n = _run_protocol(mix_root, outdir, 4, "bfloat16", True, cli_device)
             results["mixed_res"] = {
                 "images": n,
                 "buckets": len(set(padded)),
@@ -227,8 +232,8 @@ def main(argv=None):
         extra = ["--decoded-cache", os.path.join(work, "decoded_cache")]
         outdir = os.path.join(work, "out_cache")
         try:
-            t_fill, n = _run_protocol(uni_root, outdir, 8, "bfloat16", True, cli_device, extra)
-            t_cached, _ = _run_protocol(uni_root, outdir, 8, "bfloat16", True, cli_device, extra)
+            t_fill, t_cached, n = _run_protocol(uni_root, outdir, 8, "bfloat16", True,
+                                                cli_device, extra)
         finally:
             decoded_cache.set_cache_dir(None)
         results["tpu_native_bs8_bf16_nodump_decoded_cache"] = {

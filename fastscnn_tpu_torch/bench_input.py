@@ -14,8 +14,8 @@ at the two recipe shapes it measures:
 2. end-to-end training samples/s with the loader in the loop: the port's
    ``Trainer`` for ``--train-epochs`` epochs after an untimed first one,
    plain, with the decoded cache, and with ``--device-aug`` and the cache.
-   These train steps are eager (the trainer does not use the graphed step
-   yet: ROADMAP.md, queue 1).
+   On the card the trainer's steps are CUDA graphs (captured in the
+   untimed first epoch), on the CPU eager.
 
 Shapes, halved unless ``--full``: ``citys`` Cityscapes-format PNGs at
 1024×2048 (base 1024, crop 768, 24 train images); ``custom`` at 720×1280
@@ -28,7 +28,8 @@ Trainer legs run inside the work directory, where the trainer writes its
 steps.
 
 Prints one JSON line ``{"metric": "input_pipeline", "cpu_cores",
-"device", "recipes": {name: {...}}}`` with the root bench's keys.
+"device", "graphed", "recipes": {name: {...}}}`` with the root bench's
+keys, and ``graphed``: whether the Trainer legs ran graphed steps.
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ def run(workdir, recipe_table, batch_size=8, workers=4, train_epochs=1, device=N
     from fastscnn_tpu_torch.train import parse_args as train_args
 
     out = {"metric": "input_pipeline", "cpu_cores": os.cpu_count() or 1, "device": None,
-           "recipes": {}}
+           "graphed": None, "recipes": {}}
     for name, r in recipe_table.items():
         root = os.path.abspath(os.path.join(workdir, f"{r['dataset']}_{r['height']}"))
         if not os.path.exists(root):
@@ -170,7 +171,7 @@ def run(workdir, recipe_table, batch_size=8, workers=4, train_epochs=1, device=N
             flags += ["--device", str(device)] if device is not None else []
             with contextlib.chdir(workdir):
                 tr = Trainer(train_args(flags))
-                out["device"] = str(tr.device)
+                out["device"], out["graphed"] = str(tr.device), tr.graph
                 tr.train()  # the first epoch: cuDNN plans, allocator growth; not timed
                 steps = tr.iters_per_epoch * train_epochs
                 row["e2e_train_sps"] = round(

@@ -7,7 +7,8 @@ computes what the JAX loader computes:
   ``random.Random((seed + epoch) * 1_000_003 + index)``, swapped in for
   the dataset's ``tf.rng`` and, where present, its ``_rng`` for the call,
   so a record is the same whichever process makes it;
-- ``num_epochs`` epochs run back to back in one stream;
+- ``num_epochs`` epochs run back to back in one stream, from
+  ``first_epoch`` (0 but in a resumed run);
 - batches are assembled in the consuming process from the records in
   order, ``drop_last`` as given, targets int32 (or, with
   ``narrow_targets``, int8 where every record's labels fit, as the
@@ -252,9 +253,12 @@ class GrainDataLoader:
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = True, num_workers: int = 0, seed: int = 0,
-                 num_epochs: int = 1, narrow_targets: bool = False, prefetch: int = 2):
+                 num_epochs: int = 1, narrow_targets: bool = False, prefetch: int = 2,
+                 first_epoch: int = 0):
         """``prefetch``: batches' worth of records in flight in the workers,
-        and of batches assembled ahead of the consumer."""
+        and of batches assembled ahead of the consumer. ``first_epoch``: the
+        stream's first epoch (a resumed run's), whose order and record
+        seeds it takes."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -262,6 +266,7 @@ class GrainDataLoader:
         self.num_workers = num_workers
         self.seed = seed
         self.num_epochs = num_epochs
+        self.first_epoch = first_epoch
         self.narrow_targets = narrow_targets
         self.prefetch = max(1, prefetch)
         self._workers: _Workers | None = None
@@ -282,7 +287,7 @@ class GrainDataLoader:
     def _batch_tasks(self):
         """Each batch's ``(epoch, index)`` records, every epoch in turn."""
         out = []
-        for epoch in range(self.num_epochs):
+        for epoch in range(self.first_epoch, self.first_epoch + self.num_epochs):
             order = self.order(epoch).tolist()
             stop = len(order) // self.batch_size * self.batch_size if self.drop_last else len(order)
             out += [[(epoch, i) for i in order[s:s + self.batch_size]]

@@ -37,10 +37,11 @@ def narrow_labels(targets: np.ndarray) -> np.ndarray:
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 4, prefetch: int = 2,
-                 seed: int = 0, narrow_targets: bool = False):
+                 seed: int = 0, narrow_targets: bool = False, first_epoch: int = 0):
         """``narrow_targets``: each worker passes its sample's labels
         through :func:`narrow_labels`, so the batch is int8 where every
-        sample's range fits (else the collate widens it)."""
+        sample's range fits (else the collate widens it). ``first_epoch``:
+        the epoch whose order the first pass takes (a resumed run's)."""
         self.dataset = dataset
         self.narrow_targets = narrow_targets
         self.batch_size = batch_size
@@ -48,7 +49,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
-        self._epoch = 0
+        self._epoch = first_epoch
         self._seed = seed
 
     def __len__(self):

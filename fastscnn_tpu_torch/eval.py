@@ -6,7 +6,11 @@ pixAcc/mIoU prints and colour mask dumps to ``--outdir``, plus
 the right and bottom to the next multiple of ``--pad-multiple`` and
 grouped by padded shape into batches of ``--batch-size`` (the pad is
 masked out of the metric and of the dump). The metric's statistics come
-out of the eval step per image.
+out of the eval step per image. On the card the eval step is a CUDA
+graph a padded shape, the counterpart of the JAX evaluator's jit a
+bucket: a bucket's last partial batch is padded to ``--batch-size`` with
+all-ignore rows, so each bucket is captured once; on the CPU the step
+runs eagerly.
 
 No PIL is needed on PNG datasets: ``val`` mode resizes and crops with
 ``data/pil_ops.py`` (PIL's operations in numpy, bit for bit), and each
@@ -70,7 +74,11 @@ _CITYS_CLASSES = (
 
 
 class Evaluator:
-    def __init__(self, args):
+    """The evaluation of ``args`` (:func:`parse_args`). ``graph``: run the
+    eval step as CUDA graphs; None (the CLI's only setting) means on the
+    card, and the CPU runs it eagerly."""
+
+    def __init__(self, args, graph: bool | None = None):
         import torch
 
         from fastscnn_tpu_torch import resolve_device
@@ -84,6 +92,7 @@ class Evaluator:
 
         self.args = args
         self.device = resolve_device(args.device)
+        self.graph = self.device.type == "cuda" if graph is None else graph
         if args.decoded_cache:
             decoded_cache.set_cache_dir(args.decoded_cache)
         root = args.data_root or _DEFAULT_ROOTS[args.dataset]
@@ -112,7 +121,7 @@ class Evaluator:
             self.model, self.num_classes, compute_dtype=getattr(torch, args.dtype), mean=mean,
             std=std, per_sample_stats=True,
             pred_dtype=torch.uint8 if self.num_classes <= 255 else torch.int32,
-            device=self.device)
+            device=self.device, graph=self.graph)
         self.metric = SegmentationMetric(self.num_classes)
 
     def _pad(self, img: np.ndarray):
@@ -175,6 +184,10 @@ class Evaluator:
         for shape, pending in buckets.items():
             while pending:
                 flush(shape, pending)
+        if self.graph:
+            step = self.eval_step
+            print(f"eval step: {len(step.graphs)} CUDA graph captures for {len(buckets)} "
+                  f"padded shapes, {step.replays} replays, pool {step.pool_bytes} bytes")
         return self.metric.get()
 
 

@@ -33,7 +33,8 @@ naming their ROADMAP.md item.
 ``graph=True`` is the counterpart of the JAX step's ``jit``: on the
 card the whole step (the chain, forward, loss, backward and update) is
 captured once per input shape as a CUDA graph and replayed, with no
-launch from Python (:class:`_GraphedStep`).
+launch from Python (:class:`_GraphedStep`); the eval step likewise, one
+graph per input shape (:class:`_GraphedEval`).
 """
 
 from __future__ import annotations
@@ -390,37 +391,33 @@ class _ShapeGraphs:
     addresses: list
 
 
-def _addresses(state: TrainState) -> list:
-    return [0 if t is None else t.data_ptr() for t in _state_tensors(state)]
+def _addresses(tensors) -> list:
+    return [0 if t is None else t.data_ptr() for t in tensors]
 
 
-class _GraphedStep:
-    """A train step with the eager step's signature and results, run as
-    CUDA graphs (``graph=True``). The first call for an input shape and
-    dtype captures the step on a side stream into the step's memory pool,
-    after :data:`WARMUP_STEPS` eager steps that make every lazy buffer
-    (gradients, the optimizer's state, cuDNN plans, device tables) and are
-    then undone: the state's tensors get their values back (a buffer the
-    warm-up made is zeroed, which is where a fresh optimizer starts) and
-    each generator its state, so k graphed steps compute what k eager
-    steps compute. Every call copies the batch into the graph's input
-    buffers, refills the rate tensors, replays and returns a copy of the
-    loss, with no sync.
+def _input_key(images: torch.Tensor, targets: torch.Tensor) -> tuple:
+    return (tuple(images.shape), images.dtype, tuple(targets.shape), targets.dtype)
 
-    A call refuses (``ValueError``) a state whose optimizer or tensors
-    are not the ones captured (a checkpoint load that rebinds them), or
-    other generator objects than the ones captured: the graph reads and
-    writes fixed addresses, and the generators are registered with it.
-    With ``chain`` (the split form) the chain is a graph of its own, whose
-    crops are the step graph's input. ``graphs`` lists every capture
-    (:class:`~fastscnn_tpu_torch.utils.cuda_graph.Captured`, with its
-    launches, replays and pool bytes); ``launches``, ``replays`` and
-    ``pool_bytes`` sum them, as the engine's graphed callables report."""
 
-    def __init__(self, compute: Callable, optimizer: Optimizer, device: torch.device,
-                 chain: Callable | None = None):
-        self._compute, self._optimizer, self.device, self._chain = (
-            compute, optimizer, device, chain)
+def _input_buffers(images: torch.Tensor, targets: torch.Tensor, device) -> list:
+    """A graph's static inputs, each holding a first copy of the batch."""
+    buffers = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in (images, targets)]
+    for buf, t in zip(buffers, (images, targets)):
+        buf.copy_(t)
+    return buffers
+
+
+class _Graphed:
+    """What the graphed steps share: one memory pool and side stream for
+    their captures, ``_shapes`` (input key → an object whose ``graphs``
+    lists that shape's captures, the last one replayed once a call), and
+    the counts the engine's graphed callables report: ``graphs`` (every
+    :class:`~fastscnn_tpu_torch.utils.cuda_graph.Captured`), ``launches``
+    (the kernel wrappers' launches one replay of each repeats), ``replays``
+    and ``pool_bytes``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
         self._pool = self._stream = None
         self._shapes: dict = {}
 
@@ -444,11 +441,57 @@ class _GraphedStep:
     def pool_bytes(self) -> int:
         return sum(g.pool_bytes for g in self.graphs)
 
+    def _warm_and_capture(self, body: Callable, generators=()) -> Captured:
+        """:data:`WARMUP_STEPS` eager passes of ``body`` on the side stream,
+        then its capture; each generator's state is put back after the
+        warm-up, so the capture's own draws start where the call found it."""
+        dev = self.device
+        if self._pool is None:
+            self._pool, self._stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+        stream = self._stream
+        drawn = [g.get_state() for g in generators]
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(WARMUP_STEPS):
+                body()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        for g, s in zip(generators, drawn):
+            g.set_state(s)
+        return capture(body, dev, self._pool, stream, generators)
+
+
+class _GraphedStep(_Graphed):
+    """A train step with the eager step's signature and results, run as
+    CUDA graphs (``graph=True``). The first call for an input shape and
+    dtype captures the step on a side stream into the step's memory pool,
+    after :data:`WARMUP_STEPS` eager steps that make every lazy buffer
+    (gradients, the optimizer's state, cuDNN plans, device tables) and are
+    then undone: the state's tensors get their values back (a buffer the
+    warm-up made is zeroed, which is where a fresh optimizer starts) and
+    each generator its state, so k graphed steps compute what k eager
+    steps compute. Every call copies the batch into the graph's input
+    buffers, refills the rate tensors, replays and returns a copy of the
+    loss, with no sync.
+
+    A call refuses (``ValueError``) a state whose optimizer or tensors
+    are not the ones captured (a checkpoint load that rebinds them), or
+    other generator objects than the ones captured: the graph reads and
+    writes fixed addresses, and the generators are registered with it (a
+    registered generator may be reseeded between calls: a replay draws
+    from its seed and offset at the time). With ``chain`` (the split form)
+    the chain is a graph of its own, whose crops are the step graph's
+    input. Counts as :class:`_Graphed`."""
+
+    def __init__(self, compute: Callable, optimizer: Optimizer, device: torch.device,
+                 chain: Callable | None = None):
+        super().__init__(device)
+        self._compute, self._optimizer, self._chain = compute, optimizer, chain
+
     def __call__(self, state: TrainState, images, targets, generator=None, aug_generator=None):
         if self._chain is not None and aug_generator is None:
             raise ValueError("a step with device_aug needs an aug_generator")
         images, targets = torch.as_tensor(images), torch.as_tensor(targets)
-        key = (tuple(images.shape), images.dtype, tuple(targets.shape), targets.dtype)
+        key = _input_key(images, targets)
         shape = self._shapes.get(key)
         if shape is None:
             shape = self._shapes[key] = self._capture(state, images, targets, generator,
@@ -457,7 +500,7 @@ class _GraphedStep:
                 or shape.generators[1] is not aug_generator):
             raise ValueError("graphed train step: called with another optimizer or generator "
                              "than the ones its graph captured")
-        if _addresses(state) != shape.addresses:
+        if _addresses(_state_tensors(state)) != shape.addresses:
             raise ValueError("graphed train step: the state's tensors are not the ones its "
                              "graph captured (a load that rebinds them?)")
         shape.inputs[0].copy_(images, non_blocking=True)
@@ -469,18 +512,13 @@ class _GraphedStep:
         return state, {"loss": shape.loss.clone()}
 
     def _capture(self, state, images, targets, generator, aug_generator) -> _ShapeGraphs:
-        dev = self.device
         _set_lr(state.opt_state, self._optimizer.learning_rate(state.step))
         for group in state.opt_state.param_groups:
             if not (group.get("fused") or group.get("capturable")):
                 raise ValueError("graphed train step: the optimizer must read its rate on the "
                                  "card (fused SGD or capturable AdamW, as Optimizer.init makes "
                                  "them for params there)")
-        if self._pool is None:
-            self._pool, self._stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
-        inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in (images, targets)]
-        inputs[0].copy_(images)
-        inputs[1].copy_(targets)
+        inputs = _input_buffers(images, targets, self.device)
         generators = [g for g in (generator, aug_generator) if g is not None]
         drawn = [g.get_state() for g in generators]
         graphs, batch, step_aug = [], inputs, aug_generator
@@ -506,22 +544,57 @@ class _GraphedStep:
         for g, s in zip(generators, drawn):
             g.set_state(s)
         return _ShapeGraphs(inputs, graphs, graphs[-1].out, state.opt_state,
-                            (generator, aug_generator), _addresses(state))
+                            (generator, aug_generator), _addresses(_state_tensors(state)))
 
-    def _warm_and_capture(self, body: Callable, generators) -> Captured:
-        """:data:`WARMUP_STEPS` eager passes of ``body`` on the side stream,
-        then its capture; each generator's state is put back after the
-        warm-up, so the capture's own draws start where the call found it."""
-        dev, stream = self.device, self._stream
-        drawn = [g.get_state() for g in generators]
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_STEPS):
-                body()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        for g, s in zip(generators, drawn):
-            g.set_state(s)
-        return capture(body, dev, self._pool, stream, generators)
+
+@dataclasses.dataclass
+class _EvalGraph:
+    """The eval graph of one input shape: its input buffers, the capture
+    (its ``out``: the mask and the four statistics) and the addresses of
+    the params and BN statistics it read."""
+
+    inputs: list
+    graphs: list
+    addresses: list
+
+
+class _GraphedEval(_Graphed):
+    """An eval step with the eager step's signature and results, run as
+    CUDA graphs (``graph=True``): the first call for an input shape and
+    dtype captures the whole step (normalisation, the cast of the params
+    to the compute dtype, forward, upsample, argmax, statistics) after
+    :data:`WARMUP_STEPS` eager passes; every call copies the batch into
+    the graph's inputs, replays and returns copies of the mask and the
+    statistics. It reads the params and BN statistics where the capture
+    found them, so a call with other tensors (a load that rebinds them)
+    raises ``ValueError``. Counts as :class:`_Graphed`."""
+
+    def __init__(self, forward: Callable, device: torch.device):
+        super().__init__(device)
+        self._forward = forward
+
+    def __call__(self, params, model_state, images, targets):
+        images, targets = torch.as_tensor(images), torch.as_tensor(targets)
+        key = _input_key(images, targets)
+        shape = self._shapes.get(key)
+        if shape is None:
+            inputs = _input_buffers(images, targets, self.device)
+
+            @torch.no_grad()
+            def body():
+                pred, stats = self._forward(params, model_state, *inputs)
+                return (pred, *stats)
+
+            shape = self._shapes[key] = _EvalGraph(
+                inputs, [self._warm_and_capture(body)],
+                _addresses(tree_leaves(params) + tree_leaves(model_state)))
+        if _addresses(tree_leaves(params) + tree_leaves(model_state)) != shape.addresses:
+            raise ValueError("graphed eval step: the params or BN statistics are not the "
+                             "tensors its graph captured (a load that rebinds them?)")
+        shape.inputs[0].copy_(images, non_blocking=True)
+        shape.inputs[1].copy_(targets, non_blocking=True)
+        pred, *stats = (t.clone() for t in shape.graphs[0].replay())
+        return pred, tuple(stats)
 
 
 def make_eval_step(
@@ -534,6 +607,7 @@ def make_eval_step(
     per_sample_stats: bool = False,
     pred_dtype: torch.dtype = torch.int32,
     device=None,
+    graph: bool = False,
 ):
     """Build ``step(params, model_state, images_u8, targets) -> (pred,
     (correct, labeled, inter, union))`` on ``device`` (None: the CUDA
@@ -541,16 +615,17 @@ def make_eval_step(
     1/8 logits upsampled by interpolation matmuls, argmax, and the metric
     statistics of :func:`~fastscnn_tpu_torch.utils.metric.seg_hist_update`
     (per image with ``per_sample_stats``). ``pred_dtype``: the returned
-    mask's dtype; the statistics come from the int32 mask."""
+    mask's dtype; the statistics come from the int32 mask.
+
+    ``graph``: the counterpart of the JAX eval step's ``jit``, on the card
+    only (``ValueError`` elsewhere): the step is a :class:`_GraphedEval`,
+    each input shape captured once as a CUDA graph and replayed."""
     if mesh is not None:
         raise NotImplementedError(f"mesh is not ported yet ({_MULTI_DEVICE})")
-    device = resolve_device(device)
+    device = _step_device(device, graph)
     normalize = _Normalize(mean, std)
 
-    @torch.no_grad()
-    def step(params, model_state, images, targets):
-        images = torch.as_tensor(images).to(device)
-        targets = torch.as_tensor(targets).to(device)
+    def forward(params, model_state, images, targets):
         x = normalize(images, compute_dtype)
         cast = tree_map(lambda p: p.to(compute_dtype), params)
         outputs, _ = model.apply_params(cast, model_state, x, training=False,
@@ -561,5 +636,13 @@ def make_eval_step(
         pred = logits.argmax(dim=-1).to(torch.int32)
         stats = seg_hist_update(pred, targets, num_classes, per_sample=per_sample_stats)
         return pred.to(pred_dtype), stats
+
+    if graph:
+        return _GraphedEval(forward, device)
+
+    @torch.no_grad()
+    def step(params, model_state, images, targets):
+        return forward(params, model_state, torch.as_tensor(images).to(device),
+                       torch.as_tensor(targets).to(device))
 
     return step

@@ -135,13 +135,18 @@ def train_model(
     lr: float,
     seed: int = 0,
     device=None,
+    graph: bool | None = None,
 ):
     """Train ``FastSCNN(num_classes, aux=True)`` for ``steps`` bf16 steps
     on random batches of ``images``/``labels`` (random crops of ``crop``²
     when the scenes are larger, random horizontal flips). Returns
     ``(model, state, (mean, std))``: the model, the ``TrainState`` that
     holds the trained weights, and the normalisation it trained with.
-    ``device=None`` means the CUDA card."""
+    ``device=None`` means the CUDA card. ``graph``: the train step as a
+    CUDA graph (``make_train_step(graph=True)``); None means on the card,
+    and the CPU runs it eagerly. Step ``it``'s dropout draws from one
+    device generator reseeded ``1000 + it`` (the graph replays from the
+    generator it captured)."""
     import torch
 
     from fastscnn_tpu_torch import resolve_device
@@ -159,7 +164,9 @@ def train_model(
     optimizer = make_optimizer("sgd", schedule)
     state = create_train_state(model, optimizer, device=device)
     loss_fn = get_loss_fn(loss_type, aux=True, num_classes=num_classes)
-    step = make_train_step(model, loss_fn, optimizer, mean=mean, std=std, device=device)
+    step = make_train_step(model, loss_fn, optimizer, mean=mean, std=std, device=device,
+                           graph=device.type == "cuda" if graph is None else graph)
+    dropout = torch.Generator(device=device)
 
     rng = np.random.default_rng(seed)
     n, h, w = labels.shape
@@ -180,7 +187,7 @@ def train_model(
         flip = rng.random(batch) < 0.5
         xb = np.where(flip[:, None, None, None], xb[:, :, ::-1], xb)
         tb = np.where(flip[:, None, None], tb[:, :, ::-1], tb)
-        dropout = torch.Generator(device=device).manual_seed(1000 + it)
+        dropout.manual_seed(1000 + it)
         state, metrics = step(state, xb, tb, dropout)
         if it % max(1, steps // 10) == 0 or it == steps - 1:
             last = float(metrics["loss"])

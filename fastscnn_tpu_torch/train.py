@@ -2,9 +2,18 @@
 
 The same flags, defaults, checkpoint names, validation cadence and
 best-model rule, plus ``--device`` (default: the CUDA card; ``cpu`` runs
-every kernel wrapper's plain version). One eager train step a batch
+every kernel wrapper's plain version). One train step a batch
 (``parallel/train.py``): uint8 batches go to the device, are normalised
-there, bf16 compute over f32 masters, poly LR by iteration.
+there, bf16 compute over f32 masters, poly LR by iteration. On the card
+the train and eval steps are CUDA graphs, the counterpart of the JAX
+trainer's ``jit``: one capture per input shape (an epoch has one, the
+loader dropping the last partial batch; datasets of several native sizes
+through ``--device-aug`` capture once a size), then replays; a capture
+that fails raises. On the CPU both steps run eagerly. A run resumed from
+a full train state continues the uninterrupted run exactly: the loader
+starts at the restored epoch, and every step's dropout and augmentation
+generators are seeded from the seed and the step (the JAX trainer
+restarts its key stream and its loader's order at a resume).
 
 Usage::
 
@@ -117,6 +126,11 @@ def parse_args(argv=None):
     return args
 
 
+# a step's generator seeds: (seed + k) * stride + step, k = 1 for dropout and
+# 2 for the augmentation; distinct for every seed below 2**40 and step below
+# the stride
+_STEP_SEED_STRIDE = 1_000_003
+
 _DEFAULT_ROOTS = {
     "citys": "./datasets/citys",
     "tusimple": "./manideep1108/tusimple/versions/5/TUSimple",
@@ -172,7 +186,11 @@ class _EpochChunker:
 
 
 class Trainer:
-    def __init__(self, args):
+    """The training run of ``args`` (:func:`parse_args`). ``graph``: run
+    the train and eval steps as CUDA graphs; None (the CLI's only
+    setting) means on the card, and the CPU runs them eagerly."""
+
+    def __init__(self, args, graph: bool | None = None):
         import torch
 
         from fastscnn_tpu_torch import resolve_device
@@ -196,6 +214,7 @@ class Trainer:
             warnings.warn("--device-aug-split has no effect without --device-aug: training "
                           "with the host augmentation", stacklevel=2)
         self.device = resolve_device(args.device)
+        self.graph = self.device.type == "cuda" if graph is None else graph
         if args.decoded_cache:
             decoded_cache.set_cache_dir(args.decoded_cache)
         root = args.data_root or _DEFAULT_ROOTS[args.dataset]
@@ -216,20 +235,6 @@ class Trainer:
                 val_kwargs["sample_ratio"] = min(0.2, val_kwargs["sample_ratio"] * 2)
             self.val_ds = get_segmentation_dataset(args.dataset, split="val", mode="val",
                                                    **val_kwargs)
-        # native-resolution labels travel as int8 where their range fits; the
-        # augmentation gives the loss int32 crops
-        loader_kwargs = dict(batch_size=args.batch_size, shuffle=True, drop_last=True,
-                             num_workers=args.num_workers, seed=args.seed,
-                             narrow_targets=args.device_aug)
-        if args.loader == "grain":
-            from fastscnn_tpu_torch.data.grain_loader import GrainDataLoader
-
-            # one stream of every epoch, cut into epochs for the loop below
-            self.train_loader = _EpochChunker(
-                GrainDataLoader(self.train_ds, num_epochs=args.epochs, **loader_kwargs),
-                args.epochs)
-        else:
-            self.train_loader = DataLoader(self.train_ds, **loader_kwargs)
         self.num_classes = self.train_ds.num_class
         if self.train_ds.normalization == "imagenet":
             mean, std = IMAGENET_MEAN, IMAGENET_STD
@@ -265,11 +270,28 @@ class Trainer:
                 args.start_epoch = max(args.start_epoch, self.state.step // self.iters_per_epoch)
                 print(f"resumed full train state from {args.resume} (step {self.state.step})")
 
+        # native-resolution labels travel as int8 where their range fits; the
+        # augmentation gives the loss int32 crops. The loaders start at the
+        # start epoch, so a resumed run batches its epochs as the
+        # uninterrupted run did
+        loader_kwargs = dict(batch_size=args.batch_size, shuffle=True, drop_last=True,
+                             num_workers=args.num_workers, seed=args.seed,
+                             narrow_targets=args.device_aug, first_epoch=args.start_epoch)
+        if args.loader == "grain":
+            from fastscnn_tpu_torch.data.grain_loader import GrainDataLoader
+
+            # one stream of every epoch left, cut into epochs for the loop below
+            epochs = max(args.epochs - args.start_epoch, 0)
+            self.train_loader = _EpochChunker(
+                GrainDataLoader(self.train_ds, num_epochs=epochs, **loader_kwargs), epochs)
+        else:
+            self.train_loader = DataLoader(self.train_ds, **loader_kwargs)
+
         loss_fn = get_loss_fn(args.loss_type, aux=args.aux, aux_weight=args.aux_weight,
                               num_classes=self.num_classes)
         compute_dtype = torch.bfloat16 if args.fp16 else torch.float32
         step_kwargs = dict(mean=mean, std=std, compute_dtype=compute_dtype,
-                           grad_accum=args.grad_accum, device=self.device)
+                           grad_accum=args.grad_accum, device=self.device, graph=self.graph)
         if train_mode == "device-aug":
             device_aug = _device_augment(args, self.train_ds, compute_dtype)
             if args.device_aug_split:
@@ -281,18 +303,29 @@ class Trainer:
         else:
             self.train_step = make_train_step(self.model, loss_fn, optimizer, **step_kwargs)
         self.eval_step = make_eval_step(self.model, self.num_classes, mean=mean, std=std,
-                                        compute_dtype=compute_dtype, device=self.device)
+                                        compute_dtype=compute_dtype, device=self.device,
+                                        graph=self.graph)
         os.makedirs("logs", exist_ok=True)
         # the history continues only for the same run (a full-state restore):
         # a weights-only .pth resume is transfer learning
         self.monitor = TrainingMonitor(f"logs/training_log_{args.dataset}.json",
                                        experiment_name=f"fast_scnn_{args.dataset}",
                                        resume=resumed_run, tensorboard_dir=args.tensorboard_dir)
-        # dropout and augmentation each draw from a generator of their own
-        self.dropout_generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)
-        self.aug_generator = torch.Generator(device=self.device).manual_seed(args.seed + 2)
+        # dropout and augmentation each draw from a generator of their own,
+        # reseeded before every step (_seed_step)
+        self.dropout_generator = torch.Generator(device=self.device)
+        self.aug_generator = torch.Generator(device=self.device)
 
     # -- loops ---------------------------------------------------------------
+    def _seed_step(self):
+        """Seed the dropout and augmentation generators from the seed and
+        the step about to run, so that a resumed run draws what the
+        uninterrupted run drew (a graphed step replays from the seed its
+        registered generators hold at the call)."""
+        seed, step = self.args.seed, self.state.step
+        self.dropout_generator.manual_seed((seed + 1) * _STEP_SEED_STRIDE + step)
+        self.aug_generator.manual_seed((seed + 2) * _STEP_SEED_STRIDE + step)
+
     def train(self):
         try:
             return self._train_loop()
@@ -311,6 +344,7 @@ class Trainer:
             t_last = time.time()
             for it, (images, targets) in enumerate(self.train_loader):
                 t_data += time.time() - t_last
+                self._seed_step()
                 self.state, metrics = self.train_step(self.state, images, targets,
                                                       self.dropout_generator, self.aug_generator)
                 if (it + 1) % args.print_interval == 0:
@@ -340,7 +374,16 @@ class Trainer:
                 self.save_checkpoint(is_best)
         self.monitor.plot_curves()
         print(self.monitor.report())
+        if self.graph:
+            print(self.graph_report())
         return self.state
+
+    def graph_report(self) -> str:
+        """The graphed steps' captures and memory pools, one line."""
+        return ", ".join(
+            f"{name} step {len(step.graphs)} CUDA graph captures, {step.replays} replays, "
+            f"pool {step.pool_bytes} bytes"
+            for name, step in (("train", self.train_step), ("eval", self.eval_step)))
 
     def validation(self, max_batches: int | None = None):
         from fastscnn_tpu_torch.data import DataLoader

@@ -134,9 +134,13 @@ def save_train_state(train_state, path):
 
 def load_train_state(path, template_state):
     """Restore ``path`` — the port's ``.pt`` or the JAX trainer's ``.npz`` —
-    into ``template_state`` (same model and optimizer): the masters and BN
-    statistics are copied into its tensors, on their device, the
-    optimizer's state is loaded, and the step set. Returns the state."""
+    into ``template_state`` (same model and optimizer), in place: the
+    masters, the BN statistics and the optimizer's per-param state are
+    copied into the template's tensors where it has them (so a CUDA graph
+    captured on the template reads the restored values), the template's
+    param-group options (``fused``, ``capturable``, a device rate tensor)
+    are kept whatever the file's were, and the step is set. Returns the
+    state."""
     if str(path).endswith(".npz"):
         return _load_jax_train_state(path, template_state)
     saved = torch.load(path, map_location="cpu", weights_only=True)
@@ -145,9 +149,44 @@ def load_train_state(path, template_state):
         if len(dst) != len(src):
             raise ValueError(f"{path}: {len(src)} {name} leaves, the model has {len(dst)}")
         _copy_leaves(dst, src, path, name)
-    template_state.opt_state.load_state_dict(saved["opt_state"])
+    opt = template_state.opt_state
+    sizes = [len(g["params"]) for g in opt.param_groups]
+    saved_sizes = [len(g["params"]) for g in saved["opt_state"]["param_groups"]]
+    if sizes != saved_sizes:
+        raise ValueError(f"{path}: optimizer groups of {saved_sizes} params, the template's "
+                         f"have {sizes}")
+    _load_optimizer_state(opt, saved["opt_state"]["state"])
     template_state.step = int(saved["step"])
     return template_state
+
+
+def _load_optimizer_state(opt, slots: dict) -> None:
+    """``slots`` ({param index: {name: value}}, as ``state_dict()["state"]``
+    numbers the params) into ``opt.state``. A slot the template has is
+    copied into; a new one is placed as ``load_state_dict`` places it but
+    by the template's options (``step`` as a device f32 tensor where the
+    group is capturable or fused, others on the param's device and
+    dtype); a template slot the file lacks is zeroed, where a fresh
+    optimizer's state starts."""
+    groups = [(p, g) for g in opt.param_groups for p in g["params"]]
+    with torch.no_grad():
+        for i, (p, group) in enumerate(groups):
+            current, loaded = opt.state[p], slots.get(i, {})
+            for name, value in current.items():
+                if isinstance(value, torch.Tensor) and name not in loaded:
+                    value.zero_()
+            for name, value in loaded.items():
+                old = current.get(name)
+                if isinstance(old, torch.Tensor):
+                    old.copy_(value)
+                elif not isinstance(value, torch.Tensor):
+                    current[name] = value
+                elif name != "step":
+                    current[name] = value.to(device=p.device, dtype=p.dtype)
+                elif group.get("capturable") or group.get("fused"):
+                    current[name] = value.to(device=p.device, dtype=torch.float32)
+                else:
+                    current[name] = value
 
 
 def _check_shapes(dst, src, path, name):
@@ -196,14 +235,12 @@ def _load_jax_train_state(path, template_state):
         _check_shapes(dst, leaves[name], path, name)
     for name, dst in (("params", params), ("model_state", model_state)):
         _copy_leaves(dst, leaves[name], path, name)
-    sd = opt.state_dict()
     state = {}
     for i in range(n_p):
         entry = {k: torch.from_numpy(np.array(leaves[k][i], np.float32)) for k in slots}
         if "count" in leaves:
             entry["step"] = torch.tensor(float(leaves["count"][0]), dtype=torch.float32)
         state[i] = entry
-    sd["state"] = state
-    opt.load_state_dict(sd)
+    _load_optimizer_state(opt, state)
     template_state.step = int(leaves["step"][0])
     return template_state

@@ -322,8 +322,9 @@ def test_bench_input_runs_on_the_cpu_without_pil(no_pil, tmp_path, capsys):
     out = bench_input.run(str(tmp_path), table, batch_size=2, workers=2, train_epochs=1,
                           device="cpu")
     json.dumps(out)
-    assert set(out) == {"metric", "cpu_cores", "device", "recipes"}
+    assert set(out) == {"metric", "cpu_cores", "device", "graphed", "recipes"}
     assert out["metric"] == "input_pipeline" and out["device"] == "cpu"
+    assert out["graphed"] is False  # the trainer's steps run eagerly on the CPU
     keys = {"threads_sps", "threads_cache_fill_sps", "threads_cached_sps", "grain_sps",
             "threads_device_aug_sps", "threads_device_aug_cached_sps", "e2e_train_sps",
             "e2e_train_cached_sps", "e2e_train_device_aug_cached_sps"}

@@ -272,7 +272,7 @@ def test_train_two_epochs_then_auto_resume(citys, workdir, capsys):
     assert re.findall(r"epoch (\d) iter", out) == ["2", "2"]
     assert resumed.state.step == 6
     sched = lr_schedule("poly", base_lr=1e-2, nepochs=3, iters_per_epoch=2, power=0.9)
-    lrs = [float(v) for v in re.findall(r" lr (\S+) ", out)]
+    lrs = [float(v) for v in re.findall(r" iter \S+ loss \S+ lr (\S+) ", out)]
     np.testing.assert_allclose(lrs, [round(sched(5), 5), round(sched(6), 5)])
     assert [r["epoch"] for r in json.load(open("logs/training_log_citys.json"))] == [0, 1, 2]
 
