@@ -167,10 +167,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``control_dashboard.main --realtime --web --synthetic-camera
    --max-frames 20 --enable-serial`` on a pty, its routes and one
    ``/video_feed`` part driven over HTTP on 127.0.0.1;
-10. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8 and 9, plus the captured
+10. the car's side and the export surface (:func:`car_export_phase`):
+   (a) the loop of 9d (config A over ``predict_fn``) into the register-level
+   firmware (``RegisterVehicle`` over a pty): each command read back as the
+   wheels, one watchdog stop after 500 ms of silence, the blinded frame's
+   and the e-stop's (0, 0), no checksum error; the same commands through the
+   rich protocol (``CarController`` → pty → ``RichVehicleSim``, every frame
+   parsed, a GET_STATUS reply) and through ``WebCarServer``'s routes into the
+   firmware; ``monitor_fps`` on 9e's dashboard (read inside 9e) and
+   ``analyze_training_log`` on 6b's monitor log; (b) the 19-class model at
+   1024x2048 exported with ``export_torch`` (f32 and bf16) and loaded back:
+   its masks against config A's ``predict_fn`` (f32 on 99.9 % of pixels),
+   its ms a frame beside the graph's, its bytes, and a small artifact moved
+   to the CPU; ``export_model.main`` at the JAX CLI's defaults, with
+   ``--atc-compat`` and in ``onnx``, each through its own gate; the
+   1024x2048 ONNX graph through the numpy evaluator against config A (99.9
+   %); ``pipeline.main --export-path`` on a ``.pt2`` and an ``.onnx``,
+   ``compare_backends`` on both 1024x2048 artifacts and
+   ``system_check.main --quick`` (PASS);
+11. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9 and 10, plus the captured
    launches × the replays of the graphs of phases 4b, 4c, 6b (the trainer's
-   and the evaluator's), 8 and 9, which no wrapper sees) and, last, the
+   and the evaluator's), 8, 9 and 10, which no wrapper sees) and, last, the
    device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
@@ -2192,8 +2210,12 @@ def _run_differences(a, b):
 
 
 def _log_records():
+    """The trainer's monitor log; one with val records is kept for 10a."""
     with open(os.path.join("logs", "training_log_citys.json")) as f:
-        return json.load(f)
+        records = json.load(f)
+    if any("miou" in r for r in records):
+        TRAINING_LOG[:] = records
+    return records
 
 
 def _stopped_after_one_epoch(argv):
@@ -3833,6 +3855,7 @@ def loop_cli_phase(work, weights):
     from fastscnn_tpu_torch import control_dashboard, interfaces, pipeline
     from fastscnn_tpu_torch.data import image_io
     from fastscnn_tpu_torch.serialbridge import Parser
+    from fastscnn_tpu_torch.tools import analyzers
 
     png = os.path.join(work, "road.png")
     image_io.write_png(png, _camera_frames(1, 3)[0][:, :, ::-1])
@@ -3889,6 +3912,9 @@ def loop_cli_phase(work, weights):
                     pass
                 time.sleep(0.05)
             seen["stats"] = get("/api/stats")
+            # 10a: the analyzers' FPS monitor against this dashboard
+            seen["fps"] = analyzers.monitor_fps(base, target_fps=8.0, duration_sec=1.0,
+                                                poll_interval=0.1)
             seen["status"] = get("/api/control_status")
             seen["update"] = post("/api/update_params", {"base_pwm": 250, "ema_alpha": 0.3})
             seen["start"] = post("/api/start_driving")
@@ -3942,6 +3968,9 @@ def loop_cli_phase(work, weights):
             or head[1].strip() != b"Content-Type: image/png" or img.ndim != 3
             or not parser.stats["packets"] or parser.last != (0, 0)):
         raise AssertionError("9e: the dashboard CLI's run is not as expected")
+    _print(f"  10a monitor_fps against the 9e dashboard (1 s, polls every 0.1 s): {seen['fps']}")
+    if not seen["fps"]["samples"] or not seen["fps"]["mean_fps"] > 0:
+        raise AssertionError("10a: monitor_fps read no fps from the dashboard")
 
 
 def loop_phase(root):
@@ -4012,6 +4041,550 @@ def loop_phase(root):
         raise AssertionError("phase 9: no graph replay launched B3 and B1")
     shutil.rmtree(work, ignore_errors=True)
     _print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the car's side and the export surface
+# ---------------------------------------------------------------------------
+
+TRAINING_LOG: list = []  # phase 6b's last monitor log with val records, for 10a
+CAR_FRAMES = 12  # loop frames driven into each vehicle of 10a
+WATCHDOG_MS = 500  # the firmware's fixed command watchdog
+EXPORT_FRAMES = 2  # 1024x2048 frames each artifact of 10b (i) is held to config A on
+EXPORT_GATE = 0.999  # artifact masks vs config A's on the card, f32
+MOVE_SHAPE = (1, 128, 256, 3)  # the artifact moved from the card to the CPU
+EXPORT_SHAPE = (1, HEIGHT, WIDTH, 3)  # 10b (i)'s artifacts and (iii)'s ONNX graph
+
+
+class _PtyLink:
+    """A pty pair: the host side a ``SerialPort`` on the slave; :meth:`pump`
+    hands what arrived on the master to ``feed(data, now_ms)`` and writes
+    back what ``feed`` returns (a device's replies)."""
+
+    def __init__(self, feed):
+        import pty
+
+        from fastscnn_tpu_torch.serialbridge import SerialPort
+
+        self.master, self.slave = pty.openpty()
+        self.port = SerialPort(os.ttyname(self.slave), 115200)
+        self.t0 = time.perf_counter()
+        self.feed, self.last_ms, self.bytes = feed, None, 0
+
+    def now_ms(self) -> int:
+        return int((time.perf_counter() - self.t0) * 1e3)
+
+    def pump(self):
+        import select
+
+        while select.select([self.master], [], [], 0.02)[0]:
+            data = os.read(self.master, 4096)
+            self.last_ms, self.bytes = self.now_ms(), self.bytes + len(data)
+            reply = self.feed(data, self.last_ms)
+            if reply:
+                os.write(self.master, reply)
+
+    def close(self):
+        self.port.close()
+        os.close(self.master)
+        os.close(self.slave)
+
+
+def _silence_gate(link, vehicle, label):
+    """The firmware watchdog on ``vehicle`` (turning wheels): no stop 400 ms
+    after the last byte fed, exactly one stop past 500 ms, wheels (0, 0)."""
+    if vehicle.wheels == (0, 0):
+        raise AssertionError(f"{label}: the wheels stand still before the silence")
+    before = vehicle.watchdog_stops
+    time.sleep(max(0.0, (link.last_ms + 400 - link.now_ms()) / 1e3))
+    early = vehicle.tick(link.now_ms())
+    time.sleep(max(0.0, (link.last_ms + WATCHDOG_MS + 30 - link.now_ms()) / 1e3))
+    fired = vehicle.tick(link.now_ms())
+    stops = vehicle.watchdog_stops - before
+    if early or not fired or stops != 1 or vehicle.wheels != (0, 0):
+        raise AssertionError(f"{label}: watchdog after silence: at 400 ms {early}, past "
+                             f"{WATCHDOG_MS} ms {fired}, stops {stops}, wheels {vehicle.wheels}")
+    return stops
+
+
+def register_drive_leg(engine):
+    """10a (i): phase 9d's loop (``SimpleCarController`` → pty) into the
+    register-level firmware (``RegisterVehicle``): each command read back
+    as the wheels (the TIM3 duty and direction pins), one watchdog stop
+    after 500 ms of silence, a blinded frame's no-path stop, (0, 0) after
+    the e-stop and nothing else sent, no checksum or framing error."""
+    from fastscnn_tpu_torch.interfaces import RealtimePipeline, SyntheticCamera
+    from fastscnn_tpu_torch.serialbridge import Parser, SimpleCarController
+    from fastscnn_tpu_torch.serialbridge.mcu import RegisterVehicle
+
+    vehicle, parser = RegisterVehicle(), Parser()
+    link = _PtyLink(lambda data, now: (parser.feed(data), vehicle.feed(data, now)) and None)
+    sent = []
+
+    class Recording:
+        def send_speeds(self, left, right):
+            sent.append((left, right))
+            link.port.send_speeds(left, right)
+
+    try:
+        car = SimpleCarController(transport=Recording())
+        pipe = RealtimePipeline(engine, SyntheticCamera(LOOP_SHAPE[2], LOOP_SHAPE[1]), car=car,
+                                edge_computing=True)
+        pipe.warm()
+        pipe.start_driving()
+        moving = 0
+        for _ in range(CAR_FRAMES):
+            pipe.step()
+            link.pump()
+            stats = pipe.get_stats()
+            want = (int(stats["pwm_left"]), int(stats["pwm_right"]))
+            if vehicle.wheels != car.get_current_speeds() or vehicle.wheels != want:
+                raise AssertionError(f"10a register: wheels {vehicle.wheels}, car "
+                                     f"{car.get_current_speeds()}, loop command {want}")
+            moving += vehicle.wheels != (0, 0)
+        stops = _silence_gate(link, vehicle, "10a register")
+        pipe.session = _NoRoadSession()
+        pipe.step()
+        link.pump()
+        blind = (vehicle.wheels, pipe.get_stats()["lateral_error"])
+        pipe.session = engine
+        pipe.step()
+        link.pump()
+        pipe.emergency_stop()
+        link.pump()
+        stopped, n_sent = vehicle.wheels, len(sent)
+        pipe.run(max_frames=3)
+        link.pump()
+        after = sent[n_sent:]
+        mcu = vehicle.mcu
+        _print(f"  10a RegisterVehicle: {parser.stats['packets']} packets ({len(sent)} sent), "
+               f"{moving} of {CAR_FRAMES} frames with the wheels turning (TIM3 CCR "
+               f"{[mcu.tim3_ccr(c) for c in (1, 2, 3, 4)]}, ODR {mcu.gpioa_odr:#x} at the end); "
+               f"watchdog stops {stops}; blinded frame: wheels {blind[0]}; e-stop: wheels "
+               f"{stopped}, then sent {after}; checksum errors {vehicle.checksum_errors}, "
+               f"protocol errors {mcu.protocol_errors}")
+        if (blind != ((0, 0), None) or stopped != (0, 0) or vehicle.wheels != (0, 0)
+                or any(c != (0, 0) for c in after) or parser.stats["packets"] != len(sent)
+                or vehicle.checksum_errors or mcu.protocol_errors or not moving):
+            raise AssertionError("10a register: the stops did not reach the wheels")
+    finally:
+        link.close()
+
+
+class _RichWheels:
+    """The loop's wheel commands through the rich protocol's
+    ``CarController``: (0, 0) as EMERGENCY_STOP, any other as SET_MOTION
+    at the faster wheel's speed and the steering whose wheel ratios
+    (``rich_protocol._steering_ratios``) give the slower one. ``expected``
+    holds the four wheel PWMs (LF, LR, RF, RR) of the last frame sent."""
+
+    def __init__(self, car):
+        self.car, self.expected, self.frames = car, [0, 0, 0, 0], 1  # the init stop
+
+    def set_wheel_speeds(self, left, right):
+        from fastscnn_tpu_torch.serialbridge.rich_protocol import _steering_ratios
+
+        if (left, right) == (0, 0):
+            return self.stop()
+        fast = max(abs(left), abs(right))
+        if abs(left) < abs(right):
+            steering = 2.0 * (1.0 - abs(left) / fast)
+        else:
+            steering = -2.0 * (1.0 - abs(right) / fast)
+        speed, steering = min(1.0, fast / 1000.0), max(-1.0, min(1.0, steering))
+        ok = self.car.set_motion(speed, steering)
+        pwm = int(speed * self.car.max_wheel_speed)
+        lr, rr = _steering_ratios(steering)
+        self.expected, self.frames = [int(pwm * lr)] * 2 + [int(pwm * rr)] * 2, self.frames + 1
+        return ok
+
+    def stop(self):
+        self.expected, self.frames = [0, 0, 0, 0], self.frames + 1
+        return self.car.stop()
+
+
+def rich_drive_leg(engine):
+    """10a (ii): the loop's commands through ``CarController`` → pty →
+    ``RichVehicleSim``: each SET_MOTION read back as the four wheels, every
+    frame parsed (none dropped by a bad checksum or tail), a blinded
+    frame's no-path stop and the e-stop as EMERGENCY_STOP, and a GET_STATUS
+    reply over the pty equal to the wheels. The rich protocol has no
+    watchdog (reference:car_controller.py)."""
+    import threading
+
+    from fastscnn_tpu_torch.interfaces import RealtimePipeline, SyntheticCamera
+    from fastscnn_tpu_torch.serialbridge.rich_protocol import CarController, RichVehicleSim
+
+    sim, parsed = RichVehicleSim(), [0]
+
+    def feed(data, now):
+        parsed[0] += sim.feed(data)
+        reply = bytes(sim.responses)
+        del sim.responses[:]
+        return reply
+
+    link = _PtyLink(feed)
+    try:
+        car = CarController(transport=link.port)
+        wheels = _RichWheels(car)
+        pipe = RealtimePipeline(engine, SyntheticCamera(LOOP_SHAPE[2], LOOP_SHAPE[1]),
+                                car=wheels, edge_computing=True)
+        pipe.warm()
+        pipe.start_driving()
+        moving = 0
+        for _ in range(CAR_FRAMES):
+            pipe.step()
+            link.pump()
+            if sim.wheels != wheels.expected or parsed[0] != wheels.frames:
+                raise AssertionError(f"10a rich: wheels {sim.wheels}, sent {wheels.expected}; "
+                                     f"{parsed[0]} of {wheels.frames} frames parsed")
+            moving += any(sim.wheels)
+        status = []
+        reader = threading.Thread(target=lambda: status.append(car.get_status()))
+        reader.start()
+        while reader.is_alive():
+            link.pump()
+        wheels.frames += 1  # the GET_STATUS frame
+        at_status = list(sim.wheels)
+        pipe.session = _NoRoadSession()
+        pipe.step()
+        link.pump()
+        blind = (list(sim.wheels), sim.stopped)
+        pipe.session = engine
+        pipe.step()
+        pipe.emergency_stop()
+        link.pump()
+        stopped = (list(sim.wheels), sim.stopped)
+        st = status[0]
+        four = [st["left_front_speed"], st["left_rear_speed"], st["right_front_speed"],
+                st["right_rear_speed"]] if st else None
+        _print(f"  10a CarController -> RichVehicleSim: {parsed[0]} frames parsed of "
+               f"{wheels.frames} sent ({link.bytes} bytes), {moving} of {CAR_FRAMES} frames "
+               f"moving; GET_STATUS over the pty {four}; blinded frame: {blind}; e-stop: "
+               f"{stopped}")
+        if (blind != ([0, 0, 0, 0], True) or stopped != ([0, 0, 0, 0], True)
+                or four != at_status or parsed[0] != wheels.frames or not moving):
+            raise AssertionError("10a rich: the status or the stops did not come back")
+        return four
+    finally:
+        link.close()
+
+
+def web_drive_leg(engine):
+    """10a (iii): ``WebCarServer``'s HTTP routes (127.0.0.1) → its
+    ``SimpleCarController`` → pty → ``RegisterVehicle``: the loop's commands
+    posted to ``/api/wheels`` frame by frame, each JSON reply read back as
+    the wheels; the blinded frame's stop and ``/api/stop`` giving (0, 0);
+    ``/api/forward`` then 500 ms of silence: one watchdog stop; no checksum
+    error."""
+    import json
+    import urllib.request
+
+    from fastscnn_tpu_torch.interfaces import RealtimePipeline, SyntheticCamera
+    from fastscnn_tpu_torch.serialbridge import Parser, SimpleCarController
+    from fastscnn_tpu_torch.serialbridge.mcu import RegisterVehicle
+    from fastscnn_tpu_torch.tools.manual_control import WebCarServer
+
+    vehicle, parser = RegisterVehicle(), Parser()
+    link = _PtyLink(lambda data, now: (parser.feed(data), vehicle.feed(data, now)) and None)
+    server = WebCarServer(SimpleCarController(transport=link.port), host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.start()}"
+
+    def post(route, body):
+        req = urllib.request.Request(base + route, data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            reply = json.loads(r.read())
+        link.pump()
+        return reply
+
+    try:
+        pipe = RealtimePipeline(engine, SyntheticCamera(LOOP_SHAPE[2], LOOP_SHAPE[1]),
+                                edge_computing=True)
+        pipe.warm()
+        replies = []
+        for _ in range(CAR_FRAMES):
+            pipe.step()
+            stats = pipe.get_stats()
+            reply = post("/api/wheels", {"left": int(stats["pwm_left"]),
+                                         "right": int(stats["pwm_right"])})
+            replies.append((reply["left"], reply["right"]))
+            if not reply["ok"] or vehicle.wheels != replies[-1]:
+                raise AssertionError(f"10a web: reply {reply}, wheels {vehicle.wheels}")
+        pipe.session = _NoRoadSession()
+        pipe.step()
+        stats = pipe.get_stats()
+        blind = post("/api/wheels", {"left": int(stats["pwm_left"]),
+                                     "right": int(stats["pwm_right"])})
+        blind = (blind["left"], blind["right"], vehicle.wheels)
+        stop = post("/api/stop", {})
+        stopped = vehicle.wheels
+        forward = post("/api/forward", {"speed": 0.4})
+        stops = _silence_gate(link, vehicle, "10a web")
+        with urllib.request.urlopen(base + "/api/state", timeout=10) as r:
+            state = json.loads(r.read())
+        _print(f"  10a WebCarServer -> RegisterVehicle: {len(replies)} /api/wheels replies read "
+               f"back as the wheels (last {replies[-1]}); blinded frame {blind}; /api/stop "
+               f"{stop}, wheels {stopped}; /api/forward {forward}, then watchdog stops {stops}; "
+               f"/api/state connected {state['connected']}; packets {parser.stats['packets']}, "
+               f"checksum errors {vehicle.checksum_errors}")
+        if (blind != (0, 0, (0, 0)) or stopped != (0, 0) or not stop["ok"]
+                or (forward["left"], forward["right"]) != (400, 400)
+                or vehicle.checksum_errors or parser.stats["checksum_errors"]):
+            raise AssertionError("10a web: the stops or the forward command went wrong")
+    finally:
+        server.stop()
+        link.close()
+
+
+def training_log_leg(work):
+    """10a (v): ``analyze_training_log`` on phase 6b's monitor log (the
+    last run of 6b (a) and (b) with validation every epoch)."""
+    from fastscnn_tpu_torch.tools.analyzers import analyze_training_log
+
+    if not TRAINING_LOG:
+        raise AssertionError("10a: phase 6b left no monitor log with val records")
+    path = os.path.join(work, "training_log_citys.json")
+    with open(path, "w") as f:
+        json.dump(TRAINING_LOG, f)
+    summary = analyze_training_log(path)
+    best = max((r for r in TRAINING_LOG if "miou" in r), key=lambda r: r["combined_metric"])
+    _print(f"  10a analyze_training_log on 6b's log: {summary}")
+    if summary.get("best_epoch") != best["epoch"] or summary["epochs"] != len(TRAINING_LOG):
+        raise AssertionError(f"10a: best epoch {summary.get('best_epoch')}, the log's "
+                             f"{best['epoch']}")
+
+
+def export_main_model_leg(work, dev):
+    """10b (i): the 19-class model at 1024x2048 (``--argmax``, weights from
+    SEED, BN calibrated as in phase 4) exported with ``export_torch`` on the
+    card in f32 and bf16 and loaded back with ``load_exported``: its masks
+    (the kernel-free 'conv' + 'hybrid') against config A's ``predict_fn``
+    (B3, B1) on EXPORT_FRAMES frames, f32 gated at EXPORT_GATE; the
+    artifact's ms a frame (CUDA events, N = 1) beside the graph's; the .pt2
+    bytes. Then a small artifact exported on the card and loaded onto the
+    CPU (``move_to_device_pass``), held to the card's. Returns the f32
+    engines' model (for 10b (iii)/(iv)), the frames and the f32 path."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.engine.export import export_torch, load_exported
+    from fastscnn_tpu_torch.models import FastSCNN
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    frames = torch.randint(0, 256, (BATCH + EXPORT_FRAMES, HEIGHT, WIDTH, 3), generator=g,
+                           device=dev, dtype=torch.uint8)
+    state = calibrated_state(frames[:BATCH])
+    frames = frames[BATCH:]
+
+    def engine(impl, mode, dtype, device=dev):
+        model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl)
+        model.load_state_dict(state)
+        return InferenceEngine(model, device=device, config=E2EConfig(
+            mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
+
+    paths = {}
+    for dtype in ("float32", "bfloat16"):
+        ref = engine("conv", "hybrid", dtype)
+        t0 = time.perf_counter()
+        path = export_torch(ref, EXPORT_SHAPE, os.path.join(work, f"e2e_{dtype}.pt2"),
+                            metadata={"dataset": "citys", "num_classes": NUM_CLASSES})
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = load_exported(path)
+        t_load = time.perf_counter() - t0
+        a_fn = engine("fused-ds", "pallas", dtype).predict_fn(EXPORT_SHAPE)
+        agree = []
+        for i in range(EXPORT_FRAMES):
+            x = frames[i:i + 1]
+            got, want = art(x), a_fn(x)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"10b (i): artifact {got.dtype} {tuple(got.shape)}, "
+                                     f"config A {want.dtype} {tuple(want.shape)}")
+            agree.append(float((got == want).float().mean()))
+        x = frames[:1]
+        art_ms, graph_ms = time_ms(lambda: art(x)), time_ms(lambda: a_fn(x))
+        mean = sum(agree) / len(agree)
+        _print(f"  10b (i) {dtype}: export_torch {t_export:.1f} s ({os.path.getsize(path)} "
+               f"bytes), load_exported {t_load:.1f} s; artifact masks vs config A's predict_fn "
+               f"{mean:.6f} (per frame {[round(a, 6) for a in agree]}); ms a frame (N=1): "
+               f"artifact {art_ms:.3f}, config A graph {graph_ms:.3f}")
+        if dtype == "float32" and mean < EXPORT_GATE:
+            raise AssertionError(f"10b (i): f32 artifact agrees with config A on {mean}")
+        paths[dtype] = path
+        del art, a_fn, ref
+    small = engine("conv", "hybrid", "float32")
+    path = export_torch(small, MOVE_SHAPE, os.path.join(work, "small.pt2"))
+    x = torch.randint(0, 256, MOVE_SHAPE, generator=g, device=dev, dtype=torch.uint8)
+    on_card = load_exported(path)(x).cpu()
+    on_cpu = load_exported(path, device="cpu")(x.cpu())
+    moved = float((on_card == on_cpu).float().mean())
+    _print(f"  10b (i) a {MOVE_SHAPE} artifact exported on the card, loaded onto the CPU: masks "
+           f"equal to the card's on {moved:.6f} of pixels")
+    if on_cpu.device.type != "cpu" or moved < EXPORT_GATE:
+        raise AssertionError("10b (i): the artifact moved to the CPU disagrees")
+    return state, frames, paths["float32"]
+
+
+def export_cli_leg(work, lane):
+    """10b (ii) and (iii): ``export_model.main`` at the JAX CLI's defaults
+    (custom, 640x360, internal 1024, softmax, bf16, random weights) in
+    ``pt2``; with ``--atc-compat`` and in ``onnx --argmax`` (the numpy
+    evaluator as its gate) on the loop's weights ``lane`` (a ``.pth``), so
+    that 10b (iv)'s pipeline finds a road; each passes the CLI's own
+    > 0.999 gate."""
+    from fastscnn_tpu_torch import export_model
+
+    out = {}
+    for label, argv in (("pt2", []),
+                        ("pt2 --atc-compat", ["--atc-compat", "--weights", lane]),
+                        ("onnx --argmax", ["--format", "onnx", "--argmax", "--weights", lane])):
+        path = os.path.join(work, label.replace(" --", "_").replace("-", "_") + "."
+                            + label.split()[0])
+        t0 = time.perf_counter()
+        _, text = _run_cli(export_model.main, ["--output", path, *argv])
+        line = [s for s in text.splitlines() if s.startswith("artifact parity")]
+        _print(f"  10b (ii/iii) export_model {label}: {time.perf_counter() - t0:.1f} s, "
+               f"{os.path.getsize(path)} bytes; {line}")
+        out[label] = path
+    return out
+
+
+def onnx_main_model_leg(work, state, frames):
+    """10b (iii): the 10b (i) weights emitted as ONNX at 1024x2048 (mask
+    output, f32) and run by the numpy evaluator on the host: its masks
+    against the card engine's (config A, f32) on EXPORT_FRAMES frames, at
+    EXPORT_GATE; the evaluator's seconds."""
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.engine.onnx_native import OnnxArtifact, emit_fastscnn_onnx, folded_numpy
+    from fastscnn_tpu_torch.models import FastSCNN
+
+    model = FastSCNN(NUM_CLASSES)
+    model.load_state_dict(state)
+    path = os.path.join(work, "e2e_citys.onnx")
+    t0 = time.perf_counter()
+    emit_fastscnn_onnx(model, folded_numpy(model), (EXPORT_SHAPE[0], 3) + EXPORT_SHAPE[1:3],
+                       path, mean=IMAGENET_MEAN, std=IMAGENET_STD, output="mask")
+    t_emit = time.perf_counter() - t0
+    art = OnnxArtifact(path)
+    a = FastSCNN(NUM_CLASSES, folded_dw_impl="fused-ds")
+    a.load_state_dict(state)
+    eng = InferenceEngine(a, device=frames.device, config=E2EConfig(
+        mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="float32", final_upsample="pallas"))
+    agree, seconds = [], []
+    for i in range(EXPORT_FRAMES):
+        x = frames[i:i + 1]
+        t0 = time.perf_counter()
+        got = art(x.cpu().numpy())
+        seconds.append(time.perf_counter() - t0)
+        agree.append(float((got == eng.predict(x).cpu().numpy()).mean()))
+    mean = sum(agree) / len(agree)
+    _print(f"  10b (iii) ONNX at {EXPORT_SHAPE}: emitted in {t_emit:.1f} s "
+           f"({os.path.getsize(path)} bytes), evaluator ({art.backend}) "
+           f"{[round(s, 2) for s in seconds]} s a frame; masks vs config A on the card "
+           f"{mean:.6f} (per frame {[round(v, 6) for v in agree]})")
+    if mean < EXPORT_GATE:
+        raise AssertionError(f"10b (iii): the ONNX artifact agrees with config A on {mean}")
+    return path
+
+
+def export_consumers_leg(work, state, frames, pt2, onnx, cli):
+    """10b (iv): ``pipeline.main --export-path`` on the CLI's ``--atc-compat``
+    ``.pt2`` and its ``.onnx`` (a camera frame to a wheel command, each
+    artifact on the loop's weights), ``compare_backends`` with
+    the 1024x2048 ``.pt2`` and ``.onnx`` of 10b (i) and (iii) (their pairs
+    at most 1 - EXPORT_GATE), and ``system_check.main --quick`` (PASS)."""
+    from fastscnn_tpu_torch import pipeline
+    from fastscnn_tpu_torch.data import image_io
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD
+    from fastscnn_tpu_torch.models import FastSCNN, to_param_trees
+    from fastscnn_tpu_torch.tools import compare_backends, system_check
+
+    png = os.path.join(work, "road.png")
+    image_io.write_png(png, _camera_frames(1, 5)[0][:, :, ::-1])
+    for label in ("pt2 --atc-compat", "onnx --argmax"):
+        t0 = time.perf_counter()
+        result, _ = _run_cli(pipeline.main, ["--input", png, "--export-path", cli[label],
+                                             "--output-dir", os.path.join(work, "out")])
+        cr = result.get("control_result") or {}
+        _print(f"  10b (iv) pipeline.main --export-path {os.path.basename(cli[label])}: "
+               f"{time.perf_counter() - t0:.2f} s, command L {cr.get('pwm_left')} R "
+               f"{cr.get('pwm_right')} ({cr.get('turn_direction')})")
+        if not cr:
+            raise AssertionError(f"10b (iv): pipeline on {label} gave no wheel command")
+    model = FastSCNN(NUM_CLASSES)
+    model.load_state_dict(state)
+    params, mstate = to_param_trees(model)
+    images = frames[:1].cpu().numpy()
+    for path, pair in ((pt2, "f32_vs_export"), (onnx, "f32_vs_onnx")):
+        pairs = compare_backends.compare_backends(FastSCNN(NUM_CLASSES), params, mstate, images,
+                                                  IMAGENET_MEAN, IMAGENET_STD, export_path=path)
+        _print(f"  10b (iv) compare_backends --export-path {os.path.basename(path)}: {pairs}")
+        if pairs.get(pair, 1.0) > 1 - EXPORT_GATE:
+            raise AssertionError(f"10b (iv): compare_backends {pair} {pairs.get(pair)}")
+    t0 = time.perf_counter()
+    rc, text = _run_cli(system_check.main, ["--quick", "--workdir", os.path.join(work, "sc")])
+    _print(f"  10b (iv) system_check.main --quick: {time.perf_counter() - t0:.1f} s, rc {rc}")
+    if rc != 0 or "SYSTEM CHECK: PASS" not in text:
+        raise AssertionError("10b (iv): system_check did not pass")
+
+
+def car_export_phase(root):
+    """Phase 10: the car's side (10a) and the export surface (10b). Returns
+    the launches of B3 and B1 (the wrappers' counts plus every graph's
+    captured launches x its replays)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_car")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = torch.device("cuda")
+    calib = torch.from_numpy(__import__("numpy").stack(
+        [f[:, :, ::-1] for f in _camera_frames(8, 100)])).to(dev)
+    lane = lane_state(calib)
+    lane_pth = os.path.join(work, "lane.pth")
+    torch.save(lane, lane_pth)
+    model = FastSCNN(LOOP_CLASSES, folded_dw_impl="fused-ds")
+    model.load_state_dict(lane)
+    a = InferenceEngine(model, device=dev, config=E2EConfig(
+        compute_dtype="bfloat16", final_upsample="pallas", mask_dtype="uint8"))
+    tally, stop = _tally_replays()
+    reset_launch_counts()
+    try:
+        _print("10a: the car's side (config A over predict_fn, 2 classes, 640x360):")
+        register_drive_leg(a)
+        rich_drive_leg(a)
+        web_drive_leg(a)
+        training_log_leg(work)
+        t_a = time.perf_counter() - t_phase
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        _print("10b: export (19 classes):")
+        t0 = time.perf_counter()
+        state, frames, pt2 = export_main_model_leg(work, dev)
+        cli = export_cli_leg(work, lane_pth)
+        onnx = onnx_main_model_leg(work, state, frames)
+        export_consumers_leg(work, state, frames, pt2, onnx, cli)
+        t_b = time.perf_counter() - t0
+    finally:
+        stop()
+    eager = launch_counts()
+    launches = {k: eager.get(k, 0) + tally.get(k, 0) for k in ("ds_conv3x3_pw", "upsample_argmax")}
+    _print(f"phase 10 launches (eager {({k: v for k, v in eager.items() if v})}, replayed "
+           f"{tally}): {launches}")
+    if not (tally.get("ds_conv3x3_pw") and tally.get("upsample_argmax")):
+        raise AssertionError("phase 10: no graph replay launched B3 and B1")
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 10: {time.perf_counter() - t_phase:.1f} s (10a {t_a:.1f} s, 10b {t_b:.1f} s)")
     return launches
 
 
@@ -4608,6 +5181,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in loop_phase(root).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in car_export_phase(root).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

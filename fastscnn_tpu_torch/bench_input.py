@@ -22,7 +22,7 @@ Shapes, halved unless ``--full``: ``citys`` Cityscapes-format PNGs at
 (base 520, crop 480, 48 images of ``images/`` + binary ``masks/``). The
 root bench writes the custom recipe's images as JPEG through PIL; here
 they are PNGs written by ``image_io.write_png`` (the port decodes no JPEG
-yet: ROADMAP.md, queue 1, item 5), so no PIL is on this path. The
+yet: ROADMAP.md, queue 1, item 5 (d)), so no PIL is on this path. The
 Trainer legs run inside the work directory, where the trainer writes its
 ``logs/``. ``--device`` (default: the CUDA card) places the Trainer's
 steps.

@@ -130,22 +130,35 @@ class InferenceEngine:
         self._pool = self._stream = None
 
     # -- graph pieces -------------------------------------------------------
-    def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
+    def graph_tensors(self) -> dict:
+        """The tensors the graph reads besides the images and the resize
+        tables: ``folded`` (the BN-folded tree), ``inv255`` and, with
+        ``config.mean``, ``mean`` and ``std``. Each graph piece takes such a
+        dict as ``g`` (None: this one), so that ``engine/export.py`` can
+        pass its module's buffers instead."""
+        g = {"folded": self.folded, "inv255": self._inv255}
+        if self.config.mean is not None:
+            g.update(mean=self._mean, std=self._std)
+        return g
+
+    def _preprocess(self, images: torch.Tensor, g: dict | None = None) -> torch.Tensor:
         """uint8/float NHWC [0, 255] → normalised NHWC in the compute dtype,
         with the JAX rounding order: cast, × (1/255), then (x − mean) / std."""
-        x = images.to(self._dtype) * self._inv255
+        g = self.graph_tensors() if g is None else g
+        x = images.to(self._dtype) * g["inv255"]
         if self.config.internal_size is not None:
             x = resize_bilinear(x, self.config.internal_size, align_corners=False)
         if self.config.mean is not None:
-            x = (x - self._mean) / self._std
+            x = (x - g["mean"]) / g["std"]
         return x
 
     def _net_in_size(self, shape):
         return tuple(self.config.internal_size or shape[1:3])
 
-    def _forward(self, images, resize_back=False, upsample=True):
-        x = self._preprocess(images)
-        logits = self.model.apply_folded(self.folded, x, upsample_outputs=False)[0]
+    def _forward(self, images, resize_back=False, upsample=True, g=None):
+        g = self.graph_tensors() if g is None else g
+        x = self._preprocess(images, g)
+        logits = self.model.apply_folded(g["folded"], x, upsample_outputs=False)[0]
         if upsample and logits.shape[1:3] != x.shape[1:3]:
             up = resize_bilinear if self.config.final_upsample == "gather" else resize_bilinear_matmul
             logits = up(logits, (x.shape[1], x.shape[2]), align_corners=True)
@@ -155,36 +168,36 @@ class InferenceEngine:
             )
         return logits
 
-    def _mask_at_net_res(self, images):
+    def _mask_at_net_res(self, images, g=None):
         mode = self.config.final_upsample
         size = self._net_in_size(images.shape)
         if mode == "pallas":
-            logits = self._forward(images, upsample=False).contiguous()
+            logits = self._forward(images, upsample=False, g=g).contiguous()
             return upsample_argmax(logits, size, align_corners=True)
         if mode in ("hybrid", "hybrid-pallas"):
             return w_matmul_h_lerp_argmax(
-                self._forward(images, upsample=False), size, align_corners=True,
+                self._forward(images, upsample=False, g=g), size, align_corners=True,
                 use_kernel=mode == "hybrid-pallas", out_dtype=self._mask_dtype,
             )
         if mode == "nbr-exact":
             return neighborhood_agreement_mask(
-                self._forward(images, upsample=False), size, align_corners=True,
+                self._forward(images, upsample=False, g=g), size, align_corners=True,
                 out_dtype=self._mask_dtype,
             )
         if mode == "argmax-first":
-            mask = self._forward(images, upsample=False).argmax(dim=-1).to(torch.int32)
+            mask = self._forward(images, upsample=False, g=g).argmax(dim=-1).to(torch.int32)
             return resize_nearest(mask, size)
-        return self._forward(images).argmax(dim=-1).to(torch.int32)
+        return self._forward(images, g=g).argmax(dim=-1).to(torch.int32)
 
-    def _predict_batch(self, images: torch.Tensor) -> torch.Tensor:
+    def _predict_batch(self, images: torch.Tensor, g: dict | None = None) -> torch.Tensor:
         """The whole of ``predict`` for an (N, H, W, 3) batch on the device."""
         out_size = tuple(images.shape[1:3])
         if self.config.softmax:
-            probs = torch.softmax(self._forward(images).float(), dim=-1)
+            probs = torch.softmax(self._forward(images, g=g).float(), dim=-1)
             if tuple(probs.shape[1:3]) != out_size:
                 probs = resize_bilinear(probs, out_size, align_corners=False)
             return probs
-        mask = self._mask_at_net_res(images)
+        mask = self._mask_at_net_res(images, g)
         if tuple(mask.shape[1:3]) != out_size:
             mask = resize_nearest(mask, out_size)
         return mask.to(self._mask_dtype)
@@ -223,7 +236,8 @@ class InferenceEngine:
         capture made (each replay launches them again; the wrappers' own
         counters see only the capture), ``run.replays`` the replays so far
         and ``run.pool_bytes`` the device memory the capture reserved; the
-        graph holds the device tables it reads. A failed capture raises
+        graph holds the device tables it reads, and ``run.engine`` the engine,
+        whose weights it reads. A failed capture raises
         ``ValueError``."""
         dev = self.device
         if self._pool is None:
@@ -254,6 +268,10 @@ class InferenceEngine:
             return static_out.clone()
 
         run.launches, run.replays, run.pool_bytes = captured.launches, 0, captured.pool_bytes
+        # the graph reads the engine's folded weights and constants by address:
+        # the callable holds the engine, so a caller that keeps only the
+        # callable cannot free them under the graph
+        run.engine = self
         return run
 
     def _eager(self, body: Callable, shape, what: str) -> Callable:
@@ -268,7 +286,7 @@ class InferenceEngine:
             run.replays += 1
             return body(images)
 
-        run.launches, run.replays, run.pool_bytes = {}, 0, 0
+        run.launches, run.replays, run.pool_bytes, run.engine = {}, 0, 0, self
         return run
 
     def _cached(self, key, body: Callable, warm: Callable, shape, what: str) -> Callable:

@@ -46,22 +46,23 @@ class FrameSource:
 
 class OpenCVCamera(FrameSource):
     """A V4L2 camera at 640×360@30: it needs OpenCV, which the port does
-    not have (ROADMAP.md, queue 1, item 5: cameras)."""
+    not have (ROADMAP.md, queue 1, item 5, left out: cameras)."""
 
     def __init__(self, index=0, width=640, height=360, fps=30):
         raise NotImplementedError(
             "OpenCVCamera needs cv2, which the port does not use; cameras are not ported yet "
-            "(ROADMAP.md, queue 1, item 5: cameras). Use SyntheticCamera or a FrameSource.")
+            "(ROADMAP.md, queue 1, item 5, left out: cameras). Use SyntheticCamera or a "
+            "FrameSource.")
 
 
 class VideoFileCamera(FrameSource):
     """Frames from a video file: it needs OpenCV's decoder (ROADMAP.md,
-    queue 1, item 5: cameras)."""
+    queue 1, item 5, left out: cameras)."""
 
     def __init__(self, path: str, loop: bool = False):
         raise NotImplementedError(
             "VideoFileCamera needs cv2, which the port does not use; video replay is not "
-            "ported yet (ROADMAP.md, queue 1, item 5: cameras)")
+            "ported yet (ROADMAP.md, queue 1, item 5, left out: cameras)")
 
 
 class SyntheticCamera(FrameSource):

@@ -159,12 +159,12 @@ class _PyramidPooling(nn.Module):
         self.conv4 = _ConvBNReLU(cin, inter, 1)
         self.out = _ConvBNReLU(cin * 2, cout, 1)
 
-    def forward(self, x):
+    def forward(self, x, sizes=_PPM_SIZES, align_corners=True):
         size = (x.shape[2], x.shape[3])
         feats = [x]
-        for conv, s in zip((self.conv1, self.conv2, self.conv3, self.conv4), _PPM_SIZES):
+        for conv, s in zip((self.conv1, self.conv2, self.conv3, self.conv4), sizes):
             y = conv(adaptive_avg_pool(x, s, h_axis=2, w_axis=3))
-            feats.append(resize_bilinear(y, size, True, h_axis=2, w_axis=3))
+            feats.append(resize_bilinear(y, size, align_corners, h_axis=2, w_axis=3))
         return self.out(torch.cat(feats, dim=1))
 
 
@@ -192,9 +192,9 @@ class _GlobalFeatureExtractor(nn.Module):
             self.add_module(f"bottleneck{stage}", nn.Sequential(*layers))
         self.ppm = _PyramidPooling(blocks[-1], cout)
 
-    def forward(self, x):
+    def forward(self, x, ppm_sizes=_PPM_SIZES, ppm_align_corners=True):
         x = self.bottleneck3(self.bottleneck2(self.bottleneck1(x)))
-        return self.ppm(x)
+        return self.ppm(x, ppm_sizes, ppm_align_corners)
 
 
 class _FeatureFusionModule(nn.Module):
@@ -230,15 +230,17 @@ class FastSCNN(nn.Module):
     :data:`FOLDED_PW_IMPLS` with its ``pw_act_scales`` (a tuple of
     ``(site, scale)`` pairs) and ``act_fake_quant`` (serving), and
     ``stem_impl`` ∈ :data:`STEM_IMPLS` and ``dropout_rate``
-    (``apply_params``). :meth:`with_options` is the JAX
-    ``dataclasses.replace``: a model with other options that shares these
-    weights. The JAX options that are not ported yet (``folded_dw_impl``
-    'taps', ``stem_impl`` 'taps' and 'taps-packbn') raise
-    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
-    The pyramid pooling keeps the training graph's bins (1, 2, 3, 6) and
-    ``align_corners=True``; the JAX
-    deployment-graph knobs ``ppm_sizes``/``ppm_align_corners`` belong to
-    the export surface.
+    (``apply_params``), and the deployment-graph knobs ``ppm_sizes`` (the
+    pyramid pooling's four bin counts) and ``ppm_align_corners`` (its
+    upsamples' convention), used by every forward. Their defaults, (1, 2,
+    3, 6) and True, are the training graph; (1, 2, 4, 8) and False are the
+    reference's deployed ATC graph, which ``export_model --atc-compat``
+    builds (reference:export_onnx_fixed.py:100-163). :meth:`with_options`
+    is the JAX ``dataclasses.replace``: a model with other options that
+    shares these weights. The JAX options that are not ported yet
+    (``folded_dw_impl`` 'taps', ``stem_impl`` 'taps' and 'taps-packbn')
+    raise ``NotImplementedError`` naming the ROADMAP.md item that ports
+    them.
     """
 
     def __init__(
@@ -251,13 +253,16 @@ class FastSCNN(nn.Module):
         stem_impl: str = "xla",
         dropout_rate: float = 0.1,
         pw_act_scales: tuple = (),
+        ppm_sizes: tuple = _PPM_SIZES,
+        ppm_align_corners: bool = True,
     ):
         super().__init__()
         self.num_classes = num_classes
         self.aux = aux
         self._set_options(folded_dw_impl=folded_dw_impl, folded_pw_impl=folded_pw_impl,
                           act_fake_quant=act_fake_quant, stem_impl=stem_impl,
-                          dropout_rate=dropout_rate, pw_act_scales=pw_act_scales)
+                          dropout_rate=dropout_rate, pw_act_scales=pw_act_scales,
+                          ppm_sizes=ppm_sizes, ppm_align_corners=ppm_align_corners)
         self.learning_to_downsample = _LearningToDownsample(32, 48, 64)
         self.global_feature_extractor = _GlobalFeatureExtractor(64, (64, 96, 128), 128, 6, (3, 3, 3))
         self.feature_fusion = _FeatureFusionModule(64, 128, 128)
@@ -272,7 +277,7 @@ class FastSCNN(nn.Module):
             )
 
     _OPTIONS = ("folded_dw_impl", "folded_pw_impl", "act_fake_quant", "stem_impl",
-                "dropout_rate", "pw_act_scales")
+                "dropout_rate", "pw_act_scales", "ppm_sizes", "ppm_align_corners")
 
     def _set_options(self, **options):
         for option in ("folded_dw_impl", "stem_impl"):
@@ -287,6 +292,11 @@ class FastSCNN(nn.Module):
             if options[option] not in allowed:
                 raise ValueError(f"unknown {option} {options[option]!r}")
         options["pw_act_scales"] = tuple(options["pw_act_scales"])
+        options["ppm_sizes"] = tuple(int(s) for s in options["ppm_sizes"])
+        if len(options["ppm_sizes"]) != 4:
+            raise ValueError(f"ppm_sizes needs one bin count for each of the 4 pyramid "
+                             f"convs, got {options['ppm_sizes']}")
+        options["ppm_align_corners"] = bool(options["ppm_align_corners"])
         self.__dict__.update(options)
         self._int8_weights = {}  # site -> (folded w, scale, prepared operands)
 
@@ -308,7 +318,7 @@ class FastSCNN(nn.Module):
         size = (x.shape[1], x.shape[2])
         x = x.permute(0, 3, 1, 2)  # NHWC memory as a channels_last NCHW tensor
         higher = self.learning_to_downsample(x)
-        lower = self.global_feature_extractor(higher)
+        lower = self.global_feature_extractor(higher, self.ppm_sizes, self.ppm_align_corners)
         outs = [self.classifier(self.feature_fusion(higher, lower))]
         if self.aux:
             outs.append(self.auxlayer(higher))
@@ -412,9 +422,9 @@ class FastSCNN(nn.Module):
                 y = bottleneck(bp, y, stride if i == 0 else 1, site=f"gfe/{name}/{i}")
         psize = (y.shape[1], y.shape[2])
         feats = [y]
-        for conv_name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), _PPM_SIZES):
+        for conv_name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
             z = cbr(g["ppm"][conv_name], adaptive_avg_pool(y, pool_size), site=f"gfe/ppm/{conv_name}")
-            feats.append(resize_bilinear_matmul(z, psize, align_corners=True))
+            feats.append(resize_bilinear_matmul(z, psize, align_corners=self.ppm_align_corners))
         lower = cbr(g["ppm"]["out"], torch.cat(feats, dim=-1), site="gfe/ppm/out")
         f = p["feature_fusion"]
         lo = resize_bilinear_matmul(lower, (higher.shape[1], higher.shape[2]), align_corners=True)
@@ -497,6 +507,7 @@ class _TreeForward:
         self.training = training
         self.generator = generator
         self.dropout_rate = model.dropout_rate
+        self.ppm_sizes, self.ppm_align_corners = model.ppm_sizes, model.ppm_align_corners
         impl = model.stem_impl
         if impl == "xla":
             self.stem_conv = conv2d
@@ -554,9 +565,9 @@ class _TreeForward:
             ns[name] = stage
         size = (x.shape[1], x.shape[2])
         feats, ppm = [x], {}
-        for name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), _PPM_SIZES):
+        for name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
             y, ppm[name] = self.cbr(p["ppm"][name], s["ppm"][name], adaptive_avg_pool(x, pool_size))
-            feats.append(resize_bilinear(y, size, align_corners=True))
+            feats.append(resize_bilinear(y, size, align_corners=self.ppm_align_corners))
         y, ppm["out"] = self.cbr(p["ppm"]["out"], s["ppm"]["out"], torch.cat(feats, dim=-1))
         ns["ppm"] = ppm
         return y, ns

@@ -27,10 +27,13 @@ import numpy as np
 import torch
 
 __all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest", "nearest_index",
-           "device_table_cache", "holding_tables"]
+           "device_table_cache", "holding_tables", "recording_tables", "substituted_tables"]
 
 # the lists of the active ``holding_tables`` blocks, innermost last
 _HOLDERS: list[list] = []
+# the dicts of the active ``recording_tables`` and ``substituted_tables`` blocks
+_RECORDS: list[dict] = []
+_SUBSTITUTES: list[dict] = []
 
 
 def device_table_cache(build):
@@ -40,8 +43,11 @@ def device_table_cache(build):
     calls copy nothing, so a CUDA graph can capture them. A build inside a
     capture raises: the warm-up before it should have built every table
     the capture reads. Each table returned is also appended to the list of
-    every active :func:`holding_tables` block. ``cache_info`` and
-    ``cache_clear`` are the cache's."""
+    every active :func:`holding_tables` block and recorded under its key
+    ``(function name, args)`` in every active :func:`recording_tables`
+    block; inside a :func:`substituted_tables` block whose dict has the
+    key, the lookup returns that dict's value instead of the cache's.
+    ``cache_info`` and ``cache_clear`` are the cache's."""
 
     @functools.lru_cache(maxsize=64)
     def cached(*args):
@@ -52,9 +58,15 @@ def device_table_cache(build):
 
     @functools.wraps(build)
     def lookup(*args):
+        key = (build.__name__, args)
+        for tables in reversed(_SUBSTITUTES):
+            if key in tables:
+                return tables[key]
         table = cached(*args)
         for holder in _HOLDERS:
             holder.append(table)
+        for record in _RECORDS:
+            record[key] = table
         return table
 
     lookup.cache_info, lookup.cache_clear = cached.cache_info, cached.cache_clear
@@ -72,6 +84,31 @@ def holding_tables(holder: list):
         yield holder
     finally:
         _HOLDERS.remove(holder)
+
+
+@contextlib.contextmanager
+def recording_tables(record: dict):
+    """Set ``record[(function name, args)]`` to every table that a
+    :func:`device_table_cache` returns inside the block (a tensor, or a
+    tuple of tensors)."""
+    _RECORDS.append(record)
+    try:
+        yield record
+    finally:
+        _RECORDS.remove(record)
+
+
+@contextlib.contextmanager
+def substituted_tables(tables: dict):
+    """Inside the block a :func:`device_table_cache` lookup whose key
+    (as :func:`recording_tables` records it) is in ``tables`` returns
+    ``tables[key]``: an exported module passes its own buffers this way,
+    so that the tables are part of its state instead of constants."""
+    _SUBSTITUTES.append(tables)
+    try:
+        yield tables
+    finally:
+        _SUBSTITUTES.remove(tables)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,7 +3,8 @@
 The port of ``fastscnn_tpu/pipeline.py``:
 
   read image → preprocess → infer (a session: the port's
-  ``InferenceEngine``, or any object with ``.predict`` or ``.infer``) →
+  ``InferenceEngine``, an exported artifact (:class:`ArtifactSession`,
+  ``--export-path``), or any object with ``.predict`` or ``.infer``) →
   postprocess to a 0/255 mask → bird's-eye view → control map + path
   planning → wheel-PWM control → save artifacts → per-stage perf report.
 
@@ -47,7 +48,7 @@ from fastscnn_tpu_torch.perception.preprocessing import _resize
 from fastscnn_tpu_torch.utils.profiling import PerfTimer
 
 __all__ = ["inference_single_image", "build_session", "load_model", "read_png_rgb",
-           "parse_args", "main"]
+           "ArtifactSession", "parse_args", "main"]
 
 FRAME_SIZE = (640, 360)  # (width, height) the engine path runs at
 
@@ -70,13 +71,40 @@ def load_model(num_classes: int, weights: str | None, aux: bool, device):
                           device=device)
 
 
+class ArtifactSession:
+    """An exported artifact as the pipeline's session: a ``.pt2`` program
+    (``engine/export.py``) on ``device`` (None: the CUDA card), or an
+    ``.onnx`` graph through onnxruntime or the numpy evaluator
+    (``engine/onnx_native.py``). ``predict(rgb)`` returns the class mask
+    of one RGB frame: the artifact runs at its own input size (batch 1),
+    the frame resized to it and the mask back (nearest); an artifact of
+    probabilities is argmaxed."""
+
+    def __init__(self, path: str, device=None):
+        from fastscnn_tpu_torch.engine.export import load_artifact
+
+        self.artifact = load_artifact(path, device)
+        if self.artifact.shape[0] != 1 or self.artifact.shape[3] != 3:
+            raise ValueError(f"{path}: the pipeline runs one RGB frame a call, the artifact "
+                             f"takes {self.artifact.shape}")
+
+    def predict(self, rgb: np.ndarray) -> np.ndarray:
+        h, w = rgb.shape[:2]
+        ah, aw = self.artifact.shape[1:3]
+        frame = rgb if (h, w) == (ah, aw) else _resize(rgb, aw, ah)
+        out = self.artifact(np.ascontiguousarray(frame)[None])
+        if isinstance(out, torch.Tensor):
+            out = out.cpu().numpy()
+        mask = (out.argmax(-1) if out.ndim == 4 else out)[0].astype(np.uint8)
+        return mask if (h, w) == (ah, aw) else _resize(mask, w, h, nearest=True)
+
+
 def build_session(args):
     """The port's ``InferenceEngine`` from CLI args, on ``args.device``
-    (None: the CUDA card), over :func:`load_model`'s weights."""
+    (None: the CUDA card), over :func:`load_model`'s weights; with
+    ``--export-path``, the :class:`ArtifactSession` of that artifact."""
     if getattr(args, "export_path", None):
-        raise NotImplementedError(
-            "--export-path: exported artifacts are not ported yet "
-            "(ROADMAP.md, queue 1, item 5: export)")
+        return ArtifactSession(args.export_path, getattr(args, "device", None))
     from fastscnn_tpu_torch import resolve_device
     from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
     from fastscnn_tpu_torch.models import DATASET_NUM_CLASSES
@@ -233,7 +261,7 @@ def _imwrite(path, img):
 
 def read_png_rgb(path: str) -> np.ndarray:
     """A PNG file as uint8 (H, W, 3) RGB. Other formats raise: they need
-    PIL or OpenCV (ROADMAP.md, queue 1, item 5: JPEG)."""
+    PIL or OpenCV (ROADMAP.md, queue 1, item 5 (d): JPEG)."""
     try:
         with open(path, "rb") as f:
             head = f.read(len(image_io.PNG_SIGNATURE))
@@ -242,7 +270,7 @@ def read_png_rgb(path: str) -> np.ndarray:
     if head != image_io.PNG_SIGNATURE:
         raise NotImplementedError(
             f"{path}: only PNG images are read by the port; JPEG and other formats are not "
-            "ported yet (ROADMAP.md, queue 1, item 5: JPEG)")
+            "ported yet (ROADMAP.md, queue 1, item 5 (d): JPEG)")
     return image_io.read_image(path, convert="RGB")
 
 
@@ -252,7 +280,8 @@ def parse_args(argv=None):
     parser.add_argument("--dataset", type=str, default="custom")
     parser.add_argument("--weights", type=str, default=None)
     parser.add_argument("--export-path", type=str, default=None,
-                        help="an exported artifact (not ported yet: raises)")
+                        help="an exported artifact (.pt2 of export_model, or .onnx) to run "
+                             "instead of the engine")
     parser.add_argument("--aux", action="store_true", default=False)
     parser.add_argument("--internal-size", type=int, default=0)
     parser.add_argument("--dtype", type=str, default="bfloat16")

@@ -45,10 +45,22 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
-def _target() -> Path:
-    h = hashlib.sha256(_SRC.read_bytes())
+def build_library(src: Path, name: str) -> Path:
+    """The shared library of the C++ source ``src``, compiled with ``g++``
+    when the one for this source and :data:`GXX_FLAGS` is missing, into
+    ``BUILD_DIR/lib<name>-<hash>.so``. The caller holds its own lock."""
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libserialbridge-{h.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ {src.name} (rc {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: no other process loads a partial library
+    return so
 
 
 def load_bridge() -> ctypes.CDLL:
@@ -58,16 +70,7 @@ def load_bridge() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        so = _target()
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ bridge.cpp (rc {proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, so)  # atomic: no other process loads a partial library
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(build_library(_SRC, "serialbridge")))
         # signatures
         lib.sb_pack.argtypes = [ctypes.c_int16, ctypes.c_int16, ctypes.c_char_p]
         lib.sb_pack.restype = ctypes.c_int

@@ -7,13 +7,16 @@ runs the same images through
 
   1. the f32 engine (ground truth),
   2. the bf16 BN-folded serving engine,
-  3. optionally any PyTorch module fed the same NCHW floats (the
+  3. optionally an exported artifact: a ``.pt2`` program of
+     ``export_model`` on the device (pair ``export``), or an emitted
+     ``.onnx`` through onnxruntime or the numpy evaluator (pair ``onnx``;
+     the reference's gate compares exactly its shipped ONNX artifact,
+     reference:compare_pytorch_onnx.py:88-112),
+  4. optionally any PyTorch module fed the same NCHW floats (the
      reference model with the same weights, say), its logits at ``[0]``,
 
 and reports per-pair argmax-mask disagreement rates. The default gate is
-the reference's published tolerance (0.5 %). The exported-artifact
-backend (StableHLO, ONNX) waits for the export surface: ``export_path``
-raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 5).
+the reference's published tolerance (0.5 %).
 
 Usage::
 
@@ -30,8 +33,6 @@ import numpy as np
 
 __all__ = ["compare_backends", "parse_args", "main"]
 
-_EXPORT = "ROADMAP.md, queue 1, item 5: the export surface"
-
 
 def compare_backends(
     model,
@@ -47,14 +48,15 @@ def compare_backends(
     """Return {pair_name: mismatch_rate} over argmax masks of uint8 NHWC
     ``images``, the engines running ``model`` with the weights of the
     ``params``/``state`` trees (numpy arrays or tensors) on ``device``
-    (None: the CUDA card). ``torch_model`` runs where its parameters lie."""
+    (None: the CUDA card). ``export_path``, when the file exists, is an
+    artifact taking batches of ``images``' shape, run on ``device``.
+    ``torch_model`` runs where its parameters lie."""
     import torch
 
     from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.engine.export import load_artifact
     from fastscnn_tpu_torch.models import from_jax_params
 
-    if export_path is not None:
-        raise NotImplementedError(f"export artifacts are not ported yet ({_EXPORT})")
     model.load_state_dict(from_jax_params(params, state))
     results = {}
     masks = {}
@@ -73,7 +75,14 @@ def compare_backends(
     masks["bf16"] = bf16.predict(images).cpu().numpy()
     del bf16
 
-    # 3. any module with the same weights, NCHW floats in
+    # 3. the exported artifact
+    if export_path and os.path.isfile(export_path):
+        out = load_artifact(export_path, device)(images)
+        out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+        name = "onnx" if export_path.endswith(".onnx") else "export"
+        masks[name] = out.argmax(-1) if out.ndim == 4 else out
+
+    # 4. any module with the same weights, NCHW floats in
     if torch_model is not None:
         x = images.astype(np.float32) / 255.0
         if mean is not None:
@@ -105,7 +114,7 @@ def parse_args(argv=None):
     parser.add_argument("--image-dir", type=str, default=None,
                         help="real images instead of random (PNG, resized to HxW)")
     parser.add_argument("--export-path", type=str, default=None,
-                        help=f"not ported yet ({_EXPORT})")
+                        help="an exported artifact (.pt2 or .onnx) of the same weights")
     parser.add_argument("--tolerance", type=float, default=0.005,
                         help="max allowed mismatch rate (reference published 0.38%%)")
     parser.add_argument("--device", type=str, default=None,

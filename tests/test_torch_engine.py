@@ -199,6 +199,26 @@ def test_predict_fn_is_cached_per_shape_equals_predict_and_copies(shared):
         fn(images.astype(np.float32))
 
 
+def test_predict_fn_holds_its_engine(shared):
+    """A callable of ``predict_fn`` or ``throughput_fn`` outlives the
+    engine reference it came from: on the card its graph reads the
+    engine's folded weights by address, so ``fn.engine`` holds the engine
+    (a graph of a dropped engine read freed memory: 0.22 of config A's
+    pixels in the export check of ``chip_smoke.py`` 10b)."""
+    import gc
+    import weakref
+
+    _, peng = _engines(shared, "conv", compute_dtype="float32")
+    images = shared[3]
+    want = peng.predict(images)
+    fns = (peng.predict_fn(images.shape), peng.throughput_fn(images.shape, iters=1))
+    alive = weakref.ref(peng)
+    del peng
+    gc.collect()
+    assert alive() is not None and all(fn.engine is alive() for fn in fns)
+    assert torch.equal(fns[0](images), want)
+
+
 @pytest.mark.parametrize("mode", ["pallas", "hybrid"])
 def test_throughput_fn_checksum_matches_jax(shared, mode):
     """``throughput_fn(iters=3)`` on the same f32 weights and input gives
@@ -256,7 +276,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'perception.transform', 'perception.path_planning', 'perception.preprocessing',\n"
         "        'control', 'control.visual_controller', 'interfaces', 'interfaces.realtime',\n"
         "        'interfaces.web_interface', 'serialbridge', 'control_dashboard', 'demo',\n"
-        "        'demo_tusimple', 'utils.profiling')}\n"
+        "        'demo_tusimple', 'utils.profiling', 'serialbridge.mcu',\n"
+        "        'serialbridge.rich_protocol', 'tools.manual_control', 'tools.analyzers',\n"
+        "        'engine.export', 'engine.onnx_native', 'export_model')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )

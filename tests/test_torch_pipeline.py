@@ -298,7 +298,7 @@ def test_camera_failures_and_the_no_path_stop_keep_the_loop_alive():
 def test_opencv_sources_raise_naming_the_roadmap():
     for cls, args in ((interfaces.realtime.OpenCVCamera, ()),
                       (interfaces.realtime.VideoFileCamera, ("drive.mp4",))):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(NotImplementedError, match="item 5, left out: cameras"):
             cls(*args)
 
 
@@ -411,10 +411,27 @@ def test_pipeline_main_writes_every_artifact(tmp_path, capsys):
     assert_same(image_io.read_image(str(out / "road_mask.png")), result["mask"])
     text = capsys.readouterr().out
     assert "warning: no --weights not found" in text and "single-image pipeline" in text
-    with pytest.raises(NotImplementedError, match="item 5: export"):
-        pipeline.main(["--device", "cpu", "--input", png, "--export-path", "m.onnx"])
+    # --export-path: a .pt2 and an .onnx of export_model (the frame resized
+    # to the artifacts' 72x128 and the mask back), each to a wheel command
+    from fastscnn_tpu_torch import export_model
+
+    results = {}
+    for fmt in ("pt2", "onnx"):
+        art = str(tmp_path / f"m.{fmt}")
+        export_model.main(["--device", "cpu", "--format", fmt, "--argmax", "--dtype", "float32",
+                           "--input-height", "72", "--input-width", "128", "--internal-size",
+                           "0", "--output", art])
+        results[fmt] = pipeline.main(["--device", "cpu", "--input", png, "--export-path", art,
+                                      "--output-dir", str(tmp_path / fmt),
+                                      "--pixels-per-unit", "2"])
+        assert isinstance(pipeline.build_session(pipeline.parse_args(
+            ["--device", "cpu", "--input", png, "--export-path", art])), pipeline.ArtifactSession)
+        assert results[fmt]["mask"].shape == result["mask"].shape
+        assert results[fmt]["control_result"] is not None
+        assert len(os.listdir(tmp_path / fmt)) == 5
+    assert (results["pt2"]["mask"] == results["onnx"]["mask"]).mean() >= 0.999
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 not a png")
-    with pytest.raises(NotImplementedError, match="item 5: JPEG"):
+    with pytest.raises(NotImplementedError, match=r"item 5 \(d\): JPEG"):
         pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.jpg")])
 
 
@@ -495,7 +512,7 @@ def test_control_dashboard_realtime_web(monkeypatch):
     assert seen["stop"] == (200, {"status": "ok", "stopped": True})
     assert seen["part"][0] == "Content-Type: image/png"
     assert image_io.decode_bytes(seen["part"][1])[0].shape[2] == 3
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 5, left out: cameras"):
         control_dashboard.main(["--cpu", "--realtime", "--max-frames", "1"])
 
 

@@ -38,7 +38,8 @@ def test_the_library_builds_under_build_and_not_at_import():
     assert os.path.dirname(path) == os.path.join(REPO, "build", "fastscnn_tpu_torch")
     assert os.path.basename(path).startswith("libserialbridge-") and path.endswith(".so")
     src = os.path.join(REPO, "fastscnn_tpu_torch", "serialbridge")
-    assert sorted(f for f in os.listdir(src) if not f.startswith("__")) == ["bridge.cpp"]
+    assert sorted(f for f in os.listdir(src) if not f.startswith("__")) == [
+        "bridge.cpp", "mcu.cpp", "mcu.py", "rich_protocol.py"]
 
 
 @pytest.mark.parametrize("left", SPEEDS)

@@ -488,11 +488,35 @@ def test_compare_backends_pairs_match_jax(weights):
 
 
 def test_compare_backends_export_path_raises(weights, tmp_path):
-    params, state = to_param_trees(weights[2])
+    """The artifact stage: a ``.pt2`` of the f32 engine (pair 'export') and
+    an emitted ``.onnx`` (pair 'onnx', the JAX tool's pair on the same
+    file) agree with the f32 engine; a path that is not a file adds no
+    pair, as in JAX; an artifact of another batch shape raises."""
+    from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.engine.export import export_torch
+    from fastscnn_tpu_torch.engine.onnx_native import emit_fastscnn_onnx, folded_numpy
+
+    jparams, jstate, model, images = weights
+    params, state = to_param_trees(model)
+    norm = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    eng = InferenceEngine(model, device="cpu", config=E2EConfig(compute_dtype="float32", **norm))
+    pt2 = export_torch(eng, images.shape, str(tmp_path / "m.pt2"))
+    onnx = str(tmp_path / "m.onnx")
+    emit_fastscnn_onnx(model, folded_numpy(model), (2, 3, 64, 128), onnx, output="mask", **norm)
+    for path, pair in ((pt2, "f32_vs_export"), (onnx, "f32_vs_onnx")):
+        got = cb.compare_backends(FastSCNN(NUM_CLASSES, aux=True), params, state, images,
+                                  export_path=path, device="cpu", **norm)
+        assert list(got) == ["f32_vs_bf16", pair] and got[pair] <= 1e-3
+    ref = jax_cb.compare_backends(JaxFastSCNN(NUM_CLASSES, aux=True), jparams, jstate, images,
+                                  export_path=onnx, **norm)
+    assert list(ref) == ["f32_vs_bf16", "f32_vs_onnx"] and ref["f32_vs_onnx"] <= 1e-3
     for path in (str(tmp_path / "missing.onnx"), str(tmp_path)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            cb.compare_backends(FastSCNN(NUM_CLASSES, aux=True), params, state, weights[3],
-                                export_path=path, device="cpu")
+        got = cb.compare_backends(FastSCNN(NUM_CLASSES, aux=True), params, state, images,
+                                  export_path=path, device="cpu", **norm)
+        assert list(got) == ["f32_vs_bf16"]
+    with pytest.raises(Exception):
+        cb.compare_backends(FastSCNN(NUM_CLASSES, aux=True), params, state, images[:1],
+                            export_path=pt2, device="cpu", **norm)
 
 
 def test_compare_backends_main_reads_weights_and_pngs(weights, tmp_path, capsys):
