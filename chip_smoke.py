@@ -6,7 +6,8 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the ``nvcc`` build of every kernel source, from this checkout; then
+2. the ``nvcc`` build of every kernel source, from this checkout, into the
+   compile cache ``utils/profiling.enable_compilation_cache`` names; then
    the depthwise forward, dX and dW kernels, B3 and B5 on a sweep of small
    shapes, views and channel counts that runs every channel width they
    pick (:func:`dw_sweep`), B7 and B8 on small shapes that take every path
@@ -91,11 +92,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    cache miss in epoch 1 and a hit in epoch 2); (b) a graphed run stopped
    after epoch 1 and resumed with ``--auto-resume``, bit-equal to the
    uninterrupted graphed run, and a ``.pt`` saved by a ``--device cpu``
-   run (SGD and AdamW) resumed on the card's graphs; (d) in bf16, 12
+   run (SGD and AdamW) resumed on the card's graphs; (d) in bf16, 8
    epochs of 3 steps through threads and through ``--loader grain`` (one
    worker process a core up to 8, a cold cache), each graphed and eager:
-   the host ms of the 20 steps of epochs 2-11 (median and quartiles), their
-   samples/s and data ms/iter, ``torch.profiler`` over epoch 12's steps
+   the host ms of the 12 steps of epochs 2-7 (median and quartiles), their
+   samples/s and data ms/iter, ``torch.profiler`` over epoch 8's steps
    inside the CLI (busy and idle share), the decoded cache's reads (every
    one a hit or a miss, a cold cache's files each missed at least once, a
    warm cache's reads all hits), the pools and peak memory;
@@ -185,11 +186,37 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    %); ``pipeline.main --export-path`` on a ``.pt2`` and an ``.onnx``,
    ``compare_backends`` on both 1024x2048 artifacts and
    ``system_check.main --quick`` (PASS);
-11. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8, 9 and 10, plus the captured
-   launches × the replays of the graphs of phases 4b, 4c, 6b (the trainer's
-   and the evaluator's), 8, 9 and 10, which no wrapper sees) and, last, the
-   device line ``{"ok": true, "device": {...}}``.
+11. the host tools and the model's last options (:func:`tools_phase`):
+   (a) ``utils/profiling.device_trace`` around 3 eager ``predict`` calls of
+   config A (19 classes, 1024x2048, N = 1, bf16), tabulated by
+   ``tools/xplane.device_op_table``: B3's and B1's kernel rows at exactly
+   the launch counters' 6 and 3, the device total within the block's wall
+   time, the top rows a frame and ``xplane.main --roofline``; and
+   ``enable_compilation_cache()`` returning the directory phase 2 built
+   the kernels into, twice; (b) at full width in f32, ``folded_dw_impl=
+   'taps'`` masks on 99.99 % of ``'conv'``'s (bf16 reported, eager ms a
+   frame beside ``'conv'``), and config C with ``pw_use_pallas=False``
+   against its default: each of the default run's B7 sites within B7's
+   gate of the plain version on its own input, B7 launched at every site
+   by the default and at none by False; (c) the recipe's step with
+   ``stem_impl`` 'taps' and 'taps-packbn', one f32 step each within phase
+   6's step-parity gate of 'xla', and 5 bf16 steps each beside 'xla' and
+   'pallas' (B6): ms/step and peak memory; (d) ``get_fast_scnn('citys',
+   pretrained=True)`` holding the weights the port's ``.pth`` writer saved;
+   (e) ``tools/validate_predictions.main`` on 8 val pairs of 1024x2048 with
+   those weights (its eval step a CUDA graph): every report line equal to
+   the host metric of masks computed here through the eager eval step, the
+   panels read back equal; (f) on a custom tree of 12 pairs at 640x360
+   written without PIL, ``calibration_tools`` (4 points, then the BEV of
+   the tree), ``dataset_tools`` (lane to drivable, flips, dedupe),
+   ``dataset_check`` (report, overlay grid), an ``EditorSession`` and the
+   annotation server over HTTP on 127.0.0.1 (every route and batch op):
+   each output read back equal to the array computed here with numpy;
+12. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10 and 11, plus the
+   captured launches × the replays of the graphs of phases 4b, 4c, 6b (the
+   trainer's and the evaluator's), 8, 9 and 10, which no wrapper sees) and,
+   last, the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
@@ -256,6 +283,7 @@ MASK_GATE = 0.995      # f32 serving masks vs the kernel-free config (PARITY.md'
 KERNEL_MASK_GATE = 0.999  # small f32 input vs the CPU (B1/B2 are held to every pixel)
 NEAR_TIE = 1e-5        # f32 gap below which a disagreeing pixel is a near-tie
 SPIN_CYCLES = 20_000_000  # the spin kernel before each timing window (~10 ms on an H100)
+BUILD_CACHE = [None]  # the compile cache phase 2 builds the kernels into
 
 
 def _print(*args):
@@ -1691,24 +1719,17 @@ def profile_steps(run_step, step_ms, steps=3, top=15, what="bf16 train step",
     return busy
 
 
-def training_phase():
-    """Phase 6: the training path through its entry points. Returns the
-    B6 launch counts of the bf16 run, its ms/step and the f32 step's
-    yardstick (the 'xla' step's relative distances f32 vs f64: loss, param
-    updates, BN-stat changes)."""
+def recipe_trainer(dev):
+    """``trainer(stem_impl, dtype) -> (state, step)``: the recipe's model
+    (19 classes, aux head) from SEED's weights, SGD with momentum and the
+    poly LR, and its eager train step on ``dev``."""
     import torch
 
     from fastscnn_tpu_torch.losses import get_loss_fn
     from fastscnn_tpu_torch.models import FastSCNN, init_fast_scnn
-    from fastscnn_tpu_torch.ops.cuda import dw_conv3x3_vjp, launch_counts, reset_launch_counts
     from fastscnn_tpu_torch.parallel import create_train_state, make_optimizer, make_train_step
     from fastscnn_tpu_torch.utils import lr_schedule
-    from fastscnn_tpu_torch.utils.tree import tree_leaves
 
-    dev = torch.device("cuda")
-    images, targets = training_batch(dev)
-    _print(f"training batch: images {tuple(images.shape)} {images.dtype}, labels "
-           f"{tuple(targets.shape)}, {(targets < 0).float().mean().item():.3f} ignored")
     init = init_fast_scnn(NUM_CLASSES, aux=True, generator=torch.Generator().manual_seed(SEED),
                           device=dev).state_dict()
     loss_fn = get_loss_fn("ce", aux=True, num_classes=NUM_CLASSES)
@@ -1721,6 +1742,54 @@ def training_phase():
         state = create_train_state(model, opt, device=dev)
         return state, make_train_step(model, loss_fn, opt, compute_dtype=dtype, device=dev)
 
+    return trainer
+
+
+def one_step(trainer, impl, dtype, images, targets):
+    """One step of ``trainer(impl, dtype)`` from its initial state, no
+    dropout: (loss, the params' update, the BN statistics' change), the
+    updates flattened."""
+    import torch
+
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    state, step = trainer(impl, dtype)
+    p0 = [t.detach().clone() for t in tree_leaves(state.params)]
+    s0 = [t.clone() for t in tree_leaves(state.model_state)]
+    state, metrics = step(state, images, targets)
+    run = (
+        float(metrics["loss"]),
+        torch.cat([(t.detach() - a).flatten() for t, a in zip(tree_leaves(state.params), p0)]),
+        torch.cat([(t - a).flatten() for t, a in zip(tree_leaves(state.model_state), s0)]),
+    )
+    del state, step
+    torch.cuda.empty_cache()
+    return run
+
+
+def step_distance(a, b):
+    """Relative distances of two :func:`one_step` runs: loss, param
+    updates (L2), BN-stat changes (max)."""
+    (la, pa, sa), (lb, pb, sb) = a, b
+    return (abs(la - lb) / abs(lb), ((pa - pb).norm() / pb.norm()).item(),
+            ((sa - sb).abs().max() / sb.abs().max()).item())
+
+
+def training_phase():
+    """Phase 6: the training path through its entry points. Returns the
+    B6 launch counts of the bf16 run, its ms/step and the f32 step's
+    yardstick (the 'xla' step's relative distances f32 vs f64: loss, param
+    updates, BN-stat changes)."""
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import dw_conv3x3_vjp, launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    images, targets = training_batch(dev)
+    _print(f"training batch: images {tuple(images.shape)} {images.dtype}, labels "
+           f"{tuple(targets.shape)}, {(targets < 0).float().mean().item():.3f} ignored")
+    trainer = recipe_trainer(dev)
+
     # (a) one f32 step through 'pallas' (B6) and one through 'xla' (cuDNN),
     # from the same weights, no dropout. Batch-stat BN amplifies f32
     # rounding differences between any two formulations (for torch's own
@@ -1728,27 +1797,12 @@ def training_phase():
     # 3.5e-3), so the yardstick is the same step through 'xla' in f64: the
     # two f32 steps must be as close to each other as F32_STEP_FACTOR times
     # 'xla' f32 is to f64, or within F32_STEP_FLOOR.
-    runs = {}
-    for label, impl, dtype in (("pallas", "pallas", torch.float32),
-                               ("xla", "xla", torch.float32), ("xla-f64", "xla", torch.float64)):
-        state, step = trainer(impl, dtype)
-        p0 = [t.detach().clone() for t in tree_leaves(state.params)]
-        s0 = [t.clone() for t in tree_leaves(state.model_state)]
-        state, metrics = step(state, images, targets)
-        runs[label] = (
-            float(metrics["loss"]),
-            torch.cat([(t.detach() - a).flatten() for t, a in zip(tree_leaves(state.params), p0)]),
-            torch.cat([(t - a).flatten() for t, a in zip(tree_leaves(state.model_state), s0)]),
-        )
-        del state, step
-        torch.cuda.empty_cache()
-
-    def rel(a, b):
-        (la, pa, sa), (lb, pb, sb) = runs[a], runs[b]
-        return (abs(la - lb) / abs(lb), ((pa - pb).norm() / pb.norm()).item(),
-                ((sa - sb).abs().max() / sb.abs().max()).item())
-
-    got, yard = rel("pallas", "xla"), rel("xla", "xla-f64")
+    runs = {label: one_step(trainer, impl, dtype, images, targets)
+            for label, impl, dtype in (("pallas", "pallas", torch.float32),
+                                       ("xla", "xla", torch.float32),
+                                       ("xla-f64", "xla", torch.float64))}
+    got, yard = step_distance(runs["pallas"], runs["xla"]), step_distance(runs["xla"],
+                                                                           runs["xla-f64"])
     _print(f"f32 step, stem 'pallas' vs 'xla': loss {runs['pallas'][0]:.7f} vs "
            f"{runs['xla'][0]:.7f}; relative differences (loss, param updates L2, BN-stat "
            f"changes max) {tuple(f'{v:.3g}' for v in got)}; 'xla' f32 vs f64: "
@@ -1857,9 +1911,9 @@ def png_bytes(arr, kinds=PNG_FILTERS) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
-def synthetic_cityscapes(root):
-    """Writes the tree (``leftImg8bit``/``gtFine``, one city) and returns
-    {path: array written}. Each 64x64 block of an image takes a labelId,
+def synthetic_cityscapes(root, splits=TREE_SPLITS):
+    """Writes the tree (``leftImg8bit``/``gtFine``, one city; ``splits``:
+    {split: ((n, H, W), ...)}) and returns {path: array written}. Each 64x64 block of an image takes a labelId,
     valid or ignored, at random (seeded); its pixels are that id's colour
     plus noise, so the label is a function of the image."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1870,7 +1924,7 @@ def synthetic_cityscapes(root):
     ids = np.array(CITYS_VALID + CITYS_IGNORED)
     palette = rng.integers(0, 256, (len(ids), 3))
     files = {}
-    for split, sizes in TREE_SPLITS.items():
+    for split, sizes in splits.items():
         for kind in ("leftImg8bit", "gtFine"):
             os.makedirs(os.path.join(root, kind, split, "synth"), exist_ok=True)
         shapes = [(h, w) for n, h, w in sizes for _ in range(n)]
@@ -2510,7 +2564,7 @@ def graphed_cli_equality(runs, tree, cache, n_train, n_val):
 # are timed (each step's host interval from its call to the next call in
 # its epoch: the loader's wait, the batch's copy and the step, synchronised
 # by the loss the trainer prints), the last epoch's steps are profiled
-CLI_EPOCHS = 12
+CLI_EPOCHS = 8
 CLI_PROFILE = (3 * CLI_EPOCHS - 2, 3 * CLI_EPOCHS)
 EVAL_TIMED_IMAGES, EVAL_TIMED_PASSES = 8, 3  # eval.main timing: the 1024x2048 val images
 
@@ -4052,6 +4106,7 @@ TRAINING_LOG: list = []  # phase 6b's last monitor log with val records, for 10a
 CAR_FRAMES = 12  # loop frames driven into each vehicle of 10a
 WATCHDOG_MS = 500  # the firmware's fixed command watchdog
 EXPORT_FRAMES = 2  # 1024x2048 frames each artifact of 10b (i) is held to config A on
+ONNX_FRAMES = 1  # of those, through 10b (iii)'s numpy evaluator (~4 s a frame on the host)
 EXPORT_GATE = 0.999  # artifact masks vs config A's on the card, f32
 MOVE_SHAPE = (1, 128, 256, 3)  # the artifact moved from the card to the CPU
 EXPORT_SHAPE = (1, HEIGHT, WIDTH, 3)  # 10b (i)'s artifacts and (iii)'s ONNX graph
@@ -4453,7 +4508,7 @@ def export_cli_leg(work, lane):
 def onnx_main_model_leg(work, state, frames):
     """10b (iii): the 10b (i) weights emitted as ONNX at 1024x2048 (mask
     output, f32) and run by the numpy evaluator on the host: its masks
-    against the card engine's (config A, f32) on EXPORT_FRAMES frames, at
+    against the card engine's (config A, f32) on ONNX_FRAMES frames, at
     EXPORT_GATE; the evaluator's seconds."""
     from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
     from fastscnn_tpu_torch.engine.onnx_native import OnnxArtifact, emit_fastscnn_onnx, folded_numpy
@@ -4472,7 +4527,7 @@ def onnx_main_model_leg(work, state, frames):
     eng = InferenceEngine(a, device=frames.device, config=E2EConfig(
         mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="float32", final_upsample="pallas"))
     agree, seconds = [], []
-    for i in range(EXPORT_FRAMES):
+    for i in range(ONNX_FRAMES):
         x = frames[i:i + 1]
         t0 = time.perf_counter()
         got = art(x.cpu().numpy())
@@ -4586,6 +4641,608 @@ def car_export_phase(root):
     shutil.rmtree(work, ignore_errors=True)
     _print(f"phase 10: {time.perf_counter() - t_phase:.1f} s (10a {t_a:.1f} s, 10b {t_b:.1f} s)")
     return launches
+
+
+# phase 11: the host tools and the model's last options
+TAPS_AGREE_GATE = 0.9999  # 'taps' vs 'conv' masks, f32, 1024x2048
+OPTION_FRAMES = 2  # 1024x2048 frames each option of 11 (b) is held on
+TIMED_STEPS = 5  # 11 (c)'s bf16 steps a leg
+VALIDATE_PAIRS = 8  # 11 (e)'s val pairs of 1024x2048
+TOOL_PAIRS, TOOL_SHAPE = 12, (360, 640)  # 11 (f)'s custom tree: the loop's camera frames
+TOOL_POINTS = ("200,150", "440,150", "560,330", "80,330")  # a marker's corners at 640x360
+
+
+def _kernel_rows(rows, fragment):
+    """The xplane rows whose kernel name holds ``fragment``: (count, ms)."""
+    picked = [r for r in rows if fragment in r["name"]]
+    return sum(r["count"] for r in picked), sum(r["time_ps"] for r in picked) / 1e9
+
+
+def profiling_leg(work, engine_a, frame):
+    """11 (a): ``device_trace`` around 3 eager ``predict`` calls of config
+    A, tabulated by ``tools/xplane``: B3's and B1's rows at exactly their
+    counters' launches, the device total positive and within the block's
+    wall time; the compile cache enabled in phase 2 returned again."""
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.tools import xplane
+    from fastscnn_tpu_torch.utils.profiling import device_trace, enable_compilation_cache
+
+    trace_dir = os.path.join(work, "trace")
+    engine_a.predict(frame)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with device_trace(trace_dir):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            engine_a.predict(frame)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    rows, total, path = xplane.device_op_table(trace_dir)
+    b3, b3_ms = _kernel_rows(rows, "ds_conv3x3_pw_kernel")
+    b1, b1_ms = _kernel_rows(rows, "upsample_argmax_kernel")
+    _print(f"11a: trace {os.path.basename(path)} ({os.path.getsize(path)} bytes): {len(rows)} "
+           f"kernels, device total {total * 1e3:.3f} ms of the block's {wall * 1e3:.3f} ms "
+           f"wall ({total / wall:.3f} busy); B3 rows {b3} launches ({b3_ms:.4f} ms), B1 {b1} "
+           f"({b1_ms:.4f} ms); the counters {counts['ds_conv3x3_pw']} and "
+           f"{counts['upsample_argmax']}")
+    if (b3, b1) != (counts["ds_conv3x3_pw"], counts["upsample_argmax"]) or (b3, b1) != (6, 3):
+        raise AssertionError(f"11a: the trace's B3/B1 rows {(b3, b1)} are not the counters' "
+                             f"{(counts['ds_conv3x3_pw'], counts['upsample_argmax'])} (6, 3)")
+    if not 0 < total <= wall:
+        raise AssertionError(f"11a: device total {total} s against the block's {wall} s")
+    xplane.main([trace_dir, "--iters", "3", "--top", "10"])
+    xplane.main([trace_dir, "--iters", "3", "--roofline", "--top", "10"])
+    # the same block under a bare torch.profiler session, without device_trace's
+    # warm-up: the kernel records it loses at this age of the process
+    raw_dir = os.path.join(work, "trace_raw")
+    os.makedirs(raw_dir)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            engine_a.predict(frame)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(raw_dir, "raw.pt.trace.json"))
+    raw_rows, raw_total, _ = xplane.device_op_table(raw_dir)
+    _print(f"11a: the same block without the warm-up: {sum(r['count'] for r in raw_rows)} kernel "
+           f"records against device_trace's {sum(r['count'] for r in rows)}, B3 "
+           f"{_kernel_rows(raw_rows, 'ds_conv3x3_pw_kernel')[0]} and B1 "
+           f"{_kernel_rows(raw_rows, 'upsample_argmax_kernel')[0]}, device total "
+           f"{raw_total * 1e3:.3f} ms (reported, not gated)")
+    counts = launch_counts()
+    cache = enable_compilation_cache()
+    again = enable_compilation_cache()
+    _print(f"11a: enable_compilation_cache() -> {cache} (again {again}); phase 2 built into "
+           f"{BUILD_CACHE[0]}")
+    if not (cache == again == BUILD_CACHE[0] == str(_build.build_dir())) or not all(
+            p.parent == _build.build_dir() and p.exists() for p in _build.build_all().values()):
+        raise AssertionError("11a: the compile cache is not where phase 2 built the kernels")
+    return {"ds_conv3x3_pw": counts["ds_conv3x3_pw"], "upsample_argmax": counts["upsample_argmax"]}
+
+
+def options_leg(state, calib, frames):
+    """11 (b): ``folded_dw_impl='taps'`` against ``'conv'`` at full width
+    (f32 masks gated, bf16 reported, eager ms a frame), and config C with
+    ``pw_use_pallas=False`` against its default: every int8 site of the
+    default run within B7's gate of the plain version on the site's own
+    input, the default launching B7 at each site and False none."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN, calibrate_pw_scales, quantized_model
+    from fastscnn_tpu_torch.models import fast_scnn as fast_scnn_module
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = frames.device
+
+    def engine(impl, dtype, mode="hybrid", scales=None, use_pallas=None):
+        model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl)
+        model.load_state_dict(state)
+        if scales is not None:
+            model = quantized_model(model, scales, "int8-a8").with_options(
+                pw_use_pallas=use_pallas)
+        return InferenceEngine(model, device=dev, config=E2EConfig(
+            mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
+
+    def masks_and_ms(eng):
+        eng.predict(frames[:1])
+        torch.cuda.synchronize()
+        out, times = [], []
+        for i in range(len(frames)):
+            t0 = time.perf_counter()
+            out.append(eng.predict(frames[i:i + 1]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return torch.cat(out), statistics.median(times)
+
+    for dtype in ("float32", "bfloat16"):
+        conv, conv_ms = masks_and_ms(engine("conv", dtype))
+        taps, taps_ms = masks_and_ms(engine("taps", dtype))
+        agree = (conv == taps).float().mean().item()
+        _print(f"11b: folded_dw_impl 'taps' vs 'conv', {dtype}, {len(frames)} x "
+               f"{HEIGHT}x{WIDTH}: masks agree on {agree:.6f}; eager {taps_ms:.3f} vs "
+               f"{conv_ms:.3f} ms a frame")
+        if dtype == "float32" and agree < TAPS_AGREE_GATE:
+            raise AssertionError(f"11b: 'taps' masks on {agree} of 'conv''s, under "
+                                 f"{TAPS_AGREE_GATE}")
+        del conv, taps
+    cal = engine("conv", "bfloat16")
+    scales = calibrate_pw_scales(cal.model, cal.folded, [calib], preprocess=cal._preprocess)
+    del cal
+    seen = {"default": [], "False": []}  # each run's sites: (kind, x_q, w_eff, b, relu, out)
+    run_of = ["default"]
+    real = {"kernel": fast_scnn_module.pw_conv_a8, "plain": fast_scnn_module.pw_conv_a8_reference}
+
+    def recorder(kind):
+        def run(q, w, b, relu=True):
+            out = real[kind](q, w, b, relu=relu)
+            seen[run_of[0]].append((kind, q, w, b, relu, out))
+            return out
+        return run
+
+    masks, counts = {}, {}
+    fast_scnn_module.pw_conv_a8 = recorder("kernel")
+    fast_scnn_module.pw_conv_a8_reference = recorder("plain")
+    try:
+        for label, use_pallas in (("default", None), ("False", False)):
+            eng = engine("fused-ds-mr", "float32", "pallas", scales, use_pallas)
+            run_of[0] = label
+            eng.predict(frames[:1])
+            torch.cuda.synchronize()
+            seen[label].clear()
+            reset_launch_counts()
+            masks[label] = eng.predict(frames[:1])
+            torch.cuda.synchronize()
+            counts[label] = {k: v for k, v in launch_counts().items() if v}
+            del eng
+    finally:
+        fast_scnn_module.pw_conv_a8 = real["kernel"]
+        fast_scnn_module.pw_conv_a8_reference = real["plain"]
+    sites = SERVING_CONFIGS[3][4]["pw_conv_a8"]  # C's int8 sites a frame (the LTD's are in B5)
+    kinds = {label: [site[0] for site in sites_run] for label, sites_run in seen.items()}
+    _print(f"11b: config C, f32, pw_use_pallas None: launches {counts['default']}; False: "
+           f"{counts['False']}")
+    if (counts["default"].get("pw_conv_a8") != sites or "pw_conv_a8" in counts["False"]
+            or kinds != {"default": ["kernel"] * sites, "False": ["plain"] * sites}
+            or counts["False"].get("ds_conv3x3_pw_multirow") != 2):
+        raise AssertionError(f"11b: pw_use_pallas did not route config C's int8 sites: {kinds}")
+    used = []
+    for i, (_, q, w, b, relu, out) in enumerate(seen["default"]):
+        ref = real["plain"](q, w, b, relu=relu)
+        used.append(pw_a8_gate(f"site {i}", out, ref, q, w, False, quiet=True)[1])
+    first_in = torch.equal(seen["default"][0][1], seen["False"][0][1])
+    agree = (masks["default"] == masks["False"]).float().mean().item()
+    _print(f"11b: each of the default run's {len(used)} B7 sites within B7's gate of the plain "
+           f"version on its input (largest share of the allowance used {max(used):.3g}); the "
+           f"first site's int8 input equal in both runs: {first_in}; masks default vs False "
+           f"agree on {agree:.6f}")
+    if not first_in:
+        raise AssertionError("11b: the runs differ before their first int8 site")
+    return {"pw_conv_a8": counts["default"]["pw_conv_a8"],
+            "ds_conv3x3_pw_multirow": counts["default"].get("ds_conv3x3_pw_multirow", 0)
+            + counts["False"].get("ds_conv3x3_pw_multirow", 0),
+            "upsample_argmax": counts["default"].get("upsample_argmax", 0)
+            + counts["False"].get("upsample_argmax", 0)}
+
+
+def taps_step_leg(yard):
+    """11 (c): the recipe's step with ``stem_impl`` 'taps' and
+    'taps-packbn': one f32 step each from phase 6's weights within phase
+    6's step-parity gate of 'xla'; bf16 ms/step over TIMED_STEPS steps
+    beside 'xla' and 'pallas' (B6), with peak memory."""
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    images, targets = training_batch(dev)
+    trainer = recipe_trainer(dev)
+    limits = [max(F32_STEP_FACTOR * y, F32_STEP_FLOOR) for y in yard]
+    xla = one_step(trainer, "xla", torch.float32, images, targets)
+    for impl in ("taps", "taps-packbn"):
+        got = step_distance(one_step(trainer, impl, torch.float32, images, targets), xla)
+        _print(f"11c: f32 step, stem {impl!r} vs 'xla': relative differences (loss, param "
+               f"updates L2, BN-stat changes max) {tuple(f'{v:.3g}' for v in got)}; limits "
+               f"{tuple(f'{v:.3g}' for v in limits)}")
+        if any(g > lim for g, lim in zip(got, limits)):
+            raise AssertionError(f"11c: f32 {impl!r} step disagrees with 'xla': {got}")
+    launches = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for impl in ("xla", "pallas", "taps", "taps-packbn"):
+        state, step = trainer(impl, torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        step(state, images, targets, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        start.record()
+        losses = [step(state, images, targets, gen)[1]["loss"] for _ in range(TIMED_STEPS)]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / TIMED_STEPS
+        counts = {k: v for k, v in launch_counts().items() if v}
+        _print(f"11c: bf16 recipe step, stem {impl!r}: {ms:.2f} ms/step over {TIMED_STEPS} "
+               f"steps, {TRAIN_BATCH * 1e3 / ms:.1f} samples/s, peak memory "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses "
+               f"{[round(float(v), 4) for v in losses]}, launches {counts}")
+        if not all(math.isfinite(float(v)) for v in losses):
+            raise AssertionError(f"11c: non-finite {impl!r} loss")
+        want = {k: 2 * TIMED_STEPS for k in TRAINING_NAMES} if impl == "pallas" else {}
+        if counts != want:
+            raise AssertionError(f"11c: stem {impl!r} launched {counts}, expected {want}")
+        for name, n in counts.items():
+            launches[TRAINING_NAMES[name]] = n
+        del state, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+def get_fast_scnn_leg(work, state):
+    """11 (d): ``get_fast_scnn('citys', pretrained=True)`` on a
+    ``fast_scnn_citys.pth`` the port's writer saved: the model holds those
+    weights. Returns the path."""
+    import torch
+
+    from fastscnn_tpu_torch.models import FastSCNN, get_fast_scnn, to_param_trees
+    from fastscnn_tpu_torch.utils.checkpoint import save_pth_checkpoint
+
+    src = FastSCNN(NUM_CLASSES)
+    src.load_state_dict(state)
+    path = save_pth_checkpoint(*to_param_trees(src), work, dataset="citys")
+    model = get_fast_scnn("citys", pretrained=True, root=work)
+    got = model.state_dict()
+    differ = [k for k, v in src.state_dict().items()
+              if not k.endswith("num_batches_tracked") and not torch.equal(got[k].cpu(), v.cpu())]
+    _print(f"11d: get_fast_scnn('citys', pretrained=True) from {os.path.basename(path)}: "
+           f"{len(got)} tensors on {next(model.parameters()).device}, {len(differ)} differ")
+    if differ or next(model.parameters()).device.type != "cuda" or model.training:
+        raise AssertionError(f"11d: the model does not hold the saved weights: {differ[:5]}")
+    return path
+
+
+def validate_leg(work, weights):
+    """11 (e): ``validate_predictions.main`` on VALIDATE_PAIRS val pairs of
+    1024x2048 with 11 (d)'s weights: every line of its report equal to the
+    host metric of masks this phase computes through ``make_eval_step``
+    (eager) on the same images; its panels read back equal to the arrays."""
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch.data import get_segmentation_dataset, image_io
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.parallel import make_eval_step
+    from fastscnn_tpu_torch.tools import validate_predictions
+    from fastscnn_tpu_torch.utils.checkpoint import load_pth_checkpoint
+    from fastscnn_tpu_torch.utils.metric import SegmentationMetric
+    from fastscnn_tpu_torch.utils.tree import tree_map
+
+    tree, out = os.path.join(work, "citys"), os.path.join(work, "validation")
+    synthetic_cityscapes(tree, {"val": ((VALIDATE_PAIRS, HEIGHT, WIDTH),)})
+    t0 = time.perf_counter()
+    (pa, miou), text = _run_cli(validate_predictions.main, [
+        "--dataset", "citys", "--data-root", tree, "--weights", weights, "--base-size", "1024",
+        "--max-images", str(VALIDATE_PAIRS), "--outdir", out])
+    seconds = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    params, model_state = (tree_map(lambda t: t.to(dev), t)
+                           for t in load_pth_checkpoint(weights, NUM_CLASSES))
+    step = make_eval_step(FastSCNN(NUM_CLASSES), NUM_CLASSES, mean=IMAGENET_MEAN,
+                          std=IMAGENET_STD, device=dev)
+    dataset = get_segmentation_dataset("citys", root=tree, split="val", mode="val",
+                                       base_size=1024, crop_size=768)
+    total, lines = SegmentationMetric(NUM_CLASSES), ["image,pix_acc,miou"]
+    scale = 255 // (NUM_CLASSES - 1)
+    for i in range(VALIDATE_PAIRS):
+        img, gt = dataset[i]
+        pred = step(params, model_state, img[None], gt[None].astype(np.int32))[0].cpu().numpy()[0]
+        one = SegmentationMetric(NUM_CLASSES)
+        one.update(pred, gt)
+        total.update(pred, gt)
+        lines.append("{},{:.4f},{:.4f}".format(i, *one.get()))
+        panel = np.concatenate([np.where(gt < 0, 0, gt * scale).astype(np.uint8),
+                                (pred * scale).astype(np.uint8),
+                                np.where((gt >= 0) & (pred != gt), 255, 0).astype(np.uint8)], 1)
+        got = image_io.read_image(os.path.join(out, f"val_{i}_panel.png"))
+        if not np.array_equal(got, panel):
+            raise AssertionError(f"11e: panel {i} differs from the masks' panel")
+    lines.append("OVERALL,{:.4f},{:.4f}".format(*total.get()))
+    with open(os.path.join(out, "validation_report.csv")) as f:
+        report = f.read()
+    _print(f"11e: validate_predictions on {VALIDATE_PAIRS} pairs of {HEIGHT}x{WIDTH} (768x768 "
+           f"crops): {seconds:.1f} s, {seconds * 1e3 / VALIDATE_PAIRS:.1f} ms an image (its "
+           f"graph's capture included); OVERALL pixAcc {pa:.4f} mIoU {miou:.4f}")
+    if report != "\n".join(lines) + "\n" or (pa, miou) != total.get():
+        raise AssertionError(f"11e: the report differs from the host metric:\n{report}\nvs\n"
+                             + "\n".join(lines))
+    return seconds
+
+
+def _expected_drivable(lane, iterations=2):
+    """The lane→drivable rule computed here: the lane pixels grown by
+    ``iterations`` steps of a 4-neighbour cross, then each row filled from
+    its first to its last pixel where it has 2 or more."""
+    import numpy as np
+
+    grown = lane > 0
+    for _ in range(iterations):
+        g = grown.copy()
+        g[1:] |= grown[:-1]
+        g[:-1] |= grown[1:]
+        g[:, 1:] |= grown[:, :-1]
+        g[:, :-1] |= grown[:, 1:]
+        grown = g
+    out = np.zeros(lane.shape, np.uint8)
+    for y, row in enumerate(grown):
+        xs = np.nonzero(row)[0]
+        if xs.size >= 2:
+            out[y, xs.min():xs.max() + 1] = 255
+    return out
+
+
+def tools_tree(root):
+    """TOOL_PAIRS camera-sized pairs written without PIL: RGB images and
+    0/255 lane-line masks (``image_io.write_png``). Returns {stem: (image,
+    mask)}."""
+    import numpy as np
+
+    from fastscnn_tpu_torch.data import image_io
+
+    rng = np.random.default_rng(SEED + 11)
+    h, w = TOOL_SHAPE
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "masks"))
+    pairs = {}
+    for i in range(TOOL_PAIRS):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        mask = np.zeros((h, w), np.uint8)
+        left, right = int(rng.integers(100, 200)), int(rng.integers(440, 540))
+        keep = rng.random((h, 2)) < 0.85  # broken lines: the dilation bridges the gaps
+        rows = np.arange(h)
+        mask[rows[keep[:, 0]], left + rows[keep[:, 0]] // 6] = 255
+        mask[rows[keep[:, 1]], right - rows[keep[:, 1]] // 6] = 255
+        stem = f"cam_{i:03d}"
+        image_io.write_png(os.path.join(root, "images", stem + ".png"), img)
+        image_io.write_png(os.path.join(root, "masks", stem + ".png"), mask)
+        pairs[stem] = (img, mask)
+    return pairs
+
+
+def _http(base, path, payload=None):
+    import json as _json
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method="POST" if payload is not None else "GET",
+                                 data=None if payload is None else _json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=30) as r:
+        body = r.read()
+        return _json.loads(body) if r.headers["Content-Type"] == "application/json" else body
+
+
+def host_tools_leg(work):
+    """11 (f): the host tools on a custom tree of TOOL_PAIRS pairs at the
+    loop's camera size, PIL and OpenCV blocked; each output read back equal
+    to the array computed here with numpy."""
+    import base64
+    import json as _json
+
+    import numpy as np
+
+    from fastscnn_tpu_torch.data import image_io
+    from fastscnn_tpu_torch.perception.transform import PerspectiveTransformer
+    from fastscnn_tpu_torch.tools import calibration_tools, dataset_check, dataset_tools
+    from fastscnn_tpu_torch.tools.annotation_server import AnnotationServer
+    from fastscnn_tpu_torch.tools.mask_editor import EditorSession
+
+    root = os.path.join(work, "custom")
+    pairs = tools_tree(root)
+    images, masks = os.path.join(root, "images"), os.path.join(root, "masks")
+    stems = sorted(pairs)
+    t = {}
+
+    def check(what, got, want):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"11f: {what} differs from the array computed here")
+
+    # calibration: 4 points, then the BEV of the tree (2 px a unit)
+    t0 = time.perf_counter()
+    cal_path = os.path.join(work, "cal.json")
+    calibration_tools.main(["from-points", "--points", *TOOL_POINTS, "--out", cal_path])
+    with open(cal_path) as f:
+        cal = _json.load(f)
+    bev = os.path.join(work, "bev")
+    calibration_tools.main(["batch-bev", "--input-dir", images, "--output-dir", bev,
+                            "--masks-dir", masks, "--calibration", cal_path,
+                            "--pixels-per-unit", "2"])
+    warp = PerspectiveTransformer(cal)
+    for stem in stems:
+        img, mask = pairs[stem]
+        want_img, want_mask, _ = warp.transform_image_and_mask(img, mask, pixels_per_unit=2)
+        check(f"{stem}_bev.png", image_io.read_image(os.path.join(bev, stem + "_bev.png")),
+              want_img)
+        check(f"{stem}_bev_mask.png",
+              image_io.read_image(os.path.join(bev, stem + "_bev_mask.png")), want_mask)
+    t["calibration"] = time.perf_counter() - t0
+
+    # dataset tools: lane -> drivable, flips, dedupe
+    t0 = time.perf_counter()
+    drivable = os.path.join(work, "drivable")
+    dataset_tools.main(["lane2drivable", "--input-dir", masks, "--output-dir", drivable])
+    for stem in stems:
+        check(f"drivable/{stem}.png", image_io.read_image(os.path.join(drivable, stem + ".png")),
+              _expected_drivable(pairs[stem][1]))
+    dataset_tools.main(["augment", "--images", images, "--masks", masks])
+    for stem in stems:
+        img, mask = pairs[stem]
+        check(f"{stem}_flipped.png",
+              image_io.read_image(os.path.join(images, stem + "_flipped.png")), img[:, ::-1])
+        check(f"masks/{stem}_flipped.png",
+              image_io.read_image(os.path.join(masks, stem + "_flipped.png")), mask[:, ::-1])
+    dup = os.path.join(images, "zz_copy.png")
+    with open(os.path.join(images, stems[0] + ".png"), "rb") as f, open(dup, "wb") as g:
+        g.write(f.read())
+    dataset_tools.main(["dedupe", "--dir", images, "--delete"])
+    if os.path.exists(dup) or len(os.listdir(images)) != 2 * TOOL_PAIRS:
+        raise AssertionError("11f: dedupe did not delete exactly the copy")
+    t["dataset_tools"] = time.perf_counter() - t0
+
+    # dataset check: the report, then the overlay grid of the first 9 pairs
+    t0 = time.perf_counter()
+    _, text = _run_cli(dataset_check.main, ["masks", "--images-dir", images,
+                                            "--masks-dir", masks])
+    if f"{2 * TOOL_PAIRS} masks, 0 with issues" not in text:
+        raise AssertionError(f"11f: dataset_check reported issues:\n{text}")
+    grid_path = os.path.join(work, "grid.png")
+    dataset_check.main(["overlay", "--images-dir", images, "--masks-dir", masks,
+                        "--out", grid_path])
+    names = sorted(os.listdir(masks))[:9]
+    h, w = TOOL_SHAPE
+    grid = np.zeros((3 * h, 3 * w, 3), np.uint8)
+    for i, name in enumerate(names):
+        img = image_io.read_image(os.path.join(images, name), "RGB").astype(np.float64)
+        sel = image_io.read_image(os.path.join(masks, name)) > 128
+        img[sel] = img[sel] * 0.55 + np.array([0, 255, 0]) * 0.45
+        r, c = divmod(i, 3)
+        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = img.astype(np.uint8)
+    check("grid.png", image_io.read_image(grid_path), grid)
+    t["dataset_check"] = time.perf_counter() - t0
+
+    # the editor session: next, prev, paint, save
+    t0 = time.perf_counter()
+    session = EditorSession(images, masks)
+    if not (session.next() and session.next() and session.prev()):
+        raise AssertionError("11f: EditorSession did not move")
+    check("the session's mask", session.canvas.mask,
+          image_io.read_image(session.current_mask_path))
+    session.canvas.rectangle(10, 20, 300, 200)
+    session.canvas.brush(400, 100, 30)
+    painted = session.canvas.mask.copy()
+    check("the saved mask", image_io.read_image(session.save()), painted)
+    t["mask_editor"] = time.perf_counter() - t0
+
+    # the annotation server over HTTP on 127.0.0.1
+    t0 = time.perf_counter()
+    server = AnnotationServer(images, masks, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.start()}"
+    try:
+        listing = _http(base, "/api/images")
+        if [f["name"] for f in listing] != sorted(os.listdir(images)) or not all(
+                f["has_mask"] for f in listing):
+            raise AssertionError(f"11f: /api/images listed {listing[:3]}...")
+        name = stems[1] + ".png"
+        with open(os.path.join(images, name), "rb") as f:
+            if _http(base, "/image/" + name) != f.read():
+                raise AssertionError("11f: /image/ did not send the file's bytes")
+        mask = image_io.read_image(os.path.join(masks, name), "L")
+        overlay = np.zeros(mask.shape + (4,), np.uint8)
+        overlay[mask > 0, 0] = overlay[mask > 0, 3] = 255
+        check("/mask/ overlay", image_io.decode_bytes(_http(base, "/mask/" + name))[0], overlay)
+        canvas = np.zeros(mask.shape + (4,), np.uint8)
+        canvas[50:120, 30:600] = (255, 0, 0, 128)
+        canvas[200:, 100] = (255, 0, 0, 255)
+        buf = __import__("io").BytesIO()
+        image_io.write_png(buf, canvas)
+        b64 = base64.b64encode(buf.getvalue()).decode()
+        _http(base, "/api/save_mask", {"name": name, "mask_png_base64": b64})
+        check("/api/save_mask's mask", image_io.read_image(os.path.join(masks, name)),
+              np.where(canvas[..., 3] > 0, 255, 0).astype(np.uint8))
+        lanes = np.zeros(mask.shape + (4,), np.uint8)
+        lanes[..., 3] = pairs[stems[2]][1]
+        buf = __import__("io").BytesIO()
+        image_io.write_png(buf, lanes)
+        reply = _http(base, "/api/auto_fill",
+                      {"mask_png_base64": base64.b64encode(buf.getvalue()).decode()})
+        filled = _expected_drivable(pairs[stems[2]][1])
+        want = np.zeros(mask.shape + (4,), np.uint8)
+        want[filled > 0, 0] = want[filled > 0, 3] = 255
+        check("/api/auto_fill overlay", image_io.decode_bytes(
+            base64.b64decode(reply["overlay_png_base64"]))[0], want)
+        _http(base, "/api/batch", {"op": "delete_mask", "name": name})
+        if os.path.exists(os.path.join(masks, name)):
+            raise AssertionError("11f: delete_mask left the mask")
+        with open(os.path.join(images, stems[3] + ".png"), "rb") as f, open(dup, "wb") as g:
+            g.write(f.read())
+        reply = _http(base, "/api/batch", {"op": "dedupe"})
+        if os.path.exists(dup) or "deleted 1 duplicate" not in reply["status"]:
+            raise AssertionError(f"11f: the dedupe op replied {reply}")
+        before = {n: image_io.read_image(os.path.join(masks, n), "L")
+                  for n in sorted(os.listdir(masks))}
+        reply = _http(base, "/api/batch", {"op": "lane2drivable_all"})
+        if reply["status"] != f"converted {len(before)} masks":
+            raise AssertionError(f"11f: lane2drivable_all replied {reply}")
+        for n, m in before.items():
+            check(f"masks/{n} after lane2drivable_all",
+                  image_io.read_image(os.path.join(masks, n)), _expected_drivable(m))
+    finally:
+        server.stop()
+    t["annotation_server"] = time.perf_counter() - t0
+    _print(f"11f: the host tools on {TOOL_PAIRS} pairs of {w}x{h}, every output equal: "
+           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
+
+
+def tools_phase(root, yard):
+    """Phase 11: the host tools and the model's last options. Returns the
+    kernels' launches: B3 and B1 in (a), B5, B7 and B1 in (b), B6 in (c)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    calib = torch.randint(0, 256, (BATCH, HEIGHT, WIDTH, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    frames = torch.randint(0, 256, (OPTION_FRAMES, HEIGHT, WIDTH, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    state = calibrated_state(calib)
+    launches, t = {}, {}
+
+    def add(part):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    model = FastSCNN(NUM_CLASSES, folded_dw_impl="fused-ds")
+    model.load_state_dict(state)
+    engine_a = InferenceEngine(model, device=dev, config=E2EConfig(
+        mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="bfloat16", final_upsample="pallas"))
+    add(profiling_leg(work, engine_a, frames[:1]))
+    del engine_a, model
+    t["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add(options_leg(state, calib, frames))
+    t["b"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    add(taps_step_leg(yard))
+    t["c"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    weights = get_fast_scnn_leg(work, state)
+    t["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    validate_leg(work, weights)
+    t["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_tools_leg(work)
+    t["f"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 11 launches: {launches}")
+    _print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ("
+           + ", ".join(f"11{k} {v:.1f} s" for k, v in t.items()) + ")")
+    return launches
+
 
 
 # the rows of the kernel table that dw_costs prices, and the library call each
@@ -5138,9 +5795,12 @@ def main() -> int:
            f"{peaks['f32'] / 1e12} TFLOP/s f32, {peaks['bf16'] / 1e12} TFLOP/s bf16 and "
            f"{peaks['int8'] / 1e12} TOP/s int8 on the tensor cores")
 
+    from fastscnn_tpu_torch.utils.profiling import enable_compilation_cache
+
     t0 = time.perf_counter()
+    BUILD_CACHE[0] = enable_compilation_cache()
     _build.build_all()
-    _print(f"build: {time.perf_counter() - t0:.1f} s")
+    _print(f"build: {time.perf_counter() - t0:.1f} s, into {_build.build_dir()}")
 
     t0 = time.perf_counter()
     _print("depthwise forward, dX and dW, B3, B5, B7, B8, B2 and B1 on sweeps of small shapes:")
@@ -5185,6 +5845,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in car_export_phase(root).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in tools_phase(root, yard).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

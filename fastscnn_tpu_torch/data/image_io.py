@@ -8,17 +8,24 @@ BDD100K label maps, custom masks) with ``zlib`` and numpy alone:
 - 8-bit greyscale, RGB, RGBA and palette images (a palette image gives
   its indices, as ``np.asarray(Image.open(path))`` does);
 - non-interlaced, with any mix of the five row filters;
-- ``convert="RGB"`` as PIL converts those modes: greyscale replicated,
-  alpha dropped, palette indices looked up (entries the palette lacks
-  read as black).
+- ``convert="RGB"``, ``"L"`` and ``"RGBA"`` as Pillow converts those
+  modes (``Convert.c``): greyscale replicated, alpha dropped, palette
+  indices looked up (entries the palette lacks read as black, alpha 255);
+  ``L`` the ITU-R 601-2 luma in Pillow's integers, ``(R·19595 + G·38470 +
+  B·7471 + 0x8000) >> 16``, of the RGB (or palette) values; ``RGBA``
+  with alpha 255 but where a ``tRNS`` chunk says otherwise, as Pillow
+  honours it: a palette image's alphas by index, a greyscale or RGB
+  image's one transparent sample value at alpha 0.
 
 Any other file (JPEG, 16-bit or interlaced PNG, another ``convert``)
 goes through PIL, imported inside :func:`decode`; where PIL is not
 installed that raises a ``RuntimeError`` naming the file.
 :func:`decode_bytes` does the same for an image held in memory (a
-request body), and :func:`write_png` writes 8-bit L, RGB and palette
-PNGs with filter type 0: a palette image (the mask dumps) in the bytes
-PIL writes for it.
+request body), and :func:`write_png` writes 8-bit L, RGB, RGBA and
+palette PNGs with filter type 0: a palette image (the mask dumps) in the
+bytes PIL writes for it. :func:`save_image` writes a ``.png`` path
+through it and hands any other to PIL; :func:`image_size` reads a PNG's
+or a JPEG's size from its header without decoding it.
 
 Sub and Up rows unfilter with one vector operation a row. Average and
 Paeth rows depend on the pixel to their left, so an image that has any
@@ -43,7 +50,8 @@ import zlib
 
 import numpy as np
 
-__all__ = ["decode", "decode_bytes", "read_image", "write_png", "PNG_SIGNATURE"]
+__all__ = ["decode", "decode_bytes", "image_size", "read_image", "read_palette", "save_image",
+           "write_png", "PNG_SIGNATURE"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # IHDR colour type -> (samples a pixel, PIL mode) for the 8-bit subset read here
@@ -64,18 +72,31 @@ def decode(path: str, convert: str | None = None) -> tuple[np.ndarray, str]:
         return _decode(f.read(), convert, path)
 
 
+def read_palette(path: str):
+    """The PLTE entries of a palette PNG in the subset, flat RGB values as
+    :func:`write_png` takes them; None for any other file."""
+    with open(path, "rb") as f:
+        png = _read_png(f.read(), path)
+    if png is None or png[1] != "P":
+        return None
+    return png[2].ravel().tolist()
+
+
 def decode_bytes(data: bytes, convert: str | None = None) -> tuple[np.ndarray, str]:
     """:func:`decode` of an image file's bytes."""
     return _decode(bytes(data), convert, "<bytes>")
 
 
+_CONVERTS = (None, "RGB", "L", "RGBA")
+
+
 def _decode(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
-    if convert in (None, "RGB"):
+    if convert in _CONVERTS:
         png = _read_png(data, name)
         if png is not None:
-            arr, mode, palette = png
-            if convert == "RGB" and mode != "RGB":
-                arr, mode = _to_rgb(arr, mode, palette), "RGB"
+            arr, mode, palette, trns = png
+            if convert is not None and convert != mode:
+                arr, mode = _CONVERTERS[convert](arr, mode, palette, trns), convert
             return arr, mode
     return _decode_with_pil(data, convert, name)
 
@@ -86,7 +107,8 @@ def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.nd
     except ImportError as e:
         raise RuntimeError(
             f"cannot read {name!r}: it is not an 8-bit non-interlaced PNG, which is all that "
-            "is read without PIL, and the PIL package is not installed") from e
+            "is read without PIL, and the PIL package is not installed (ROADMAP.md, queue 1, "
+            "item 5 (d): JPEG)") from e
     with Image.open(io.BytesIO(data)) as img:
         if convert:
             img = img.convert(convert)
@@ -94,10 +116,11 @@ def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.nd
 
 
 def _read_png(data: bytes, path: str):
-    """``(array, mode, palette)`` of a PNG in the subset, else None."""
+    """``(array, mode, palette, trns)`` of a PNG in the subset, else None;
+    ``trns`` is the body of its ``tRNS`` chunk (None without one)."""
     if not data.startswith(PNG_SIGNATURE):
         return None
-    pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
+    pos, header, palette, trns, idat = len(PNG_SIGNATURE), None, None, None, []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -111,6 +134,8 @@ def _read_png(data: bytes, path: str):
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -130,17 +155,56 @@ def _read_png(data: bytes, path: str):
     rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
     pixels = unfilter(rows[:, 1:], rows[:, 0], channels)
     shape = (height, width) if channels == 1 else (height, width, channels)
-    return pixels.reshape(shape), mode, palette
+    return pixels.reshape(shape), mode, palette, trns
 
 
-def _to_rgb(arr: np.ndarray, mode: str, palette) -> np.ndarray:
+def _palette_table(palette, trns) -> np.ndarray:
+    """A palette as Pillow holds it: 256 RGBA entries, those past the PLTE
+    chunk black, alpha 255 but for the first ``len(trns)`` entries."""
+    table = np.zeros((256, 4), np.uint8)
+    table[:, 3] = 255
+    table[:len(palette), :3] = palette[:256]
+    if trns:
+        alphas = np.frombuffer(trns, np.uint8)[:256]
+        table[:len(alphas), 3] = alphas
+    return table
+
+
+def _to_rgb(arr: np.ndarray, mode: str, palette, trns=None) -> np.ndarray:
     if mode == "L":
         return np.repeat(arr[:, :, None], 3, axis=2)
     if mode == "RGBA":
         return np.ascontiguousarray(arr[:, :, :3])
-    table = np.zeros((256, 3), np.uint8)
-    table[:len(palette)] = palette[:256]
-    return table[arr]
+    return _palette_table(palette, None)[:, :3][arr]
+
+
+def _to_l(arr: np.ndarray, mode: str, palette, trns=None) -> np.ndarray:
+    """Pillow's ``rgb2l`` (and ``p2l`` over the palette): the luma in 16.16
+    fixed point, rounded half up; alpha plays no part."""
+    rgb = (_palette_table(palette, None)[:, :3] if mode == "P" else arr[..., :3]).astype(np.uint32)
+    luma = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+    return luma[arr] if mode == "P" else luma
+
+
+def _to_rgba(arr: np.ndarray, mode: str, palette, trns=None) -> np.ndarray:
+    """Alpha 255, but as ``trns`` says: alpha by palette index for a
+    palette image; alpha 0 where a greyscale or RGB pixel equals the one
+    16-bit sample value (per channel) that ``trns`` names."""
+    if mode == "P":
+        return _palette_table(palette, trns)[arr]
+    rgb = arr if mode == "RGB" else _to_rgb(arr, mode, palette)
+    alpha = np.full(arr.shape[:2], 255, np.uint8)
+    if trns is not None:
+        key = np.frombuffer(trns[:len(trns) // 2 * 2], ">u2")
+        if mode == "L" and key.size >= 1:
+            alpha[arr == key[0]] = 0
+        elif mode == "RGB" and key.size >= 3:
+            alpha[(arr == key[:3]).all(axis=-1)] = 0
+    return np.concatenate([rgb, alpha[:, :, None]], axis=2)
+
+
+_CONVERTERS = {"RGB": _to_rgb, "L": _to_l, "RGBA": _to_rgba}
 
 
 def unfilter(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
@@ -212,7 +276,7 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def write_png(path_or_file, arr: np.ndarray, palette=None) -> None:
     """Write uint8 ``arr`` as an 8-bit PNG: (H, W) greyscale, (H, W, 3) RGB,
-    or, given ``palette`` (a flat list of RGB entries), (H, W) palette
+    (H, W, 4) RGBA, or, given ``palette`` (a flat list of RGB entries), (H, W) palette
     indices with that palette as its PLTE chunk. Every row has filter
     type 0; ``path_or_file`` is a path or a binary file."""
     arr = np.ascontiguousarray(arr)
@@ -227,10 +291,10 @@ def write_png(path_or_file, arr: np.ndarray, palette=None) -> None:
         colour = 3
     elif arr.ndim == 2:
         colour = 0
-    elif arr.ndim == 3 and arr.shape[2] == 3:
-        colour = 2
+    elif arr.ndim == 3 and arr.shape[2] in (3, 4):
+        colour = 2 if arr.shape[2] == 3 else 6
     else:
-        raise ValueError(f"write_png writes (H, W) or (H, W, 3) arrays, not {arr.shape}")
+        raise ValueError(f"write_png writes (H, W), (H, W, 3) or (H, W, 4) arrays, not {arr.shape}")
     h, w = arr.shape[:2]
     if not h or not w:
         raise ValueError(f"a PNG holds at least one pixel, not {arr.shape}")
@@ -251,3 +315,73 @@ def write_png(path_or_file, arr: np.ndarray, palette=None) -> None:
     else:
         with open(path_or_file, "wb") as f:
             f.write(data)
+
+
+def save_image(path: str, arr: np.ndarray) -> None:
+    """``Image.fromarray(arr).save(path)``: a ``.png`` path through
+    :func:`write_png`, any other through PIL, which raises a
+    ``RuntimeError`` naming the file where PIL is not installed."""
+    if path.lower().endswith(".png"):
+        write_png(path, arr)
+        return
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"cannot write {path!r}: only PNG files are written without PIL, and the PIL "
+            "package is not installed (ROADMAP.md, queue 1, item 5 (d): JPEG)") from e
+    Image.fromarray(np.asarray(arr)).save(path)
+
+
+# JPEG markers that carry a frame header: SOF0-SOF15 but DHT, JPG and DAC
+_JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """``Image.open(path).size``, (width, height), from the file's header
+    alone: a PNG's IHDR, a JPEG's frame header (SOF marker); any other
+    file through PIL, which raises a ``RuntimeError`` where it is not
+    installed."""
+    with open(path, "rb") as f:
+        data = f.read(64 * 1024)
+        if data.startswith(PNG_SIGNATURE) and data[12:16] == b"IHDR":
+            width, height = struct.unpack(">II", data[16:24])
+            return int(width), int(height)
+        if data.startswith(b"\xff\xd8"):
+            data += f.read()
+            size = _jpeg_size(data)
+            if size is not None:
+                return size
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"cannot read the size of {path!r}: it is neither a PNG nor a JPEG with a frame "
+            "header, and the PIL package is not installed") from e
+    with Image.open(path) as img:
+        return img.size
+
+
+def _jpeg_size(data: bytes):
+    """(width, height) from the first frame header of JPEG ``data``: walk
+    the marker segments after SOI, each ``FF xx`` with a two-byte length
+    but the standalone markers (RSTn, TEM)."""
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            return None
+        marker = data[pos + 1]
+        if marker == 0xFF:  # a fill byte
+            pos += 1
+            continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        if marker in (0xD9, 0xDA):  # EOI or start of scan before any frame header
+            return None
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker in _JPEG_SOF and pos + 9 <= len(data):
+            height, width = struct.unpack(">HH", data[pos + 5:pos + 9])
+            return int(width), int(height)
+        pos += 2 + length
+    return None

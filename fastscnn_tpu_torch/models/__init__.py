@@ -8,7 +8,7 @@ from fastscnn_tpu_torch.models.fast_scnn import (
     init_fast_scnn,
 )
 from fastscnn_tpu_torch.models.quantize import PW_INT8_SITES, calibrate_pw_scales, quantized_model
-from fastscnn_tpu_torch.models.registry import DATASET_ACRONYMS, DATASET_NUM_CLASSES
+from fastscnn_tpu_torch.models.registry import DATASET_ACRONYMS, DATASET_NUM_CLASSES, get_fast_scnn
 
 __all__ = [
     "DATASET_ACRONYMS",
@@ -21,6 +21,7 @@ __all__ = [
     "calibrate_pw_scales",
     "fold_inference_params",
     "from_jax_params",
+    "get_fast_scnn",
     "init_fast_scnn",
     "load_checkpoint",
     "quantized_model",

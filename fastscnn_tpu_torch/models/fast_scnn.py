@@ -13,18 +13,24 @@ so a JAX-initialised model and a real ``fast_scnn_*.pth`` both load with
   layout, HWIO) — training mode with batch-stat BN that returns the new
   running statistics, or eval mode on running statistics. The LTD stem's
   convs are routed by ``stem_impl``: ``'xla'`` (cuDNN and autograd),
-  ``'tapbwd'`` (:func:`~fastscnn_tpu_torch.ops.conv.conv2d_tapbwd`) or
-  ``'pallas'`` (depthwise convs through kernel B6, the others through
+  ``'tapbwd'`` (:func:`~fastscnn_tpu_torch.ops.conv.conv2d_tapbwd`),
+  ``'taps'`` and ``'taps-packbn'`` (depthwise convs as the tap sums of
+  :func:`~fastscnn_tpu_torch.ops.conv.dw_conv2d_taps`, the others through
+  ``conv2d_tapbwd``; '-packbn' asks the stem's BN for the JAX package's
+  packed lane layout, which here is the same computation) or ``'pallas'``
+  (depthwise convs through kernel B6, the others through
   ``conv2d_tapbwd``). This is the graph the train and eval steps
   (``parallel/train.py``) differentiate and run.
 - :func:`fold_inference_params` and ``FastSCNN.apply_folded``: the
   serving graph on BN-folded HWIO ``{w, b}`` trees, with the LTD stem's
   depthwise convs routed by ``folded_dw_impl`` — ``'conv'`` (cuDNN),
-  ``'pallas'`` (kernel B4, dw + bias + ReLU), ``'fused-ds'`` (kernel B3,
+  ``'taps'`` (``dw_conv2d_taps`` + ReLU, plain PyTorch), ``'pallas'``
+  (kernel B4, dw + bias + ReLU), ``'fused-ds'`` (kernel B3,
   the whole DSConv) or ``'fused-ds-mr'`` (kernel B5, B3's function over
   several output rows a block) — and the calibrated 1×1 sites routed by
   ``folded_pw_impl`` — ``'conv'`` (cuDNN), ``'int8-a8'`` (kernel B7) or
-  ``'int8-w8a8'`` (kernel B8); see :mod:`~fastscnn_tpu_torch.models.quantize`.
+  ``'int8-w8a8'`` (kernel B8), or their plain versions where
+  ``pw_use_pallas`` is False; see :mod:`~fastscnn_tpu_torch.models.quantize`.
   ``act_fake_quant`` is the JAX model's hook on every conv input. The JAX
   names are kept so configurations map one to one.
 """
@@ -45,6 +51,7 @@ from fastscnn_tpu_torch.ops.conv import (
     batch_norm_train,
     conv2d,
     conv2d_tapbwd,
+    dw_conv2d_taps,
     fold_conv_bn,
 )
 from fastscnn_tpu_torch.ops.cuda.dw_conv import (
@@ -53,7 +60,13 @@ from fastscnn_tpu_torch.ops.cuda.dw_conv import (
     dw_conv3x3,
     dw_conv3x3_vjp,
 )
-from fastscnn_tpu_torch.ops.cuda.int8_pw import pw_conv_a8, pw_conv_w8a8, quantize_act
+from fastscnn_tpu_torch.ops.cuda.int8_pw import (
+    pw_conv_a8,
+    pw_conv_a8_reference,
+    pw_conv_w8a8,
+    pw_conv_w8a8_reference,
+    quantize_act,
+)
 from fastscnn_tpu_torch.ops.pool import adaptive_avg_pool
 from fastscnn_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_matmul
 from fastscnn_tpu_torch.utils.tree import tree_map
@@ -67,21 +80,9 @@ __all__ = [
     "STEM_IMPLS",
 ]
 
-FOLDED_DW_IMPLS = ("conv", "pallas", "fused-ds", "fused-ds-mr")
+FOLDED_DW_IMPLS = ("conv", "taps", "pallas", "fused-ds", "fused-ds-mr")
 FOLDED_PW_IMPLS = ("conv", "int8-a8", "int8-w8a8")
-STEM_IMPLS = ("xla", "tapbwd", "pallas")
-
-# Options of the JAX model that this package does not run yet, with the
-# ROADMAP.md queue item that ports each.
-_NOT_PORTED = {
-    "folded_dw_impl": {
-        "taps": "queue item 'taps'",
-    },
-    "stem_impl": {
-        "taps": "queue item 'taps'",
-        "taps-packbn": "queue item 'taps'",
-    },
-}
+STEM_IMPLS = ("xla", "tapbwd", "taps", "taps-packbn", "pallas")
 
 
 class _ConvBNReLU(nn.Module):
@@ -228,8 +229,8 @@ class FastSCNN(nn.Module):
     Besides the network it carries the JAX model's options
     ``folded_dw_impl`` ∈ :data:`FOLDED_DW_IMPLS`, ``folded_pw_impl`` ∈
     :data:`FOLDED_PW_IMPLS` with its ``pw_act_scales`` (a tuple of
-    ``(site, scale)`` pairs) and ``act_fake_quant`` (serving), and
-    ``stem_impl`` ∈ :data:`STEM_IMPLS` and ``dropout_rate``
+    ``(site, scale)`` pairs) and ``pw_use_pallas``, and ``act_fake_quant``
+    (serving), and ``stem_impl`` ∈ :data:`STEM_IMPLS` and ``dropout_rate``
     (``apply_params``), and the deployment-graph knobs ``ppm_sizes`` (the
     pyramid pooling's four bin counts) and ``ppm_align_corners`` (its
     upsamples' convention), used by every forward. Their defaults, (1, 2,
@@ -237,10 +238,12 @@ class FastSCNN(nn.Module):
     reference's deployed ATC graph, which ``export_model --atc-compat``
     builds (reference:export_onnx_fixed.py:100-163). :meth:`with_options`
     is the JAX ``dataclasses.replace``: a model with other options that
-    shares these weights. The JAX options that are not ported yet
-    (``folded_dw_impl`` 'taps', ``stem_impl`` 'taps' and 'taps-packbn')
-    raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-    them.
+    shares these weights.
+
+    ``pw_use_pallas`` routes the int8 sites as the JAX model's field does:
+    None runs kernel B7 or B8 on a CUDA tensor and its plain version on a
+    CPU tensor; False runs the plain version on either (the JAX package's
+    XLA path); True runs the kernel and raises on a CPU tensor.
     """
 
     def __init__(
@@ -255,6 +258,7 @@ class FastSCNN(nn.Module):
         pw_act_scales: tuple = (),
         ppm_sizes: tuple = _PPM_SIZES,
         ppm_align_corners: bool = True,
+        pw_use_pallas: bool | None = None,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -262,7 +266,8 @@ class FastSCNN(nn.Module):
         self._set_options(folded_dw_impl=folded_dw_impl, folded_pw_impl=folded_pw_impl,
                           act_fake_quant=act_fake_quant, stem_impl=stem_impl,
                           dropout_rate=dropout_rate, pw_act_scales=pw_act_scales,
-                          ppm_sizes=ppm_sizes, ppm_align_corners=ppm_align_corners)
+                          ppm_sizes=ppm_sizes, ppm_align_corners=ppm_align_corners,
+                          pw_use_pallas=pw_use_pallas)
         self.learning_to_downsample = _LearningToDownsample(32, 48, 64)
         self.global_feature_extractor = _GlobalFeatureExtractor(64, (64, 96, 128), 128, 6, (3, 3, 3))
         self.feature_fusion = _FeatureFusionModule(64, 128, 128)
@@ -277,16 +282,10 @@ class FastSCNN(nn.Module):
             )
 
     _OPTIONS = ("folded_dw_impl", "folded_pw_impl", "act_fake_quant", "stem_impl",
-                "dropout_rate", "pw_act_scales", "ppm_sizes", "ppm_align_corners")
+                "dropout_rate", "pw_act_scales", "ppm_sizes", "ppm_align_corners",
+                "pw_use_pallas")
 
     def _set_options(self, **options):
-        for option in ("folded_dw_impl", "stem_impl"):
-            value = options[option]
-            if value in _NOT_PORTED[option]:
-                raise NotImplementedError(
-                    f"{option}={value!r} is not ported yet "
-                    f"(ROADMAP.md, {_NOT_PORTED[option][value]})"
-                )
         for option, allowed in (("stem_impl", STEM_IMPLS), ("folded_dw_impl", FOLDED_DW_IMPLS),
                                 ("folded_pw_impl", FOLDED_PW_IMPLS)):
             if options[option] not in allowed:
@@ -297,6 +296,9 @@ class FastSCNN(nn.Module):
             raise ValueError(f"ppm_sizes needs one bin count for each of the 4 pyramid "
                              f"convs, got {options['ppm_sizes']}")
         options["ppm_align_corners"] = bool(options["ppm_align_corners"])
+        if options["pw_use_pallas"] not in (None, True, False):
+            raise ValueError(f"pw_use_pallas is None, True or False, not "
+                             f"{options['pw_use_pallas']!r}")
         self.__dict__.update(options)
         self._int8_weights = {}  # site -> (folded w, scale, prepared operands)
 
@@ -392,7 +394,10 @@ class FastSCNN(nn.Module):
                 fn = ds_conv3x3_pw if impl == "fused-ds" else ds_conv3x3_pw_multirow
                 return fn(y.contiguous(), p["dw"]["w"], p["dw"]["b"], p["pw"]["w"], p["pw"]["b"],
                           stride=stride, padding=1)
-            if dw_alt:  # 'pallas': dw + bias + ReLU in kernel B4
+            if dw_alt and impl == "taps":
+                y = torch.relu(dw_conv2d_taps(y, p["dw"]["w"], p["dw"]["b"], stride=stride,
+                                              padding=1))
+            elif dw_alt:  # 'pallas': dw + bias + ReLU in kernel B4
                 y = dw_conv3x3(y.contiguous(), p["dw"]["w"], p["dw"]["b"], stride=stride,
                                padding=1, relu=True)
             else:
@@ -449,7 +454,8 @@ class FastSCNN(nn.Module):
 
     def _pw_int8(self, p, y, site, scale, relu):
         """One int8 1×1 site: quantize the input with the site's scale, then
-        kernel B7 or B8 on the folded weight. The weight fold (JAX
+        kernel B7 or B8 on the folded weight (their plain versions where
+        ``pw_use_pallas`` is False). The weight fold (JAX
         ``pw_int8``) depends on the weights and the scale only, so it is
         made at a site's first call and reused while the tree holds the
         same weight tensor."""
@@ -460,10 +466,15 @@ class FastSCNN(nn.Module):
             hit = (p["w"], scale, _fold_int8_weights(p["w"], scale, self.folded_pw_impl))
             self._int8_weights[site] = hit
         s, *w = hit[2]
+        if self.pw_use_pallas and y.device.type == "cpu":
+            raise ValueError(f"pw_use_pallas=True runs kernels B7 and B8, which take CUDA "
+                             f"tensors; site {site!r} is on the CPU")
         q = quantize_act(y, s)
+        plain = self.pw_use_pallas is False
         if self.folded_pw_impl == "int8-a8":
-            return pw_conv_a8(q, w[0], p["b"], relu=relu)
-        return pw_conv_w8a8(q, w[0], w[1], p["b"], relu=relu)
+            return (pw_conv_a8_reference if plain else pw_conv_a8)(q, w[0], p["b"], relu=relu)
+        return (pw_conv_w8a8_reference if plain else pw_conv_w8a8)(q, w[0], w[1], p["b"],
+                                                                   relu=relu)
 
 
 def _site_hook(hook):
@@ -509,34 +520,38 @@ class _TreeForward:
         self.dropout_rate = model.dropout_rate
         self.ppm_sizes, self.ppm_align_corners = model.ppm_sizes, model.ppm_align_corners
         impl = model.stem_impl
+        self.stem_bn_packed = impl == "taps-packbn"
         if impl == "xla":
             self.stem_conv = conv2d
         elif impl == "tapbwd":
             self.stem_conv = conv2d_tapbwd
-        else:  # 'pallas': depthwise convs through kernel B6
+        else:  # 'taps', 'taps-packbn' and 'pallas' route the depthwise convs
+            dw = dw_conv2d_taps if impl in ("taps", "taps-packbn") else dw_conv3x3_vjp
 
             def stem_conv(x, w, stride=1, padding=0, groups=1):
                 if groups > 1:
-                    return dw_conv3x3_vjp(x, w, stride, padding)
+                    return dw(x, w, stride=stride, padding=padding)
                 return conv2d_tapbwd(x, w, stride=stride, padding=padding, groups=groups)
 
             self.stem_conv = stem_conv
 
-    def bn(self, p, s, x):
+    def bn(self, p, s, x, packed=False):
         if self.training:
-            y, m, v = batch_norm_train(x, p["scale"], p["bias"], s["mean"], s["var"])
+            y, m, v = batch_norm_train(x, p["scale"], p["bias"], s["mean"], s["var"],
+                                       packed=packed)
             return y, {"mean": m, "var": v}
         return batch_norm_apply(x, p["scale"], p["bias"], s["mean"], s["var"]), s
 
-    def cbr(self, p, s, x, stride=1, padding=0, groups=1, relu=True, conv_fn=conv2d):
+    def cbr(self, p, s, x, stride=1, padding=0, groups=1, relu=True, conv_fn=conv2d,
+            packed=False):
         y = conv_fn(x, p["w"], stride=stride, padding=padding, groups=groups)
-        y, s_bn = self.bn(p["bn"], s["bn"], y)
+        y, s_bn = self.bn(p["bn"], s["bn"], y, packed)
         return (torch.relu(y) if relu else y), {"bn": s_bn}
 
-    def ds(self, p, s, x, stride=1, conv_fn=conv2d):
+    def ds(self, p, s, x, stride=1, conv_fn=conv2d, packed=False):
         y, s_dw = self.cbr(p["dw"], s["dw"], x, stride=stride, padding=1, groups=x.shape[-1],
-                           conv_fn=conv_fn)
-        y, s_pw = self.cbr(p["pw"], s["pw"], y, conv_fn=conv_fn)
+                           conv_fn=conv_fn, packed=packed)
+        y, s_pw = self.cbr(p["pw"], s["pw"], y, conv_fn=conv_fn, packed=packed)
         return y, {"dw": s_dw, "pw": s_pw}
 
     def bottleneck(self, p, s, x, stride):
@@ -549,10 +564,10 @@ class _TreeForward:
         return y, {"expand": s_e, "dw": s_d, "project": {"bn": s_p}}
 
     def ltd(self, p, s, x):
-        conv = self.stem_conv
-        y, s1 = self.cbr(p["conv"], s["conv"], x, stride=2, conv_fn=conv)
-        y, s2 = self.ds(p["dsconv1"], s["dsconv1"], y, stride=2, conv_fn=conv)
-        y, s3 = self.ds(p["dsconv2"], s["dsconv2"], y, stride=2, conv_fn=conv)
+        conv, packed = self.stem_conv, self.stem_bn_packed
+        y, s1 = self.cbr(p["conv"], s["conv"], x, stride=2, conv_fn=conv, packed=packed)
+        y, s2 = self.ds(p["dsconv1"], s["dsconv1"], y, stride=2, conv_fn=conv, packed=packed)
+        y, s3 = self.ds(p["dsconv2"], s["dsconv2"], y, stride=2, conv_fn=conv, packed=packed)
         return y, {"conv": s1, "dsconv1": s2, "dsconv2": s3}
 
     def gfe(self, p, s, x):

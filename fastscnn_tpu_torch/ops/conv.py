@@ -9,6 +9,9 @@ cuDNN convolves without a layout copy.
   dX as the transposed conv of :func:`conv_dx`, dW as the per-tap f32
   contractions of :func:`conv_dw_taps` (the JAX package computes both
   outside any Pallas kernel, so they stay plain PyTorch here).
+- :func:`dw_conv2d_taps`: the depthwise conv as ``kh·kw`` strided-slice
+  multiply-adds in f32 (the JAX package's formulation for the TPU's
+  vector units); autograd's backward of the slices is the tap backward.
 - :func:`batch_norm_train` / :func:`batch_norm_apply`: PyTorch BN
   semantics (momentum 0.1, eps 1e-5, unbiased running variance) with the
   JAX package's rounding: f32 moments for bf16 activations, ``inv`` and
@@ -26,6 +29,7 @@ __all__ = [
     "conv_dx",
     "conv_dw_taps",
     "conv_out_len",
+    "dw_conv2d_taps",
     "batch_norm_apply",
     "batch_norm_train",
     "fold_conv_bn",
@@ -126,6 +130,38 @@ def conv2d_tapbwd(x, w, b=None, stride: int = 1, padding: int = 0, groups: int =
     ``conv2d_tapbwd``): dX is the transposed conv, dW the per-tap f32
     contractions cast to ``w``'s dtype."""
     y = _Conv2dTapBwd.apply(x, w, stride, padding, groups)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def dw_conv2d_taps(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+                   stride: int = 1, padding: int = 1, groups: int | None = None) -> torch.Tensor:
+    """Depthwise conv (NHWC ``x``, (kh, kw, 1, C) ``w``) as explicit tap
+    accumulation: for each tap ``(di, dj)`` in order, a strided window of
+    the padded ``x`` times the tap's weights, summed in f32 (f64 for f64
+    input), cast once to ``x``'s dtype, then ``b`` added in that dtype.
+    ``groups`` is accepted for a conv function's signature and must be C.
+    Autograd of the slices gives the backward in the same taps (slice ↔
+    pad, a multiply-reduce for dW), as JAX's AD does."""
+    kh, kw, _, c = w.shape
+    if groups is not None and groups != x.shape[-1]:
+        raise ValueError("dw_conv2d_taps is depthwise-only (groups == C)")
+    if c != x.shape[-1]:
+        raise ValueError(f"weight C {c} != input C {x.shape[-1]} (multiplier-1 only)")
+    ho = conv_out_len(x.shape[1], kh, stride, padding)
+    wo = conv_out_len(x.shape[2], kw, stride, padding)
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    wf = w.to(acc_dtype)
+    acc = None
+    for di in range(kh):
+        for dj in range(kw):
+            xv = x[:, di:di + (ho - 1) * stride + 1:stride, dj:dj + (wo - 1) * stride + 1:stride]
+            term = xv.to(acc_dtype) * wf[di, dj, 0]
+            acc = term if acc is None else acc + term
+    y = acc.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

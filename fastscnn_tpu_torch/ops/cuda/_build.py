@@ -9,7 +9,9 @@ an unchanged one is reused.
 
 Nothing here runs at import time: modules that import this one must
 import on a machine without ``nvcc``. The build runs the first time a
-wrapper meets a CUDA tensor.
+wrapper meets a CUDA tensor. :func:`set_build_dir` moves the libraries
+elsewhere (``utils/profiling.py::enable_compilation_cache`` does: one
+directory for each host CPU); :func:`build_dir` says where they go.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "build_all", "check", "NVCC_FLAGS"]
+__all__ = ["library", "build_all", "build_dir", "check", "set_build_dir", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -60,6 +62,18 @@ _SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_build_dir: list[Path] = [BUILD_DIR]
+
+
+def build_dir() -> Path:
+    """The directory the libraries are built into and loaded from."""
+    return _build_dir[0]
+
+
+def set_build_dir(path) -> None:
+    """Build and load the libraries under ``path`` from now on; those
+    already loaded stay loaded."""
+    _build_dir[0] = Path(path)
 
 
 def _nvcc() -> str:
@@ -80,7 +94,7 @@ def _target(name: str) -> Path:
     for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, Path]:
@@ -89,7 +103,7 @@ def build_all() -> dict[str, Path]:
     targets = {name: _target(name) for name in SOURCES}
     todo = {name: t for name, t in targets.items() if not t.exists()}
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir().mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
         for name, target in todo.items():

@@ -24,6 +24,7 @@ from fastscnn_tpu_torch.models import (
     init_fast_scnn,
     load_checkpoint,
     quantized_model,
+    to_param_trees,
 )
 from fastscnn_tpu_torch.models.convert import build_key_map
 
@@ -79,11 +80,11 @@ def test_forward_matches_jax_apply(shared):
     np.testing.assert_allclose(aux.numpy(), np.asarray(ref_aux), rtol=1e-4, atol=ATOL)
 
 
-@pytest.mark.parametrize("impl", ["conv", "pallas", "fused-ds", "fused-ds-mr"])
+@pytest.mark.parametrize("impl", ["conv", "taps", "pallas", "fused-ds", "fused-ds-mr"])
 def test_apply_folded_matches_jax(shared, impl):
     """f32 folded graph, each LTD route: on the CPU JAX's 'pallas',
     'fused-ds' and 'fused-ds-mr' take their XLA fallbacks, the port's its
-    plain versions."""
+    plain versions; 'taps' is plain code in both."""
     params, state, sd, x = shared
     jmodel = JaxFastSCNN(19, aux=True, folded_dw_impl=impl)
     ref = jmodel.apply_folded(jax_fold(params, state, jnp.float32), jnp.asarray(x))
@@ -169,13 +170,33 @@ def test_init_fast_scnn_is_seeded_with_torch_default_bounds():
     ],
 )
 def test_unported_options_name_their_roadmap_item(shared, kwargs, item):
-    """Options still to port raise, naming their ROADMAP.md item. Those
-    ported since (B5's 'fused-ds-mr', the int8 sites of B7, the hook)
-    construct and serve: finite logits, and the identity hook changes
-    nothing."""
-    if item not in ("B5", "int8"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-            FastSCNN(19, **kwargs)
+    """Every option of the JAX model is ported now; these once raised,
+    naming their ROADMAP.md item. B5's 'fused-ds-mr', the int8 sites of B7
+    and the hook construct and serve: finite logits, and the identity hook
+    changes nothing. 'taps' (the item ported last): the folded graph's
+    masks equal 'conv''s on every pixel in f32, and the stem's train-mode
+    forward equals 'xla''s (logits within 1e-4 of their largest
+    magnitude; ``tests/test_torch_train_grads.py`` holds each stem to the
+    JAX model's)."""
+    if item == "'taps'":
+        _, _, sd, x = shared
+        model = _port_model(sd, **kwargs)
+        if "folded_dw_impl" in kwargs:
+            folded = fold_inference_params(model, torch.float32)
+            with torch.no_grad():
+                got = model.apply_folded(folded, torch.from_numpy(x))
+                ref = _port_model(sd).apply_folded(folded, torch.from_numpy(x))
+            for g, r in zip(got, ref):
+                assert torch.equal(g.argmax(-1), r.argmax(-1))
+            return
+        p, st = to_param_trees(model)
+        with torch.no_grad():
+            outs = [m.apply_params(p, st, torch.from_numpy(x), training=True,
+                                   upsample_outputs=False)[0]
+                    for m in (model, model.with_options(stem_impl="xla"))]
+        for got, ref in zip(*outs):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                                       atol=1e-4 * ref.abs().max().item())
         return
     _, _, sd, x = shared
     model = _port_model(sd, **kwargs)
@@ -189,3 +210,28 @@ def test_unported_options_name_their_roadmap_item(shared, kwargs, item):
     assert len(out) == 2 and all(torch.isfinite(o.float()).all() for o in out)
     if model.act_fake_quant is not None:
         assert all(torch.equal(o, p) for o, p in zip(out, plain))
+
+
+@pytest.mark.parametrize("impl", ["int8-a8", "int8-w8a8"])
+def test_pw_use_pallas_routes_the_int8_sites(shared, impl):
+    """``pw_use_pallas``: None and False both run the plain versions on a
+    CPU tensor (equal logits; the JAX model's False is its XLA path, and
+    the port's plain versions are held to JAX in ``test_torch_int8.py``);
+    True on a CPU tensor raises; the option survives ``with_options``."""
+    _, _, sd, x = shared
+    base = _port_model(sd)
+    folded = fold_inference_params(base, torch.float32)
+    scales = calibrate_pw_scales(base, folded, [x])
+    model = quantized_model(base, scales, impl)
+    assert model.pw_use_pallas is None
+    off = model.with_options(pw_use_pallas=False)
+    assert off.pw_use_pallas is False and off.folded_pw_impl == impl
+    with torch.no_grad():
+        got = model.apply_folded(folded, torch.from_numpy(x))
+        plain = off.apply_folded(folded, torch.from_numpy(x))
+    for g, p in zip(got, plain):
+        assert torch.isfinite(g.float()).all() and torch.equal(g, p)
+    with pytest.raises(ValueError, match="pw_use_pallas=True.*CPU"):
+        model.with_options(pw_use_pallas=True).apply_folded(folded, torch.from_numpy(x))
+    with pytest.raises(ValueError, match="pw_use_pallas"):
+        FastSCNN(19, pw_use_pallas="auto")

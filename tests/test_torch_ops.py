@@ -2,8 +2,12 @@
 
 All in f32. Tolerances: the lerp resizes, nearest resize and pooling do
 the same operations in the same order, so they must agree to f32
-rounding (1e-6); matmul resizes, convolutions and BN folding sum in a
-different order or use another rsqrt, so they get 1e-5.
+rounding (1e-6; the fixed max pool exactly, the fixed average pool's
+window sums in another order, 1e-6); matmul resizes, convolutions and BN
+folding sum in a different order or use another rsqrt, so they get 1e-5.
+``dw_conv2d_taps`` adds the same f32 products in the same tap order as
+JAX, so its forward agrees to 1e-6 and its gradients (autograd of the
+slices against JAX's AD) to 1e-5.
 """
 
 import jax.numpy as jnp
@@ -16,9 +20,12 @@ from fastscnn_tpu.ops import pool as jpool
 from fastscnn_tpu.ops import resize as jresize
 from fastscnn_tpu_torch.ops import (
     adaptive_avg_pool,
+    avg_pool,
     conv2d,
     conv_out_len,
+    dw_conv2d_taps,
     fold_conv_bn,
+    max_pool,
     resize_bilinear,
     resize_bilinear_matmul,
     resize_nearest,
@@ -64,6 +71,52 @@ def test_adaptive_avg_pool_matches_jax(rng, out):
     x = rng.standard_normal((2, 7, 10, 4)).astype(np.float32)
     ref = np.asarray(jpool.adaptive_avg_pool(jnp.asarray(x), out))
     np.testing.assert_allclose(adaptive_avg_pool(_t(x), out).numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("pool", ["avg", "max"])
+@pytest.mark.parametrize("window,stride,padding", [(2, None, 0), (3, 1, 1), (3, 2, 1), (4, 2, 2),
+                                                    (5, 3, 0), (2, 1, 3)])
+def test_fixed_pools_match_jax(rng, pool, window, stride, padding):
+    """``avg_pool`` divides by window² with the zero padding counted;
+    ``max_pool`` pads with −inf (a padding past half the window included)."""
+    x = rng.standard_normal((2, 11, 14, 3)).astype(np.float32)
+    jfn, fn = (jpool.avg_pool, avg_pool) if pool == "avg" else (jpool.max_pool, max_pool)
+    ref = np.asarray(jfn(jnp.asarray(x), window, stride, padding))
+    got = fn(_t(x), window, stride, padding).numpy()
+    assert got.shape == ref.shape
+    if pool == "max":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [1, 3, 64])
+def test_dw_conv2d_taps_matches_jax_with_its_gradient(rng, stride, c):
+    import jax
+
+    x = rng.standard_normal((2, 9, 12, c)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 1, c)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(c).astype(np.float32)
+    g = rng.standard_normal((2, conv_out_len(9, 3, stride, 1), conv_out_len(12, 3, stride, 1),
+                             c)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda x, w, b: jconv.dw_conv2d_taps(x, w, b, stride=stride, padding=1),
+                       jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ref_grads = vjp(jnp.asarray(g))
+    tx, tw, tb = (_t(a).requires_grad_() for a in (x, w, b))
+    got = dw_conv2d_taps(tx, tw, tb, stride=stride, padding=1)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    got.backward(_t(g))
+    for t, r in zip((tx, tw, tb), ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+    # the conv it reformulates, and the JAX function's two refusals
+    np.testing.assert_allclose(got.detach().numpy(), conv2d(_t(x), _t(w), _t(b), stride=stride,
+                                                            padding=1, groups=c).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="depthwise-only"):
+        dw_conv2d_taps(_t(x), _t(w), groups=1 if c > 1 else 2)
+    with pytest.raises(ValueError, match="multiplier-1"):
+        dw_conv2d_taps(_t(x), _t(np.concatenate([w, w], axis=-1)))
 
 
 @pytest.mark.parametrize(

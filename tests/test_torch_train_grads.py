@@ -11,7 +11,8 @@ Tolerances:
   take their logits to f32 in both packages, so the comparison is
   limited by f32 rounding there, amplified through batch-stat BN (the
   measured distance is ~3e-6). 'pallas' is left out: its plain B6
-  versions compute in f32 by design;
+  versions compute in f32 by design; 'taps' and 'taps-packbn' are in (as
+  ``tests/test_ops.py`` takes the JAX model's 'taps' stems in f64);
 - eval step in f32: masks agree on all but ≤ 0.1 % of pixels (near-ties
   of the two packages' summation orders), and the statistics differ by
   at most the number of differing pixels.
@@ -71,7 +72,7 @@ def _port_model(params, state, **kw):
     return model
 
 
-@pytest.mark.parametrize("stem_impl", ["xla", "tapbwd", "pallas"])
+@pytest.mark.parametrize("stem_impl", ["xla", "tapbwd", "taps", "taps-packbn", "pallas"])
 def test_train_mode_forward_matches_jax(shared, stem_impl):
     params, state, x, _, _ = shared
     (ref_main, ref_aux), ref_state = JaxFastSCNN(NUM_CLASSES, aux=True, stem_impl=stem_impl).apply(
@@ -107,7 +108,7 @@ def test_eval_mode_forward_matches_jax_and_keeps_state(shared):
                                    rtol=1e-4, atol=2e-5 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("stem_impl", ["xla", "tapbwd"])
+@pytest.mark.parametrize("stem_impl", ["xla", "tapbwd", "taps", "taps-packbn"])
 def test_f64_gradients_match_jax(shared, stem_impl):
     params, state, x, _, targets = shared
     jax.config.update("jax_enable_x64", True)
