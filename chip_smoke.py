@@ -164,7 +164,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``SimpleCarController`` over a pty into ``VehicleSim``: every command
    read back as the wheels, a blinded frame's no-path stop, (0, 0) after
    the e-stop and nothing else sent; (e)
-   ``pipeline.main`` on one PNG (five artifacts read back) and
+   ``pipeline.main`` on one PNG (five artifacts: the mask read back, the
+   ``_vis.jpg`` and ``_control_map.jpg`` in Pillow's bytes) and
    ``control_dashboard.main --realtime --web --synthetic-camera
    --max-frames 20 --enable-serial`` on a pty, its routes and one
    ``/video_feed`` part driven over HTTP on 127.0.0.1;
@@ -212,17 +213,33 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``dataset_check`` (report, overlay grid), an ``EditorSession`` and the
    annotation server over HTTP on 127.0.0.1 (every route and batch op):
    each output read back equal to the array computed here with numpy;
-12. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10 and 11, plus the
+12. JPEG without PIL (:func:`jpeg_phase`): (a) the host codec
+   (``data/jpeg.cpp``, built with ``g++`` here) holds every fixture of
+   ``tests/fixtures/jpeg`` to the Pillow digests of its manifest, decoded
+   pixels and encoded bytes; the host ms to decode and to encode the
+   1280x720 4:2:0 quality-90 frame, and decode throughput on 1 thread
+   against 4; (b) a synthetic BDD100K tree (32 train and 8 val pairs of
+   1280x720 JPEGs and their label PNGs) through ``train_presets.main
+   bdd100k`` with ``--stem-impl pallas``, 3 graphed epochs without and with
+   ``--decoded-cache`` (falling losses, B6 at 2 launches a step for each
+   part, ms/step, samples/s), then ``eval.main`` in ``val`` mode with its
+   dumps read back; (c) ``pipeline.main`` on the JPEG frame (the JAX
+   artifact names, Pillow's JPEG bytes), the pipeline in config A (B3, B1)
+   from JPEG in to JPEGs out (ms a frame), and one JPEG body through the
+   serving server over config A, equal to ``engine.predict`` on every
+   pixel;
+13. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11 and 12, plus the
    captured launches × the replays of the graphs of phases 4b, 4c, 6b (the
-   trainer's and the evaluator's), 8, 9 and 10, which no wrapper sees) and,
-   last, the device line ``{"ok": true, "device": {...}}``.
+   trainer's and the evaluator's), 8, 9, 10 and 12, which no wrapper sees)
+   and, last, the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
-run only these kernels' studies, with no device line:
+run only these kernels' studies, and one only phase 12, with no device
+line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
@@ -230,6 +247,7 @@ run only these kernels' studies, with no device line:
     python3 chip_smoke.py --tune-mask      # registers, B2's and B1's tiles, strips, runs
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
+    python3 chip_smoke.py --jpeg           # the build, then phase 12
 
 Without a CUDA device it prints an error and exits 1.
 """
@@ -1689,22 +1707,23 @@ def training_batch(dev):
 def profile_steps(run_step, step_ms, steps=3, top=15, what="bf16 train step",
                   mark=("B6 kernels (forward, dX, dW passes)", "dw_conv3x3")):
     """Where a step's device time goes: ``torch.profiler`` over a few
-    steps, the device kernels' self time by name (ms per step and share of
-    the step's time ``step_ms``), the device busy share, and the time of
-    the kernels whose name holds ``mark[1]``. Returns the busy ms a step
-    (None where the profiler recorded no device time)."""
+    steps, after ``warm_profile``'s warm-up (a bare session loses its first
+    kernel records in a long-lived process), the device kernels' self time
+    by name (ms per step and share of the step's time ``step_ms``), the
+    device busy share, and the time of the kernels whose name holds
+    ``mark[1]``. Returns the busy ms a step (None where the profiler
+    recorded no device time)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from fastscnn_tpu_torch.utils.profiling import device_kernels, warm_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with warm_profile() as prof:
         for _ in range(steps):
             run_step()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]  # kernels only
+            for e in device_kernels(prof)]
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         _print("profile: the profiler recorded no device time (not measured)")
@@ -2011,7 +2030,8 @@ class _WatchedStep:
     """A train step that stamps the host clock after its first call (the
     capture of a graphed step, synchronised) and at every call's start
     (``t_calls``), and counts its calls, and runs
-    calls ``profile[0]`` to ``profile[1]`` (1-based) under ``torch.profiler``:
+    calls ``profile[0]`` to ``profile[1]`` (1-based) under ``torch.profiler``
+    (``warm_profile``: its warm-up runs before the window's clock starts):
     the window's wall ms (the loader's waits between its steps included),
     the device's busy ms and operations in it go into ``record``. Its other
     attributes are the step's."""
@@ -2019,35 +2039,33 @@ class _WatchedStep:
     def __init__(self, step, record, profile=None):
         self._step, self._record, self._profile = step, record, profile
         record.update(calls=0, t_calls=[])
-        self._prof = None
+        self._prof = self._session = None
 
     def __getattr__(self, name):
         return getattr(self._step, name)
 
     def __call__(self, *args, **kwargs):
         import torch
-        from torch.profiler import ProfilerActivity, profile
+
+        from fastscnn_tpu_torch.utils.profiling import device_kernels, warm_profile
 
         rec = self._record
         rec["t_calls"].append(time.perf_counter())
         rec["calls"] += 1
         if self._profile and rec["calls"] == self._profile[0]:
             torch.cuda.synchronize()
-            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            self._prof.__enter__()
+            self._session = warm_profile()
+            self._prof = self._session.__enter__()
             rec["window_t0"] = time.perf_counter()
         out = self._step(*args, **kwargs)
         if rec["calls"] == 1:
             torch.cuda.synchronize()
             rec["t_first"] = time.perf_counter()
         if self._profile and rec["calls"] == self._profile[1]:
-            from torch.autograd import DeviceType
-
             torch.cuda.synchronize()
             rec["window_ms"] = (time.perf_counter() - rec["window_t0"]) * 1e3
-            self._prof.__exit__(None, None, None)
-            kernels = [e for e in self._prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            self._session.__exit__(None, None, None)
+            kernels = device_kernels(self._prof)
             rec["busy_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
             rec["device_ops"] = sum(e.count for e in kernels)
             self._prof = None
@@ -2081,13 +2099,13 @@ def _watched_train_steps(records, profile=None):
             setattr(parallel, name, make)
 
 
-def _host_scores(pairs):
+def _host_scores(pairs, num_classes=NUM_CLASSES):
     """The host SegmentationMetric's (pixAcc, mIoU), as the CLIs print them."""
     import numpy as np
 
     from fastscnn_tpu_torch.utils.metric import SegmentationMetric
 
-    host = SegmentationMetric(NUM_CLASSES)
+    host = SegmentationMetric(num_classes)
     for preds, targets in pairs:
         host.update(np.asarray(preds).astype(np.int64), np.asarray(targets).astype(np.int64))
     pix_acc, miou = host.get()
@@ -3891,7 +3909,9 @@ def loop_drive_phase(engine):
 
 
 def loop_cli_phase(work, weights):
-    """9e: ``pipeline.main`` on one PNG (all five artifacts, read back), and
+    """9e: ``pipeline.main`` on one PNG (all five artifacts: the mask read
+    back, the JPEGs in the bytes of Pillow's ``save`` of the pipeline's
+    arrays, as the JAX package's no-OpenCV branch writes them), and
     ``control_dashboard.main --realtime --web --synthetic-camera
     --max-frames 20`` over the serial bridge on a pty, its routes driven
     over HTTP on 127.0.0.1 while the loop runs (the camera holds its third
@@ -3907,7 +3927,7 @@ def loop_cli_phase(work, weights):
     import numpy as np
 
     from fastscnn_tpu_torch import control_dashboard, interfaces, pipeline
-    from fastscnn_tpu_torch.data import image_io
+    from fastscnn_tpu_torch.data import image_io, jpeg
     from fastscnn_tpu_torch.serialbridge import Parser
     from fastscnn_tpu_torch.tools import analyzers
 
@@ -3918,14 +3938,16 @@ def loop_cli_phase(work, weights):
     result, _ = _run_cli(pipeline.main, ["--input", png, "--weights", weights,
                                          "--output-dir", out])
     names = sorted(os.listdir(out))
-    if names != ["road_control_data.json", "road_control_map.png", "road_mask.png",
-                 "road_path_data.json", "road_vis.png"]:
+    if names != ["road_control_data.json", "road_control_map.jpg", "road_mask.png",
+                 "road_path_data.json", "road_vis.jpg"]:
         raise AssertionError(f"9e pipeline.main wrote {names}")
-    for name, key in (("road_mask.png", "mask"), ("road_vis.png", "visualization"),
-                      ("road_control_map.png", "control_map")):
-        arr = result[key] if result[key].ndim == 2 else result[key][..., ::-1]
-        if not np.array_equal(image_io.read_image(os.path.join(out, name)), arr):
-            raise AssertionError(f"9e: {name} does not read back as the pipeline's {key}")
+    if not np.array_equal(image_io.read_image(os.path.join(out, "road_mask.png")),
+                          result["mask"]):
+        raise AssertionError("9e: road_mask.png does not read back as the pipeline's mask")
+    for name, key in (("road_vis.jpg", "visualization"), ("road_control_map.jpg", "control_map")):
+        with open(os.path.join(out, name), "rb") as f:
+            if f.read() != jpeg.encode_jpeg(result[key][..., ::-1].copy()):
+                raise AssertionError(f"9e: {name} is not the JPEG of the pipeline's {key}")
     with open(os.path.join(out, "road_path_data.json")) as f:
         path_json = json.load(f)
     _print(f"  9e pipeline.main: {time.perf_counter() - t0:.2f} s, 5 artifacts read back, "
@@ -4019,7 +4041,7 @@ def loop_cli_phase(work, weights):
     if (pipe.frame_count != DASHBOARD_FRAMES or seen["stats"]["device"]["platform"] != "gpu"
             or pipe.controller.base_pwm != 250.0 or seen["stop"] != {"status": "ok",
                                                                       "stopped": True}
-            or head[1].strip() != b"Content-Type: image/png" or img.ndim != 3
+            or head[1].strip() != b"Content-Type: image/jpeg" or img.ndim != 3
             or not parser.stats["packets"] or parser.last != (0, 0)):
         raise AssertionError("9e: the dashboard CLI's run is not as expected")
     _print(f"  10a monitor_fps against the 9e dashboard (1 s, polls every 0.1 s): {seen['fps']}")
@@ -5245,6 +5267,355 @@ def tools_phase(root, yard):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: JPEG without PIL
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join("tests", "fixtures", "jpeg")
+JPEG_FRAME = "frame_1280x720_q90.jpg"  # the committed 1280x720 4:2:0 quality-90 frame
+JPEG_TIMED = 20  # decodes and encodes of the frame timed: the median is reported
+JPEG_THREAD_FRAMES = 48  # decodes a thread count shares, for the throughput
+# 12 (b): the BDD100K recipe at full size on a synthetic tree
+BDD_SIZE = (720, 1280)
+BDD_TRAIN, BDD_VAL, BDD_EPOCHS, BDD_BATCH = 32, 8, 3, 8
+BDD_BASE, BDD_CROP = 640, 480  # the bdd100k preset's
+# 12 (c): frames through config A, the first the capture's; the bird's-eye
+# view at 2 px a unit, as phases 9-11 (at the CLI's default 20 the host's
+# numpy warp of a 1280x720 frame takes seconds)
+JPEG_LOOP_FRAMES, JPEG_PPU = 6, 2
+
+
+def _sha256(data) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def codec_leg(root):
+    """12 (a): the codec built here holds every committed fixture to the
+    Pillow digests of its manifest (decoded pixels, encoded bytes); the
+    host ms to decode and to encode the 1280x720 4:2:0 quality-90 frame
+    (median of JPEG_TIMED), and the decode throughput of 1 thread against
+    4. Returns the frame's path and pixels."""
+    import concurrent.futures
+
+    from fastscnn_tpu_torch.data import image_io, jpeg
+
+    fixtures = os.path.join(root, JPEG_FIXTURES)
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    jpeg.load_codec()
+    t_build = time.perf_counter() - t0
+    bad = []
+    for name, entry in manifest["decode"].items():
+        with open(os.path.join(fixtures, name), "rb") as f:
+            arr, mode = jpeg.decode_jpeg(f.read(), name)
+        if (_sha256(arr.tobytes()) != entry["sha256"] or mode != entry["mode"]
+                or list(arr.shape) != entry["shape"]):
+            bad.append(f"decode {name}")
+    for entry in manifest["encode"]:
+        arr = image_io.read_image(os.path.join(fixtures, entry["input"]))
+        if _sha256(jpeg.encode_jpeg(arr, entry["quality"])) != entry["sha256"]:
+            bad.append(f"encode {entry['input']} at quality {entry['quality']}")
+    if bad:
+        raise AssertionError(f"12a: the codec differs from Pillow's digests: {bad}")
+    _print(f"12a: codec built and loaded in {t_build:.1f} s; {len(manifest['decode'])} fixtures "
+           f"decoded to Pillow {manifest['pillow']}'s pixels and {len(manifest['encode'])} "
+           f"seeded inputs encoded to its bytes (sha256 of the manifest)")
+    path = os.path.join(fixtures, JPEG_FRAME)
+    with open(path, "rb") as f:
+        data = f.read()
+    frame, _ = jpeg.decode_jpeg(data)
+    dec = sorted(_host_ms(lambda: jpeg.decode_jpeg(data)) for _ in range(JPEG_TIMED))
+    enc = sorted(_host_ms(lambda: jpeg.encode_jpeg(frame, 90)) for _ in range(JPEG_TIMED))
+
+    def rate(threads):
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda _: jpeg.decode_jpeg(data), range(threads)))  # started
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: jpeg.decode_jpeg(data), range(JPEG_THREAD_FRAMES)))
+            return JPEG_THREAD_FRAMES / (time.perf_counter() - t0)
+
+    one, four = rate(1), rate(4)
+    _print(f"12a: the {frame.shape[1]}x{frame.shape[0]} 4:2:0 quality-90 frame ({len(data)} "
+           f"bytes), host ms of {JPEG_TIMED}: decode median {statistics.median(dec):.2f} "
+           f"(range {dec[0]:.2f}-{dec[-1]:.2f}), encode at quality 90 median "
+           f"{statistics.median(enc):.2f} (range {enc[0]:.2f}-{enc[-1]:.2f}); decode "
+           f"throughput {one:.1f} frames/s on 1 thread, {four:.1f} on 4 ({four / one:.2f}x; "
+           f"{os.cpu_count()} cores)")
+    return path, frame
+
+
+def bdd_scene(seed):
+    """A 720x1280 road scene drawn from ``seed`` and its drivable_id label,
+    a function of the scene: 1 (direct drivable) on the road the scene
+    paints, 2 (alternative) on its shoulders, 0 elsewhere."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = BDD_SIZE
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    horizon = h * rng.uniform(0.35, 0.5)
+    cx = w * rng.uniform(0.35, 0.65)
+    below = np.clip((y - horizon) / (h - horizon), 0, None)
+    half = below * w * rng.uniform(0.3, 0.5)
+    road = (y > horizon) & (np.abs(x - cx) < half)
+    shoulder = (y > horizon) & ~road & (np.abs(x - cx) < half * 1.2)
+    img = np.empty((h, w, 3), np.float32)
+    img[:] = np.array([120, 170, 225], np.float32) + (y / h)[..., None] * 30  # sky
+    grass = y > horizon
+    img[grass] = np.array([70, 125, 55], np.float32) + 25 * np.sin(x[grass] / 23.0)[:, None]
+    img[shoulder] = (150, 140, 120)
+    img[road] = (105, 105, 112)
+    dash = road & (np.abs(x - cx) < 3 + 5 * below) & ((y // 40) % 2 == 0)
+    img[dash] = 235
+    img += rng.normal(0, 6, img.shape).astype(np.float32)
+    label = np.where(road, 1, np.where(shoulder, 2, 0)).astype(np.uint8)
+    return np.clip(img, 0, 255).astype(np.uint8), label
+
+
+def bdd_tree(root):
+    """BDD100K's layout at ``root``: BDD_TRAIN train and BDD_VAL val pairs of
+    a 1280x720 quality-90 ``.jpg`` (the port's encoder) and its
+    ``_drivable_id.png``. Returns the seconds it took."""
+    from fastscnn_tpu_torch.data import image_io, jpeg
+
+    t0 = time.perf_counter()
+    for split, n, base in (("train", BDD_TRAIN, 0), ("val", BDD_VAL, 1000)):
+        images = os.path.join(root, "images", "100k", split)
+        labels = os.path.join(root, "drivable_maps", "labels", split)
+        os.makedirs(images)
+        os.makedirs(labels)
+        for i in range(n):
+            img, label = bdd_scene(SEED + base + i)
+            with open(os.path.join(images, f"b{i:04d}.jpg"), "wb") as f:
+                f.write(jpeg.encode_jpeg(img, 90))
+            image_io.write_png(os.path.join(labels, f"b{i:04d}_drivable_id.png"), label)
+    return time.perf_counter() - t0
+
+
+def bdd_leg(work):
+    """12 (b): ``train_presets.main(["bdd100k", ...])``, the preset's flags
+    with ``--stem-impl pallas`` (B6), ``--sample-ratio 1`` (all 32 pairs:
+    4 steps of 8), BDD_EPOCHS epochs on the card's graphs, without and
+    with ``--decoded-cache``: finite losses that fall, B6's counters 2 a
+    step for each part; ms/step (the host interval from a step's call to
+    the next, epochs 2 on) and the loader's samples/s as the trainer
+    prints them; then ``eval.main`` in ``val`` mode on the 8 val pairs with
+    the trained weights, its colour dumps read back and FINAL equal to
+    their host metric. Returns the B6 launches."""
+    import numpy as np
+
+    from fastscnn_tpu_torch import parallel, train_presets
+    from fastscnn_tpu_torch.data import decoded_cache, image_io
+    from fastscnn_tpu_torch.data.bdd100k import BDD100KSegmentation
+
+    tree, cache = os.path.join(work, "bdd100k"), os.path.join(work, "cache")
+    secs = bdd_tree(tree)
+    _print(f"12b: synthetic BDD100K tree, {BDD_TRAIN} train and {BDD_VAL} val pairs of "
+           f"{BDD_SIZE[1]}x{BDD_SIZE[0]} (JPEG at quality 90 by the port's encoder, labels PNG), "
+           f"written in {secs:.1f} s")
+    steps = BDD_TRAIN // BDD_BATCH
+    flags = ["--data-root", tree, "--sample-ratio", "1", "--epochs", str(BDD_EPOCHS),
+             "--stem-impl", "pallas", "--no-val", "--save-epoch", "1", "--print-interval", "1",
+             "--num-workers", "4"]
+    seen = []
+    runs = _CliRuns(flags, 0, seen)
+    make_eval_step = _recording_eval_steps(parallel, seen)
+    cwd = os.getcwd()
+    os.chdir(work)  # the trainer writes logs/ under its working directory
+    try:
+        for label, extra in (("no cache", ["--save-folder", "B"]),
+                             ("--decoded-cache", ["--save-folder", "BC", "--decoded-cache",
+                                                  cache])):
+            before = decoded_cache.stats()
+            records = []
+            with _watched_train_steps(records):
+                _, out, peak = runs.train(
+                    f"bdd100k preset, {label}", extra, BDD_EPOCHS * steps, 2,
+                    main=lambda argv: train_presets.main(["bdd100k", *argv]))
+            losses = [float(v) for v in re.findall(r" iter \S+ loss (\S+) lr", out)]
+            first, last = np.mean(losses[:steps]), np.mean(losses[-steps:])
+            if not last < first:
+                raise AssertionError(f"12b {label}: losses {losses} do not fall")
+            ms = sorted(_step_intervals(records[0]["t_calls"], steps, range(1, BDD_EPOCHS)))
+            sps = [_epoch_numbers(out, e) for e in range(BDD_EPOCHS)]
+            st = _cache_counts(decoded_cache, before)
+            reads = BDD_EPOCHS * 2 * BDD_TRAIN
+            if "--decoded-cache" in extra and (st["hits"] + st["misses"] != reads
+                                               or st["misses"] < 2 * BDD_TRAIN):
+                raise AssertionError(f"12b: decoded cache {st} over {reads} reads")
+            _print(f"  {label}: losses epoch 1 mean {first:.4f} -> epoch {BDD_EPOCHS} mean "
+                   f"{last:.4f}; ms/step (host, epochs 2-{BDD_EPOCHS}, {len(ms)} intervals) "
+                   f"median {statistics.median(ms):.1f}, range {ms[0]:.1f}-{ms[-1]:.1f}; "
+                   f"samples/s as printed by epoch "
+                   f"{', '.join(f'{s:.1f} (data {d:.0f} ms/iter)' for s, d in sps)}; peak "
+                   f"{peak / 2**30:.2f} GiB; decoded cache {st}")
+        weights = os.path.join("B", "fast_scnn_bdd100k.pth")
+        dumps = os.path.join(work, "dumps")
+        evaluator, out = runs.evaluate("eval.main bdd100k val, bf16, batch 4, graphed", [
+            "--dataset", "bdd100k", "--data-root", tree, "--weights", weights, "--aux",
+            "--mode", "val", "--base-size", str(BDD_BASE), "--crop-size", str(BDD_CROP),
+            "--batch-size", "4", "--dtype", "bfloat16", "--outdir", dumps])
+    finally:
+        parallel.make_eval_step = make_eval_step
+        os.chdir(cwd)
+        decoded_cache.set_cache_dir(None)
+    final = re.search(r"FINAL pixAcc (\S+)% mIoU (\S+)%", out).groups()
+    val = BDD100KSegmentation(root=tree, split="val", mode="val", base_size=BDD_BASE,
+                              crop_size=BDD_CROP)
+    pairs = []
+    for i in range(len(val)):
+        mask, mode = image_io.decode(os.path.join(dumps, f"seg_{i}.png"))
+        if mode != "P" or mask.shape != (BDD_CROP, BDD_CROP):
+            raise AssertionError(f"12b dump {i}: a {mode} PNG of {mask.shape}")
+        pairs.append((mask, val[i][1]))
+    host = _host_scores(pairs, val.num_class)
+    if final != host or len(pairs) != BDD_VAL:
+        raise AssertionError(f"12b eval FINAL {final} differs from the host metric of its "
+                             f"{len(pairs)} dumps {host}")
+    _print(f"  eval.main: FINAL pixAcc {final[0]}% mIoU {final[1]}% over {len(pairs)} val "
+           f"images, equal to the host metric of the dumps read back without PIL")
+    return runs.total
+
+
+def jpeg_loop_leg(work, frame_path, frame):
+    """12 (c): the pipeline and the server on the 1280x720 JPEG frame.
+    ``pipeline.main`` (``--pixels-per-unit`` JPEG_PPU, the engine its own
+    session's) reads it and writes the JAX names (``_vis.jpg`` and
+    ``_control_map.jpg`` in the bytes of Pillow's save of its arrays); then
+    the pipeline in config A (``fused-ds`` + ``pallas``: B3 and B1, 2
+    classes, bf16, over ``predict_fn``'s graph), JPEG read to JPEGs
+    written, JPEG_LOOP_FRAMES frames (ms a frame: the median of all but the
+    first, the capture's); then one JPEG body POSTed to the serving server
+    over config A at 720x1280, its mask equal on every pixel to
+    ``engine.predict`` of the decoded pixels. Returns B3's and B1's
+    launches: the wrappers' plus the graphs' replays."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch import pipeline
+    from fastscnn_tpu_torch.control import VisualLateralErrorController
+    from fastscnn_tpu_torch.data import image_io, jpeg
+    from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import init_fast_scnn
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.serving import BatchingPredictor, ServingServer
+
+    def same_jpegs(out, base, result):
+        for name, key in ((f"{base}_vis.jpg", "visualization"),
+                          (f"{base}_control_map.jpg", "control_map")):
+            with open(os.path.join(out, name), "rb") as f:
+                data = f.read()
+            if data != jpeg.encode_jpeg(result[key][..., ::-1].copy()):
+                raise AssertionError(f"12c: {name} is not the JPEG of the pipeline's {key}")
+            if jpeg.decode_jpeg(data)[0].shape != result[key].shape:
+                raise AssertionError(f"12c: {name} does not decode to {result[key].shape}")
+
+    out = os.path.join(work, "pipeline")
+    result, _ = _run_cli(pipeline.main, ["--input", frame_path, "--output-dir", out,
+                                         "--pixels-per-unit", str(JPEG_PPU)])
+    names = sorted(os.listdir(out))
+    want = ["frame_1280x720_q90_control_data.json", "frame_1280x720_q90_control_map.jpg",
+            "frame_1280x720_q90_mask.png", "frame_1280x720_q90_path_data.json",
+            "frame_1280x720_q90_vis.jpg"]
+    if names != want:
+        raise AssertionError(f"12c pipeline.main wrote {names}")
+    same_jpegs(out, "frame_1280x720_q90", result)
+    _print(f"12c: pipeline.main on the JPEG frame: {len(names)} artifacts under the JAX names, "
+           f"the JPEGs Pillow's bytes of the pipeline's arrays (vis "
+           f"{result['visualization'].shape}, control map {result['control_map'].shape})")
+
+    dev = torch.device("cuda")
+    model = init_fast_scnn(LOOP_CLASSES, generator=torch.Generator().manual_seed(SEED + 12),
+                           device=dev, folded_dw_impl="fused-ds")
+    eng = InferenceEngine(model, device=dev, config=E2EConfig(
+        compute_dtype="bfloat16", final_upsample="pallas", mask_dtype="uint8"))
+    tally, stop = _tally_replays()
+    reset_launch_counts()
+    try:
+        controller = VisualLateralErrorController()
+        times = []
+        for k in range(JPEG_LOOP_FRAMES):
+            t0 = time.perf_counter()
+            img = np.ascontiguousarray(pipeline.read_image_rgb(frame_path)[:, :, ::-1])
+            res = pipeline.inference_single_image(img, eng, controller=controller,
+                                                  pixels_per_unit=JPEG_PPU,
+                                                  output_dir=os.path.join(work, "a"),
+                                                  basename="frame")
+            times.append((time.perf_counter() - t0) * 1e3)
+        same_jpegs(os.path.join(work, "a"), "frame", res)
+        warm = sorted(times[1:])
+        _print(f"12c: config A, JPEG in to JPEGs out, {JPEG_LOOP_FRAMES} frames: the first "
+               f"(capture) {times[0]:.1f} ms, then median {statistics.median(warm):.1f} ms a "
+               f"frame (range {warm[0]:.1f}-{warm[-1]:.1f}); the last frame's stages "
+               f"{ {k: round(v * 1e3, 2) for k, v in res['perf'].times.items()} } ms")
+
+        h, w = frame.shape[:2]
+        fn = eng.predict_fn((1, h, w, 3))
+        fn(np.zeros((1, h, w, 3), np.uint8)).cpu()
+        predictor = BatchingPredictor(lambda batch: eng.predict_fn(batch.shape)(batch), (h, w),
+                                      max_batch=1, bucket_sizes=(1,))
+        server = ServingServer(predictor, "citys", host="127.0.0.1", port=0)
+        base = f"http://127.0.0.1:{server.start()}"
+        try:
+            with open(frame_path, "rb") as f:
+                body = f.read()
+            req = urllib.request.Request(f"{base}/predict", data=body, method="POST",
+                                         headers={"Accept": "application/octet-stream"})
+            t0 = time.perf_counter()
+            answer = np.frombuffer(urllib.request.urlopen(req, timeout=120).read(), np.uint8)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            server.stop()
+        ref = eng.predict(torch.from_numpy(jpeg.decode_jpeg(body)[0]).to(dev)).cpu().numpy()
+        differ = int((answer.reshape(h, w) != ref).sum()) if answer.size == h * w else -1
+        _print(f"12c: the server over config A at {h}x{w}: one JPEG body ({len(body)} bytes) "
+               f"answered in {wall:.1f} ms; pixels differing from engine.predict of the "
+               f"decoded pixels {differ}")
+        if differ:
+            raise AssertionError(f"12c: the JPEG body's answer differs on {differ} pixels")
+    finally:
+        stop()
+    torch.cuda.synchronize()
+    eager = launch_counts()
+    launches = {k: eager.get(k, 0) + tally.get(k, 0) for k in ("ds_conv3x3_pw", "upsample_argmax")}
+    if not all(launches.values()):
+        raise AssertionError(f"12c: B3 and B1 not both launched: {launches}")
+    return launches
+
+
+def jpeg_phase(root):
+    """Phase 12: JPEG without PIL (PIL, matplotlib and cv2 blocked at the
+    top of this file): (a) :func:`codec_leg`, (b) :func:`bdd_leg`, (c)
+    :func:`jpeg_loop_leg`. Returns the kernel launches of (b) and (c)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("PIL is importable: the block at the top of this file failed")
+    work = os.path.join(root, "build", "chip_smoke_jpeg")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    frame_path, frame = codec_leg(root)
+    t_a = time.perf_counter() - t_phase
+    b6 = bdd_leg(work)
+    t_b = time.perf_counter() - t_phase - t_a
+    launches = {TRAINING_NAMES[k]: v for k, v in b6.items()}
+    launches.update(jpeg_loop_leg(work, frame_path, frame))
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 12 launches: {launches}")
+    _print(f"phase 12: {time.perf_counter() - t_phase:.1f} s (12a {t_a:.1f} s, 12b {t_b:.1f} s)")
+    return launches
+
+
 # the rows of the kernel table that dw_costs prices, and the library call each
 # is held against
 COST_LIBRARY = {"ds_conv3x3_pw": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
@@ -5748,6 +6119,9 @@ def main() -> int:
     parser.add_argument("--dw-ab", metavar="PARENT",
                         help="only the redesigned kernels' costs (B3, B5, B4, B6 forward, dX "
                              "and dW, B7, B8, B2, B1), for the checkout at PARENT and for this one")
+    parser.add_argument("--jpeg", action="store_true",
+                        help="only phase 12 (JPEG without PIL), after the build, with no "
+                             "device line")
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -5801,6 +6175,9 @@ def main() -> int:
     BUILD_CACHE[0] = enable_compilation_cache()
     _build.build_all()
     _print(f"build: {time.perf_counter() - t0:.1f} s, into {_build.build_dir()}")
+    if args.jpeg:
+        jpeg_phase(root)
+        return 0
 
     t0 = time.perf_counter()
     _print("depthwise forward, dX and dW, B3, B5, B7, B8, B2 and B1 on sweeps of small shapes:")
@@ -5849,6 +6226,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in tools_phase(root, yard).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in jpeg_phase(root).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -19,10 +19,10 @@ at the two recipe shapes it measures:
 
 Shapes, halved unless ``--full``: ``citys`` Cityscapes-format PNGs at
 1024×2048 (base 1024, crop 768, 24 train images); ``custom`` at 720×1280
-(base 520, crop 480, 48 images of ``images/`` + binary ``masks/``). The
-root bench writes the custom recipe's images as JPEG through PIL; here
-they are PNGs written by ``image_io.write_png`` (the port decodes no JPEG
-yet: ROADMAP.md, queue 1, item 5 (d)), so no PIL is on this path. The
+(base 520, crop 480, 48 images of ``images/`` + binary ``masks/``). As
+the root bench, the custom recipe's images are JPEG at quality 90, in
+Pillow's bytes, written by the port's codec (``data/jpeg.py``), and its
+masks PNG (``image_io.write_png``), so no PIL is on this path. The
 Trainer legs run inside the work directory, where the trainer writes its
 ``logs/``. ``--device`` (default: the CUDA card) places the Trainer's
 steps.
@@ -58,9 +58,10 @@ def recipes(scale: int) -> dict:
 
 
 def _make_custom_set(root, n, height, width, seed=0):
-    """TuSimple-like scenes and binary masks for ``data/custom.py``, both
-    PNG (the root bench writes the images as JPEG)."""
+    """TuSimple-like JPEG scenes (quality 90, as the root bench writes
+    them) and binary PNG masks for ``data/custom.py``."""
     from fastscnn_tpu_torch.data.image_io import write_png
+    from fastscnn_tpu_torch.data.jpeg import encode_jpeg
 
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
@@ -70,7 +71,8 @@ def _make_custom_set(root, n, height, width, seed=0):
         mask = np.zeros((height, width), np.uint8)
         lane_x = int(width * (0.3 + 0.4 * rng.random()))
         mask[:, lane_x:lane_x + 30] = 255
-        write_png(os.path.join(root, "images", f"f{i:05d}.png"), img)
+        with open(os.path.join(root, "images", f"f{i:05d}.jpg"), "wb") as f:
+            f.write(encode_jpeg(img, quality=90))
         write_png(os.path.join(root, "masks", f"f{i:05d}.png"), mask)
     return root
 

@@ -5,7 +5,7 @@ the port's inference engine (``--cpu`` runs it on the CPU, else on the
 CUDA card), a synthetic camera, the bird's-eye view and path planning,
 the visual lateral-error controller, optional serial actuation through
 the native bridge (``--enable-serial``), and the web dashboard; or a
-single-image run via ``--input`` (PNG). The OpenCV cameras (``--camera``,
+single-image run via ``--input`` (PNG or JPEG, read without PIL). The OpenCV cameras (``--camera``,
 ``--video``) and exported artifacts (``--export-path``) are not ported
 yet and raise.
 
@@ -16,7 +16,7 @@ Usage::
         --synthetic-camera --weights weights/fast_scnn_custom.pth
 
     # single image, on the CPU
-    python -m fastscnn_tpu_torch.control_dashboard --cpu --input frame.png
+    python -m fastscnn_tpu_torch.control_dashboard --cpu --input frame.jpg
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def parse_args(argv=None):
     parser.add_argument("--dtype", type=str, default="bfloat16")
     # mode
     parser.add_argument("--realtime", action="store_true", default=False)
-    parser.add_argument("--input", type=str, default=None, help="single-image mode (PNG)")
+    parser.add_argument("--input", type=str, default=None, help="single-image mode (PNG or JPEG)")
     parser.add_argument("--max-frames", type=int, default=None)
     # camera
     parser.add_argument("--camera", type=int, default=0)
@@ -100,9 +100,9 @@ def main(argv=None):
 
         import numpy as np
 
-        from fastscnn_tpu_torch.pipeline import inference_single_image, read_png_rgb
+        from fastscnn_tpu_torch.pipeline import inference_single_image, read_image_rgb
 
-        img = np.ascontiguousarray(read_png_rgb(args.input)[:, :, ::-1])
+        img = np.ascontiguousarray(read_image_rgb(args.input)[:, :, ::-1])
         basename = os.path.splitext(os.path.basename(args.input))[0]
         result = inference_single_image(
             img,

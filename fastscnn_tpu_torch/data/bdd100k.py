@@ -4,7 +4,9 @@ Counterpart of ``fastscnn_tpu/data/bdd100k.py``: ``{name}.jpg`` ↔
 ``{name}_drivable_id.png`` pairing, binary (label 1, direct drivable →
 1) or ternary labels, the 10k/100k subsets, seed-42 subsampling, and the
 three train transforms (standard crop, keep-original-size, multi-scale
-without crop).
+without crop). The ``.jpg`` images are decoded by the port's JPEG codec
+(``data/jpeg.py``, Pillow's pixels, no PIL) and the label PNGs by
+``data/image_io.py``.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ image/mask pairs, mask binarised ``> 128 → 1``, the 90/10 train/val
 split of scikit-learn's ``train_test_split(random_state=42)`` (its numpy
 form; scikit-learn is never imported), and the crop, original-size and
 multi-scale train modes. This dataset is fed as plain /255 with no
-ImageNet mean/std (``normalization = 'unit'``).
+ImageNet mean/std (``normalization = 'unit'``). ``.jpg``/``.jpeg`` images
+are decoded by the port's JPEG codec (``data/jpeg.py``, no PIL), ``.png``
+ones by ``data/image_io.py``.
 """
 
 from __future__ import annotations

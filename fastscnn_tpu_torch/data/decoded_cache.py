@@ -8,7 +8,7 @@ arrays where the JAX package returns PIL images:
   by the path's digest, mtime and size and the ``convert`` mode, so a
   stale entry decodes again;
 - later opens copy the array out of a memory map of that ``.npy``: a
-  memcpy in place of an inflate and unfilter pass.
+  memcpy in place of an inflate and unfilter pass, or of a JPEG decode.
 
 The entry names, their content and the atomic write are the JAX
 package's, so an entry written by either package is a hit for the other.

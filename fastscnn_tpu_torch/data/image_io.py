@@ -1,31 +1,43 @@
-"""Image files to numpy arrays, with PNG decoded by the standard library.
+"""Image files to numpy arrays, and back, without PIL.
 
-The JAX package opens every image with ``PIL.Image.open``. The machine
-that runs the port on the card has no PIL, so this module reads the PNGs
-the datasets use (Cityscapes images and label maps, TuSimple and
-BDD100K label maps, custom masks) with ``zlib`` and numpy alone:
+The JAX package opens every image with ``PIL.Image.open`` and writes
+with ``Image.save``. The machine that runs the port on the card has no
+PIL, so this module reads and writes the files the datasets, the
+pipeline, the server and the demos use with the standard library, numpy
+and the port's JPEG codec (``data/jpeg.py``) alone:
 
-- 8-bit greyscale, RGB, RGBA and palette images (a palette image gives
-  its indices, as ``np.asarray(Image.open(path))`` does);
-- non-interlaced, with any mix of the five row filters;
-- ``convert="RGB"``, ``"L"`` and ``"RGBA"`` as Pillow converts those
-  modes (``Convert.c``): greyscale replicated, alpha dropped, palette
-  indices looked up (entries the palette lacks read as black, alpha 255);
-  ``L`` the ITU-R 601-2 luma in Pillow's integers, ``(R·19595 + G·38470 +
-  B·7471 + 0x8000) >> 16``, of the RGB (or palette) values; ``RGBA``
-  with alpha 255 but where a ``tRNS`` chunk says otherwise, as Pillow
-  honours it: a palette image's alphas by index, a greyscale or RGB
-  image's one transparent sample value at alpha 0.
+- PNG, read with ``zlib`` and numpy: 8-bit greyscale, RGB, RGBA and
+  palette images (a palette image gives its indices, as
+  ``np.asarray(Image.open(path))`` does), non-interlaced, with any mix of
+  the five row filters;
+- JPEG, read by :func:`~fastscnn_tpu_torch.data.jpeg.decode_jpeg` to
+  Pillow's pixels: baseline, extended-sequential or progressive Huffman,
+  8-bit, 1 or 3 components, 4:4:4, 4:2:2 or 4:2:0 (mode ``L`` or
+  ``RGB``);
+- ``convert="RGB"``, ``"L"`` and ``"RGBA"`` of either, as Pillow converts
+  those modes (``Convert.c``): greyscale replicated, alpha dropped,
+  palette indices looked up (entries the palette lacks read as black,
+  alpha 255); ``L`` the ITU-R 601-2 luma in Pillow's integers,
+  ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``, of the RGB (or
+  palette) values; ``RGBA`` with alpha 255 but where a PNG's ``tRNS``
+  chunk says otherwise, as Pillow honours it: a palette image's alphas
+  by index, a greyscale or RGB image's one transparent sample value at
+  alpha 0.
 
-Any other file (JPEG, 16-bit or interlaced PNG, another ``convert``)
-goes through PIL, imported inside :func:`decode`; where PIL is not
-installed that raises a ``RuntimeError`` naming the file.
-:func:`decode_bytes` does the same for an image held in memory (a
-request body), and :func:`write_png` writes 8-bit L, RGB, RGBA and
-palette PNGs with filter type 0: a palette image (the mask dumps) in the
-bytes PIL writes for it. :func:`save_image` writes a ``.png`` path
-through it and hands any other to PIL; :func:`image_size` reads a PNG's
-or a JPEG's size from its header without decoding it.
+A JPEG variant the codec does not read raises its ``ValueError``, and a
+JPEG never goes to PIL. Any other file (BMP, a 16-bit or interlaced PNG,
+another ``convert``) goes through PIL, imported inside :func:`decode`;
+where PIL is not installed that raises a ``RuntimeError`` naming the file
+and the ROADMAP item of the formats only PIL reads. :func:`decode_bytes`
+does the same for an image held in memory (a request body).
+
+:func:`write_png` writes 8-bit L, RGB, RGBA and palette PNGs with filter
+type 0: a palette image (the mask dumps) in the bytes PIL writes for it.
+:func:`save_image` writes a ``.png`` path through it and a ``.jpg`` or
+``.jpeg`` path through :func:`~fastscnn_tpu_torch.data.jpeg.encode_jpeg`
+(Pillow's bytes at its default quality, 75), and hands any other to PIL;
+:func:`image_size` reads a PNG's or a JPEG's size from its header
+without decoding it.
 
 Sub and Up rows unfilter with one vector operation a row. Average and
 Paeth rows depend on the pixel to their left, so an image that has any
@@ -38,7 +50,8 @@ filters. Those steps are small numpy calls that each take and release
 the interpreter lock, so loader threads decoding at once thrash it (four
 threads took 4.7x the serial time a file on an H100 machine's host,
 PERF.md §5): one thread at a time runs them, the others meanwhile read
-and inflate their files.
+and inflate their files. A JPEG decode is one call into the codec, which
+releases the lock, so threads decode JPEGs in parallel.
 """
 
 from __future__ import annotations
@@ -49,6 +62,8 @@ import threading
 import zlib
 
 import numpy as np
+
+from fastscnn_tpu_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg, encode_jpeg, is_jpeg
 
 __all__ = ["decode", "decode_bytes", "image_size", "read_image", "read_palette", "save_image",
            "write_png", "PNG_SIGNATURE"]
@@ -91,14 +106,19 @@ _CONVERTS = (None, "RGB", "L", "RGBA")
 
 
 def _decode(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
-    if convert in _CONVERTS:
-        png = _read_png(data, name)
-        if png is not None:
-            arr, mode, palette, trns = png
-            if convert is not None and convert != mode:
-                arr, mode = _CONVERTERS[convert](arr, mode, palette, trns), convert
-            return arr, mode
-    return _decode_with_pil(data, convert, name)
+    if is_jpeg(data):
+        if convert not in _CONVERTS:
+            raise ValueError(f"{name}: convert={convert!r} of a JPEG is not read without PIL "
+                             f"({ROADMAP_ITEM})")
+        (arr, mode), palette, trns = decode_jpeg(data, name), None, None
+    else:
+        png = _read_png(data, name) if convert in _CONVERTS else None
+        if png is None:
+            return _decode_with_pil(data, convert, name)
+        arr, mode, palette, trns = png
+    if convert is not None and convert != mode:
+        arr, mode = _CONVERTERS[convert](arr, mode, palette, trns), convert
+    return arr, mode
 
 
 def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
@@ -106,9 +126,9 @@ def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.nd
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot read {name!r}: it is not an 8-bit non-interlaced PNG, which is all that "
-            "is read without PIL, and the PIL package is not installed (ROADMAP.md, queue 1, "
-            "item 5 (d): JPEG)") from e
+            f"cannot read {name!r}: it is neither an 8-bit non-interlaced PNG nor a JPEG, which "
+            f"are all that is read without PIL, and the PIL package is not installed "
+            f"({ROADMAP_ITEM})") from e
     with Image.open(io.BytesIO(data)) as img:
         if convert:
             img = img.convert(convert)
@@ -319,17 +339,25 @@ def write_png(path_or_file, arr: np.ndarray, palette=None) -> None:
 
 def save_image(path: str, arr: np.ndarray) -> None:
     """``Image.fromarray(arr).save(path)``: a ``.png`` path through
-    :func:`write_png`, any other through PIL, which raises a
-    ``RuntimeError`` naming the file where PIL is not installed."""
-    if path.lower().endswith(".png"):
+    :func:`write_png`, a ``.jpg`` or ``.jpeg`` path through
+    :func:`~fastscnn_tpu_torch.data.jpeg.encode_jpeg` (Pillow's default
+    quality, 75), any other through PIL, which raises a ``RuntimeError``
+    naming the file where PIL is not installed."""
+    lower = path.lower()
+    if lower.endswith(".png"):
         write_png(path, arr)
+        return
+    if lower.endswith((".jpg", ".jpeg")):
+        data = encode_jpeg(np.asarray(arr))
+        with open(path, "wb") as f:
+            f.write(data)
         return
     try:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot write {path!r}: only PNG files are written without PIL, and the PIL "
-            "package is not installed (ROADMAP.md, queue 1, item 5 (d): JPEG)") from e
+            f"cannot write {path!r}: only PNG and JPEG files are written without PIL, and the "
+            f"PIL package is not installed ({ROADMAP_ITEM})") from e
     Image.fromarray(np.asarray(arr)).save(path)
 
 

@@ -1,8 +1,8 @@
 """Threaded prefetching data loader.
 
 Counterpart of ``fastscnn_tpu/data/loader.py``: a thread pool decodes and
-augments samples (zlib, numpy and PIL release the GIL in their inner
-loops) while the card trains on the previous batch. Batches are numpy
+augments samples (zlib, numpy and the JPEG codec release the GIL in
+their inner loops) while the card trains on the previous batch. Batches are numpy
 ``(images u8 NHWC, targets i32 NHW)``; the trainer moves them to the
 device. Samples of different sizes are padded to the batch's largest
 (images with 0, targets with the ignore label).

@@ -2,7 +2,9 @@
 
 Counterpart of ``fastscnn_tpu/data/tusimple.py``: pairs from
 ``seg_label/list/train_val_gt.txt`` (first 90 % train, last 10 % val),
-mask binarised ``> 0 → 1``.
+mask binarised ``> 0 → 1``. The clips' ``.jpg`` frames are decoded by
+the port's JPEG codec (``data/jpeg.py``, Pillow's pixels, no PIL) and the
+label PNGs by ``data/image_io.py``.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Single-image demo CLI.
 
-The port of ``fastscnn_tpu/demo.py``: a PNG image → the port's inference
+The port of ``fastscnn_tpu/demo.py``: a PNG or JPEG image → the port's inference
 engine → the class mask → a palette PNG (``utils/visualize.py``).
 
-    python -m fastscnn_tpu_torch.demo --input-pic frame.png --dataset citys
+    python -m fastscnn_tpu_torch.demo --input-pic frame.jpg --dataset citys
     python -m fastscnn_tpu_torch.demo --cpu --input-pic frame.png
 """
 
@@ -19,7 +19,7 @@ def parse_args(argv=None):
     parser.add_argument("--dataset", type=str, default="citys",
                         choices=["citys", "tusimple", "bdd100k", "custom"])
     parser.add_argument("--weights-folder", default="./weights")
-    parser.add_argument("--input-pic", type=str, required=True, help="a PNG image")
+    parser.add_argument("--input-pic", type=str, required=True, help="a PNG or JPEG image")
     parser.add_argument("--outdir", default="./test_result")
     parser.add_argument("--aux", action="store_true", default=False)
     parser.add_argument("--cpu", action="store_true", default=False,
@@ -42,7 +42,7 @@ def demo(argv=None):
     args = parse_args(argv)
     from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD
     from fastscnn_tpu_torch.models import DATASET_NUM_CLASSES
-    from fastscnn_tpu_torch.pipeline import read_png_rgb
+    from fastscnn_tpu_torch.pipeline import read_image_rgb
     from fastscnn_tpu_torch.utils.visualize import get_color_pallete
 
     mean, std = (IMAGENET_MEAN, IMAGENET_STD) if args.dataset != "custom" else (None, None)
@@ -50,7 +50,7 @@ def demo(argv=None):
                           os.path.join(args.weights_folder, f"fast_scnn_{args.dataset}.pth"),
                           args.aux, mean, std, "cpu" if args.cpu else None)
 
-    image = read_png_rgb(args.input_pic)
+    image = read_image_rgb(args.input_pic)
     pred = engine.predict(image).cpu().numpy()
     os.makedirs(args.outdir, exist_ok=True)
     outname = os.path.splitext(os.path.basename(args.input_pic))[0] + ".png"

@@ -86,7 +86,7 @@ def parse_args(argv=None):
 
 
 def _calibration_batches(images_dir, shape, rng, limit: int = 16):
-    """int8 calibration batches: real PNG images (``data/image_io.py``)
+    """int8 calibration batches: real PNG or JPEG images (``data/image_io.py``)
     resized bilinearly (``data/pil_ops.py``) to the export shape when a
     directory is given, synthetic frames otherwise."""
     batch, h, w, _ = shape

@@ -4,7 +4,7 @@ The port of ``fastscnn_tpu/interfaces/web_interface.py``, on the standard
 library's ``ThreadingHTTPServer``, with the same routes and payloads —
 
   GET  /                    HTML dashboard
-  GET  /video_feed          multipart stream of the control map, PNG parts
+  GET  /video_feed          MJPEG stream of the control map
   GET  /api/stats           pipeline stats JSON, host and card resources
   POST /api/update_params   hot parameter update (queued to the loop)
   POST /api/connect_serial  connect the car controller
@@ -12,20 +12,20 @@ library's ``ThreadingHTTPServer``, with the same routes and payloads —
   POST /api/emergency_stop  immediate stop + disable
   GET  /api/control_status  controller/driving state JSON
 
-The JAX dashboard streams JPEG parts (OpenCV or PIL); the port has
-neither, so each part is a PNG (``data/image_io.write_png``) sent as
-``Content-Type: image/png``. Runs in a daemon thread.
+Each ``/video_feed`` part is ``Content-Type: image/jpeg``, in the bytes
+of the JAX dashboard's PIL branch (``Image.save(bio, "JPEG")`` of the
+RGB frame), written by the port's JPEG codec (``data/jpeg.py``) without
+PIL or OpenCV. Runs in a daemon thread.
 """
 
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from fastscnn_tpu_torch.data.image_io import write_png
+from fastscnn_tpu_torch.data.jpeg import encode_jpeg
 from fastscnn_tpu_torch.utils.system_monitor import device_stats, host_stats
 
 __all__ = ["DashboardServer"]
@@ -106,13 +106,12 @@ setInterval(async () => {
 """
 
 
-def _encode_png(img) -> bytes | None:
-    """A BGR (or greyscale) frame as PNG bytes, in OpenCV's channel order."""
+def _encode_jpeg(img) -> bytes | None:
+    """A BGR (or greyscale) frame as JPEG bytes: the channels flipped to
+    RGB and Pillow's ``save(bio, "JPEG")`` bytes (quality 75)."""
     if img is None:
         return None
-    bio = io.BytesIO()
-    write_png(bio, img[..., ::-1] if img.ndim == 3 else img)
-    return bio.getvalue()
+    return encode_jpeg(img[..., ::-1] if img.ndim == 3 else img)
 
 
 class DashboardServer:
@@ -187,10 +186,10 @@ class DashboardServer:
                                 img = pipeline.web_data.get("control_map")
                                 if img is None:
                                     img = pipeline.web_data.get("visualization")
-                            png = _encode_png(img)
-                            if png is not None:
-                                self.wfile.write(b"--frame\r\nContent-Type: image/png\r\n\r\n")
-                                self.wfile.write(png)
+                            jpeg = _encode_jpeg(img)
+                            if jpeg is not None:
+                                self.wfile.write(b"--frame\r\nContent-Type: image/jpeg\r\n\r\n")
+                                self.wfile.write(jpeg)
                                 self.wfile.write(b"\r\n")
                             time.sleep(0.1)
                     except (BrokenPipeError, ConnectionResetError):

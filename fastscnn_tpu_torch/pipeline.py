@@ -15,15 +15,17 @@ JAX engine's ``predict`` dispatches); on the CPU the same call, eager.
 The ``inference`` stage ends with the mask on the host, so it includes
 the wait for the device.
 
-Images are read as PNG (``data/image_io.py``); the artifacts are written
-as PNG (``_mask.png``, ``_vis.png``, ``_control_map.png``) where the JAX
-package writes JPEG through OpenCV or PIL, which the port does not have.
+Images are read as PNG or JPEG without PIL (``data/image_io.py``, the
+JPEG through the port's codec, ``data/jpeg.py``); the artifacts get the
+JAX package's names and formats, ``_mask.png``, ``_vis.jpg`` and
+``_control_map.jpg``, in the bytes its no-OpenCV branch writes through
+PIL (Pillow's JPEG at its default quality, 75).
 
 Usage::
 
-    python -m fastscnn_tpu_torch.pipeline --input image.png \\
+    python -m fastscnn_tpu_torch.pipeline --input image.jpg \\
         --weights weights/fast_scnn_custom.pth --output-dir output/
-    python -m fastscnn_tpu_torch.pipeline --device cpu --input image.png
+    python -m fastscnn_tpu_torch.pipeline --device cpu --input image.jpg
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from fastscnn_tpu_torch.control import VisualLateralErrorController
-from fastscnn_tpu_torch.data import image_io
+from fastscnn_tpu_torch.data import image_io, jpeg
 from fastscnn_tpu_torch.perception import (
     PerspectiveTransformer,
     create_control_map,
@@ -47,7 +49,7 @@ from fastscnn_tpu_torch.perception import (
 from fastscnn_tpu_torch.perception.preprocessing import _resize
 from fastscnn_tpu_torch.utils.profiling import PerfTimer
 
-__all__ = ["inference_single_image", "build_session", "load_model", "read_png_rgb",
+__all__ = ["inference_single_image", "build_session", "load_model", "read_image_rgb",
            "ArtifactSession", "parse_args", "main"]
 
 FRAME_SIZE = (640, 360)  # (width, height) the engine path runs at
@@ -237,9 +239,9 @@ def inference_single_image(
         with timer.stage("save_artifacts"):
             os.makedirs(output_dir, exist_ok=True)
             _imwrite(os.path.join(output_dir, f"{basename}_mask.png"), mask)
-            _imwrite(os.path.join(output_dir, f"{basename}_vis.png"), result["visualization"])
+            _imwrite(os.path.join(output_dir, f"{basename}_vis.jpg"), result["visualization"])
             if "control_map" in result:
-                _imwrite(os.path.join(output_dir, f"{basename}_control_map.png"),
+                _imwrite(os.path.join(output_dir, f"{basename}_control_map.jpg"),
                          result["control_map"])
             if result.get("path_data"):
                 save_path_data_json(
@@ -254,29 +256,31 @@ def inference_single_image(
 
 
 def _imwrite(path, img):
-    """A BGR (or greyscale) array as a PNG, in the channel order OpenCV
-    writes it."""
-    image_io.write_png(path, img[..., ::-1] if img.ndim == 3 else img)
+    """A BGR (or greyscale) array as the JAX package's no-OpenCV branch
+    writes it: channels flipped to RGB, then ``Image.save`` by extension
+    (``image_io.save_image``: PNG, or Pillow's JPEG bytes)."""
+    image_io.save_image(path, img[..., ::-1] if img.ndim == 3 else img)
 
 
-def read_png_rgb(path: str) -> np.ndarray:
-    """A PNG file as uint8 (H, W, 3) RGB. Other formats raise: they need
-    PIL or OpenCV (ROADMAP.md, queue 1, item 5 (d): JPEG)."""
+def read_image_rgb(path: str) -> np.ndarray:
+    """A PNG or JPEG file as uint8 (H, W, 3) RGB, as ``np.asarray(
+    Image.open(path).convert("RGB"))``. Other formats raise: they need PIL
+    or OpenCV (ROADMAP.md, queue 1, item 10: formats only PIL reads)."""
     try:
         with open(path, "rb") as f:
             head = f.read(len(image_io.PNG_SIGNATURE))
     except OSError as e:
         raise SystemExit(f"cannot read {path}: {e}") from e
-    if head != image_io.PNG_SIGNATURE:
+    if head != image_io.PNG_SIGNATURE and not jpeg.is_jpeg(head):
         raise NotImplementedError(
-            f"{path}: only PNG images are read by the port; JPEG and other formats are not "
-            "ported yet (ROADMAP.md, queue 1, item 5 (d): JPEG)")
+            f"{path}: only PNG and JPEG images are read by the port; other formats are not "
+            "ported yet (ROADMAP.md, queue 1, item 10: formats only PIL reads)")
     return image_io.read_image(path, convert="RGB")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Fast-SCNN perception pipeline (PyTorch/CUDA)")
-    parser.add_argument("--input", type=str, required=True, help="a PNG image")
+    parser.add_argument("--input", type=str, required=True, help="a PNG or JPEG image")
     parser.add_argument("--dataset", type=str, default="custom")
     parser.add_argument("--weights", type=str, default=None)
     parser.add_argument("--export-path", type=str, default=None,
@@ -318,7 +322,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    img = np.ascontiguousarray(read_png_rgb(args.input)[:, :, ::-1])
+    img = np.ascontiguousarray(read_image_rgb(args.input)[:, :, ::-1])
 
     session = build_session(args)
     transformer = None

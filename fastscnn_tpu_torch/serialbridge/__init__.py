@@ -4,9 +4,8 @@ The port's own copy of ``fastscnn_tpu/serialbridge/__init__.py`` and its
 C++ library (``bridge.cpp``): the UART wheel-speed protocol (pack,
 parse, checksum), a firmware-equivalent ``VehicleSim`` with the 500 ms
 command watchdog, and raw termios serial I/O. The library is compiled
-with ``g++`` the first time a function needs it (not at import), into
-``build/fastscnn_tpu_torch/`` under the repo root, named by a hash of
-its source and flags.
+with ``g++`` the first time a function needs it (not at import), by
+``utils/native.build_library``.
 
 ``SimpleCarController`` is the host API of the reference's car
 controller: connect/disconnect, set_wheel_speeds, set_motion/speed/
@@ -17,13 +16,13 @@ timeout tracking — packing and sending through the native bridge.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
 import os
-import subprocess
 import threading
 import time
 from pathlib import Path
+
+from fastscnn_tpu_torch.utils.native import build_library
 
 logger = logging.getLogger(__name__)
 
@@ -38,29 +37,8 @@ __all__ = [
 ]
 
 _SRC = Path(__file__).resolve().parent / "bridge.cpp"
-# under the repo root's git-ignored build/, beside the CUDA kernels' libraries
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fastscnn_tpu_torch"
-GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _LOCK = threading.Lock()
 _LIB = None
-
-
-def build_library(src: Path, name: str) -> Path:
-    """The shared library of the C++ source ``src``, compiled with ``g++``
-    when the one for this source and :data:`GXX_FLAGS` is missing, into
-    ``BUILD_DIR/lib<name>-<hash>.so``. The caller holds its own lock."""
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
-    so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ {src.name} (rc {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: no other process loads a partial library
-    return so
 
 
 def load_bridge() -> ctypes.CDLL:

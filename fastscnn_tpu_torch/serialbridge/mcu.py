@@ -22,7 +22,7 @@ import ctypes
 import threading
 from pathlib import Path
 
-from fastscnn_tpu_torch.serialbridge import build_library
+from fastscnn_tpu_torch.utils.native import build_library
 
 __all__ = ["load_mcu", "Mcu", "RegisterVehicle", "WHEELS", "DIRECTIONS"]
 

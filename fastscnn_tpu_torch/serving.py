@@ -14,10 +14,10 @@ i+1 computes on the card while batch i is distributed to its callers.
 ``--data-parallel`` above 1 is not ported (multi-device is ROADMAP.md
 queue 1, item 6).
 
-No PIL: a PNG body is decoded by ``data/image_io.decode_bytes``, a
-wrong-size frame resized by ``data/pil_ops.resize`` (PIL's bilinear, bit
-for bit) and the PNG answer written by ``data/image_io.write_png``. A
-JPEG body alone goes through PIL, where it is installed.
+No PIL: a PNG or JPEG body is decoded by ``data/image_io.decode_bytes``
+(a JPEG through the port's codec, ``data/jpeg.py``, to Pillow's pixels),
+a wrong-size frame resized by ``data/pil_ops.resize`` (PIL's bilinear,
+bit for bit) and the PNG answer written by ``data/image_io.write_png``.
 
 Routes (stdlib HTTP, threads):
   POST /predict        image bytes (PNG/JPEG) → PNG palette mask

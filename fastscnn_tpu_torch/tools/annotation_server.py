@@ -33,8 +33,10 @@ Usage::
 
 No PIL: the canvas PNGs are read with ``data/image_io.py`` (its
 ``convert='RGBA'`` is Pillow's, ``tRNS`` included), masks with its
-``convert='L'``, and every PNG is written by ``image_io.write_png``. A
-PNG's pixels are Pillow's; its compressed bytes are not.
+``convert='L'`` (a JPEG mask, as auto-fill and ``lane2drivable_all`` may
+meet, through the port's JPEG codec), and every PNG is written by
+``image_io.write_png``. A PNG's pixels are Pillow's; its compressed
+bytes are not.
 """
 
 from __future__ import annotations

@@ -12,9 +12,10 @@ calibrate_perspective.py, calibrate_bev.py, perspective_transform.py):
   and a display: not ported, it raises naming ROADMAP.md's "item 5, left
   out: display windows"
 
-Over the port's ``perception/`` (the numpy BEV warp, no OpenCV); images
-are read with ``data/image_io.py`` and the warps written as PNGs by
-``image_io.write_png`` (no PIL).
+Over the port's ``perception/`` (the numpy BEV warp, no OpenCV); PNG and
+JPEG images are read with ``data/image_io.py`` (a JPEG through the
+port's codec) and the warps written as PNGs by ``image_io.write_png``
+(no PIL).
 
 Usage::
 

@@ -10,14 +10,15 @@ No PIL: masks and images are read with ``data/image_io.py``, an image's
 size for the match check from its header alone (a PNG's IHDR, a JPEG's
 frame header: ``image_io.image_size``, no decoder), the NEAREST and
 BILINEAR resizes are ``data/pil_ops.resize`` (Pillow's, bit for bit) and
-the grid is written by ``image_io.save_image`` (a PNG; another extension
-needs PIL, so the overlay's default output is ``overlay_grid.png``).
+the grid is written by ``image_io.save_image``: by default
+``overlay_grid.jpg``, as the JAX tool, in Pillow's JPEG bytes through the
+port's codec (a ``.png`` name writes a PNG).
 
 Usage::
 
     python -m fastscnn_tpu_torch.tools.dataset_check masks --images-dir ... --masks-dir ...
     python -m fastscnn_tpu_torch.tools.dataset_check overlay --images-dir ... \\
-        --masks-dir ... --out grid.png
+        --masks-dir ... --out grid.jpg
 """
 
 from __future__ import annotations
@@ -137,7 +138,7 @@ def main(argv=None):
     p = sub.add_parser("overlay")
     p.add_argument("--images-dir", required=True)
     p.add_argument("--masks-dir", required=True)
-    p.add_argument("--out", default="overlay_grid.png")
+    p.add_argument("--out", default="overlay_grid.jpg")
     p.add_argument("--max-samples", type=int, default=9)
     args = parser.parse_args(argv)
     if args.cmd == "masks":

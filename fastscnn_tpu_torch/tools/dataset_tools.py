@@ -11,8 +11,9 @@
 
 Each has a function core and a CLI (``python -m
 fastscnn_tpu_torch.tools.dataset_tools <command> ...``). No PIL and no
-OpenCV: images are read with ``data/image_io.py`` and written as PNGs by
-``image_io.write_png`` (a JPEG goes through PIL where it is installed),
+OpenCV: PNG and JPEG images are read with ``data/image_io.py`` and
+written back in their own format by ``image_io`` (a JPEG through the
+port's codec, in Pillow's bytes at its default quality),
 flips are ``data/pil_ops.flip_lr``, and the dilation is always the JAX
 function's no-OpenCV branch, a 4-neighbour cross (where OpenCV imports,
 the JAX function dilates with a 3×3 box instead; ROADMAP.md, queue 3,

@@ -3,9 +3,9 @@
 Ports of reference:create_mask.py (polygon/brush painter with undo) and
 reference:interactive_mask_editor.py (4-mode editor: fill/rect/polygon/
 brush with undo/redo): the headless geometry core (``MaskCanvas``) and
-the directory session (``EditorSession``), reading with
+the directory session (``EditorSession``), reading PNG and JPEG with
 ``data/image_io.py``, resizing with ``data/pil_ops.py`` and writing PNGs
-with ``image_io.write_png`` (no PIL). The JAX package's OpenCV windows
+with ``image_io.write_png`` (no PIL; a BMP needs it). The JAX package's OpenCV windows
 (``--image`` and ``--images-dir`` on a display) are not ported: the
 card's machine has neither OpenCV nor a display, and the CLI raises
 naming ROADMAP.md's "item 5, left out: display windows".

@@ -21,10 +21,11 @@ Usage::
         --crop-size 768 --epochs 160 --batch-size 16 --loss-type ce \\
         --aux --stem-impl pallas --device-aug --decoded-cache /tmp/citys-cache
 
-No PIL is needed on PNG datasets (Cityscapes): the host decodes PNGs
-with ``data/image_io.py`` (or copies them out of ``--decoded-cache``),
-and the host augmentation and validation's ``val`` mode run PIL's
-operations in numpy (``data/pil_ops.py``). JPEG datasets need PIL.
+No PIL is needed on any dataset: the host decodes PNGs with
+``data/image_io.py`` and the JPEGs of TuSimple, BDD100K and custom trees
+with the port's JPEG codec (``data/jpeg.py``), or copies either out of
+``--decoded-cache``, and the host augmentation and validation's ``val``
+mode run PIL's operations in numpy (``data/pil_ops.py``).
 ``--loader grain`` makes the records in worker processes
 (``data/grain_loader.py``, no grain). ``--resume`` takes the JAX
 trainer's files as well as the port's: ``.pth`` and ``.pth.npz`` load as

@@ -16,8 +16,8 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 
-__all__ = ["PerfTimer", "enable_compilation_cache", "device_trace", "LEAD_IN_KERNELS",
-           "TRACE_SUFFIX"]
+__all__ = ["PerfTimer", "enable_compilation_cache", "device_trace", "warm_profile",
+           "device_kernels", "LEAD_IN_KERNELS", "TRACE_SUFFIX"]
 
 TRACE_SUFFIX = ".pt.trace.json"
 
@@ -123,6 +123,50 @@ LEAD_IN_KERNELS = 1024
 
 
 @contextmanager
+def warm_profile(on_trace_ready=None):
+    """``torch.profiler`` over everything run inside the block, opened with
+    a warm-up step whose records are discarded: with CUDA it launches
+    ``LEAD_IN_KERNELS`` one-element kernels. In a process that has run for
+    a while, the first kernel records after the profiler starts go
+    missing, more of them the older the process (``chip_smoke.py`` phase
+    11a counts them for a session without the warm-up); the warm-up
+    absorbs them, so every kernel of the block is recorded, and none of
+    the lead-in's. Yields the profiler: after the block (whose device work
+    is waited for), its ``key_averages()`` hold the block's records, and
+    ``on_trace_ready`` has been called with it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=on_trace_ready) as prof:
+        if cuda:
+            one = torch.zeros(1, device="cuda")
+            for _ in range(LEAD_IN_KERNELS):
+                one.add_(1)
+            torch.cuda.synchronize()
+        prof.step()  # the warm-up ends: the block is recorded
+        try:
+            yield prof
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+
+
+def device_kernels(prof) -> list:
+    """The device kernels among ``prof.key_averages()``: the rows with
+    device time, but the step annotation ``ProfilerStep*`` that
+    :func:`warm_profile`'s schedule adds, which the profiler reports as a
+    device range spanning the whole block."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
+@contextmanager
 def device_trace(outdir: str):
     """Trace everything run inside the block with ``torch.profiler``: the
     host's operators, and the card's kernels, copies and sets where CUDA
@@ -131,35 +175,13 @@ def device_trace(outdir: str):
     ``<outdir>/<host>.<pid>.<ns>.pt.trace.json``, which
     ``tools/xplane.py`` finds (view it in Perfetto or chrome://tracing) —
     the counterpart of the JAX package's ``jax.profiler`` XPlane trace.
-
-    The trace opens with a warm-up step, whose records are discarded:
-    with CUDA it launches ``LEAD_IN_KERNELS`` one-element kernels. In a
-    process that has run for a while, the first kernel records after the
-    profiler starts go missing, more of them the older the process
-    (``chip_smoke.py`` phase 11a counts them for a trace without the
-    warm-up); the warm-up absorbs them, so every kernel of the block is in
-    the trace, and none of the lead-in's."""
+    The trace opens with :func:`warm_profile`'s warm-up step, so every
+    kernel of the block is in it, and none of the lead-in's."""
     import os
     import socket
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    cuda = torch.cuda.is_available()
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(outdir, exist_ok=True)
     path = os.path.join(outdir, f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}"
                                 f"{TRACE_SUFFIX}")
-    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda prof: prof.export_chrome_trace(path)) as prof:
-        if cuda:
-            one = torch.zeros(1, device="cuda")
-            for _ in range(LEAD_IN_KERNELS):
-                one.add_(1)
-            torch.cuda.synchronize()
-        prof.step()  # the warm-up ends: the block is recorded
-        try:
-            yield
-        finally:
-            if cuda:
-                torch.cuda.synchronize()
+    with warm_profile(on_trace_ready=lambda prof: prof.export_chrome_trace(path)):
+        yield

@@ -331,8 +331,14 @@ def test_bench_input_runs_on_the_cpu_without_pil(no_pil, tmp_path, capsys):
     for name in table:
         assert set(out["recipes"][name]) == keys
         assert all(v > 0 for v in out["recipes"][name].values())
-    # the custom recipe's images are PNGs, as the custom dataset reads them
-    assert sorted(os.listdir(tmp_path / "custom_72" / "images"))[0] == "f00000.png"
+    # the custom recipe's images are JPEGs at quality 90, as the root bench writes them
+    assert sorted(os.listdir(tmp_path / "custom_72" / "images"))[0] == "f00000.jpg"
+    from fastscnn_tpu_torch.data import image_io, jpeg
+
+    first = tmp_path / "custom_72" / "images" / "f00000.jpg"
+    seeded = np.random.default_rng(0).integers(0, 256, (72, 128, 3), dtype=np.uint8)
+    assert first.read_bytes() == jpeg.encode_jpeg(seeded, 90)
+    assert image_io.read_image(str(first)).shape == (72, 128, 3)
     assert (tmp_path / "logs" / "training_log_custom.json").exists()  # the trainer's, there
     from fastscnn_tpu_torch.data import decoded_cache
 

@@ -1,8 +1,8 @@
 """The port's input pipeline against the JAX package's: PNG decoding,
 the decoded cache, the four datasets in every mode, the host transforms
 and the threaded loader. Every comparison here is exact (bit for bit):
-the port reads PNGs without PIL, and where it uses PIL (the host
-transforms, JPEG) it runs the JAX package's PIL calls on the same
+the port reads PNGs and JPEGs without PIL, and where it uses PIL (the
+host transforms) it runs the JAX package's PIL calls on the same
 pixels.
 
 Protocol for the host augmentation: both datasets draw from the
@@ -134,8 +134,9 @@ def test_read_image_equals_pil_on_pil_written_pngs(tmp_path, mode):
 
 
 def test_other_files_go_through_pil_and_raise_without_it(tmp_path, monkeypatch):
-    """JPEG and a 16-bit PNG are PIL's; without PIL they raise a
-    RuntimeError naming the file (no silent skip)."""
+    """A 16-bit PNG is PIL's; without PIL it raises a RuntimeError naming
+    the file and the item of the formats only PIL reads (no silent skip).
+    A JPEG is the port's codec's, with PIL or without."""
     rng = np.random.default_rng(0)
     jpg, deep = str(tmp_path / "x.jpg"), str(tmp_path / "d.png")
     Image.fromarray(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)).save(jpg)
@@ -150,9 +151,9 @@ def test_other_files_go_through_pil_and_raise_without_it(tmp_path, monkeypatch):
     write_png(png, rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
     monkeypatch.setitem(sys.modules, "PIL", None)
     assert image_io.read_image(png).shape == (8, 8, 3)  # no PIL needed
-    for path in (jpg, deep):
-        with pytest.raises(RuntimeError, match=os.path.basename(path) + ".*PIL"):
-            image_io.read_image(path)
+    assert image_io.read_image(jpg).shape == (24, 32, 3)  # nor for a JPEG
+    with pytest.raises(RuntimeError, match="d.png.*PIL.*item 10: formats only PIL reads"):
+        image_io.read_image(deep)
 
 
 def test_threads_decoding_at_once_get_every_image_right(tmp_path):

@@ -278,7 +278,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'interfaces.web_interface', 'serialbridge', 'control_dashboard', 'demo',\n"
         "        'demo_tusimple', 'utils.profiling', 'serialbridge.mcu',\n"
         "        'serialbridge.rich_protocol', 'tools.manual_control', 'tools.analyzers',\n"
-        "        'engine.export', 'engine.onnx_native', 'export_model')}\n"
+        "        'engine.export', 'engine.onnx_native', 'export_model', 'data.jpeg',\n"
+        "        'utils.native')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )

@@ -152,8 +152,10 @@ def test_l_and_rgba_conversions_equal_pillow(draw):
 
 def test_rgba_pngs_write_and_sizes_read_from_headers(tmp_path):
     """``write_png`` of (H, W, 4) reads back in Pillow; ``image_size`` reads
-    a PNG's and a JPEG's (baseline and progressive) without PIL; a JPEG's
-    pixels or a non-PNG write still raise without PIL, naming the JPEG item."""
+    a PNG's and a JPEG's (baseline and progressive) without PIL, and so do
+    a JPEG's pixels and a JPEG write (Pillow's pixels and bytes); a BMP
+    write still raises without PIL, naming the item of the formats only
+    PIL reads."""
     rng = np.random.default_rng(1)
     rgba = rng.integers(0, 256, (7, 9, 4), dtype=np.uint8)
     image_io.write_png(str(tmp_path / "a.png"), rgba)
@@ -161,14 +163,18 @@ def test_rgba_pngs_write_and_sizes_read_from_headers(tmp_path):
     for name, kw in (("b.jpg", {}), ("c.jpg", {"progressive": True}), ("d.jpeg", {"quality": 30})):
         Image.fromarray(rng.integers(0, 256, (13, 21, 3), dtype=np.uint8)).save(tmp_path / name,
                                                                                  **kw)
+    Image.fromarray(rgba[..., :3]).save(tmp_path / "ref.jpg")
     with pil_blocked():
         assert image_io.image_size(str(tmp_path / "a.png")) == (9, 7)
         for name in ("b.jpg", "c.jpg", "d.jpeg"):
             assert image_io.image_size(str(tmp_path / name)) == Image.open(tmp_path / name).size
-        with pytest.raises(RuntimeError, match="b.jpg.*item 5 \\(d\\): JPEG"):
-            image_io.read_image(str(tmp_path / "b.jpg"))
-        with pytest.raises(RuntimeError, match="e.jpg.*item 5 \\(d\\): JPEG"):
-            image_io.save_image(str(tmp_path / "e.jpg"), rgba[..., :3])
+        pixels = {name: image_io.read_image(str(tmp_path / name)) for name in ("b.jpg", "c.jpg")}
+        image_io.save_image(str(tmp_path / "e.jpg"), rgba[..., :3])
+        with pytest.raises(RuntimeError, match="f.bmp.*item 10: formats only PIL reads"):
+            image_io.save_image(str(tmp_path / "f.bmp"), rgba[..., :3])
+    for name, arr in pixels.items():
+        np.testing.assert_array_equal(arr, decoded(tmp_path / name))
+    assert (tmp_path / "e.jpg").read_bytes() == (tmp_path / "ref.jpg").read_bytes()
 
 
 # --- one synthetic tree for the tools ---------------------------------------------------

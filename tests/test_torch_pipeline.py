@@ -7,16 +7,20 @@ package's, on the CPU.
   ``.predict`` fake for the engine path): every output bit-equal — mask,
   visualization, BEV image and mask, ``view_params``, control map,
   ``path_data``, ``control_result``, the perf stages — and the written
-  artifacts read back as pixels and JSON;
+  artifacts under the JAX names, the JPEGs byte for byte, the mask as
+  pixels, the JSON as values;
 - the two real engines at 360×640 in f32 from one ``from_jax_params``
   conversion: masks equal on ≥ 99.9 % of pixels;
 - ``RealtimePipeline`` with a fake transport: the commands of both
   packages' loops equal frame for frame, the e-stop, camera failures and
   the no-path stop;
-- ``DashboardServer``'s routes against the JAX dashboard's payloads;
+- ``DashboardServer``'s routes against the JAX dashboard's payloads, the
+  ``/video_feed`` parts JPEG in the JAX encoder's bytes;
 - ``control_dashboard.main`` (``--input``, and ``--realtime --web
   --synthetic-camera --max-frames`` with its routes driven over HTTP),
-  ``pipeline.main`` and the two demos, with ``--cpu`` / ``--device cpu``.
+  ``pipeline.main`` and the two demos, with ``--cpu`` / ``--device cpu``;
+  ``demo_tusimple`` of both packages on JPEG frames, their panels byte
+  for byte.
 
 The JAX modules run their branch without OpenCV, the only one the port
 has (``cv2_absent``).
@@ -47,14 +51,16 @@ from fastscnn_tpu.models import FastSCNN as JaxFastSCNN
 from fastscnn_tpu.models import init_fast_scnn as jax_init
 from fastscnn_tpu.serialbridge import SimpleCarController as JaxCar
 from fastscnn_tpu_torch import control_dashboard, demo, demo_tusimple, interfaces, pipeline
-from fastscnn_tpu_torch.data import image_io
-from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
+from fastscnn_tpu_torch.data import image_io, jpeg
+from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
 from fastscnn_tpu_torch.models import FastSCNN, from_jax_params
+from fastscnn_tpu_torch.perception import create_visualization
 from fastscnn_tpu_torch.serialbridge import SimpleCarController
 from tests.test_pipeline_interfaces import FakeRoadSession
 from tests.test_torch_perception import assert_same
 
 NUM_CLASSES = 2
+_IMAGENET = (IMAGENET_MEAN, IMAGENET_STD)
 
 
 @pytest.fixture(autouse=True)
@@ -111,16 +117,17 @@ def _same_run(got, ref, port_dir=None, jax_dir=None):
     if port_dir is None:
         return
     names = sorted(os.listdir(port_dir))
-    assert names == ["t_control_data.json", "t_control_map.png", "t_mask.png",
-                     "t_path_data.json", "t_vis.png"]
-    assert sorted(os.listdir(jax_dir)) == ["t_control_data.json", "t_control_map.jpg",
-                                          "t_mask.png", "t_path_data.json", "t_vis.jpg"]
+    assert names == sorted(os.listdir(jax_dir)) == [
+        "t_control_data.json", "t_control_map.jpg", "t_mask.png", "t_path_data.json",
+        "t_vis.jpg"]
     read = image_io.read_image
     assert_same(read(os.path.join(port_dir, "t_mask.png")),
                 read(os.path.join(jax_dir, "t_mask.png")))
     assert_same(read(os.path.join(port_dir, "t_mask.png")), ref["mask"])
-    for name, key in (("t_vis.png", "visualization"), ("t_control_map.png", "control_map")):
-        assert_same(read(os.path.join(port_dir, name)), ref[key][..., ::-1].copy(), name)
+    for name in ("t_vis.jpg", "t_control_map.jpg"):  # the JAX no-cv2 branch's PIL bytes
+        with open(os.path.join(port_dir, name), "rb") as a, open(os.path.join(jax_dir, name),
+                                                                 "rb") as b:
+            assert a.read() == b.read(), name
     for name in ("t_path_data.json", "t_control_data.json"):
         a, b = (json.load(open(os.path.join(d, name))) for d in (port_dir, jax_dir))
         a.pop("timestamp", None), b.pop("timestamp", None)
@@ -388,9 +395,17 @@ def test_dashboard_routes_match_the_jax_dashboard():
     assert port == ref
     assert port["status_after_update"]["steering_gain"] == 72.5
     assert port["status_after_stop"]["emergency_stopped"] is True
-    assert ref_part[0] == "Content-Type: image/jpeg" and port_part[0] == "Content-Type: image/png"
+    assert port_part[0] == ref_part[0] == "Content-Type: image/jpeg"
     img = image_io.decode_bytes(port_part[1])[0]
-    assert img.ndim == 3 and img.shape[2] == 3 and (img[..., 1] == 255).any()  # the green map
+    assert img.ndim == 3 and img.shape[2] == 3 and (img[..., 1] > 200).any()  # the green map
+    # the part's encoder gives the JAX encoder's PIL bytes on the same frames
+    from fastscnn_tpu.interfaces import web_interface as jax_web
+    from fastscnn_tpu_torch.interfaces import web_interface as port_web
+
+    bgr = img[..., ::-1].copy()
+    assert port_web._encode_jpeg(bgr) == jax_web._encode_jpeg(bgr)
+    assert port_web._encode_jpeg(bgr[..., 1].copy()) == jax_web._encode_jpeg(bgr[..., 1].copy())
+    assert port_web._encode_jpeg(None) is None
 
 
 # -- the CLIs -------------------------------------------------------------------
@@ -406,9 +421,12 @@ def test_pipeline_main_writes_every_artifact(tmp_path, capsys):
     out = tmp_path / "out"
     result = pipeline.main(["--device", "cpu", "--input", png, "--output-dir", str(out),
                             "--pixels-per-unit", "2"])
-    assert sorted(os.listdir(out)) == ["road_control_data.json", "road_control_map.png",
-                                       "road_mask.png", "road_path_data.json", "road_vis.png"]
+    assert sorted(os.listdir(out)) == ["road_control_data.json", "road_control_map.jpg",
+                                       "road_mask.png", "road_path_data.json", "road_vis.jpg"]
     assert_same(image_io.read_image(str(out / "road_mask.png")), result["mask"])
+    for name, key in (("road_vis.jpg", "visualization"), ("road_control_map.jpg", "control_map")):
+        jax_pipeline._imwrite(str(tmp_path / name), result[key])  # its no-cv2 branch: PIL
+        assert (out / name).read_bytes() == (tmp_path / name).read_bytes(), name
     text = capsys.readouterr().out
     assert "warning: no --weights not found" in text and "single-image pipeline" in text
     # --export-path: a .pt2 and an .onnx of export_model (the frame resized
@@ -430,8 +448,11 @@ def test_pipeline_main_writes_every_artifact(tmp_path, capsys):
         assert results[fmt]["control_result"] is not None
         assert len(os.listdir(tmp_path / fmt)) == 5
     assert (results["pt2"]["mask"] == results["onnx"]["mask"]).mean() >= 0.999
-    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 not a png")
-    with pytest.raises(NotImplementedError, match=r"item 5 \(d\): JPEG"):
+    (tmp_path / "x.bmp").write_bytes(b"BM neither a PNG nor a JPEG")
+    with pytest.raises(NotImplementedError, match="item 10: formats only PIL reads"):
+        pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.bmp")])
+    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 a broken JPEG")
+    with pytest.raises(ValueError, match="x.jpg.*item 10: formats only PIL reads"):
         pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.jpg")])
 
 
@@ -510,7 +531,7 @@ def test_control_dashboard_realtime_web(monkeypatch):
     assert seen["status"]["base_pwm"] == 300 and pipe.controller.base_pwm == 250.0
     assert seen["start"] == (200, {"status": "ok", "driving": True})
     assert seen["stop"] == (200, {"status": "ok", "stopped": True})
-    assert seen["part"][0] == "Content-Type: image/png"
+    assert seen["part"][0] == "Content-Type: image/jpeg"
     assert image_io.decode_bytes(seen["part"][1])[0].shape[2] == 3
     with pytest.raises(NotImplementedError, match="item 5, left out: cameras"):
         control_dashboard.main(["--cpu", "--realtime", "--max-frames", "1"])
@@ -527,8 +548,47 @@ def test_demos_run_on_the_cpu(tmp_path, capsys):
     assert mode == "P" and indices.shape == (96, 160)
     outs = demo_tusimple.main(["--device", "cpu", "--input", str(src), "--outdir",
                                str(tmp_path / "lanes"), "--weights-folder", str(tmp_path)])
-    assert [os.path.basename(p) for p in outs] == ["lane0_lane_demo.png", "lane1_lane_demo.png"]
-    panel = image_io.read_image(outs[1])
-    assert panel.shape == (96, 320, 3)
-    assert_same(panel[:, :160], frame(160, 96, seed=1)[..., ::-1].copy())
+    assert [os.path.basename(p) for p in outs] == ["lane0_lane_demo.jpg", "lane1_lane_demo.jpg"]
+    # the panel is the frame beside its overlay, in the bytes of Pillow's JPEG
+    engine = demo.build_engine(2, str(tmp_path / "none.pth"), False, *_IMAGENET, "cpu")
+    bgr = frame(160, 96, seed=1)
+    mask = (engine.predict(bgr[..., ::-1].copy()).cpu().numpy() * 255).astype(np.uint8)
+    panel = np.concatenate([bgr, create_visualization(bgr, mask, alpha=0.5)], axis=1)
+    assert open(outs[1], "rb").read() == jpeg.encode_jpeg(panel[:, :, ::-1].copy())
+    assert image_io.read_image(outs[1]).shape == (96, 320, 3)
     assert "lane coverage" in capsys.readouterr().out
+
+
+class _FakeLaneEngine:
+    """Both demos' engine seam: a lane band that follows the frame's mean."""
+
+    def __init__(self, *args, tensor=False, **kwargs):
+        self.tensor = tensor
+
+    def predict(self, rgb):
+        mask = FakePredictSession().predict(np.asarray(rgb))
+        return torch.from_numpy(mask) if self.tensor else mask
+
+
+def test_demo_tusimple_writes_the_jax_demos_jpeg_bytes(tmp_path, monkeypatch, capsys):
+    """On JPEG frames (4:2:0, odd sizes) and one shared fake engine, the
+    port's ``<name>_lane_demo.jpg`` files are the JAX demo's, byte for
+    byte: the frames decoded to Pillow's pixels, the panels encoded to
+    Pillow's bytes."""
+    import fastscnn_tpu.demo_tusimple as jax_demo
+    import fastscnn_tpu.engine as jax_engine_mod
+
+    src = tmp_path / "in"
+    src.mkdir()
+    for i, (w, h) in enumerate([(161, 97), (128, 72)]):
+        (src / f"road{i}.jpg").write_bytes(jpeg.encode_jpeg(frame(w, h, seed=10 + i), 90))
+    monkeypatch.setattr(jax_engine_mod, "InferenceEngine", _FakeLaneEngine)
+    monkeypatch.setattr(demo, "build_engine", lambda *a, **k: _FakeLaneEngine(tensor=True))
+    ref = jax_demo.main(["--input", str(src), "--outdir", str(tmp_path / "jax"),
+                         "--weights-folder", str(tmp_path)])
+    outs = demo_tusimple.main(["--device", "cpu", "--input", str(src), "--outdir",
+                               str(tmp_path / "port"), "--weights-folder", str(tmp_path)])
+    assert [os.path.basename(p) for p in outs] == [os.path.basename(p) for p in ref] == [
+        "road0_lane_demo.jpg", "road1_lane_demo.jpg"]
+    for a, b in zip(outs, ref):
+        assert open(a, "rb").read() == open(b, "rb").read(), a

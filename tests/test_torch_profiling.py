@@ -104,6 +104,23 @@ def test_device_trace_writes_what_xplane_reads(tmp_path, capsys):
         xplane.device_op_table(str(tmp_path / "empty"))
 
 
+def test_warm_profile_records_the_block_alone():
+    """``warm_profile``'s profiler holds the block's operators, once each,
+    and none run before it; on the CPU its warm-up step launches nothing,
+    and ``device_kernels`` lists no kernel (the step annotation is not one)."""
+    import torch
+
+    x = torch.randn(16, 16)
+    torch.sigmoid(x)  # before the block: not recorded
+    with profiling.warm_profile() as prof:
+        (x @ x).relu().sum()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts["aten::mm"] == counts["aten::relu"] == counts["aten::sum"] == 1
+    assert "aten::sigmoid" not in counts
+    assert any(k.startswith("ProfilerStep") for k in counts)  # the schedule's annotation
+    assert profiling.device_kernels(prof) == []  # no kernel on the CPU, the annotation left out
+
+
 # one synthetic device trace: (name, duration in ps, bytes, flops) of each
 # device op, in time order; kernels named as CUPTI reports them
 OPS = [

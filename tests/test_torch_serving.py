@@ -359,30 +359,21 @@ def test_palette_and_registry_match_jax():
     assert DATASET_ACRONYMS == JAX_ACRONYMS
 
 
-def test_png_bodies_resizes_and_png_answers_equal_the_jax_server(monkeypatch):
-    """A PNG body (RGB, greyscale and palette), a wrong-size frame and the
-    PNG answer, with PIL blocked in the port's server: each answer's bytes
-    equal the JAX server's, whose path is PIL's (decode, bilinear resize,
-    palette PNG). The fake model's mask is a function of the pixels it is
-    fed, so a resize or decode that differed would show."""
+def _pixel_model(batch):
+    """A fake model whose mask is a function of the pixels it is fed, so a
+    resize or decode that differed would show."""
+    return (batch.astype(np.int32).sum(-1) // 40).astype(np.int32)  # 0..19
+
+
+def _answers_of_both_servers(monkeypatch, bodies):
+    """Each body's answers (palette PNG and raw mask) from the JAX server
+    (PIL's path) and from the port's with PIL blocked."""
     from fastscnn_tpu.serving import BatchingPredictor as JaxPredictor
     from fastscnn_tpu.serving import ServingServer as JaxServer
 
-    def model(batch):
-        return (batch.astype(np.int32).sum(-1) // 40).astype(np.int32)  # 0..19
-
-    rng = np.random.default_rng(7)
-    frame = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
-    palette = rng.integers(0, 256, 120).tolist()  # 40 entries: PIL writes 8 bits a pixel
-    bodies = [_png(frame), _png(frame[:24, :32]), _png(frame[:, :, 0])]
-    pal = Image.fromarray(frame[:, :, 1] % 40)
-    pal.putpalette(palette)
-    bio = io.BytesIO()
-    pal.save(bio, "PNG")
-    bodies.append(bio.getvalue())
-
     def answers(predictor_cls, server_cls):
-        predictor = predictor_cls(model, input_size=(24, 32), max_batch=2, max_delay_ms=1)
+        predictor = predictor_cls(_pixel_model, input_size=(24, 32), max_batch=2,
+                                  max_delay_ms=1)
         server = server_cls(predictor, palette_dataset="citys", host="127.0.0.1", port=0)
         port = server.start()
         try:
@@ -401,7 +392,51 @@ def test_png_bodies_resizes_and_png_answers_equal_the_jax_server(monkeypatch):
         for name in [k for k in sys.modules if k == "PIL" or k.startswith("PIL.")]:
             m.setitem(sys.modules, name, None)
         ours = answers(BatchingPredictor, ServingServer)
+    return ours, theirs
+
+
+def test_png_bodies_resizes_and_png_answers_equal_the_jax_server(monkeypatch):
+    """A PNG body (RGB, greyscale and palette), a wrong-size frame and the
+    PNG answer, with PIL blocked in the port's server: each answer's bytes
+    equal the JAX server's, whose path is PIL's (decode, bilinear resize,
+    palette PNG)."""
+    rng = np.random.default_rng(7)
+    frame = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
+    palette = rng.integers(0, 256, 120).tolist()  # 40 entries: PIL writes 8 bits a pixel
+    bodies = [_png(frame), _png(frame[:24, :32]), _png(frame[:, :, 0])]
+    pal = Image.fromarray(frame[:, :, 1] % 40)
+    pal.putpalette(palette)
+    bio = io.BytesIO()
+    pal.save(bio, "PNG")
+    bodies.append(bio.getvalue())
+    ours, theirs = _answers_of_both_servers(monkeypatch, bodies)
     assert len(ours) == len(theirs) == 8
     for a, b in zip(ours, theirs):
         assert a == b
     assert len({bytes(a) for a in ours[1::2]}) == 4  # four different masks
+
+
+def test_jpeg_bodies_equal_the_jax_server(monkeypatch):
+    """JPEG bodies (4:2:0 at the model's size, a wrong-size 4:4:4 one, a
+    progressive one, a greyscale one), with PIL blocked in the port's
+    server: the port's codec decodes each to Pillow's pixels, so every
+    answer's bytes equal the JAX server's."""
+    rng = np.random.default_rng(11)
+    y, x = np.mgrid[0:37, 0:53]
+    frame = np.clip(np.stack([x * 4, y * 6, (x + y) * 3], -1)
+                    + rng.integers(-30, 31, (37, 53, 3)), 0, 255).astype(np.uint8)
+
+    def jpeg_body(arr, **kw):
+        bio = io.BytesIO()
+        Image.fromarray(arr).save(bio, "JPEG", **kw)
+        return bio.getvalue()
+
+    bodies = [jpeg_body(frame[:24, :32], quality=90),
+              jpeg_body(frame, quality=95, subsampling=0),
+              jpeg_body(frame, progressive=True),
+              jpeg_body(frame[:, :, 1])]
+    ours, theirs = _answers_of_both_servers(monkeypatch, bodies)
+    assert len(ours) == len(theirs) == 8
+    for a, b in zip(ours, theirs):
+        assert a == b
+    assert len({bytes(a) for a in ours[1::2]}) == 4
