@@ -228,18 +228,36 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    from JPEG in to JPEGs out (ms a frame), and one JPEG body through the
    serving server over config A, equal to ``engine.predict`` on every
    pixel;
-13. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11 and 12, plus the
-   captured launches × the replays of the graphs of phases 4b, 4c, 6b (the
-   trainer's and the evaluator's), 8, 9, 10 and 12, which no wrapper sees)
-   and, last, the device line ``{"ok": true, "device": {...}}``.
+13. data parallelism over ``torch.distributed`` on the one card
+   (:func:`multidevice_phase`; two NCCL ranks cannot share a card, so
+   ranks share cuda:0 over gloo): (a) ``entry.dryrun_multichip(2)``, its
+   legs in 2 gloo processes and its 2-process ``multihost_smoke`` stage;
+   (b) the recipe at full width (19 classes, aux, OHEM CE, SGD,
+   ``stem_impl='pallas'``) on the 16 768x768 crops over 2 gloo ranks, 8
+   each, 3 f32 and 3 bf16 eager steps: the loss histories bit-equal across
+   the ranks, the first f32 step within phase 6's yardstick of one
+   process's step on the global batch, B6 at 2 launches a step for each
+   part in each rank, ms a step beside one process's; (c) one NCCL rank,
+   the f32 step graphed under a one-rank mesh (its all-reduces captured)
+   bit-equal to the eager step with no mesh, under deterministic
+   algorithms; (d) config A (B3, B1) in bf16, 4 frames of 1024x2048 over a
+   mesh of [cuda:0, cuda:0]: ``predict`` and ``predict_fn`` equal on every
+   pixel to the meshless engine on each shard, and the meshless batch of 4
+   on 99.9 % of pixels, ms a frame beside it; (e) ``serving
+   --data-parallel 2`` refused with the JAX parser error;
+14. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12 and 13 (13's
+   ranks' own counts too), plus the captured launches × the replays of the
+   graphs of phases 4b, 4c, 6b (the trainer's and the evaluator's), 8, 9,
+   10, 12 and 13, which no wrapper sees) and, last, the device line
+   ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
-run only these kernels' studies, and one only phase 12, with no device
-line:
+run only these kernels' studies, one only phase 12 and one only phase 13,
+with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
@@ -248,6 +266,8 @@ line:
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
     python3 chip_smoke.py --jpeg           # the build, then phase 12
+    python3 chip_smoke.py --multidevice    # the build, phase 6's yardstick,
+                                           # then phase 13
 
 Without a CUDA device it prints an error and exits 1.
 """
@@ -1738,10 +1758,11 @@ def profile_steps(run_step, step_ms, steps=3, top=15, what="bf16 train step",
     return busy
 
 
-def recipe_trainer(dev):
+def recipe_trainer(dev, mesh=None, graph=False):
     """``trainer(stem_impl, dtype) -> (state, step)``: the recipe's model
     (19 classes, aux head) from SEED's weights, SGD with momentum and the
-    poly LR, and its eager train step on ``dev``."""
+    poly LR, and its train step on ``dev`` (eager, or ``graph``; under
+    ``mesh`` the data-parallel step of phase 13)."""
     import torch
 
     from fastscnn_tpu_torch.losses import get_loss_fn
@@ -1759,7 +1780,8 @@ def recipe_trainer(dev):
         opt = make_optimizer("sgd", lr_schedule("poly", base_lr=TRAIN_LR, niters=RECIPE_ITERS),
                              momentum=0.9, weight_decay=1e-4)
         state = create_train_state(model, opt, device=dev)
-        return state, make_train_step(model, loss_fn, opt, compute_dtype=dtype, device=dev)
+        return state, make_train_step(model, loss_fn, opt, compute_dtype=dtype, device=dev,
+                                      mesh=mesh, graph=graph)
 
     return trainer
 
@@ -5616,6 +5638,329 @@ def jpeg_phase(root):
     return launches
 
 
+# phase 13: data parallelism over torch.distributed on the one card: ranks
+# share cuda:0 over gloo (two NCCL ranks cannot share a card), one NCCL rank
+# alone, engine replicas on one device
+DP_RANKS = 2
+DP_STEPS = 3  # eager steps of 13 (b) a dtype, and 13 (c)'s steps a form
+DP_DEADLINE_S = 300.0  # each spawned group of phase 13, killed past it
+DP_SERVE_BATCH = 4  # 13 (d)'s batch of 1024x2048 frames over the 2 replicas
+
+
+def _step_updates(state, p0, s0):
+    """The params' and BN statistics' changes since ``p0``/``s0``, flat."""
+    import torch
+
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    return (torch.cat([(t.detach() - a).flatten() for t, a in zip(tree_leaves(state.params), p0)]),
+            torch.cat([(t - a).flatten() for t, a in zip(tree_leaves(state.model_state), s0)]))
+
+
+def _leaves_of(state):
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    return ([t.detach().clone() for t in tree_leaves(state.params)],
+            [t.clone() for t in tree_leaves(state.model_state)])
+
+
+def _timed_steps(step, state, images, targets, gen, n):
+    """``n`` steps, each timed with CUDA events on the host's clock too:
+    (losses, ms of each step)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, images, targets, gen)
+        end.record()
+        end.synchronize()
+        losses.append(float(metrics["loss"]))
+        ms.append(start.elapsed_time(end))
+    return losses, ms
+
+
+def dp_rank(work: str, nccl: bool) -> None:
+    """One rank of 13 (b) (gloo, ``nccl`` False) or the NCCL rank of 13 (c):
+    writes ``rank<k>.json`` and ``rank<k>.pt`` under ``work``."""
+    import torch
+    import torch.distributed as dist
+
+    from fastscnn_tpu_torch import resolve_device
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.parallel import Mesh, make_mesh
+    from fastscnn_tpu_torch.parallel.multihost import host_shard, initialize_multihost
+
+    resolve_device(None)  # TF32 off
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    assert initialize_multihost(device=dev, backend="nccl" if nccl else "gloo")
+    rank = dist.get_rank()
+    out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+    images, targets = training_batch(dev)
+    if nccl:  # a process-group mesh of one rank: the collectives run, and are captured
+        mesh = Mesh((dev,), {"data": 1, "space": 1}, group=dist.group.WORLD, ranks=(0,), index=0)
+        with deterministic_algorithms():
+            runs = {}
+            for label, m, graph in (("eager", None, False), ("graphed mesh", mesh, True),
+                                    ("eager again", None, False)):
+                state, step = recipe_trainer(dev, m, graph)("pallas", torch.float32)
+                reset_launch_counts()
+                losses, ms = _timed_steps(step, state, images, targets, None, DP_STEPS)
+                torch.cuda.synchronize()
+                runs[label] = (losses, torch.cat([t.detach().flatten() for t in
+                                                  _leaves_of(state)[0]]).cpu(), ms,
+                               launch_counts(), getattr(step, "launches", {}),
+                               getattr(step, "replays", 0))
+                del state, step
+                torch.cuda.empty_cache()
+        out["runs"] = {k: {"losses": [v.hex() for v in r[0]], "ms": r[2], "launches": r[3],
+                           "captured": r[4], "replays": r[5]} for k, r in runs.items()}
+        torch.save({k: r[1] for k, r in runs.items()}, os.path.join(work, f"rank{rank}.pt"))
+    else:
+        mesh = make_mesh()
+        images, targets = host_shard(images, targets)
+        trainer = recipe_trainer(dev, mesh)
+        saved = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            state, step = trainer("pallas", dtype)
+            p0, s0 = _leaves_of(state)
+            gen = (torch.Generator(device=dev).manual_seed(SEED + 3) if dtype == torch.bfloat16
+                   else None)  # f32 as one_step: no dropout
+            reset_launch_counts()
+            first = step(state, images, targets, gen)[1]["loss"]
+            if dtype == torch.float32:
+                saved["f32"] = [t.cpu() for t in _step_updates(state, p0, s0)]
+            losses, ms = _timed_steps(step, state, images, targets, gen, DP_STEPS - 1)
+            torch.cuda.synchronize()
+            name = "f32" if dtype == torch.float32 else "bf16"
+            out[name] = {"losses": [v.hex() for v in [float(first), *losses]], "ms": ms,
+                         "launches": launch_counts(),
+                         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            del state, step
+            torch.cuda.empty_cache()
+        torch.save(saved, os.path.join(work, f"rank{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _dp_group(root, work, n, nccl=False):
+    """``n`` processes of :func:`dp_rank` on cuda:0; their JSON results."""
+    from fastscnn_tpu_torch.parallel.multihost import run_local_group
+
+    args = [os.path.join(root, "chip_smoke.py"), "--dp-rank", work] + (["--nccl"] if nccl else [])
+    run_local_group(lambda k: args, n, DP_DEADLINE_S, cwd=root)
+    results = []
+    for k in range(n):
+        with open(os.path.join(work, f"rank{k}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def dp_train_leg(root, work, yard):
+    """13 (b): the recipe at full width over 2 gloo ranks on cuda:0, 8 of
+    the 16 768x768 crops each; (c): one NCCL rank, the graphed step under a
+    one-rank mesh. Returns the ranks' B6 launches."""
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    images, targets = training_batch(dev)
+    trainer = recipe_trainer(dev)
+    single = one_step(trainer, "pallas", torch.float32, images, targets)
+    state, step = trainer("pallas", torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    reset_launch_counts()
+    first = float(step(state, images, targets, gen)[1]["loss"])
+    losses, ms = _timed_steps(step, state, images, targets, gen, DP_STEPS - 1)
+    single_counts = launch_counts()
+    one_process = {"losses": [first, *losses], "ms": ms}
+    del state, step, trainer, images, targets
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = _dp_group(root, work, DP_RANKS)
+    t_b = time.perf_counter() - t0
+    for key in ("f32", "bf16"):
+        if ranks[0][key]["losses"] != ranks[1][key]["losses"]:
+            raise AssertionError(f"13 (b) {key} loss histories differ across the ranks: "
+                                 f"{ranks[0][key]['losses']} vs {ranks[1][key]['losses']}")
+    dp_f32 = [float.fromhex(v) for v in ranks[0]["f32"]["losses"]]
+    dp_bf16 = [float.fromhex(v) for v in ranks[0]["bf16"]["losses"]]
+    updates = [torch.load(os.path.join(work, f"rank{k}.pt"))["f32"] for k in range(DP_RANKS)]
+    if not all(torch.equal(a, b) for a, b in zip(updates[0], updates[1])):
+        raise AssertionError("13 (b) f32 parameters differ across the ranks")
+    got = step_distance((dp_f32[0], *updates[0]), tuple(
+        v.cpu() if isinstance(v, torch.Tensor) else v for v in single))
+    limits = [max(F32_STEP_FACTOR * y, F32_STEP_FLOOR) for y in yard]
+    _print(f"13 (b) {DP_RANKS} gloo ranks on cuda:0, {TRAIN_BATCH // DP_RANKS} of the "
+           f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE} crops each ({t_b:.1f} s with the spawn): "
+           f"loss histories bit-equal across the ranks; f32 {[round(v, 6) for v in dp_f32]}, "
+           f"bf16 {[round(v, 4) for v in dp_bf16]} (one process bf16 "
+           f"{[round(v, 4) for v in one_process['losses']]})")
+    _print(f"  f32 first step against one process on the global batch (loss, param updates "
+           f"L2, BN-stat changes max): {tuple(f'{v:.3g}' for v in got)}, limits "
+           f"{tuple(f'{v:.3g}' for v in limits)} (phase 6's yardstick x {F32_STEP_FACTOR})")
+    if any(g > lim for g, lim in zip(got, limits)):
+        raise AssertionError(f"13 (b) f32 dp step outside phase 6's yard: {got} vs {limits}")
+    launches = {}
+    for r in ranks:
+        for key in ("f32", "bf16"):
+            counts = r[key]["launches"]
+            want = {k: 2 * DP_STEPS for k in TRAINING_NAMES}
+            if any(counts[k] != v for k, v in want.items()):
+                raise AssertionError(f"13 (b) rank {r['rank']} {key}: B6 launches {counts}, "
+                                     f"expected {want}")
+            for k in TRAINING_NAMES:
+                launches[TRAINING_NAMES[k]] = launches.get(TRAINING_NAMES[k], 0) + counts[k]
+    per_rank = [statistics.median(r["bf16"]["ms"]) for r in ranks]
+    one = statistics.median(one_process["ms"])
+    _print(f"  bf16 ms a step (steps 2-{DP_STEPS}, median): ranks {[round(v, 2) for v in per_rank]}"
+           f" for 8 crops each, sharing the card, vs one process {one:.2f} for 16 "
+           f"({single_counts['dw_conv3x3']} B6 forward launches in its {DP_STEPS} steps); "
+           f"peak memory a rank {[round(r['bf16']['peak_gib'], 2) for r in ranks]} GiB")
+
+    _fresh_dir(work)
+    t0 = time.perf_counter()
+    (nccl,) = _dp_group(root, work, 1, nccl=True)
+    runs = nccl["runs"]
+    params = torch.load(os.path.join(work, "rank0.pt"))
+    eager, graphed, again = (runs[k] for k in ("eager", "graphed mesh", "eager again"))
+    same = eager["losses"] == graphed["losses"] and torch.equal(params["eager"],
+                                                                  params["graphed mesh"])
+    eager_same = eager["losses"] == again["losses"] and torch.equal(params["eager"],
+                                                                      params["eager again"])
+    _print(f"13 (c) one NCCL rank ({nccl['backend']}, world {nccl['world']}, "
+           f"{time.perf_counter() - t0:.1f} s with the spawn): f32 recipe, {DP_STEPS} steps, "
+           f"graphed under the one-rank mesh (collectives captured; {graphed['captured']} "
+           f"captured launches, {graphed['replays']} replays) vs eager without a mesh: "
+           f"{'bit-equal' if same else 'DIFFERENT'} (eager vs eager "
+           f"{'bit-equal' if eager_same else 'different'}); ms a step eager "
+           f"{[round(v, 2) for v in eager['ms']]}, graphed {[round(v, 2) for v in graphed['ms']]}")
+    if not same:
+        raise AssertionError(f"13 (c) graphed NCCL step differs from the step with no mesh: "
+                             f"{eager['losses']} vs {graphed['losses']}")
+    for k, name in TRAINING_NAMES.items():
+        # the graphed run's wrappers saw its warm-up steps and its capture,
+        # which launches nothing; its replays repeat the captured launches
+        captured = graphed["captured"].get(k, 0)
+        n = (eager["launches"][k] + again["launches"][k] + graphed["launches"][k] - captured
+             + captured * graphed["replays"])
+        launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def _fresh_dir(path):
+    """``path`` as an empty directory."""
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+
+
+def dp_serve_leg():
+    """13 (d): config A (B3, B1) at 1024x2048 in bf16, batch 4 under a
+    local mesh of [cuda:0, cuda:0] (two replicas of the folded weights):
+    masks against the meshless engine, through predict and predict_fn, and
+    ms a frame. Returns the launches (wrappers, and captured x replays)."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    frames = torch.randint(0, 256, (DP_SERVE_BATCH, HEIGHT, WIDTH, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    model = FastSCNN(NUM_CLASSES, folded_dw_impl="fused-ds")
+    model.load_state_dict(calibrated_state(frames[:BATCH]))
+    cfg = E2EConfig(mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="bfloat16",
+                    final_upsample="pallas")
+    single = InferenceEngine(model, device=dev, config=cfg)
+    mesh = make_mesh(devices=[dev, dev])
+    sharded = InferenceEngine(model, config=cfg, mesh=mesh)
+    half = DP_SERVE_BATCH // 2
+    by_shard = torch.cat([single.predict(frames[:half]), single.predict(frames[half:])])
+    whole = single.predict(frames)
+    reset_launch_counts()
+    got = sharded.predict(frames)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {"ds_conv3x3_pw": 2 * DP_SERVE_BATCH // half, "upsample_argmax": DP_SERVE_BATCH // half}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"13 (d) launches {counts}, expected {want}")
+    fn = sharded.predict_fn(tuple(frames.shape))
+    graphed = fn(frames)
+    agree = (got == whole).float().mean().item()
+    _print(f"13 (d) config A, {DP_SERVE_BATCH}x{HEIGHT}x{WIDTH} bf16 over 2 replicas on cuda:0: "
+           f"predict equal to the meshless engine on each shard "
+           f"{bool(torch.equal(got, by_shard))}, predict_fn {bool(torch.equal(graphed, got))}; "
+           f"to the meshless engine's batch of {DP_SERVE_BATCH} on {agree:.6f} of pixels; "
+           f"launches {dict((k, counts[k]) for k in want)}; the graphs' captured launches "
+           f"{fn.launches}, pool {fn.pool_bytes / 2**20:.1f} MiB")
+    if not (torch.equal(got, by_shard) and torch.equal(graphed, got)):
+        raise AssertionError("13 (d) masks under the mesh differ from the meshless engine")
+    if agree < KERNEL_MASK_GATE:
+        raise AssertionError(f"13 (d) masks agree with the meshless batch on {agree} only")
+    one_fn = single.predict_fn(tuple(frames.shape))
+    ms = {label: time_ms(lambda f=f: f(frames), iters=10, warmup=2, repeats=3)
+          for label, f in (("2 replicas", fn), ("meshless", one_fn))}
+    _print(f"  predict_fn ms a frame (batch {DP_SERVE_BATCH}, one card): "
+           f"{', '.join(f'{k} {v / DP_SERVE_BATCH:.3f}' for k, v in ms.items())}")
+    launches = dict(counts)
+    for k, v in fn.launches.items():
+        launches[k] = launches.get(k, 0) + v * fn.replays
+    return {k: v for k, v in launches.items() if v}
+
+
+def multidevice_phase(root, yard):
+    """Phase 13: (a) ``entry.dryrun_multichip(2)`` as 2 gloo processes on
+    cuda:0; (b) and (c) :func:`dp_train_leg`; (d) :func:`dp_serve_leg`; (e)
+    ``serving --data-parallel 2`` refused with the JAX parser error on a
+    one-card machine. Returns the kernel launches of (b)-(d)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fastscnn_tpu_torch import serving
+    from fastscnn_tpu_torch.entry import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_multidevice")
+    _fresh_dir(work)
+    result = dryrun_multichip(DP_RANKS, device="cuda")
+    t_a = time.perf_counter() - t_phase
+    _print(f"13 (a) dryrun_multichip({DP_RANKS}) on {result['backend']}, cuda:0: {t_a:.1f} s")
+    launches = dp_train_leg(root, work, yard)
+    t_bc = time.perf_counter() - t_phase - t_a
+    torch.cuda.empty_cache()
+    for k, v in dp_serve_leg().items():
+        launches[k] = launches.get(k, 0) + v
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            serving.build_server(["--data-parallel", "2", "--max-batch", "8"])
+        except SystemExit:
+            pass
+        else:
+            raise AssertionError("serving --data-parallel 2 did not refuse on one card")
+    if f"only {torch.cuda.device_count()} device(s) visible" not in err.getvalue():
+        raise AssertionError(f"13 (e) refusal: {err.getvalue()!r}")
+    _print(f"13 (e) serving --data-parallel 2: {err.getvalue().strip().splitlines()[-1]}")
+    _fresh_dir(work)
+    _print(f"phase 13 launches: {launches}")
+    _print(f"phase 13: {time.perf_counter() - t_phase:.1f} s (13a {t_a:.1f} s, 13b-c "
+           f"{t_bc:.1f} s)")
+    return launches
+
+
 # the rows of the kernel table that dw_costs prices, and the library call each
 # is held against
 COST_LIBRARY = {"ds_conv3x3_pw": "cuDNN dw + bias + ReLU + 1x1 + ReLU",
@@ -6122,6 +6467,11 @@ def main() -> int:
     parser.add_argument("--jpeg", action="store_true",
                         help="only phase 12 (JPEG without PIL), after the build, with no "
                              "device line")
+    parser.add_argument("--multidevice", action="store_true",
+                        help="only phase 13 (data parallelism over torch.distributed), after "
+                             "the build and phase 6's f32 yardstick, with no device line")
+    parser.add_argument("--dp-rank", metavar="WORK", help=argparse.SUPPRESS)
+    parser.add_argument("--nccl", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -6139,6 +6489,9 @@ def main() -> int:
     if args.dw_costs:
         _build.build_all()
         print(json.dumps(dw_costs()))
+        return 0
+    if args.dp_rank:  # one rank of phase 13's groups
+        dp_rank(args.dp_rank, args.nccl)
         return 0
     resolve_device(None)  # TF32 off
     smi = subprocess.run(
@@ -6177,6 +6530,16 @@ def main() -> int:
     _print(f"build: {time.perf_counter() - t0:.1f} s, into {_build.build_dir()}")
     if args.jpeg:
         jpeg_phase(root)
+        return 0
+    if args.multidevice:
+        dev = torch.device("cuda")
+        images, targets = training_batch(dev)
+        trainer = recipe_trainer(dev)
+        yard = step_distance(one_step(trainer, "xla", torch.float32, images, targets),
+                             one_step(trainer, "xla", torch.float64, images, targets))
+        del images, targets, trainer
+        torch.cuda.empty_cache()
+        multidevice_phase(root, yard)
         return 0
 
     t0 = time.perf_counter()
@@ -6230,6 +6593,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in jpeg_phase(root).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in multidevice_phase(root, yard).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -10,6 +10,18 @@
 
 namespace fastscnn {
 
+// A launch's opt-in to more than 48 KB of dynamic shared memory
+// (cudaFuncSetAttribute) holds for the current device only, so a kernel
+// keeps one record of it a device: the host thread's current device,
+// which the Python wrappers set to the tensors' (ops/cuda/_build.launch).
+constexpr int kMaxDevices = 64;
+
+inline int current_device() {
+  int device = 0;
+  cudaGetDevice(&device);
+  return device;
+}
+
 // dtype codes passed by the Python wrappers
 enum DType : int { kF32 = 0, kBF16 = 1 };
 

@@ -344,12 +344,13 @@ int launch_a8_kernel(dim3 grid, const int8_t* x, const __nv_bfloat16* w, const v
                      cudaStream_t s) {
   using Tile = A8Tile<BM, BN, WARPS_M, WARPS_N, BK, STAGES>;
   auto* kernel = pw_a8_mma_kernel<BM, BN, WARPS_M, WARPS_N, BK, STAGES, AVEC, WVEC>;
-  static bool attribute_set = false;  // once per instantiation and process
-  if (Tile::kSmem > 48 * 1024 && !attribute_set) {
+  static bool attribute_set[kMaxDevices] = {};  // once per instantiation and device
+  const int device = current_device();
+  if (Tile::kSmem > 48 * 1024 && (device >= kMaxDevices || !attribute_set[device])) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
     if (e != cudaSuccess) return (int)e;
-    attribute_set = true;
+    if (device < kMaxDevices) attribute_set[device] = true;
   }
   kernel<<<grid, Tile::kThreads, Tile::kSmem, s>>>(x, w, b, b_bf16, out, m, k, n, relu, qout,
                                                     vec_out);
@@ -573,12 +574,13 @@ int launch_w8a8_kernel(dim3 grid, const int8_t* x, const int8_t* w, const float*
                        int qout, int vec_out, cudaStream_t s) {
   using Tile = W8Tile<BM, BN, WARPS_M, WARPS_N, BK, STAGES>;
   auto* kernel = pw_w8a8_mma_kernel<BM, BN, WARPS_M, WARPS_N, BK, STAGES, AVEC, WVEC>;
-  static bool attribute_set = false;  // once per instantiation and process
-  if (Tile::kSmem > 48 * 1024 && !attribute_set) {
+  static bool attribute_set[kMaxDevices] = {};  // once per instantiation and device
+  const int device = current_device();
+  if (Tile::kSmem > 48 * 1024 && (device >= kMaxDevices || !attribute_set[device])) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
     if (e != cudaSuccess) return (int)e;
-    attribute_set = true;
+    if (device < kMaxDevices) attribute_set[device] = true;
   }
   kernel<<<grid, Tile::kThreads, Tile::kSmem, s>>>(x, w, cs, b, b_bf16, out, m, k, n, relu, qout,
                                                     vec_out);

@@ -33,6 +33,13 @@ Cityscapes, TuSimple, BDD100K), custom (``make_device_augment_custom``:
 [multi-scale resize →] min-size guard resize → crop → hflip after the
 crop, no pad and no blur) and original (``make_device_augment_original``:
 BDD100K ``--keep-original-size``, flip and blur at the native size).
+
+Each ``augment(images, masks, generator, shard=None)`` takes ``shard =
+(index, count)`` under data parallelism: the batch is rank ``index``'s
+rows of a global batch ``count`` times its size, and the augment draws the
+parameters of the whole global batch from ``generator`` (seeded alike on
+every rank) and applies only this rank's rows, so ``count`` ranks draw
+what one process draws for the global batch.
 """
 
 from __future__ import annotations
@@ -70,6 +77,18 @@ class AugParams(NamedTuple):
     x1: torch.Tensor  # int — crop left
     blur_on: torch.Tensor  # bool
     radius: torch.Tensor  # f32 in [0, 1)
+
+
+def _draw_rows(draw, batch: int, shard):
+    """``draw(n)`` for this rank's ``batch`` rows of a global batch of
+    ``batch × count`` (``shard = (index, count)``): the global batch's draws,
+    this rank's rows of each field."""
+    if shard is None:
+        return draw(batch)
+    index, count = shard
+    drawn = draw(batch * count)
+    rows = [t[index * batch:(index + 1) * batch] for t in drawn]
+    return drawn._make(rows) if hasattr(drawn, "_make") else tuple(rows)
 
 
 def _ratio(num: int, den: torch.Tensor) -> torch.Tensor:
@@ -218,9 +237,10 @@ def make_device_augment(*, base_size: int, crop_size: int, pad_label: int,
     ``torch.Generator`` on the batch's device). The source size is read
     from the batch, so one augment serves any dataset of one size."""
 
-    def augment(images, masks, generator):
-        params = draw_params(generator, images.shape[0], images.shape[1], images.shape[2],
-                             base_size, crop_size)
+    def augment(images, masks, generator, shard=None):
+        params = _draw_rows(lambda n: draw_params(generator, n, images.shape[1], images.shape[2],
+                                                  base_size, crop_size),
+                            images.shape[0], shard)
         return apply_params(images, masks, params, crop_size=crop_size, base_size=base_size,
                             pad_label=pad_label, compute_dtype=compute_dtype)
 
@@ -380,14 +400,15 @@ def make_device_augment_custom(*, crop_size: int, multi_scale: bool = False,
     at random): fixed matrices, only the flip is drawn."""
     use_scales = tuple(scales) if multi_scale else (1.0,)
 
-    def augment(images, masks, generator):
+    def augment(images, masks, generator, shard=None):
         b, src_h, src_w = images.shape[0], int(images.shape[1]), int(images.shape[2])
         if not keep_original_size:
-            params = draw_custom_params(generator, b, src_h, src_w, crop_size, use_scales)
+            params = _draw_rows(lambda n: draw_custom_params(generator, n, src_h, src_w,
+                                                             crop_size, use_scales), b, shard)
             return apply_custom_params(images, masks, params, crop_size=crop_size,
                                        scales=use_scales, compute_dtype=compute_dtype)
         dev = images.device
-        flip = _bernoulli_half(generator, b)
+        (flip,) = _draw_rows(lambda n: (_bernoulli_half(generator, n),), b, shard)
         sh = _scale_matrix(base_size, src_h, base_size, dev)
         sw = _scale_matrix(base_size, src_w, base_size, dev)
         # NEAREST src → base in one stage: the exact rational index
@@ -443,8 +464,9 @@ def make_device_augment_original(*, blur_p: float = 0.3,
     """``augment(images, masks, generator)`` for the keep-original-size
     chain."""
 
-    def augment(images, masks, generator):
-        params = draw_original_params(generator, images.shape[0], blur_p)
+    def augment(images, masks, generator, shard=None):
+        params = _draw_rows(lambda n: draw_original_params(generator, n, blur_p),
+                            images.shape[0], shard)
         return apply_original_params(images, masks, params, compute_dtype=compute_dtype)
 
     return augment

@@ -55,7 +55,7 @@ from multiprocessing import shared_memory
 import numpy as np
 
 from fastscnn_tpu_torch.data import decoded_cache
-from fastscnn_tpu_torch.data.loader import narrow_labels
+from fastscnn_tpu_torch.data.loader import narrow_labels, shard_rows
 
 __all__ = ["GrainDataLoader", "WorkerError"]
 
@@ -254,11 +254,13 @@ class GrainDataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = True, num_workers: int = 0, seed: int = 0,
                  num_epochs: int = 1, narrow_targets: bool = False, prefetch: int = 2,
-                 first_epoch: int = 0):
+                 first_epoch: int = 0, shard: tuple[int, int] | None = None):
         """``prefetch``: batches' worth of records in flight in the workers,
         and of batches assembled ahead of the consumer. ``first_epoch``: the
         stream's first epoch (a resumed run's), whose order and record
-        seeds it takes."""
+        seeds it takes. ``shard=(index, count)``: each batch is this rank's
+        contiguous part of the global batch of ``batch_size``, its records
+        the only ones made (``data/loader.py``'s ``shard``)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -269,6 +271,7 @@ class GrainDataLoader:
         self.first_epoch = first_epoch
         self.narrow_targets = narrow_targets
         self.prefetch = max(1, prefetch)
+        self.shard = shard
         self._workers: _Workers | None = None
         self.first_record_s = None  # workers' start to their first record, in s
         n = len(dataset)
@@ -290,7 +293,7 @@ class GrainDataLoader:
         for epoch in range(self.first_epoch, self.first_epoch + self.num_epochs):
             order = self.order(epoch).tolist()
             stop = len(order) // self.batch_size * self.batch_size if self.drop_last else len(order)
-            out += [[(epoch, i) for i in order[s:s + self.batch_size]]
+            out += [[(epoch, i) for i in shard_rows(order[s:s + self.batch_size], self.shard)]
                     for s in range(0, stop, self.batch_size)]
         return out
 

@@ -12,6 +12,11 @@ in the JAX package. The datasets draw their host augmentation from the
 module-global ``random``, so with more than one worker the draws
 interleave in no fixed order: use ``num_workers=1`` to reproduce a
 host-augmented run exactly (``--device-aug`` draws on the device).
+
+``shard=(index, count)``: one rank of a multi-process run. Each batch is
+then that rank's contiguous ``1/count`` of the global batch of
+``batch_size`` (``parallel.multihost.host_shard``'s rows), cut from the
+global batch's indices before anything is decoded.
 """
 
 from __future__ import annotations
@@ -22,7 +27,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-__all__ = ["DataLoader", "narrow_labels"]
+__all__ = ["DataLoader", "narrow_labels", "shard_rows"]
+
+
+def shard_rows(idx, shard):
+    """Rank ``index``'s contiguous rows of a global batch's indices (``shard
+    = (index, count)``, None: every row)."""
+    if shard is None:
+        return idx
+    index, count = shard
+    per = len(idx) // count
+    return idx[index * per:(index + 1) * per]
 
 
 def narrow_labels(targets: np.ndarray) -> np.ndarray:
@@ -37,11 +52,13 @@ def narrow_labels(targets: np.ndarray) -> np.ndarray:
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 4, prefetch: int = 2,
-                 seed: int = 0, narrow_targets: bool = False, first_epoch: int = 0):
+                 seed: int = 0, narrow_targets: bool = False, first_epoch: int = 0,
+                 shard: tuple[int, int] | None = None):
         """``narrow_targets``: each worker passes its sample's labels
         through :func:`narrow_labels`, so the batch is int8 where every
         sample's range fits (else the collate widens it). ``first_epoch``:
-        the epoch whose order the first pass takes (a resumed run's)."""
+        the epoch whose order the first pass takes (a resumed run's).
+        ``shard``: see the module docstring."""
         self.dataset = dataset
         self.narrow_targets = narrow_targets
         self.batch_size = batch_size
@@ -51,6 +68,7 @@ class DataLoader:
         self.prefetch = prefetch
         self._epoch = first_epoch
         self._seed = seed
+        self.shard = shard
 
     def __len__(self):
         n = len(self.dataset)
@@ -68,7 +86,7 @@ class DataLoader:
             idx = order[start:start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
-            yield idx
+            yield shard_rows(idx, self.shard)
 
     @staticmethod
     def _collate(samples, ignore_label: int = -1):

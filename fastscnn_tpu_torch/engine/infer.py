@@ -27,10 +27,19 @@ upsample in every mode.
 ``predict`` runs eagerly. ``predict_fn(shape)`` and ``throughput_fn``
 are the counterparts of the JAX engine's executable per shape: on the
 card each is one captured CUDA graph, replayed per call.
+
+Under a ``mesh`` (a local mesh of ``parallel/mesh.py``, as the JAX
+engine's ``mesh``) the engine holds one replica of the folded weights on
+each device of the mesh's ``data`` axis (a device listed twice holds two):
+a batch is split over ``data`` in order, each shard run on its replica
+under its device's guard and on that device's current stream, and the
+masks gathered in order on the first device. ``predict_fn`` and
+``throughput_fn`` capture one graph a replica.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
 from typing import Callable
@@ -90,6 +99,34 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+def _mesh_devices(mesh, device) -> list | None:
+    """The devices of ``mesh``'s data axis (None without a mesh), after the
+    checks the engine makes of a mesh."""
+    if mesh is None:
+        return None
+    # imported here: parallel/ imports this module
+    from fastscnn_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
+
+    if mesh.shape.get("space", 1) > 1:
+        raise NotImplementedError(f"serving under a mesh whose 'space' axis is above 1 is not "
+                                  f"ported yet ({SPATIAL_NOT_PORTED})")
+    if mesh.group is not None or mesh.ranks is not None:
+        raise ValueError("InferenceEngine serves under a local mesh (one process, a replica a "
+                         "device), not a process-group mesh")
+    devices = [torch.device(d) for d in mesh.data_devices]
+    if device is not None and torch.device(device) != devices[0]:
+        raise ValueError(f"device {device} is not the mesh's first device {devices[0]}")
+    return devices
+
+
+def _device_guard(device):
+    """The current CUDA device set to ``device`` for the block (nothing for
+    the CPU)."""
+    import contextlib
+
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 class InferenceEngine:
     """Fast-SCNN serving engine on BN-folded weights.
 
@@ -105,12 +142,23 @@ class InferenceEngine:
     model is the int8 serving path (calibrate its scales on the 'conv'
     model with :func:`~fastscnn_tpu_torch.models.calibrate_pw_scales`).
     ``infer([nchw])`` is the reference's ``InferSession`` duck-type.
+
+    ``mesh``: a local :class:`~fastscnn_tpu_torch.parallel.mesh.Mesh`
+    (module docstring); the engine's ``device`` is then the mesh's first,
+    ``predict`` and the graphed callables split each batch over ``data``
+    (``ValueError`` when the batch does not divide it), and the other
+    methods run on the first replica. A mesh whose ``space`` axis is above
+    1 raises ``NotImplementedError``, and a process-group mesh
+    ``ValueError``: serving under a mesh runs in one process.
     """
 
-    def __init__(self, model: FastSCNN, device=None, config: E2EConfig = E2EConfig()):
+    def __init__(self, model: FastSCNN, device=None, config: E2EConfig = E2EConfig(),
+                 mesh=None):
         if config.final_upsample not in FINAL_UPSAMPLE_MODES:
             raise ValueError(f"unknown final_upsample {config.final_upsample!r}")
-        self.device = resolve_device(device)
+        devices = _mesh_devices(mesh, device)
+        self.mesh = mesh
+        self.device = resolve_device(devices[0] if devices else device)
         self.model = model.to(self.device).eval()
         self.config = config
         self._dtype = _torch_dtype(config.compute_dtype)
@@ -128,6 +176,12 @@ class InferenceEngine:
         # keeps a cuBLAS workspace for each stream that runs a matmul, so a
         # new stream a capture would keep one more workspace each time
         self._pool = self._stream = None
+        # one engine a place on the mesh's data axis, this one first; the
+        # others fold their own copy of the weights on their device
+        self.replicas = [self] + [
+            InferenceEngine(model if torch.device(d) == self.device else copy.deepcopy(model),
+                            device=d, config=config)
+            for d in (devices or [])[1:]]
 
     # -- graph pieces -------------------------------------------------------
     def graph_tensors(self) -> dict:
@@ -223,6 +277,34 @@ class InferenceEngine:
             images = torch.from_numpy(images)
         return images.to(self.device)
 
+    def _shard_rows(self, batch: int) -> int:
+        """The rows of each replica's shard of a batch of ``batch``."""
+        n = len(self.replicas)
+        if batch % n:
+            raise ValueError(f"batch {batch} must divide the data axis ({n}) for serving "
+                             "under a mesh")
+        return batch // n
+
+    def _shards(self, images) -> list:
+        """``images`` (numpy or tensor, on any device) split over the mesh's
+        ``data`` axis in order, one shard a replica."""
+        per = self._shard_rows(images.shape[0])
+        return [images[k * per:(k + 1) * per] for k in range(len(self.replicas))]
+
+    def _on_replicas(self, images, call: Callable) -> list:
+        """``call(replica, shard)`` for each replica on its shard, each under
+        its device's guard (so its kernels launch there, on that device's
+        current stream)."""
+        outs = []
+        for replica, shard in zip(self.replicas, self._shards(images)):
+            with _device_guard(replica.device):
+                outs.append(call(replica, shard))
+        return outs
+
+    def _gather(self, outs: list) -> torch.Tensor:
+        """The replicas' results in order, on the first device."""
+        return torch.cat([o.to(self.device) for o in outs])
+
     def _graphed(self, body: Callable, warm: Callable, shape, what: str) -> Callable:
         """``body(static_in)`` captured as one CUDA graph over a static
         uint8 input of ``shape``: :data:`WARMUP_PASSES` eager passes of
@@ -308,11 +390,16 @@ class InferenceEngine:
         ``predict`` goes through its per-shape executables; here that is
         :meth:`predict_fn`, kept apart because a CUDA graph holds its
         activation memory for as long as the engine lives."""
-        images = self._as_input(images)
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(images)
         squeeze = images.ndim == 3
         if squeeze:
             images = images[None]
-        out = self._predict_batch(images)
+        if len(self.replicas) > 1:
+            out = self._gather(self._on_replicas(
+                images, lambda r, shard: r._predict_batch(r._as_input(shard))))
+        else:
+            out = self._predict_batch(self._as_input(images))
         return out[0] if squeeze else out
 
     def predict_fn(self, shape) -> Callable:
@@ -324,8 +411,14 @@ class InferenceEngine:
         memory pool, so replays must be issued from one stream at a time,
         as ``serving.BatchingPredictor``'s dispatcher does); on the CPU it
         runs eagerly."""
-        return self._cached(("predict", tuple(shape)), self._predict_batch, self._predict_batch,
-                            shape, "predict_fn")
+        def local(r, s):
+            return r._cached(("predict", tuple(s)), r._predict_batch, r._predict_batch, s,
+                             "predict_fn")
+
+        if len(self.replicas) > 1:
+            return self._sharded_fn(("mesh", "predict", tuple(shape)), shape, local,
+                                    self._gather)
+        return local(self, shape)
 
     def throughput_fn(self, shape, iters: int = 30) -> Callable:
         """A callable that runs ``iters`` mask forwards of a uint8 batch of
@@ -335,9 +428,48 @@ class InferenceEngine:
         work). On the card it is one captured CUDA graph holding all
         ``iters`` forwards: a replay times the device, not the host's
         launches. On the CPU it runs eagerly."""
-        return self._cached(("throughput", tuple(shape), int(iters)),
-                            lambda x: self._checksum_loop(x, int(iters)),
-                            lambda x: self._checksum_loop(x, 1), shape, "throughput_fn")
+        def local(r, s):
+            return r._cached(("throughput", tuple(s), int(iters)),
+                             lambda x: r._checksum_loop(x, int(iters)),
+                             lambda x: r._checksum_loop(x, 1), s, "throughput_fn")
+
+        if len(self.replicas) > 1:
+            return self._sharded_fn(("mesh", "throughput", tuple(shape), int(iters)), shape,
+                                    local, lambda outs: sum(o.to(self.device) for o in outs))
+        return local(self, shape)
+
+    def _sharded_fn(self, key, shape, fn_of: Callable, combine: Callable) -> Callable:
+        """Under a mesh: each replica's own callable for its shard of
+        ``shape`` (one graph a replica on the card), called on its shard
+        under its device's guard, the results combined; the counts
+        (``launches``, ``replays``, ``pool_bytes``) are the replicas'
+        together."""
+        with self._fns_lock:
+            if key in self._fns:
+                return self._fns[key]
+        shape = tuple(int(d) for d in shape)
+        part = (self._shard_rows(shape[0]), *shape[1:])
+        fns = []
+        for r in self.replicas:
+            with _device_guard(r.device):
+                fns.append(fn_of(r, part))
+
+        def run(images):
+            outs = []
+            for f, r, shard in zip(fns, self.replicas, self._shards(images)):
+                with _device_guard(r.device):
+                    outs.append(f(shard))
+            run.replays += 1
+            return combine(outs)
+
+        launches: dict = {}
+        for f in fns:
+            for k, v in f.launches.items():
+                launches[k] = launches.get(k, 0) + v
+        run.launches, run.replays, run.engine = launches, 0, self
+        run.pool_bytes = sum(f.pool_bytes for f in fns)
+        with self._fns_lock:
+            return self._fns.setdefault(key, run)
 
     @torch.inference_mode()
     def logits(self, images) -> torch.Tensor:

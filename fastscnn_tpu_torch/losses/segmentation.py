@@ -20,6 +20,15 @@ kept), found as the JAX package finds it: 31 bisection steps on the int32
 bit pattern, each one full reduction. ``torch.kthvalue`` gives the same
 value, but on the card it runs one block per slice: 42 ms per head at the
 recipe's 9.4 M pixels on an H100, half of a train step's device time.
+
+Every loss takes ``group``: the ``torch.distributed`` group of the ranks
+that each hold an equal shard of the batch (the data-parallel steps). It
+then returns the loss of the whole batch, as the JAX loss over the global
+array gives it, equal on every rank: the sums (CE's numerator and
+denominator, Dice's three sums, the focal mean's) through a differentiable
+all-reduce (``ops/collectives.py``), and OHEM's k-th smallest over every
+rank's pixels, each bisection step's count all-reduced. ``group=None``
+computes as in one process.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from fastscnn_tpu_torch.ops.collectives import global_sums, group_size, sum_
 from fastscnn_tpu_torch.ops.resize import device_table_cache, resize_bilinear_matmul
 
 __all__ = [
@@ -69,16 +79,24 @@ def _binary_diff_at_target_res(logits: torch.Tensor, target: torch.Tensor) -> to
     return d
 
 
-def _dice_from_prob(prob: torch.Tensor, target: torch.Tensor, smooth: float) -> torch.Tensor:
+def _dice_from_prob(prob: torch.Tensor, target: torch.Tensor, smooth: float,
+                    group=None) -> torch.Tensor:
     """1 − dice on a class-1 probability map; the raw target values enter
     the sums (no ignore masking), as in the reference."""
     p = prob.reshape(-1)
     t = target.reshape(-1).float()
-    inter = (p * t).sum()
-    return 1.0 - (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+    inter, p_sum, t_sum = global_sums((p * t).sum(), p.sum(), t.sum(), group=group)
+    return 1.0 - (2.0 * inter + smooth) / (p_sum + t_sum + smooth)
 
 
-def dice_loss(logits, target, smooth: float = 1e-6):
+def _global_mean(v: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``v`` over every rank's equal shard (one formula with a
+    group or without)."""
+    (total,) = global_sums(v.sum(), group=group)
+    return total / (v.numel() * group_size(group))
+
+
+def dice_loss(logits, target, smooth: float = 1e-6, group=None):
     """Binary Dice on the class-1 probability: softmax for multi-channel
     logits, sigmoid for one channel."""
     if logits.ndim == 4 and logits.shape[-1] == 2:
@@ -92,14 +110,14 @@ def dice_loss(logits, target, smooth: float = 1e-6):
             prob = torch.sigmoid(lf[..., 0])
         else:
             prob = torch.sigmoid(lf)
-    return _dice_from_prob(prob, target, smooth)
+    return _dice_from_prob(prob, target, smooth, group)
 
 
-def mix_dice_loss(outputs, target, aux_weight: float = 0.4, smooth: float = 1e-6):
+def mix_dice_loss(outputs, target, aux_weight: float = 0.4, smooth: float = 1e-6, group=None):
     """Main + aux_weight · aux Dice."""
-    loss = dice_loss(outputs[0], target, smooth)
+    loss = dice_loss(outputs[0], target, smooth, group)
     if len(outputs) > 1:
-        loss = loss + aux_weight * dice_loss(outputs[1], target, smooth)
+        loss = loss + aux_weight * dice_loss(outputs[1], target, smooth, group)
     return loss
 
 
@@ -126,7 +144,7 @@ def _pixel_class_weights(target, class_weights, num_classes):
 
 
 def focal_dice_loss(logits, target, alpha: float = 0.5, gamma: float = 2.0,
-                    dice_weight: float = 0.5, smooth: float = 1e-6):
+                    dice_weight: float = 0.5, smooth: float = 1e-6, group=None):
     """(1 − dice_weight) · focal + dice_weight · dice."""
     if logits.ndim == 4 and logits.shape[-1] == 2:
         # 2-class CE through the logit difference:
@@ -136,8 +154,8 @@ def focal_dice_loss(logits, target, alpha: float = 0.5, gamma: float = 2.0,
         sign = 2.0 * target.clamp(0, 1).float() - 1.0
         ce = -F.logsigmoid(sign * d)
         pt = torch.exp(-ce)
-        focal = (alpha * (1 - pt) ** gamma * ce).mean()
-        dice = _dice_from_prob(torch.sigmoid(d), target, smooth)
+        focal = _global_mean(alpha * (1 - pt) ** gamma * ce, group)
+        dice = _dice_from_prob(torch.sigmoid(d), target, smooth, group)
         return (1 - dice_weight) * focal + dice_weight * dice
     logits = _match_resolution(logits, target)
     lf = logits.float()
@@ -150,11 +168,11 @@ def focal_dice_loss(logits, target, alpha: float = 0.5, gamma: float = 2.0,
         eps = 1e-12
         ce = -(tf * torch.log(prob + eps) + (1 - tf) * torch.log(1 - prob + eps))
         pt = torch.where(tf == 1, prob, 1 - prob)
-    focal = (alpha * (1 - pt) ** gamma * ce).mean()
-    return (1 - dice_weight) * focal + dice_weight * dice_loss(logits, target, smooth)
+    focal = _global_mean(alpha * (1 - pt) ** gamma * ce, group)
+    return (1 - dice_weight) * focal + dice_weight * dice_loss(logits, target, smooth, group)
 
 
-def cross_entropy_loss(logits, target, ignore_label: int = -1, class_weights=None):
+def cross_entropy_loss(logits, target, ignore_label: int = -1, class_weights=None, group=None):
     """CE with ignore label and optional class weights; the weighted mean of
     ``torch.nn.CrossEntropyLoss`` (denominator: the kept pixels' weights)."""
     logits = _match_resolution(logits, target)
@@ -166,34 +184,39 @@ def cross_entropy_loss(logits, target, ignore_label: int = -1, class_weights=Non
         denom = (pw * valid).sum()
     else:
         denom = valid.sum()
-    return (ce * valid).sum() / denom.clamp_min(1e-12)
+    num, denom = global_sums((ce * valid).sum(), denom, group=group)
+    return num / denom.clamp_min(1e-12)
 
 
-def mix_cross_entropy_loss(outputs, target, aux_weight: float = 0.2, ignore_label: int = -1):
-    loss = cross_entropy_loss(outputs[0], target, ignore_label)
+def mix_cross_entropy_loss(outputs, target, aux_weight: float = 0.2, ignore_label: int = -1,
+                           group=None):
+    loss = cross_entropy_loss(outputs[0], target, ignore_label, group=group)
     for aux_logits in outputs[1:]:
-        loss = loss + aux_weight * cross_entropy_loss(aux_logits, target, ignore_label)
+        loss = loss + aux_weight * cross_entropy_loss(aux_logits, target, ignore_label,
+                                                      group=group)
     return loss
 
 
-def _kth_smallest_nonneg(x_flat: torch.Tensor, k: int) -> torch.Tensor:
+def _kth_smallest_nonneg(x_flat: torch.Tensor, k: int, group=None) -> torch.Tensor:
     """Exact k-th smallest of a non-negative f32 vector (``inf`` allowed):
     for such floats the int32 bit pattern orders as the value does, so 31
     bisection steps over [0, inf]'s bit range find the value a sort would
-    (ties included), without a host sync."""
+    (ties included), without a host sync. With ``group``, the k-th
+    smallest of every rank's vector together: each step's count is
+    all-reduced."""
     bits = x_flat.view(torch.int32)
     lo = torch.zeros((), dtype=torch.int32, device=x_flat.device)
     hi = torch.full((), 0x7F800000, dtype=torch.int32, device=x_flat.device)
     for _ in range(31):
         mid = lo + (hi - lo) // 2
-        kth_above_mid = (bits <= mid).sum() < k
+        kth_above_mid = sum_((bits <= mid).sum(), group) < k
         lo = torch.where(kth_above_mid, mid + 1, lo)
         hi = torch.where(kth_above_mid, hi, mid)
     return lo.view(torch.float32)
 
 
 def ohem_cross_entropy_loss(logits, target, ignore_label: int = -1, thresh: float = 0.7,
-                            min_kept: int = 256, class_weights=None):
+                            min_kept: int = 256, class_weights=None, group=None):
     """Online hard example mining CE (see the module docstring), then the
     class-weighted CE mean over the kept pixels."""
     logits = _match_resolution(logits, target)
@@ -205,8 +228,9 @@ def ohem_cross_entropy_loss(logits, target, ignore_label: int = -1, thresh: floa
     with torch.no_grad():
         true_prob = torch.exp(-ce_pix)
         flat = torch.where(valid, true_prob, torch.full_like(true_prob, float("inf"))).reshape(-1)
-        k = min(int(min_kept), flat.numel())
-        threshold = _kth_smallest_nonneg(flat, k).clamp_min(thresh) if k > 0 else thresh
+        k = min(int(min_kept), flat.numel() * group_size(group))
+        threshold = (_kth_smallest_nonneg(flat, k, group).clamp_min(thresh) if k > 0
+                     else thresh)
         kept = (valid & (true_prob <= threshold)).float()
     if class_weights is not None:
         pw = _pixel_class_weights(target, class_weights, logits.shape[-1])
@@ -215,18 +239,20 @@ def ohem_cross_entropy_loss(logits, target, ignore_label: int = -1, thresh: floa
     else:
         num = (ce_pix * kept).sum()
         den = kept.sum()
+    num, den = global_sums(num, den, group=group)
     return num / den.clamp_min(1e-12)
 
 
 def mix_ohem_cross_entropy_loss(outputs, target, aux_weight: float = 0.2, ignore_label: int = -1,
-                                thresh: float = 0.7, min_kept: int = 256, class_weights=None):
+                                thresh: float = 0.7, min_kept: int = 256, class_weights=None,
+                                group=None):
     """OHEM on the main head plus aux_weight · OHEM on each aux head — the
     trainer's 'ce' loss."""
     loss = ohem_cross_entropy_loss(outputs[0], target, ignore_label, thresh, min_kept,
-                                   class_weights)
+                                   class_weights, group)
     for aux_logits in outputs[1:]:
         loss = loss + aux_weight * ohem_cross_entropy_loss(
-            aux_logits, target, ignore_label, thresh, min_kept, class_weights)
+            aux_logits, target, ignore_label, thresh, min_kept, class_weights, group)
     return loss
 
 
@@ -236,15 +262,18 @@ def get_loss_fn(name: str, aux: bool = False, aux_weight: float = 0.4,
     """The trainer's loss registry: 'dice' → mix Dice, 'focal_dice' →
     Focal-Dice on the main head, 'ce' → mix OHEM CE (with the Cityscapes
     class weights when ``num_classes == 19``), 'ce_plain' → mix CE.
-    ``aux=False`` trains on the main head only, whatever the model emits."""
+    ``aux=False`` trains on the main head only, whatever the model emits.
+    Each returned ``loss(outputs, target, group=None)`` takes the
+    data-parallel group (module docstring)."""
     if not aux:
         main_only = get_loss_fn(name, aux=True, aux_weight=aux_weight, num_classes=num_classes,
                                 ignore_label=ignore_label, use_class_weights=use_class_weights)
-        return lambda outputs, target: main_only(outputs[:1], target)
+        return lambda outputs, target, group=None: main_only(outputs[:1], target, group=group)
     if name == "dice":
         return functools.partial(mix_dice_loss, aux_weight=aux_weight)
     if name == "focal_dice":
-        return lambda outputs, target: focal_dice_loss(outputs[0], target)
+        return lambda outputs, target, group=None: focal_dice_loss(outputs[0], target,
+                                                                   group=group)
     if name == "ce":
         weights = CITYSCAPES_CLASS_WEIGHTS if (use_class_weights and num_classes == 19) else None
         return functools.partial(mix_ohem_cross_entropy_loss, aux_weight=aux_weight,

@@ -46,6 +46,7 @@ import torch.nn as nn
 
 from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.models.convert import to_param_trees
+from fastscnn_tpu_torch.ops.collectives import group_rank, group_size
 from fastscnn_tpu_torch.ops.conv import (
     batch_norm_apply,
     batch_norm_train,
@@ -330,7 +331,8 @@ class FastSCNN(nn.Module):
 
     # -- forward on parameter trees (train and eval steps) -------------------
     def apply_params(self, params, state, x, training: bool = False,
-                     generator: torch.Generator | None = None, upsample_outputs: bool = True):
+                     generator: torch.Generator | None = None, upsample_outputs: bool = True,
+                     group=None):
         """The JAX ``FastSCNN.apply``: NHWC ``x``, ``(params, state)`` trees
         in the :func:`~fastscnn_tpu_torch.models.convert.to_param_trees`
         layout → ``(outputs, new_state)``, ``outputs`` the tuple of NHWC
@@ -343,8 +345,15 @@ class FastSCNN(nn.Module):
         is given, its mask drawn from that generator. ``training=False``:
         BN on the running statistics, which ``new_state`` holds unchanged. Params
         may be in any dtype (the train step passes bf16 casts of f32
-        masters); the compute runs in ``x``'s dtype."""
-        run = _TreeForward(self, training, generator)
+        masters); the compute runs in ``x``'s dtype.
+
+        ``group``: in training, the ``torch.distributed`` group of the ranks
+        that each hold an equal shard of the batch (the data-parallel steps):
+        BN takes the moments of the whole batch over it (sync-BN), and
+        dropout draws the masks of the whole batch from ``generator`` (the
+        same on every rank) and applies this rank's rows, so N ranks draw
+        what one process draws for the whole batch."""
+        run = _TreeForward(self, training, generator, group)
         size = (x.shape[1], x.shape[2])
         new_state = {}
         higher, new_state["learning_to_downsample"] = run.ltd(
@@ -514,9 +523,10 @@ class _TreeForward:
     new_s)`` on NHWC activations — the JAX package's ``_apply_*`` and
     module functions."""
 
-    def __init__(self, model: FastSCNN, training: bool, generator):
+    def __init__(self, model: FastSCNN, training: bool, generator, group=None):
         self.training = training
         self.generator = generator
+        self.group = group
         self.dropout_rate = model.dropout_rate
         self.ppm_sizes, self.ppm_align_corners = model.ppm_sizes, model.ppm_align_corners
         impl = model.stem_impl
@@ -538,7 +548,7 @@ class _TreeForward:
     def bn(self, p, s, x, packed=False):
         if self.training:
             y, m, v = batch_norm_train(x, p["scale"], p["bias"], s["mean"], s["var"],
-                                       packed=packed)
+                                       packed=packed, group=self.group)
             return y, {"mean": m, "var": v}
         return batch_norm_apply(x, p["scale"], p["bias"], s["mean"], s["var"]), s
 
@@ -615,7 +625,10 @@ class _TreeForward:
         if not self.training or self.generator is None or self.dropout_rate <= 0.0:
             return x
         keep = 1.0 - self.dropout_rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        n, k = group_size(self.group), group_rank(self.group)
+        b = x.shape[0]
+        mask = torch.rand((n * b, *x.shape[1:]), generator=self.generator,
+                          device=x.device)[k * b:(k + 1) * b] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from fastscnn_tpu_torch.ops.collectives import global_sum, group_size
+
 __all__ = [
     "conv2d",
     "conv2d_tapbwd",
@@ -175,7 +177,7 @@ def batch_norm_apply(x, scale, bias, mean, var, eps: float = BN_EPS):
 
 
 def batch_norm_train(x, scale, bias, running_mean, running_var, momentum: float = BN_MOMENTUM,
-                     eps: float = BN_EPS, packed: bool = False):
+                     eps: float = BN_EPS, packed: bool = False, group=None):
     """Training-mode BN, channels last: normalise with the batch moments
     and return ``(y, new_running_mean, new_running_var)``.
 
@@ -183,14 +185,22 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, momentum: float 
     cannot go negative), the unbiased variance in the running statistics.
     The new statistics carry no gradient. ``packed`` is the JAX package's
     TPU lane layout of the same sums; here it is the plain computation (a
-    pure reassociation)."""
+    pure reassociation).
+
+    ``group``: a ``torch.distributed`` group whose ranks each hold an equal
+    shard of the batch (sync-BN, the JAX mesh's global moments): each moment
+    is the all-reduced sum over the global ``n``, through a differentiable
+    all-reduce, and the unbiased running variance uses that ``n``, so the
+    running statistics come out equal on every rank."""
     del packed
     acc = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(acc)
     axes = tuple(range(x.ndim - 1))
-    batch_mean = xf.mean(dim=axes)
-    batch_var = (xf - batch_mean).square().mean(dim=axes)
-    n = x.numel() // x.shape[-1]
+    # the sums over n, one formula with a group or without: a group of one
+    # rank computes what no group computes, bit for bit
+    n = x.numel() // x.shape[-1] * group_size(group)
+    batch_mean = global_sum(xf.sum(dim=axes), group) / n
+    batch_var = global_sum((xf - batch_mean).square().sum(dim=axes), group) / n
     with torch.no_grad():
         unbiased = batch_var * (n / max(n - 1, 1))
         new_mean = (1 - momentum) * running_mean.to(acc) + momentum * batch_mean

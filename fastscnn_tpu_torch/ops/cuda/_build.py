@@ -11,7 +11,10 @@ Nothing here runs at import time: modules that import this one must
 import on a machine without ``nvcc``. The build runs the first time a
 wrapper meets a CUDA tensor. :func:`set_build_dir` moves the libraries
 elsewhere (``utils/profiling.py::enable_compilation_cache`` does: one
-directory for each host CPU); :func:`build_dir` says where they go.
+directory for each host CPU); :func:`build_dir` says where they go. It
+also sets ``FASTSCNN_KERNEL_DIR``, which a process reads at import: the
+processes a run starts (the ranks of a data-parallel group) load the
+libraries it built.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ _SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
-_build_dir: list[Path] = [BUILD_DIR]
+_build_dir: list[Path] = [Path(os.environ.get("FASTSCNN_KERNEL_DIR") or BUILD_DIR)]
 
 
 def build_dir() -> Path:
@@ -71,9 +74,10 @@ def build_dir() -> Path:
 
 
 def set_build_dir(path) -> None:
-    """Build and load the libraries under ``path`` from now on; those
-    already loaded stay loaded."""
+    """Build and load the libraries under ``path`` from now on, in this
+    process and in the ones it starts; those already loaded stay loaded."""
     _build_dir[0] = Path(path)
+    os.environ["FASTSCNN_KERNEL_DIR"] = str(path)
 
 
 def _nvcc() -> str:
@@ -140,6 +144,18 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _loaded[lib_name] = lib
     return _loaded[name]
+
+
+def launch(name: str, symbol: str, device, *args) -> int:
+    """Call ``symbol`` of the library for ``csrc/<name>.cu`` with ``args``
+    and ``device``'s current stream, under ``device``'s guard: a
+    ``<<<>>>`` launch and a ``cudaFuncSetAttribute`` act on the host
+    thread's current device, which must be the tensors' (a replica on a
+    second card). Returns the entry's code (see :func:`check`)."""
+    import torch
+
+    with torch.cuda.device(device):
+        return getattr(library(name), symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(rc: int, what: str) -> None:

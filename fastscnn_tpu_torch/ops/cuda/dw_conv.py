@@ -53,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from fastscnn_tpu_torch.ops.conv import conv_dw_taps, conv_out_len
-from fastscnn_tpu_torch.ops.cuda._build import check, library
+from fastscnn_tpu_torch.ops.cuda._build import check, launch
 
 __all__ = [
     "dw_conv3x3",
@@ -251,12 +251,11 @@ def dw_conv3x3(x, w, b=None, stride=1, padding=1, relu=False, rows=None, cols=No
     itemsize = x.element_size()
     vec = vec_width(c, itemsize, (x.data_ptr(), out.data_ptr()))
     plan = dw_fwd_plan(n, ho, wo, c, vec, itemsize, rows, cols)
-    rc = library("dw_conv").fastscnn_dw_conv3x3(
+    rc = launch("dw_conv", "fastscnn_dw_conv3x3", x.device,
         code, x.data_ptr(), _DTYPE_CODE[w9.dtype], w9.data_ptr(),
         _DTYPE_CODE[w9.dtype if bias is None else bias.dtype],
         None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo, stride,
         padding, int(relu), vec, plan.cols, plan.rows, *plan.block, plan.tiles, plan.groups,
-        torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "dw_conv3x3")
     dw_conv3x3.launches += 1
@@ -366,11 +365,11 @@ def ds_conv3x3_pw(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows=None):
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     vec = vec_width(c, x.element_size(), (x.data_ptr(),))
     vec_out = cout % _DS_CO == 0 and out.data_ptr() % 16 == 0
-    rc = library("dw_conv").fastscnn_ds_conv3x3_pw(
+    rc = launch("dw_conv", "fastscnn_ds_conv3x3_pw", x.device,
         code, x.data_ptr(), _DTYPE_CODE[w9.dtype], w9.data_ptr(), _DTYPE_CODE[bd.dtype],
         bd.data_ptr(), _DTYPE_CODE[wpw.dtype], wpw.data_ptr(), _DTYPE_CODE[bp.dtype],
         bp.data_ptr(), out.data_ptr(), n, h, wd, c, cout, ho, wo, stride, padding, vec, plan.rows,
-        *plan.block, int(vec_out), torch.cuda.current_stream(x.device).cuda_stream,
+        *plan.block, int(vec_out),
     )
     check(rc, "ds_conv3x3_pw")
     ds_conv3x3_pw.launches += 1
@@ -507,8 +506,7 @@ def ds_conv3x3_pw_multirow(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows_
                    strips)
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     args, _keep = _mr_args(x, w_dw, b_dw, w_pw, b_pw, out, stride, padding, plan)
-    rc = library("ds_conv_mr").fastscnn_ds_conv3x3_pw_mr(
-        *args, torch.cuda.current_stream(x.device).cuda_stream)
+    rc = launch("ds_conv_mr", "fastscnn_ds_conv3x3_pw_mr", x.device, *args)
     check(rc, "ds_conv3x3_pw_multirow")
     ds_conv3x3_pw_multirow.launches += 1
     return out
@@ -632,10 +630,10 @@ def dw_conv3x3_dx(g, w, stride=1, padding=1, x_shape=None, rows=None, cols=None)
     plan = dx_plan(n, h, wd, c, vec, itemsize, stride, padding, rows, cols)
     if plan.grid[1] > 65535 or n > 65535:
         raise ValueError(f"dw_conv3x3_dx: unsupported shape {tuple(x_shape)}")
-    rc = library("dw_conv_bwd").fastscnn_dw_conv3x3_dx(
+    rc = launch("dw_conv_bwd", "fastscnn_dw_conv3x3_dx", g.device,
         code, g.data_ptr(), _DTYPE_CODE[w9.dtype], w9.data_ptr(), dx.data_ptr(), n, h, wd, c,
         g.shape[1], g.shape[2], stride, padding, vec, plan.cols, plan.rows, *plan.block,
-        plan.tiles, plan.groups, torch.cuda.current_stream(g.device).cuda_stream,
+        plan.tiles, plan.groups,
     )
     check(rc, "dw_conv3x3_dx")
     dw_conv3x3_dx.launches += 1
@@ -677,10 +675,9 @@ def dw_conv3x3_dw(x, g, stride=1, padding=1, out_dtype=torch.float32, blocks=Non
         raise ValueError(f"dw_conv3x3_dw: C={c} exceeds the grid")
     partial = torch.empty((9 * c, blocks), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 1, c), dtype=out_dtype, device=x.device)
-    rc = library("dw_conv_bwd").fastscnn_dw_conv3x3_dw(
+    rc = launch("dw_conv_bwd", "fastscnn_dw_conv3x3_dw", x.device,
         code, _DTYPE_CODE[out_dtype], x.data_ptr(), g.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), n, h, wd, c, ho, wo, stride, padding, vec, rows, blocks, groups,
-        torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "dw_conv3x3_dw")
     dw_conv3x3_dw.launches += 1

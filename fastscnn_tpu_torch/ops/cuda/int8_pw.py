@@ -40,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from fastscnn_tpu_torch.ops.cuda._build import check, library
+from fastscnn_tpu_torch.ops.cuda._build import check, launch
 from fastscnn_tpu_torch.ops.cuda.dw_conv import _DTYPE_CODE
 
 __all__ = [
@@ -251,10 +251,9 @@ def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False, tile=None):
     avec = 16 if k % 16 == 0 and x2.data_ptr() % 16 == 0 else 4
     wvec = n % 8 == 0 and w.data_ptr() % 16 == 0
     vec_out = n % (16 // out.element_size()) == 0 and out.data_ptr() % 16 == 0
-    rc = library("int8_pw").fastscnn_pw_conv_a8(
+    rc = launch("int8_pw", "fastscnn_pw_conv_a8", x2.device,
         x2.data_ptr(), w.data_ptr(), _DTYPE_CODE[b.dtype], b.data_ptr(), out.data_ptr(), m, k, n,
         int(relu), int(quantize_out), plan.tile, avec, int(wvec), int(vec_out),
-        torch.cuda.current_stream(x2.device).cuda_stream,
     )
     check(rc, "pw_conv_a8")
     pw_conv_a8.launches += 1
@@ -302,10 +301,10 @@ def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False, tile=None):
     avec = 16 if k % 16 == 0 and x2.data_ptr() % 16 == 0 else 4
     wvec = n % 16 == 0 and w.data_ptr() % 16 == 0
     vec_out = n % (16 // out.element_size()) == 0 and out.data_ptr() % 16 == 0
-    rc = library("int8_pw").fastscnn_pw_conv_w8a8(
+    rc = launch("int8_pw", "fastscnn_pw_conv_w8a8", x2.device,
         x2.data_ptr(), w.data_ptr(), scale.data_ptr(), _DTYPE_CODE[b.dtype], b.data_ptr(),
         out.data_ptr(), m, k, n, int(relu), int(quantize_out), plan.tile, avec, int(wvec),
-        int(vec_out), torch.cuda.current_stream(x2.device).cuda_stream,
+        int(vec_out),
     )
     check(rc, "pw_conv_w8a8")
     pw_conv_w8a8.launches += 1

@@ -50,7 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fastscnn_tpu_torch.ops.cuda._build import check, library
+from fastscnn_tpu_torch.ops.cuda._build import check, launch
 from fastscnn_tpu_torch.ops.cuda.dw_conv import _kernel_input
 from fastscnn_tpu_torch.ops.resize import (
     _axis_lerp_coeffs,
@@ -107,11 +107,10 @@ def upsample_argmax(logits, out_size, align_corners=True, tile=None, rows=None):
     out = torch.empty((n, out_h, out_w), dtype=torch.int32, device=logits.device)
     vcopy = (w * c * size) % 16 == 0 and logits.data_ptr() % 16 == 0
     vec_out = out_w % 4 == 0 and out.data_ptr() % 16 == 0
-    rc = library("upsample_argmax").fastscnn_upsample_argmax(
+    rc = launch("upsample_argmax", "fastscnn_upsample_argmax", logits.device,
         code, logits.data_ptr(), hw.data_ptr(), ww.data_ptr(), table.data_ptr(), out.data_ptr(),
         n, h, w, c, out_h, out_w, plan.tile, plan.rows, plan.smem, plan.grid[0], plan.runs,
         plan.grid[1], int(vcopy), int(vec_out),
-        torch.cuda.current_stream(logits.device).cuda_stream,
     )
     check(rc, "upsample_argmax")
     upsample_argmax.launches += 1
@@ -365,10 +364,9 @@ def h_lerp_argmax(xw, out_h, align_corners=True, tile=None, rows=None):
     out = torch.empty((n, out_h, w), dtype=torch.int32, device=xw.device)
     vcopy = (w * xw.element_size()) % 16 == 0 and xw.data_ptr() % 16 == 0
     vec_out = w % 4 == 0 and out.data_ptr() % 16 == 0
-    rc = library("upsample_argmax").fastscnn_h_lerp_argmax(
+    rc = launch("upsample_argmax", "fastscnn_h_lerp_argmax", xw.device,
         code, xw.data_ptr(), hlo.data_ptr(), hhi.data_ptr(), hw.data_ptr(), out.data_ptr(),
         n, h, c, out_h, w, plan.tile, plan.rows, plan.smem, int(vcopy), int(vec_out),
-        torch.cuda.current_stream(xw.device).cuda_stream,
     )
     check(rc, "h_lerp_argmax")
     h_lerp_argmax.launches += 1

@@ -26,9 +26,23 @@ paths turn a tensor rate into a host float, a sync). With
 ``device_aug`` the step takes native-resolution uint8 batches and runs
 an augmentation chain of ``data/device_aug.py`` on the device before
 normalising; :func:`make_split_aug_train_step` runs the chain once for
-the batch and then the crop-fed step. The JAX step's ``mesh`` and
-``spatial_shard`` are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP.md item.
+the batch and then the crop-fed step.
+
+``mesh`` (``parallel/mesh.py``): a process-group mesh runs the steps SPMD,
+one process per device, as the JAX steps run over the mesh's chips. Each
+rank passes its own rows (``host_shard`` of the global batch) and gets back
+what the JAX step returns for the global batch: BN takes the moments of the
+global batch (sync-BN), the loss is the global batch's (equal on every
+rank), the dropout masks and the augmentation's draws are the global
+batch's rows, and after the microbatches the gradients are summed across
+the ranks by one all-reduce of a flat f32 buffer (JAX's psum), so the
+parameters stay equal on every rank. With ``grad_accum`` > 1, microbatch i
+is the global batch's rows ``[i·mb, (i+1)·mb)`` split over the ranks, as in
+JAX: the step gathers the ranks' uint8 rows and takes its part of each
+microbatch, so the caller keeps ``host_shard``'s convention. The eval step
+sums the statistics across the ranks and returns this rank's mask rows. A
+``space`` axis above 1 and ``spatial_shard`` raise ``NotImplementedError``
+naming their ROADMAP.md item (6b).
 
 ``graph=True`` is the counterpart of the JAX step's ``jit``: on the
 card the whole step (the chain, forward, loss, backward and update) is
@@ -49,7 +63,10 @@ from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.engine.infer import IMAGENET_MEAN, IMAGENET_STD
 from fastscnn_tpu_torch.models.convert import to_param_trees
 from fastscnn_tpu_torch.models.fast_scnn import FastSCNN
+from fastscnn_tpu_torch.ops.collectives import gather_rows, sum_
 from fastscnn_tpu_torch.ops.resize import resize_bilinear_matmul
+from fastscnn_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, Mesh
+from fastscnn_tpu_torch.parallel.multihost import backend_of
 from fastscnn_tpu_torch.utils.cuda_graph import Captured, capture
 from fastscnn_tpu_torch.utils.metric import seg_hist_update
 from fastscnn_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -64,7 +81,6 @@ __all__ = [
     "make_eval_step",
 ]
 
-_MULTI_DEVICE = "ROADMAP.md, queue item 'multi-device'"
 # eager steps on a side stream before a capture: the first makes the
 # optimizer's lazy state and the cuDNN plans, the second runs the update
 # path the captured steps take
@@ -240,14 +256,18 @@ def make_train_step(
     only (``ValueError`` elsewhere): the step is a :class:`_GraphedStep`,
     each input shape captured once as a CUDA graph and replayed.
     ``donate_batch`` has no effect there (the graph copies each batch into
-    its own input buffers)."""
+    its own input buffers).
+
+    ``mesh``: a process-group mesh (module docstring); ``device`` defaults
+    to this rank's device in it. ``loss_fn`` then takes ``group=`` (every
+    loss of ``losses/`` does). ``graph=True`` under a mesh captures the
+    collectives too, which NCCL allows and gloo does not (``ValueError``)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if mesh is not None or spatial_shard:
-        raise NotImplementedError(f"mesh and spatial_shard are not ported yet ({_MULTI_DEVICE})")
-    device = _step_device(device, graph)
+    dp = _data_parallel(mesh, spatial_shard, graph)
+    device = _step_device(_rank_device(device, mesh, dp), graph)
     compute = _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_aug,
-                            donate_batch)
+                            donate_batch, dp)
     if graph:
         return _GraphedStep(compute, optimizer, device)
 
@@ -258,6 +278,54 @@ def make_train_step(
         return _eager_update(compute, optimizer, state, batch, generator, aug_generator)
 
     return step
+
+
+@dataclasses.dataclass(frozen=True)
+class _DataParallel:
+    """What a step under a process-group mesh reduces over: the group, this
+    rank's place on ``data`` and the number of places."""
+
+    group: Any
+    index: int
+    size: int
+
+    @property
+    def shard(self) -> tuple[int, int]:
+        return self.index, self.size
+
+
+def _data_parallel(mesh, spatial_shard: bool, graph: bool) -> _DataParallel | None:
+    """The step's data parallelism under ``mesh``; None for no mesh or a mesh
+    of one device. Raises for what is not ported (a ``space`` axis, spatial
+    sharding), for a local mesh of several devices (a step runs one
+    process a device), for a rank the mesh left out and for a graph over
+    gloo."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
+    if spatial_shard or (mesh is not None and mesh.shape["space"] > 1):
+        raise NotImplementedError(f"spatial sharding is not ported yet ({SPATIAL_NOT_PORTED})")
+    if mesh is None:
+        return None
+    if mesh.ranks is not None and not mesh.is_member:
+        raise ValueError("this rank is not in the mesh (make_mesh_for_batch left it out): it "
+                         "has no rows to step on")
+    if mesh.group is None:
+        if mesh.size > 1:
+            raise ValueError(
+                f"a step under a mesh of {mesh.size} devices runs one process a device: join "
+                "the processes with initialize_multihost and build the mesh there (a local "
+                "mesh of several devices is for InferenceEngine)")
+        return None  # one device: the single-process step
+    backend = backend_of(mesh.group)
+    if graph and backend != "nccl":
+        raise ValueError(f"graph=True captures the step's collectives, which the {backend} "
+                         "backend cannot run in a CUDA graph: use NCCL, or graph=False")
+    return _DataParallel(mesh.group, mesh.index, mesh.shape["data"])
+
+
+def _rank_device(device, mesh, dp):
+    """``device``; None under a process-group mesh: this rank's device in it."""
+    return mesh.local_device if device is None and dp is not None else device
 
 
 def _step_device(device, graph: bool) -> torch.device:
@@ -277,27 +345,70 @@ def _eager_update(compute, optimizer: Optimizer, state: TrainState, batch: list,
     return state, {"loss": loss}
 
 
+def _grad_buffers(leaves: list, flat: bool) -> torch.Tensor | None:
+    """Each master's gradient buffer, made once: a tensor of zeros each, or
+    with ``flat`` views of one flat f32 buffer (one all-reduce sums them
+    all), which is returned."""
+    if not flat:
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return None
+    total = sum(p.numel() for p in leaves)
+    base = leaves[0].grad._base if leaves[0].grad is not None else None
+    if (base is None or base.numel() != total
+            or any(p.grad is None or p.grad._base is not base for p in leaves)):
+        base = torch.zeros(total, dtype=torch.float32, device=leaves[0].device)
+        offset = 0
+        for p in leaves:
+            p.grad = base[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+    return base
+
+
+def _microbatch_rows(t: torch.Tensor, grad_accum: int, dp: _DataParallel) -> torch.Tensor:
+    """This rank's rows of each microbatch of the global batch, in microbatch
+    order: the ranks' rows gathered (the global batch), microbatch i its
+    rows ``[i·mb, (i+1)·mb)``, split over the ranks as the JAX step reshards
+    it. A batch of b rows a rank gives b rows back, b / grad_accum a
+    microbatch."""
+    full = gather_rows(t, dp.group)
+    per = t.shape[0] // grad_accum
+    return full.reshape(grad_accum, dp.size, per, *t.shape[1:])[:, dp.index].reshape(t.shape)
+
+
 def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_aug,
-                  donate_batch):
+                  donate_batch, dp: _DataParallel | None = None):
     """The device work of a train step, on a batch already on the device
     passed as the list ``[images, targets]`` (emptied once read when
     ``donate_batch``), at the rate already in the optimizer's groups: it
     reads and writes only the state's own tensors and returns the loss, so
-    a CUDA graph can capture it."""
+    a CUDA graph can capture it. Under ``dp`` the batch is this rank's rows
+    (module docstring). ``compute.grad_buffers(state)`` makes the
+    gradients' buffers as the step uses them."""
     normalize = _Normalize(mean, std)
+    group = None if dp is None else dp.group
+    loss_kwargs = {} if dp is None else {"group": group}
 
     def grads_of(params, model_state, x, targets, generator):
         cast = tree_map(lambda p: p.to(compute_dtype), params)
         outputs, new_model_state = model.apply_params(
-            cast, model_state, x, training=True, generator=generator, upsample_outputs=False)
-        loss = loss_fn(outputs, targets).float()
+            cast, model_state, x, training=True, generator=generator, upsample_outputs=False,
+            group=group)
+        loss = loss_fn(outputs, targets, **loss_kwargs).float()
         loss.backward()  # accumulates f32 gradients on the masters
         return loss.detach(), new_model_state
 
     def prepared(images, targets, aug_generator):
         if device_aug is not None:
-            images, targets = device_aug(images, targets, aug_generator)
+            if dp is None:
+                images, targets = device_aug(images, targets, aug_generator)
+            else:
+                images, targets = device_aug(images, targets, aug_generator, shard=dp.shard)
         return normalize(images, compute_dtype), targets
+
+    def grad_buffers(state: TrainState):
+        return _grad_buffers(tree_leaves(state.params), dp is not None)
 
     def compute(state: TrainState, batch: list, generator, aug_generator) -> torch.Tensor:
         if device_aug is not None and aug_generator is None:
@@ -305,11 +416,10 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
         n = batch[0].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
-        leaves = tree_leaves(state.params)
-        for p in leaves:
-            if p.grad is None:  # the gradient's buffer, made once
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in leaves]
+        if dp is not None and grad_accum > 1 and dp.size > 1:
+            batch[:] = [_microbatch_rows(t, grad_accum, dp) for t in batch]
+        flat = grad_buffers(state)
+        grads = [p.grad for p in tree_leaves(state.params)]
         # a param the loss does not reach keeps a zero gradient, as in JAX
         torch._foreach_zero_(grads)
         mb = n // grad_accum
@@ -324,12 +434,18 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
             loss = loss + loss_i
         if grad_accum > 1:
             loss = loss / grad_accum
+        if flat is not None:
+            # the ranks' gradients summed (JAX's psum); autograd through the
+            # loss's all-reduces differentiated N copies of the global loss
+            sum_(flat, group).div_(dp.size * grad_accum)
+        elif grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
         state.opt_state.step()
         with torch.no_grad():
             torch._foreach_copy_(tree_leaves(state.model_state), tree_leaves(new_model_state))
         return loss
 
+    compute.grad_buffers = grad_buffers
     return compute
 
 
@@ -356,11 +472,17 @@ def make_split_aug_train_step(
     references to the native-resolution batch once the chain has read it;
     eager PyTorch has no buffer donation, so the JAX step's ``donate``
     argument has no counterpart here. ``graph=True``: each stage is a
-    CUDA graph of its own, as the JAX split path compiles two programs."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh is not ported yet ({_MULTI_DEVICE})")
-    device = _step_device(device, graph)
-    compute = _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, None, True)
+    CUDA graph of its own, as the JAX split path compiles two programs.
+    ``mesh``: as :func:`make_train_step`'s; the chain draws the global
+    batch's parameters and augments this rank's rows."""
+    dp = _data_parallel(mesh, False, graph)
+    device = _step_device(_rank_device(device, mesh, dp), graph)
+    compute = _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, None, True, dp)
+    if dp is not None:
+        chain = device_aug
+
+        def device_aug(images, targets, generator):
+            return chain(images, targets, generator, shard=dp.shard)
     if graph:
         return _GraphedStep(compute, optimizer, device, chain=device_aug)
 
@@ -528,9 +650,7 @@ class _GraphedStep(_Graphed):
             chain.replay()  # the crops the step's warm-up trains on
             graphs.append(chain)
             batch, step_aug = list(chain.out), None
-        for p in tree_leaves(state.params):
-            if p.grad is None:  # the gradients' buffers, made on the caller's stream
-                p.grad = torch.zeros_like(p)
+        self._compute.grad_buffers(state)  # the gradients' buffers, made on the caller's stream
         saved = {t.data_ptr(): (t, t.detach().clone()) for t in _state_tensors(state)}
         step_generators = [g for g in (generator, step_aug) if g is not None]
         graphs.append(self._warm_and_capture(
@@ -619,10 +739,14 @@ def make_eval_step(
 
     ``graph``: the counterpart of the JAX eval step's ``jit``, on the card
     only (``ValueError`` elsewhere): the step is a :class:`_GraphedEval`,
-    each input shape captured once as a CUDA graph and replayed."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh is not ported yet ({_MULTI_DEVICE})")
-    device = _step_device(device, graph)
+    each input shape captured once as a CUDA graph and replayed.
+
+    ``mesh``: a process-group mesh (module docstring): each rank passes its
+    rows and gets back its rows' mask and the statistics of the global
+    batch (summed across the ranks; with ``per_sample_stats`` every rank's
+    rows gathered, in the global batch's order)."""
+    dp = _data_parallel(mesh, False, graph)
+    device = _step_device(_rank_device(device, mesh, dp), graph)
     normalize = _Normalize(mean, std)
 
     def forward(params, model_state, images, targets):
@@ -635,6 +759,9 @@ def make_eval_step(
             logits = resize_bilinear_matmul(logits, (x.shape[1], x.shape[2]), align_corners=True)
         pred = logits.argmax(dim=-1).to(torch.int32)
         stats = seg_hist_update(pred, targets, num_classes, per_sample=per_sample_stats)
+        if dp is not None:
+            reduce = gather_rows if per_sample_stats else sum_
+            stats = tuple(reduce(s, dp.group) for s in stats)
         return pred.to(pred_dtype), stats
 
     if graph:

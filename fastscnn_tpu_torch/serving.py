@@ -425,7 +425,8 @@ def _parser():
     parser.add_argument("--pipeline-depth", type=int, default=2,
                         help="in-flight batches (device compute / host gather overlap)")
     parser.add_argument("--data-parallel", type=int, default=1,
-                        help="shard each batch over this many cards; only 1 is ported")
+                        help="shard each batch over this many devices ('data' mesh axis, one "
+                        "replica of the weights a device); max-batch must be divisible by it")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8500)
     parser.add_argument("--dtype", type=str, default="bfloat16")
@@ -441,26 +442,50 @@ def _parser():
                         "graph (models.FastSCNN.folded_dw_impl; 'pallas', "
                         "'fused-ds' and 'fused-ds-mr' are the card's kernels)")
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device; default: the CUDA card (raises without one)")
+                        help="torch device, or a comma-separated list of the devices "
+                        "--data-parallel takes its first N from; default: the CUDA cards "
+                        "(raises without one)")
     return parser
+
+
+def visible_devices(spec: str | None) -> list:
+    """The devices ``--device`` makes visible: None or ``cuda`` every CUDA
+    card (raises without one), else the comma-separated devices named."""
+    from fastscnn_tpu_torch import resolve_device
+
+    if spec is None or spec == "cuda":
+        resolve_device(None)  # raises without a card
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [resolve_device(d.strip()) for d in spec.split(",")]
 
 
 def build_server(argv=None) -> ServingServer:
     """Everything ``main`` does before it waits: the engine (random
     weights from seed 0 unless ``--weights``), one ``predict_fn`` per
     power-of-two bucket warmed (on the card: captured) before traffic is
-    accepted, the batching predictor and the started server."""
-    args = _parser().parse_args(argv)
-    if args.data_parallel > 1:  # before the expensive weight load
-        raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP.md, queue 1, item 6: multi-device)")
+    accepted, the batching predictor and the started server.
 
-    from fastscnn_tpu_torch import resolve_device
+    ``--data-parallel N`` above 1: the engine serves under a local mesh of
+    the first N visible devices (``--device``), one replica of the folded
+    weights a device, each batch split over them; the single bucket
+    ``[max_batch]``. Checked, as the JAX server checks it, before the
+    weights load: ``--max-batch`` must divide, and N devices be visible."""
+    parser = _parser()
+    args = parser.parse_args(argv)
     from fastscnn_tpu_torch.engine import E2EConfig, IMAGENET_MEAN, IMAGENET_STD, InferenceEngine
     from fastscnn_tpu_torch.models import FastSCNN, init_fast_scnn, load_checkpoint
     from fastscnn_tpu_torch.models.registry import DATASET_NUM_CLASSES
+    from fastscnn_tpu_torch.parallel.mesh import make_mesh
 
-    device = resolve_device(args.device)
+    mesh = None
+    devices = visible_devices(args.device)
+    if args.data_parallel > 1:  # validate before the expensive weight load
+        if args.max_batch % args.data_parallel:
+            parser.error("--max-batch must be divisible by --data-parallel")
+        if len(devices) < args.data_parallel:
+            parser.error(f"only {len(devices)} device(s) visible")
+        mesh = make_mesh(n_data=args.data_parallel, devices=devices[:args.data_parallel])
+    device = devices[0]
     num_classes = DATASET_NUM_CLASSES[args.dataset]
     if args.weights:
         state = load_checkpoint(args.weights)
@@ -481,14 +506,20 @@ def build_server(argv=None) -> ServingServer:
                          # lossless for num_classes ≤ 255; quarters the
                          # device→host mask transfer per request
                          mask_dtype="uint8"),
+        mesh=mesh,
     )
     # Power-of-two padded-batch buckets: a fill-n batch pads to the next
     # bucket instead of always to max_batch (one CUDA graph per bucket).
-    buckets, b = [], 1
-    while b < args.max_batch:
-        buckets.append(b)
-        b *= 2
-    buckets.append(args.max_batch)
+    # --data-parallel keeps the single full bucket (each must divide the
+    # data axis).
+    if args.data_parallel > 1:
+        buckets = [args.max_batch]
+    else:
+        buckets, b = [], 1
+        while b < args.max_batch:
+            buckets.append(b)
+            b *= 2
+        buckets.append(args.max_batch)
     # Capture every bucket's graph BEFORE accepting traffic, as the JAX
     # server compiles them: a first request must not pay the warm-up
     # passes and the capture.

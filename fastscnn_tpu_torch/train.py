@@ -31,6 +31,22 @@ mode run PIL's operations in numpy (``data/pil_ops.py``).
 trainer's files as well as the port's: ``.pth`` and ``.pth.npz`` load as
 weights, any other ``.npz`` as the JAX trainer's full state, ``.pt`` as
 the port's.
+
+Several processes (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and
+``PROCESS_ID`` set in each, ``parallel/multihost.py``) train one model
+data-parallel: each joins the group, the mesh is ``make_mesh_for_batch``
+over the ranks, every rank decodes only its rows of each global batch of
+``--batch-size`` and the steps reduce over the mesh (``parallel/train.py``).
+Each rank runs on ``--device``, or on the card ``rank % cards``;
+``FASTSCNN_DIST_BACKEND=gloo`` lets several ranks share one card (NCCL
+cannot), and then the steps run eagerly (gloo cannot run in a CUDA
+graph). The
+primary rank alone writes checkpoints, logs and curves; every rank loads.
+A rank the mesh leaves out (a batch that fewer ranks divide) trains
+nothing.
+
+    COORDINATOR_ADDRESS=host0:29500 NUM_PROCESSES=2 PROCESS_ID=<k> \
+        python -m fastscnn_tpu_torch.train --dataset citys --batch-size 16 ...
 """
 
 from __future__ import annotations
@@ -106,7 +122,8 @@ def parse_args(argv=None):
                         help="training-time impl of the small-C stem convs ('pallas': the "
                              "depthwise convs through kernel B6)")
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device; default: the CUDA card (raises without one)")
+                        help="torch device; default: the CUDA card (raises without one; "
+                             "rank k of a multi-process run: card k %% cards)")
     # bdd100k extras (reference:train_bdd100k.py)
     parser.add_argument("--subset", type=str, default="100k")
     parser.add_argument("--label-type", type=str, default="binary")
@@ -202,10 +219,12 @@ class Trainer:
         from fastscnn_tpu_torch.parallel import (
             create_train_state,
             make_eval_step,
+            make_mesh_for_batch,
             make_optimizer,
             make_split_aug_train_step,
             make_train_step,
         )
+        from fastscnn_tpu_torch.parallel import multihost
         from fastscnn_tpu_torch.utils import lr_schedule
         from fastscnn_tpu_torch.utils.checkpoint import load_pth_checkpoint, load_train_state
         from fastscnn_tpu_torch.utils.monitor import TrainingMonitor
@@ -214,8 +233,24 @@ class Trainer:
         if args.device_aug_split and not args.device_aug:
             warnings.warn("--device-aug-split has no effect without --device-aug: training "
                           "with the host augmentation", stacklevel=2)
-        self.device = resolve_device(args.device)
-        self.graph = self.device.type == "cuda" if graph is None else graph
+        device = args.device
+        if multihost.process_count() == 1:
+            multihost.initialize_multihost(
+                device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.mesh = self.idle = None
+        if multihost.process_count() > 1:
+            if device is None and torch.cuda.is_available():
+                device = multihost.local_device()
+            self.mesh = make_mesh_for_batch(args.batch_size)
+            if not self.mesh.is_member:
+                self.idle = (f"rank {multihost.process_index()} is not in the mesh: "
+                             f"--batch-size {args.batch_size} over {self.mesh.size} ranks")
+                print(self.idle)
+                return
+        self.primary = multihost.is_primary_host()
+        self.device = resolve_device(device)
+        gloo = self.mesh is not None and multihost.backend_of(self.mesh.group) == "gloo"
+        self.graph = (self.device.type == "cuda" and not gloo) if graph is None else graph
         if args.decoded_cache:
             decoded_cache.set_cache_dir(args.decoded_cache)
         root = args.data_root or _DEFAULT_ROOTS[args.dataset]
@@ -275,9 +310,12 @@ class Trainer:
         # augmentation gives the loss int32 crops. The loaders start at the
         # start epoch, so a resumed run batches its epochs as the
         # uninterrupted run did
+        shard = (None if self.mesh is None or self.mesh.size == 1
+                 else (self.mesh.index, self.mesh.size))
         loader_kwargs = dict(batch_size=args.batch_size, shuffle=True, drop_last=True,
                              num_workers=args.num_workers, seed=args.seed,
-                             narrow_targets=args.device_aug, first_epoch=args.start_epoch)
+                             narrow_targets=args.device_aug, first_epoch=args.start_epoch,
+                             shard=shard)
         if args.loader == "grain":
             from fastscnn_tpu_torch.data.grain_loader import GrainDataLoader
 
@@ -292,7 +330,8 @@ class Trainer:
                               num_classes=self.num_classes)
         compute_dtype = torch.bfloat16 if args.fp16 else torch.float32
         step_kwargs = dict(mean=mean, std=std, compute_dtype=compute_dtype,
-                           grad_accum=args.grad_accum, device=self.device, graph=self.graph)
+                           grad_accum=args.grad_accum, device=self.device, graph=self.graph,
+                           mesh=self.mesh)
         if train_mode == "device-aug":
             device_aug = _device_augment(args, self.train_ds, compute_dtype)
             if args.device_aug_split:
@@ -306,12 +345,14 @@ class Trainer:
         self.eval_step = make_eval_step(self.model, self.num_classes, mean=mean, std=std,
                                         compute_dtype=compute_dtype, device=self.device,
                                         graph=self.graph)
-        os.makedirs("logs", exist_ok=True)
+        if self.primary:
+            os.makedirs("logs", exist_ok=True)
         # the history continues only for the same run (a full-state restore):
         # a weights-only .pth resume is transfer learning
         self.monitor = TrainingMonitor(f"logs/training_log_{args.dataset}.json",
                                        experiment_name=f"fast_scnn_{args.dataset}",
-                                       resume=resumed_run, tensorboard_dir=args.tensorboard_dir)
+                                       resume=resumed_run, tensorboard_dir=args.tensorboard_dir,
+                                       write=self.primary)
         # dropout and augmentation each draw from a generator of their own,
         # reseeded before every step (_seed_step)
         self.dropout_generator = torch.Generator(device=self.device)
@@ -328,6 +369,8 @@ class Trainer:
         self.aug_generator.manual_seed((seed + 2) * _STEP_SEED_STRIDE + step)
 
     def train(self):
+        if self.idle:
+            return None
         try:
             return self._train_loop()
         finally:
@@ -406,16 +449,24 @@ class Trainer:
         from fastscnn_tpu_torch.utils.checkpoint import save_pth_checkpoint, save_train_state
 
         args = self.args
-        path = save_pth_checkpoint(self.state.params, self.state.model_state, args.save_folder,
-                                   dataset=args.dataset, is_best=is_best)
-        save_train_state(self.state,
-                         os.path.join(args.save_folder, f"train_state_{args.dataset}.pt"))
+        path = None
+        if self.primary:  # every rank holds the same state; one writes it
+            path = save_pth_checkpoint(self.state.params, self.state.model_state,
+                                       args.save_folder, dataset=args.dataset, is_best=is_best)
+            save_train_state(self.state,
+                             os.path.join(args.save_folder, f"train_state_{args.dataset}.pt"))
+        if self.mesh is not None and self.mesh.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.group)  # the files exist before any rank goes on
         return path
 
 
 def main(argv=None):
     args = parse_args(argv)
     trainer = Trainer(args)
+    if trainer.idle:
+        return trainer
     if args.eval:
         pix_acc, miou = trainer.validation()
         print(f"val pixAcc {pix_acc * 100:.3f}% mIoU {miou * 100:.3f}%")

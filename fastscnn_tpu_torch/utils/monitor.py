@@ -21,18 +21,22 @@ __all__ = ["TrainingMonitor"]
 
 class TrainingMonitor:
     def __init__(self, log_path: str, experiment_name: str = "fast_scnn", resume: bool = False,
-                 tensorboard_dir: str | None = None):
+                 tensorboard_dir: str | None = None, write: bool = True):
         """``resume=True`` continues an existing JSON log (a full-state
         resume); a fresh run starts a fresh history. ``tensorboard_dir``
-        also writes each record as TensorBoard scalars."""
+        also writes each record as TensorBoard scalars. ``write=False``
+        keeps the history (and reads a resumed one) but writes no file: the
+        ranks of a multi-process run other than the primary."""
         self.log_path = log_path
         self.experiment_name = experiment_name
         self.records: list[dict] = []
         self.best = {"metric": -1.0, "epoch": -1}
         self.start_time = time.time()
-        self.tensorboard_dir = tensorboard_dir
+        self.tensorboard_dir = tensorboard_dir if write else None
+        self.write = write
         self._tb_writer = None
-        os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+        if write:
+            os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
         if resume and os.path.exists(log_path):
             try:
                 with open(log_path) as f:
@@ -66,8 +70,9 @@ class TrainingMonitor:
             record["samples_per_sec"] = float(samples_per_sec)
         record.update({k: float(v) for k, v in extra.items()})
         self.records.append(record)
-        with open(self.log_path, "w") as f:
-            json.dump(self.records, f, indent=2)
+        if self.write:
+            with open(self.log_path, "w") as f:
+                json.dump(self.records, f, indent=2)
         self._tb_log(record)
         return is_best
 
@@ -96,8 +101,9 @@ class TrainingMonitor:
 
     def plot_curves(self, out_path: str | None = None) -> str | None:
         """The 4-panel curves (loss, pixAcc, mIoU, lr) as a PNG beside the
-        log; None when there is nothing to plot or no matplotlib."""
-        if not self.records:
+        log; None when there is nothing to plot, no matplotlib, or the
+        monitor writes no file."""
+        if not self.records or not self.write:
             return None
         try:
             import matplotlib

@@ -279,7 +279,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'demo_tusimple', 'utils.profiling', 'serialbridge.mcu',\n"
         "        'serialbridge.rich_protocol', 'tools.manual_control', 'tools.analyzers',\n"
         "        'engine.export', 'engine.onnx_native', 'export_model', 'data.jpeg',\n"
-        "        'utils.native')}\n"
+        "        'utils.native', 'parallel.mesh', 'parallel.multihost', 'ops.collectives',\n"
+        "        'tools.multihost_smoke', 'entry')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )

@@ -37,6 +37,7 @@ def fresh_caches(monkeypatch, tmp_path):
     monkeypatch.setattr(jax_profiling, "_CACHE_ENABLED", [])
     monkeypatch.setattr(profiling, "_CACHE_ENABLED", [])
     monkeypatch.setattr(_build, "_build_dir", [_build.BUILD_DIR])
+    monkeypatch.delenv("FASTSCNN_KERNEL_DIR", raising=False)  # set_build_dir sets it
     monkeypatch.delenv("FASTSCNN_NO_COMPILATION_CACHE", raising=False)
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     old = jax.config.jax_compilation_cache_dir

@@ -318,9 +318,13 @@ def test_engine_mask_dtype_uint8():
     assert torch.equal(m32, m8.to(torch.int32))
 
 
-def test_data_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
+def test_data_parallel_is_not_ported(capsys):
+    """``--data-parallel`` is ported (``tests/test_torch_multidevice.py``
+    serves over two CPU replicas); past the visible devices it is refused
+    with the JAX server's parser error, before any weight loads."""
+    with pytest.raises(SystemExit):
         main(["--device", "cpu", "--data-parallel", "2"])
+    assert "only 1 device(s) visible" in capsys.readouterr().err
 
 
 def test_build_server_serves_on_the_cpu(capsys):

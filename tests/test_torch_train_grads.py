@@ -33,6 +33,7 @@ from fastscnn_tpu_torch.models import FastSCNN, from_jax_params, to_param_trees
 from fastscnn_tpu_torch.parallel import (
     create_train_state,
     make_eval_step,
+    make_mesh,
     make_optimizer,
     make_split_aug_train_step,
     make_train_step,
@@ -205,13 +206,18 @@ def test_unported_options_and_devices_raise(shared, monkeypatch):
     model = FastSCNN(NUM_CLASSES)
     opt = make_optimizer("sgd")
     loss = get_loss_fn("ce")
-    for kw in ({"mesh": object()}, {"spatial_shard": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*multi-device"):
+    # the data axis is ported (tests/test_torch_multidevice.py); spatial
+    # sharding is ROADMAP item 6b
+    space = make_mesh(n_data=1, n_space=2, devices=["cpu", "cpu"])
+    for kw in ({"mesh": space}, {"spatial_shard": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6b"):
             make_train_step(model, loss, opt, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*multi-device"):
-        make_eval_step(model, NUM_CLASSES, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*multi-device"):
-        make_split_aug_train_step(model, loss, opt, lambda *a: a, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6b"):
+        make_eval_step(model, NUM_CLASSES, mesh=space, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6b"):
+        make_split_aug_train_step(model, loss, opt, lambda *a: a, mesh=space, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        make_train_step(model, loss, opt, mesh=object(), device="cpu")
     # device_aug and donate_batch are ported: a device-aug step needs its generator
     state = create_train_state(model, opt, device="cpu")
     batch = (np.zeros((1, 8, 8, 3), np.uint8), np.zeros((1, 8, 8), np.int32))
