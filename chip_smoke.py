@@ -256,8 +256,8 @@ After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
-run only these kernels' studies, one only phase 12 and one only phase 13,
-with no device line:
+run only these kernels' studies, one only phase 12, one only phase 13 and
+one only what needs several cards, with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
@@ -268,6 +268,9 @@ with no device line:
     python3 chip_smoke.py --jpeg           # the build, then phase 12
     python3 chip_smoke.py --multidevice    # the build, phase 6's yardstick,
                                            # then phase 13
+    python3 chip_smoke.py --multicard      # the build, then every card's
+                                           # kernels, a replica a card, NCCL
+                                           # ranks a card (on four cards)
 
 Without a CUDA device it prints an error and exits 1.
 """
@@ -5694,7 +5697,6 @@ def dp_rank(work: str, nccl: bool) -> None:
 
     resolve_device(None)  # TF32 off
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
     assert initialize_multihost(device=dev, backend="nccl" if nccl else "gloo")
     rank = dist.get_rank()
     out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
@@ -5862,11 +5864,12 @@ def _fresh_dir(path):
     os.makedirs(path)
 
 
-def dp_serve_leg():
+def dp_serve_leg(devices=None):
     """13 (d): config A (B3, B1) at 1024x2048 in bf16, batch 4 under a
-    local mesh of [cuda:0, cuda:0] (two replicas of the folded weights):
-    masks against the meshless engine, through predict and predict_fn, and
-    ms a frame. Returns the launches (wrappers, and captured x replays)."""
+    local mesh of ``devices`` (None: [cuda:0, cuda:0], two replicas of the
+    folded weights on one card): masks against the meshless engine, through
+    predict and predict_fn, and ms a frame. Returns the launches (wrappers,
+    and captured x replays)."""
     import torch
 
     from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
@@ -5883,22 +5886,23 @@ def dp_serve_leg():
     cfg = E2EConfig(mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="bfloat16",
                     final_upsample="pallas")
     single = InferenceEngine(model, device=dev, config=cfg)
-    mesh = make_mesh(devices=[dev, dev])
-    sharded = InferenceEngine(model, config=cfg, mesh=mesh)
-    half = DP_SERVE_BATCH // 2
-    by_shard = torch.cat([single.predict(frames[:half]), single.predict(frames[half:])])
+    devices = [dev, dev] if devices is None else list(devices)
+    n, per = len(devices), DP_SERVE_BATCH // len(devices)
+    sharded = InferenceEngine(model, config=cfg, mesh=make_mesh(devices=devices))
+    where = ", ".join(sorted({str(d) for d in devices}))
+    by_shard = torch.cat([single.predict(frames[k * per:(k + 1) * per]) for k in range(n)])
     whole = single.predict(frames)
     reset_launch_counts()
     got = sharded.predict(frames)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = {"ds_conv3x3_pw": 2 * DP_SERVE_BATCH // half, "upsample_argmax": DP_SERVE_BATCH // half}
+    want = {"ds_conv3x3_pw": 2 * n, "upsample_argmax": n}  # a shard: B3 twice, B1 once
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"13 (d) launches {counts}, expected {want}")
     fn = sharded.predict_fn(tuple(frames.shape))
     graphed = fn(frames)
     agree = (got == whole).float().mean().item()
-    _print(f"13 (d) config A, {DP_SERVE_BATCH}x{HEIGHT}x{WIDTH} bf16 over 2 replicas on cuda:0: "
+    _print(f"13 (d) config A, {DP_SERVE_BATCH}x{HEIGHT}x{WIDTH} bf16 over {n} replicas on {where}: "
            f"predict equal to the meshless engine on each shard "
            f"{bool(torch.equal(got, by_shard))}, predict_fn {bool(torch.equal(graphed, got))}; "
            f"to the meshless engine's batch of {DP_SERVE_BATCH} on {agree:.6f} of pixels; "
@@ -5910,13 +5914,129 @@ def dp_serve_leg():
         raise AssertionError(f"13 (d) masks agree with the meshless batch on {agree} only")
     one_fn = single.predict_fn(tuple(frames.shape))
     ms = {label: time_ms(lambda f=f: f(frames), iters=10, warmup=2, repeats=3)
-          for label, f in (("2 replicas", fn), ("meshless", one_fn))}
-    _print(f"  predict_fn ms a frame (batch {DP_SERVE_BATCH}, one card): "
+          for label, f in ((f"{n} replicas", fn), ("meshless", one_fn))}
+    _print(f"  predict_fn ms a frame (batch {DP_SERVE_BATCH}, on {where}): "
            f"{', '.join(f'{k} {v / DP_SERVE_BATCH:.3f}' for k, v in ms.items())}")
     launches = dict(counts)
     for k, v in fn.launches.items():
         launches[k] = launches.get(k, 0) + v * fn.replays
     return {k: v for k, v in launches.items() if v}
+
+
+# one rank of MC (d): train.main of its arguments (which leaves the group it
+# joined), then what the rank ended with
+MC_TRAIN_RANK = """\
+import json, sys
+from fastscnn_tpu_torch import train
+from fastscnn_tpu_torch.utils.tree import tree_leaves
+t = train.main(sys.argv[1:])
+params = sum(float(p.detach().double().sum()) for p in tree_leaves(t.state.params))
+print(json.dumps({"device": str(t.device), "graph": t.graph, "mesh": dict(t.mesh.shape),
+                  "step": int(t.state.step), "params": params.hex()}))
+"""
+MC_TRAIN_DEADLINE_S = 240
+
+
+def trainer_over_cards(root, cards):
+    """MC (d): ``train.main`` as a user launches it on a machine of
+    ``cards`` cards: a process a card with ``COORDINATOR_ADDRESS``,
+    ``NUM_PROCESSES`` and ``PROCESS_ID`` set (``run_local_group``), no
+    ``--device``, so each rank takes the card ``rank % cards`` and joins
+    over NCCL, and the steps are CUDA graphs with their all-reduces (a
+    graph under gloo raises); a global batch of 8 crops of 192x192 from a
+    synthetic Cityscapes tree, one epoch, the group left at the end. Every
+    rank on its own card, the parameters equal across the ranks bit for
+    bit, the checkpoint written by the primary, every rank exited."""
+    from fastscnn_tpu_torch.parallel.multihost import run_local_group
+
+    work = os.path.join(root, "build", "chip_smoke_multicard")
+    _fresh_dir(work)
+    tree = os.path.join(work, "citys")
+    synthetic_cityscapes(tree, {"train": ((16, 256, 512),), "val": ((4, 256, 512),)})
+    argv = ["--dataset", "citys", "--data-root", tree, "--base-size", "256", "--crop-size",
+            "192", "--batch-size", "8", "--epochs", "1", "--aux", "--loss-type", "ce",
+            "--num-workers", "1", "--no-val", "--print-interval", "1", "--save-folder",
+            os.path.join(work, "weights")]
+    t = time.perf_counter()
+    outs = run_local_group(lambda k: ["-c", MC_TRAIN_RANK, *argv], cards, MC_TRAIN_DEADLINE_S,
+                           cwd=work)
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    devices = sorted(r["device"] for r in ranks)
+    if (devices != [f"cuda:{k}" for k in range(cards)]
+            or not all(r["graph"] for r in ranks)
+            or any(r["mesh"] != {"data": cards, "space": 1} for r in ranks)
+            or len({(r["step"], r["params"]) for r in ranks}) != 1 or ranks[0]["step"] < 1
+            or not os.path.exists(os.path.join(work, "weights", "train_state_citys.pt"))):
+        raise AssertionError(f"MC (d) the trainer over {cards} cards: {ranks}")
+    _print(f"MC (d) train.main in {cards} processes, a card each over NCCL, graphed: "
+           f"{ranks[0]['step']} steps, the parameters equal across the ranks bit for bit, "
+           f"the primary's checkpoint written ({time.perf_counter() - t:.1f} s with the "
+           "spawn)")
+    _fresh_dir(work)
+
+
+def multicard_phase(root):
+    """``--multicard``, on a machine of several cards (four, say): what
+    phase 13 cannot show on one card. (a) Each card's kernels:
+    the B2, B1, B7 and B8 sweeps on every card in turn (the shared-memory
+    opt-ins are kept per device), then B1 and B8 on the tensors of every
+    other card with card 0 current (the wrappers' device guard), each
+    launched once a card and equal to its plain version bit for bit. (b)
+    Config A over a replica a card (:func:`dp_serve_leg`). (c)
+    ``entry.dryrun_multichip(cards)`` over NCCL, one rank a card, each
+    bound to its card by ``initialize_multihost``, and its 2-process
+    ``multihost_smoke`` stage on two cards. (d) The trainer CLI a card a
+    rank (:func:`trainer_over_cards`)."""
+    import torch
+
+    from fastscnn_tpu_torch.entry import dryrun_multichip
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise RuntimeError(f"--multicard needs two cards or more, {cards} visible")
+    t_phase = time.perf_counter()
+    for k in range(cards):
+        with torch.cuda.device(k):
+            mask_sweep()
+            pw_sweep()
+        _print(f"MC (a) card {k}: the B2, B1, B7 and B8 sweeps passed")
+    g = torch.Generator().manual_seed(SEED + 17)
+    for k in range(1, cards):
+        card = torch.device("cuda", k)
+        logits = torch.randn((1, HEIGHT // 8, WIDTH // 8, NUM_CLASSES), generator=g)
+        logits = logits.to(card, torch.bfloat16)
+        x_q = torch.randint(-127, 128, (8192, 64), generator=g, dtype=torch.int8).to(card)
+        w_q = torch.randint(-127, 128, (64, 128), generator=g, dtype=torch.int8).to(card)
+        cs = (torch.rand(128, generator=g) * 1e-3).to(card)
+        b = torch.randn(128, generator=g).to(card)
+        if torch.cuda.current_device() != 0:
+            raise AssertionError(f"MC (a) card {torch.cuda.current_device()} is current")
+        K.reset_launch_counts()
+        got = {"upsample_argmax": K.upsample_argmax(logits, (HEIGHT, WIDTH), True),
+               "pw_conv_w8a8": K.pw_conv_w8a8(x_q, w_q, cs, b)}
+        torch.cuda.synchronize(card)
+        counts = K.launch_counts()
+        ref = {"upsample_argmax": K.upsample_argmax_reference(logits, (HEIGHT, WIDTH), True),
+               "pw_conv_w8a8": K.pw_conv_w8a8_reference(x_q, w_q, cs, b)}
+        for name, out in got.items():
+            if out.device != card or counts[name] != 1 or not torch.equal(out, ref[name]):
+                raise AssertionError(f"MC (a) {name} on {card} with card 0 current: on "
+                                     f"{out.device}, {counts[name]} launches, equal to its "
+                                     f"plain version {torch.equal(out.cpu(), ref[name].cpu())}")
+    _print(f"MC (a) B1 and B8 on the tensors of cards 1-{cards - 1} with card 0 current: each "
+           "launched once a card, equal to its plain version bit for bit")
+    t_b = time.perf_counter()
+    dp_serve_leg([torch.device("cuda", k) for k in range(cards)])
+    t_c = time.perf_counter()
+    result = dryrun_multichip(cards, device="cuda")
+    if result["backend"] != "nccl":
+        raise AssertionError(f"MC (c) ran over {result['backend']}, not NCCL")
+    _print(f"MC (c) dryrun_multichip({cards}) over NCCL, a rank a card: "
+           f"{time.perf_counter() - t_c:.1f} s")
+    trainer_over_cards(root, cards)
+    _print(f"multicard: {time.perf_counter() - t_phase:.1f} s on {cards} cards (a "
+           f"{t_b - t_phase:.1f} s, b {t_c - t_b:.1f} s)")
 
 
 def multidevice_phase(root, yard):
@@ -6470,6 +6590,10 @@ def main() -> int:
     parser.add_argument("--multidevice", action="store_true",
                         help="only phase 13 (data parallelism over torch.distributed), after "
                              "the build and phase 6's f32 yardstick, with no device line")
+    parser.add_argument("--multicard", action="store_true",
+                        help="only what needs several cards (four, say): every card's "
+                             "kernels, a replica a card, NCCL ranks a card each; after the "
+                             "build, with no device line")
     parser.add_argument("--dp-rank", metavar="WORK", help=argparse.SUPPRESS)
     parser.add_argument("--nccl", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
@@ -6540,6 +6664,9 @@ def main() -> int:
         del images, targets, trainer
         torch.cuda.empty_cache()
         multidevice_phase(root, yard)
+        return 0
+    if args.multicard:
+        multicard_phase(root)
         return 0
 
     t0 = time.perf_counter()

@@ -105,7 +105,7 @@ def _mesh_devices(mesh, device) -> list | None:
     if mesh is None:
         return None
     # imported here: parallel/ imports this module
-    from fastscnn_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
+    from fastscnn_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, replicate_sharding
 
     if mesh.shape.get("space", 1) > 1:
         raise NotImplementedError(f"serving under a mesh whose 'space' axis is above 1 is not "
@@ -113,7 +113,7 @@ def _mesh_devices(mesh, device) -> list | None:
     if mesh.group is not None or mesh.ranks is not None:
         raise ValueError("InferenceEngine serves under a local mesh (one process, a replica a "
                          "device), not a process-group mesh")
-    devices = [torch.device(d) for d in mesh.data_devices]
+    devices = [torch.device(d) for d in replicate_sharding(mesh)]
     if device is not None and torch.device(device) != devices[0]:
         raise ValueError(f"device {device} is not the mesh's first device {devices[0]}")
     return devices
@@ -277,19 +277,12 @@ class InferenceEngine:
             images = torch.from_numpy(images)
         return images.to(self.device)
 
-    def _shard_rows(self, batch: int) -> int:
-        """The rows of each replica's shard of a batch of ``batch``."""
-        n = len(self.replicas)
-        if batch % n:
-            raise ValueError(f"batch {batch} must divide the data axis ({n}) for serving "
-                             "under a mesh")
-        return batch // n
-
     def _shards(self, images) -> list:
         """``images`` (numpy or tensor, on any device) split over the mesh's
         ``data`` axis in order, one shard a replica."""
-        per = self._shard_rows(images.shape[0])
-        return [images[k * per:(k + 1) * per] for k in range(len(self.replicas))]
+        from fastscnn_tpu_torch.parallel.mesh import batch_sharding
+
+        return [images[rows] for rows in batch_sharding(self.mesh, images.shape[0])]
 
     def _on_replicas(self, images, call: Callable) -> list:
         """``call(replica, shard)`` for each replica on its shard, each under
@@ -448,7 +441,10 @@ class InferenceEngine:
             if key in self._fns:
                 return self._fns[key]
         shape = tuple(int(d) for d in shape)
-        part = (self._shard_rows(shape[0]), *shape[1:])
+        from fastscnn_tpu_torch.parallel.mesh import batch_sharding
+
+        rows = batch_sharding(self.mesh, shape[0])[0]
+        part = (rows.stop - rows.start, *shape[1:])
         fns = []
         for r in self.replicas:
             with _device_guard(r.device):

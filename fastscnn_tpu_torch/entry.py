@@ -55,8 +55,7 @@ def entry(device=None):
 DRYRUN_DEADLINE_S = 600.0  # each spawned group of dryrun_multichip, killed past it
 
 
-def dryrun_multichip(n_devices: int, device=None, backend: str | None = None,
-                     deadline_s: float = DRYRUN_DEADLINE_S) -> dict:
+def dryrun_multichip(n_devices: int, device=None) -> dict:
     """The JAX ``dryrun_multichip``'s data-axis legs, in ``n_devices``
     processes on ``device`` (None: the CUDA card(s), raising without one;
     ranks share a card over gloo when there are fewer cards than ranks):
@@ -80,20 +79,19 @@ def dryrun_multichip(n_devices: int, device=None, backend: str | None = None,
 
     Then, unless ``FASTSCNN_DRYRUN_MULTIPROC=0``, the 2-process stage:
     ``tools/multihost_smoke.py`` in 2 processes, their loss histories
-    bit-equal. Every spawned group has ``deadline_s`` and is killed on any
-    exit. Raises on any failure; returns the ranks' results."""
+    bit-equal. Every spawned group has :data:`DRYRUN_DEADLINE_S` and is
+    killed on any exit. Raises on any failure; returns the ranks' results."""
     from fastscnn_tpu_torch import resolve_device
     from fastscnn_tpu_torch.parallel.multihost import backend_for, run_local_group
 
     device = resolve_device(device)
-    if backend is None:
-        cards = torch.cuda.device_count() if device.type == "cuda" else 0
-        backend = "gloo" if device.type != "cuda" or cards < n_devices else backend_for(device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = "gloo" if cards < n_devices else backend_for(device)
     with tempfile.TemporaryDirectory() as work:
         run_local_group(
             lambda k: ["-m", "fastscnn_tpu_torch.entry", "--dryrun-rank", "--device",
                        str(device), "--backend", backend, "--workdir", work],
-            n_devices, deadline_s)
+            n_devices, DRYRUN_DEADLINE_S)
         ranks = []
         for k in range(n_devices):
             with open(os.path.join(work, f"rank{k}.json")) as f:
@@ -108,7 +106,7 @@ def dryrun_multichip(n_devices: int, device=None, backend: str | None = None,
           f"across the ranks (train {first['train_loss']}, device-aug {first['aug_loss']})")
     stage = "2-process stage disabled via FASTSCNN_DRYRUN_MULTIPROC=0"
     if os.environ.get("FASTSCNN_DRYRUN_MULTIPROC", "1") != "0":
-        _two_process_stage(device, backend, deadline_s)
+        _two_process_stage(device, backend, DRYRUN_DEADLINE_S)
         stage = "real 2-process run"
     print(f"dryrun_multichip(n={n_devices}): surfaces exercised = [dp train step (sync-BN, "
           "OHEM-CE, grad-accum=2), eval statistics (== one process), sharded serve (== one "

@@ -148,14 +148,18 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, symbol: str, device, *args) -> int:
     """Call ``symbol`` of the library for ``csrc/<name>.cu`` with ``args``
-    and ``device``'s current stream, under ``device``'s guard: a
-    ``<<<>>>`` launch and a ``cudaFuncSetAttribute`` act on the host
-    thread's current device, which must be the tensors' (a replica on a
-    second card). Returns the entry's code (see :func:`check`)."""
+    and ``device``'s current stream. A ``<<<>>>`` launch and a
+    ``cudaFuncSetAttribute`` act on the host thread's current device, which
+    must be the tensors': where ``device`` is another card (a replica on a
+    second card), the call runs under its guard. Returns the entry's code
+    (see :func:`check`)."""
     import torch
 
+    entry, stream = getattr(library(name), symbol), torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        return entry(*args, stream)
     with torch.cuda.device(device):
-        return getattr(library(name), symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+        return entry(*args, stream)
 
 
 def check(rc: int, what: str) -> None:

@@ -68,12 +68,6 @@ class Mesh:
         or the first device (a local mesh)."""
         return self.devices[self.index or 0]
 
-    @property
-    def data_devices(self) -> tuple:
-        """One device for each place on ``data`` (the first of its row)."""
-        m = self.shape["space"]
-        return tuple(self.devices[i * m] for i in range(self.shape["data"]))
-
 
 def _world():
     import torch.distributed as dist
@@ -141,8 +135,10 @@ def make_mesh(n_data: int | None = None, n_space: int = 1, devices=None) -> Mesh
 def make_mesh_for_batch(batch_size: int, devices=None) -> Mesh:
     """A data-parallel mesh over the most devices (or ranks) that divide the
     global batch (a 2-image batch on 8 devices uses 2)."""
+    from fastscnn_tpu_torch.parallel.multihost import global_device_count
+
     world = _world() if devices is None else None
-    n = world[0] if world is not None else len(_local_devices() if devices is None else devices)
+    n = global_device_count() if devices is None else len(devices)
     while n > 1 and batch_size % n:
         n -= 1
     if world is not None:
@@ -154,17 +150,21 @@ def make_mesh_for_batch(batch_size: int, devices=None) -> Mesh:
     return make_mesh(n_data=n, devices=devs[:n])
 
 
-def batch_sharding(mesh: Mesh, spatial_axis: int | None = None):
-    """How a batch splits over ``mesh``: ``('data', None, None, None)``, or H
-    on ``spatial_axis`` over ``'space'`` when that axis is above 1 (the JAX
-    ``PartitionSpec``, as a tuple)."""
-    spec = ["data", None, None, None]
-    if spatial_axis is not None and mesh.shape["space"] > 1:
-        spec[spatial_axis] = "space"
-    return tuple(spec)
+def batch_sharding(mesh: Mesh, batch: int) -> list:
+    """The rows of a batch of ``batch`` that each place on ``mesh``'s
+    ``data`` axis holds, in order: even contiguous slices (the JAX
+    ``P('data')`` on the batch axis). Raises ``ValueError`` when ``batch``
+    does not divide the axis."""
+    n = mesh.shape["data"]
+    if batch % n:
+        raise ValueError(f"batch {batch} must divide the data axis ({n})")
+    per = batch // n
+    return [slice(k * per, (k + 1) * per) for k in range(n)]
 
 
-def replicate_sharding(mesh: Mesh):
-    """Every device holds the whole value (the JAX ``P()``)."""
-    del mesh
-    return ()
+def replicate_sharding(mesh: Mesh) -> tuple:
+    """The devices that each hold a whole copy of a value replicated over
+    ``mesh``'s ``data`` axis (the JAX ``P()``; the engine's folded
+    weights): one a place on ``data``, the first of its row."""
+    m = mesh.shape["space"]
+    return tuple(mesh.devices[i * m] for i in range(mesh.shape["data"]))

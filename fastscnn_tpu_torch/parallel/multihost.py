@@ -95,13 +95,19 @@ def initialize_multihost(coordinator_address: str | None = None,
     counterpart: nothing on a GPU machine names the other hosts, so that
     variable alone returns False here too.
 
-    ``backend``: None takes ``FASTSCNN_DIST_BACKEND`` when it is set, else
-    NCCL for a CUDA ``device`` (None: the CUDA card when there is one) and
-    gloo on the CPU. ``backend='gloo'`` with a CUDA
+    ``backend``: None means NCCL for a CUDA ``device`` (None: the CUDA card
+    when there is one) and gloo on the CPU. ``backend='gloo'`` with a CUDA
     device exists for a machine with one card, where two NCCL ranks cannot
     share the card: gloo runs the collectives of several ranks on one card
-    (through the host), so the multi-process paths run there too. A failed
-    join raises; ``timeout_s`` bounds it and every later collective."""
+    (through the host), so the multi-process paths run there too.
+
+    Where a card is visible, a CUDA ``device`` (``'cuda'`` alone: the card
+    ``process_id % cards``) becomes this process's current device before
+    the join, and an NCCL group is bound to it (``device_id``): NCCL puts a
+    collective's own tensors (``all_gather_object``'s, a barrier's) on the
+    current device, which would otherwise be card 0 in every rank (and NCCL
+    refuses two ranks on one card). A failed join raises;
+    ``timeout_s`` bounds it and every later collective."""
     import torch
     import torch.distributed as dist
 
@@ -115,15 +121,21 @@ def initialize_multihost(coordinator_address: str | None = None,
                          "processes and this process's id (COORDINATOR_ADDRESS, NUM_PROCESSES, "
                          f"PROCESS_ID); got {coordinator_address!r}, {num_processes!r}, "
                          f"{process_id!r}")
-    backend = backend or os.environ.get("FASTSCNN_DIST_BACKEND")
-    if backend is None:
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        backend = backend_for(device)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    backend = backend or backend_for(device)
+    bind = {}
+    if device.type == "cuda" and torch.cuda.is_available():
+        if device.index is None:
+            device = torch.device("cuda", int(process_id) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        if backend == "nccl":
+            bind["device_id"] = device
     dist.init_process_group(
         backend=backend, init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes), rank=int(process_id),
-        timeout=datetime.timedelta(seconds=timeout_s),
+        timeout=datetime.timedelta(seconds=timeout_s), **bind,
     )
     return True
 

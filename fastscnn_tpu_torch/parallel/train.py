@@ -543,6 +543,14 @@ class _Graphed:
         self._pool = self._stream = None
         self._shapes: dict = {}
 
+    def release(self) -> None:
+        """Drop every capture (a later call captures again). NCCL destroys
+        no communicator while a graph that captured its collectives lives,
+        so a run under a mesh releases its graphs before it leaves the
+        process group."""
+        self._shapes.clear()
+        self._pool = self._stream = None
+
     @property
     def graphs(self) -> list:
         return [g for shape in self._shapes.values() for g in shape.graphs]

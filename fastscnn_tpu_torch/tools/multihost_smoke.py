@@ -50,6 +50,7 @@ def run(num_processes: int, process_id: int, coordinator: str | None, steps: int
     from fastscnn_tpu_torch.parallel import create_train_state, make_mesh, make_optimizer
     from fastscnn_tpu_torch.parallel import make_train_step
     from fastscnn_tpu_torch.parallel.multihost import (
+        global_device_count,
         host_shard,
         initialize_multihost,
         local_device,
@@ -69,7 +70,7 @@ def run(num_processes: int, process_id: int, coordinator: str | None, steps: int
     mesh = make_mesh() if joined else None
     mesh_shape = dict(mesh.shape) if mesh is not None else {"data": 1, "space": 1}
     print(f"[proc {process_id}] joined: process_count={process_count()} "
-          f"global_devices={process_count()} mesh={mesh_shape} device={device}", flush=True)
+          f"global_devices={global_device_count()} mesh={mesh_shape} device={device}", flush=True)
 
     model = init_fast_scnn(2, aux=True, generator=torch.Generator().manual_seed(0),
                            device=device, dropout_rate=0.0)
@@ -94,7 +95,7 @@ def run(num_processes: int, process_id: int, coordinator: str | None, steps: int
     result = {
         "process_id": process_id,
         "process_count": process_count(),
-        "device_count": process_count(),
+        "device_count": global_device_count(),
         "mesh_shape": mesh_shape,
         "losses": losses,
         "param_fingerprint": fingerprint,

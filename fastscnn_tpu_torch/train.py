@@ -37,11 +37,10 @@ Several processes (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and
 data-parallel: each joins the group, the mesh is ``make_mesh_for_batch``
 over the ranks, every rank decodes only its rows of each global batch of
 ``--batch-size`` and the steps reduce over the mesh (``parallel/train.py``).
-Each rank runs on ``--device``, or on the card ``rank % cards``;
-``FASTSCNN_DIST_BACKEND=gloo`` lets several ranks share one card (NCCL
-cannot), and then the steps run eagerly (gloo cannot run in a CUDA
-graph). The
+Each rank runs on ``--device``, or on the card ``rank % cards``, over
+NCCL (one rank a card). The
 primary rank alone writes checkpoints, logs and curves; every rank loads.
+At the end :func:`main` releases the graphs and leaves the group it joined.
 A rank the mesh leaves out (a batch that fewer ranks divide) trains
 nothing.
 
@@ -234,9 +233,8 @@ class Trainer:
             warnings.warn("--device-aug-split has no effect without --device-aug: training "
                           "with the host augmentation", stacklevel=2)
         device = args.device
-        if multihost.process_count() == 1:
-            multihost.initialize_multihost(
-                device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.joined = multihost.process_count() == 1 and multihost.initialize_multihost(
+            device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
         self.mesh = self.idle = None
         if multihost.process_count() > 1:
             if device is None and torch.cuda.is_available():
@@ -249,8 +247,7 @@ class Trainer:
                 return
         self.primary = multihost.is_primary_host()
         self.device = resolve_device(device)
-        gloo = self.mesh is not None and multihost.backend_of(self.mesh.group) == "gloo"
-        self.graph = (self.device.type == "cuda" and not gloo) if graph is None else graph
+        self.graph = self.device.type == "cuda" if graph is None else graph
         if args.decoded_cache:
             decoded_cache.set_cache_dir(args.decoded_cache)
         root = args.data_root or _DEFAULT_ROOTS[args.dataset]
@@ -422,6 +419,24 @@ class Trainer:
             print(self.graph_report())
         return self.state
 
+    def close(self) -> None:
+        """Leave the process group that this trainer joined (nothing when
+        the caller had joined one, or in one process), after releasing the
+        graphed steps' captures: NCCL destroys no communicator while a graph
+        that captured its collectives lives."""
+        if not self.joined:
+            return
+        import gc
+
+        import torch.distributed as dist
+
+        for step in (getattr(self, "train_step", None), getattr(self, "eval_step", None)):
+            if hasattr(step, "release"):
+                step.release()
+        gc.collect()
+        dist.destroy_process_group()
+        self.joined = False
+
     def graph_report(self) -> str:
         """The graphed steps' captures and memory pools, one line."""
         return ", ".join(
@@ -466,12 +481,14 @@ def main(argv=None):
     args = parse_args(argv)
     trainer = Trainer(args)
     if trainer.idle:
+        trainer.close()
         return trainer
     if args.eval:
         pix_acc, miou = trainer.validation()
         print(f"val pixAcc {pix_acc * 100:.3f}% mIoU {miou * 100:.3f}%")
-        return trainer
-    trainer.train()
+    else:
+        trainer.train()
+    trainer.close()
     return trainer
 
 

@@ -104,6 +104,117 @@ def test_multihost_pod_variable_alone_does_not_join(recorder, monkeypatch):
         multihost.initialize_multihost("c:1", num_processes=2)
 
 
+def test_multihost_binds_each_rank_to_its_card(recorder, monkeypatch):
+    """With cards visible, rank k's current device after the join is
+    cuda:(k % cards), and an NCCL group is bound to it (``device_id``), so
+    that the collectives' own tensors land on the rank's card; an explicit
+    card is kept, gloo is left unbound and the CPU binds nothing."""
+    current = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    for k in range(5):
+        assert multihost.initialize_multihost("c:1", num_processes=5, process_id=k)
+        card = torch.device("cuda", k % 3)
+        assert current[-1] == card
+        call = recorder.calls[-1]
+        assert (call["backend"], call["device_id"], call["rank"]) == ("nccl", card, k)
+    assert multihost.initialize_multihost("c:1", 2, 1, device="cuda:2", backend="gloo")
+    assert current[-1] == torch.device("cuda", 2) and "device_id" not in recorder.calls[-1]
+    assert multihost.initialize_multihost("c:1", 2, 1, device="cpu")
+    assert len(current) == 6 and "device_id" not in recorder.calls[-1]
+    assert recorder.calls[-1]["backend"] == "gloo"
+
+
+def test_trainer_close_releases_graphs_before_leaving_its_group(monkeypatch):
+    """``Trainer.close`` (the end of ``train.main``) leaves a group the
+    trainer joined only after its graphed steps dropped their captures, and
+    touches neither a group the caller joined nor the graphs then."""
+    import torch.distributed as dist
+
+    from fastscnn_tpu_torch import train
+
+    calls = []
+
+    class Step:
+        def __init__(self, name):
+            self.name = name
+
+        def release(self):
+            calls.append(self.name)
+
+    monkeypatch.setattr(dist, "destroy_process_group", lambda: calls.append("destroy"))
+    trainer = train.Trainer.__new__(train.Trainer)
+    trainer.train_step, trainer.eval_step, trainer.joined = Step("train"), Step("eval"), False
+    trainer.close()
+    assert calls == []
+    trainer.joined = True
+    trainer.close()
+    trainer.close()
+    assert calls == ["train", "eval", "destroy"] and not trainer.joined
+
+
+def test_kernel_launch_runs_on_its_tensors_card(monkeypatch):
+    """``_build.launch`` calls a kernel's entry with its device current and
+    that device's stream: under a guard for another card, with none for the
+    current one (the single-device path)."""
+    from types import SimpleNamespace
+
+    from fastscnn_tpu_torch.ops.cuda import _build
+
+    state = {"current": 0, "guards": 0}
+
+    class Guard:
+        def __init__(self, device):
+            self.index = torch.device(device).index
+
+        def __enter__(self):
+            state["guards"] += 1
+            self.prev, state["current"] = state["current"], self.index
+
+        def __exit__(self, *exc):
+            state["current"] = self.prev
+
+    def stream(device):
+        index = torch.device(device).index
+        return SimpleNamespace(cuda_stream=100 + (state["current"] if index is None else index))
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: state["current"])
+    monkeypatch.setattr(torch.cuda, "current_stream", stream)
+    monkeypatch.setattr(_build, "library", lambda name: SimpleNamespace(
+        entry=lambda *a: seen.append((state["current"], a)) or 0))
+    for device in ("cuda:0", "cuda:1", "cuda", "cuda:2"):
+        assert _build.launch("dw_conv", "entry", torch.device(device), 5) == 0
+    assert seen == [(0, (5, 100)), (1, (5, 101)), (0, (5, 100)), (2, (5, 102))]
+    assert state == {"current": 0, "guards": 2}
+
+
+def test_batch_and_replicate_sharding_match_jax():
+    """The engine's split of a batch over the data axis is the rows JAX's
+    ``batch_sharding`` gives each device; a replica a place on ``data``."""
+    from fastscnn_tpu.parallel import batch_sharding as jax_batch_sharding
+    from fastscnn_tpu.parallel import make_mesh as jax_make_mesh
+    from fastscnn_tpu_torch.parallel import batch_sharding, replicate_sharding
+
+    for n_data, batch in ((1, 3), (2, 4), (4, 8), (8, 16)):
+        jax_mesh = jax_make_mesh(n_data=n_data, devices=jax.devices()[:n_data])
+        want = jax_batch_sharding(jax_mesh).devices_indices_map((batch, 2, 2, 3))
+        want = [want[d][0] for d in jax_mesh.devices[:, 0]]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            mesh = make_mesh(n_data=n_data, devices=["cpu"] * 8)
+        got = batch_sharding(mesh, batch)
+        assert [range(batch)[s] for s in got] == [range(batch)[s] for s in want], n_data
+        assert replicate_sharding(mesh) == (torch.device("cpu"),) * n_data
+    with pytest.raises(ValueError, match="must divide the data axis"):
+        batch_sharding(make_mesh(n_data=2, devices=["cpu"] * 2), 3)
+    assert replicate_sharding(make_mesh(n_space=2, devices=["cuda:0", "cuda:0", "cuda:1",
+                                                            "cuda:1"])) == (
+        torch.device("cuda", 0), torch.device("cuda", 1))
+
+
 def test_host_shard_slices_like_jax(monkeypatch):
     monkeypatch.setattr(jax, "process_count", lambda: 4)
     monkeypatch.setattr(jax, "process_index", lambda: 2)
