@@ -245,19 +245,35 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    pixel to the meshless engine on each shard, and the meshless batch of 4
    on 99.9 % of pixels, ms a frame beside it; (e) ``serving
    --data-parallel 2`` refused with the JAX parser error;
-14. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12 and 13 (13's
-   ranks' own counts too), plus the captured launches × the replays of the
-   graphs of phases 4b, 4c, 6b (the trainer's and the evaluator's), 8, 9,
-   10, 12 and 13, which no wrapper sees) and, last, the device line
-   ``{"ok": true, "device": {...}}``.
+14. spatial sharding, the mesh's ``space`` axis (:func:`spatial_phase`):
+   (a) the recipe at full width (19 classes, aux, mix OHEM CE, SGD) on 2
+   crops of 1024x2048 over 4 gloo ranks sharing cuda:0, under a 1 × 2
+   mesh (ranks 0 and 1) and a 2 × 2 mesh (all four), each rank its block
+   of rows (``spatial_shard=True``), ``stem_impl`` 'xla' and 'pallas' (B6
+   on each block), f32 and bf16, one step from the init and one timed: the
+   losses and the parameters bit-equal across each mesh's ranks, the f32
+   step within 4x phase 6's yardstick of one process's step on the global
+   batch, B6 at 2 launches a step for each part in each rank, ms a step;
+   (b) the engine under a local mesh of [cuda:0, cuda:0] with ``space``
+   2: config ref ('conv' + 'hybrid') in f32 and bf16 and 'taps' +
+   'matmul' in f32, 2 frames of 1024x2048: the f32 masks equal to the
+   meshless engine (on each data place's shard) on 99.999 % of pixels or
+   more, the bf16 agreement, and
+   ``predict_fn`` (eager under ``space``) ms a frame beside the meshless
+   graph's;
+15. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12, 13 and 14
+   (13's and 14's ranks' own counts too), plus the captured launches × the
+   replays of the graphs of phases 4b, 4c, 6b (the trainer's and the
+   evaluator's), 8, 9, 10, 12 and 13, which no wrapper sees) and, last,
+   the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
-run only these kernels' studies, one only phase 12, one only phase 13 and
-one only what needs several cards, with no device line:
+run only these kernels' studies, one only phase 12, one only phase 13, one
+only phase 14 and one only what needs several cards, with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
@@ -268,9 +284,13 @@ one only what needs several cards, with no device line:
     python3 chip_smoke.py --jpeg           # the build, then phase 12
     python3 chip_smoke.py --multidevice    # the build, phase 6's yardstick,
                                            # then phase 13
+    python3 chip_smoke.py --spatial        # the build, phase 6's yardstick,
+                                           # then phase 14
     python3 chip_smoke.py --multicard      # the build, then every card's
                                            # kernels, a replica a card, NCCL
-                                           # ranks a card (on four cards)
+                                           # ranks a card, the spatial step
+                                           # and engine across the cards (on
+                                           # four cards)
 
 Without a CUDA device it prints an error and exits 1.
 """
@@ -1706,24 +1726,25 @@ def graph_phase(engine):
     return launches
 
 
-def training_batch(dev):
-    """A fixed batch the network can fit: each 32x32 block of a crop takes
-    one of the 19 classes at random (seeded), its pixels that class's
-    colour plus noise, so the label is a function of the image; 15 % of
-    the label pixels are set to -1 (ignored)."""
+def training_batch(dev, n=TRAIN_BATCH, height=TRAIN_SIZE, width=TRAIN_SIZE):
+    """A fixed batch the network can fit (by default the recipe's 16
+    768x768 crops): each 32x32 block of a crop takes one of the 19 classes
+    at random (seeded), its pixels that class's colour plus noise, so the
+    label is a function of the image; 15 % of the label pixels are set to
+    -1 (ignored)."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    n, size, block = TRAIN_BATCH, TRAIN_SIZE, 32
-    cls = torch.randint(0, NUM_CLASSES, (n, 1, size // block, size // block), generator=g,
+    block = 32
+    cls = torch.randint(0, NUM_CLASSES, (n, 1, height // block, width // block), generator=g,
                         device=dev)
     cls = F.interpolate(cls.float(), scale_factor=block, mode="nearest").long()[:, 0]
     palette = torch.randint(0, 256, (NUM_CLASSES, 3), generator=g, device=dev).float()
-    noise = torch.randint(-24, 25, (n, size, size, 3), generator=g, device=dev).float()
+    noise = torch.randint(-24, 25, (n, height, width, 3), generator=g, device=dev).float()
     images = (palette[cls] + noise).clamp(0, 255).to(torch.uint8)
     targets = cls.to(torch.int32)
-    targets[torch.rand((n, size, size), generator=g, device=dev) < 0.15] = -1
+    targets[torch.rand((n, height, width), generator=g, device=dev) < 0.15] = -1
     return images, targets
 
 
@@ -1761,11 +1782,12 @@ def profile_steps(run_step, step_ms, steps=3, top=15, what="bf16 train step",
     return busy
 
 
-def recipe_trainer(dev, mesh=None, graph=False):
+def recipe_trainer(dev, mesh=None, graph=False, spatial=False):
     """``trainer(stem_impl, dtype) -> (state, step)``: the recipe's model
     (19 classes, aux head) from SEED's weights, SGD with momentum and the
     poly LR, and its train step on ``dev`` (eager, or ``graph``; under
-    ``mesh`` the data-parallel step of phase 13)."""
+    ``mesh`` the data-parallel step of phase 13, with ``spatial`` the
+    spatial step of phase 14)."""
     import torch
 
     from fastscnn_tpu_torch.losses import get_loss_fn
@@ -1784,7 +1806,7 @@ def recipe_trainer(dev, mesh=None, graph=False):
                              momentum=0.9, weight_decay=1e-4)
         state = create_train_state(model, opt, device=dev)
         return state, make_train_step(model, loss_fn, opt, compute_dtype=dtype, device=dev,
-                                      mesh=mesh, graph=graph)
+                                      mesh=mesh, graph=graph, spatial_shard=spatial)
 
     return trainer
 
@@ -5986,7 +6008,8 @@ def multicard_phase(root):
     ``entry.dryrun_multichip(cards)`` over NCCL, one rank a card, each
     bound to its card by ``initialize_multihost``, and its 2-process
     ``multihost_smoke`` stage on two cards. (d) The trainer CLI a card a
-    rank (:func:`trainer_over_cards`)."""
+    rank (:func:`trainer_over_cards`). (e) The spatial step and engine
+    across the cards (:func:`spatial_multicard_leg`)."""
     import torch
 
     from fastscnn_tpu_torch.entry import dryrun_multichip
@@ -6035,8 +6058,10 @@ def multicard_phase(root):
     _print(f"MC (c) dryrun_multichip({cards}) over NCCL, a rank a card: "
            f"{time.perf_counter() - t_c:.1f} s")
     trainer_over_cards(root, cards)
+    t_e = time.perf_counter()
+    _print(f"MC (e) B6 launches over the ranks: {spatial_multicard_leg(root, cards)}")
     _print(f"multicard: {time.perf_counter() - t_phase:.1f} s on {cards} cards (a "
-           f"{t_b - t_phase:.1f} s, b {t_c - t_b:.1f} s)")
+           f"{t_b - t_phase:.1f} s, b {t_c - t_b:.1f} s, e {time.perf_counter() - t_e:.1f} s)")
 
 
 def multidevice_phase(root, yard):
@@ -6078,6 +6103,284 @@ def multidevice_phase(root, yard):
     _print(f"phase 13 launches: {launches}")
     _print(f"phase 13: {time.perf_counter() - t_phase:.1f} s (13a {t_a:.1f} s, 13b-c "
            f"{t_bc:.1f} s)")
+    return launches
+
+
+# phase 14: the global batch of 1024x2048 crops (a place on data each under
+# 2 x 2), the meshes (data, space) of its gloo group, the step forms
+SP_BATCH = 2
+SP_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+SP_RANKS = 4
+SP_FORMS = (("xla", "float32"), ("pallas", "float32"), ("xla", "bfloat16"),
+            ("pallas", "bfloat16"))
+SP_TIMED = 1  # steps timed after the gated first step of each form
+SP_STEPS = 3  # MC (e)'s steps a form
+SP_DEADLINE_S = 300.0  # each spawned group of phase 14, killed past it
+SP_ENGINE_GATE = 0.99999  # f32 masks under space 2 vs the meshless engine
+# label, compute dtype, folded_dw_impl, final_upsample of 14 (b)
+SP_ENGINE_CONFIGS = (("ref", "float32", "conv", "hybrid"), ("ref", "bfloat16", "conv", "hybrid"),
+                     ("taps", "float32", "taps", "matmul"))
+
+
+def _state_digest(state) -> str:
+    """sha256 of a train state's masters and BN statistics, bit for bit."""
+    import hashlib
+
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(state.params) + tree_leaves(state.model_state):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def spatial_rank(work: str, nccl: bool) -> None:
+    """One rank of 14 (a) (gloo, every rank on cuda:0) or of MC (e) (NCCL, a
+    card a rank, the 2 x 2 step eager and graphed): writes ``rank<k>.json``
+    under ``work``, and 14 (a)'s f32 updates in ``rank0.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from fastscnn_tpu_torch import resolve_device
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.parallel import make_mesh
+    from fastscnn_tpu_torch.parallel.mesh import host_block
+    from fastscnn_tpu_torch.parallel.multihost import initialize_multihost, local_device
+
+    resolve_device(None)  # TF32 off
+    assert initialize_multihost(device=None if nccl else torch.device("cuda", 0),
+                                backend="nccl" if nccl else "gloo")
+    dev = local_device() if nccl else torch.device("cuda", 0)
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    images, targets = training_batch(dev, SP_BATCH, HEIGHT, WIDTH)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the 1 x 2 mesh uses 2 of the 4 ranks
+        meshes = {k: make_mesh(n_data=d, n_space=m) for k, (d, m) in SP_MESHES.items()}
+    if nccl:
+        block = host_block(meshes["2x2"], images, targets)
+        runs = {}
+        with deterministic_algorithms():
+            for label, graph in (("eager", False), ("graphed", True)):
+                state, step = recipe_trainer(dev, meshes["2x2"], graph, spatial=True)(
+                    "pallas", torch.float32)
+                reset_launch_counts()
+                losses, ms = _timed_steps(step, state, *block, None, SP_STEPS)
+                torch.cuda.synchronize()
+                runs[label] = {"losses": [v.hex() for v in losses], "ms": ms,
+                               "digest": _state_digest(state), "launches": launch_counts(),
+                               "captured": getattr(step, "launches", {}),
+                               "replays": getattr(step, "replays", 0)}
+                if graph:
+                    step.release()  # before the group is left
+                del state, step
+                torch.cuda.empty_cache()
+        out["runs"] = runs
+    else:
+        saved = {}
+        for name, mesh in meshes.items():
+            if not mesh.is_member:
+                continue
+            block = host_block(mesh, images, targets)
+            trainer = recipe_trainer(dev, mesh, spatial=True)
+            for stem, dtype in SP_FORMS:
+                key = f"{name} {stem} {dtype}"
+                state, step = trainer(stem, getattr(torch, dtype))
+                p0, s0 = _leaves_of(state)
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_launch_counts()
+                first = float(step(state, *block)[1]["loss"])
+                if rank == 0 and dtype == "float32":
+                    saved[key] = [t.cpu() for t in _step_updates(state, p0, s0)]
+                digest = _state_digest(state)
+                losses, ms = _timed_steps(step, state, *block, None, SP_TIMED)
+                torch.cuda.synchronize()
+                out[key] = {"loss": first.hex(), "digest": digest,
+                            "losses": [v.hex() for v in losses], "ms": ms,
+                            "launches": launch_counts(),
+                            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+                del state, step
+                torch.cuda.empty_cache()
+        if rank == 0:
+            torch.save(saved, os.path.join(work, "rank0.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _sp_group(root, work, n, nccl=False):
+    """``n`` processes of :func:`spatial_rank`; their JSON results."""
+    from fastscnn_tpu_torch.parallel.multihost import run_local_group
+
+    args = [os.path.join(root, "chip_smoke.py"), "--sp-rank", work] + (["--nccl"] if nccl else [])
+    run_local_group(lambda k: args, n, SP_DEADLINE_S, cwd=root)
+    results = []
+    for k in range(n):
+        with open(os.path.join(work, f"rank{k}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def spatial_train_leg(root, work, yard):
+    """14 (a) (the module docstring). Returns the ranks' B6 launches."""
+    import torch
+
+    dev = torch.device("cuda")
+    images, targets = training_batch(dev, SP_BATCH, HEIGHT, WIDTH)
+    trainer = recipe_trainer(dev)
+    single = {stem: one_step(trainer, stem, torch.float32, images, targets)
+              for stem in ("xla", "pallas")}
+    single = {k: tuple(v.cpu() if isinstance(v, torch.Tensor) else v for v in run)
+              for k, run in single.items()}
+    del trainer, images, targets
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _sp_group(root, work, SP_RANKS)
+    t_group = time.perf_counter() - t0
+    saved = torch.load(os.path.join(work, "rank0.pt"))
+    limits = [max(F32_STEP_FACTOR * y, F32_STEP_FLOOR) for y in yard]
+    launches = {}
+    _print(f"14 (a) {SP_RANKS} gloo ranks on cuda:0, {SP_BATCH} crops of {HEIGHT}x{WIDTH}, each "
+           f"rank its block ({t_group:.1f} s with the spawn); f32 limits against one process "
+           f"(loss, param updates L2, BN-stat changes max): "
+           f"{tuple(f'{v:.3g}' for v in limits)} (phase 6's yardstick x {F32_STEP_FACTOR})")
+    for name, (n_data, n_space) in SP_MESHES.items():
+        members = ranks[:n_data * n_space]
+        for stem, dtype in SP_FORMS:
+            key = f"{name} {stem} {dtype}"
+            runs = [r[key] for r in members]
+            if len({(r["loss"], r["digest"], tuple(r["losses"])) for r in runs}) != 1:
+                raise AssertionError(f"14 (a) {key}: losses or parameters differ across the "
+                                     f"ranks: {[(r['loss'], r['digest'][:12]) for r in runs]}")
+            losses = [float.fromhex(v) for v in [runs[0]["loss"], *runs[0]["losses"]]]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"14 (a) {key}: losses {losses}")
+            want = {k: (2 * (1 + SP_TIMED) if stem == "pallas" else 0) for k in TRAINING_NAMES}
+            for r in runs:
+                if any(r["launches"].get(k, 0) != v for k, v in want.items()):
+                    raise AssertionError(f"14 (a) {key} rank: B6 launches {r['launches']}, "
+                                         f"expected {want}")
+                for k in TRAINING_NAMES:
+                    launches[TRAINING_NAMES[k]] = (launches.get(TRAINING_NAMES[k], 0)
+                                                   + r["launches"][k])
+            line = (f"  {name} {stem} {dtype}: losses {[round(v, 5) for v in losses]}, bit-equal "
+                    f"on its {len(runs)} ranks; ms a step (steps 2-{1 + SP_TIMED}) "
+                    f"{[round(v, 1) for v in runs[0]['ms']]}; peak "
+                    f"{max(r['peak_gib'] for r in runs):.2f} GiB a rank")
+            if dtype == "float32":
+                got = step_distance((losses[0], *saved[key]), single[stem])
+                line += f"; vs one process {tuple(f'{v:.3g}' for v in got)}"
+                if any(g > lim for g, lim in zip(got, limits)):
+                    raise AssertionError(f"14 (a) {key} outside phase 6's yard: {got} vs "
+                                         f"{limits}")
+            _print(line)
+    return launches
+
+
+def spatial_serve_leg(devices=None, n_space=2, what="14 (b)"):
+    """14 (b), or MC (e)'s engine across ``devices``: the engine under a
+    local mesh with a ``space`` axis of ``n_space`` (None: [cuda:0,
+    cuda:0]) against the meshless engine at 1024x2048."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda")
+    devices = [dev, dev] if devices is None else list(devices)
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    frames = torch.randint(0, 256, (SP_BATCH, HEIGHT, WIDTH, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    model = FastSCNN(NUM_CLASSES)
+    model.load_state_dict(calibrated_state(frames[:BATCH]))
+    mesh = make_mesh(n_space=n_space, devices=devices)
+    where = ", ".join(str(d) for d in devices)
+    for label, dtype, dw, up in SP_ENGINE_CONFIGS:
+        cfg = E2EConfig(mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype,
+                        final_upsample=up)
+        m = model.with_options(folded_dw_impl=dw)
+        single = InferenceEngine(m, device=dev, config=cfg)
+        sharded = InferenceEngine(m, config=cfg, mesh=mesh)
+        # the meshless engine on each data place's shard: a card's libraries
+        # may pick another algorithm for another batch size (13 (d))
+        per = SP_BATCH // mesh.shape["data"]
+        want = torch.cat([single.predict(frames[k * per:(k + 1) * per])
+                          for k in range(mesh.shape["data"])])
+        got = sharded.predict(frames)
+        fn = sharded.predict_fn(tuple(frames.shape))
+        same_fn = bool(torch.equal(fn(frames), got))
+        agree = (got == want).float().mean().item()
+        whole = (got == single.predict(frames)).float().mean().item()
+        graph = single.predict_fn(tuple(frames.shape))
+        ms = {k: time_ms(lambda f=f: f(frames), iters=3, warmup=1, repeats=3) / SP_BATCH
+              for k, f in (("space", fn), ("meshless graph", graph))}
+        _print(f"{what} {label} ({dw} + {up}) {dtype}, {SP_BATCH}x{HEIGHT}x{WIDTH} over "
+               f"{mesh.shape} on {where}: masks equal to the meshless engine on {agree:.7f} of "
+               f"pixels ({whole:.7f} against its batch of {SP_BATCH}), predict_fn equal to "
+               f"predict {same_fn}; ms a frame: predict_fn under space (eager) "
+               f"{ms['space']:.2f}, the meshless graph {ms['meshless graph']:.2f}")
+        if not same_fn or (dtype == "float32" and agree < SP_ENGINE_GATE):
+            raise AssertionError(f"{what} {label} {dtype}: agreement {agree}, predict_fn "
+                                 f"equal {same_fn}")
+        del single, sharded, fn, graph
+        torch.cuda.empty_cache()
+
+
+def spatial_multicard_leg(root, cards):
+    """MC (e): the 2 x 2 spatial step over NCCL, a rank a card, eager and
+    graphed (the exchanges captured) under deterministic algorithms: the
+    parameters bit-equal across the ranks and graphed equal to eager; then
+    the engine with ``space`` 2 across the cards. Returns the ranks' B6
+    launches (the graphs' replays included)."""
+    import torch
+
+    work = os.path.join(root, "build", "chip_smoke_spatial_multicard")
+    _fresh_dir(work)
+    t0 = time.perf_counter()
+    ranks = _sp_group(root, work, SP_RANKS, nccl=True)
+    runs = [r["runs"] for r in ranks]
+    devices = sorted(r["device"] for r in ranks)
+    digests = {(run["eager"]["digest"], run["graphed"]["digest"]) for run in runs}
+    losses = {(tuple(run["eager"]["losses"]), tuple(run["graphed"]["losses"])) for run in runs}
+    same = len(digests) == 1 and len(set(next(iter(digests)))) == 1 and len(losses) == 1
+    _print(f"MC (e) the 2 x 2 spatial step (f32, 'pallas') over NCCL on {devices}, "
+           f"{SP_STEPS} steps eager and graphed ({time.perf_counter() - t0:.1f} s with the "
+           f"spawn): parameters and losses {'bit-equal' if same else 'DIFFERENT'} across the "
+           f"ranks and between eager and graphed; ms a step eager "
+           f"{[round(v, 1) for v in runs[0]['eager']['ms']]}, graphed "
+           f"{[round(v, 1) for v in runs[0]['graphed']['ms']]}")
+    if devices != [f"cuda:{k}" for k in range(SP_RANKS)] or not same:
+        raise AssertionError(f"MC (e) {devices}: digests {digests}, losses {losses}")
+    launches = {}
+    for run in runs:
+        eager, graphed = run["eager"], run["graphed"]
+        for k, name in TRAINING_NAMES.items():
+            captured = graphed["captured"].get(k, 0)
+            n = (eager["launches"][k] + graphed["launches"][k] - captured
+                 + captured * graphed["replays"])
+            launches[name] = launches.get(name, 0) + n
+    _fresh_dir(work)
+    spatial_serve_leg([torch.device("cuda", k) for k in range(cards)], 2, "MC (e)")
+    return launches
+
+
+def spatial_phase(root, yard):
+    """Phase 14 (the module docstring): (a) :func:`spatial_train_leg`, (b)
+    :func:`spatial_serve_leg`. Returns the kernel launches of (a)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_spatial")
+    _fresh_dir(work)
+    launches = spatial_train_leg(root, work, yard)
+    t_a = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    spatial_serve_leg()
+    _fresh_dir(work)
+    _print(f"phase 14 launches: {launches}")
+    _print(f"phase 14: {time.perf_counter() - t_phase:.1f} s (14a {t_a:.1f} s)")
     return launches
 
 
@@ -6590,11 +6893,15 @@ def main() -> int:
     parser.add_argument("--multidevice", action="store_true",
                         help="only phase 13 (data parallelism over torch.distributed), after "
                              "the build and phase 6's f32 yardstick, with no device line")
+    parser.add_argument("--spatial", action="store_true",
+                        help="only phase 14 (spatial sharding, the mesh's space axis), after "
+                             "the build and phase 6's f32 yardstick, with no device line")
     parser.add_argument("--multicard", action="store_true",
                         help="only what needs several cards (four, say): every card's "
                              "kernels, a replica a card, NCCL ranks a card each; after the "
                              "build, with no device line")
     parser.add_argument("--dp-rank", metavar="WORK", help=argparse.SUPPRESS)
+    parser.add_argument("--sp-rank", metavar="WORK", help=argparse.SUPPRESS)
     parser.add_argument("--nccl", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--dw-costs", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -6616,6 +6923,9 @@ def main() -> int:
         return 0
     if args.dp_rank:  # one rank of phase 13's groups
         dp_rank(args.dp_rank, args.nccl)
+        return 0
+    if args.sp_rank:  # one rank of phase 14's groups, or of MC (e)
+        spatial_rank(args.sp_rank, args.nccl)
         return 0
     resolve_device(None)  # TF32 off
     smi = subprocess.run(
@@ -6655,7 +6965,7 @@ def main() -> int:
     if args.jpeg:
         jpeg_phase(root)
         return 0
-    if args.multidevice:
+    if args.multidevice or args.spatial:
         dev = torch.device("cuda")
         images, targets = training_batch(dev)
         trainer = recipe_trainer(dev)
@@ -6663,7 +6973,7 @@ def main() -> int:
                              one_step(trainer, "xla", torch.float64, images, targets))
         del images, targets, trainer
         torch.cuda.empty_cache()
-        multidevice_phase(root, yard)
+        (multidevice_phase if args.multidevice else spatial_phase)(root, yard)
         return 0
     if args.multicard:
         multicard_phase(root)
@@ -6724,6 +7034,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in multidevice_phase(root, yard).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in spatial_phase(root, yard).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -35,10 +35,24 @@ a batch is split over ``data`` in order, each shard run on its replica
 under its device's guard and on that device's current stream, and the
 masks gathered in order on the first device. ``predict_fn`` and
 ``throughput_fn`` capture one graph a replica.
+
+With a ``space`` axis above 1 (JAX's spatial serving) every device of the
+mesh holds a replica, and each data place's shard is normalised on the
+place's first device, then split into blocks of rows over the place's
+space devices, where the backbone runs H-sharded
+(``FastSCNN.apply_folded(space=...)``, one thread a device over a local
+space group of ``parallel/spatial.py``). The blocks of the 1/8 logits are
+gathered on the place's first device, and the mask head runs there as the
+meshless engine runs it. The network's input H must be a multiple of 32
+times the ``space`` axis. The kernel configurations raise JAX's
+``ValueError``: kernels B1–B5, B7 and B8 take whole images. Under ``space``
+``predict_fn`` and ``throughput_fn`` run eagerly: a CUDA graph is captured
+on one thread's stream, and the blocks' threads meet at every exchange.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import threading
@@ -99,17 +113,22 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+def _uses_kernels(model: FastSCNN, config: E2EConfig) -> bool:
+    """Whether the configuration runs a serving kernel (the JAX engine's
+    ``_uses_pallas``)."""
+    return (getattr(model, "folded_dw_impl", "conv") in ("pallas", "fused-ds", "fused-ds-mr")
+            or getattr(model, "folded_pw_impl", "conv") != "conv"
+            or config.final_upsample in ("pallas", "hybrid-pallas"))
+
+
 def _mesh_devices(mesh, device) -> list | None:
     """The devices of ``mesh``'s data axis (None without a mesh), after the
     checks the engine makes of a mesh."""
     if mesh is None:
         return None
     # imported here: parallel/ imports this module
-    from fastscnn_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, replicate_sharding
+    from fastscnn_tpu_torch.parallel.mesh import replicate_sharding
 
-    if mesh.shape.get("space", 1) > 1:
-        raise NotImplementedError(f"serving under a mesh whose 'space' axis is above 1 is not "
-                                  f"ported yet ({SPATIAL_NOT_PORTED})")
     if mesh.group is not None or mesh.ranks is not None:
         raise ValueError("InferenceEngine serves under a local mesh (one process, a replica a "
                          "device), not a process-group mesh")
@@ -122,8 +141,6 @@ def _mesh_devices(mesh, device) -> list | None:
 def _device_guard(device):
     """The current CUDA device set to ``device`` for the block (nothing for
     the CPU)."""
-    import contextlib
-
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
@@ -147,15 +164,26 @@ class InferenceEngine:
     (module docstring); the engine's ``device`` is then the mesh's first,
     ``predict`` and the graphed callables split each batch over ``data``
     (``ValueError`` when the batch does not divide it), and the other
-    methods run on the first replica. A mesh whose ``space`` axis is above
-    1 raises ``NotImplementedError``, and a process-group mesh
-    ``ValueError``: serving under a mesh runs in one process.
+    methods run on the first replica. Under a ``space`` axis above 1 each
+    data place runs its shard H-sharded over its space devices (module
+    docstring); a kernel configuration raises JAX's ``ValueError`` there.
+    A process-group mesh raises ``ValueError``: serving under a mesh runs
+    in one process.
     """
 
     def __init__(self, model: FastSCNN, device=None, config: E2EConfig = E2EConfig(),
                  mesh=None):
         if config.final_upsample not in FINAL_UPSAMPLE_MODES:
             raise ValueError(f"unknown final_upsample {config.final_upsample!r}")
+        n_space = mesh.shape.get("space", 1) if mesh is not None else 1
+        if n_space > 1 and _uses_kernels(model, config):
+            raise ValueError(
+                "Pallas serving kernels (folded_dw_impl="
+                f"{getattr(model, 'folded_dw_impl', 'conv')!r}, final_upsample="
+                f"{config.final_upsample!r}) cannot be spatially sharded "
+                "('space' axis > 1) — use a data-only mesh, or 'conv'/'taps' "
+                "+ 'hybrid'/'matmul'"
+            )
         devices = _mesh_devices(mesh, device)
         self.mesh = mesh
         self.device = resolve_device(devices[0] if devices else device)
@@ -178,10 +206,20 @@ class InferenceEngine:
         self._pool = self._stream = None
         # one engine a place on the mesh's data axis, this one first; the
         # others fold their own copy of the weights on their device
-        self.replicas = [self] + [
-            InferenceEngine(model if torch.device(d) == self.device else copy.deepcopy(model),
-                            device=d, config=config)
-            for d in (devices or [])[1:]]
+        self.replicas = [self] + [self._peer(d) for d in (devices or [])[1:]]
+        # under a space axis: each replica's space devices' engines, itself first
+        self._space_peers = None
+        if n_space > 1:
+            for i, r in enumerate(self.replicas):
+                r._space_peers = [r] + [self._peer(d) for d in
+                                        mesh.devices[i * n_space + 1:(i + 1) * n_space]]
+
+    def _peer(self, device) -> "InferenceEngine":
+        """A meshless engine of this one's model and config on ``device``
+        (its own copy of the weights there)."""
+        same = torch.device(device) == self.device
+        return InferenceEngine(self.model if same else copy.deepcopy(self.model), device=device,
+                               config=self.config)
 
     # -- graph pieces -------------------------------------------------------
     def graph_tensors(self) -> dict:
@@ -209,10 +247,41 @@ class InferenceEngine:
     def _net_in_size(self, shape):
         return tuple(self.config.internal_size or shape[1:3])
 
+    def _net_logits(self, x: torch.Tensor, g: dict) -> torch.Tensor:
+        """The 1/8 logits of the normalised batch ``x``; under a ``space``
+        axis its blocks of rows run on the space devices (module
+        docstring) and the logits' blocks are gathered here."""
+        peers = self._space_peers
+        if peers is None:
+            return self.model.apply_folded(g["folded"], x, upsample_outputs=False)[0]
+        from fastscnn_tpu_torch.parallel.mesh import check_spatial_height
+        from fastscnn_tpu_torch.parallel.spatial import local_spaces, run_spmd
+
+        n = len(peers)
+        check_spatial_height(x.shape[1], n)
+        h = x.shape[1] // n
+        spaces = local_spaces([p.device for p in peers])
+        # each thread works on the caller's current stream of its device, so
+        # that it is ordered after the caller's work and before its reads
+        streams = [torch.cuda.current_stream(p.device) if p.device.type == "cuda" else None
+                   for p in peers]
+
+        def rank(k):
+            peer = peers[k]
+            on_stream = (torch.cuda.stream(streams[k]) if streams[k] is not None
+                         else contextlib.nullcontext())
+            with _device_guard(peer.device), on_stream, torch.inference_mode():
+                block = x[:, k * h:(k + 1) * h].to(peer.device)
+                folded = g["folded"] if k == 0 else peer.folded
+                return peer.model.apply_folded(folded, block, upsample_outputs=False,
+                                               space=spaces[k])[0]
+
+        return torch.cat([b.to(self.device) for b in run_spmd(spaces, rank)], dim=1)
+
     def _forward(self, images, resize_back=False, upsample=True, g=None):
         g = self.graph_tensors() if g is None else g
         x = self._preprocess(images, g)
-        logits = self.model.apply_folded(g["folded"], x, upsample_outputs=False)[0]
+        logits = self._net_logits(x, g)
         if upsample and logits.shape[1:3] != x.shape[1:3]:
             up = resize_bilinear if self.config.final_upsample == "gather" else resize_bilinear_matmul
             logits = up(logits, (x.shape[1], x.shape[2]), align_corners=True)
@@ -368,8 +437,9 @@ class InferenceEngine:
         with self._fns_lock:
             if key not in self._fns:
                 shape = tuple(int(d) for d in shape)
-                self._fns[key] = (self._graphed(body, warm, shape, what)
-                                  if self.device.type == "cuda" else self._eager(body, shape, what))
+                graphed = self.device.type == "cuda" and self._space_peers is None
+                self._fns[key] = (self._graphed(body, warm, shape, what) if graphed
+                                  else self._eager(body, shape, what))
             return self._fns[key]
 
     # -- public API ---------------------------------------------------------
@@ -402,8 +472,8 @@ class InferenceEngine:
         engine's device. On the card it is one captured CUDA graph of the
         whole of ``predict`` (see :meth:`_graphed`; its graphs share one
         memory pool, so replays must be issued from one stream at a time,
-        as ``serving.BatchingPredictor``'s dispatcher does); on the CPU it
-        runs eagerly."""
+        as ``serving.BatchingPredictor``'s dispatcher does); on the CPU,
+        and under a ``space`` axis (module docstring), it runs eagerly."""
         def local(r, s):
             return r._cached(("predict", tuple(s)), r._predict_batch, r._predict_batch, s,
                              "predict_fn")
@@ -420,7 +490,7 @@ class InferenceEngine:
         mask perturbs the next forward's input, so every iteration is real
         work). On the card it is one captured CUDA graph holding all
         ``iters`` forwards: a replay times the device, not the host's
-        launches. On the CPU it runs eagerly."""
+        launches. On the CPU and under a ``space`` axis it runs eagerly."""
         def local(r, s):
             return r._cached(("throughput", tuple(s), int(iters)),
                              lambda x: r._checksum_loop(x, int(iters)),

@@ -74,8 +74,10 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     - a checkpoint saved by the primary and loaded by every rank: the
       restored state equal leaf for leaf and its next step's loss equal to
       the uninterrupted state's, bit for bit;
-    - a ``space`` axis (dp×sp) raising ``NotImplementedError`` naming
-      ROADMAP item 6b.
+    - a ``space`` axis (dp×sp): with an even n, the spatial train step
+      (``spatial_shard=True``, ``grad_accum=2``) under an (n/2 × 2) mesh,
+      each rank its block of a 64x64 global batch, its loss equal across
+      the ranks.
 
     Then, unless ``FASTSCNN_DRYRUN_MULTIPROC=0``, the 2-process stage:
     ``tools/multihost_smoke.py`` in 2 processes, their loss histories
@@ -98,7 +100,7 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
                 ranks.append(json.load(f))
     first = ranks[0]
     for r in ranks[1:]:
-        for key in ("train_loss", "aug_loss", "resumed_loss", "stats", "params"):
+        for key in ("train_loss", "aug_loss", "resumed_loss", "stats", "params", "space_loss"):
             if r[key] != first[key]:
                 raise AssertionError(f"dryrun_multichip: rank {r['rank']}'s {key} differs from "
                                      f"rank 0's: {r[key]} vs {first[key]}")
@@ -111,7 +113,7 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     print(f"dryrun_multichip(n={n_devices}): surfaces exercised = [dp train step (sync-BN, "
           "OHEM-CE, grad-accum=2), eval statistics (== one process), sharded serve (== one "
           "engine), B3 serve under the data mesh, device-aug train under dp, checkpoint "
-          f"save/resume under the mesh, dp×sp refused (item 6b), {stage}]")
+          f"save/resume under the mesh, dp×sp spatial train step, {stage}]")
     return {"ranks": ranks, "backend": backend}
 
 
@@ -164,6 +166,7 @@ def _dryrun_rank(device: str, backend: str, work: str) -> None:
         process_count,
         process_index,
     )
+    from fastscnn_tpu_torch.parallel.mesh import host_block
     from fastscnn_tpu_torch.utils import lr_schedule
     from fastscnn_tpu_torch.utils.checkpoint import load_train_state, save_train_state
     from fastscnn_tpu_torch.utils.tree import tree_leaves
@@ -201,16 +204,19 @@ def _dryrun_rank(device: str, backend: str, work: str) -> None:
     assert state.step == 1
     print(f"[rank {rank}] dp train step (mesh {mesh.shape}): loss {loss:.4f}", flush=True)
 
-    # the space axis is item 6b's
-    sp_mesh = make_mesh(n_data=1, n_space=n) if n > 1 else None
-    if sp_mesh is not None:
-        try:
-            make_train_step(model, loss_fn, optimizer, mesh=sp_mesh, spatial_shard=True,
-                            device=dev)
-        except NotImplementedError as e:
-            assert "6b" in str(e), e
-        else:
-            raise AssertionError("a dp×sp mesh did not raise")
+    # the space axis: H over pairs of ranks, the batch over the pairs
+    space_loss = None
+    if n % 2 == 0:
+        sp_mesh = make_mesh(n_data=n // 2, n_space=2)
+        sp_state = create_train_state(model, optimizer, device=dev)
+        sp_step = make_train_step(model, loss_fn, optimizer, mesh=sp_mesh, spatial_shard=True,
+                                  grad_accum=2, device=dev)
+        sp_images, sp_targets = host_block(sp_mesh, images[:n], targets[:n])
+        sp_state, sp_metrics = sp_step(sp_state, sp_images, sp_targets, generator(1))
+        space_loss = float(sp_metrics["loss"])
+        assert np.isfinite(space_loss), f"non-finite spatial loss {space_loss}"
+        print(f"[rank {rank}] dp×sp train step (mesh {sp_mesh.shape}): loss {space_loss:.4f}",
+              flush=True)
 
     # eval under the mesh: the statistics of the global batch
     eval_m = make_eval_step(model, NUM_CLASSES, mesh=mesh, compute_dtype=torch.float32,
@@ -280,6 +286,7 @@ def _dryrun_rank(device: str, backend: str, work: str) -> None:
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "train_loss": loss.hex(), "aug_loss": aug_loss.hex(),
                    "resumed_loss": resumed.hex(), "stats": [hexes(s) for s in stats_m],
+                   "space_loss": None if space_loss is None else space_loss.hex(),
                    "params": [hexes(p.detach().abs().sum()) for p in tree_leaves(state.params)]},
                   f)
     dist.barrier()

@@ -29,6 +29,11 @@ denominator, Dice's three sums, the focal mean's) through a differentiable
 all-reduce (``ops/collectives.py``), and OHEM's k-th smallest over every
 rank's pixels, each bisection step's count all-reduced. ``group=None``
 computes as in one process.
+
+Every loss also takes ``space`` (``parallel/spatial.py``): the logits and
+the target are then this rank's block of rows, ``group`` the whole mesh's,
+and the upsample gives the target block's rows of the global upsample
+(``spatial.resize_rows_matmul``, its source rows taken across the cut).
 """
 
 from __future__ import annotations
@@ -61,21 +66,32 @@ CITYSCAPES_CLASS_WEIGHTS = (
 )
 
 
-def _match_resolution(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def _upsample(t: torch.Tensor, size, space) -> torch.Tensor:
+    """``resize_bilinear_matmul`` to ``size`` (align_corners=True); under
+    ``space`` the block's rows of the global resize."""
+    if space is None:
+        return resize_bilinear_matmul(t, size, align_corners=True)
+    from fastscnn_tpu_torch.parallel.spatial import resize_rows_matmul
+
+    return resize_rows_matmul(t, (size[0] * space.size, size[1]), space, align_corners=True)
+
+
+def _match_resolution(logits: torch.Tensor, target: torch.Tensor, space=None) -> torch.Tensor:
     """Upsample (align_corners=True) NHWC logits to the target's size."""
     if logits.ndim == 4 and target.ndim >= 3 and logits.shape[1:3] != target.shape[1:3]:
-        logits = resize_bilinear_matmul(logits, tuple(target.shape[1:3]), align_corners=True)
+        logits = _upsample(logits, tuple(target.shape[1:3]), space)
     return logits
 
 
-def _binary_diff_at_target_res(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def _binary_diff_at_target_res(logits: torch.Tensor, target: torch.Tensor,
+                               space=None) -> torch.Tensor:
     """(N, h, w, 2) logits → (N, H, W) f32 class-1-minus-class-0 logit at the
     target's size. Exact: softmax(z)[..., 1] == sigmoid(z1 − z0), and the
     resize is linear, so resizing the difference equals differencing the
     resized channels."""
     d = (logits[..., 1] - logits[..., 0]).float()
     if target.ndim >= 3 and d.shape[1:3] != target.shape[1:3]:
-        d = resize_bilinear_matmul(d, tuple(target.shape[1:3]), align_corners=True)
+        d = _upsample(d, tuple(target.shape[1:3]), space)
     return d
 
 
@@ -96,13 +112,13 @@ def _global_mean(v: torch.Tensor, group) -> torch.Tensor:
     return total / (v.numel() * group_size(group))
 
 
-def dice_loss(logits, target, smooth: float = 1e-6, group=None):
+def dice_loss(logits, target, smooth: float = 1e-6, group=None, space=None):
     """Binary Dice on the class-1 probability: softmax for multi-channel
     logits, sigmoid for one channel."""
     if logits.ndim == 4 and logits.shape[-1] == 2:
-        prob = torch.sigmoid(_binary_diff_at_target_res(logits, target))
+        prob = torch.sigmoid(_binary_diff_at_target_res(logits, target, space))
     else:
-        logits = _match_resolution(logits, target)
+        logits = _match_resolution(logits, target, space)
         lf = logits.float()
         if logits.ndim == 4 and logits.shape[-1] > 1:
             prob = torch.softmax(lf, dim=-1)[..., 1]
@@ -113,11 +129,12 @@ def dice_loss(logits, target, smooth: float = 1e-6, group=None):
     return _dice_from_prob(prob, target, smooth, group)
 
 
-def mix_dice_loss(outputs, target, aux_weight: float = 0.4, smooth: float = 1e-6, group=None):
+def mix_dice_loss(outputs, target, aux_weight: float = 0.4, smooth: float = 1e-6, group=None,
+                  space=None):
     """Main + aux_weight · aux Dice."""
-    loss = dice_loss(outputs[0], target, smooth, group)
+    loss = dice_loss(outputs[0], target, smooth, group, space)
     if len(outputs) > 1:
-        loss = loss + aux_weight * dice_loss(outputs[1], target, smooth, group)
+        loss = loss + aux_weight * dice_loss(outputs[1], target, smooth, group, space)
     return loss
 
 
@@ -144,20 +161,20 @@ def _pixel_class_weights(target, class_weights, num_classes):
 
 
 def focal_dice_loss(logits, target, alpha: float = 0.5, gamma: float = 2.0,
-                    dice_weight: float = 0.5, smooth: float = 1e-6, group=None):
+                    dice_weight: float = 0.5, smooth: float = 1e-6, group=None, space=None):
     """(1 − dice_weight) · focal + dice_weight · dice."""
     if logits.ndim == 4 and logits.shape[-1] == 2:
         # 2-class CE through the logit difference:
         # −log softmax(z)[t] == −log_sigmoid((2t − 1)(z1 − z0)), target
         # clipped into [0, 1] as the general path clips it
-        d = _binary_diff_at_target_res(logits, target)
+        d = _binary_diff_at_target_res(logits, target, space)
         sign = 2.0 * target.clamp(0, 1).float() - 1.0
         ce = -F.logsigmoid(sign * d)
         pt = torch.exp(-ce)
         focal = _global_mean(alpha * (1 - pt) ** gamma * ce, group)
         dice = _dice_from_prob(torch.sigmoid(d), target, smooth, group)
         return (1 - dice_weight) * focal + dice_weight * dice
-    logits = _match_resolution(logits, target)
+    logits = _match_resolution(logits, target, space)
     lf = logits.float()
     if logits.ndim == 4 and logits.shape[-1] > 1:
         ce = _per_pixel_ce(lf, target)
@@ -169,13 +186,15 @@ def focal_dice_loss(logits, target, alpha: float = 0.5, gamma: float = 2.0,
         ce = -(tf * torch.log(prob + eps) + (1 - tf) * torch.log(1 - prob + eps))
         pt = torch.where(tf == 1, prob, 1 - prob)
     focal = _global_mean(alpha * (1 - pt) ** gamma * ce, group)
-    return (1 - dice_weight) * focal + dice_weight * dice_loss(logits, target, smooth, group)
+    return (1 - dice_weight) * focal + dice_weight * dice_loss(logits, target, smooth, group,
+                                                               space)
 
 
-def cross_entropy_loss(logits, target, ignore_label: int = -1, class_weights=None, group=None):
+def cross_entropy_loss(logits, target, ignore_label: int = -1, class_weights=None, group=None,
+                       space=None):
     """CE with ignore label and optional class weights; the weighted mean of
     ``torch.nn.CrossEntropyLoss`` (denominator: the kept pixels' weights)."""
-    logits = _match_resolution(logits, target)
+    logits = _match_resolution(logits, target, space)
     valid = (target != ignore_label).float()
     ce = _per_pixel_ce(logits, target)
     if class_weights is not None:
@@ -189,11 +208,11 @@ def cross_entropy_loss(logits, target, ignore_label: int = -1, class_weights=Non
 
 
 def mix_cross_entropy_loss(outputs, target, aux_weight: float = 0.2, ignore_label: int = -1,
-                           group=None):
-    loss = cross_entropy_loss(outputs[0], target, ignore_label, group=group)
+                           group=None, space=None):
+    loss = cross_entropy_loss(outputs[0], target, ignore_label, group=group, space=space)
     for aux_logits in outputs[1:]:
         loss = loss + aux_weight * cross_entropy_loss(aux_logits, target, ignore_label,
-                                                      group=group)
+                                                      group=group, space=space)
     return loss
 
 
@@ -216,10 +235,10 @@ def _kth_smallest_nonneg(x_flat: torch.Tensor, k: int, group=None) -> torch.Tens
 
 
 def ohem_cross_entropy_loss(logits, target, ignore_label: int = -1, thresh: float = 0.7,
-                            min_kept: int = 256, class_weights=None, group=None):
+                            min_kept: int = 256, class_weights=None, group=None, space=None):
     """Online hard example mining CE (see the module docstring), then the
     class-weighted CE mean over the kept pixels."""
-    logits = _match_resolution(logits, target)
+    logits = _match_resolution(logits, target, space)
     lf = logits.float()
     valid = target != ignore_label
     # one per-pixel CE map drives both the mining and the loss:
@@ -245,14 +264,14 @@ def ohem_cross_entropy_loss(logits, target, ignore_label: int = -1, thresh: floa
 
 def mix_ohem_cross_entropy_loss(outputs, target, aux_weight: float = 0.2, ignore_label: int = -1,
                                 thresh: float = 0.7, min_kept: int = 256, class_weights=None,
-                                group=None):
+                                group=None, space=None):
     """OHEM on the main head plus aux_weight · OHEM on each aux head — the
     trainer's 'ce' loss."""
     loss = ohem_cross_entropy_loss(outputs[0], target, ignore_label, thresh, min_kept,
-                                   class_weights, group)
+                                   class_weights, group, space)
     for aux_logits in outputs[1:]:
         loss = loss + aux_weight * ohem_cross_entropy_loss(
-            aux_logits, target, ignore_label, thresh, min_kept, class_weights, group)
+            aux_logits, target, ignore_label, thresh, min_kept, class_weights, group, space)
     return loss
 
 
@@ -263,17 +282,19 @@ def get_loss_fn(name: str, aux: bool = False, aux_weight: float = 0.4,
     Focal-Dice on the main head, 'ce' → mix OHEM CE (with the Cityscapes
     class weights when ``num_classes == 19``), 'ce_plain' → mix CE.
     ``aux=False`` trains on the main head only, whatever the model emits.
-    Each returned ``loss(outputs, target, group=None)`` takes the
-    data-parallel group (module docstring)."""
+    Each returned ``loss(outputs, target, group=None, space=None)`` takes
+    the data-parallel group and the spatial block's place (module
+    docstring)."""
     if not aux:
         main_only = get_loss_fn(name, aux=True, aux_weight=aux_weight, num_classes=num_classes,
                                 ignore_label=ignore_label, use_class_weights=use_class_weights)
-        return lambda outputs, target, group=None: main_only(outputs[:1], target, group=group)
+        return lambda outputs, target, group=None, space=None: main_only(
+            outputs[:1], target, group=group, space=space)
     if name == "dice":
         return functools.partial(mix_dice_loss, aux_weight=aux_weight)
     if name == "focal_dice":
-        return lambda outputs, target, group=None: focal_dice_loss(outputs[0], target,
-                                                                   group=group)
+        return lambda outputs, target, group=None, space=None: focal_dice_loss(
+            outputs[0], target, group=group, space=space)
     if name == "ce":
         weights = CITYSCAPES_CLASS_WEIGHTS if (use_class_weights and num_classes == 19) else None
         return functools.partial(mix_ohem_cross_entropy_loss, aux_weight=aux_weight,

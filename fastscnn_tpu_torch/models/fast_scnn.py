@@ -33,6 +33,21 @@ so a JAX-initialised model and a real ``fast_scnn_*.pth`` both load with
   ``pw_use_pallas`` is False; see :mod:`~fastscnn_tpu_torch.models.quantize`.
   ``act_fake_quant`` is the JAX model's hook on every conv input. The JAX
   names are kept so configurations map one to one.
+
+Both forwards take ``space``, a :class:`~fastscnn_tpu_torch.parallel.spatial.Space`:
+``x`` is then this rank's block of the image's rows (H a multiple of 32
+times the axis's size), every activation is the block of the global one,
+and the outputs are the blocks of the global outputs. Each 3×3 conv runs on
+its block plus halo rows (``spatial.conv_rows``); the stem conv's output
+has H/2 − 1 rows, so the last rank drops the row it computes past them
+from the stem's batch statistics and zeroes it, where the next conv's
+padding is; the pyramid pooling gathers its 1/32 input, runs its four
+branches on the whole map, replicated across ``space`` (their batch
+statistics over ``data`` only), and keeps its rows of each upsample; the
+feature fusion's ×4 upsample takes its source rows across the cut
+(``spatial.resize_rows``); block-sharded batch statistics reduce over the
+whole mesh (``group``); dropout draws the global batch's mask and keeps the
+block.
 """
 
 from __future__ import annotations
@@ -332,7 +347,7 @@ class FastSCNN(nn.Module):
     # -- forward on parameter trees (train and eval steps) -------------------
     def apply_params(self, params, state, x, training: bool = False,
                      generator: torch.Generator | None = None, upsample_outputs: bool = True,
-                     group=None):
+                     group=None, space=None):
         """The JAX ``FastSCNN.apply``: NHWC ``x``, ``(params, state)`` trees
         in the :func:`~fastscnn_tpu_torch.models.convert.to_param_trees`
         layout → ``(outputs, new_state)``, ``outputs`` the tuple of NHWC
@@ -352,9 +367,13 @@ class FastSCNN(nn.Module):
         BN takes the moments of the whole batch over it (sync-BN), and
         dropout draws the masks of the whole batch from ``generator`` (the
         same on every rank) and applies this rank's rows, so N ranks draw
-        what one process draws for the whole batch."""
-        run = _TreeForward(self, training, generator, group)
-        size = (x.shape[1], x.shape[2])
+        what one process draws for the whole batch.
+
+        ``space``: ``x`` is this rank's block of rows (module docstring);
+        ``group`` is then the whole mesh's, over which block-sharded
+        statistics reduce."""
+        run = _TreeForward(self, training, generator, group, space)
+        size = (x.shape[1] * (space.size if space else 1), x.shape[2])
         new_state = {}
         higher, new_state["learning_to_downsample"] = run.ltd(
             params["learning_to_downsample"], state["learning_to_downsample"], x)
@@ -369,11 +388,14 @@ class FastSCNN(nn.Module):
             auxout, new_state["auxlayer"] = run.aux(params["auxlayer"], state["auxlayer"], higher)
             outputs.append(auxout)
         if upsample_outputs:
-            outputs = [resize_bilinear(o, size, align_corners=True) for o in outputs]
+            outputs = [resize_bilinear(o, size, align_corners=True) if space is None
+                       else _spatial().resize_rows(o, size, space, align_corners=True)
+                       for o in outputs]
         return tuple(outputs), new_state
 
     # -- folded inference ---------------------------------------------------
-    def apply_folded(self, fparams, x: torch.Tensor, upsample_outputs: bool = True):
+    def apply_folded(self, fparams, x: torch.Tensor, upsample_outputs: bool = True,
+                     space=None):
         """Inference forward on a BN-folded tree (:func:`fold_inference_params`):
         every block is conv + bias (+ ReLU). NHWC in, tuple of NHWC logits
         out; ``upsample_outputs=False`` returns 1/8-resolution logits so the
@@ -385,15 +407,29 @@ class FastSCNN(nn.Module):
         of ``pw_act_scales`` quantizes its input and runs kernel B7 or B8,
         whose output is bf16 whatever the compute dtype (later ops promote
         as the JAX graph does). With 'fused-ds' or 'fused-ds-mr' the LTD's
-        two 1×1s run inside B3 or B5 and bypass both."""
+        two 1×1s run inside B3 or B5 and bypass both.
+
+        ``space``: ``x`` is this rank's block of rows (module docstring), for
+        the kernel-free configurations ('conv' or 'taps' depthwise convs,
+        'conv' 1×1s); the kernels take whole images (``ValueError``)."""
         impl = self.folded_dw_impl
+        if space is not None and (impl not in ("conv", "taps") or self.folded_pw_impl != "conv"):
+            raise ValueError(f"folded_dw_impl={impl!r}, folded_pw_impl="
+                             f"{self.folded_pw_impl!r} run kernels on whole images: a block of "
+                             "rows takes 'conv' or 'taps' and 'conv'")
         aq = _site_hook(self.act_fake_quant)
         int8_scales = dict(self.pw_act_scales) if self.folded_pw_impl != "conv" else {}
+        sp = _spatial() if space is not None else None
+
+        def conv(fn, y, w, stride, padding, **kwargs):
+            if space is not None and w.shape[0] == 3:
+                return sp.conv_rows(fn, y, w, stride, padding, space, **kwargs)
+            return fn(y, w, stride=stride, padding=padding, **kwargs)
 
         def cbr(p, y, stride=1, padding=0, groups=1, relu=True, site=None):
             if site is not None and site in int8_scales:
                 return self._pw_int8(p, y, site, int8_scales[site], relu)
-            y = conv2d(aq(y, site), p["w"], p["b"], stride=stride, padding=padding, groups=groups)
+            y = conv(conv2d, aq(y, site), p["w"], stride, padding, b=p["b"], groups=groups)
             return torch.relu(y) if relu else y
 
         def ds(p, y, stride=1, dw_alt=False, site=None):
@@ -404,8 +440,7 @@ class FastSCNN(nn.Module):
                 return fn(y.contiguous(), p["dw"]["w"], p["dw"]["b"], p["pw"]["w"], p["pw"]["b"],
                           stride=stride, padding=1)
             if dw_alt and impl == "taps":
-                y = torch.relu(dw_conv2d_taps(y, p["dw"]["w"], p["dw"]["b"], stride=stride,
-                                              padding=1))
+                y = torch.relu(conv(dw_conv2d_taps, y, p["dw"]["w"], stride, 1, b=p["dw"]["b"]))
             elif dw_alt:  # 'pallas': dw + bias + ReLU in kernel B4
                 y = dw_conv3x3(y.contiguous(), p["dw"]["w"], p["dw"]["b"], stride=stride,
                                padding=1, relu=True)
@@ -422,11 +457,15 @@ class FastSCNN(nn.Module):
                 z = y + z
             return z
 
-        size = (x.shape[1], x.shape[2])
+        n_space = space.size if space is not None else 1
+        size = (x.shape[1] * n_space, x.shape[2])
         p = fparams
         dw_alt = impl != "conv"
         ltd = p["learning_to_downsample"]
         y = cbr(ltd["conv"], x, stride=2, site="ltd/conv")
+        if space is not None and space.last:
+            # the row past the stem's H/2 - 1: the next conv's padding
+            y = torch.cat([y[:, :-1], y.new_zeros((y.shape[0], 1, *y.shape[2:]))], dim=1)
         y = ds(ltd["dsconv1"], y, stride=2, dw_alt=dw_alt, site="ltd/dsconv1")
         higher = ds(ltd["dsconv2"], y, stride=2, dw_alt=dw_alt, site="ltd/dsconv2")
         g = p["global_feature_extractor"]
@@ -434,14 +473,19 @@ class FastSCNN(nn.Module):
         for name, stride in (("bottleneck1", 2), ("bottleneck2", 2), ("bottleneck3", 1)):
             for i, bp in enumerate(g[name]):
                 y = bottleneck(bp, y, stride if i == 0 else 1, site=f"gfe/{name}/{i}")
-        psize = (y.shape[1], y.shape[2])
+        whole = y if space is None else sp.gather_rows_h(y, space)  # the 1/32 map
+        psize = (whole.shape[1], whole.shape[2])
         feats = [y]
         for conv_name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
-            z = cbr(g["ppm"][conv_name], adaptive_avg_pool(y, pool_size), site=f"gfe/ppm/{conv_name}")
-            feats.append(resize_bilinear_matmul(z, psize, align_corners=self.ppm_align_corners))
+            z = cbr(g["ppm"][conv_name], adaptive_avg_pool(whole, pool_size),
+                    site=f"gfe/ppm/{conv_name}")
+            z = resize_bilinear_matmul(z, psize, align_corners=self.ppm_align_corners)
+            feats.append(z if space is None else sp.block_rows(z, space))
         lower = cbr(g["ppm"]["out"], torch.cat(feats, dim=-1), site="gfe/ppm/out")
         f = p["feature_fusion"]
-        lo = resize_bilinear_matmul(lower, (higher.shape[1], higher.shape[2]), align_corners=True)
+        hsize = (higher.shape[1] * n_space, higher.shape[2])
+        lo = (resize_bilinear_matmul(lower, hsize, align_corners=True) if space is None
+              else sp.resize_rows_matmul(lower, hsize, space, align_corners=True))
         lo = cbr(f["dwconv"], lo, padding=1, groups=lo.shape[-1], site="ffm/dwconv")
         lo = cbr(f["conv_lower_res"], lo, relu=False, site="ffm/conv_lower_res")
         hi = cbr(f["conv_higher_res"], higher, relu=False, site="ffm/conv_higher_res")
@@ -449,14 +493,20 @@ class FastSCNN(nn.Module):
         c = p["classifier"]
         y = ds(c["dsconv2"], ds(c["dsconv1"], fused, site="cls/dsconv1"), site="cls/dsconv2")
         logits = conv2d(aq(y, "cls/conv"), c["conv"]["w"], c["conv"]["b"])
+
+        def upsample(t):
+            if space is None:
+                return resize_bilinear_matmul(t, size, align_corners=True)
+            return sp.resize_rows_matmul(t, size, space, align_corners=True)
+
         if upsample_outputs:
-            logits = resize_bilinear_matmul(logits, size, align_corners=True)
+            logits = upsample(logits)
         if self.aux and "auxlayer" in p:
             a = p["auxlayer"]
             z = cbr(a["conv1"], higher, padding=1, site="aux/conv1")
             auxout = conv2d(aq(z, "aux/conv2"), a["conv2"]["w"], a["conv2"]["b"])
             if upsample_outputs:
-                auxout = resize_bilinear_matmul(auxout, size, align_corners=True)
+                auxout = upsample(auxout)
             return (logits, auxout)
         return (logits,)
 
@@ -501,6 +551,14 @@ def _site_hook(hook):
     return hook if takes_site else (lambda y, site=None: hook(y))
 
 
+def _spatial():
+    """``parallel.spatial``, imported at first use: ``parallel/`` imports
+    this module."""
+    from fastscnn_tpu_torch.parallel import spatial
+
+    return spatial
+
+
 def _fold_int8_weights(w, scale: float, impl: str):
     """The JAX ``pw_int8`` weight fold of a (1, 1, K, N) folded weight at
     activation scale ``scale``: (s, w_eff) for 'int8-a8', w_eff =
@@ -521,12 +579,15 @@ def _fold_int8_weights(w, scale: float, impl: str):
 class _TreeForward:
     """The blocks of ``FastSCNN.apply_params``, each ``(p, s, x) -> (y,
     new_s)`` on NHWC activations — the JAX package's ``_apply_*`` and
-    module functions."""
+    module functions. Under ``space`` each activation is this rank's block
+    of rows (``FastSCNN`` module docstring)."""
 
-    def __init__(self, model: FastSCNN, training: bool, generator, group=None):
+    def __init__(self, model: FastSCNN, training: bool, generator, group=None, space=None):
         self.training = training
         self.generator = generator
         self.group = group
+        self.space = space
+        self.sp = _spatial() if space is not None else None
         self.dropout_rate = model.dropout_rate
         self.ppm_sizes, self.ppm_align_corners = model.ppm_sizes, model.ppm_align_corners
         impl = model.stem_impl
@@ -545,17 +606,29 @@ class _TreeForward:
 
             self.stem_conv = stem_conv
 
-    def bn(self, p, s, x, packed=False):
+    def conv(self, conv_fn, x, w, stride=1, padding=0, groups=1):
+        """``conv_fn`` on ``x``; a 3×3 under ``space`` on the block plus its
+        halo rows."""
+        if self.space is not None and w.shape[0] == 3:
+            return self.sp.conv_rows(conv_fn, x, w, stride, padding, self.space, groups=groups)
+        return conv_fn(x, w, stride=stride, padding=padding, groups=groups)
+
+    def bn(self, p, s, x, packed=False, replicated=False, count=None):
+        """BN of ``x``; in training on the batch moments over ``group``, or,
+        for a tensor ``replicated`` across ``space``, over its ``data``
+        group; ``count``: the global number of values a channel where the
+        ranks' shares differ (the stem)."""
         if self.training:
+            group = self.space.data_group if replicated and self.space is not None else self.group
             y, m, v = batch_norm_train(x, p["scale"], p["bias"], s["mean"], s["var"],
-                                       packed=packed, group=self.group)
+                                       packed=packed, group=group, count=count)
             return y, {"mean": m, "var": v}
         return batch_norm_apply(x, p["scale"], p["bias"], s["mean"], s["var"]), s
 
     def cbr(self, p, s, x, stride=1, padding=0, groups=1, relu=True, conv_fn=conv2d,
-            packed=False):
-        y = conv_fn(x, p["w"], stride=stride, padding=padding, groups=groups)
-        y, s_bn = self.bn(p["bn"], s["bn"], y, packed)
+            packed=False, replicated=False):
+        y = self.conv(conv_fn, x, p["w"], stride, padding, groups)
+        y, s_bn = self.bn(p["bn"], s["bn"], y, packed, replicated)
         return (torch.relu(y) if relu else y), {"bn": s_bn}
 
     def ds(self, p, s, x, stride=1, conv_fn=conv2d, packed=False):
@@ -573,9 +646,28 @@ class _TreeForward:
             y = x + y
         return y, {"expand": s_e, "dw": s_d, "project": {"bn": s_p}}
 
+    def stem(self, p, s, x, conv, packed):
+        """The stem's conv + BN + ReLU. Under ``space`` each rank computes
+        H/(2n) rows, one more than the global H/2 − 1 on the last rank: that
+        row is left out of the batch statistics and zeroed (it is the
+        padding of the next conv's window)."""
+        if self.space is None:
+            return self.cbr(p, s, x, stride=2, conv_fn=conv, packed=packed)
+        y = self.conv(conv, x, p["w"], stride=2)
+        space = self.space
+        n_data = max(group_size(self.group) // space.size, 1)
+        count = y.shape[0] * n_data * (y.shape[1] * space.size - 1) * y.shape[2]
+        if space.last:
+            y = y[:, :-1]
+        y, s_bn = self.bn(p["bn"], s["bn"], y, packed, count=count)
+        y = torch.relu(y)
+        if space.last:
+            y = torch.cat([y, y.new_zeros((y.shape[0], 1, *y.shape[2:]))], dim=1)
+        return y, {"bn": s_bn}
+
     def ltd(self, p, s, x):
         conv, packed = self.stem_conv, self.stem_bn_packed
-        y, s1 = self.cbr(p["conv"], s["conv"], x, stride=2, conv_fn=conv, packed=packed)
+        y, s1 = self.stem(p["conv"], s["conv"], x, conv, packed)
         y, s2 = self.ds(p["dsconv1"], s["dsconv1"], y, stride=2, conv_fn=conv, packed=packed)
         y, s3 = self.ds(p["dsconv2"], s["dsconv2"], y, stride=2, conv_fn=conv, packed=packed)
         return y, {"conv": s1, "dsconv1": s2, "dsconv2": s3}
@@ -588,17 +680,25 @@ class _TreeForward:
                 x, s_i = self.bottleneck(bp, bs, x, stride if i == 0 else 1)
                 stage.append(s_i)
             ns[name] = stage
-        size = (x.shape[1], x.shape[2])
+        # under space the branches run on the whole 1/32 map, replicated
+        whole = x if self.space is None else self.sp.gather_rows_h(x, self.space)
+        size = (whole.shape[1], whole.shape[2])
         feats, ppm = [x], {}
         for name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
-            y, ppm[name] = self.cbr(p["ppm"][name], s["ppm"][name], adaptive_avg_pool(x, pool_size))
-            feats.append(resize_bilinear(y, size, align_corners=self.ppm_align_corners))
+            y, ppm[name] = self.cbr(p["ppm"][name], s["ppm"][name],
+                                    adaptive_avg_pool(whole, pool_size), replicated=True)
+            y = resize_bilinear(y, size, align_corners=self.ppm_align_corners)
+            feats.append(y if self.space is None else self.sp.block_rows(y, self.space))
         y, ppm["out"] = self.cbr(p["ppm"]["out"], s["ppm"]["out"], torch.cat(feats, dim=-1))
         ns["ppm"] = ppm
         return y, ns
 
     def ffm(self, p, s, higher, lower):
-        lower = resize_bilinear(lower, (higher.shape[1], higher.shape[2]), align_corners=True)
+        if self.space is None:
+            lower = resize_bilinear(lower, (higher.shape[1], higher.shape[2]), align_corners=True)
+        else:
+            size = (higher.shape[1] * self.space.size, higher.shape[2])
+            lower = self.sp.resize_rows(lower, size, self.space, align_corners=True)
         lower, s_dw = self.cbr(p["dwconv"], s["dwconv"], lower, padding=1, groups=lower.shape[-1])
         lower = conv2d(lower, p["conv_lower_res"]["w"], p["conv_lower_res"]["b"])
         lower, s_lo = self.bn(p["conv_lower_res"]["bn"], s["conv_lower_res"]["bn"], lower)
@@ -614,21 +714,27 @@ class _TreeForward:
         return conv2d(y, p["conv"]["w"], p["conv"]["b"]), {"dsconv1": s1, "dsconv2": s2}
 
     def aux(self, p, s, x):
-        y = conv2d(x, p["conv1"]["w"], padding=1)
+        y = self.conv(conv2d, x, p["conv1"]["w"], padding=1)
         y, s_bn = self.bn(p["conv1"]["bn"], s["conv1"]["bn"], y)
         y = self.dropout(torch.relu(y))
         return conv2d(y, p["conv2"]["w"], p["conv2"]["b"]), {"conv1": {"bn": s_bn}}
 
     def dropout(self, x):
         """Inverted dropout, active only in training with a generator: keep
-        each element with probability 1 − rate and scale it by 1/keep."""
+        each element with probability 1 − rate and scale it by 1/keep. The
+        mask is the global batch's (all rows, all H rows), drawn alike on
+        every rank; each keeps its block."""
         if not self.training or self.generator is None or self.dropout_rate <= 0.0:
             return x
         keep = 1.0 - self.dropout_rate
-        n, k = group_size(self.group), group_rank(self.group)
+        m = self.space.size if self.space is not None else 1
+        n, k = group_size(self.group) // m, group_rank(self.group) // m
         b = x.shape[0]
-        mask = torch.rand((n * b, *x.shape[1:]), generator=self.generator,
-                          device=x.device)[k * b:(k + 1) * b] < keep
+        mask = torch.rand((n * b, x.shape[1] * m, *x.shape[2:]), generator=self.generator,
+                          device=x.device)[k * b:(k + 1) * b]
+        if self.space is not None:
+            mask = self.sp.block_rows(mask, self.space)
+        mask = mask < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

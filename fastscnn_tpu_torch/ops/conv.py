@@ -177,7 +177,8 @@ def batch_norm_apply(x, scale, bias, mean, var, eps: float = BN_EPS):
 
 
 def batch_norm_train(x, scale, bias, running_mean, running_var, momentum: float = BN_MOMENTUM,
-                     eps: float = BN_EPS, packed: bool = False, group=None):
+                     eps: float = BN_EPS, packed: bool = False, group=None,
+                     count: int | None = None):
     """Training-mode BN, channels last: normalise with the batch moments
     and return ``(y, new_running_mean, new_running_var)``.
 
@@ -191,14 +192,16 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, momentum: float 
     shard of the batch (sync-BN, the JAX mesh's global moments): each moment
     is the all-reduced sum over the global ``n``, through a differentiable
     all-reduce, and the unbiased running variance uses that ``n``, so the
-    running statistics come out equal on every rank."""
+    running statistics come out equal on every rank. ``count``: the global
+    number of values a channel, where the ranks' shares are not equal (a
+    spatial block that holds a row past the image's edge leaves it out)."""
     del packed
     acc = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(acc)
     axes = tuple(range(x.ndim - 1))
     # the sums over n, one formula with a group or without: a group of one
     # rank computes what no group computes, bit for bit
-    n = x.numel() // x.shape[-1] * group_size(group)
+    n = x.numel() // x.shape[-1] * group_size(group) if count is None else count
     batch_mean = global_sum(xf.sum(dim=axes), group) / n
     batch_var = global_sum((xf - batch_mean).square().sum(dim=axes), group) / n
     with torch.no_grad():

@@ -1,23 +1,29 @@
-"""Device meshes for data parallelism.
+"""Device meshes for data and spatial parallelism.
 
 Counterpart of ``fastscnn_tpu/parallel/mesh.py``. The JAX mesh is one
-controller's ``('data', 'space')`` grid of chips. Here a :class:`Mesh` is
-one of two kinds:
+controller's ``('data', 'space')`` grid of chips, the devices reshaped
+``(n_data, n_space)``: the place of the k-th device is ``(k // n_space,
+k % n_space)``. Here a :class:`Mesh` is one of two kinds:
 
 - a process-group mesh: when a process group of more than one rank is
   initialised (``parallel/multihost.py``) and no ``devices`` are passed,
   the mesh spans the group's ranks, one device each, and carries the
-  ``torch.distributed`` group of its ranks. The train and eval steps run
-  under it SPMD: each rank passes its own rows and gets back what the JAX
-  step returns for the global batch (its BN moments, loss sums and
-  gradients reduce over the group — the JAX mesh's "free sync-BN");
+  ``torch.distributed`` groups of its ranks: the whole mesh, this rank's
+  ``space`` row (the ranks of its data place) and its ``data`` column (the
+  ranks of its space index). The train and eval steps run under it SPMD:
+  each rank passes its own block (:func:`host_block`) and gets back what
+  the JAX step returns for the global batch (its BN moments, loss sums and
+  gradients reduce over the groups — the JAX mesh's "free sync-BN");
 - a local mesh: the devices of this process (the CUDA cards, or the
   ``devices`` passed, which may repeat a device). ``InferenceEngine``
-  serves under it with one folded-weight replica a device; inference needs
-  no collectives.
+  serves under it with one folded-weight replica a device: a batch splits
+  over ``data``, and with a ``space`` axis each data place's image rows
+  split over its space devices (``parallel/spatial.py``).
 
-A ``space`` axis above 1 is accepted here, as in JAX; the steps and the
-engine raise ``NotImplementedError`` for it (``SPATIAL_NOT_PORTED``).
+On the ``space`` axis the image's H is split in equal blocks
+(:func:`block_sharding`); the network needs H to be a multiple of
+``32 · n_space`` (:func:`check_spatial_height`), so that every level of
+the network down to 1/32 splits evenly.
 """
 
 from __future__ import annotations
@@ -31,10 +37,16 @@ __all__ = [
     "make_mesh_for_batch",
     "batch_sharding",
     "replicate_sharding",
-    "SPATIAL_NOT_PORTED",
+    "block_sharding",
+    "host_block",
+    "check_spatial_height",
+    "SPATIAL_MULTIPLE",
 ]
 
-SPATIAL_NOT_PORTED = "ROADMAP.md, queue item 6b: spatial sharding"
+# the network's input H on a space axis of n is a multiple of this times n:
+# its deepest level is 1/32, and each level's blocks must start on an even
+# row for the stride-2 convs' windows to line up
+SPATIAL_MULTIPLE = 32
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -46,13 +58,20 @@ class Mesh:
     m}``. ``group``: the ``torch.distributed`` group of the mesh's ranks
     (None for a local mesh). ``ranks``: their global ranks, data-major
     (None for a local mesh). ``index``: this process's place on ``data``
-    (None when this rank is not in the mesh; 0 in a local mesh)."""
+    (None when this rank is not in the mesh; 0 in a local mesh).
+    ``space_index``: its place on ``space`` (0 in a local mesh).
+    ``space_group``: the group of the ranks of this rank's data place, and
+    ``data_group`` that of the ranks of its space index (each None where it
+    would hold one rank, and for a local mesh)."""
 
     devices: tuple
     shape: dict
     group: object = None
     ranks: tuple | None = None
     index: int | None = 0
+    space_index: int | None = 0
+    space_group: object = None
+    data_group: object = None
 
     @property
     def size(self) -> int:
@@ -63,10 +82,16 @@ class Mesh:
         return self.index is not None
 
     @property
+    def position(self) -> int:
+        """This process's place in the data-major device list (0 in a local
+        mesh)."""
+        return (self.index or 0) * self.shape["space"] + (self.space_index or 0)
+
+    @property
     def local_device(self):
         """The device this process runs on in the mesh (a process-group mesh)
         or the first device (a local mesh)."""
-        return self.devices[self.index or 0]
+        return self.devices[self.position]
 
 
 def _world():
@@ -104,9 +129,11 @@ def make_mesh(n_data: int | None = None, n_space: int = 1, devices=None) -> Mesh
     """A ``('data', 'space')`` mesh; by default every device on ``data``.
 
     With a process group of more than one rank and no ``devices``: a
-    process-group mesh over the first ``n_data * n_space`` ranks (every rank
-    must call this, as every rank must call ``torch.distributed.new_group``;
-    a rank left out gets a mesh whose ``index`` is None). Otherwise a local
+    process-group mesh over the first ``n_data * n_space`` ranks, rank r at
+    ``(r // n_space, r % n_space)`` (every rank must call this, as every
+    rank must call ``torch.distributed.new_group`` for every group, its own
+    or not, in one order; a rank left out gets a mesh whose ``index`` is
+    None). Otherwise a local
     mesh over ``devices`` (any list of devices, repeats allowed) or this
     machine's CUDA cards (the CPU without one). The JAX function's errors
     and warning."""
@@ -127,9 +154,21 @@ def make_mesh(n_data: int | None = None, n_space: int = 1, devices=None) -> Mesh
     dist.all_gather_object(names, str(local_device()))
     ranks = tuple(range(n_data * n_space))
     group = dist.group.WORLD if len(ranks) == count else dist.new_group(list(ranks))
+
+    def groups_of(rows):
+        # every rank makes every group, in one order; a group of one rank is None
+        made = [group if len(r) == len(ranks) else dist.new_group(r) if len(r) > 1 else None
+                for r in rows]
+        return next((g for g, r in zip(made, rows) if rank in r), None)
+
+    space_group = groups_of([[d * n_space + s for s in range(n_space)] for d in range(n_data)])
+    data_group = groups_of([[d * n_space + s for d in range(n_data)] for s in range(n_space)])
+    member = rank in ranks
     return Mesh(tuple(torch.device(names[r]) for r in ranks), {"data": n_data, "space": n_space},
-                group=group if rank in ranks else None, ranks=ranks,
-                index=rank // n_space if rank in ranks else None)
+                group=group if member else None, ranks=ranks,
+                index=rank // n_space if member else None,
+                space_index=rank % n_space if member else None,
+                space_group=space_group, data_group=data_group)
 
 
 def make_mesh_for_batch(batch_size: int, devices=None) -> Mesh:
@@ -168,3 +207,44 @@ def replicate_sharding(mesh: Mesh) -> tuple:
     weights): one a place on ``data``, the first of its row."""
     m = mesh.shape["space"]
     return tuple(mesh.devices[i * m] for i in range(mesh.shape["data"]))
+
+
+def check_spatial_height(height: int, n_space: int) -> None:
+    """Raise ``ValueError`` unless an image of ``height`` rows splits over a
+    ``space`` axis of ``n_space`` at every level of the network: H a
+    multiple of ``32 · n_space`` (:data:`SPATIAL_MULTIPLE`). JAX's GSPMD
+    also pads an uneven split; the port does not (ROADMAP.md)."""
+    if n_space > 1 and height % (SPATIAL_MULTIPLE * n_space):
+        raise ValueError(f"spatial sharding over a 'space' axis of {n_space} needs the network's "
+                         f"input H to be a multiple of {SPATIAL_MULTIPLE} * n_space = "
+                         f"{SPATIAL_MULTIPLE * n_space}, got H={height}")
+
+
+def block_sharding(mesh: Mesh, batch: int, height: int) -> list:
+    """The block of an (N, H, ...) batch that each place of ``mesh`` holds,
+    data-major: ``(batch rows, H rows)`` slices, the batch split over
+    ``data`` and H over ``space`` (JAX's ``batch_sharding(mesh,
+    spatial_axis=1)``, ``P('data', 'space')``). ``ValueError`` when either
+    does not divide its axis."""
+    m = mesh.shape["space"]
+    if height % m:
+        raise ValueError(f"H {height} must divide the space axis ({m})")
+    per = height // m
+    return [(rows, slice(s * per, (s + 1) * per))
+            for rows in batch_sharding(mesh, batch) for s in range(m)]
+
+
+def host_block(mesh: Mesh, *arrays, spatial: bool = True):
+    """This process's block of each globally indexed (N, H, ...) array under
+    a process-group ``mesh``: its data place's batch rows and, with
+    ``spatial``, its space index's H rows (without, every H row: the batch
+    replicated across ``space``, JAX's ``P('data')``). The spatial
+    counterpart of ``multihost.host_shard``; a local mesh or a rank the
+    mesh left out gets the arrays whole."""
+    if mesh.ranks is None or not mesh.is_member:
+        return arrays if len(arrays) > 1 else arrays[0]
+    out = []
+    for a in arrays:
+        rows, hrows = block_sharding(mesh, a.shape[0], a.shape[1])[mesh.position]
+        out.append(a[rows, hrows] if spatial else a[rows])
+    return tuple(out) if len(out) > 1 else out[0]

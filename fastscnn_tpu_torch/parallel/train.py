@@ -1,4 +1,4 @@
-"""The train and eval steps on one card.
+"""The train and eval steps on one card or a mesh.
 
 Counterpart of ``fastscnn_tpu/parallel/train.py``. One train step:
 
@@ -40,9 +40,21 @@ parameters stay equal on every rank. With ``grad_accum`` > 1, microbatch i
 is the global batch's rows ``[i·mb, (i+1)·mb)`` split over the ranks, as in
 JAX: the step gathers the ranks' uint8 rows and takes its part of each
 microbatch, so the caller keeps ``host_shard``'s convention. The eval step
-sums the statistics across the ranks and returns this rank's mask rows. A
-``space`` axis above 1 and ``spatial_shard`` raise ``NotImplementedError``
-naming their ROADMAP.md item (6b).
+sums the statistics across the ranks and returns this rank's mask rows.
+
+A mesh with a ``space`` axis: with ``spatial_shard`` each rank passes its
+block, its data place's rows and its space index's rows of H
+(``mesh.host_block``; H a multiple of 32 times the axis), and the forward
+and the loss run on blocks (``models/fast_scnn.py``, ``parallel/spatial.py``):
+the sums of the global batch reduce over the whole mesh, the gradients are
+all-reduced over it and divided by its size, and the parameter gradients
+of the branches that run replicated across ``space`` (the pyramid
+pooling's), partial on each rank, are completed by the same all-reduce.
+Without ``spatial_shard`` (and in the eval step) the batch is replicated
+across ``space``, as JAX's ``P('data')`` places it: each rank passes its
+data place's rows, whole, and the step reduces over the ranks of its space
+index. ``device_aug`` with ``spatial_shard``, and the split step under a
+``space`` axis, raise JAX's ``ValueError``.
 
 ``graph=True`` is the counterpart of the JAX step's ``jit``: on the
 card the whole step (the chain, forward, loss, backward and update) is
@@ -63,10 +75,11 @@ from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.engine.infer import IMAGENET_MEAN, IMAGENET_STD
 from fastscnn_tpu_torch.models.convert import to_param_trees
 from fastscnn_tpu_torch.models.fast_scnn import FastSCNN
-from fastscnn_tpu_torch.ops.collectives import gather_rows, sum_
+from fastscnn_tpu_torch.ops.collectives import gather_rows, group_size, sum_
 from fastscnn_tpu_torch.ops.resize import resize_bilinear_matmul
-from fastscnn_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED, Mesh
+from fastscnn_tpu_torch.parallel.mesh import Mesh, check_spatial_height
 from fastscnn_tpu_torch.parallel.multihost import backend_of
+from fastscnn_tpu_torch.parallel.spatial import GroupTransport, Space
 from fastscnn_tpu_torch.utils.cuda_graph import Captured, capture
 from fastscnn_tpu_torch.utils.metric import seg_hist_update
 from fastscnn_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -260,12 +273,16 @@ def make_train_step(
 
     ``mesh``: a process-group mesh (module docstring); ``device`` defaults
     to this rank's device in it. ``loss_fn`` then takes ``group=`` (every
-    loss of ``losses/`` does). ``graph=True`` under a mesh captures the
-    collectives too, which NCCL allows and gloo does not (``ValueError``)."""
+    loss of ``losses/`` does), and ``space=`` with ``spatial_shard``.
+    ``graph=True`` under a mesh captures the collectives too (the spatial
+    exchanges included), which NCCL allows and gloo does not
+    (``ValueError``)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if device_aug is not None and spatial_shard:
+        raise ValueError("device_aug is incompatible with spatial_shard")
     dp = _data_parallel(mesh, spatial_shard, graph)
-    device = _step_device(_rank_device(device, mesh, dp), graph)
+    device = _step_device(_rank_device(device, mesh), graph)
     compute = _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_aug,
                             donate_batch, dp)
     if graph:
@@ -282,12 +299,20 @@ def make_train_step(
 
 @dataclasses.dataclass(frozen=True)
 class _DataParallel:
-    """What a step under a process-group mesh reduces over: the group, this
-    rank's place on ``data`` and the number of places."""
+    """What a step under a process-group mesh reduces over: ``group``, over
+    which the global batch's sums and the gradients reduce (the whole mesh
+    under spatial sharding, else the ranks of this rank's space index);
+    this rank's place on ``data`` and the number of places; ``data_group``,
+    the ranks that hold this rank's H rows, one a data place (the
+    microbatches regroup over it); ``space``, this rank's
+    :class:`~fastscnn_tpu_torch.parallel.spatial.Space` under spatial
+    sharding."""
 
     group: Any
     index: int
     size: int
+    data_group: Any = None
+    space: Space | None = None
 
     @property
     def shard(self) -> tuple[int, int]:
@@ -295,15 +320,13 @@ class _DataParallel:
 
 
 def _data_parallel(mesh, spatial_shard: bool, graph: bool) -> _DataParallel | None:
-    """The step's data parallelism under ``mesh``; None for no mesh or a mesh
-    of one device. Raises for what is not ported (a ``space`` axis, spatial
-    sharding), for a local mesh of several devices (a step runs one
-    process a device), for a rank the mesh left out and for a graph over
-    gloo."""
+    """The step's parallelism under ``mesh``; None for no mesh, a mesh of
+    one device, or one data place whose ranks each run the whole batch (a
+    ``space`` axis without ``spatial_shard``). Raises for a local mesh of
+    several devices (a step runs one process a device), for a rank the mesh
+    left out and for a graph over gloo."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
-    if spatial_shard or (mesh is not None and mesh.shape["space"] > 1):
-        raise NotImplementedError(f"spatial sharding is not ported yet ({SPATIAL_NOT_PORTED})")
     if mesh is None:
         return None
     if mesh.ranks is not None and not mesh.is_member:
@@ -316,16 +339,26 @@ def _data_parallel(mesh, spatial_shard: bool, graph: bool) -> _DataParallel | No
                 "the processes with initialize_multihost and build the mesh there (a local "
                 "mesh of several devices is for InferenceEngine)")
         return None  # one device: the single-process step
+    n_space = mesh.shape["space"]
+    spatial = spatial_shard and n_space > 1
+    data_group = mesh.group if n_space == 1 else mesh.data_group
+    if not spatial and data_group is None:
+        return None  # every rank of the one data place runs the whole batch
     backend = backend_of(mesh.group)
     if graph and backend != "nccl":
         raise ValueError(f"graph=True captures the step's collectives, which the {backend} "
                          "backend cannot run in a CUDA graph: use NCCL, or graph=False")
-    return _DataParallel(mesh.group, mesh.index, mesh.shape["data"])
+    if spatial:
+        space = Space(GroupTransport(mesh.space_group), mesh.space_index, n_space, data_group)
+        return _DataParallel(mesh.group, mesh.index, mesh.shape["data"], data_group, space)
+    return _DataParallel(data_group, mesh.index, mesh.shape["data"], data_group)
 
 
-def _rank_device(device, mesh, dp):
+def _rank_device(device, mesh):
     """``device``; None under a process-group mesh: this rank's device in it."""
-    return mesh.local_device if device is None and dp is not None else device
+    if device is None and isinstance(mesh, Mesh) and mesh.group is not None and mesh.is_member:
+        return mesh.local_device
+    return device
 
 
 def _step_device(device, graph: bool) -> torch.device:
@@ -372,7 +405,7 @@ def _microbatch_rows(t: torch.Tensor, grad_accum: int, dp: _DataParallel) -> tor
     rows ``[i·mb, (i+1)·mb)``, split over the ranks as the JAX step reshards
     it. A batch of b rows a rank gives b rows back, b / grad_accum a
     microbatch."""
-    full = gather_rows(t, dp.group)
+    full = gather_rows(t, dp.data_group)
     per = t.shape[0] // grad_accum
     return full.reshape(grad_accum, dp.size, per, *t.shape[1:])[:, dp.index].reshape(t.shape)
 
@@ -388,13 +421,16 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
     gradients' buffers as the step uses them."""
     normalize = _Normalize(mean, std)
     group = None if dp is None else dp.group
+    space = None if dp is None else dp.space
     loss_kwargs = {} if dp is None else {"group": group}
+    if space is not None:
+        loss_kwargs["space"] = space
 
     def grads_of(params, model_state, x, targets, generator):
         cast = tree_map(lambda p: p.to(compute_dtype), params)
         outputs, new_model_state = model.apply_params(
             cast, model_state, x, training=True, generator=generator, upsample_outputs=False,
-            group=group)
+            group=group, space=space)
         loss = loss_fn(outputs, targets, **loss_kwargs).float()
         loss.backward()  # accumulates f32 gradients on the masters
         return loss.detach(), new_model_state
@@ -416,6 +452,8 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
         n = batch[0].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
+        if space is not None:
+            check_spatial_height(batch[0].shape[1] * space.size, space.size)
         if dp is not None and grad_accum > 1 and dp.size > 1:
             batch[:] = [_microbatch_rows(t, grad_accum, dp) for t in batch]
         flat = grad_buffers(state)
@@ -437,7 +475,7 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
         if flat is not None:
             # the ranks' gradients summed (JAX's psum); autograd through the
             # loss's all-reduces differentiated N copies of the global loss
-            sum_(flat, group).div_(dp.size * grad_accum)
+            sum_(flat, group).div_(group_size(group) * grad_accum)
         elif grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
         state.opt_state.step()
@@ -474,9 +512,12 @@ def make_split_aug_train_step(
     argument has no counterpart here. ``graph=True``: each stage is a
     CUDA graph of its own, as the JAX split path compiles two programs.
     ``mesh``: as :func:`make_train_step`'s; the chain draws the global
-    batch's parameters and augments this rank's rows."""
+    batch's parameters and augments this rank's rows. A ``space`` axis
+    above 1 raises JAX's ``ValueError``."""
+    if mesh is not None and mesh.shape.get("space", 1) > 1:
+        raise ValueError("device_aug is incompatible with spatial sharding")
     dp = _data_parallel(mesh, False, graph)
-    device = _step_device(_rank_device(device, mesh, dp), graph)
+    device = _step_device(_rank_device(device, mesh), graph)
     compute = _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, None, True, dp)
     if dp is not None:
         chain = device_aug
@@ -752,9 +793,12 @@ def make_eval_step(
     ``mesh``: a process-group mesh (module docstring): each rank passes its
     rows and gets back its rows' mask and the statistics of the global
     batch (summed across the ranks; with ``per_sample_stats`` every rank's
-    rows gathered, in the global batch's order)."""
+    rows gathered, in the global batch's order). Under a ``space`` axis the
+    batch is replicated across it, as in JAX: each rank passes its data
+    place's rows and gets back their masks, the statistics summed over
+    ``data``."""
     dp = _data_parallel(mesh, False, graph)
-    device = _step_device(_rank_device(device, mesh, dp), graph)
+    device = _step_device(_rank_device(device, mesh), graph)
     normalize = _Normalize(mean, std)
 
     def forward(params, model_state, images, targets):

@@ -384,18 +384,30 @@ def _model(jax_init_trees, **options):
 
 
 def test_spatial_sharding_and_local_meshes_refuse_the_steps(jax_init_trees):
+    """Spatial sharding is ported (``tests/test_torch_spatial.py``): without
+    a mesh ``spatial_shard`` is the plain step, as in JAX; a local mesh with
+    a space axis refuses the steps as any local mesh of several devices
+    does (a step runs one process a device) and serves; the split step
+    refuses a space axis with JAX's error."""
     model = _model(jax_init_trees)
     opt = make_optimizer("sgd")
     loss = get_loss_fn("ce")
     sp = make_mesh(n_data=1, n_space=2, devices=["cpu", "cpu"])
-    for build in (lambda: make_train_step(model, loss, opt, spatial_shard=True, device="cpu"),
-                  lambda: make_train_step(model, loss, opt, mesh=sp, device="cpu"),
-                  lambda: make_eval_step(model, NC, mesh=sp, device="cpu"),
-                  lambda: make_split_aug_train_step(model, loss, opt, lambda *a: a, mesh=sp,
-                                                    device="cpu"),
-                  lambda: InferenceEngine(model, config=E2EConfig(), mesh=sp)):
-        with pytest.raises(NotImplementedError, match="item 6b"):
+    images, targets = _batch(5, 2, 32, 32)
+    losses = [float(make_train_step(model, loss, opt, spatial_shard=shard, device="cpu")(
+        create_train_state(model, opt, device="cpu"), images, targets)[1]["loss"])
+        for shard in (False, True)]
+    assert losses[0] == losses[1] and np.isfinite(losses[0])
+    for build in (lambda: make_train_step(model, loss, opt, mesh=sp, device="cpu"),
+                  lambda: make_eval_step(model, NC, mesh=sp, device="cpu")):
+        with pytest.raises(ValueError, match="one process a device"):
             build()
+    with pytest.raises(ValueError, match="device_aug is incompatible with spatial sharding"):
+        make_split_aug_train_step(model, loss, opt, lambda *a: a, mesh=sp, device="cpu")
+    cfg = E2EConfig(compute_dtype="float32")
+    frames = np.random.default_rng(8).integers(0, 256, (1, 64, 64, 3)).astype(np.uint8)
+    assert torch.equal(InferenceEngine(model, config=cfg, mesh=sp).predict(frames),
+                       InferenceEngine(model, device="cpu", config=cfg).predict(frames))
     local = make_mesh(devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="one process a device"):
         make_train_step(model, loss, opt, mesh=local, device="cpu")

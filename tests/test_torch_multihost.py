@@ -312,7 +312,8 @@ def test_dryrun_multichip_two_processes(monkeypatch, capsys):
     result = entry.dryrun_multichip(2, device="cpu")
     assert result["backend"] == "gloo" and len(result["ranks"]) == 2
     out = capsys.readouterr().out
-    assert "dp×sp refused (item 6b)" in out and "bit-equal across the ranks" in out
+    assert "dp×sp spatial train step" in out and "bit-equal across the ranks" in out
+    assert result["ranks"][0]["space_loss"] == result["ranks"][1]["space_loss"] is not None
 
 
 def test_a_dead_rank_fails_the_group_within_its_deadline(tmp_path):

@@ -206,15 +206,17 @@ def test_unported_options_and_devices_raise(shared, monkeypatch):
     model = FastSCNN(NUM_CLASSES)
     opt = make_optimizer("sgd")
     loss = get_loss_fn("ce")
-    # the data axis is ported (tests/test_torch_multidevice.py); spatial
-    # sharding is ROADMAP item 6b
+    # the data and space axes are ported (tests/test_torch_multidevice.py,
+    # tests/test_torch_spatial.py): a step runs one process a device, so a
+    # local mesh of two refuses it; spatial_shard without a mesh is the plain
+    # step, as in JAX; the split step refuses a space axis with JAX's error
     space = make_mesh(n_data=1, n_space=2, devices=["cpu", "cpu"])
-    for kw in ({"mesh": space}, {"spatial_shard": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6b"):
-            make_train_step(model, loss, opt, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6b"):
+    with pytest.raises(ValueError, match="one process a device"):
+        make_train_step(model, loss, opt, device="cpu", mesh=space)
+    make_train_step(model, loss, opt, device="cpu", spatial_shard=True)
+    with pytest.raises(ValueError, match="one process a device"):
         make_eval_step(model, NUM_CLASSES, mesh=space, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6b"):
+    with pytest.raises(ValueError, match="device_aug is incompatible with spatial sharding"):
         make_split_aug_train_step(model, loss, opt, lambda *a: a, mesh=space, device="cpu")
     with pytest.raises(TypeError, match="Mesh"):
         make_train_step(model, loss, opt, mesh=object(), device="cpu")
