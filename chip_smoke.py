@@ -250,7 +250,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    crops of 1024x2048 over 4 gloo ranks sharing cuda:0, under a 1 × 2
    mesh (ranks 0 and 1) and a 2 × 2 mesh (all four), each rank its block
    of rows (``spatial_shard=True``), ``stem_impl`` 'xla' and 'pallas' (B6
-   on each block), f32 and bf16, one step from the init and one timed: the
+   on each block), f32 and bf16, and the replicated form (``spatial_shard``
+   off: each rank its data place's rows whole; 'pallas', f32), one step
+   from the init and one timed: the
    losses and the parameters bit-equal across each mesh's ranks, the f32
    step within 4x phase 6's yardstick of one process's step on the global
    batch, B6 at 2 launches a step for each part in each rank, ms a step;
@@ -258,7 +260,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    2: config ref ('conv' + 'hybrid') in f32 and bf16 and 'taps' +
    'matmul' in f32, 2 frames of 1024x2048: the f32 masks equal to the
    meshless engine (on each data place's shard) on 99.999 % of pixels or
-   more, the bf16 agreement, and
+   more, the bf16 agreement, ``predict`` from a side stream equal to
+   ``predict`` on the default stream, and
    ``predict_fn`` (eager under ``space``) ms a frame beside the meshless
    graph's;
 15. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
@@ -6107,12 +6110,13 @@ def multidevice_phase(root, yard):
 
 
 # phase 14: the global batch of 1024x2048 crops (a place on data each under
-# 2 x 2), the meshes (data, space) of its gloo group, the step forms
+# 2 x 2), the meshes (data, space) of its gloo group, the step forms (stem,
+# dtype, spatial_shard: False replicates the batch across space)
 SP_BATCH = 2
 SP_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 SP_RANKS = 4
-SP_FORMS = (("xla", "float32"), ("pallas", "float32"), ("xla", "bfloat16"),
-            ("pallas", "bfloat16"))
+SP_FORMS = (("xla", "float32", True), ("pallas", "float32", True), ("xla", "bfloat16", True),
+            ("pallas", "bfloat16", True), ("pallas", "float32", False))
 SP_TIMED = 1  # steps timed after the gated first step of each form
 SP_STEPS = 3  # MC (e)'s steps a form
 SP_DEADLINE_S = 300.0  # each spawned group of phase 14, killed past it
@@ -6181,11 +6185,11 @@ def spatial_rank(work: str, nccl: bool) -> None:
         for name, mesh in meshes.items():
             if not mesh.is_member:
                 continue
-            block = host_block(mesh, images, targets)
-            trainer = recipe_trainer(dev, mesh, spatial=True)
-            for stem, dtype in SP_FORMS:
-                key = f"{name} {stem} {dtype}"
-                state, step = trainer(stem, getattr(torch, dtype))
+            for stem, dtype, spatial in SP_FORMS:
+                key = _sp_key(name, stem, dtype, spatial)
+                block = host_block(mesh, images, targets, spatial=spatial)
+                state, step = recipe_trainer(dev, mesh, spatial=spatial)(stem,
+                                                                         getattr(torch, dtype))
                 p0, s0 = _leaves_of(state)
                 torch.cuda.reset_peak_memory_stats(dev)
                 reset_launch_counts()
@@ -6207,6 +6211,10 @@ def spatial_rank(work: str, nccl: bool) -> None:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _sp_key(name, stem, dtype, spatial):
+    return f"{name} {stem} {dtype}" + ("" if spatial else " replicated")
 
 
 def _sp_group(root, work, n, nccl=False):
@@ -6247,8 +6255,8 @@ def spatial_train_leg(root, work, yard):
            f"{tuple(f'{v:.3g}' for v in limits)} (phase 6's yardstick x {F32_STEP_FACTOR})")
     for name, (n_data, n_space) in SP_MESHES.items():
         members = ranks[:n_data * n_space]
-        for stem, dtype in SP_FORMS:
-            key = f"{name} {stem} {dtype}"
+        for stem, dtype, spatial in SP_FORMS:
+            key = _sp_key(name, stem, dtype, spatial)
             runs = [r[key] for r in members]
             if len({(r["loss"], r["digest"], tuple(r["losses"])) for r in runs}) != 1:
                 raise AssertionError(f"14 (a) {key}: losses or parameters differ across the "
@@ -6264,7 +6272,7 @@ def spatial_train_leg(root, work, yard):
                 for k in TRAINING_NAMES:
                     launches[TRAINING_NAMES[k]] = (launches.get(TRAINING_NAMES[k], 0)
                                                    + r["launches"][k])
-            line = (f"  {name} {stem} {dtype}: losses {[round(v, 5) for v in losses]}, bit-equal "
+            line = (f"  {key}: losses {[round(v, 5) for v in losses]}, bit-equal "
                     f"on its {len(runs)} ranks; ms a step (steps 2-{1 + SP_TIMED}) "
                     f"{[round(v, 1) for v in runs[0]['ms']]}; peak "
                     f"{max(r['peak_gib'] for r in runs):.2f} GiB a rank")
@@ -6281,7 +6289,10 @@ def spatial_train_leg(root, work, yard):
 def spatial_serve_leg(devices=None, n_space=2, what="14 (b)"):
     """14 (b), or MC (e)'s engine across ``devices``: the engine under a
     local mesh with a ``space`` axis of ``n_space`` (None: [cuda:0,
-    cuda:0]) against the meshless engine at 1024x2048."""
+    cuda:0]) against the meshless engine at 1024x2048, and ``predict``
+    called again from a side stream on each card (every copy between the
+    devices must follow the stream that wrote its source), equal to its
+    call on the default streams."""
     import torch
 
     from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
@@ -6309,6 +6320,8 @@ def spatial_serve_leg(devices=None, n_space=2, what="14 (b)"):
         want = torch.cat([single.predict(frames[k * per:(k + 1) * per])
                           for k in range(mesh.shape["data"])])
         got = sharded.predict(frames)
+        on_side = _on_side_streams(devices, lambda: sharded.predict(frames))
+        same_side = bool(torch.equal(on_side, got))
         fn = sharded.predict_fn(tuple(frames.shape))
         same_fn = bool(torch.equal(fn(frames), got))
         agree = (got == want).float().mean().item()
@@ -6319,13 +6332,31 @@ def spatial_serve_leg(devices=None, n_space=2, what="14 (b)"):
         _print(f"{what} {label} ({dw} + {up}) {dtype}, {SP_BATCH}x{HEIGHT}x{WIDTH} over "
                f"{mesh.shape} on {where}: masks equal to the meshless engine on {agree:.7f} of "
                f"pixels ({whole:.7f} against its batch of {SP_BATCH}), predict_fn equal to "
-               f"predict {same_fn}; ms a frame: predict_fn under space (eager) "
+               f"predict {same_fn}, predict from side streams equal {same_side}; ms a frame: predict_fn under space (eager) "
                f"{ms['space']:.2f}, the meshless graph {ms['meshless graph']:.2f}")
-        if not same_fn or (dtype == "float32" and agree < SP_ENGINE_GATE):
+        if not same_fn or not same_side or (dtype == "float32" and agree < SP_ENGINE_GATE):
             raise AssertionError(f"{what} {label} {dtype}: agreement {agree}, predict_fn "
-                                 f"equal {same_fn}")
+                                 f"equal {same_fn}, side streams equal {same_side}")
         del single, sharded, fn, graph
         torch.cuda.empty_cache()
+
+
+def _on_side_streams(devices, fn):
+    """``fn()`` with a new stream current on each of ``devices``' cards
+    (each waiting for its card's current stream first), its result once
+    every card is done."""
+    import torch
+
+    cards = sorted({torch.device(d).index or 0 for d in devices})
+    streams = [torch.cuda.Stream(torch.device("cuda", k)) for k in cards]
+    with contextlib.ExitStack() as stack:
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream(st.device))
+            stack.enter_context(torch.cuda.stream(st))
+        out = fn()
+    for k in cards:
+        torch.cuda.synchronize(k)
+    return out
 
 
 def spatial_multicard_leg(root, cards):

@@ -41,7 +41,8 @@ mesh holds a replica, and each data place's shard is normalised on the
 place's first device, then split into blocks of rows over the place's
 space devices, where the backbone runs H-sharded
 (``FastSCNN.apply_folded(space=...)``, one thread a device over a local
-space group of ``parallel/spatial.py``). The blocks of the 1/8 logits are
+space group of ``parallel/spatial.py``, each copy between devices on the
+stream that wrote its source). The blocks of the 1/8 logits are
 gathered on the place's first device, and the mask head runs there as the
 meshless engine runs it. The network's input H must be a multiple of 32
 times the ``space`` axis. The kernel configurations raise JAX's
@@ -255,14 +256,15 @@ class InferenceEngine:
         if peers is None:
             return self.model.apply_folded(g["folded"], x, upsample_outputs=False)[0]
         from fastscnn_tpu_torch.parallel.mesh import check_spatial_height
-        from fastscnn_tpu_torch.parallel.spatial import local_spaces, run_spmd
+        from fastscnn_tpu_torch.parallel.spatial import copy_after, local_spaces, run_spmd
 
         n = len(peers)
         check_spatial_height(x.shape[1], n)
         h = x.shape[1] // n
         spaces = local_spaces([p.device for p in peers])
         # each thread works on the caller's current stream of its device, so
-        # that it is ordered after the caller's work and before its reads
+        # that it is ordered after the caller's work and before its reads;
+        # every copy between devices runs on the stream that wrote its source
         streams = [torch.cuda.current_stream(p.device) if p.device.type == "cuda" else None
                    for p in peers]
 
@@ -271,12 +273,13 @@ class InferenceEngine:
             on_stream = (torch.cuda.stream(streams[k]) if streams[k] is not None
                          else contextlib.nullcontext())
             with _device_guard(peer.device), on_stream, torch.inference_mode():
-                block = x[:, k * h:(k + 1) * h].to(peer.device)
+                block = copy_after(x[:, k * h:(k + 1) * h], streams[0], peer.device)
                 folded = g["folded"] if k == 0 else peer.folded
                 return peer.model.apply_folded(folded, block, upsample_outputs=False,
                                                space=spaces[k])[0]
 
-        return torch.cat([b.to(self.device) for b in run_spmd(spaces, rank)], dim=1)
+        blocks = run_spmd(spaces, rank)
+        return torch.cat([copy_after(b, s, self.device) for b, s in zip(blocks, streams)], dim=1)
 
     def _forward(self, images, resize_back=False, upsample=True, g=None):
         g = self.graph_tensors() if g is None else g

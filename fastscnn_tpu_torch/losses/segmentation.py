@@ -30,10 +30,11 @@ all-reduce (``ops/collectives.py``), and OHEM's k-th smallest over every
 rank's pixels, each bisection step's count all-reduced. ``group=None``
 computes as in one process.
 
-Every loss also takes ``space`` (``parallel/spatial.py``): the logits and
-the target are then this rank's block of rows, ``group`` the whole mesh's,
-and the upsample gives the target block's rows of the global upsample
-(``spatial.resize_rows_matmul``, its source rows taken across the cut).
+Every loss also takes ``space``, a rank's place on the mesh's ``space``
+axis (``ops/halo.py``): the logits and the target are then this rank's
+block of rows, ``group`` the whole mesh's, and the upsample gives the
+target block's rows of the global upsample (``resize.resize_rows_matmul``,
+its source rows taken across the cut).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from fastscnn_tpu_torch.ops.collectives import global_sums, group_size, sum_
-from fastscnn_tpu_torch.ops.resize import device_table_cache, resize_bilinear_matmul
+from fastscnn_tpu_torch.ops.resize import device_table_cache, resize_rows_matmul
 
 __all__ = [
     "dice_loss",
@@ -66,20 +67,10 @@ CITYSCAPES_CLASS_WEIGHTS = (
 )
 
 
-def _upsample(t: torch.Tensor, size, space) -> torch.Tensor:
-    """``resize_bilinear_matmul`` to ``size`` (align_corners=True); under
-    ``space`` the block's rows of the global resize."""
-    if space is None:
-        return resize_bilinear_matmul(t, size, align_corners=True)
-    from fastscnn_tpu_torch.parallel.spatial import resize_rows_matmul
-
-    return resize_rows_matmul(t, (size[0] * space.size, size[1]), space, align_corners=True)
-
-
 def _match_resolution(logits: torch.Tensor, target: torch.Tensor, space=None) -> torch.Tensor:
     """Upsample (align_corners=True) NHWC logits to the target's size."""
     if logits.ndim == 4 and target.ndim >= 3 and logits.shape[1:3] != target.shape[1:3]:
-        logits = _upsample(logits, tuple(target.shape[1:3]), space)
+        logits = resize_rows_matmul(logits, tuple(target.shape[1:3]), space)
     return logits
 
 
@@ -91,7 +82,7 @@ def _binary_diff_at_target_res(logits: torch.Tensor, target: torch.Tensor,
     resized channels."""
     d = (logits[..., 1] - logits[..., 0]).float()
     if target.ndim >= 3 and d.shape[1:3] != target.shape[1:3]:
-        d = _upsample(d, tuple(target.shape[1:3]), space)
+        d = resize_rows_matmul(d, tuple(target.shape[1:3]), space)
     return d
 
 

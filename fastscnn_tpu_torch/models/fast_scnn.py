@@ -34,18 +34,19 @@ so a JAX-initialised model and a real ``fast_scnn_*.pth`` both load with
   ``act_fake_quant`` is the JAX model's hook on every conv input. The JAX
   names are kept so configurations map one to one.
 
-Both forwards take ``space``, a :class:`~fastscnn_tpu_torch.parallel.spatial.Space`:
-``x`` is then this rank's block of the image's rows (H a multiple of 32
-times the axis's size), every activation is the block of the global one,
-and the outputs are the blocks of the global outputs. Each 3×3 conv runs on
-its block plus halo rows (``spatial.conv_rows``); the stem conv's output
+Both forwards take ``space``, a rank's place on the mesh's ``space`` axis
+(``parallel/spatial.py::Space``; ``ops/halo.py``): ``x`` is then this
+rank's block of the image's rows (H a multiple of 32 times the axis's
+size), every activation is the block of the global one, and the outputs
+are the blocks of the global outputs. Each 3×3 conv runs on its block plus
+halo rows (``halo.conv_rows``); the stem conv's output
 has H/2 − 1 rows, so the last rank drops the row it computes past them
 from the stem's batch statistics and zeroes it, where the next conv's
 padding is; the pyramid pooling gathers its 1/32 input, runs its four
 branches on the whole map, replicated across ``space`` (their batch
 statistics over ``data`` only), and keeps its rows of each upsample; the
 feature fusion's ×4 upsample takes its source rows across the cut
-(``spatial.resize_rows``); block-sharded batch statistics reduce over the
+(``resize.resize_rows``); block-sharded batch statistics reduce over the
 whole mesh (``group``); dropout draws the global batch's mask and keeps the
 block.
 """
@@ -83,8 +84,14 @@ from fastscnn_tpu_torch.ops.cuda.int8_pw import (
     pw_conv_w8a8_reference,
     quantize_act,
 )
+from fastscnn_tpu_torch.ops.halo import block_rows, conv_rows, gather_rows_h
 from fastscnn_tpu_torch.ops.pool import adaptive_avg_pool
-from fastscnn_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_matmul
+from fastscnn_tpu_torch.ops.resize import (
+    resize_bilinear,
+    resize_bilinear_matmul,
+    resize_rows,
+    resize_rows_matmul,
+)
 from fastscnn_tpu_torch.utils.tree import tree_map
 
 __all__ = [
@@ -373,7 +380,7 @@ class FastSCNN(nn.Module):
         ``group`` is then the whole mesh's, over which block-sharded
         statistics reduce."""
         run = _TreeForward(self, training, generator, group, space)
-        size = (x.shape[1] * (space.size if space else 1), x.shape[2])
+        size = (x.shape[1], x.shape[2])
         new_state = {}
         higher, new_state["learning_to_downsample"] = run.ltd(
             params["learning_to_downsample"], state["learning_to_downsample"], x)
@@ -388,9 +395,7 @@ class FastSCNN(nn.Module):
             auxout, new_state["auxlayer"] = run.aux(params["auxlayer"], state["auxlayer"], higher)
             outputs.append(auxout)
         if upsample_outputs:
-            outputs = [resize_bilinear(o, size, align_corners=True) if space is None
-                       else _spatial().resize_rows(o, size, space, align_corners=True)
-                       for o in outputs]
+            outputs = [resize_rows(o, size, space) for o in outputs]
         return tuple(outputs), new_state
 
     # -- folded inference ---------------------------------------------------
@@ -419,17 +424,12 @@ class FastSCNN(nn.Module):
                              "rows takes 'conv' or 'taps' and 'conv'")
         aq = _site_hook(self.act_fake_quant)
         int8_scales = dict(self.pw_act_scales) if self.folded_pw_impl != "conv" else {}
-        sp = _spatial() if space is not None else None
-
-        def conv(fn, y, w, stride, padding, **kwargs):
-            if space is not None and w.shape[0] == 3:
-                return sp.conv_rows(fn, y, w, stride, padding, space, **kwargs)
-            return fn(y, w, stride=stride, padding=padding, **kwargs)
 
         def cbr(p, y, stride=1, padding=0, groups=1, relu=True, site=None):
             if site is not None and site in int8_scales:
                 return self._pw_int8(p, y, site, int8_scales[site], relu)
-            y = conv(conv2d, aq(y, site), p["w"], stride, padding, b=p["b"], groups=groups)
+            y = conv_rows(conv2d, aq(y, site), p["w"], stride, padding, space, b=p["b"],
+                          groups=groups)
             return torch.relu(y) if relu else y
 
         def ds(p, y, stride=1, dw_alt=False, site=None):
@@ -440,7 +440,8 @@ class FastSCNN(nn.Module):
                 return fn(y.contiguous(), p["dw"]["w"], p["dw"]["b"], p["pw"]["w"], p["pw"]["b"],
                           stride=stride, padding=1)
             if dw_alt and impl == "taps":
-                y = torch.relu(conv(dw_conv2d_taps, y, p["dw"]["w"], stride, 1, b=p["dw"]["b"]))
+                y = torch.relu(conv_rows(dw_conv2d_taps, y, p["dw"]["w"], stride, 1, space,
+                                         b=p["dw"]["b"]))
             elif dw_alt:  # 'pallas': dw + bias + ReLU in kernel B4
                 y = dw_conv3x3(y.contiguous(), p["dw"]["w"], p["dw"]["b"], stride=stride,
                                padding=1, relu=True)
@@ -457,8 +458,7 @@ class FastSCNN(nn.Module):
                 z = y + z
             return z
 
-        n_space = space.size if space is not None else 1
-        size = (x.shape[1] * n_space, x.shape[2])
+        size = (x.shape[1], x.shape[2])
         p = fparams
         dw_alt = impl != "conv"
         ltd = p["learning_to_downsample"]
@@ -473,19 +473,17 @@ class FastSCNN(nn.Module):
         for name, stride in (("bottleneck1", 2), ("bottleneck2", 2), ("bottleneck3", 1)):
             for i, bp in enumerate(g[name]):
                 y = bottleneck(bp, y, stride if i == 0 else 1, site=f"gfe/{name}/{i}")
-        whole = y if space is None else sp.gather_rows_h(y, space)  # the 1/32 map
+        whole = gather_rows_h(y, space)  # the 1/32 map
         psize = (whole.shape[1], whole.shape[2])
         feats = [y]
         for conv_name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
             z = cbr(g["ppm"][conv_name], adaptive_avg_pool(whole, pool_size),
                     site=f"gfe/ppm/{conv_name}")
             z = resize_bilinear_matmul(z, psize, align_corners=self.ppm_align_corners)
-            feats.append(z if space is None else sp.block_rows(z, space))
+            feats.append(block_rows(z, space))
         lower = cbr(g["ppm"]["out"], torch.cat(feats, dim=-1), site="gfe/ppm/out")
         f = p["feature_fusion"]
-        hsize = (higher.shape[1] * n_space, higher.shape[2])
-        lo = (resize_bilinear_matmul(lower, hsize, align_corners=True) if space is None
-              else sp.resize_rows_matmul(lower, hsize, space, align_corners=True))
+        lo = resize_rows_matmul(lower, (higher.shape[1], higher.shape[2]), space)
         lo = cbr(f["dwconv"], lo, padding=1, groups=lo.shape[-1], site="ffm/dwconv")
         lo = cbr(f["conv_lower_res"], lo, relu=False, site="ffm/conv_lower_res")
         hi = cbr(f["conv_higher_res"], higher, relu=False, site="ffm/conv_higher_res")
@@ -493,20 +491,14 @@ class FastSCNN(nn.Module):
         c = p["classifier"]
         y = ds(c["dsconv2"], ds(c["dsconv1"], fused, site="cls/dsconv1"), site="cls/dsconv2")
         logits = conv2d(aq(y, "cls/conv"), c["conv"]["w"], c["conv"]["b"])
-
-        def upsample(t):
-            if space is None:
-                return resize_bilinear_matmul(t, size, align_corners=True)
-            return sp.resize_rows_matmul(t, size, space, align_corners=True)
-
         if upsample_outputs:
-            logits = upsample(logits)
+            logits = resize_rows_matmul(logits, size, space)
         if self.aux and "auxlayer" in p:
             a = p["auxlayer"]
             z = cbr(a["conv1"], higher, padding=1, site="aux/conv1")
             auxout = conv2d(aq(z, "aux/conv2"), a["conv2"]["w"], a["conv2"]["b"])
             if upsample_outputs:
-                auxout = upsample(auxout)
+                auxout = resize_rows_matmul(auxout, size, space)
             return (logits, auxout)
         return (logits,)
 
@@ -551,14 +543,6 @@ def _site_hook(hook):
     return hook if takes_site else (lambda y, site=None: hook(y))
 
 
-def _spatial():
-    """``parallel.spatial``, imported at first use: ``parallel/`` imports
-    this module."""
-    from fastscnn_tpu_torch.parallel import spatial
-
-    return spatial
-
-
 def _fold_int8_weights(w, scale: float, impl: str):
     """The JAX ``pw_int8`` weight fold of a (1, 1, K, N) folded weight at
     activation scale ``scale``: (s, w_eff) for 'int8-a8', w_eff =
@@ -587,7 +571,6 @@ class _TreeForward:
         self.generator = generator
         self.group = group
         self.space = space
-        self.sp = _spatial() if space is not None else None
         self.dropout_rate = model.dropout_rate
         self.ppm_sizes, self.ppm_align_corners = model.ppm_sizes, model.ppm_align_corners
         impl = model.stem_impl
@@ -606,13 +589,6 @@ class _TreeForward:
 
             self.stem_conv = stem_conv
 
-    def conv(self, conv_fn, x, w, stride=1, padding=0, groups=1):
-        """``conv_fn`` on ``x``; a 3×3 under ``space`` on the block plus its
-        halo rows."""
-        if self.space is not None and w.shape[0] == 3:
-            return self.sp.conv_rows(conv_fn, x, w, stride, padding, self.space, groups=groups)
-        return conv_fn(x, w, stride=stride, padding=padding, groups=groups)
-
     def bn(self, p, s, x, packed=False, replicated=False, count=None):
         """BN of ``x``; in training on the batch moments over ``group``, or,
         for a tensor ``replicated`` across ``space``, over its ``data``
@@ -627,7 +603,7 @@ class _TreeForward:
 
     def cbr(self, p, s, x, stride=1, padding=0, groups=1, relu=True, conv_fn=conv2d,
             packed=False, replicated=False):
-        y = self.conv(conv_fn, x, p["w"], stride, padding, groups)
+        y = conv_rows(conv_fn, x, p["w"], stride, padding, self.space, groups=groups)
         y, s_bn = self.bn(p["bn"], s["bn"], y, packed, replicated)
         return (torch.relu(y) if relu else y), {"bn": s_bn}
 
@@ -653,8 +629,8 @@ class _TreeForward:
         padding of the next conv's window)."""
         if self.space is None:
             return self.cbr(p, s, x, stride=2, conv_fn=conv, packed=packed)
-        y = self.conv(conv, x, p["w"], stride=2)
         space = self.space
+        y = conv_rows(conv, x, p["w"], 2, 0, space)
         n_data = max(group_size(self.group) // space.size, 1)
         count = y.shape[0] * n_data * (y.shape[1] * space.size - 1) * y.shape[2]
         if space.last:
@@ -681,24 +657,20 @@ class _TreeForward:
                 stage.append(s_i)
             ns[name] = stage
         # under space the branches run on the whole 1/32 map, replicated
-        whole = x if self.space is None else self.sp.gather_rows_h(x, self.space)
+        whole = gather_rows_h(x, self.space)
         size = (whole.shape[1], whole.shape[2])
         feats, ppm = [x], {}
         for name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
             y, ppm[name] = self.cbr(p["ppm"][name], s["ppm"][name],
                                     adaptive_avg_pool(whole, pool_size), replicated=True)
             y = resize_bilinear(y, size, align_corners=self.ppm_align_corners)
-            feats.append(y if self.space is None else self.sp.block_rows(y, self.space))
+            feats.append(block_rows(y, self.space))
         y, ppm["out"] = self.cbr(p["ppm"]["out"], s["ppm"]["out"], torch.cat(feats, dim=-1))
         ns["ppm"] = ppm
         return y, ns
 
     def ffm(self, p, s, higher, lower):
-        if self.space is None:
-            lower = resize_bilinear(lower, (higher.shape[1], higher.shape[2]), align_corners=True)
-        else:
-            size = (higher.shape[1] * self.space.size, higher.shape[2])
-            lower = self.sp.resize_rows(lower, size, self.space, align_corners=True)
+        lower = resize_rows(lower, (higher.shape[1], higher.shape[2]), self.space)
         lower, s_dw = self.cbr(p["dwconv"], s["dwconv"], lower, padding=1, groups=lower.shape[-1])
         lower = conv2d(lower, p["conv_lower_res"]["w"], p["conv_lower_res"]["b"])
         lower, s_lo = self.bn(p["conv_lower_res"]["bn"], s["conv_lower_res"]["bn"], lower)
@@ -714,7 +686,7 @@ class _TreeForward:
         return conv2d(y, p["conv"]["w"], p["conv"]["b"]), {"dsconv1": s1, "dsconv2": s2}
 
     def aux(self, p, s, x):
-        y = self.conv(conv2d, x, p["conv1"]["w"], padding=1)
+        y = conv_rows(conv2d, x, p["conv1"]["w"], 1, 1, self.space)
         y, s_bn = self.bn(p["conv1"]["bn"], s["conv1"]["bn"], y)
         y = self.dropout(torch.relu(y))
         return conv2d(y, p["conv2"]["w"], p["conv2"]["b"]), {"conv1": {"bn": s_bn}}
@@ -732,9 +704,7 @@ class _TreeForward:
         b = x.shape[0]
         mask = torch.rand((n * b, x.shape[1] * m, *x.shape[2:]), generator=self.generator,
                           device=x.device)[k * b:(k + 1) * b]
-        if self.space is not None:
-            mask = self.sp.block_rows(mask, self.space)
-        mask = mask < keep
+        mask = block_rows(mask, self.space) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["group_size", "group_rank", "global_sum", "global_sums", "sum_", "gather_rows"]
+__all__ = ["group_size", "group_rank", "global_sum", "global_sums", "sum_", "gather_rows",
+           "broadcast_"]
 
 
 def group_size(group) -> int:
@@ -73,3 +74,16 @@ def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts)
+
+
+def broadcast_(ts: list, group, src: int) -> None:
+    """Each of the tensors ``ts`` (of one dtype) set in place to its value
+    on global rank ``src`` of the group, in one broadcast (no autograd)."""
+    if group is None:
+        return
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    dist.broadcast(flat, src=src, group=group)
+    torch._foreach_copy_(ts, [v.view_as(t) for v, t in
+                              zip(flat.split([t.numel() for t in ts]), ts)])

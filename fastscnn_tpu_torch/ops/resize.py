@@ -13,6 +13,13 @@ same weights.
   the cheaper contraction order is chosen from the shapes, which also
   decides where a bf16 result rounds.
 - ``resize_nearest``: the legacy ``floor(i * in / out)`` rule.
+- ``resize_rows``, ``resize_rows_matmul``: under the mesh's ``space`` axis
+  (``ops/halo.py``), this rank's rows of ``resize_bilinear`` or
+  ``resize_bilinear_matmul`` (align_corners=True) of the global tensor,
+  from its block of rows and the halo rows its source rows reach: the
+  global resize's weights, so the global resize's bits. Every caller's
+  resize across the cut is an align-corners one; the pyramid pooling's,
+  which may not be, runs on the gathered whole map.
 
 Every function takes the H and W axes, so NHWC, NCHW and channel-free
 (N, H, W) tensors all work.
@@ -22,12 +29,16 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import numpy as np
 import torch
 
+from fastscnn_tpu_torch.ops.halo import halo_rows
+
 __all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest", "nearest_index",
-           "device_table_cache", "holding_tables", "recording_tables", "substituted_tables"]
+           "resize_rows", "resize_rows_matmul", "device_table_cache", "holding_tables",
+           "recording_tables", "substituted_tables"]
 
 # the lists of the active ``holding_tables`` blocks, innermost last
 _HOLDERS: list[list] = []
@@ -210,6 +221,17 @@ def _matmul_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool)
     return torch.movedim(y, -1, axis)
 
 
+def _matmul_order(shape, h_axis, w_axis, out_h, out_w) -> bool:
+    """Whether contracting W first is no dearer than H first, for a tensor
+    of ``shape``: the larger contraction runs on the smaller intermediate."""
+    numel = math.prod(shape)
+    in_h, in_w = shape[h_axis], shape[w_axis]
+    rest = numel // in_h // in_w
+    cost_h_first = numel // in_h * out_h * in_h + rest * out_h * out_w * in_w
+    cost_w_first = numel // in_w * out_w * in_w + rest * out_w * out_h * in_h
+    return cost_w_first <= cost_h_first
+
+
 def resize_bilinear_matmul(
     x: torch.Tensor,
     size: tuple[int, int],
@@ -221,21 +243,100 @@ def resize_bilinear_matmul(
 
     Same sampling weights as :func:`resize_bilinear`; numerics differ only
     in summation order (``lo*(1-w) + hi*w``), so argmax masks can flip only
-    at near-ties."""
+    at near-ties. The cheaper contraction order is taken first."""
     out_h, out_w = int(size[0]), int(size[1])
-    numel = x.numel()
-    n_other_h = numel // x.shape[h_axis]
-    n_other_w = numel // x.shape[w_axis]
-    rest = numel // x.shape[h_axis] // x.shape[w_axis]
-    # Contract the axis whose expansion is cheaper first, so the larger
-    # contraction runs on the smaller intermediate.
-    cost_h_first = n_other_h * out_h * x.shape[h_axis] + rest * out_h * out_w * x.shape[w_axis]
-    cost_w_first = n_other_w * out_w * x.shape[w_axis] + rest * out_w * out_h * x.shape[h_axis]
-    if cost_w_first <= cost_h_first:
+    if _matmul_order(x.shape, h_axis, w_axis, out_h, out_w):
         x = _matmul_axis(x, w_axis, out_w, align_corners)
         return _matmul_axis(x, h_axis, out_h, align_corners)
     x = _matmul_axis(x, h_axis, out_h, align_corners)
     return _matmul_axis(x, w_axis, out_w, align_corners)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_halo(in_size: int, out_size: int, n: int) -> tuple[int, int]:
+    """The rows above and below its block that the worst rank's output rows
+    of a global align-corners H resize from ``in_size`` to ``out_size`` over
+    ``n`` blocks read (every rank fetches as many: an ``all_gather`` moves
+    equal parts)."""
+    lo, hi, _ = _axis_lerp_coeffs(in_size, out_size, True)
+    hs, ho = in_size // n, out_size // n
+    above = max(s * hs - int(lo[s * ho:(s + 1) * ho].min()) for s in range(n))
+    below = max(int(hi[s * ho:(s + 1) * ho].max()) - ((s + 1) * hs - 1) for s in range(n))
+    return max(above, 0), max(below, 0)
+
+
+@device_table_cache
+def row_lerp_tables(in_size: int, out_size: int, n: int, s: int, device: torch.device):
+    """Block ``s``'s rows of :func:`lerp_tables` (align_corners=True): (lo,
+    hi) as indices into its extended block (:func:`_row_halo`'s rows above
+    first) and the weights, the global resize's own."""
+    lo, hi, w = _axis_lerp_coeffs(in_size, out_size, True)
+    above, _ = _row_halo(in_size, out_size, n)
+    rows = slice(s * (out_size // n), (s + 1) * (out_size // n))
+    base = s * (in_size // n) - above
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device) for v in (
+            (lo[rows] - base).astype(np.int64), (hi[rows] - base).astype(np.int64), w[rows]))
+
+
+@device_table_cache
+def row_interp_matrix(in_size: int, out_size: int, n: int, s: int, dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """Block ``s``'s part of :func:`interp_matrix` (align_corners=True): the
+    rows of its extended block (zero rows past the image's edges) by its
+    output rows."""
+    a = _interp_matrix(in_size, out_size, True)
+    above, below = _row_halo(in_size, out_size, n)
+    hs, ho = in_size // n, out_size // n
+    base = s * hs - above
+    ext = np.zeros((hs + above + below, ho), np.float32)
+    first, stop = max(base, 0), min(base + ext.shape[0], in_size)
+    ext[first - base:stop - base] = a[first:stop, s * ho:(s + 1) * ho]
+    with torch.inference_mode(False):
+        return torch.from_numpy(ext).to(device=device, dtype=dtype)
+
+
+def resize_rows(x: torch.Tensor, size, space=None) -> torch.Tensor:
+    """``resize_bilinear(x, size)`` (align_corners=True, NHWC or (N, H, W)).
+    Under ``space`` (``ops/halo.py``), ``x`` is this rank's block of rows
+    and ``size`` its block's output size: this rank's output rows of the
+    global resize, from its block and the halo rows its source rows reach,
+    with the global resize's weights in its order (the same bits)."""
+    if space is None:
+        return resize_bilinear(x, size, align_corners=True)
+    n = space.size
+    in_h, out_h = x.shape[1] * n, int(size[0]) * n
+    if in_h != out_h:
+        ext = halo_rows(x, *_row_halo(in_h, out_h, n), space)
+        lo, hi, w = row_lerp_tables(in_h, out_h, n, space.index, x.device)
+        shape = [1] * x.ndim
+        shape[1] = out_h // n
+        w = w.to(ext.dtype).reshape(shape)
+        x_lo = ext.index_select(1, lo)
+        x = x_lo + (ext.index_select(1, hi) - x_lo) * w
+    return _lerp_axis(x, 2, int(size[1]), True)
+
+
+def resize_rows_matmul(x: torch.Tensor, size, space=None) -> torch.Tensor:
+    """``resize_bilinear_matmul(x, size)`` (align_corners=True). Under
+    ``space``, as :func:`resize_rows`: this rank's output rows of the
+    global resize, its weights contracted in the order that the global
+    shapes choose (which decides where a bf16 result rounds)."""
+    if space is None:
+        return resize_bilinear_matmul(x, size, align_corners=True)
+    n = space.size
+    in_h, out_h, out_w = x.shape[1] * n, int(size[0]) * n, int(size[1])
+
+    def rows(y):
+        if in_h == out_h:
+            return y
+        ext = halo_rows(y, *_row_halo(in_h, out_h, n), space)
+        a = row_interp_matrix(in_h, out_h, n, space.index, ext.dtype, ext.device)
+        return torch.movedim(torch.tensordot(ext, a, dims=([1], [0])), -1, 1)
+
+    if _matmul_order((x.shape[0], in_h, *x.shape[2:]), 1, 2, out_h, out_w):
+        return rows(_matmul_axis(x, 2, out_w, True))
+    return _matmul_axis(rows(x), 2, out_w, True)
 
 
 @functools.lru_cache(maxsize=None)

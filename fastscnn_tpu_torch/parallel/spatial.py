@@ -1,24 +1,7 @@
-"""Differentiable exchanges over the mesh's ``space`` axis.
+"""The transports of the mesh's ``space`` axis, and a rank's place on it.
 
-Under a ``space`` axis of n each rank holds one block of every activation:
-the image's H split in n equal blocks of rows, rank s holding rows
-``[s·h, (s+1)·h)`` (``parallel/mesh.py::block_sharding``). JAX's GSPMD
-inserts the exchanges this needs; here they are written by hand, forward
-and backward, and the model's forward (``models/fast_scnn.py``) calls them
-wherever a block needs rows it does not hold:
-
-- :func:`halo_rows`: a block plus ``above`` rows of the rank above and
-  ``below`` rows of the rank below, zeros past the image's edges. Its
-  backward sends each halo row's gradient back to its owner, which adds it
-  to its own. The 3×3 convs (:func:`conv_rows`) and the align-corners
-  upsamples whose source rows cross the cut (:func:`resize_rows`) run on
-  such an extended block;
-- :func:`gather_rows_h`: every rank's block concatenated on H (the whole
-  tensor on every rank). Its backward is a reduce-scatter: the gradients
-  of the gathered tensor summed over the space group, each rank keeping its
-  own rows. The pyramid pooling gathers its 1/32 input this way.
-
-Both run over a transport, one interface for two kinds of space group:
+The exchanges (``ops/halo.py``: ``halo_rows``, ``gather_rows_h``) move
+their rows over a transport, one interface for two kinds of space group:
 
 - :class:`GroupTransport`: a ``torch.distributed`` group, one process a
   rank (the train and eval steps): gloo on the CPU, NCCL on cards, where
@@ -27,9 +10,13 @@ Both run over a transport, one interface for two kinds of space group:
   on CUDA tensors (gloo's point-to-point ops may refuse them);
 - :class:`LocalTransport`: the devices of one process (the engine), one
   thread a rank (:func:`run_spmd`), meeting at a barrier and copying from
-  device to device. Its backward runs in the thread that calls
-  ``backward``, which autograd does on the CPU and for distinct cards; the
-  engine needs no backward.
+  device to device. Each thread puts its tensor at the rendezvous with the
+  stream that wrote it (its current stream on the tensor's device), and a
+  peer copies it on that stream (:func:`copy_after`): the copy is ordered
+  after the kernels that wrote the tensor and before any later use of its
+  memory, whichever stream each thread runs on. Its backward runs in the
+  thread that calls ``backward``, which autograd does on the CPU and for
+  distinct cards; the engine needs no backward.
 
 A :class:`Space` is one rank's view: its transport, its index, the axis's
 size and, for the train step, the group over which a tensor replicated
@@ -39,20 +26,10 @@ across ``space`` takes its batch statistics (``data_group``).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import threading
 from typing import Any, Callable
 
-import numpy as np
 import torch
-
-from fastscnn_tpu_torch.ops.resize import (
-    _axis_lerp_coeffs,
-    _interp_matrix,
-    _lerp_axis,
-    _matmul_axis,
-    device_table_cache,
-)
 
 __all__ = [
     "Space",
@@ -60,12 +37,7 @@ __all__ = [
     "LocalTransport",
     "local_spaces",
     "run_spmd",
-    "halo_rows",
-    "gather_rows_h",
-    "block_rows",
-    "conv_rows",
-    "resize_rows",
-    "resize_rows_matmul",
+    "copy_after",
     "LOCAL_TIMEOUT_S",
 ]
 
@@ -96,33 +68,60 @@ class GroupTransport:
         return out
 
 
+def _writer(t: torch.Tensor):
+    """The stream that the calling thread's kernels on ``t``'s device run
+    on (None for a CPU tensor)."""
+    return torch.cuda.current_stream(t.device) if t.device.type == "cuda" else None
+
+
+def copy_after(t: torch.Tensor, stream, device) -> torch.Tensor:
+    """A copy of ``t`` on ``device``, for the calling thread, where ``t``
+    was written on ``stream`` (its device's; None for a CPU tensor),
+    possibly by another thread. The copy runs on ``stream``, after the
+    kernels that wrote ``t``, and so before any later kernel there that
+    reuses ``t``'s memory; the calling thread's current stream on
+    ``device`` waits for it (PyTorch's cross-device copy orders that
+    itself), and the copy's memory is marked as used there."""
+    if stream is None:
+        return t.to(device, copy=True)
+    with torch.cuda.stream(stream):
+        out = t.to(device, copy=True)
+    mine = torch.cuda.current_stream(out.device)
+    if out.device == stream.device and mine != stream:
+        mine.wait_stream(stream)
+        out.record_stream(mine)
+    return out
+
+
 class _Rendezvous:
     """Where the threads of a local space group meet: each puts its value in
     its slot, all wait, each reads every slot, all wait again (so that no
-    slot is overwritten before every thread has copied it)."""
+    slot is overwritten, and no tensor left, before every thread has
+    queued its copies)."""
 
     def __init__(self, n: int, timeout: float):
         self.slots: list = [None] * n
         self.barrier = threading.Barrier(n, timeout=timeout)
 
-    def exchange(self, index: int, value):
+    def exchange(self, index: int, value, read: Callable) -> list:
         self.slots[index] = value
         self.barrier.wait()
-        out = list(self.slots)
+        out = [read(v) for v in self.slots]
         self.barrier.wait()
         return out
 
 
 class LocalTransport:
     """One thread's end of a local space group: the others' tensors copied
-    to this thread's device on its current stream, each sum taken in rank
+    to this thread's device (:func:`copy_after`), each sum taken in rank
     order (so every thread gets the same bits)."""
 
     def __init__(self, rendezvous: _Rendezvous, index: int, device):
         self._rv, self.index, self.device = rendezvous, index, torch.device(device)
 
     def all_gather(self, t: torch.Tensor) -> list:
-        return [p.to(self.device, copy=True) for p in self._rv.exchange(self.index, t)]
+        return self._rv.exchange(self.index, (t, _writer(t)),
+                                 lambda v: copy_after(v[0], v[1], self.device))
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         parts = self.all_gather(t)
@@ -184,197 +183,3 @@ def run_spmd(spaces: list, fn: Callable) -> list:
                      errors[0])
         raise first
     return out
-
-
-def _zeros_rows(x: torch.Tensor, k: int) -> torch.Tensor:
-    return x.new_zeros((x.shape[0], k, *x.shape[2:]))
-
-
-class _HaloRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, above, below, space):
-        h = x.shape[1]
-        ctx.conf = (above, below, space, h)
-        i, n = space.index, space.size
-        parts = space.transport.all_gather(torch.cat([x[:, :below], x[:, h - above:]], dim=1))
-        top = parts[i - 1][:, below:] if i > 0 else _zeros_rows(x, above)
-        bottom = parts[i + 1][:, :below] if i < n - 1 else _zeros_rows(x, below)
-        return torch.cat([top, x, bottom], dim=1)
-
-    @staticmethod
-    def backward(ctx, g):
-        above, below, space, h = ctx.conf
-        i, n = space.index, space.size
-        parts = space.transport.all_gather(
-            torch.cat([g[:, :above], g[:, above + h:]], dim=1))
-        dx = g[:, above:above + h].clone()
-        if i < n - 1 and above:  # the rank below's top halo is my bottom rows
-            dx[:, h - above:] += parts[i + 1][:, :above]
-        if i > 0 and below:  # the rank above's bottom halo is my top rows
-            dx[:, :below] += parts[i - 1][:, above:]
-        return dx, None, None, None
-
-
-def halo_rows(x: torch.Tensor, above: int, below: int, space: Space) -> torch.Tensor:
-    """This rank's block ``x`` (H on axis 1) with ``above`` rows of the rank
-    above on top and ``below`` rows of the rank below underneath, zeros at
-    the image's top and bottom edges; differentiable (module docstring).
-    Each must be at most the block's height."""
-    h = x.shape[1]
-    if not (0 <= above <= h and 0 <= below <= h):
-        raise ValueError(f"halo of {above} rows above and {below} below a block of {h} rows")
-    if above == below == 0:
-        return x
-    return _HaloRows.apply(x, above, below, space)
-
-
-class _GatherRowsH(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, space):
-        ctx.conf = (space, x.shape[1])
-        return torch.cat(space.transport.all_gather(x), dim=1)
-
-    @staticmethod
-    def backward(ctx, g):
-        space, h = ctx.conf
-        full = space.transport.all_reduce(g)
-        return full[:, space.index * h:(space.index + 1) * h].contiguous(), None
-
-
-def gather_rows_h(x: torch.Tensor, space: Space) -> torch.Tensor:
-    """Every rank's block concatenated on H (axis 1): the whole tensor, on
-    every rank; differentiable (module docstring)."""
-    return _GatherRowsH.apply(x, space)
-
-
-def block_rows(t: torch.Tensor, space: Space) -> torch.Tensor:
-    """This rank's rows of a tensor every rank holds whole (H on axis 1)."""
-    h = t.shape[1] // space.size
-    return t[:, space.index * h:(space.index + 1) * h]
-
-
-def conv_rows(conv: Callable, x: torch.Tensor, w, stride: int, padding: int, space: Space,
-              **kwargs) -> torch.Tensor:
-    """This rank's output rows of ``conv(X, w, stride=stride,
-    padding=padding, **kwargs)`` on the global tensor X, a 3×3 conv, from
-    its block ``x`` (NHWC) and halo rows: the conv runs with its own
-    symmetric ``padding`` (which pads W, and H where the extended block
-    reaches past a halo) on an extended block, and the output rows outside
-    the block are cut off. The windows:
-
-    - stride 1, padding 1: one row from each side; the two outer output
-      rows are cut;
-    - stride 2, padding 1 (the block starts on an even row): the window of
-      output row i is rows 2i−1..2i+1, so one row from above; the block is
-      extended by two, which puts the windows on the conv's stride, and the
-      first output row is cut;
-    - stride 2, padding 0 (the stem): rows 2i..2i+2, one row from below and
-      nothing cut. At the image's bottom the last rank's last output row
-      reads the zero halo: it lies past the global output (H/2 − 1 rows),
-      and the caller drops it (``models/fast_scnn.py``).
-
-    A cut output row gets a zero gradient, so it adds nothing to dW."""
-    if (stride, padding) == (1, 1):
-        return conv(halo_rows(x, 1, 1, space), w, stride=1, padding=1, **kwargs)[:, 1:-1]
-    if (stride, padding) == (2, 1):
-        return conv(halo_rows(x, 2, 0, space), w, stride=2, padding=1, **kwargs)[:, 1:]
-    if (stride, padding) == (2, 0):
-        return conv(halo_rows(x, 0, 1, space), w, stride=2, padding=0, **kwargs)
-    raise ValueError(f"no spatial window for a 3x3 conv of stride {stride}, padding {padding}")
-
-
-@functools.lru_cache(maxsize=None)
-def _row_halo(in_size: int, out_size: int, align_corners: bool, n: int) -> tuple[int, int]:
-    """The rows above and below its block that the worst rank's output rows
-    of a global H resize from ``in_size`` to ``out_size`` read (every rank
-    fetches as many: an ``all_gather`` moves equal parts)."""
-    lo, hi, _ = _axis_lerp_coeffs(in_size, out_size, align_corners)
-    hs, ho = in_size // n, out_size // n
-    above = max(s * hs - int(lo[s * ho:(s + 1) * ho].min()) for s in range(n))
-    below = max(int(hi[s * ho:(s + 1) * ho].max()) - ((s + 1) * hs - 1) for s in range(n))
-    return max(above, 0), max(below, 0)
-
-
-@device_table_cache
-def row_lerp_tables(in_size: int, out_size: int, align_corners: bool, n: int, s: int,
-                    device: torch.device):
-    """Rank ``s``'s rows of ``ops.resize.lerp_tables``: (lo, hi) as indices
-    into its extended block (:func:`_row_halo`'s rows above first) and the
-    weights, the global resize's own."""
-    lo, hi, w = _axis_lerp_coeffs(in_size, out_size, align_corners)
-    above, _ = _row_halo(in_size, out_size, align_corners, n)
-    rows = slice(s * (out_size // n), (s + 1) * (out_size // n))
-    base = s * (in_size // n) - above
-    with torch.inference_mode(False):
-        return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device) for v in (
-            (lo[rows] - base).astype(np.int64), (hi[rows] - base).astype(np.int64), w[rows]))
-
-
-@device_table_cache
-def row_interp_matrix(in_size: int, out_size: int, align_corners: bool, n: int, s: int,
-                      dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """Rank ``s``'s block of ``ops.resize.interp_matrix``: the rows of its
-    extended block (zero rows past the image's edges) by its output rows."""
-    a = _interp_matrix(in_size, out_size, align_corners)
-    above, below = _row_halo(in_size, out_size, align_corners, n)
-    hs, ho = in_size // n, out_size // n
-    base = s * hs - above
-    ext = np.zeros((hs + above + below, ho), np.float32)
-    first, stop = max(base, 0), min(base + ext.shape[0], in_size)
-    ext[first - base:stop - base] = a[first:stop, s * ho:(s + 1) * ho]
-    with torch.inference_mode(False):
-        return torch.from_numpy(ext).to(device=device, dtype=dtype)
-
-
-def _global_rows(x: torch.Tensor, out_h: int, space: Space) -> tuple[int, int]:
-    in_h = x.shape[1] * space.size
-    if out_h % space.size:
-        raise ValueError(f"a resize to {out_h} rows does not split over {space.size} ranks")
-    return in_h, out_h
-
-
-def resize_rows(x: torch.Tensor, size, space: Space, align_corners: bool = True) -> torch.Tensor:
-    """This rank's output rows of ``ops.resize.resize_bilinear(X, size)`` on
-    the global tensor X (``size``: the global output (H, W)), from its
-    block ``x`` (H on axis 1, W on axis 2) and the halo rows its source rows
-    reach: the same H-then-W lerps with the global resize's weights, so the
-    same bits."""
-    in_h, out_h = _global_rows(x, int(size[0]), space)
-    if in_h != out_h:
-        above, below = _row_halo(in_h, out_h, align_corners, space.size)
-        ext = halo_rows(x, above, below, space)
-        lo, hi, w = row_lerp_tables(in_h, out_h, align_corners, space.size, space.index,
-                                    x.device)
-        shape = [1] * x.ndim
-        shape[1] = out_h // space.size
-        w = w.to(ext.dtype).reshape(shape)
-        x_lo = ext.index_select(1, lo)
-        x = x_lo + (ext.index_select(1, hi) - x_lo) * w
-    return _lerp_axis(x, 2, int(size[1]), align_corners)
-
-
-def resize_rows_matmul(x: torch.Tensor, size, space: Space,
-                       align_corners: bool = True) -> torch.Tensor:
-    """This rank's output rows of ``ops.resize.resize_bilinear_matmul(X,
-    size)`` on the global tensor X, from its block and halo rows: the
-    global resize's interpolation weights, contracted in the order that the
-    global shapes choose (which decides where a bf16 result rounds)."""
-    in_h, out_h = _global_rows(x, int(size[0]), space)
-    out_w, in_w = int(size[1]), x.shape[2]
-    numel = x.numel() * space.size
-    rest = numel // in_h // in_w
-    cost_h_first = numel // in_h * out_h * in_h + rest * out_h * out_w * in_w
-    cost_w_first = numel // in_w * out_w * in_w + rest * out_w * out_h * in_h
-
-    def rows(y):
-        if in_h == out_h:
-            return y
-        above, below = _row_halo(in_h, out_h, align_corners, space.size)
-        ext = halo_rows(y, above, below, space)
-        a = row_interp_matrix(in_h, out_h, align_corners, space.size, space.index, ext.dtype,
-                              ext.device)
-        return torch.movedim(torch.tensordot(ext, a, dims=([1], [0])), -1, 1)
-
-    if cost_w_first <= cost_h_first:
-        return rows(_matmul_axis(x, 2, out_w, align_corners))
-    return _matmul_axis(rows(x), 2, out_w, align_corners)

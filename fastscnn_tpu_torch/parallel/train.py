@@ -45,16 +45,21 @@ sums the statistics across the ranks and returns this rank's mask rows.
 A mesh with a ``space`` axis: with ``spatial_shard`` each rank passes its
 block, its data place's rows and its space index's rows of H
 (``mesh.host_block``; H a multiple of 32 times the axis), and the forward
-and the loss run on blocks (``models/fast_scnn.py``, ``parallel/spatial.py``):
-the sums of the global batch reduce over the whole mesh, the gradients are
-all-reduced over it and divided by its size, and the parameter gradients
-of the branches that run replicated across ``space`` (the pyramid
-pooling's), partial on each rank, are completed by the same all-reduce.
-Without ``spatial_shard`` (and in the eval step) the batch is replicated
-across ``space``, as JAX's ``P('data')`` places it: each rank passes its
-data place's rows, whole, and the step reduces over the ranks of its space
-index. ``device_aug`` with ``spatial_shard``, and the split step under a
-``space`` axis, raise JAX's ``ValueError``.
+and the loss run on blocks (``models/fast_scnn.py``, ``ops/halo.py``): the
+sums of the global batch reduce over the whole mesh, and the parameter
+gradients of the branches that run replicated across ``space`` (the
+pyramid pooling's), partial on each rank, are completed by the gradients'
+all-reduce. Without ``spatial_shard`` (and in the eval step) the batch is
+replicated across ``space``, as JAX's ``P('data')`` places it: each rank
+passes its data place's rows, whole, and the global batch's sums reduce
+over the ranks of its space index. In both forms the gradients are
+summed over the whole mesh and divided by its size (the n_space copies of
+each data place's gradient in the replicated form), so that every rank
+applies the same bits; in the replicated form each data place's first
+rank then broadcasts its running statistics across ``space``, so that a
+card's rounding cannot set its replicas apart. ``device_aug`` with
+``spatial_shard``, and the split step under a ``space`` axis, raise JAX's
+``ValueError``.
 
 ``graph=True`` is the counterpart of the JAX step's ``jit``: on the
 card the whole step (the chain, forward, loss, backward and update) is
@@ -75,7 +80,7 @@ from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.engine.infer import IMAGENET_MEAN, IMAGENET_STD
 from fastscnn_tpu_torch.models.convert import to_param_trees
 from fastscnn_tpu_torch.models.fast_scnn import FastSCNN
-from fastscnn_tpu_torch.ops.collectives import gather_rows, group_size, sum_
+from fastscnn_tpu_torch.ops.collectives import broadcast_, gather_rows, group_size, sum_
 from fastscnn_tpu_torch.ops.resize import resize_bilinear_matmul
 from fastscnn_tpu_torch.parallel.mesh import Mesh, check_spatial_height
 from fastscnn_tpu_torch.parallel.multihost import backend_of
@@ -300,19 +305,24 @@ def make_train_step(
 @dataclasses.dataclass(frozen=True)
 class _DataParallel:
     """What a step under a process-group mesh reduces over: ``group``, over
-    which the global batch's sums and the gradients reduce (the whole mesh
-    under spatial sharding, else the ranks of this rank's space index);
-    this rank's place on ``data`` and the number of places; ``data_group``,
-    the ranks that hold this rank's H rows, one a data place (the
-    microbatches regroup over it); ``space``, this rank's
+    which the global batch's sums reduce (the whole mesh under spatial
+    sharding, else the ranks of this rank's space index; None for one data
+    place); this rank's place on ``data`` and the number of places;
+    ``mesh_group``, the whole mesh's, over which the gradients reduce;
+    ``data_group``, the ranks that hold this rank's H rows, one a data
+    place (the microbatches regroup over it); ``space``, this rank's
     :class:`~fastscnn_tpu_torch.parallel.spatial.Space` under spatial
-    sharding."""
+    sharding; ``replicas``, under a ``space`` axis without it, the group of
+    this rank's data place and the global rank of its first, whose running
+    statistics the others take."""
 
     group: Any
     index: int
     size: int
+    mesh_group: Any
     data_group: Any = None
     space: Space | None = None
+    replicas: tuple | None = None
 
     @property
     def shard(self) -> tuple[int, int]:
@@ -320,11 +330,10 @@ class _DataParallel:
 
 
 def _data_parallel(mesh, spatial_shard: bool, graph: bool) -> _DataParallel | None:
-    """The step's parallelism under ``mesh``; None for no mesh, a mesh of
-    one device, or one data place whose ranks each run the whole batch (a
-    ``space`` axis without ``spatial_shard``). Raises for a local mesh of
-    several devices (a step runs one process a device), for a rank the mesh
-    left out and for a graph over gloo."""
+    """The step's parallelism under ``mesh``; None for no mesh or a mesh of
+    one device. Raises for a local mesh of several devices (a step runs one
+    process a device), for a rank the mesh left out and for a graph over
+    gloo."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
     if mesh is None:
@@ -342,16 +351,17 @@ def _data_parallel(mesh, spatial_shard: bool, graph: bool) -> _DataParallel | No
     n_space = mesh.shape["space"]
     spatial = spatial_shard and n_space > 1
     data_group = mesh.group if n_space == 1 else mesh.data_group
-    if not spatial and data_group is None:
-        return None  # every rank of the one data place runs the whole batch
     backend = backend_of(mesh.group)
     if graph and backend != "nccl":
         raise ValueError(f"graph=True captures the step's collectives, which the {backend} "
                          "backend cannot run in a CUDA graph: use NCCL, or graph=False")
     if spatial:
         space = Space(GroupTransport(mesh.space_group), mesh.space_index, n_space, data_group)
-        return _DataParallel(mesh.group, mesh.index, mesh.shape["data"], data_group, space)
-    return _DataParallel(data_group, mesh.index, mesh.shape["data"], data_group)
+        return _DataParallel(mesh.group, mesh.index, mesh.shape["data"], mesh.group, data_group,
+                             space)
+    replicas = None if n_space == 1 else (mesh.space_group, mesh.ranks[mesh.index * n_space])
+    return _DataParallel(data_group, mesh.index, mesh.shape["data"], mesh.group, data_group,
+                         replicas=replicas)
 
 
 def _rank_device(device, mesh):
@@ -475,12 +485,15 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
         if flat is not None:
             # the ranks' gradients summed (JAX's psum); autograd through the
             # loss's all-reduces differentiated N copies of the global loss
-            sum_(flat, group).div_(group_size(group) * grad_accum)
+            # (times n_space in the replicated form)
+            sum_(flat, dp.mesh_group).div_(group_size(dp.mesh_group) * grad_accum)
         elif grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)
         state.opt_state.step()
         with torch.no_grad():
             torch._foreach_copy_(tree_leaves(state.model_state), tree_leaves(new_model_state))
+            if dp is not None and dp.replicas is not None:
+                broadcast_(tree_leaves(state.model_state), *dp.replicas)
         return loss
 
     compute.grad_buffers = grad_buffers

@@ -1,7 +1,8 @@
 """The port's spatial sharding (the mesh's ``space`` axis) on the CPU: the
-exchanges of ``parallel/spatial.py`` over both transports, the train and
-eval steps under (1 × 2) and (2 × 2) meshes of a 4-rank gloo group, the
-engine under local meshes, and the refusals.
+exchanges of ``ops/halo.py`` over both transports of
+``parallel/spatial.py``, the train and eval steps under (1 × 2) and
+(2 × 2) meshes of a 4-rank gloo group, the engine under local meshes, and
+the refusals.
 
 The multi-process cases run in one 4-rank gloo group for the module
 (``tests/torch_spatial_worker.py`` under ``run_local_group``, one torch
@@ -65,7 +66,13 @@ from fastscnn_tpu.utils.lr_scheduler import lr_schedule as jax_lr
 from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
 from fastscnn_tpu_torch.losses import get_loss_fn
 from fastscnn_tpu_torch.models import FastSCNN, from_jax_params, to_param_trees
-from fastscnn_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_matmul
+from fastscnn_tpu_torch.ops import halo
+from fastscnn_tpu_torch.ops.resize import (
+    resize_bilinear,
+    resize_bilinear_matmul,
+    resize_rows,
+    resize_rows_matmul,
+)
 from fastscnn_tpu_torch.parallel import (
     create_train_state,
     make_eval_step,
@@ -263,17 +270,20 @@ def test_block_ops_equal_the_whole_tensor_ops(op):
                             padding=padding).permute(0, 2, 3, 1)
 
         want = conv(x, w, stride, padding)
+        assert torch.equal(halo.conv_rows(conv, x, w, stride, padding, None), want)
 
         def fn(t, space):
-            return spatial.conv_rows(conv, t, w, stride, padding, space)
+            return halo.conv_rows(conv, t, w, stride, padding, space)
     else:
         size = (128, 20)
         whole = resize_bilinear if op == "resize" else resize_bilinear_matmul
-        rows = spatial.resize_rows if op == "resize" else spatial.resize_rows_matmul
+        rows = resize_rows if op == "resize" else resize_rows_matmul
         want = whole(x, size, align_corners=True)
+        # the whole-tensor op with no space axis, the block's rows with one
+        assert torch.equal(rows(x, size, None), want)
 
         def fn(t, space):
-            return rows(t, size, space, align_corners=True)
+            return rows(t, (size[0] // n, size[1]), space)
 
     spaces = spatial.local_spaces(["cpu"] * n)
     h = x.shape[1] // n

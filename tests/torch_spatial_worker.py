@@ -30,7 +30,8 @@ from fastscnn_tpu_torch.parallel import (
 )
 from fastscnn_tpu_torch.parallel.mesh import host_block
 from fastscnn_tpu_torch.parallel.multihost import initialize_multihost, process_index
-from fastscnn_tpu_torch.parallel.spatial import GroupTransport, Space, gather_rows_h, halo_rows
+from fastscnn_tpu_torch.ops.halo import gather_rows_h, halo_rows
+from fastscnn_tpu_torch.parallel.spatial import GroupTransport, Space
 from fastscnn_tpu_torch.utils import lr_schedule
 from fastscnn_tpu_torch.utils.tree import tree_leaves
 
