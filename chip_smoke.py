@@ -264,11 +264,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``predict`` on the default stream, and
    ``predict_fn`` (eager under ``space``) ms a frame beside the meshless
    graph's;
-15. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12, 13 and 14
+15. every image format without PIL (:func:`images_phase`): (a) each PNG
+   and BMP fixture of ``tests/fixtures/images`` decoded and converted
+   (RGB, L, RGBA, LA) to its manifest's Pillow digests, the BMP writes to
+   Pillow's bytes, every JPEG fixture (arithmetic, lossless, CMYK/YCCK,
+   every sampling) to its manifest; (b) phase 12's 1280x720 frame as a
+   BMP, an 8-bit PNG, an Adam7 PNG and a 16-bit PNG, each decoded back to
+   the frame, host ms to decode each and the JPEG (median of 20); (c)
+   config A (B3, B1) behind ``pipeline.main --input frame.bmp`` and
+   ``demo`` on the 16-bit PNG, and a BMP body through the serving server,
+   each mask equal to ``engine.predict``'s on every pixel, B3 at twice
+   B1's launches and B1 at least once a frame;
+16. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14 and 15
    (13's and 14's ranks' own counts too), plus the captured launches × the
    replays of the graphs of phases 4b, 4c, 6b (the trainer's and the
-   evaluator's), 8, 9, 10, 12 and 13, which no wrapper sees) and, last,
+   evaluator's), 8, 9, 10, 12, 13 and 15, which no wrapper sees) and, last,
    the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
@@ -276,7 +287,8 @@ forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: devic
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
 run only these kernels' studies, one only phase 12, one only phase 13, one
-only phase 14 and one only what needs several cards, with no device line:
+only phase 14, one only phase 15 and one only what needs several cards,
+with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
@@ -285,6 +297,7 @@ only phase 14 and one only what needs several cards, with no device line:
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
     python3 chip_smoke.py --jpeg           # the build, then phase 12
+    python3 chip_smoke.py --images         # the build, then phase 15
     python3 chip_smoke.py --multidevice    # the build, phase 6's yardstick,
                                            # then phase 13
     python3 chip_smoke.py --spatial        # the build, phase 6's yardstick,
@@ -6902,6 +6915,253 @@ def tune_mask() -> None:
         del logits, ref
 
 
+# phase 15: every image format the JAX package reads through Pillow, read
+# and written without PIL (PIL, matplotlib and cv2 blocked at the top of this
+# file)
+IMAGE_FIXTURES = os.path.join("tests", "fixtures", "images")
+IMAGE_TIMED = 20  # decodes of each 1280x720 file timed: the median is reported
+IMAGE_LOOP_FRAMES = 3  # frames of the BMP through config A (the first the capture's)
+
+
+def _fixture_module(root, folder):
+    """``tests/fixtures/<folder>/make_fixtures.py`` as a module of its own
+    name (two folders hold a ``make_fixtures.py``)."""
+    import importlib.util
+
+    path = os.path.join(root, "tests", "fixtures", folder, "make_fixtures.py")
+    spec = importlib.util.spec_from_file_location(f"{folder}_fixtures", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def image_fixtures_leg(root):
+    """15 (a): every PNG and BMP fixture decoded, and converted to RGB, L,
+    RGBA and LA, to the Pillow digests of its manifest; every BMP write to
+    the digest of Pillow's bytes; every JPEG fixture (the arithmetic,
+    lossless, CMYK/YCCK and sampling variants of PR 21 with PR 18's) to its
+    manifest. Returns the images' ``make_fixtures`` module."""
+    import numpy as np
+
+    from fastscnn_tpu_torch.data import bmp, image_io, jpeg
+
+    mf = _fixture_module(root, "images")
+    folder = os.path.join(root, IMAGE_FIXTURES)
+    with open(os.path.join(folder, "manifest.json")) as f:
+        manifest = json.load(f)
+    bad = []
+    for name, entry in manifest["decode"].items():
+        path = os.path.join(folder, name)
+        arr, mode = image_io.decode(path)
+        if (_sha256(np.ascontiguousarray(arr).tobytes()), mode, arr.dtype.str) != (
+                entry["sha256"], entry["mode"], entry["dtype"]):
+            bad.append(f"decode {name}")
+        for c, ce in entry["convert"].items():
+            conv, cmode = image_io.decode(path, c)
+            if (_sha256(np.ascontiguousarray(conv).tobytes()), cmode) != (ce["sha256"], ce["mode"]):
+                bad.append(f"convert {name} to {c}")
+    for w in manifest["write"]:
+        arr = mf.write_input(w["kind"], w["shape"], w["channels"], w["seed"])
+        if _sha256(bmp.encode_bmp(arr)) != w["sha256"]:
+            bad.append(f"write {w['kind']} {w['shape']}")
+    with open(os.path.join(root, JPEG_FIXTURES, "manifest.json")) as f:
+        jpegs = json.load(f)
+    for name, entry in jpegs["decode"].items():
+        with open(os.path.join(root, JPEG_FIXTURES, name), "rb") as f:
+            arr, mode = jpeg.decode_jpeg(f.read(), name)
+        if (_sha256(arr.tobytes()), mode) != (entry["sha256"], entry["mode"]):
+            bad.append(f"jpeg {name}")
+    if bad:
+        raise AssertionError(f"15a: differs from Pillow's digests: {bad}")
+    kinds = {}
+    for name in manifest["decode"]:
+        kinds[name.rsplit(".", 1)[1]] = kinds.get(name.rsplit(".", 1)[1], 0) + 1
+    _print(f"15a: {kinds.get('png', 0)} PNG and {kinds.get('bmp', 0)} BMP fixtures decoded and "
+           f"converted (RGB, L, RGBA, LA) to Pillow {manifest['pillow']}'s digests, "
+           f"{len(manifest['write'])} BMP writes to its bytes, {len(jpegs['decode'])} JPEG "
+           f"fixtures (arithmetic, lossless, CMYK/YCCK, every sampling) to its pixels")
+    return mf
+
+
+def image_decode_leg(root, mf, work):
+    """15 (b): the 1280x720 frame of phase 12 written as a BMP (the port's
+    writer), an 8-bit PNG, an Adam7 PNG and a 16-bit RGB PNG
+    (``make_fixtures.png_bytes``: the five row filters in turn), each
+    decoded back to the frame's pixels; host ms to decode each and the
+    JPEG, the median of IMAGE_TIMED. Returns the files' paths by kind and
+    the frame."""
+    import numpy as np
+
+    from fastscnn_tpu_torch.data import image_io, jpeg
+
+    with open(os.path.join(root, JPEG_FIXTURES, JPEG_FRAME), "rb") as f:
+        frame = jpeg.decode_jpeg(f.read())[0]
+    paths = {"jpeg": os.path.join(root, JPEG_FIXTURES, JPEG_FRAME),
+             "bmp": os.path.join(work, "frame.bmp")}
+    image_io.save_image(paths["bmp"], frame)
+    for kind, data in (("png8", mf.png_bytes(frame, 8, 2)),
+                       ("png_adam7", mf.png_bytes(frame, 8, 2, interlace=True)),
+                       ("png16", mf.png_bytes(frame.astype(np.uint16) * 257, 16, 2))):
+        paths[kind] = os.path.join(work, f"frame_{kind}.png")
+        with open(paths[kind], "wb") as f:
+            f.write(data)
+    lines = []
+    for kind, path in paths.items():
+        with open(path, "rb") as f:
+            data = f.read()
+        arr, mode = image_io.decode_bytes(data)
+        if mode != "RGB" or not np.array_equal(arr, frame):
+            raise AssertionError(f"15b: the {kind} file does not decode to the frame ({mode})")
+        ms = sorted(_host_ms(lambda: image_io.decode_bytes(data)) for _ in range(IMAGE_TIMED))
+        lines.append(f"{kind} {statistics.median(ms):.2f} ({ms[0]:.2f}-{ms[-1]:.2f}; "
+                     f"{len(data)} bytes)")
+    _print(f"15b: the {frame.shape[1]}x{frame.shape[0]} frame, host ms to decode, median of "
+           f"{IMAGE_TIMED} (range; file size): {'; '.join(lines)}")
+    return paths, frame
+
+
+def image_loop_leg(work, paths, frame):
+    """15 (c): config A (``fused-ds`` + ``pallas``: B3 and B1, 2 classes,
+    bf16) behind the CLIs: ``pipeline.main --input frame.bmp`` (its
+    session the config-A engine) for IMAGE_LOOP_FRAMES frames, each mask
+    equal to the pipeline's on ``engine.predict`` of the decoded frame;
+    ``demo`` on the 16-bit PNG, its palette PNG's classes equal to
+    ``engine.predict`` of the decoded frame; one BMP body POSTed to the
+    serving server at 720x1280, its answer equal to ``engine.predict`` on
+    every pixel. Returns B3's and B1's launches: the wrappers' plus the
+    graphs' replays."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch import demo, pipeline
+    from fastscnn_tpu_torch.data import image_io
+    from fastscnn_tpu_torch.engine import E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fastscnn_tpu_torch.serving import BatchingPredictor, ServingServer
+
+    dev = torch.device("cuda")
+    model = FastSCNN(LOOP_CLASSES, folded_dw_impl="fused-ds")
+    # phase 9's lane weights, calibrated on the frame and its mirror image
+    # (BN statistics need two): half their pixels class 1
+    calib = np.ascontiguousarray(np.stack([frame, frame[:, ::-1]]))
+    model.load_state_dict(lane_state(torch.from_numpy(calib).to(dev)))
+    eng = InferenceEngine(model, device=dev, config=E2EConfig(
+        compute_dtype="bfloat16", final_upsample="pallas", mask_dtype="uint8"))
+
+    class Eager:  # the engine's predict alone: the pipeline's reference path
+        predict = staticmethod(eng.predict)
+
+    tally, stop = _tally_replays()
+    reset_launch_counts()
+    real_session, real_engine = pipeline.build_session, demo.build_engine
+    pipeline.build_session = lambda args: eng
+    demo.build_engine = lambda *a, **k: eng
+    frames = 0
+    try:
+        bgr = np.ascontiguousarray(pipeline.read_image_rgb(paths["bmp"])[:, :, ::-1])
+        want = pipeline.inference_single_image(bgr, Eager(), pixels_per_unit=JPEG_PPU)["mask"]
+        frames += 1
+        times = []
+        for k in range(IMAGE_LOOP_FRAMES):
+            t0 = time.perf_counter()
+            result, _ = _run_cli(pipeline.main, ["--input", paths["bmp"], "--output-dir",
+                                                 os.path.join(work, "pipeline"),
+                                                 "--pixels-per-unit", str(JPEG_PPU)])
+            times.append((time.perf_counter() - t0) * 1e3)
+            frames += 1
+            if not np.array_equal(result["mask"], want):
+                raise AssertionError(f"15c: pipeline.main's mask on the BMP (run {k}) differs "
+                                     f"from engine.predict's on {int((result['mask'] != want).sum())}"
+                                     f" pixels")
+        names = sorted(os.listdir(os.path.join(work, "pipeline")))
+        _print(f"15c: pipeline.main --input frame.bmp over config A, {IMAGE_LOOP_FRAMES} runs: "
+               f"masks equal to engine.predict's on every pixel ({(want > 0).mean():.3f} lane); "
+               f"ms a run {[round(t, 1) for t in times]} (the first the capture's); wrote {names}")
+        out, _ = _run_cli(demo.demo, ["--input-pic", paths["png16"], "--outdir",
+                                      os.path.join(work, "demo")])
+        frames += 1
+        decoded = image_io.read_image(paths["png16"], "RGB")
+        ref = eng.predict(torch.from_numpy(decoded).to(dev)).cpu().numpy()
+        frames += 1
+        got = image_io.read_image(out)
+        if not (np.array_equal(decoded, frame) and np.array_equal(got, ref)):
+            raise AssertionError(f"15c: demo on the 16-bit PNG differs from engine.predict on "
+                                 f"{int((got != ref).sum())} pixels")
+        _print(f"15c: demo on the 16-bit PNG over config A: {os.path.basename(out)}'s classes "
+               f"equal to engine.predict's on every pixel ({int(ref.sum())} of {ref.size} "
+               f"pixels class 1)")
+
+        h, w = frame.shape[:2]
+        fn = eng.predict_fn((1, h, w, 3))
+        fn(np.zeros((1, h, w, 3), np.uint8)).cpu()
+        predictor = BatchingPredictor(lambda batch: eng.predict_fn(batch.shape)(batch), (h, w),
+                                      max_batch=1, bucket_sizes=(1,))
+        server = ServingServer(predictor, "citys", host="127.0.0.1", port=0)
+        base = f"http://127.0.0.1:{server.start()}"
+        try:
+            with open(paths["bmp"], "rb") as f:
+                body = f.read()
+            req = urllib.request.Request(f"{base}/predict", data=body, method="POST",
+                                         headers={"Accept": "application/octet-stream"})
+            t0 = time.perf_counter()
+            answer = np.frombuffer(urllib.request.urlopen(req, timeout=120).read(), np.uint8)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            server.stop()
+        frames += 2
+        ref = eng.predict(torch.from_numpy(image_io.decode_bytes(body)[0]).to(dev)).cpu().numpy()
+        differ = int((answer.reshape(h, w) != ref).sum()) if answer.size == h * w else -1
+        _print(f"15c: the server over config A at {h}x{w}: one BMP body ({len(body)} bytes) "
+               f"answered in {wall:.1f} ms; pixels differing from engine.predict of the "
+               f"decoded pixels {differ}")
+        if differ:
+            raise AssertionError(f"15c: the BMP body's answer differs on {differ} pixels")
+    finally:
+        pipeline.build_session, demo.build_engine = real_session, real_engine
+        stop()
+    torch.cuda.synchronize()
+    eager = launch_counts()
+    launches = {k: eager.get(k, 0) + tally.get(k, 0) for k in ("ds_conv3x3_pw", "upsample_argmax")}
+    _print(f"15c: {frames} frames through config A (and the graphs' warm-ups and captures): "
+           f"B3 {launches['ds_conv3x3_pw']}, B1 {launches['upsample_argmax']} launches "
+           f"(wrappers {dict((k, eager.get(k, 0)) for k in launches)}, replays "
+           f"{dict((k, tally.get(k, 0)) for k in launches)})")
+    if launches["upsample_argmax"] < frames or launches["ds_conv3x3_pw"] != 2 * launches[
+            "upsample_argmax"]:
+        raise AssertionError(f"15c: B3 and B1 did not rise by the {frames} frames run (2 and 1 "
+                             f"a frame): {launches}")
+    return launches
+
+
+def images_phase(root):
+    """Phase 15: every image format without PIL: (a) :func:`image_fixtures_leg`,
+    (b) :func:`image_decode_leg`, (c) :func:`image_loop_leg`. Returns the
+    kernel launches of (c)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("PIL is importable: the block at the top of this file failed")
+    work = os.path.join(root, "build", "chip_smoke_images")
+    _fresh_dir(work)
+    mf = image_fixtures_leg(root)
+    t_a = time.perf_counter() - t_phase
+    paths, frame = image_decode_leg(root, mf, work)
+    t_b = time.perf_counter() - t_phase - t_a
+    launches = image_loop_leg(work, paths, frame)
+    shutil.rmtree(work, ignore_errors=True)
+    _print(f"phase 15 launches: {launches}")
+    _print(f"phase 15: {time.perf_counter() - t_phase:.1f} s (15a {t_a:.1f} s, 15b {t_b:.1f} s)")
+    return launches
+
+
 def main() -> int:
     import argparse
     import gc
@@ -6921,6 +7181,9 @@ def main() -> int:
     parser.add_argument("--jpeg", action="store_true",
                         help="only phase 12 (JPEG without PIL), after the build, with no "
                              "device line")
+    parser.add_argument("--images", action="store_true",
+                        help="only phase 15 (every image format without PIL), after the build, "
+                             "with no device line")
     parser.add_argument("--multidevice", action="store_true",
                         help="only phase 13 (data parallelism over torch.distributed), after "
                              "the build and phase 6's f32 yardstick, with no device line")
@@ -6996,6 +7259,9 @@ def main() -> int:
     if args.jpeg:
         jpeg_phase(root)
         return 0
+    if args.images:
+        images_phase(root)
+        return 0
     if args.multidevice or args.spatial:
         dev = torch.device("cuda")
         images, targets = training_batch(dev)
@@ -7069,6 +7335,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in spatial_phase(root, yard).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in images_phase(root).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

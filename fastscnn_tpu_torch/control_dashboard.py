@@ -5,9 +5,11 @@ the port's inference engine (``--cpu`` runs it on the CPU, else on the
 CUDA card), a synthetic camera, the bird's-eye view and path planning,
 the visual lateral-error controller, optional serial actuation through
 the native bridge (``--enable-serial``), and the web dashboard; or a
-single-image run via ``--input`` (PNG or JPEG, read without PIL). The OpenCV cameras (``--camera``,
-``--video``) and exported artifacts (``--export-path``) are not ported
-yet and raise.
+single-image run via ``--input`` (PNG, JPEG or BMP, read without PIL).
+``--export-path`` runs an exported artifact (a ``.pt2`` of the port's
+``export_model``, or an ``.onnx``) instead of the engine, through
+``pipeline.build_session``. The OpenCV cameras (``--camera``,
+``--video``) are not ported yet and raise.
 
 Usage::
 
@@ -30,13 +32,14 @@ def parse_args(argv=None):
     parser.add_argument("--dataset", type=str, default="custom")
     parser.add_argument("--weights", type=str, default=None)
     parser.add_argument("--export-path", type=str, default=None,
-                        help="an exported artifact (not ported yet: raises)")
+                        help="an exported artifact (.pt2 of export_model, or .onnx) to run "
+                             "instead of the engine")
     parser.add_argument("--aux", action="store_true", default=False)
     parser.add_argument("--internal-size", type=int, default=0)
     parser.add_argument("--dtype", type=str, default="bfloat16")
     # mode
     parser.add_argument("--realtime", action="store_true", default=False)
-    parser.add_argument("--input", type=str, default=None, help="single-image mode (PNG or JPEG)")
+    parser.add_argument("--input", type=str, default=None, help="single-image mode (PNG, JPEG or BMP)")
     parser.add_argument("--max-frames", type=int, default=None)
     # camera
     parser.add_argument("--camera", type=int, default=0)

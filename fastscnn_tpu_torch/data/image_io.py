@@ -2,56 +2,66 @@
 
 The JAX package opens every image with ``PIL.Image.open`` and writes
 with ``Image.save``. The machine that runs the port on the card has no
-PIL, so this module reads and writes the files the datasets, the
-pipeline, the server and the demos use with the standard library, numpy
-and the port's JPEG codec (``data/jpeg.py``) alone:
+PIL, so this module reads and writes every format the JAX package's
+call sites use with the standard library, numpy, the port's JPEG codec
+(``data/jpeg.py``) and its BMP reader and writer (``data/bmp.py``), each
+to Pillow 12's pixels and mode:
 
-- PNG, read with ``zlib`` and numpy: 8-bit greyscale, RGB, RGBA and
-  palette images (a palette image gives its indices, as
-  ``np.asarray(Image.open(path))`` does), non-interlaced, with any mix of
-  the five row filters;
+- PNG, read with ``zlib`` and numpy, as Pillow's ``PngImagePlugin``
+  unpacks it: greyscale at 1 bit (mode ``1``, bool), 2 and 4 bits (``L``,
+  scaled by 0x55 and 0x11), 8 bits (``L``) and 16 bits (``I;16``,
+  uint16); palette images at 1, 2, 4 and 8 bits (``P``: the indices, as
+  ``np.asarray(Image.open(path))`` gives them); RGB and RGBA at 8 and 16
+  bits and grey + alpha at 8 bits (``LA``) and 16 bits (``RGBA``), 16-bit
+  samples cut to their high byte; non-interlaced or Adam7, with any mix
+  of the five row filters, and a ``tRNS`` chunk read as Pillow reads it;
 - JPEG, read by :func:`~fastscnn_tpu_torch.data.jpeg.decode_jpeg` to
-  Pillow's pixels: baseline, extended-sequential or progressive Huffman,
-  8-bit, 1 or 3 components, 4:4:4, 4:2:2 or 4:2:0 (mode ``L`` or
-  ``RGB``);
-- ``convert="RGB"``, ``"L"`` and ``"RGBA"`` of either, as Pillow converts
-  those modes (``Convert.c``): greyscale replicated, alpha dropped,
-  palette indices looked up (entries the palette lacks read as black,
-  alpha 255); ``L`` the ITU-R 601-2 luma in Pillow's integers,
-  ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``, of the RGB (or
-  palette) values; ``RGBA`` with alpha 255 but where a PNG's ``tRNS``
-  chunk says otherwise, as Pillow honours it: a palette image's alphas
-  by index, a greyscale or RGB image's one transparent sample value at
-  alpha 0.
+  the pixels libjpeg-turbo gives Pillow (modes ``L``, ``RGB``, ``CMYK``);
+- BMP, read by :func:`~fastscnn_tpu_torch.data.bmp.decode_bmp` (modes
+  ``1``, ``L``, ``P``, ``RGB``, ``RGBA``);
+- ``convert="RGB"``, ``"L"``, ``"RGBA"`` and ``"LA"`` from each of those
+  modes, as Pillow's ``Image.convert`` and ``Convert.c`` do: greyscale
+  replicated, alpha dropped, palette indices looked up (entries the
+  palette lacks read as black), ``1`` as 0 and 255, ``I;16`` clipped at
+  255, CMYK as ``255 - K - C·(255 - K)/255`` in Pillow's rounding; ``L``
+  the ITU-R 601-2 luma in Pillow's integers, ``(R·19595 + G·38470 +
+  B·7471 + 0x8000) >> 16``; alpha 255 but where the image says otherwise:
+  its alpha band, a palette's ``tRNS`` alphas by index, or a greyscale or
+  RGB image's one transparent value (its low byte) at alpha 0.
 
-A JPEG variant the codec does not read raises its ``ValueError``, and a
-JPEG never goes to PIL. Any other file (BMP, a 16-bit or interlaced PNG,
-another ``convert``) goes through PIL, imported inside :func:`decode`;
-where PIL is not installed that raises a ``RuntimeError`` naming the file
-and the ROADMAP item of the formats only PIL reads. :func:`decode_bytes`
-does the same for an image held in memory (a request body).
+A variant the readers refuse raises a ``ValueError`` naming it; nothing
+read here goes to PIL, and every other ``convert`` (``1``, ``P``, ``I``,
+``F``, ``YCbCr``, ``HSV``, ``LAB``, ...) raises naming the ROADMAP item.
+Any other file (GIF, TIFF, WebP) goes through PIL, imported inside
+:func:`decode`; where PIL is not installed that raises a ``RuntimeError``
+naming the file and the ROADMAP item. :func:`decode_bytes` does the same
+for an image held in memory (a request body).
 
-:func:`write_png` writes 8-bit L, RGB, RGBA and palette PNGs with filter
-type 0: a palette image (the mask dumps) in the bytes PIL writes for it.
-:func:`save_image` writes a ``.png`` path through it and a ``.jpg`` or
-``.jpeg`` path through :func:`~fastscnn_tpu_torch.data.jpeg.encode_jpeg`
-(Pillow's bytes at its default quality, 75), and hands any other to PIL;
-:func:`image_size` reads a PNG's or a JPEG's size from its header
-without decoding it.
+:func:`write_png` writes L, RGB, RGBA, LA, palette, 1-bit and 16-bit
+grey PNGs with filter type 0 (quick to write and to read back): a palette
+image (the mask dumps) in the bytes PIL writes for it.
+:func:`save_image` writes a ``.png`` path with the row filters Pillow's
+encoder picks, in ``Image.save``'s bytes for every mode, a ``.jpg`` or
+``.jpeg`` path through
+:func:`~fastscnn_tpu_torch.data.jpeg.encode_jpeg` (Pillow's bytes at its
+default quality, 75) and a ``.bmp`` path through
+:func:`~fastscnn_tpu_torch.data.bmp.encode_bmp` (Pillow's bytes), and
+hands any other to PIL; :func:`image_size` reads a PNG's, a JPEG's or a
+BMP's size from its header without decoding it.
 
 Sub and Up rows unfilter with one vector operation a row. Average and
-Paeth rows depend on the pixel to their left, so an image that has any
-is unfiltered along anti-diagonals instead: pixel (r, c) needs only
-(r, c-1), (r-1, c) and (r-1, c-1), so every pixel of one anti-diagonal
-r + c = t can be computed at once from the two before it. The image is
-held skewed, ``K[t, r] = pixel (r, t - r)``, so that each anti-diagonal is
-one contiguous slice: W + H - 1 vector steps an image, whatever its
-filters. Those steps are small numpy calls that each take and release
-the interpreter lock, so loader threads decoding at once thrash it (four
-threads took 4.7x the serial time a file on an H100 machine's host,
-PERF.md §5): one thread at a time runs them, the others meanwhile read
-and inflate their files. A JPEG decode is one call into the codec, which
-releases the lock, so threads decode JPEGs in parallel.
+Paeth rows depend on the pixel to their left, so an image (or Adam7
+pass) that has any is unfiltered along anti-diagonals instead: pixel
+(r, c) needs only (r, c-1), (r-1, c) and (r-1, c-1), so every pixel of
+one anti-diagonal r + c = t can be computed at once from the two before
+it. The image is held skewed, ``K[t, r] = pixel (r, t - r)``, so that
+each anti-diagonal is one contiguous slice: W + H - 1 vector steps an
+image, whatever its filters. Those steps are small numpy calls that each
+take and release the interpreter lock, so loader threads decoding at
+once thrash it (four threads took 4.7x the serial time a file on an H100
+machine's host, PERF.md §5): one thread at a time runs them, the others
+meanwhile read and inflate their files. A JPEG decode is one call into
+the codec, which releases the lock, so threads decode JPEGs in parallel.
 """
 
 from __future__ import annotations
@@ -63,20 +73,29 @@ import zlib
 
 import numpy as np
 
+from fastscnn_tpu_torch.data.bmp import bmp_size, decode_bmp, encode_bmp, is_bmp
 from fastscnn_tpu_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg, encode_jpeg, is_jpeg
 
 __all__ = ["decode", "decode_bytes", "image_size", "read_image", "read_palette", "save_image",
            "write_png", "PNG_SIGNATURE"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# IHDR colour type -> (samples a pixel, PIL mode) for the 8-bit subset read here
-_COLOUR_TYPES = {0: (1, "L"), 2: (3, "RGB"), 3: (1, "P"), 6: (4, "RGBA")}
+# (bit depth, colour type) -> Pillow's mode, as PngImagePlugin's _MODES
+_PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16",
+              (8, 2): "RGB", (16, 2): "RGB", (1, 3): "P", (2, 3): "P", (4, 3): "P",
+              (8, 3): "P", (8, 4): "LA", (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
+_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 _DIAGONALS = threading.Lock()  # one thread at a time in the anti-diagonal loop
+_CONVERTS = (None, "RGB", "L", "RGBA", "LA")
 
 
 def read_image(path: str, convert: str | None = None) -> np.ndarray:
     """``np.asarray(Image.open(path))``, or of ``.convert(convert)``: uint8
-    (H, W) for a greyscale or palette image, (H, W, C) otherwise."""
+    (H, W) for a greyscale or palette image (bool for mode ``1``, uint16
+    for ``I;16``), (H, W, C) otherwise."""
     return decode(path, convert)[0]
 
 
@@ -88,13 +107,13 @@ def decode(path: str, convert: str | None = None) -> tuple[np.ndarray, str]:
 
 
 def read_palette(path: str):
-    """The PLTE entries of a palette PNG in the subset, flat RGB values as
+    """The palette entries of a palette PNG or BMP, flat RGB values as
     :func:`write_png` takes them; None for any other file."""
     with open(path, "rb") as f:
-        png = _read_png(f.read(), path)
-    if png is None or png[1] != "P":
+        img = _read(f.read(), path)
+    if img is None or img[1] != "P":
         return None
-    return png[2].ravel().tolist()
+    return img[2].ravel().tolist()
 
 
 def decode_bytes(data: bytes, convert: str | None = None) -> tuple[np.ndarray, str]:
@@ -102,23 +121,33 @@ def decode_bytes(data: bytes, convert: str | None = None) -> tuple[np.ndarray, s
     return _decode(bytes(data), convert, "<bytes>")
 
 
-_CONVERTS = (None, "RGB", "L", "RGBA")
+def _read(data: bytes, name: str):
+    """``(array, mode, palette, transparency)`` of a file the port reads,
+    else None: ``palette`` a palette image's (N, 3) entries, and
+    ``transparency`` what Pillow puts in ``info["transparency"]``."""
+    if is_jpeg(data):
+        arr, mode = decode_jpeg(data, name)
+        return arr, mode, None, None
+    if is_bmp(data):
+        arr, mode, palette = decode_bmp(data, name)
+        return arr, mode, palette, None
+    if data.startswith(PNG_SIGNATURE):
+        return _read_png(data, name)
+    return None
 
 
 def _decode(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
-    if is_jpeg(data):
-        if convert not in _CONVERTS:
-            raise ValueError(f"{name}: convert={convert!r} of a JPEG is not read without PIL "
-                             f"({ROADMAP_ITEM})")
-        (arr, mode), palette, trns = decode_jpeg(data, name), None, None
-    else:
-        png = _read_png(data, name) if convert in _CONVERTS else None
-        if png is None:
-            return _decode_with_pil(data, convert, name)
-        arr, mode, palette, trns = png
-    if convert is not None and convert != mode:
-        arr, mode = _CONVERTERS[convert](arr, mode, palette, trns), convert
-    return arr, mode
+    img = _read(data, name)
+    if img is None:
+        return _decode_with_pil(data, convert, name)
+    arr, mode, palette, trns = img
+    if convert is None or convert == mode:
+        return arr, mode
+    if convert not in _CONVERTS:
+        kind = "JPEG" if is_jpeg(data) else "BMP" if is_bmp(data) else "PNG"
+        raise ValueError(f"{name}: convert={convert!r} of a {kind} ({mode}) is not done without "
+                         f"PIL ({ROADMAP_ITEM})")
+    return _convert(arr, mode, palette, trns, convert), convert
 
 
 def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
@@ -126,9 +155,8 @@ def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.nd
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot read {name!r}: it is neither an 8-bit non-interlaced PNG nor a JPEG, which "
-            f"are all that is read without PIL, and the PIL package is not installed "
-            f"({ROADMAP_ITEM})") from e
+            f"cannot read {name!r}: it is not a PNG, JPEG or BMP file, which are all that is "
+            f"read without PIL, and the PIL package is not installed ({ROADMAP_ITEM})") from e
     with Image.open(io.BytesIO(data)) as img:
         if convert:
             img = img.convert(convert)
@@ -136,10 +164,8 @@ def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.nd
 
 
 def _read_png(data: bytes, path: str):
-    """``(array, mode, palette, trns)`` of a PNG in the subset, else None;
-    ``trns`` is the body of its ``tRNS`` chunk (None without one)."""
-    if not data.startswith(PNG_SIGNATURE):
-        return None
+    """:func:`_read` of a PNG; None for a bit depth and colour type that
+    Pillow does not open or an unknown filter method."""
     pos, header, palette, trns, idat = len(PNG_SIGNATURE), None, None, None, []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -151,9 +177,11 @@ def _read_png(data: bytes, path: str):
             raise ValueError(f"{path}: CRC mismatch in PNG chunk {kind!r}")
         pos += 12 + length
         if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+            if length < 13:
+                raise ValueError(f"{path}: truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:length // 3 * 3], np.uint8).reshape(-1, 3)
         elif kind == b"tRNS":
             trns = body
         elif kind == b"IDAT":
@@ -162,69 +190,149 @@ def _read_png(data: bytes, path: str):
             break
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
-    width, height, depth, colour, compression, filtering, interlace = header
-    if (depth != 8 or colour not in _COLOUR_TYPES or compression or filtering or interlace
-            or (colour == 3 and palette is None)):
+    width, height, depth, colour, _compression, filtering, interlace = header
+    mode = _PNG_MODES.get((depth, colour))
+    if mode is None or filtering or (colour == 3 and palette is None):
         return None
-    channels, mode = _COLOUR_TYPES[colour]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    stride = width * channels
-    if raw.size < height * (stride + 1):
+    samples = _SAMPLES[colour]
+    if not interlace:
+        vals = _png_pass(raw, 0, width, height, depth, samples, path)[0]
+    else:
+        vals = np.zeros((height, width, samples), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+            if pw > 0 and ph > 0:
+                vals[y0::dy, x0::dx], at = _png_pass(raw, at, pw, ph, depth, samples, path)
+    return _png_pixels(vals, depth, mode), mode, palette, _transparency(trns, mode, depth)
+
+
+def _png_pass(raw: np.ndarray, at: int, w: int, h: int, depth: int, samples: int, path: str):
+    """The (h, w, samples) samples of one image or Adam7 pass whose
+    filtered rows start at ``raw[at]``, and where the next pass starts."""
+    bits = depth * samples
+    stride = (w * bits + 7) // 8
+    n = h * (stride + 1)
+    if raw.size < at + n:
         raise ValueError(f"{path}: PNG image data holds {raw.size} bytes, expected "
-                         f"{height * (stride + 1)}")
-    rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
-    pixels = unfilter(rows[:, 1:], rows[:, 0], channels)
-    shape = (height, width) if channels == 1 else (height, width, channels)
-    return pixels.reshape(shape), mode, palette, trns
+                         f"{at + n}")
+    rows = raw[at:at + n].reshape(h, stride + 1)
+    px = unfilter(rows[:, 1:], rows[:, 0], max(1, bits // 8))
+    if depth == 16:
+        vals = px.view(">u2").reshape(h, w, samples)
+    elif depth == 8:
+        vals = px.reshape(h, w, samples)
+    else:  # 1, 2 or 4 bits, one sample a pixel, the leftmost in the high bits
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        unpacked = (px[:, :, None] >> shifts) & ((1 << depth) - 1)
+        vals = unpacked.reshape(h, -1)[:, :w, None]
+    return vals, at + n
 
 
-def _palette_table(palette, trns) -> np.ndarray:
-    """A palette as Pillow holds it: 256 RGBA entries, those past the PLTE
-    chunk black, alpha 255 but for the first ``len(trns)`` entries."""
+def _png_pixels(vals: np.ndarray, depth: int, mode: str) -> np.ndarray:
+    """PngImagePlugin's raw modes: samples (H, W, S) -> Pillow's array."""
+    if mode == "1":
+        return _bool255(vals[..., 0])
+    if mode == "I;16":
+        return vals[..., 0].astype("<u2")
+    if depth == 16:
+        vals = (vals >> 8).astype(np.uint8)  # RGB;16B, RGBA;16B and LA;16B keep the high byte
+        if vals.shape[2] == 2:  # 16-bit grey + alpha opens as RGBA
+            vals = vals[..., [0, 0, 0, 1]]
+    elif depth < 8 and mode == "L":
+        return (vals[..., 0] * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    vals = vals.astype(np.uint8, copy=False)
+    return np.ascontiguousarray(vals[..., 0] if vals.shape[2] == 1 else vals)
+
+
+def _bool255(v: np.ndarray) -> np.ndarray:
+    """A mode ``1`` array as Pillow's ``__array_interface__`` gives it:
+    bool, its True bytes 255 (numpy reads any nonzero byte as True)."""
+    return np.where(v != 0, 255, 0).astype(np.uint8).view(bool)
+
+
+def _transparency(trns, mode: str, depth: int):
+    """``info["transparency"]`` as PngImagePlugin's ``chunk_tRNS`` sets it:
+    a palette image's alphas, ``1``'s 0 or 255, a grey image's value, an
+    RGB image's (R, G, B); None where it sets none."""
+    if trns is None or mode in ("LA", "RGBA") or (mode == "RGB" and len(trns) < 6) or \
+            (mode in ("1", "L", "I;16") and len(trns) < 2):
+        return None
+    if mode == "P":
+        return trns
+    if mode == "RGB":
+        return struct.unpack(">HHH", trns[:6])
+    value = struct.unpack(">H", trns[:2])[0]
+    return (255 if value else 0) if mode == "1" else value
+
+
+# --- Convert.c --------------------------------------------------------------------------
+
+
+def _palette_table(palette, alphas=None) -> np.ndarray:
+    """A palette as Pillow holds it: 256 RGBA entries, those past the
+    palette black, alpha 255 but for the first ``len(alphas)`` entries."""
     table = np.zeros((256, 4), np.uint8)
     table[:, 3] = 255
-    table[:len(palette), :3] = palette[:256]
-    if trns:
-        alphas = np.frombuffer(trns, np.uint8)[:256]
-        table[:len(alphas), 3] = alphas
+    if palette is not None:
+        table[:min(len(palette), 256), :3] = palette[:256]
+    if alphas:
+        a = np.frombuffer(alphas, np.uint8)[:256]
+        table[:len(a), 3] = a
     return table
 
 
-def _to_rgb(arr: np.ndarray, mode: str, palette, trns=None) -> np.ndarray:
-    if mode == "L":
-        return np.repeat(arr[:, :, None], 3, axis=2)
-    if mode == "RGBA":
-        return np.ascontiguousarray(arr[:, :, :3])
-    return _palette_table(palette, None)[:, :3][arr]
-
-
-def _to_l(arr: np.ndarray, mode: str, palette, trns=None) -> np.ndarray:
-    """Pillow's ``rgb2l`` (and ``p2l`` over the palette): the luma in 16.16
-    fixed point, rounded half up; alpha plays no part."""
-    rgb = (_palette_table(palette, None)[:, :3] if mode == "P" else arr[..., :3]).astype(np.uint32)
-    luma = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+def _luma(rgb: np.ndarray) -> np.ndarray:
+    """Pillow's ``rgb2l``: the luma in 16.16 fixed point, rounded half up."""
+    rgb = rgb.astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
             >> 16).astype(np.uint8)
-    return luma[arr] if mode == "P" else luma
 
 
-def _to_rgba(arr: np.ndarray, mode: str, palette, trns=None) -> np.ndarray:
-    """Alpha 255, but as ``trns`` says: alpha by palette index for a
-    palette image; alpha 0 where a greyscale or RGB pixel equals the one
-    16-bit sample value (per channel) that ``trns`` names."""
+def _cmyk_rgb(arr: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb``: ``nk - MULDIV255(c, nk)``, ``nk = 255 - K``."""
+    c = arr.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _convert(arr: np.ndarray, mode: str, palette, trns, to: str) -> np.ndarray:
+    """``Image.convert(to)`` of an image of ``mode``, ``to`` one of RGB, L,
+    RGBA and LA (``to != mode``)."""
     if mode == "P":
-        return _palette_table(palette, trns)[arr]
-    rgb = arr if mode == "RGB" else _to_rgb(arr, mode, palette)
-    alpha = np.full(arr.shape[:2], 255, np.uint8)
-    if trns is not None:
-        key = np.frombuffer(trns[:len(trns) // 2 * 2], ">u2")
-        if mode == "L" and key.size >= 1:
-            alpha[arr == key[0]] = 0
-        elif mode == "RGB" and key.size >= 3:
-            alpha[(arr == key[:3]).all(axis=-1)] = 0
-    return np.concatenate([rgb, alpha[:, :, None]], axis=2)
-
-
-_CONVERTERS = {"RGB": _to_rgb, "L": _to_l, "RGBA": _to_rgba}
+        table = _palette_table(palette, trns if to in ("RGBA", "LA") else None)
+        if to in ("L", "LA"):
+            table = np.concatenate([_luma(table[:, :3])[:, None], table[:, 3:]], axis=1)
+        out = table[arr]
+        return out[..., 0] if to == "L" else out[..., :3] if to == "RGB" else out
+    if mode in ("RGB", "RGBA", "CMYK"):
+        rgb = _cmyk_rgb(arr) if mode == "CMYK" else arr[..., :3]
+        key = None if trns is None or mode != "RGB" else \
+            (rgb == np.array(trns, np.int64) & 255).all(axis=-1)
+        grey = None
+    else:  # 1, L, LA, I;16: one value a pixel
+        grey = {"1": lambda a: np.where(a, 255, 0).astype(np.uint8),
+                "L": lambda a: a, "LA": lambda a: a[..., 0],
+                "I;16": lambda a: np.minimum(a, 255).astype(np.uint8)}[mode](arr)
+        key = None if trns is None or mode == "LA" else grey == (trns & 255)
+    if to == "L":
+        return grey if grey is not None else _luma(rgb)
+    if to == "RGB":
+        return np.repeat(grey[..., None], 3, axis=2) if grey is not None else \
+            np.ascontiguousarray(rgb)
+    alpha = arr[..., -1].copy() if mode in ("LA", "RGBA") else \
+        np.full(arr.shape[:2], 255, np.uint8)
+    if key is not None:
+        alpha[key] = 0
+    if to == "LA":
+        first = grey if grey is not None else _luma(rgb)
+        if grey is None and key is not None:  # Convert.c keeps a keyed pixel's R, not its luma
+            first = np.where(key, rgb[..., 0], first)
+    else:
+        first = np.repeat(grey[..., None], 3, axis=2) if grey is not None else rgb
+    return np.concatenate([first.reshape(*arr.shape[:2], -1), alpha[..., None]], axis=2)
 
 
 def unfilter(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
@@ -294,42 +402,39 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
+def _pillow_filtered(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Pillow's ``ZipEncode.c`` row filters: each row (H, n) takes the
+    filter whose bytes, read as signed, sum nearest zero, tried in the
+    order none, Up, Sub, Paeth (Average only under ``optimize``), a later
+    one only when strictly better; (H, 1 + n) with the filter bytes."""
+    prev = np.zeros_like(raw)
+    prev[1:] = raw[:-1]
+    left = np.zeros_like(raw)
+    left[:, bpp:] = raw[:, :-bpp]
+    upleft = np.zeros_like(raw)
+    upleft[:, bpp:] = prev[:, :-bpp]
+    a, b, c = (x.astype(np.int16) for x in (left, prev, upleft))
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+    rows = np.stack([raw, raw - prev, raw - left, raw - paeth])  # uint8, mod 256
+    cost = np.where(rows < 128, rows, 256 - rows.astype(np.int32)).sum(axis=2, dtype=np.int64)
+    pick = np.argmin(cost, axis=0)  # the first of equal sums, as the strict < keeps it
+    out = np.empty((raw.shape[0], raw.shape[1] + 1), np.uint8)
+    out[:, 0] = np.array([0, 2, 1, 4], np.uint8)[pick]
+    out[:, 1:] = rows[pick, np.arange(raw.shape[0])]
+    return out
+
+
 def write_png(path_or_file, arr: np.ndarray, palette=None) -> None:
-    """Write uint8 ``arr`` as an 8-bit PNG: (H, W) greyscale, (H, W, 3) RGB,
-    (H, W, 4) RGBA, or, given ``palette`` (a flat list of RGB entries), (H, W) palette
-    indices with that palette as its PLTE chunk. Every row has filter
-    type 0; ``path_or_file`` is a path or a binary file."""
-    arr = np.ascontiguousarray(arr)
-    if arr.dtype != np.uint8:
-        raise TypeError(f"write_png takes uint8 arrays, not {arr.dtype}")
-    if palette is not None:
-        if arr.ndim != 2:
-            raise ValueError(f"a palette image is (H, W) indices, not {arr.shape}")
-        plte = np.asarray(palette, np.uint8).ravel()
-        if plte.size % 3 or not 3 <= plte.size <= 768:
-            raise ValueError(f"a palette holds 1 to 256 RGB entries, not {plte.size} values")
-        colour = 3
-    elif arr.ndim == 2:
-        colour = 0
-    elif arr.ndim == 3 and arr.shape[2] in (3, 4):
-        colour = 2 if arr.shape[2] == 3 else 6
-    else:
-        raise ValueError(f"write_png writes (H, W), (H, W, 3) or (H, W, 4) arrays, not {arr.shape}")
-    h, w = arr.shape[:2]
-    if not h or not w:
-        raise ValueError(f"a PNG holds at least one pixel, not {arr.shape}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], axis=1)  # filter 0
-    out = [PNG_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))]
-    if palette is not None:
-        out.append(_chunk(b"PLTE", plte.tobytes()))
-    # PIL's encoder: zlib level 6 at memLevel 9, its output cut into IDAT
-    # chunks of its buffer's size, so a palette image's bytes equal PIL's
-    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9)
-    idat = z.compress(rows.tobytes()) + z.flush()
-    step = max(65536, w * 4)
-    out += [_chunk(b"IDAT", idat[i:i + step]) for i in range(0, len(idat), step)]
-    out.append(_chunk(b"IEND", b""))
-    data = b"".join(out)
+    """Write ``arr`` as a PNG with filter-0 rows (the quick write of the
+    port's synthetic trees and dumps; a palette image in Pillow's bytes):
+    uint8 (H, W) greyscale, (H, W, 2) grey + alpha, (H, W, 3) RGB, (H, W, 4)
+    RGBA, or, given ``palette`` (a flat list of RGB entries), (H, W)
+    palette indices with that palette as its PLTE chunk, packed at 1, 2 or
+    4 bits for 2, 4 or 16 entries or fewer, as Pillow packs them; bool
+    (H, W) as 1-bit and uint16 (H, W) as 16-bit greyscale (modes ``1`` and
+    ``I;16``). ``path_or_file`` is a path or a binary file."""
+    data = _png_bytes(arr, palette, pillow_filters=palette is not None)
     if hasattr(path_or_file, "write"):
         path_or_file.write(data)
     else:
@@ -337,18 +442,81 @@ def write_png(path_or_file, arr: np.ndarray, palette=None) -> None:
             f.write(data)
 
 
+def _png_bytes(arr: np.ndarray, palette, pillow_filters: bool) -> bytes:
+    """The PNG file of :func:`write_png`; with ``pillow_filters`` each row
+    filtered as Pillow's encoder picks it (:func:`_pillow_filtered`, zlib's
+    filtered strategy), which gives the bytes of ``Image.save`` for every
+    mode. An 8-bit palette image is never filtered, as Pillow's."""
+    arr = np.ascontiguousarray(arr)
+    depth = 8
+    if arr.dtype == bool or arr.dtype == np.uint16:
+        if arr.ndim != 2 or palette is not None:
+            raise ValueError(f"a {arr.dtype} PNG is (H, W) greyscale, not {arr.shape}")
+        depth = 1 if arr.dtype == bool else 16
+    elif arr.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8, uint16 or bool arrays, not {arr.dtype}")
+    if palette is not None:
+        if arr.ndim != 2:
+            raise ValueError(f"a palette image is (H, W) indices, not {arr.shape}")
+        plte = np.asarray(palette, np.uint8).ravel()
+        if plte.size % 3 or not 3 <= plte.size <= 768:
+            raise ValueError(f"a palette holds 1 to 256 RGB entries, not {plte.size} values")
+        colour, colours = 3, plte.size // 3
+        depth = 1 if colours <= 2 else 2 if colours <= 4 else 4 if colours <= 16 else 8
+    elif arr.ndim == 2:
+        colour = 0
+    elif arr.ndim == 3 and arr.shape[2] in (2, 3, 4):
+        colour = {2: 4, 3: 2, 4: 6}[arr.shape[2]]
+    else:
+        raise ValueError(f"write_png writes (H, W), (H, W, 2), (H, W, 3) or (H, W, 4) arrays, "
+                         f"not {arr.shape}")
+    h, w = arr.shape[:2]
+    if not h or not w:
+        raise ValueError(f"a PNG holds at least one pixel, not {arr.shape}")
+    if depth == 16:
+        packed = arr.astype(">u2").view(np.uint8)
+    elif depth < 8:  # the leftmost pixel in the high bits, rows padded with zero bits
+        per = 8 // depth
+        v = np.zeros((h, -(-w // per) * per), np.uint8)
+        v[:, :w] = arr
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        packed = np.bitwise_or.reduce(v.reshape(h, -1, per) << shifts, axis=2)
+    else:
+        packed = arr.reshape(h, -1)
+    out = [PNG_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))]
+    if palette is not None:
+        out.append(_chunk(b"PLTE", plte.tobytes()))
+    if palette is not None and depth == 8:  # PIL's "P" encoder: no filter, default strategy
+        rows = np.concatenate([np.zeros((h, 1), np.uint8), packed], axis=1)
+        z = zlib.compressobj(6, zlib.DEFLATED, 15, 9)
+    elif pillow_filters:
+        rows = _pillow_filtered(packed, max(1, depth * _SAMPLES[colour] // 8))
+        z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    else:
+        rows = np.concatenate([np.zeros((h, 1), np.uint8), packed], axis=1)
+        z = zlib.compressobj(6, zlib.DEFLATED, 15, 9)
+    # PIL's encoder: level 6 at memLevel 9, its output cut into IDAT chunks
+    # of its buffer's size
+    idat = z.compress(rows.tobytes()) + z.flush()
+    step = max(65536, w * 4)
+    out += [_chunk(b"IDAT", idat[i:i + step]) for i in range(0, len(idat), step)]
+    out.append(_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
 def save_image(path: str, arr: np.ndarray) -> None:
-    """``Image.fromarray(arr).save(path)``: a ``.png`` path through
-    :func:`write_png`, a ``.jpg`` or ``.jpeg`` path through
+    """``Image.fromarray(arr).save(path)``, in its bytes: a ``.png`` path
+    with Pillow's row filters (:func:`_png_bytes`), a ``.jpg`` or ``.jpeg`` path through
     :func:`~fastscnn_tpu_torch.data.jpeg.encode_jpeg` (Pillow's default
-    quality, 75), any other through PIL, which raises a ``RuntimeError``
-    naming the file where PIL is not installed."""
+    quality, 75), a ``.bmp`` path through
+    :func:`~fastscnn_tpu_torch.data.bmp.encode_bmp`, any other through
+    PIL, which raises a ``RuntimeError`` naming the file where PIL is not
+    installed."""
     lower = path.lower()
-    if lower.endswith(".png"):
-        write_png(path, arr)
-        return
-    if lower.endswith((".jpg", ".jpeg")):
-        data = encode_jpeg(np.asarray(arr))
+    if lower.endswith((".png", ".jpg", ".jpeg", ".bmp")):
+        arr = np.asarray(arr)
+        data = (_png_bytes(arr, None, pillow_filters=True) if lower.endswith(".png") else
+                encode_bmp(arr) if lower.endswith(".bmp") else encode_jpeg(arr))
         with open(path, "wb") as f:
             f.write(data)
         return
@@ -356,8 +524,8 @@ def save_image(path: str, arr: np.ndarray) -> None:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot write {path!r}: only PNG and JPEG files are written without PIL, and the "
-            f"PIL package is not installed ({ROADMAP_ITEM})") from e
+            f"cannot write {path!r}: only PNG, JPEG and BMP files are written without PIL, and "
+            f"the PIL package is not installed ({ROADMAP_ITEM})") from e
     Image.fromarray(np.asarray(arr)).save(path)
 
 
@@ -367,14 +535,16 @@ _JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 
 def image_size(path: str) -> tuple[int, int]:
     """``Image.open(path).size``, (width, height), from the file's header
-    alone: a PNG's IHDR, a JPEG's frame header (SOF marker); any other
-    file through PIL, which raises a ``RuntimeError`` where it is not
-    installed."""
+    alone: a PNG's IHDR, a JPEG's frame header (SOF marker), a BMP's
+    headers; any other file through PIL, which raises a ``RuntimeError``
+    where it is not installed."""
     with open(path, "rb") as f:
         data = f.read(64 * 1024)
         if data.startswith(PNG_SIGNATURE) and data[12:16] == b"IHDR":
             width, height = struct.unpack(">II", data[16:24])
             return int(width), int(height)
+        if is_bmp(data):
+            return bmp_size(data + f.read(), path)
         if data.startswith(b"\xff\xd8"):
             data += f.read()
             size = _jpeg_size(data)
@@ -384,8 +554,8 @@ def image_size(path: str) -> tuple[int, int]:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot read the size of {path!r}: it is neither a PNG nor a JPEG with a frame "
-            "header, and the PIL package is not installed") from e
+            f"cannot read the size of {path!r}: it is neither a PNG, a BMP nor a JPEG with a "
+            "frame header, and the PIL package is not installed") from e
     with Image.open(path) as img:
         return img.size
 

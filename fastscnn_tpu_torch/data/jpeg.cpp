@@ -7,11 +7,15 @@
 // for ``Image.fromarray(a).save(f, "JPEG", quality=q)``.
 //
 // Decoder: SOF0, SOF1 and SOF2 (baseline, extended-sequential and
-// progressive Huffman), 8-bit samples, 1 or 3 components, 4:4:4, 4:2:2 and
-// 4:2:0 sampling, restart intervals and fill bytes. Everything else
-// (arithmetic coding, 12/16-bit samples, lossless or hierarchical frames,
-// CMYK/YCCK, other sampling factors, truncated or corrupt scans) is refused
-// with a message naming the variant.
+// progressive Huffman), SOF9 and SOF10 (sequential and progressive
+// arithmetic coding, with DAC conditioning) and SOF3 (lossless Huffman:
+// predictors 1-7, point transform), 8-bit samples, 1, 3 (YCbCr or RGB) or 4
+// components (CMYK or YCCK, given as Pillow's Adobe-inverted CMYK), every
+// whole sampling ratio of factors 1-4 with libjpeg-turbo's upsampling for
+// it, restart intervals and fill bytes. Everything libjpeg-turbo or Pillow
+// refuses (12/16-bit samples, hierarchical frames, lossless arithmetic
+// coding, 2 components, fractional sampling ratios, a DNL height, truncated
+// or corrupt scans) is refused with a message naming the variant.
 //
 // Encoder: baseline, quality scaling of the T.81 Annex K tables as
 // jpeg_set_quality(q, force_baseline=TRUE) does, 4:2:0 YCbCr for RGB and
@@ -223,18 +227,150 @@ struct BitReader {
 // HUFF_EXTEND: the s-bit magnitude category value x as a signed number
 inline int extend(int x, int s) { return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x; }
 
+// T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 | next MPS << 8 |
+// switch << 7 | next LPS; entry 113 is the fixed 0.5 estimate of signs and
+// refinement bits
+#define QE(q, lps, mps, sw) ((uint32_t(q) << 16) | (uint32_t(mps) << 8) | ((sw) << 7) | (lps))
+const uint32_t kAriTab[114] = {
+    QE(0x5a1d, 1, 1, 1),     QE(0x2586, 14, 2, 0),    QE(0x1114, 16, 3, 0),
+    QE(0x080b, 18, 4, 0),    QE(0x03d8, 20, 5, 0),    QE(0x01da, 23, 6, 0),
+    QE(0x00e5, 25, 7, 0),    QE(0x006f, 28, 8, 0),    QE(0x0036, 30, 9, 0),
+    QE(0x001a, 33, 10, 0),   QE(0x000d, 35, 11, 0),   QE(0x0006, 9, 12, 0),
+    QE(0x0003, 10, 13, 0),   QE(0x0001, 12, 13, 0),   QE(0x5a7f, 15, 15, 1),
+    QE(0x3f25, 36, 16, 0),   QE(0x2cf2, 38, 17, 0),   QE(0x207c, 39, 18, 0),
+    QE(0x17b9, 40, 19, 0),   QE(0x1182, 42, 20, 0),   QE(0x0cef, 43, 21, 0),
+    QE(0x09a1, 45, 22, 0),   QE(0x072f, 46, 23, 0),   QE(0x055c, 48, 24, 0),
+    QE(0x0406, 49, 25, 0),   QE(0x0303, 51, 26, 0),   QE(0x0240, 52, 27, 0),
+    QE(0x01b1, 54, 28, 0),   QE(0x0144, 56, 29, 0),   QE(0x00f5, 57, 30, 0),
+    QE(0x00b7, 59, 31, 0),   QE(0x008a, 60, 32, 0),   QE(0x0068, 62, 33, 0),
+    QE(0x004e, 63, 34, 0),   QE(0x003b, 32, 35, 0),   QE(0x002c, 33, 9, 0),
+    QE(0x5ae1, 37, 37, 1),   QE(0x484c, 64, 38, 0),   QE(0x3a0d, 65, 39, 0),
+    QE(0x2ef1, 67, 40, 0),   QE(0x261f, 68, 41, 0),   QE(0x1f33, 69, 42, 0),
+    QE(0x19a8, 70, 43, 0),   QE(0x1518, 72, 44, 0),   QE(0x1177, 73, 45, 0),
+    QE(0x0e74, 74, 46, 0),   QE(0x0bfb, 75, 47, 0),   QE(0x09f8, 77, 48, 0),
+    QE(0x0861, 78, 49, 0),   QE(0x0706, 79, 50, 0),   QE(0x05cd, 48, 51, 0),
+    QE(0x04de, 50, 52, 0),   QE(0x040f, 50, 53, 0),   QE(0x0363, 51, 54, 0),
+    QE(0x02d4, 52, 55, 0),   QE(0x025c, 53, 56, 0),   QE(0x01f8, 54, 57, 0),
+    QE(0x01a4, 55, 58, 0),   QE(0x0160, 56, 59, 0),   QE(0x0125, 57, 60, 0),
+    QE(0x00f6, 58, 61, 0),   QE(0x00cb, 59, 62, 0),   QE(0x00ab, 61, 63, 0),
+    QE(0x008f, 61, 32, 0),   QE(0x5b12, 65, 65, 1),   QE(0x4d04, 80, 66, 0),
+    QE(0x412c, 81, 67, 0),   QE(0x37d8, 82, 68, 0),   QE(0x2fe8, 83, 69, 0),
+    QE(0x293c, 84, 70, 0),   QE(0x2379, 86, 71, 0),   QE(0x1edf, 87, 72, 0),
+    QE(0x1aa9, 87, 73, 0),   QE(0x174e, 72, 74, 0),   QE(0x1424, 72, 75, 0),
+    QE(0x119c, 74, 76, 0),   QE(0x0f6b, 74, 77, 0),   QE(0x0d51, 75, 78, 0),
+    QE(0x0bb6, 77, 79, 0),   QE(0x0a40, 77, 48, 0),   QE(0x5832, 80, 81, 1),
+    QE(0x4d1c, 88, 82, 0),   QE(0x438e, 89, 83, 0),   QE(0x3bdd, 90, 84, 0),
+    QE(0x34ee, 91, 85, 0),   QE(0x2eae, 92, 86, 0),   QE(0x299a, 93, 87, 0),
+    QE(0x2516, 86, 71, 0),   QE(0x5570, 88, 89, 1),   QE(0x4ca9, 95, 90, 0),
+    QE(0x44d9, 96, 91, 0),   QE(0x3e22, 97, 92, 0),   QE(0x3824, 99, 93, 0),
+    QE(0x32b4, 99, 94, 0),   QE(0x2e17, 93, 86, 0),   QE(0x56a8, 95, 96, 1),
+    QE(0x4f46, 101, 97, 0),  QE(0x47e5, 102, 98, 0),  QE(0x41cf, 103, 99, 0),
+    QE(0x3c3d, 104, 100, 0), QE(0x375e, 99, 93, 0),   QE(0x5231, 105, 102, 0),
+    QE(0x4c0f, 106, 103, 0), QE(0x4639, 107, 104, 0), QE(0x415e, 103, 99, 0),
+    QE(0x5627, 105, 106, 1), QE(0x50e7, 108, 107, 0), QE(0x4b85, 109, 103, 0),
+    QE(0x5597, 110, 109, 0), QE(0x504f, 111, 107, 0), QE(0x5a10, 110, 111, 1),
+    QE(0x5522, 112, 109, 0), QE(0x59eb, 112, 111, 1), QE(0x5a1d, 113, 113, 0)};
+#undef QE
+
+// The QM decoder of T.81 Annex D as jdarith.c runs it: a marker met inside
+// the data is legal and feeds zero bytes from there on
+struct ArithReader {
+  const uint8_t* d;
+  size_t pos, end;
+  int64_t a = 0, c = 0;
+  int ct = -16;
+  bool at_marker = false;
+
+  ArithReader(const uint8_t* data, size_t p, size_t n) : d(data), pos(p), end(n) {}
+
+  void reset(size_t p) {
+    pos = p;
+    a = c = 0;
+    ct = -16;
+    at_marker = false;
+  }
+
+  int next_byte() {
+    if (at_marker || pos >= end) {
+      at_marker = true;
+      return 0;
+    }
+    int b = d[pos];
+    if (b != 0xFF) {
+      ++pos;
+      return b;
+    }
+    size_t q = pos + 1;
+    while (q < end && d[q] == 0xFF) ++q;
+    if (q < end && d[q] == 0x00) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    pos = q - 1;  // at the 0xFF before the marker's code
+    at_marker = true;
+    return 0;
+  }
+
+  inline int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes in: A becomes 0x10000 below
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAriTab[sv & 0x7F];
+    int nl = qe & 0xFF;
+    qe >>= 8;
+    int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - static_cast<int64_t>(qe);
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < static_cast<int64_t>(qe)) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < static_cast<int64_t>(qe)) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  size_t marker_pos() const {
+    size_t q = pos;
+    while (q + 1 < end && !(d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF)) ++q;
+    return q;
+  }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int dc_tbl = 0, ac_tbl = 0;
   int dw = 0, dh = 0;          // downsampled_width/height: real samples
   int wblocks = 0, hblocks = 0;  // blocks holding real samples
   int bw = 0, bh = 0;          // blocks allocated: whole MCUs
-  int pred = 0;
+  int pred = 0;                // last DC value (Huffman) or last_dc_val (arithmetic)
+  int dc_context = 0;          // arithmetic DC conditioning category
   bool scanned = false;
   bool latched = false;
   uint16_t q[64] = {};         // quantization table, natural order, latched at the first scan
   std::vector<int16_t> coef;   // bh * bw blocks of 64 coefficients, natural order
-  std::vector<uint8_t> plane;  // wblocks*8 x hblocks*8 samples after the IDCT
+  std::vector<uint8_t> plane;  // the samples: wblocks*8 x hblocks*8 after the IDCT, or
+                               // bw x bh of a lossless frame
   int stride = 0;
 };
 
@@ -259,14 +395,19 @@ class Decoder {
   uint16_t qt_[4][64] = {};
   bool qt_def_[4] = {};
   HuffTable dc_[4], ac_[4];
+  uint8_t dac_l_[16], dac_u_[16], dac_k_[16];  // arithmetic conditioning (DAC)
+  uint8_t dc_stats_[16][64], ac_stats_[16][256];
   int restart_interval_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = 0;
-  bool frame_ = false, progressive_ = false, eoi_ = false, any_scan_ = false;
-  bool rgb_ = false;  // three components that hold R, G, B (no YCbCr transform)
+  bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
+  bool eoi_ = false, any_scan_ = false;
+  bool rgb_ = false;   // three components that hold R, G, B (no YCbCr transform)
+  bool ycck_ = false;  // four components that hold Y, Cb, Cr, K
   int ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
-  Component comp_[3];
+  Component comp_[4];
   int eobrun_ = 0;
+  bool arith_error_ = false;  // jdarith's ct == -1: the rest of the interval decodes nothing
 
   int u16(size_t p) const {
     if (p + 2 > n_) fail("truncated file: a marker segment ends early");
@@ -283,6 +424,9 @@ class Decoder {
 
   void run(bool header_only) {
     if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) fail("not a JPEG file (no SOI marker)");
+    std::memset(dac_l_, 0, sizeof(dac_l_));
+    std::memset(dac_u_, 1, sizeof(dac_u_));
+    std::memset(dac_k_, 5, sizeof(dac_k_));
     pos_ = 2;
     for (;;) {
       int m = next_marker();
@@ -297,15 +441,14 @@ class Decoder {
       if (len < 2 || pos_ + len > n_) fail("truncated file: a marker segment ends early");
       size_t body = pos_ + 2, bend = pos_ + len;
       switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
           frame(m, body, bend);
           break;
-        case 0xC3: fail("lossless JPEG (SOF3)");
-        case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
-          fail("hierarchical JPEG (SOF5-SOF7, DHP, EXP)");
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: case 0xCC:
-          fail("arithmetic coding (SOF9-SOF15, DAC)");
+        case 0xCB: fail("lossless arithmetic-coded JPEG (SOF11)");
+        case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF: case 0xDE: case 0xDF:
+          fail("hierarchical JPEG (SOF5-SOF7, SOF13-SOF15, DHP, EXP)");
         case 0xC4: dht(body, bend); break;
+        case 0xCC: dac(body, bend); break;
         case 0xDB: dqt(body, bend); break;
         case 0xDD:
           if (len < 4) fail("corrupt DRI marker");
@@ -383,9 +526,26 @@ class Decoder {
       p += count;
       if (tc == 0)
         for (int i = 0; i < count; ++i)
-          if (t.vals[i] > 15) fail("corrupt DHT marker");
+          if (t.vals[i] > 16) fail("corrupt DHT marker");
       t.build();
     }
+  }
+
+  // jdmarker.c's get_dac: index < 16 a DC table's L (low nibble) and U,
+  // index 16..31 an AC table's Kx
+  void dac(size_t p, size_t e) {
+    for (; p + 2 <= e; p += 2) {
+      int index = d_[p], val = d_[p + 1];
+      if (index >= 32) fail("corrupt DAC marker");
+      if (index >= 16) {
+        dac_k_[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dac_l_[index] = static_cast<uint8_t>(val & 15);
+        dac_u_[index] = static_cast<uint8_t>(val >> 4);
+        if (dac_l_[index] > dac_u_[index]) fail("corrupt DAC marker: L above U");
+      }
+    }
+    if (p != e) fail("corrupt DAC marker");
   }
 
   void frame(int m, size_t p, size_t e) {
@@ -398,11 +558,12 @@ class Decoder {
     ncomp_ = d_[p + 5];
     if (height == 0) fail("a DNL marker (height given after the first scan)");
     if (width == 0) fail("corrupt frame header: width 0");
-    if (ncomp_ == 4) fail("CMYK/YCCK (4 components)");
-    if (ncomp_ != 1 && ncomp_ != 3)
-      fail(std::to_string(ncomp_) + " components (only 1 and 3 are read)");
+    if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4)
+      fail(std::to_string(ncomp_) + " components (only 1, 3 and 4 are read)");
     if (e - p < static_cast<size_t>(6 + 3 * ncomp_)) fail("corrupt frame header");
-    progressive_ = (m == 0xC2);
+    progressive_ = (m == 0xC2 || m == 0xCA);
+    arith_ = (m == 0xC9 || m == 0xCA);
+    lossless_ = (m == 0xC3);
     hmax_ = vmax_ = 1;
     for (int c = 0; c < ncomp_; ++c) {
       Component& k = comp_[c];
@@ -414,33 +575,29 @@ class Decoder {
       hmax_ = std::max(hmax_, k.h);
       vmax_ = std::max(vmax_, k.v);
     }
-    if (ncomp_ == 3) {
-      bool ok = true;
-      for (int c = 0; c < 3; ++c) {
-        const Component& k = comp_[c];
-        int rh = hmax_ / k.h, rv = vmax_ / k.v;
-        if (hmax_ % k.h || vmax_ % k.v || !((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
-                                           (rh == 2 && rv == 2)))
-          ok = false;
-      }
-      int blocks = 0;
-      for (int c = 0; c < 3; ++c) blocks += comp_[c].h * comp_[c].v;
-      if (!ok || blocks > 10) {
+    // jdsample.c upsamples by whole ratios only; a lossless frame of several
+    // components is read at 1x1 sampling alone
+    for (int c = 0; c < ncomp_; ++c) {
+      const Component& k = comp_[c];
+      bool fractional = hmax_ % k.h || vmax_ % k.v;
+      if (fractional || (lossless_ && ncomp_ > 1 && (k.h != 1 || k.v != 1))) {
         std::string s = "sampling factors";
-        for (int c = 0; c < 3; ++c)
-          s += std::string(c ? ", " : " ") + std::to_string(comp_[c].h) + "x" +
-               std::to_string(comp_[c].v);
-        fail(s + " (only 4:4:4, 4:2:2 and 4:2:0 are read)");
+        for (int i = 0; i < ncomp_; ++i)
+          s += std::string(i ? ", " : " ") + std::to_string(comp_[i].h) + "x" +
+               std::to_string(comp_[i].v);
+        fail(s + (fractional ? " (a fractional upsampling ratio)"
+                             : " in a lossless frame of several components (only 1x1 is read)"));
       }
     }
-    mcux_ = (width + 8 * hmax_ - 1) / (8 * hmax_);
-    mcuy_ = (height + 8 * vmax_ - 1) / (8 * vmax_);
+    int bs = lossless_ ? 1 : 8;  // samples a block side: a lossless "block" is one sample
+    mcux_ = (width + bs * hmax_ - 1) / (bs * hmax_);
+    mcuy_ = (height + bs * vmax_ - 1) / (bs * vmax_);
     for (int c = 0; c < ncomp_; ++c) {
       Component& k = comp_[c];
       k.dw = static_cast<int>((static_cast<int64_t>(width) * k.h + hmax_ - 1) / hmax_);
       k.dh = static_cast<int>((static_cast<int64_t>(height) * k.v + vmax_ - 1) / vmax_);
-      k.wblocks = (k.dw + 7) / 8;
-      k.hblocks = (k.dh + 7) / 8;
+      k.wblocks = (k.dw + bs - 1) / bs;
+      k.hblocks = (k.dh + bs - 1) / bs;
       k.bw = mcux_ * k.h;
       k.bh = mcuy_ * k.v;
     }
@@ -448,13 +605,19 @@ class Decoder {
     frame_ = true;
   }
 
-  // libjpeg's default_decompress_parms: JFIF means YCbCr, else an Adobe
-  // APP14 transform 0 means RGB, else component ids 'R','G','B' mean RGB
+  // libjpeg's default_decompress_parms: three components are YCbCr under
+  // JFIF, RGB under an Adobe APP14 transform 0 or ids 'R','G','B', else
+  // YCbCr; four are YCCK under an Adobe transform other than 0, else CMYK
   void colour_space() {
-    if (ncomp_ != 3) return;
-    if (jfif_) rgb_ = false;
-    else if (adobe_) rgb_ = (adobe_transform_ == 0);
-    else rgb_ = (comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B');
+    if (ncomp_ == 3) {
+      if (jfif_) rgb_ = false;
+      else if (adobe_) rgb_ = (adobe_transform_ == 0);
+      else rgb_ = (comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B');
+      if (lossless_ && !rgb_) fail("a lossless YCbCr frame (no colour conversion of lossless data)");
+    } else if (ncomp_ == 4) {
+      ycck_ = adobe_ && adobe_transform_ != 0;
+      if (lossless_ && ycck_) fail("a lossless YCCK frame (no colour conversion of lossless data)");
+    }
   }
 
   void scan(size_t p, size_t e) {
@@ -472,11 +635,16 @@ class Decoder {
         if (cs[j] == k) fail("corrupt scan header: a component twice");
       k->dc_tbl = tbl >> 4;
       k->ac_tbl = tbl & 15;
-      if (k->dc_tbl > 3 || k->ac_tbl > 3) fail("corrupt scan header");
+      if (!arith_ && (k->dc_tbl > 3 || k->ac_tbl > 3)) fail("corrupt scan header");
       cs[i] = k;
     }
     size_t q = p + 1 + 2 * ns;
     int ss = d_[q], se = d_[q + 1], ah = d_[q + 2] >> 4, al = d_[q + 2] & 15;
+    if (lossless_) {
+      if (ss < 1 || ss > 7 || al > 7) fail("corrupt lossless scan: predictor " + std::to_string(ss));
+      lossless_scan(cs, ns, ss, al);
+      return;
+    }
     if (progressive_) {
       bool bad = ss > 63 || se > 63 || se < ss || al > 13 || (ss == 0 && se != 0) ||
                  (ss > 0 && ns != 1) || (ah != 0 && ah != al + 1);
@@ -491,6 +659,7 @@ class Decoder {
       for (int i = 0; i < ns; ++i) blocks += cs[i]->h * cs[i]->v;
       if (blocks > 10) fail("corrupt scan header: too many blocks in an MCU");
     }
+    bool need_dc = ss == 0 && ah == 0, need_ac = ss > 0 || !progressive_;
     for (int i = 0; i < ns; ++i) {
       Component* k = cs[i];
       if (!k->latched) {
@@ -498,12 +667,16 @@ class Decoder {
         std::memcpy(k->q, qt_[k->tq], sizeof(k->q));
         k->latched = true;
       }
-      bool need_dc = ss == 0 && ah == 0, need_ac = ss > 0 || !progressive_;
-      if ((need_dc && !dc_[k->dc_tbl].defined) || (need_ac && !ac_[k->ac_tbl].defined))
+      if (!arith_ && ((need_dc && !dc_[k->dc_tbl].defined) || (need_ac && !ac_[k->ac_tbl].defined)))
         fail("corrupt file: a Huffman table is missing");
       k->pred = 0;
+      k->dc_context = 0;
       k->scanned = true;
       if (k->coef.empty()) k->coef.assign(static_cast<size_t>(k->bw) * k->bh * 64, 0);
+    }
+    if (arith_) {
+      arith_scan(cs, ns, ss, se, ah, al);
+      return;
     }
 
     BitReader br(d_, pos_, n_);
@@ -511,7 +684,6 @@ class Decoder {
     int next_rst = 0;
     int64_t total = ns == 1 ? static_cast<int64_t>(cs[0]->wblocks) * cs[0]->hblocks
                             : static_cast<int64_t>(mcux_) * mcuy_;
-    int per_row = ns == 1 ? cs[0]->wblocks : mcux_;
     int togo = restart_interval_;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval_) {
@@ -527,20 +699,267 @@ class Decoder {
         }
         --togo;
       }
-      int my = static_cast<int>(m / per_row), mx = static_cast<int>(m % per_row);
-      if (ns == 1) {
-        Component* k = cs[0];
-        block(br, *k, &k->coef[(static_cast<size_t>(my) * k->bw + mx) * 64], ss, se, ah, al);
-      } else {
-        for (int i = 0; i < ns; ++i) {
-          Component* k = cs[i];
-          for (int v = 0; v < k->v; ++v)
-            for (int h = 0; h < k->h; ++h) {
-              size_t bi = static_cast<size_t>(my * k->v + v) * k->bw + mx * k->h + h;
-              block(br, *k, &k->coef[bi * 64], ss, se, ah, al);
-            }
+      for_mcu_blocks(cs, ns, m, [&](Component& k, int16_t* c) { block(br, k, c, ss, se, ah, al); });
+    }
+    pos_ = br.marker_pos();
+  }
+
+  // the blocks of an MCU, in coding order: (component, coefficient block)
+  template <typename F>
+  void for_mcu_blocks(Component** cs, int ns, int64_t m, F&& f) {
+    int per_row = ns == 1 ? cs[0]->wblocks : mcux_;
+    int my = static_cast<int>(m / per_row), mx = static_cast<int>(m % per_row);
+    if (ns == 1) {
+      Component* k = cs[0];
+      f(*k, &k->coef[(static_cast<size_t>(my) * k->bw + mx) * 64]);
+      return;
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component* k = cs[i];
+      for (int v = 0; v < k->v; ++v)
+        for (int h = 0; h < k->h; ++h)
+          f(*k, &k->coef[(static_cast<size_t>(my * k->v + v) * k->bw + mx * k->h + h) * 64]);
+    }
+  }
+
+  // jdarith.c's start_pass and process_restart: zero the statistics the
+  // scan uses and the DC predictions
+  void arith_reset(Component** cs, int ns, int ss, int se, int ah) {
+    for (int i = 0; i < ns; ++i) {
+      if (!progressive_ || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats_[cs[i]->dc_tbl], 0, 64);
+        cs[i]->pred = 0;
+        cs[i]->dc_context = 0;
+      }
+      if (!progressive_ || se) std::memset(ac_stats_[cs[i]->ac_tbl], 0, 256);
+    }
+    arith_error_ = false;
+  }
+
+  void arith_scan(Component** cs, int ns, int ss, int se, int ah, int al) {
+    ArithReader ar(d_, pos_, n_);
+    arith_reset(cs, ns, ss, se, ah);
+    int64_t total = ns == 1 ? static_cast<int64_t>(cs[0]->wblocks) * cs[0]->hblocks
+                            : static_cast<int64_t>(mcux_) * mcuy_;
+    int next_rst = 0, togo = restart_interval_;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval_) {
+        if (togo == 0) {
+          size_t mp = ar.marker_pos();
+          if (mp + 1 >= n_ || d_[mp + 1] != 0xD0 + next_rst)
+            fail("corrupt scan: a restart marker is missing or out of order");
+          ar.reset(mp + 2);
+          next_rst = (next_rst + 1) & 7;
+          arith_reset(cs, ns, ss, se, ah);
+          togo = restart_interval_;
+        }
+        --togo;
+      }
+      if (arith_error_) continue;
+      for_mcu_blocks(cs, ns, m, [&](Component& k, int16_t* c) {
+        if (arith_error_) return;
+        if (!progressive_) {
+          arith_dc(ar, k, c, 0);
+          if (!arith_error_) arith_ac_first(ar, k, c, 1, 63, 0);
+        } else if (ss == 0 && ah == 0) {
+          arith_dc(ar, k, c, al);
+        } else if (ss == 0) {
+          uint8_t fixed = 113;
+          if (ar.decode(&fixed)) c[0] = static_cast<int16_t>(c[0] | (1 << al));
+        } else if (ah == 0) {
+          arith_ac_first(ar, k, c, ss, se, al);
+        } else {
+          arith_ac_refine(ar, k, c, ss, se, al);
+        }
+      });
+    }
+    pos_ = ar.marker_pos();
+  }
+
+  // Figures F.19-F.24: a DC difference, its conditioning category, the DC
+  // value (scaled by al in a progressive first scan)
+  void arith_dc(ArithReader& ar, Component& k, int16_t* c, int al) {
+    int tbl = k.dc_tbl;
+    uint8_t* st = dc_stats_[tbl] + k.dc_context;
+    if (ar.decode(st) == 0) {
+      k.dc_context = 0;
+    } else {
+      int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = dc_stats_[tbl] + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            arith_error_ = true;  // magnitude overflow
+            return;
+          }
+          st += 1;
         }
       }
+      if (m < static_cast<int>((1L << dac_l_[tbl]) >> 1))
+        k.dc_context = 0;
+      else if (m > static_cast<int>((1L << dac_u_[tbl]) >> 1))
+        k.dc_context = 12 + sign * 4;
+      else
+        k.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      k.pred = progressive_ ? k.pred + v : (k.pred + v) & 0xFFFF;
+    }
+    c[0] = static_cast<int16_t>(progressive_ ? static_cast<int>(static_cast<unsigned>(k.pred) << al)
+                                             : k.pred);
+  }
+
+  // Figure F.20 (and G.1.3.2): the AC values ss..se, scaled by al
+  void arith_ac_first(ArithReader& ar, Component& k, int16_t* c, int ss, int se, int al) {
+    int tbl = k.ac_tbl;
+    uint8_t fixed = 113;
+    for (int i = ss; i <= se; ++i) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (i - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        ++i;
+        if (i > se) {
+          arith_error_ = true;  // spectral overflow
+          return;
+        }
+      }
+      int sign = ar.decode(&fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0) {
+        if (ar.decode(st)) {
+          m <<= 1;
+          st = ac_stats_[tbl] + (i <= dac_k_[tbl] ? 189 : 217);
+          while (ar.decode(st)) {
+            if ((m <<= 1) == 0x8000) {
+              arith_error_ = true;  // magnitude overflow
+              return;
+            }
+            st += 1;
+          }
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c[kZigzag.natural[i]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    }
+  }
+
+  // Figure G.10's decoder (jdarith.c's decode_mcu_AC_refine)
+  void arith_ac_refine(ArithReader& ar, Component& k, int16_t* c, int ss, int se, int al) {
+    int tbl = k.ac_tbl;
+    uint8_t fixed = 113;
+    int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (c[kZigzag.natural[kex]]) break;
+    for (int i = ss; i <= se; ++i) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (i - 1);
+      if (i > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* th = c + kZigzag.natural[i];
+        if (*th) {
+          if (ar.decode(st + 2)) *th = static_cast<int16_t>(*th < 0 ? *th + m1 : *th + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *th = static_cast<int16_t>(ar.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        ++i;
+        if (i > se) {
+          arith_error_ = true;  // spectral overflow
+          return;
+        }
+      }
+    }
+  }
+
+  // A lossless scan (T.81 Annex H, libjpeg-turbo's jdlhuff.c and jdpred.c):
+  // Huffman-coded differences, interleaved one sample of each component an
+  // MCU, undone row by row with predictor ``psv``; the first row of the scan
+  // and of each restart interval predicts from the left (its first sample
+  // from 2^(7 - al)), the first column from above.
+  void lossless_scan(Component** cs, int ns, int psv, int al) {
+    for (int i = 0; i < ns; ++i) {
+      Component* k = cs[i];
+      if (!dc_[k->dc_tbl].defined) fail("corrupt file: a Huffman table is missing");
+      k->scanned = true;
+      k->stride = k->bw;
+      if (k->plane.empty()) k->plane.assign(static_cast<size_t>(k->bw) * k->bh, 0);
+    }
+    int per_row = ns == 1 ? cs[0]->wblocks : mcux_;
+    int rows = ns == 1 ? cs[0]->hblocks : mcuy_;
+    if (restart_interval_ && restart_interval_ % per_row)
+      fail("a lossless restart interval that is not whole MCU rows");
+    int restart_rows = restart_interval_ / per_row;
+    BitReader br(d_, pos_, n_);
+    std::vector<int> diff(static_cast<size_t>(per_row) * ns), prev(diff.size()), cur(diff.size());
+    int next_rst = 0, togo = restart_rows;
+    bool first = true;
+    for (int y = 0; y < rows; ++y) {
+      if (restart_rows) {
+        if (togo == 0) {
+          size_t mp = br.marker_pos();
+          if (mp + 1 >= n_ || d_[mp + 1] != 0xD0 + next_rst)
+            fail("corrupt scan: a restart marker is missing or out of order");
+          br.reset(mp + 2);
+          next_rst = (next_rst + 1) & 7;
+          togo = restart_rows;
+          first = true;
+        }
+        --togo;
+      }
+      for (int x = 0; x < per_row; ++x)
+        for (int i = 0; i < ns; ++i) {
+          int s = br.decode(dc_[cs[i]->dc_tbl]);
+          int d = 0;
+          if (s == 16) d = 32768;
+          else if (s > 16) fail("corrupt lossless scan: a difference category above 16");
+          else if (s) d = extend(br.get(s), s);
+          diff[static_cast<size_t>(i) * per_row + x] = d;
+        }
+      for (int i = 0; i < ns; ++i) {
+        const int* df = &diff[static_cast<size_t>(i) * per_row];
+        int* up = &prev[static_cast<size_t>(i) * per_row];
+        int* r = &cur[static_cast<size_t>(i) * per_row];
+        if (first) {
+          int ra = (df[0] + (1 << (7 - al))) & 0xFFFF;
+          r[0] = ra;
+          for (int x = 1; x < per_row; ++x) r[x] = ra = (df[x] + ra) & 0xFFFF;
+        } else {
+          r[0] = (df[0] + up[0]) & 0xFFFF;
+          for (int x = 1; x < per_row; ++x) {
+            int ra = r[x - 1], rb = up[x], rc = up[x - 1], pred;
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+            r[x] = (df[x] + pred) & 0xFFFF;
+          }
+        }
+        uint8_t* out = &cs[i]->plane[static_cast<size_t>(y) * cs[i]->stride];
+        for (int x = 0; x < per_row; ++x) out[x] = static_cast<uint8_t>(r[x] << al);
+      }
+      std::swap(prev, cur);
+      first = false;
     }
     pos_ = br.marker_pos();
   }
@@ -750,23 +1169,24 @@ class Decoder {
     }
   }
 
-  // one output row of component k at full resolution into row (>= width samples)
+  // one output row of component k at full resolution into row (>= width
+  // samples), as libjpeg-turbo's jdsample.c picks the method by the ratios
+  // of the sampling factors: fancy (triangle-filter) upsampling for h2v1,
+  // h1v2 and h2v2 (h2v1 and h2v2 only past 2 columns), plain replication
+  // otherwise; a lossless frame is never fancy
   void upsample_row(const Component& k, int y, uint8_t* row) const {
     int rh = hmax_ / k.h, rv = vmax_ / k.v;
     const uint8_t* pl = k.plane.data();
     int s = k.stride, dw = k.dw;
+    bool fancy = !lossless_;
     if (rh == 1 && rv == 1) {
       std::memcpy(row, pl + static_cast<size_t>(y) * s, width);
       return;
     }
-    if (rv == 1) {  // 2h1v
-      const uint8_t* in = pl + static_cast<size_t>(y) * s;
-      if (dw <= 2) {  // libjpeg's fancy upsampling needs more than 2 columns
-        for (int x = 0; x < dw; ++x) row[2 * x] = row[2 * x + 1] = in[x];
-        return;
-      }
+    if (rh == 2 && rv == 1 && fancy && dw > 2) {
       // h2v1 fancy upsampling: 3/4 nearer + 1/4 further, rounding 1 then 2,
       // the edge columns copied
+      const uint8_t* in = pl + static_cast<size_t>(y) * s;
       row[0] = in[0];
       row[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
       for (int x = 1; x < dw - 1; ++x) {
@@ -778,47 +1198,57 @@ class Decoder {
       row[2 * dw - 1] = in[dw - 1];
       return;
     }
-    // 2h2v
-    int iy = y >> 1;
+    int iy = y / rv;
     const uint8_t* in0 = pl + static_cast<size_t>(iy) * s;
-    if (dw <= 2) {  // plain replication, as libjpeg does at these widths
-      for (int x = 0; x < dw; ++x) row[2 * x] = row[2 * x + 1] = in0[x];
-      return;
-    }
-    // h2v2 fancy upsampling. The context rows: the row above the first and
+    // The context row of a vertical filter: the row above the first and
     // the row below the last real sample row (downsampled_height, not the
     // padded block height) are that row repeated.
     int far = (y & 1) ? std::min(iy + 1, k.dh - 1) : std::max(iy - 1, 0);
     const uint8_t* in1 = pl + static_cast<size_t>(far) * s;
-    // column sums 3*nearer row + further row, then 3/4 nearer + 1/4 further
-    // column with rounding 8 then 7, edges at downsampled_width
-    int thiscol = in0[0] * 3 + in1[0];
-    int nextcol = in0[1] * 3 + in1[1];
-    row[0] = static_cast<uint8_t>((thiscol * 4 + 8) >> 4);
-    row[1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
-    int lastcol = thiscol;
-    thiscol = nextcol;
-    for (int x = 1; x < dw - 1; ++x) {
-      nextcol = in0[x + 1] * 3 + in1[x + 1];
-      row[2 * x] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
-      row[2 * x + 1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
-      lastcol = thiscol;
-      thiscol = nextcol;
+    if (rh == 1 && rv == 2 && fancy) {
+      // h1v2 fancy upsampling: 3/4 nearer row + 1/4 further row, rounding 1
+      // for the upper output row and 2 for the lower
+      int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < dw; ++x) row[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
+      return;
     }
-    row[2 * dw - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
-    row[2 * dw - 1] = static_cast<uint8_t>((thiscol * 4 + 7) >> 4);
+    if (rh == 2 && rv == 2 && fancy && dw > 2) {
+      // h2v2 fancy upsampling: column sums 3*nearer row + further row, then
+      // 3/4 nearer + 1/4 further column with rounding 8 then 7, edges at
+      // downsampled_width
+      int thiscol = in0[0] * 3 + in1[0];
+      int nextcol = in0[1] * 3 + in1[1];
+      row[0] = static_cast<uint8_t>((thiscol * 4 + 8) >> 4);
+      row[1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
+      int lastcol = thiscol;
+      thiscol = nextcol;
+      for (int x = 1; x < dw - 1; ++x) {
+        nextcol = in0[x + 1] * 3 + in1[x + 1];
+        row[2 * x] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
+        row[2 * x + 1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
+        lastcol = thiscol;
+        thiscol = nextcol;
+      }
+      row[2 * dw - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
+      row[2 * dw - 1] = static_cast<uint8_t>((thiscol * 4 + 7) >> 4);
+      return;
+    }
+    // h2v1, h2v2 at <= 2 columns, and every other whole ratio: int_upsample's
+    // replication, rh columns and rv rows a sample
+    for (int x = 0; x < width; ++x) row[x] = in0[x / rh];
   }
 
   void finish(uint8_t* out) {
-    for (int c = 0; c < ncomp_; ++c) {
-      Component& k = comp_[c];
-      k.stride = k.wblocks * 8;
-      k.plane.assign(static_cast<size_t>(k.stride) * k.hblocks * 8, 0);
-      for (int by = 0; by < k.hblocks; ++by)
-        for (int bx = 0; bx < k.wblocks; ++bx)
-          idct(&k.coef[(static_cast<size_t>(by) * k.bw + bx) * 64], k.q,
-               &k.plane[static_cast<size_t>(by) * 8 * k.stride + bx * 8], k.stride);
-    }
+    if (!lossless_)
+      for (int c = 0; c < ncomp_; ++c) {
+        Component& k = comp_[c];
+        k.stride = k.wblocks * 8;
+        k.plane.assign(static_cast<size_t>(k.stride) * k.hblocks * 8, 0);
+        for (int by = 0; by < k.hblocks; ++by)
+          for (int bx = 0; bx < k.wblocks; ++bx)
+            idct(&k.coef[(static_cast<size_t>(by) * k.bw + bx) * 64], k.q,
+                 &k.plane[static_cast<size_t>(by) * 8 * k.stride + bx * 8], k.stride);
+      }
     if (ncomp_ == 1) {
       for (int y = 0; y < height; ++y)
         upsample_row(comp_[0], y, out + static_cast<size_t>(y) * width);
@@ -837,13 +1267,36 @@ class Decoder {
       cr_g[i] = (-fix(0.71414)) * x;
       cb_g[i] = (-fix(0.34414)) * x + ONE_HALF;
     }
-    int rw = 2 * std::max({comp_[0].dw, comp_[1].dw, comp_[2].dw, width}) + 16;
-    std::vector<uint8_t> r0(rw), r1(rw), r2(rw);
+    int rw = 2 * width + 16;
+    for (int c = 0; c < ncomp_; ++c) rw = std::max(rw, 2 * comp_[c].dw + 16);
+    std::vector<uint8_t> rows[4];
+    for (int c = 0; c < ncomp_; ++c) rows[c].assign(rw, 0);
+    const int nc = ncomp_;
     for (int y = 0; y < height; ++y) {
-      upsample_row(comp_[0], y, r0.data());
-      upsample_row(comp_[1], y, r1.data());
-      upsample_row(comp_[2], y, r2.data());
-      uint8_t* o = out + static_cast<size_t>(y) * width * 3;
+      for (int c = 0; c < nc; ++c) upsample_row(comp_[c], y, rows[c].data());
+      const uint8_t *r0 = rows[0].data(), *r1 = rows[1].data(), *r2 = rows[2].data();
+      uint8_t* o = out + static_cast<size_t>(y) * width * nc;
+      if (nc == 4) {
+        // Pillow reads four components as "CMYK;I", Adobe's inverted
+        // convention: CMYK comes out as 255 - each component; YCCK as the
+        // R, G, B of its Y, Cb, Cr (255 - ycck_cmyk_convert's C, M, Y) and
+        // 255 - K
+        const uint8_t* r3 = rows[3].data();
+        for (int x = 0; x < width; ++x) {
+          if (ycck_) {
+            int yy = r0[x], cb = r1[x], cr = r2[x];
+            o[4 * x] = static_cast<uint8_t>(clamp255(yy + cr_r[cr]));
+            o[4 * x + 1] = static_cast<uint8_t>(clamp255(yy + ((cb_g[cb] + cr_g[cr]) >> SCALEBITS)));
+            o[4 * x + 2] = static_cast<uint8_t>(clamp255(yy + cb_b[cb]));
+          } else {
+            o[4 * x] = static_cast<uint8_t>(255 - r0[x]);
+            o[4 * x + 1] = static_cast<uint8_t>(255 - r1[x]);
+            o[4 * x + 2] = static_cast<uint8_t>(255 - r2[x]);
+          }
+          o[4 * x + 3] = static_cast<uint8_t>(255 - r3[x]);
+        }
+        continue;
+      }
       if (rgb_) {
         for (int x = 0; x < width; ++x) {
           o[3 * x] = r0[x];

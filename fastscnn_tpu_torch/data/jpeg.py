@@ -80,15 +80,17 @@ def _info(lib, buf: bytes, name: str) -> tuple[int, int, int]:
 
 def decode_jpeg(data, name: str = "<bytes>") -> tuple[np.ndarray, str]:
     """The pixels of a JPEG file's bytes and their PIL mode: uint8 (H, W)
-    under ``'L'`` for one component, (H, W, 3) under ``'RGB'`` for three."""
+    under ``'L'`` for one component, (H, W, 3) under ``'RGB'`` for three,
+    (H, W, 4) under ``'CMYK'`` for four (CMYK or YCCK, Adobe-inverted as
+    Pillow reads them)."""
     lib = load_codec()
     buf = bytes(data)
     w, h, c = _info(lib, buf, name)
-    out = np.empty((h, w) if c == 1 else (h, w, 3), np.uint8)
+    out = np.empty((h, w) if c == 1 else (h, w, c), np.uint8)
     err = ctypes.create_string_buffer(_ERR)
     if lib.jc_decode(buf, len(buf), out.ctypes.data, w, h, c, err, _ERR):
         _raise(err, name)
-    return out, ("L" if c == 1 else "RGB")
+    return out, {1: "L", 3: "RGB", 4: "CMYK"}[c]
 
 
 def encode_jpeg(arr: np.ndarray, quality: int = 75) -> bytes:

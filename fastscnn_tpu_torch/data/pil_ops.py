@@ -5,8 +5,10 @@ The JAX package's host augmentation (``fastscnn_tpu/data/transforms.py``,
 runs the port on the card has no PIL, so this module computes the same
 operations on uint8 arrays, (H, W) or (H, W, C), with numpy alone:
 
-- :func:`resize` ``"bilinear"``: Pillow's two-pass fixed-point resampler
-  (``libImaging/Resample.c``). A triangle filter whose support grows with
+- :func:`resize` ``"bilinear"`` and ``"bicubic"`` (``Image.resize``'s
+  default for RGB and L images): Pillow's two-pass fixed-point resampler
+  (``libImaging/Resample.c``). A triangle filter (support 1), or the cubic
+  convolution kernel with a = -0.5 (support 2), whose support grows with
   the scale on a downscale (antialias); per output pixel the taps
   ``[int(center - support + 0.5), int(center + support + 0.5))`` clipped to
   the image, weights normalised in double and rounded to 22 fractional
@@ -45,13 +47,29 @@ __all__ = ["resize", "gaussian_blur", "expand", "crop", "flip_lr"]
 _PRECISION_BITS = 32 - 8 - 2
 
 
-def _bilinear_coeffs(in_size: int, out_size: int):
+def _triangle(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _cubic(x: np.ndarray) -> np.ndarray:
+    """``bicubic_filter``: the cubic convolution kernel, a = -0.5"""
+    a, x = -0.5, np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_cubic, 2.0)}
+
+
+def _coeffs(in_size: int, out_size: int, resample: str = "bilinear"):
     """``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the triangle
-    filter: (first tap, tap count) (out,) each and int32 weights
+    or cubic filter: (first tap, tap count) (out,) each and int32 weights
     (out, taps); a tap past its pixel's count weighs 0."""
+    kernel, radius = _FILTERS[resample]
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = radius * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) truncates toward zero; clipping at 0 makes that a floor here
@@ -59,8 +77,7 @@ def _bilinear_coeffs(in_size: int, out_size: int):
     count = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
     taps = np.arange(ksize)
     x = (taps[None, :] + xmin[:, None]).astype(np.float64)
-    w = np.abs((x - center[:, None] + 0.5) * (1.0 / filterscale))
-    w = np.where(w < 1.0, 1.0 - w, 0.0)
+    w = kernel((x - center[:, None] + 0.5) * (1.0 / filterscale))
     w[taps[None, :] >= count[:, None]] = 0.0
     ww = np.zeros(out_size)
     for k in range(ksize):  # C's order of the sum
@@ -101,9 +118,9 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
 
 
 def resize(img: np.ndarray, size, resample: str = "bilinear", window=None) -> np.ndarray:
-    """``Image.fromarray(img).resize(size, BILINEAR | NEAREST)``, ``size`` =
-    (width, height) as PIL's; ``"nearest"`` takes any dtype, ``"bilinear"``
-    uint8. ``window=(x1, y1, x2, y2)``, inside the result: only that part
+    """``Image.fromarray(img).resize(size, BILINEAR | BICUBIC | NEAREST)``,
+    ``size`` = (width, height) as PIL's; ``"nearest"`` takes any dtype,
+    ``"bilinear"`` and ``"bicubic"`` uint8. ``window=(x1, y1, x2, y2)``, inside the result: only that part
     of it (see the module docstring)."""
     img = np.asarray(img)
     ow, oh = int(size[0]), int(size[1])
@@ -118,18 +135,18 @@ def resize(img: np.ndarray, size, resample: str = "bilinear", window=None) -> np
     if resample == "nearest":
         rows, cols = _nearest_index(h, oh)[y1:y2], _nearest_index(w, ow)[x1:x2]
         return img[rows][:, cols]
-    if resample != "bilinear":
-        raise ValueError(f"unknown resample {resample!r} (bilinear or nearest)")
+    if resample not in _FILTERS:
+        raise ValueError(f"unknown resample {resample!r} (bilinear, bicubic or nearest)")
     if img.dtype != np.uint8:
-        raise TypeError(f"bilinear resize takes uint8 images, not {img.dtype}")
+        raise TypeError(f"{resample} resize takes uint8 images, not {img.dtype}")
     channels = img.shape[2] if img.ndim == 3 else 1
     first, last = y1, y2
     if oh != h:
-        ystart, ycount, yweights = (c[y1:y2] for c in _bilinear_coeffs(h, oh))
+        ystart, ycount, yweights = (c[y1:y2] for c in _coeffs(h, oh, resample))
         first, last = int(ystart.min()), int((ystart + ycount).max())
     out = img.reshape(h, w * channels)[first:last]
     if ow != w:
-        xstart, _, xweights = _bilinear_coeffs(w, ow)
+        xstart, _, xweights = _coeffs(w, ow, resample)
         out = _fixed_pass(out, 1, xstart[x1:x2], xweights[x1:x2], channels)
     else:
         out = out[:, x1 * channels:x2 * channels]

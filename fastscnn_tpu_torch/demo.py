@@ -1,6 +1,6 @@
 """Single-image demo CLI.
 
-The port of ``fastscnn_tpu/demo.py``: a PNG or JPEG image → the port's inference
+The port of ``fastscnn_tpu/demo.py``: a PNG, JPEG or BMP image → the port's inference
 engine → the class mask → a palette PNG (``utils/visualize.py``).
 
     python -m fastscnn_tpu_torch.demo --input-pic frame.jpg --dataset citys
@@ -19,7 +19,7 @@ def parse_args(argv=None):
     parser.add_argument("--dataset", type=str, default="citys",
                         choices=["citys", "tusimple", "bdd100k", "custom"])
     parser.add_argument("--weights-folder", default="./weights")
-    parser.add_argument("--input-pic", type=str, required=True, help="a PNG or JPEG image")
+    parser.add_argument("--input-pic", type=str, required=True, help="a PNG, JPEG or BMP image")
     parser.add_argument("--outdir", default="./test_result")
     parser.add_argument("--aux", action="store_true", default=False)
     parser.add_argument("--cpu", action="store_true", default=False,

@@ -1,6 +1,6 @@
 """TuSimple lane demo.
 
-The port of ``fastscnn_tpu/demo_tusimple.py``: a PNG or JPEG image or a
+The port of ``fastscnn_tpu/demo_tusimple.py``: a PNG, JPEG or BMP image or a
 folder of them → binary lane mask → green overlay and a side-by-side
 panel, written as ``<name>_lane_demo.jpg`` in the bytes the JAX demo's
 ``Image.save`` writes (the port's JPEG codec, no PIL); prints each
@@ -20,7 +20,7 @@ import numpy as np
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="TuSimple lane demo (PyTorch/CUDA)")
-    parser.add_argument("--input", type=str, required=True, help="a PNG or JPEG image, or a folder")
+    parser.add_argument("--input", type=str, required=True, help="a PNG, JPEG or BMP image, or a folder")
     parser.add_argument("--weights-folder", default="./weights")
     parser.add_argument("--weights", type=str, default=None)
     parser.add_argument("--outdir", default="./test_result")

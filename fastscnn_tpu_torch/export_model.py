@@ -86,9 +86,10 @@ def parse_args(argv=None):
 
 
 def _calibration_batches(images_dir, shape, rng, limit: int = 16):
-    """int8 calibration batches: real PNG or JPEG images (``data/image_io.py``)
-    resized bilinearly (``data/pil_ops.py``) to the export shape when a
-    directory is given, synthetic frames otherwise."""
+    """int8 calibration batches: real PNG, JPEG or BMP images
+    (``data/image_io.py``) resized to the export shape as ``Image.resize``
+    does by default, bicubic (``data/pil_ops.py``), when a directory is
+    given; synthetic frames otherwise."""
     batch, h, w, _ = shape
     if images_dir and os.path.isdir(images_dir):
         from fastscnn_tpu_torch.data import image_io, pil_ops
@@ -99,7 +100,7 @@ def _calibration_batches(images_dir, shape, rng, limit: int = 16):
         )[: limit * batch]
         frames = [
             pil_ops.resize(image_io.read_image(os.path.join(images_dir, n), convert="RGB"),
-                           (w, h))
+                           (w, h), "bicubic")
             for n in names
         ]
         if frames:

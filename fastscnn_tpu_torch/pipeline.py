@@ -15,8 +15,8 @@ JAX engine's ``predict`` dispatches); on the CPU the same call, eager.
 The ``inference`` stage ends with the mask on the host, so it includes
 the wait for the device.
 
-Images are read as PNG or JPEG without PIL (``data/image_io.py``, the
-JPEG through the port's codec, ``data/jpeg.py``); the artifacts get the
+Images are read as PNG, JPEG or BMP without PIL (``data/image_io.py``,
+the JPEG through the port's codec, ``data/jpeg.py``); the artifacts get the
 JAX package's names and formats, ``_mask.png``, ``_vis.jpg`` and
 ``_control_map.jpg``, in the bytes its no-OpenCV branch writes through
 PIL (Pillow's JPEG at its default quality, 75).
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from fastscnn_tpu_torch.control import VisualLateralErrorController
-from fastscnn_tpu_torch.data import image_io, jpeg
+from fastscnn_tpu_torch.data import image_io
 from fastscnn_tpu_torch.perception import (
     PerspectiveTransformer,
     create_control_map,
@@ -263,24 +263,20 @@ def _imwrite(path, img):
 
 
 def read_image_rgb(path: str) -> np.ndarray:
-    """A PNG or JPEG file as uint8 (H, W, 3) RGB, as ``np.asarray(
-    Image.open(path).convert("RGB"))``. Other formats raise: they need PIL
-    or OpenCV (ROADMAP.md, queue 1, item 10: formats only PIL reads)."""
+    """An image file as uint8 (H, W, 3) RGB, as ``np.asarray(
+    Image.open(path).convert("RGB"))``: a PNG, JPEG or BMP through
+    ``image_io`` without PIL (any format the JAX package's Pillow branch
+    reads there); another format through PIL, which raises naming ROADMAP.md
+    item 10 where it is not installed."""
     try:
-        with open(path, "rb") as f:
-            head = f.read(len(image_io.PNG_SIGNATURE))
+        return image_io.read_image(path, convert="RGB")
     except OSError as e:
         raise SystemExit(f"cannot read {path}: {e}") from e
-    if head != image_io.PNG_SIGNATURE and not jpeg.is_jpeg(head):
-        raise NotImplementedError(
-            f"{path}: only PNG and JPEG images are read by the port; other formats are not "
-            "ported yet (ROADMAP.md, queue 1, item 10: formats only PIL reads)")
-    return image_io.read_image(path, convert="RGB")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Fast-SCNN perception pipeline (PyTorch/CUDA)")
-    parser.add_argument("--input", type=str, required=True, help="a PNG or JPEG image")
+    parser.add_argument("--input", type=str, required=True, help="a PNG, JPEG or BMP image")
     parser.add_argument("--dataset", type=str, default="custom")
     parser.add_argument("--weights", type=str, default=None)
     parser.add_argument("--export-path", type=str, default=None,

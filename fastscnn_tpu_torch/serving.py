@@ -11,16 +11,17 @@ so a lone request doesn't pay a full max_batch of device work), and
 answered per-request. Dispatch and device→host gather run in separate
 threads (a graph replay returns before the card has finished), so batch
 i+1 computes on the card while batch i is distributed to its callers.
-``--data-parallel`` above 1 is not ported (multi-device is ROADMAP.md
-queue 1, item 6).
+``--data-parallel N`` serves under a local mesh of N devices, each
+request batch split over them.
 
-No PIL: a PNG or JPEG body is decoded by ``data/image_io.decode_bytes``
-(a JPEG through the port's codec, ``data/jpeg.py``, to Pillow's pixels),
+No PIL: a PNG, JPEG or BMP body is decoded by ``data/image_io.decode_bytes``
+to Pillow's pixels (a JPEG through the port's codec, ``data/jpeg.py``, a
+BMP through ``data/bmp.py``),
 a wrong-size frame resized by ``data/pil_ops.resize`` (PIL's bilinear,
 bit for bit) and the PNG answer written by ``data/image_io.write_png``.
 
 Routes (stdlib HTTP, threads):
-  POST /predict        image bytes (PNG/JPEG) → PNG palette mask
+  POST /predict        image bytes (PNG/JPEG/BMP) → PNG palette mask
                        (JSON mask with Accept: application/json, or raw
                        mask bytes + X-Mask-Shape/X-Mask-Dtype headers
                        with Accept: application/octet-stream)

@@ -112,7 +112,7 @@ def parse_args(argv=None):
     parser.add_argument("--height", type=int, default=360)
     parser.add_argument("--width", type=int, default=640)
     parser.add_argument("--image-dir", type=str, default=None,
-                        help="real images instead of random (PNG, resized to HxW)")
+                        help="real images instead of random (PNG, JPEG or BMP, resized to HxW)")
     parser.add_argument("--export-path", type=str, default=None,
                         help="an exported artifact (.pt2 or .onnx) of the same weights")
     parser.add_argument("--tolerance", type=float, default=0.005,
@@ -149,9 +149,9 @@ def main(argv=None):
         files = sorted(os.listdir(args.image_dir))[: args.num_images]
         images = np.stack(
             [
-                pil_ops.resize(
+                pil_ops.resize(  # Image.resize's default for RGB: bicubic
                     image_io.read_image(os.path.join(args.image_dir, f), convert="RGB"),
-                    (args.width, args.height),
+                    (args.width, args.height), "bicubic",
                 )
                 for f in files
             ]

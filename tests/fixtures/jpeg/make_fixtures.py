@@ -4,10 +4,12 @@
 
 Writes, beside this script:
 
-- small JPEGs saved by Pillow in each variant the port's codec reads
-  (4:2:0, 4:2:2, 4:4:4, greyscale, progressive, a restart interval,
-  quality 1 and 100, odd sizes) and one smooth 1280x720 quality-90
-  frame;
+- small JPEGs saved by Pillow in each variant its encoder writes (4:2:0,
+  4:2:2, 4:4:4, greyscale, progressive, a restart interval, quality 1 and
+  100, odd sizes, CMYK) and one smooth 1280x720 quality-90 frame;
+- the variants Pillow decodes but does not write, from ``spec_writers.py``
+  (ITU-T T.81): other sampling factors, YCCK and CMYK without Pillow's
+  markers, sequential and progressive arithmetic coding, lossless frames;
 - the seeded inputs of the encoder checks, as PNGs (lossless);
 - ``manifest.json``: for each JPEG the sha256 of
   ``np.asarray(Image.open(f))``'s bytes, its shape and mode; for each
@@ -42,6 +44,73 @@ FILES = {
     "rgb444_q100_21x19.jpg": (21, 19, "RGB", {"quality": 100, "subsampling": 0}),
 }
 FRAME = "frame_1280x720_q90.jpg"
+CMYK = "cmyk_adobe_q85_33x41.jpg"  # Pillow's own CMYK writer (Adobe APP14, transform 0)
+
+
+def _ycc(rgb: np.ndarray) -> list:
+    """JFIF's Y, Cb, Cr planes of an RGB array (T.81 / JFIF 1.02), uint8."""
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    planes = (y, 128 + (b - y) / 1.772, 128 + (r - y) / 1.402)
+    return [np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in planes]
+
+
+def spec_files() -> dict:
+    """name -> bytes of the variants written from T.81 (``spec_writers``):
+    sampling factors Pillow's encoder does not write, YCCK and CMYK without
+    Pillow's markers, arithmetic coding, lossless frames."""
+    import spec_writers as sw
+
+    rgb = seeded(37, 45, "RGB", 200)
+    ycc = _ycc(rgb)
+    grey = seeded(29, 33, "L", 201)
+    k = seeded(37, 45, "L", 202)
+    cmy = [255 - rgb[..., i] for i in range(3)]
+    f420 = [(2, 2), (1, 1), (1, 1)]
+    return {
+        "rgb411_q80_45x37.jpg": sw.dct_jpeg(ycc, [(4, 1), (1, 1), (1, 1)], jfif=True),
+        "rgb440_q80_45x37.jpg": sw.dct_jpeg(ycc, [(1, 2), (1, 1), (1, 1)], jfif=True),
+        "rgb410_q80_45x37.jpg": sw.dct_jpeg(ycc, [(4, 2), (1, 1), (1, 1)], jfif=True),
+        "rgb_mixed_h2v2_h2v1_h1v2_45x37.jpg": sw.dct_jpeg(ycc, [(2, 2), (2, 1), (1, 2)],
+                                                          jfif=True),
+        "rgb_y3x1_q80_45x37.jpg": sw.dct_jpeg(ycc, [(3, 1), (1, 1), (1, 1)], jfif=True),
+        "rgb_y1x3_restart_q80_45x37.jpg": sw.dct_jpeg(ycc, [(1, 3), (1, 1), (1, 1)], jfif=True,
+                                                      restart=2),
+        "rgb_y4x4_scan_a_component_45x37.jpg": sw.dct_jpeg(ycc, [(4, 4), (1, 1), (1, 1)],
+                                                           jfif=True, interleave=False),
+        "rgb_ids_rgb_h2v1_q90_45x37.jpg": sw.dct_jpeg([rgb[..., i] for i in range(3)],
+                                                      [(2, 1), (1, 1), (1, 1)], quality=90,
+                                                      ids=[82, 71, 66]),
+        "gray_h2v2_q80_33x29.jpg": sw.dct_jpeg([grey], [(2, 2)]),
+        "ycck_adobe2_q85_45x37.jpg": sw.dct_jpeg([*_ycc(rgb), k], [(2, 2), (1, 1), (1, 1), (2, 2)],
+                                                 quality=85, adobe=2),
+        "cmyk_noadobe_411_q85_45x37.jpg": sw.dct_jpeg([*cmy, k], [(2, 1), (1, 1), (1, 1), (2, 1)],
+                                                      quality=85),
+        "arith_rgb420_q75_45x37.jpg": sw.dct_jpeg(ycc, f420, quality=75, jfif=True,
+                                                  coding="arith"),
+        "arith_gray_dac_restart_q80_33x29.jpg": sw.dct_jpeg([grey], [(1, 1)], coding="arith",
+                                                            dac=(1, 3, 2), restart=3),
+        "arith_progressive_rgb420_q80_45x37.jpg": sw.dct_jpeg(ycc, f420, jfif=True,
+                                                              coding="arith-progressive"),
+        "arith_progressive_rgb422_dac_restart_45x37.jpg": sw.dct_jpeg(
+            ycc, [(2, 1), (1, 1), (1, 1)], jfif=True, coding="arith-progressive", dac=(0, 2, 9),
+            restart=4),
+        "arith_progressive_gray_q60_33x29.jpg": sw.dct_jpeg([grey], [(1, 1)], quality=60,
+                                                            coding="arith-progressive"),
+        "arith_ycck_q80_45x37.jpg": sw.dct_jpeg([*_ycc(rgb), k], [(1, 1)] * 4, adobe=2,
+                                                coding="arith"),
+        "lossless_gray_p7_33x29.jpg": sw.lossless_jpeg([grey], predictor=7),
+        "lossless_gray_p1_pt2_33x29.jpg": sw.lossless_jpeg([grey], predictor=1, pt=2),
+        "lossless_rgb_p4_restart_45x37.jpg": sw.lossless_jpeg([rgb[..., i] for i in range(3)],
+                                                              predictor=4, ids=[82, 71, 66],
+                                                              restart_rows=3),
+        "lossless_rgb_p5_45x37.jpg": sw.lossless_jpeg([rgb[..., i] for i in range(3)],
+                                                      predictor=5, ids=[82, 71, 66]),
+        "lossless_rgb_p6_45x37.jpg": sw.lossless_jpeg([rgb[..., i] for i in range(3)],
+                                                      predictor=6, ids=[82, 71, 66]),
+        "lossless_cmyk_p2_45x37.jpg": sw.lossless_jpeg([*cmy, k], predictor=2),
+    }
+
 # encoder checks: (input file, quality); the frame's input is its decoded pixels
 INPUTS = {"input_rgb_37x53.png": (37, 53, "RGB"), "input_gray_29x61.png": (29, 61, "L")}
 ENCODES = [(name, q) for name in INPUTS for q in (75, 90, 95)] + [(FRAME, 90)]
@@ -81,7 +150,14 @@ def main() -> None:
     for k, (name, (h, w, mode, kw)) in enumerate(FILES.items()):
         Image.fromarray(seeded(h, w, mode, k)).save(os.path.join(HERE, name), "JPEG", **kw)
     Image.fromarray(frame()).save(os.path.join(HERE, FRAME), "JPEG", quality=90)
-    for name in [*FILES, FRAME]:
+    Image.fromarray(np.concatenate([seeded(41, 33, "RGB", 203), seeded(41, 33, "L", 204)[..., None]],
+                                   axis=2), "CMYK").save(os.path.join(HERE, CMYK), "JPEG",
+                                                         quality=85)
+    spec = spec_files()
+    for name, data in spec.items():
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(data)
+    for name in [*FILES, FRAME, CMYK, *spec]:
         with Image.open(os.path.join(HERE, name)) as img:
             arr = np.asarray(img)
             manifest["decode"][name] = {"sha256": pixels_digest(arr), "shape": list(arr.shape),

@@ -134,14 +134,16 @@ def test_read_image_equals_pil_on_pil_written_pngs(tmp_path, mode):
 
 
 def test_other_files_go_through_pil_and_raise_without_it(tmp_path, monkeypatch):
-    """A 16-bit PNG is PIL's; without PIL it raises a RuntimeError naming
-    the file and the item of the formats only PIL reads (no silent skip).
-    A JPEG is the port's codec's, with PIL or without."""
+    """A GIF is PIL's; without PIL it raises a RuntimeError naming the
+    file and the item of the formats only PIL reads (no silent skip). A
+    JPEG is the port's codec's and a 16-bit PNG the port's reader's, with
+    PIL or without."""
     rng = np.random.default_rng(0)
-    jpg, deep = str(tmp_path / "x.jpg"), str(tmp_path / "d.png")
+    jpg, deep, gif = str(tmp_path / "x.jpg"), str(tmp_path / "d.png"), str(tmp_path / "g.gif")
     Image.fromarray(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)).save(jpg)
     Image.fromarray((np.arange(24 * 32).reshape(24, 32) * 37).astype(np.uint16)).save(deep)
-    for path in (jpg, deep):
+    Image.fromarray(rng.integers(0, 256, (24, 32), dtype=np.uint8)).save(gif)
+    for path in (jpg, deep, gif):
         arr, mode = image_io.decode(path)
         assert mode == Image.open(path).mode
         np.testing.assert_array_equal(arr, np.asarray(Image.open(path)))
@@ -152,8 +154,9 @@ def test_other_files_go_through_pil_and_raise_without_it(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "PIL", None)
     assert image_io.read_image(png).shape == (8, 8, 3)  # no PIL needed
     assert image_io.read_image(jpg).shape == (24, 32, 3)  # nor for a JPEG
-    with pytest.raises(RuntimeError, match="d.png.*PIL.*item 10: formats only PIL reads"):
-        image_io.read_image(deep)
+    assert image_io.read_image(deep).dtype == np.uint16  # nor for a 16-bit PNG
+    with pytest.raises(RuntimeError, match="g.gif.*PIL.*item 10: formats only PIL reads"):
+        image_io.read_image(gif)
 
 
 def test_threads_decoding_at_once_get_every_image_right(tmp_path):

@@ -89,7 +89,7 @@ def test_calibration_batches_read_pngs_without_pil(tmp_path):
         image_io.write_png(str(tmp_path / f"f{i}.png"), f)
     batches = export_model._calibration_batches(str(tmp_path), (2, 24, 40, 3), rng)
     assert len(batches) == 2 and batches[0].shape == (2, 24, 40, 3)
-    assert np.array_equal(batches[1][0], pil_ops.resize(frames[2], (40, 24)))
+    assert np.array_equal(batches[1][0], pil_ops.resize(frames[2], (40, 24), "bicubic"))
     synth = export_model._calibration_batches(None, (1, 8, 8, 3), rng)
     assert len(synth) == 8 and synth[0].dtype == np.uint8
 

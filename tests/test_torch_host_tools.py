@@ -153,9 +153,9 @@ def test_l_and_rgba_conversions_equal_pillow(draw):
 def test_rgba_pngs_write_and_sizes_read_from_headers(tmp_path):
     """``write_png`` of (H, W, 4) reads back in Pillow; ``image_size`` reads
     a PNG's and a JPEG's (baseline and progressive) without PIL, and so do
-    a JPEG's pixels and a JPEG write (Pillow's pixels and bytes); a BMP
-    write still raises without PIL, naming the item of the formats only
-    PIL reads."""
+    a JPEG's pixels and a JPEG write (Pillow's pixels and bytes); a TIFF
+    write, a format no call site names, still raises without PIL, naming
+    the item of the formats only PIL reads."""
     rng = np.random.default_rng(1)
     rgba = rng.integers(0, 256, (7, 9, 4), dtype=np.uint8)
     image_io.write_png(str(tmp_path / "a.png"), rgba)
@@ -170,8 +170,8 @@ def test_rgba_pngs_write_and_sizes_read_from_headers(tmp_path):
             assert image_io.image_size(str(tmp_path / name)) == Image.open(tmp_path / name).size
         pixels = {name: image_io.read_image(str(tmp_path / name)) for name in ("b.jpg", "c.jpg")}
         image_io.save_image(str(tmp_path / "e.jpg"), rgba[..., :3])
-        with pytest.raises(RuntimeError, match="f.bmp.*item 10: formats only PIL reads"):
-            image_io.save_image(str(tmp_path / "f.bmp"), rgba[..., :3])
+        with pytest.raises(RuntimeError, match="f.tif.*item 10: formats only PIL reads"):
+            image_io.save_image(str(tmp_path / "f.tif"), rgba[..., :3])
     for name, arr in pixels.items():
         np.testing.assert_array_equal(arr, decoded(tmp_path / name))
     assert (tmp_path / "e.jpg").read_bytes() == (tmp_path / "ref.jpg").read_bytes()

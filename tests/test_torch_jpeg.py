@@ -119,7 +119,7 @@ def test_encode_refuses_what_pillow_cannot_write_as_jpeg():
         jpeg.encode_jpeg(np.zeros((0, 4), np.uint8))
 
 
-# --- variants the codec refuses ---------------------------------------------------------
+# --- variants: decoded where Pillow decodes, refused where Pillow refuses ------------------
 
 
 def _patched(data: bytes, old: bytes, new: bytes) -> bytes:
@@ -127,20 +127,30 @@ def _patched(data: bytes, old: bytes, new: bytes) -> bytes:
     return data[:i] + new + data[i + len(old):]
 
 
+def _pillow_or_error(data: bytes):
+    try:
+        with Image.open(io.BytesIO(data)) as img:
+            img.load()
+            return np.asarray(img), img.mode
+    except Exception as e:  # Pillow's refusal, to compare with the port's
+        return e
+
+
 def _variants() -> dict:
-    """name -> (bytes, what the message names)."""
+    """name -> (bytes, what the refusal names, or the fixture of a valid
+    file of that variant)."""
     rgb = _pillow_jpeg(_image(0, 24, 40, "RGB"), quality=80)
     sof = rgb.index(b"\xff\xc0")
     sos = rgb.index(b"\xff\xda")
-    buf = io.BytesIO()
-    Image.fromarray(np.full((8, 8, 4), 40, np.uint8), "CMYK").save(buf, "JPEG")
     return {
-        "arithmetic": (rgb[:sof] + b"\xff\xc9" + rgb[sof + 2:], "arithmetic coding"),
+        # a Huffman-coded file under SOF9: libjpeg-turbo decodes its bits as
+        # arithmetic-coded data, and so does the port, to the same pixels
+        "arithmetic": (rgb[:sof] + b"\xff\xc9" + rgb[sof + 2:], "arith_rgb420_q75_45x37.jpg"),
         "lossless": (rgb[:sof] + b"\xff\xc3" + rgb[sof + 2:], "lossless"),
         "12-bit": (rgb[:sof + 4] + b"\x0c" + rgb[sof + 5:], "12-bit samples"),
-        # Y sampled 4x1, Cb and Cr 1x1: 4:1:1
-        "4:1:1": (_patched(rgb, b"\x01\x22\x00", b"\x01\x41\x00"), "sampling factors 4x1"),
-        "cmyk": (buf.getvalue(), "CMYK"),
+        # Y sampled 4x1, Cb and Cr 1x1: 4:1:1 over 4:2:0 data
+        "4:1:1": (_patched(rgb, b"\x01\x22\x00", b"\x01\x41\x00"), "rgb411_q80_45x37.jpg"),
+        "cmyk": (None, "cmyk_adobe_q85_33x41.jpg"),
         "truncated": (rgb[:sos + (len(rgb) - sos) // 2], "truncated"),
         "no-eoi": (rgb[:-2], "truncated"),
     }
@@ -149,16 +159,75 @@ def _variants() -> dict:
 @pytest.mark.parametrize("variant", ["arithmetic", "lossless", "12-bit", "4:1:1", "cmyk",
                                      "truncated", "no-eoi"])
 def test_refused_variants_raise_naming_the_item(variant):
-    """Arithmetic coding (a hand-patched SOF9), a lossless frame, 12-bit
-    samples, 4:1:1 sampling (a hand-patched SOF), CMYK, a truncated scan
-    and a missing EOI raise a ValueError naming the variant and the
-    ROADMAP item; none goes to PIL."""
+    """Arithmetic coding, 4:1:1 sampling and CMYK, which Pillow decodes
+    through libjpeg-turbo, decode to Pillow's pixels: the committed
+    fixture of each (held to the manifest too) and, for the first two,
+    the hand-patched file (Huffman data under SOF9; 4:2:0 data under 4:1:1
+    factors), which Pillow decodes as well. A hand-patched lossless frame
+    (a DCT scan's parameters), 12-bit samples, a truncated scan and a
+    missing EOI, which Pillow refuses, raise a ValueError naming the
+    variant and the ROADMAP item; none goes to PIL."""
     data, why = _variants()[variant]
+    if why.endswith(".jpg"):
+        for blob in (data, (FIXTURES / why).read_bytes()):
+            if blob is None:
+                continue
+            want = _pillow_or_error(blob)
+            assert not isinstance(want, Exception), want
+            got, mode = jpeg.decode_jpeg(blob)
+            assert mode == want[1]
+            np.testing.assert_array_equal(got, want[0])
+        return
+    assert isinstance(_pillow_or_error(data), Exception)  # Pillow refuses the same bytes
     with pytest.raises(ValueError, match=why) as e:
         jpeg.decode_jpeg(data)
     assert "item 10: formats only PIL reads" in str(e.value)
     with pytest.raises(ValueError, match="item 10"):
         image_io.decode_bytes(data, "RGB")
+
+
+def _spec_refusals() -> dict:
+    """Variants Pillow refuses, written from T.81: name -> (bytes, what
+    the port's refusal names)."""
+    sys.path.insert(0, str(FIXTURES))
+    import spec_writers as sw
+
+    rgb = _image(4, 21, 27, "RGB")
+    grey = _image(5, 21, 27, "L")
+    planes = [rgb[..., i] for i in range(3)]
+    header = b"\xff\xc1\x00\x0b\x08\x00\x15"  # SOF1, one component, height 21
+    one = sw.dct_jpeg([grey], [(1, 1)])
+    return {
+        "two components": (sw.dct_jpeg(planes[:2], [(1, 1), (1, 1)]), "2 components"),
+        "fractional sampling 3x1/2x1": (sw.dct_jpeg(planes, [(3, 1), (2, 1), (1, 1)], jfif=True),
+                                        "fractional"),
+        "lossless YCbCr": (sw.lossless_jpeg(planes, jfif=True), "lossless YCbCr"),
+        "lossless arithmetic (SOF11)": (_patched(sw.lossless_jpeg([grey]), b"\xff\xc3",
+                                                 b"\xff\xcb"), "SOF11"),
+        "hierarchical (SOF5)": (_patched(one, b"\xff\xc1", b"\xff\xc5"), "hierarchical"),
+        "DNL height": (_patched(one, header, header[:-2] + b"\x00\x00"), "DNL"),
+        "16-bit samples": (_patched(one, header, header[:4] + b"\x10" + header[5:]), "16-bit"),
+        "arithmetic, truncated": (sw.dct_jpeg(planes, [(2, 2), (1, 1), (1, 1)], jfif=True,
+                                              coding="arith")[:300], "truncated"),
+        "lossless, truncated": (sw.lossless_jpeg([grey])[:200], "truncated"),
+    }
+
+
+@pytest.mark.parametrize("variant", ["two components", "fractional sampling 3x1/2x1",
+                                     "lossless YCbCr", "lossless arithmetic (SOF11)",
+                                     "hierarchical (SOF5)", "DNL height", "16-bit samples",
+                                     "arithmetic, truncated", "lossless, truncated"])
+def test_what_pillow_refuses_the_codec_refuses(variant):
+    """Each variant libjpeg-turbo or Pillow refuses here (2 components, a
+    fractional upsampling ratio, a lossless frame that needs a colour
+    conversion, lossless arithmetic coding, hierarchical frames, a DNL
+    height, 16-bit samples, truncated arithmetic and lossless scans):
+    Pillow raises on the bytes, and the codec raises a ValueError naming
+    the variant and the ROADMAP item."""
+    data, why = _spec_refusals()[variant]
+    assert isinstance(_pillow_or_error(data), Exception)
+    with pytest.raises(ValueError, match=f"{why}.*item 10"):
+        jpeg.decode_jpeg(data)
 
 
 # --- image_io: converts, threads, no PIL ------------------------------------------------

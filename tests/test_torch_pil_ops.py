@@ -48,6 +48,17 @@ def test_bilinear_resize_equals_pillow(seed, h, w, oh, ow, channels):
     np.testing.assert_array_equal(pil_ops.resize(img, (ow, oh), "bilinear"), want)
 
 
+@MANY
+@given(seed=st.integers(0, 2**31), h=SIZE, w=SIZE, oh=SIZE, ow=SIZE,
+       channels=st.sampled_from([1, 3]))
+def test_bicubic_resize_equals_pillow(seed, h, w, oh, ow, channels):
+    """``Image.resize``'s default for L and RGB (the calibration images'
+    resize): the cubic kernel, overshoot clipped, bit for bit."""
+    img = _image(seed, h, w, channels)
+    want = np.asarray(Image.fromarray(img).resize((ow, oh)))
+    np.testing.assert_array_equal(pil_ops.resize(img, (ow, oh), "bicubic"), want)
+
+
 def test_nearest_resize_equals_pillow_at_every_size_pair():
     """Every source and target length 1-97 on one axis: Pillow's running
     double sum, which ``floor((x + 0.5) · src / dst)`` in exact integers

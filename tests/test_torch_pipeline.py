@@ -26,6 +26,7 @@ The JAX modules run their branch without OpenCV, the only one the port
 has (``cv2_absent``).
 """
 
+import contextlib
 import json
 import os
 import socket
@@ -39,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import fastscnn_tpu.interfaces as jax_interfaces
 import fastscnn_tpu.perception.path_planning as jax_planning
@@ -51,7 +53,7 @@ from fastscnn_tpu.models import FastSCNN as JaxFastSCNN
 from fastscnn_tpu.models import init_fast_scnn as jax_init
 from fastscnn_tpu.serialbridge import SimpleCarController as JaxCar
 from fastscnn_tpu_torch import control_dashboard, demo, demo_tusimple, interfaces, pipeline
-from fastscnn_tpu_torch.data import image_io, jpeg
+from fastscnn_tpu_torch.data import bmp, image_io, jpeg
 from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
 from fastscnn_tpu_torch.models import FastSCNN, from_jax_params
 from fastscnn_tpu_torch.perception import create_visualization
@@ -61,6 +63,17 @@ from tests.test_torch_perception import assert_same
 
 NUM_CLASSES = 2
 _IMAGENET = (IMAGENET_MEAN, IMAGENET_STD)
+
+
+@contextlib.contextmanager
+def pil_blocked():
+    """The card's machine has no PIL: the port's calls run without it."""
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        sys.modules["PIL"] = saved
 
 
 @pytest.fixture(autouse=True)
@@ -448,9 +461,21 @@ def test_pipeline_main_writes_every_artifact(tmp_path, capsys):
         assert results[fmt]["control_result"] is not None
         assert len(os.listdir(tmp_path / fmt)) == 5
     assert (results["pt2"]["mask"] == results["onnx"]["mask"]).mean() >= 0.999
+    # item 10: a BMP frame is read without PIL (the PNG's mask); a broken
+    # BMP raises naming the file; a GIF, a format no call site names, needs
+    # PIL and raises naming the item without it
+    bmp_path = tmp_path / "road.bmp"
+    bmp_path.write_bytes(bmp.encode_bmp(image_io.read_image(png)))
+    with pil_blocked():
+        assert_same(pipeline.main(["--device", "cpu", "--input", str(bmp_path), "--output-dir",
+                                   str(tmp_path / "bmp"), "--pixels-per-unit", "2"])["mask"],
+                    result["mask"])
     (tmp_path / "x.bmp").write_bytes(b"BM neither a PNG nor a JPEG")
-    with pytest.raises(NotImplementedError, match="item 10: formats only PIL reads"):
+    with pytest.raises(ValueError, match="x.bmp.*BMP"):
         pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.bmp")])
+    Image.fromarray(image_io.read_image(png)).save(tmp_path / "x.gif")
+    with pil_blocked(), pytest.raises(RuntimeError, match="x.gif.*item 10: formats only PIL reads"):
+        pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.gif")])
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 a broken JPEG")
     with pytest.raises(ValueError, match="x.jpg.*item 10: formats only PIL reads"):
         pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.jpg")])
@@ -469,12 +494,75 @@ def test_pipeline_main_loads_weights(engines, tmp_path, capsys):
     assert_same(result["mask"], want["mask"])
 
 
+def _frame_file(tmp_path, kind, rgb):
+    """``rgb`` as a 24-bit BMP (the port's writer, Pillow's bytes) or a
+    16-bit RGB PNG (each sample ``v * 257 + 3``, which Pillow reads back as
+    ``v``)."""
+    from tests.test_torch_images import mf as make_fixtures
+
+    path = tmp_path / ("frame.bmp" if kind == "bmp" else "frame16.png")
+    path.write_bytes(bmp.encode_bmp(rgb) if kind == "bmp" else
+                     make_fixtures.png_bytes(rgb.astype(np.uint16) * 257 + 3, 16, 2))
+    return str(path)
+
+
+@pytest.mark.parametrize("kind", ["bmp", "png16"])
+def test_pipeline_main_reads_bmp_and_16bit_png_as_the_jax_pipeline(engines, tmp_path, kind):
+    """The slice against the JAX package: ``pipeline.main --device cpu`` on
+    a BMP frame and on a 16-bit PNG frame (read without PIL) and the JAX
+    ``pipeline.main`` on the same files and weights (its no-OpenCV branch
+    reads through Pillow): equal masks; every artifact byte for byte (the
+    mask PNG in Pillow's row filters, the JPEGs, the path data), the
+    control data as values but the wall-clock timestamp."""
+    _, _, sd = engines
+    torch.save(sd, tmp_path / "lane.pth")
+    path = _frame_file(tmp_path, kind, np.ascontiguousarray(
+        interfaces.SyntheticCamera().read()[1][..., ::-1]))
+    args = ["--input", path, "--weights", str(tmp_path / "lane.pth"), "--dtype", "float32",
+            "--pixels-per-unit", "1"]
+    with pil_blocked():
+        got = pipeline.main(["--device", "cpu", *args, "--output-dir", str(tmp_path / "port")])
+    ref = jax_pipeline.main([*args, "--output-dir", str(tmp_path / "jax")])
+    assert_same(got["mask"], ref["mask"])
+    assert 0 < (got["mask"] > 0).mean() < 1
+    base = os.path.splitext(os.path.basename(path))[0]
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) and len(names) == 5
+    for name in names:
+        mine, theirs = tmp_path / "port" / name, tmp_path / "jax" / name
+        if name == f"{base}_control_data.json":
+            a, b = json.loads(mine.read_text()), json.loads(theirs.read_text())
+            a.pop("timestamp"), b.pop("timestamp")
+            assert a == b
+        else:
+            assert mine.read_bytes() == theirs.read_bytes(), name
+
+
 def test_control_dashboard_single_image(tmp_path):
     png = _png(tmp_path / "cam.png", frame(seed=3))
     result = control_dashboard.main(["--cpu", "--input", png, "--pixels-per-unit", "2",
                                      "--output-dir", str(tmp_path / "out")])
     assert result["mask"].shape == (360, 640)
     assert (tmp_path / "out" / "cam_mask.png").exists()
+
+
+def test_control_dashboard_runs_an_exported_artifact(tmp_path):
+    """``control_dashboard --cpu --export-path <.pt2> --input <png>`` runs
+    the port's exported artifact through ``pipeline.build_session``: the
+    mask of ``pipeline.main`` on the same artifact and frame."""
+    from fastscnn_tpu_torch import export_model
+
+    art = str(tmp_path / "m.pt2")
+    export_model.main(["--device", "cpu", "--format", "pt2", "--argmax", "--dtype", "float32",
+                       "--input-height", "72", "--input-width", "128", "--internal-size", "0",
+                       "--output", art])
+    png = _png(tmp_path / "cam.png", frame(seed=4, width=256, height=144))
+    flags = ["--input", png, "--export-path", art, "--pixels-per-unit", "2"]
+    got = control_dashboard.main(["--cpu", *flags, "--output-dir", str(tmp_path / "dash")])
+    ref = pipeline.main(["--device", "cpu", *flags, "--output-dir", str(tmp_path / "pipe")])
+    assert got["mask"].shape == (144, 256)
+    assert_same(got["mask"], ref["mask"])
+    assert (tmp_path / "dash" / "cam_mask.png").exists()
 
 
 def _free_port():
