@@ -92,11 +92,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    cache miss in epoch 1 and a hit in epoch 2); (b) a graphed run stopped
    after epoch 1 and resumed with ``--auto-resume``, bit-equal to the
    uninterrupted graphed run, and a ``.pt`` saved by a ``--device cpu``
-   run (SGD and AdamW) resumed on the card's graphs; (d) in bf16, 8
+   run (SGD and AdamW) resumed on the card's graphs; (d) in bf16, 4
    epochs of 3 steps through threads and through ``--loader grain`` (one
    worker process a core up to 8, a cold cache), each graphed and eager:
-   the host ms of the 12 steps of epochs 2-7 (median and quartiles), their
-   samples/s and data ms/iter, ``torch.profiler`` over epoch 8's steps
+   the host ms of the 4 steps of epochs 2-3 (median and quartiles), their
+   samples/s and data ms/iter, ``torch.profiler`` over epoch 4's steps
    inside the CLI (busy and idle share), the decoded cache's reads (every
    one a hit or a miss, a cold cache's files each missed at least once, a
    warm cache's reads all hits), the pools and peak memory;
@@ -119,14 +119,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``make_eval_step``, ms/step; (b) ``tools/argmax_first_study.main`` at
    its full settings under deterministic algorithms, its train step a CUDA graph (19 classes on
    768² crops of 1024x2048 scenes, 400 bf16 steps of batch 8; 2 classes at 360x640; first its
-   step graphed against eager for 3 steps, bit-equal, and 40 eager steps timed), each leg's exact mask
+   step graphed against eager for 3 steps, bit-equal, and 20 eager steps timed), each leg's exact mask
    above 0.9 pixAcc and every argmax-first disagreement within the
    study's 16 px of a class boundary (those past 8 px counted); (c) configs ref and A-D in f32 and bf16 on the trained
    19-class weights over the study's 8 val scenes, int8 scales calibrated
    on training scenes: f32 A and B agree with f32 ref on 99.5 %, bf16 ref
    differs from f32 ref on at most 0.5 % of pixels, C's and D's agreement
    and their first int8 site's levels reported; (d)
-   ``tools/quant_study.main`` at its defaults through the trainer (B2 its
+   ``tools/quant_study.main`` at its defaults but 15 epochs through the trainer (B2 its
    mask head); (e) ``tools/compare_backends.main`` on the trained weights
    through the port's ``.pth`` writer and ``--weights``, its own 0.5 %
    gate;
@@ -134,14 +134,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (:func:`bench_phase`): (a) ``make_train_step(graph=True)`` and
    ``make_split_aug_train_step(graph=True)`` in the recipe, for the
    crop-fed step, the PSP chain fused into the step and the split step
-   with ``grad_accum`` 2 (:func:`graph_step_phase`): 5 f32 steps from one
+   with ``grad_accum`` 2 (:func:`graph_step_phase`): 3 f32 steps from one
    state eager twice and graphed once under deterministic algorithms, the
    graphed losses, params, BN statistics and momentum buffers bit-equal to
    eager's where the eager runs are (else within twice their distance, and
    after one step within phase 6's step-parity gate); 20 bf16 graphed steps (finite, falling losses; B6 at 2 captured
    launches a microbatch for each part), ms/step and samples/s graphed and
    eager from the same state, the graph pool's bytes, peak memory and a
-   profile of each; (b) ``bench_train.run`` at the Cityscapes recipe's
+   profile of the graphed step; (b) ``bench_train.run`` at the Cityscapes recipe's
    knobs and at its defaults cut to batches 8 and 64; (c)
    ``bench_eval.main`` at 1024x2048 with 8 uniform images and 2 of each
    mixed size; (d) ``bench_latency.run`` (with its realtime legs); (e)
@@ -231,7 +231,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 13. data parallelism over ``torch.distributed`` on the one card
    (:func:`multidevice_phase`; two NCCL ranks cannot share a card, so
    ranks share cuda:0 over gloo): (a) ``entry.dryrun_multichip(2)``, its
-   legs in 2 gloo processes and its 2-process ``multihost_smoke`` stage;
+   legs in 2 gloo processes (its 2-process ``multihost_smoke`` stage runs
+   in ``--multicard`` (c) since PR 22);
    (b) the recipe at full width (19 classes, aux, OHEM CE, SGD,
    ``stem_impl='pallas'``) on the 16 768x768 crops over 2 gloo ranks, 8
    each, 3 f32 and 3 bf16 eager steps: the loss histories bit-equal across
@@ -249,13 +250,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (a) the recipe at full width (19 classes, aux, mix OHEM CE, SGD) on 2
    crops of 1024x2048 over 4 gloo ranks sharing cuda:0, under a 1 × 2
    mesh (ranks 0 and 1) and a 2 × 2 mesh (all four), each rank its block
-   of rows (``spatial_shard=True``), ``stem_impl`` 'xla' and 'pallas' (B6
-   on each block), f32 and bf16, and the replicated form (``spatial_shard``
-   off: each rank its data place's rows whole; 'pallas', f32), one step
-   from the init and one timed: the
+   of rows (``spatial_shard=True``), 'pallas' f32 (B6 on each block) and
+   'xla' bf16, and the replicated form (``spatial_shard`` off: each rank
+   its data place's rows whole; 'pallas', f32), one step
+   from the init (their ms a step: PRs 20-21, and MC (e)): the
    losses and the parameters bit-equal across each mesh's ranks, the f32
    step within 4x phase 6's yardstick of one process's step on the global
-   batch, B6 at 2 launches a step for each part in each rank, ms a step;
+   batch, B6 at 2 launches a step for each part in each rank;
    (b) the engine under a local mesh of [cuda:0, cuda:0] with ``space``
    2: config ref ('conv' + 'hybrid') in f32 and bf16 and 'taps' +
    'matmul' in f32, 2 frames of 1024x2048: the f32 masks equal to the
@@ -263,7 +264,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    more, the bf16 agreement, ``predict`` from a side stream equal to
    ``predict`` on the default stream, and
    ``predict_fn`` (eager under ``space``) ms a frame beside the meshless
-   graph's;
+   graph's; (c) the uneven split, on the BDD100K frame (720x1280), whose
+   levels (359, 180, 90, 45 and 23 rows) split unevenly over 2 and 4: (a)'s
+   group and checks for 'xla' f32, 'pallas' f32 and 'pallas' bf16 on 2
+   crops under 1 × 2 and 2 × 2, one step from the init and one timed (ms
+   a step), B6's forward, dX and dW at the shapes of
+   each rank's windows against their plain versions under phase 5's
+   gates, and config ref in f32 under local ``space`` meshes of 2 and 4
+   on [cuda:0], its masks equal to the meshless engine's on 99.999 % of
+   pixels or more, ``predict``'s ms a frame under ``space``;
 15. every image format without PIL (:func:`images_phase`): (a) each PNG
    and BMP fixture of ``tests/fixtures/images`` decoded and converted
    (RGB, L, RGBA, LA) to its manifest's Pillow digests, the BMP writes to
@@ -305,7 +314,8 @@ with no device line:
     python3 chip_smoke.py --multicard      # the build, then every card's
                                            # kernels, a replica a card, NCCL
                                            # ranks a card, the spatial step
-                                           # and engine across the cards (on
+                                           # (1024x2048 and 720x1280) and
+                                           # engine across the cards (on
                                            # four cards)
 
 Without a CUDA device it prints an error and exits 1.
@@ -1467,8 +1477,10 @@ SERVER_CLIENTS, SERVER_FRAMES = 8, 3  # client threads, distinct frames each
 # trials, and the bounds on the time of 60 iterations against 30 (2x, 15 %)
 GRAPH_BATCHES = (1, 2)
 THROUGHPUT_BATCHES = (1, 2, 8)
-THROUGHPUT_ITERS = (30, 60)
-THROUGHPUT_TRIALS = 5
+# (30, 60) iterations and 5 trials until PR 22, cut to keep the script inside
+# its time limit
+THROUGHPUT_ITERS = (20, 40)
+THROUGHPUT_TRIALS = 3
 LOOP_RATIO = (1.7, 2.3)
 
 
@@ -1752,10 +1764,11 @@ def training_batch(dev, n=TRAIN_BATCH, height=TRAIN_SIZE, width=TRAIN_SIZE):
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    block = 32
-    cls = torch.randint(0, NUM_CLASSES, (n, 1, height // block, width // block), generator=g,
-                        device=dev)
-    cls = F.interpolate(cls.float(), scale_factor=block, mode="nearest").long()[:, 0]
+    block = 32  # the last row and column of blocks cut where 32 does not divide a side
+    cls = torch.randint(0, NUM_CLASSES, (n, 1, -(-height // block), -(-width // block)),
+                        generator=g, device=dev)
+    cls = F.interpolate(cls.float(), scale_factor=block,
+                        mode="nearest").long()[:, 0, :height, :width]
     palette = torch.randint(0, 256, (NUM_CLASSES, 3), generator=g, device=dev).float()
     noise = torch.randint(-24, 25, (n, height, width, 3), generator=g, device=dev).float()
     images = (palette[cls] + noise).clamp(0, 255).to(torch.uint8)
@@ -2645,7 +2658,7 @@ def graphed_cli_equality(runs, tree, cache, n_train, n_val):
 # are timed (each step's host interval from its call to the next call in
 # its epoch: the loader's wait, the batch's copy and the step, synchronised
 # by the loss the trainer prints), the last epoch's steps are profiled
-CLI_EPOCHS = 8
+CLI_EPOCHS = 4  # 8 until PR 22, cut to keep the script inside its time limit
 CLI_PROFILE = (3 * CLI_EPOCHS - 2, 3 * CLI_EPOCHS)
 EVAL_TIMED_IMAGES, EVAL_TIMED_PASSES = 8, 3  # eval.main timing: the 1024x2048 val images
 
@@ -3032,7 +3045,7 @@ def convergence_phase(root):
 
 
 STUDY_CHECK_STEPS = 3  # 7b's train_model graphed against eager, from one init
-STUDY_EAGER_STEPS = 40  # eager steps timed beside 7b's graphed run
+STUDY_EAGER_STEPS = 20  # eager steps timed beside 7b's graphed run (40 until PR 22)
 
 
 def _warm_ms_per_step(record):
@@ -3049,7 +3062,8 @@ def study_graph_check():
     and momentum buffers bit-equal to eager's where the two eager runs are
     (so a generator registered with the graph and reseeded between replays
     draws what the eager step draws), else within twice their distance.
-    Then 40 eager steps on the host clock. Returns their warm ms/step."""
+    Then STUDY_EAGER_STEPS eager steps on the host clock. Returns their
+    warm ms/step."""
     import gc
 
     import torch
@@ -3241,14 +3255,16 @@ def trained_agreement_phase(state):
 
 
 def quant_phase(work):
-    """7d: ``quant_study.main`` at its defaults through the trainer, PIL
-    blocked. Returns B2's launches (its mask head, one a batch)."""
+    """7d: ``quant_study.main`` at its defaults but QUANT_EPOCHS through the
+    trainer, PIL blocked. Returns B2's launches (its mask head, one a
+    batch)."""
     from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from fastscnn_tpu_torch.tools import quant_study
 
     t0 = time.perf_counter()
     reset_launch_counts()
     result = quant_study.main(["--workdir", os.path.join(work, "quant_study"),
+                               "--epochs", str(QUANT_EPOCHS),
                                "--out", os.path.join(work, "quant_study.json")])
     counts = launch_counts()
     _print(f"7d. quant_study.main ({result['epochs']} epochs, {result['val_images']} val "
@@ -3259,6 +3275,11 @@ def quant_phase(work):
         raise AssertionError(f"quant_study: launches {counts}, expected {want}; "
                              f"{len(result['rows'])} rows")
     return counts
+
+
+# 7d's training epochs (the tool's default, 40, until PR 22; cut to keep the
+# script inside its time limit: its gate reads the launches and the rows)
+QUANT_EPOCHS = 15
 
 
 def compare_phase(work, state):
@@ -3312,8 +3333,10 @@ def trained_phase(root):
 
 
 # phase 8: the graphed train step (8a) and the training-side benches (8b-8f)
-GRAPH_STEPS_F32 = 5  # f32 steps from one state: eager twice, graphed once
-GRAPH_WINDOWS, GRAPH_WINDOW_STEPS = 3, 10  # CUDA-event windows of graphed and eager steps
+GRAPH_STEPS_F32 = 3  # f32 steps from one state: eager twice, graphed once (5 until PR 22)
+# CUDA-event windows of graphed and eager steps (windows of 10 steps until PR
+# 22, cut to keep the script inside its time limit)
+GRAPH_WINDOWS, GRAPH_WINDOW_STEPS = 3, 5
 EAGER_DISTANCE_FACTOR = 2.0  # graphed vs eager: within this factor of eager vs eager
 NATIVE_SIZE, NATIVE_BASE = (1024, 2048), 1024  # the device-aug forms' frames and --base-size
 # (form, chain in the step or split, grad_accum)
@@ -3354,7 +3377,7 @@ def graph_step_phase(yard):
     mix OHEM CE, SGD, ``stem_impl='pallas'``), for the crop-fed step (16
     crops of 768x768), the PSP chain fused into the step and the split
     step with ``grad_accum`` 2 (16 native 1024x2048 frames). For each: from
-    one state, 5 f32 steps eager twice and 5 graphed, with torch's
+    one state, 3 f32 steps eager twice and 3 graphed, with torch's
     deterministic algorithms where it has them: the losses, params, BN
     statistics and momentum buffers of the graphed run bit-equal to the
     eager run's where the two eager runs are; else within 2x their
@@ -3365,9 +3388,9 @@ def graph_step_phase(yard):
     phase 6 requires for the crop-fed step, the last five's mean below
     0.95 of the first five's for the chains' random crops), B6 at 2
     captured launches a microbatch for each part, ms/step and samples/s
-    (CUDA events around 3 windows of 10 steps) graphed and eager from the
+    (CUDA events around 3 windows of 5 steps) graphed and eager from the
     same state, the graph pool's bytes and peak memory, and a profile of
-    both. Returns {form: graphed ms/step}."""
+    the graphed step. Returns {form: graphed ms/step}."""
     import gc
 
     import torch
@@ -3533,9 +3556,10 @@ def graph_step_phase(yard):
                    f"{GRAPH_WINDOW_STEPS}, {[round(t, 2) for t in times]}), "
                    f"{TRAIN_BATCH * 1e3 / ms[label]:.1f} samples/s, peak memory "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        for label, fn in (("graphed", step), ("eager", eager_step)):
-            profile_steps(lambda: fn(state, images, targets, *gens), ms[label], steps=3, top=5,
-                          what=f"{label} {form} bf16 step")
+        # the graphed step's profile (the eager one's until PR 22: phase 6
+        # profiles the eager step)
+        profile_steps(lambda: step(state, images, targets, *gens), ms["graphed"], steps=3,
+                      top=5, what=f"graphed {form} bf16 step")
         _print(f"graphed {form}: {ms['eager'] / ms['graphed']:.3f}x the eager step's rate; "
                f"{time.perf_counter() - t_form:.1f} s")
         out[form] = ms["graphed"]
@@ -6096,7 +6120,17 @@ def multidevice_phase(root, yard):
     t_phase = time.perf_counter()
     work = os.path.join(root, "build", "chip_smoke_multidevice")
     _fresh_dir(work)
-    result = dryrun_multichip(DP_RANKS, device="cuda")
+    # its 2-process multihost_smoke stage runs in --multicard (c) (and here
+    # until PR 22: cut to keep the script inside its time limit)
+    saved = os.environ.get("FASTSCNN_DRYRUN_MULTIPROC")
+    os.environ["FASTSCNN_DRYRUN_MULTIPROC"] = "0"
+    try:
+        result = dryrun_multichip(DP_RANKS, device="cuda")
+    finally:
+        if saved is None:
+            del os.environ["FASTSCNN_DRYRUN_MULTIPROC"]
+        else:
+            os.environ["FASTSCNN_DRYRUN_MULTIPROC"] = saved
     t_a = time.perf_counter() - t_phase
     _print(f"13 (a) dryrun_multichip({DP_RANKS}) on {result['backend']}, cuda:0: {t_a:.1f} s")
     launches = dp_train_leg(root, work, yard)
@@ -6128,15 +6162,24 @@ def multidevice_phase(root, yard):
 SP_BATCH = 2
 SP_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 SP_RANKS = 4
-SP_FORMS = (("xla", "float32", True), ("pallas", "float32", True), ("xla", "bfloat16", True),
-            ("pallas", "bfloat16", True), ("pallas", "float32", False))
-SP_TIMED = 1  # steps timed after the gated first step of each form
+# (a)'s 'xla' f32 and 'pallas' bf16 forms moved to (c)'s 720x1280 crops in
+# PR 22, to keep the script inside its time limit
+SP_FORMS = (("pallas", "float32", True), ("xla", "bfloat16", True), ("pallas", "float32", False))
+# steps timed after the gated first step of each form of 14 (c); (a)'s forms
+# run their gated step alone (their times: PRs 20-21)
+SP_TIMED = 1
 SP_STEPS = 3  # MC (e)'s steps a form
 SP_DEADLINE_S = 300.0  # each spawned group of phase 14, killed past it
 SP_ENGINE_GATE = 0.99999  # f32 masks under space 2 vs the meshless engine
 # label, compute dtype, folded_dw_impl, final_upsample of 14 (b)
 SP_ENGINE_CONFIGS = (("ref", "float32", "conv", "hybrid"), ("ref", "bfloat16", "conv", "hybrid"),
                      ("taps", "float32", "taps", "matmul"))
+# 14 (c), the uneven split: the BDD100K frame, whose levels (359, 180, 90, 45
+# and 23 rows) split unevenly over a space axis of 2 and of 4; the step's
+# forms (stem, dtype) on SP_MESHES, and the engine's local space meshes
+SP_UNEVEN_SIZE = (720, 1280)
+SP_UNEVEN_FORMS = (("xla", "float32"), ("pallas", "float32"), ("pallas", "bfloat16"))
+SP_UNEVEN_SPACES = (2, 4)
 
 
 def _state_digest(state) -> str:
@@ -6152,7 +6195,7 @@ def _state_digest(state) -> str:
 
 
 def spatial_rank(work: str, nccl: bool) -> None:
-    """One rank of 14 (a) (gloo, every rank on cuda:0) or of MC (e) (NCCL, a
+    """One rank of 14 (a) and (c) (gloo, every rank on cuda:0) or of MC (e) (NCCL, a
     card a rank, the 2 x 2 step eager and graphed): writes ``rank<k>.json``
     under ``work``, and 14 (a)'s f32 updates in ``rank0.pt``."""
     import torch
@@ -6175,32 +6218,38 @@ def spatial_rank(work: str, nccl: bool) -> None:
         warnings.simplefilter("ignore")  # the 1 x 2 mesh uses 2 of the 4 ranks
         meshes = {k: make_mesh(n_data=d, n_space=m) for k, (d, m) in SP_MESHES.items()}
     if nccl:
-        block = host_block(meshes["2x2"], images, targets)
         runs = {}
-        with deterministic_algorithms():
-            for label, graph in (("eager", False), ("graphed", True)):
-                state, step = recipe_trainer(dev, meshes["2x2"], graph, spatial=True)(
-                    "pallas", torch.float32)
-                reset_launch_counts()
-                losses, ms = _timed_steps(step, state, *block, None, SP_STEPS)
-                torch.cuda.synchronize()
-                runs[label] = {"losses": [v.hex() for v in losses], "ms": ms,
-                               "digest": _state_digest(state), "launches": launch_counts(),
-                               "captured": getattr(step, "launches", {}),
-                               "replays": getattr(step, "replays", 0)}
-                if graph:
-                    step.release()  # before the group is left
-                del state, step
-                torch.cuda.empty_cache()
+        for size, tag in (((HEIGHT, WIDTH), ""), (SP_UNEVEN_SIZE, _sp_size_tag(SP_UNEVEN_SIZE))):
+            block = host_block(meshes["2x2"], *training_batch(dev, SP_BATCH, *size))
+            with deterministic_algorithms():
+                for label, graph in (("eager", False), ("graphed", True)):
+                    state, step = recipe_trainer(dev, meshes["2x2"], graph, spatial=True)(
+                        "pallas", torch.float32)
+                    reset_launch_counts()
+                    losses, ms = _timed_steps(step, state, *block, None, SP_STEPS)
+                    torch.cuda.synchronize()
+                    runs[label + tag] = {"losses": [v.hex() for v in losses], "ms": ms,
+                                         "digest": _state_digest(state),
+                                         "launches": launch_counts(),
+                                         "captured": getattr(step, "launches", {}),
+                                         "replays": getattr(step, "replays", 0)}
+                    if graph:
+                        step.release()  # before the group is left
+                    del state, step
+                    torch.cuda.empty_cache()
         out["runs"] = runs
     else:
         saved = {}
+        uneven = training_batch(dev, SP_BATCH, *SP_UNEVEN_SIZE)
+        forms = [(stem, dtype, spatial, (images, targets), "") for stem, dtype, spatial in SP_FORMS]
+        forms += [(stem, dtype, True, uneven, _sp_size_tag(SP_UNEVEN_SIZE))
+                  for stem, dtype in SP_UNEVEN_FORMS]
         for name, mesh in meshes.items():
             if not mesh.is_member:
                 continue
-            for stem, dtype, spatial in SP_FORMS:
-                key = _sp_key(name, stem, dtype, spatial)
-                block = host_block(mesh, images, targets, spatial=spatial)
+            for stem, dtype, spatial, batch, tag in forms:
+                key = _sp_key(name, stem, dtype, spatial) + tag
+                block = host_block(mesh, *batch, spatial=spatial)
                 state, step = recipe_trainer(dev, mesh, spatial=spatial)(stem,
                                                                          getattr(torch, dtype))
                 p0, s0 = _leaves_of(state)
@@ -6210,7 +6259,7 @@ def spatial_rank(work: str, nccl: bool) -> None:
                 if rank == 0 and dtype == "float32":
                     saved[key] = [t.cpu() for t in _step_updates(state, p0, s0)]
                 digest = _state_digest(state)
-                losses, ms = _timed_steps(step, state, *block, None, SP_TIMED)
+                losses, ms = _timed_steps(step, state, *block, None, _sp_timed(tag))
                 torch.cuda.synchronize()
                 out[key] = {"loss": first.hex(), "digest": digest,
                             "losses": [v.hex() for v in losses], "ms": ms,
@@ -6230,6 +6279,15 @@ def _sp_key(name, stem, dtype, spatial):
     return f"{name} {stem} {dtype}" + ("" if spatial else " replicated")
 
 
+def _sp_size_tag(size):
+    return f" {size[0]}x{size[1]}"
+
+
+def _sp_timed(tag):
+    """The timed steps of a form of 14 (a) (no size tag) or (c)."""
+    return SP_TIMED if tag else 0
+
+
 def _sp_group(root, work, n, nccl=False):
     """``n`` processes of :func:`spatial_rank`; their JSON results."""
     from fastscnn_tpu_torch.parallel.multihost import run_local_group
@@ -6244,17 +6302,21 @@ def _sp_group(root, work, n, nccl=False):
 
 
 def spatial_train_leg(root, work, yard):
-    """14 (a) (the module docstring). Returns the ranks' B6 launches."""
+    """14 (a) and the step of 14 (c) (the module docstring). Returns the
+    ranks' B6 launches."""
     import torch
 
     dev = torch.device("cuda")
-    images, targets = training_batch(dev, SP_BATCH, HEIGHT, WIDTH)
     trainer = recipe_trainer(dev)
-    single = {stem: one_step(trainer, stem, torch.float32, images, targets)
-              for stem in ("xla", "pallas")}
-    single = {k: tuple(v.cpu() if isinstance(v, torch.Tensor) else v for v in run)
-              for k, run in single.items()}
-    del trainer, images, targets
+    single = {}
+    for size, tag, forms in (((HEIGHT, WIDTH), "", SP_FORMS),
+                             (SP_UNEVEN_SIZE, _sp_size_tag(SP_UNEVEN_SIZE), SP_UNEVEN_FORMS)):
+        images, targets = training_batch(dev, SP_BATCH, *size)
+        for stem in sorted({form[0] for form in forms if form[1] == "float32"}):
+            run = one_step(trainer, stem, torch.float32, images, targets)
+            single[stem + tag] = tuple(v.cpu() if isinstance(v, torch.Tensor) else v for v in run)
+        del images, targets
+    del trainer
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = _sp_group(root, work, SP_RANKS)
@@ -6262,41 +6324,100 @@ def spatial_train_leg(root, work, yard):
     saved = torch.load(os.path.join(work, "rank0.pt"))
     limits = [max(F32_STEP_FACTOR * y, F32_STEP_FLOOR) for y in yard]
     launches = {}
-    _print(f"14 (a) {SP_RANKS} gloo ranks on cuda:0, {SP_BATCH} crops of {HEIGHT}x{WIDTH}, each "
-           f"rank its block ({t_group:.1f} s with the spawn); f32 limits against one process "
+    _print(f"14 (a), (c) {SP_RANKS} gloo ranks on cuda:0, {SP_BATCH} crops of {HEIGHT}x{WIDTH} "
+           f"(a) and of {SP_UNEVEN_SIZE[0]}x{SP_UNEVEN_SIZE[1]} (c), each rank its block "
+           f"({t_group:.1f} s with the spawn); f32 limits against one process "
            f"(loss, param updates L2, BN-stat changes max): "
            f"{tuple(f'{v:.3g}' for v in limits)} (phase 6's yardstick x {F32_STEP_FACTOR})")
+    forms = [(stem, dtype, spatial, "") for stem, dtype, spatial in SP_FORMS]
+    forms += [(stem, dtype, True, _sp_size_tag(SP_UNEVEN_SIZE)) for stem, dtype in SP_UNEVEN_FORMS]
     for name, (n_data, n_space) in SP_MESHES.items():
         members = ranks[:n_data * n_space]
-        for stem, dtype, spatial in SP_FORMS:
-            key = _sp_key(name, stem, dtype, spatial)
+        for stem, dtype, spatial, tag in forms:
+            key = _sp_key(name, stem, dtype, spatial) + tag
             runs = [r[key] for r in members]
             if len({(r["loss"], r["digest"], tuple(r["losses"])) for r in runs}) != 1:
-                raise AssertionError(f"14 (a) {key}: losses or parameters differ across the "
+                raise AssertionError(f"14 {key}: losses or parameters differ across the "
                                      f"ranks: {[(r['loss'], r['digest'][:12]) for r in runs]}")
             losses = [float.fromhex(v) for v in [runs[0]["loss"], *runs[0]["losses"]]]
             if not all(math.isfinite(v) for v in losses):
-                raise AssertionError(f"14 (a) {key}: losses {losses}")
-            want = {k: (2 * (1 + SP_TIMED) if stem == "pallas" else 0) for k in TRAINING_NAMES}
+                raise AssertionError(f"14 {key}: losses {losses}")
+            steps = 1 + _sp_timed(tag)
+            want = {k: (2 * steps if stem == "pallas" else 0) for k in TRAINING_NAMES}
             for r in runs:
                 if any(r["launches"].get(k, 0) != v for k, v in want.items()):
-                    raise AssertionError(f"14 (a) {key} rank: B6 launches {r['launches']}, "
+                    raise AssertionError(f"14 {key} rank: B6 launches {r['launches']}, "
                                          f"expected {want}")
                 for k in TRAINING_NAMES:
                     launches[TRAINING_NAMES[k]] = (launches.get(TRAINING_NAMES[k], 0)
                                                    + r["launches"][k])
             line = (f"  {key}: losses {[round(v, 5) for v in losses]}, bit-equal "
-                    f"on its {len(runs)} ranks; ms a step (steps 2-{1 + SP_TIMED}) "
-                    f"{[round(v, 1) for v in runs[0]['ms']]}; peak "
-                    f"{max(r['peak_gib'] for r in runs):.2f} GiB a rank")
+                    f"on its {len(runs)} ranks; "
+                    + (f"ms a step (steps 2-{steps}) {[round(v, 1) for v in runs[0]['ms']]}; "
+                       if steps > 1 else "")
+                    + f"peak {max(r['peak_gib'] for r in runs):.2f} GiB a rank")
             if dtype == "float32":
-                got = step_distance((losses[0], *saved[key]), single[stem])
+                got = step_distance((losses[0], *saved[key]), single[stem + tag])
                 line += f"; vs one process {tuple(f'{v:.3g}' for v in got)}"
                 if any(g > lim for g, lim in zip(got, limits)):
-                    raise AssertionError(f"14 (a) {key} outside phase 6's yard: {got} vs "
-                                         f"{limits}")
+                    raise AssertionError(f"14 {key} outside phase 6's yard: {got} vs {limits}")
             _print(line)
+    spatial_b6_blocks()
     return launches
+
+
+def spatial_b6_blocks():
+    """14 (c): B6's forward, dX and dW at the shapes that stem 'pallas'
+    gives them on the uneven blocks of SP_UNEVEN_SIZE over SP_MESHES (each
+    rank's window of rows at dsconv1 and dsconv2, ``ops/halo.py``), in
+    bf16 and f32, against their plain versions under phase 5's gates:
+    forward and dX bit for bit, dW within f32 reassociation (2e-5 of the
+    sum of |x*g|; in bf16 one ulp more) and bit-identical on a second
+    run."""
+    import torch
+
+    from fastscnn_tpu_torch.ops import cuda as K
+    from fastscnn_tpu_torch.ops.halo import conv_windows, space_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    shapes = set()
+    for n_data, n_space in SP_MESHES.values():
+        h, w = SP_UNEVEN_SIZE
+        rows = space_rows(n_space, h)
+        h, w = (h - 3) // 2 + 1, (w - 3) // 2 + 1  # the stem's output
+        rows = space_rows(n_space, h, rows)
+        for c in (32, 48):  # dsconv1's input channels, then dsconv2's
+            windows, _ = conv_windows(rows, 3, 2, 1)
+            shapes.update((SP_BATCH // n_data, w1 - w0, w, c) for w0, w1 in windows)
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            rows = space_rows(n_space, h, rows)
+    for n, h, w, c in sorted(shapes):
+        ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        x = torch.randn((n, h, w, c), generator=g, device=dev).clamp_min(0)
+        wt = torch.randn((3, 3, 1, c), generator=g, device=dev) * 0.3
+        gy = torch.randn((n, ho, wo, c), generator=g, device=dev) * 0.01
+        worst = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            xd, wd, gd = x.to(dt), wt.to(dt), gy.to(dt)
+            same = (torch.equal(K.dw_conv3x3(xd, wd, None, 2, 1),
+                                K.dw_conv3x3_reference(xd, wd, None, 2, 1))
+                    and torch.equal(K.dw_conv3x3_dx(gd, wd, 2, 1, xd.shape),
+                                    K.dw_conv3x3_dx_reference(gd, wd, 2, 1, xd.shape)))
+            got = K.dw_conv3x3_dw(xd, gd, 2, 1, dt).float()
+            ref = K.dw_conv3x3_dw_reference(xd, gd, 2, 1, dt).float()
+            scale = K.dw_conv3x3_dw_reference(xd.abs(), gd.abs(), 2, 1).float()
+            ulp = ref.abs() * 2.0**-7 if dt == torch.bfloat16 else 0.0
+            errv = (got - ref).abs()
+            again = torch.equal(got, K.dw_conv3x3_dw(xd, gd, 2, 1, dt).float())
+            worst = max(worst, (errv / scale.clamp_min(1e-30)).max().item())
+            if not same or bool((errv > ulp + 2e-5 * scale).any()) or not again:
+                raise AssertionError(f"14 (c) B6 at {(n, h, w, c)} {dt}: forward and dX "
+                                     f"bit-equal {same}, dW max err {errv.max().item():.3g}, "
+                                     f"second run equal {again}")
+        _print(f"  14 (c) B6 at the window {(n, h, w, c)}: forward and dX bit-equal to their "
+               f"plain versions in bf16 and f32, dW max |err| / sum|x*g| {worst:.3g} (gate 2e-5, "
+               f"bf16 one ulp more), bit-identical on a second run")
 
 
 def spatial_serve_leg(devices=None, n_space=2, what="14 (b)"):
@@ -6340,7 +6461,7 @@ def spatial_serve_leg(devices=None, n_space=2, what="14 (b)"):
         agree = (got == want).float().mean().item()
         whole = (got == single.predict(frames)).float().mean().item()
         graph = single.predict_fn(tuple(frames.shape))
-        ms = {k: time_ms(lambda f=f: f(frames), iters=3, warmup=1, repeats=3) / SP_BATCH
+        ms = {k: time_ms(lambda f=f: f(frames), iters=2, warmup=1, repeats=3) / SP_BATCH
               for k, f in (("space", fn), ("meshless graph", graph))}
         _print(f"{what} {label} ({dw} + {up}) {dtype}, {SP_BATCH}x{HEIGHT}x{WIDTH} over "
                f"{mesh.shape} on {where}: masks equal to the meshless engine on {agree:.7f} of "
@@ -6352,6 +6473,47 @@ def spatial_serve_leg(devices=None, n_space=2, what="14 (b)"):
                                  f"equal {same_fn}, side streams equal {same_side}")
         del single, sharded, fn, graph
         torch.cuda.empty_cache()
+
+
+def spatial_uneven_serve_leg():
+    """14 (c)'s engine: config ref ('conv' + 'hybrid') in f32 on SP_BATCH
+    frames of SP_UNEVEN_SIZE under local meshes of [cuda:0] x n for each n
+    of SP_UNEVEN_SPACES (blocks of 180/179 rows at 1/2 and 12/11 at 1/32
+    over 2; 90/90/90/89, 23/22/23/22 at 1/8 and 6/6/5/6 at 1/32 over 4):
+    masks against the meshless engine (gate SP_ENGINE_GATE), and
+    ``predict``'s ms a frame under ``space`` beside the meshless graph's."""
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    frames = torch.randint(0, 256, (SP_BATCH, *SP_UNEVEN_SIZE, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    model = FastSCNN(NUM_CLASSES)
+    model.load_state_dict(calibrated_state(frames))
+    cfg = E2EConfig(mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="float32",
+                    final_upsample="hybrid")
+    single = InferenceEngine(model, device=dev, config=cfg)
+    want = single.predict(frames)
+    graph = single.predict_fn(tuple(frames.shape))
+    graph_ms = time_ms(lambda: graph(frames), iters=2, warmup=1, repeats=3) / SP_BATCH
+    for n in SP_UNEVEN_SPACES:
+        sharded = InferenceEngine(model, config=cfg, mesh=make_mesh(n_space=n, devices=[dev] * n))
+        agree = (sharded.predict(frames) == want).float().mean().item()
+        ms = time_ms(lambda e=sharded: e.predict(frames), iters=2, warmup=1,
+                     repeats=3) / SP_BATCH
+        _print(f"14 (c) ref f32, {SP_BATCH}x{SP_UNEVEN_SIZE[0]}x{SP_UNEVEN_SIZE[1]} over space {n} "
+               f"on [cuda:0] x {n}: masks equal to the meshless engine on {agree:.7f} of pixels "
+               f"(gate {SP_ENGINE_GATE}); ms a frame: predict under space {ms:.2f}, the "
+               f"meshless graph {graph_ms:.2f}")
+        if agree < SP_ENGINE_GATE:
+            raise AssertionError(f"14 (c) space {n}: agreement {agree}")
+        del sharded
+        torch.cuda.empty_cache()
+    del single, graph
 
 
 def _on_side_streams(devices, fn):
@@ -6374,45 +6536,52 @@ def _on_side_streams(devices, fn):
 
 def spatial_multicard_leg(root, cards):
     """MC (e): the 2 x 2 spatial step over NCCL, a rank a card, eager and
-    graphed (the exchanges captured) under deterministic algorithms: the
-    parameters bit-equal across the ranks and graphed equal to eager; then
-    the engine with ``space`` 2 across the cards. Returns the ranks' B6
-    launches (the graphs' replays included)."""
+    graphed (the exchanges captured) under deterministic algorithms, on
+    crops of HEIGHT x WIDTH and of SP_UNEVEN_SIZE (levels that split
+    unevenly): the parameters bit-equal across the ranks and graphed equal
+    to eager; then the engine with ``space`` 2 across the cards. Returns
+    the ranks' B6 launches (the graphs' replays included)."""
     import torch
 
     work = os.path.join(root, "build", "chip_smoke_spatial_multicard")
     _fresh_dir(work)
     t0 = time.perf_counter()
     ranks = _sp_group(root, work, SP_RANKS, nccl=True)
-    runs = [r["runs"] for r in ranks]
+    t_group = time.perf_counter() - t0
     devices = sorted(r["device"] for r in ranks)
-    digests = {(run["eager"]["digest"], run["graphed"]["digest"]) for run in runs}
-    losses = {(tuple(run["eager"]["losses"]), tuple(run["graphed"]["losses"])) for run in runs}
-    same = len(digests) == 1 and len(set(next(iter(digests)))) == 1 and len(losses) == 1
-    _print(f"MC (e) the 2 x 2 spatial step (f32, 'pallas') over NCCL on {devices}, "
-           f"{SP_STEPS} steps eager and graphed ({time.perf_counter() - t0:.1f} s with the "
-           f"spawn): parameters and losses {'bit-equal' if same else 'DIFFERENT'} across the "
-           f"ranks and between eager and graphed; ms a step eager "
-           f"{[round(v, 1) for v in runs[0]['eager']['ms']]}, graphed "
-           f"{[round(v, 1) for v in runs[0]['graphed']['ms']]}")
-    if devices != [f"cuda:{k}" for k in range(SP_RANKS)] or not same:
-        raise AssertionError(f"MC (e) {devices}: digests {digests}, losses {losses}")
+    if devices != [f"cuda:{k}" for k in range(SP_RANKS)]:
+        raise AssertionError(f"MC (e) ranks on {devices}")
     launches = {}
-    for run in runs:
-        eager, graphed = run["eager"], run["graphed"]
-        for k, name in TRAINING_NAMES.items():
-            captured = graphed["captured"].get(k, 0)
-            n = (eager["launches"][k] + graphed["launches"][k] - captured
-                 + captured * graphed["replays"])
-            launches[name] = launches.get(name, 0) + n
+    for size in ((HEIGHT, WIDTH), SP_UNEVEN_SIZE):
+        tag = "" if size == (HEIGHT, WIDTH) else _sp_size_tag(size)
+        runs = [(r["runs"]["eager" + tag], r["runs"]["graphed" + tag]) for r in ranks]
+        digests = {(eager["digest"], graphed["digest"]) for eager, graphed in runs}
+        losses = {(tuple(eager["losses"]), tuple(graphed["losses"])) for eager, graphed in runs}
+        same = len(digests) == 1 and len(set(next(iter(digests)))) == 1 and len(losses) == 1
+        _print(f"MC (e) the 2 x 2 spatial step (f32, 'pallas') over NCCL on {devices}, crops of "
+               f"{size[0]}x{size[1]}, {SP_STEPS} steps eager and graphed ({t_group:.1f} s for "
+               f"both sizes with the spawn): parameters and losses "
+               f"{'bit-equal' if same else 'DIFFERENT'} across the ranks and between eager and "
+               f"graphed; ms a step eager {[round(v, 1) for v in runs[0][0]['ms']]}, graphed "
+               f"{[round(v, 1) for v in runs[0][1]['ms']]}")
+        if not same:
+            raise AssertionError(f"MC (e) {size}: digests {digests}, losses {losses}")
+        for eager, graphed in runs:
+            for k, name in TRAINING_NAMES.items():
+                captured = graphed["captured"].get(k, 0)
+                n = (eager["launches"][k] + graphed["launches"][k] - captured
+                     + captured * graphed["replays"])
+                launches[name] = launches.get(name, 0) + n
     _fresh_dir(work)
     spatial_serve_leg([torch.device("cuda", k) for k in range(cards)], 2, "MC (e)")
     return launches
 
 
 def spatial_phase(root, yard):
-    """Phase 14 (the module docstring): (a) :func:`spatial_train_leg`, (b)
-    :func:`spatial_serve_leg`. Returns the kernel launches of (a)."""
+    """Phase 14 (the module docstring): (a) and (c)'s step
+    :func:`spatial_train_leg` (with :func:`spatial_b6_blocks`), (b)
+    :func:`spatial_serve_leg`, (c)'s engine :func:`spatial_uneven_serve_leg`.
+    Returns the kernel launches of (a) and (c)."""
     import torch
 
     t_phase = time.perf_counter()
@@ -6422,9 +6591,12 @@ def spatial_phase(root, yard):
     t_a = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     spatial_serve_leg()
+    t_c = time.perf_counter()
+    spatial_uneven_serve_leg()
     _fresh_dir(work)
     _print(f"phase 14 launches: {launches}")
-    _print(f"phase 14: {time.perf_counter() - t_phase:.1f} s (14a {t_a:.1f} s)")
+    _print(f"phase 14: {time.perf_counter() - t_phase:.1f} s (14a with 14c's step "
+           f"{t_a:.1f} s, 14c's engine {time.perf_counter() - t_c:.1f} s)")
     return launches
 
 

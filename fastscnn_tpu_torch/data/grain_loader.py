@@ -57,7 +57,7 @@ import numpy as np
 from fastscnn_tpu_torch.data import decoded_cache
 from fastscnn_tpu_torch.data.loader import narrow_labels, shard_rows
 
-__all__ = ["GrainDataLoader", "WorkerError"]
+__all__ = ["GrainDataLoader", "WorkerError", "make_grain_loader"]
 
 # One augmentation lock per dataset object: the RNG swap of one record
 # must not interleave with another's in the same process.
@@ -384,3 +384,10 @@ class GrainDataLoader:
         if self._workers is not None:
             self._finalizer()
             self._workers = None
+
+
+def make_grain_loader(dataset, **kwargs) -> GrainDataLoader:
+    """A :class:`GrainDataLoader` of ``dataset`` (``kwargs`` as its
+    constructor's). The JAX function returns None where grain is not
+    installed; this loader needs no grain, so it never does."""
+    return GrainDataLoader(dataset, **kwargs)

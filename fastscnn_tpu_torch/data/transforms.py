@@ -26,7 +26,7 @@ import numpy as np
 
 from fastscnn_tpu_torch.data import pil_ops
 
-__all__ = ["SyncTransforms"]
+__all__ = ["SyncTransforms", "to_numpy_pair"]
 
 
 def _resized_crop(img: np.ndarray, size, box, resample: str) -> np.ndarray:
@@ -111,3 +111,11 @@ class SyncTransforms:
         if rng.random() < blur_p:
             img = pil_ops.gaussian_blur(img, rng.random())
         return img, mask
+
+
+def to_numpy_pair(img, mask) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX package's array step after its PIL chain: ``img`` as a uint8
+    array and ``mask`` as an int32 one. The port's transforms work on
+    arrays already, so ``img`` and ``mask`` are anything ``np.asarray``
+    reads (no PIL image is needed)."""
+    return np.asarray(img, np.uint8), np.asarray(mask, np.int32)

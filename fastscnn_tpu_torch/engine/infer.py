@@ -44,8 +44,11 @@ space devices, where the backbone runs H-sharded
 space group of ``parallel/spatial.py``, each copy between devices on the
 stream that wrote its source). The blocks of the 1/8 logits are
 gathered on the place's first device, and the mask head runs there as the
-meshless engine runs it. The network's input H must be a multiple of 32
-times the ``space`` axis. The kernel configurations raise JAX's
+meshless engine runs it. The raw input's H must be divisible by the
+``space`` axis, as JAX shards it (``P('data', 'space')``); the network's
+input after ``internal_size`` may be any H, split in near-equal blocks,
+and every level below splits as ``ops/halo.space_rows`` says (unequal or
+empty blocks, as GSPMD pads them). The kernel configurations raise JAX's
 ``ValueError``: kernels B1–B5, B7 and B8 take whole images. Under ``space``
 ``predict_fn`` and ``throughput_fn`` run eagerly: a CUDA graph is captured
 on one thread's stream, and the blocks' threads meet at every exchange.
@@ -255,13 +258,12 @@ class InferenceEngine:
         peers = self._space_peers
         if peers is None:
             return self.model.apply_folded(g["folded"], x, upsample_outputs=False)[0]
-        from fastscnn_tpu_torch.parallel.mesh import check_spatial_height
+        from fastscnn_tpu_torch.ops.halo import space_rows
         from fastscnn_tpu_torch.parallel.spatial import copy_after, local_spaces, run_spmd
 
         n = len(peers)
-        check_spatial_height(x.shape[1], n)
-        h = x.shape[1] // n
-        spaces = local_spaces([p.device for p in peers])
+        rows = space_rows(n, x.shape[1])
+        spaces = [sp.at(rows) for sp in local_spaces([p.device for p in peers])]
         # each thread works on the caller's current stream of its device, so
         # that it is ordered after the caller's work and before its reads;
         # every copy between devices runs on the stream that wrote its source
@@ -273,7 +275,7 @@ class InferenceEngine:
             on_stream = (torch.cuda.stream(streams[k]) if streams[k] is not None
                          else contextlib.nullcontext())
             with _device_guard(peer.device), on_stream, torch.inference_mode():
-                block = copy_after(x[:, k * h:(k + 1) * h], streams[0], peer.device)
+                block = copy_after(x[:, slice(*rows[k])], streams[0], peer.device)
                 folded = g["folded"] if k == 0 else peer.folded
                 return peer.model.apply_folded(folded, block, upsample_outputs=False,
                                                space=spaces[k])[0]
@@ -282,6 +284,10 @@ class InferenceEngine:
         return torch.cat([copy_after(b, s, self.device) for b, s in zip(blocks, streams)], dim=1)
 
     def _forward(self, images, resize_back=False, upsample=True, g=None):
+        if self._space_peers is not None:  # JAX's P('data', 'space') on the raw input
+            from fastscnn_tpu_torch.parallel.mesh import check_spatial_height
+
+            check_spatial_height(images.shape[1], len(self._space_peers))
         g = self.graph_tensors() if g is None else g
         x = self._preprocess(images, g)
         logits = self._net_logits(x, g)

@@ -76,8 +76,9 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
       the uninterrupted state's, bit for bit;
     - a ``space`` axis (dp×sp): with an even n, the spatial train step
       (``spatial_shard=True``, ``grad_accum=2``) under an (n/2 × 2) mesh,
-      each rank its block of a 64x64 global batch, its loss equal across
-      the ranks.
+      each rank its block of a 72x64 global batch (levels of 35, 18, 9,
+      5 and 3 rows, which split unevenly), its loss equal across the
+      ranks.
 
     Then, unless ``FASTSCNN_DRYRUN_MULTIPROC=0``, the 2-process stage:
     ``tools/multihost_smoke.py`` in 2 processes, their loss histories
@@ -204,14 +205,18 @@ def _dryrun_rank(device: str, backend: str, work: str) -> None:
     assert state.step == 1
     print(f"[rank {rank}] dp train step (mesh {mesh.shape}): loss {loss:.4f}", flush=True)
 
-    # the space axis: H over pairs of ranks, the batch over the pairs
+    # the space axis: H over pairs of ranks, the batch over the pairs, at an
+    # H whose levels split unevenly (72: 35, 18, 9, 5 and 3 rows)
     space_loss = None
     if n % 2 == 0:
         sp_mesh = make_mesh(n_data=n // 2, n_space=2)
         sp_state = create_train_state(model, optimizer, device=dev)
         sp_step = make_train_step(model, loss_fn, optimizer, mesh=sp_mesh, spatial_shard=True,
                                   grad_accum=2, device=dev)
-        sp_images, sp_targets = host_block(sp_mesh, images[:n], targets[:n])
+        sp_rng = np.random.default_rng(1)
+        sp_images, sp_targets = host_block(
+            sp_mesh, sp_rng.integers(0, 256, (n, 72, w, 3), dtype=np.uint8),
+            sp_rng.integers(-1, NUM_CLASSES, (n, 72, w)).astype(np.int32))
         sp_state, sp_metrics = sp_step(sp_state, sp_images, sp_targets, generator(1))
         space_loss = float(sp_metrics["loss"])
         assert np.isfinite(space_loss), f"non-finite spatial loss {space_loss}"

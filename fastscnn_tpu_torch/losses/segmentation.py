@@ -31,10 +31,13 @@ rank's pixels, each bisection step's count all-reduced. ``group=None``
 computes as in one process.
 
 Every loss also takes ``space``, a rank's place on the mesh's ``space``
-axis (``ops/halo.py``): the logits and the target are then this rank's
-block of rows, ``group`` the whole mesh's, and the upsample gives the
+axis (``ops/halo.py``) at the logits' level (its ``rows``; the train step
+passes the 1/8 level's, ``models/fast_scnn.py::space_levels``): the logits
+and the target are then this rank's blocks of rows, the target's the
+input's JAX block, ``group`` the whole mesh's, and the upsample gives the
 target block's rows of the global upsample (``resize.resize_rows_matmul``,
-its source rows taken across the cut).
+its source rows taken across the cut). The target's blocks are equal, so
+the means over its pixels divide by the global count as before.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from fastscnn_tpu_torch.ops.collectives import global_sums, group_size, sum_
+from fastscnn_tpu_torch.ops.halo import layout
 from fastscnn_tpu_torch.ops.resize import device_table_cache, resize_rows_matmul
 
 __all__ = [
@@ -67,9 +71,19 @@ CITYSCAPES_CLASS_WEIGHTS = (
 )
 
 
+def _smaller(t: torch.Tensor, target: torch.Tensor, space) -> bool:
+    """Whether ``t`` (H, W on axes 1, 2) is not at the target's size; under
+    ``space`` the global sizes (``t``'s level's rows, the target's
+    blocks)."""
+    if space is None:
+        return t.shape[1:3] != target.shape[1:3]
+    return (layout(t, space)[-1][1] != target.shape[1] * space.size
+            or t.shape[2] != target.shape[2])
+
+
 def _match_resolution(logits: torch.Tensor, target: torch.Tensor, space=None) -> torch.Tensor:
     """Upsample (align_corners=True) NHWC logits to the target's size."""
-    if logits.ndim == 4 and target.ndim >= 3 and logits.shape[1:3] != target.shape[1:3]:
+    if logits.ndim == 4 and target.ndim >= 3 and _smaller(logits, target, space):
         logits = resize_rows_matmul(logits, tuple(target.shape[1:3]), space)
     return logits
 
@@ -81,7 +95,7 @@ def _binary_diff_at_target_res(logits: torch.Tensor, target: torch.Tensor,
     resize is linear, so resizing the difference equals differencing the
     resized channels."""
     d = (logits[..., 1] - logits[..., 0]).float()
-    if target.ndim >= 3 and d.shape[1:3] != target.shape[1:3]:
+    if target.ndim >= 3 and _smaller(d, target, space):
         d = resize_rows_matmul(d, tuple(target.shape[1:3]), space)
     return d
 

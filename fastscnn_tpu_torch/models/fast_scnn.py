@@ -36,19 +36,20 @@ so a JAX-initialised model and a real ``fast_scnn_*.pth`` both load with
 
 Both forwards take ``space``, a rank's place on the mesh's ``space`` axis
 (``parallel/spatial.py::Space``; ``ops/halo.py``): ``x`` is then this
-rank's block of the image's rows (H a multiple of 32 times the axis's
-size), every activation is the block of the global one, and the outputs
-are the blocks of the global outputs. Each 3×3 conv runs on its block plus
-halo rows (``halo.conv_rows``); the stem conv's output
-has H/2 − 1 rows, so the last rank drops the row it computes past them
-from the stem's batch statistics and zeroes it, where the next conv's
-padding is; the pyramid pooling gathers its 1/32 input, runs its four
-branches on the whole map, replicated across ``space`` (their batch
-statistics over ``data`` only), and keeps its rows of each upsample; the
-feature fusion's ×4 upsample takes its source rows across the cut
+rank's block of the image's rows, every activation is the block of the
+global one, and the outputs are the blocks of the global outputs. The
+blocks of each level are ``halo.space_rows``'s (:func:`space_levels`):
+the input's JAX blocks, then at each stride-2 conv (the stem's, dsconv1's,
+dsconv2's, bottleneck1's and bottleneck2's) the rows that follow their
+inputs; they need not be equal, and may be empty at 1/16 and 1/32. Each
+3×3 conv runs on a window of rows around its block (``halo.conv_rows``);
+the pyramid pooling gathers its 1/32 input, runs its four branches on the
+whole map, replicated across ``space`` (their batch statistics over
+``data`` only), and keeps its rows of each upsample; the feature fusion's
+×4 upsample takes its source rows across the cut
 (``resize.resize_rows``); block-sharded batch statistics reduce over the
-whole mesh (``group``); dropout draws the global batch's mask and keeps the
-block.
+whole mesh (``group``), over the level's global count of values; dropout
+draws the global batch's mask and keeps the block.
 """
 
 from __future__ import annotations
@@ -84,7 +85,13 @@ from fastscnn_tpu_torch.ops.cuda.int8_pw import (
     pw_conv_w8a8_reference,
     quantize_act,
 )
-from fastscnn_tpu_torch.ops.halo import block_rows, conv_rows, gather_rows_h
+from fastscnn_tpu_torch.ops.halo import (
+    block_rows,
+    conv_rows,
+    conv_space,
+    gather_rows_h,
+    layout,
+)
 from fastscnn_tpu_torch.ops.pool import adaptive_avg_pool
 from fastscnn_tpu_torch.ops.resize import (
     resize_bilinear,
@@ -101,11 +108,28 @@ __all__ = [
     "FOLDED_DW_IMPLS",
     "FOLDED_PW_IMPLS",
     "STEM_IMPLS",
+    "space_levels",
 ]
 
 FOLDED_DW_IMPLS = ("conv", "taps", "pallas", "fused-ds", "fused-ds-mr")
 FOLDED_PW_IMPLS = ("conv", "int8-a8", "int8-w8a8")
 STEM_IMPLS = ("xla", "tapbwd", "taps", "taps-packbn", "pallas")
+# the paddings of the network's 3×3 stride-2 convs, in order: the stem's,
+# then dsconv1's, dsconv2's, bottleneck1's and bottleneck2's first
+_STRIDE2_PADDINGS = (0, 1, 1, 1, 1)
+
+
+def space_levels(x: torch.Tensor, space) -> list:
+    """The Space of each level of the network on this rank's block ``x`` of
+    the input: the input (``space``'s rows, or the input's blocks), the
+    stem's 1/2, then 1/4, 1/8, 1/16 and 1/32 (``halo.conv_space`` of each
+    stride-2 conv). Six Nones for no ``space`` axis."""
+    if space is None:
+        return [None] * 6
+    levels = [space.at(layout(x, space))]
+    for padding in _STRIDE2_PADDINGS:
+        levels.append(conv_space(levels[-1], 3, 2, padding))
+    return levels
 
 
 class _ConvBNReLU(nn.Module):
@@ -378,8 +402,9 @@ class FastSCNN(nn.Module):
 
         ``space``: ``x`` is this rank's block of rows (module docstring);
         ``group`` is then the whole mesh's, over which block-sharded
-        statistics reduce."""
-        run = _TreeForward(self, training, generator, group, space)
+        statistics reduce. The 1/8 outputs are at ``space_levels(x,
+        space)[3]``'s rows."""
+        run = _TreeForward(self, training, generator, group, space_levels(x, space))
         size = (x.shape[1], x.shape[2])
         new_state = {}
         higher, new_state["learning_to_downsample"] = run.ltd(
@@ -395,7 +420,7 @@ class FastSCNN(nn.Module):
             auxout, new_state["auxlayer"] = run.aux(params["auxlayer"], state["auxlayer"], higher)
             outputs.append(auxout)
         if upsample_outputs:
-            outputs = [resize_rows(o, size, space) for o in outputs]
+            outputs = [resize_rows(o, size, run.levels[3], run.levels[0]) for o in outputs]
         return tuple(outputs), new_state
 
     # -- folded inference ---------------------------------------------------
@@ -424,15 +449,16 @@ class FastSCNN(nn.Module):
                              "rows takes 'conv' or 'taps' and 'conv'")
         aq = _site_hook(self.act_fake_quant)
         int8_scales = dict(self.pw_act_scales) if self.folded_pw_impl != "conv" else {}
+        levels = space_levels(x, space)
 
-        def cbr(p, y, stride=1, padding=0, groups=1, relu=True, site=None):
+        def cbr(p, y, sp, stride=1, padding=0, groups=1, relu=True, site=None):
             if site is not None and site in int8_scales:
                 return self._pw_int8(p, y, site, int8_scales[site], relu)
-            y = conv_rows(conv2d, aq(y, site), p["w"], stride, padding, space, b=p["b"],
+            y = conv_rows(conv2d, aq(y, site), p["w"], stride, padding, sp, b=p["b"],
                           groups=groups)
             return torch.relu(y) if relu else y
 
-        def ds(p, y, stride=1, dw_alt=False, site=None):
+        def ds(p, y, sp, stride=1, dw_alt=False, site=None):
             if dw_alt and impl in ("fused-ds", "fused-ds-mr"):
                 # the whole DSConv in kernel B3 (one output row a block) or
                 # B5 (several): the dw activation never reaches device memory
@@ -440,20 +466,23 @@ class FastSCNN(nn.Module):
                 return fn(y.contiguous(), p["dw"]["w"], p["dw"]["b"], p["pw"]["w"], p["pw"]["b"],
                           stride=stride, padding=1)
             if dw_alt and impl == "taps":
-                y = torch.relu(conv_rows(dw_conv2d_taps, y, p["dw"]["w"], stride, 1, space,
+                y = torch.relu(conv_rows(dw_conv2d_taps, y, p["dw"]["w"], stride, 1, sp,
                                          b=p["dw"]["b"]))
             elif dw_alt:  # 'pallas': dw + bias + ReLU in kernel B4
                 y = dw_conv3x3(y.contiguous(), p["dw"]["w"], p["dw"]["b"], stride=stride,
                                padding=1, relu=True)
             else:
-                y = cbr(p["dw"], y, stride=stride, padding=1, groups=y.shape[-1],
+                y = cbr(p["dw"], y, sp, stride=stride, padding=1, groups=y.shape[-1],
                         site=site and f"{site}/dw")
-            return cbr(p["pw"], y, site=site and f"{site}/pw")
+            return cbr(p["pw"], y, conv_space(sp, 3, stride, 1),
+                       site=site and f"{site}/pw")
 
-        def bottleneck(p, y, stride, site):
-            z = cbr(p["expand"], y, site=f"{site}/expand")
-            z = cbr(p["dw"], z, stride=stride, padding=1, groups=z.shape[-1], site=f"{site}/dw")
-            z = cbr(p["project"], z, relu=False, site=f"{site}/project")
+        def bottleneck(p, y, sp, stride, site):
+            z = cbr(p["expand"], y, sp, site=f"{site}/expand")
+            z = cbr(p["dw"], z, sp, stride=stride, padding=1, groups=z.shape[-1],
+                    site=f"{site}/dw")
+            z = cbr(p["project"], z, conv_space(sp, 3, stride, 1), relu=False,
+                    site=f"{site}/project")
             if stride == 1 and y.shape[-1] == z.shape[-1]:
                 z = y + z
             return z
@@ -462,46 +491,47 @@ class FastSCNN(nn.Module):
         p = fparams
         dw_alt = impl != "conv"
         ltd = p["learning_to_downsample"]
-        y = cbr(ltd["conv"], x, stride=2, site="ltd/conv")
-        if space is not None and space.last:
-            # the row past the stem's H/2 - 1: the next conv's padding
-            y = torch.cat([y[:, :-1], y.new_zeros((y.shape[0], 1, *y.shape[2:]))], dim=1)
-        y = ds(ltd["dsconv1"], y, stride=2, dw_alt=dw_alt, site="ltd/dsconv1")
-        higher = ds(ltd["dsconv2"], y, stride=2, dw_alt=dw_alt, site="ltd/dsconv2")
+        y = cbr(ltd["conv"], x, levels[0], stride=2, site="ltd/conv")
+        y = ds(ltd["dsconv1"], y, levels[1], stride=2, dw_alt=dw_alt, site="ltd/dsconv1")
+        higher = ds(ltd["dsconv2"], y, levels[2], stride=2, dw_alt=dw_alt, site="ltd/dsconv2")
         g = p["global_feature_extractor"]
-        y = higher
+        y, depth = higher, 3
         for name, stride in (("bottleneck1", 2), ("bottleneck2", 2), ("bottleneck3", 1)):
             for i, bp in enumerate(g[name]):
-                y = bottleneck(bp, y, stride if i == 0 else 1, site=f"gfe/{name}/{i}")
-        whole = gather_rows_h(y, space)  # the 1/32 map
+                s_i = stride if i == 0 else 1
+                y = bottleneck(bp, y, levels[depth], s_i, site=f"gfe/{name}/{i}")
+                depth += s_i == 2
+        whole = gather_rows_h(y, levels[5])  # the 1/32 map
         psize = (whole.shape[1], whole.shape[2])
         feats = [y]
         for conv_name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
-            z = cbr(g["ppm"][conv_name], adaptive_avg_pool(whole, pool_size),
+            z = cbr(g["ppm"][conv_name], adaptive_avg_pool(whole, pool_size), None,
                     site=f"gfe/ppm/{conv_name}")
             z = resize_bilinear_matmul(z, psize, align_corners=self.ppm_align_corners)
-            feats.append(block_rows(z, space))
-        lower = cbr(g["ppm"]["out"], torch.cat(feats, dim=-1), site="gfe/ppm/out")
+            feats.append(block_rows(z, levels[5]))
+        lower = cbr(g["ppm"]["out"], torch.cat(feats, dim=-1), levels[5], site="gfe/ppm/out")
         f = p["feature_fusion"]
-        lo = resize_rows_matmul(lower, (higher.shape[1], higher.shape[2]), space)
-        lo = cbr(f["dwconv"], lo, padding=1, groups=lo.shape[-1], site="ffm/dwconv")
-        lo = cbr(f["conv_lower_res"], lo, relu=False, site="ffm/conv_lower_res")
-        hi = cbr(f["conv_higher_res"], higher, relu=False, site="ffm/conv_higher_res")
+        lo = resize_rows_matmul(lower, (higher.shape[1], higher.shape[2]), levels[5], levels[3])
+        lo = cbr(f["dwconv"], lo, levels[3], padding=1, groups=lo.shape[-1], site="ffm/dwconv")
+        lo = cbr(f["conv_lower_res"], lo, levels[3], relu=False, site="ffm/conv_lower_res")
+        hi = cbr(f["conv_higher_res"], higher, levels[3], relu=False, site="ffm/conv_higher_res")
         fused = torch.relu(hi + lo)
         c = p["classifier"]
-        y = ds(c["dsconv2"], ds(c["dsconv1"], fused, site="cls/dsconv1"), site="cls/dsconv2")
-        logits = conv2d(aq(y, "cls/conv"), c["conv"]["w"], c["conv"]["b"])
+        y = ds(c["dsconv2"], ds(c["dsconv1"], fused, levels[3], site="cls/dsconv1"), levels[3],
+               site="cls/dsconv2")
+        logits = conv_rows(conv2d, aq(y, "cls/conv"), c["conv"]["w"], 1, 0, levels[3],
+                           b=c["conv"]["b"])
         if upsample_outputs:
-            logits = resize_rows_matmul(logits, size, space)
+            logits = resize_rows_matmul(logits, size, levels[3], levels[0])
         if self.aux and "auxlayer" in p:
             a = p["auxlayer"]
-            z = cbr(a["conv1"], higher, padding=1, site="aux/conv1")
-            auxout = conv2d(aq(z, "aux/conv2"), a["conv2"]["w"], a["conv2"]["b"])
+            z = cbr(a["conv1"], higher, levels[3], padding=1, site="aux/conv1")
+            auxout = conv_rows(conv2d, aq(z, "aux/conv2"), a["conv2"]["w"], 1, 0, levels[3],
+                               b=a["conv2"]["b"])
             if upsample_outputs:
-                auxout = resize_rows_matmul(auxout, size, space)
+                auxout = resize_rows_matmul(auxout, size, levels[3], levels[0])
             return (logits, auxout)
         return (logits,)
-
 
     def _pw_int8(self, p, y, site, scale, relu):
         """One int8 1×1 site: quantize the input with the site's scale, then
@@ -564,13 +594,15 @@ class _TreeForward:
     """The blocks of ``FastSCNN.apply_params``, each ``(p, s, x) -> (y,
     new_s)`` on NHWC activations — the JAX package's ``_apply_*`` and
     module functions. Under ``space`` each activation is this rank's block
-    of rows (``FastSCNN`` module docstring)."""
+    of rows of its level, ``levels`` the Space of each
+    (:func:`space_levels`; ``FastSCNN`` module docstring)."""
 
-    def __init__(self, model: FastSCNN, training: bool, generator, group=None, space=None):
+    def __init__(self, model: FastSCNN, training: bool, generator, group=None, levels=None):
         self.training = training
         self.generator = generator
         self.group = group
-        self.space = space
+        self.levels = levels or [None] * 6
+        self.space = self.levels[0]
         self.dropout_rate = model.dropout_rate
         self.ppm_sizes, self.ppm_align_corners = model.ppm_sizes, model.ppm_align_corners
         impl = model.stem_impl
@@ -589,122 +621,126 @@ class _TreeForward:
 
             self.stem_conv = stem_conv
 
-    def bn(self, p, s, x, packed=False, replicated=False, count=None):
-        """BN of ``x``; in training on the batch moments over ``group``, or,
-        for a tensor ``replicated`` across ``space``, over its ``data``
-        group; ``count``: the global number of values a channel where the
-        ranks' shares differ (the stem)."""
+    def bn(self, p, s, x, sp=None, packed=False, replicated=False):
+        """BN of ``x``, a block of the level of ``sp`` (None: the whole
+        tensor); in training on the batch moments over ``group``, or, for a
+        tensor ``replicated`` across ``space``, over its ``data`` group.
+        A block's moments divide by the level's global count of values a
+        channel, since the ranks' blocks differ in height."""
         if self.training:
-            group = self.space.data_group if replicated and self.space is not None else self.group
+            group, count = self.group, None
+            if replicated and self.space is not None:
+                group = self.space.data_group
+            elif sp is not None:
+                n_data = max(group_size(self.group) // sp.size, 1)
+                count = x.shape[0] * n_data * sp.rows[-1][1] * x.shape[2]
             y, m, v = batch_norm_train(x, p["scale"], p["bias"], s["mean"], s["var"],
                                        packed=packed, group=group, count=count)
             return y, {"mean": m, "var": v}
         return batch_norm_apply(x, p["scale"], p["bias"], s["mean"], s["var"]), s
 
-    def cbr(self, p, s, x, stride=1, padding=0, groups=1, relu=True, conv_fn=conv2d,
+    def cbr(self, p, s, x, sp, stride=1, padding=0, groups=1, relu=True, conv_fn=conv2d,
             packed=False, replicated=False):
-        y = conv_rows(conv_fn, x, p["w"], stride, padding, self.space, groups=groups)
-        y, s_bn = self.bn(p["bn"], s["bn"], y, packed, replicated)
+        y = conv_rows(conv_fn, x, p["w"], stride, padding, sp, groups=groups)
+        out = conv_space(sp, p["w"].shape[0], stride, padding)
+        y, s_bn = self.bn(p["bn"], s["bn"], y, out, packed, replicated)
         return (torch.relu(y) if relu else y), {"bn": s_bn}
 
-    def ds(self, p, s, x, stride=1, conv_fn=conv2d, packed=False):
-        y, s_dw = self.cbr(p["dw"], s["dw"], x, stride=stride, padding=1, groups=x.shape[-1],
-                           conv_fn=conv_fn, packed=packed)
-        y, s_pw = self.cbr(p["pw"], s["pw"], y, conv_fn=conv_fn, packed=packed)
+    def ds(self, p, s, x, sp, stride=1, conv_fn=conv2d, packed=False):
+        y, s_dw = self.cbr(p["dw"], s["dw"], x, sp, stride=stride, padding=1,
+                           groups=x.shape[-1], conv_fn=conv_fn, packed=packed)
+        sp = conv_space(sp, 3, stride, 1)
+        y, s_pw = self.cbr(p["pw"], s["pw"], y, sp, conv_fn=conv_fn, packed=packed)
         return y, {"dw": s_dw, "pw": s_pw}
 
-    def bottleneck(self, p, s, x, stride):
-        y, s_e = self.cbr(p["expand"], s["expand"], x)
-        y, s_d = self.cbr(p["dw"], s["dw"], y, stride=stride, padding=1, groups=y.shape[-1])
-        y = conv2d(y, p["project"]["w"])
-        y, s_p = self.bn(p["project"]["bn"], s["project"]["bn"], y)
+    def bottleneck(self, p, s, x, sp, stride):
+        y, s_e = self.cbr(p["expand"], s["expand"], x, sp)
+        y, s_d = self.cbr(p["dw"], s["dw"], y, sp, stride=stride, padding=1, groups=y.shape[-1])
+        sp = conv_space(sp, 3, stride, 1)
+        y = conv_rows(conv2d, y, p["project"]["w"], 1, 0, sp)
+        y, s_p = self.bn(p["project"]["bn"], s["project"]["bn"], y, sp)
         if stride == 1 and x.shape[-1] == y.shape[-1]:
             y = x + y
         return y, {"expand": s_e, "dw": s_d, "project": {"bn": s_p}}
 
-    def stem(self, p, s, x, conv, packed):
-        """The stem's conv + BN + ReLU. Under ``space`` each rank computes
-        H/(2n) rows, one more than the global H/2 − 1 on the last rank: that
-        row is left out of the batch statistics and zeroed (it is the
-        padding of the next conv's window)."""
-        if self.space is None:
-            return self.cbr(p, s, x, stride=2, conv_fn=conv, packed=packed)
-        space = self.space
-        y = conv_rows(conv, x, p["w"], 2, 0, space)
-        n_data = max(group_size(self.group) // space.size, 1)
-        count = y.shape[0] * n_data * (y.shape[1] * space.size - 1) * y.shape[2]
-        if space.last:
-            y = y[:, :-1]
-        y, s_bn = self.bn(p["bn"], s["bn"], y, packed, count=count)
-        y = torch.relu(y)
-        if space.last:
-            y = torch.cat([y, y.new_zeros((y.shape[0], 1, *y.shape[2:]))], dim=1)
-        return y, {"bn": s_bn}
-
     def ltd(self, p, s, x):
-        conv, packed = self.stem_conv, self.stem_bn_packed
-        y, s1 = self.stem(p["conv"], s["conv"], x, conv, packed)
-        y, s2 = self.ds(p["dsconv1"], s["dsconv1"], y, stride=2, conv_fn=conv, packed=packed)
-        y, s3 = self.ds(p["dsconv2"], s["dsconv2"], y, stride=2, conv_fn=conv, packed=packed)
+        conv, packed, lv = self.stem_conv, self.stem_bn_packed, self.levels
+        y, s1 = self.cbr(p["conv"], s["conv"], x, lv[0], stride=2, conv_fn=conv, packed=packed)
+        y, s2 = self.ds(p["dsconv1"], s["dsconv1"], y, lv[1], stride=2, conv_fn=conv,
+                        packed=packed)
+        y, s3 = self.ds(p["dsconv2"], s["dsconv2"], y, lv[2], stride=2, conv_fn=conv,
+                        packed=packed)
         return y, {"conv": s1, "dsconv1": s2, "dsconv2": s3}
 
     def gfe(self, p, s, x):
-        ns = {}
+        ns, depth = {}, 3
         for name, stride in (("bottleneck1", 2), ("bottleneck2", 2), ("bottleneck3", 1)):
             stage = []
             for i, (bp, bs) in enumerate(zip(p[name], s[name])):
-                x, s_i = self.bottleneck(bp, bs, x, stride if i == 0 else 1)
-                stage.append(s_i)
+                s_i = stride if i == 0 else 1
+                x, st = self.bottleneck(bp, bs, x, self.levels[depth], s_i)
+                depth += s_i == 2
+                stage.append(st)
             ns[name] = stage
         # under space the branches run on the whole 1/32 map, replicated
-        whole = gather_rows_h(x, self.space)
+        sp = self.levels[5]
+        whole = gather_rows_h(x, sp)
         size = (whole.shape[1], whole.shape[2])
         feats, ppm = [x], {}
         for name, pool_size in zip(("conv1", "conv2", "conv3", "conv4"), self.ppm_sizes):
             y, ppm[name] = self.cbr(p["ppm"][name], s["ppm"][name],
-                                    adaptive_avg_pool(whole, pool_size), replicated=True)
+                                    adaptive_avg_pool(whole, pool_size), None, replicated=True)
             y = resize_bilinear(y, size, align_corners=self.ppm_align_corners)
-            feats.append(block_rows(y, self.space))
-        y, ppm["out"] = self.cbr(p["ppm"]["out"], s["ppm"]["out"], torch.cat(feats, dim=-1))
+            feats.append(block_rows(y, sp))
+        y, ppm["out"] = self.cbr(p["ppm"]["out"], s["ppm"]["out"], torch.cat(feats, dim=-1), sp)
         ns["ppm"] = ppm
         return y, ns
 
     def ffm(self, p, s, higher, lower):
-        lower = resize_rows(lower, (higher.shape[1], higher.shape[2]), self.space)
-        lower, s_dw = self.cbr(p["dwconv"], s["dwconv"], lower, padding=1, groups=lower.shape[-1])
-        lower = conv2d(lower, p["conv_lower_res"]["w"], p["conv_lower_res"]["b"])
-        lower, s_lo = self.bn(p["conv_lower_res"]["bn"], s["conv_lower_res"]["bn"], lower)
-        higher = conv2d(higher, p["conv_higher_res"]["w"], p["conv_higher_res"]["b"])
-        higher, s_hi = self.bn(p["conv_higher_res"]["bn"], s["conv_higher_res"]["bn"], higher)
+        sp = self.levels[3]
+        lower = resize_rows(lower, (higher.shape[1], higher.shape[2]), self.levels[5], sp)
+        lower, s_dw = self.cbr(p["dwconv"], s["dwconv"], lower, sp, padding=1,
+                               groups=lower.shape[-1])
+        lower = conv_rows(conv2d, lower, p["conv_lower_res"]["w"], 1, 0, sp,
+                          b=p["conv_lower_res"]["b"])
+        lower, s_lo = self.bn(p["conv_lower_res"]["bn"], s["conv_lower_res"]["bn"], lower, sp)
+        higher = conv_rows(conv2d, higher, p["conv_higher_res"]["w"], 1, 0, sp,
+                           b=p["conv_higher_res"]["b"])
+        higher, s_hi = self.bn(p["conv_higher_res"]["bn"], s["conv_higher_res"]["bn"], higher, sp)
         return torch.relu(higher + lower), {
             "dwconv": s_dw, "conv_lower_res": {"bn": s_lo}, "conv_higher_res": {"bn": s_hi}}
 
     def classifier(self, p, s, x):
-        y, s1 = self.ds(p["dsconv1"], s["dsconv1"], x)
-        y, s2 = self.ds(p["dsconv2"], s["dsconv2"], y)
-        y = self.dropout(y)
-        return conv2d(y, p["conv"]["w"], p["conv"]["b"]), {"dsconv1": s1, "dsconv2": s2}
+        sp = self.levels[3]
+        y, s1 = self.ds(p["dsconv1"], s["dsconv1"], x, sp)
+        y, s2 = self.ds(p["dsconv2"], s["dsconv2"], y, sp)
+        y = self.dropout(y, sp)
+        return (conv_rows(conv2d, y, p["conv"]["w"], 1, 0, sp, b=p["conv"]["b"]),
+                {"dsconv1": s1, "dsconv2": s2})
 
     def aux(self, p, s, x):
-        y = conv_rows(conv2d, x, p["conv1"]["w"], 1, 1, self.space)
-        y, s_bn = self.bn(p["conv1"]["bn"], s["conv1"]["bn"], y)
-        y = self.dropout(torch.relu(y))
-        return conv2d(y, p["conv2"]["w"], p["conv2"]["b"]), {"conv1": {"bn": s_bn}}
+        sp = self.levels[3]
+        y = conv_rows(conv2d, x, p["conv1"]["w"], 1, 1, sp)
+        y, s_bn = self.bn(p["conv1"]["bn"], s["conv1"]["bn"], y, sp)
+        y = self.dropout(torch.relu(y), sp)
+        return (conv_rows(conv2d, y, p["conv2"]["w"], 1, 0, sp, b=p["conv2"]["b"]),
+                {"conv1": {"bn": s_bn}})
 
-    def dropout(self, x):
+    def dropout(self, x, sp=None):
         """Inverted dropout, active only in training with a generator: keep
         each element with probability 1 − rate and scale it by 1/keep. The
-        mask is the global batch's (all rows, all H rows), drawn alike on
-        every rank; each keeps its block."""
+        mask is the global batch's (all rows, all H rows of the level of
+        ``sp``), drawn alike on every rank; each keeps its block."""
         if not self.training or self.generator is None or self.dropout_rate <= 0.0:
             return x
         keep = 1.0 - self.dropout_rate
-        m = self.space.size if self.space is not None else 1
+        m = sp.size if sp is not None else 1
         n, k = group_size(self.group) // m, group_rank(self.group) // m
         b = x.shape[0]
-        mask = torch.rand((n * b, x.shape[1] * m, *x.shape[2:]), generator=self.generator,
+        height = sp.rows[-1][1] if sp is not None else x.shape[1]
+        mask = torch.rand((n * b, height, *x.shape[2:]), generator=self.generator,
                           device=x.device)[k * b:(k + 1) * b]
-        mask = block_rows(mask, self.space) < keep
+        mask = block_rows(mask, sp) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -193,8 +193,9 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, momentum: float 
     is the all-reduced sum over the global ``n``, through a differentiable
     all-reduce, and the unbiased running variance uses that ``n``, so the
     running statistics come out equal on every rank. ``count``: the global
-    number of values a channel, where the ranks' shares are not equal (a
-    spatial block that holds a row past the image's edge leaves it out)."""
+    number of values a channel, where the ranks' shares are not equal (the
+    blocks of rows of a level under the mesh's ``space`` axis, whose
+    heights differ, ``ops/halo.py``)."""
     del packed
     acc = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(acc)

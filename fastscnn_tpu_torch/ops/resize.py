@@ -16,8 +16,8 @@ same weights.
 - ``resize_rows``, ``resize_rows_matmul``: under the mesh's ``space`` axis
   (``ops/halo.py``), this rank's rows of ``resize_bilinear`` or
   ``resize_bilinear_matmul`` (align_corners=True) of the global tensor,
-  from its block of rows and the halo rows its source rows reach: the
-  global resize's weights, so the global resize's bits. Every caller's
+  from the window of source rows its output rows read, wherever they are
+  held: the global resize's weights, so the global resize's bits. Every caller's
   resize across the cut is an align-corners one; the pyramid pooling's,
   which may not be, runs on the gathered whole map.
 
@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from fastscnn_tpu_torch.ops.halo import halo_rows
+from fastscnn_tpu_torch.ops.halo import layout, space_rows, window_rows
 
 __all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest", "nearest_index",
            "resize_rows", "resize_rows_matmul", "device_table_cache", "holding_tables",
@@ -253,85 +253,92 @@ def resize_bilinear_matmul(
 
 
 @functools.lru_cache(maxsize=None)
-def _row_halo(in_size: int, out_size: int, n: int) -> tuple[int, int]:
-    """The rows above and below its block that the worst rank's output rows
-    of a global align-corners H resize from ``in_size`` to ``out_size`` over
-    ``n`` blocks read (every rank fetches as many: an ``all_gather`` moves
-    equal parts)."""
-    lo, hi, _ = _axis_lerp_coeffs(in_size, out_size, True)
-    hs, ho = in_size // n, out_size // n
-    above = max(s * hs - int(lo[s * ho:(s + 1) * ho].min()) for s in range(n))
-    below = max(int(hi[s * ho:(s + 1) * ho].max()) - ((s + 1) * hs - 1) for s in range(n))
-    return max(above, 0), max(below, 0)
+def _row_windows(rows_in: tuple, rows_out: tuple) -> tuple:
+    """For each rank, the window of input rows that its output rows of a
+    global align-corners H resize from the level of ``rows_in`` to that of
+    ``rows_out`` read (``halo.window_rows``; an empty one at its block's
+    start for a rank with no output row)."""
+    lo, hi, _ = _axis_lerp_coeffs(rows_in[-1][1], rows_out[-1][1], True)
+    return tuple((int(lo[c:d].min()), int(hi[c:d].max()) + 1) if d > c else (a, a)
+                 for (a, _), (c, d) in zip(rows_in, rows_out))
 
 
 @device_table_cache
-def row_lerp_tables(in_size: int, out_size: int, n: int, s: int, device: torch.device):
-    """Block ``s``'s rows of :func:`lerp_tables` (align_corners=True): (lo,
-    hi) as indices into its extended block (:func:`_row_halo`'s rows above
-    first) and the weights, the global resize's own."""
-    lo, hi, w = _axis_lerp_coeffs(in_size, out_size, True)
-    above, _ = _row_halo(in_size, out_size, n)
-    rows = slice(s * (out_size // n), (s + 1) * (out_size // n))
-    base = s * (in_size // n) - above
+def row_lerp_tables(rows_in: tuple, rows_out: tuple, s: int, device: torch.device):
+    """Rank ``s``'s rows of :func:`lerp_tables` (align_corners=True) of the
+    resize from the level of ``rows_in`` to that of ``rows_out``: (lo, hi)
+    as indices into its window (:func:`_row_windows`) and the weights, the
+    global resize's own."""
+    lo, hi, w = _axis_lerp_coeffs(rows_in[-1][1], rows_out[-1][1], True)
+    c, d = rows_out[s]
+    base = _row_windows(rows_in, rows_out)[s][0]
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device) for v in (
-            (lo[rows] - base).astype(np.int64), (hi[rows] - base).astype(np.int64), w[rows]))
+            (lo[c:d] - base).astype(np.int64), (hi[c:d] - base).astype(np.int64), w[c:d]))
 
 
 @device_table_cache
-def row_interp_matrix(in_size: int, out_size: int, n: int, s: int, dtype: torch.dtype,
+def row_interp_matrix(rows_in: tuple, rows_out: tuple, s: int, dtype: torch.dtype,
                       device: torch.device) -> torch.Tensor:
-    """Block ``s``'s part of :func:`interp_matrix` (align_corners=True): the
-    rows of its extended block (zero rows past the image's edges) by its
-    output rows."""
-    a = _interp_matrix(in_size, out_size, True)
-    above, below = _row_halo(in_size, out_size, n)
-    hs, ho = in_size // n, out_size // n
-    base = s * hs - above
-    ext = np.zeros((hs + above + below, ho), np.float32)
-    first, stop = max(base, 0), min(base + ext.shape[0], in_size)
-    ext[first - base:stop - base] = a[first:stop, s * ho:(s + 1) * ho]
+    """Rank ``s``'s part of :func:`interp_matrix` (align_corners=True) of the
+    resize from the level of ``rows_in`` to that of ``rows_out``: the rows
+    of its window by its output rows."""
+    a = _interp_matrix(rows_in[-1][1], rows_out[-1][1], True)
+    (c, d), (w0, w1) = rows_out[s], _row_windows(rows_in, rows_out)[s]
     with torch.inference_mode(False):
-        return torch.from_numpy(ext).to(device=device, dtype=dtype)
+        return torch.from_numpy(np.ascontiguousarray(a[w0:w1, c:d])).to(device=device,
+                                                                         dtype=dtype)
 
 
-def resize_rows(x: torch.Tensor, size, space=None) -> torch.Tensor:
+def _row_levels(x: torch.Tensor, size, space, out) -> tuple:
+    """The rows of the input's and the output's levels of a row resize:
+    ``space``'s (or the input's blocks) and ``out``'s (or the input's
+    blocks of ``size[0]`` rows a rank)."""
+    rows_in = layout(x, space)
+    rows_out = (out.rows if out is not None and out.rows is not None
+                else space_rows(space.size, int(size[0]) * space.size))
+    c, d = rows_out[space.index]
+    if d - c != int(size[0]):
+        raise ValueError(f"a block of {size[0]} output rows where the level's is {d - c}")
+    return rows_in, rows_out
+
+
+def resize_rows(x: torch.Tensor, size, space=None, out=None) -> torch.Tensor:
     """``resize_bilinear(x, size)`` (align_corners=True, NHWC or (N, H, W)).
-    Under ``space`` (``ops/halo.py``), ``x`` is this rank's block of rows
-    and ``size`` its block's output size: this rank's output rows of the
-    global resize, from its block and the halo rows its source rows reach,
-    with the global resize's weights in its order (the same bits)."""
+    Under ``space`` (``ops/halo.py``), ``x`` is this rank's block of rows of
+    ``space``'s level, ``out`` the Space of the output's level (None: the
+    input's blocks) and ``size`` its block's output size: this rank's
+    output rows of the global resize, from the window of source rows they
+    read, with the global resize's weights in its order (the same bits)."""
     if space is None:
         return resize_bilinear(x, size, align_corners=True)
-    n = space.size
-    in_h, out_h = x.shape[1] * n, int(size[0]) * n
-    if in_h != out_h:
-        ext = halo_rows(x, *_row_halo(in_h, out_h, n), space)
-        lo, hi, w = row_lerp_tables(in_h, out_h, n, space.index, x.device)
+    rows_in, rows_out = _row_levels(x, size, space, out)
+    if rows_in != rows_out:
+        ext = window_rows(x, _row_windows(rows_in, rows_out), space)
+        lo, hi, w = row_lerp_tables(rows_in, rows_out, space.index, x.device)
         shape = [1] * x.ndim
-        shape[1] = out_h // n
+        shape[1] = int(size[0])
         w = w.to(ext.dtype).reshape(shape)
         x_lo = ext.index_select(1, lo)
         x = x_lo + (ext.index_select(1, hi) - x_lo) * w
     return _lerp_axis(x, 2, int(size[1]), True)
 
 
-def resize_rows_matmul(x: torch.Tensor, size, space=None) -> torch.Tensor:
+def resize_rows_matmul(x: torch.Tensor, size, space=None, out=None) -> torch.Tensor:
     """``resize_bilinear_matmul(x, size)`` (align_corners=True). Under
     ``space``, as :func:`resize_rows`: this rank's output rows of the
     global resize, its weights contracted in the order that the global
     shapes choose (which decides where a bf16 result rounds)."""
     if space is None:
         return resize_bilinear_matmul(x, size, align_corners=True)
-    n = space.size
-    in_h, out_h, out_w = x.shape[1] * n, int(size[0]) * n, int(size[1])
+    rows_in, rows_out = _row_levels(x, size, space, out)
+    in_h, out_h, out_w = rows_in[-1][1], rows_out[-1][1], int(size[1])
 
     def rows(y):
-        if in_h == out_h:
+        if rows_in == rows_out:
             return y
-        ext = halo_rows(y, *_row_halo(in_h, out_h, n), space)
-        a = row_interp_matrix(in_h, out_h, n, space.index, ext.dtype, ext.device)
+        ext = window_rows(y, _row_windows(rows_in, rows_out), space)
+        a = row_interp_matrix(rows_in, rows_out, space.index, ext.dtype, ext.device)
         return torch.movedim(torch.tensordot(ext, a, dims=([1], [0])), -1, 1)
 
     if _matmul_order((x.shape[0], in_h, *x.shape[2:]), 1, 2, out_h, out_w):

@@ -20,10 +20,11 @@ k % n_space)``. Here a :class:`Mesh` is one of two kinds:
   over ``data``, and with a ``space`` axis each data place's image rows
   split over its space devices (``parallel/spatial.py``).
 
-On the ``space`` axis the image's H is split in equal blocks
-(:func:`block_sharding`); the network needs H to be a multiple of
-``32 · n_space`` (:func:`check_spatial_height`), so that every level of
-the network down to 1/32 splits evenly.
+On the ``space`` axis the input's H is split in equal blocks
+(:func:`block_sharding`, JAX's ``P('data', 'space')``), so H must be
+divisible by ``n_space`` (:func:`check_spatial_height`), as in JAX. The
+levels below need not split evenly: ``ops/halo.py::space_rows`` says which
+rows each rank holds of each, as GSPMD pads them.
 """
 
 from __future__ import annotations
@@ -40,13 +41,7 @@ __all__ = [
     "block_sharding",
     "host_block",
     "check_spatial_height",
-    "SPATIAL_MULTIPLE",
 ]
-
-# the network's input H on a space axis of n is a multiple of this times n:
-# its deepest level is 1/32, and each level's blocks must start on an even
-# row for the stride-2 convs' windows to line up
-SPATIAL_MULTIPLE = 32
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -210,14 +205,15 @@ def replicate_sharding(mesh: Mesh) -> tuple:
 
 
 def check_spatial_height(height: int, n_space: int) -> None:
-    """Raise ``ValueError`` unless an image of ``height`` rows splits over a
-    ``space`` axis of ``n_space`` at every level of the network: H a
-    multiple of ``32 · n_space`` (:data:`SPATIAL_MULTIPLE`). JAX's GSPMD
-    also pads an uneven split; the port does not (ROADMAP.md)."""
-    if n_space > 1 and height % (SPATIAL_MULTIPLE * n_space):
-        raise ValueError(f"spatial sharding over a 'space' axis of {n_space} needs the network's "
-                         f"input H to be a multiple of {SPATIAL_MULTIPLE} * n_space = "
-                         f"{SPATIAL_MULTIPLE * n_space}, got H={height}")
+    """Raise ``ValueError`` unless an input of ``height`` rows splits over a
+    ``space`` axis of ``n_space`` in equal blocks: H divisible by
+    ``n_space``, JAX's condition (pjit's on the ``P('data', 'space')``
+    input of the spatial step and the engine). Every level below may split
+    unevenly (``ops/halo.py::space_rows``)."""
+    if n_space > 1 and height % n_space:
+        raise ValueError(f"spatial sharding over a 'space' axis of {n_space} splits the input's "
+                         f"H in {n_space} equal blocks: H must be divisible by n_space = "
+                         f"{n_space}, got H={height}")
 
 
 def block_sharding(mesh: Mesh, batch: int, height: int) -> list:
@@ -225,13 +221,13 @@ def block_sharding(mesh: Mesh, batch: int, height: int) -> list:
     data-major: ``(batch rows, H rows)`` slices, the batch split over
     ``data`` and H over ``space`` (JAX's ``batch_sharding(mesh,
     spatial_axis=1)``, ``P('data', 'space')``). ``ValueError`` when either
-    does not divide its axis."""
+    does not divide its axis (:func:`check_spatial_height` for H)."""
+    from fastscnn_tpu_torch.ops.halo import space_rows
+
     m = mesh.shape["space"]
-    if height % m:
-        raise ValueError(f"H {height} must divide the space axis ({m})")
-    per = height // m
-    return [(rows, slice(s * per, (s + 1) * per))
-            for rows in batch_sharding(mesh, batch) for s in range(m)]
+    check_spatial_height(height, m)
+    return [(rows, slice(*block)) for rows in batch_sharding(mesh, batch)
+            for block in space_rows(m, height)]
 
 
 def host_block(mesh: Mesh, *arrays, spatial: bool = True):

@@ -6,8 +6,9 @@ their rows over a transport, one interface for two kinds of space group:
 - :class:`GroupTransport`: a ``torch.distributed`` group, one process a
   rank (the train and eval steps): gloo on the CPU, NCCL on cards, where
   the exchanges are captured in a step's CUDA graph. The halo rows move in
-  an ``all_gather`` of each rank's boundary rows, which both backends run
-  on CUDA tensors (gloo's point-to-point ops may refuse them);
+  an ``all_gather`` of each rank's boundary rows, padded to one size,
+  which both backends run on CUDA tensors (gloo's point-to-point ops may
+  refuse them, and both need equal sizes);
 - :class:`LocalTransport`: the devices of one process (the engine), one
   thread a rank (:func:`run_spmd`), meeting at a barrier and copying from
   device to device. Each thread puts its tensor at the rendezvous with the
@@ -19,8 +20,9 @@ their rows over a transport, one interface for two kinds of space group:
   distinct cards; the engine needs no backward.
 
 A :class:`Space` is one rank's view: its transport, its index, the axis's
-size and, for the train step, the group over which a tensor replicated
-across ``space`` takes its batch statistics (``data_group``).
+size, for the train step the group over which a tensor replicated across
+``space`` takes its batch statistics (``data_group``), and the rows every
+rank holds of the level it describes (``rows``, ``ops/halo.space_rows``).
 """
 
 from __future__ import annotations
@@ -140,16 +142,19 @@ class Space:
     ``index`` and ``size``; ``data_group``: the ``torch.distributed`` group
     of the ranks at this space index (one a data place), over which a
     tensor replicated across ``space`` takes its batch statistics (None:
-    one data place)."""
+    one data place); ``rows``: the global rows ``(start, stop)`` that each
+    rank holds of one level of the network (``ops/halo.space_rows``; None:
+    the input's blocks, equal ones)."""
 
     transport: Any
     index: int
     size: int
     data_group: Any = None
+    rows: tuple | None = None
 
-    @property
-    def last(self) -> bool:
-        return self.index == self.size - 1
+    def at(self, rows: tuple) -> "Space":
+        """This rank's place at the level of ``rows``."""
+        return dataclasses.replace(self, rows=rows)
 
 
 def local_spaces(devices) -> list:

@@ -44,8 +44,9 @@ sums the statistics across the ranks and returns this rank's mask rows.
 
 A mesh with a ``space`` axis: with ``spatial_shard`` each rank passes its
 block, its data place's rows and its space index's rows of H
-(``mesh.host_block``; H a multiple of 32 times the axis), and the forward
-and the loss run on blocks (``models/fast_scnn.py``, ``ops/halo.py``): the
+(``mesh.host_block``: JAX's equal blocks, H divisible by the axis, which
+the step checks), and the forward and the loss run on blocks of every
+level, equal or not (``models/fast_scnn.py``, ``ops/halo.py``): the
 sums of the global batch reduce over the whole mesh, and the parameter
 gradients of the branches that run replicated across ``space`` (the
 pyramid pooling's), partial on each rank, are completed by the gradients'
@@ -79,7 +80,7 @@ import torch
 from fastscnn_tpu_torch import resolve_device
 from fastscnn_tpu_torch.engine.infer import IMAGENET_MEAN, IMAGENET_STD
 from fastscnn_tpu_torch.models.convert import to_param_trees
-from fastscnn_tpu_torch.models.fast_scnn import FastSCNN
+from fastscnn_tpu_torch.models.fast_scnn import FastSCNN, space_levels
 from fastscnn_tpu_torch.ops.collectives import broadcast_, gather_rows, group_size, sum_
 from fastscnn_tpu_torch.ops.resize import resize_bilinear_matmul
 from fastscnn_tpu_torch.parallel.mesh import Mesh, check_spatial_height
@@ -420,6 +421,22 @@ def _microbatch_rows(t: torch.Tensor, grad_accum: int, dp: _DataParallel) -> tor
     return full.reshape(grad_accum, dp.size, per, *t.shape[1:])[:, dp.index].reshape(t.shape)
 
 
+def _check_blocks(images: torch.Tensor, space: Space) -> None:
+    """JAX's refusal of an input whose H does not split in equal blocks over
+    ``space`` (``mesh.check_spatial_height``): the ranks' block heights,
+    gathered over the space group in one small exchange (not inside a CUDA
+    graph's capture: the graphed step checks them in its warm-up), must be
+    equal, their sum divisible by the axis."""
+    if images.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return
+    heights = [int(t) for t in space.transport.all_gather(
+        torch.tensor([images.shape[1]], dtype=torch.int64, device=images.device))]
+    check_spatial_height(sum(heights), space.size)
+    if len(set(heights)) > 1:
+        raise ValueError(f"the ranks' blocks of H differ ({heights} rows): each passes its "
+                         "block of mesh.host_block, JAX's equal blocks")
+
+
 def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_aug,
                   donate_batch, dp: _DataParallel | None = None):
     """The device work of a train step, on a batch already on the device
@@ -433,14 +450,14 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
     group = None if dp is None else dp.group
     space = None if dp is None else dp.space
     loss_kwargs = {} if dp is None else {"group": group}
-    if space is not None:
-        loss_kwargs["space"] = space
 
     def grads_of(params, model_state, x, targets, generator):
         cast = tree_map(lambda p: p.to(compute_dtype), params)
         outputs, new_model_state = model.apply_params(
             cast, model_state, x, training=True, generator=generator, upsample_outputs=False,
             group=group, space=space)
+        if space is not None:  # the loss's blocks of the 1/8 logits
+            loss_kwargs["space"] = space_levels(x, space)[3]
         loss = loss_fn(outputs, targets, **loss_kwargs).float()
         loss.backward()  # accumulates f32 gradients on the masters
         return loss.detach(), new_model_state
@@ -463,7 +480,7 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
         if space is not None:
-            check_spatial_height(batch[0].shape[1] * space.size, space.size)
+            _check_blocks(batch[0], space)
         if dp is not None and grad_accum > 1 and dp.size > 1:
             batch[:] = [_microbatch_rows(t, grad_accum, dp) for t in batch]
         flat = grad_buffers(state)
@@ -485,7 +502,13 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
         if flat is not None:
             # the ranks' gradients summed (JAX's psum); autograd through the
             # loss's all-reduces differentiated N copies of the global loss
-            # (times n_space in the replicated form)
+            # (times n_space in the replicated form). Under space that holds
+            # whatever the blocks' heights: each rank's backward is the
+            # derivative through its own rows, the exchanges send each
+            # fetched row's gradient to its owner, the rows of a level
+            # partition it (an empty block adds zero), and the sum over the
+            # ranks is the derivative of the N copies
+            # (test_torch_spatial.py's f64 cases hold it to one process)
             sum_(flat, dp.mesh_group).div_(group_size(dp.mesh_group) * grad_accum)
         elif grad_accum > 1:
             torch._foreach_div_(grads, grad_accum)

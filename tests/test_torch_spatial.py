@@ -13,9 +13,13 @@ tests that need no group run; a test that reads the ranks' results does
 its own work first.
 Bounds:
 
-- the exchanges in f64: the outputs equal to slices of the zero-padded
+- the exchanges in f64, on equal blocks and on unequal and empty ones
+  (``worker.UNEVEN``): the outputs equal to slices of the zero-padded
   whole tensor, bit for bit, and the block gradients equal to the
   whole-tensor op's within 1e-12 (two halo gradients meet in one sum);
+  the block convs and row resizes on every level of H = 72 over 4 and
+  64 over 8 equal to the whole-tensor ops (the matmul resize within
+  1e-12), their gradients within 1e-10;
 - the spatial train step (f32, 'ce' = mix OHEM CE, no dropout) under a
   2 × 2 mesh against JAX's ``make_train_step(mesh=make_mesh(2, 2),
   spatial_shard=True)`` on the global batch, stems 'xla' and 'pallas' (B6
@@ -24,8 +28,12 @@ Bounds:
   spatial mesh step against its one-device step, the port's one-process
   step against JAX's one-device step) — the bounds of
   ``test_torch_multidevice.py::test_dp_train_step_matches_the_jax_mesh_step``;
+  the same at H = 72, whose levels below the input split unevenly (JAX's
+  GSPMD pads them);
 - in f64 the same steps (``grad_accum`` 1 and 2, the 1 × 2 mesh with
-  dropout, and ``spatial_shard=False`` replicated across ``space``) equal
+  dropout, ``spatial_shard=False`` replicated across ``space``, and at
+  H = 72 the 1 × 4 mesh, whose third rank holds no row at 1/32, and
+  2 × 2 with ``grad_accum`` 2) equal
   to the port's one-process step on the global batch within 1e-5 (the f32
   masters' rounding), the loss within 1e-6 (it is reported in f32), the
   pyramid pooling's running variances (batch statistics over ``data``
@@ -33,11 +41,14 @@ Bounds:
 - losses and parameters bit-equal across the ranks;
 - the eval step under a ``space`` axis: each rank's masks and the
   statistics equal to one process's on its data place's rows;
-- the engine under local meshes of two and four CPU entries: masks equal
-  to the meshless engine on every pixel in f32 (the blocks run the
-  meshless graph's arithmetic: same weights, same lerps, convs on the
-  same windows), and within ``test_torch_engine.py``'s f32 mask bound
-  (1e-3 of the pixels) of JAX's spatial engine.
+- the engine under local meshes of two and four CPU entries (and, at
+  H = 72 over 2 and 64 over 8, of two and eight): masks equal to the
+  meshless engine on every pixel in f32 (the blocks run the meshless
+  graph's arithmetic: same weights, same lerps, convs on the same
+  windows), and within ``test_torch_engine.py``'s f32 mask bound (1e-3
+  of the pixels) of JAX's spatial engine;
+- JAX's refusal: an input H not divisible by the ``space`` axis, in the
+  step, the engine and ``block_sharding``.
 """
 
 import json
@@ -66,6 +77,7 @@ from fastscnn_tpu.utils.lr_scheduler import lr_schedule as jax_lr
 from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
 from fastscnn_tpu_torch.losses import get_loss_fn
 from fastscnn_tpu_torch.models import FastSCNN, from_jax_params, to_param_trees
+from fastscnn_tpu_torch.models.fast_scnn import space_levels
 from fastscnn_tpu_torch.ops import halo
 from fastscnn_tpu_torch.ops.resize import (
     resize_bilinear,
@@ -91,14 +103,22 @@ DEADLINE_S = 240
 NC = 5
 LR = dict(base_lr=1e-2, niters=10)
 SHAPE = (4, 64, 64)  # global batch, H, W: H = 32 · n_space for a space axis of 2
+# H = 72: levels of 35, 18, 9, 5 and 3 rows, which split unevenly over 2 and
+# 4 (over 4 one rank holds no row at 1/32)
+SHAPE_72 = (4, 72, 64)
 # name: stem, against JAX's 2 × 2 spatial step in f32
 JAX_CASES = {"jax-xla": "xla", "jax-pallas": "pallas"}
+JAX_72_CASES = {"jax72-xla": "xla", "jax72-pallas": "pallas"}
 # name: (mesh, spatial_shard, stem, grad_accum, dropout), f64 against one process
 F64_CASES = {
     "f64-2x2-ga1-pallas": ("2x2", True, "pallas", 1, False),
     "f64-2x2-ga2-xla": ("2x2", True, "xla", 2, False),
     "f64-1x2-ga1-dropout": ("1x2", True, "xla", 1, True),
     "f64-2x2-ga1-replicated": ("2x2", False, "xla", 1, False),
+}
+F64_72_CASES = {
+    "f64-1x4-72-pallas": ("1x4", True, "pallas", 1, False),
+    "f64-2x2-72-ga2-xla": ("2x2", True, "xla", 2, False),
 }
 EXCHANGE_SHAPE = (2, 16, 5, 3)
 EXCHANGE_SEED = 11
@@ -167,6 +187,8 @@ def group(tmp_path_factory, jax_init_trees):
     torch.save(from_jax_params(*jax_init_trees), os.path.join(work, "init_a.pt"))
     images, targets = _batch(1, *SHAPE)
     np.savez(os.path.join(work, "batch.npz"), images=images, targets=targets)
+    images, targets = _batch(2, *SHAPE_72)
+    np.savez(os.path.join(work, "batch72.npz"), images=images, targets=targets)
     images, targets = _batch(4, *SHAPE)
     np.savez(os.path.join(work, "eval.npz"), images=images, targets=targets)
     x = np.random.default_rng(EXCHANGE_SEED).normal(size=EXCHANGE_SHAPE)
@@ -176,10 +198,15 @@ def group(tmp_path_factory, jax_init_trees):
         spec["train"].append({"name": name, "mesh": "2x2", "spatial": True, "stem": stem,
                               "grad_accum": 1, "dropout": False, "dtype": "float32",
                               "batch": "batch.npz"})
-    for name, (mesh, sp, stem, ga, dropout) in F64_CASES.items():
-        spec["train"].append({"name": name, "mesh": mesh, "spatial": sp, "stem": stem,
-                              "grad_accum": ga, "dropout": dropout, "dtype": "float64",
-                              "batch": "batch.npz"})
+    for name, stem in JAX_72_CASES.items():
+        spec["train"].append({"name": name, "mesh": "2x2", "spatial": True, "stem": stem,
+                              "grad_accum": 1, "dropout": False, "dtype": "float32",
+                              "batch": "batch72.npz"})
+    for cases, batch in ((F64_CASES, "batch.npz"), (F64_72_CASES, "batch72.npz")):
+        for name, (mesh, sp, stem, ga, dropout) in cases.items():
+            spec["train"].append({"name": name, "mesh": mesh, "spatial": sp, "stem": stem,
+                                  "grad_accum": ga, "dropout": dropout, "dtype": "float64",
+                                  "batch": batch})
     with open(os.path.join(work, "spec.json"), "w") as f:
         json.dump(spec, f)
     return _Group(work, dict(os.environ, OMP_NUM_THREADS="1"))
@@ -196,25 +223,31 @@ def _rel(a, b):
 
 
 def _members(mesh):
-    return range(4) if mesh == "2x2" else range(2)
+    return range(2) if mesh == "1x2" else range(4)
 
 
 # -- (i) the exchanges over local devices, and the block ops ------------------
 
-def _exchange_reference(x, n):
-    """Per rank, what :func:`worker.exchange_case` must give: slices of the
-    zero-padded whole tensor, and the whole-tensor gradients of the ranks'
-    summed objectives."""
-    h = x.shape[1] // n
+def _equal_rows(height, n):
+    h = height // n
+    return tuple((s * h, (s + 1) * h) for s in range(n))
+
+
+def _exchange_reference(x, n, rows=None):
+    """Per rank, what :func:`worker.exchange_case` must give on blocks
+    ``rows`` (default: equal ones): slices of the zero-padded whole tensor,
+    and the whole-tensor gradients of the ranks' summed objectives."""
+    rows = rows or _equal_rows(x.shape[1], n)
     pad = max(max(a, b) for a, b in worker.HALOS)
     xs = torch.from_numpy(x).requires_grad_()
     padded = F.pad(xs, (0, 0, 0, 0, pad, pad))
     outs = []
-    for s in range(n):
-        ws = worker.exchange_weights(EXCHANGE_SEED, (x.shape[0], h, *x.shape[2:]), n, s)
+    for s, (first, stop) in enumerate(rows):
+        ws = worker.exchange_weights(EXCHANGE_SEED, (x.shape[0], stop - first, *x.shape[2:]), n,
+                                     s, x.shape[1])
         out = {}
         for k, (a, b) in enumerate(worker.HALOS):
-            y = padded[:, pad + s * h - a:pad + (s + 1) * h + b]
+            y = padded[:, pad + first - a:pad + stop + b]
             out[f"halo{k}"] = y
         out["gather"] = xs
         outs.append((out, ws))
@@ -229,35 +262,46 @@ def _exchange_reference(x, n):
     return [{k: v.detach().numpy() for k, v in out.items()} for out, _ in outs], grads
 
 
-def _check_exchange(got, s, n, x, ref, grads):
-    h = x.shape[1] // n
+def _check_exchange(got, s, n, x, ref, grads, rows=None):
+    a, b = (rows or _equal_rows(x.shape[1], n))[s]
     for key in ref[s]:
         np.testing.assert_array_equal(got[key], ref[s][key], err_msg=key)
-        np.testing.assert_allclose(got[f"{key}_grad"], grads[key][:, s * h:(s + 1) * h],
+        np.testing.assert_allclose(got[f"{key}_grad"], grads[key][:, a:b],
                                    rtol=0, atol=1e-12, err_msg=f"{key} gradient")
+
+
+def _exchanges_over_local_devices(n, rows=None):
+    x = np.random.default_rng(EXCHANGE_SEED).normal(size=EXCHANGE_SHAPE)
+    ref, grads = _exchange_reference(x, n, rows)
+    spaces = [sp.at(rows) if rows else sp for sp in spatial.local_spaces(["cpu"] * n)]
+    blocks = rows or _equal_rows(x.shape[1], n)
+
+    def rank(s):
+        block = torch.from_numpy(x[:, slice(*blocks[s])])
+        return worker.exchange_case(spaces[s], block, worker.exchange_weights(
+            EXCHANGE_SEED, block.shape, n, s, x.shape[1]))
+
+    for s, got in enumerate(spatial.run_spmd(spaces, rank)):
+        _check_exchange(got, s, n, x, ref, grads, rows)
 
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_exchanges_over_local_devices(n):
-    x = np.random.default_rng(EXCHANGE_SEED).normal(size=EXCHANGE_SHAPE)
-    ref, grads = _exchange_reference(x, n)
-    spaces = spatial.local_spaces(["cpu"] * n)
-    h = x.shape[1] // n
+    _exchanges_over_local_devices(n)
 
-    def rank(s):
-        block = torch.from_numpy(x[:, s * h:(s + 1) * h])
-        return worker.exchange_case(spaces[s], block, worker.exchange_weights(
-            EXCHANGE_SEED, block.shape, n, s))
 
-    for s, got in enumerate(spatial.run_spmd(spaces, rank)):
-        _check_exchange(got, s, n, x, ref, grads)
+@pytest.mark.parametrize("n", [2, 4])
+def test_exchanges_on_unequal_and_empty_blocks_over_local_devices(n):
+    """Blocks thinner than the halos (and, over 4, an empty one): each row
+    comes from whichever rank holds it, bit for bit."""
+    _exchanges_over_local_devices(n, worker.UNEVEN[n])
 
 
 @pytest.mark.parametrize("op", ["conv-s1", "conv-s2", "conv-stem", "resize", "resize-matmul"])
 def test_block_ops_equal_the_whole_tensor_ops(op):
     """``conv_rows`` and the row resizes over 4 local ranks, f64: each
-    rank's rows of the whole-tensor op (the stem's last row, past the
-    global output, left out)."""
+    rank's rows of the whole-tensor op (the stem's 15 output rows split
+    4/4/4/3: no rank computes a row past the global output)."""
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(2, 32, 9, 4)))
     w = torch.from_numpy(rng.normal(size=(3, 3, 4, 6)))
@@ -289,11 +333,66 @@ def test_block_ops_equal_the_whole_tensor_ops(op):
     h = x.shape[1] // n
     got = torch.cat(spatial.run_spmd(spaces, lambda s: fn(x[:, s * h:(s + 1) * h], spaces[s])),
                     dim=1)
-    got = got[:, :want.shape[1]]
     if op == "resize-matmul":
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("height,n", [(72, 4), (64, 8)])
+def test_block_ops_on_the_network_levels(height, n):
+    """``conv_rows`` and the row resizes over the unequal (and, over 8,
+    empty) blocks of each level of the network (``space_levels``), f64:
+    each rank's rows of the whole-tensor op (the matmul resize within
+    1e-12, as above), and the gradients within 1e-10 of the whole-tensor
+    op's (a conv's dW summed over the ranks)."""
+    rng = np.random.default_rng(3)
+    base = spatial.local_spaces(["cpu"] * n)
+    levels = [lv.rows for lv in space_levels(torch.zeros(1, height // n, 1, 1), base[0])]
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3, 4)))
+
+    def conv(t, w, stride, padding):
+        return F.conv2d(t.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
+                        padding=padding).permute(0, 2, 3, 1)
+
+    def check(rows, out_rows, fn, whole, exact=True):
+        x = torch.from_numpy(rng.normal(size=(2, rows[-1][1], 5, 3)))
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        want = whole(xs, ws)
+        weights = torch.from_numpy(rng.normal(size=want.shape))
+        (want * weights).sum().backward()
+        spaces = [sp.at(rows) for sp in base]
+
+        def rank(s):
+            xb, wb = x[:, slice(*rows[s])].clone().requires_grad_(), w.clone().requires_grad_()
+            y = fn(xb, wb, spaces[s])
+            (y * weights[:, slice(*out_rows[s])]).sum().backward()
+            return y.detach(), xb.grad, wb.grad
+
+        got = spatial.run_spmd(spaces, rank)
+        y = torch.cat([g[0] for g in got], 1)
+        np.testing.assert_allclose(y.numpy(), want.detach().numpy(), rtol=0,
+                                   atol=0 if exact else 1e-12)
+        np.testing.assert_allclose(torch.cat([g[1] for g in got], 1).numpy(), xs.grad.numpy(),
+                                   rtol=0, atol=1e-10)
+        if ws.grad is not None:
+            np.testing.assert_allclose(sum(g[2] for g in got).numpy(), ws.grad.numpy(),
+                                       rtol=0, atol=1e-10)
+
+    for d, padding in enumerate((0, 1, 1, 1, 1)):
+        for stride, pad in ((2, padding), (1, 1)):
+            check(levels[d], levels[d + 1] if stride == 2 else levels[d],
+                  lambda t, w, sp, st=stride, p=pad: halo.conv_rows(conv, t, w, st, p, sp),
+                  lambda t, w, st=stride, p=pad: conv(t, w, st, p))
+    for src, dst in ((5, 3), (3, 0)):
+        out = levels[dst]
+        for rows_fn, whole in ((resize_rows, resize_bilinear),
+                               (resize_rows_matmul, resize_bilinear_matmul)):
+            check(levels[src], out,
+                  lambda t, w, sp, f=rows_fn: f(
+                      t, (out[sp.index][1] - out[sp.index][0], 7), sp, sp.at(out)),
+                  lambda t, w, f=whole: f(t, (out[-1][1], 7), align_corners=True),
+                  exact=rows_fn is resize_rows)
 
 
 # -- (vi) the engine -----------------------------------------------------------
@@ -344,6 +443,29 @@ def test_spatial_engine_against_the_jax_spatial_engine(jax_init_trees):
                      mesh=jax_make_mesh(n_data=2, n_space=2, devices=jax.devices()[:4]))
     diff = np.asarray(jeng.predict(images)) != eng.predict(images).numpy()
     assert diff.mean() <= 1e-3
+
+
+@pytest.mark.parametrize("devices,height", [(2, 72), (8, 64)])
+def test_uneven_spatial_engine_equals_meshless_and_jax(jax_init_trees, devices, height):
+    """The engine under a local ``space`` mesh whose levels split unevenly:
+    72 rows over 2 (5/4 rows at 1/8, 2/1 at 1/32) and 64 over 8 (six empty
+    blocks at 1/32), f32: equal to the meshless engine on every pixel, and
+    within 1e-3 of the pixels of JAX's spatial engine on a mesh of as many
+    devices."""
+    model = _model(jax_init_trees)
+    cfg = E2EConfig(compute_dtype="float32")
+    images = np.random.default_rng(8).integers(0, 256, (2, height, 96, 3)).astype(np.uint8)
+    want = InferenceEngine(model, device="cpu", config=cfg).predict(images)
+    sharded = InferenceEngine(model, config=cfg,
+                              mesh=make_mesh(n_space=devices, devices=["cpu"] * devices))
+    got = sharded.predict(images)
+    assert torch.equal(got, want)
+    params, state = jax_init_trees
+    jeng = JaxEngine(JaxFastSCNN(num_classes=NC, aux=True), params, state,
+                     config=JaxE2EConfig(compute_dtype="float32"),
+                     mesh=jax_make_mesh(n_data=1, n_space=devices,
+                                        devices=jax.devices()[:devices]))
+    assert (np.asarray(jeng.predict(images)) != got.numpy()).mean() <= 1e-3
 
 
 # -- (vii) the refusals and the mesh helpers -----------------------------------
@@ -431,14 +553,9 @@ def _same_on_every_rank(read, name, ranks):
     return got[0]
 
 
-@pytest.mark.parametrize("case", list(JAX_CASES))
-def test_spatial_train_step_matches_the_jax_spatial_mesh_step(group, jax_init_trees, case):
-    """4 gloo ranks, each its (rows, H rows) block, against JAX's 2 × 2
-    spatial step on the global batch; stem 'pallas' runs B6's plain
-    versions on each block."""
-    stem = JAX_CASES[case]
+def _against_the_jax_spatial_step(group, jax_init_trees, case, stem, batch_file):
     params, state = jax_init_trees
-    batch = np.load(os.path.join(group.work, "batch.npz"))
+    batch = np.load(os.path.join(group.work, batch_file))
     mesh = jax_make_mesh(n_data=2, n_space=2, devices=jax.devices()[:4])
     loss, new, bn = _jax_update(params, state, batch["images"], batch["targets"], mesh, stem,
                                 spatial_shard=True)
@@ -452,15 +569,27 @@ def test_spatial_train_step_matches_the_jax_spatial_mesh_step(group, jax_init_tr
     assert _rel(got["params"] - p0, new - p0) <= max(1e-3, 2 * yard), yard
 
 
-@pytest.mark.parametrize("case", list(F64_CASES))
-def test_spatial_train_step_in_f64_equals_one_process(group, jax_init_trees, case):
-    """In f64 the spatial step (and the step replicated across ``space``)
-    equals the port's one-process step on the global batch: the update, the
-    loss, the pyramid pooling's running variances (over ``data`` only) and,
-    with dropout, the mask (the global batch's, drawn from one generator,
-    each rank keeping its block)."""
-    mesh, _, stem, ga, dropout = F64_CASES[case]
-    batch = np.load(os.path.join(group.work, "batch.npz"))
+@pytest.mark.parametrize("case", list(JAX_CASES))
+def test_spatial_train_step_matches_the_jax_spatial_mesh_step(group, jax_init_trees, case):
+    """4 gloo ranks, each its (rows, H rows) block, against JAX's 2 × 2
+    spatial step on the global batch; stem 'pallas' runs B6's plain
+    versions on each block."""
+    _against_the_jax_spatial_step(group, jax_init_trees, case, JAX_CASES[case], "batch.npz")
+
+
+@pytest.mark.parametrize("case", list(JAX_72_CASES))
+def test_uneven_spatial_train_step_matches_the_jax_spatial_mesh_step(group, jax_init_trees,
+                                                                     case):
+    """H = 72 under 2 × 2, which JAX's GSPMD pads at every level below the
+    input: the port's unequal blocks (18/17 rows at 1/2, 5/4 at 1/8, 2/1 at
+    1/32) against JAX's step, the bounds above."""
+    _against_the_jax_spatial_step(group, jax_init_trees, case, JAX_72_CASES[case],
+                                  "batch72.npz")
+
+
+def _f64_against_one_process(group, jax_init_trees, case, spec, batch_file):
+    mesh, _, stem, ga, dropout = spec
+    batch = np.load(os.path.join(group.work, batch_file))
     p0 = worker.flat(to_param_trees(_model(jax_init_trees))[0])
     loss, one, one_state = _port_update(jax_init_trees, batch["images"], batch["targets"], ga,
                                         stem, torch.float64, dropout)
@@ -469,6 +598,25 @@ def test_spatial_train_step_in_f64_equals_one_process(group, jax_init_trees, cas
     assert _rel(got["params"] - p0, one - p0) <= 1e-5
     np.testing.assert_allclose(got["bn"], worker.flat(one_state), rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(got["ppm_var"], _ppm_vars(one_state), rtol=1e-9)
+
+
+@pytest.mark.parametrize("case", list(F64_CASES))
+def test_spatial_train_step_in_f64_equals_one_process(group, jax_init_trees, case):
+    """In f64 the spatial step (and the step replicated across ``space``)
+    equals the port's one-process step on the global batch: the update, the
+    loss, the pyramid pooling's running variances (over ``data`` only) and,
+    with dropout, the mask (the global batch's, drawn from one generator,
+    each rank keeping its block)."""
+    _f64_against_one_process(group, jax_init_trees, case, F64_CASES[case], "batch.npz")
+
+
+@pytest.mark.parametrize("case", list(F64_72_CASES))
+def test_uneven_spatial_train_step_in_f64_equals_one_process(group, jax_init_trees, case):
+    """H = 72 in f64: under 1 × 4 (blocks of 9/9/9/8 rows at 1/2, 3/2/2/2 at
+    1/8, 1/1/0/1 at 1/32: a rank with no row, stem 'pallas' with B6's plain
+    versions on the blocks) and under 2 × 2 with ``grad_accum`` 2, equal to
+    one process's step within the bounds above."""
+    _f64_against_one_process(group, jax_init_trees, case, F64_72_CASES[case], "batch72.npz")
 
 
 # -- (v) the eval step ---------------------------------------------------------
@@ -503,19 +651,39 @@ def test_exchanges_over_a_process_group(group, mesh):
         _check_exchange(group.read(rank, f"exchange_{mesh}.npz"), rank % n, n, x, ref, grads)
 
 
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+def test_exchanges_on_unequal_and_empty_blocks_over_a_process_group(group, mesh):
+    """As over local devices: gloo's ``all_gather`` of pieces padded to one
+    size."""
+    x = np.load(os.path.join(group.work, "exchange.npz"))["x"]
+    n = worker.MESHES[mesh][1]
+    rows = worker.UNEVEN[n]
+    ref, grads = _exchange_reference(x, n, rows)
+    for rank in range(4):
+        _check_exchange(group.read(rank, f"exchange_{mesh}_uneven.npz"), rank % n, n, x, ref,
+                        grads, rows)
+
+
 def test_spatial_height_constraint_and_the_mesh_helpers(jax_init_trees, group):
-    check_spatial_height(128, 4)
-    check_spatial_height(48, 1)
-    with pytest.raises(ValueError, match="multiple of 32 \\* n_space = 64"):
-        check_spatial_height(96, 2)
+    """JAX's condition: an input H divisible by the ``space`` axis, and no
+    other. H = 96 under 2 (not a multiple of 32 · 2) runs; H = 45 under 2
+    is refused, by the train step (blocks of 23 and 22 rows), the engine
+    and ``block_sharding``, with a message that names both numbers."""
+    check_spatial_height(96, 2)
+    check_spatial_height(72, 4)
+    check_spatial_height(45, 1)
+    with pytest.raises(ValueError, match="divisible by n_space = 2, got H=45"):
+        check_spatial_height(45, 2)
     model = _model(jax_init_trees)
     eng = InferenceEngine(model, config=E2EConfig(compute_dtype="float32"),
                           mesh=make_mesh(n_space=2, devices=["cpu"] * 2))
-    with pytest.raises(ValueError, match="multiple of 32 \\* n_space = 64"):
-        eng.predict(np.zeros((1, 96, 64, 3), np.uint8))
+    assert eng.predict(np.zeros((1, 96, 64, 3), np.uint8)).shape == (1, 96, 64)
+    with pytest.raises(ValueError, match="divisible by n_space = 2, got H=45"):
+        eng.predict(np.zeros((1, 45, 64, 3), np.uint8))
     for rank in range(4):
         said = group.read(rank, "refusals.json")
-        assert "multiple of 32 * n_space = 64" in said["height"]
+        assert "divisible by n_space = 2, got H=45" in said["height"]
+        assert np.isfinite(said["h96_loss"])
         assert (said["left_out"] is None) == (rank < 2)
         if rank >= 2:
             assert "not in the mesh" in said["left_out"]
@@ -525,3 +693,5 @@ def test_spatial_height_constraint_and_the_mesh_helpers(jax_init_trees, group):
                       (slice(2, 4), slice(0, 32)), (slice(2, 4), slice(32, 64))]
     with pytest.raises(ValueError, match="must divide the data axis"):
         block_sharding(mesh, 3, 64)
+    with pytest.raises(ValueError, match="divisible by n_space = 2, got H=45"):
+        block_sharding(mesh, 4, 45)

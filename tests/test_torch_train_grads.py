@@ -6,13 +6,8 @@ Tolerances:
   magnitude (batch-stat BN renormalises every layer, so summation-order
   differences of ~1e-7 grow through the ~40 layers), new BN statistics
   1e-5;
-- gradients in f64, as ``tests/test_ops.py::test_stem_impl_pallas_model_grads_match``
-  takes them: relative L2 distance of all gradients ≤ 1e-5. The losses
-  take their logits to f32 in both packages, so the comparison is
-  limited by f32 rounding there, amplified through batch-stat BN (the
-  measured distance is ~3e-6). 'pallas' is left out: its plain B6
-  versions compute in f32 by design; 'taps' and 'taps-packbn' are in (as
-  ``tests/test_ops.py`` takes the JAX model's 'taps' stems in f64);
+- gradients in f64: ``tests/test_torch_f64_grads.py`` (a file of their
+  own, so that a parallel run can place them on another worker);
 - eval step in f32: masks agree on all but ≤ 0.1 % of pixels (near-ties
   of the two packages' summation orders), and the statistics differ by
   at most the number of differing pixels.
@@ -24,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from fastscnn_tpu.losses import get_loss_fn as jax_loss_fn
 from fastscnn_tpu.models import FastSCNN as JaxFastSCNN
 from fastscnn_tpu.models import init_fast_scnn as jax_init
 from fastscnn_tpu.parallel.train import make_eval_step as jax_eval_step
@@ -107,39 +101,6 @@ def test_eval_mode_forward_matches_jax_and_keeps_state(shared):
     with torch.no_grad():
         np.testing.assert_allclose(model.eval()(torch.from_numpy(x))[0].numpy(), main.numpy(),
                                    rtol=1e-4, atol=2e-5 * np.abs(ref).max())
-
-
-@pytest.mark.parametrize("stem_impl", ["xla", "tapbwd", "taps", "taps-packbn"])
-def test_f64_gradients_match_jax(shared, stem_impl):
-    params, state, x, _, targets = shared
-    jax.config.update("jax_enable_x64", True)
-    try:
-        p64, s64 = (jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float64), t)
-                    for t in (params, state))
-        jmodel = JaxFastSCNN(NUM_CLASSES, aux=True, stem_impl=stem_impl)
-        jloss = jax_loss_fn("ce", aux=True, num_classes=NUM_CLASSES)
-
-        def loss_of(p):
-            outs, _ = jmodel.apply(p, s64, jnp.asarray(x, jnp.float64), training=True,
-                                   upsample_outputs=False)
-            return jloss(outs, jnp.asarray(targets))
-
-        ref, ref_grads = jax.jit(jax.value_and_grad(loss_of))(p64)
-        ref_vec = np.concatenate([np.asarray(g).ravel() for g in jax.tree_util.tree_leaves(ref_grads)])
-    finally:
-        jax.config.update("jax_enable_x64", False)
-    model = FastSCNN(NUM_CLASSES, aux=True, stem_impl=stem_impl)
-    tp = jax.tree_util.tree_map(lambda v: torch.tensor(v, dtype=torch.float64, requires_grad=True),
-                                params)
-    ts = jax.tree_util.tree_map(lambda v: torch.tensor(v, dtype=torch.float64), state)
-    outs, _ = model.apply_params(tp, ts, torch.from_numpy(x).double(), training=True,
-                                 upsample_outputs=False)
-    loss = get_loss_fn("ce", aux=True, num_classes=NUM_CLASSES)(outs, torch.from_numpy(targets))
-    loss.backward()
-    got_vec = np.concatenate([t.grad.numpy().ravel() for t in jax.tree_util.tree_leaves(tp)])
-    np.testing.assert_allclose(float(loss.detach()), float(ref), rtol=1e-5)
-    rel = np.linalg.norm(got_vec - ref_vec) / np.linalg.norm(ref_vec)
-    assert rel <= 1e-5, rel
 
 
 @pytest.mark.parametrize("per_sample", [False, True])

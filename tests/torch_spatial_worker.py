@@ -38,6 +38,9 @@ from fastscnn_tpu_torch.utils.tree import tree_leaves
 MESHES = {"2x2": (2, 2), "1x2": (1, 2), "1x4": (1, 4)}
 # (above, below) halos of the exchange cases
 HALOS = ((1, 1), (2, 0), (0, 1), (3, 2))
+# unequal blocks of the exchange cases' 16 rows, by the size of the space
+# axis: blocks thinner than the halos, and an empty one
+UNEVEN = {2: ((0, 1), (1, 16)), 4: ((0, 3), (3, 3), (3, 4), (4, 16))}
 
 
 def flat(tree) -> np.ndarray:
@@ -71,12 +74,13 @@ def exchange_case(space, x, weights):
     return out
 
 
-def exchange_weights(seed, shape, n, index):
+def exchange_weights(seed, shape, n, index, height=None):
     """The weights of :func:`exchange_case` for rank ``index`` of ``n``, on
-    blocks of ``shape``."""
+    blocks of ``shape`` (of a tensor of ``height`` rows; default: ``n``
+    equal blocks)."""
     rng = np.random.default_rng(seed + index)
     ws = [rng.normal(size=(shape[0], shape[1] + a + b, *shape[2:])) for a, b in HALOS]
-    ws.append(rng.normal(size=(shape[0], shape[1] * n, *shape[2:])))
+    ws.append(rng.normal(size=(shape[0], height or shape[1] * n, *shape[2:])))
     return [torch.from_numpy(w) for w in ws]
 
 
@@ -85,12 +89,15 @@ def exchange_cases(spec, meshes, out):
     for name in ("1x4", "2x2"):
         mesh = meshes[name]
         n = mesh.shape["space"]
-        space = Space(GroupTransport(mesh.space_group), mesh.space_index, n)
-        h = whole.shape[1] // n
-        x = whole[:, mesh.space_index * h:(mesh.space_index + 1) * h]
-        got = exchange_case(space, x, exchange_weights(spec["exchange_seed"], x.shape, n,
-                                                       mesh.space_index))
-        np.savez(os.path.join(out, f"exchange_{name}.npz"), **got)
+        for tag, rows in (("", None), ("_uneven", UNEVEN[n])):
+            space = Space(GroupTransport(mesh.space_group), mesh.space_index, n, rows=rows)
+            h = whole.shape[1] // n
+            a, b = rows[mesh.space_index] if rows else (mesh.space_index * h,
+                                                        (mesh.space_index + 1) * h)
+            x = whole[:, a:b]
+            got = exchange_case(space, x, exchange_weights(spec["exchange_seed"], x.shape, n,
+                                                           mesh.space_index, whole.shape[1]))
+            np.savez(os.path.join(out, f"exchange_{name}{tag}.npz"), **got)
 
 
 def train_cases(work, spec, meshes, out):
@@ -141,11 +148,19 @@ def refusals(work, meshes, out):
     mesh = meshes["2x2"]
     step = make_train_step(model, loss, opt, mesh=mesh, spatial_shard=True, device="cpu")
     state = create_train_state(model, opt, device="cpu")
-    try:  # a global H of 2 × 24 rows: not a multiple of 64
-        step(state, np.zeros((1, 24, 32, 3), np.uint8), np.zeros((1, 24, 32), np.int32))
+    # H = 45 over the space axis of 2: blocks of 23 and 22 rows
+    h = 23 - mesh.space_index
+    try:
+        step(state, np.zeros((1, h, 32, 3), np.uint8), np.zeros((1, h, 32), np.int32))
         said["height"] = None
     except ValueError as e:
         said["height"] = str(e)
+    # H = 96: not a multiple of 32 · 2, and taken
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, 96, 32, 3)).astype(np.uint8)
+    targets = rng.integers(-1, nc, (2, 96, 32)).astype(np.int32)
+    _, metrics = step(state, *host_block(mesh, images, targets))
+    said["h96_loss"] = float(metrics["loss"])
     try:
         make_train_step(model, loss, opt, mesh=meshes["1x2"], spatial_shard=True, device="cpu")
         said["left_out"] = None
