@@ -126,7 +126,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    on training scenes: f32 A and B agree with f32 ref on 99.5 %, bf16 ref
    differs from f32 ref on at most 0.5 % of pixels, C's and D's agreement
    and their first int8 site's levels reported; (d)
-   ``tools/quant_study.main`` at its defaults but 15 epochs through the trainer (B2 its
+   ``tools/quant_study.main`` at its defaults through the trainer (B2 its
    mask head); (e) ``tools/compare_backends.main`` on the trained weights
    through the port's ``.pth`` writer and ``--weights``, its own 0.5 %
    gate;
@@ -134,7 +134,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (:func:`bench_phase`): (a) ``make_train_step(graph=True)`` and
    ``make_split_aug_train_step(graph=True)`` in the recipe, for the
    crop-fed step, the PSP chain fused into the step and the split step
-   with ``grad_accum`` 2 (:func:`graph_step_phase`): 3 f32 steps from one
+   with ``grad_accum`` 2 (:func:`graph_step_phase`): 5 f32 steps from one
    state eager twice and graphed once under deterministic algorithms, the
    graphed losses, params, BN statistics and momentum buffers bit-equal to
    eager's where the eager runs are (else within twice their distance, and
@@ -231,8 +231,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 13. data parallelism over ``torch.distributed`` on the one card
    (:func:`multidevice_phase`; two NCCL ranks cannot share a card, so
    ranks share cuda:0 over gloo): (a) ``entry.dryrun_multichip(2)``, its
-   legs in 2 gloo processes (its 2-process ``multihost_smoke`` stage runs
-   in ``--multicard`` (c) since PR 22);
+   legs in 2 gloo processes and its 2-process ``multihost_smoke`` stage;
    (b) the recipe at full width (19 classes, aux, OHEM CE, SGD,
    ``stem_impl='pallas'``) on the 16 768x768 crops over 2 gloo ranks, 8
    each, 3 f32 and 3 bf16 eager steps: the loss histories bit-equal across
@@ -250,10 +249,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    (a) the recipe at full width (19 classes, aux, mix OHEM CE, SGD) on 2
    crops of 1024x2048 over 4 gloo ranks sharing cuda:0, under a 1 × 2
    mesh (ranks 0 and 1) and a 2 × 2 mesh (all four), each rank its block
-   of rows (``spatial_shard=True``), 'pallas' f32 (B6 on each block) and
-   'xla' bf16, and the replicated form (``spatial_shard`` off: each rank
-   its data place's rows whole; 'pallas', f32), one step
-   from the init (their ms a step: PRs 20-21, and MC (e)): the
+   of rows (``spatial_shard=True``), ``stem_impl`` 'xla' and 'pallas' (B6
+   on each block), f32 and bf16, and the replicated form (``spatial_shard``
+   off: each rank its data place's rows whole; 'pallas', f32), one step
+   from the init each: the
    losses and the parameters bit-equal across each mesh's ranks, the f32
    step within 4x phase 6's yardstick of one process's step on the global
    batch, B6 at 2 launches a step for each part in each rank;
@@ -267,8 +266,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    graph's; (c) the uneven split, on the BDD100K frame (720x1280), whose
    levels (359, 180, 90, 45 and 23 rows) split unevenly over 2 and 4: (a)'s
    group and checks for 'xla' f32, 'pallas' f32 and 'pallas' bf16 on 2
-   crops under 1 × 2 and 2 × 2, one step from the init and one timed (ms
-   a step), B6's forward, dX and dW at the shapes of
+   crops under 1 × 2 and 2 × 2, one step from the init ('pallas' f32 then
+   one more, timed: ms a step), B6's forward, dX and dW at the shapes of
    each rank's windows against their plain versions under phase 5's
    gates, and config ref in f32 under local ``space`` meshes of 2 and 4
    on [cuda:0], its masks equal to the meshless engine's on 99.999 % of
@@ -1477,10 +1476,8 @@ SERVER_CLIENTS, SERVER_FRAMES = 8, 3  # client threads, distinct frames each
 # trials, and the bounds on the time of 60 iterations against 30 (2x, 15 %)
 GRAPH_BATCHES = (1, 2)
 THROUGHPUT_BATCHES = (1, 2, 8)
-# (30, 60) iterations and 5 trials until PR 22, cut to keep the script inside
-# its time limit
-THROUGHPUT_ITERS = (20, 40)
-THROUGHPUT_TRIALS = 3
+THROUGHPUT_ITERS = (30, 60)
+THROUGHPUT_TRIALS = 5
 LOOP_RATIO = (1.7, 2.3)
 
 
@@ -2658,7 +2655,7 @@ def graphed_cli_equality(runs, tree, cache, n_train, n_val):
 # are timed (each step's host interval from its call to the next call in
 # its epoch: the loader's wait, the batch's copy and the step, synchronised
 # by the loss the trainer prints), the last epoch's steps are profiled
-CLI_EPOCHS = 4  # 8 until PR 22, cut to keep the script inside its time limit
+CLI_EPOCHS = 4
 CLI_PROFILE = (3 * CLI_EPOCHS - 2, 3 * CLI_EPOCHS)
 EVAL_TIMED_IMAGES, EVAL_TIMED_PASSES = 8, 3  # eval.main timing: the 1024x2048 val images
 
@@ -3045,7 +3042,7 @@ def convergence_phase(root):
 
 
 STUDY_CHECK_STEPS = 3  # 7b's train_model graphed against eager, from one init
-STUDY_EAGER_STEPS = 20  # eager steps timed beside 7b's graphed run (40 until PR 22)
+STUDY_EAGER_STEPS = 20  # eager steps timed beside 7b's graphed run
 
 
 def _warm_ms_per_step(record):
@@ -3255,16 +3252,14 @@ def trained_agreement_phase(state):
 
 
 def quant_phase(work):
-    """7d: ``quant_study.main`` at its defaults but QUANT_EPOCHS through the
-    trainer, PIL blocked. Returns B2's launches (its mask head, one a
-    batch)."""
+    """7d: ``quant_study.main`` at its defaults through the trainer, PIL
+    blocked. Returns B2's launches (its mask head, one a batch)."""
     from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from fastscnn_tpu_torch.tools import quant_study
 
     t0 = time.perf_counter()
     reset_launch_counts()
     result = quant_study.main(["--workdir", os.path.join(work, "quant_study"),
-                               "--epochs", str(QUANT_EPOCHS),
                                "--out", os.path.join(work, "quant_study.json")])
     counts = launch_counts()
     _print(f"7d. quant_study.main ({result['epochs']} epochs, {result['val_images']} val "
@@ -3275,11 +3270,6 @@ def quant_phase(work):
         raise AssertionError(f"quant_study: launches {counts}, expected {want}; "
                              f"{len(result['rows'])} rows")
     return counts
-
-
-# 7d's training epochs (the tool's default, 40, until PR 22; cut to keep the
-# script inside its time limit: its gate reads the launches and the rows)
-QUANT_EPOCHS = 15
 
 
 def compare_phase(work, state):
@@ -3333,10 +3323,8 @@ def trained_phase(root):
 
 
 # phase 8: the graphed train step (8a) and the training-side benches (8b-8f)
-GRAPH_STEPS_F32 = 3  # f32 steps from one state: eager twice, graphed once (5 until PR 22)
-# CUDA-event windows of graphed and eager steps (windows of 10 steps until PR
-# 22, cut to keep the script inside its time limit)
-GRAPH_WINDOWS, GRAPH_WINDOW_STEPS = 3, 5
+GRAPH_STEPS_F32 = 5  # f32 steps from one state: eager twice, graphed once
+GRAPH_WINDOWS, GRAPH_WINDOW_STEPS = 3, 5  # CUDA-event windows of graphed and eager steps
 EAGER_DISTANCE_FACTOR = 2.0  # graphed vs eager: within this factor of eager vs eager
 NATIVE_SIZE, NATIVE_BASE = (1024, 2048), 1024  # the device-aug forms' frames and --base-size
 # (form, chain in the step or split, grad_accum)
@@ -3377,7 +3365,7 @@ def graph_step_phase(yard):
     mix OHEM CE, SGD, ``stem_impl='pallas'``), for the crop-fed step (16
     crops of 768x768), the PSP chain fused into the step and the split
     step with ``grad_accum`` 2 (16 native 1024x2048 frames). For each: from
-    one state, 3 f32 steps eager twice and 3 graphed, with torch's
+    one state, 5 f32 steps eager twice and 5 graphed, with torch's
     deterministic algorithms where it has them: the losses, params, BN
     statistics and momentum buffers of the graphed run bit-equal to the
     eager run's where the two eager runs are; else within 2x their
@@ -3556,8 +3544,7 @@ def graph_step_phase(yard):
                    f"{GRAPH_WINDOW_STEPS}, {[round(t, 2) for t in times]}), "
                    f"{TRAIN_BATCH * 1e3 / ms[label]:.1f} samples/s, peak memory "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        # the graphed step's profile (the eager one's until PR 22: phase 6
-        # profiles the eager step)
+        # the graphed step's profile (phase 6 profiles the eager one)
         profile_steps(lambda: step(state, images, targets, *gens), ms["graphed"], steps=3,
                       top=5, what=f"graphed {form} bf16 step")
         _print(f"graphed {form}: {ms['eager'] / ms['graphed']:.3f}x the eager step's rate; "
@@ -6120,17 +6107,7 @@ def multidevice_phase(root, yard):
     t_phase = time.perf_counter()
     work = os.path.join(root, "build", "chip_smoke_multidevice")
     _fresh_dir(work)
-    # its 2-process multihost_smoke stage runs in --multicard (c) (and here
-    # until PR 22: cut to keep the script inside its time limit)
-    saved = os.environ.get("FASTSCNN_DRYRUN_MULTIPROC")
-    os.environ["FASTSCNN_DRYRUN_MULTIPROC"] = "0"
-    try:
-        result = dryrun_multichip(DP_RANKS, device="cuda")
-    finally:
-        if saved is None:
-            del os.environ["FASTSCNN_DRYRUN_MULTIPROC"]
-        else:
-            os.environ["FASTSCNN_DRYRUN_MULTIPROC"] = saved
+    result = dryrun_multichip(DP_RANKS, device="cuda")
     t_a = time.perf_counter() - t_phase
     _print(f"13 (a) dryrun_multichip({DP_RANKS}) on {result['backend']}, cuda:0: {t_a:.1f} s")
     launches = dp_train_leg(root, work, yard)
@@ -6162,12 +6139,9 @@ def multidevice_phase(root, yard):
 SP_BATCH = 2
 SP_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 SP_RANKS = 4
-# (a)'s 'xla' f32 and 'pallas' bf16 forms moved to (c)'s 720x1280 crops in
-# PR 22, to keep the script inside its time limit
-SP_FORMS = (("pallas", "float32", True), ("xla", "bfloat16", True), ("pallas", "float32", False))
-# steps timed after the gated first step of each form of 14 (c); (a)'s forms
-# run their gated step alone (their times: PRs 20-21)
-SP_TIMED = 1
+SP_FORMS = (("xla", "float32", True), ("pallas", "float32", True), ("xla", "bfloat16", True),
+            ("pallas", "bfloat16", True), ("pallas", "float32", False))
+SP_TIMED = 1  # steps timed after the gated first step of 14 (c)'s 'pallas' f32 form
 SP_STEPS = 3  # MC (e)'s steps a form
 SP_DEADLINE_S = 300.0  # each spawned group of phase 14, killed past it
 SP_ENGINE_GATE = 0.99999  # f32 masks under space 2 vs the meshless engine
@@ -6248,6 +6222,7 @@ def spatial_rank(work: str, nccl: bool) -> None:
             if not mesh.is_member:
                 continue
             for stem, dtype, spatial, batch, tag in forms:
+                t_form = time.perf_counter()
                 key = _sp_key(name, stem, dtype, spatial) + tag
                 block = host_block(mesh, *batch, spatial=spatial)
                 state, step = recipe_trainer(dev, mesh, spatial=spatial)(stem,
@@ -6259,7 +6234,7 @@ def spatial_rank(work: str, nccl: bool) -> None:
                 if rank == 0 and dtype == "float32":
                     saved[key] = [t.cpu() for t in _step_updates(state, p0, s0)]
                 digest = _state_digest(state)
-                losses, ms = _timed_steps(step, state, *block, None, _sp_timed(tag))
+                losses, ms = _timed_steps(step, state, *block, None, _sp_timed(stem, dtype, tag))
                 torch.cuda.synchronize()
                 out[key] = {"loss": first.hex(), "digest": digest,
                             "losses": [v.hex() for v in losses], "ms": ms,
@@ -6267,6 +6242,7 @@ def spatial_rank(work: str, nccl: bool) -> None:
                             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
                 del state, step
                 torch.cuda.empty_cache()
+                out[key]["s"] = time.perf_counter() - t_form
         if rank == 0:
             torch.save(saved, os.path.join(work, "rank0.pt"))
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
@@ -6283,9 +6259,9 @@ def _sp_size_tag(size):
     return f" {size[0]}x{size[1]}"
 
 
-def _sp_timed(tag):
-    """The timed steps of a form of 14 (a) (no size tag) or (c)."""
-    return SP_TIMED if tag else 0
+def _sp_timed(stem, dtype, tag):
+    """The timed steps of a form of 14 (a) (no size tag: none) or (c)."""
+    return SP_TIMED if tag and (stem, dtype) == ("pallas", "float32") else 0
 
 
 def _sp_group(root, work, n, nccl=False):
@@ -6303,19 +6279,23 @@ def _sp_group(root, work, n, nccl=False):
 
 def spatial_train_leg(root, work, yard):
     """14 (a) and the step of 14 (c) (the module docstring). Returns the
-    ranks' B6 launches."""
+    ranks' B6 launches and the seconds that (c)'s step took (its one-process
+    steps, its forms on rank 0 and :func:`spatial_b6_blocks`)."""
     import torch
 
     dev = torch.device("cuda")
     trainer = recipe_trainer(dev)
-    single = {}
+    single, t_c = {}, 0.0
     for size, tag, forms in (((HEIGHT, WIDTH), "", SP_FORMS),
                              (SP_UNEVEN_SIZE, _sp_size_tag(SP_UNEVEN_SIZE), SP_UNEVEN_FORMS)):
+        t_size = time.perf_counter()
         images, targets = training_batch(dev, SP_BATCH, *size)
         for stem in sorted({form[0] for form in forms if form[1] == "float32"}):
             run = one_step(trainer, stem, torch.float32, images, targets)
             single[stem + tag] = tuple(v.cpu() if isinstance(v, torch.Tensor) else v for v in run)
         del images, targets
+        if tag:
+            t_c += time.perf_counter() - t_size
     del trainer
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6342,7 +6322,7 @@ def spatial_train_leg(root, work, yard):
             losses = [float.fromhex(v) for v in [runs[0]["loss"], *runs[0]["losses"]]]
             if not all(math.isfinite(v) for v in losses):
                 raise AssertionError(f"14 {key}: losses {losses}")
-            steps = 1 + _sp_timed(tag)
+            steps = 1 + _sp_timed(stem, dtype, tag)
             want = {k: (2 * steps if stem == "pallas" else 0) for k in TRAINING_NAMES}
             for r in runs:
                 if any(r["launches"].get(k, 0) != v for k, v in want.items()):
@@ -6361,9 +6341,12 @@ def spatial_train_leg(root, work, yard):
                 line += f"; vs one process {tuple(f'{v:.3g}' for v in got)}"
                 if any(g > lim for g, lim in zip(got, limits)):
                     raise AssertionError(f"14 {key} outside phase 6's yard: {got} vs {limits}")
-            _print(line)
+            _print(line + f"; {runs[0]['s']:.1f} s")
+            if tag:
+                t_c += runs[0]["s"]
+    t_b6 = time.perf_counter()
     spatial_b6_blocks()
-    return launches
+    return launches, t_c + time.perf_counter() - t_b6
 
 
 def spatial_b6_blocks():
@@ -6587,16 +6570,18 @@ def spatial_phase(root, yard):
     t_phase = time.perf_counter()
     work = os.path.join(root, "build", "chip_smoke_spatial")
     _fresh_dir(work)
-    launches = spatial_train_leg(root, work, yard)
+    launches, t_step = spatial_train_leg(root, work, yard)
     t_a = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     spatial_serve_leg()
     t_c = time.perf_counter()
     spatial_uneven_serve_leg()
+    t_engine = time.perf_counter() - t_c
     _fresh_dir(work)
     _print(f"phase 14 launches: {launches}")
     _print(f"phase 14: {time.perf_counter() - t_phase:.1f} s (14a with 14c's step "
-           f"{t_a:.1f} s, 14c's engine {time.perf_counter() - t_c:.1f} s)")
+           f"{t_a:.1f} s; 14c {t_step + t_engine:.1f} s: its step {t_step:.1f} s on rank 0 "
+           f"and in one process, its engine {t_engine:.1f} s)")
     return launches
 
 

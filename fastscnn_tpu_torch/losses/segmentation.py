@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from fastscnn_tpu_torch.ops.collectives import global_sums, group_size, sum_
-from fastscnn_tpu_torch.ops.halo import layout
+from fastscnn_tpu_torch.ops.halo import layout, space_rows
 from fastscnn_tpu_torch.ops.resize import device_table_cache, resize_rows_matmul
 
 __all__ = [
@@ -71,20 +71,32 @@ CITYSCAPES_CLASS_WEIGHTS = (
 )
 
 
-def _smaller(t: torch.Tensor, target: torch.Tensor, space) -> bool:
+def _target_level(target: torch.Tensor, space):
+    """The Space of the target's level: the input's, JAX's equal blocks."""
+    return None if space is None else space.at(space_rows(space.size,
+                                                          target.shape[1] * space.size))
+
+
+def _resize_needed(t: torch.Tensor, target: torch.Tensor, space) -> bool:
     """Whether ``t`` (H, W on axes 1, 2) is not at the target's size; under
     ``space`` the global sizes (``t``'s level's rows, the target's
-    blocks)."""
+    level's)."""
     if space is None:
         return t.shape[1:3] != target.shape[1:3]
-    return (layout(t, space)[-1][1] != target.shape[1] * space.size
+    return (layout(t, space)[-1][1] != _target_level(target, space).rows[-1][1]
             or t.shape[2] != target.shape[2])
+
+
+def _to_target(t: torch.Tensor, target: torch.Tensor, space) -> torch.Tensor:
+    """``t`` upsampled (align_corners=True) to the target's size: under
+    ``space`` the target block's rows of the global upsample."""
+    return resize_rows_matmul(t, tuple(target.shape[1:3]), space, _target_level(target, space))
 
 
 def _match_resolution(logits: torch.Tensor, target: torch.Tensor, space=None) -> torch.Tensor:
     """Upsample (align_corners=True) NHWC logits to the target's size."""
-    if logits.ndim == 4 and target.ndim >= 3 and _smaller(logits, target, space):
-        logits = resize_rows_matmul(logits, tuple(target.shape[1:3]), space)
+    if logits.ndim == 4 and target.ndim >= 3 and _resize_needed(logits, target, space):
+        logits = _to_target(logits, target, space)
     return logits
 
 
@@ -95,8 +107,8 @@ def _binary_diff_at_target_res(logits: torch.Tensor, target: torch.Tensor,
     resize is linear, so resizing the difference equals differencing the
     resized channels."""
     d = (logits[..., 1] - logits[..., 0]).float()
-    if target.ndim >= 3 and _smaller(d, target, space):
-        d = resize_rows_matmul(d, tuple(target.shape[1:3]), space)
+    if target.ndim >= 3 and _resize_needed(d, target, space):
+        d = _to_target(d, target, space)
     return d
 
 

@@ -121,12 +121,13 @@ _STRIDE2_PADDINGS = (0, 1, 1, 1, 1)
 
 def space_levels(x: torch.Tensor, space) -> list:
     """The Space of each level of the network on this rank's block ``x`` of
-    the input: the input (``space``'s rows, or the input's blocks), the
-    stem's 1/2, then 1/4, 1/8, 1/16 and 1/32 (``halo.conv_space`` of each
-    stride-2 conv). Six Nones for no ``space`` axis."""
+    the input: the input (``space``, which carries its rows), the stem's
+    1/2, then 1/4, 1/8, 1/16 and 1/32 (``halo.conv_space`` of each stride-2
+    conv). Six Nones for no ``space`` axis."""
     if space is None:
         return [None] * 6
-    levels = [space.at(layout(x, space))]
+    layout(x, space)  # x is this rank's block of the input's level
+    levels = [space]
     for padding in _STRIDE2_PADDINGS:
         levels.append(conv_space(levels[-1], 3, 2, padding))
     return levels

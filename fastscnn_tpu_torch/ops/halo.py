@@ -32,9 +32,9 @@ rows to the largest and cut after, over either transport
 
 Each takes ``space``, one rank's place on the axis
 (``parallel/spatial.py::Space``: its ``transport``, ``index``, ``size``
-and ``rows``, every rank's rows of the tensor's level; a Space that
-carries no rows describes the input's blocks, ``space_rows(n, h·n)`` for
-a block of h rows), and ``space=None`` means no ``space`` axis: each
+and ``rows``, every rank's rows of the tensor's level, which every
+function here requires: the step and the engine attach the input's at
+the axis's entry, ``Space.at``), and ``space=None`` means no ``space`` axis: each
 function is then the whole-tensor op (:func:`conv_rows` the conv, the
 others their input), so a caller has one call for both.
 """
@@ -67,12 +67,20 @@ def space_rows(n: int, height: int, above: tuple | None = None) -> tuple:
     return tuple((min(-(-a // 2), height), min(-(-b // 2), height)) for a, b in above)
 
 
+def _level_rows(space) -> tuple:
+    if space.rows is None:
+        raise ValueError("a Space without the rows of its level: attach them with Space.at")
+    return space.rows
+
+
 def layout(x: torch.Tensor, space) -> tuple:
     """Every rank's rows of the level of ``x``, this rank's block: the
-    Space's ``rows``, or, where it carries none, the input's blocks."""
-    if space.rows is not None:
-        return space.rows
-    return space_rows(space.size, x.shape[1] * space.size)
+    Space's ``rows``, checked against the block's height."""
+    a, b = _level_rows(space)[space.index]
+    if x.shape[1] != b - a:
+        raise ValueError(f"a block of {x.shape[1]} rows where rank {space.index} holds "
+                         f"{b - a} of the level")
+    return space.rows
 
 
 def conv_space(space, kernel: int, stride: int, padding: int):
@@ -230,11 +238,10 @@ def gather_rows_h(x: torch.Tensor, space) -> torch.Tensor:
 
 def block_rows(t: torch.Tensor, space) -> torch.Tensor:
     """This rank's rows of a tensor every rank holds whole (H on axis 1),
-    at the level of ``space``'s rows (the input's blocks where it carries
-    none)."""
+    at the level of ``space``'s rows."""
     if space is None:
         return t
-    rows = space.rows if space.rows is not None else space_rows(space.size, t.shape[1])
+    rows = _level_rows(space)
     if rows[-1][1] != t.shape[1]:
         raise ValueError(f"a tensor of {t.shape[1]} rows at a level of {rows[-1][1]}")
     a, b = rows[space.index]

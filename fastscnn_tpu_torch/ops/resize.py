@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from fastscnn_tpu_torch.ops.halo import layout, space_rows, window_rows
+from fastscnn_tpu_torch.ops.halo import layout, window_rows
 
 __all__ = ["resize_bilinear", "resize_bilinear_matmul", "resize_nearest", "nearest_index",
            "resize_rows", "resize_rows_matmul", "device_table_cache", "holding_tables",
@@ -292,22 +292,21 @@ def row_interp_matrix(rows_in: tuple, rows_out: tuple, s: int, dtype: torch.dtyp
 
 def _row_levels(x: torch.Tensor, size, space, out) -> tuple:
     """The rows of the input's and the output's levels of a row resize:
-    ``space``'s (or the input's blocks) and ``out``'s (or the input's
-    blocks of ``size[0]`` rows a rank)."""
-    rows_in = layout(x, space)
-    rows_out = (out.rows if out is not None and out.rows is not None
-                else space_rows(space.size, int(size[0]) * space.size))
+    ``space``'s and ``out``'s."""
+    rows_out = None if out is None else out.rows
+    if rows_out is None:
+        raise ValueError("a row resize under space needs the rows of its output's level")
     c, d = rows_out[space.index]
     if d - c != int(size[0]):
         raise ValueError(f"a block of {size[0]} output rows where the level's is {d - c}")
-    return rows_in, rows_out
+    return layout(x, space), rows_out
 
 
 def resize_rows(x: torch.Tensor, size, space=None, out=None) -> torch.Tensor:
     """``resize_bilinear(x, size)`` (align_corners=True, NHWC or (N, H, W)).
     Under ``space`` (``ops/halo.py``), ``x`` is this rank's block of rows of
-    ``space``'s level, ``out`` the Space of the output's level (None: the
-    input's blocks) and ``size`` its block's output size: this rank's
+    ``space``'s level, ``out`` the Space of the output's level and
+    ``size`` its block's output size: this rank's
     output rows of the global resize, from the window of source rows they
     read, with the global resize's weights in its order (the same bits)."""
     if space is None:

@@ -143,8 +143,8 @@ class Space:
     of the ranks at this space index (one a data place), over which a
     tensor replicated across ``space`` takes its batch statistics (None:
     one data place); ``rows``: the global rows ``(start, stop)`` that each
-    rank holds of one level of the network (``ops/halo.space_rows``; None:
-    the input's blocks, equal ones)."""
+    rank holds of one level of the network (``ops/halo.space_rows``), which
+    the exchanges require (None: no level yet; :meth:`at` attaches one)."""
 
     transport: Any
     index: int

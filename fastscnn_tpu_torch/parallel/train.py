@@ -82,6 +82,7 @@ from fastscnn_tpu_torch.engine.infer import IMAGENET_MEAN, IMAGENET_STD
 from fastscnn_tpu_torch.models.convert import to_param_trees
 from fastscnn_tpu_torch.models.fast_scnn import FastSCNN, space_levels
 from fastscnn_tpu_torch.ops.collectives import broadcast_, gather_rows, group_size, sum_
+from fastscnn_tpu_torch.ops.halo import space_rows
 from fastscnn_tpu_torch.ops.resize import resize_bilinear_matmul
 from fastscnn_tpu_torch.parallel.mesh import Mesh, check_spatial_height
 from fastscnn_tpu_torch.parallel.multihost import backend_of
@@ -421,20 +422,26 @@ def _microbatch_rows(t: torch.Tensor, grad_accum: int, dp: _DataParallel) -> tor
     return full.reshape(grad_accum, dp.size, per, *t.shape[1:])[:, dp.index].reshape(t.shape)
 
 
-def _check_blocks(images: torch.Tensor, space: Space) -> None:
+def _check_blocks(images: torch.Tensor, space: Space, checked: set) -> None:
     """JAX's refusal of an input whose H does not split in equal blocks over
     ``space`` (``mesh.check_spatial_height``): the ranks' block heights,
-    gathered over the space group in one small exchange (not inside a CUDA
-    graph's capture: the graphed step checks them in its warm-up), must be
-    equal, their sum divisible by the axis."""
-    if images.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+    gathered over the space group in one small exchange, must be equal,
+    their sum divisible by the axis. Each block height is checked once, the
+    first time the step sees it (in a graphed step's warm-up, not in its
+    capture), and added to ``checked``; every rank
+    passes its block of ``mesh.host_block``, so the ranks see a new height
+    together."""
+    h = images.shape[1]
+    if h in checked or (images.device.type == "cuda"
+                        and torch.cuda.is_current_stream_capturing()):
         return
     heights = [int(t) for t in space.transport.all_gather(
-        torch.tensor([images.shape[1]], dtype=torch.int64, device=images.device))]
+        torch.tensor([h], dtype=torch.int64, device=images.device))]
     check_spatial_height(sum(heights), space.size)
     if len(set(heights)) > 1:
         raise ValueError(f"the ranks' blocks of H differ ({heights} rows): each passes its "
                          "block of mesh.host_block, JAX's equal blocks")
+    checked.add(h)
 
 
 def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_aug,
@@ -453,11 +460,13 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
 
     def grads_of(params, model_state, x, targets, generator):
         cast = tree_map(lambda p: p.to(compute_dtype), params)
+        # under space the input's level: JAX's equal blocks (_check_blocks)
+        sp = None if space is None else space.at(space_rows(space.size, x.shape[1] * space.size))
         outputs, new_model_state = model.apply_params(
             cast, model_state, x, training=True, generator=generator, upsample_outputs=False,
-            group=group, space=space)
-        if space is not None:  # the loss's blocks of the 1/8 logits
-            loss_kwargs["space"] = space_levels(x, space)[3]
+            group=group, space=sp)
+        if sp is not None:  # the loss's blocks of the 1/8 logits
+            loss_kwargs["space"] = space_levels(x, sp)[3]
         loss = loss_fn(outputs, targets, **loss_kwargs).float()
         loss.backward()  # accumulates f32 gradients on the masters
         return loss.detach(), new_model_state
@@ -473,6 +482,8 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
     def grad_buffers(state: TrainState):
         return _grad_buffers(tree_leaves(state.params), dp is not None)
 
+    checked_heights = set()
+
     def compute(state: TrainState, batch: list, generator, aug_generator) -> torch.Tensor:
         if device_aug is not None and aug_generator is None:
             raise ValueError("a step with device_aug needs an aug_generator")
@@ -480,7 +491,7 @@ def _make_compute(model, loss_fn, compute_dtype, mean, std, grad_accum, device_a
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
         if space is not None:
-            _check_blocks(batch[0], space)
+            _check_blocks(batch[0], space, checked_heights)
         if dp is not None and grad_accum > 1 and dp.size > 1:
             batch[:] = [_microbatch_rows(t, grad_accum, dp) for t in batch]
         flat = grad_buffers(state)

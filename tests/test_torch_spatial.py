@@ -273,8 +273,8 @@ def _check_exchange(got, s, n, x, ref, grads, rows=None):
 def _exchanges_over_local_devices(n, rows=None):
     x = np.random.default_rng(EXCHANGE_SEED).normal(size=EXCHANGE_SHAPE)
     ref, grads = _exchange_reference(x, n, rows)
-    spaces = [sp.at(rows) if rows else sp for sp in spatial.local_spaces(["cpu"] * n)]
     blocks = rows or _equal_rows(x.shape[1], n)
+    spaces = [sp.at(blocks) for sp in spatial.local_spaces(["cpu"] * n)]
 
     def rank(s):
         block = torch.from_numpy(x[:, slice(*blocks[s])])
@@ -327,9 +327,10 @@ def test_block_ops_equal_the_whole_tensor_ops(op):
         assert torch.equal(rows(x, size, None), want)
 
         def fn(t, space):
-            return rows(t, (size[0] // n, size[1]), space)
+            return rows(t, (size[0] // n, size[1]), space,
+                        space.at(_equal_rows(size[0], n)))
 
-    spaces = spatial.local_spaces(["cpu"] * n)
+    spaces = [sp.at(_equal_rows(x.shape[1], n)) for sp in spatial.local_spaces(["cpu"] * n)]
     h = x.shape[1] // n
     got = torch.cat(spatial.run_spmd(spaces, lambda s: fn(x[:, s * h:(s + 1) * h], spaces[s])),
                     dim=1)
@@ -348,7 +349,8 @@ def test_block_ops_on_the_network_levels(height, n):
     op's (a conv's dW summed over the ranks)."""
     rng = np.random.default_rng(3)
     base = spatial.local_spaces(["cpu"] * n)
-    levels = [lv.rows for lv in space_levels(torch.zeros(1, height // n, 1, 1), base[0])]
+    levels = [lv.rows for lv in space_levels(torch.zeros(1, height // n, 1, 1),
+                                             base[0].at(_equal_rows(height, n)))]
     w = torch.from_numpy(rng.normal(size=(3, 3, 3, 4)))
 
     def conv(t, w, stride, padding):

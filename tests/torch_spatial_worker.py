@@ -30,7 +30,7 @@ from fastscnn_tpu_torch.parallel import (
 )
 from fastscnn_tpu_torch.parallel.mesh import host_block
 from fastscnn_tpu_torch.parallel.multihost import initialize_multihost, process_index
-from fastscnn_tpu_torch.ops.halo import gather_rows_h, halo_rows
+from fastscnn_tpu_torch.ops.halo import gather_rows_h, halo_rows, space_rows
 from fastscnn_tpu_torch.parallel.spatial import GroupTransport, Space
 from fastscnn_tpu_torch.utils import lr_schedule
 from fastscnn_tpu_torch.utils.tree import tree_leaves
@@ -90,10 +90,9 @@ def exchange_cases(spec, meshes, out):
         mesh = meshes[name]
         n = mesh.shape["space"]
         for tag, rows in (("", None), ("_uneven", UNEVEN[n])):
+            rows = rows or space_rows(n, whole.shape[1])
             space = Space(GroupTransport(mesh.space_group), mesh.space_index, n, rows=rows)
-            h = whole.shape[1] // n
-            a, b = rows[mesh.space_index] if rows else (mesh.space_index * h,
-                                                        (mesh.space_index + 1) * h)
+            a, b = rows[mesh.space_index]
             x = whole[:, a:b]
             got = exchange_case(space, x, exchange_weights(spec["exchange_seed"], x.shape, n,
                                                            mesh.space_index, whole.shape[1]))
