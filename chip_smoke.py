@@ -283,20 +283,36 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``demo`` on the 16-bit PNG, and a BMP body through the serving server,
    each mask equal to ``engine.predict``'s on every pixel, B3 at twice
    B1's launches and B1 at least once a frame;
-16. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14 and 15
-   (13's and 14's ranks' own counts too), plus the captured launches × the
-   replays of the graphs of phases 4b, 4c, 6b (the trainer's and the
-   evaluator's), 8, 9, 10, 12, 13 and 15, which no wrapper sees) and, last,
-   the device line ``{"ok": true, "device": {...}}``.
+16. Orbax checkpoints without orbax, tensorstore or zstandard
+   (:func:`orbax_phase`; all three blocked at the top of this file): (a) the
+   committed fixture of ``tests/fixtures/orbax`` (written by orbax through
+   the JAX package: raw, RLE and compressed zstd blocks, Huffman literals,
+   FSE tables, multi-block frames, an array in two chunks, ``bfloat16``,
+   the process-0 store merged at the root) read by ``utils/orbax_tree``,
+   every leaf equal to its regeneration from the seed with numpy; the zstd
+   decoder's MB/s on the fixture's frames, the CRCs and nodes checked;
+   (b) the recipe's graphed f32 step (19 classes, aux, mix OHEM CE, SGD
+   with the poly LR, ``stem_impl='pallas'``: B6) on 4 seeded 384x384
+   crops, under deterministic algorithms: 3 steps, ``save_train_state_orbax``,
+   3 more (the reference); a second state whose step graph was captured
+   first, ``load_train_state_orbax`` into it in place, the same 3 steps:
+   params, BN statistics, momentum buffers and step bit-equal to the
+   reference, the host ms to save and to load, the directory's bytes and
+   B6's launches;
+17. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14, 15 and
+   16 (13's and 14's ranks' own counts too), plus the captured launches ×
+   the replays of the graphs of phases 4b, 4c, 6b (the trainer's and the
+   evaluator's), 8, 9, 10, 12, 13, 15 and 16, which no wrapper sees) and,
+   last, the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
 run only these kernels' studies, one only phase 12, one only phase 13, one
-only phase 14, one only phase 15 and one only what needs several cards,
-with no device line:
+only phase 14, one only phase 15, one only phase 16 and one only what needs
+several cards, with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
@@ -306,6 +322,7 @@ with no device line:
                                            # PARENT and of this one
     python3 chip_smoke.py --jpeg           # the build, then phase 12
     python3 chip_smoke.py --images         # the build, then phase 15
+    python3 chip_smoke.py --orbax          # the build, then phase 16
     python3 chip_smoke.py --multidevice    # the build, phase 6's yardstick,
                                            # then phase 13
     python3 chip_smoke.py --spatial        # the build, phase 6's yardstick,
@@ -333,12 +350,12 @@ import sys
 import time
 import warnings
 
-# The card's machine has neither PIL, matplotlib (which imports PIL) nor
-# OpenCV: all three are blocked here as well, so that a stray import in the
-# port fails in this run wherever they are installed. The data loader's
-# worker processes load this file as their main module, so they run with
-# the same block.
-for _blocked in ("PIL", "matplotlib", "cv2"):
+# The card's machine has neither PIL, matplotlib (which imports PIL),
+# OpenCV, orbax, tensorstore nor zstandard: all are blocked here as well, so
+# that a stray import in the port fails in this run wherever they are
+# installed. The data loader's worker processes load this file as their main
+# module, so they run with the same block.
+for _blocked in ("PIL", "matplotlib", "cv2", "orbax", "tensorstore", "zstandard"):
     sys.modules[_blocked] = None
 
 SEED = 0
@@ -7319,6 +7336,155 @@ def images_phase(root):
     return launches
 
 
+# phase 16b: the recipe's graphed f32 step, steps before the save and after
+# it on each side, on a small seeded batch
+ORBAX_STEPS, ORBAX_BATCH, ORBAX_SIZE = 3, 4, 384
+
+
+def orbax_fixture_leg(root):
+    """16a: the committed Orbax fixture read without orbax, each leaf equal
+    to its regeneration from the seed; the zstd decoder's MB/s on its
+    frames (median of 20 passes), the CRCs and nodes checked."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch.utils import ocdbt, zstd
+    from fastscnn_tpu_torch.utils.orbax_tree import read_tree
+
+    for name in ("orbax", "tensorstore", "zstandard"):
+        try:
+            __import__(name)
+        except ImportError:
+            continue
+        raise AssertionError(f"{name} is importable: the block at the top of this file failed")
+    path = os.path.join(root, "tests", "fixtures", "orbax", "make_fixture.py")
+    spec = importlib.util.spec_from_file_location("orbax_fixture", path)
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    stats = {}
+    t0 = time.perf_counter()
+    tree = read_tree(fixture.STATE, stats)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    want = fixture.arrays(fixture.SEED)
+    if set(tree) != set(want):
+        raise AssertionError(f"16a: the fixture's leaves {sorted(tree)} are not {sorted(want)}")
+    for keys, value in want.items():
+        got = tree[keys]
+        got = (got.view(torch.uint16) if got.dtype == torch.bfloat16 else got).numpy()
+        if got.dtype != value.dtype or got.shape != value.shape or not np.array_equal(got, value):
+            raise AssertionError(f"16a: fixture leaf {keys} differs from its regeneration")
+    missing = [k for k in fixture.COVERAGE if not stats["zstd"].get(k)]
+    if missing:
+        raise AssertionError(f"16a: the fixture's frames hold no {missing}")
+    frames = [v for k, v in ocdbt.read_store(fixture.STATE).items()
+              if not k.endswith(b"/.zarray")]
+    nbytes = sum(len(zstd.decompress(f)) for f in frames)
+    times = []
+    for _ in range(20):
+        t = time.perf_counter()
+        for f in frames:
+            zstd.decompress(f)
+        times.append(time.perf_counter() - t)
+    z = stats["zstd"]
+    _print(f"16a: the Orbax fixture ({len(want)} leaves, orbax's bytes) equal to its "
+           f"regeneration from seed {fixture.SEED}, read in {read_ms:.1f} ms: "
+           f"{stats['crcs']} CRC-32C checked ({stats['btree_nodes']} B-tree nodes, "
+           f"{stats.get('version_nodes', 0)} version nodes, the manifest), "
+           f"{stats['data_files']} data files; zstd {len(frames)} frames, "
+           f"{sum(map(len, frames))} -> {nbytes} bytes, "
+           f"{nbytes / statistics.median(times) / 1e6:.1f} MB/s (median of 20 passes); blocks "
+           f"raw {z['raw_blocks']}, RLE {z['rle_blocks']}, compressed {z['compressed_blocks']}, "
+           f"Huffman literals {z['huffman_1_stream']} x1 and {z['huffman_4_streams']} x4 "
+           f"streams, FSE tables {z['fse_tables']}, {z['multiblock_frames']} multi-block frames")
+
+
+def orbax_resume_leg(root):
+    """16b: a graphed f32 resume through an Orbax directory, bit-equal to
+    the uninterrupted run. Returns {kernel: launches}."""
+    import shutil
+
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import launch_counts
+    from fastscnn_tpu_torch.utils.checkpoint import load_train_state_orbax, save_train_state_orbax
+    from fastscnn_tpu_torch.utils.tree import tree_leaves
+
+    def tensors(state):
+        params = tree_leaves(state.params)
+        return (params + tree_leaves(state.model_state)
+                + [state.opt_state.state[p]["momentum_buffer"] for p in params])
+
+    dev = torch.device("cuda")
+    images, targets = training_batch(dev, n=ORBAX_BATCH, height=ORBAX_SIZE, width=ORBAX_SIZE)
+    trainer = recipe_trainer(dev, graph=True)
+    work = os.path.join(root, "build", "chip_smoke_orbax")
+    _fresh_dir(work)
+    directory = os.path.join(work, "state")
+    before = launch_counts()
+    t_leg = time.perf_counter()
+    with deterministic_algorithms():
+        ref, ref_step = trainer("pallas", torch.float32)
+        for _ in range(ORBAX_STEPS):
+            ref_step(ref, images, targets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_train_state_orbax(ref, directory)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ref_losses = [ref_step(ref, images, targets)[1]["loss"] for _ in range(ORBAX_STEPS)]
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t_leg
+        resumed, step = trainer("pallas", torch.float32)
+        step(resumed, images, targets)  # captures its graph; the load undoes the step
+        addresses = [t.data_ptr() for t in tensors(resumed)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_train_state_orbax(directory, resumed)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if [t.data_ptr() for t in tensors(resumed)] != addresses or resumed.step != ORBAX_STEPS:
+            raise AssertionError("16b: the load rebound the template's tensors or missed the step")
+        losses = [step(resumed, images, targets)[1]["loss"] for _ in range(ORBAX_STEPS)]
+        torch.cuda.synchronize()
+    t_resumed = time.perf_counter() - t_leg - t_ref
+    after = launch_counts()
+    counts = {k: after[k] - before.get(k, 0) for k in after}
+    for k, n in _graph_launches([ref_step, step]).items():
+        counts[k] = counts.get(k, 0) + n
+    launches = {TRAINING_NAMES[k]: counts.get(k, 0) for k in TRAINING_NAMES}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"16b: B6 was not launched on the resumed path: {launches}")
+    same = all(torch.equal(a, b) for a, b in zip(tensors(ref), tensors(resumed)))
+    if not same or resumed.step != ref.step or not all(
+            torch.equal(a, b) for a, b in zip(ref_losses, losses)):
+        raise AssertionError("16b: the resumed run differs from the uninterrupted one")
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(directory) for f in fs)
+    _print(f"16b: recipe step graphed, f32, {ORBAX_BATCH}x{ORBAX_SIZE}x{ORBAX_SIZE}: "
+           f"{ORBAX_STEPS} steps, save, {ORBAX_STEPS} more, against a captured template "
+           f"loaded in place and stepped {ORBAX_STEPS} times: params, BN statistics, "
+           f"momentum buffers, losses and step ({resumed.step}) bit-equal; host ms to save "
+           f"{save_ms:.1f}, to load {load_ms:.1f}; the directory {size} bytes in "
+           f"{sum(len(fs) for _, _, fs in os.walk(directory))} files; B6 launches {launches}; "
+           f"the reference run {t_ref:.1f} s (a capture, {2 * ORBAX_STEPS} steps, the save), "
+           f"the resumed {t_resumed:.1f} s (a capture, the load, {ORBAX_STEPS} steps)")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def orbax_phase(root):
+    """Phase 16: Orbax checkpoints without orbax: (a)
+    :func:`orbax_fixture_leg`, (b) :func:`orbax_resume_leg`. Returns the
+    kernel launches of (b)."""
+    t_phase = time.perf_counter()
+    orbax_fixture_leg(root)
+    t_a = time.perf_counter() - t_phase
+    launches = orbax_resume_leg(root)
+    _print(f"phase 16 launches: {launches}")
+    _print(f"phase 16: {time.perf_counter() - t_phase:.1f} s (16a {t_a:.1f} s)")
+    return launches
+
+
 def main() -> int:
     import argparse
     import gc
@@ -7341,6 +7507,9 @@ def main() -> int:
     parser.add_argument("--images", action="store_true",
                         help="only phase 15 (every image format without PIL), after the build, "
                              "with no device line")
+    parser.add_argument("--orbax", action="store_true",
+                        help="only phase 16 (Orbax checkpoints without orbax), after the "
+                             "build, with no device line")
     parser.add_argument("--multidevice", action="store_true",
                         help="only phase 13 (data parallelism over torch.distributed), after "
                              "the build and phase 6's f32 yardstick, with no device line")
@@ -7419,6 +7588,9 @@ def main() -> int:
     if args.images:
         images_phase(root)
         return 0
+    if args.orbax:
+        orbax_phase(root)
+        return 0
     if args.multidevice or args.spatial:
         dev = torch.device("cuda")
         images, targets = training_batch(dev)
@@ -7496,6 +7668,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in images_phase(root).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in orbax_phase(root).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -135,6 +135,11 @@ class Optimizer:
         return float(self.schedule(step)) if callable(self.schedule) else float(self.schedule)
 
     def init(self, params) -> torch.optim.Optimizer:
+        """The ``torch.optim`` optimizer over the leaves of ``params``. Its
+        ``schedule_count`` says whether the JAX package's optimizer state
+        carries a ``ScaleByScheduleState`` count (a callable schedule) or an
+        ``EmptyState`` (a constant rate), which an Orbax checkpoint's tree
+        must match (``utils/checkpoint.save_train_state_orbax``)."""
         leaves = tree_leaves(params)
         lr = self.learning_rate(0)
         on_card = leaves[0].device.type == "cuda"
@@ -144,12 +149,15 @@ class Optimizer:
             # decayed weights added to the gradient, then momentum (the
             # first step's buffer is the gradient): optax's
             # add_decayed_weights + sgd(momentum)
-            return torch.optim.SGD(leaves, lr=lr, momentum=self.momentum,
-                                   weight_decay=self.weight_decay, fused=True if on_card else None)
-        # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, decoupled
-        # decay lr · wd · p
-        return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=self.weight_decay, capturable=on_card)
+            opt = torch.optim.SGD(leaves, lr=lr, momentum=self.momentum,
+                                  weight_decay=self.weight_decay, fused=True if on_card else None)
+        else:
+            # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, decoupled
+            # decay lr · wd · p
+            opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=self.weight_decay, capturable=on_card)
+        opt.schedule_count = callable(self.schedule)
+        return opt
 
 
 def make_optimizer(name: str = "sgd", schedule: Callable | float = 1e-2, momentum: float = 0.9,

@@ -23,8 +23,21 @@ optax's states as the JAX package builds them — SGD ``(EmptyState,
 ``(ScaleByAdamState(count, mu, nu), EmptyState,
 ScaleByScheduleState(count))``. ``trace`` becomes torch SGD's
 ``momentum_buffer``, ``mu``/``nu``/``count`` AdamW's
-``exp_avg``/``exp_avg_sq``/``step``. The JAX Orbax backend has no
-counterpart (it cannot be read without its package).
+``exp_avg``/``exp_avg_sq``/``step``.
+
+3. The JAX package's Orbax pair, :func:`save_train_state_orbax` and
+   :func:`load_train_state_orbax`: the directory ``orbax.checkpoint``'s
+   ``StandardCheckpointer`` writes for ``TrainState(params, model_state,
+   opt_state, step)``, read and written without orbax, tensorstore or
+   zstandard (``utils/orbax_tree``, ``utils/ocdbt``, ``utils/zarr``,
+   ``utils/zstd``). The leaves are named by key path, the optimizer's as
+   optax's states name them: SGD ``opt_state.0`` (the decay's
+   ``EmptyState``), ``opt_state.1.0.trace.<path>`` (torch's
+   ``momentum_buffer``) and ``opt_state.1.1.count`` (a callable schedule's
+   count; an ``EmptyState`` for a constant rate); AdamW
+   ``opt_state.0.{count,mu,nu}`` (``step``, ``exp_avg``, ``exp_avg_sq``),
+   ``opt_state.1`` and ``opt_state.2.count``. The port's zstd writes raw
+   blocks, so its directories are larger than orbax's.
 """
 
 from __future__ import annotations
@@ -48,6 +61,8 @@ __all__ = [
     "load_pth_checkpoint",
     "save_train_state",
     "load_train_state",
+    "save_train_state_orbax",
+    "load_train_state_orbax",
 ]
 
 
@@ -243,4 +258,174 @@ def _load_jax_train_state(path, template_state):
         state[i] = entry
     _load_optimizer_state(opt, state)
     template_state.step = int(leaves["step"][0])
+    return template_state
+
+
+# -- the Orbax pair -----------------------------------------------------------
+
+# where optax keeps a callable schedule's count: SGD's, AdamW's (the load
+# takes either, or none: the port's rate follows the step)
+_SCHEDULE_COUNTS = {("opt_state", "1", "1", "count"), ("opt_state", "2", "count")}
+
+
+def _tree_paths(tree):
+    """(key path, key types, leaf) in JAX's order: list order, dict keys
+    sorted; orbax's key types, 1 for an index and 2 for a key."""
+    from fastscnn_tpu_torch.utils.orbax_tree import DICT, SEQUENCE
+
+    if isinstance(tree, dict):
+        items = [(str(k), DICT, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), SEQUENCE, sub) for i, sub in enumerate(tree)]
+    else:
+        yield (), (), tree
+        return
+    for key, kind, sub in items:
+        for p, t, v in _tree_paths(sub):
+            yield (key,) + p, (kind,) + t, v
+
+
+def _orbax_layout(state) -> list:
+    """What each leaf of JAX's ``TrainState`` is in the port's: (key path,
+    key types, kind, ref), in JAX's order. Kinds: ``tensor`` (ref: a master
+    or a BN statistic), ``slot`` (ref: (param index, optimizer slot)),
+    ``count`` (AdamW's shared step), ``schedule`` (a schedule's count),
+    ``step`` and ``none`` (an empty node)."""
+    from fastscnn_tpu_torch.utils.orbax_tree import DICT as D, SEQUENCE as S
+
+    params = list(_tree_paths(state.params))
+    opt = state.opt_state
+    leaves = [v for _, _, v in params]
+    groups = [p for g in opt.param_groups for p in g["params"]]
+    if len(groups) != len(leaves) or any(a is not b for a, b in zip(groups, leaves)):
+        raise ValueError("the optimizer's params are not the state's param leaves in order")
+    out = [(("params",) + p, (D,) + t, "tensor", v) for p, t, v in params]
+    out += [(("model_state",) + p, (D,) + t, "tensor", v)
+            for p, t, v in _tree_paths(state.model_state)]
+
+    def slots(prefix, types, name):
+        return [(prefix + p, types + t, "slot", (i, name)) for i, (p, t, _) in enumerate(params)]
+
+    counted = getattr(opt, "schedule_count", True)
+    if isinstance(opt, torch.optim.AdamW):
+        out += [(("opt_state", "0", "count"), (D, S, D), "count", None)]
+        out += slots(("opt_state", "0", "mu"), (D, S, D), "exp_avg")
+        out += slots(("opt_state", "0", "nu"), (D, S, D), "exp_avg_sq")
+        out += [(("opt_state", "1"), (D, S), "none", None)]
+        out += [(("opt_state", "2", "count"), (D, S, D), "schedule", None) if counted
+                else (("opt_state", "2"), (D, S), "none", None)]
+    elif isinstance(opt, torch.optim.SGD):
+        out += [(("opt_state", "0"), (D, S), "none", None)]
+        out += slots(("opt_state", "1", "0", "trace"), (D, S, S, D), "momentum_buffer")
+        out += [(("opt_state", "1", "1", "count"), (D, S, S, D), "schedule", None) if counted
+                else (("opt_state", "1", "1"), (D, S, S), "none", None)]
+    else:
+        raise TypeError(f"no JAX optimizer state maps to {type(opt).__name__}")
+    return out + [(("step",), (D,), "step", None)]
+
+
+def _adamw_count(opt, leaves) -> int:
+    """AdamW's one step (optax's ``count``): every param's, which must agree
+    (0 before the first step)."""
+    steps = {float(opt.state[p]["step"]) for p in leaves if "step" in opt.state.get(p, {})}
+    if len(steps) > 1 or (steps and any("step" not in opt.state.get(p, {}) for p in leaves)):
+        raise ValueError(f"AdamW's per-param steps differ ({sorted(steps)[:4]}): optax keeps one "
+                         "count")
+    return int(steps.pop()) if steps else 0
+
+
+def save_train_state_orbax(train_state, directory):
+    """Write ``train_state`` (the port's
+    :class:`~fastscnn_tpu_torch.parallel.train.TrainState`) as the Orbax
+    checkpoint that the JAX package's ``save_train_state_orbax`` writes for
+    the same state, which its ``load_train_state_orbax`` restores into a JAX
+    ``TrainState``. A momentum or moment buffer torch has not made yet (before
+    the first step) is written as zeros, where optax's starts. Under a
+    ``torch.distributed`` process group the state is replicated: every rank
+    calls this, rank 0 writes, and every rank returns once it has. Returns
+    the absolute directory."""
+    from fastscnn_tpu_torch.utils.orbax_tree import write_tree
+
+    directory = os.path.abspath(directory)
+    dist = torch.distributed if torch.distributed.is_available() and \
+        torch.distributed.is_initialized() else None
+    error = None
+    if dist is None or dist.get_rank() == 0:
+        try:
+            opt, step = train_state.opt_state, int(train_state.step)
+            leaves = tree_leaves(train_state.params)
+            entries = []
+            for keys, types, kind, ref in _orbax_layout(train_state):
+                if kind == "tensor":
+                    value = ref.detach()
+                elif kind == "slot":
+                    p = leaves[ref[0]]
+                    value = opt.state.get(p, {}).get(ref[1])
+                    value = torch.zeros_like(p.detach()) if value is None else value.detach()
+                elif kind == "count":
+                    value = torch.tensor(_adamw_count(opt, leaves), dtype=torch.int32)
+                elif kind in ("schedule", "step"):
+                    value = torch.tensor(step, dtype=torch.int32)
+                else:
+                    value = None
+                entries.append((keys, types, value))
+            write_tree(directory, entries)
+        except Exception as e:  # every rank raises it, none waits for rank 0
+            error = e
+    if dist is not None:
+        message = [None if error is None else f"{type(error).__name__}: {error}"]
+        dist.broadcast_object_list(message, src=0)
+        if message[0] is not None and error is None:
+            raise RuntimeError(f"rank 0 could not write {directory}: {message[0]}")
+    if error is not None:
+        raise error
+    return directory
+
+
+def load_train_state_orbax(directory, template_state):
+    """Restore the Orbax checkpoint at ``directory`` — the JAX package's
+    ``save_train_state_orbax``'s or :func:`save_train_state_orbax`'s — into
+    ``template_state`` (same model and optimizer), in place, as
+    :func:`load_train_state` restores: every key and shape is checked before
+    the first copy (a mismatch raises and leaves the template as it was),
+    the masters, BN statistics and optimizer slots are copied into the
+    template's tensors (a CUDA graph captured on them reads the restored
+    values), and the template's param-group options are kept. A schedule's
+    count is not read: the port's rate follows the step. Every rank of a
+    process group reads the directory. Returns the state."""
+    from fastscnn_tpu_torch.utils.orbax_tree import read_tree
+
+    directory = os.path.abspath(directory)
+    tree = read_tree(directory)
+    layout = _orbax_layout(template_state)
+    leaves = tree_leaves(template_state.params)
+    reads = [e for e in layout if e[2] not in ("none", "schedule")]
+    want = {keys for keys, _, _, _ in reads}
+    got = {k for k, v in tree.items() if v is not None and k not in _SCHEDULE_COUNTS}
+    if want != got:
+        missing, extra = sorted(want - got), sorted(got - want)
+        raise ValueError(f"{directory}: the checkpoint's leaves differ from the template's: "
+                         f"{len(missing)} missing (e.g. {missing[:3]}), {len(extra)} extra "
+                         f"(e.g. {extra[:3]})")
+    for keys, _, kind, ref in reads:
+        shape = (tuple(ref.shape) if kind == "tensor" else tuple(leaves[ref[0]].shape)
+                 if kind == "slot" else ())
+        if tuple(tree[keys].shape) != shape:
+            raise ValueError(f"{directory}: shape mismatch restoring train state, "
+                             f"{'.'.join(keys)}: {tuple(tree[keys].shape)} in the checkpoint vs "
+                             f"{shape}")
+    slots: dict = {}
+    with torch.no_grad():
+        for keys, _, kind, ref in reads:
+            value = tree[keys]
+            if kind == "tensor":
+                ref.copy_(value)
+            elif kind == "slot":
+                slots.setdefault(ref[0], {})[ref[1]] = value.to(torch.float32)
+            elif kind == "count":
+                for i in range(len(leaves)):
+                    slots.setdefault(i, {})["step"] = torch.tensor(float(value),
+                                                                   dtype=torch.float32)
+    _load_optimizer_state(template_state.opt_state, slots)
+    template_state.step = int(tree[("step",)])
     return template_state

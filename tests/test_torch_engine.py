@@ -252,14 +252,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has jax loaded already),
     importing every module of the port loads no jax, no fastscnn_tpu and
     none of the packages the card's machine lacks — PIL, OpenCV,
-    scikit-learn, matplotlib, tensorflow, grain (only the functions that
-    need one import it)."""
+    scikit-learn, matplotlib, tensorflow, grain, orbax, tensorstore,
+    zstandard (only the functions that need one import it; the Orbax
+    checkpoints need none)."""
     code = (
         "import sys, pkgutil, importlib, fastscnn_tpu_torch\n"
         "for m in pkgutil.walk_packages(fastscnn_tpu_torch.__path__, 'fastscnn_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "banned = ('jax', 'fastscnn_tpu', 'PIL', 'cv2', 'sklearn', 'matplotlib', 'tensorflow',\n"
-        "          'grain')\n"
+        "          'grain', 'orbax', 'tensorstore', 'zstandard')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "n = sum(m.startswith('fastscnn_tpu_torch') for m in sys.modules)\n"
         "need = {'fastscnn_tpu_torch.' + m for m in ('parallel.train', 'losses.segmentation',\n"
@@ -280,7 +281,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'serialbridge.rich_protocol', 'tools.manual_control', 'tools.analyzers',\n"
         "        'engine.export', 'engine.onnx_native', 'export_model', 'data.jpeg',\n"
         "        'utils.native', 'parallel.mesh', 'parallel.multihost', 'ops.collectives',\n"
-        "        'tools.multihost_smoke', 'entry')}\n"
+        "        'tools.multihost_smoke', 'entry', 'utils.zstd', 'utils.ocdbt', 'utils.zarr',\n"
+        "        'utils.orbax_tree')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )

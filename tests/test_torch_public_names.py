@@ -53,8 +53,6 @@ EXCEPTIONS = {
     ("ops/pallas/dw_conv.py", "ds_conv3x3_pw_pallas_multirow"):
         "ops/cuda/dw_conv.py::ds_conv3x3_pw_multirow",
     ("tools/xplane.py", "MXU_TFLOPS_BF16"): "tools/xplane.py::TC_TFLOPS_BF16 (the card's peak)",
-    ("utils/checkpoint.py", "save_train_state_orbax"): "item 5, left out: Orbax",
-    ("utils/checkpoint.py", "load_train_state_orbax"): "item 5, left out: Orbax",
 }
 SHIMS = ("train", "evaluate", "demo", "export_model", "pipeline", "dashboard")
 
