@@ -181,7 +181,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    1024x2048 exported with ``export_torch`` (f32 and bf16) and loaded back:
    its masks against config A's ``predict_fn`` (f32 on 99.9 % of pixels),
    its ms a frame beside the graph's, its bytes, and a small artifact moved
-   to the CPU; ``export_model.main`` at the JAX CLI's defaults, with
+   to the CPU; then configs A to D exported with their kernels' operators
+   (f32, and A in bf16 too), each held to its own ``predict_fn`` (f32 on
+   99.9 % of pixels), one artifact call's launches equal to one eager
+   ``predict``'s, its ms a frame beside the graph's and the kernel-free
+   artifact's, and A's small artifact on the CPU with no launch
+   (:func:`export_kernel_leg`); ``export_model.main`` at the JAX CLI's defaults, with
    ``--atc-compat`` and in ``onnx``, each through its own gate; the
    1024x2048 ONNX graph through the numpy evaluator against config A (99.9
    %); ``pipeline.main --export-path`` on a ``.pt2`` and an ``.onnx``,
@@ -231,7 +236,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 13. data parallelism over ``torch.distributed`` on the one card
    (:func:`multidevice_phase`; two NCCL ranks cannot share a card, so
    ranks share cuda:0 over gloo): (a) ``entry.dryrun_multichip(2)``, its
-   legs in 2 gloo processes and its 2-process ``multihost_smoke`` stage;
+   legs in 2 gloo processes and its 2-process ``multihost_smoke`` stage,
+   run beside (b)-(e) and phase 14's spawned group, which start with it
+   (the parent only waits on their processes; their timings share the card);
    (b) the recipe at full width (19 classes, aux, OHEM CE, SGD,
    ``stem_impl='pallas'``) on the 16 768x768 crops over 2 gloo ranks, 8
    each, 3 f32 and 3 bf16 eager steps: the loss histories bit-equal across
@@ -310,9 +317,10 @@ After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
 forward, dX and dW, B7, B8, B2, B1) beside their library calls three ways: device time, windows
 without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
-run only these kernels' studies, one only phase 12, one only phase 13, one
-only phase 14, one only phase 15, one only phase 16 and one only what needs
-several cards, with no device line:
+run only these kernels' studies, one an older checkout's eager and graphed
+config A beside this one's, one only phase 10b (i), one only phase 12, one
+only phase 13, one only phase 14, one only phase 15, one only phase 16 and
+one only what needs several cards, with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
                                            # the depthwise kernels, B3 and B5
@@ -320,6 +328,9 @@ several cards, with no device line:
     python3 chip_smoke.py --tune-mask      # registers, B2's and B1's tiles, strips, runs
     python3 chip_smoke.py --dw-ab PARENT   # dw_costs of the checkout at
                                            # PARENT and of this one
+    python3 chip_smoke.py --dispatch-ab PARENT  # predict_costs of the
+                                           # checkout at PARENT and of this one
+    python3 chip_smoke.py --export         # the build, then phase 10b (i)
     python3 chip_smoke.py --jpeg           # the build, then phase 12
     python3 chip_smoke.py --images         # the build, then phase 15
     python3 chip_smoke.py --orbax          # the build, then phase 16
@@ -339,6 +350,7 @@ Without a CUDA device it prints an error and exits 1.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -387,6 +399,9 @@ KERNEL_MASK_GATE = 0.999  # small f32 input vs the CPU (B1/B2 are held to every 
 NEAR_TIE = 1e-5        # f32 gap below which a disagreeing pixel is a near-tie
 SPIN_CYCLES = 20_000_000  # the spin kernel before each timing window (~10 ms on an H100)
 BUILD_CACHE = [None]  # the compile cache phase 2 builds the kernels into
+
+
+T_START = time.perf_counter()
 
 
 def _print(*args):
@@ -4531,7 +4546,8 @@ def export_main_model_leg(work, dev):
     (B3, B1) on EXPORT_FRAMES frames, f32 gated at EXPORT_GATE; the
     artifact's ms a frame (CUDA events, N = 1) beside the graph's; the .pt2
     bytes. Then a small artifact exported on the card and loaded onto the
-    CPU (``move_to_device_pass``), held to the card's. Returns the f32
+    CPU (``move_to_device_pass``), held to the card's; then the kernel
+    artifacts of configs A to D (:func:`export_kernel_leg`). Returns the f32
     engines' model (for 10b (iii)/(iv)), the frames and the f32 path."""
     import torch
 
@@ -4542,7 +4558,8 @@ def export_main_model_leg(work, dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     frames = torch.randint(0, 256, (BATCH + EXPORT_FRAMES, HEIGHT, WIDTH, 3), generator=g,
                            device=dev, dtype=torch.uint8)
-    state = calibrated_state(frames[:BATCH])
+    calib = frames[:BATCH]
+    state = calibrated_state(calib)
     frames = frames[BATCH:]
 
     def engine(impl, mode, dtype, device=dev):
@@ -4551,7 +4568,7 @@ def export_main_model_leg(work, dev):
         return InferenceEngine(model, device=device, config=E2EConfig(
             mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
 
-    paths = {}
+    paths, plain_ms = {}, {}
     for dtype in ("float32", "bfloat16"):
         ref = engine("conv", "hybrid", dtype)
         t0 = time.perf_counter()
@@ -4579,7 +4596,7 @@ def export_main_model_leg(work, dev):
                f"artifact {art_ms:.3f}, config A graph {graph_ms:.3f}")
         if dtype == "float32" and mean < EXPORT_GATE:
             raise AssertionError(f"10b (i): f32 artifact agrees with config A on {mean}")
-        paths[dtype] = path
+        paths[dtype], plain_ms[dtype] = path, art_ms
         del art, a_fn, ref
     small = engine("conv", "hybrid", "float32")
     path = export_torch(small, MOVE_SHAPE, os.path.join(work, "small.pt2"))
@@ -4591,7 +4608,121 @@ def export_main_model_leg(work, dev):
            f"equal to the card's on {moved:.6f} of pixels")
     if on_cpu.device.type != "cpu" or moved < EXPORT_GATE:
         raise AssertionError("10b (i): the artifact moved to the CPU disagrees")
+    export_kernel_leg(work, dev, state, calib, frames, plain_ms)
     return state, frames, paths["float32"]
+
+
+def _launches_of(fn, x):
+    """The kernel launches of one ``fn(x)`` call (the wrappers' counts
+    before and after it; the counts themselves are left running)."""
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import launch_counts
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    fn(x)
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+
+
+def export_kernel_leg(work, dev, state, calib, frames, plain_ms):
+    """10b (i), the kernel artifacts: configs A to D of phase 4
+    (``SERVING_CONFIGS``, the int8 scales calibrated once on the kernel-free
+    bf16 model over the calibration frames, as phase 4 does) exported with
+    ``export_torch`` on the card at EXPORT_SHAPE in f32, and A in bf16 too,
+    each program holding its kernels' ``fastscnn::`` operators; each loaded
+    back with ``load_exported`` and held to the same configuration's
+    ``predict_fn`` on EXPORT_FRAMES frames (f32 at EXPORT_GATE, the exact
+    share printed; bf16 reported); the launches of one artifact call equal
+    to those of one eager ``predict`` and to phase 4's counts for the
+    configuration, so the artifact runs the hand-written kernels and not
+    their plain versions; its ms a frame (CUDA events, N = 1) beside the
+    configuration's graph and the kernel-free artifact of the same dtype
+    (``plain_ms``), its bytes. Then config A's artifact at MOVE_SHAPE,
+    exported on the card and loaded onto the CPU: no launch, its masks on
+    EXPORT_GATE of the card artifact's."""
+    import gc
+
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.engine.export import export_torch, load_exported
+    from fastscnn_tpu_torch.models import FastSCNN, calibrate_pw_scales, quantized_model
+
+    def engine(impl, pw, mode, dtype):
+        model = FastSCNN(NUM_CLASSES, folded_dw_impl=impl)
+        model.load_state_dict(state)
+        if pw != "conv":
+            model = quantized_model(model, scales, pw)
+        return InferenceEngine(model, device=dev, config=E2EConfig(
+            mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype=dtype, final_upsample=mode))
+
+    cal = engine("conv", "conv", "hybrid", "bfloat16")
+    scales = calibrate_pw_scales(cal.model, cal.folded, [calib], preprocess=cal._preprocess)
+    del cal
+    failures, x = [], frames[:1]
+    for label, impl, pw, mode, per_request in SERVING_CONFIGS:
+        if label == "ref":
+            continue
+        for dtype in ("float32", "bfloat16") if label == "A" else ("float32",):
+            eng = engine(impl, pw, mode, dtype)
+            t0 = time.perf_counter()
+            path = export_torch(eng, EXPORT_SHAPE, os.path.join(work, f"e2e_{label}_{dtype}.pt2"))
+            t_export = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            art = load_exported(path)
+            t_load = time.perf_counter() - t0
+            ops = sorted({str(n.target).split(".")[1] for n in art.program.graph.nodes
+                          if str(n.target).startswith("fastscnn.")})
+            fn = eng.predict_fn(EXPORT_SHAPE)
+            agree = []
+            for i in range(EXPORT_FRAMES):
+                got, want = art(frames[i:i + 1]), fn(frames[i:i + 1])
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    failures.append(f"config {label} {dtype}: artifact {got.dtype} "
+                                    f"{tuple(got.shape)}, predict_fn {want.dtype} "
+                                    f"{tuple(want.shape)}")
+                agree.append(float((got == want).float().mean()))
+            mean = sum(agree) / len(agree)
+            art_counts, eager_counts = _launches_of(art, x), _launches_of(eng.predict, x)
+            art_ms, graph_ms = time_ms(lambda: art(x)), time_ms(lambda: fn(x))
+            _print(f"  10b (i) config {label} {dtype} ({impl} + {pw} + {mode}): export_torch "
+                   f"{t_export:.1f} s ({os.path.getsize(path)} bytes, operators {ops}), "
+                   f"load_exported {t_load:.1f} s; artifact masks vs predict_fn {mean!r} (per "
+                   f"frame {agree}); launches of one call: artifact {art_counts}, eager predict "
+                   f"{eager_counts}; ms a frame (N=1): artifact {art_ms:.3f}, predict_fn graph "
+                   f"{graph_ms:.3f}, kernel-free artifact {plain_ms[dtype]:.3f}")
+            if not art_counts or art_counts != eager_counts or art_counts != per_request:
+                failures.append(f"config {label} {dtype}: artifact launches {art_counts}, eager "
+                                f"{eager_counts}, phase 4's {per_request}")
+            if sorted(per_request) != ops:
+                failures.append(f"config {label} {dtype}: operators {ops}, kernels "
+                                f"{sorted(per_request)}")
+            if dtype == "float32" and mean < EXPORT_GATE:
+                failures.append(f"config {label} f32: artifact agrees with predict_fn on {mean}")
+            del art, fn, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    small = engine("fused-ds", "conv", "pallas", "float32")
+    path = export_torch(small, MOVE_SHAPE, os.path.join(work, "small_A.pt2"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    xs = torch.randint(0, 256, MOVE_SHAPE, generator=g, device=dev, dtype=torch.uint8)
+    card = load_exported(path)
+    card_counts = _launches_of(card, xs)
+    on_card = card(xs).cpu()
+    on_cpu_art = load_exported(path, device="cpu")
+    cpu_counts = _launches_of(on_cpu_art, xs.cpu())
+    on_cpu = on_cpu_art(xs.cpu())
+    moved = float((on_card == on_cpu).float().mean())
+    _print(f"  10b (i) config A's {MOVE_SHAPE} artifact exported on the card: launches on the "
+           f"card {card_counts}, loaded onto the CPU {cpu_counts}; CPU masks equal to the "
+           f"card's on {moved!r} of pixels")
+    if cpu_counts or card_counts != SERVING_CONFIGS[1][4] or on_cpu.device.type != "cpu" \
+            or moved < EXPORT_GATE:
+        failures.append("config A's artifact moved to the CPU: launches or masks disagree")
+    if failures:
+        raise AssertionError("10b (i) kernel artifacts: " + "; ".join(failures))
 
 
 def export_cli_leg(work, lane):
@@ -4699,8 +4830,8 @@ def export_consumers_leg(work, state, frames, pt2, onnx, cli):
 
 def car_export_phase(root):
     """Phase 10: the car's side (10a) and the export surface (10b). Returns
-    the launches of B3 and B1 (the wrappers' counts plus every graph's
-    captured launches x its replays)."""
+    the kernels' launches (the wrappers' counts, the kernel artifacts' calls
+    included, plus every graph's captured launches x its replays)."""
     import gc
     import shutil
 
@@ -4746,7 +4877,8 @@ def car_export_phase(root):
     finally:
         stop()
     eager = launch_counts()
-    launches = {k: eager.get(k, 0) + tally.get(k, 0) for k in ("ds_conv3x3_pw", "upsample_argmax")}
+    launches = {k: eager.get(k, 0) + tally.get(k, 0) for k in set(eager) | set(tally)
+                if eager.get(k, 0) + tally.get(k, 0)}
     _print(f"phase 10 launches (eager {({k: v for k, v in eager.items() if v})}, replayed "
            f"{tally}): {launches}")
     if not (tally.get("ds_conv3x3_pw") and tally.get("upsample_argmax")):
@@ -6108,27 +6240,43 @@ def multicard_phase(root):
            f"{t_b - t_phase:.1f} s, b {t_c - t_b:.1f} s, e {time.perf_counter() - t_e:.1f} s)")
 
 
-def multidevice_phase(root, yard):
-    """Phase 13: (a) ``entry.dryrun_multichip(2)`` as 2 gloo processes on
-    cuda:0; (b) and (c) :func:`dp_train_leg`; (d) :func:`dp_serve_leg`; (e)
-    ``serving --data-parallel 2`` refused with the JAX parser error on a
-    one-card machine. Returns the kernel launches of (b)-(d)."""
+def _timed(fn, *args):
+    """``fn(*args)`` and the seconds it took."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def dryrun_leg():
+    """13 (a): ``entry.dryrun_multichip(2)`` as 2 gloo processes on cuda:0,
+    then its 2-process stage; the parent only reads their results. Returns
+    the result and its seconds."""
+    from fastscnn_tpu_torch.entry import dryrun_multichip
+
+    return _timed(dryrun_multichip, DP_RANKS, "cuda")
+
+
+def multidevice_phase(root, yard, dryrun=None):
+    """Phase 13: (a) :func:`dryrun_leg`, or its future ``dryrun`` when the
+    caller started it beside this phase; (b) and (c) :func:`dp_train_leg`;
+    (d) :func:`dp_serve_leg`; (e) ``serving --data-parallel 2`` refused with
+    the JAX parser error on a one-card machine. Returns the kernel launches
+    of (b)-(d)."""
     import contextlib
     import io
 
     import torch
 
     from fastscnn_tpu_torch import serving
-    from fastscnn_tpu_torch.entry import dryrun_multichip
 
     t_phase = time.perf_counter()
     work = os.path.join(root, "build", "chip_smoke_multidevice")
     _fresh_dir(work)
-    result = dryrun_multichip(DP_RANKS, device="cuda")
-    t_a = time.perf_counter() - t_phase
-    _print(f"13 (a) dryrun_multichip({DP_RANKS}) on {result['backend']}, cuda:0: {t_a:.1f} s")
+    if dryrun is None:
+        result, t_a = dryrun_leg()
+        _print(f"13 (a) dryrun_multichip({DP_RANKS}) on {result['backend']}, cuda:0: {t_a:.1f} s")
+    t_b0 = time.perf_counter()
     launches = dp_train_leg(root, work, yard)
-    t_bc = time.perf_counter() - t_phase - t_a
+    t_bc = time.perf_counter() - t_b0
     torch.cuda.empty_cache()
     for k, v in dp_serve_leg().items():
         launches[k] = launches.get(k, 0) + v
@@ -6144,6 +6292,12 @@ def multidevice_phase(root, yard):
         raise AssertionError(f"13 (e) refusal: {err.getvalue()!r}")
     _print(f"13 (e) serving --data-parallel 2: {err.getvalue().strip().splitlines()[-1]}")
     _fresh_dir(work)
+    if dryrun is not None:
+        t_wait = time.perf_counter()
+        result, t_a = dryrun.result()
+        _print(f"13 (a) dryrun_multichip({DP_RANKS}) on {result['backend']}, cuda:0, beside "
+               f"13 (b)-(e) and phase 14's group: {t_a:.1f} s, of it "
+               f"{time.perf_counter() - t_wait:.1f} s after (e)")
     _print(f"phase 13 launches: {launches}")
     _print(f"phase 13: {time.perf_counter() - t_phase:.1f} s (13a {t_a:.1f} s, 13b-c "
            f"{t_bc:.1f} s)")
@@ -6294,10 +6448,18 @@ def _sp_group(root, work, n, nccl=False):
     return results
 
 
-def spatial_train_leg(root, work, yard):
-    """14 (a) and the step of 14 (c) (the module docstring). Returns the
-    ranks' B6 launches and the seconds that (c)'s step took (its one-process
-    steps, its forms on rank 0 and :func:`spatial_b6_blocks`)."""
+def spatial_group_leg(root, work):
+    """The spawned group of 14 (a) and (c) (:func:`spatial_rank`, which makes
+    its own batches) writing into ``work``: its results and its seconds."""
+    return _timed(_sp_group, root, work, SP_RANKS)
+
+
+def spatial_train_leg(root, work, yard, group=None):
+    """14 (a) and the step of 14 (c) (the module docstring), the group's
+    results from ``group`` (a future of :func:`spatial_group_leg` started
+    earlier) or spawned here. Returns the ranks' B6 launches and the seconds
+    that (c)'s step took (its one-process steps, its forms on rank 0 and
+    :func:`spatial_b6_blocks`)."""
     import torch
 
     dev = torch.device("cuda")
@@ -6315,15 +6477,14 @@ def spatial_train_leg(root, work, yard):
             t_c += time.perf_counter() - t_size
     del trainer
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = _sp_group(root, work, SP_RANKS)
-    t_group = time.perf_counter() - t0
+    ranks, t_group = group.result() if group is not None else spatial_group_leg(root, work)
     saved = torch.load(os.path.join(work, "rank0.pt"))
     limits = [max(F32_STEP_FACTOR * y, F32_STEP_FLOOR) for y in yard]
     launches = {}
     _print(f"14 (a), (c) {SP_RANKS} gloo ranks on cuda:0, {SP_BATCH} crops of {HEIGHT}x{WIDTH} "
            f"(a) and of {SP_UNEVEN_SIZE[0]}x{SP_UNEVEN_SIZE[1]} (c), each rank its block "
-           f"({t_group:.1f} s with the spawn); f32 limits against one process "
+           f"({t_group:.1f} s with the spawn{', beside phase 13' if group else ''}); f32 limits "
+           f"against one process "
            f"(loss, param updates L2, BN-stat changes max): "
            f"{tuple(f'{v:.3g}' for v in limits)} (phase 6's yardstick x {F32_STEP_FACTOR})")
     forms = [(stem, dtype, spatial, "") for stem, dtype, spatial in SP_FORMS]
@@ -6577,17 +6738,23 @@ def spatial_multicard_leg(root, cards):
     return launches
 
 
-def spatial_phase(root, yard):
+SP_WORK = os.path.join("build", "chip_smoke_spatial")  # phase 14's group writes here
+
+
+def spatial_phase(root, yard, group=None):
     """Phase 14 (the module docstring): (a) and (c)'s step
-    :func:`spatial_train_leg` (with :func:`spatial_b6_blocks`), (b)
-    :func:`spatial_serve_leg`, (c)'s engine :func:`spatial_uneven_serve_leg`.
-    Returns the kernel launches of (a) and (c)."""
+    :func:`spatial_train_leg` (with :func:`spatial_b6_blocks`; ``group``
+    the future of its spawned group when the caller started it, into a
+    fresh SP_WORK), (b) :func:`spatial_serve_leg`, (c)'s engine
+    :func:`spatial_uneven_serve_leg`. Returns the kernel launches of (a)
+    and (c)."""
     import torch
 
     t_phase = time.perf_counter()
-    work = os.path.join(root, "build", "chip_smoke_spatial")
-    _fresh_dir(work)
-    launches, t_step = spatial_train_leg(root, work, yard)
+    work = os.path.join(root, SP_WORK)
+    if group is None:
+        _fresh_dir(work)
+    launches, t_step = spatial_train_leg(root, work, yard, group)
     t_a = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     spatial_serve_leg()
@@ -6752,6 +6919,130 @@ def dw_ab(parent: str) -> None:
             for key in ("device_ms", "window_ms", "host_us"):
                 vals = [f"{r[row][part][key]:.4f}" for which in runs for r in runs[which]]
                 _print(f"  {row} {part} {key}: {vals[0]} {vals[1]} | {vals[2]} {vals[3]}")
+
+
+def predict_costs():
+    """Config A (``fused-ds`` + ``pallas``: B3 twice, B1 once) in bf16, the
+    19-class model with BN calibrated as in phase 4, one 1024x2048 frame
+    (N = 1): eager ``predict``'s host ms (synchronised, median of 20 calls)
+    and its window without the spin (:func:`time_ms`, ``spin=False``); the
+    ``predict_fn`` graph's replay ms (CUDA events behind the spin) and host
+    ms; B3's and B1's wrappers on the inputs of their first call in the
+    frame (:func:`call_costs`: device ms, window ms, host us a call). Then the host us of one call of a
+    trivial CUDA operator registered with ``torch.library.Library`` and with
+    the ``custom_op`` decorator, beside a direct call of its Python
+    function. It uses only what every version of the port has, so that
+    ``--dispatch-ab`` costs an older checkout the same way."""
+    import importlib
+
+    import torch
+
+    from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.ops import cuda as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    frames = torch.randint(0, 256, (BATCH + 1, HEIGHT, WIDTH, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    model = FastSCNN(NUM_CLASSES, folded_dw_impl="fused-ds")
+    model.load_state_dict(calibrated_state(frames[:BATCH]))
+    eng = InferenceEngine(model, device=dev, config=E2EConfig(
+        mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="bfloat16", final_upsample="pallas"))
+    x = frames[BATCH:]
+
+    def host_ms(fn, calls=20):
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    eng.predict(x)
+    fn = eng.predict_fn(tuple(x.shape))
+    out = {"eager_host_ms": host_ms(lambda: eng.predict(x)),
+           "eager_window_ms": time_ms(lambda: eng.predict(x), spin=False),
+           "graph_ms": time_ms(lambda: fn(x)), "graph_host_ms": host_ms(lambda: fn(x))}
+    feats, real = {}, (K.ds_conv3x3_pw, K.upsample_argmax)
+
+    def keep(name, f):
+        def run(*a, **k):
+            feats.setdefault(name, (a, k))
+            return f(*a, **k)
+        return run
+
+    mods = [importlib.import_module(f"fastscnn_tpu_torch.{m}")
+            for m in ("models.fast_scnn", "engine.infer")]
+    mods[0].ds_conv3x3_pw, mods[1].upsample_argmax = keep("B3", real[0]), keep("B1", real[1])
+    try:
+        eng.predict(x)
+    finally:
+        mods[0].ds_conv3x3_pw, mods[1].upsample_argmax = real
+    b3_args, b3_kw = feats["B3"]
+    b1_args, b1_kw = feats["B1"]
+    out["B3"] = call_costs(lambda: K.ds_conv3x3_pw(*b3_args, **b3_kw))
+    out["B1"] = call_costs(lambda: K.upsample_argmax(*b1_args, **b1_kw))
+    out["registration"] = registration_costs()
+    return out
+
+
+def registration_costs(calls=20_000):
+    """Host us a call of one trivial CUDA operator (an empty tensor out)
+    registered both ways, beside its Python function called directly."""
+    import torch
+
+    def impl(x):
+        return x.new_empty(0)
+
+    # types, not the strings this file's annotations become: custom_op reads them
+    impl.__annotations__ = {"x": torch.Tensor, "return": torch.Tensor}
+    lib = torch.library.Library("fastscnn_dispatch_cost", "DEF")
+    lib.define("by_library(Tensor x) -> Tensor")
+    lib.impl("by_library", impl, "CUDA")
+    by_decorator = torch.library.custom_op("fastscnn_dispatch_cost::by_decorator",
+                                           mutates_args=())(impl)
+    x = torch.zeros(8, device="cuda")
+    out = {}
+    for name, fn in (("direct", impl),
+                     ("library", torch.ops.fastscnn_dispatch_cost.by_library.default),
+                     ("custom_op", by_decorator)):
+        for _ in range(100):
+            fn(x)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(x)
+        out[name] = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return out
+
+
+def dispatch_ab(parent: str) -> None:
+    """``--dispatch-ab PARENT``: :func:`predict_costs` for the checkout of
+    this repo at PARENT (an older commit, unpacked with ``git archive``) and
+    for this one, each in a process of its own that builds its kernels from
+    its own sources, in the order PARENT, this, this, PARENT on one card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for which, root in (("parent", parent), ("this tree", here), ("this tree", here),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--predict-costs", root],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"--predict-costs {root} failed:\n{proc.stdout[-4000:]}"
+                               f"{proc.stderr[-4000:]}")
+        runs.append((which, json.loads(proc.stdout.strip().splitlines()[-1])))
+        _print(f"{which} ({root}): {runs[-1][1]}")
+    _print("summary (parent | this tree | this tree | parent):")
+    for key in ("eager_host_ms", "eager_window_ms", "graph_ms", "graph_host_ms"):
+        _print(f"  config A bf16 N=1 {key}: " + " | ".join(f"{r[key]:.4f}" for _, r in runs))
+    for kernel in ("B3", "B1"):
+        for key in ("device_ms", "window_ms", "host_us"):
+            _print(f"  {kernel} {key}: " + " | ".join(f"{r[kernel][key]:.4f}" for _, r in runs))
+    for key in ("direct", "library", "custom_op"):
+        _print(f"  trivial op, {key}, host us a call: "
+               + " | ".join(f"{r['registration'][key]:.3f}" for _, r in runs))
 
 
 def ptxas_report(source, label):
@@ -7520,6 +7811,14 @@ def main() -> int:
                         help="only what needs several cards (four, say): every card's "
                              "kernels, a replica a card, NCCL ranks a card each; after the "
                              "build, with no device line")
+    parser.add_argument("--export", action="store_true",
+                        help="only phase 10b (i) (the 19-class model exported kernel-free and "
+                             "in configs A to D), after the build, with no device line")
+    parser.add_argument("--dispatch-ab", metavar="PARENT",
+                        help="only config A's eager and graphed predict and B3's and B1's "
+                             "wrappers (host and device ms), for the checkout at PARENT and "
+                             "for this one")
+    parser.add_argument("--predict-costs", metavar="ROOT", help=argparse.SUPPRESS)
     parser.add_argument("--dp-rank", metavar="WORK", help=argparse.SUPPRESS)
     parser.add_argument("--sp-rank", metavar="WORK", help=argparse.SUPPRESS)
     parser.add_argument("--nccl", action="store_true", help=argparse.SUPPRESS)
@@ -7528,7 +7827,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    root = os.path.abspath(args.dw_costs or os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.abspath(args.dw_costs or args.predict_costs
+                           or os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
     import fastscnn_tpu_torch
     from fastscnn_tpu_torch import resolve_device
@@ -7540,6 +7840,11 @@ def main() -> int:
     if args.dw_costs:
         _build.build_all()
         print(json.dumps(dw_costs()))
+        return 0
+    if args.predict_costs:
+        resolve_device(None)
+        _build.build_all()
+        print(json.dumps(predict_costs()))
         return 0
     if args.dp_rank:  # one rank of phase 13's groups
         dp_rank(args.dp_rank, args.nccl)
@@ -7558,6 +7863,9 @@ def main() -> int:
            f"count {torch.cuda.device_count()}")
     if args.dw_ab:
         dw_ab(os.path.abspath(args.dw_ab))
+        return 0
+    if args.dispatch_ab:
+        dispatch_ab(os.path.abspath(args.dispatch_ab))
         return 0
     if args.tune_dw or args.tune_pw or args.tune_mask:
         _build.build_all()
@@ -7590,6 +7898,14 @@ def main() -> int:
         return 0
     if args.orbax:
         orbax_phase(root)
+        return 0
+    if args.export:
+        work = os.path.join(root, "build", "chip_smoke_car")
+        _fresh_dir(work)
+        t0 = time.perf_counter()
+        export_main_model_leg(work, torch.device("cuda"))
+        _fresh_dir(work)
+        _print(f"10b (i): {time.perf_counter() - t0:.1f} s")
         return 0
     if args.multidevice or args.spatial:
         dev = torch.device("cuda")
@@ -7659,12 +7975,19 @@ def main() -> int:
         launches[kernel] = launches.get(kernel, 0) + n
     gc.collect()
     torch.cuda.empty_cache()
-    for kernel, n in multidevice_phase(root, yard).items():
-        launches[kernel] = launches.get(kernel, 0) + n
-    gc.collect()
-    torch.cuda.empty_cache()
-    for kernel, n in spatial_phase(root, yard).items():
-        launches[kernel] = launches.get(kernel, 0) + n
+    # 13a and phase 14's spawned group need nothing of the parent but their
+    # results: they run beside phase 13's other legs, in threads that wait
+    # on their processes (the script's time; their timings share the card)
+    _fresh_dir(os.path.join(root, SP_WORK))
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        dryrun = pool.submit(dryrun_leg)
+        group = pool.submit(spatial_group_leg, root, os.path.join(root, SP_WORK))
+        for kernel, n in multidevice_phase(root, yard, dryrun).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        for kernel, n in spatial_phase(root, yard, group).items():
+            launches[kernel] = launches.get(kernel, 0) + n
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in images_phase(root).items():
@@ -7677,6 +8000,7 @@ def main() -> int:
         k["launches"] = launches.get(k["name"], 0)
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
+    _print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     _print(json.dumps({"kernels": kernels}))
     _print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -4,9 +4,11 @@
 // wrapper can raise on a refused launch).
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace fastscnn {
 
@@ -21,6 +23,33 @@ inline int current_device() {
   cudaGetDevice(&device);
   return device;
 }
+
+// One kernel's opt-in, kept as the most bytes allowed so far on each
+// device: a launch that asks for no more than that sets nothing, so a
+// kernel at one size sets the attribute once a device. Held as a
+// function-local static, one a kernel (an instantiation at a stride). The
+// allowance only grows, under a lock, so threads that launch the kernel on
+// one or several cards at once never lower it under each other.
+class SmemOptIn {
+ public:
+  cudaError_t allow(const void* kernel, int bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    const int device = current_device();
+    if (device >= kMaxDevices)
+      return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (allowed_[device].load(std::memory_order_acquire) >= bytes) return cudaSuccess;
+    std::lock_guard<std::mutex> lock(mutex_);
+    if (allowed_[device].load(std::memory_order_relaxed) >= bytes) return cudaSuccess;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess) allowed_[device].store(bytes, std::memory_order_release);
+    return e;
+  }
+
+ private:
+  std::atomic<int> allowed_[kMaxDevices] = {};
+  std::mutex mutex_;
+};
 
 // dtype codes passed by the Python wrappers
 enum DType : int { kF32 = 0, kBF16 = 1 };

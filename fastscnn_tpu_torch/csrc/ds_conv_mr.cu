@@ -273,11 +273,9 @@ int launch_mr(const void* x, int w9_bf16, const void* w9, int bdw_bf16, const vo
   const size_t smem = mr_smem_bytes(rows, tile, c, bx * kMrCo, stride, sizeof(T));
   auto* kernel =
       stride == 2 ? ds_conv3x3_pw_mr_kernel<T, VEC, 2> : ds_conv3x3_pw_mr_kernel<T, VEC, 1>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static SmemOptIn opt_in[2];  // the two kernels, stride 1 and 2
+  const cudaError_t e = opt_in[stride - 1].allow(reinterpret_cast<const void*>(kernel), (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const int nstrips = (ho + rows - 1) / rows;
   const dim3 grid((wo + tile - 1) / tile, (nstrips + strips - 1) / strips, n);
   kernel<<<grid, dim3(bx, by), smem, s>>>(

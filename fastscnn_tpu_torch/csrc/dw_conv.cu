@@ -419,11 +419,9 @@ int launch_ds(const void* x, int w9_bf16, const void* w9, int bdw_bf16, const vo
   const size_t smem = sizeof(float) * (((size_t)10 * c + 3) / 4 * 4 + (size_t)c * cop + cop +
                                        (size_t)c * rows * kDsTileW);
   auto* kernel = stride == 2 ? ds_conv3x3_pw_kernel<T, VEC, 2> : ds_conv3x3_pw_kernel<T, VEC, 1>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static SmemOptIn opt_in[2];  // the two kernels, stride 1 and 2
+  const cudaError_t e = opt_in[stride - 1].allow(reinterpret_cast<const void*>(kernel), (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((wo + kDsTileW - 1) / kDsTileW, (ho + rows - 1) / rows, n);
   kernel<<<grid, dim3(bx, by), smem, s>>>(
       static_cast<const T*>(x), w9, w9_bf16, b_dw, bdw_bf16, w_pw, wpw_bf16, b_pw, bpw_bf16,

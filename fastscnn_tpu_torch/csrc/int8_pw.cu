@@ -344,14 +344,9 @@ int launch_a8_kernel(dim3 grid, const int8_t* x, const __nv_bfloat16* w, const v
                      cudaStream_t s) {
   using Tile = A8Tile<BM, BN, WARPS_M, WARPS_N, BK, STAGES>;
   auto* kernel = pw_a8_mma_kernel<BM, BN, WARPS_M, WARPS_N, BK, STAGES, AVEC, WVEC>;
-  static bool attribute_set[kMaxDevices] = {};  // once per instantiation and device
-  const int device = current_device();
-  if (Tile::kSmem > 48 * 1024 && (device >= kMaxDevices || !attribute_set[device])) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
-    if (e != cudaSuccess) return (int)e;
-    if (device < kMaxDevices) attribute_set[device] = true;
-  }
+  static SmemOptIn opt_in;  // once per instantiation and device
+  const cudaError_t e = opt_in.allow(reinterpret_cast<const void*>(kernel), Tile::kSmem);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<grid, Tile::kThreads, Tile::kSmem, s>>>(x, w, b, b_bf16, out, m, k, n, relu, qout,
                                                     vec_out);
   return (int)cudaGetLastError();
@@ -574,14 +569,9 @@ int launch_w8a8_kernel(dim3 grid, const int8_t* x, const int8_t* w, const float*
                        int qout, int vec_out, cudaStream_t s) {
   using Tile = W8Tile<BM, BN, WARPS_M, WARPS_N, BK, STAGES>;
   auto* kernel = pw_w8a8_mma_kernel<BM, BN, WARPS_M, WARPS_N, BK, STAGES, AVEC, WVEC>;
-  static bool attribute_set[kMaxDevices] = {};  // once per instantiation and device
-  const int device = current_device();
-  if (Tile::kSmem > 48 * 1024 && (device >= kMaxDevices || !attribute_set[device])) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
-    if (e != cudaSuccess) return (int)e;
-    if (device < kMaxDevices) attribute_set[device] = true;
-  }
+  static SmemOptIn opt_in;  // once per instantiation and device
+  const cudaError_t e = opt_in.allow(reinterpret_cast<const void*>(kernel), Tile::kSmem);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<grid, Tile::kThreads, Tile::kSmem, s>>>(x, w, cs, b, b_bf16, out, m, k, n, relu, qout,
                                                     vec_out);
   return (int)cudaGetLastError();

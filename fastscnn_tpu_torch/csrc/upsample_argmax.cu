@@ -321,15 +321,9 @@ int launch_up_kernel(dim3 grid, const void* x, const void* hw, const void* ww, R
                      void* out, int n, int h, int w, int c, int H, int W, int smem, int vec_out,
                      cudaStream_t s) {
   auto* kernel = upsample_argmax_kernel<T, KC, R, VCOPY>;
-  // the largest size allowed so far on each device, per instantiation (0: the 48 KB default)
-  static int attribute_bytes[kMaxDevices] = {};
-  const int device = current_device();
-  if (smem > 48 * 1024 && (device >= kMaxDevices || smem > attribute_bytes[device])) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (device < kMaxDevices) attribute_bytes[device] = smem;
-  }
+  static SmemOptIn opt_in;  // the largest size allowed so far on each device
+  const cudaError_t e = opt_in.allow(reinterpret_cast<const void*>(kernel), smem);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<grid, 32, smem, s>>>(static_cast<const T*>(x), static_cast<const float*>(hw),
                                 static_cast<const float*>(ww), tab, static_cast<int*>(out), n, h,
                                 w, c, H, W, vec_out);
@@ -365,15 +359,9 @@ int launch_h_kernel(dim3 grid, const void* xw, const void* hlo, const void* hhi,
                     void* out, int h, int c, int H, int W, int rows, int smem, int vec_out,
                     cudaStream_t s) {
   auto* kernel = h_lerp_argmax_kernel<T, WC, VCOPY>;
-  // the largest size allowed so far on each device, per instantiation (0: the 48 KB default)
-  static int attribute_bytes[kMaxDevices] = {};
-  const int device = current_device();
-  if (smem > 48 * 1024 && (device >= kMaxDevices || smem > attribute_bytes[device])) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (device < kMaxDevices) attribute_bytes[device] = smem;
-  }
+  static SmemOptIn opt_in;  // the largest size allowed so far on each device
+  const cudaError_t e = opt_in.allow(reinterpret_cast<const void*>(kernel), smem);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(xw), static_cast<const int64_t*>(hlo),
       static_cast<const int64_t*>(hhi), static_cast<const float*>(hw), static_cast<int*>(out), h,

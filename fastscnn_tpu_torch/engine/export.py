@@ -12,18 +12,23 @@ saved with ``torch.export.save`` as a ``.pt2`` file:
 
 exactly what :meth:`InferenceEngine.predict` computes for the engine's
 config (reference:export_onnx_fixed.py:34-98, the ``EndToEndFastSCNN``
-wrapper). The module exported holds the folded weights, the
-normalisation constants and every resize table as buffers, so the file
-is self-contained: loading it needs neither the engine nor this package.
+wrapper), in any configuration. The module exported holds the folded
+weights, the normalisation constants and every resize table the graph
+reads as buffers; what the program calls is aten operators and, where
+the engine's path runs a hand-written kernel (:data:`KERNEL_OPTIONS`),
+that kernel's operator ``fastscnn::<name>`` as one node
+(``ops/cuda/library.py``), as the JAX artifact carries its Pallas kernels
+as custom calls. An int8 configuration's weight fold is part of the
+graph (aten operators), its activation scales constants.
 
-The port's kernels are called through ``ctypes``, which ``torch.export``
-cannot trace, so an engine whose path launches one (``folded_dw_impl``
-'pallas', 'fused-ds' or 'fused-ds-mr', ``folded_pw_impl`` 'int8-*',
-``final_upsample`` 'pallas' or 'hybrid-pallas') is refused with a
-``ValueError`` naming the option; the JAX CLI exports the model's
-kernel-free defaults ('conv' and 'hybrid') too. Carrying the kernels
-inside an artifact needs them registered as ``torch.library`` custom ops
-(ROADMAP.md).
+Loading: a kernel-free artifact loads with bare ``torch.export.load``,
+without this package. A kernel artifact needs the operators registered,
+so it loads where ``fastscnn_tpu_torch`` is importable: :class:`ExportedModel`
+(``load_exported``, ``load_artifact``) registers them first (this module
+imports ``ops/cuda/library.py``; no kernel is built for that). On a CUDA
+device the artifact launches the hand-written kernels, each built at its
+first launch; moved to the CPU (``move_to_device_pass``) it runs their
+plain versions, and moved to ``meta`` their fake implementations.
 
 The TFLite and SavedModel exports of the JAX module need tensorflow and
 are not ported; the ONNX route is :mod:`~fastscnn_tpu_torch.engine.onnx_native`.
@@ -38,29 +43,18 @@ import numpy as np
 import torch
 
 from fastscnn_tpu_torch import resolve_device
+from fastscnn_tpu_torch.ops.cuda import library  # noqa: F401  the kernels' operators, for loads
 from fastscnn_tpu_torch.ops.resize import recording_tables, substituted_tables
 
 __all__ = ["export_torch", "load_exported", "load_artifact", "ExportedModel", "E2EModule",
            "KERNEL_OPTIONS"]
 
-#: the engine options whose path calls a ctypes kernel, which an artifact cannot carry
+#: the engine options whose path calls a kernel's operator (``fastscnn::<name>``)
 KERNEL_OPTIONS = {
     "folded_dw_impl": ("pallas", "fused-ds", "fused-ds-mr"),
     "folded_pw_impl": ("int8-a8", "int8-w8a8"),
     "final_upsample": ("pallas", "hybrid-pallas"),
 }
-
-
-def _refuse_kernels(engine) -> None:
-    options = {"folded_dw_impl": engine.model.folded_dw_impl,
-               "folded_pw_impl": engine.model.folded_pw_impl,
-               "final_upsample": engine.config.final_upsample}
-    for option, value in options.items():
-        if value in KERNEL_OPTIONS[option]:
-            raise ValueError(
-                f"{option}={value!r} calls a CUDA kernel through ctypes, which torch.export "
-                f"cannot trace; export the kernel-free formulation (folded_dw_impl='conv', "
-                f"folded_pw_impl='conv', final_upsample='hybrid')")
 
 
 def _leaves(tree, prefix):
@@ -93,13 +87,14 @@ class E2EModule(torch.nn.Module):
     """The engine's ``predict`` for uint8 NHWC batches of ``shape`` as an
     ``nn.Module`` whose state is buffers: the engine's graph tensors
     (:meth:`InferenceEngine.graph_tensors`) and every resize table the
-    graph reads at that shape (found by one eager pass here, so none is
-    built lazily under ``torch.export``). ``forward`` is the engine's own
-    graph code, run on those buffers."""
+    graph reads at that shape (found by one eager pass here, which runs
+    the kernels' operators too, so none is built lazily under
+    ``torch.export``; the tables an operator looks up inside its
+    implementation stay out). ``forward`` is the engine's own graph code,
+    run on those buffers."""
 
     def __init__(self, engine, shape):
         super().__init__()
-        _refuse_kernels(engine)
         self._engine = engine  # a plain attribute: the model's own weights stay out
         self.shape = tuple(int(d) for d in shape)
         g = engine.graph_tensors()
@@ -132,8 +127,9 @@ def export_torch(engine, shape, path: str, metadata: dict | None = None) -> str:
     to ``path`` (``torch.export.save``) and write the JSON sidecar
     ``path + ".json"``: ``format`` ('torch-export'), ``inputs``,
     ``program_bytes``, the exporting ``torch_version`` and ``device``, and
-    ``metadata``. Returns ``path``. Raises ``ValueError`` for an engine
-    whose path calls a kernel (:data:`KERNEL_OPTIONS`)."""
+    ``metadata``. Returns ``path``. An engine whose path calls a kernel
+    (:data:`KERNEL_OPTIONS`) exports on the CPU or the card alike: the
+    program holds the kernel's operator."""
     module = E2EModule(engine, shape).eval()
     example = torch.zeros(module.shape, dtype=torch.uint8, device=engine.device)
     with torch.no_grad():
@@ -156,8 +152,9 @@ def export_torch(engine, shape, path: str, metadata: dict | None = None) -> str:
 
 class ExportedModel:
     """A loaded ``.pt2`` artifact of :func:`export_torch` on ``device``
-    (None: the CUDA card). A program exported on another device is moved
-    with ``torch.export.passes.move_to_device_pass``. Calling it with a
+    (None: the CUDA card); the kernels' operators are registered before
+    the load (module import). A program exported on another device is
+    moved with ``torch.export.passes.move_to_device_pass``. Calling it with a
     uint8 NHWC batch (numpy or tensor) of the exported shape returns what
     the engine's ``predict`` returns, on ``device``; ``infer(feeds)`` is
     the reference's ``InferSession`` duck-type (lists of numpy arrays)."""

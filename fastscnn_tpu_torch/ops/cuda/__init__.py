@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
-``KERNELS`` names every kernel wrapper; each counts the launches of its
-kernel in a ``launches`` attribute (launches only — a call that takes the
-plain version on the CPU does not count).
+``KERNELS`` names every kernel wrapper; each calls its ``torch.library``
+operator ``fastscnn::<name>`` (:mod:`.library`, registered here: the CUDA
+implementation launches the kernel, the CPU one is the plain version) and
+counts the launches of its kernel in a ``launches`` attribute (launches
+only — a call that takes the plain version on the CPU does not count).
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from fastscnn_tpu_torch.ops.cuda.upsample_argmax import (
     upsample_argmax_reference,
     w_matmul_h_lerp_argmax,
 )
+
+# last: it defines the operators the wrappers above call
+from fastscnn_tpu_torch.ops.cuda import library  # noqa: E402,F401
 
 __all__ = [
     "KERNELS",

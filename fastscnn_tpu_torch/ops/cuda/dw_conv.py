@@ -35,13 +35,14 @@ channels. Their launch plans (:func:`dw_fwd_plan`, :func:`ds_plan`,
 :func:`mr_plan`, :func:`dx_plan`, :func:`dw_plan`) are functions of the
 shape. See the sources for the designs.
 
-Each wrapper takes its plain PyTorch version (``*_reference``) for a
-tensor on the CPU and launches its kernel for a CUDA tensor, raising on
-what the kernel does not take; it never falls back. Each counts its
-launches in a ``launches`` attribute. The plain versions do the kernel's
-f32 operations in the kernel's order, so the two agree bit for bit —
-except dW, whose plain version sums in tensor-reduction order (the two
-agree to f32 reassociation).
+Each wrapper calls its operator ``fastscnn::<name>`` (:mod:`.library`),
+whose CPU implementation is the plain PyTorch version (``*_reference``)
+and whose CUDA implementation (``_<name>_cuda`` here) launches the
+kernel, raising on what the kernel does not take; it never falls back.
+The kernel's launches count in the wrapper's ``launches`` attribute. The
+plain versions do the kernel's f32 operations in the kernel's order, so
+the two agree bit for bit — except dW, whose plain version sums in
+tensor-reduction order (the two agree to f32 reassociation).
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ import torch.nn.functional as F
 
 from fastscnn_tpu_torch.ops.conv import conv_dw_taps, conv_out_len
 from fastscnn_tpu_torch.ops.cuda._build import check, launch
+
+_OPS = torch.ops.fastscnn  # the operators of .library, registered when the package loads
 
 __all__ = [
     "dw_conv3x3",
@@ -107,6 +110,14 @@ def _out_hw(x: torch.Tensor, stride: int, padding: int, name: str):
     if min(n, ho, wo) < 1 or ho > 65535 or n > 65535:
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)} (out {ho}x{wo})")
     return ho, wo
+
+
+def _fake_nhwc(x: torch.Tensor, stride: int, padding: int, c: int) -> torch.Tensor:
+    """An empty (N, Ho, Wo, ``c``) tensor like ``x``: the output a fake
+    implementation gives for a 3×3 conv of ``x``."""
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, conv_out_len(h, 3, stride, padding), conv_out_len(wd, 3, stride, padding),
+                        c))
 
 
 def vec_width(c: int, itemsize: int, ptrs) -> int:
@@ -236,12 +247,23 @@ def ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1):
 
 def dw_conv3x3(x, w, b=None, stride=1, padding=1, relu=False, rows=None, cols=None):
     """Depthwise 3×3 [+bias][+ReLU], NHWC x, (3,3,1,C) w, multiplier 1;
-    output in the input dtype, f32 accumulation (kernel B4). ``rows`` and
-    ``cols`` override the launch plan's (:func:`dw_fwd_plan`); the result
-    is the same bits."""
+    output in the input dtype, f32 accumulation (kernel B4, the operator
+    ``fastscnn::dw_conv3x3``). ``rows`` and ``cols`` override the launch
+    plan's (:func:`dw_fwd_plan`); the result is the same bits."""
+    return _OPS.dw_conv3x3.default(x, w, b, stride, padding, relu, rows, cols)
+
+
+def _dw_conv3x3_cpu(x, w, b, stride, padding, relu, rows, cols):
+    return dw_conv3x3_reference(x, w, b, stride, padding, relu)
+
+
+def _dw_conv3x3_fake(x, w, b, stride, padding, relu, rows, cols):
     _check_dw_args(x, w, stride, "dw_conv3x3")
-    if x.device.type == "cpu":
-        return dw_conv3x3_reference(x, w, b, stride, padding, relu)
+    return _fake_nhwc(x, stride, padding, x.shape[-1])
+
+
+def _dw_conv3x3_cuda(x, w, b, stride, padding, relu, rows, cols):
+    _check_dw_args(x, w, stride, "dw_conv3x3")
     code = _kernel_input(x, "dw_conv3x3")
     n, h, wd, c = x.shape
     ho, wo = _out_hw(x, stride, padding, "dw_conv3x3")
@@ -341,15 +363,32 @@ def ds_plan(n: int, ho: int, wo: int, c: int, cout: int, rows: int | None = None
 
 
 def ds_conv3x3_pw(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows=None):
-    """The whole folded DSConv in one kernel (B3):
+    """The whole folded DSConv in one kernel (B3, the operator
+    ``fastscnn::ds_conv3x3_pw``):
     relu(pw1×1(cast(relu(dw3×3(x) + b_dw))) + b_pw), NHWC, HWIO weights.
     The kernel reads weights and biases as they are stored (f32 or bf16).
     ``rows`` overrides the launch plan's (:func:`ds_plan`); the result is
     the same bits."""
-    _check_dw_args(x, w_dw, stride, "ds_conv3x3_pw")
+    return _OPS.ds_conv3x3_pw.default(x, w_dw, b_dw, w_pw, b_pw, stride, padding, rows)
+
+
+def _check_ds_args(x, w_dw, w_pw, stride, name):
+    _check_dw_args(x, w_dw, stride, name)
     _check_pw_weights(x, w_pw)
-    if x.device.type == "cpu":
-        return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
+
+
+def _ds_conv3x3_pw_cpu(x, w_dw, b_dw, w_pw, b_pw, stride, padding, rows):
+    _check_ds_args(x, w_dw, w_pw, stride, "ds_conv3x3_pw")
+    return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
+
+
+def _ds_conv3x3_pw_fake(x, w_dw, b_dw, w_pw, b_pw, stride, padding, rows):
+    _check_ds_args(x, w_dw, w_pw, stride, "ds_conv3x3_pw")
+    return _fake_nhwc(x, stride, padding, w_pw.shape[3])
+
+
+def _ds_conv3x3_pw_cuda(x, w_dw, b_dw, w_pw, b_pw, stride, padding, rows):
+    _check_ds_args(x, w_dw, w_pw, stride, "ds_conv3x3_pw")
     n, h, wd, c = x.shape
     cout = w_pw.shape[3]
     ho, wo = _out_hw(x, stride, padding, "ds_conv3x3_pw")
@@ -483,7 +522,8 @@ def _mr_args(x, w_dw, b_dw, w_pw, b_pw, out, stride, padding, plan):
 
 def ds_conv3x3_pw_multirow(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows_per_step=8,
                            rows=None, tile=None, strips=None):
-    """B3's function in the multi-row kernel (B5): a block walks strips of
+    """B3's function in the multi-row kernel (B5, the operator
+    ``fastscnn::ds_conv3x3_pw_multirow``): a block walks strips of
     at most ``rows_per_step`` output rows down one column tile, each
     strip's input rows fetched into shared memory while the block computes
     the previous one (:func:`mr_plan`). Any shape; a ragged last tile or
@@ -492,17 +532,36 @@ def ds_conv3x3_pw_multirow(x, w_dw, b_dw, w_pw, b_pw, stride=1, padding=1, rows_
     plan's; neither they nor ``rows_per_step`` change the result. Its plain
     version is :func:`ds_conv3x3_pw_reference`, which it equals bit for
     bit."""
-    _check_dw_args(x, w_dw, stride, "ds_conv3x3_pw_multirow")
-    _check_pw_weights(x, w_pw)
-    if int(rows_per_step) < 1:
+    return _OPS.ds_conv3x3_pw_multirow.default(x, w_dw, b_dw, w_pw, b_pw, stride, padding,
+                                               rows_per_step, rows, tile, strips)
+
+
+def _check_mr_args(x, w_dw, w_pw, stride, rows_per_step):
+    _check_ds_args(x, w_dw, w_pw, stride, "ds_conv3x3_pw_multirow")
+    if rows_per_step < 1:
         raise ValueError(f"rows_per_step must be >= 1, got {rows_per_step}")
-    if x.device.type == "cpu":
-        return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
+
+
+def _ds_conv3x3_pw_multirow_cpu(x, w_dw, b_dw, w_pw, b_pw, stride, padding, rows_per_step, rows,
+                                tile, strips):
+    _check_mr_args(x, w_dw, w_pw, stride, rows_per_step)
+    return ds_conv3x3_pw_reference(x, w_dw, b_dw, w_pw, b_pw, stride, padding)
+
+
+def _ds_conv3x3_pw_multirow_fake(x, w_dw, b_dw, w_pw, b_pw, stride, padding, rows_per_step, rows,
+                                 tile, strips):
+    _check_mr_args(x, w_dw, w_pw, stride, rows_per_step)
+    return _fake_nhwc(x, stride, padding, w_pw.shape[3])
+
+
+def _ds_conv3x3_pw_multirow_cuda(x, w_dw, b_dw, w_pw, b_pw, stride, padding, rows_per_step, rows,
+                                 tile, strips):
+    _check_mr_args(x, w_dw, w_pw, stride, rows_per_step)
     _kernel_input(x, "ds_conv3x3_pw_multirow")
     n, _, _, c = x.shape
     cout = w_pw.shape[3]
     ho, wo = _out_hw(x, stride, padding, "ds_conv3x3_pw_multirow")
-    plan = mr_plan(n, ho, wo, c, cout, stride, x.element_size(), int(rows_per_step), rows, tile,
+    plan = mr_plan(n, ho, wo, c, cout, stride, x.element_size(), rows_per_step, rows, tile,
                    strips)
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     args, _keep = _mr_args(x, w_dw, b_dw, w_pw, b_pw, out, stride, padding, plan)
@@ -613,14 +672,27 @@ def dx_plan(n: int, h: int, w: int, c: int, vec: int, itemsize: int, stride: int
 
 
 def dw_conv3x3_dx(g, w, stride=1, padding=1, x_shape=None, rows=None, cols=None):
-    """Input gradient of the depthwise 3×3 (kernel B6, dX): NHWC ``g`` of
-    the output, (3, 3, 1, C) ``w`` (read as stored, f32 or bf16) → dX of
-    shape ``x_shape`` in ``g``'s dtype, f32 accumulation. ``rows`` and
-    ``cols`` override the launch plan's (:func:`dx_plan`); the result is
-    the same bits."""
+    """Input gradient of the depthwise 3×3 (kernel B6, dX; the operator
+    ``fastscnn::dw_conv3x3_dx``): NHWC ``g`` of the output, (3, 3, 1, C)
+    ``w`` (read as stored, f32 or bf16) → dX of shape ``x_shape`` in
+    ``g``'s dtype, f32 accumulation. ``rows`` and ``cols`` override the
+    launch plan's (:func:`dx_plan`); the result is the same bits."""
+    if x_shape is None:
+        raise ValueError("dw_conv3x3_dx needs x_shape, the forward input's shape")
+    return _OPS.dw_conv3x3_dx.default(g, w, stride, padding, list(x_shape), rows, cols)
+
+
+def _dw_conv3x3_dx_cpu(g, w, stride, padding, x_shape, rows, cols):
+    return dw_conv3x3_dx_reference(g, w, stride, padding, x_shape).contiguous()
+
+
+def _dw_conv3x3_dx_fake(g, w, stride, padding, x_shape, rows, cols):
     _check_bwd_shapes(g, x_shape, stride, padding, "dw_conv3x3_dx")
-    if g.device.type == "cpu":
-        return dw_conv3x3_dx_reference(g, w, stride, padding, x_shape)
+    return g.new_empty(tuple(x_shape))
+
+
+def _dw_conv3x3_dx_cuda(g, w, stride, padding, x_shape, rows, cols):
+    _check_bwd_shapes(g, x_shape, stride, padding, "dw_conv3x3_dx")
     code = _kernel_input(g, "dw_conv3x3_dx")
     n, h, wd, c = x_shape
     w9 = _as_kernel_weights(w.reshape(9, c))
@@ -654,14 +726,27 @@ def dw_plan(n_rows: int, c: int, vec: int, target: int = _DW_BLOCKS):
 
 
 def dw_conv3x3_dw(x, g, stride=1, padding=1, out_dtype=torch.float32, blocks=None):
-    """Weight gradient of the depthwise 3×3 (kernel B6, dW): NHWC ``x`` and
-    output gradient ``g`` → (3, 3, 1, C) in ``out_dtype`` (f32 or bf16),
-    summed over (N, Ho, Wo) in f32 in two passes through an f32 scratch
-    tensor of (9·C, blocks) partials. ``blocks`` overrides the pass-1
-    blocks :func:`dw_plan` aims at (another summation order)."""
+    """Weight gradient of the depthwise 3×3 (kernel B6, dW; the operator
+    ``fastscnn::dw_conv3x3_dw``): NHWC ``x`` and output gradient ``g`` →
+    (3, 3, 1, C) in ``out_dtype`` (f32 or bf16), summed over (N, Ho, Wo)
+    in f32 in two passes through an f32 scratch tensor of (9·C, blocks)
+    partials. ``blocks`` overrides the pass-1 blocks :func:`dw_plan` aims
+    at (another summation order)."""
+    return _OPS.dw_conv3x3_dw.default(x, g, stride, padding, out_dtype, blocks)
+
+
+def _dw_conv3x3_dw_cpu(x, g, stride, padding, out_dtype, blocks):
+    return dw_conv3x3_dw_reference(x, g, stride, padding, out_dtype or torch.float32)
+
+
+def _dw_conv3x3_dw_fake(x, g, stride, padding, out_dtype, blocks):
     _check_bwd_shapes(g, x.shape, stride, padding, "dw_conv3x3_dw")
-    if x.device.type == "cpu":
-        return dw_conv3x3_dw_reference(x, g, stride, padding, out_dtype)
+    return x.new_empty((3, 3, 1, x.shape[-1]), dtype=out_dtype or torch.float32)
+
+
+def _dw_conv3x3_dw_cuda(x, g, stride, padding, out_dtype, blocks):
+    _check_bwd_shapes(g, x.shape, stride, padding, "dw_conv3x3_dw")
+    out_dtype = out_dtype or torch.float32
     code = _kernel_input(x, "dw_conv3x3_dw")
     if _kernel_input(g, "dw_conv3x3_dw") != code:
         raise ValueError("dw_conv3x3_dw: x and g must have one dtype")

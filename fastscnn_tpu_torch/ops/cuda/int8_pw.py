@@ -23,14 +23,16 @@ and its XLA fallback for ``M % 32 != 0``) has no counterpart: the kernels
 take every M and mask the ragged last tile. They need ``K % 4 == 0`` (four
 int8 values are read at once), which every site of the serving path has.
 
-Each wrapper takes its plain PyTorch version (``*_reference``) for a CPU
-tensor and launches its kernel for a CUDA tensor, raising on what the
-kernel does not take; it never falls back. Each counts its launches in a
-``launches`` attribute. B8's sums are exact integers below 2^24, so kernel,
-plain version and the JAX function agree bit for bit; B7's plain version
-adds the products k = 0..K−1 in the kernel's order, each product exact in
-f32, so kernel and plain version agree bit for bit (the JAX function's dot
-sums in an order of its own: one bf16 ulp, or one int8 level).
+Each wrapper calls its operator ``fastscnn::<name>`` (:mod:`.library`),
+whose CPU implementation is the plain PyTorch version (``*_reference``)
+and whose CUDA implementation launches the kernel, raising on what the
+kernel does not take; it never falls back. The kernel's launches count
+in the wrapper's ``launches`` attribute. B8's sums are exact integers
+below 2^24, so kernel, plain version and the JAX function agree bit for
+bit; B7's plain version adds the products k = 0..K−1 in the kernel's
+order, each product exact in f32, so kernel and plain version agree bit
+for bit (the JAX function's dot sums in an order of its own: one bf16
+ulp, or one int8 level).
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ import torch
 
 from fastscnn_tpu_torch.ops.cuda._build import check, launch
 from fastscnn_tpu_torch.ops.cuda.dw_conv import _DTYPE_CODE
+
+_OPS = torch.ops.fastscnn  # the operators of .library, registered when the package loads
 
 __all__ = [
     "quantize_act",
@@ -226,7 +230,8 @@ def pw_w8a8_plan(m: int, k: int, n: int, tile: int | None = None) -> PwPlan:
 
 
 def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False, tile=None):
-    """Pointwise conv on int8 activations with bf16 effective weights (B7).
+    """Pointwise conv on int8 activations with bf16 effective weights (B7,
+    the operator ``fastscnn::pw_conv_a8``).
 
     ``x_q`` int8 NHWC or ``(M, K)``; ``w_eff`` ``(K, N)``, the folded
     weight × the activation scale (÷ the output scale when
@@ -234,10 +239,25 @@ def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False, tile=None):
     kernel reads an f32 or bf16 bias as it is stored). Returns bf16, or
     int8 when ``quantize_out``, shaped like ``x_q`` with N channels.
     ``tile`` overrides the launch plan's block tile (:func:`pw_a8_plan`)."""
+    return _OPS.pw_conv_a8.default(x_q, w_eff, b_eff, relu, quantize_out, tile)
+
+
+def _pw_out_dtype(quantize_out: bool) -> torch.dtype:
+    return torch.int8 if quantize_out else torch.bfloat16
+
+
+def _pw_conv_a8_cpu(x_q, w_eff, b_eff, relu, quantize_out, tile):
+    return pw_conv_a8_reference(x_q, w_eff, b_eff, relu, quantize_out)
+
+
+def _pw_conv_a8_fake(x_q, w_eff, b_eff, relu, quantize_out, tile):
+    _flatten(x_q, w_eff.shape[0], "pw_conv_a8")
+    return x_q.new_empty((*x_q.shape[:-1], w_eff.shape[1]), dtype=_pw_out_dtype(quantize_out))
+
+
+def _pw_conv_a8_cuda(x_q, w_eff, b_eff, relu, quantize_out, tile):
     k, n = w_eff.shape
     x2, lead = _flatten(x_q, k, "pw_conv_a8")
-    if x2.device.type == "cpu":
-        return pw_conv_a8_reference(x_q, w_eff, b_eff, relu, quantize_out)
     x2 = x2.contiguous()
     _check_launch(x2, w_eff, "pw_conv_a8")
     m = x2.shape[0]
@@ -245,8 +265,7 @@ def pw_conv_a8(x_q, w_eff, b_eff, relu=True, quantize_out=False, tile=None):
     b = (b_eff if b_eff.dtype in _DTYPE_CODE else b_eff.float()).contiguous()
     if b.device != x2.device:
         raise ValueError(f"pw_conv_a8: bias on {b.device}, activations on {x2.device}")
-    out = torch.empty((m, n), dtype=torch.int8 if quantize_out else torch.bfloat16,
-                      device=x2.device)
+    out = torch.empty((m, n), dtype=_pw_out_dtype(quantize_out), device=x2.device)
     plan = pw_a8_plan(m, k, n, tile)
     avec = 16 if k % 16 == 0 and x2.data_ptr() % 16 == 0 else 4
     wvec = n % 8 == 0 and w.data_ptr() % 16 == 0
@@ -264,7 +283,8 @@ pw_conv_a8.launches = 0
 
 
 def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False, tile=None):
-    """Pointwise conv with both operands int8 (B8).
+    """Pointwise conv with both operands int8 (B8, the operator
+    ``fastscnn::pw_conv_w8a8``).
 
     ``w_q`` int8 ``(K, N)``, row-major as the model folds it; ``cs``
     ``(N,)`` f32, the combined per-channel scale ``s_x · s_w[c]`` (÷ ``s_y``
@@ -280,12 +300,28 @@ def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False, tile=None):
     layout the mma's second operand wants). Its integer sums are exact in
     any order and its epilogue is the plain version's operations, so the
     two agree bit for bit."""
-    k, n = w_q.shape
+    return _OPS.pw_conv_w8a8.default(x_q, w_q, cs, b_eff, relu, quantize_out, tile)
+
+
+def _check_w8a8(x_q, w_q):
     if w_q.dtype != torch.int8:
         raise ValueError(f"pw_conv_w8a8 needs int8 weights, got {w_q.dtype}")
-    x2, lead = _flatten(x_q, k, "pw_conv_w8a8")
-    if x2.device.type == "cpu":
-        return pw_conv_w8a8_reference(x_q, w_q, cs, b_eff, relu, quantize_out)
+    return _flatten(x_q, w_q.shape[0], "pw_conv_w8a8")
+
+
+def _pw_conv_w8a8_cpu(x_q, w_q, cs, b_eff, relu, quantize_out, tile):
+    _check_w8a8(x_q, w_q)
+    return pw_conv_w8a8_reference(x_q, w_q, cs, b_eff, relu, quantize_out)
+
+
+def _pw_conv_w8a8_fake(x_q, w_q, cs, b_eff, relu, quantize_out, tile):
+    _check_w8a8(x_q, w_q)
+    return x_q.new_empty((*x_q.shape[:-1], w_q.shape[1]), dtype=_pw_out_dtype(quantize_out))
+
+
+def _pw_conv_w8a8_cuda(x_q, w_q, cs, b_eff, relu, quantize_out, tile):
+    k, n = w_q.shape
+    x2, lead = _check_w8a8(x_q, w_q)
     x2 = x2.contiguous()
     _check_launch(x2, w_q, "pw_conv_w8a8")
     m = x2.shape[0]
@@ -295,8 +331,7 @@ def pw_conv_w8a8(x_q, w_q, cs, b_eff, relu=True, quantize_out=False, tile=None):
     for name, t in (("scale", scale), ("bias", b)):
         if t.device != x2.device:
             raise ValueError(f"pw_conv_w8a8: {name} on {t.device}, activations on {x2.device}")
-    out = torch.empty((m, n), dtype=torch.int8 if quantize_out else torch.bfloat16,
-                      device=x2.device)
+    out = torch.empty((m, n), dtype=_pw_out_dtype(quantize_out), device=x2.device)
     plan = pw_w8a8_plan(m, k, n, tile)
     avec = 16 if k % 16 == 0 and x2.data_ptr() % 16 == 0 else 4
     wvec = n % 16 == 0 and w.data_ptr() % 16 == 0

@@ -35,10 +35,13 @@ module that the engine's mask modes need: the W-first interp-matmul of
 :func:`packed_argmax`, a formulation of ``argmax`` that the JAX package
 measured and rejected and keeps tested; nothing on the serving path uses it.
 
-Each wrapper takes its plain PyTorch version (``*_reference``) for a CPU
-tensor and launches its kernel for a CUDA tensor, raising on what the
-kernel does not take; it never falls back. Each counts its launches in a
-``launches`` attribute.
+Each wrapper calls its operator ``fastscnn::<name>`` (:mod:`.library`),
+whose CPU implementation is the plain PyTorch version (``*_reference``)
+and whose CUDA implementation launches the kernel, raising on what the
+kernel does not take; it never falls back. The kernel's launches count in
+the wrapper's ``launches`` attribute. The plan and the tables a launch
+reads (:func:`_launch_inputs`, :func:`lerp_tables`) are looked up inside
+the CUDA implementation, so a traced program holds the operator alone.
 """
 
 from __future__ import annotations
@@ -59,6 +62,8 @@ from fastscnn_tpu_torch.ops.resize import (
     lerp_tables,
     resize_bilinear,
 )
+
+_OPS = torch.ops.fastscnn  # the operators of .library, registered when the package loads
 
 __all__ = [
     "neighborhood_agreement_mask",
@@ -89,21 +94,38 @@ def h_lerp_argmax_reference(xw, out_h, align_corners=True):
 
 def upsample_argmax(logits, out_size, align_corners=True, tile=None, rows=None):
     """``argmax_C(bilinear_resize(logits, out_size))`` for NHWC logits,
-    an (N, H_out, W_out) int32 mask (kernel B1). ``tile`` and ``rows``
-    override the launch plan's column tile and rows a run
-    (:func:`upsample_plan`). Where an axis keeps its size, the plain
-    version copies it and the kernel lerps with weight 0: the same values
-    for finite logits."""
+    an (N, H_out, W_out) int32 mask (kernel B1, the operator
+    ``fastscnn::upsample_argmax``). ``tile`` and ``rows`` override the
+    launch plan's column tile and rows a run (:func:`upsample_plan`).
+    Where an axis keeps its size, the plain version copies it and the
+    kernel lerps with weight 0: the same values for finite logits."""
+    return _OPS.upsample_argmax.default(logits, [int(out_size[0]), int(out_size[1])],
+                                        align_corners, tile, rows)
+
+
+def _check_logits(logits):
     if logits.ndim != 4:
         raise ValueError(f"upsample_argmax needs NHWC logits, got {tuple(logits.shape)}")
-    if logits.device.type == "cpu":
-        return upsample_argmax_reference(logits, out_size, align_corners)
+
+
+def _upsample_argmax_cpu(logits, out_size, align_corners, tile, rows):
+    _check_logits(logits)
+    return upsample_argmax_reference(logits, out_size, align_corners)
+
+
+def _upsample_argmax_fake(logits, out_size, align_corners, tile, rows):
+    _check_logits(logits)
+    return logits.new_empty((logits.shape[0], out_size[0], out_size[1]), dtype=torch.int32)
+
+
+def _upsample_argmax_cuda(logits, out_size, align_corners, tile, rows):
+    _check_logits(logits)
     code = _kernel_input(logits, "upsample_argmax")
     n, h, w, c = logits.shape
-    out_h, out_w = int(out_size[0]), int(out_size[1])
+    out_h, out_w = out_size
     size = logits.element_size()
-    plan, hw, ww, table = _launch_inputs(n, h, w, c, out_h, out_w, size, bool(align_corners),
-                                         tile, rows, logits.device)
+    plan, hw, ww, table = _launch_inputs(n, h, w, c, out_h, out_w, size, align_corners, tile, rows,
+                                         logits.device)
     out = torch.empty((n, out_h, out_w), dtype=torch.int32, device=logits.device)
     vcopy = (w * c * size) % 16 == 0 and logits.data_ptr() % 16 == 0
     vec_out = out_w % 4 == 0 and out.data_ptr() % 16 == 0
@@ -349,17 +371,32 @@ def upsample_plan(n: int, h: int, w: int, c: int, out_h: int, out_w: int, itemsi
 
 def h_lerp_argmax(xw, out_h, align_corners=True, tile=None, rows=None):
     """H-upsample of the W-upsampled (N, h, C, W) logits to ``out_h`` rows,
-    then argmax over C: an (N, out_h, W) int32 mask (kernel B2). ``tile``
-    and ``rows`` override the launch plan's column tile and rows a strip
-    (:func:`h_lerp_plan`)."""
+    then argmax over C: an (N, out_h, W) int32 mask (kernel B2, the
+    operator ``fastscnn::h_lerp_argmax``). ``tile`` and ``rows`` override
+    the launch plan's column tile and rows a strip (:func:`h_lerp_plan`)."""
+    return _OPS.h_lerp_argmax.default(xw, int(out_h), align_corners, tile, rows)
+
+
+def _check_xw(xw):
     if xw.ndim != 4:
         raise ValueError(f"h_lerp_argmax needs (N, h, C, W), got {tuple(xw.shape)}")
-    if xw.device.type == "cpu":
-        return h_lerp_argmax_reference(xw, out_h, align_corners)
+
+
+def _h_lerp_argmax_cpu(xw, out_h, align_corners, tile, rows):
+    _check_xw(xw)
+    return h_lerp_argmax_reference(xw, out_h, align_corners)
+
+
+def _h_lerp_argmax_fake(xw, out_h, align_corners, tile, rows):
+    _check_xw(xw)
+    return xw.new_empty((xw.shape[0], out_h, xw.shape[3]), dtype=torch.int32)
+
+
+def _h_lerp_argmax_cuda(xw, out_h, align_corners, tile, rows):
+    _check_xw(xw)
     code = _kernel_input(xw, "h_lerp_argmax")
     n, h, c, w = xw.shape
-    out_h = int(out_h)
-    plan = h_lerp_plan(n, h, c, out_h, w, xw.element_size(), bool(align_corners), tile, rows)
+    plan = h_lerp_plan(n, h, c, out_h, w, xw.element_size(), align_corners, tile, rows)
     hlo, hhi, hw = lerp_tables(h, out_h, align_corners, xw.device)
     out = torch.empty((n, out_h, w), dtype=torch.int32, device=xw.device)
     vcopy = (w * xw.element_size()) % 16 == 0 and xw.data_ptr() % 16 == 0

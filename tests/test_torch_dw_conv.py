@@ -24,6 +24,9 @@ from fastscnn_tpu.ops.pallas.dw_conv import (
 from fastscnn_tpu_torch.ops.conv import conv2d
 from fastscnn_tpu_torch.ops.cuda import ds_conv3x3_pw, ds_conv3x3_pw_multirow, dw_conv3x3
 from fastscnn_tpu_torch.ops.cuda.dw_conv import (
+    _ds_conv3x3_pw_cuda,
+    _ds_conv3x3_pw_multirow_cuda,
+    _dw_conv3x3_cuda,
     _mr_args,
     _mr_smem_bytes,
     ds_plan,
@@ -145,8 +148,9 @@ def test_ds_conv3x3_pw_multirow_shared_memory_fits_the_serving_sites():
     columns, holds two input slots of 9 x 65 pixels, two strips' f32 dw
     activations and the f32 weights in 115,264 and 175,936 bytes: it fits
     an SM's 227 KB. Eight rows would not at dsconv2 (C = 48, 324,928
-    bytes). The wrapper refuses a bad rows_per_step and a device that is
-    neither the CPU nor CUDA."""
+    bytes). The wrapper refuses a bad rows_per_step, and the operator's
+    CUDA implementation a tensor that is not on CUDA (a ``meta`` tensor
+    takes the operator's fake implementation: the output's shape)."""
     assert _mr_smem_bytes(32, 48, 4, 32, 2, 2) == 115264
     assert _mr_smem_bytes(48, 64, 4, 32, 2, 2) == 175936
     assert _mr_smem_bytes(48, 64, 8, 32, 2, 2) == 324928
@@ -157,9 +161,12 @@ def test_ds_conv3x3_pw_multirow_shared_memory_fits_the_serving_sites():
         ds_conv3x3_pw_multirow(torch.zeros((1, 8, 8, 4)), torch.zeros((3, 3, 1, 4)),
                                torch.zeros(4), torch.zeros((1, 1, 4, 6)), torch.zeros(6),
                                rows_per_step=0)
+    args = (x, torch.zeros((3, 3, 1, 48), device="meta"), torch.zeros(48, device="meta"),
+            torch.zeros((1, 1, 48, 64), device="meta"), torch.zeros(64, device="meta"))
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
-        ds_conv3x3_pw_multirow(x, torch.zeros((3, 3, 1, 48)), torch.zeros(48),
-                               torch.zeros((1, 1, 48, 64)), torch.zeros(64), stride=2)
+        _ds_conv3x3_pw_multirow_cuda(*args, 2, 1, 8, None, None, None)
+    out = ds_conv3x3_pw_multirow(*args, stride=2)
+    assert out.device.type == "meta" and out.shape == (1, 32, 32, 64)
 
 
 def _covered_once(spans, n):
@@ -358,17 +365,32 @@ def test_dw_fwd_plan_refuses_columns_it_was_not_built_for():
 
 @pytest.mark.parametrize("fn", ["dw", "ds"])
 def test_wrappers_refuse_other_devices(fn):
-    """A tensor that is neither on the CPU nor on CUDA raises: the wrappers
-    never fall back to the plain version for a device tensor."""
+    """The wrappers never fall back to the plain version for a device
+    tensor: their operators have implementations for the CPU (the plain
+    version), CUDA (the kernel) and ``meta`` (the fake: the output's shape,
+    nothing launched) and for no other device, and the CUDA implementation
+    raises for a tensor that is not on CUDA."""
     x = torch.empty((1, 5, 5, 4), device="meta")
     w = torch.empty((3, 3, 1, 4), device="meta")
     b = torch.empty((4,), device="meta")
+    name = "dw_conv3x3" if fn == "dw" else "ds_conv3x3_pw"
+    keys = [k for k in ("CPU", "CUDA", "Meta", "XPU", "MPS", "CompositeImplicitAutograd")
+            if torch._C._dispatch_has_kernel_for_dispatch_key(f"fastscnn::{name}", k)]
+    assert keys == ["CPU", "CUDA", "Meta"]
+    before = (dw_conv3x3.launches, ds_conv3x3_pw.launches)
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         if fn == "dw":
-            dw_conv3x3(x, w, b, stride=2)
+            _dw_conv3x3_cuda(x, w, b, 2, 1, False, None, None)
         else:
-            ds_conv3x3_pw(x, w, b, torch.empty((1, 1, 4, 6), device="meta"),
-                          torch.empty((6,), device="meta"), stride=2)
+            _ds_conv3x3_pw_cuda(x, w, b, torch.empty((1, 1, 4, 6), device="meta"),
+                                torch.empty((6,), device="meta"), 2, 1, None)
+    if fn == "dw":
+        out = dw_conv3x3(x, w, b, stride=2)
+    else:
+        out = ds_conv3x3_pw(x, w, b, torch.empty((1, 1, 4, 6), device="meta"),
+                            torch.empty((6,), device="meta"), stride=2)
+    assert out.device.type == "meta" and out.shape == (1, 3, 3, 4 if fn == "dw" else 6)
+    assert (dw_conv3x3.launches, ds_conv3x3_pw.launches) == before
 
 
 def test_dw_wrappers_reject_bad_weights():
@@ -425,9 +447,9 @@ def test_ds_conv3x3_pw_refuses_what_does_not_fit():
     def meta(*shape):
         return torch.zeros(shape, device="meta")
 
-    with pytest.raises(ValueError, match="shared memory"):
-        ds_conv3x3_pw(meta(1, 64, 64, 512), meta(3, 3, 1, 512), meta(512), meta(1, 1, 512, 512),
-                      meta(512), stride=2)
+    with pytest.raises(ValueError, match="shared memory"):  # the operator's CUDA implementation
+        _ds_conv3x3_pw_cuda(meta(1, 64, 64, 512), meta(3, 3, 1, 512), meta(512),
+                            meta(1, 1, 512, 512), meta(512), 2, 1, None)
     with pytest.raises(ValueError, match="output channels"):
         ds_plan(1, 8, 8, 4, 2049)
     with pytest.raises(ValueError, match="rows"):

@@ -9,12 +9,21 @@ CLI (``export_model.py``).
 - ``ppm_sizes``/``ppm_align_corners`` at the reference's deployed grid,
   (1, 2, 4, 8) and False, match the JAX model's logits through every
   forward (rtol 1e-4), and the defaults are the training graph.
-- The kernel configurations raise (the CLI is in
-  ``tests/test_torch_export_cli.py``).
+- Every kernel configuration (:data:`KERNEL_OPTIONS`) exports: its graph
+  holds the kernel's operator once a call the eager path makes, its CPU
+  artifact equals the eager engine bit for bit and agrees with the JAX
+  engine on ≥ 99.9 % of pixels in f32 (config A also with the JAX
+  package's own StableHLO artifact); a kernel artifact loads through
+  ``load_exported``/``load_artifact`` in a fresh interpreter, moves to
+  ``meta``, and refuses a bare ``torch.export.load`` without the port (the
+  CLI is in ``tests/test_torch_export_cli.py``).
 """
 
+import collections
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +34,16 @@ import torch
 from fastscnn_tpu.engine import E2EConfig as JaxE2EConfig
 from fastscnn_tpu.engine import InferenceEngine as JaxEngine
 from fastscnn_tpu.models import FastSCNN as JaxFastSCNN
+from fastscnn_tpu.engine.export import export_stablehlo
+from fastscnn_tpu.engine.export import load_exported as jax_load_exported
 from fastscnn_tpu.models import init_fast_scnn as jax_init
 from fastscnn_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, E2EConfig, InferenceEngine
 from fastscnn_tpu_torch.engine import export as X
 from fastscnn_tpu_torch.models import FastSCNN, from_jax_params, to_param_trees
+from fastscnn_tpu_torch.ops.cuda import launch_counts
 
 SHAPE = (2, 64, 128, 3)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,18 +138,149 @@ def test_the_artifact_is_self_contained_and_moves_devices(tmp_path):
     assert X.load_artifact(path, device="cpu").shape == SHAPE
 
 
-@pytest.mark.parametrize("option, value", [(k, v) for k, vs in X.KERNEL_OPTIONS.items()
-                                           for v in vs])
-def test_kernel_configurations_raise_naming_the_option(tmp_path, option, value):
-    model_opts = {option: value} if option != "final_upsample" else {}
+KERNEL_CASES = [(k, v) for k, vs in X.KERNEL_OPTIONS.items() for v in vs]
+
+
+def _kernel_engines(option, value, model, jparams, jstate, **cfg):
+    """The port's and the JAX package's engines (f32) with ``option`` set
+    to ``value`` on ``model``'s weights: the model option, or the engine's
+    ``final_upsample``; the int8 impls with one int8 site at scale 0.05."""
+    opts = {option: value} if option != "final_upsample" else {}
     if value.startswith("int8"):
-        model_opts["pw_act_scales"] = (("gfe/ppm/out", 0.05),)
-    model = FastSCNN(2, **model_opts)
-    cfg = {"final_upsample": value} if option == "final_upsample" else {}
-    eng = InferenceEngine(model, device="cpu", config=E2EConfig(compute_dtype="float32", **cfg))
-    with pytest.raises(ValueError, match=f"{option}={value!r}"):
-        X.export_torch(eng, SHAPE, str(tmp_path / "m.pt2"))
-    assert not os.path.exists(tmp_path / "m.pt2")
+        opts["pw_act_scales"] = (("gfe/ppm/out", 0.05),)
+    if option == "final_upsample":
+        cfg["final_upsample"] = value
+    cfg = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD, compute_dtype="float32", **cfg)
+    port = InferenceEngine(model.with_options(**opts), device="cpu", config=E2EConfig(**cfg))
+    jax_engine = JaxEngine(JaxFastSCNN(model.num_classes, **opts), jparams, jstate,
+                           config=JaxE2EConfig(**cfg))
+    return port, jax_engine
+
+
+class _OperatorCalls(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the calls of each ``fastscnn::`` operator under the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "fastscnn":
+            self.calls[f"fastscnn.{func.__name__}"] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _graph_operators(program):
+    return collections.Counter(str(n.target) for n in program.graph.nodes
+                               if str(n.target).startswith("fastscnn."))
+
+
+@pytest.fixture(scope="module")
+def kernel_weights():
+    return _calibrated(2, False, seed=11)
+
+
+@pytest.mark.parametrize("option, value", KERNEL_CASES)
+def test_kernel_configurations_export_and_agree_with_jax(tmp_path, kernel_weights, option, value):
+    """Each engine option whose path runs a kernel exports on the CPU: the
+    program holds the kernel's operator once for each call the eager path
+    makes (and no launch is counted), the artifact's masks equal the eager
+    engine's bit for bit and agree with the JAX engine of the same
+    configuration on ≥ 99.9 % of pixels (f32)."""
+    model, jparams, jstate = kernel_weights
+    eng, jeng = _kernel_engines(option, value, model, jparams, jstate)
+    images = np.random.default_rng(12).integers(0, 256, SHAPE, dtype=np.uint8)
+    path = X.export_torch(eng, SHAPE, str(tmp_path / "m.pt2"))
+    art = X.load_exported(path, device="cpu")
+    with _OperatorCalls() as seen:
+        eager = eng.predict(images)
+    got = art(images)
+    assert seen.calls and _graph_operators(art.program) == seen.calls
+    assert sum(launch_counts().values()) == 0
+    assert got.dtype == eager.dtype and torch.equal(got, eager)
+    ref = np.asarray(jeng.predict(images))
+    assert len(np.unique(ref)) > 1
+    assert (got.numpy() == ref).mean() >= 0.999
+
+
+def test_config_a_artifact_agrees_with_the_jax_stablehlo_artifact(tmp_path, kernel_weights):
+    """Config A ('fused-ds' + 'pallas': B3, B1) exported by both packages:
+    the port's ``.pt2`` and the JAX package's ``export_stablehlo`` of its
+    engine's ``predict_fn``, each loaded back, agree on ≥ 99.9 % of pixels
+    (f32), and the JAX artifact equals its engine."""
+    model, jparams, jstate = kernel_weights
+    eng, jeng = _kernel_engines("folded_dw_impl", "fused-ds", model, jparams, jstate,
+                                final_upsample="pallas")
+    assert eng.model.folded_dw_impl == jeng.model.folded_dw_impl == "fused-ds"
+    images = np.random.default_rng(13).integers(0, 256, SHAPE, dtype=np.uint8)
+    got = X.load_exported(X.export_torch(eng, SHAPE, str(tmp_path / "a.pt2")), device="cpu")(images)
+    jpath = export_stablehlo(jeng.predict_fn(SHAPE), (images,), str(tmp_path / "a.stablehlo"),
+                             platforms=("cpu",))
+    ref = np.asarray(jax_load_exported(jpath)(images))
+    assert np.array_equal(ref, np.asarray(jeng.predict(images)))
+    assert len(np.unique(ref)) > 1 and (got.numpy() == ref).mean() >= 0.999
+
+
+def _run(code, *args):
+    return subprocess.run([sys.executable, "-c", code, *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_kernel_artifact_loads_in_a_fresh_interpreter(tmp_path, kernel_weights):
+    """A process that imports nothing of the port but the loader loads a
+    kernel artifact (config C's operators: B5, B7 once, B1) with
+    ``load_exported`` and ``load_artifact`` and gives the exporting
+    engine's masks; a bare ``torch.export.load`` of it, without the port,
+    raises; a kernel-free artifact loads bare."""
+    model, jparams, jstate = kernel_weights
+    eng, _ = _kernel_engines("folded_pw_impl", "int8-a8", model.with_options(
+        folded_dw_impl="fused-ds-mr"), jparams, jstate, final_upsample="pallas")
+    images = np.random.default_rng(14).integers(0, 256, SHAPE, dtype=np.uint8)
+    path = X.export_torch(eng, SHAPE, str(tmp_path / "c.pt2"))
+    assert set(_graph_operators(X.load_exported(path, device="cpu").program)) == {
+        "fastscnn.ds_conv3x3_pw_multirow.default", "fastscnn.pw_conv_a8.default",
+        "fastscnn.upsample_argmax.default"}
+    np.save(tmp_path / "images.npy", images)
+    np.save(tmp_path / "want.npy", eng.predict(images).numpy())
+    proc = _run(
+        "import sys, numpy as np\n"
+        "from fastscnn_tpu_torch.engine.export import load_artifact, load_exported\n"
+        "path, d = sys.argv[1], sys.argv[2]\n"
+        "images, want = np.load(d + '/images.npy'), np.load(d + '/want.npy')\n"
+        "for load in (load_exported, load_artifact):\n"
+        "    got = load(path, device='cpu')(images).numpy()\n"
+        "    assert np.array_equal(got, want), load.__name__\n"
+        "print('ok')\n", path, str(tmp_path))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+    plain = X.export_torch(InferenceEngine(model, device="cpu", config=E2EConfig(
+        compute_dtype="float32")), SHAPE, str(tmp_path / "plain.pt2"))
+    bare = ("import sys, torch\n"
+            "torch.export.load(sys.argv[1])\n"
+            "assert not [m for m in sys.modules if m.startswith('fastscnn')]\n"
+            "print('loaded')\n")
+    proc = _run(bare, path)
+    assert proc.returncode != 0 and "fastscnn" in proc.stderr and "loaded" not in proc.stdout
+    assert "not registered" in proc.stderr
+    proc = _run(bare, plain)
+    assert proc.returncode == 0 and proc.stdout.strip() == "loaded", proc.stderr
+
+
+def test_kernel_artifact_moves_to_meta(tmp_path, kernel_weights):
+    """A kernel artifact (config D's operators: B4, B8, B2) loaded onto the
+    ``meta`` device runs the operators' fake implementations: the mask's
+    shape and dtype, no data, nothing launched."""
+    model, jparams, jstate = kernel_weights
+    eng, _ = _kernel_engines("folded_pw_impl", "int8-w8a8", model.with_options(
+        folded_dw_impl="pallas"), jparams, jstate, final_upsample="hybrid-pallas",
+        mask_dtype="uint8")
+    path = X.export_torch(eng, SHAPE, str(tmp_path / "d.pt2"))
+    moved = X.load_exported(path, device="meta")
+    assert set(_graph_operators(moved.program)) == {
+        "fastscnn.dw_conv3x3.default", "fastscnn.pw_conv_w8a8.default",
+        "fastscnn.h_lerp_argmax.default"}
+    out = moved(np.zeros(SHAPE, np.uint8))
+    assert out.device.type == "meta" and out.shape == SHAPE[:3] and out.dtype == torch.uint8
+    assert sum(launch_counts().values()) == 0
 
 
 @pytest.fixture(scope="module")

@@ -364,12 +364,25 @@ def test_pw_w8a8_plan_refuses_what_the_kernel_does_not_build():
 
 
 def test_int8_wrappers_refuse_other_devices_and_bad_args():
+    """The operators' CUDA implementations raise for a tensor that is not
+    on CUDA (no fallback); a ``meta`` tensor takes the fake implementation
+    (the output's shape and dtype, nothing launched); bad arguments raise
+    on the CPU."""
+    from fastscnn_tpu_torch.ops.cuda.int8_pw import _pw_conv_a8_cuda, _pw_conv_w8a8_cuda
+
     x = torch.zeros((1, 2, 3, 8), dtype=torch.int8, device="meta")
+    a8 = (x, torch.zeros((8, 4), device="meta"), torch.zeros(4, device="meta"))
+    w8a8 = (x, torch.zeros((8, 4), dtype=torch.int8, device="meta"),
+            torch.zeros(4, device="meta"), torch.zeros(4, device="meta"))
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
-        pw_conv_a8(x, torch.zeros((8, 4), device="meta"), torch.zeros(4, device="meta"))
+        _pw_conv_a8_cuda(*a8, True, False, None)
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
-        pw_conv_w8a8(x, torch.zeros((8, 4), dtype=torch.int8, device="meta"),
-                     torch.zeros(4, device="meta"), torch.zeros(4, device="meta"))
+        _pw_conv_w8a8_cuda(*w8a8, True, False, None)
+    before = (pw_conv_a8.launches, pw_conv_w8a8.launches)
+    for out, dtype in ((pw_conv_a8(*a8), torch.bfloat16),
+                       (pw_conv_w8a8(*w8a8, quantize_out=True), torch.int8)):
+        assert out.device.type == "meta" and out.shape == (1, 2, 3, 4) and out.dtype == dtype
+    assert (pw_conv_a8.launches, pw_conv_w8a8.launches) == before
     xc = torch.zeros((5, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="int8 activations"):
         pw_conv_a8(xc.float(), torch.zeros((8, 4)), torch.zeros(4))

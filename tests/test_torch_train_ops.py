@@ -213,13 +213,23 @@ def test_b6_gradient_in_another_layout_is_copied_and_counted(rng):
 
 
 def test_b6_wrappers_refuse_other_devices_and_bad_shapes():
+    """The operators' CUDA implementations raise for a tensor that is not
+    on CUDA (no fallback); a ``meta`` tensor takes the fake implementation
+    (dX's and dW's shapes and dtypes, nothing launched); bad shapes raise."""
+    from fastscnn_tpu_torch.ops.cuda.dw_conv import _dw_conv3x3_dw_cuda, _dw_conv3x3_dx_cuda
+
     x = torch.empty((1, 9, 9, 4), device="meta")
     g = torch.empty((1, 5, 5, 4), device="meta")
     w = torch.empty((3, 3, 1, 4), device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
-        dw_conv3x3_dx(g, w, 2, 1, x.shape)
+        _dw_conv3x3_dx_cuda(g, w, 2, 1, list(x.shape), None, None)
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
-        dw_conv3x3_dw(x, g, 2, 1)
+        _dw_conv3x3_dw_cuda(x, g, 2, 1, torch.float32, None)
+    before = (dw_conv3x3_dx.launches, dw_conv3x3_dw.launches)
+    dx, dw = dw_conv3x3_dx(g, w, 2, 1, x.shape), dw_conv3x3_dw(x, g, 2, 1, torch.bfloat16)
+    assert dx.device.type == dw.device.type == "meta"
+    assert (dx.shape, dx.dtype, dw.shape, dw.dtype) == (x.shape, x.dtype, w.shape, torch.bfloat16)
+    assert (dw_conv3x3_dx.launches, dw_conv3x3_dw.launches) == before
     with pytest.raises(ValueError, match="gradient shape"):
         dw_conv3x3_dw(torch.zeros((1, 9, 9, 4)), torch.zeros((1, 4, 5, 4)), 2, 1)
     with pytest.raises(ValueError, match="stride"):

@@ -125,10 +125,19 @@ def test_exact_ties_go_to_the_lowest_class(head):
 
 
 def test_mask_head_wrappers_refuse_other_devices():
+    """The operators' CUDA implementations raise for a tensor that is not on
+    CUDA (no fallback to the plain version); a ``meta`` tensor takes the
+    fake implementation: the mask's shape and dtype, nothing launched."""
+    ua = importlib.import_module("fastscnn_tpu_torch.ops.cuda.upsample_argmax")
+    logits, xw = torch.empty((1, 4, 4, 3), device="meta"), torch.empty((1, 4, 3, 8), device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
-        upsample_argmax(torch.empty((1, 4, 4, 3), device="meta"), (8, 8))
+        ua._upsample_argmax_cuda(logits, [8, 8], True, None, None)
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
-        h_lerp_argmax(torch.empty((1, 4, 3, 8), device="meta"), 8)
+        ua._h_lerp_argmax_cuda(xw, 8, True, None, None)
+    before = (upsample_argmax.launches, h_lerp_argmax.launches)
+    for out in (upsample_argmax(logits, (8, 8)), h_lerp_argmax(xw, 8)):
+        assert out.device.type == "meta" and out.shape == (1, 8, 8) and out.dtype == torch.int32
+    assert (upsample_argmax.launches, h_lerp_argmax.launches) == before
 
 
 # -- B2's launch plan ------------------------------------------------------------
