@@ -279,17 +279,20 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    gates, and config ref in f32 under local ``space`` meshes of 2 and 4
    on [cuda:0], its masks equal to the meshless engine's on 99.999 % of
    pixels or more, ``predict``'s ms a frame under ``space``;
-15. every image format without PIL (:func:`images_phase`): (a) each PNG
-   and BMP fixture of ``tests/fixtures/images`` decoded and converted
-   (RGB, L, RGBA, LA) to its manifest's Pillow digests, the BMP writes to
-   Pillow's bytes, every JPEG fixture (arithmetic, lossless, CMYK/YCCK,
-   every sampling) to its manifest; (b) phase 12's 1280x720 frame as a
-   BMP, an 8-bit PNG, an Adam7 PNG and a 16-bit PNG, each decoded back to
-   the frame, host ms to decode each and the JPEG (median of 20); (c)
-   config A (B3, B1) behind ``pipeline.main --input frame.bmp`` and
-   ``demo`` on the 16-bit PNG, and a BMP body through the serving server,
-   each mask equal to ``engine.predict``'s on every pixel, B3 at twice
-   B1's launches and B1 at least once a frame;
+15. every image format without PIL (:func:`images_phase`): (a) each PNG,
+   BMP, GIF, TIFF and WebP fixture of ``tests/fixtures/images`` decoded
+   and converted (RGB, L, RGBA, LA) to its manifest's Pillow digests, the
+   BMP writes to Pillow's bytes, every JPEG fixture (arithmetic, lossless,
+   CMYK/YCCK, every sampling) to its manifest; (b) phase 12's 1280x720
+   frame as a BMP, an 8-bit PNG, an Adam7 PNG and a 16-bit PNG, each
+   decoded back to the frame, and as Pillow's GIF, JPEG TIFF and lossy
+   WebP (committed) and LZW and Deflate TIFFs (written here by
+   ``spec_writers.tiff_bytes``), each decoded to its manifest digest, host
+   ms to decode each and the JPEG (median of 20); (c) config A (B3, B1)
+   behind ``pipeline.main --input frame.bmp`` and ``--input frame.gif``
+   and ``demo`` on the 16-bit PNG, and a BMP, a WebP and a TIFF body
+   through the serving server, each mask equal to ``engine.predict``'s on
+   every pixel, B3 at twice B1's launches and B1 at least once a frame;
 16. Orbax checkpoints without orbax, tensorstore or zstandard
    (:func:`orbax_phase`; all three blocked at the top of this file): (a) the
    committed fixture of ``tests/fixtures/orbax`` (written by orbax through
@@ -7386,6 +7389,11 @@ def tune_mask() -> None:
 IMAGE_FIXTURES = os.path.join("tests", "fixtures", "images")
 IMAGE_TIMED = 20  # decodes of each 1280x720 file timed: the median is reported
 IMAGE_LOOP_FRAMES = 3  # frames of the BMP through config A (the first the capture's)
+# 15b's committed 1280x720 files (Pillow's writes) and the TIFFs written here
+IMAGE_FRAME_FILES = {"gif": "frame_1280x720.gif", "tiff_jpeg": "frame_1280x720_jpeg.tif",
+                     "webp_lossy": "frame_1280x720_q80.webp"}
+IMAGE_FRAME_TIFFS = {"tiff_lzw": dict(compression=5, predictor=2, rows_per_strip=16),
+                     "tiff_deflate": dict(compression=8, rows_per_strip=16)}
 
 
 def _fixture_module(root, folder):
@@ -7441,10 +7449,14 @@ def image_fixtures_leg(root):
     kinds = {}
     for name in manifest["decode"]:
         kinds[name.rsplit(".", 1)[1]] = kinds.get(name.rsplit(".", 1)[1], 0) + 1
-    _print(f"15a: {kinds.get('png', 0)} PNG and {kinds.get('bmp', 0)} BMP fixtures decoded and "
-           f"converted (RGB, L, RGBA, LA) to Pillow {manifest['pillow']}'s digests, "
-           f"{len(manifest['write'])} BMP writes to its bytes, {len(jpegs['decode'])} JPEG "
-           f"fixtures (arithmetic, lossless, CMYK/YCCK, every sampling) to its pixels")
+    for kind in ("png", "bmp", "gif", "tif", "webp"):
+        if not kinds.get(kind):
+            raise AssertionError(f"15a: the manifest holds no .{kind} fixture")
+    _print(f"15a: {kinds['png']} PNG, {kinds['bmp']} BMP, {kinds['gif']} GIF, {kinds['tif']} "
+           f"TIFF and {kinds['webp']} WebP fixtures decoded and converted (RGB, L, RGBA, LA) "
+           f"to Pillow {manifest['pillow']}'s digests, {len(manifest['write'])} BMP writes to "
+           f"its bytes, {len(jpegs['decode'])} JPEG fixtures (arithmetic, lossless, CMYK/YCCK, "
+           f"every sampling) to its pixels")
     return mf
 
 
@@ -7452,7 +7464,10 @@ def image_decode_leg(root, mf, work):
     """15 (b): the 1280x720 frame of phase 12 written as a BMP (the port's
     writer), an 8-bit PNG, an Adam7 PNG and a 16-bit RGB PNG
     (``make_fixtures.png_bytes``: the five row filters in turn), each
-    decoded back to the frame's pixels; host ms to decode each and the
+    decoded back to the frame's pixels; Pillow's GIF, JPEG TIFF and lossy
+    WebP of it (committed), and an LZW (predictor 2) and a Deflate TIFF of
+    it (``spec_writers.tiff_bytes``), each decoded to its manifest digest
+    (the lossless TIFFs to the frame's); host ms to decode each and the
     JPEG, the median of IMAGE_TIMED. Returns the files' paths by kind and
     the frame."""
     import numpy as np
@@ -7470,31 +7485,54 @@ def image_decode_leg(root, mf, work):
         paths[kind] = os.path.join(work, f"frame_{kind}.png")
         with open(paths[kind], "wb") as f:
             f.write(data)
+    with open(os.path.join(root, IMAGE_FIXTURES, "manifest.json")) as f:
+        frames = json.load(f)["frames"]
+    if _sha256(frame.tobytes()) != frames["frame"]["sha256"]:
+        raise AssertionError("15b: the JPEG frame differs from the manifest's frame")
+    want = {kind: frames[name] for kind, name in IMAGE_FRAME_FILES.items()}
+    for kind, name in IMAGE_FRAME_FILES.items():
+        paths[kind] = os.path.join(root, IMAGE_FIXTURES, name)
+    sw = mf.spec_writers()
+    t_write = time.perf_counter()
+    for kind, kw in IMAGE_FRAME_TIFFS.items():
+        paths[kind] = os.path.join(work, f"frame_{kind}.tif")
+        with open(paths[kind], "wb") as f:
+            f.write(sw.tiff_bytes(frame, photometric=2, **kw))
+        want[kind] = frames["frame"]
+    t_write = time.perf_counter() - t_write
     lines = []
     for kind, path in paths.items():
         with open(path, "rb") as f:
             data = f.read()
         arr, mode = image_io.decode_bytes(data)
-        if mode != "RGB" or not np.array_equal(arr, frame):
+        if kind in want:
+            entry = want[kind]
+            if (mode, list(arr.shape), _sha256(arr.tobytes())) != (
+                    entry["mode"], entry["shape"], entry["sha256"]):
+                raise AssertionError(f"15b: the {kind} frame does not decode to its manifest "
+                                     f"digest ({mode}, {arr.shape})")
+        elif mode != "RGB" or not np.array_equal(arr, frame):
             raise AssertionError(f"15b: the {kind} file does not decode to the frame ({mode})")
         ms = sorted(_host_ms(lambda: image_io.decode_bytes(data)) for _ in range(IMAGE_TIMED))
         lines.append(f"{kind} {statistics.median(ms):.2f} ({ms[0]:.2f}-{ms[-1]:.2f}; "
                      f"{len(data)} bytes)")
     _print(f"15b: the {frame.shape[1]}x{frame.shape[0]} frame, host ms to decode, median of "
-           f"{IMAGE_TIMED} (range; file size): {'; '.join(lines)}")
+           f"{IMAGE_TIMED} (range; file size): {'; '.join(lines)}; the LZW and Deflate TIFFs "
+           f"written in {t_write:.2f} s")
     return paths, frame
 
 
 def image_loop_leg(work, paths, frame):
     """15 (c): config A (``fused-ds`` + ``pallas``: B3 and B1, 2 classes,
     bf16) behind the CLIs: ``pipeline.main --input frame.bmp`` (its
-    session the config-A engine) for IMAGE_LOOP_FRAMES frames, each mask
-    equal to the pipeline's on ``engine.predict`` of the decoded frame;
-    ``demo`` on the 16-bit PNG, its palette PNG's classes equal to
-    ``engine.predict`` of the decoded frame; one BMP body POSTed to the
-    serving server at 720x1280, its answer equal to ``engine.predict`` on
-    every pixel. Returns B3's and B1's launches: the wrappers' plus the
-    graphs' replays."""
+    session the config-A engine) for IMAGE_LOOP_FRAMES frames and
+    ``--input frame.gif`` once, each mask equal to the pipeline's on
+    ``engine.predict`` of the decoded frame; ``demo`` on the 16-bit PNG,
+    its palette PNG's classes equal to ``engine.predict`` of the decoded
+    frame; a BMP, a lossy WebP and an LZW TIFF body POSTed to the serving
+    server at 720x1280, each answer equal to ``engine.predict`` on every
+    pixel. Returns B3's and B1's launches: the wrappers' plus the graphs'
+    replays."""
     import urllib.request
 
     import numpy as np
@@ -7545,6 +7583,22 @@ def image_loop_leg(work, paths, frame):
         _print(f"15c: pipeline.main --input frame.bmp over config A, {IMAGE_LOOP_FRAMES} runs: "
                f"masks equal to engine.predict's on every pixel ({(want > 0).mean():.3f} lane); "
                f"ms a run {[round(t, 1) for t in times]} (the first the capture's); wrote {names}")
+        gif_bgr = np.ascontiguousarray(pipeline.read_image_rgb(paths["gif"])[:, :, ::-1])
+        want_gif = pipeline.inference_single_image(gif_bgr, Eager(),
+                                                   pixels_per_unit=JPEG_PPU)["mask"]
+        t0 = time.perf_counter()
+        result, _ = _run_cli(pipeline.main, ["--input", paths["gif"], "--output-dir",
+                                             os.path.join(work, "pipeline_gif"),
+                                             "--pixels-per-unit", str(JPEG_PPU)])
+        gif_ms = (time.perf_counter() - t0) * 1e3
+        frames += 2
+        if not np.array_equal(result["mask"], want_gif):
+            raise AssertionError(f"15c: pipeline.main's mask on the GIF differs from "
+                                 f"engine.predict's on "
+                                 f"{int((result['mask'] != want_gif).sum())} pixels")
+        _print(f"15c: pipeline.main --input frame.gif over config A: mask equal to "
+               f"engine.predict's on the decoded GIF on every pixel "
+               f"({(want_gif > 0).mean():.3f} lane), {gif_ms:.1f} ms")
         out, _ = _run_cli(demo.demo, ["--input-pic", paths["png16"], "--outdir",
                                       os.path.join(work, "demo")])
         frames += 1
@@ -7566,24 +7620,29 @@ def image_loop_leg(work, paths, frame):
                                       max_batch=1, bucket_sizes=(1,))
         server = ServingServer(predictor, "citys", host="127.0.0.1", port=0)
         base = f"http://127.0.0.1:{server.start()}"
+        answers = {}
         try:
-            with open(paths["bmp"], "rb") as f:
-                body = f.read()
-            req = urllib.request.Request(f"{base}/predict", data=body, method="POST",
-                                         headers={"Accept": "application/octet-stream"})
-            t0 = time.perf_counter()
-            answer = np.frombuffer(urllib.request.urlopen(req, timeout=120).read(), np.uint8)
-            wall = (time.perf_counter() - t0) * 1e3
+            for kind in ("bmp", "webp_lossy", "tiff_lzw"):
+                with open(paths[kind], "rb") as f:
+                    body = f.read()
+                req = urllib.request.Request(f"{base}/predict", data=body, method="POST",
+                                             headers={"Accept": "application/octet-stream"})
+                t0 = time.perf_counter()
+                answer = np.frombuffer(urllib.request.urlopen(req, timeout=120).read(), np.uint8)
+                answers[kind] = (body, answer, (time.perf_counter() - t0) * 1e3)
         finally:
             server.stop()
-        frames += 2
-        ref = eng.predict(torch.from_numpy(image_io.decode_bytes(body)[0]).to(dev)).cpu().numpy()
-        differ = int((answer.reshape(h, w) != ref).sum()) if answer.size == h * w else -1
-        _print(f"15c: the server over config A at {h}x{w}: one BMP body ({len(body)} bytes) "
-               f"answered in {wall:.1f} ms; pixels differing from engine.predict of the "
-               f"decoded pixels {differ}")
-        if differ:
-            raise AssertionError(f"15c: the BMP body's answer differs on {differ} pixels")
+        lines = []
+        for kind, (body, answer, wall) in answers.items():
+            frames += 2
+            ref = eng.predict(torch.from_numpy(image_io.decode_bytes(body, "RGB")[0]).to(dev))
+            ref = ref.cpu().numpy()
+            differ = int((answer.reshape(h, w) != ref).sum()) if answer.size == h * w else -1
+            lines.append(f"{kind} ({len(body)} bytes) in {wall:.1f} ms, {differ} pixels differ")
+            if differ:
+                raise AssertionError(f"15c: the {kind} body's answer differs on {differ} pixels")
+        _print(f"15c: the server over config A at {h}x{w}, each body answered and held to "
+               f"engine.predict of its decoded pixels: {'; '.join(lines)}")
     finally:
         pipeline.build_session, demo.build_engine = real_session, real_engine
         stop()

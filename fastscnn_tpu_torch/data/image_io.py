@@ -19,23 +19,33 @@ to Pillow 12's pixels and mode:
   the pixels libjpeg-turbo gives Pillow (modes ``L``, ``RGB``, ``CMYK``);
 - BMP, read by :func:`~fastscnn_tpu_torch.data.bmp.decode_bmp` (modes
   ``1``, ``L``, ``P``, ``RGB``, ``RGBA``);
+- GIF, read by :func:`~fastscnn_tpu_torch.data.gif.decode_gif` (the first
+  frame: ``P`` or ``L``, the transparency index);
+- TIFF, read by :func:`~fastscnn_tpu_torch.data.tiff.decode_tiff` (page 0:
+  ``1``, ``L``, ``I;16``, ``I;16B``, ``I``, ``F``, ``P``, ``PA``, ``LA``,
+  ``RGB``, ``RGBA``, ``CMYK``);
+- WebP, read by :func:`~fastscnn_tpu_torch.data.webp.decode_webp` (the
+  first frame: ``RGB`` or ``RGBA``);
 - ``convert="RGB"``, ``"L"``, ``"RGBA"`` and ``"LA"`` from each of those
   modes, as Pillow's ``Image.convert`` and ``Convert.c`` do: greyscale
   replicated, alpha dropped, palette indices looked up (entries the
-  palette lacks read as black), ``1`` as 0 and 255, ``I;16`` clipped at
-  255, CMYK as ``255 - K - C·(255 - K)/255`` in Pillow's rounding; ``L``
-  the ITU-R 601-2 luma in Pillow's integers, ``(R·19595 + G·38470 +
-  B·7471 + 0x8000) >> 16``; alpha 255 but where the image says otherwise:
-  its alpha band, a palette's ``tRNS`` alphas by index, or a greyscale or
-  RGB image's one transparent value (its low byte) at alpha 0.
+  palette lacks read as black), ``1`` as 0 and 255, ``I;16``, ``I;16B``
+  and ``I`` clipped to 0-255, ``F`` clipped and truncated, CMYK as
+  ``255 - K - C·(255 - K)/255`` in Pillow's rounding; ``L`` the ITU-R
+  601-2 luma in Pillow's integers, ``(R·19595 + G·38470 + B·7471 +
+  0x8000) >> 16``; alpha 255 but where the image says otherwise: its alpha
+  band (``PA``'s too), a palette's ``tRNS`` alphas by index or GIF's one
+  transparent index, or a greyscale or RGB image's one transparent value
+  (its low byte) at alpha 0.
 
 A variant the readers refuse raises a ``ValueError`` naming it; nothing
 read here goes to PIL, and every other ``convert`` (``1``, ``P``, ``I``,
 ``F``, ``YCbCr``, ``HSV``, ``LAB``, ...) raises naming the ROADMAP item.
-Any other file (GIF, TIFF, WebP) goes through PIL, imported inside
-:func:`decode`; where PIL is not installed that raises a ``RuntimeError``
-naming the file and the ROADMAP item. :func:`decode_bytes` does the same
-for an image held in memory (a request body).
+Any other file (ICO, PPM, TGA, JPEG 2000, ...) goes through PIL, imported
+inside :func:`decode`; where PIL is not installed that raises a
+``RuntimeError`` naming the file and the ROADMAP item.
+:func:`decode_bytes` does the same for an image held in memory (a request
+body).
 
 :func:`write_png` writes L, RGB, RGBA, LA, palette, 1-bit and 16-bit
 grey PNGs with filter type 0 (quick to write and to read back): a palette
@@ -46,8 +56,9 @@ encoder picks, in ``Image.save``'s bytes for every mode, a ``.jpg`` or
 :func:`~fastscnn_tpu_torch.data.jpeg.encode_jpeg` (Pillow's bytes at its
 default quality, 75) and a ``.bmp`` path through
 :func:`~fastscnn_tpu_torch.data.bmp.encode_bmp` (Pillow's bytes), and
-hands any other to PIL; :func:`image_size` reads a PNG's, a JPEG's or a
-BMP's size from its header without decoding it.
+hands any other to PIL; :func:`image_size` reads a PNG's, a JPEG's, a
+BMP's, a GIF's, a TIFF's or a WebP's size from its header without
+decoding it.
 
 Sub and Up rows unfilter with one vector operation a row. Average and
 Paeth rows depend on the pixel to their left, so an image (or Adam7
@@ -74,7 +85,10 @@ import zlib
 import numpy as np
 
 from fastscnn_tpu_torch.data.bmp import bmp_size, decode_bmp, encode_bmp, is_bmp
+from fastscnn_tpu_torch.data.gif import decode_gif, gif_size, is_gif
 from fastscnn_tpu_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg, encode_jpeg, is_jpeg
+from fastscnn_tpu_torch.data.tiff import decode_tiff, is_tiff, tiff_size
+from fastscnn_tpu_torch.data.webp import decode_webp, is_webp, webp_size
 
 __all__ = ["decode", "decode_bytes", "image_size", "read_image", "read_palette", "save_image",
            "write_png", "PNG_SIGNATURE"]
@@ -107,11 +121,12 @@ def decode(path: str, convert: str | None = None) -> tuple[np.ndarray, str]:
 
 
 def read_palette(path: str):
-    """The palette entries of a palette PNG or BMP, flat RGB values as
-    :func:`write_png` takes them; None for any other file."""
+    """The palette entries of a palette PNG, BMP, GIF or TIFF (``P`` or
+    ``PA``), flat RGB values as :func:`write_png` takes them, as Pillow's
+    ``getpalette()``; None for any other file."""
     with open(path, "rb") as f:
         img = _read(f.read(), path)
-    if img is None or img[1] != "P":
+    if img is None or img[1] not in ("P", "PA"):
         return None
     return img[2].ravel().tolist()
 
@@ -133,7 +148,22 @@ def _read(data: bytes, name: str):
         return arr, mode, palette, None
     if data.startswith(PNG_SIGNATURE):
         return _read_png(data, name)
+    if is_gif(data):
+        return decode_gif(data, name)
+    if is_tiff(data):
+        return decode_tiff(data, name)
+    if is_webp(data):
+        return decode_webp(data, name)
     return None
+
+
+def _kind(data: bytes) -> str:
+    """The name of a format :func:`_read` reads, for messages."""
+    for kind, test in (("JPEG", is_jpeg), ("BMP", is_bmp), ("GIF", is_gif), ("TIFF", is_tiff),
+                       ("WebP", is_webp)):
+        if test(data):
+            return kind
+    return "PNG"
 
 
 def _decode(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, str]:
@@ -142,11 +172,15 @@ def _decode(data: bytes, convert: str | None, name: str) -> tuple[np.ndarray, st
         return _decode_with_pil(data, convert, name)
     arr, mode, palette, trns = img
     if convert is None or convert == mode:
-        return arr, mode
+        # an L GIF that kept a palette is P in Pillow's core: its copy says so
+        return arr, "P" if convert and mode == "L" and palette is not None else mode
     if convert not in _CONVERTS:
-        kind = "JPEG" if is_jpeg(data) else "BMP" if is_bmp(data) else "PNG"
-        raise ValueError(f"{name}: convert={convert!r} of a {kind} ({mode}) is not done without "
-                         f"PIL ({ROADMAP_ITEM})")
+        raise ValueError(f"{name}: convert={convert!r} of a {_kind(data)} ({mode}) is not done "
+                         f"without PIL ({ROADMAP_ITEM})")
+    if mode == "L" and palette is not None and trns is not None and convert in ("RGBA", "LA"):
+        # Pillow's convert_transparent of its P core raises, and so does this
+        raise ValueError(f"{name}: conversion from P to {convert} not supported in "
+                         f"convert_transparent (Pillow refuses it too)")
     return _convert(arr, mode, palette, trns, convert), convert
 
 
@@ -155,8 +189,9 @@ def _decode_with_pil(data: bytes, convert: str | None, name: str) -> tuple[np.nd
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot read {name!r}: it is not a PNG, JPEG or BMP file, which are all that is "
-            f"read without PIL, and the PIL package is not installed ({ROADMAP_ITEM})") from e
+            f"cannot read {name!r}: it is not a PNG, JPEG, BMP, GIF, TIFF or WebP file, which "
+            f"are all that is read without PIL, and the PIL package is not installed "
+            f"({ROADMAP_ITEM})") from e
     with Image.open(io.BytesIO(data)) as img:
         if convert:
             img = img.convert(convert)
@@ -205,7 +240,9 @@ def _read_png(data: bytes, path: str):
             pw, ph = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
             if pw > 0 and ph > 0:
                 vals[y0::dy, x0::dx], at = _png_pass(raw, at, pw, ph, depth, samples, path)
-    return _png_pixels(vals, depth, mode), mode, palette, _transparency(trns, mode, depth)
+    # PngImagePlugin keeps a PLTE chunk for palette images only
+    return (_png_pixels(vals, depth, mode), mode, palette if mode == "P" else None,
+            _transparency(trns, mode, depth))
 
 
 def _png_pass(raw: np.ndarray, at: int, w: int, h: int, depth: int, samples: int, path: str):
@@ -301,21 +338,29 @@ def _cmyk_rgb(arr: np.ndarray) -> np.ndarray:
 def _convert(arr: np.ndarray, mode: str, palette, trns, to: str) -> np.ndarray:
     """``Image.convert(to)`` of an image of ``mode``, ``to`` one of RGB, L,
     RGBA and LA (``to != mode``)."""
-    if mode == "P":
-        table = _palette_table(palette, trns if to in ("RGBA", "LA") else None)
+    if mode in ("P", "PA") or (mode == "L" and palette is not None):
+        if isinstance(trns, int):  # GIF's index: putpalettealpha(index, 0)
+            trns = b"\xff" * trns + b"\x00"
+        table = _palette_table(palette, trns if to in ("RGBA", "LA") and mode == "P" else None)
         if to in ("L", "LA"):
             table = np.concatenate([_luma(table[:, :3])[:, None], table[:, 3:]], axis=1)
-        out = table[arr]
+        out = table[arr[..., 0] if mode == "PA" else arr]
+        if mode == "PA":  # pa2rgba, pa2la: the alpha band, not the palette's
+            out[..., -1] = arr[..., 1]
         return out[..., 0] if to == "L" else out[..., :3] if to == "RGB" else out
     if mode in ("RGB", "RGBA", "CMYK"):
         rgb = _cmyk_rgb(arr) if mode == "CMYK" else arr[..., :3]
         key = None if trns is None or mode != "RGB" else \
             (rgb == np.array(trns, np.int64) & 255).all(axis=-1)
         grey = None
-    else:  # 1, L, LA, I;16: one value a pixel
+    else:  # 1, L, LA, I;16, I;16B, I, F: one value a pixel, clipped to 0-255 (F truncated)
         grey = {"1": lambda a: np.where(a, 255, 0).astype(np.uint8),
                 "L": lambda a: a, "LA": lambda a: a[..., 0],
-                "I;16": lambda a: np.minimum(a, 255).astype(np.uint8)}[mode](arr)
+                "I;16": lambda a: np.minimum(a, 255).astype(np.uint8),
+                "I;16B": lambda a: np.minimum(a, 255).astype(np.uint8),
+                "I": lambda a: np.clip(a, 0, 255).astype(np.uint8),
+                "F": lambda a: np.where(a <= 0, 0, np.where(a >= 255, 255, np.nan_to_num(a)))
+                .astype(np.uint8)}[mode](arr)
         key = None if trns is None or mode == "LA" else grey == (trns & 255)
     if to == "L":
         return grey if grey is not None else _luma(rgb)
@@ -536,8 +581,10 @@ _JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 def image_size(path: str) -> tuple[int, int]:
     """``Image.open(path).size``, (width, height), from the file's header
     alone: a PNG's IHDR, a JPEG's frame header (SOF marker), a BMP's
-    headers; any other file through PIL, which raises a ``RuntimeError``
-    where it is not installed."""
+    headers, a GIF's screen and first image descriptor, a TIFF's first
+    directory (swapped by its Orientation as Pillow swaps it), a WebP's
+    canvas or bitstream header; any other file through PIL, which raises a
+    ``RuntimeError`` where it is not installed."""
     with open(path, "rb") as f:
         data = f.read(64 * 1024)
         if data.startswith(PNG_SIGNATURE) and data[12:16] == b"IHDR":
@@ -545,6 +592,12 @@ def image_size(path: str) -> tuple[int, int]:
             return int(width), int(height)
         if is_bmp(data):
             return bmp_size(data + f.read(), path)
+        if is_gif(data):
+            return gif_size(data + f.read(), path)
+        if is_tiff(data):
+            return tiff_size(data + f.read(), path)
+        if is_webp(data):
+            return webp_size(data, path)
         if data.startswith(b"\xff\xd8"):
             data += f.read()
             size = _jpeg_size(data)
@@ -554,8 +607,8 @@ def image_size(path: str) -> tuple[int, int]:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
-            f"cannot read the size of {path!r}: it is neither a PNG, a BMP nor a JPEG with a "
-            "frame header, and the PIL package is not installed") from e
+            f"cannot read the size of {path!r}: it is neither a PNG, BMP, GIF, TIFF, WebP nor "
+            "a JPEG with a frame header, and the PIL package is not installed") from e
     with Image.open(path) as img:
         return img.size
 

@@ -134,16 +134,18 @@ def test_read_image_equals_pil_on_pil_written_pngs(tmp_path, mode):
 
 
 def test_other_files_go_through_pil_and_raise_without_it(tmp_path, monkeypatch):
-    """A GIF is PIL's; without PIL it raises a RuntimeError naming the
-    file and the item of the formats only PIL reads (no silent skip). A
-    JPEG is the port's codec's and a 16-bit PNG the port's reader's, with
-    PIL or without."""
+    """A GIF is the port's reader's, as a JPEG is the port's codec's and a
+    16-bit PNG the port's reader's, with PIL or without; a format only PIL
+    reads (TGA) raises a RuntimeError naming the file and the item of the
+    formats only PIL reads without it (no silent skip)."""
     rng = np.random.default_rng(0)
     jpg, deep, gif = str(tmp_path / "x.jpg"), str(tmp_path / "d.png"), str(tmp_path / "g.gif")
+    tga = str(tmp_path / "t.tga")
     Image.fromarray(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)).save(jpg)
     Image.fromarray((np.arange(24 * 32).reshape(24, 32) * 37).astype(np.uint16)).save(deep)
     Image.fromarray(rng.integers(0, 256, (24, 32), dtype=np.uint8)).save(gif)
-    for path in (jpg, deep, gif):
+    Image.fromarray(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)).save(tga)
+    for path in (jpg, deep, gif, tga):
         arr, mode = image_io.decode(path)
         assert mode == Image.open(path).mode
         np.testing.assert_array_equal(arr, np.asarray(Image.open(path)))
@@ -151,12 +153,15 @@ def test_other_files_go_through_pil_and_raise_without_it(tmp_path, monkeypatch):
                                   np.asarray(Image.open(jpg).convert("L")))
     png = str(tmp_path / "ok.png")
     write_png(png, rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+    gif_p, gif_rgb = np.asarray(Image.open(gif)), np.asarray(Image.open(gif).convert("RGB"))
     monkeypatch.setitem(sys.modules, "PIL", None)
     assert image_io.read_image(png).shape == (8, 8, 3)  # no PIL needed
     assert image_io.read_image(jpg).shape == (24, 32, 3)  # nor for a JPEG
     assert image_io.read_image(deep).dtype == np.uint16  # nor for a 16-bit PNG
-    with pytest.raises(RuntimeError, match="g.gif.*PIL.*item 10: formats only PIL reads"):
-        image_io.read_image(gif)
+    np.testing.assert_array_equal(image_io.read_image(gif), gif_p)  # nor for a GIF
+    np.testing.assert_array_equal(image_io.read_image(gif, "RGB"), gif_rgb)
+    with pytest.raises(RuntimeError, match="t.tga.*PIL.*item 10: formats only PIL reads"):
+        image_io.read_image(tga)
 
 
 def test_threads_decoding_at_once_get_every_image_right(tmp_path):

@@ -144,15 +144,54 @@ def test_other_converts_raise_naming_the_item(convert):
 
 @pytest.mark.parametrize("fmt", ["GIF", "TIFF", "WEBP"])
 def test_formats_no_call_site_names_go_to_pil(tmp_path, fmt):
-    """GIF, TIFF and WebP stay with PIL: read through it where it is
-    installed, a RuntimeError naming the file and the item without it."""
+    """GIF, TIFF and WebP, which no call site of the JAX package names but
+    its ``Image.open`` reads, are the port's own since PIL left the card:
+    read with PIL blocked to Pillow's array and mode, and converted to
+    RGB, its size from the header; a format still only PIL reads (ICO)
+    raises a RuntimeError naming the file and the item without PIL."""
     rgb = mf.seeded(9, 11, 3, 7)
     path = tmp_path / f"x.{fmt.lower()}"
     Image.fromarray(rgb).save(path, fmt, **({"lossless": True} if fmt == "WEBP" else {}))
-    arr, mode = image_io.decode(str(path), "RGB")
-    np.testing.assert_array_equal(arr, np.asarray(Image.open(path).convert("RGB")))
-    with pil_blocked(), pytest.raises(RuntimeError, match=f"x.{fmt.lower()}.*item 10"):
-        image_io.decode(str(path))
+    with pil_blocked():
+        arr, mode = image_io.decode(str(path))
+        conv, cmode = image_io.decode(str(path), "RGB")
+        size = image_io.image_size(str(path))
+    want, want_mode = _pillow(path.read_bytes())
+    assert mode == want_mode
+    _same(arr, want)
+    assert cmode == "RGB"
+    _same(conv, np.asarray(Image.open(path).convert("RGB")))
+    assert size == Image.open(path).size == (11, 9)
+    ico = tmp_path / "x.ico"
+    Image.fromarray(rgb).save(ico)
+    with pil_blocked(), pytest.raises(RuntimeError, match="x.ico.*item 10"):
+        image_io.decode(str(ico))
+
+
+def test_plte_of_a_grey_png_is_ignored():
+    """PngImagePlugin keeps a PLTE chunk for palette images only: a grey
+    PNG carrying one converts as grey (a GIF keeps its hidden palette)."""
+    data = mf.png_bytes(mf.seeded(7, 9, 1, 3), 8, 0, palette=mf._palette(256, 3))
+    for c in CONVERTS:
+        with pil_blocked():
+            arr, mode = image_io.decode_bytes(data, c)
+        want, want_mode = _pillow(data, c)
+        assert mode == want_mode
+        _same(arr, want)
+
+
+@pytest.mark.parametrize("name", ["gif_frame_grows_screen_57x32.gif", "orientation6_37x23.tif",
+                                  "rgb_bigtiff_deflate_37x23.tif", "lossy_rgb_q80_43x29.webp",
+                                  "lossless_rgba_exact_43x29.webp",
+                                  "anim_lossless_offset_60x50.webp"])
+def test_image_size_reads_gif_tiff_webp_headers(name):
+    """``image_size`` (the calibration tools' and ``dataset_check``'s) of a
+    GIF whose frame grows its screen, a TIFF whose Orientation swaps its
+    sides, a BigTIFF, and simple and animated WebPs: ``Image.open(f).size``
+    from the headers, PIL blocked."""
+    with pil_blocked():
+        size = image_io.image_size(str(FIXTURES / name))
+    assert size == Image.open(FIXTURES / name).size
 
 
 @pytest.mark.parametrize("kind", ["bool", "uint16", "la", "p2-palette"])

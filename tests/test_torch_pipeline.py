@@ -473,9 +473,21 @@ def test_pipeline_main_writes_every_artifact(tmp_path, capsys):
     (tmp_path / "x.bmp").write_bytes(b"BM neither a PNG nor a JPEG")
     with pytest.raises(ValueError, match="x.bmp.*BMP"):
         pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.bmp")])
+    # a GIF frame is read without PIL too (its quantized pixels: the mask of
+    # a PNG of them); a TGA, a format only PIL reads, raises naming the item
     Image.fromarray(image_io.read_image(png)).save(tmp_path / "x.gif")
-    with pil_blocked(), pytest.raises(RuntimeError, match="x.gif.*item 10: formats only PIL reads"):
-        pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.gif")])
+    image_io.write_png(str(tmp_path / "gif.png"),
+                       np.asarray(Image.open(tmp_path / "x.gif").convert("RGB")))
+    with pil_blocked():
+        assert_same(pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.gif"),
+                                   "--output-dir", str(tmp_path / "gif"),
+                                   "--pixels-per-unit", "2"])["mask"],
+                    pipeline.main(["--device", "cpu", "--input", str(tmp_path / "gif.png"),
+                                   "--output-dir", str(tmp_path / "gifpng"),
+                                   "--pixels-per-unit", "2"])["mask"])
+    Image.fromarray(image_io.read_image(png)).save(tmp_path / "x.tga")
+    with pil_blocked(), pytest.raises(RuntimeError, match="x.tga.*item 10: formats only PIL reads"):
+        pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.tga")])
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 a broken JPEG")
     with pytest.raises(ValueError, match="x.jpg.*item 10: formats only PIL reads"):
         pipeline.main(["--device", "cpu", "--input", str(tmp_path / "x.jpg")])
