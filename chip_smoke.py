@@ -309,11 +309,29 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    params, BN statistics, momentum buffers and step bit-equal to the
    reference, the host ms to save and to load, the directory's bytes and
    B6's launches;
-17. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
-   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14, 15 and
-   16 (13's and 14's ranks' own counts too), plus the captured launches ×
-   the replays of the graphs of phases 4b, 4c, 6b (the trainer's and the
-   evaluator's), 8, 9, 10, 12, 13, 15 and 16, which no wrapper sees) and,
+17. the ported root scripts (:func:`scripts_phase`): (a)
+   ``tools/check_dw_impls.main`` at its defaults (512x1024, batch 8,
+   bf16): a pixel-diff line for 'taps', 'pallas' (B4), 'fused-ds' (B3)
+   and 'fused-ds-mr' (B5) against 'conv', each in [0, 1], and B4, B3 and
+   B5 launched; (b) ``tools/ab_int8_pw.main`` at its defaults (batch 16,
+   the 9 sites of a 1024x2048 frame, 30 iterations a CUDA graph, best of
+   3): every site's four rows timed, and at each site B8's output on the
+   site's own inputs bit-equal to its plain version and B7's (to bf16 and
+   to int8) within phase 3's gate, with the largest share of B7's
+   allowance used; (c) two ``python -m fastscnn_tpu_torch.bench`` runs
+   (``conv``, then ``fused-ds``, batch 2, 3 iterations, 1 trial) logged
+   after their ``--- rep 1 dw_impl=`` markers, summarized by
+   ``tools/ab_report.main``: both impls under ``fps/card``, ``fused-ds``
+   with its delta against ``conv``; (d)
+   ``examples/car_control_example.main`` on the simulator, a wheel line a
+   command and the vehicle stopped at the end;
+18. one JSON line ``{"kernels": [...]}`` (each kernel's ``launches``: its
+   wrapper's counts in phases 4, 6, 6b, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+   16 and 17 (13's and 14's ranks' own counts too), plus the captured
+   launches × the replays of the graphs of phases 4b, 4c, 6b (the
+   trainer's and the evaluator's), 8, 9, 10, 12, 13, 15, 16 and 17, which
+   no wrapper sees; 17b's comparisons with the plain versions not
+   counted) and,
    last, the device line ``{"ok": true, "device": {...}}``.
 
 After phase 3 it also costs the redesigned kernels (B3, B5, B4, B6's
@@ -322,7 +340,8 @@ without the spin kernel (which hold the host's time to launch the calls
 where that is longer) and host us a call (:func:`dw_costs`). Four options
 run only these kernels' studies, one an older checkout's eager and graphed
 config A beside this one's, one only phase 10b (i), one only phase 12, one
-only phase 13, one only phase 14, one only phase 15, one only phase 16 and
+only phase 13, one only phase 14, one only phase 15, one only phase 16,
+one only phase 17, one only the port's three shell scripts run whole and
 one only what needs several cards, with no device line:
 
     python3 chip_smoke.py --tune-dw        # registers, launch-plan sweeps of
@@ -337,6 +356,11 @@ one only what needs several cards, with no device line:
     python3 chip_smoke.py --jpeg           # the build, then phase 12
     python3 chip_smoke.py --images         # the build, then phase 15
     python3 chip_smoke.py --orbax          # the build, then phase 16
+    python3 chip_smoke.py --root-scripts   # the build, then phase 17
+    python3 chip_smoke.py --scripts        # the build, then ab_stem.sh (and
+                                           # ab_report on its log),
+                                           # sweep_ce19.sh and sweep_bdd.sh,
+                                           # logs under build/chip_smoke_scripts
     python3 chip_smoke.py --multidevice    # the build, phase 6's yardstick,
                                            # then phase 13
     python3 chip_smoke.py --spatial        # the build, phase 6's yardstick,
@@ -7835,6 +7859,245 @@ def orbax_phase(root):
     return launches
 
 
+# phase 17: item 12's root scripts; 17c's two bench runs (a batch of 2
+# frames, 3 iterations, 1 trial each) and the log ab_report reads
+SCRIPTS_WORK = os.path.join("build", "chip_smoke_scripts")
+SCRIPT_BENCH_ENV = {"BENCH_BATCHES": "2", "BENCH_ITERS": "3", "BENCH_TRIALS": "1"}
+SCRIPT_BENCH_IMPLS = ("conv", "fused-ds")
+CAR_WHEEL_LINES = 13  # the car example's commands, each printed as the wheels it set
+DW_CALIB_BATCH = 2  # 17a's calibrated check: frames of check_dw_impls' batch
+
+
+def dw_impls_leg():
+    """17a: ``tools/check_dw_impls.main`` at its defaults (512x1024, batch
+    8, bf16): a line for each impl but ``conv``, each share in [0, 1], and
+    B4 ('pallas'), B3 ('fused-ds') and B5 ('fused-ds-mr') launched. Then
+    the same five engines in f32 on :func:`calibrated_state`'s weights
+    over the first ``DW_CALIB_BATCH`` frames of its batch: conv's mask
+    has at least 3 classes and none on 0.9 of its pixels, and each impl's
+    mask differs from it on under 5e-3 of them (the tool's OK)."""
+    import numpy as np
+    import torch
+
+    from fastscnn_tpu_torch import resolve_device
+    from fastscnn_tpu_torch.models import FastSCNN
+    from fastscnn_tpu_torch.ops.cuda import launch_counts
+    from fastscnn_tpu_torch.tools import check_dw_impls
+
+    before = launch_counts()
+    masks, text = _run_cli(check_dw_impls.main, [])
+    after = launch_counts()
+    diffs = dict(re.findall(r"^(\S+) +vs conv: pixel diff (\S+)  \[(?:OK|SUSPECT)\]$", text,
+                            re.M))
+    if list(diffs) != list(check_dw_impls.DW_IMPLS[1:]) or not text.endswith("done\n"):
+        raise AssertionError(f"17a: check_dw_impls printed {text!r}")
+    diffs = {impl: float(v) for impl, v in diffs.items()}
+    if not all(0.0 <= d <= 1.0 for d in diffs.values()):
+        raise AssertionError(f"17a: pixel diffs {diffs}")
+    launched = {k: after[k] - before[k] for k in ("dw_conv3x3", "ds_conv3x3_pw",
+                                                  "ds_conv3x3_pw_multirow")}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"17a: B4, B3 and B5 must each launch, got {launched}")
+    _print(f"  17a pixel diffs vs conv: {diffs}; conv's commonest class "
+           f"{_top_share(masks['conv']):.4f} of its pixels; launches {launched}")
+    # The tool's seed-0 weights keep default BN statistics, so its mask is
+    # one class and a diff of 0 shows little. The same engines in f32 on
+    # statistics calibrated from its batch give a mask of many classes, on
+    # which an impl that kept only the commonest class would differ.
+    device = resolve_device(None)
+    x = np.random.default_rng(0).integers(0, 256, (DW_CALIB_BATCH, 512, 1024, 3),
+                                          dtype=np.uint8)
+    model = FastSCNN(NUM_CLASSES).to(device)
+    # the tool's engines take raw [0, 1] frames (no mean or std)
+    model.load_state_dict(calibrated_state(torch.from_numpy(x).to(device), normalise=False))
+    masks = check_dw_impls.impl_masks(model, x, device, compute_dtype="float32")
+    top, classes = _top_share(masks["conv"]), len(np.unique(masks["conv"]))
+    diffs = {impl: float((m != masks["conv"]).mean()) for impl, m in masks.items()
+             if impl != "conv"}
+    if top >= 0.9 or classes < 3 or max(diffs.values()) >= check_dw_impls.SUSPECT:
+        raise AssertionError(f"17a calibrated f32: conv's commonest class {top:.4f}, "
+                             f"{classes} classes; diffs {diffs}")
+    _print(f"  17a calibrated f32, batch {DW_CALIB_BATCH}: conv's commonest class {top:.4f} "
+           f"of {classes} classes; pixel diffs vs conv {diffs}")
+
+
+def _top_share(mask):
+    """The share of ``mask``'s pixels that hold its commonest class."""
+    import numpy as np
+
+    return float(np.bincount(mask.ravel()).max() / mask.size)
+
+
+def int8_pw_leg():
+    """17b: ``tools/ab_int8_pw.main`` at its defaults (batch 16, 30
+    iterations, best of 3): every site's four rows with us > 0; at each
+    site, B8's output on the site's own inputs bit-equal to its plain
+    version and B7's (bf16 and int8 out) within :func:`pw_a8_gate`, with
+    the largest share of B7's allowance used."""
+    import torch
+
+    from fastscnn_tpu_torch.ops.cuda import pw_conv_a8_reference, pw_conv_w8a8_reference
+    from fastscnn_tpu_torch.tools import ab_int8_pw
+
+    shares = {}
+
+    def check(name, inp, variants):
+        x_q = inp["x_q"]
+        got = variants["w8a8-i8out"][0](x_q)
+        ref = pw_conv_w8a8_reference(x_q, inp["w_q"], inp["cs"], inp["b"], quantize_out=True)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"17b {name}: B8 differs from its plain version at "
+                                 f"{int((got != ref).sum())} of {got.numel()} outputs")
+        for v, qout in (("a8-bf16out", False), ("a8-i8out", True)):
+            got = variants[v][0](x_q)
+            ref = pw_conv_a8_reference(x_q, inp["w_bf"], inp["b"], quantize_out=qout)
+            _, shares[(name, v)] = pw_a8_gate(f"17b {name} {v}", got, ref, x_q,
+                                              inp["w_bf"], qout, quiet=True)
+        del got, ref
+        torch.cuda.synchronize()
+
+    line, _ = _run_cli(lambda argv: ab_int8_pw.main(argv, check=check), [])
+    for name, *_ in ab_int8_pw.SITES:
+        rows = line["sites"].get(name, {}).get("rows", {})
+        if list(rows) != ["bf16-xla", "a8-bf16out", "a8-i8out", "w8a8-i8out"] or not all(
+                r["us"] > 0 for r in rows.values()):
+            raise AssertionError(f"17b {name}: rows {rows}")
+    bf16 = {name: s for (name, v), s in shares.items() if v == "a8-bf16out"}
+    worst = max(bf16, key=bf16.get)
+    levels = max(s for (_, v), s in shares.items() if v == "a8-i8out")
+    _print(f"  17b: B8 bit-equal and B7 within its gate at all {len(ab_int8_pw.SITES)} sites; "
+           f"B7 to bf16: the largest share of its allowance (1 bf16 ulp + the reassociation "
+           f"bound) used {bf16[worst]:.3g} ({worst}); to int8: at most {levels:.0f} level apart")
+
+
+def ab_report_leg(root):
+    """17c: two real ``python -m fastscnn_tpu_torch.bench`` runs, ``conv``
+    then ``fused-ds`` at a small batch, each after its ``--- rep 1
+    dw_impl=`` marker in one log, summarized by ``tools/ab_report.main``:
+    both impls under ``fps/card``, each from one JSON line, ``fused-ds``
+    with its delta against ``conv``."""
+    from fastscnn_tpu_torch.tools import ab_report
+
+    work = os.path.join(root, SCRIPTS_WORK)
+    os.makedirs(work, exist_ok=True)
+    log = os.path.join(work, "ab_phase17.log")
+    with open(log, "w") as f:
+        for impl in SCRIPT_BENCH_IMPLS:
+            f.write(f"--- rep 1 dw_impl={impl}\n")
+            f.flush()
+            subprocess.run([sys.executable, "-m", "fastscnn_tpu_torch.bench"], cwd=root,
+                           env={**os.environ, **SCRIPT_BENCH_ENV, "BENCH_DW_IMPL": impl},
+                           stdout=f, stderr=subprocess.STDOUT, check=True, timeout=300)
+    _, text = _run_cli(ab_report.main, [log])
+    # one JSON line a bench run: each impl's median of n=1
+    rows = dict(re.findall(r"^  (\S+) +median +[\d.]+  \(n=(\d+),", text, re.M))
+    if ("== fps/card ==" not in text or rows != {impl: "1" for impl in SCRIPT_BENCH_IMPLS}
+            or not re.search(r"^  fused-ds .* vs conv$", text, re.M)
+            or "rep 1 vs conv: fused-ds " not in text):
+        raise AssertionError(f"17c: ab_report printed {text!r}")
+
+
+def car_example_leg():
+    """17d: ``examples/car_control_example.main`` on the simulator: a wheel
+    line for each of its commands, and ``VehicleSim`` stopped at the end,
+    as the JAX example's commands leave it."""
+    from fastscnn_tpu_torch.examples import car_control_example
+
+    transport, text = _run_cli(car_control_example.main, [])
+    wheels = re.findall(r"wheels now \((-?\d+), (-?\d+)\)", text)
+    if len(wheels) != CAR_WHEEL_LINES or wheels[-1] != ("0", "0") or \
+            transport.vehicle.wheels != (0, 0):
+        raise AssertionError(f"17d: wheels {wheels}, last {transport.vehicle.wheels}")
+
+
+def scripts_phase(root):
+    """Phase 17: item 12's root scripts: (a) :func:`dw_impls_leg`, (b)
+    :func:`int8_pw_leg`, (c) :func:`ab_report_leg`, (d)
+    :func:`car_example_leg`. Returns the kernels' launches in it: the
+    wrappers' counts (eager calls, warm-ups, captures, 17b's comparisons)
+    plus 17b's graphs' captured launches x their replays."""
+    from fastscnn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    tally, stop = _tally_replays()
+    reset_launch_counts()
+    times = {}
+    try:
+        for leg, fn in (("17a", dw_impls_leg), ("17b", int8_pw_leg),
+                        ("17c", lambda: ab_report_leg(root)), ("17d", car_example_leg)):
+            t0 = time.perf_counter()
+            fn()
+            times[leg] = round(time.perf_counter() - t0, 1)
+    finally:
+        stop()
+    launches = launch_counts()
+    for name, n in tally.items():
+        launches[name] += n
+    launches = {k: n for k, n in launches.items() if n}
+    for name in ("dw_conv3x3", "ds_conv3x3_pw", "ds_conv3x3_pw_multirow", "pw_conv_a8",
+                 "pw_conv_w8a8"):
+        if not launches.get(name):
+            raise AssertionError(f"phase 17: {name} was not launched")
+    _print(f"phase 17 launches: {launches}")
+    _print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({times})")
+    return launches
+
+
+def _script_legs(lines, marker):
+    """(knobs, JSON line or None) for each leg of a sweep's output: the
+    line after each ``marker`` line that is a bench's JSON (or error)."""
+    legs, knobs = [], None
+    for line in lines:
+        if line.startswith(marker):
+            knobs = line[len(marker):].strip()
+            legs.append([knobs, None])
+        elif knobs is not None and line.startswith("{"):
+            try:
+                legs[-1][1] = json.loads(line)
+            except json.JSONDecodeError:
+                pass
+    return legs
+
+
+def scripts_run(root):
+    """``--scripts``: the port's three shell scripts whole on the card, each
+    with its output in ``build/chip_smoke_scripts/``: ``ab_stem.sh``, which
+    ends with ``tools/ab_report`` on its own log (``AB_LOG``);
+    ``sweep_ce19.sh``; ``sweep_bdd.sh`` with ``OUT`` and ``ERR`` there. A
+    batch that runs out of memory is printed by its bench and is not a
+    failure; a script that fails is."""
+    work = os.path.join(root, SCRIPTS_WORK)
+    os.makedirs(work, exist_ok=True)
+    env = {**os.environ, "PYTHON": sys.executable,
+           "OUT": os.path.join(work, "sweep_bdd.jsonl"),
+           "ERR": os.path.join(work, "sweep_bdd_err.log")}
+    if os.path.exists(env["OUT"]):
+        os.remove(env["OUT"])
+    for script in ("ab_stem.sh", "sweep_ce19.sh", "sweep_bdd.sh"):
+        t0 = time.perf_counter()
+        log = os.path.join(work, script.replace(".sh", ".log"))
+        with open(log, "w") as f:
+            subprocess.run(["bash", os.path.join(root, "fastscnn_tpu_torch", "tools", script)],
+                           cwd=root, env={**env, "AB_LOG": log}, stdout=f,
+                           stderr=subprocess.STDOUT, check=True, timeout=3000)
+        _print(f"{script}: {time.perf_counter() - t0:.1f} s, log {log}")
+        if script == "ab_stem.sh":  # its parity lines and its closing ab_report summary
+            with open(log) as f:
+                lines = [line.rstrip() for line in f]
+            summary = lines[lines.index("== summary =="):] if "== summary ==" in lines else []
+            _print("\n".join([line for line in lines if "vs conv: pixel diff" in line]
+                              + summary))
+        else:
+            source = env["OUT"] if script == "sweep_bdd.sh" else log
+            with open(source) as f:
+                legs = _script_legs(f.read().splitlines(),
+                                    "### " if script == "sweep_bdd.sh" else "--- ")
+            for knobs, line in legs:
+                best = (f"{line['value']} {line['unit']} at batch {line['batch']}"
+                        if line and "value" in line else line)
+                _print(f"  {knobs}: {best}")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -7859,6 +8122,13 @@ def main() -> int:
                              "with no device line")
     parser.add_argument("--orbax", action="store_true",
                         help="only phase 16 (Orbax checkpoints without orbax), after the "
+                             "build, with no device line")
+    parser.add_argument("--root-scripts", action="store_true",
+                        help="only phase 17 (the ported root scripts), after the build, with "
+                             "no device line")
+    parser.add_argument("--scripts", action="store_true",
+                        help="only the port's three shell scripts whole (ab_stem.sh and its "
+                             "ab_report summary, sweep_ce19.sh, sweep_bdd.sh), after the "
                              "build, with no device line")
     parser.add_argument("--multidevice", action="store_true",
                         help="only phase 13 (data parallelism over torch.distributed), after "
@@ -7958,6 +8228,12 @@ def main() -> int:
     if args.orbax:
         orbax_phase(root)
         return 0
+    if args.root_scripts:
+        scripts_phase(root)
+        return 0
+    if args.scripts:
+        scripts_run(root)
+        return 0
     if args.export:
         work = os.path.join(root, "build", "chip_smoke_car")
         _fresh_dir(work)
@@ -8054,6 +8330,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for kernel, n in orbax_phase(root).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in scripts_phase(root).items():
         launches[kernel] = launches.get(kernel, 0) + n
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -5,7 +5,8 @@ the port's inference engine (``--cpu`` runs it on the CPU, else on the
 CUDA card), a synthetic camera, the bird's-eye view and path planning,
 the visual lateral-error controller, optional serial actuation through
 the native bridge (``--enable-serial``), and the web dashboard; or a
-single-image run via ``--input`` (PNG, JPEG or BMP, read without PIL).
+single-image run via ``--input`` (PNG, JPEG, BMP, GIF, TIFF or WebP, read
+without PIL).
 ``--export-path`` runs an exported artifact (a ``.pt2`` of the port's
 ``export_model``, or an ``.onnx``) instead of the engine, through
 ``pipeline.build_session``. The OpenCV cameras (``--camera``,
@@ -39,7 +40,8 @@ def parse_args(argv=None):
     parser.add_argument("--dtype", type=str, default="bfloat16")
     # mode
     parser.add_argument("--realtime", action="store_true", default=False)
-    parser.add_argument("--input", type=str, default=None, help="single-image mode (PNG, JPEG or BMP)")
+    parser.add_argument("--input", type=str, default=None,
+                        help="single-image mode (PNG, JPEG, BMP, GIF, TIFF or WebP)")
     parser.add_argument("--max-frames", type=int, default=None)
     # camera
     parser.add_argument("--camera", type=int, default=0)

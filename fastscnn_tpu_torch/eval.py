@@ -12,7 +12,7 @@ bucket: a bucket's last partial batch is padded to ``--batch-size`` with
 all-ignore rows, so each bucket is captured once; on the CPU the step
 runs eagerly.
 
-No PIL is needed on PNG, JPEG or BMP datasets: ``val`` mode resizes and crops with
+No PIL is needed on PNG, JPEG, BMP, GIF, TIFF or WebP datasets: ``val`` mode resizes and crops with
 ``data/pil_ops.py`` (PIL's operations in numpy, bit for bit), and each
 dump is a palette PNG written by ``data/image_io.write_png`` (the bytes
 PIL writes). ``--weights`` also takes the JAX package's ``.pth.npz``.

@@ -15,7 +15,7 @@ JAX engine's ``predict`` dispatches); on the CPU the same call, eager.
 The ``inference`` stage ends with the mask on the host, so it includes
 the wait for the device.
 
-Images are read as PNG, JPEG or BMP without PIL (``data/image_io.py``,
+Images are read as PNG, JPEG, BMP, GIF, TIFF or WebP without PIL (``data/image_io.py``,
 the JPEG through the port's codec, ``data/jpeg.py``); the artifacts get the
 JAX package's names and formats, ``_mask.png``, ``_vis.jpg`` and
 ``_control_map.jpg``, in the bytes its no-OpenCV branch writes through
@@ -264,7 +264,7 @@ def _imwrite(path, img):
 
 def read_image_rgb(path: str) -> np.ndarray:
     """An image file as uint8 (H, W, 3) RGB, as ``np.asarray(
-    Image.open(path).convert("RGB"))``: a PNG, JPEG or BMP through
+    Image.open(path).convert("RGB"))``: a PNG, JPEG, BMP, GIF, TIFF or WebP through
     ``image_io`` without PIL (any format the JAX package's Pillow branch
     reads there); another format through PIL, which raises naming ROADMAP.md
     item 10 where it is not installed."""
@@ -276,7 +276,8 @@ def read_image_rgb(path: str) -> np.ndarray:
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Fast-SCNN perception pipeline (PyTorch/CUDA)")
-    parser.add_argument("--input", type=str, required=True, help="a PNG, JPEG or BMP image")
+    parser.add_argument("--input", type=str, required=True,
+                        help="a PNG, JPEG, BMP, GIF, TIFF or WebP image")
     parser.add_argument("--dataset", type=str, default="custom")
     parser.add_argument("--weights", type=str, default=None)
     parser.add_argument("--export-path", type=str, default=None,

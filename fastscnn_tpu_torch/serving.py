@@ -14,14 +14,15 @@ i+1 computes on the card while batch i is distributed to its callers.
 ``--data-parallel N`` serves under a local mesh of N devices, each
 request batch split over them.
 
-No PIL: a PNG, JPEG or BMP body is decoded by ``data/image_io.decode_bytes``
-to Pillow's pixels (a JPEG through the port's codec, ``data/jpeg.py``, a
-BMP through ``data/bmp.py``),
+No PIL: a PNG, JPEG, BMP, GIF, TIFF or WebP body is decoded by
+``data/image_io.decode_bytes`` to Pillow's pixels (a JPEG through the port's
+codec, ``data/jpeg.py``, a BMP through ``data/bmp.py``, a GIF, TIFF or WebP
+through ``data/gif.py``, ``data/tiff.py`` or ``data/webp.py``),
 a wrong-size frame resized by ``data/pil_ops.resize`` (PIL's bilinear,
 bit for bit) and the PNG answer written by ``data/image_io.write_png``.
 
 Routes (stdlib HTTP, threads):
-  POST /predict        image bytes (PNG/JPEG/BMP) → PNG palette mask
+  POST /predict        image bytes (PNG/JPEG/BMP/GIF/TIFF/WebP) → PNG palette mask
                        (JSON mask with Accept: application/json, or raw
                        mask bytes + X-Mask-Shape/X-Mask-Dtype headers
                        with Accept: application/octet-stream)

@@ -112,7 +112,8 @@ def parse_args(argv=None):
     parser.add_argument("--height", type=int, default=360)
     parser.add_argument("--width", type=int, default=640)
     parser.add_argument("--image-dir", type=str, default=None,
-                        help="real images instead of random (PNG, JPEG or BMP, resized to HxW)")
+                        help="real images instead of random (PNG, JPEG, BMP, GIF, TIFF or WebP, "
+                             "resized to HxW)")
     parser.add_argument("--export-path", type=str, default=None,
                         help="an exported artifact (.pt2 or .onnx) of the same weights")
     parser.add_argument("--tolerance", type=float, default=0.005,

@@ -3,8 +3,8 @@
 Ports of reference:create_mask.py (polygon/brush painter with undo) and
 reference:interactive_mask_editor.py (4-mode editor: fill/rect/polygon/
 brush with undo/redo): the headless geometry core (``MaskCanvas``) and
-the directory session (``EditorSession``), reading PNG, JPEG and BMP
-with ``data/image_io.py``, resizing with ``data/pil_ops.py`` and writing
+the directory session (``EditorSession``), reading PNG, JPEG, BMP, GIF,
+TIFF and WebP with ``data/image_io.py``, resizing with ``data/pil_ops.py`` and writing
 PNGs with ``image_io.write_png`` (no PIL). The JAX package's OpenCV windows
 (``--image`` and ``--images-dir`` on a display) are not ported: the
 card's machine has neither OpenCV nor a display, and the CLI raises

@@ -282,7 +282,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'engine.export', 'engine.onnx_native', 'export_model', 'data.jpeg',\n"
         "        'utils.native', 'parallel.mesh', 'parallel.multihost', 'ops.collectives',\n"
         "        'tools.multihost_smoke', 'entry', 'utils.zstd', 'utils.ocdbt', 'utils.zarr',\n"
-        "        'utils.orbax_tree')}\n"
+        "        'utils.orbax_tree', 'tools.check_dw_impls', 'tools.ab_int8_pw',\n"
+        "        'tools.ab_report', 'examples.car_control_example')}\n"
         "print(n, bad, need - set(sys.modules))\n"
         "sys.exit(1 if bad or n < 20 or need - set(sys.modules) else 0)\n"
     )
